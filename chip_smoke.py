@@ -1,0 +1,548 @@
+#!/usr/bin/env python3
+"""Chip smoke for the PyTorch / CUDA port (``deepspeed_tpu_torch``) on one GPU.
+
+Run from the repository root with no arguments: ``python3 chip_smoke.py``.
+Phases, each raising on failure (so the exit code is non-zero):
+
+1. build    -- compile the CUDA kernels from ``deepspeed_tpu_torch/csrc``
+               (one nvcc per source, in parallel) and print the build time
+               and each kernel's register / shared-memory report;
+2. kernels  -- each kernel against its plain PyTorch version on the card,
+               bf16 inputs, the plain version computing in fp32, at the
+               serving path's shapes (tolerance KERNEL_TOL);
+3. engine   -- ``InferenceEngineV2`` on ``llama3_proxy_410m`` (24 layers,
+               bf16, random weights from a seed): 64 prompts of 128 tokens
+               through ``put``, then 64 greedy ``step``s; the flash and
+               decode kernels must have launched layers x dispatches times,
+               and a few sequences are replayed through the port's own
+               model runner on the CPU in fp32 (near-argmax check);
+4. scheduler -- the shared-prefix workload through ``engine.scheduler``
+               (16 requests of a 512-token system prompt + 64-token suffix,
+               32 new tokens each, prefix caching, chunked prefill); the
+               packed-context kernel must have launched;
+5. timings  -- per kernel: kernel ms, plain ms, one PyTorch library call's
+               ms where one computes the same function, and the card's
+               bound for the same work.
+
+Prints one JSON line per phase, the ``kernels`` JSON line, the card's name
+and power limit, and last ``{"ok": true, "device": {...}}``.  Exits non-zero
+with no result when there is no CUDA device or the package is missing.
+"""
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+# bf16 kernel output vs the fp32 plain version on the same bf16 inputs,
+# unit-scale values: bf16 keeps 8 mantissa bits (relative step 2^-8 = 3.9e-3
+# near 1), plus a different fp32 summation order.
+KERNEL_TOL = 2e-2
+# Near-argmax check of the card's greedy pick against fp32 CPU logits: the
+# picked token's CPU logit must be within this fraction of the CPU row's
+# logit range (max - min) of the row's maximum.  bf16 weights and
+# activations through 24 layers move logits by a few tenths of a percent
+# of the range; a wrong kernel moves them by tens of percent.
+ARGMAX_TOL_FRAC = 0.02
+
+# published peaks of one H100 SXM (dense): bf16 tensor rate, HBM3 rate
+PEAK_BF16_FLOPS = 989e12
+PEAK_BYTES = 3.35e12
+
+SEED = 0
+DEVICE = "cuda"  # where the input builders put their tensors
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: {msg}", file=sys.stderr)
+    sys.exit(1)
+
+
+def gpu_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+# ---------------------------------------------------------------------------
+# inputs of the kernel checks (seeded, built on the card)
+# ---------------------------------------------------------------------------
+def _randn(torch, shape, gen, dtype):
+    return torch.randn(shape, generator=gen, device=DEVICE, dtype=torch.float32).to(dtype)
+
+
+def flash_case(torch, gen, seg_lens, pad, hq=8, hkv=2, hd=128, cap=None):
+    """One packed prefill: contiguous segments of ``seg_lens`` tokens, then
+    ``pad`` rows of segment 0."""
+    t = sum(seg_lens) + pad
+    seg = torch.zeros(t, dtype=torch.int32)
+    cur = 0
+    for i, n in enumerate(seg_lens):
+        seg[cur:cur + n] = i + 1
+        cur += n
+    q = _randn(torch, (1, t, hq, hd), gen, torch.bfloat16)
+    k = _randn(torch, (1, t, hkv, hd), gen, torch.bfloat16)
+    v = _randn(torch, (1, t, hkv, hd), gen, torch.bfloat16)
+    return dict(q=q, k=k, v=v, segment_ids=seg[None].to(DEVICE), cap=cap)
+
+
+def decode_case(torch, gen, B=64, nb=2048, bs=32, P=128, hq=8, hkv=2, hd=128,
+                inactive=8, max_len=1200):
+    """Mixed lengths, -1 table tails, ``inactive`` slots with len 1 and an
+    all -1 row (how the engine presents an idle slot)."""
+    ck = _randn(torch, (nb, bs, hkv, hd), gen, torch.bfloat16)
+    cv = _randn(torch, (nb, bs, hkv, hd), gen, torch.bfloat16)
+    q = _randn(torch, (B, hq, hd), gen, torch.bfloat16)
+    lens = torch.randint(1, max_len, (B,), generator=torch.Generator().manual_seed(SEED),
+                         dtype=torch.int32)
+    perm = torch.randperm(nb, generator=torch.Generator().manual_seed(SEED + 1))
+    table = torch.full((B, P), -1, dtype=torch.int32)
+    nxt = 0
+    for b in range(B):
+        if b >= B - inactive:
+            lens[b] = 1
+            continue
+        n = -(-int(lens[b]) // bs)
+        table[b, :n] = perm[nxt:nxt + n].to(torch.int32)
+        nxt += n
+    return dict(q=q, cache_k=ck, cache_v=cv, block_table=table.to(DEVICE),
+                seq_lens=lens.to(DEVICE))
+
+
+def ctx_case(torch, gen, sfx=(48, 64, 17, 64), ctx=(512, 500, 37, 512), N=8,
+             nb=192, bs=32, P=22, hq=8, hkv=2, hd=128, bad_ids=True):
+    """A prefix-hit / chunked-prefill pack: segments page-aligned in the pack
+    (pad rows between them), context lengths including mid-page ones, table
+    tails -1, and (``bad_ids``) an out-of-range id past a context's end."""
+    gcpu = torch.Generator().manual_seed(SEED + 2)
+    segs, cur = [], 0
+    for n in sfx:
+        segs.append((cur, n))
+        cur += -(-n // bs) * bs
+    t = cur
+    seg = torch.zeros(t, dtype=torch.int32)
+    rows = torch.randperm(N, generator=gcpu)[:len(sfx)]
+    tables = torch.full((N, P), -1, dtype=torch.int32)
+    lens = torch.zeros(N, dtype=torch.int32)
+    perm = torch.randperm(nb, generator=gcpu)
+    nxt = 0
+    for (start, n), r, c in zip(segs, rows.tolist(), ctx):
+        seg[start:start + n] = r + 1
+        pages = -(-c // bs)
+        tables[r, :pages] = perm[nxt:nxt + pages].to(torch.int32)
+        nxt += pages
+        lens[r] = c
+        if bad_ids and pages < P:
+            tables[r, pages] = nb + 5  # never read: past ctx_len and out of range
+    q = _randn(torch, (t, hq, hd), gen, torch.bfloat16)
+    k = _randn(torch, (t, hkv, hd), gen, torch.bfloat16)
+    v = _randn(torch, (t, hkv, hd), gen, torch.bfloat16)
+    ck = _randn(torch, (nb, bs, hkv, hd), gen, torch.bfloat16)
+    cv = _randn(torch, (nb, bs, hkv, hd), gen, torch.bfloat16)
+    return dict(q=q, k=k, v=v, segment_ids=seg.to(DEVICE), cache_k=ck, cache_v=cv,
+                ctx_tables=tables.to(DEVICE), ctx_lens=lens.to(DEVICE))
+
+
+def _f32(case):
+    return {k: (v.float() if hasattr(v, "dtype") and v.dtype.is_floating_point else v)
+            for k, v in case.items()}
+
+
+def kernel_checks(torch):
+    """Phase 2.  Returns {kernel: max_abs_err} (worst case per kernel)."""
+    from deepspeed_tpu_torch.ops.attention import dot_product_attention
+    from deepspeed_tpu_torch.ops.kernels import ctx_attention as K3
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as K1
+    from deepspeed_tpu_torch.ops.kernels import paged_attention as K2
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    errs = {"flash_fwd": 0.0, "paged_decode": 0.0, "ctx_attention": 0.0}
+    results = []
+
+    def record(name, label, got, ref, extra=None):
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"{name} {label}: non-finite output")
+        err = float((got.float() - ref.float()).abs().max())
+        errs[name] = max(errs[name], err)
+        results.append(dict(kernel=name, case=label, max_abs_err=err, **(extra or {})))
+        if err > KERNEL_TOL:
+            raise AssertionError(f"{name} {label}: max abs err {err} > {KERNEL_TOL}")
+
+    for label, case in (
+        ("T2048_16x128", flash_case(torch, gen, [128] * 16, 0)),
+        ("T64_50+pad14", flash_case(torch, gen, [50], 14)),
+        ("T256_cap2", flash_case(torch, gen, [100, 60], 96, cap=2.0)),
+        ("T192_noseg", dict(flash_case(torch, gen, [192], 0), segment_ids=None)),
+    ):
+        got = K1.flash_attention_kernel(case["q"], case["k"], case["v"], case["segment_ids"],
+                                        logits_soft_cap=case["cap"])
+        f = _f32(case)
+        ref = dot_product_attention(f["q"], f["k"], f["v"], causal=True,
+                                    segment_ids=case["segment_ids"],
+                                    logits_soft_cap=case["cap"])
+        record("flash_fwd", label, got, ref)
+
+    for label, case, cap in (
+        ("B64_mixed", decode_case(torch, gen), None),
+        ("B64_mixed_cap5", decode_case(torch, gen, max_len=300), 5.0),
+    ):
+        got = K2.paged_attention_decode_kernel(**case, logits_soft_cap=cap)
+        ref = K2.paged_attention_decode_plain(**_f32(case), logits_soft_cap=cap)
+        record("paged_decode", label, got, ref)
+
+    for label, case in (
+        ("T256_N8_ctx512", ctx_case(torch, gen, sfx=(64, 64, 64, 64),
+                                    ctx=(512, 512, 512, 512))),
+        ("midpage_pad_badids", ctx_case(torch, gen)),
+    ):
+        got = K3.paged_attention_packed_ctx_kernel(**case)
+        ref = K3.paged_attention_packed_ctx_plain(**_f32(case))
+        pad = case["segment_ids"] == 0
+        if bool(pad.any()) and bool(got[pad].ne(0).any()):
+            raise AssertionError(f"ctx_attention {label}: pad rows not exactly 0")
+        record("ctx_attention", label, got, ref)
+    return errs, results
+
+
+# ---------------------------------------------------------------------------
+# phase 3: the engine (put + step) on the 410M model
+# ---------------------------------------------------------------------------
+def cpu_logits(torch, params_cpu, cfg_cpu, tokens, rows):
+    """fp32 logits at pack ``rows`` of one sequence through the port's own
+    model runner on the CPU (no KV written: every page id is -1)."""
+    import numpy as np
+    from deepspeed_tpu_torch.inference import model_runner
+    from deepspeed_tpu_torch.inference.paged import init_paged_cache
+
+    bs = 32
+    t = -(-len(tokens) // bs) * bs
+    tok = np.zeros(t, np.int32)
+    tok[:len(tokens)] = tokens
+    seg = np.zeros(t, np.int32)
+    seg[:len(tokens)] = 1
+    pos = np.arange(t, dtype=np.int32)
+    kv = init_paged_cache(cfg_cpu.num_layers, 1, bs, cfg_cpu.num_kv_heads, cfg_cpu.hd,
+                          dtype=torch.float32, device="cpu")
+    logits, _ = model_runner.prefill_packed(
+        params_cpu, cfg_cpu, tok, seg, pos, np.full(t // bs, -1, np.int32),
+        np.asarray(rows, np.int32), kv)
+    return logits
+
+
+def engine_phase(torch, K, gpu, params, cfg):
+    import numpy as np
+    from deepspeed_tpu_torch.inference.engine_v2 import InferenceEngineV2
+    from deepspeed_tpu_torch.inference.sampling import SamplingParams
+
+    B, prompt_len, steps = 64, 128, 64
+    eng = InferenceEngineV2(params, cfg, max_seqs=B, num_blocks=2048, block_size=32,
+                            prefill_budget=2048)
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(1, cfg.vocab_size, prompt_len).tolist() for _ in range(B)]
+    samp = SamplingParams(temperature=0.0, max_new_tokens=steps + 8)
+    # warm-up (cuBLAS handles, allocator pools) on throwaway uids
+    warm = list(range(10_001, 10_017))
+    eng.put(warm, [prompts[0]] * len(warm), samp)
+    eng.step(samp)
+    eng.flush(warm)
+    torch.cuda.synchronize()
+
+    stats0 = dict(eng.stats)
+    K.reset_launches()
+    t0 = time.perf_counter()
+    first = eng.put(list(range(1, B + 1)), prompts, samp)  # returns host tokens: synced
+    prefill_s = time.perf_counter() - t0
+    gen = {u: [first[u]] for u in first}
+    tick_ms = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        out = eng.step(samp)  # fetches the sampled tokens: synced
+        tick_ms.append(1e3 * (time.perf_counter() - t0))
+        for u, tok in out.items():
+            gen[u].append(tok)
+    launches = dict(K.LAUNCHES)
+    L = cfg.num_layers
+    d_prefill = eng.stats["prefill_dispatches"] - stats0["prefill_dispatches"]
+    d_ticks = eng.stats["decode_ticks"] - stats0["decode_ticks"]
+    if launches["flash_fwd"] != L * d_prefill or d_prefill == 0:
+        raise AssertionError(f"flash launches {launches['flash_fwd']} != {L} x {d_prefill}")
+    if launches["paged_decode"] != L * d_ticks or d_ticks != steps:
+        raise AssertionError(f"decode launches {launches['paged_decode']} != {L} x {d_ticks}")
+    if any(t < 0 for g in gen.values() for t in g):
+        raise AssertionError("non-finite logits in the engine phase")
+
+    # decode-tick profile: device time by kernel over 4 more ticks (only the
+    # device-side rows: an operator's row repeats its kernels' time)
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(4):
+            eng.step(samp)
+        prof_wall_ms = 1e3 * (time.perf_counter() - t0) / 4
+    evs = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    # None ("not measured") when the profiler sees no device activity
+    dev_ms = sum(e.self_device_time_total for e in evs) / 1e3 / 4 if evs else None
+    top = sorted(evs, key=lambda e: -e.self_device_time_total)[:8]
+    profile_rows = [dict(name=e.key[:60], ms_per_tick=e.self_device_time_total / 1e3 / 4,
+                         calls_per_tick=e.count / 4) for e in top]
+    assert eng.close()["blocks_in_use"] == 0
+
+    # near-argmax replay of a few sequences on the CPU in fp32
+    cfg_cpu = cfg.replace(dtype=torch.float32)
+    params_cpu = {k: _tree_cpu(v) for k, v in params.items()}
+    worst = 0.0
+    exact = total = 0
+    for u in (1, 2, B):
+        toks = prompts[u - 1] + gen[u]
+        rows = list(range(prompt_len - 1, len(toks) - 1))
+        lg = cpu_logits(torch, params_cpu, cfg_cpu, toks[:-1], rows)
+        picks = torch.tensor(toks[prompt_len:])
+        top_v = lg.max(dim=-1).values
+        rng_v = top_v - lg.min(dim=-1).values
+        gap = (top_v - lg.gather(1, picks[:, None])[:, 0]) / rng_v
+        worst = max(worst, float(gap.max()))
+        exact += int((lg.argmax(dim=-1) == picks).sum())
+        total += len(rows)
+    if worst > ARGMAX_TOL_FRAC:
+        raise AssertionError(f"card pick off the CPU argmax by {worst:.4f} of the logit "
+                             f"range > {ARGMAX_TOL_FRAC}")
+    med_tick = sorted(tick_ms)[len(tick_ms) // 2]
+    res = dict(phase="engine", model="llama3_proxy_410m", layers=L, batch=B,
+               prompt_len=prompt_len, decode_steps=steps, prefill_dispatches=d_prefill,
+               prefill_s=prefill_s, prefill_tokens_per_s=B * prompt_len / prefill_s,
+               decode_tick_ms_median=med_tick, decode_tick_ms_mean=sum(tick_ms) / steps,
+               decode_tokens_per_s=B * 1e3 / med_tick, launches=launches,
+               launches_per_forward={"flash_fwd": launches["flash_fwd"] / d_prefill,
+                                     "paged_decode": launches["paged_decode"] / d_ticks},
+               argmax_exact=f"{exact}/{total}", argmax_worst_gap_frac=worst,
+               profile_tick_wall_ms=prof_wall_ms, profile_tick_device_ms=dev_ms,
+               device_idle_share=None if dev_ms is None else 1.0 - dev_ms / med_tick,
+               profile_top=profile_rows, gpu=gpu)
+    emit(res)
+    return res
+
+
+def _tree_cpu(x):
+    if isinstance(x, dict):
+        return {k: _tree_cpu(v) for k, v in x.items()}
+    return x.float().cpu()
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the scheduler on the shared-prefix workload
+# ---------------------------------------------------------------------------
+def scheduler_phase(torch, K, gpu, params, cfg):
+    import numpy as np
+    from deepspeed_tpu_torch.inference.engine_v2 import InferenceEngineV2
+    from deepspeed_tpu_torch.inference.sampling import SamplingParams
+
+    n_req, sys_len, sfx_len, max_new = 16, 512, 64, 32
+    eng = InferenceEngineV2(
+        params, cfg, max_seqs=8, num_blocks=192, block_size=32, max_seq_len=704,
+        prefill_buckets=(64, 128, 256), prefill_budget=256, prefill_chunk=256,
+        enable_prefix_caching=True)
+    sched = eng.scheduler
+    rng = np.random.default_rng(SEED)
+    sys_prompt = rng.integers(1, cfg.vocab_size, sys_len).tolist()
+    prompts = {u: sys_prompt + rng.integers(1, cfg.vocab_size, sfx_len).tolist()
+               for u in range(1, n_req + 1)}
+    samp = SamplingParams(temperature=0.0, max_new_tokens=max_new)
+    K.reset_launches()
+    t0 = time.perf_counter()
+    for u, p in prompts.items():
+        sched.submit(u, p, samp)
+    results = sched.run()
+    wall = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    bad = [u for u, r in results.items() if len(r) != max_new
+           or sched.requests[u].state != "finished"]
+    if bad:
+        raise AssertionError(f"requests did not finish with {max_new} tokens: {bad}")
+    if launches["ctx_attention"] == 0:
+        raise AssertionError("the packed-context kernel never launched")
+    L = cfg.num_layers
+    if launches["flash_fwd"] + launches["ctx_attention"] != L * eng.stats["prefill_dispatches"]:
+        raise AssertionError(f"prefill launches {launches} != {L} x dispatches")
+    if launches["paged_decode"] != L * eng.stats["decode_ticks"]:
+        raise AssertionError(f"decode launches {launches} != {L} x ticks")
+    ctx_dispatches = eng.stats["prefill_dispatches"] - launches["flash_fwd"] // L
+    hit = eng.mgr.cached_prompt_tokens / eng.mgr.prompt_tokens_total
+    if hit <= 0:
+        raise AssertionError("no prefix-cache hits")
+    audit = eng.close()
+    if audit["blocks_in_use"] != 0:
+        raise AssertionError(f"leaked blocks: {audit}")
+    done_tokens = sum(len(p) for p in prompts.values()) + n_req * max_new
+    res = dict(phase="scheduler", requests=n_req, sys_len=sys_len, sfx_len=sfx_len,
+               max_new_tokens=max_new, ticks=sched.tick_no, wall_s=wall,
+               effective_tokens_per_s=done_tokens / wall, prefix_hit_rate=hit,
+               prefill_tokens_dispatched=eng.stats["prefill_tokens_dispatched"],
+               prefill_dispatches=eng.stats["prefill_dispatches"],
+               decode_ticks=eng.stats["decode_ticks"], preemptions=sched.stats["preemptions"],
+               launches=launches,
+               launches_per_forward={"ctx_attention": launches["ctx_attention"] / ctx_dispatches},
+               close=audit, gpu=gpu)
+    emit(res)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 5: timings and bounds
+# ---------------------------------------------------------------------------
+def time_ms(torch, fn, iters=30, warm=3):
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(iters):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / iters
+
+
+def _bound(flops, nbytes):
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    return (1e3 * max(t_ops, t_bytes), "operations" if t_ops > t_bytes else "bytes")
+
+
+def _nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+def timings(torch):
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops.attention import dot_product_attention
+    from deepspeed_tpu_torch.ops.kernels import ctx_attention as K3
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as K1
+    from deepspeed_tpu_torch.ops.kernels import paged_attention as K2
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 10)
+    out = {}
+
+    # K1f: the engine's cold pack, 16 prompts of 128 in T = 2048
+    c = flash_case(torch, gen, [128] * 16, 0)
+    q, k, v, seg = c["q"], c["k"], c["v"], c["segment_ids"]
+    _, t, hq, hd = q.shape
+    pairs = 16 * 128 * 129 // 2
+    flops = 4 * hd * hq * pairs
+    bound, by = _bound(flops, _nbytes(q, k, v, q, seg))
+    mask = (seg[0][:, None] == seg[0][None, :]) & torch.ones(t, t, dtype=torch.bool,
+                                                            device=DEVICE).tril()
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    out["flash_fwd"] = dict(
+        shape=f"T{t} 16x128 hq{hq} hkv{k.shape[2]} hd{hd}",
+        ms=time_ms(torch, lambda: K1.flash_attention_kernel(q, k, v, seg)),
+        plain_ms=time_ms(torch, lambda: dot_product_attention(q, k, v, segment_ids=seg)),
+        library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, enable_gqa=True)),
+        bound_ms=bound, bound_by=by)
+
+    # K2: B = 64 decode over the paged pool (mixed lengths, 8 idle slots)
+    c = decode_case(torch, gen)
+    lens = c["seq_lens"].long()
+    hkv = c["cache_k"].shape[2]
+    live = int(lens.sum())
+    kv_bytes = 2 * live * hkv * hd * c["cache_k"].element_size()
+    bound, by = _bound(4 * hd * hq * live,
+                       kv_bytes + _nbytes(c["q"], c["q"], c["block_table"], c["seq_lens"]))
+    out["paged_decode"] = dict(
+        shape=f"B64 nb2048 bs32 P128 live_tokens{live}",
+        ms=time_ms(torch, lambda: K2.paged_attention_decode_kernel(**c)),
+        plain_ms=time_ms(torch, lambda: K2.paged_attention_decode_plain(**c)),
+        library_ms=None, bound_ms=bound, bound_by=by)
+
+    # K3: a prefix-hit pack, 4 suffixes of 64 over 512 cached tokens each
+    c = ctx_case(torch, gen, sfx=(64, 64, 64, 64), ctx=(512, 512, 512, 512), bad_ids=False)
+    t = c["q"].shape[0]
+    n_seg, sfx, ctx = 4, 64, 512
+    flops = 4 * hd * hq * n_seg * (sfx * ctx + sfx * (sfx + 1) // 2)
+    ctx_bytes = 2 * n_seg * ctx * hkv * hd * c["cache_k"].element_size()
+    bound, by = _bound(flops, ctx_bytes + _nbytes(c["q"], c["k"], c["v"], c["q"],
+                                                  c["segment_ids"], c["ctx_tables"]))
+    # library yardstick: one SDPA call over each segment's [context | suffix]
+    # keys gathered contiguously beforehand (the gather is not timed)
+    ks = torch.randn(n_seg, hkv, ctx + sfx, hd, generator=gen, device=DEVICE).to(torch.bfloat16)
+    vs = torch.randn(n_seg, hkv, ctx + sfx, hd, generator=gen, device=DEVICE).to(torch.bfloat16)
+    qs = torch.randn(n_seg, hq, sfx, hd, generator=gen, device=DEVICE).to(torch.bfloat16)
+    smask = torch.ones(sfx, ctx + sfx, dtype=torch.bool, device=DEVICE).tril(ctx)
+    out["ctx_attention"] = dict(
+        shape=f"T{t} N8 4x(512 ctx + 64 sfx)",
+        ms=time_ms(torch, lambda: K3.paged_attention_packed_ctx_kernel(**c)),
+        plain_ms=time_ms(torch, lambda: K3.paged_attention_packed_ctx_plain(**c)),
+        library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=smask, enable_gqa=True)),
+        bound_ms=bound, bound_by=by)
+    return out
+
+
+REPLACES = {
+    "flash_fwd": "deepspeed_tpu/ops/pallas/flash_kernel.py:253",
+    "paged_decode": "deepspeed_tpu/ops/pallas/paged_attention.py:270",
+    "ctx_attention": "deepspeed_tpu/ops/pallas/ctx_attention.py:244",
+}
+
+
+def main() -> None:
+    try:
+        import torch
+    except ImportError:
+        fail("PyTorch is not installed")
+    if not torch.cuda.is_available():
+        fail("no CUDA device: this smoke runs on the card only")
+    if not os.path.isdir(os.path.join(HERE, "deepspeed_tpu_torch")):
+        fail(f"deepspeed_tpu_torch not found beside {__file__}")
+    sys.path.insert(0, HERE)
+    from deepspeed_tpu_torch.models.presets import get_preset
+    from deepspeed_tpu_torch.models.transformer import init_params
+    from deepspeed_tpu_torch.ops import kernels as K
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gpu = gpu_line()
+
+    build = K.build()
+    ptxas = {n: [ln.strip() for ln in K.build_log(n).splitlines() if "registers" in ln]
+             for n in K.SOURCES}
+    emit(dict(phase="build", seconds=build["seconds"], built=build["built"],
+              ptxas=ptxas, gpu=gpu))
+
+    errs, cases = kernel_checks(torch)
+    emit(dict(phase="kernels", tolerance=KERNEL_TOL, cases=cases, gpu=gpu))
+
+    cfg = get_preset("llama3_proxy_410m")
+    params = init_params(cfg, seed=SEED, device="cuda")
+    eng = engine_phase(torch, K, gpu, params, cfg)
+    sch = scheduler_phase(torch, K, gpu, params, cfg)
+
+    times = timings(torch)
+    kernels = []
+    for name in K.SOURCES:
+        kernels.append(dict(
+            name=name, route="cuda", source=f"deepspeed_tpu_torch/csrc/{K.SOURCES[name]}",
+            replaces=REPLACES[name],
+            launches=eng["launches"][name] + sch["launches"][name],
+            launches_per_forward={**eng["launches_per_forward"],
+                                  **sch["launches_per_forward"]}[name],
+            max_abs_err=errs[name], **times[name]))
+    emit({"kernels": kernels})
+    print(gpu, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,364 @@
+"""Continuous-batching inference engine — counterpart of
+``deepspeed_tpu/inference/engine_v2.py`` (single device, plain weights).
+
+``put(uids, tokens)`` admits and prefills sequences in packed dispatches
+under ``prefill_budget`` tokens (cold packs on the flash kernel, packs that
+start past a cached prefix on the packed-context kernel); ``step()`` runs
+one batched decode tick over the fixed slot array (paged decode kernel).
+Host-side block bookkeeping (``ragged.StateManager``) drives the dispatches
+and copy-on-write clones pages in place.  ``scheduler`` builds the
+queueing ``ServeScheduler`` on top.
+
+Not ported yet, and refused loudly rather than ignored: weight offload,
+tensor-parallel / replica / seq-shard meshes, quantized weights,
+speculative decoding, and ``step_n`` (the device-resident decode burst,
+whose counterpart is a CUDA-graph replay in a later slice).  Every dispatch
+raises through to the caller: a kernel that fails to build or launch is an
+error, never a failed request.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..models.transformer import TransformerConfig
+from ..ops.kernels import resolve_device
+from ..ops.quantizer import ServingContext
+from . import model_runner
+from .paged import init_paged_cache
+from .ragged import StateManager
+from .sampling import SamplingParams, finite_guard, sample
+
+# counter names of the JAX engine's stats view that this engine moves
+STAT_NAMES = (
+    "prefill_tokens_dispatched",  # real prompt tokens run (not pad)
+    "prefill_dispatches",
+    "decode_ticks",
+    "decode_emitted",  # tokens emitted by decode dispatches
+)
+
+
+def _bucket(n: int, buckets: Sequence[int]) -> int:
+    for b in buckets:
+        if n <= b:
+            return b
+    raise ValueError(f"prompt length {n} exceeds max bucket {buckets[-1]}")
+
+
+class InferenceEngineV2:
+    """Paged-KV continuous-batching engine for one model replica on one
+    device.  ``params``: the port's parameter dict (``models.transformer.
+    init_params`` / ``params_from_numpy``), moved to ``device``."""
+
+    def __init__(
+        self,
+        params,
+        cfg: TransformerConfig,
+        max_seqs: int = 64,
+        num_blocks: int = 2048,
+        block_size: int = 32,
+        max_seq_len: Optional[int] = None,
+        prefill_buckets: Sequence[int] = (64, 128, 256, 512, 1024, 2048, 4096),
+        prefill_budget: Optional[int] = None,
+        seed: int = 0,
+        offload_weights: bool = False,
+        grid=None,
+        quantize_weights: Optional[str] = None,
+        enable_prefix_caching: bool = False,
+        prefill_chunk: Optional[int] = None,
+        kv_watermark: float = 0.0625,
+        enable_speculation: bool = False,
+        serve_replicas: int = 1,
+        seq_shards: int = 1,
+        device=None,
+    ):
+        unsupported = {
+            "offload_weights": offload_weights, "grid": grid is not None,
+            "quantize_weights": quantize_weights is not None,
+            "enable_speculation": enable_speculation,
+            "serve_replicas>1": serve_replicas != 1, "seq_shards>1": seq_shards != 1,
+        }
+        refused = [k for k, on in unsupported.items() if on]
+        if refused:
+            raise NotImplementedError(f"not ported yet: {', '.join(refused)}")
+        model_runner._check_family(cfg)
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.params = _to_device(params, self.device)
+        self.block_size = block_size
+        self.max_seq_len = max_seq_len or cfg.max_seq_len
+        self.max_pages = -(-self.max_seq_len // block_size)
+        self.enable_prefix_caching = enable_prefix_caching
+        self.prefill_chunk = prefill_chunk
+        self.kv_watermark = kv_watermark
+        self.serving_ctx = ServingContext()
+        self.mgr = StateManager(num_blocks, block_size, max_seqs,
+                                enable_prefix_caching=enable_prefix_caching)
+        self._scheduler = None
+        self.stats: Dict[str, int] = {name: 0 for name in STAT_NAMES}
+        self.prefill_buckets = [b for b in prefill_buckets if b <= self.max_seq_len] \
+            or [self.max_seq_len]
+        # SplitFuse-style token budget, clamped to the largest bucket
+        self.prefill_budget = min(prefill_budget or self.prefill_buckets[-1],
+                                  self.prefill_buckets[-1])
+        self.kv = init_paged_cache(cfg.num_layers, num_blocks, block_size,
+                                   cfg.num_kv_heads, cfg.hd, dtype=cfg.dtype,
+                                   device=self.device)
+        self._gen = torch.Generator(device=self.device).manual_seed(seed)
+        # host block-table mirror, handed to every decode dispatch
+        self._tables_np = np.full((max_seqs, self.max_pages), -1, np.int32)
+        self.mgr.cow_hook = self._cow
+
+    def _cow(self, src: int, dst: int) -> None:
+        """Copy-on-write page clone, in place in every layer pool."""
+        for pool in (*self.kv[0], *self.kv[1]):
+            pool[dst].copy_(pool[src])
+
+    # -- scheduling queries --------------------------------------------------
+    def can_schedule(self, prompt_lens: Sequence[int], token_lists=None) -> bool:
+        return self.mgr.can_admit_all(prompt_lens, token_lists=token_lists)
+
+    # -- serving API ---------------------------------------------------------
+    def put(self, uids: Sequence[int], token_lists: Sequence[Sequence[int]],
+            sampling: SamplingParams = SamplingParams()) -> Dict[int, int]:
+        """Admit new sequences and prefill them, returning {uid: first_token}
+        (-1 for a row whose logits were non-finite).  All or nothing: raises
+        ``RuntimeError`` when KV blocks or slots run out (load that may
+        exceed capacity belongs on ``self.scheduler``)."""
+        token_lists = [list(map(int, toks)) for toks in token_lists]
+        for toks in token_lists:
+            if len(toks) > self.prefill_buckets[-1]:
+                raise ValueError(f"prompt length {len(toks)} exceeds max bucket "
+                                 f"{self.prefill_buckets[-1]}")
+        if not self.can_schedule([len(t) for t in token_lists], token_lists=token_lists):
+            raise RuntimeError(
+                f"cannot admit {len(token_lists)} sequences "
+                f"({sum(len(t) for t in token_lists)} tokens): out of KV blocks/slots")
+        entries = []
+        admitted: List[int] = []
+        snap = self.mgr.hit_stats_snapshot()
+        try:
+            for uid, toks in zip(uids, token_lists):
+                seq = self.mgr.admit(uid, toks)
+                admitted.append(uid)
+                self.mgr.ensure_capacity(seq, 0)
+                entries.append((seq, seq.seen_tokens, len(seq.tokens)))
+        except RuntimeError:
+            for u in admitted:
+                self.mgr.release(u)
+            self.mgr.hit_stats_restore(snap)
+            raise
+        return self.prefill_entries(entries, sampling)
+
+    def prefill_entries(self, entries, sampling: SamplingParams) -> Dict[int, int]:
+        """Prefill ``entries`` = [(seq, start, end)] token ranges in packs
+        under ``prefill_budget``; returns {uid: first_token} for every entry
+        that completes its prompt.  ``start`` must be page-aligned."""
+        out: Dict[int, int] = {}
+        bs = self.block_size
+        for _seq, start, _end in entries:
+            if start % bs:
+                raise ValueError(f"prefill start {start} not page-aligned (bs {bs})")
+        pending = list(entries)
+        while pending:
+            pack, deferred, pack_len = [], [], 0
+            for entry in pending:
+                _seq, start, end = entry
+                n = -(-(end - start) // bs) * bs
+                # an oversized single entry rides an empty pack (bucketed up)
+                if pack_len and pack_len + n > self.prefill_budget:
+                    deferred.append(entry)
+                    continue
+                pack.append(entry)
+                pack_len += n
+            self._run_packed_prefill(pack, sampling, out)
+            pending = deferred
+        return out
+
+    def _run_packed_prefill(self, entries, sampling, out: Dict[int, int]) -> None:
+        """One packed-prefill dispatch.  Each suffix starts at a PAGE
+        boundary of the pack (segment-0 gap padding between prompts) so KV
+        lands as page-granular writes.  Cold packs (all starts 0) take the
+        flash kernel; any non-zero start takes the packed-context kernel."""
+        bs = self.block_size
+        t_pad = _bucket(max(sum(-(-(e - s) // bs) * bs for _, s, e in entries), bs),
+                        self.prefill_buckets)
+        if t_pad % bs:
+            raise ValueError(f"prefill bucket {t_pad} must be a multiple of block_size {bs}")
+        use_ctx = any(start > 0 for _, start, _ in entries)
+        B = self.mgr.max_seqs
+        tokens = np.zeros(t_pad, np.int32)
+        seg = np.zeros(t_pad, np.int32)
+        pos = np.zeros(t_pad, np.int32)
+        pack_pages = np.full(t_pad // bs, -1, np.int32)
+        last_idx = np.full(B, -1, np.int32)
+        ctx_tables = np.full((B, self.max_pages), -1, np.int32)
+        ctx_lens = np.zeros(B, np.int32)
+        cur = 0
+        for s, start, end in entries:
+            n = end - start
+            tokens[cur:cur + n] = s.tokens[start:end]
+            seg[cur:cur + n] = s.slot + 1
+            pos[cur:cur + n] = np.arange(start, end)
+            n_pages = -(-n // bs)
+            first_page = start // bs
+            pack_pages[cur // bs: cur // bs + n_pages] = s.blocks[first_page:first_page + n_pages]
+            if end == len(s.tokens):  # completes the prompt -> sample
+                last_idx[s.slot] = cur + n - 1
+            ctx_tables[s.slot, :len(s.blocks)] = s.blocks
+            ctx_lens[s.slot] = start
+            cur += n_pages * bs  # next prompt starts page-aligned
+        if use_ctx:
+            logits, self.kv = model_runner.prefill_packed_ctx(
+                self.params, self.cfg, tokens, seg, pos, pack_pages, last_idx,
+                ctx_tables, ctx_lens, self.kv, ctx=self.serving_ctx)
+        else:
+            logits, self.kv = model_runner.prefill_packed(
+                self.params, self.cfg, tokens, seg, pos, pack_pages, last_idx,
+                self.kv, ctx=self.serving_ctx)
+        self.stats["prefill_tokens_dispatched"] += sum(e - s for _, s, e in entries)
+        self.stats["prefill_dispatches"] += 1
+        next_tokens = None
+        for s, _start, end in entries:
+            s.seen_tokens = end
+            if end == len(s.tokens):
+                if next_tokens is None:
+                    next_tokens = self._sample(logits, sampling)
+                tok = int(next_tokens[s.slot])
+                if tok < 0:
+                    # finite_guard sentinel: commit nothing, retract the keys
+                    # this sequence published, report -1 for this uid only
+                    s.error = "non-finite logits in prefill"
+                    self.mgr.quarantine_written(s)
+                    out[s.uid] = -1
+                    continue
+                s.tokens.append(tok)
+                self._set_block_table(s)
+                out[s.uid] = tok
+            self.mgr.update_hashes(s)
+
+    def _sample(self, logits: torch.Tensor, sampling: SamplingParams) -> np.ndarray:
+        """Sample + non-finite guard on the device, one fetch to the host."""
+        sampled = finite_guard(logits, sample(logits, sampling, self._gen))
+        return sampled.cpu().numpy()
+
+    def _set_block_table(self, seq) -> None:
+        row = self._tables_np[seq.slot]
+        row[:] = -1
+        row[:len(seq.blocks)] = seq.blocks
+
+    def _decode_tick(self, active_seqs, sampling: SamplingParams) -> Dict[int, int]:
+        """One batched decode dispatch over ``active_seqs`` only; appends the
+        sampled token per sequence (stop/length handling is the caller's)."""
+        B = self.mgr.max_seqs
+        tokens = np.zeros(B, np.int32)
+        seq_lens = np.zeros(B, np.int32)
+        active = np.zeros(B, bool)
+        for s in active_seqs:
+            # grow pages for the token written this tick; clone a shared page
+            self.mgr.ensure_capacity(s, 1)
+            self.mgr.ensure_writable(s, s.cur_len - 1)
+            self._set_block_table(s)
+            tokens[s.slot] = s.tokens[-1]
+            seq_lens[s.slot] = s.cur_len - 1  # KV position of the new token
+            active[s.slot] = True
+        logits, self.kv = model_runner.decode_step(
+            self.params, self.cfg, tokens, seq_lens, self._tables_np, active,
+            self.kv, ctx=self.serving_ctx)
+        next_tokens = self._sample(logits, sampling)
+        self.stats["decode_ticks"] += 1
+        self.stats["decode_emitted"] += len(active_seqs)
+        out = {}
+        for s in active_seqs:
+            tok = int(next_tokens[s.slot])
+            if tok < 0:
+                s.error = "non-finite logits in decode"
+                self.mgr.quarantine_written(s)
+                if self.mgr.truncate_to_length(s):
+                    self._set_block_table(s)
+                out[s.uid] = -1
+                continue
+            s.tokens.append(tok)
+            s.seen_tokens = s.cur_len - 1
+            self.mgr.update_hashes(s)
+            out[s.uid] = tok
+        return out
+
+    def step(self, sampling: SamplingParams = SamplingParams()) -> Dict[int, int]:
+        """One batched decode tick over all active sequences; returns the
+        newest token per uid (-1 for a row with non-finite logits)."""
+        active_seqs = [s for s in self.mgr.active if not s.done]
+        if not active_seqs:
+            return {}
+        out = {}
+        toks = self._decode_tick(active_seqs, sampling)
+        for s in active_seqs:
+            tok = toks[s.uid]
+            if tok < 0 or (sampling.stop_token is not None and tok == sampling.stop_token) \
+                    or s.cur_len >= self.max_seq_len:
+                s.done = True
+            out[s.uid] = tok
+        return out
+
+    def step_n(self, n: int, sampling: SamplingParams = SamplingParams()):
+        raise NotImplementedError(
+            "step_n (device-resident decode bursts) is not ported yet; call step()")
+
+    def flush(self, uids: Sequence[int]) -> None:
+        for uid in uids:
+            self.mgr.release(uid)
+
+    def close(self) -> Dict[str, int]:
+        """Cancel every scheduler request, release every sequence, audit the
+        allocator (raises on a broken invariant) and drop the device
+        tensors.  Idempotent.  Returns ``{"blocks_in_use", "cached_blocks"}``
+        after release — the zero-leak audit."""
+        if getattr(self, "_closed", False):
+            return dict(self._close_audit)
+        if self._scheduler is not None:
+            self._scheduler.close()
+        for uid in list(self.mgr.seqs):
+            self.mgr.release(uid)
+        a = self.mgr.allocator
+        a.audit()
+        self._close_audit = {
+            "blocks_in_use": a.total_blocks - a.free_blocks - a.cached_blocks,
+            "cached_blocks": a.cached_blocks,
+        }
+        self.params = None
+        self.kv = None
+        self.mgr.cow_hook = None
+        self._closed = True
+        return dict(self._close_audit)
+
+    @property
+    def scheduler(self):
+        """Lazily built ``ServeScheduler`` bound to this engine."""
+        if self._scheduler is None:
+            from .scheduler import ServeScheduler
+
+            self._scheduler = ServeScheduler(
+                self, prefill_chunk=self.prefill_chunk, kv_watermark=self.kv_watermark)
+        return self._scheduler
+
+    def generate(self, prompt_tokens: Sequence[int],
+                 sampling: SamplingParams = SamplingParams()) -> List[int]:
+        """Single-prompt convenience through the scheduler."""
+        sched = self.scheduler
+        uid = sched.next_uid()
+        sched.submit(uid, prompt_tokens, sampling)
+        sched.run(wait_for=[uid])
+        req = sched.requests[uid]
+        if req.state != "finished":
+            state, err = req.state, req.error
+            sched.pop_result(uid)
+            raise RuntimeError(f"generate() request {state}: {err or state}")
+        return sched.pop_result(uid)
+
+
+def _to_device(params, device):
+    if isinstance(params, dict):
+        return {k: _to_device(v, device) for k, v in params.items()}
+    return params.to(device)

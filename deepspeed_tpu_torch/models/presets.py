@@ -1,0 +1,30 @@
+"""Named architecture presets — counterpart of ``deepspeed_tpu/models/
+presets.py``.  Ported so far: the serving slice's flagship and the test
+config; other families follow with the modules they need."""
+from __future__ import annotations
+
+from .transformer import TransformerConfig
+
+_REGISTRY = {}
+
+
+def register(name: str, cfg: TransformerConfig) -> TransformerConfig:
+    _REGISTRY[name] = cfg
+    return cfg
+
+
+def get_preset(name: str, **overrides) -> TransformerConfig:
+    cfg = _REGISTRY[name]
+    return cfg.replace(**overrides) if overrides else cfg
+
+
+# ~410M-parameter Llama-3-shaped model: GQA 4:1, head_dim 128, RMSNorm,
+# SwiGLU, RoPE (the repository's serving benchmark model)
+register("llama3_proxy_410m", TransformerConfig(
+    vocab_size=32128, hidden_size=1024, intermediate_size=4096, num_layers=24,
+    num_heads=8, num_kv_heads=2, max_seq_len=4096, rope_theta=500_000.0))
+
+# tiny config for tests
+register("tiny", TransformerConfig(
+    vocab_size=256, hidden_size=64, intermediate_size=128, num_layers=2,
+    num_heads=4, num_kv_heads=2, max_seq_len=128))

@@ -1,0 +1,65 @@
+"""Attention reference body — counterpart of ``deepspeed_tpu/ops/attention.py``.
+
+``dot_product_attention`` is the plain PyTorch scaled-dot-product attention
+with GQA, causal and packed-segment masking and the tanh soft cap, in the
+``[batch, seq, heads, head_dim]`` layout.  It is the plain version of the
+flash kernel (``ops/kernels/flash_attention.py``) and the ground truth of
+its tests; the serving path on a CUDA device never calls it.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+
+def repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
+    """[b, s, h_kv, d] -> [b, s, h_kv * n_rep, d] by head-group broadcast."""
+    if n_rep == 1:
+        return k
+    b, s, h, d = k.shape
+    return k[:, :, :, None, :].expand(b, s, h, n_rep, d).reshape(b, s, h * n_rep, d)
+
+
+def make_causal_mask(q_len: int, kv_len: int, q_offset: int = 0,
+                     device=None) -> torch.Tensor:
+    """Additive fp32 mask allowing query i to attend key j <= i + offset."""
+    q_pos = torch.arange(q_len, device=device)[:, None] + q_offset
+    kv_pos = torch.arange(kv_len, device=device)[None, :]
+    neg = torch.finfo(torch.float32).min
+    return torch.where(q_pos >= kv_pos, torch.tensor(0.0, device=device),
+                       torch.tensor(neg, device=device))
+
+
+def dot_product_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    causal: bool = True,
+    q_offset: int = 0,
+    segment_ids: Optional[torch.Tensor] = None,
+    kv_segment_ids: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
+    logits_soft_cap: Optional[float] = None,
+) -> torch.Tensor:
+    """q [b, sq, hq, d]; k/v [b, skv, hkv, d] (hkv divides hq).  Softmax in
+    fp32 whatever the input type; the probabilities are cast back to the
+    input type before the value product, as the JAX body does."""
+    in_dtype = q.dtype
+    hq, hkv = q.shape[2], k.shape[2]
+    k = repeat_kv(k, hq // hkv)
+    v = repeat_kv(v, hq // hkv)
+    d = q.shape[-1]
+    scale = scale if scale is not None else d ** -0.5
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    if logits_soft_cap is not None:
+        logits = logits_soft_cap * torch.tanh(logits / logits_soft_cap)
+    if causal:
+        logits = logits + make_causal_mask(q.shape[1], k.shape[1], q_offset,
+                                           device=q.device)[None, None]
+    if segment_ids is not None:
+        kv_seg = kv_segment_ids if kv_segment_ids is not None else segment_ids
+        allowed = segment_ids[:, None, :, None] == kv_seg[:, None, None, :]
+        logits = torch.where(allowed, logits, torch.finfo(torch.float32).min)
+    probs = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", probs.to(in_dtype), v)

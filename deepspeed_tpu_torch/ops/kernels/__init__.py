@@ -1,0 +1,202 @@
+"""Hand-written CUDA kernels for Hopper — the counterpart of
+``deepspeed_tpu/ops/pallas``.
+
+Each kernel module holds a plain PyTorch version of its function and a
+wrapper around the CUDA kernel.  The wrapper dispatches on the tensor's
+device: a CPU tensor takes the plain version (the CPU tests), a CUDA tensor
+launches the kernel or raises — there is no fallback from a kernel that
+fails to build or launch.
+
+Kernels are CUDA C++ under ``deepspeed_tpu_torch/csrc``, compiled with
+``nvcc`` for ``sm_90a`` into one shared library per source (plain C
+interface, loaded with ``ctypes``) at first use, all sources in parallel,
+into ``csrc/build/<source hash>/``.  Nothing is built at import.
+
+``LAUNCHES`` counts each wrapper's kernel launches, so a run can show that
+its main path went through the kernels.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from typing import Dict, Iterable, Optional
+
+import torch
+
+CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__)))), "csrc")
+BUILD_ROOT = os.path.join(CSRC, "build")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+# kernel name -> source file; every source includes attn_common.cuh
+SOURCES = {
+    "flash_fwd": "flash_fwd.cu",
+    "paged_decode": "paged_decode.cu",
+    "ctx_attention": "ctx_attention.cu",
+}
+_HEADERS = ("attn_common.cuh",)
+
+LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+_PTR, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C signatures of the extern "C" entry points (each returns cudaError_t)
+_ARGTYPES = {
+    "flash_fwd": ("dst_flash_fwd", [_PTR] * 5 + [_INT] * 5 + [_FLOAT, _FLOAT, _PTR]),
+    "paged_decode": ("dst_paged_decode",
+                     [_PTR] * 6 + [_INT] * 7 + [_FLOAT, _FLOAT, _PTR]),
+    "ctx_attention": ("dst_ctx_attention",
+                      [_PTR] * 9 + [_INT] * 8 + [_FLOAT, _FLOAT, _PTR]),
+}
+
+
+def on_gpu() -> bool:
+    """Counterpart of ``ops/pallas.on_tpu``: a CUDA device is present."""
+    return torch.cuda.is_available()
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: CUDA unless the caller names
+    another.  With no CUDA device and no explicit device this raises — an
+    entry point never carries on quietly on the CPU."""
+    if device is None:
+        if not on_gpu():
+            raise RuntimeError(
+                "no CUDA device: pass device='cpu' to run the plain PyTorch "
+                "path explicitly")
+        return torch.device("cuda", torch.cuda.current_device())
+    dev = torch.device(device)
+    if dev.type == "cuda" and not on_gpu():
+        raise RuntimeError(f"device {dev} requested but CUDA is not available")
+    return dev
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError(
+        "nvcc not found (PATH, $CUDA_HOME/bin): the CUDA kernels cannot be "
+        "built, and a CUDA tensor has no other path")
+
+
+def _source_hash(name: str) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in (SOURCES[name],) + _HEADERS:
+        with open(os.path.join(CSRC, f), "rb") as fh:
+            h.update(fh.read())
+    return h.hexdigest()[:16]
+
+
+def _lib_path(name: str) -> str:
+    return os.path.join(BUILD_ROOT, _source_hash(name), f"lib{name}.so")
+
+
+def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
+    """Compile every named kernel whose library is missing, one ``nvcc``
+    per source, all started together; load them.  Returns ``{"seconds":
+    wall time, "built": sources compiled}``.  A failed compile raises with
+    the compiler's output."""
+    names = list(names if names is not None else SOURCES)
+    todo = [n for n in names if n not in _LIBS and not os.path.exists(_lib_path(n))]
+    t0 = time.perf_counter()
+    if todo:
+        nvcc = _nvcc()
+        procs = {}
+        for n in todo:
+            out = _lib_path(n)
+            os.makedirs(os.path.dirname(out), exist_ok=True)
+            tmp = f"{out}.{os.getpid()}.tmp"
+            cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, SOURCES[n])]
+            procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                         stderr=subprocess.STDOUT, text=True),
+                        tmp, out)
+        errors = []
+        for n, (proc, tmp, out) in procs.items():
+            log, _ = proc.communicate()
+            with open(out + ".log", "w") as fh:
+                fh.write(log)
+            if proc.returncode != 0:
+                errors.append(f"--- {SOURCES[n]} (nvcc exit {proc.returncode})\n{log}")
+            else:
+                os.replace(tmp, out)
+        if errors:
+            raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(errors))
+    for n in names:
+        _load(n)
+    return {"seconds": time.perf_counter() - t0, "built": len(todo)}
+
+
+def build_log(name: str) -> str:
+    """The compiler's output (``-Xptxas -v``: registers, shared memory,
+    spills) of the last build of ``name``."""
+    path = _lib_path(name) + ".log"
+    if not os.path.exists(path):
+        return ""
+    with open(path) as fh:
+        return fh.read()
+
+
+def _load(name: str) -> ctypes.CDLL:
+    if name not in _LIBS:
+        lib = ctypes.CDLL(_lib_path(name))
+        sym, argtypes = _ARGTYPES[name]
+        fn = getattr(lib, sym)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _LIBS[name] = lib
+    return _LIBS[name]
+
+
+def launch(name: str, *args) -> None:
+    """Call kernel ``name``'s C entry on the current stream and count the
+    launch; raises when the launch was refused (``cudaGetLastError``)."""
+    build([name])
+    sym, _ = _ARGTYPES[name]
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    err = getattr(_LIBS[name], sym)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {err}")
+    LAUNCHES[name] += 1
+
+
+def ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def check_cuda(name: str, dtype: torch.dtype, *tensors: torch.Tensor) -> None:
+    """Wrapper-side argument checks shared by the kernels: one CUDA device,
+    contiguous, 16-byte aligned; ``dtype`` applies to the first tensor
+    group (the caller passes int32 tensors separately)."""
+    dev = tensors[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: the CUDA kernel needs CUDA tensors, got {dev}")
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"{name}: tensors on {t.device} and {dev}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: tensors must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: tensor data must be 16-byte aligned")
+
+
+def scalars(scale: float, soft_cap: Optional[float]):
+    """(scale, cap) as C floats; cap <= 0 means no soft cap."""
+    cap = float(soft_cap) if soft_cap is not None else 0.0
+    if soft_cap is not None and cap <= 0:
+        raise ValueError(f"logits_soft_cap must be > 0, got {soft_cap}")
+    return ctypes.c_float(float(scale)), ctypes.c_float(cap)

@@ -1,0 +1,79 @@
+"""Paged-attention decode — counterpart of ``deepspeed_tpu/ops/pallas/
+paged_attention.py``.
+
+``paged_attention_decode`` dispatches on the device: a CPU tensor runs the
+plain body ``paged_attention_decode_plain`` (the JAX dense body,
+``inference/paged.py:698``, in PyTorch); a CUDA tensor runs
+``csrc/paged_decode.cu`` (bf16, head_dim 64 or 128, soft cap fused — so no
+configuration sends decode to the plain body on the card).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from . import check_cuda, launch, ptr, scalars
+
+NEG_INF = -1e30
+
+
+def paged_attention_decode_plain(q, cache_k, cache_v, block_table, seq_lens,
+                                 scale=None, logits_soft_cap=None):
+    """Dense reference: gathers every table entry (ids clamped to the pool,
+    as the JAX body does), masks positions >= seq_lens, fp32 softmax.
+    q [B, hq, hd]; pools [nb, bs, hkv, hd]; block_table [B, P];
+    seq_lens [B] (including the current token) -> [B, hq, hd]."""
+    b, hq, hd = q.shape
+    nb, bs, hkv, _ = cache_k.shape
+    p = block_table.shape[1]
+    g = hq // hkv
+    safe = block_table.long().clamp(0, nb - 1)
+    k = cache_k[safe].reshape(b, p * bs, hkv, hd).float()
+    v = cache_v[safe].reshape(b, p * bs, hkv, hd).float()
+    scale = scale if scale is not None else hd ** -0.5
+    qf = q.float().reshape(b, hkv, g, hd)
+    logits = torch.einsum("bhgd,bkhd->bhgk", qf, k) * scale
+    if logits_soft_cap is not None:
+        logits = logits_soft_cap * torch.tanh(logits / logits_soft_cap)
+    mask = torch.arange(p * bs, device=q.device)[None, :] < seq_lens[:, None]
+    logits = torch.where(mask[:, None, None, :], logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgk,bkhd->bhgd", probs, v)
+    return out.reshape(b, hq, hd).to(q.dtype)
+
+
+def paged_attention_decode(q, cache_k, cache_v, block_table, seq_lens,
+                           scale: Optional[float] = None,
+                           logits_soft_cap: Optional[float] = None):
+    if q.device.type == "cpu":
+        return paged_attention_decode_plain(
+            q, cache_k, cache_v, block_table, seq_lens, scale, logits_soft_cap)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_attention_decode: unsupported device {q.device}")
+    return paged_attention_decode_kernel(
+        q, cache_k, cache_v, block_table, seq_lens, scale, logits_soft_cap)
+
+
+def paged_attention_decode_kernel(q, cache_k, cache_v, block_table, seq_lens,
+                                  scale=None, logits_soft_cap=None):
+    """The CUDA kernel wrapper: checks, allocates, launches."""
+    b, hq, hd = q.shape
+    nb, bs, hkv, hd_k = cache_k.shape
+    if cache_v.shape != cache_k.shape or hd_k != hd or hq % hkv or hd not in (64, 128):
+        raise ValueError(
+            f"paged_attention_decode: q {tuple(q.shape)} pool {tuple(cache_k.shape)} "
+            "not supported (head_dim 64 or 128, hkv | hq)")
+    if block_table.shape[0] != b or seq_lens.shape != (b,):
+        raise ValueError(f"block_table {tuple(block_table.shape)} / seq_lens "
+                         f"{tuple(seq_lens.shape)} do not match batch {b}")
+    check_cuda("paged_attention_decode", torch.bfloat16, q, cache_k, cache_v)
+    check_cuda("paged_attention_decode", torch.int32, block_table, seq_lens)
+    if block_table.device != q.device:
+        raise ValueError("block_table/seq_lens on another device than q")
+    out = torch.empty_like(q)
+    sc, cap = scalars(scale if scale is not None else hd ** -0.5, logits_soft_cap)
+    launch("paged_decode", ptr(q), ptr(cache_k), ptr(cache_v), ptr(block_table),
+           ptr(seq_lens), ptr(out), b, hq, hkv, hd, nb, bs, block_table.shape[1],
+           sc, cap)
+    return out

@@ -1,0 +1,51 @@
+"""The port stands alone: ``deepspeed_tpu_torch`` and ``chip_smoke.py``
+import neither JAX nor anything of the JAX package ``deepspeed_tpu``."""
+import ast
+import os
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(REPO, "deepspeed_tpu_torch")
+FORBIDDEN = ("jax", "jaxlib", "deepspeed_tpu")
+
+
+def _port_files():
+    for root, _dirs, files in os.walk(PKG):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(root, f)
+    yield os.path.join(REPO, "chip_smoke.py")
+
+
+def test_importing_every_module_loads_no_jax():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import deepspeed_tpu_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "import chip_smoke\n"
+        "bad = sorted(n for n in sys.modules if n.split('.')[0] in %r)\n"
+        "assert not bad, bad\n"
+        "print(len([n for n in sys.modules if n.startswith('deepspeed_tpu_torch')]))\n"
+    ) % (FORBIDDEN,)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 15  # every submodule was imported
+
+
+def test_no_port_file_names_jax_or_the_jax_package():
+    for path in _port_files():
+        with open(path) as fh:
+            tree = ast.parse(fh.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""] if node.level == 0 else []
+            else:
+                continue
+            for n in names:
+                assert n.split(".")[0] not in FORBIDDEN, f"{path} imports {n}"
