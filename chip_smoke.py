@@ -9,7 +9,10 @@ Phases, each raising on failure (so the exit code is non-zero):
                and each kernel's register / shared-memory report;
 2. kernels  -- each kernel against its plain PyTorch version on the card,
                bf16 inputs, the plain version computing in fp32, at the
-               serving path's shapes (tolerance KERNEL_TOL);
+               serving path's shapes (tolerance KERNEL_TOL), and the
+               training backward (K1f's lse, the dq and dk/dv kernels) at
+               s 4096, a packed batch with segments and soft cap, s 200
+               and head_dim 64 (BWD_TOL, LSE_TOL);
 3. engine   -- ``InferenceEngineV2`` on ``llama3_proxy_410m`` (24 layers,
                bf16, random weights from a seed): 64 prompts of 128 tokens
                through ``put``, then 64 greedy ``step``s; the flash and
@@ -20,9 +23,23 @@ Phases, each raising on failure (so the exit code is non-zero):
                (16 requests of a 512-token system prompt + 64-token suffix,
                32 new tokens each, prefix caching, chunked prefill); the
                packed-context kernel must have launched;
-5. timings  -- per kernel: kernel ms, plain ms, one PyTorch library call's
+5. train_check -- ``llama3_proxy_410m`` at full width with 2 layers, the
+               bench config at seq 512, micro 2, GAS 2: two steps on the card
+               in bf16 and through the port on the CPU in fp32 from the
+               same weights and batch; step-1 loss within TRAIN_LOSS_RTOL,
+               the cosine similarity of layer 0's wq / wk / wv / wo
+               gradients above GRAD_COS_MIN, and the flash kernels
+               launched layers x micro-batches times per step;
+6. train    -- the training flagship (``bench.py:42-109``) at full width
+               and depth: ``initialize`` -> one warm-up ``train_batch`` ->
+               TRAIN_STEPS steps of ``train_on_loader``; loss finite and
+               falling, flash_fwd / flash_bwd_dq / flash_bwd_dkv launched
+               24 x 2 times per step; step time, tokens/s, MFU, peak
+               memory and a one-step profile;
+7. timings  -- per kernel: kernel ms, plain ms, one PyTorch library call's
                ms where one computes the same function, and the card's
-               bound for the same work.
+               bound for the same work (the backward kernels, and K1f
+               again, at the training flagship's per-call shape).
 
 Prints one JSON line per phase, the ``kernels`` JSON line, the card's name
 and power limit, and last ``{"ok": true, "device": {...}}``.  Exits non-zero
@@ -42,6 +59,27 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # unit-scale values: bf16 keeps 8 mantissa bits (relative step 2^-8 = 3.9e-3
 # near 1), plus a different fp32 summation order.
 KERNEL_TOL = 2e-2
+# the backward kernels' gradients span orders of magnitude along the
+# sequence (dv of key 0 sums over every row, dq of a late row is ~1/sqrt(s)),
+# so their error is held relative to the reference block by block: for each
+# 64-row block of one head of one batch row (BWD_BLOCK), ||got - ref||_F /
+# ||ref||_F <= BWD_TOL, and the same over the whole tensor.  The kernels
+# compute in fp32 and round only their bf16 outputs: an error uniform within
+# half an ulp (ulp 2^-7 on [1, 2)), about 1.6e-3 relative RMS.
+BWD_TOL = 1e-2
+BWD_BLOCK = 64
+# K1f's lse in fp32 (fast exp / log in the kernel): absolute.
+LSE_TOL = 1e-3
+# train_check: the card's bf16 step against the CPU's fp32 step on the same
+# weights and batch.  bf16 weights and activations through two layers move
+# the loss by well under 1 %; a wrong kernel moves it by far more, or turns
+# a gradient (a broken dq or dk shows in wq / wk, which the global norm
+# would hide).
+TRAIN_LOSS_RTOL = 1e-2
+GRAD_COS_MIN = 0.99
+# timed steps of the train phase, as many as one bench.py loop (each step
+# runs the CUDA-core attention kernels 48 times forward and backward: ~6 s)
+TRAIN_STEPS = 6
 # Near-argmax check of the card's greedy pick against fp32 CPU logits: the
 # picked token's CPU logit must be within this fraction of the CPU row's
 # logit range (max - min) of the row's maximum.  bf16 weights and
@@ -152,6 +190,40 @@ def ctx_case(torch, gen, sfx=(48, 64, 17, 64), ctx=(512, 500, 37, 512), N=8,
                 ctx_tables=tables.to(DEVICE), ctx_lens=lens.to(DEVICE))
 
 
+def bwd_case(torch, gen, b, s, hq, hkv, hd, seg_lens=None, cap=None):
+    """q / k / v / dO for the training backward; ``seg_lens``: each batch
+    row packs segments of these lengths (the rest pads as segment 0)."""
+    seg = None
+    if seg_lens is not None:
+        seg = torch.zeros(b, s, dtype=torch.int32)
+        cur = 0
+        for i, n in enumerate(seg_lens):
+            seg[:, cur:cur + n] = i + 1
+            cur += n
+        seg = seg.to(DEVICE)
+    return dict(q=_randn(torch, (b, s, hq, hd), gen, torch.bfloat16),
+                k=_randn(torch, (b, s, hkv, hd), gen, torch.bfloat16),
+                v=_randn(torch, (b, s, hkv, hd), gen, torch.bfloat16),
+                do=_randn(torch, (b, s, hq, hd), gen, torch.bfloat16), seg=seg, cap=cap)
+
+
+def rel_errs(torch, got, ref, rows=BWD_BLOCK):
+    """(whole-tensor, worst-block) relative Frobenius errors of ``got``
+    against ``ref``, both [b, s, h, d]; a block is ``rows`` sequence rows of
+    one head of one batch row (the last block of a ragged s is shorter)."""
+    e, r = got.float() - ref.float(), ref.float()
+    whole = float(e.norm() / r.norm())
+    b, s, h, d = r.shape
+    pad = -s % rows
+
+    def block_norms(x):
+        x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad))
+        return x.reshape(b, (s + pad) // rows, rows, h, d).pow(2).sum((2, 4)).sqrt()
+
+    worst = float((block_norms(e) / block_norms(r).clamp_min(1e-30)).max())
+    return whole, worst
+
+
 def _f32(case):
     return {k: (v.float() if hasattr(v, "dtype") and v.dtype.is_floating_point else v)
             for k, v in case.items()}
@@ -165,18 +237,28 @@ def kernel_checks(torch):
     from deepspeed_tpu_torch.ops.kernels import paged_attention as K2
 
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
-    errs = {"flash_fwd": 0.0, "paged_decode": 0.0, "ctx_attention": 0.0}
+    errs = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0,
+            "paged_decode": 0.0, "ctx_attention": 0.0}
     results = []
 
-    def record(name, label, got, ref, extra=None):
+    def record(name, label, got, ref, tol=KERNEL_TOL, relative=False):
+        """Absolute: max |got - ref| <= tol.  ``relative``: the whole-tensor
+        and the worst block's relative Frobenius error (``rel_errs``) <= tol."""
         torch.cuda.synchronize()
         if not bool(torch.isfinite(got).all()):
             raise AssertionError(f"{name} {label}: non-finite output")
         err = float((got.float() - ref.float()).abs().max())
         errs[name] = max(errs[name], err)
-        results.append(dict(kernel=name, case=label, max_abs_err=err, **(extra or {})))
-        if err > KERNEL_TOL:
-            raise AssertionError(f"{name} {label}: max abs err {err} > {KERNEL_TOL}")
+        row = dict(kernel=name, case=label, max_abs_err=err, limit=tol)
+        if relative:
+            whole, worst = rel_errs(torch, got, ref)
+            row.update(rel_err=whole, worst_block_rel_err=worst, limit_on="rel_err")
+            bad = max(whole, worst) > tol
+        else:
+            bad = err > tol
+        results.append(row)
+        if bad:
+            raise AssertionError(f"{name} {label}: {row} over the limit {tol}")
 
     for label, case in (
         ("T2048_16x128", flash_case(torch, gen, [128] * 16, 0)),
@@ -211,6 +293,30 @@ def kernel_checks(torch):
         if bool(pad.any()) and bool(got[pad].ne(0).any()):
             raise AssertionError(f"ctx_attention {label}: pad rows not exactly 0")
         record("ctx_attention", label, got, ref)
+
+    # the training backward: K1f with lse, then the dq and dk/dv kernels, each
+    # against the plain FA2 formulas on the same bf16 inputs (and the
+    # kernel's own o and lse), in fp32
+    for label, case in (
+        ("b1_s4096_hq8_hkv2_hd128", bwd_case(torch, gen, 1, 4096, 8, 2, 128)),
+        ("b2_s1024_packed_cap2", bwd_case(torch, gen, 2, 1024, 8, 2, 128,
+                                          seg_lens=[300, 500, 100, 124], cap=2.0)),
+        ("b2_s200_hq8_hkv2_hd128", bwd_case(torch, gen, 2, 200, 8, 2, 128)),
+        ("b1_s512_hq4_hkv4_hd64", bwd_case(torch, gen, 1, 512, 4, 4, 64)),
+    ):
+        q, k, v, do, seg, cap = (case[n] for n in ("q", "k", "v", "do", "seg", "cap"))
+        sc = q.shape[-1] ** -0.5
+        o, lse = K1.flash_attention_kernel(q, k, v, seg, sc, cap, return_lse=True)
+        dq, dk, dv = K1.flash_attention_bwd_kernel(q, k, v, seg, o, lse, do, sc, cap)
+        f = [x.float() for x in (q, k, v, o, do)]
+        _, lse_ref = K1.flash_attention_fwd_plain(f[0], f[1], f[2], seg, sc, cap)
+        dq_r, dk_r, dv_r = K1.flash_attention_bwd_plain(f[0], f[1], f[2], seg, f[3], lse,
+                                                         f[4], sc, cap)
+        record("flash_fwd", label + "_lse", lse, lse_ref, tol=LSE_TOL)
+        record("flash_bwd_dq", label, dq, dq_r, tol=BWD_TOL, relative=True)
+        record("flash_bwd_dkv", label + "_dk", dk, dk_r, tol=BWD_TOL, relative=True)
+        record("flash_bwd_dkv", label + "_dv", dv, dv_r, tol=BWD_TOL, relative=True)
+        del case, q, k, v, do, o, lse, dq, dk, dv, f, lse_ref, dq_r, dk_r, dv_r
     return errs, results
 
 
@@ -399,7 +505,162 @@ def scheduler_phase(torch, K, gpu, params, cfg):
 
 
 # ---------------------------------------------------------------------------
-# phase 5: timings and bounds
+# phases 5-6: training
+# ---------------------------------------------------------------------------
+def bench_config(micro, gas):
+    """The training flagship's engine config (``bench.py:58-68``)."""
+    return {
+        "train_micro_batch_size_per_gpu": micro,
+        "gradient_accumulation_steps": gas,
+        "optimizer": {"type": "adamw", "params": {"lr": 1e-4, "weight_decay": 0.1}},
+        "zero_optimization": {"stage": 3, "param_persistence_threshold": 0},
+        "bf16": {"enabled": True},
+        "steps_per_print": 1000000,
+    }
+
+
+def _attn_grads(torch, engine, micro):
+    """Gradients of one micro-batch's loss (``micro``: name -> [b, s + 1]
+    array) w.r.t. layer 0's attention weights (fp32 masters, through the
+    engine's compute-type cast)."""
+    from deepspeed_tpu_torch.runtime.precision import cast_floating
+
+    names = ("wq", "wk", "wv", "wo")
+    attn = engine.params["layers"]["attn"]
+    cp = cast_floating(engine.params, engine.compute_dtype)
+    loss = engine.model.loss_fn(cp, {k: torch.as_tensor(v).to(engine.device)
+                                     for k, v in micro.items()})
+    grads = torch.autograd.grad(loss, [attn[n] for n in names])
+    return {n: g[0].float().cpu().flatten() for n, g in zip(names, grads)}
+
+
+def train_check_phase(torch, K, gpu):
+    import numpy as np
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.models.presets import get_preset
+    from deepspeed_tpu_torch.models.transformer import CausalLM, init_params
+
+    seq, micro, gas, steps = 512, 2, 2, 2
+    cfg = get_preset("llama3_proxy_410m", num_layers=2, loss_chunk_size=2048)
+    params = init_params(cfg, seed=SEED, device="cpu", dtype=torch.float32)
+    batch = {"input_ids": np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (gas, micro, seq + 1), dtype=np.int64)}
+    card, _, _, _ = initialize(model=CausalLM(cfg), params=params,
+                               config=bench_config(micro, gas))
+    cpu, _, _, _ = initialize(model=CausalLM(cfg.replace(dtype=torch.float32)), params=params,
+                              config={**bench_config(micro, gas), "bf16": {"enabled": False}},
+                              device="cpu")
+    micro0 = {"input_ids": batch["input_ids"][0]}
+    g_card = _attn_grads(torch, card, micro0)
+    g_cpu = _attn_grads(torch, cpu, micro0)
+    cos = {n: float(torch.nn.functional.cosine_similarity(g_card[n], g_cpu[n], dim=0))
+           for n in g_card}
+    K.reset_launches()
+    card_losses = [float(card.train_batch(batch)) for _ in range(steps)]
+    launches = dict(K.LAUNCHES)
+    cpu_losses = [float(cpu.train_batch(batch)) for _ in range(steps)]
+    per_step = cfg.num_layers * gas
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        if launches[name] != per_step * steps:
+            raise AssertionError(f"train_check: {name} launched {launches[name]} times, "
+                                 f"expected {cfg.num_layers} x {gas} x {steps}")
+    rel = abs(card_losses[0] - cpu_losses[0]) / abs(cpu_losses[0])
+    if not all(np.isfinite(card_losses)) or rel > TRAIN_LOSS_RTOL:
+        raise AssertionError(f"train_check: step-1 loss card {card_losses[0]} vs CPU "
+                             f"{cpu_losses[0]} (rel {rel} > {TRAIN_LOSS_RTOL})")
+    bad = {n: c for n, c in cos.items() if not c > GRAD_COS_MIN}
+    if bad:
+        raise AssertionError(f"train_check: gradient cosine similarity {bad} <= {GRAD_COS_MIN}")
+    res = dict(phase="train_check", model="llama3_proxy_410m", layers=cfg.num_layers,
+               seq=seq, micro_batch=micro, gas=gas, steps=steps, card_losses=card_losses,
+               cpu_losses=cpu_losses, step1_loss_rel_err=rel, grad_cosine_layer0=cos,
+               launches=launches, gpu=gpu)
+    emit(res)
+    return res
+
+
+def _device_profile(torch, fn, n=1):
+    """(wall ms per call, device ms per call or None, top device rows) of
+    ``n`` calls of ``fn`` under ``torch.profiler`` (device-side rows only:
+    an operator's row repeats its kernels' time)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0) / n
+    evs = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    dev_ms = sum(e.self_device_time_total for e in evs) / 1e3 / n if evs else None
+    top = sorted(evs, key=lambda e: -e.self_device_time_total)[:10]
+    rows = [dict(name=e.key[:60], ms_per_call=e.self_device_time_total / 1e3 / n,
+                 calls=e.count / n) for e in top]
+    return wall_ms, dev_ms, rows
+
+
+def train_phase(torch, K, gpu):
+    import itertools
+
+    import numpy as np
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.models.presets import get_preset
+    from deepspeed_tpu_torch.models.transformer import CausalLM
+
+    micro, seq, gas = 8, 4096, 2
+    model = CausalLM(get_preset("llama3_proxy_410m", loss_chunk_size=2048))
+    cfg = model.cfg
+    torch.cuda.reset_peak_memory_stats()
+    engine, _, _, _ = initialize(model=model, config=bench_config(micro, gas))
+    batch = {"input_ids": np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (gas, micro, seq + 1), dtype=np.int64)}
+    t0 = time.perf_counter()
+    first = float(engine.train_batch(batch))  # warm-up (cuBLAS handles, allocator)
+    warm_s = time.perf_counter() - t0
+    K.reset_launches()
+    step_s = []
+    t0 = t_prev = time.perf_counter()
+    for _ in engine.train_on_loader(itertools.repeat(batch, TRAIN_STEPS)):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        step_s.append(t - t_prev)
+        t_prev = t
+    last = engine.get_last_loss()
+    loop_s = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    per_step = cfg.num_layers * gas
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        if launches[name] != per_step * TRAIN_STEPS:
+            raise AssertionError(f"train: {name} launched {launches[name]} times in "
+                                 f"{TRAIN_STEPS} steps, expected {per_step} per step")
+    if not (np.isfinite(first) and np.isfinite(last) and last < first):
+        raise AssertionError(f"train: loss not finite and falling: first {first}, last {last}")
+    peak = torch.cuda.max_memory_allocated()
+    wall_ms, dev_ms, rows = _device_profile(torch, lambda: engine.train_batch(batch))
+    med = sorted(step_s)[len(step_s) // 2]
+    tokens = gas * micro * seq
+    flops_tok = model.flops_per_token(seq)
+    res = dict(phase="train", model="llama3_proxy_410m", layers=cfg.num_layers, seq=seq,
+               micro_batch=micro, gas=gas, remat=cfg.remat, loss_chunk_size=cfg.loss_chunk_size,
+               params=model.param_count, warmup_step_s=warm_s, timed_steps=TRAIN_STEPS,
+               step_s=step_s, step_s_median=med, loop_s_per_step=loop_s / TRAIN_STEPS,
+               tokens_per_step=tokens, tokens_per_s=tokens / med,
+               flops_per_token=flops_tok, mfu=tokens / med * flops_tok / PEAK_BF16_FLOPS,
+               loss_first=first, loss_last=last, peak_memory_bytes=peak,
+               launches=launches, launches_per_step={n: launches[n] / TRAIN_STEPS
+                                                     for n in launches},
+               profile_step_wall_ms=wall_ms, profile_step_device_ms=dev_ms,
+               device_idle_share=None if dev_ms is None else 1.0 - dev_ms / wall_ms,
+               profile_top=rows, gpu=gpu)
+    emit(res)
+    del engine
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 7: timings and bounds
 # ---------------------------------------------------------------------------
 def time_ms(torch, fn, iters=30, warm=3):
     for _ in range(warm):
@@ -487,14 +748,93 @@ def timings(torch):
         library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
             qs, ks, vs, attn_mask=smask, enable_gqa=True)),
         bound_ms=bound, bound_by=by)
+    del c, ks, vs, qs
+    out.update(train_timings(torch, gen))
     return out
+
+
+def train_timings(torch, gen):
+    """K1b (and K1f again) at the training flagship's per-call shape: b 8,
+    s 4096, hq 8 / hkv 2, hd 128, no segments.  Bounds: 10 hd flops per
+    causal (query, key, q-head) pair for the backward pair (6 hd for dq
+    alone, 8 hd for dk/dv alone: each recomputes q.k and dO.v), 4 hd for the
+    forward; bytes of each input read once and each output written once."""
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops import kernels as K
+    from deepspeed_tpu_torch.ops.attention import dot_product_attention
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as K1
+
+    b, s, hq, hkv, hd = 8, 4096, 8, 2, 128
+    c = bwd_case(torch, gen, b, s, hq, hkv, hd)
+    q, k, v, do = c["q"], c["k"], c["v"], c["do"]
+    del c
+    o, lse = K1.flash_attention_kernel(q, k, v, return_lse=True)
+    pairs = b * hq * s * (s + 1) // 2
+    shape = f"b{b} s{s} hq{hq} hkv{hkv} hd{hd} causal"
+    delta = (o.float() * do.float()).sum(-1)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    sc, cap = K.scalars(hd ** -0.5, None)
+    common = (K.ptr(q), K.ptr(k), K.ptr(v), None, K.ptr(do), K.ptr(lse), K.ptr(delta))
+    ms_dq = time_ms(torch, lambda: K.launch("flash_bwd_dq", *common, K.ptr(dq),
+                                            b, s, hq, hkv, hd, sc, cap), iters=5, warm=1)
+    ms_dkv = time_ms(torch, lambda: K.launch("flash_bwd_dkv", *common, K.ptr(dk), K.ptr(dv),
+                                             b, s, hq, hkv, hd, sc, cap), iters=5, warm=1)
+    ms_pair = time_ms(torch, lambda: K1.flash_attention_bwd_kernel(q, k, v, None, o, lse, do),
+                      iters=5, warm=1)
+    ms_fwd = time_ms(torch, lambda: K1.flash_attention_kernel(q, k, v, return_lse=True),
+                     iters=5, warm=1)
+    del delta
+    plain_bwd = time_ms(torch, lambda: K1.flash_attention_bwd_plain(
+        q, k, v, None, o, lse, do, hd ** -0.5, None), iters=2, warm=1)
+    plain_fwd = time_ms(torch, lambda: dot_product_attention(q, k, v), iters=2, warm=1)
+    torch.cuda.empty_cache()
+    # library yardsticks (timed only; the port never calls them): one
+    # scaled_dot_product_attention call forward, and its backward alone
+    qt, kt, vt, dot = (x.transpose(1, 2).contiguous().requires_grad_(x is not do)
+                       for x in (q, k, v, do))
+    lib_fwd = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True), iters=5, warm=1)
+    lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+    lib_bwd = time_ms(torch, lambda: torch.autograd.grad(lib_out, (qt, kt, vt), dot,
+                                                         retain_graph=True), iters=5, warm=1)
+    qkvo = _nbytes(q, k, v, o, do, lse)
+    b_pair = _bound(10 * hd * pairs, qkvo + _nbytes(q, k, v))
+    b_dq = _bound(6 * hd * pairs, qkvo + _nbytes(q))
+    b_dkv = _bound(8 * hd * pairs, qkvo + _nbytes(k, v))
+    b_fwd = _bound(4 * hd * pairs, _nbytes(q, k, v, q, lse))
+    bwd_note = ("plain_ms and library_ms time the whole backward (dq, dk and dv together): "
+                "neither splits into the two kernels.  bound_ms counts this kernel's own "
+                "work (6 hd flops per causal pair for dq, 8 hd for dk/dv), which includes "
+                "the split's recompute of q.k and dO.v: the two add to more than the "
+                "backward's own bound (10 hd), pair_bound_ms, beside pair_ms")
+    pair = dict(pair_ms=ms_pair, pair_bound_ms=b_pair[0])
+    return {
+        "flash_bwd_dq": dict(shape=shape, ms=ms_dq, plain_ms=plain_bwd, library_ms=lib_bwd,
+                             bound_ms=b_dq[0], bound_by=b_dq[1], note=bwd_note, **pair),
+        "flash_bwd_dkv": dict(shape=shape, ms=ms_dkv, plain_ms=plain_bwd, library_ms=lib_bwd,
+                              bound_ms=b_dkv[0], bound_by=b_dkv[1], note=bwd_note, **pair),
+        "flash_bwd_pair": dict(shape=shape, ms=ms_pair, plain_ms=plain_bwd, library_ms=lib_bwd,
+                               bound_ms=b_pair[0], bound_by=b_pair[1],
+                               note="dq + dk/dv kernels and the delta reduction"),
+        "flash_fwd_train": dict(shape=shape + " (with lse)", ms=ms_fwd, plain_ms=plain_fwd,
+                                library_ms=lib_fwd, bound_ms=b_fwd[0], bound_by=b_fwd[1]),
+    }
 
 
 REPLACES = {
     "flash_fwd": "deepspeed_tpu/ops/pallas/flash_kernel.py:253",
+    "flash_bwd_dq": "deepspeed_tpu/ops/pallas/flash_kernel.py:384",
+    "flash_bwd_dkv": "deepspeed_tpu/ops/pallas/flash_kernel.py:407",
     "paged_decode": "deepspeed_tpu/ops/pallas/paged_attention.py:270",
     "ctx_attention": "deepspeed_tpu/ops/pallas/ctx_attention.py:244",
 }
+
+
+def _free(torch):
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def main() -> None:
@@ -512,32 +852,54 @@ def main() -> None:
     from deepspeed_tpu_torch.ops import kernels as K
 
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     gpu = gpu_line()
 
     build = K.build()
-    ptxas = {n: [ln.strip() for ln in K.build_log(n).splitlines() if "registers" in ln]
-             for n in K.SOURCES}
+    ptxas = {src: [ln.strip() for ln in K.build_log(src).splitlines() if "registers" in ln]
+             for src in dict.fromkeys(K.SOURCES.values())}
     emit(dict(phase="build", seconds=build["seconds"], built=build["built"],
               ptxas=ptxas, gpu=gpu))
 
     errs, cases = kernel_checks(torch)
-    emit(dict(phase="kernels", tolerance=KERNEL_TOL, cases=cases, gpu=gpu))
+    emit(dict(phase="kernels", tolerance=KERNEL_TOL, bwd_tolerance=BWD_TOL,
+              lse_tolerance=LSE_TOL, cases=cases, gpu=gpu))
+    _free(torch)
 
     cfg = get_preset("llama3_proxy_410m")
     params = init_params(cfg, seed=SEED, device="cuda")
     eng = engine_phase(torch, K, gpu, params, cfg)
     sch = scheduler_phase(torch, K, gpu, params, cfg)
+    del params
+    _free(torch)
+    train_check_phase(torch, K, gpu)
+    _free(torch)
+    tr = train_phase(torch, K, gpu)
+    _free(torch)
 
     times = timings(torch)
+    emit(dict(phase="timings", flash_bwd_pair=times.pop("flash_bwd_pair"),
+              flash_fwd_train=times["flash_fwd_train"], gpu=gpu))
+    # launches of the main paths (serving engine, scheduler, training), each
+    # read right after its own run
+    main_paths = (eng, sch, tr)
+    per_forward = {**eng["launches_per_forward"], **sch["launches_per_forward"]}
     kernels = []
     for name in K.SOURCES:
-        kernels.append(dict(
-            name=name, route="cuda", source=f"deepspeed_tpu_torch/csrc/{K.SOURCES[name]}",
-            replaces=REPLACES[name],
-            launches=eng["launches"][name] + sch["launches"][name],
-            launches_per_forward={**eng["launches_per_forward"],
-                                  **sch["launches_per_forward"]}[name],
-            max_abs_err=errs[name], **times[name]))
+        launches = sum(p["launches"][name] for p in main_paths)
+        if launches == 0:
+            raise AssertionError(f"kernel {name} never launched on the main paths")
+        entry = dict(name=name, route="cuda",
+                     source=f"deepspeed_tpu_torch/csrc/{K.SOURCES[name]}",
+                     replaces=REPLACES[name], launches=launches,
+                     max_abs_err=errs[name], **times[name])
+        if name in per_forward:  # serving: launches per model forward
+            entry["launches_per_forward"] = per_forward[name]
+        if tr["launches"][name]:  # training: launches per optimizer step
+            entry["launches_per_train_step"] = tr["launches_per_step"][name]
+        if name == "flash_fwd":
+            entry["at_train_shape"] = times["flash_fwd_train"]
+        kernels.append(entry)
     emit({"kernels": kernels})
     print(gpu, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,13 +1,64 @@
 """deepspeed_tpu_torch — the PyTorch / CUDA port of ``deepspeed_tpu``.
 
 A second package beside the JAX one, mirroring its module layout
-(``models``, ``ops``, ``inference``) so each module's counterpart is found
-by name.  It imports ``torch`` and never ``jax`` or ``deepspeed_tpu``.
-Entry points run on a CUDA device unless the caller passes
-``device="cpu"``; every Pallas kernel of the ported path is a hand-written
-CUDA kernel under ``csrc/`` (see ``ops/kernels``).
+(``models``, ``ops``, ``inference``, ``runtime``, ``config``, ``sequence``)
+so each module's counterpart is found by name.  It imports ``torch`` and
+never ``jax`` or ``deepspeed_tpu``.  Entry points run on a CUDA device
+unless the caller passes ``device="cpu"``; every Pallas kernel of the ported
+paths is a hand-written CUDA kernel under ``csrc/`` (see ``ops/kernels``).
 
-Ported so far: the serving path — ``inference.engine_v2.InferenceEngineV2``
-(paged KV cache, packed prefill, prefix caching, chunked prefill, batched
-decode) and its ``inference.scheduler.ServeScheduler``.
+Ported so far:
+
+- serving: ``inference.engine_v2.InferenceEngineV2`` (paged KV cache, packed
+  prefill, prefix caching, chunked prefill, batched decode) and its
+  ``inference.scheduler.ServeScheduler``;
+- training: ``initialize`` -> ``runtime.engine.DeepSpeedTorchEngine``
+  (``train_batch``, ``train_on_loader``) over ``models.transformer.CausalLM``
+  on one GPU.
 """
+from __future__ import annotations
+
+from typing import Any, Callable, Optional
+
+
+def initialize(model=None, params: Any = None, config: Any = None, device=None,
+               loss_fn: Optional[Callable] = None, mesh=None, training_data=None):
+    """Build the training engine — ``deepspeed_tpu.initialize`` on one GPU.
+
+    ``model`` is a ``models.transformer.CausalLM`` (or pass ``loss_fn`` and
+    ``params``); ``params=None`` initialises fp32 parameters from
+    ``config['seed']`` on the device.  ``device`` is CUDA unless the caller
+    names another.  Returns ``(engine, engine, dataloader, lr_scheduler)``
+    like the reference; the dataloader is None.
+
+    Refused with ``NotImplementedError``: a Hugging Face directory as
+    ``model`` and ``training_data`` (the data loader; ROADMAP queue 1
+    item 9), and ``mesh`` (one device only; item 7)."""
+    from .config.config import parse_config
+    from .ops.kernels import resolve_device
+    from .runtime.engine import DeepSpeedTorchEngine
+
+    if isinstance(model, str):
+        raise NotImplementedError("loading a Hugging Face directory is not ported yet "
+                                  "(ROADMAP queue 1 item 9)")
+    if mesh is not None:
+        raise NotImplementedError("a device mesh is not ported yet: the port trains on "
+                                  "one device (ROADMAP queue 1 item 7)")
+    if training_data is not None:
+        raise NotImplementedError("training_data (the data loader) is not ported yet "
+                                  "(ROADMAP queue 1 item 9); pass batches to train_batch "
+                                  "or an iterable to train_on_loader")
+    cfg = parse_config(config)
+    cfg.finalize(1)
+    device = resolve_device(device)
+    if loss_fn is None:
+        if model is None:
+            raise ValueError("initialize() needs model= or (loss_fn, params)")
+        loss_fn = model.loss_fn
+    if params is None:
+        if model is None:
+            raise ValueError("initialize() needs params with a bare loss_fn")
+        params = model.init_params(seed=cfg.seed, device=device)
+    engine = DeepSpeedTorchEngine(loss_fn, params, cfg, device)
+    engine.model = model
+    return engine, engine, None, engine.lr_scheduler

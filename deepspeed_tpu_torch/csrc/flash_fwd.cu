@@ -6,8 +6,10 @@
 //
 // What it computes: o[b, i, h] = softmax_j(cap(q_i . k_j * scale)) v_j over
 // keys j with j <= i and seg[b, j] == seg[b, i] (every key when seg is
-// null), kv head h / (hq / hkv); fp32 softmax, bf16 out.  No lse output:
-// serving never reads it (the training backward is a later kernel).
+// null), kv head h / (hq / hkv); fp32 softmax, bf16 out.  With a non-null
+// `lse` it also writes lse[b, h, i] = m + log(l), the log-sum-exp of the
+// capped scaled scores (flash_kernel.py:170), which the training backward
+// (flash_bwd.cu) reads to rebuild the probabilities; serving passes null.
 //
 // Bound on H100: in-segment causal work is 4 * hd flops per (query, key,
 // head) -- compute-bound for long segments, byte-bound for the short
@@ -29,7 +31,8 @@ template <int HD>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, const int* __restrict__ seg,
-                 bf16* __restrict__ o, int s, int hq, int hkv, float scale, float cap) {
+                 bf16* __restrict__ o, float* __restrict__ lse, int s, int hq, int hkv,
+                 float scale, float cap) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ int qseg[kMaxPairs];
   __shared__ int kseg[kKeyTile];
@@ -94,11 +97,23 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   store_out<HD>(st, npairs, [&](int p) {
     return ob + (row0 + p / g) * qstride + (h * g + p % g) * HD;
   });
+  if (lse != nullptr && threadIdx.x % 32 == 0) {
+    const int warp = threadIdx.x / 32;
+#pragma unroll
+    for (int i = 0; i < kPPW; ++i) {
+      const int p = warp + kWarps * i;
+      if (p >= npairs) break;
+      const int head = h * g + p % g;
+      lse[(static_cast<size_t>(b) * hq + head) * s + row0 + p / g] =
+          st.m[i] + logf(fmaxf(st.l[i], 1e-30f));
+    }
+  }
 }
 
 template <int HD>
-cudaError_t launch(const void* q, const void* k, const void* v, const int* seg, void* o, int b,
-                   int s, int hq, int hkv, float scale, float cap, cudaStream_t stream) {
+cudaError_t launch(const void* q, const void* k, const void* v, const int* seg, void* o,
+                   float* lse, int b, int s, int hq, int hkv, float scale, float cap,
+                   cudaStream_t stream) {
   const size_t smem = smem_bytes<HD, kPPW>();
   cudaError_t err = allow_smem(flash_fwd_kernel<HD>, smem);
   if (err != cudaSuccess) return err;
@@ -106,23 +121,24 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* seg, 
   const dim3 grid((s + bm - 1) / bm, hkv, b);
   flash_fwd_kernel<HD><<<grid, kThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v), seg,
-      static_cast<bf16*>(o), s, hq, hkv, scale, cap);
+      static_cast<bf16*>(o), lse, s, hq, hkv, scale, cap);
   return cudaGetLastError();
 }
 
 }  // namespace dst
 
 // q [b, s, hq, hd], k/v [b, s, hkv, hd] bf16 contiguous; seg [b, s] int32 or
-// null; o [b, s, hq, hd] bf16.  cap <= 0 disables the soft cap.  Returns the
-// launch's cudaGetLastError() (non-zero: nothing ran).
+// null; o [b, s, hq, hd] bf16; lse [b, hq, s] fp32 or null.  cap <= 0
+// disables the soft cap.  Returns the launch's cudaGetLastError() (non-zero:
+// nothing ran).
 extern "C" int dst_flash_fwd(const void* q, const void* k, const void* v, const int* seg, void* o,
-                             int b, int s, int hq, int hkv, int hd, float scale, float cap,
-                             void* stream) {
+                             float* lse, int b, int s, int hq, int hkv, int hd, float scale,
+                             float cap, void* stream) {
   if (hkv <= 0 || hq % hkv || hq / hkv > dst::kMaxPairs) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (hd) {
-    case 64: return dst::launch<64>(q, k, v, seg, o, b, s, hq, hkv, scale, cap, st);
-    case 128: return dst::launch<128>(q, k, v, seg, o, b, s, hq, hkv, scale, cap, st);
+    case 64: return dst::launch<64>(q, k, v, seg, o, lse, b, s, hq, hkv, scale, cap, st);
+    case 128: return dst::launch<128>(q, k, v, seg, o, lse, b, s, hq, hkv, scale, cap, st);
     default: return cudaErrorInvalidValue;
   }
 }

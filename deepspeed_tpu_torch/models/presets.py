@@ -1,6 +1,7 @@
 """Named architecture presets — counterpart of ``deepspeed_tpu/models/
-presets.py``.  Ported so far: the serving slice's flagship and the test
-config; other families follow with the modules they need."""
+presets.py``.  Ported so far: the flagship of the serving and training
+slices and the test config; other families follow with the modules they
+need."""
 from __future__ import annotations
 
 from .transformer import TransformerConfig
@@ -19,10 +20,12 @@ def get_preset(name: str, **overrides) -> TransformerConfig:
 
 
 # ~410M-parameter Llama-3-shaped model: GQA 4:1, head_dim 128, RMSNorm,
-# SwiGLU, RoPE (the repository's serving benchmark model)
+# SwiGLU, RoPE (the repository's serving and training benchmark model);
+# trains with selective remat and the flash kernels, as in JAX
 register("llama3_proxy_410m", TransformerConfig(
     vocab_size=32128, hidden_size=1024, intermediate_size=4096, num_layers=24,
-    num_heads=8, num_kv_heads=2, max_seq_len=4096, rope_theta=500_000.0))
+    num_heads=8, num_kv_heads=2, max_seq_len=4096, rope_theta=500_000.0,
+    remat="selective", attn_impl="auto"))
 
 # tiny config for tests
 register("tiny", TransformerConfig(

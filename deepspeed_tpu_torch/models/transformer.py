@@ -1,20 +1,41 @@
-"""Decoder-only transformer building blocks — counterpart of
-``deepspeed_tpu/models/transformer.py`` (the subset serving reads).
+"""Decoder-only transformer — counterpart of ``deepspeed_tpu/models/
+transformer.py``: the building blocks serving reads, and the training half
+(``decoder_layer``, ``forward`` with remat,
+``cross_entropy_loss`` and the ``CausalLM`` adapter ``initialize`` takes).
 
 Parameters keep the JAX layout so converting a JAX checkpoint is a copy: a
 nested dict with stacked ``[L, ...]`` layer weights and ``[in, out]``
-kernels (``params_from_numpy``).  The training half (forward, remat, loss)
-comes with the training slice.
+kernels (``params_from_numpy``).  ``forward`` is a Python loop over the
+stacked layers (JAX scans them).  Remat policies: ``none``, ``full`` (each
+layer under ``torch.utils.checkpoint``) and ``selective``, which keeps the
+JAX save set (q, k, v and the attention output, ``transformer.py:306-313``)
+without a selective-checkpoint policy: norm, q/k/v and rope run under one
+checkpoint, the flash attention Function outside it (it saves q/k/v/o/lse
+itself), and the output projection, residual, MLP norm, MLP and residual
+under a second checkpoint.
+
+Not ported, each refused with ``NotImplementedError`` naming the option and
+its ROADMAP queue-1 item: MoE layers (item 7), ``domino_chunks`` (item 7),
+sequence parallelism (item 7), ``act_quant_bits`` (item 9, compression),
+block-sparse attention (item 8), the ``dots`` / ``offload`` remat policies
+and ``CausalLM(stack_apply=...)`` (item 7: pipeline), progressive layer drop
+(a batch's ``pld_theta``, item 9).  Manual tensor parallelism (JAX
+``decoder_layer``'s ``tp_axis``, item 7) has no counterpart here: one GPU.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from dataclasses import dataclass
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+from ..ops.attention import get_attention_impl
+from ..ops.kernels import resolve_device
 
 Params = Dict[str, Any]
 
@@ -46,10 +67,29 @@ class TransformerConfig:
     head_bias: bool = False
     moe_num_experts: int = 0
     dtype: torch.dtype = torch.bfloat16
+    # training
+    remat: str = "none"  # 'none' | 'full' | 'selective'
+    attn_impl: str = "reference"  # 'reference' | 'math' | 'flash' | 'auto'
+    loss_chunk_size: int = 0  # chunked logits + loss; 0 = full logits
+    # JAX options the port refuses so far (see the module docstring)
+    sequence_parallel: str = "none"
+    act_quant_bits: Optional[int] = None
+    sparse_attention: Optional[Any] = None
+    domino_chunks: int = 1
 
     @property
     def hd(self) -> int:
         return self.head_dim or self.hidden_size // self.num_heads
+
+    @property
+    def param_count(self) -> int:
+        d, f, L, v = self.hidden_size, self.intermediate_size, self.num_layers, self.vocab_size
+        hq, hkv, hd = self.num_heads, self.num_kv_heads, self.hd
+        attn = d * hq * hd + 2 * d * hkv * hd + hq * hd * d
+        mlp = (3 if self.gated_mlp else 2) * d * f
+        per_layer = attn + mlp + 2 * d
+        emb = v * d * (1 if self.tie_embeddings else 2)
+        return L * per_layer + emb + d
 
     def replace(self, **kw) -> "TransformerConfig":
         return dataclasses.replace(self, **kw)
@@ -61,13 +101,15 @@ class TransformerConfig:
 def init_params(cfg: TransformerConfig, seed: int = 0, device=None,
                 dtype: Optional[torch.dtype] = None) -> Params:
     """Random parameters in the JAX layout (normal / sqrt(fan_in), norms at
-    1, biases at 0), drawn from a ``torch.Generator`` seeded with ``seed``.
-    The numbers differ from JAX ``init_params`` for the same seed; tests
-    that compare the two packages use ``params_from_numpy`` instead."""
+    1, biases at 0), drawn from a ``torch.Generator`` seeded with ``seed``,
+    on ``device`` (CUDA unless the caller names another; see
+    ``ops.kernels.resolve_device``).  The numbers differ from JAX
+    ``init_params`` for the same seed; tests that compare the two packages
+    use ``params_from_numpy`` instead."""
     if cfg.moe_num_experts:
-        raise NotImplementedError("MoE layers are not ported yet")
+        raise NotImplementedError("MoE layers are not ported yet (ROADMAP queue 1 item 7)")
     dtype = dtype or cfg.dtype
-    device = torch.device(device) if device is not None else torch.device("cpu")
+    device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     d, f, L, v = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers, cfg.vocab_size
     hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
@@ -87,9 +129,10 @@ def init_params(cfg: TransformerConfig, seed: int = 0, device=None,
             "wo": dense((L, hq * hd, d), hq * hd),
         },
         "attn_norm": {"scale": const((L, d), 1.0)},
-        "mlp_norm": {"scale": const((L, d), 1.0)},
         "mlp": {"w_up": dense((L, d, f), d), "w_down": dense((L, f, d), f)},
     }
+    if not cfg.parallel_block:  # a parallel block shares attn_norm
+        layers["mlp_norm"] = {"scale": const((L, d), 1.0)}
     if cfg.gated_mlp:
         layers["mlp"]["w_gate"] = dense((L, d, f), d)
     if cfg.qkv_bias:
@@ -112,8 +155,10 @@ def init_params(cfg: TransformerConfig, seed: int = 0, device=None,
     if cfg.embedding_norm:
         params["embed_norm"] = {"scale": const((d,), 1.0)}
     if cfg.norm == "layernorm":
-        for blk in (layers["attn_norm"], layers["mlp_norm"], params["final_norm"]):
-            blk["bias"] = torch.zeros_like(blk["scale"])
+        for name in ("attn_norm", "mlp_norm"):
+            if name in layers:
+                layers[name]["bias"] = torch.zeros_like(layers[name]["scale"])
+        params["final_norm"]["bias"] = torch.zeros_like(params["final_norm"]["scale"])
         if cfg.embedding_norm:
             params["embed_norm"]["bias"] = const((d,), 0.0)
     if not cfg.tie_embeddings:
@@ -127,10 +172,11 @@ def params_from_numpy(tree, cfg: TransformerConfig, device=None,
                       dtype: Optional[torch.dtype] = None) -> Params:
     """The JAX parameter tree, after ``jax.tree_util.tree_map(np.asarray,
     ...)`` (a nested dict of numpy arrays), as the port's parameters: the
-    same nested dict of tensors on ``device`` in ``dtype`` (default
-    ``cfg.dtype``).  The layouts are identical, so this is a copy."""
+    same nested dict of tensors on ``device`` (CUDA unless the caller names
+    another) in ``dtype`` (default ``cfg.dtype``).  The layouts are
+    identical, so this is a copy."""
     dtype = dtype or cfg.dtype
-    device = torch.device(device) if device is not None else torch.device("cpu")
+    device = resolve_device(device)
 
     def conv(x):
         if isinstance(x, dict):
@@ -140,7 +186,7 @@ def params_from_numpy(tree, cfg: TransformerConfig, device=None,
 
     params = conv(tree)
     if "moe" in params.get("layers", {}):
-        raise NotImplementedError("MoE layers are not ported yet")
+        raise NotImplementedError("MoE layers are not ported yet (ROADMAP queue 1 item 7)")
     return params
 
 
@@ -222,3 +268,276 @@ def head_bias_vec(params: Params):
     """[v] lm_head bias or None."""
     lm = params.get("lm_head")
     return lm.get("bias") if lm else None
+
+
+# ---------------------------------------------------------------------------
+# training half
+# ---------------------------------------------------------------------------
+_REMAT = ("none", "full", "selective")
+
+
+def _refuse_unported(cfg: TransformerConfig) -> None:
+    """Raise for a JAX option the port does not run yet, naming it and its
+    ROADMAP queue-1 item; never run a different computation quietly."""
+    refused = [
+        (cfg.moe_num_experts > 0, "moe_num_experts (MoE layers)", 7),
+        (cfg.sequence_parallel != "none", f"sequence_parallel={cfg.sequence_parallel!r}", 7),
+        (cfg.domino_chunks != 1, "domino_chunks", 7),
+        (cfg.sparse_attention is not None, "sparse_attention", 8),
+        (cfg.act_quant_bits is not None, "act_quant_bits", 9),
+    ]
+    for bad, what, item in refused:
+        if bad:
+            raise NotImplementedError(f"{what} is not ported yet (ROADMAP queue 1 item {item})")
+    if cfg.remat not in _REMAT:
+        if cfg.remat in ("dots", "offload"):
+            raise NotImplementedError(
+                f"remat={cfg.remat!r} is not ported yet (ROADMAP queue 1 item 7); "
+                f"use one of {_REMAT}")
+        raise ValueError(f"unknown remat policy {cfg.remat!r}")
+
+
+def get_attn_fn(cfg: TransformerConfig, device) -> Callable:
+    """The attention body of ``cfg`` on ``device`` (JAX ``_get_attn_fn``):
+    ALiBi needs the reference body, the only one with a bias operand."""
+    if cfg.position == "alibi" and cfg.attn_impl not in ("reference", "math"):
+        raise NotImplementedError("position='alibi' requires attn_impl='reference'")
+    return get_attention_impl(cfg.attn_impl, device)
+
+
+def alibi_slopes(num_heads: int) -> torch.Tensor:
+    """Per-head ALiBi slopes: the geometric sequence 2^(-8/n) with the
+    standard extension for a head count that is not a power of 2."""
+
+    def pow2_slopes(n):
+        start = 2.0 ** (-(2.0 ** -(math.log2(n) - 3)))
+        return [start * (start ** i) for i in range(n)]
+
+    n = 2 ** int(math.floor(math.log2(num_heads)))
+    slopes = pow2_slopes(n)
+    if n < num_heads:
+        slopes += pow2_slopes(2 * n)[0::2][: num_heads - n]
+    return torch.tensor(slopes, dtype=torch.float32)
+
+
+def alibi_bias(num_heads: int, q_positions: torch.Tensor,
+               kv_positions: torch.Tensor) -> torch.Tensor:
+    """Additive bias ``-slope_h * max(q_pos - k_pos, 0)``: [h, sq, skv] for
+    [s] positions, [b, h, sq, skv] when either is per batch row [b, s]."""
+    batched = q_positions.dim() == 2 or kv_positions.dim() == 2
+    q2 = q_positions if q_positions.dim() == 2 else q_positions[None]
+    k2 = kv_positions if kv_positions.dim() == 2 else kv_positions[None]
+    dist = q2[:, :, None].float() - k2[:, None, :].float()
+    slopes = alibi_slopes(num_heads).to(dist.device)
+    bias = -slopes[None, :, None, None] * dist.clamp(min=0.0)[:, None]
+    return bias if batched else bias[0]
+
+
+def _qkv(lw: Params, x: torch.Tensor, cfg: TransformerConfig, rope_cs):
+    """q [b, s, hq, hd], k / v [b, s, hkv, hd] with biases and (partial)
+    rotary applied; ``rope_cs`` is ``rope_tables`` over the rotary dims."""
+    b, s, _ = x.shape
+    hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    q, k, v = x @ lw["wq"], x @ lw["wk"], x @ lw["wv"]
+    if cfg.qkv_bias:
+        q, k, v = q + lw["bq"], k + lw["bk"], v + lw["bv"]
+    q = q.reshape(b, s, hq, hd)
+    k = k.reshape(b, s, hkv, hd)
+    v = v.reshape(b, s, hkv, hd)
+    if cfg.position == "rope":
+        rot = cfg.rotary_dim or hd
+        if rot < hd:  # partial rotary: the first `rot` dims rotate
+            q = torch.cat([apply_rope(q[..., :rot], *rope_cs), q[..., rot:]], -1)
+            k = torch.cat([apply_rope(k[..., :rot], *rope_cs), k[..., rot:]], -1)
+        else:
+            q, k = apply_rope(q, *rope_cs), apply_rope(k, *rope_cs)
+    return q, k, v
+
+
+def _attend(q, k, v, cfg: TransformerConfig, positions, attn_fn, segment_ids):
+    kw = {}
+    if cfg.position == "alibi":
+        if segment_ids is not None:
+            raise NotImplementedError(
+                "position='alibi' does not support packed sequences (segment_ids)")
+        kw["bias"] = alibi_bias(cfg.num_heads, positions, positions)
+    return attn_fn(q, k, v, causal=True, segment_ids=segment_ids,
+                   logits_soft_cap=cfg.logits_soft_cap, **kw)
+
+
+def _out_proj(lw: Params, o: torch.Tensor) -> torch.Tensor:
+    b, s = o.shape[:2]
+    out = o.reshape(b, s, -1) @ lw["wo"]
+    if "bo" in lw:
+        out = out + lw["bo"]
+    return out
+
+
+def _pre_attention(lw: Params, x, cfg: TransformerConfig, rope_cs):
+    return _qkv(lw["attn"], norm(x, lw["attn_norm"], cfg.norm, cfg.norm_eps), cfg, rope_cs)
+
+
+def _post_attention(lw: Params, x, o, cfg: TransformerConfig):
+    """wo, residual, MLP norm, MLP and residual (a parallel block reads the
+    attention norm for both branches and adds both to one residual)."""
+    h = _out_proj(lw["attn"], o).to(x.dtype)
+    if cfg.parallel_block:
+        m = mlp_block(lw["mlp"], norm(x, lw["attn_norm"], cfg.norm, cfg.norm_eps), cfg)
+        return x + h + m.to(x.dtype)
+    x = x + h
+    y = norm(x, lw["mlp_norm"], cfg.norm, cfg.norm_eps)
+    return x + mlp_block(lw["mlp"], y, cfg).to(x.dtype)
+
+
+def decoder_layer(lw: Params, x: torch.Tensor, cfg: TransformerConfig, positions,
+                  attn_fn: Callable, segment_ids, rope_cs) -> torch.Tensor:
+    """Pre-norm residual block (dense MLP, or the parallel block).  JAX's
+    ``attention_block`` is split in three here (``_qkv``, ``_attend``,
+    ``_out_proj``) so that selective remat can keep the attention itself out
+    of its two checkpoints; ``rope_cs`` is ``rope_tables`` over the rotary
+    dims (None without rope)."""
+    q, k, v = _pre_attention(lw, x, cfg, rope_cs)
+    o = _attend(q, k, v, cfg, positions, attn_fn, segment_ids)
+    return _post_attention(lw, x, o, cfg)
+
+
+def _unstack(tree: Params, L: int):
+    """Stacked ``[L, ...]`` leaves -> one dict per layer.  ``unbind`` keeps
+    the backward to one stack per leaf (indexing would build an [L, ...]
+    zero gradient for every layer)."""
+    flat = {}
+
+    def walk(node, path):
+        for key, val in node.items():
+            if isinstance(val, dict):
+                walk(val, path + (key,))
+            else:
+                flat[path + (key,)] = torch.unbind(val, 0)
+
+    walk(tree, ())
+    out = []
+    for l in range(L):
+        lw: Params = {}
+        for path, views in flat.items():
+            node = lw
+            for key in path[:-1]:
+                node = node.setdefault(key, {})
+            node[path[-1]] = views[l]
+        out.append(lw)
+    return out
+
+
+def forward(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
+            positions: Optional[torch.Tensor] = None,
+            segment_ids: Optional[torch.Tensor] = None,
+            return_hidden: bool = False) -> torch.Tensor:
+    """tokens [b, s] -> logits [b, s, v] (or the final-norm hidden states):
+    a Python loop over the stacked layers, each under ``cfg.remat``."""
+    _refuse_unported(cfg)
+    device = tokens.device
+    attn_fn = get_attn_fn(cfg, device)
+    b, s = tokens.shape
+    if positions is None:
+        positions = torch.arange(s, device=device)[None, :].expand(b, s)
+    if segment_ids is not None:  # the kernels take contiguous int32
+        segment_ids = segment_ids.to(device=device, dtype=torch.int32).contiguous()
+    x = params["embed"]["embedding"][tokens].to(cfg.dtype)
+    if cfg.position == "learned":
+        x = x + params["pos_embed"]["embedding"][positions].to(cfg.dtype)
+    if cfg.embedding_norm:
+        x = norm(x, params["embed_norm"], cfg.norm, cfg.norm_eps)
+    rope_cs = None
+    if cfg.position == "rope":
+        rope_cs = rope_tables(positions, cfg.rotary_dim or cfg.hd, cfg.rope_theta)
+
+    def layer(lw, x):
+        return decoder_layer(lw, x, cfg, positions, attn_fn, segment_ids, rope_cs)
+
+    def selective(lw, x):
+        q, k, v = checkpoint(_pre_attention, lw, x, cfg, rope_cs, use_reentrant=False)
+        o = _attend(q, k, v, cfg, positions, attn_fn, segment_ids)
+        return checkpoint(_post_attention, lw, x, o, cfg, use_reentrant=False)
+
+    for lw in _unstack(params["layers"], cfg.num_layers):
+        if cfg.remat == "full":
+            x = checkpoint(layer, lw, x, use_reentrant=False)
+        elif cfg.remat == "selective":
+            x = selective(lw, x)
+        else:
+            x = layer(lw, x)
+    x = norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)
+    if return_hidden:
+        return x
+    logits = x @ head_kernel(params, cfg)
+    hb = head_bias_vec(params)
+    return logits + hb if hb is not None else logits
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       ignore_index: int = -100) -> torch.Tensor:
+    """Token-mean causal-LM loss in fp32; labels == ignore_index masked."""
+    mask = (labels != ignore_index).float()
+    safe = torch.where(labels == ignore_index, torch.zeros_like(labels), labels)
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, safe[..., None].long())[..., 0]
+    return ((logz - gold) * mask).sum() / mask.sum().clamp(min=1.0)
+
+
+class CausalLM:
+    """Model adapter consumed by ``deepspeed_tpu_torch.initialize(model=...)``:
+    ``loss_fn(params, batch, rng)``, ``init_params``, ``param_count`` and
+    ``flops_per_token``.  Batch: ``{'input_ids': [b, s]}`` (labels are the
+    shifted inputs) or ``{'input_ids', 'labels'}`` for pre-shifted data,
+    optionally with ``segment_ids`` [b, s]."""
+
+    def __init__(self, cfg: TransformerConfig, stack_apply=None):
+        if stack_apply is not None:
+            raise NotImplementedError("stack_apply (the pipelined stack) is not ported yet "
+                                      "(ROADMAP queue 1 item 7)")
+        _refuse_unported(cfg)
+        self.cfg = cfg
+
+    def init_params(self, seed: int = 0, device=None) -> Params:
+        """fp32 parameters (the engine keeps fp32 masters) on ``device``,
+        CUDA unless the caller names another."""
+        return init_params(self.cfg, seed=seed, device=device, dtype=torch.float32)
+
+    def apply(self, params: Params, tokens: torch.Tensor, **kw) -> torch.Tensor:
+        return forward(params, tokens, self.cfg, **kw)
+
+    def prepare_batch(self, batch, rng=None):
+        """(inputs, labels, segment_ids): the label shift and segment trim."""
+        if batch.get("pld_theta") is not None:
+            raise NotImplementedError("progressive layer drop (pld_theta) is not ported yet "
+                                      "(ROADMAP queue 1 item 9)")
+        tokens = batch["input_ids"]
+        segment_ids = batch.get("segment_ids")
+        if "labels" in batch:
+            return tokens, batch["labels"], segment_ids
+        if segment_ids is not None:
+            segment_ids = segment_ids[:, :-1]
+        return tokens[:, :-1], tokens[:, 1:], segment_ids
+
+    def loss_fn(self, params: Params, batch, rng=None) -> torch.Tensor:
+        inputs, labels, segment_ids = self.prepare_batch(batch, rng)
+        if self.cfg.loss_chunk_size:
+            from ..sequence.cross_entropy import chunked_cross_entropy
+
+            hidden = forward(params, inputs, self.cfg, segment_ids=segment_ids,
+                             return_hidden=True)
+            return chunked_cross_entropy(hidden, head_kernel(params, self.cfg), labels,
+                                         chunk_size=self.cfg.loss_chunk_size,
+                                         head_bias=head_bias_vec(params))
+        logits = forward(params, inputs, self.cfg, segment_ids=segment_ids)
+        return cross_entropy_loss(logits, labels)
+
+    @property
+    def param_count(self) -> int:
+        return self.cfg.param_count
+
+    def flops_per_token(self, seq_len: int) -> float:
+        """Approximate training FLOPs per token: 6N plus the attention
+        quadratic term (JAX ``CausalLM.flops_per_token``)."""
+        c = self.cfg
+        return 6.0 * c.param_count + 12 * c.num_layers * c.hidden_size * seq_len

@@ -1,10 +1,12 @@
-"""Attention reference body — counterpart of ``deepspeed_tpu/ops/attention.py``.
+"""Attention reference body and dispatch — counterpart of
+``deepspeed_tpu/ops/attention.py``.
 
 ``dot_product_attention`` is the plain PyTorch scaled-dot-product attention
-with GQA, causal and packed-segment masking and the tanh soft cap, in the
-``[batch, seq, heads, head_dim]`` layout.  It is the plain version of the
-flash kernel (``ops/kernels/flash_attention.py``) and the ground truth of
-its tests; the serving path on a CUDA device never calls it.
+with GQA, causal and packed-segment masking, an additive bias (ALiBi) and
+the tanh soft cap, in the ``[batch, seq, heads, head_dim]`` layout.  It is
+the plain body of the flash kernels (``ops/kernels/flash_attention.py``) and
+the ground truth of their tests; the serving and training paths on a CUDA
+device never call it.  ``get_attention_impl`` picks a body by name.
 """
 from __future__ import annotations
 
@@ -41,10 +43,13 @@ def dot_product_attention(
     kv_segment_ids: Optional[torch.Tensor] = None,
     scale: Optional[float] = None,
     logits_soft_cap: Optional[float] = None,
+    bias: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """q [b, sq, hq, d]; k/v [b, skv, hkv, d] (hkv divides hq).  Softmax in
     fp32 whatever the input type; the probabilities are cast back to the
-    input type before the value product, as the JAX body does."""
+    input type before the value product, as the JAX body does.  ``bias``
+    [hq, sq, skv] or per batch row [b, hq, sq, skv] adds to the scaled
+    logits before the soft cap."""
     in_dtype = q.dtype
     hq, hkv = q.shape[2], k.shape[2]
     k = repeat_kv(k, hq // hkv)
@@ -52,6 +57,9 @@ def dot_product_attention(
     d = q.shape[-1]
     scale = scale if scale is not None else d ** -0.5
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    if bias is not None:
+        bias = bias.float()
+        logits = logits + (bias if bias.dim() == 4 else bias[None])
     if logits_soft_cap is not None:
         logits = logits_soft_cap * torch.tanh(logits / logits_soft_cap)
     if causal:
@@ -63,3 +71,19 @@ def dot_product_attention(
         logits = torch.where(allowed, logits, torch.finfo(torch.float32).min)
     probs = torch.softmax(logits, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", probs.to(in_dtype), v)
+
+
+def get_attention_impl(name: str = "auto", device=None):
+    """An attention body by name: ``reference`` / ``math`` -> the plain body;
+    ``flash`` -> the flash kernels' entry (``ops/kernels/flash_attention``:
+    the kernels on a CUDA tensor, their plain versions on a CPU one);
+    ``auto`` -> flash when ``device`` is CUDA, the plain body otherwise."""
+    if name in ("reference", "math"):
+        return dot_product_attention
+    if name not in ("flash", "auto"):
+        raise ValueError(f"unknown attention impl '{name}' (reference|math|flash|auto)")
+    from .kernels.flash_attention import flash_attention
+
+    if name == "flash" or (device is not None and torch.device(device).type == "cuda"):
+        return flash_attention
+    return dot_product_attention

@@ -33,9 +33,12 @@ BUILD_ROOT = os.path.join(CSRC, "build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-# kernel name -> source file; every source includes attn_common.cuh
+# kernel name -> source file; every source includes attn_common.cuh.  One
+# library per source: both backward kernels live in flash_bwd.cu.
 SOURCES = {
     "flash_fwd": "flash_fwd.cu",
+    "flash_bwd_dq": "flash_bwd.cu",
+    "flash_bwd_dkv": "flash_bwd.cu",
     "paged_decode": "paged_decode.cu",
     "ctx_attention": "ctx_attention.cu",
 }
@@ -43,11 +46,15 @@ _HEADERS = ("attn_common.cuh",)
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
 
-_LIBS: Dict[str, ctypes.CDLL] = {}
+_LIBS: Dict[str, ctypes.CDLL] = {}  # source file -> loaded library
 _PTR, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures of the extern "C" entry points (each returns cudaError_t)
 _ARGTYPES = {
-    "flash_fwd": ("dst_flash_fwd", [_PTR] * 5 + [_INT] * 5 + [_FLOAT, _FLOAT, _PTR]),
+    "flash_fwd": ("dst_flash_fwd", [_PTR] * 6 + [_INT] * 5 + [_FLOAT, _FLOAT, _PTR]),
+    "flash_bwd_dq": ("dst_flash_bwd_dq",
+                     [_PTR] * 8 + [_INT] * 5 + [_FLOAT, _FLOAT, _PTR]),
+    "flash_bwd_dkv": ("dst_flash_bwd_dkv",
+                      [_PTR] * 9 + [_INT] * 5 + [_FLOAT, _FLOAT, _PTR]),
     "paged_decode": ("dst_paged_decode",
                      [_PTR] * 6 + [_INT] * 7 + [_FLOAT, _FLOAT, _PTR]),
     "ctx_attention": ("dst_ctx_attention",
@@ -92,72 +99,74 @@ def _nvcc() -> str:
         "built, and a CUDA tensor has no other path")
 
 
-def _source_hash(name: str) -> str:
+def _source_hash(src: str) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for f in (SOURCES[name],) + _HEADERS:
+    for f in (src,) + _HEADERS:
         with open(os.path.join(CSRC, f), "rb") as fh:
             h.update(fh.read())
     return h.hexdigest()[:16]
 
 
-def _lib_path(name: str) -> str:
-    return os.path.join(BUILD_ROOT, _source_hash(name), f"lib{name}.so")
+def _lib_path(src: str) -> str:
+    stem = os.path.splitext(src)[0]
+    return os.path.join(BUILD_ROOT, _source_hash(src), f"lib{stem}.so")
 
 
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
-    """Compile every named kernel whose library is missing, one ``nvcc``
-    per source, all started together; load them.  Returns ``{"seconds":
-    wall time, "built": sources compiled}``.  A failed compile raises with
-    the compiler's output."""
-    names = list(names if names is not None else SOURCES)
-    todo = [n for n in names if n not in _LIBS and not os.path.exists(_lib_path(n))]
+    """Compile the source of every named kernel whose library is missing,
+    one ``nvcc`` per source, all started together; load them.  Returns
+    ``{"seconds": wall time, "built": sources compiled}``.  A failed compile
+    raises with the compiler's output."""
+    srcs = sorted({SOURCES[n] for n in (names if names is not None else SOURCES)})
+    todo = [s for s in srcs if s not in _LIBS and not os.path.exists(_lib_path(s))]
     t0 = time.perf_counter()
     if todo:
         nvcc = _nvcc()
         procs = {}
-        for n in todo:
-            out = _lib_path(n)
+        for src in todo:
+            out = _lib_path(src)
             os.makedirs(os.path.dirname(out), exist_ok=True)
             tmp = f"{out}.{os.getpid()}.tmp"
-            cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, SOURCES[n])]
-            procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                         stderr=subprocess.STDOUT, text=True),
-                        tmp, out)
+            cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, src)]
+            procs[src] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                           stderr=subprocess.STDOUT, text=True),
+                          tmp, out)
         errors = []
-        for n, (proc, tmp, out) in procs.items():
+        for src, (proc, tmp, out) in procs.items():
             log, _ = proc.communicate()
             with open(out + ".log", "w") as fh:
                 fh.write(log)
             if proc.returncode != 0:
-                errors.append(f"--- {SOURCES[n]} (nvcc exit {proc.returncode})\n{log}")
+                errors.append(f"--- {src} (nvcc exit {proc.returncode})\n{log}")
             else:
                 os.replace(tmp, out)
         if errors:
             raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(errors))
-    for n in names:
-        _load(n)
+    for src in srcs:
+        _load(src)
     return {"seconds": time.perf_counter() - t0, "built": len(todo)}
 
 
-def build_log(name: str) -> str:
+def build_log(src: str) -> str:
     """The compiler's output (``-Xptxas -v``: registers, shared memory,
-    spills) of the last build of ``name``."""
-    path = _lib_path(name) + ".log"
+    spills) of the last build of source ``src`` (e.g. ``flash_bwd.cu``)."""
+    path = _lib_path(src) + ".log"
     if not os.path.exists(path):
         return ""
     with open(path) as fh:
         return fh.read()
 
 
-def _load(name: str) -> ctypes.CDLL:
-    if name not in _LIBS:
-        lib = ctypes.CDLL(_lib_path(name))
-        sym, argtypes = _ARGTYPES[name]
-        fn = getattr(lib, sym)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        _LIBS[name] = lib
-    return _LIBS[name]
+def _load(src: str) -> ctypes.CDLL:
+    if src not in _LIBS:
+        lib = ctypes.CDLL(_lib_path(src))
+        for name in (n for n, s in SOURCES.items() if s == src):
+            sym, argtypes = _ARGTYPES[name]
+            fn = getattr(lib, sym)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _LIBS[src] = lib
+    return _LIBS[src]
 
 
 def launch(name: str, *args) -> None:
@@ -166,7 +175,7 @@ def launch(name: str, *args) -> None:
     build([name])
     sym, _ = _ARGTYPES[name]
     stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-    err = getattr(_LIBS[name], sym)(*args, stream)
+    err = getattr(_LIBS[SOURCES[name]], sym)(*args, stream)
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {err}")
     LAUNCHES[name] += 1

@@ -1,22 +1,172 @@
-"""Flash-attention forward — counterpart of ``deepspeed_tpu/ops/pallas/
-flash_attention.py`` (the dispatcher) and the forward half of
-``flash_kernel.py``.
+"""Flash attention, forward and backward — counterpart of ``deepspeed_tpu/
+ops/pallas/flash_kernel.py`` (``_fwd``, ``_bwd`` and the ``_flash`` custom
+VJP) and of its dispatcher ``ops/pallas/flash_attention.py``.
 
-``flash_attention`` keeps the JAX entry's signature and ``[b, s, h, d]``
-layout.  A CPU tensor runs the plain body (``ops.attention.
-dot_product_attention``); a CUDA tensor runs the hand-written kernel
-``csrc/flash_fwd.cu`` (causal, GQA, packed ``segment_ids``, soft cap; bf16,
-head_dim 64 or 128, any sequence length — no minimum as on the TPU).
-Training's backward kernel comes with the training slice.
+``flash_attention`` keeps the JAX entry's ``[b, s, h, d]`` layout.  Without
+grad, a CPU tensor runs the plain body (``ops.attention.
+dot_product_attention``) and a CUDA tensor the forward kernel
+``csrc/flash_fwd.cu`` with no lse (serving).  With grad it goes through
+``FlashAttentionFn``, which saves ``(q, k, v, seg, o, lse)`` and whose
+backward is ``csrc/flash_bwd.cu`` (dq kernel, dk/dv kernel).  The Function
+is the same on both devices; only its two inner calls dispatch on the
+tensor's device: the plain versions on the CPU (the tests), the kernels on
+CUDA.  The kernels take causal attention with GQA, packed ``segment_ids``
+and the soft cap, bf16, head_dim 64 or 128, any sequence length (there is no
+TPU minimum).  A non-causal call or ``q_offset != 0`` runs the plain body on
+a CPU tensor and raises on a CUDA one.
+
+Shapes: q/o/dO ``[b, s, hq, d]``, k/v ``[b, s, hkv, d]`` (hkv divides hq),
+segment_ids ``[b, s]`` int32, lse ``[b, hq, s]`` fp32 in capped scaled-score
+units (``flash_kernel.py:170``), delta ``[b, s, hq]`` fp32.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
-from ..attention import dot_product_attention
+from ..attention import dot_product_attention, repeat_kv
 from . import check_cuda, launch, ptr, scalars
+
+
+# ---------------------------------------------------------------------------
+# plain versions (the tests, and the card's reference in chip_smoke.py)
+# ---------------------------------------------------------------------------
+def _scores(q, k, seg, scale, cap):
+    """(capped scaled scores [b, hq, s, s] fp32, causal-and-segment mask)."""
+    hq, hkv = q.shape[2], k.shape[2]
+    s_raw = torch.einsum("bqhd,bkhd->bhqk", q.float(), repeat_kv(k, hq // hkv).float()) * scale
+    s_cap = cap * torch.tanh(s_raw / cap) if cap is not None else s_raw
+    n = q.shape[1]
+    allowed = torch.ones(n, n, dtype=torch.bool, device=q.device).tril()[None, None]
+    if seg is not None:
+        allowed = allowed & (seg[:, None, :, None] == seg[:, None, None, :])
+    return s_cap, allowed
+
+
+def flash_attention_fwd_plain(q, k, v, seg, scale, cap) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(o [b, s, hq, d] in q's type, lse [b, hq, s] fp32): the forward
+    kernel's function, computed in fp32."""
+    s_cap, allowed = _scores(q, k, seg, scale, cap)
+    s = s_cap.masked_fill(~allowed, torch.finfo(torch.float32).min)
+    lse = torch.logsumexp(s, dim=-1)
+    p = torch.exp(s - lse[..., None])
+    hq, hkv = q.shape[2], k.shape[2]
+    o = torch.einsum("bhqk,bkhd->bqhd", p, repeat_kv(v, hq // hkv).float())
+    return o.to(q.dtype), lse
+
+
+def flash_attention_bwd_plain(q, k, v, seg, o, lse, do, scale, cap):
+    """(dq, dk, dv) in the inputs' types, by the FA2 formulas in fp32: p
+    rebuilt from lse, D = rowsum(dO * o), ds = p (dp - D) cap' scale; dk / dv
+    summed over each kv head's group of query heads."""
+    b, n, hq, d = q.shape
+    hkv = k.shape[2]
+    g = hq // hkv
+    s_cap, allowed = _scores(q, k, seg, scale, cap)
+    p = torch.where(allowed, torch.exp(s_cap - lse[..., None]), 0.0)
+    dof = do.float()
+    delta = (o.float() * dof).sum(-1).transpose(1, 2)  # [b, hq, s]
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, repeat_kv(v, g).float())
+    ds = p * (dp - delta[..., None]) * scale
+    if cap is not None:
+        ds = ds * (1.0 - (s_cap / cap) ** 2)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, repeat_kv(k, g).float())
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()).reshape(b, n, hkv, g, d).sum(3)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof).reshape(b, n, hkv, g, d).sum(3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernel wrappers
+# ---------------------------------------------------------------------------
+def _check(name, q, k, v, segment_ids):
+    b, s, hq, d = q.shape
+    if k.shape != (b, s, k.shape[2], d) or v.shape != k.shape:
+        raise ValueError(f"{name}: q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
+    hkv = k.shape[2]
+    if hq % hkv or d not in (64, 128):
+        raise ValueError(f"{name}: hq {hq} / hkv {hkv} / head_dim {d} not supported "
+                         "(head_dim 64 or 128, hkv | hq)")
+    check_cuda(name, torch.bfloat16, q, k, v)
+    if segment_ids is None:
+        return None
+    if segment_ids.shape != (b, s):
+        raise ValueError(f"{name}: segment_ids {tuple(segment_ids.shape)} != {(b, s)}")
+    check_cuda(name, torch.int32, segment_ids)
+    if segment_ids.device != q.device:
+        raise ValueError(f"{name}: segment_ids on another device than q")
+    return ptr(segment_ids)
+
+
+def flash_attention_kernel(q, k, v, segment_ids=None, scale=None, logits_soft_cap=None,
+                           return_lse: bool = False):
+    """The forward kernel: o, or (o, lse) with ``return_lse``."""
+    seg_ptr = _check("flash_attention", q, k, v, segment_ids)
+    b, s, hq, d = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty((b, hq, s), dtype=torch.float32, device=q.device) if return_lse else None
+    sc, cap = scalars(scale if scale is not None else d ** -0.5, logits_soft_cap)
+    launch("flash_fwd", ptr(q), ptr(k), ptr(v), seg_ptr, ptr(out),
+           ptr(lse) if return_lse else None, b, s, hq, k.shape[2], d, sc, cap)
+    return (out, lse) if return_lse else out
+
+
+def flash_attention_bwd_kernel(q, k, v, segment_ids, o, lse, do, scale=None,
+                               logits_soft_cap=None):
+    """The backward kernels: (dq, dk, dv) in bf16.  delta = rowsum(dO * o)
+    is one PyTorch reduction (JAX too computes it outside Pallas)."""
+    seg_ptr = _check("flash_attention_bwd", q, k, v, segment_ids)
+    check_cuda("flash_attention_bwd", torch.bfloat16, o, do)
+    b, s, hq, d = q.shape
+    hkv = k.shape[2]
+    if o.shape != q.shape or do.shape != q.shape or lse.shape != (b, hq, s):
+        raise ValueError(f"flash_attention_bwd: o {tuple(o.shape)} dO {tuple(do.shape)} "
+                         f"lse {tuple(lse.shape)} for q {tuple(q.shape)}")
+    check_cuda("flash_attention_bwd", torch.float32, lse)
+    delta = (o.float() * do.float()).sum(-1)  # [b, s, hq]
+    dq = torch.empty_like(q)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    sc, cap = scalars(scale if scale is not None else d ** -0.5, logits_soft_cap)
+    common = (ptr(q), ptr(k), ptr(v), seg_ptr, ptr(do), ptr(lse), ptr(delta))
+    launch("flash_bwd_dq", *common, ptr(dq), b, s, hq, hkv, d, sc, cap)
+    launch("flash_bwd_dkv", *common, ptr(dk), ptr(dv), b, s, hq, hkv, d, sc, cap)
+    return dq, dk, dv
+
+
+# ---------------------------------------------------------------------------
+# the autograd Function (the ``_flash`` custom VJP)
+# ---------------------------------------------------------------------------
+def _fwd_with_lse(q, k, v, seg, scale, cap):
+    if q.device.type == "cpu":
+        return flash_attention_fwd_plain(q, k, v, seg, scale, cap)
+    return flash_attention_kernel(q, k, v, seg, scale, cap, return_lse=True)
+
+
+def _bwd(q, k, v, seg, o, lse, do, scale, cap):
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, seg, o, lse, do, scale, cap)
+    return flash_attention_bwd_kernel(q, k, v, seg, o, lse, do.contiguous(), scale, cap)
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Causal flash attention whose backward rebuilds the probabilities from
+    the saved lse (``flash_kernel.py:450-471``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, seg, scale, cap):
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        o, lse = _fwd_with_lse(q, k, v, seg, scale, cap)
+        ctx.save_for_backward(q, k, v, seg, o, lse)
+        ctx.scale, ctx.cap = scale, cap
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, seg, o, lse = ctx.saved_tensors
+        dq, dk, dv = _bwd(q, k, v, seg, o, lse, do, ctx.scale, ctx.cap)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(
@@ -27,42 +177,24 @@ def flash_attention(
     segment_ids: Optional[torch.Tensor] = None,
     scale: Optional[float] = None,
     logits_soft_cap: Optional[float] = None,
+    q_offset: int = 0,
 ) -> torch.Tensor:
     """q [b, s, hq, d], k/v [b, s, hkv, d], segment_ids [b, s] -> [b, s, hq, d]."""
-    if q.device.type == "cpu":
-        return dot_product_attention(
-            q, k, v, causal=causal, segment_ids=segment_ids, scale=scale,
-            logits_soft_cap=logits_soft_cap,
-        )
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash_attention: unsupported device {q.device}")
-    if not causal:
-        raise NotImplementedError("flash_attention kernel is causal-only")
+    if not causal or q_offset != 0:
+        if q.device.type == "cuda":
+            raise NotImplementedError(
+                "flash_attention kernel is causal-only with q_offset 0 "
+                f"(causal={causal}, q_offset={q_offset})")
+        return dot_product_attention(q, k, v, causal=causal, q_offset=q_offset,
+                                     segment_ids=segment_ids, scale=scale,
+                                     logits_soft_cap=logits_soft_cap)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        sc = float(scale) if scale is not None else q.shape[-1] ** -0.5
+        cap = float(logits_soft_cap) if logits_soft_cap is not None else None
+        return FlashAttentionFn.apply(q, k, v, segment_ids, sc, cap)
+    if q.device.type == "cpu":
+        return dot_product_attention(q, k, v, causal=True, segment_ids=segment_ids,
+                                     scale=scale, logits_soft_cap=logits_soft_cap)
     return flash_attention_kernel(q, k, v, segment_ids, scale, logits_soft_cap)
-
-
-def flash_attention_kernel(q, k, v, segment_ids=None, scale=None,
-                           logits_soft_cap=None) -> torch.Tensor:
-    """The CUDA kernel wrapper: checks, allocates, launches."""
-    b, s, hq, d = q.shape
-    if k.shape != (b, s, k.shape[2], d) or v.shape != k.shape:
-        raise ValueError(f"flash_attention: q {tuple(q.shape)} k {tuple(k.shape)} "
-                         f"v {tuple(v.shape)}")
-    hkv = k.shape[2]
-    if hq % hkv or d not in (64, 128):
-        raise ValueError(f"flash_attention: hq {hq} / hkv {hkv} / head_dim {d} "
-                         "not supported (head_dim 64 or 128, hkv | hq)")
-    check_cuda("flash_attention", torch.bfloat16, q, k, v)
-    seg_ptr = None
-    if segment_ids is not None:
-        if segment_ids.shape != (b, s):
-            raise ValueError(f"segment_ids {tuple(segment_ids.shape)} != {(b, s)}")
-        check_cuda("flash_attention", torch.int32, segment_ids)
-        if segment_ids.device != q.device:
-            raise ValueError("segment_ids on another device than q")
-        seg_ptr = ptr(segment_ids)
-    out = torch.empty_like(q)
-    sc, cap = scalars(scale if scale is not None else d ** -0.5, logits_soft_cap)
-    launch("flash_fwd", ptr(q), ptr(k), ptr(v), seg_ptr, ptr(out),
-           b, s, hq, hkv, d, sc, cap)
-    return out

@@ -1,0 +1,263 @@
+"""The training engine — counterpart of ``deepspeed_tpu/runtime/engine.py``
+(``DeepSpeedTpuEngine``) for one GPU.
+
+JAX jit-compiles the whole step; here it runs eagerly with autograd, the
+same computation in the same order:
+
+- fp32 master parameters; each micro-batch casts them to the compute type
+  inside autograd (``_micro_backward``, JAX ``_micro_value_and_grad``
+  :490-528), so the gradients land on the masters in fp32;
+- gradient accumulation over the ``[gas, micro, ...]`` fold (``_gas_fold``
+  :107): autograd sums each micro-batch's scaled gradient into the masters'
+  fp32 ``.grad`` (JAX :603-626), and the divisor is ``scale * gas``;
+- ``_apply_grads`` (JAX :530-573): unscale, fp16 overflow check, global
+  norm, clip, optimizer update, overflow-skip select and loss-scale update,
+  all on the device;
+- the step counter, the learning rate (a function of the device step), the
+  loss scale and the step metrics are device tensors: the loop syncs with
+  the host only at ``steps_per_print`` boundaries (``async_metrics``) and
+  in ``get_last_loss`` / ``get_global_grad_norm``.
+
+``train_on_loader`` overlaps the host-to-device copy of batch k+1 with step
+k (``runtime/prefetch.py``).  On one GPU the ZeRO stage changes no number.
+"""
+from __future__ import annotations
+
+import logging
+from typing import Any, Callable, Dict, List, NamedTuple, Optional
+
+import torch
+
+from ..config.config import Config
+from ..ops.optimizers import build_optimizer
+from . import precision
+from .lr_schedules import LRScheduler, get_lr_schedule_fn
+from .prefetch import DevicePrefetcher, MetricsBuffer, StagedBatch, host_scalar, stage
+
+logger = logging.getLogger("deepspeed_tpu_torch")
+
+
+def _gas_fold(batch: Dict[str, Any], gas: int, micro_global: int) -> Dict[str, Any]:
+    """Fold a flat ``[global_batch, ...]`` batch into ``[gas, micro, ...]``
+    unless it is folded already.  ``micro_global`` tells the two apart when
+    it is 1: a folded batch then has a size-1 second axis."""
+    x = next(iter(batch.values()))
+    already = x.shape[0] == gas and (micro_global > 1 or (x.ndim >= 2 and x.shape[1] == 1))
+    if already:
+        return batch
+    return {k: v.reshape((gas, v.shape[0] // gas) + tuple(v.shape[1:]))
+            for k, v in batch.items()}
+
+
+class StepMetrics(NamedTuple):
+    loss: torch.Tensor
+    grad_norm: torch.Tensor
+    lr: torch.Tensor
+    loss_scale: torch.Tensor
+    skipped: torch.Tensor  # fp16: the overflow skipped the update
+
+
+def _leaves(tree, out: List[torch.Tensor]) -> List[torch.Tensor]:
+    for v in tree.values():
+        if isinstance(v, dict):
+            _leaves(v, out)
+        else:
+            out.append(v)
+    return out
+
+
+def _masters(tree, device: torch.device):
+    if isinstance(tree, dict):
+        return {k: _masters(v, device) for k, v in tree.items()}
+    t = torch.as_tensor(tree).detach().to(device=device, dtype=torch.float32).clone()
+    return t.requires_grad_(True)
+
+
+class DeepSpeedTorchEngine:
+    """A loss function and parameters made into a training loop.
+
+    Contract: ``loss_fn(params, batch, rng) -> scalar loss``, a function of
+    the compute-type parameters (``models.transformer.CausalLM.loss_fn``);
+    ``rng`` is the engine's ``torch.Generator``."""
+
+    def __init__(self, loss_fn: Callable, params, config: Config, device: torch.device):
+        self.config = config
+        self.device = device
+        self.loss_fn = loss_fn
+        self.model = None  # attached by initialize()
+        self.lr_schedule_fn = self._build_lr_schedule()
+        self.lr_scheduler = LRScheduler(self.lr_schedule_fn)
+        self.optimizer = build_optimizer(config.optimizer.type, config.optimizer.params)
+        self.compute_dtype = precision.compute_dtype(config.precision_dtype)
+        self.generator = torch.Generator(device=device).manual_seed(config.seed)
+        self.params = _masters(params, device)
+        self._params_list = _leaves(self.params, [])
+        self.opt_state = self.optimizer.init(self._params_list)
+        fp16 = config.fp16
+        self.loss_scale = precision.init_loss_scale(
+            dynamic=fp16.enabled and fp16.loss_scale == 0,
+            initial_scale_power=fp16.initial_scale_power,
+            static_scale=fp16.loss_scale if fp16.enabled else 1.0,
+            hysteresis=fp16.hysteresis, device=device)
+        self.step = torch.zeros((), dtype=torch.int32, device=device)
+        self.global_steps = 0
+        self.skipped_steps = 0
+        self._last_metrics: Optional[StepMetrics] = None
+        self._metrics_buffer = MetricsBuffer()
+        self._h2d_stream = None  # the prefetcher's side stream, made at first use
+        self._active_prefetcher: Optional[DevicePrefetcher] = None
+        logger.info("engine ready: zero_stage=%d dtype=%s micro_batch=%d gas=%d device=%s",
+                    config.zero_optimization.stage, config.precision_dtype,
+                    config.train_micro_batch_size_per_gpu,
+                    config.gradient_accumulation_steps, device)
+
+    def _build_lr_schedule(self) -> Callable:
+        sched = self.config.scheduler
+        if sched.type is None and "lr" in (self.config.optimizer.params or {}):
+            return get_lr_schedule_fn(None, {"lr": self.config.optimizer.params["lr"]})
+        return get_lr_schedule_fn(sched.type, sched.params)
+
+    # ------------------------------------------------------------------
+    # the step
+    # ------------------------------------------------------------------
+    def _micro_backward(self, micro: Dict[str, torch.Tensor], scale) -> torch.Tensor:
+        """Loss of one micro-batch; ``(loss * scale).backward()`` adds its
+        gradient, through the compute-type cast, to the masters' ``.grad``."""
+        cp = precision.cast_floating(self.params, self.compute_dtype)
+        loss = self.loss_fn(cp, micro, self.generator)
+        (loss * scale if scale is not None else loss).backward()
+        return loss.detach().float()
+
+    def _apply_grads(self, divisor):
+        cfg = self.config
+        fp16 = cfg.fp16.enabled
+        grads = []
+        for p in self._params_list:
+            grads.append(p.grad.div_(divisor))
+            p.grad = None
+        finite = precision.grads_finite(grads) if fp16 else None
+        grad_norm = precision.global_grad_norm(grads)
+        if cfg.gradient_clipping and cfg.gradient_clipping > 0:
+            grads, grad_norm = precision.clip_by_global_norm(grads, cfg.gradient_clipping,
+                                                             grad_norm)
+        lr = self.lr_schedule_fn(self.step)
+        self.optimizer.step(self._params_list, grads, self.opt_state, lr, finite)
+        if fp16 and cfg.fp16.loss_scale == 0:
+            self.loss_scale = precision.update_loss_scale(
+                self.loss_scale, finite, loss_scale_window=cfg.fp16.loss_scale_window,
+                min_scale=cfg.fp16.min_loss_scale, init_hysteresis=cfg.fp16.hysteresis)
+        if finite is None:
+            self.step += 1
+            skipped = torch.zeros((), dtype=torch.bool, device=self.device)
+        else:
+            self.step += finite.to(torch.int32)
+            skipped = ~finite
+        return grad_norm, lr, skipped
+
+    def _to_device(self, batch) -> Dict[str, torch.Tensor]:
+        if isinstance(batch, StagedBatch):
+            return batch.wait()
+        cfg = self.config
+        batch = _gas_fold(batch, cfg.gradient_accumulation_steps,
+                          cfg.train_micro_batch_size_per_gpu * cfg.dp_world_size)
+        return stage(batch, self.device).batch
+
+    def train_batch(self, batch) -> torch.Tensor:
+        """One optimizer step on a global batch ``[gas, micro, ...]`` (or
+        flat ``[gas * micro, ...]``); returns the mean loss as a device
+        scalar."""
+        batch = self._to_device(batch)
+        cfg = self.config
+        gas = cfg.gradient_accumulation_steps
+        fp16 = cfg.fp16.enabled
+        scale = self.loss_scale.scale if fp16 else None
+        loss_sum = torch.zeros((), dtype=torch.float32, device=self.device)
+        for i in range(gas):
+            loss_sum += self._micro_backward({k: v[i] for k, v in batch.items()}, scale)
+        divisor = scale * gas if fp16 else float(gas)
+        grad_norm, lr, skipped = self._apply_grads(divisor)
+        loss_scale = self.loss_scale.scale if fp16 else torch.ones((), device=self.device)
+        metrics = StepMetrics(loss_sum / gas, grad_norm, lr, loss_scale, skipped)
+        self._last_metrics = metrics
+        self.global_steps += 1
+        self.lr_scheduler.step()
+        self._metrics_buffer.append(self.global_steps, metrics, keep_history=fp16)
+        if (not cfg.train_data.async_metrics
+                or self.global_steps % cfg.steps_per_print == 0):
+            self._flush_step_metrics()
+        return metrics.loss
+
+    def _flush_step_metrics(self) -> None:
+        """Host accounting of the buffered metrics: fp16 skip counts and the
+        ``steps_per_print`` log line."""
+        for step, m in self._metrics_buffer.flush():
+            if self.config.fp16.enabled and m.skipped:
+                self.skipped_steps += 1
+            if step % self.config.steps_per_print == 0:
+                logger.info("step=%d loss=%.4f lr=%.3e grad_norm=%.3f", step, m.loss, m.lr,
+                            m.grad_norm)
+
+    # ------------------------------------------------------------------
+    # the pipelined loop
+    # ------------------------------------------------------------------
+    def _place_batch(self, batch) -> StagedBatch:
+        """Fold and stage a batch on the prefetch worker: pinned host copy,
+        host-to-device copy on a side stream (CUDA)."""
+        cfg = self.config
+        batch = _gas_fold(batch, cfg.gradient_accumulation_steps,
+                          cfg.train_micro_batch_size_per_gpu * cfg.dp_world_size)
+        return stage(batch, self.device, self._h2d_stream)
+
+    def train_on_loader(self, data_loader, num_steps: Optional[int] = None):
+        """Generator over ``train_batch`` steps on the batches of
+        ``data_loader``, with ``train_data.prefetch_depth`` batches copied to
+        the device ahead of the step.  Yields each step's loss as a device
+        scalar; ``get_last_loss()`` gives a synced value."""
+        depth = self.config.train_data.prefetch_depth
+        n = 0
+        if depth == 0:
+            try:
+                for batch in data_loader:
+                    yield self.train_batch(batch)
+                    n += 1
+                    if num_steps is not None and n >= num_steps:
+                        return
+            finally:
+                self._flush_step_metrics()
+            return
+        if self._active_prefetcher is not None:
+            raise RuntimeError("train_on_loader is already active on this engine; "
+                               "close the previous generator first")
+        if self.device.type == "cuda" and self._h2d_stream is None:
+            self._h2d_stream = torch.cuda.Stream(device=self.device)
+        pf = DevicePrefetcher(iter(data_loader), self._place_batch, depth=depth)
+        self._active_prefetcher = pf
+        try:
+            for staged in pf:
+                yield self.train_batch(staged)
+                n += 1
+                if num_steps is not None and n >= num_steps:
+                    return
+        finally:
+            pf.close()
+            self._active_prefetcher = None
+            self._flush_step_metrics()
+
+    # ------------------------------------------------------------------
+    # reads
+    # ------------------------------------------------------------------
+    def get_last_loss(self) -> Optional[float]:
+        """Synced loss of the newest step (flushes the deferred metrics)."""
+        self._flush_step_metrics()
+        if self._last_metrics is None:
+            return None
+        return host_scalar(self._last_metrics.loss)
+
+    def get_global_grad_norm(self) -> Optional[float]:
+        if self._last_metrics is None:
+            return None
+        self._flush_step_metrics()
+        return host_scalar(self._last_metrics.grad_norm)
+
+    def get_lr(self) -> List[float]:
+        return self.lr_scheduler.get_last_lr()

@@ -1,0 +1,549 @@
+"""The port's training path against the JAX package, on the CPU in fp32.
+
+(c) ``CausalLM.loss_fn`` and every gradient leaf against
+    ``jax.value_and_grad(CausalLM.loss_fn)`` on the same weights (JAX
+    ``init_params`` -> ``params_from_numpy``) and tokens: ``tiny`` and its
+    family variants, and ``llama3_proxy_410m`` cut to 2 layers at seq 64.
+    The port runs the flash Function (its plain versions on the CPU) under
+    selective remat; JAX runs its reference body (Pallas needs a TPU).
+(d) remat ``none`` / ``full`` / ``selective`` give identical gradients, and
+    the chunked cross-entropy equals the full one.
+(e) A 5-step loss trajectory and the final parameters of the port's engine
+    against the JAX engine on a one-device mesh.
+(f) The five LR schedules and ``build_optimizer``'s updates against JAX's
+    schedules and optax on the same gradients.
+(g) ``parse_config`` errors.  (h) ``train_on_loader`` equals a
+    ``train_batch`` loop.  And the device rule of the entry points.
+
+Tolerances (fp32): loss atol 1e-5 / rtol 1e-5 and gradients atol 1e-5 /
+rtol 1e-3 — the two frameworks sum the same products in different orders,
+which moves fp32 sums of a few hundred terms by a few ulps and the small
+gradient entries (1e-4 and below) by relatively more.  Engine trajectories:
+atol 1e-5 / rtol 1e-4 on losses and parameters after five AdamW steps (the
+update divides by sqrt(v) + eps, which amplifies ulp-level gradient
+differences of near-zero entries).  Schedules and optimizer steps: rtol
+1e-6 / atol 1e-7, one fp32 expression each.
+"""
+import itertools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+import deepspeed_tpu as jds
+from deepspeed_tpu.config.config import ConfigError as JConfigError
+from deepspeed_tpu.config.config import parse_config as j_parse_config
+from deepspeed_tpu.models import transformer as jt
+from deepspeed_tpu.models.presets import get_preset as j_preset
+from deepspeed_tpu.ops.optimizers import build_optimizer as j_build_optimizer
+from deepspeed_tpu.parallel.topology import initialize_mesh
+from deepspeed_tpu.runtime import lr_schedules as jlr
+from deepspeed_tpu.runtime import precision as jprec
+
+import deepspeed_tpu_torch as tds
+from deepspeed_tpu_torch.config.config import ConfigError, parse_config
+from deepspeed_tpu_torch.models import transformer as tt
+from deepspeed_tpu_torch.models.presets import get_preset
+from deepspeed_tpu_torch.ops.optimizers import build_optimizer
+from deepspeed_tpu_torch.runtime import lr_schedules as tlr
+from deepspeed_tpu_torch.runtime import precision as tprec
+from deepspeed_tpu_torch.runtime.engine import StepMetrics
+from deepspeed_tpu_torch.runtime.prefetch import HOST_READS
+from deepspeed_tpu_torch.sequence.cross_entropy import chunked_cross_entropy
+
+LOSS_TOL = dict(atol=1e-5, rtol=1e-5)
+GRAD_TOL = dict(atol=1e-5, rtol=1e-3)
+ENGINE_TOL = dict(atol=1e-5, rtol=1e-4)
+FN_TOL = dict(atol=1e-7, rtol=1e-6)
+
+# tiny and the family variants that change the forward
+VARIANTS = {
+    "llama": {},
+    "layernorm_biases": dict(norm="layernorm", qkv_bias=True, attn_out_bias=True,
+                             mlp_bias=True, head_bias=True),
+    "parallel_block": dict(parallel_block=True, norm="layernorm", rotary_dim=8,
+                           gated_mlp=False, activation="gelu", qkv_bias=True,
+                           attn_out_bias=True, mlp_bias=True),
+    "learned_positions": dict(position="learned", embedding_norm=True, gated_mlp=False,
+                              activation="relu"),
+    "tied_embeddings": dict(tie_embeddings=True, loss_chunk_size=12),
+    "soft_cap": dict(logits_soft_cap=3.0),
+    "alibi": dict(position="alibi", num_kv_heads=4, norm="layernorm"),
+}
+
+
+def _flat(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, prefix + k + "/"))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def _pair(name, over, seed=0):
+    jcfg = j_preset(name, dtype=jnp.float32, **over)
+    jp = jax.tree_util.tree_map(np.asarray, jt.init_params(jax.random.PRNGKey(seed), jcfg))
+    return jcfg, jp
+
+
+def _torch_params(jp, tcfg):
+    tp = tt.params_from_numpy(jp, tcfg, device="cpu")
+    for leaf in _flat(tp).values():
+        leaf.requires_grad_(True)
+    return tp
+
+
+def _tokens(b, s, vocab, seed=0):
+    return np.random.default_rng(seed).integers(0, vocab, (b, s)).astype(np.int32)
+
+
+def _loss_and_grads_match(name, over, tokens, segment_ids=None, port_over=None):
+    jcfg, jp = _pair(name, over)
+    batch = {"input_ids": tokens}
+    if segment_ids is not None:
+        batch["segment_ids"] = segment_ids
+    jloss, jgrads = jax.value_and_grad(jt.CausalLM(jcfg).loss_fn)(
+        jax.tree_util.tree_map(jnp.asarray, jp), jax.tree_util.tree_map(jnp.asarray, batch))
+    tcfg = get_preset(name, dtype=torch.float32, **{**over, **(port_over or {})})
+    tp = _torch_params(jp, tcfg)
+    loss = tt.CausalLM(tcfg).loss_fn(tp, {k: torch.from_numpy(v) for k, v in batch.items()})
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), float(jloss), **LOSS_TOL)
+    fj, ft = _flat(jax.tree_util.tree_map(np.asarray, jgrads)), _flat(tp)
+    assert set(fj) == set(ft)
+    for key in fj:
+        np.testing.assert_allclose(ft[key].grad.numpy(), fj[key], err_msg=key, **GRAD_TOL)
+
+
+# ---------------------------------------------------------------------------
+# (c) loss and gradients against JAX
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("variant", sorted(VARIANTS))
+def test_loss_and_grads_match_jax_tiny(variant):
+    over = VARIANTS[variant]
+    port = dict(remat="selective")
+    if over.get("position") != "alibi":
+        port["attn_impl"] = "flash"  # the autograd Function (plain inner calls on CPU)
+    _loss_and_grads_match("tiny", over, _tokens(2, 25, 256), port_over=port)
+
+
+def test_loss_and_grads_match_jax_packed_segments():
+    seg = np.ones((2, 25), np.int32)
+    seg[:, 9:] = 2
+    seg[1, 17:] = 3
+    _loss_and_grads_match("tiny", {}, _tokens(2, 25, 256, seed=3), segment_ids=seg,
+                          port_over=dict(attn_impl="flash", remat="full"))
+
+
+def test_loss_and_grads_match_jax_llama3_proxy_two_layers():
+    _loss_and_grads_match("llama3_proxy_410m", dict(num_layers=2, loss_chunk_size=32),
+                          _tokens(1, 65, 32128, seed=4), port_over=dict(attn_impl="flash"))
+
+
+def test_param_count_and_flops_per_token_match_jax():
+    for name in ("tiny", "llama3_proxy_410m"):
+        jcfg = j_preset(name)
+        tcfg = get_preset(name)
+        assert tcfg.param_count == jcfg.param_count
+        assert tt.CausalLM(tcfg).flops_per_token(4096) == jt.CausalLM(jcfg).flops_per_token(4096)
+
+
+def test_alibi_bias_matches_jax():
+    pos = np.array([[0, 1, 2, 3, 4], [3, 4, 5, 6, 7]], np.int32)
+    for heads in (4, 6, 8):
+        np.testing.assert_allclose(tt.alibi_slopes(heads).numpy(), jt.alibi_slopes(heads),
+                                   **FN_TOL)
+        np.testing.assert_allclose(
+            tt.alibi_bias(heads, torch.from_numpy(pos), torch.from_numpy(pos)).numpy(),
+            jt.alibi_bias(heads, jnp.asarray(pos), jnp.asarray(pos)), **FN_TOL)
+        np.testing.assert_allclose(
+            tt.alibi_bias(heads, torch.from_numpy(pos[0]), torch.from_numpy(pos[0])).numpy(),
+            jt.alibi_bias(heads, jnp.asarray(pos[0]), jnp.asarray(pos[0])), **FN_TOL)
+
+
+@pytest.mark.parametrize("over,match", [
+    (dict(moe_num_experts=4), "moe_num_experts"),
+    (dict(sequence_parallel="ulysses"), "sequence_parallel"),
+    (dict(domino_chunks=2), "domino_chunks"),
+    (dict(act_quant_bits=8), "act_quant_bits"),
+    (dict(sparse_attention=object()), "sparse_attention"),
+    (dict(remat="dots"), "remat='dots'"),
+    (dict(remat="offload"), "remat='offload'"),
+])
+def test_unported_model_options_are_refused(over, match):
+    with pytest.raises(NotImplementedError, match=match):
+        tt.CausalLM(get_preset("tiny", **over))
+
+
+def test_unported_forward_arguments_are_refused():
+    cfg = get_preset("tiny", dtype=torch.float32)
+    params = tt.init_params(cfg, device="cpu")
+    tok = torch.zeros(1, 4, dtype=torch.long)
+    with pytest.raises(NotImplementedError, match="stack_apply"):
+        tt.CausalLM(cfg, stack_apply=lambda *a: None)
+    with pytest.raises(NotImplementedError, match="pld_theta"):
+        tt.CausalLM(cfg).loss_fn(params, {"input_ids": tok, "pld_theta": 0.5})
+    with pytest.raises(NotImplementedError, match="alibi"):
+        tt.get_attn_fn(cfg.replace(position="alibi", attn_impl="flash"), "cpu")
+
+
+# ---------------------------------------------------------------------------
+# (d) remat policies and chunked cross-entropy
+# ---------------------------------------------------------------------------
+def test_remat_policies_give_identical_grads():
+    _, jp = _pair("tiny", {})
+    tokens = torch.from_numpy(_tokens(2, 33, 256, seed=5)).long()
+    grads = {}
+    for remat in ("none", "full", "selective"):
+        cfg = get_preset("tiny", dtype=torch.float32, remat=remat, attn_impl="flash")
+        tp = _torch_params(jp, cfg)
+        tt.CausalLM(cfg).loss_fn(tp, {"input_ids": tokens}).backward()
+        grads[remat] = {k: v.grad for k, v in _flat(tp).items()}
+    for remat in ("full", "selective"):
+        for key, g in grads["none"].items():
+            assert torch.equal(grads[remat][key], g), (remat, key)
+
+
+@pytest.mark.parametrize("s,chunk", [(32, 8), (30, 8), (7, 16)])
+def test_chunked_cross_entropy_equals_full(s, chunk):
+    rng = np.random.default_rng(6)
+    hidden = torch.from_numpy(rng.normal(size=(2, s, 16)).astype(np.float32)).requires_grad_()
+    w = torch.from_numpy(rng.normal(size=(16, 50)).astype(np.float32)).requires_grad_()
+    bias = torch.from_numpy(rng.normal(size=(50,)).astype(np.float32)).requires_grad_()
+    labels = torch.from_numpy(rng.integers(0, 50, (2, s)))
+    labels[0, :3] = -100
+    full = tt.cross_entropy_loss(hidden @ w + bias, labels)
+    g_full = torch.autograd.grad(full, (hidden, w, bias))
+    chunked = chunked_cross_entropy(hidden, w, labels, chunk_size=chunk, head_bias=bias)
+    g_chunk = torch.autograd.grad(chunked, (hidden, w, bias))
+    torch.testing.assert_close(chunked, full, **FN_TOL)
+    for a, b in zip(g_chunk, g_full):
+        torch.testing.assert_close(a, b, atol=1e-6, rtol=1e-5)
+    jl = jt.cross_entropy_loss(jnp.asarray((hidden @ w + bias).detach().numpy()),
+                               jnp.asarray(labels.numpy()))
+    np.testing.assert_allclose(full.item(), float(jl), **LOSS_TOL)
+
+
+# ---------------------------------------------------------------------------
+# (e) the engine against the JAX engine
+# ---------------------------------------------------------------------------
+def _engine_config(**over):
+    cfg = {
+        "train_micro_batch_size_per_gpu": 2,
+        "gradient_accumulation_steps": 2,
+        "optimizer": {"type": "adamw", "params": {"weight_decay": 0.1}},
+        "scheduler": {"type": "WarmupCosineLR",
+                      "params": {"total_num_steps": 6, "warmup_num_steps": 2, "lr": 3e-3}},
+        "gradient_clipping": 0.5,
+        "bf16": {"enabled": False},
+        "steps_per_print": 1000,
+    }
+    cfg.update(over)
+    return cfg
+
+
+def _batches(n, vocab=256, seed=7):
+    rng = np.random.default_rng(seed)
+    return [{"input_ids": rng.integers(0, vocab, (2, 2, 17)).astype(np.int32)}
+            for _ in range(n)]
+
+
+def _torch_engine(jp, dtype=torch.float32, **cfg_over):
+    tcfg = get_preset("tiny", dtype=dtype, attn_impl="flash", remat="selective")
+    params = tt.params_from_numpy(jp, tcfg, device="cpu")
+    engine, _, _, sched = tds.initialize(model=tt.CausalLM(tcfg), params=params,
+                                         config=_engine_config(**cfg_over), device="cpu")
+    return engine
+
+
+def test_engine_trajectory_matches_jax_engine():
+    jcfg, jp = _pair("tiny", {})
+    batches = _batches(5)
+    jengine, _, _, _ = jds.initialize(
+        model=jt.CausalLM(jcfg), params=jax.tree_util.tree_map(jnp.asarray, jp),
+        config=_engine_config(), mesh=initialize_mesh(devices=jax.devices()[:1], data=1))
+    j_losses = [float(jengine.train_batch(b)) for b in batches]
+    engine = _torch_engine(jp)
+    t_losses = [float(engine.train_batch(b)) for b in batches]
+    np.testing.assert_allclose(t_losses, j_losses, **ENGINE_TOL)
+    np.testing.assert_allclose(engine.get_global_grad_norm(),
+                               jengine.get_global_grad_norm(), **ENGINE_TOL)
+    np.testing.assert_allclose(engine.get_lr(), jengine.get_lr(), **FN_TOL)
+    fj = _flat(jax.tree_util.tree_map(np.asarray, jengine.state.params))
+    ft = _flat(engine.params)
+    assert set(fj) == set(ft)
+    for key in fj:
+        np.testing.assert_allclose(ft[key].detach().numpy(), fj[key], err_msg=key,
+                                   **ENGINE_TOL)
+    assert int(engine.step) == 5 and engine.global_steps == 5
+
+
+# ---------------------------------------------------------------------------
+# (h) train_on_loader against a train_batch loop
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("depth", [0, 2])
+def test_train_on_loader_equals_train_batch_loop(depth):
+    _, jp = _pair("tiny", {})
+    batches = _batches(4, seed=8)
+    ref = _torch_engine(jp)
+    ref_losses = [float(ref.train_batch(b)) for b in batches]
+    engine = _torch_engine(jp, train_data={"prefetch_depth": depth})
+    losses = [float(x) for x in engine.train_on_loader(iter(batches))]
+    assert losses == ref_losses
+    assert engine.get_last_loss() == ref.get_last_loss()
+    for key, p in _flat(ref.params).items():
+        assert torch.equal(_flat(engine.params)[key], p), key
+    # num_steps stops early; the generator can run again afterwards
+    again = list(engine.train_on_loader(itertools.repeat(batches[0]), num_steps=2))
+    assert len(again) == 2 and engine.global_steps == 6
+
+
+@pytest.mark.parametrize("depth", [0, 2])
+def test_train_on_loader_reads_the_host_only_at_print_boundaries(depth):
+    """The step metrics stay on the device: ``host_scalar`` runs at a
+    ``steps_per_print`` boundary (one step's metrics), when the loop ends
+    (the newest step's) and in ``get_last_loss`` (the loss), never per step."""
+    _, jp = _pair("tiny", {})
+    engine = _torch_engine(jp, steps_per_print=3, train_data={"prefetch_depth": depth})
+    per_flush = len(StepMetrics._fields)
+    start = HOST_READS["count"]
+    seen = [HOST_READS["count"] - start for _ in engine.train_on_loader(iter(_batches(4)))]
+    assert seen == [0, 0, per_flush, per_flush]
+    assert HOST_READS["count"] - start == 2 * per_flush
+    engine.get_last_loss()
+    assert HOST_READS["count"] - start == 2 * per_flush + 1
+
+
+def test_flat_batch_is_folded_like_a_folded_one():
+    _, jp = _pair("tiny", {})
+    folded = _batches(1, seed=9)[0]
+    flat = {"input_ids": folded["input_ids"].reshape(4, 17)}
+    a, b = _torch_engine(jp), _torch_engine(jp)
+    assert float(a.train_batch(folded)) == float(b.train_batch(flat))
+
+
+# ---------------------------------------------------------------------------
+# (f) schedules, optimizers, precision against JAX / optax
+# ---------------------------------------------------------------------------
+SCHEDULES = [
+    ("LRRangeTest", dict(lr_range_test_min_lr=1e-3, lr_range_test_step_size=3,
+                         lr_range_test_step_rate=0.5, lr_range_test_staircase=True)),
+    ("LRRangeTest", dict(lr_range_test_step_size=4)),
+    ("OneCycle", dict(cycle_min_lr=1e-4, cycle_max_lr=1e-2, cycle_first_step_size=4,
+                      cycle_second_step_size=6, decay_step_size=2, decay_lr_rate=0.3)),
+    ("WarmupLR", dict(warmup_min_lr=1e-5, warmup_max_lr=1e-3, warmup_num_steps=7)),
+    ("WarmupLR", dict(warmup_num_steps=5, warmup_type="linear")),
+    ("WarmupDecayLR", dict(total_num_steps=20, warmup_num_steps=5, warmup_max_lr=2e-3)),
+    ("WarmupCosineLR", dict(total_num_steps=20, warmup_num_steps=4, warmup_min_ratio=0.1,
+                            lr=5e-3)),
+    (None, dict(lr=2e-4)),
+]
+
+
+@pytest.mark.parametrize("name,params", SCHEDULES)
+def test_lr_schedules_match_jax(name, params):
+    jfn = jlr.get_lr_schedule_fn(name, params)
+    tfn = tlr.get_lr_schedule_fn(name, params)
+    steps = np.arange(0, 30)
+    want = np.array([float(jfn(jnp.asarray(s, jnp.int32))) for s in steps])
+    got = np.array([float(tfn(int(s))) for s in steps])
+    np.testing.assert_allclose(got, want, **FN_TOL)
+    dev = tfn(torch.tensor(13, dtype=torch.int32))  # the engine's device-step form
+    np.testing.assert_allclose(float(dev), want[13], **FN_TOL)
+    sched = tlr.LRScheduler(tfn)
+    sched.step(3)
+    assert sched.get_last_lr() == [float(tfn(3))]
+
+
+OPTIMIZERS = [
+    ("adamw", dict(lr=1e-2, weight_decay=0.1, betas=(0.8, 0.95), eps=1e-6)),
+    ("adam", dict(lr=1e-2)),
+    ("adam", dict(lr=1e-2, adam_w_mode=False, weight_decay=0.05)),
+    ("adam", dict(lr=1e-2, adam_w_mode=False)),
+    ("fusedadam", dict(lr=3e-3, weight_decay=0.01)),
+    ("sgd", dict(lr=0.1)),
+    ("sgd", dict(lr=0.1, momentum=0.9)),
+    ("sgd", dict(lr=0.1, momentum=0.9, nesterov=True)),
+]
+
+
+@pytest.mark.parametrize("name,params", OPTIMIZERS)
+def test_optimizer_updates_match_optax(name, params):
+    rng = np.random.default_rng(11)
+    shapes = [(5, 3), (7,)]
+    p0 = [rng.normal(size=s).astype(np.float32) for s in shapes]
+    grads = [[rng.normal(size=s).astype(np.float32) for s in shapes] for _ in range(4)]
+    tx = j_build_optimizer(name, params)
+    jparams = [jnp.asarray(p) for p in p0]
+    state = tx.init(jparams)
+    for g in grads:
+        upd, state = tx.update([jnp.asarray(x) for x in g], state, jparams)
+        jparams = optax.apply_updates(jparams, upd)
+    opt = build_optimizer(name, params)
+    tparams = [torch.from_numpy(p.copy()) for p in p0]
+    tstate = opt.init(tparams)
+    lr = torch.tensor(params["lr"], dtype=torch.float32)
+    for g in grads:
+        opt.step(tparams, [torch.from_numpy(x) for x in g], tstate, lr)
+    for t, j in zip(tparams, jparams):
+        np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=1e-6, rtol=1e-5)
+    assert int(tstate["count"]) == 4
+
+
+def test_optimizer_skips_the_whole_update_on_overflow():
+    opt = build_optimizer("adamw", dict(weight_decay=0.1))
+    p = [torch.ones(4)]
+    state = opt.init(p)
+    opt.step(p, [torch.ones(4)], state, torch.tensor(0.1), finite=torch.tensor(False))
+    assert torch.equal(p[0], torch.ones(4)) and int(state["count"]) == 0
+    assert not state["mu"][0].any() and not state["nu"][0].any()
+
+
+@pytest.mark.parametrize("name", ["lamb", "lion", "adagrad", "muon", "onebitadam",
+                                  "zerooneadam", "onebitlamb"])
+def test_unported_optimizers_are_refused(name):
+    with pytest.raises(NotImplementedError, match=name):
+        build_optimizer(name, {})
+
+
+def test_loss_scale_update_matches_jax():
+    flags = [True, False, False, True, True, False, True, False, False, False]
+    js = jprec.init_loss_scale(True, initial_scale_power=4, hysteresis=2)
+    ts = tprec.init_loss_scale(True, initial_scale_power=4, hysteresis=2)
+    for f in flags:
+        js = jprec.update_loss_scale(js, jnp.asarray(f), loss_scale_window=2, min_scale=2.0)
+        ts = tprec.update_loss_scale(ts, torch.tensor(f), loss_scale_window=2, min_scale=2.0)
+        assert float(ts.scale) == float(js.scale)
+        assert int(ts.good_steps) == int(js.good_steps)
+        assert int(ts.hysteresis) == int(js.hysteresis)
+
+
+def test_grad_norm_and_clip_match_jax():
+    rng = np.random.default_rng(12)
+    grads = [rng.normal(size=s).astype(np.float32) for s in ((4, 3), (9,))]
+    jg, jn = jprec.clip_by_global_norm([jnp.asarray(g) for g in grads], 1.5)
+    tg, tn = tprec.clip_by_global_norm([torch.from_numpy(g) for g in grads], 1.5)
+    np.testing.assert_allclose(float(tn), float(jn), **FN_TOL)
+    for a, b in zip(tg, jg):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), **FN_TOL)
+    assert bool(tprec.grads_finite([torch.ones(2)]))
+    assert not bool(tprec.grads_finite([torch.ones(2), torch.tensor([float("inf")])]))
+
+
+def test_fp16_engine_skips_an_overflowing_step():
+    _, jp = _pair("tiny", {})
+    engine = _torch_engine(jp, dtype=torch.float16, bf16={"enabled": False},
+                           fp16={"enabled": True, "initial_scale_power": 127, "hysteresis": 1})
+    before = {k: v.detach().clone() for k, v in _flat(engine.params).items()}
+    engine.train_batch(_batches(1)[0])
+    assert engine.get_last_loss() is not None and engine.skipped_steps == 1
+    assert int(engine.step) == 0 and float(engine.loss_scale.scale) == 2.0 ** 126
+    for key, p in _flat(engine.params).items():
+        assert torch.equal(p, before[key]), key
+
+
+# ---------------------------------------------------------------------------
+# (g) config errors
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("raw,match", [
+    ({"train_batch_sizee": 8}, "train_batch_sizee"),
+    ({"optimizer": {"type": "adamw", "parms": {}}}, "parms"),
+    ({"zero_optimization": {"stage": 4}}, "stage must be 0-3"),
+    ({"zero_optimization": {"stagee": 1}}, "stagee"),
+    ({"train_data": {"prefetch_depth": 99}}, "prefetch_depth"),
+])
+def test_parse_config_errors_match_jax(raw, match):
+    with pytest.raises(JConfigError, match=match):
+        j_parse_config(raw)
+    with pytest.raises(ConfigError, match=match):
+        parse_config(raw)
+
+
+@pytest.mark.parametrize("raw,match", [
+    ({"train_batch_size": 10, "train_micro_batch_size_per_gpu": 2,
+      "gradient_accumulation_steps": 2}, "batch invariant"),
+    ({"train_batch_size": 10, "train_micro_batch_size_per_gpu": 4}, "not divisible"),
+    ({"fp16": {"enabled": True}, "bf16": {"enabled": True}}, "cannot both"),
+])
+def test_finalize_errors_match_jax(raw, match):
+    with pytest.raises(JConfigError, match=match):
+        j_parse_config(raw, dp_world_size=1)
+    with pytest.raises(ConfigError, match=match):
+        parse_config(raw, dp_world_size=1)
+
+
+def test_parse_config_batch_triangulation_matches_jax():
+    for raw in ({"train_batch_size": 16, "gradient_accumulation_steps": 2},
+                {"train_micro_batch_size_per_gpu": 4}, {"train_batch_size": 6}, {}):
+        j, t = j_parse_config(raw, dp_world_size=1), parse_config(raw, dp_world_size=1)
+        assert (t.train_batch_size, t.train_micro_batch_size_per_gpu,
+                t.gradient_accumulation_steps) == (
+            j.train_batch_size, j.train_micro_batch_size_per_gpu,
+            j.gradient_accumulation_steps)
+        assert t.precision_dtype == j.precision_dtype
+
+
+@pytest.mark.parametrize("raw,key", [
+    ({"zero_optimization": {"stage": 3, "offload_optimizer": {"device": "cpu"}}},
+     "zero_optimization.offload_optimizer"),
+    ({"zero_optimization": {"zero_quantized_weights": True}}, "zero_quantized_weights"),
+    ({"compression_training": {}}, "compression_training"),
+    ({"progressive_layer_drop": {"enabled": True}}, "progressive_layer_drop"),
+    ({"eigenvalue": {"enabled": True}}, "eigenvalue"),
+    ({"curriculum_learning": {"enabled": True}}, "curriculum_learning"),
+    ({"elasticity": {"enabled": True}}, "elasticity"),
+])
+def test_unported_config_keys_are_refused(raw, key):
+    with pytest.raises(NotImplementedError, match=key):
+        parse_config(raw)
+
+
+def test_reference_passthrough_keys_are_accepted():
+    cfg = parse_config({"zero_allow_untested_optimizer": True, "amp": {},
+                        "zero_optimization": {"stage": 2, "overlap_comm": True,
+                                              "stage3_param_persistence_threshold": 7}})
+    assert cfg.zero_optimization.stage == 2
+    assert cfg.zero_optimization.param_persistence_threshold == 7
+
+
+# ---------------------------------------------------------------------------
+# entry points and the device rule
+# ---------------------------------------------------------------------------
+def test_entry_points_need_cuda_or_an_explicit_device(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_preset("tiny", dtype=torch.float32)
+    _, jp = _pair("tiny", {})
+    model = tt.CausalLM(cfg)
+    for call in (lambda: tt.init_params(cfg), lambda: tt.params_from_numpy(jp, cfg),
+                 lambda: model.init_params(), lambda: tds.initialize(model=model)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert tt.init_params(cfg, device="cpu")["embed"]["embedding"].device.type == "cpu"
+    assert tt.params_from_numpy(jp, cfg, device="cpu")["embed"]["embedding"].device.type == "cpu"
+    engine, opt, loader, sched = tds.initialize(model=model, config={"bf16": {"enabled": False}},
+                                                device="cpu")
+    assert opt is engine and loader is None and sched is engine.lr_scheduler
+    assert engine.device.type == "cpu"
+
+
+def test_initialize_refuses_unported_arguments():
+    model = tt.CausalLM(get_preset("tiny", dtype=torch.float32))
+    for kw, match in ((dict(model="some/hf/dir"), "Hugging Face"),
+                      (dict(model=model, mesh=object()), "mesh"),
+                      (dict(model=model, training_data=[1]), "training_data")):
+        with pytest.raises(NotImplementedError, match=match):
+            tds.initialize(device="cpu", **kw)
+
+
+def test_initialize_from_seed_is_reproducible():
+    model = tt.CausalLM(get_preset("tiny", dtype=torch.float32))
+    conf = {"seed": 3, "bf16": {"enabled": False}}
+    a, _, _, _ = tds.initialize(model=model, config=conf, device="cpu")
+    b, _, _, _ = tds.initialize(model=model, config=conf, device="cpu")
+    for key, p in _flat(a.params).items():
+        assert p.dtype == torch.float32 and torch.equal(p, _flat(b.params)[key])

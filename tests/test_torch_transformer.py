@@ -25,6 +25,7 @@ VARIANTS = [
     dict(norm="layernorm", qkv_bias=True, attn_out_bias=True, mlp_bias=True),
     dict(gated_mlp=False, activation="gelu", tie_embeddings=True),
     dict(position="learned", embedding_norm=True, head_bias=True),
+    dict(parallel_block=True, norm="layernorm"),  # one shared norm: no mlp_norm
 ]
 
 
@@ -48,7 +49,7 @@ def _pair(over):
 @pytest.mark.parametrize("over", VARIANTS)
 def test_init_params_layout_and_conversion(over):
     _, jp, tcfg, tp = _pair(over)
-    assert _shapes(tt.init_params(tcfg, seed=0)) == _shapes(jp) == _shapes(tp)
+    assert _shapes(tt.init_params(tcfg, seed=0, device="cpu")) == _shapes(jp) == _shapes(tp)
     flat_j = jax.tree_util.tree_leaves(jp)
     flat_t = jax.tree_util.tree_leaves(tp)
     assert all(np.array_equal(j, t.numpy()) for j, t in zip(flat_j, flat_t))
