@@ -12,7 +12,11 @@ Phases, each raising on failure (so the exit code is non-zero):
                serving path's shapes (tolerance KERNEL_TOL), and the
                training backward (K1f's lse, the dq and dk/dv kernels) at
                s 4096, a packed batch with segments and soft cap, s 200
-               and head_dim 64 (BWD_TOL, LSE_TOL);
+               and head_dim 64 (BWD_TOL, LSE_TOL); the dequant-matmuls (K4
+               int8 / e4m3, K5 fp6) at every llama3_8b serving-matmul shape,
+               M 16 and 512, and ragged shapes with a bias (QMM_TOL,
+               relative Frobenius); the row quantizers (K6a/b/c) on
+               [4096, 14336] bf16 rows with a zero row, byte-identical;
 3. engine   -- ``InferenceEngineV2`` on ``llama3_proxy_410m`` (24 layers,
                bf16, random weights from a seed): 64 prompts of 128 tokens
                through ``put``, then 64 greedy ``step``s; the flash and
@@ -36,10 +40,23 @@ Phases, each raising on failure (so the exit code is non-zero):
                falling, flash_fwd / flash_bwd_dq / flash_bwd_dkv launched
                24 x 2 times per step; step time, tokens/s, MFU, peak
                memory and a one-step profile;
-7. timings  -- per kernel: kernel ms, plain ms, one PyTorch library call's
+7. quant_check -- ``llama3_8b`` at full width, 2 layers: for int8, fp8 and
+               fp6 an engine on the card serves 4 prompts of 64 tokens and 8
+               greedy steps; the same payloads replay every stream on the
+               CPU in fp32 (near-argmax); K4 / K5 launched 15 times a
+               forward;
+8. quant_serve -- ``llama3_8b`` at full depth (``bench.py --serve8b`` at
+               batch 16: 16 prompts of 128, 4 warm-up and 32 timed greedy
+               ``step``s) in bf16 (the anchor), int8, fp8 and fp6 from one
+               bf16 tree on the card: weight bytes, ms per tick, tokens/s,
+               effective weight GB/s, prefill tokens/s, a one-tick profile
+               and idle share, launches per forward (K4 / K5: 225);
+9. quantizer -- the quantizer API (K6) on layer 0's w_up of that tree;
+10. timings -- per kernel: kernel ms, plain ms, one PyTorch library call's
                ms where one computes the same function, and the card's
                bound for the same work (the backward kernels, and K1f
-               again, at the training flagship's per-call shape).
+               again, at the training flagship's per-call shape; K4 / K5
+               at M 16 and 512 on [4096, 14336]).
 
 Prints one JSON line per phase, the ``kernels`` JSON line, the card's name
 and power limit, and last ``{"ok": true, "device": {...}}``.  Exits non-zero
@@ -87,8 +104,19 @@ TRAIN_STEPS = 6
 # of the range; a wrong kernel moves them by tens of percent.
 ARGMAX_TOL_FRAC = 0.02
 
-# published peaks of one H100 SXM (dense): bf16 tensor rate, HBM3 rate
+# quantized serving (K4 / K5): bf16 output vs the fp32 plain version on the
+# same bf16 input and payload, relative Frobenius error.  The products are
+# exact in both; what differs is the bf16 rounding of the output (about
+# 2^-9 / sqrt(3) = 1.1e-3 relative RMS) and the fp32 summation order.
+QMM_TOL = 1e-2
+# every serving matmul shape of llama3_8b: wq / wo, wk / wv, w_up / w_gate,
+# w_down, the vocabulary head
+QUANT_SHAPES_8B = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096), (4096, 128256)]
+
+# published peaks of one H100 SXM (dense): bf16 tensor rate, fp32 CUDA-core
+# rate, HBM3 rate
 PEAK_BF16_FLOPS = 989e12
+PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 
 SEED = 0
@@ -323,26 +351,38 @@ def kernel_checks(torch):
 # ---------------------------------------------------------------------------
 # phase 3: the engine (put + step) on the 410M model
 # ---------------------------------------------------------------------------
-def cpu_logits(torch, params_cpu, cfg_cpu, tokens, rows):
-    """fp32 logits at pack ``rows`` of one sequence through the port's own
-    model runner on the CPU (no KV written: every page id is -1)."""
+def cpu_logits(torch, params_cpu, cfg_cpu, token_lists, rows_per_list):
+    """fp32 logits through the port's own model runner on the CPU: the
+    sequences of ``token_lists`` packed page-aligned into one prefill (no
+    KV written: every page id is -1); for each sequence, the logits at its
+    ``rows_per_list`` rows."""
     import numpy as np
     from deepspeed_tpu_torch.inference import model_runner
     from deepspeed_tpu_torch.inference.paged import init_paged_cache
 
     bs = 32
-    t = -(-len(tokens) // bs) * bs
-    tok = np.zeros(t, np.int32)
-    tok[:len(tokens)] = tokens
-    seg = np.zeros(t, np.int32)
-    seg[:len(tokens)] = 1
-    pos = np.arange(t, dtype=np.int32)
+    t = sum(-(-len(toks) // bs) * bs for toks in token_lists)
+    tok, seg, pos = (np.zeros(t, np.int32) for _ in range(3))
+    idx, cur = [], 0
+    for i, (toks, rows) in enumerate(zip(token_lists, rows_per_list)):
+        n = len(toks)
+        tok[cur:cur + n], seg[cur:cur + n], pos[cur:cur + n] = toks, i + 1, np.arange(n)
+        idx.append([cur + r for r in rows])
+        cur += -(-n // bs) * bs
     kv = init_paged_cache(cfg_cpu.num_layers, 1, bs, cfg_cpu.num_kv_heads, cfg_cpu.hd,
                           dtype=torch.float32, device="cpu")
     logits, _ = model_runner.prefill_packed(
         params_cpu, cfg_cpu, tok, seg, pos, np.full(t // bs, -1, np.int32),
-        np.asarray(rows, np.int32), kv)
-    return logits
+        np.asarray(sum(idx, []), np.int32), kv)
+    return list(torch.split(logits, [len(r) for r in idx]))
+
+
+def near_argmax(torch, logits, picks):
+    """(worst gap, exact picks): the gap of a pick is (max - its logit) /
+    (max - min) of its CPU row."""
+    top = logits.max(dim=-1).values
+    gap = (top - logits.gather(1, picks[:, None])[:, 0]) / (top - logits.min(dim=-1).values)
+    return float(gap.max()), int((logits.argmax(dim=-1) == picks).sum())
 
 
 def engine_phase(torch, K, gpu, params, cfg):
@@ -406,21 +446,8 @@ def engine_phase(torch, K, gpu, params, cfg):
     assert eng.close()["blocks_in_use"] == 0
 
     # near-argmax replay of a few sequences on the CPU in fp32
-    cfg_cpu = cfg.replace(dtype=torch.float32)
-    params_cpu = {k: _tree_cpu(v) for k, v in params.items()}
-    worst = 0.0
-    exact = total = 0
-    for u in (1, 2, B):
-        toks = prompts[u - 1] + gen[u]
-        rows = list(range(prompt_len - 1, len(toks) - 1))
-        lg = cpu_logits(torch, params_cpu, cfg_cpu, toks[:-1], rows)
-        picks = torch.tensor(toks[prompt_len:])
-        top_v = lg.max(dim=-1).values
-        rng_v = top_v - lg.min(dim=-1).values
-        gap = (top_v - lg.gather(1, picks[:, None])[:, 0]) / rng_v
-        worst = max(worst, float(gap.max()))
-        exact += int((lg.argmax(dim=-1) == picks).sum())
-        total += len(rows)
+    worst, exact, total = replay_on_cpu(torch, _tree_cpu(params), cfg,
+                                        {u: prompts[u - 1] for u in (1, 2, B)}, gen)
     if worst > ARGMAX_TOL_FRAC:
         raise AssertionError(f"card pick off the CPU argmax by {worst:.4f} of the logit "
                              f"range > {ARGMAX_TOL_FRAC}")
@@ -441,9 +468,31 @@ def engine_phase(torch, K, gpu, params, cfg):
 
 
 def _tree_cpu(x):
+    """A parameter tree on the CPU in fp32; quantized payloads keep their
+    bytes and types."""
+    from deepspeed_tpu_torch.ops.quantizer import QUANT_TYPES, map_quant
+
     if isinstance(x, dict):
         return {k: _tree_cpu(v) for k, v in x.items()}
+    if isinstance(x, QUANT_TYPES):
+        return map_quant(x, lambda t: t.cpu())
     return x.float().cpu()
+
+
+def replay_on_cpu(torch, params_cpu, cfg, prompts, gen):
+    """Replay streams (``prompts`` {uid: prompt}, ``gen`` {uid: the card's
+    greedy picks}) through the port on the CPU in fp32 (one packed
+    prefill); returns (worst near-argmax gap, exact picks, picks)."""
+    uids = sorted(prompts)
+    logits = cpu_logits(torch, params_cpu, cfg.replace(dtype=torch.float32),
+                        [prompts[u] + gen[u][:-1] for u in uids],
+                        [list(range(len(prompts[u]) - 1, len(prompts[u]) - 1 + len(gen[u])))
+                         for u in uids])
+    worst, exact = 0.0, 0
+    for u, lg in zip(uids, logits):
+        w, e = near_argmax(torch, lg, torch.tensor(gen[u]))
+        worst, exact = max(worst, w), exact + e
+    return worst, exact, sum(len(gen[u]) for u in uids)
 
 
 # ---------------------------------------------------------------------------
@@ -579,10 +628,11 @@ def train_check_phase(torch, K, gpu):
     return res
 
 
-def _device_profile(torch, fn, n=1):
-    """(wall ms per call, device ms per call or None, top device rows) of
-    ``n`` calls of ``fn`` under ``torch.profiler`` (device-side rows only:
-    an operator's row repeats its kernels' time)."""
+def _device_profile(torch, fn, n=1, top=10):
+    """(wall ms per call, device ms per call or None, the ``top`` device
+    rows, all of them for None) of ``n`` calls of ``fn`` under
+    ``torch.profiler`` (device-side rows only: an operator's row repeats
+    its kernels' time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -595,9 +645,9 @@ def _device_profile(torch, fn, n=1):
     evs = [e for e in prof.key_averages()
            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     dev_ms = sum(e.self_device_time_total for e in evs) / 1e3 / n if evs else None
-    top = sorted(evs, key=lambda e: -e.self_device_time_total)[:10]
+    evs = sorted(evs, key=lambda e: -e.self_device_time_total)[:top]
     rows = [dict(name=e.key[:60], ms_per_call=e.self_device_time_total / 1e3 / n,
-                 calls=e.count / n) for e in top]
+                 calls=e.count / n) for e in evs]
     return wall_ms, dev_ms, rows
 
 
@@ -660,6 +710,401 @@ def train_phase(torch, K, gpu):
 
 
 # ---------------------------------------------------------------------------
+# quantized serving: kernel checks, quant_check, quant_serve, quantizer
+# ---------------------------------------------------------------------------
+QMM_NAMES = {"int8": "quant_matmul_int8", "fp8": "quant_matmul_fp8", "fp6": "quant_matmul_fp6"}
+K6_NAMES = ("quantize_int8", "quantize_fp8", "dequantize")
+
+
+def _payloads(torch, w):
+    """{kernel name: the int8 / e4m3 / fp6 serving payload of w}."""
+    from deepspeed_tpu_torch.ops.quantizer import (
+        quantize_serving_weight,
+        quantize_serving_weight_fp6,
+    )
+
+    return {QMM_NAMES["int8"]: quantize_serving_weight(w, "int8"),
+            QMM_NAMES["fp8"]: quantize_serving_weight(w, "fp8"),
+            QMM_NAMES["fp6"]: quantize_serving_weight_fp6(w)}
+
+
+def _qmm(name, p, x, bias=None, plain=False):
+    """K4 / K5 (or its plain version) on payload ``p``."""
+    from deepspeed_tpu_torch.ops.kernels import quant_matmul as QM
+
+    if name == QMM_NAMES["fp6"]:
+        fn = QM.quant_matmul_fp6_plain if plain else QM.quant_matmul_fp6_kernel
+        return fn(x, p.packed, p.s, p.in_dim, bias)
+    return (QM.quant_matmul_plain if plain else QM.quant_matmul_kernel)(x, p.q, p.s, bias)
+
+
+def _as_bytes(torch, t):
+    return t.view(torch.uint8) if t.element_size() == 1 else t
+
+
+def quant_kernel_checks(torch):
+    """K4 (int8, e4m3) and K5 at every 8B serving-matmul shape, M = 16 and
+    512, plus ragged cases with a bias, each held by relative Frobenius
+    error against the plain version in fp32 on the same bf16 input; then
+    K6a/b/c on [4096, 14336] bf16 rows with a zero row: q bytes, scales and
+    the dequantized tensor identical to the plain version."""
+    from deepspeed_tpu_torch.ops.kernels import quant_kernel as QK
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 20)
+    errs = {n: 0.0 for n in (*QMM_NAMES.values(), *K6_NAMES)}
+    cases = []
+    shapes = [(k, n, m, False) for k, n in QUANT_SHAPES_8B for m in (16, 512)]
+    shapes += [(4100, 1000, 5, True), (1024, 1040, 100, True)]  # ragged M, N, K
+    for k, n in dict.fromkeys((k, n) for k, n, _, _ in shapes):
+        w = _randn(torch, (k, n), gen, torch.bfloat16) * k ** -0.5
+        payloads = _payloads(torch, w)
+        del w
+        for m, with_bias in ((m, b) for kk, nn, m, b in shapes if (kk, nn) == (k, n)):
+            x = _randn(torch, (m, k), gen, torch.bfloat16)
+            bias = _randn(torch, (n,), gen, torch.float32) if with_bias else None
+            for name, p in payloads.items():
+                got = _qmm(name, p, x, bias)
+                torch.cuda.synchronize()
+                ref = _qmm(name, p, x.float(), bias, plain=True)
+                if not bool(torch.isfinite(got).all()):
+                    raise AssertionError(f"{name} M{m} K{k} N{n}: non-finite output")
+                e = got.float() - ref
+                rel = float(e.norm() / ref.norm())
+                errs[name] = max(errs[name], float(e.abs().max()))
+                cases.append(dict(kernel=name, case=f"M{m}_K{k}_N{n}" + ("_bias" if with_bias
+                                                                          else ""),
+                                  rel_fro_err=rel, limit=QMM_TOL,
+                                  max_abs_err=float(e.abs().max())))
+                if rel > QMM_TOL:
+                    raise AssertionError(f"{name}: {cases[-1]} over the limit {QMM_TOL}")
+                del got, ref, e
+        del payloads
+        _free(torch)
+
+    x = _randn(torch, (4096, 14336), gen, torch.bfloat16)
+    x[7] = 0.0  # a zero row: scale max(0, 1e-12) / qmax
+    for dtype in (torch.int8, torch.float8_e4m3fn, torch.float8_e5m2):
+        name = "quantize_int8" if dtype == torch.int8 else "quantize_fp8"
+        q, s = QK.quantize_kernel(x, dtype)
+        d = QK.dequantize_kernel(q, s, torch.bfloat16)
+        torch.cuda.synchronize()
+        qp, sp = QK.quantize_rows_plain(x, dtype)
+        dp = QK.dequantize_rows_plain(q, s, torch.bfloat16)
+        bad_q = int((_as_bytes(torch, q) != _as_bytes(torch, qp)).sum())
+        bad_s = int((s != sp).sum())
+        bad_d = int((d.view(torch.int16) != dp.view(torch.int16)).sum())
+        errs[name] = max(errs[name], float((q.float() - qp.float()).abs().max()))
+        errs["dequantize"] = max(errs["dequantize"], float((d.float() - dp.float()).abs().max()))
+        cases.append(dict(kernel=f"{name}+dequantize", case=f"G4096_N14336_bf16_to_{dtype}",
+                          q_bytes_differing=bad_q, scales_differing=bad_s,
+                          dequantized_bits_differing=bad_d, limit=0))
+        if bad_q or bad_s or bad_d:
+            raise AssertionError(f"{name}: {cases[-1]} (must be identical)")
+    del x, q, s, d, qp, sp, dp
+    _free(torch)
+    return errs, cases
+
+
+def _stream_bytes(params):
+    """Bytes of the serving matmuls' weights (what one forward streams)."""
+    from deepspeed_tpu_torch.ops.quantizer import _SERVING_QUANT_PATHS, tree_nbytes
+
+    def walk(node, path):
+        for key, v in node.items():
+            p = f"{path}/{key}" if path else key
+            if isinstance(v, dict):
+                yield from walk(v, p)
+            elif any(p.endswith(t) for t in _SERVING_QUANT_PATHS):
+                yield tree_nbytes(v)
+
+    return sum(walk(params, ""))
+
+
+def quant_check_phase(torch, K, gpu):
+    """``llama3_8b`` at full width, 2 layers: for int8, fp8 and fp6 an
+    engine on the card (bf16) serves 4 prompts of 64 tokens and 8 greedy
+    steps; the same quantized payloads on the CPU replay every stream in
+    fp32 through the plain versions (near-argmax, ARGMAX_TOL_FRAC); K4 / K5
+    launched 7 x 2 + 1 times per forward."""
+    import numpy as np
+    from deepspeed_tpu_torch.inference.engine_v2 import InferenceEngineV2
+    from deepspeed_tpu_torch.inference.sampling import SamplingParams
+    from deepspeed_tpu_torch.models.presets import get_preset
+    from deepspeed_tpu_torch.models.transformer import init_params
+
+    cfg = get_preset("llama3_8b", num_layers=2, max_seq_len=2048)
+    params = init_params(cfg, seed=SEED, device=DEVICE)
+    B, prompt_len, steps = 4, 64, 8
+    rng = np.random.default_rng(SEED)
+    prompts = {u: rng.integers(1, cfg.vocab_size, prompt_len).tolist() for u in range(1, B + 1)}
+    samp = SamplingParams(temperature=0.0, max_new_tokens=steps + 4)
+    per_mm = 7 * cfg.num_layers + 1
+    out, launches = {}, {n: 0 for n in K.LAUNCHES}
+    for fmt, name in QMM_NAMES.items():
+        eng = InferenceEngineV2(params, cfg, max_seqs=B, num_blocks=64, block_size=32,
+                                prefill_buckets=(256,), prefill_budget=256,
+                                quantize_weights=fmt)
+        K.reset_launches()
+        first = eng.put(list(prompts), list(prompts.values()), samp)
+        gen = {u: [first[u]] for u in prompts}
+        for _ in range(steps):
+            for u, tok in eng.step(samp).items():
+                gen[u].append(tok)
+        got = dict(K.LAUNCHES)
+        fwd = eng.stats["prefill_dispatches"] + eng.stats["decode_ticks"]
+        if got[name] != per_mm * fwd:
+            raise AssertionError(f"quant_check {fmt}: {name} launched {got[name]} times, "
+                                 f"expected {per_mm} x {fwd} forwards")
+        if any(t < 0 for g in gen.values() for t in g):
+            raise AssertionError(f"quant_check {fmt}: non-finite logits")
+        params_cpu = _tree_cpu(eng.params)
+        if eng.close()["blocks_in_use"]:
+            raise AssertionError(f"quant_check {fmt}: leaked blocks")
+        del eng
+        _free(torch)
+        worst, exact, total = replay_on_cpu(torch, params_cpu, cfg, prompts, gen)
+        del params_cpu
+        if worst > ARGMAX_TOL_FRAC:
+            raise AssertionError(f"quant_check {fmt}: card pick off the CPU argmax by {worst:.4f} "
+                                 f"of the logit range > {ARGMAX_TOL_FRAC}")
+        out[fmt] = dict(argmax_exact=f"{exact}/{total}", argmax_worst_gap_frac=worst,
+                        launches_per_forward=got[name] / fwd, forwards=fwd)
+        for n in launches:
+            launches[n] += got[n]
+    del params
+    _free(torch)
+    res = dict(phase="quant_check", model="llama3_8b", layers=cfg.num_layers, batch=B,
+               prompt_len=prompt_len, decode_steps=steps, tolerance=ARGMAX_TOL_FRAC,
+               formats=out, launches=launches, gpu=gpu)
+    emit(res)
+    return res
+
+
+PROFILE_CATEGORIES = {  # substrings of device-kernel names, first match wins
+    "quant_matmul (K4/K5)": ("qmm_",),
+    "cublas_matmul": ("gemm", "nvjet", "xmma", "cutlass", "splitK"),
+    "paged_decode (K2)": ("paged_decode",),
+    "flash_fwd (K1f)": ("flash_fwd",),
+}
+
+
+def _categorize(rows):
+    out = {c: 0.0 for c in PROFILE_CATEGORIES}
+    out["other"] = 0.0
+    for r in rows:
+        cat = next((c for c, keys in PROFILE_CATEGORIES.items()
+                    if any(k in r["name"] for k in keys)), "other")
+        out[cat] += r["ms_per_call"]
+    return out
+
+
+def quant_serve_phase(torch, K, gpu):
+    """``llama3_8b`` at full depth (``bench.py --serve8b`` at batch 16): for
+    bf16 (plain weights, the anchor) then int8, fp8 and fp6 from one bf16
+    tree on the card, 16 prompts of 128 tokens through ``put``, 4 warm-up
+    and 32 timed greedy ``step``s, one profiled tick.  Returns the phase
+    result and layer 0's w_up (the quantizer phase's input)."""
+    import numpy as np
+    from deepspeed_tpu_torch.inference.engine_v2 import InferenceEngineV2
+    from deepspeed_tpu_torch.inference.sampling import SamplingParams
+    from deepspeed_tpu_torch.models.presets import get_preset
+    from deepspeed_tpu_torch.models.transformer import init_params
+    from deepspeed_tpu_torch.ops.quantizer import tree_nbytes
+
+    cfg = get_preset("llama3_8b", max_seq_len=2048)
+    L = cfg.num_layers
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=SEED, device=DEVICE)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    B, prompt_len, warm, steps = 16, 128, 4, 32
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(1, cfg.vocab_size, prompt_len).tolist() for _ in range(B)]
+    uids = list(range(1, B + 1))
+    samp = SamplingParams(temperature=0.0, max_new_tokens=warm + steps + 8)
+    formats, launches = {}, {n: 0 for n in K.LAUNCHES}
+    for fmt in (None, "int8", "fp8", "fp6"):
+        t0 = time.perf_counter()
+        eng = InferenceEngineV2(params, cfg, max_seqs=B, num_blocks=192, block_size=32,
+                                prefill_buckets=(128, 256, 512), prefill_budget=512,
+                                quantize_weights=fmt)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        K.reset_launches()
+        t0 = time.perf_counter()
+        first = eng.put(uids, prompts, samp)  # returns host tokens: synced
+        prefill_s = time.perf_counter() - t0
+        gen = {u: [first[u]] for u in uids}
+        for _ in range(warm):
+            eng.step(samp)
+        tick_ms = []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            out = eng.step(samp)  # fetches the sampled tokens: synced
+            tick_ms.append(1e3 * (time.perf_counter() - t0))
+            for u, tok in out.items():
+                gen[u].append(tok)
+        got = dict(K.LAUNCHES)
+        d_prefill, d_ticks = eng.stats["prefill_dispatches"], eng.stats["decode_ticks"]
+        qname = QMM_NAMES.get(fmt)
+        want = {"flash_fwd": L * d_prefill, "paged_decode": L * d_ticks}
+        for name in QMM_NAMES.values():
+            want[name] = (7 * L + 1) * (d_prefill + d_ticks) if name == qname else 0
+        bad = {n: (got[n], w) for n, w in want.items() if got[n] != w}
+        if bad:
+            raise AssertionError(f"quant_serve {fmt or 'bf16'}: launches (got, expected) {bad}")
+        if any(t < 0 for g in gen.values() for t in g):
+            raise AssertionError(f"quant_serve {fmt or 'bf16'}: non-finite logits")
+        wall_ms, dev_ms, rows = _device_profile(torch, lambda: eng.step(samp), top=None)
+        eng.flush(uids)
+        a = eng.mgr.allocator
+        in_use = a.total_blocks - a.free_blocks - a.cached_blocks
+        if in_use:
+            raise AssertionError(f"quant_serve {fmt or 'bf16'}: {in_use} blocks in use "
+                                 "after the flush")
+        resident, stream = tree_nbytes(eng.params), _stream_bytes(eng.params)
+        eng.close()
+        del eng
+        _free(torch)
+        med = sorted(tick_ms)[len(tick_ms) // 2]
+        formats[fmt or "bf16"] = dict(
+            resident_weight_bytes=resident, stream_weight_bytes=stream,
+            stream_bound_ms=1e3 * stream / PEAK_BYTES, setup_s=setup_s,
+            decode_tick_ms_median=med, decode_tick_ms_min=min(tick_ms),
+            decode_tick_ms_max=max(tick_ms), decode_tokens_per_s=B * 1e3 / med,
+            effective_weight_gb_s=stream / med / 1e6,
+            prefill_s=prefill_s, prefill_tokens_per_s=B * prompt_len / prefill_s,
+            prefill_dispatches=d_prefill, decode_ticks=d_ticks,
+            launches_per_forward={"flash_fwd": got["flash_fwd"] / d_prefill,
+                                  "paged_decode": got["paged_decode"] / d_ticks,
+                                  **({qname: got[qname] / (d_prefill + d_ticks)}
+                                     if qname else {})},
+            profile_tick_wall_ms=wall_ms, profile_tick_device_ms=dev_ms,
+            device_idle_share=None if dev_ms is None else 1.0 - dev_ms / med,
+            device_ms_by_category=_categorize(rows), profile_top=rows[:8])
+        for n in launches:
+            launches[n] += got[n]
+    w_up0 = params["layers"]["mlp"]["w_up"][0].clone()
+    peak = torch.cuda.max_memory_allocated()
+    del params
+    _free(torch)
+    res = dict(phase="quant_serve", model="llama3_8b", layers=L, max_seq_len=2048, batch=B,
+               prompt_len=prompt_len, warmup_steps=warm, timed_steps=steps,
+               num_blocks=192, block_size=32, prefill_buckets=[128, 256, 512],
+               prefill_budget=512, init_s=init_s, peak_memory_bytes=peak,
+               formats=formats, launches=launches, gpu=gpu)
+    emit(res)
+    return res, w_up0
+
+
+def quantizer_phase(torch, K, gpu, w):
+    """The quantizer API (K6) on layer 0's w_up of the 8B tree, groups of
+    its trailing dimension: ``quantize_int8`` -> ``dequantize``,
+    ``quantize_fp8`` (e4m3, e5m2) -> ``dequantize``, ``fake_quantize_int8``.
+    Each element is held to its format's rounding bound: int8 within half a
+    step (s / 2) of x, fp8 within half an ulp (2^-(m+1) |x|, or half the
+    subnormal step in the subnormal range)."""
+    from deepspeed_tpu_torch.ops import quantizer as Q
+
+    gs = w.shape[-1]
+    K.reset_launches()
+    qi = Q.quantize_int8(w, gs)
+    di = Q.dequantize(qi)
+    fake = Q.fake_quantize_int8(w, gs)
+    fp8 = {}
+    for dtype in (torch.float8_e4m3fn, torch.float8_e5m2):
+        qt = Q.quantize_fp8(w, dtype, gs)
+        fp8[dtype] = (qt, Q.dequantize(qt))
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    want = {"quantize_int8": 2, "quantize_fp8": 2, "dequantize": 4}
+    if any(launches[n] != v for n, v in want.items()):
+        raise AssertionError(f"quantizer: launches {launches}, expected {want}")
+    if not torch.equal(fake, di) or di.dtype != w.dtype or di.shape != w.shape:
+        raise AssertionError("quantizer: fake_quantize_int8 != dequantize(quantize_int8)")
+    xf = w.float()
+    s = qi.scales[:, None]
+    step_err = float(((xf - qi.data.float() * s).abs() / s).max())
+    res = dict(phase="quantizer", shape=list(w.shape), group_size=gs,
+               int8_max_err_in_steps=step_err, limit_in_steps=0.5 + 1e-4,
+               int8_rel_fro_err=float((di.float() - xf).norm() / xf.norm()))
+    if step_err > 0.5 + 1e-4:  # + fp32 rounding of x / s and q * s
+        raise AssertionError(f"quantizer: int8 error {step_err} steps > 0.5")
+    for dtype, mbits, sub_step in ((torch.float8_e4m3fn, 3, 2.0 ** -9),
+                                   (torch.float8_e5m2, 2, 2.0 ** -16)):
+        qt, deq = fp8[dtype]
+        s = qt.scales[:, None]
+        err = (xf - qt.data.float() * s).abs()
+        lim = torch.maximum(xf.abs() * 2.0 ** -(mbits + 1), 0.5 * sub_step * s) * (1 + 1e-5)
+        over = int((err > lim).sum())
+        key = str(dtype).split(".")[-1]
+        res[f"{key}_elements_over_half_ulp"] = over
+        res[f"{key}_rel_fro_err"] = float((deq.float() - xf).norm() / xf.norm())
+        if over:
+            raise AssertionError(f"quantizer: {over} {key} elements over half an ulp")
+    res.update(launches=launches, gpu=gpu)
+    emit(res)
+    return res
+
+
+def quant_timings(torch):
+    """K4 / K5 at [4096, 14336] (w_up / w_gate: the most bytes a layer
+    streams) for M = 16 (a decode tick at batch 16) and M = 512 (a prefill
+    dispatch); K6 on [4096, 14336] bf16.  Bounds: every input read once and
+    every output written once, the weight at its compressed size, over
+    3.35 TB/s; 2 M K N over the bf16 tensor rate (K4 / K5) or 4 (quantize)
+    and 2 (dequantize) operations an element over the fp32 rate (K6)."""
+    from deepspeed_tpu_torch.ops.kernels import quant_kernel as QK
+    from deepspeed_tpu_torch.ops.kernels.quant_matmul import fp6_decode, fp6_unpack
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 30)
+    k, n = 4096, 14336
+    w = _randn(torch, (k, n), gen, torch.bfloat16) * k ** -0.5
+    payloads = _payloads(torch, w)
+    out = {}
+    for name, p in payloads.items():
+        wbytes = _nbytes(p.packed if name == QMM_NAMES["fp6"] else p.q, p.s)
+        if name == QMM_NAMES["fp6"]:
+            deq = (fp6_decode(fp6_unpack(p.packed, k), torch.float32) * p.s).to(torch.bfloat16)
+        else:
+            deq = (p.q.float() * p.s).to(torch.bfloat16)
+        per_m = {}
+        for m in (16, 512):
+            x = _randn(torch, (m, k), gen, torch.bfloat16)
+            bound, by = _bound(2 * m * k * n, _nbytes(x) + wbytes + 2 * m * n)
+            per_m[m] = dict(
+                shape=f"M{m} K{k} N{n}",
+                ms=time_ms(torch, lambda: _qmm(name, p, x)),
+                plain_ms=time_ms(torch, lambda: _qmm(name, p, x, plain=True), iters=10),
+                library_ms=time_ms(torch, lambda: torch.matmul(x, deq)),
+                bound_ms=bound, bound_by=by)
+        out[name] = dict(per_m[16], at_prefill_shape=per_m[512],
+                         library_note="torch.matmul of x with the dequantized bf16 weight "
+                                      "(what serving without quantization pays)")
+        del deq
+    del payloads, w
+    x = _randn(torch, (4096, 14336), gen, torch.bfloat16)
+    elems = x.numel()
+    note = "null: no single PyTorch call computes a per-row amax-scaled quantization"
+    for name, dtype in (("quantize_int8", torch.int8), ("quantize_fp8", torch.float8_e4m3fn)):
+        bound, by = _bound(4 * elems, 3 * elems + 4 * x.shape[0], PEAK_FP32_FLOPS)
+        out[name] = dict(shape="G4096 N14336 bf16 -> " + str(dtype).split(".")[-1],
+                         ms=time_ms(torch, lambda: QK.quantize_kernel(x, dtype)),
+                         plain_ms=time_ms(torch, lambda: QK.quantize_rows_plain(x, dtype)),
+                         library_ms=None, library_note=note, bound_ms=bound, bound_by=by)
+    q, s = QK.quantize_kernel(x, torch.int8)
+    bound, by = _bound(2 * elems, 3 * elems + 4 * x.shape[0], PEAK_FP32_FLOPS)
+    out["dequantize"] = dict(shape="G4096 N14336 int8 -> bf16",
+                             ms=time_ms(torch, lambda: QK.dequantize_kernel(q, s)),
+                             plain_ms=time_ms(torch, lambda: QK.dequantize_rows_plain(q, s)),
+                             library_ms=None, library_note=note, bound_ms=bound, bound_by=by)
+    del x, q, s
+    _free(torch)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 7: timings and bounds
 # ---------------------------------------------------------------------------
 def time_ms(torch, fn, iters=30, warm=3):
@@ -676,8 +1121,8 @@ def time_ms(torch, fn, iters=30, warm=3):
     return a.elapsed_time(b) / iters
 
 
-def _bound(flops, nbytes):
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+def _bound(flops, nbytes, peak_flops=PEAK_BF16_FLOPS):
+    t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES
     return (1e3 * max(t_ops, t_bytes), "operations" if t_ops > t_bytes else "bytes")
 
 
@@ -827,6 +1272,12 @@ REPLACES = {
     "flash_bwd_dkv": "deepspeed_tpu/ops/pallas/flash_kernel.py:407",
     "paged_decode": "deepspeed_tpu/ops/pallas/paged_attention.py:270",
     "ctx_attention": "deepspeed_tpu/ops/pallas/ctx_attention.py:244",
+    "quant_matmul_int8": "deepspeed_tpu/ops/pallas/quant_matmul.py:115",
+    "quant_matmul_fp8": "deepspeed_tpu/ops/pallas/quant_matmul.py:115",
+    "quant_matmul_fp6": "deepspeed_tpu/ops/pallas/quant_matmul.py:237",
+    "quantize_int8": "deepspeed_tpu/ops/pallas/quant_kernel.py:52",
+    "quantize_fp8": "deepspeed_tpu/ops/pallas/quant_kernel.py:103",
+    "dequantize": "deepspeed_tpu/ops/pallas/quant_kernel.py:75",
 }
 
 
@@ -862,8 +1313,12 @@ def main() -> None:
               ptxas=ptxas, gpu=gpu))
 
     errs, cases = kernel_checks(torch)
+    _free(torch)
+    q_errs, q_cases = quant_kernel_checks(torch)
+    errs.update(q_errs)
     emit(dict(phase="kernels", tolerance=KERNEL_TOL, bwd_tolerance=BWD_TOL,
-              lse_tolerance=LSE_TOL, cases=cases, gpu=gpu))
+              lse_tolerance=LSE_TOL, quant_matmul_tolerance=QMM_TOL, cases=cases + q_cases,
+              gpu=gpu))
     _free(torch)
 
     cfg = get_preset("llama3_proxy_410m")
@@ -876,14 +1331,23 @@ def main() -> None:
     _free(torch)
     tr = train_phase(torch, K, gpu)
     _free(torch)
+    qc = quant_check_phase(torch, K, gpu)
+    qs, w_up0 = quant_serve_phase(torch, K, gpu)
+    qz = quantizer_phase(torch, K, gpu, w_up0)
+    del w_up0
+    _free(torch)
 
     times = timings(torch)
+    times.update(quant_timings(torch))
     emit(dict(phase="timings", flash_bwd_pair=times.pop("flash_bwd_pair"),
-              flash_fwd_train=times["flash_fwd_train"], gpu=gpu))
-    # launches of the main paths (serving engine, scheduler, training), each
-    # read right after its own run
-    main_paths = (eng, sch, tr)
+              flash_fwd_train=times["flash_fwd_train"],
+              quant={n: times[n] for n in (*QMM_NAMES.values(), *K6_NAMES)}, gpu=gpu))
+    # launches of the main paths (serving engine, scheduler, training,
+    # quantized serving, the quantizer API), each read right after its own run
+    main_paths = (eng, sch, tr, qc, qs, qz)
     per_forward = {**eng["launches_per_forward"], **sch["launches_per_forward"]}
+    for fmt, name in QMM_NAMES.items():  # quant_serve at full depth
+        per_forward[name] = qs["formats"][fmt]["launches_per_forward"][name]
     kernels = []
     for name in K.SOURCES:
         launches = sum(p["launches"][name] for p in main_paths)
@@ -899,6 +1363,8 @@ def main() -> None:
             entry["launches_per_train_step"] = tr["launches_per_step"][name]
         if name == "flash_fwd":
             entry["at_train_shape"] = times["flash_fwd_train"]
+        if name in K6_NAMES:  # the quantizer API: one launch per call
+            entry["launches_per_call"] = 1
         kernels.append(entry)
     emit({"kernels": kernels})
     print(gpu, flush=True)

@@ -9,15 +9,22 @@ Host-side block bookkeeping (``ragged.StateManager``) drives the dispatches
 and copy-on-write clones pages in place.  ``scheduler`` builds the
 queueing ``ServeScheduler`` on top.
 
+``quantize_weights`` ('int8' | 'fp8' | 'fp6') compresses the big matmul
+kernels on the engine's device, one layer slice at a time
+(``ops.quantizer.quantize_serving_params``), and every serving matmul then
+reads the compressed bytes through the dequant-matmul kernels.
+
 Not ported yet, and refused loudly rather than ignored: weight offload,
-tensor-parallel / replica / seq-shard meshes, quantized weights,
-speculative decoding, and ``step_n`` (the device-resident decode burst,
+tensor-parallel / replica / seq-shard meshes, speculative decoding,
+``fused_serving=False`` (the JAX jnp-body lever: on the card that body is a
+kernel's plain version), and ``step_n`` (the device-resident decode burst,
 whose counterpart is a CUDA-graph replay in a later slice).  Every dispatch
 raises through to the caller: a kernel that fails to build or launch is an
 error, never a failed request.
 """
 from __future__ import annotations
 
+import logging
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -25,11 +32,19 @@ import torch
 
 from ..models.transformer import TransformerConfig
 from ..ops.kernels import resolve_device
-from ..ops.quantizer import ServingContext
+from ..ops.quantizer import (
+    QUANT_TYPES,
+    ServingContext,
+    map_quant,
+    quantize_serving_params,
+    tree_nbytes,
+)
 from . import model_runner
 from .paged import init_paged_cache
 from .ragged import StateManager
 from .sampling import SamplingParams, finite_guard, sample
+
+logger = logging.getLogger("deepspeed_tpu_torch")
 
 # counter names of the JAX engine's stats view that this engine moves
 STAT_NAMES = (
@@ -70,23 +85,35 @@ class InferenceEngineV2:
         prefill_chunk: Optional[int] = None,
         kv_watermark: float = 0.0625,
         enable_speculation: bool = False,
+        fused_serving: Optional[bool] = None,
         serve_replicas: int = 1,
         seq_shards: int = 1,
         device=None,
     ):
         unsupported = {
             "offload_weights": offload_weights, "grid": grid is not None,
-            "quantize_weights": quantize_weights is not None,
             "enable_speculation": enable_speculation,
+            "fused_serving=False": fused_serving is False,
             "serve_replicas>1": serve_replicas != 1, "seq_shards>1": seq_shards != 1,
         }
         refused = [k for k, on in unsupported.items() if on]
         if refused:
             raise NotImplementedError(f"not ported yet: {', '.join(refused)}")
+        if quantize_weights not in (None, "int8", "fp8", "fp6"):
+            raise ValueError(f"quantize_weights format {quantize_weights!r} (int8|fp8)")
         model_runner._check_family(cfg)
         self.device = resolve_device(device)
         self.cfg = cfg
-        self.params = _to_device(params, self.device)
+        self.quantize_weights = quantize_weights
+        if quantize_weights is None:
+            self.params = _to_device(params, self.device)
+        else:
+            # on the device, one layer slice at a time; only the quantized
+            # tree is kept
+            before = tree_nbytes(params)
+            self.params = quantize_serving_params(params, quantize_weights, device=self.device)
+            logger.info("quantized-weight serving (%s): params %.1f MiB -> %.1f MiB",
+                        quantize_weights, before / 2**20, tree_nbytes(self.params) / 2**20)
         self.block_size = block_size
         self.max_seq_len = max_seq_len or cfg.max_seq_len
         self.max_pages = -(-self.max_seq_len // block_size)
@@ -361,4 +388,6 @@ class InferenceEngineV2:
 def _to_device(params, device):
     if isinstance(params, dict):
         return {k: _to_device(v, device) for k, v in params.items()}
+    if isinstance(params, QUANT_TYPES):
+        return map_quant(params, lambda t: t.to(device))
     return params.to(device)

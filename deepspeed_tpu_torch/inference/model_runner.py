@@ -11,7 +11,9 @@ returns ``(logits fp32, (k_pools, v_pools))`` like the JAX one; the pools
 are the caller's tensors, updated in place.
 
 Attention goes through the CUDA kernels on a CUDA device (flash prefill,
-paged decode, packed-context) and through their plain bodies on the CPU.
+paged decode, packed-context) and through their plain bodies on the CPU;
+so do the matmuls of a quantized tree (``serving_mm``: the dequant-matmul
+kernels).
 """
 from __future__ import annotations
 
@@ -30,7 +32,7 @@ from ..models.transformer import (
     rope_tables,
 )
 from ..ops.kernels.flash_attention import flash_attention
-from ..ops.quantizer import serving_mm
+from ..ops.quantizer import QUANT_TYPES, map_quant, serving_mm
 from .paged import (
     decode_write_index,
     page_write_index,
@@ -44,9 +46,14 @@ Params = Any
 
 
 def _layer(params: Params, l: int) -> Params:
-    """Layer ``l``'s weights: views into the stacked [L, ...] tensors."""
+    """Layer ``l``'s weights: views into the stacked [L, ...] tensors (a
+    quantized leaf slices its payload and its per-layer scales)."""
     def take(x):
-        return {k: take(v) for k, v in x.items()} if isinstance(x, dict) else x[l]
+        if isinstance(x, dict):
+            return {k: take(v) for k, v in x.items()}
+        if isinstance(x, QUANT_TYPES):
+            return map_quant(x, lambda t: t[l])
+        return x[l]
 
     return take(params["layers"])
 

@@ -19,6 +19,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..ops.kernels import resolve_device
 from ..ops.kernels.ctx_attention import (
     paged_attention_packed_ctx as _packed_ctx_dispatch,
     paged_attention_packed_ctx_plain,
@@ -37,7 +38,9 @@ def init_paged_cache(num_layers: int, num_blocks: int, block_size: int,
                      num_kv_heads: int, head_dim: int, dtype=torch.bfloat16,
                      device=None) -> Tuple[Tuple[torch.Tensor, ...], Tuple[torch.Tensor, ...]]:
     """Per-LAYER block pools (a tuple of [num_blocks, bs, hkv, hd] tensors
-    for K and one for V), zero-filled."""
+    for K and one for V), zero-filled, on ``device`` (CUDA unless the caller
+    names another; see ``ops.kernels.resolve_device``)."""
+    device = resolve_device(device)
     shape = (num_blocks, block_size, num_kv_heads, head_dim)
     k = tuple(torch.zeros(shape, dtype=dtype, device=device) for _ in range(num_layers))
     v = tuple(torch.zeros(shape, dtype=dtype, device=device) for _ in range(num_layers))

@@ -1,7 +1,7 @@
 """Named architecture presets — counterpart of ``deepspeed_tpu/models/
 presets.py``.  Ported so far: the flagship of the serving and training
-slices and the test config; other families follow with the modules they
-need."""
+slices, Llama-3-8B (quantized serving) and the test config; other families
+follow with the modules they need."""
 from __future__ import annotations
 
 from .transformer import TransformerConfig
@@ -18,6 +18,13 @@ def get_preset(name: str, **overrides) -> TransformerConfig:
     cfg = _REGISTRY[name]
     return cfg.replace(**overrides) if overrides else cfg
 
+
+# Llama-3-8B: served with int8 / fp8 / fp6 weights on one card (its bf16
+# weights alone are 15 GB).  Training refuses remat="dots" (not ported).
+register("llama3_8b", TransformerConfig(
+    vocab_size=128256, hidden_size=4096, intermediate_size=14336, num_layers=32,
+    num_heads=32, num_kv_heads=8, max_seq_len=8192, rope_theta=500_000.0,
+    remat="dots", attn_impl="auto"))
 
 # ~410M-parameter Llama-3-shaped model: GQA 4:1, head_dim 128, RMSNorm,
 # SwiGLU, RoPE (the repository's serving and training benchmark model);

@@ -36,6 +36,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import get_attention_impl
 from ..ops.kernels import resolve_device
+from ..ops.quantizer import ServingQuant, ServingQuantFP6
 
 Params = Dict[str, Any]
 
@@ -168,19 +169,40 @@ def init_params(cfg: TransformerConfig, seed: int = 0, device=None,
     return params
 
 
+_FP8_NUMPY = {"float8_e4m3fn": torch.float8_e4m3fn, "float8_e5m2": torch.float8_e5m2}
+
+
+def _payload(a) -> torch.Tensor:
+    """A numpy array as a tensor of the same type, bytes unchanged: fp8
+    (ml_dtypes) goes through a uint8 view, never through float."""
+    a = np.asarray(a)
+    if a.dtype.name in _FP8_NUMPY:
+        return torch.from_numpy(a.view(np.uint8).copy()).view(_FP8_NUMPY[a.dtype.name])
+    return torch.from_numpy(np.array(a))  # a writable copy
+
+
 def params_from_numpy(tree, cfg: TransformerConfig, device=None,
                       dtype: Optional[torch.dtype] = None) -> Params:
     """The JAX parameter tree, after ``jax.tree_util.tree_map(np.asarray,
     ...)`` (a nested dict of numpy arrays), as the port's parameters: the
     same nested dict of tensors on ``device`` (CUDA unless the caller names
     another) in ``dtype`` (default ``cfg.dtype``).  The layouts are
-    identical, so this is a copy."""
+    identical, so this is a copy.  A tree quantized by JAX
+    ``quantize_serving_params`` keeps its payloads as they are: a
+    ``ServingQuant`` leaf becomes the port's with its int8 / e4m3 bytes and
+    fp32 scales, a ``ServingQuantFP6`` leaf the port's with its uint8 planes,
+    scales and ``in_dim``."""
     dtype = dtype or cfg.dtype
     device = resolve_device(device)
 
     def conv(x):
         if isinstance(x, dict):
             return {k: conv(v) for k, v in x.items()}
+        if hasattr(x, "packed"):  # JAX ServingQuantFP6
+            return ServingQuantFP6(_payload(x.packed).to(device), _payload(x.s).to(device),
+                                   x.in_dim, x.row_shards)
+        if hasattr(x, "q") and hasattr(x, "s"):  # JAX ServingQuant
+            return ServingQuant(_payload(x.q).to(device), _payload(x.s).to(device))
         a = np.array(x, dtype=np.float32)  # a writable copy
         return torch.from_numpy(a).to(device=device, dtype=dtype)
 
@@ -257,15 +279,17 @@ def mlp_block(lw: Params, x: torch.Tensor, cfg: TransformerConfig) -> torch.Tens
     return out
 
 
-def head_kernel(params: Params, cfg: TransformerConfig) -> torch.Tensor:
-    """[d, v] output projection (transposed embedding when tied)."""
+def head_kernel(params: Params, cfg: TransformerConfig):
+    """[d, v] output projection (transposed embedding when tied): a tensor,
+    or in a quantized serving tree the ``ServingQuant`` /
+    ``ServingQuantFP6`` that ``serving_mm`` takes as it is."""
     if cfg.tie_embeddings:
         return params["embed"]["embedding"].t().to(cfg.dtype)
     return params["lm_head"]["kernel"]
 
 
 def head_bias_vec(params: Params):
-    """[v] lm_head bias or None."""
+    """[v] lm_head bias or None (a quantized head keeps its bias plain)."""
     lm = params.get("lm_head")
     return lm.get("bias") if lm else None
 

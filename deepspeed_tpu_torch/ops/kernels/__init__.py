@@ -33,16 +33,24 @@ BUILD_ROOT = os.path.join(CSRC, "build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-# kernel name -> source file; every source includes attn_common.cuh.  One
-# library per source: both backward kernels live in flash_bwd.cu.
+# kernel name -> source file.  One library per source: both backward
+# kernels live in flash_bwd.cu; the int8 / e4m3 / fp6 dequant-matmuls share
+# quant_matmul.cu and the row quantizers quantize.cu, each format counted
+# under its own name.
 SOURCES = {
     "flash_fwd": "flash_fwd.cu",
     "flash_bwd_dq": "flash_bwd.cu",
     "flash_bwd_dkv": "flash_bwd.cu",
     "paged_decode": "paged_decode.cu",
     "ctx_attention": "ctx_attention.cu",
+    "quant_matmul_int8": "quant_matmul.cu",
+    "quant_matmul_fp8": "quant_matmul.cu",
+    "quant_matmul_fp6": "quant_matmul.cu",
+    "quantize_int8": "quantize.cu",
+    "quantize_fp8": "quantize.cu",
+    "dequantize": "quantize.cu",
 }
-_HEADERS = ("attn_common.cuh",)
+_HEADERS = ("attn_common.cuh",)  # hashed into every library's build key
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
 
@@ -59,6 +67,11 @@ _ARGTYPES = {
                      [_PTR] * 6 + [_INT] * 7 + [_FLOAT, _FLOAT, _PTR]),
     "ctx_attention": ("dst_ctx_attention",
                       [_PTR] * 9 + [_INT] * 8 + [_FLOAT, _FLOAT, _PTR]),
+    **{name: ("dst_quant_matmul", [_PTR] * 6 + [_INT] * 8 + [_PTR])
+       for name in ("quant_matmul_int8", "quant_matmul_fp8", "quant_matmul_fp6")},
+    **{name: ("dst_quantize_rows", [_PTR] * 3 + [_INT] * 4 + [_FLOAT, _PTR])
+       for name in ("quantize_int8", "quantize_fp8")},
+    "dequantize": ("dst_dequantize_rows", [_PTR] * 3 + [_INT] * 4 + [_PTR]),
 }
 
 
@@ -181,8 +194,9 @@ def launch(name: str, *args) -> None:
     LAUNCHES[name] += 1
 
 
-def ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+def ptr(t: Optional[torch.Tensor]) -> ctypes.c_void_p:
+    """The tensor's device address (null for None)."""
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
 
 
 def check_cuda(name: str, dtype: torch.dtype, *tensors: torch.Tensor) -> None:

@@ -13,6 +13,8 @@ from typing import List, Tuple
 
 import torch
 
+from ..ops.kernels import resolve_device
+
 DTYPES = {
     "float32": torch.float32,
     "bfloat16": torch.bfloat16,
@@ -45,6 +47,9 @@ class LossScaleState:
 
 def init_loss_scale(dynamic: bool, initial_scale_power: int = 16, static_scale: float = 1.0,
                     hysteresis: int = 2, device=None) -> LossScaleState:
+    """The scaler's state on ``device`` (CUDA unless the caller names
+    another; see ``ops.kernels.resolve_device``)."""
+    device = resolve_device(device)
     scale = float(2 ** initial_scale_power) if dynamic else float(static_scale or 1.0)
     return LossScaleState(
         scale=torch.tensor(scale, dtype=torch.float32, device=device),

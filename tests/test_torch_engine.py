@@ -132,7 +132,7 @@ def test_submit_reasons_and_generate(pair):
 
 def test_unsupported_arguments_raise(pair):
     _, _, tcfg, tp = pair
-    for kw in (dict(quantize_weights="int8"), dict(enable_speculation=True),
+    for kw in (dict(fused_serving=False), dict(enable_speculation=True),
                dict(offload_weights=True), dict(grid=object()), dict(serve_replicas=2),
                dict(seq_shards=2)):
         with pytest.raises(NotImplementedError):

@@ -7,9 +7,11 @@ unit-scale values plus a different fp32 summation order), and each call
 counts exactly one launch.  The training backward: K1f's lse within 1e-3,
 and dq, dk and dv within ``chip_smoke.BWD_TOL`` relative Frobenius error,
 over the whole tensor and in every 64-row block of one head (the kernels
-round only their bf16 outputs), each launched once per call.  This file
-imports neither JAX nor the JAX package, so it runs where only PyTorch is
-installed::
+round only their bf16 outputs), each launched once per call.  Quantized
+serving: K4 / K5 within ``chip_smoke.QMM_TOL`` relative Frobenius error,
+K6 byte-identical, and a call the kernels refuse raises without reaching
+a plain body.  This file imports neither JAX nor the JAX package, so it
+runs where only PyTorch is installed::
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 """
@@ -128,3 +130,91 @@ def test_training_step_with_packed_segments_on_the_card():
     want = float(cpu.train_batch(batch))
     assert abs(got - want) <= 1e-2 * abs(want)
     assert all(bool(torch.isfinite(p).all()) for p in card._params_list)
+
+
+# ---------------------------------------------------------------------------
+# quantized serving: K4 (int8, e4m3), K5 (fp6), K6 (row quantizers)
+# ---------------------------------------------------------------------------
+def _quant_setup():
+    from deepspeed_tpu_torch.ops.kernels import quant_kernel as QK
+    from deepspeed_tpu_torch.ops.kernels import quant_matmul as QM
+    from deepspeed_tpu_torch.ops import quantizer as Q
+
+    return QK, QM, Q
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmt", ["int8", "fp8", "fp6"])
+def test_quant_matmul_kernels_match_plain(fmt):
+    """``serving_mm`` at the 8B wk / wv shape ([4096, 1024]) and a decode
+    batch of 16 launches K4 / K5 once and agrees with the plain version on
+    the CPU in fp32 within ``chip_smoke.QMM_TOL`` relative Frobenius error."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    _, QM, Q = _quant_setup()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    w = chip_smoke._randn(torch, (4096, 1024), gen, torch.bfloat16) * 4096 ** -0.5
+    p = chip_smoke._payloads(torch, w)[chip_smoke.QMM_NAMES[fmt]]
+    x = chip_smoke._randn(torch, (16, 4096), gen, torch.bfloat16)
+    K.reset_launches()
+    got = Q.serving_mm(x, p)
+    torch.cuda.synchronize()
+    assert {n: c for n, c in K.LAUNCHES.items() if c} == {chip_smoke.QMM_NAMES[fmt]: 1}
+    pc = Q.map_quant(p, lambda t: t.cpu())
+    ref = Q.serving_mm(x.cpu().float(), pc)
+    assert float((got.cpu().float() - ref).norm() / ref.norm()) <= chip_smoke.QMM_TOL
+
+
+@pytest.mark.gpu
+def test_row_quantizers_match_plain_bytes():
+    """K6a/b/c on [4096, 14336] bf16 rows with a zero row: the q bytes,
+    scales and dequantized values equal the plain version's on the CPU, one
+    launch a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    QK, _, _ = _quant_setup()
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    x = chip_smoke._randn(torch, (4096, 14336), gen, torch.bfloat16)
+    x[3] = 0.0
+    xc = x.cpu()
+    for dtype in (torch.int8, torch.float8_e4m3fn, torch.float8_e5m2):
+        K.reset_launches()
+        q, s = QK.quantize_int8(x) if dtype == torch.int8 else QK.quantize_fp8(x, dtype)
+        d = QK.dequantize(q, s, torch.bfloat16)
+        torch.cuda.synchronize()
+        name = "quantize_int8" if dtype == torch.int8 else "quantize_fp8"
+        assert {n: c for n, c in K.LAUNCHES.items() if c} == {name: 1, "dequantize": 1}
+        qp, sp = QK.quantize_rows_plain(xc, dtype)
+        assert torch.equal(q.cpu().view(torch.uint8), qp.view(torch.uint8))
+        assert torch.equal(s.cpu(), sp)
+        assert torch.equal(d.cpu(), QK.dequantize_rows_plain(qp, sp, torch.bfloat16))
+
+
+@pytest.mark.gpu
+def test_a_refused_call_raises_and_never_runs_the_plain_body(monkeypatch):
+    """What the kernels do not take (fp32 activations, a wrong fp6 in_dim,
+    an fp64 tensor to quantize) raises on a CUDA tensor: no launch, and the
+    plain body is never reached."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    QK, QM, _ = _quant_setup()
+
+    def boom(*a, **k):
+        raise AssertionError("a plain body ran on a CUDA tensor")
+
+    for mod, name in ((QM, "quant_matmul_plain"), (QM, "quant_matmul_fp6_plain"),
+                      (QK, "quantize_rows_plain"), (QK, "dequantize_rows_plain")):
+        monkeypatch.setattr(mod, name, boom)
+    dev = "cuda"
+    K.reset_launches()
+    with pytest.raises(TypeError, match="bf16"):
+        QM.quant_matmul(torch.zeros(4, 64, device=dev), torch.zeros(64, 32, dtype=torch.int8,
+                                                                     device=dev),
+                        torch.ones(32, device=dev))
+    with pytest.raises(ValueError, match="in_dim"):
+        QM.quant_matmul_fp6(torch.zeros(4, 60, dtype=torch.bfloat16, device=dev),
+                            torch.zeros(3, 16, 32, dtype=torch.uint8, device=dev),
+                            torch.ones(32, device=dev), 60)
+    with pytest.raises(TypeError):
+        QK.quantize_int8(torch.zeros(4, 8, dtype=torch.float64, device=dev))
+    assert sum(K.LAUNCHES.values()) == 0

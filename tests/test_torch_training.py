@@ -45,6 +45,7 @@ from deepspeed_tpu.runtime import precision as jprec
 
 import deepspeed_tpu_torch as tds
 from deepspeed_tpu_torch.config.config import ConfigError, parse_config
+from deepspeed_tpu_torch.inference.paged import init_paged_cache
 from deepspeed_tpu_torch.models import transformer as tt
 from deepspeed_tpu_torch.models.presets import get_preset
 from deepspeed_tpu_torch.ops.optimizers import build_optimizer
@@ -414,7 +415,7 @@ def test_unported_optimizers_are_refused(name):
 def test_loss_scale_update_matches_jax():
     flags = [True, False, False, True, True, False, True, False, False, False]
     js = jprec.init_loss_scale(True, initial_scale_power=4, hysteresis=2)
-    ts = tprec.init_loss_scale(True, initial_scale_power=4, hysteresis=2)
+    ts = tprec.init_loss_scale(True, initial_scale_power=4, hysteresis=2, device="cpu")
     for f in flags:
         js = jprec.update_loss_scale(js, jnp.asarray(f), loss_scale_window=2, min_scale=2.0)
         ts = tprec.update_loss_scale(ts, torch.tensor(f), loss_scale_window=2, min_scale=2.0)
@@ -520,11 +521,14 @@ def test_entry_points_need_cuda_or_an_explicit_device(monkeypatch):
     _, jp = _pair("tiny", {})
     model = tt.CausalLM(cfg)
     for call in (lambda: tt.init_params(cfg), lambda: tt.params_from_numpy(jp, cfg),
-                 lambda: model.init_params(), lambda: tds.initialize(model=model)):
+                 lambda: model.init_params(), lambda: tds.initialize(model=model),
+                 lambda: init_paged_cache(2, 4, 8, 1, 16), lambda: tprec.init_loss_scale(True)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     assert tt.init_params(cfg, device="cpu")["embed"]["embedding"].device.type == "cpu"
     assert tt.params_from_numpy(jp, cfg, device="cpu")["embed"]["embedding"].device.type == "cpu"
+    assert init_paged_cache(2, 4, 8, 1, 16, device="cpu")[0][1].device.type == "cpu"
+    assert tprec.init_loss_scale(True, device="cpu").scale.device.type == "cpu"
     engine, opt, loader, sched = tds.initialize(model=model, config={"bf16": {"enabled": False}},
                                                 device="cpu")
     assert opt is engine and loader is None and sched is engine.lr_scheduler
