@@ -27,19 +27,39 @@ Phases, each raising on failure (so the exit code is non-zero):
                (16 requests of a 512-token system prompt + 64-token suffix,
                32 new tokens each, prefix caching, chunked prefill); the
                packed-context kernel must have launched;
+   Block-sparse attention (K7f's o and lse, K7b's dq and dk/dv) at b 2,
+               s 4096, hq 8 / hkv 2, hd 128 under fixed(128, 4, 1) and
+               bigbird(128), a packed batch with segments and soft cap 30
+               at s 1024, hd 64 under fixed(128, 2, 1), and a block-256
+               layout (KERNEL_TOL, LSE_TOL, BWD_TOL); the fused AdamW (K8)
+               on an odd-sized buffer of 2^24 + 37 elements at steps 1 and
+               1000, wd 0 and 0.1, aligned and not (K8_TOL), and a
+               ``finite = False`` step that changes no bit;
 5. train_check -- ``llama3_proxy_410m`` at full width with 2 layers, the
                bench config at seq 512, micro 2, GAS 2: two steps on the card
                in bf16 and through the port on the CPU in fp32 from the
                same weights and batch; step-1 loss within TRAIN_LOSS_RTOL,
                the cosine similarity of layer 0's wq / wk / wv / wo
-               gradients above GRAD_COS_MIN, and the flash kernels
-               launched layers x micro-batches times per step;
+               gradients above GRAD_COS_MIN, the flash kernels launched
+               layers x micro-batches times per step and K8 once;
+   sparse_train_check -- the same with ``sparse_attention`` fixed(128, 2, 1)
+               (8 of 10 causal blocks active) and FusedAdam: the sparse
+               kernels launched layers x micro-batches times per step, the
+               flash kernels never, K8 once a step;
 6. train    -- the training flagship (``bench.py:42-109``) at full width
                and depth: ``initialize`` -> one warm-up ``train_batch`` ->
                TRAIN_STEPS steps of ``train_on_loader``; loss finite and
                falling, flash_fwd / flash_bwd_dq / flash_bwd_dkv launched
-               24 x 2 times per step; step time, tokens/s, MFU, peak
-               memory and a one-step profile;
+               24 x 2 times per step and K8 once; step time, tokens/s, MFU,
+               peak memory and a one-step profile; then K8 timed on the
+               engine's own flat buffers (430,752,768 elements) beside
+               ``torch._fused_adamw_`` over the same leaves;
+   sparse_train -- the flagship with ``sparse_attention`` fixed(128, 4, 1)
+               (192 of 528 causal blocks) and FusedAdam: SPARSE_TRAIN_STEPS
+               timed steps; sparse_fwd / sparse_bwd_dq / sparse_bwd_dkv 48
+               times a step, K8 once, no flash kernel; the profiled step's
+               host-to-device copies (the batch only: the layout's tables
+               are cached on the card);
 7. quant_check -- ``llama3_8b`` at full width, 2 layers: for int8, fp8 and
                fp6 an engine on the card serves 4 prompts of 64 tokens and 8
                greedy steps; the same payloads replay every stream on the
@@ -56,7 +76,8 @@ Phases, each raising on failure (so the exit code is non-zero):
                ms where one computes the same function, and the card's
                bound for the same work (the backward kernels, and K1f
                again, at the training flagship's per-call shape; K4 / K5
-               at M 16 and 512 on [4096, 14336]).
+               at M 16 and 512 on [4096, 14336]; K7f / K7b at the sparse
+               flagship's per-call shape).
 
 Prints one JSON line per phase, the ``kernels`` JSON line, the card's name
 and power limit, and last ``{"ok": true, "device": {...}}``.  Exits non-zero
@@ -97,6 +118,16 @@ GRAD_COS_MIN = 0.99
 # timed steps of the train phase, as many as one bench.py loop (each step
 # runs the CUDA-core attention kernels 48 times forward and backward: ~6 s)
 TRAIN_STEPS = 6
+SPARSE_TRAIN_STEPS = 3
+# K8 against its plain version on the same fp32 inputs: both compute in
+# fp32, in another order and with FMA contraction in the kernel, so each of
+# p, m, v is held by max |got - ref| / max |ref| (a few ulps; an element near
+# 0 after cancellation in m would make an elementwise ratio meaningless).
+K8_TOL = 1e-6
+# the training flagship's block-sparse layout: DeepSpeed's `fixed` pattern
+# at the smallest block the kernels skip by
+SPARSE_FLAGSHIP = {"mode": "fixed", "block": 128, "num_local_blocks": 4, "num_global_blocks": 1}
+SPARSE_CHECK = {"mode": "fixed", "block": 128, "num_local_blocks": 2, "num_global_blocks": 1}
 # Near-argmax check of the card's greedy pick against fp32 CPU logits: the
 # picked token's CPU logit must be within this fraction of the CPU row's
 # logit range (max - min) of the row's maximum.  bf16 weights and
@@ -266,7 +297,8 @@ def kernel_checks(torch):
 
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     errs = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0,
-            "paged_decode": 0.0, "ctx_attention": 0.0}
+            "paged_decode": 0.0, "ctx_attention": 0.0, "sparse_fwd": 0.0,
+            "sparse_bwd_dq": 0.0, "sparse_bwd_dkv": 0.0}
     results = []
 
     def record(name, label, got, ref, tol=KERNEL_TOL, relative=False):
@@ -345,7 +377,123 @@ def kernel_checks(torch):
         record("flash_bwd_dkv", label + "_dk", dk, dk_r, tol=BWD_TOL, relative=True)
         record("flash_bwd_dkv", label + "_dv", dv, dv_r, tol=BWD_TOL, relative=True)
         del case, q, k, v, do, o, lse, dq, dk, dv, f, lse_ref, dq_r, dk_r, dv_r
-    return errs, results
+    _free(torch)
+    sparse_kernel_checks(torch, record)
+    errs["fused_adamw"], adam_cases_ = adam_kernel_checks(torch)
+    return errs, results + adam_cases_
+
+
+def sparse_layout(spec, s):
+    """(layout [s / block, s / block] bool, block) of a ``sparse_attention``
+    config section at sequence length ``s``."""
+    from deepspeed_tpu_torch.config.config import SparseAttentionConfig
+
+    cfg = SparseAttentionConfig(**spec).build()
+    return cfg.make_layout(s), cfg.block
+
+
+def sparse_results(torch, case, layout, block):
+    """K7f (o, lse) and K7b (dq, dk, dv) on a ``bwd_case`` against the plain
+    versions in fp32 on the same bf16 inputs (the backward's on the
+    kernel's own o and lse): a list of (kernel, suffix, got, ref, tol,
+    relative)."""
+    from deepspeed_tpu_torch.ops.kernels import sparse_attention as K7
+
+    q, k, v, do, seg, cap = (case[n] for n in ("q", "k", "v", "do", "seg", "cap"))
+    sc = q.shape[-1] ** -0.5
+    plan = K7.sparse_plan(layout, block, True, q.device)
+    o, lse = K7.sparse_attention_kernel(q, k, v, seg, seg, plan, sc, cap)
+    dq, dk, dv = K7.sparse_attention_bwd_kernel(q, k, v, seg, seg, o, lse, do, plan, sc, cap)
+    f = [x.float() for x in (q, k, v, o, do)]
+    o_ref, lse_ref = K7.sparse_attention_fwd_plain(f[0], f[1], f[2], seg, seg, layout, block,
+                                                   sc, cap)
+    refs = K7.sparse_attention_bwd_plain(f[0], f[1], f[2], seg, seg, f[3], lse, f[4], layout,
+                                         block, sc, cap)
+    return [("sparse_fwd", "", o, o_ref, KERNEL_TOL, False),
+            ("sparse_fwd", "_lse", lse, lse_ref, LSE_TOL, False),
+            ("sparse_bwd_dq", "", dq, refs[0], BWD_TOL, True),
+            ("sparse_bwd_dkv", "_dk", dk, refs[1], BWD_TOL, True),
+            ("sparse_bwd_dkv", "_dv", dv, refs[2], BWD_TOL, True)]
+
+
+def sparse_kernel_checks(torch, record):
+    """K7f / K7b cases (module docstring, phase 2), each through ``record``."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 3)
+    for label, case, spec in (
+        ("b2_s4096_hd128_fixed128_4_1", bwd_case(torch, gen, 2, 4096, 8, 2, 128),
+         SPARSE_FLAGSHIP),
+        ("b2_s4096_hd128_bigbird128", bwd_case(torch, gen, 2, 4096, 8, 2, 128),
+         {"mode": "bigbird", "block": 128}),
+        ("b2_s1024_hd64_packed_cap30_fixed128_2_1",
+         bwd_case(torch, gen, 2, 1024, 8, 2, 64, seg_lens=[300, 400, 200, 100], cap=30.0),
+         SPARSE_CHECK),
+        ("b1_s2048_hd128_bslongformer256", bwd_case(torch, gen, 1, 2048, 8, 2, 128),
+         {"mode": "bsLongformer", "block": 256, "num_sliding_window_blocks": 3,
+          "global_block_indices": [0, 5]}),
+    ):
+        layout, block = sparse_layout(spec, case["q"].shape[1])
+        for name, suffix, got, ref, tol, rel in sparse_results(torch, case, layout, block):
+            record(name, label + suffix, got, ref, tol=tol, relative=rel)
+        del case
+        _free(torch)
+
+
+def adam_cases(torch, gen, n):
+    """(label, step, wd, p, g, m, v) inputs of K8: fresh moments at step 1,
+    moments of a long run at step 1000."""
+    for step in (1, 1000):
+        p = torch.randn(n, generator=gen, device=DEVICE)
+        g = torch.randn(n, generator=gen, device=DEVICE) * 1e-2
+        if step == 1:
+            m, v = torch.zeros_like(p), torch.zeros_like(p)
+        else:
+            m = torch.randn(n, generator=gen, device=DEVICE) * 1e-3
+            v = (torch.randn(n, generator=gen, device=DEVICE) * 1e-2).square()
+        for wd in (0.0, 0.1):
+            yield f"N{n}_step{step}_wd{wd}", step, wd, p, g, m, v
+
+
+def adam_kernel_checks(torch):
+    """K8 against its plain version (K8_TOL), aligned and one element off
+    16-byte alignment (the kernel's scalar path); then a ``finite = False``
+    step through the optimizer after a real one: p, m, v and the count
+    bit-identical.  Returns (max abs err, cases)."""
+    from deepspeed_tpu_torch.ops.kernels import fused_adam as K8
+    from deepspeed_tpu_torch.ops.optimizers import build_optimizer
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 4)
+    n = (1 << 24) + 37
+    lr = torch.tensor(1e-3, device=DEVICE)
+    err, cases = 0.0, []
+    for label, step, wd, p, g, m, v in adam_cases(torch, gen, n):
+        t = torch.tensor(step, dtype=torch.int32, device=DEVICE)
+        for off in (0, 1):
+            got = [x.clone()[off:] for x in (p, m, v)]  # off 1: not 16-byte aligned
+            ref = [x[off:].clone() for x in (p, m, v)]
+            K8.fused_adamw_kernel(got[0], g[off:], got[1], got[2], lr, t, wd=wd)
+            K8.fused_adamw_flat_plain(ref[0], g[off:], ref[1], ref[2], lr, t, wd=wd)
+            torch.cuda.synchronize()
+            row = dict(kernel="fused_adamw", case=label + ("_unaligned" if off else ""),
+                       limit=K8_TOL, limit_on="rel_err (max |got - ref| / max |ref|)")
+            for name, a, r in zip(("p", "m", "v"), got, ref):
+                e = float((a - r).abs().max())
+                err = max(err, e)
+                row[f"{name}_rel_err"] = e / float(r.abs().max())
+            cases.append(row)
+            if not all(bool(torch.isfinite(x).all()) for x in got) or max(
+                    row[f"{x}_rel_err"] for x in "pmv") > K8_TOL:
+                raise AssertionError(f"fused_adamw: {row} over the limit {K8_TOL}")
+    opt = build_optimizer("fusedadam", {"weight_decay": 0.1})
+    state = opt.init([p])
+    opt.step([p], [g], state, lr)
+    before = [x.clone() for x in (p, state["mu"][0], state["nu"][0], state["count"])]
+    opt.step([p], [g * float("inf")], state, lr, finite=torch.tensor(False, device=DEVICE))
+    after = (p, state["mu"][0], state["nu"][0], state["count"])
+    same = all(torch.equal(a, b) for a, b in zip(before, after))
+    cases.append(dict(kernel="fused_adamw", case=f"N{n}_finite_false", bit_identical=same))
+    if not same:
+        raise AssertionError("fused_adamw: a finite=False step changed p, m, v or the count")
+    return err, cases
 
 
 # ---------------------------------------------------------------------------
@@ -556,9 +704,11 @@ def scheduler_phase(torch, K, gpu, params, cfg):
 # ---------------------------------------------------------------------------
 # phases 5-6: training
 # ---------------------------------------------------------------------------
-def bench_config(micro, gas):
-    """The training flagship's engine config (``bench.py:58-68``)."""
-    return {
+def bench_config(micro, gas, sparse=None):
+    """The training flagship's engine config (``bench.py:58-68``); with a
+    ``sparse_attention`` section ``sparse``, that layout and FusedAdam (the
+    block-sparse slice's path)."""
+    conf = {
         "train_micro_batch_size_per_gpu": micro,
         "gradient_accumulation_steps": gas,
         "optimizer": {"type": "adamw", "params": {"lr": 1e-4, "weight_decay": 0.1}},
@@ -566,6 +716,25 @@ def bench_config(micro, gas):
         "bf16": {"enabled": True},
         "steps_per_print": 1000000,
     }
+    if sparse is not None:
+        conf["optimizer"] = {"type": "FusedAdam", "params": {"lr": 1e-4, "weight_decay": 0.1}}
+        conf["sparse_attention"] = dict(sparse)
+    return conf
+
+
+ATTN_KERNELS = {False: ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
+                True: ("sparse_fwd", "sparse_bwd_dq", "sparse_bwd_dkv")}
+
+
+def check_train_launches(phase, launches, layers, gas, steps, sparse):
+    """Per step: the path's three attention kernels layers x GAS times, the
+    other path's never, K8 once."""
+    want = {n: layers * gas * steps for n in ATTN_KERNELS[sparse]}
+    want.update({n: 0 for n in ATTN_KERNELS[not sparse]})
+    want["fused_adamw"] = steps
+    bad = {n: (launches[n], w) for n, w in want.items() if launches[n] != w}
+    if bad:
+        raise AssertionError(f"{phase}: launches (got, expected) {bad} in {steps} steps")
 
 
 def _attn_grads(torch, engine, micro):
@@ -583,7 +752,10 @@ def _attn_grads(torch, engine, micro):
     return {n: g[0].float().cpu().flatten() for n, g in zip(names, grads)}
 
 
-def train_check_phase(torch, K, gpu):
+def train_check_phase(torch, K, gpu, sparse=None):
+    """Phase 5 (``train_check``), or with a ``sparse_attention`` section
+    ``sparse`` the same check of the block-sparse path
+    (``sparse_train_check``)."""
     import numpy as np
     from deepspeed_tpu_torch import initialize
     from deepspeed_tpu_torch.models.presets import get_preset
@@ -594,11 +766,10 @@ def train_check_phase(torch, K, gpu):
     params = init_params(cfg, seed=SEED, device="cpu", dtype=torch.float32)
     batch = {"input_ids": np.random.default_rng(SEED).integers(
         0, cfg.vocab_size, (gas, micro, seq + 1), dtype=np.int64)}
-    card, _, _, _ = initialize(model=CausalLM(cfg), params=params,
-                               config=bench_config(micro, gas))
+    conf = bench_config(micro, gas, sparse)
+    card, _, _, _ = initialize(model=CausalLM(cfg), params=params, config=conf)
     cpu, _, _, _ = initialize(model=CausalLM(cfg.replace(dtype=torch.float32)), params=params,
-                              config={**bench_config(micro, gas), "bf16": {"enabled": False}},
-                              device="cpu")
+                              config={**conf, "bf16": {"enabled": False}}, device="cpu")
     micro0 = {"input_ids": batch["input_ids"][0]}
     g_card = _attn_grads(torch, card, micro0)
     g_cpu = _attn_grads(torch, cpu, micro0)
@@ -608,31 +779,30 @@ def train_check_phase(torch, K, gpu):
     card_losses = [float(card.train_batch(batch)) for _ in range(steps)]
     launches = dict(K.LAUNCHES)
     cpu_losses = [float(cpu.train_batch(batch)) for _ in range(steps)]
-    per_step = cfg.num_layers * gas
-    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
-        if launches[name] != per_step * steps:
-            raise AssertionError(f"train_check: {name} launched {launches[name]} times, "
-                                 f"expected {cfg.num_layers} x {gas} x {steps}")
+    phase = "sparse_train_check" if sparse else "train_check"
+    check_train_launches(phase, launches, cfg.num_layers, gas, steps, sparse is not None)
     rel = abs(card_losses[0] - cpu_losses[0]) / abs(cpu_losses[0])
     if not all(np.isfinite(card_losses)) or rel > TRAIN_LOSS_RTOL:
-        raise AssertionError(f"train_check: step-1 loss card {card_losses[0]} vs CPU "
+        raise AssertionError(f"{phase}: step-1 loss card {card_losses[0]} vs CPU "
                              f"{cpu_losses[0]} (rel {rel} > {TRAIN_LOSS_RTOL})")
     bad = {n: c for n, c in cos.items() if not c > GRAD_COS_MIN}
     if bad:
-        raise AssertionError(f"train_check: gradient cosine similarity {bad} <= {GRAD_COS_MIN}")
-    res = dict(phase="train_check", model="llama3_proxy_410m", layers=cfg.num_layers,
-               seq=seq, micro_batch=micro, gas=gas, steps=steps, card_losses=card_losses,
+        raise AssertionError(f"{phase}: gradient cosine similarity {bad} <= {GRAD_COS_MIN}")
+    res = dict(phase=phase, model="llama3_proxy_410m", layers=cfg.num_layers,
+               seq=seq, micro_batch=micro, gas=gas, steps=steps, sparse_attention=sparse,
+               optimizer=conf["optimizer"]["type"], card_losses=card_losses,
                cpu_losses=cpu_losses, step1_loss_rel_err=rel, grad_cosine_layer0=cos,
                launches=launches, gpu=gpu)
     emit(res)
     return res
 
 
-def _device_profile(torch, fn, n=1, top=10):
+def _device_profile(torch, fn, n=1, top=10, htod=None):
     """(wall ms per call, device ms per call or None, the ``top`` device
     rows, all of them for None) of ``n`` calls of ``fn`` under
     ``torch.profiler`` (device-side rows only: an operator's row repeats
-    its kernels' time)."""
+    its kernels' time).  ``htod``, a dict, receives the host-to-device
+    copies per call under ``"copies"``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -644,6 +814,8 @@ def _device_profile(torch, fn, n=1, top=10):
         wall_ms = 1e3 * (time.perf_counter() - t0) / n
     evs = [e for e in prof.key_averages()
            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    if htod is not None:
+        htod["copies"] = sum(e.count for e in evs if "HtoD" in e.key) / n
     dev_ms = sum(e.self_device_time_total for e in evs) / 1e3 / n if evs else None
     evs = sorted(evs, key=lambda e: -e.self_device_time_total)[:top]
     rows = [dict(name=e.key[:60], ms_per_call=e.self_device_time_total / 1e3 / n,
@@ -651,7 +823,9 @@ def _device_profile(torch, fn, n=1, top=10):
     return wall_ms, dev_ms, rows
 
 
-def train_phase(torch, K, gpu):
+def train_phase(torch, K, gpu, sparse=None, steps=TRAIN_STEPS):
+    """Phase 6: the flagship (``train``), or with a ``sparse_attention``
+    section ``sparse`` its block-sparse variant (``sparse_train``)."""
     import itertools
 
     import numpy as np
@@ -661,9 +835,10 @@ def train_phase(torch, K, gpu):
 
     micro, seq, gas = 8, 4096, 2
     model = CausalLM(get_preset("llama3_proxy_410m", loss_chunk_size=2048))
-    cfg = model.cfg
     torch.cuda.reset_peak_memory_stats()
-    engine, _, _, _ = initialize(model=model, config=bench_config(micro, gas))
+    conf = bench_config(micro, gas, sparse)
+    engine, _, _, _ = initialize(model=model, config=conf)
+    cfg = model.cfg
     batch = {"input_ids": np.random.default_rng(SEED).integers(
         0, cfg.vocab_size, (gas, micro, seq + 1), dtype=np.int64)}
     t0 = time.perf_counter()
@@ -672,7 +847,7 @@ def train_phase(torch, K, gpu):
     K.reset_launches()
     step_s = []
     t0 = t_prev = time.perf_counter()
-    for _ in engine.train_on_loader(itertools.repeat(batch, TRAIN_STEPS)):
+    for _ in engine.train_on_loader(itertools.repeat(batch, steps)):
         torch.cuda.synchronize()
         t = time.perf_counter()
         step_s.append(t - t_prev)
@@ -680,33 +855,85 @@ def train_phase(torch, K, gpu):
     last = engine.get_last_loss()
     loop_s = time.perf_counter() - t0
     launches = dict(K.LAUNCHES)
-    per_step = cfg.num_layers * gas
-    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
-        if launches[name] != per_step * TRAIN_STEPS:
-            raise AssertionError(f"train: {name} launched {launches[name]} times in "
-                                 f"{TRAIN_STEPS} steps, expected {per_step} per step")
+    phase = "sparse_train" if sparse else "train"
+    check_train_launches(phase, launches, cfg.num_layers, gas, steps, sparse is not None)
     if not (np.isfinite(first) and np.isfinite(last) and last < first):
-        raise AssertionError(f"train: loss not finite and falling: first {first}, last {last}")
+        raise AssertionError(f"{phase}: loss not finite and falling: first {first}, last {last}")
     peak = torch.cuda.max_memory_allocated()
-    wall_ms, dev_ms, rows = _device_profile(torch, lambda: engine.train_batch(batch))
+    htod = {}
+    wall_ms, dev_ms, rows = _device_profile(torch, lambda: engine.train_batch(batch), htod=htod)
+    if htod["copies"] > len(batch):  # the batch's arrays; tables and scalars stay on the card
+        raise AssertionError(f"{phase}: {htod['copies']} host-to-device copies in a step, "
+                             f"expected at most {len(batch)} (the batch)")
     med = sorted(step_s)[len(step_s) // 2]
     tokens = gas * micro * seq
-    flops_tok = model.flops_per_token(seq)
-    res = dict(phase="train", model="llama3_proxy_410m", layers=cfg.num_layers, seq=seq,
+    res = dict(phase=phase, model="llama3_proxy_410m", layers=cfg.num_layers, seq=seq,
                micro_batch=micro, gas=gas, remat=cfg.remat, loss_chunk_size=cfg.loss_chunk_size,
-               params=model.param_count, warmup_step_s=warm_s, timed_steps=TRAIN_STEPS,
-               step_s=step_s, step_s_median=med, loop_s_per_step=loop_s / TRAIN_STEPS,
+               optimizer=conf["optimizer"]["type"], sparse_attention=sparse,
+               params=model.param_count, warmup_step_s=warm_s, timed_steps=steps,
+               step_s=step_s, step_s_median=med, loop_s_per_step=loop_s / steps,
                tokens_per_step=tokens, tokens_per_s=tokens / med,
-               flops_per_token=flops_tok, mfu=tokens / med * flops_tok / PEAK_BF16_FLOPS,
                loss_first=first, loss_last=last, peak_memory_bytes=peak,
-               launches=launches, launches_per_step={n: launches[n] / TRAIN_STEPS
+               launches=launches, launches_per_step={n: launches[n] / steps
                                                      for n in launches},
                profile_step_wall_ms=wall_ms, profile_step_device_ms=dev_ms,
                device_idle_share=None if dev_ms is None else 1.0 - dev_ms / wall_ms,
-               profile_top=rows, gpu=gpu)
+               profile_htod_copies=htod["copies"], profile_top=rows, gpu=gpu)
+    if sparse is None:  # MFU counts dense attention: the dense flagship only
+        flops_tok = model.flops_per_token(seq)
+        res.update(flops_per_token=flops_tok,
+                   mfu=tokens / med * flops_tok / PEAK_BF16_FLOPS)
+    else:
+        layout, block = sparse_layout(sparse, seq)
+        res.update(active_blocks=int(np.tril(layout).sum()),
+                   causal_blocks=layout.shape[0] * (layout.shape[0] + 1) // 2)
     emit(res)
+    if sparse is None:
+        res["fused_adamw_timing"] = adam_timing(torch, engine)
     del engine
     return res
+
+
+def adam_timing(torch, engine):
+    """K8 on the engine's own flat buffers (every parameter of the tree),
+    its plain version, and ``torch._fused_adamw_`` (what
+    ``torch.optim.AdamW(fused=True)`` calls; timed only) over the same
+    leaves as views of the same buffers.  Bound: 28 bytes an element (p, g,
+    m, v read, p, m, v written) over 3.35 TB/s; 16 fp32 operations an
+    element over 67 TFLOP/s is 30x less."""
+    from deepspeed_tpu_torch.ops.kernels import fused_adam as K8
+
+    flat, grad = engine._masters.flat, engine._masters.grad
+    m, v = engine.opt_state["mu"][0], engine.opt_state["nu"][0]
+    n = flat.numel()
+    grad.normal_(0.0, 1e-3)
+    lr = torch.tensor(1e-4, device=flat.device)
+    t = torch.tensor(1000, dtype=torch.int32, device=flat.device)
+    ms = time_ms(torch, lambda: K8.fused_adamw_kernel(flat, grad, m, v, lr, t, wd=0.1),
+                 iters=10, warm=2)
+    plain_ms = time_ms(torch, lambda: K8.fused_adamw_flat_plain(flat, grad, m, v, lr, t,
+                                                                 wd=0.1), iters=3, warm=1)
+
+    def leaf_views(buf):
+        out = []
+        for p in engine._params_list:
+            off = (p.data_ptr() - flat.data_ptr()) // 4
+            out.append(buf[off:off + p.numel()].view(p.shape))
+        return out
+
+    with torch.no_grad():
+        leaves = [p.detach() for p in engine._params_list]
+        args = (leaves, leaf_views(grad), leaf_views(m), leaf_views(v), [],
+                [torch.tensor(1000.0, device=flat.device) for _ in leaves])
+        lib_ms = time_ms(torch, lambda: torch._fused_adamw_(
+            *args, lr=1e-4, beta1=0.9, beta2=0.999, weight_decay=0.1, eps=1e-8,
+            amsgrad=False, maximize=False), iters=10, warm=2)
+    bound, by = _bound(16 * n, 28 * n, PEAK_FP32_FLOPS)
+    grad.zero_()
+    return dict(shape=f"N{n} fp32 (the llama3_proxy_410m tree, {len(leaves)} leaves)", ms=ms,
+                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound, bound_by=by,
+                library_note="torch._fused_adamw_ over the same leaves (multi-tensor "
+                             "apply), the same update up to rounding")
 
 
 # ---------------------------------------------------------------------------
@@ -1195,6 +1422,8 @@ def timings(torch):
         bound_ms=bound, bound_by=by)
     del c, ks, vs, qs
     out.update(train_timings(torch, gen))
+    _free(torch)
+    out.update(sparse_timings(torch, gen))
     return out
 
 
@@ -1266,6 +1495,90 @@ def train_timings(torch, gen):
     }
 
 
+def active_pairs(layout, block):
+    """Causal (query, key) pairs inside the layout's active blocks, per head
+    of one batch row: B^2 per block below the diagonal, B (B + 1) / 2 on it."""
+    import numpy as np
+
+    below = int(np.tril(layout, -1).sum())
+    diag = int(np.diag(layout).sum())
+    return below * block * block + diag * block * (block + 1) // 2
+
+
+def sparse_timings(torch, gen):
+    """K7f / K7b at the sparse flagship's per-call shape: b 8, s 4096, hq 8 /
+    hkv 2, hd 128, fixed(128, 4, 1), no segments.  Bounds from this layout's
+    active pairs: 4 hd flops a pair forward, 6 hd dq, 8 hd dk/dv, 10 hd the
+    backward pair.  Library yardstick (timed only; the port never calls
+    it): ``scaled_dot_product_attention`` with the layout and the causal
+    mask expanded to an [s, s] bool mask, forward, and its backward alone;
+    it computes the same function at dense cost."""
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops import kernels as K
+    from deepspeed_tpu_torch.ops.kernels import sparse_attention as K7
+
+    b, s, hq, hkv, hd = 8, 4096, 8, 2, 128
+    layout, block = sparse_layout(SPARSE_FLAGSHIP, s)
+    plan = K7.sparse_plan(layout, block, True, DEVICE)
+    c = bwd_case(torch, gen, b, s, hq, hkv, hd)
+    q, k, v, do = c["q"], c["k"], c["v"], c["do"]
+    del c
+    sc = hd ** -0.5
+    o, lse = K7.sparse_attention_kernel(q, k, v, None, None, plan, sc, None)
+    pairs = b * hq * active_pairs(layout, block)
+    shape = f"b{b} s{s} hq{hq} hkv{hkv} hd{hd} fixed(128, 4, 1), {pairs} active pairs"
+    delta = (o.float() * do.float()).sum(-1)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    scf, cap = K.scalars(sc, None)
+    common = (K.ptr(q), K.ptr(k), K.ptr(v), None, None, K.ptr(do), K.ptr(lse), K.ptr(delta))
+    n, max_a, max_t = plan.n, plan.tbl.shape[1], plan.tblT.shape[1]
+    ms_dq = time_ms(torch, lambda: K.launch(
+        "sparse_bwd_dq", *common, K.ptr(dq), K.ptr(plan.tbl), K.ptr(plan.cnt), K.ptr(plan.perm),
+        b, s, hq, hkv, hd, block, max_a, scf, cap), iters=5, warm=1)
+    ms_dkv = time_ms(torch, lambda: K.launch(
+        "sparse_bwd_dkv", *common, K.ptr(dk), K.ptr(dv), K.ptr(plan.tblT), K.ptr(plan.cntT),
+        K.ptr(plan.permT), b, s, hq, hkv, hd, block, max_t, scf, cap), iters=5, warm=1)
+    ms_pair = time_ms(torch, lambda: K7.sparse_attention_bwd_kernel(
+        q, k, v, None, None, o, lse, do, plan, sc, None), iters=5, warm=1)
+    ms_fwd = time_ms(torch, lambda: K7.sparse_attention_kernel(q, k, v, None, None, plan, sc,
+                                                               None), iters=5, warm=1)
+    del delta
+    plain_fwd = time_ms(torch, lambda: K7.sparse_attention_fwd_plain(
+        q, k, v, None, None, layout, block, sc, None), iters=2, warm=1)
+    _free(torch)
+    plain_bwd = time_ms(torch, lambda: K7.sparse_attention_bwd_plain(
+        q, k, v, None, None, o, lse, do, layout, block, sc, None), iters=2, warm=1)
+    _free(torch)
+    mask = (K7.element_mask(layout, block) & torch.ones(s, s, dtype=torch.bool).tril()).to(DEVICE)
+    qt, kt, vt, dot = (x.transpose(1, 2).contiguous().requires_grad_(x is not do)
+                       for x in (q, k, v, do))
+    lib_fwd = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, enable_gqa=True), iters=5, warm=1)
+    lib_out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)
+    lib_bwd = time_ms(torch, lambda: torch.autograd.grad(lib_out, (qt, kt, vt), dot,
+                                                         retain_graph=True), iters=5, warm=1)
+    del lib_out, qt, kt, vt, dot
+    qkvo = _nbytes(q, k, v, o, do, lse)
+    b_pair = _bound(10 * hd * pairs, qkvo + _nbytes(q, k, v))
+    b_dq = _bound(6 * hd * pairs, qkvo + _nbytes(q))
+    b_dkv = _bound(8 * hd * pairs, qkvo + _nbytes(k, v))
+    b_fwd = _bound(4 * hd * pairs, _nbytes(q, k, v, q, lse))
+    note = ("plain_ms and library_ms time the whole backward (dq, dk and dv together; the "
+            "library's backward alone, library_fwd_bwd_ms with its forward)")
+    lib = dict(library_ms=lib_bwd, library_fwd_bwd_ms=lib_fwd + lib_bwd)
+    return {
+        "sparse_fwd": dict(shape=shape, ms=ms_fwd, plain_ms=plain_fwd, library_ms=lib_fwd,
+                           bound_ms=b_fwd[0], bound_by=b_fwd[1]),
+        "sparse_bwd_dq": dict(shape=shape, ms=ms_dq, plain_ms=plain_bwd, bound_ms=b_dq[0],
+                              bound_by=b_dq[1], note=note, **lib),
+        "sparse_bwd_dkv": dict(shape=shape, ms=ms_dkv, plain_ms=plain_bwd, bound_ms=b_dkv[0],
+                               bound_by=b_dkv[1], note=note, **lib),
+        "sparse_bwd_pair": dict(shape=shape, ms=ms_pair, plain_ms=plain_bwd,
+                                bound_ms=b_pair[0], bound_by=b_pair[1],
+                                note="dq + dk/dv kernels and the delta reduction", **lib),
+    }
+
+
 REPLACES = {
     "flash_fwd": "deepspeed_tpu/ops/pallas/flash_kernel.py:253",
     "flash_bwd_dq": "deepspeed_tpu/ops/pallas/flash_kernel.py:384",
@@ -1278,6 +1591,10 @@ REPLACES = {
     "quantize_int8": "deepspeed_tpu/ops/pallas/quant_kernel.py:52",
     "quantize_fp8": "deepspeed_tpu/ops/pallas/quant_kernel.py:103",
     "dequantize": "deepspeed_tpu/ops/pallas/quant_kernel.py:75",
+    "sparse_fwd": "deepspeed_tpu/ops/pallas/flash_kernel.py:587",
+    "sparse_bwd_dq": "deepspeed_tpu/ops/pallas/flash_kernel.py:662",
+    "sparse_bwd_dkv": "deepspeed_tpu/ops/pallas/flash_kernel.py:687",
+    "fused_adamw": "deepspeed_tpu/ops/pallas/fused_adam.py:46",
 }
 
 
@@ -1317,7 +1634,8 @@ def main() -> None:
     q_errs, q_cases = quant_kernel_checks(torch)
     errs.update(q_errs)
     emit(dict(phase="kernels", tolerance=KERNEL_TOL, bwd_tolerance=BWD_TOL,
-              lse_tolerance=LSE_TOL, quant_matmul_tolerance=QMM_TOL, cases=cases + q_cases,
+              lse_tolerance=LSE_TOL, quant_matmul_tolerance=QMM_TOL,
+              fused_adamw_tolerance=K8_TOL, cases=cases + q_cases,
               gpu=gpu))
     _free(torch)
 
@@ -1329,7 +1647,12 @@ def main() -> None:
     _free(torch)
     train_check_phase(torch, K, gpu)
     _free(torch)
+    train_check_phase(torch, K, gpu, sparse=SPARSE_CHECK)
+    _free(torch)
     tr = train_phase(torch, K, gpu)
+    adam_times = tr.pop("fused_adamw_timing")
+    _free(torch)
+    sp = train_phase(torch, K, gpu, sparse=SPARSE_FLAGSHIP, steps=SPARSE_TRAIN_STEPS)
     _free(torch)
     qc = quant_check_phase(torch, K, gpu)
     qs, w_up0 = quant_serve_phase(torch, K, gpu)
@@ -1339,12 +1662,17 @@ def main() -> None:
 
     times = timings(torch)
     times.update(quant_timings(torch))
+    times["fused_adamw"] = adam_times
     emit(dict(phase="timings", flash_bwd_pair=times.pop("flash_bwd_pair"),
               flash_fwd_train=times["flash_fwd_train"],
-              quant={n: times[n] for n in (*QMM_NAMES.values(), *K6_NAMES)}, gpu=gpu))
-    # launches of the main paths (serving engine, scheduler, training,
-    # quantized serving, the quantizer API), each read right after its own run
-    main_paths = (eng, sch, tr, qc, qs, qz)
+              quant={n: times[n] for n in (*QMM_NAMES.values(), *K6_NAMES)},
+              sparse_bwd_pair=times.pop("sparse_bwd_pair"),
+              sparse={n: times[n] for n in ATTN_KERNELS[True]},
+              fused_adamw=adam_times, gpu=gpu))
+    # launches of the main paths (serving engine, scheduler, dense and
+    # block-sparse training, quantized serving, the quantizer API), each
+    # read right after its own run
+    main_paths = (eng, sch, tr, sp, qc, qs, qz)
     per_forward = {**eng["launches_per_forward"], **sch["launches_per_forward"]}
     for fmt, name in QMM_NAMES.items():  # quant_serve at full depth
         per_forward[name] = qs["formats"][fmt]["launches_per_forward"][name]
@@ -1359,8 +1687,9 @@ def main() -> None:
                      max_abs_err=errs[name], **times[name])
         if name in per_forward:  # serving: launches per model forward
             entry["launches_per_forward"] = per_forward[name]
-        if tr["launches"][name]:  # training: launches per optimizer step
-            entry["launches_per_train_step"] = tr["launches_per_step"][name]
+        for run in (tr, sp):  # training: launches per optimizer step
+            if run["launches"][name]:
+                entry["launches_per_train_step"] = run["launches_per_step"][name]
         if name == "flash_fwd":
             entry["at_train_shape"] = times["flash_fwd_train"]
         if name in K6_NAMES:  # the quantizer API: one launch per call

@@ -29,12 +29,14 @@ def initialize(model=None, params: Any = None, config: Any = None, device=None,
     ``params``); ``params=None`` initialises fp32 parameters from
     ``config['seed']`` on the device.  ``device`` is CUDA unless the caller
     names another.  Returns ``(engine, engine, dataloader, lr_scheduler)``
-    like the reference; the dataloader is None.
+    like the reference; the dataloader is None.  ``config['sparse_attention']``
+    sets the block-sparse layout on ``model.cfg`` (JAX ``initialize``); it
+    needs ``model=``.
 
     Refused with ``NotImplementedError``: a Hugging Face directory as
     ``model`` and ``training_data`` (the data loader; ROADMAP queue 1
     item 9), and ``mesh`` (one device only; item 7)."""
-    from .config.config import parse_config
+    from .config.config import ConfigError, parse_config
     from .ops.kernels import resolve_device
     from .runtime.engine import DeepSpeedTorchEngine
 
@@ -50,6 +52,13 @@ def initialize(model=None, params: Any = None, config: Any = None, device=None,
                                   "or an iterable to train_on_loader")
     cfg = parse_config(config)
     cfg.finalize(1)
+    if cfg.sparse_attention.mode:
+        # a layout changes the model's forward: it needs the model, never a
+        # raw loss_fn it could not reach (JAX ``initialize``)
+        if model is None or not hasattr(model, "cfg"):
+            raise ConfigError("sparse_attention requires model= (a models.CausalLM); it "
+                              "cannot be injected into a raw loss_fn")
+        model.cfg = model.cfg.replace(sparse_attention=cfg.sparse_attention.build())
     device = resolve_device(device)
     if loss_fn is None:
         if model is None:

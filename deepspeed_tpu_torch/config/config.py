@@ -8,6 +8,8 @@ the training path reads:
 - ``optimizer``, ``scheduler``, ``bf16``, ``fp16``, ``gradient_clipping``,
   ``steps_per_print``, ``seed``, ``train_data.prefetch_depth`` /
   ``async_metrics``;
+- ``sparse_attention`` (the block-sparse layout ``initialize`` wires into
+  the model);
 - ``zero_optimization.stage`` 0-3 and ``param_persistence_threshold``.
   The port runs on one GPU, where, as on the JAX package's one-device mesh,
   every ZeRO stage keeps the whole state on the one device: the stage is
@@ -25,7 +27,7 @@ import copy
 import dataclasses
 import json
 from dataclasses import dataclass, field
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 AUTO = "auto"
 
@@ -40,7 +42,7 @@ _UNPORTED_TOP = {
     "moe", "tensor_parallel", "comms_logger", "flops_profiler", "activation_checkpointing",
     "checkpoint", "compression_training", "data_efficiency", "curriculum_learning",
     "tensorboard", "csv_monitor", "wandb", "comet", "elasticity", "progressive_layer_drop",
-    "eigenvalue", "sparse_attention", "compile", "hybrid_engine", "aio", "nebula",
+    "eigenvalue", "compile", "hybrid_engine", "aio", "nebula",
     "telemetry", "autotune", "serve", "serve_engine", "router", "adaptation",
 }
 # zero_optimization keys the port does not run yet
@@ -140,6 +142,71 @@ class SchedulerConfig:
 
 
 @dataclass
+class SparseAttentionConfig:
+    """``sparse_attention``: mode ``""`` (absent) is off; the other modes
+    name the layouts of ``ops/sparse_attention.py`` (JAX
+    ``SparseAttentionConfig``, with its errors)."""
+
+    mode: str = ""
+    block: int = 16
+    different_layout_per_head: bool = False
+    # fixed
+    num_local_blocks: int = 4
+    num_global_blocks: int = 1
+    # bigbird
+    num_random_blocks: int = 1
+    num_sliding_window_blocks: int = 3
+    # bsLongformer
+    global_block_indices: List[int] = field(default_factory=lambda: [0])
+    # variable
+    local_window_blocks: List[int] = field(default_factory=lambda: [4])
+
+    def __post_init__(self):
+        if self.mode not in ("", "dense", "fixed", "bigbird", "bsLongformer", "variable"):
+            raise ConfigError(
+                f"sparse_attention.mode '{self.mode}' not in "
+                "dense|fixed|bigbird|bsLongformer|variable")
+        if self.different_layout_per_head:
+            raise ConfigError(
+                "sparse_attention.different_layout_per_head is not supported: "
+                "all heads share one block layout here")
+        if self.block < 1:
+            raise ConfigError(f"sparse_attention.block must be >= 1, got {self.block}")
+        if any(w < 1 for w in self.local_window_blocks):
+            raise ConfigError(
+                f"sparse_attention.local_window_blocks must be positive, got "
+                f"{self.local_window_blocks}")
+
+    def build(self):
+        """The layout object of this mode."""
+        from ..ops.sparse_attention import (
+            BigBirdSparsityConfig,
+            BSLongformerSparsityConfig,
+            DenseSparsityConfig,
+            FixedSparsityConfig,
+            VariableSparsityConfig,
+        )
+
+        if self.mode in ("", "dense"):
+            return DenseSparsityConfig(block=self.block)
+        if self.mode == "fixed":
+            return FixedSparsityConfig(block=self.block, num_local_blocks=self.num_local_blocks,
+                                       num_global_blocks=self.num_global_blocks)
+        if self.mode == "bigbird":
+            return BigBirdSparsityConfig(
+                block=self.block, num_random_blocks=self.num_random_blocks,
+                num_sliding_window_blocks=self.num_sliding_window_blocks,
+                num_global_blocks=self.num_global_blocks)
+        if self.mode == "bsLongformer":
+            return BSLongformerSparsityConfig(
+                block=self.block, num_sliding_window_blocks=self.num_sliding_window_blocks,
+                global_block_indices=tuple(self.global_block_indices))
+        return VariableSparsityConfig(block=self.block,
+                                      local_window_blocks=tuple(self.local_window_blocks),
+                                      num_global_blocks=self.num_global_blocks)
+
+
+@dataclass
 class Config:
     train_batch_size: Optional[int] = None
     train_micro_batch_size_per_gpu: Optional[int] = None
@@ -153,6 +220,7 @@ class Config:
     optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
     scheduler: SchedulerConfig = field(default_factory=SchedulerConfig)
     train_data: TrainDataConfig = field(default_factory=TrainDataConfig)
+    sparse_attention: SparseAttentionConfig = field(default_factory=SparseAttentionConfig)
     dp_world_size: int = 1  # derived by finalize
 
     @property

@@ -14,17 +14,22 @@ checkpoint, the flash attention Function outside it (it saves q/k/v/o/lse
 itself), and the output projection, residual, MLP norm, MLP and residual
 under a second checkpoint.
 
+A ``sparse_attention`` layout (``ops/sparse_attention.py``, set by
+``initialize`` from the config) routes attention through
+``block_sparse_attention``; ALiBi does not compose with it, as in JAX.
+
 Not ported, each refused with ``NotImplementedError`` naming the option and
 its ROADMAP queue-1 item: MoE layers (item 7), ``domino_chunks`` (item 7),
 sequence parallelism (item 7), ``act_quant_bits`` (item 9, compression),
-block-sparse attention (item 8), the ``dots`` / ``offload`` remat policies
-and ``CausalLM(stack_apply=...)`` (item 7: pipeline), progressive layer drop
-(a batch's ``pld_theta``, item 9).  Manual tensor parallelism (JAX
-``decoder_layer``'s ``tp_axis``, item 7) has no counterpart here: one GPU.
+the ``dots`` / ``offload`` remat policies and ``CausalLM(stack_apply=...)``
+(item 7: pipeline), progressive layer drop (a batch's ``pld_theta``,
+item 9).  Manual tensor parallelism (JAX ``decoder_layer``'s ``tp_axis``,
+item 7) has no counterpart here: one GPU.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Optional
@@ -37,6 +42,7 @@ from torch.utils.checkpoint import checkpoint
 from ..ops.attention import get_attention_impl
 from ..ops.kernels import resolve_device
 from ..ops.quantizer import ServingQuant, ServingQuantFP6
+from ..ops.sparse_attention import block_sparse_attention
 
 Params = Dict[str, Any]
 
@@ -72,10 +78,12 @@ class TransformerConfig:
     remat: str = "none"  # 'none' | 'full' | 'selective'
     attn_impl: str = "reference"  # 'reference' | 'math' | 'flash' | 'auto'
     loss_chunk_size: int = 0  # chunked logits + loss; 0 = full logits
+    # block-sparse layout (ops/sparse_attention.SparsityConfig), set by
+    # initialize() from the config's sparse_attention section
+    sparse_attention: Optional[Any] = None
     # JAX options the port refuses so far (see the module docstring)
     sequence_parallel: str = "none"
     act_quant_bits: Optional[int] = None
-    sparse_attention: Optional[Any] = None
     domino_chunks: int = 1
 
     @property
@@ -307,12 +315,14 @@ def _refuse_unported(cfg: TransformerConfig) -> None:
         (cfg.moe_num_experts > 0, "moe_num_experts (MoE layers)", 7),
         (cfg.sequence_parallel != "none", f"sequence_parallel={cfg.sequence_parallel!r}", 7),
         (cfg.domino_chunks != 1, "domino_chunks", 7),
-        (cfg.sparse_attention is not None, "sparse_attention", 8),
         (cfg.act_quant_bits is not None, "act_quant_bits", 9),
     ]
     for bad, what, item in refused:
         if bad:
             raise NotImplementedError(f"{what} is not ported yet (ROADMAP queue 1 item {item})")
+    if cfg.sparse_attention is not None and cfg.position == "alibi":
+        raise NotImplementedError("position='alibi' with sparse_attention: the block-sparse "
+                                  "bodies take no bias operand (as in JAX)")
     if cfg.remat not in _REMAT:
         if cfg.remat in ("dots", "offload"):
             raise NotImplementedError(
@@ -323,9 +333,14 @@ def _refuse_unported(cfg: TransformerConfig) -> None:
 
 def get_attn_fn(cfg: TransformerConfig, device) -> Callable:
     """The attention body of ``cfg`` on ``device`` (JAX ``_get_attn_fn``):
-    ALiBi needs the reference body, the only one with a bias operand."""
-    if cfg.position == "alibi" and cfg.attn_impl not in ("reference", "math"):
-        raise NotImplementedError("position='alibi' requires attn_impl='reference'")
+    a sparse layout routes to ``block_sparse_attention``; ALiBi needs the
+    reference body, the only one with a bias operand."""
+    if cfg.position == "alibi" and (cfg.attn_impl not in ("reference", "math")
+                                    or cfg.sparse_attention is not None):
+        raise NotImplementedError(
+            "position='alibi' requires attn_impl='reference' without sparse attention")
+    if cfg.sparse_attention is not None:
+        return functools.partial(block_sparse_attention, config=cfg.sparse_attention)
     return get_attention_impl(cfg.attn_impl, device)
 
 

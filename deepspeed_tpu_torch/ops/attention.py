@@ -43,13 +43,17 @@ def dot_product_attention(
     kv_segment_ids: Optional[torch.Tensor] = None,
     scale: Optional[float] = None,
     logits_soft_cap: Optional[float] = None,
+    attn_mask: Optional[torch.Tensor] = None,
     bias: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """q [b, sq, hq, d]; k/v [b, skv, hkv, d] (hkv divides hq).  Softmax in
     fp32 whatever the input type; the probabilities are cast back to the
-    input type before the value product, as the JAX body does.  ``bias``
-    [hq, sq, skv] or per batch row [b, hq, sq, skv] adds to the scaled
-    logits before the soft cap."""
+    input type before the value product, as the JAX body does.
+    ``attn_mask`` [sq, skv] bool composes with the causal and segment masks
+    (block-sparse layouts, ``ops/sparse_attention.py``); a masked logit is
+    ``finfo(float32).min``, not -inf, so a fully masked row softmaxes as in
+    JAX.  ``bias`` [hq, sq, skv] or per batch row [b, hq, sq, skv] adds to
+    the scaled logits before the soft cap."""
     in_dtype = q.dtype
     hq, hkv = q.shape[2], k.shape[2]
     k = repeat_kv(k, hq // hkv)
@@ -69,6 +73,8 @@ def dot_product_attention(
         kv_seg = kv_segment_ids if kv_segment_ids is not None else segment_ids
         allowed = segment_ids[:, None, :, None] == kv_seg[:, None, None, :]
         logits = torch.where(allowed, logits, torch.finfo(torch.float32).min)
+    if attn_mask is not None:
+        logits = torch.where(attn_mask[None, None], logits, torch.finfo(torch.float32).min)
     probs = torch.softmax(logits, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", probs.to(in_dtype), v)
 

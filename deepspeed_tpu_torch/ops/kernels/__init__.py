@@ -34,7 +34,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # kernel name -> source file.  One library per source: both backward
-# kernels live in flash_bwd.cu; the int8 / e4m3 / fp6 dequant-matmuls share
+# kernels live in flash_bwd.cu and the block-sparse forward, dq and dk/dv
+# kernels in sparse_flash.cu; the int8 / e4m3 / fp6 dequant-matmuls share
 # quant_matmul.cu and the row quantizers quantize.cu, each format counted
 # under its own name.
 SOURCES = {
@@ -49,13 +50,17 @@ SOURCES = {
     "quantize_int8": "quantize.cu",
     "quantize_fp8": "quantize.cu",
     "dequantize": "quantize.cu",
+    "sparse_fwd": "sparse_flash.cu",
+    "sparse_bwd_dq": "sparse_flash.cu",
+    "sparse_bwd_dkv": "sparse_flash.cu",
+    "fused_adamw": "fused_adam.cu",
 }
 _HEADERS = ("attn_common.cuh",)  # hashed into every library's build key
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}  # source file -> loaded library
-_PTR, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_PTR, _INT, _FLOAT, _INT64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 # C signatures of the extern "C" entry points (each returns cudaError_t)
 _ARGTYPES = {
     "flash_fwd": ("dst_flash_fwd", [_PTR] * 6 + [_INT] * 5 + [_FLOAT, _FLOAT, _PTR]),
@@ -72,6 +77,11 @@ _ARGTYPES = {
     **{name: ("dst_quantize_rows", [_PTR] * 3 + [_INT] * 4 + [_FLOAT, _PTR])
        for name in ("quantize_int8", "quantize_fp8")},
     "dequantize": ("dst_dequantize_rows", [_PTR] * 3 + [_INT] * 4 + [_PTR]),
+    "sparse_fwd": ("dst_sparse_fwd", [_PTR] * 10 + [_INT] * 7 + [_FLOAT, _FLOAT, _PTR]),
+    "sparse_bwd_dq": ("dst_sparse_bwd_dq", [_PTR] * 12 + [_INT] * 7 + [_FLOAT, _FLOAT, _PTR]),
+    "sparse_bwd_dkv": ("dst_sparse_bwd_dkv",
+                       [_PTR] * 13 + [_INT] * 7 + [_FLOAT, _FLOAT, _PTR]),
+    "fused_adamw": ("dst_fused_adamw", [_PTR] * 4 + [_INT64] + [_PTR] * 3 + [_FLOAT] * 6 + [_PTR]),
 }
 
 

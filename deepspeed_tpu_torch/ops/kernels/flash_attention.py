@@ -32,22 +32,30 @@ from . import check_cuda, launch, ptr, scalars
 # ---------------------------------------------------------------------------
 # plain versions (the tests, and the card's reference in chip_smoke.py)
 # ---------------------------------------------------------------------------
-def _scores(q, k, seg, scale, cap):
-    """(capped scaled scores [b, hq, s, s] fp32, causal-and-segment mask)."""
+def _scores(q, k, seg, scale, cap, kv_seg=None, mask=None):
+    """(capped scaled scores [b, hq, s, s] fp32, the mask of allowed
+    entries: causal, same segment (``kv_seg`` for the keys when given) and
+    ``mask`` [s, s] bool when given — the block-sparse kernels' layout)."""
     hq, hkv = q.shape[2], k.shape[2]
     s_raw = torch.einsum("bqhd,bkhd->bhqk", q.float(), repeat_kv(k, hq // hkv).float()) * scale
     s_cap = cap * torch.tanh(s_raw / cap) if cap is not None else s_raw
     n = q.shape[1]
-    allowed = torch.ones(n, n, dtype=torch.bool, device=q.device).tril()[None, None]
+    allowed = torch.ones(n, n, dtype=torch.bool, device=q.device).tril()
+    if mask is not None:
+        allowed = allowed & mask.to(q.device)
+    allowed = allowed[None, None]
     if seg is not None:
-        allowed = allowed & (seg[:, None, :, None] == seg[:, None, None, :])
+        ks = kv_seg if kv_seg is not None else seg
+        allowed = allowed & (seg[:, None, :, None] == ks[:, None, None, :])
     return s_cap, allowed
 
 
-def flash_attention_fwd_plain(q, k, v, seg, scale, cap) -> Tuple[torch.Tensor, torch.Tensor]:
+def flash_attention_fwd_plain(q, k, v, seg, scale, cap, kv_seg=None,
+                              mask=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """(o [b, s, hq, d] in q's type, lse [b, hq, s] fp32): the forward
-    kernel's function, computed in fp32."""
-    s_cap, allowed = _scores(q, k, seg, scale, cap)
+    kernel's function, computed in fp32 (``kv_seg`` and ``mask`` as in
+    ``_scores``)."""
+    s_cap, allowed = _scores(q, k, seg, scale, cap, kv_seg, mask)
     s = s_cap.masked_fill(~allowed, torch.finfo(torch.float32).min)
     lse = torch.logsumexp(s, dim=-1)
     p = torch.exp(s - lse[..., None])
@@ -56,14 +64,14 @@ def flash_attention_fwd_plain(q, k, v, seg, scale, cap) -> Tuple[torch.Tensor, t
     return o.to(q.dtype), lse
 
 
-def flash_attention_bwd_plain(q, k, v, seg, o, lse, do, scale, cap):
+def flash_attention_bwd_plain(q, k, v, seg, o, lse, do, scale, cap, kv_seg=None, mask=None):
     """(dq, dk, dv) in the inputs' types, by the FA2 formulas in fp32: p
     rebuilt from lse, D = rowsum(dO * o), ds = p (dp - D) cap' scale; dk / dv
     summed over each kv head's group of query heads."""
     b, n, hq, d = q.shape
     hkv = k.shape[2]
     g = hq // hkv
-    s_cap, allowed = _scores(q, k, seg, scale, cap)
+    s_cap, allowed = _scores(q, k, seg, scale, cap, kv_seg, mask)
     p = torch.where(allowed, torch.exp(s_cap - lse[..., None]), 0.0)
     dof = do.float()
     delta = (o.float() * dof).sum(-1).transpose(1, 2)  # [b, hq, s]

@@ -23,16 +23,23 @@ Rules (``g`` the gradient, ``t`` the 1-based update count):
 - ``sgd``: ``buf = g + momentum buf; p -= lr (g + momentum buf if nesterov
   else buf)`` (optax ``trace``).
 
+Every Adam-family update runs K8 (``ops/kernels/fused_adam.py``): the
+CUDA kernel on CUDA tensors, its plain version on CPU ones.  The engine
+keeps its parameters, gradients and moments as one flat fp32 buffer each,
+so a step is one launch; a caller with several tensors gets one launch a
+tensor.  ``sgd`` stays plain PyTorch (JAX has no kernel for it).
+
 Refused, each naming itself: ``lamb``, ``lion``, ``adagrad`` (optax starts
-its accumulator at 0.1, torch at 0), ``muon`` and the 1-bit family.  This is
-not a kernel: JAX runs optax here; the fused Pallas AdamW (K8) is ROADMAP
-queue 1 item 8.
+its accumulator at 0.1, torch at 0), ``muon`` (ROADMAP queue 1 item 8) and
+the 1-bit family (item 7).
 """
 from __future__ import annotations
 
 from typing import Any, Dict, List, Optional
 
 import torch
+
+from .kernels.fused_adam import fused_adamw_flat
 
 _ADAM_NAMES = ("adam", "adamw", "fusedadam", "deepspeedcpuadam")
 _REFUSED = {
@@ -46,7 +53,7 @@ def _assign(dst: torch.Tensor, new: torch.Tensor, finite: Optional[torch.Tensor]
 
 
 class Adam:
-    """optax ``adamw`` (``weight_decay`` > 0) or ``adam`` (0)."""
+    """optax ``adamw`` (``weight_decay`` > 0) or ``adam`` (0), through K8."""
 
     def __init__(self, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
                  weight_decay: float = 0.0):
@@ -59,19 +66,11 @@ class Adam:
 
     @torch.no_grad()
     def step(self, params, grads, state, lr: torch.Tensor, finite=None) -> None:
-        t = (state["count"] + 1).to(torch.float32)
-        bc1 = 1.0 - torch.pow(self.b1, t)
-        bc2 = 1.0 - torch.pow(self.b2, t)
+        count = state["count"]
+        count += 1 if finite is None else finite.to(count.dtype)  # t of this update
         for p, g, m, v in zip(params, grads, state["mu"], state["nu"]):
-            m_new = m * self.b1 + g * (1.0 - self.b1)
-            v_new = v * self.b2 + g.square() * (1.0 - self.b2)
-            upd = (m_new / bc1) / (torch.sqrt(v_new / bc2) + self.eps)
-            if self.wd:
-                upd = upd + self.wd * p
-            _assign(m, m_new, finite)
-            _assign(v, v_new, finite)
-            _assign(p, p - lr * upd, finite)
-        _assign(state["count"], state["count"] + 1, finite)
+            fused_adamw_flat(p, g, m, v, lr, count, self.b1, self.b2, self.eps, self.wd,
+                             finite)
 
 
 class SGD:

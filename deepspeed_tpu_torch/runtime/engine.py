@@ -10,6 +10,11 @@ same computation in the same order:
 - gradient accumulation over the ``[gas, micro, ...]`` fold (``_gas_fold``
   :107): autograd sums each micro-batch's scaled gradient into the masters'
   fp32 ``.grad`` (JAX :603-626), and the divisor is ``scale * gas``;
+- the fp32 masters, their gradients and the optimizer's moments are one
+  flat buffer each (JAX's ``ravel_pytree``): every parameter is a view of
+  the master buffer, and its ``.grad`` a view of the gradient buffer that
+  autograd accumulates into in place, so the whole update is one launch of
+  the fused AdamW kernel (K8) with no copy of the gradients;
 - ``_apply_grads`` (JAX :530-573): unscale, fp16 overflow check, global
   norm, clip, optimizer update, overflow-skip select and loss-scale update,
   all on the device;
@@ -66,11 +71,42 @@ def _leaves(tree, out: List[torch.Tensor]) -> List[torch.Tensor]:
     return out
 
 
-def _masters(tree, device: torch.device):
-    if isinstance(tree, dict):
-        return {k: _masters(v, device) for k, v in tree.items()}
-    t = torch.as_tensor(tree).detach().to(device=device, dtype=torch.float32).clone()
-    return t.requires_grad_(True)
+class FlatMasters(NamedTuple):
+    """fp32 masters as one buffer: ``params`` is the tree of leaf views
+    (each a leaf that requires grad), ``grad`` the gradient buffer whose
+    views are the leaves' ``.grad``."""
+
+    params: Any
+    leaves: List[torch.Tensor]
+    flat: torch.Tensor
+    grad: torch.Tensor
+
+
+def _flat_masters(tree, device: torch.device) -> FlatMasters:
+    """Copy a parameter tree into one flat fp32 buffer on ``device`` and
+    give every leaf a view of it, with its ``.grad`` preset to a view of a
+    zeroed gradient buffer (autograd then adds into it in place)."""
+    total = sum(torch.as_tensor(x).numel() for x in _leaves(tree, []))
+    flat = torch.empty(total, dtype=torch.float32, device=device)
+    grad = torch.zeros(total, dtype=torch.float32, device=device)
+    views: List[torch.Tensor] = []
+    offset = 0
+
+    def place(node):
+        nonlocal offset
+        if isinstance(node, dict):
+            return {k: place(v) for k, v in node.items()}
+        x = torch.as_tensor(node).detach()
+        n = x.numel()
+        view = flat[offset:offset + n].view(x.shape)
+        view.copy_(x)
+        view.requires_grad_(True)
+        view.grad = grad[offset:offset + n].view(x.shape)
+        offset += n
+        views.append(view)
+        return view
+
+    return FlatMasters(place(tree), views, flat, grad)
 
 
 class DeepSpeedTorchEngine:
@@ -90,9 +126,10 @@ class DeepSpeedTorchEngine:
         self.optimizer = build_optimizer(config.optimizer.type, config.optimizer.params)
         self.compute_dtype = precision.compute_dtype(config.precision_dtype)
         self.generator = torch.Generator(device=device).manual_seed(config.seed)
-        self.params = _masters(params, device)
-        self._params_list = _leaves(self.params, [])
-        self.opt_state = self.optimizer.init(self._params_list)
+        self._masters = _flat_masters(params, device)
+        self.params = self._masters.params
+        self._params_list = self._masters.leaves
+        self.opt_state = self.optimizer.init([self._masters.flat])
         fp16 = config.fp16
         self.loss_scale = precision.init_loss_scale(
             dynamic=fp16.enabled and fp16.loss_scale == 0,
@@ -131,17 +168,14 @@ class DeepSpeedTorchEngine:
     def _apply_grads(self, divisor):
         cfg = self.config
         fp16 = cfg.fp16.enabled
-        grads = []
-        for p in self._params_list:
-            grads.append(p.grad.div_(divisor))
-            p.grad = None
-        finite = precision.grads_finite(grads) if fp16 else None
-        grad_norm = precision.global_grad_norm(grads)
+        grad = self._masters.grad.div_(divisor)
+        finite = precision.grads_finite([grad]) if fp16 else None
+        grad_norm = precision.global_grad_norm([grad])
         if cfg.gradient_clipping and cfg.gradient_clipping > 0:
-            grads, grad_norm = precision.clip_by_global_norm(grads, cfg.gradient_clipping,
-                                                             grad_norm)
+            grad.mul_(precision.clip_factor(grad_norm, cfg.gradient_clipping))
         lr = self.lr_schedule_fn(self.step)
-        self.optimizer.step(self._params_list, grads, self.opt_state, lr, finite)
+        self.optimizer.step([self._masters.flat], [grad], self.opt_state, lr, finite)
+        grad.zero_()
         if fp16 and cfg.fp16.loss_scale == 0:
             self.loss_scale = precision.update_loss_scale(
                 self.loss_scale, finite, loss_scale_window=cfg.fp16.loss_scale_window,

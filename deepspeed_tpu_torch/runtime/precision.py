@@ -96,10 +96,16 @@ def global_grad_norm(grads: List[torch.Tensor]) -> torch.Tensor:
     return torch.sqrt(sum(g.float().square().sum() for g in grads))
 
 
+def clip_factor(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
+    """``min(1, max_norm / (norm + 1e-6))``: the factor that clips a
+    gradient of global norm ``norm`` to ``max_norm``."""
+    return torch.clamp(max_norm / (norm + 1e-6), max=1.0)
+
+
 def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float,
                         norm: torch.Tensor = None) -> Tuple[List[torch.Tensor], torch.Tensor]:
-    """Scale every gradient by ``min(1, max_norm / (norm + 1e-6))``."""
+    """Scale every gradient by ``clip_factor(norm, max_norm)``."""
     if norm is None:
         norm = global_grad_norm(grads)
-    factor = torch.clamp(max_norm / (norm + 1e-6), max=1.0)
+    factor = clip_factor(norm, max_norm)
     return [g * factor.to(g.dtype) for g in grads], norm

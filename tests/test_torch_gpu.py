@@ -218,3 +218,127 @@ def test_a_refused_call_raises_and_never_runs_the_plain_body(monkeypatch):
     with pytest.raises(TypeError):
         QK.quantize_int8(torch.zeros(4, 8, dtype=torch.float64, device=dev))
     assert sum(K.LAUNCHES.values()) == 0
+
+
+# ---------------------------------------------------------------------------
+# block-sparse training: K7f / K7b (sparse attention), K8 (fused AdamW)
+# ---------------------------------------------------------------------------
+@pytest.mark.gpu
+@pytest.mark.parametrize("spec,s,hd,seg_lens,cap", [
+    (chip_smoke.SPARSE_CHECK, 512, 128, None, None),
+    ({"mode": "bigbird", "block": 128}, 512, 64, [100, 250, 62], 30.0),
+    ({"mode": "bsLongformer", "block": 256, "global_block_indices": [1]}, 1024, 128, None,
+     None),
+])
+def test_sparse_kernels_match_plain(spec, s, hd, seg_lens, cap):
+    """K7f's o (``chip_smoke.KERNEL_TOL``) and lse (``LSE_TOL``), K7b's dq /
+    dk / dv (``BWD_TOL`` per 64-row block) against the plain versions in
+    fp32 on the same bf16 inputs; one launch of each kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    case = chip_smoke.bwd_case(torch, gen, 2, s, 8, 2, hd, seg_lens=seg_lens, cap=cap)
+    layout, block = chip_smoke.sparse_layout(spec, s)
+    K.reset_launches()
+    results = chip_smoke.sparse_results(torch, case, layout, block)
+    torch.cuda.synchronize()
+    assert {n: K.LAUNCHES[n] for n in chip_smoke.ATTN_KERNELS[True]} == {
+        "sparse_fwd": 1, "sparse_bwd_dq": 1, "sparse_bwd_dkv": 1}
+    for name, suffix, got, ref, tol, relative in results:
+        assert bool(torch.isfinite(got).all()), name + suffix
+        if relative:
+            whole, worst = chip_smoke.rel_errs(torch, got, ref)
+            assert max(whole, worst) <= tol, (name + suffix, whole, worst)
+        else:
+            assert float((got.float() - ref.float()).abs().max()) <= tol, name + suffix
+
+
+@pytest.mark.gpu
+def test_sparse_head_dim_256_raises_on_the_card():
+    """The gate admits head_dim 256 as JAX's does; the card's kernels take 64
+    and 128, so a CUDA tensor raises instead of running anything else."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from deepspeed_tpu_torch.ops.sparse_attention import (
+        FixedSparsityConfig,
+        block_sparse_attention,
+    )
+
+    q = torch.zeros(1, 256, 2, 256, dtype=torch.bfloat16, device="cuda")
+    K.reset_launches()
+    with pytest.raises(NotImplementedError, match="head_dim 256"):
+        block_sparse_attention(q, q, q, FixedSparsityConfig(block=128))
+    assert sum(K.LAUNCHES.values()) == 0
+
+
+@pytest.mark.gpu
+def test_fused_adamw_matches_plain_and_skips_on_overflow():
+    """K8 against its plain version on the same fp32 inputs, aligned and one
+    element off alignment, within ``chip_smoke.K8_TOL``; a ``finite = False``
+    step through the optimizer changes no bit and not the count."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from deepspeed_tpu_torch.ops.kernels import fused_adam as K8
+    from deepspeed_tpu_torch.ops.optimizers import build_optimizer
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    lr = torch.tensor(1e-3, device="cuda")
+    for _, step, wd, p, g, m, v in chip_smoke.adam_cases(torch, gen, 100_003):
+        t = torch.tensor(step, dtype=torch.int32, device="cuda")
+        for off in (0, 1):
+            got = [x.clone()[off:] for x in (p, m, v)]
+            ref = [x[off:].clone() for x in (p, m, v)]
+            K.reset_launches()
+            K8.fused_adamw_flat(got[0], g[off:], got[1], got[2], lr, t, wd=wd)
+            assert K.LAUNCHES["fused_adamw"] == 1
+            K8.fused_adamw_flat_plain(ref[0], g[off:], ref[1], ref[2], lr, t, wd=wd)
+            for a, r in zip(got, ref):
+                assert float((a - r).abs().max()) <= chip_smoke.K8_TOL * float(r.abs().max())
+    opt = build_optimizer("adam", {"weight_decay": 0.1})
+    state = opt.init([p])
+    opt.step([p], [g], state, lr)
+    before = [x.clone() for x in (p, state["mu"][0], state["nu"][0], state["count"])]
+    opt.step([p], [g], state, lr, finite=torch.tensor(False, device="cuda"))
+    for a, b in zip(before, (p, state["mu"][0], state["nu"][0], state["count"])):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_sparse_training_step_on_the_card():
+    """``initialize`` with ``sparse_attention`` (fixed(128, 2, 1) at seq 512)
+    and FusedAdam -> ``train_batch`` on the card (bf16) against the port on
+    the CPU (fp32) from the same weights: layer 0's attention gradients agree
+    in direction, the step-1 loss within 1e-2 relative, and a step launches
+    the sparse kernels once per layer and micro-batch, K8 once and no flash
+    kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    import numpy as np
+
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.models.presets import get_preset
+    from deepspeed_tpu_torch.models.transformer import CausalLM, init_params
+
+    cfg = get_preset("tiny", hidden_size=256, intermediate_size=512, num_heads=4,
+                     num_kv_heads=2, head_dim=64, max_seq_len=512, remat="selective")
+    params = init_params(cfg, seed=0, device="cpu", dtype=torch.float32)
+    batch = {"input_ids": np.random.default_rng(0).integers(0, 256, (2, 2, 513))}
+    conf = {"train_micro_batch_size_per_gpu": 2, "gradient_accumulation_steps": 2,
+            "optimizer": {"type": "FusedAdam", "params": {"lr": 1e-3, "weight_decay": 0.1}},
+            "sparse_attention": dict(chip_smoke.SPARSE_CHECK)}
+    card, _, _, _ = dst.initialize(model=CausalLM(cfg), params=params, config=conf)
+    cpu, _, _, _ = dst.initialize(model=CausalLM(cfg.replace(dtype=torch.float32)),
+                                  params=params, config={**conf, "bf16": {"enabled": False}},
+                                  device="cpu")
+    micro = {"input_ids": batch["input_ids"][0]}
+    g_card = chip_smoke._attn_grads(torch, card, micro)
+    g_cpu = chip_smoke._attn_grads(torch, cpu, micro)
+    for n in g_cpu:
+        cos = torch.nn.functional.cosine_similarity(g_card[n], g_cpu[n], dim=0)
+        assert float(cos) > chip_smoke.GRAD_COS_MIN, n
+    K.reset_launches()
+    got = float(card.train_batch(batch))
+    chip_smoke.check_train_launches("test", dict(K.LAUNCHES), cfg.num_layers, 2, 1, True)
+    want = float(cpu.train_batch(batch))
+    assert abs(got - want) <= 1e-2 * abs(want)
+    assert all(bool(torch.isfinite(p).all()) for p in card._params_list)
