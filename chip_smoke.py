@@ -17,6 +17,9 @@ Phases, each raising on failure (so the exit code is non-zero):
                M 16 and 512, and ragged shapes with a bias (QMM_TOL,
                relative Frobenius); the row quantizers (K6a/b/c) on
                [4096, 14336] bf16 rows with a zero row, byte-identical;
+               K2 at head_dim 64 (gpt2_small's MHA decode and a GQA group
+               of 4) and K3 on verify-shaped packs whose contexts end
+               mid-page (hd 64 MHA and hd 128 GQA);
 3. engine   -- ``InferenceEngineV2`` on ``llama3_proxy_410m`` (24 layers,
                bf16, random weights from a seed): 64 prompts of 128 tokens
                through ``put``, then 64 greedy ``step``s; the flash and
@@ -27,6 +30,21 @@ Phases, each raising on failure (so the exit code is non-zero):
                (16 requests of a 512-token system prompt + 64-token suffix,
                32 new tokens each, prefix caching, chunked prefill); the
                packed-context kernel must have launched;
+   spec_serve -- the workload of ``bench.py --serving --spec`` on the same
+               model (16 requests of a random 96-token base + an 8-token
+               pattern repeated to 64, 64 greedy tokens each, 8 slots, 96
+               blocks, prefix caching, ``spec_max_draft`` 4): speculation
+               off, on, on, off, on fresh engines, each after a rehearsal;
+               verify ticks, accepted drafts, the leak check, the
+               packed-context kernel launched at least layers x verify
+               ticks times, and 4 streams replayed on the CPU in fp32
+               (near-argmax); accept rate, tokens per target forward and
+               tokens/s off and on;
+   gpt2_serve -- ``gpt2_small`` at full depth (12 layers, 12 heads of 64,
+               MHA), bf16: the engine phase's shape (K1f and K2 at head_dim
+               64 launched 12 x packs and 12 x ticks, a one-tick profile),
+               then the spec workload with speculation on; near-argmax
+               replays of both;
    Block-sparse attention (K7f's o and lse, K7b's dq and dk/dv) at b 2,
                s 4096, hq 8 / hkv 2, hd 128 under fixed(128, 4, 1) and
                bigbird(128), a packed batch with segments and soft cap 30
@@ -193,13 +211,14 @@ def flash_case(torch, gen, seg_lens, pad, hq=8, hkv=2, hd=128, cap=None):
 
 
 def decode_case(torch, gen, B=64, nb=2048, bs=32, P=128, hq=8, hkv=2, hd=128,
-                inactive=8, max_len=1200):
-    """Mixed lengths, -1 table tails, ``inactive`` slots with len 1 and an
-    all -1 row (how the engine presents an idle slot)."""
+                inactive=8, max_len=1200, min_len=1):
+    """Mixed lengths in [min_len, max_len), -1 table tails, ``inactive``
+    slots with len 1 and an all -1 row (how the engine presents an idle
+    slot)."""
     ck = _randn(torch, (nb, bs, hkv, hd), gen, torch.bfloat16)
     cv = _randn(torch, (nb, bs, hkv, hd), gen, torch.bfloat16)
     q = _randn(torch, (B, hq, hd), gen, torch.bfloat16)
-    lens = torch.randint(1, max_len, (B,), generator=torch.Generator().manual_seed(SEED),
+    lens = torch.randint(min_len, max_len, (B,), generator=torch.Generator().manual_seed(SEED),
                          dtype=torch.int32)
     perm = torch.randperm(nb, generator=torch.Generator().manual_seed(SEED + 1))
     table = torch.full((B, P), -1, dtype=torch.int32)
@@ -247,6 +266,46 @@ def ctx_case(torch, gen, sfx=(48, 64, 17, 64), ctx=(512, 500, 37, 512), N=8,
     cv = _randn(torch, (nb, bs, hkv, hd), gen, torch.bfloat16)
     return dict(q=q, k=k, v=v, segment_ids=seg.to(DEVICE), cache_k=ck, cache_v=cv,
                 ctx_tables=tables.to(DEVICE), ctx_lens=lens.to(DEVICE))
+
+
+# gpt2_small's decode shape: 64 slots, hq = hkv = 12 (MHA), hd 64, pages of
+# 32, 32 table columns, live lengths 129-256 (a 128-token prompt and up to
+# 128 generated tokens)
+GPT2_DECODE = dict(B=64, nb=2048, bs=32, P=32, hq=12, hkv=12, hd=64, inactive=0,
+                   min_len=129, max_len=257)
+# a verify tick's pack: 8 slots x (k + 1 = 5) rows, committed lengths that
+# end mid-page, one slot with 0 drafts (1 row) and pad rows after each
+VERIFY_CTX = (37, 100, 255, 511, 64, 300, 1, 200)
+VERIFY_DRAFTS = (4, 4, 0, 3, 4, 2, 4, 1)
+
+
+def verify_case(torch, gen, hq, hkv, hd, ctx=VERIFY_CTX, drafts=VERIFY_DRAFTS, K=4,
+                nb=256, bs=32):
+    """The packed-context kernel's input on a verify tick
+    (``engine_v2._spec_tick``): slot i's rows i (K + 1) .. i (K + 1) +
+    drafts[i], segment i + 1, the rest pad; its table covers the context
+    and the pack's own pages (already written: ``ctx_lens`` masks them)."""
+    gcpu = torch.Generator().manual_seed(SEED + 5)
+    N, K1 = len(ctx), K + 1
+    P = -(-(max(ctx) + K1) // bs)
+    seg = torch.zeros(N * K1, dtype=torch.int32)
+    tables = torch.full((N, P), -1, dtype=torch.int32)
+    perm = torch.randperm(nb, generator=gcpu)
+    nxt = 0
+    for i, (c, n) in enumerate(zip(ctx, drafts)):
+        seg[i * K1:i * K1 + n + 1] = i + 1
+        pages = -(-(c + n + 1) // bs)
+        tables[i, :pages] = perm[nxt:nxt + pages].to(torch.int32)
+        nxt += pages
+    t = N * K1
+    return dict(q=_randn(torch, (t, hq, hd), gen, torch.bfloat16),
+                k=_randn(torch, (t, hkv, hd), gen, torch.bfloat16),
+                v=_randn(torch, (t, hkv, hd), gen, torch.bfloat16),
+                segment_ids=seg.to(DEVICE),
+                cache_k=_randn(torch, (nb, bs, hkv, hd), gen, torch.bfloat16),
+                cache_v=_randn(torch, (nb, bs, hkv, hd), gen, torch.bfloat16),
+                ctx_tables=tables.to(DEVICE),
+                ctx_lens=torch.tensor(ctx, dtype=torch.int32, device=DEVICE))
 
 
 def bwd_case(torch, gen, b, s, hq, hkv, hd, seg_lens=None, cap=None):
@@ -297,7 +356,8 @@ def kernel_checks(torch):
 
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     errs = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0,
-            "paged_decode": 0.0, "ctx_attention": 0.0, "sparse_fwd": 0.0,
+            "paged_decode": 0.0, "paged_decode_hd64": 0.0, "ctx_attention": 0.0,
+            "sparse_fwd": 0.0,
             "sparse_bwd_dq": 0.0, "sparse_bwd_dkv": 0.0}
     results = []
 
@@ -341,11 +401,22 @@ def kernel_checks(torch):
         got = K2.paged_attention_decode_kernel(**case, logits_soft_cap=cap)
         ref = K2.paged_attention_decode_plain(**_f32(case), logits_soft_cap=cap)
         record("paged_decode", label, got, ref)
+    # K2 at head_dim 64 (K2p's counterpart): gpt2_small's MHA decode (g = 1)
+    # and a GQA group of 4 (JAX's packed-kernel test shape)
+    for label, case in (
+        ("gpt2_B64_hq12_hkv12_hd64_len129-256", decode_case(torch, gen, **GPT2_DECODE)),
+        ("B64_hq8_hkv2_hd64_mixed", decode_case(torch, gen, hq=8, hkv=2, hd=64, max_len=600)),
+    ):
+        got = K2.paged_attention_decode_kernel(**case)
+        ref = K2.paged_attention_decode_plain(**_f32(case))
+        record("paged_decode_hd64", label, got, ref)
 
     for label, case in (
         ("T256_N8_ctx512", ctx_case(torch, gen, sfx=(64, 64, 64, 64),
                                     ctx=(512, 512, 512, 512))),
         ("midpage_pad_badids", ctx_case(torch, gen)),
+        ("verify_N8x5_hq12_hkv12_hd64_midpage", verify_case(torch, gen, 12, 12, 64)),
+        ("verify_N8x5_hq8_hkv2_hd128_midpage", verify_case(torch, gen, 8, 2, 128)),
     ):
         got = K3.paged_attention_packed_ctx_kernel(**case)
         ref = K3.paged_attention_packed_ctx_plain(**_f32(case))
@@ -533,7 +604,14 @@ def near_argmax(torch, logits, picks):
     return float(gap.max()), int((logits.argmax(dim=-1) == picks).sum())
 
 
-def engine_phase(torch, K, gpu, params, cfg):
+def decode_kernel(cfg):
+    """The decode kernel's launch name for ``cfg``'s head_dim."""
+    return "paged_decode_hd64" if cfg.hd == 64 else "paged_decode"
+
+
+def engine_phase(torch, K, gpu, params, cfg, model="llama3_proxy_410m", phase="engine"):
+    """``model``'s serving engine at batch 64 (phase 3, and the first half
+    of ``gpt2_serve``)."""
     import numpy as np
     from deepspeed_tpu_torch.inference.engine_v2 import InferenceEngineV2
     from deepspeed_tpu_torch.inference.sampling import SamplingParams
@@ -570,8 +648,9 @@ def engine_phase(torch, K, gpu, params, cfg):
     d_ticks = eng.stats["decode_ticks"] - stats0["decode_ticks"]
     if launches["flash_fwd"] != L * d_prefill or d_prefill == 0:
         raise AssertionError(f"flash launches {launches['flash_fwd']} != {L} x {d_prefill}")
-    if launches["paged_decode"] != L * d_ticks or d_ticks != steps:
-        raise AssertionError(f"decode launches {launches['paged_decode']} != {L} x {d_ticks}")
+    dec = decode_kernel(cfg)
+    if launches[dec] != L * d_ticks or d_ticks != steps:
+        raise AssertionError(f"{phase}: {dec} launches {launches[dec]} != {L} x {d_ticks}")
     if any(t < 0 for g in gen.values() for t in g):
         raise AssertionError("non-finite logits in the engine phase")
 
@@ -588,6 +667,7 @@ def engine_phase(torch, K, gpu, params, cfg):
            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     # None ("not measured") when the profiler sees no device activity
     dev_ms = sum(e.self_device_time_total for e in evs) / 1e3 / 4 if evs else None
+    k2_ms = sum(e.self_device_time_total for e in evs if "paged_decode" in e.key) / 1e3 / 4
     top = sorted(evs, key=lambda e: -e.self_device_time_total)[:8]
     profile_rows = [dict(name=e.key[:60], ms_per_tick=e.self_device_time_total / 1e3 / 4,
                          calls_per_tick=e.count / 4) for e in top]
@@ -600,16 +680,17 @@ def engine_phase(torch, K, gpu, params, cfg):
         raise AssertionError(f"card pick off the CPU argmax by {worst:.4f} of the logit "
                              f"range > {ARGMAX_TOL_FRAC}")
     med_tick = sorted(tick_ms)[len(tick_ms) // 2]
-    res = dict(phase="engine", model="llama3_proxy_410m", layers=L, batch=B,
+    res = dict(phase=phase, model=model, layers=L, head_dim=cfg.hd, batch=B,
                prompt_len=prompt_len, decode_steps=steps, prefill_dispatches=d_prefill,
                prefill_s=prefill_s, prefill_tokens_per_s=B * prompt_len / prefill_s,
                decode_tick_ms_median=med_tick, decode_tick_ms_mean=sum(tick_ms) / steps,
                decode_tokens_per_s=B * 1e3 / med_tick, launches=launches,
                launches_per_forward={"flash_fwd": launches["flash_fwd"] / d_prefill,
-                                     "paged_decode": launches["paged_decode"] / d_ticks},
+                                     dec: launches[dec] / d_ticks},
                argmax_exact=f"{exact}/{total}", argmax_worst_gap_frac=worst,
                profile_tick_wall_ms=prof_wall_ms, profile_tick_device_ms=dev_ms,
                device_idle_share=None if dev_ms is None else 1.0 - dev_ms / med_tick,
+               profile_decode_kernel_ms=k2_ms if evs else None,
                profile_top=profile_rows, gpu=gpu)
     emit(res)
     return res
@@ -699,6 +780,218 @@ def scheduler_phase(torch, K, gpu, params, cfg):
                close=audit, gpu=gpu)
     emit(res)
     return res
+
+
+# ---------------------------------------------------------------------------
+# speculative serving: spec_serve (410M) and gpt2_serve (gpt2_small)
+# ---------------------------------------------------------------------------
+# the workload of `bench.py --serving --spec` (bench.py:1036-1045,
+# _spec_serve_section): a random base of 96 tokens + an 8-token pattern
+# repeated to 64, 64 new greedy tokens, through the scheduler
+SPEC_SIZES = dict(n_req=16, base_len=96, rep_len=64, max_new=64)
+SPEC_ENGINE = dict(max_seqs=8, num_blocks=96, block_size=32, max_seq_len=512,
+                   prefill_buckets=(64, 128, 256), prefill_budget=256, prefill_chunk=256,
+                   enable_prefix_caching=True, spec_max_draft=4)
+SPEC_REPLAYS = 4  # streams replayed on the CPU in fp32 (near-argmax)
+
+
+def spec_workload(cfg, rng):
+    """(pattern, {uid: prompt}) of the repetitive-suffix workload."""
+    pattern = rng.integers(1, cfg.vocab_size, 8).tolist()
+    n, base, rep = SPEC_SIZES["n_req"], SPEC_SIZES["base_len"], SPEC_SIZES["rep_len"]
+    return pattern, {u: rng.integers(1, cfg.vocab_size, base).tolist() + pattern * (rep // 8)
+                     for u in range(1, n + 1)}
+
+
+def _median(xs):
+    return sorted(xs)[len(xs) // 2] if xs else None
+
+
+def decode_tick_profile(torch, eng, pattern, samp, n=3):
+    """``n`` decode steps of ``max_seqs`` sequences whose whole history is
+    re-paved to the pattern before each step (so, speculating, every one
+    drafts a full draft: a verify tick at full width), under the profiler
+    after one warm-up step: wall and device ms a tick, idle share,
+    host-to-device copies a tick and the top device rows."""
+    uids = list(range(20_001, 20_001 + eng.mgr.max_seqs))
+    eng.put(uids, [pattern * 3] * len(uids), samp)
+    seqs = [eng.mgr.seqs[u] for u in uids]
+
+    def step():
+        for s in seqs:
+            s.tokens[:] = [pattern[j % len(pattern)] for j in range(len(s.tokens))]
+            s.spec_draft_len, s.spec_cooldown = -1, 0
+        eng.step(samp)
+
+    step()
+    htod = {}
+    wall_ms, dev_ms, rows = _device_profile(torch, step, n=n, top=8, htod=htod)
+    eng.flush(uids)
+    return dict(batch=len(uids), wall_ms=wall_ms, device_ms=dev_ms,
+                idle_share=None if dev_ms is None else 1.0 - dev_ms / wall_ms,
+                htod_copies=htod["copies"], top=rows)
+
+
+def spec_run(torch, K, params, cfg, speculate, rng, pattern, prompts, profile=True):
+    """One engine through the workload, with ``bench.py:199-221``'s
+    rehearsal outside the timed window (the same structure with fresh bases,
+    then, speculating, one forced draft tick).  Returns a dict: the results,
+    wall seconds, the engine / scheduler counter deltas, the leak check, the
+    timed window's launches, the median host ms of its ticks by kind (a
+    tick with a verify dispatch, one with a plain decode dispatch, neither
+    with a prefill) and, with ``profile``, a profiled full-width tick."""
+    from deepspeed_tpu_torch.inference.engine_v2 import InferenceEngineV2
+    from deepspeed_tpu_torch.inference.sampling import SamplingParams
+
+    eng = InferenceEngineV2(params, cfg, enable_speculation=speculate, **SPEC_ENGINE)
+    sched = eng.scheduler
+    samp = SamplingParams(temperature=0.0, max_new_tokens=SPEC_SIZES["max_new"])
+    for u, p in prompts.items():
+        sched.submit(10_000 + u, rng.integers(1, cfg.vocab_size, SPEC_SIZES["base_len"]).tolist()
+                     + p[SPEC_SIZES["base_len"]:], samp)
+    sched.run()
+    if speculate:  # repave put()'s sampled token so the tick drafts
+        eng.put([10_002], [pattern * 3])
+        s = eng.mgr.seqs[10_002]
+        s.tokens[-1] = s.tokens[-1 - len(pattern)]
+        eng.step(samp)
+        eng.flush([10_002])
+    torch.cuda.synchronize()
+    stats0, sched0 = dict(eng.stats), dict(sched.stats)
+    ticks = {"verify": [], "plain_decode": []}
+    tick = sched.tick
+
+    def timed_tick():  # host clock: every tick ends in a host read
+        before = dict(eng.stats)
+        t = time.perf_counter()
+        out = tick()
+        ms = 1e3 * (time.perf_counter() - t)
+        if eng.stats["prefill_dispatches"] == before["prefill_dispatches"]:
+            if eng.stats["spec_ticks"] > before["spec_ticks"]:
+                ticks["verify"].append(ms)
+            elif eng.stats["decode_ticks"] > before["decode_ticks"]:
+                ticks["plain_decode"].append(ms)
+        return out
+
+    sched.tick = timed_tick
+    K.reset_launches()
+    t0 = time.perf_counter()
+    for u, p in prompts.items():
+        sched.submit(u, p, samp)
+    res = sched.run(wait_for=list(prompts))
+    wall = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    sched.tick = tick
+    alloc = eng.mgr.allocator
+    alloc.audit()
+    in_use = sum(1 for b in range(alloc.total_blocks) if alloc.refcount(b) > 0)
+    leak_ok = in_use == 0 and alloc.free_blocks + alloc.cached_blocks == alloc.total_blocks
+    d = {k: eng.stats[k] - stats0[k] for k in eng.stats}
+    sd = {k: sched.stats[k] - sched0[k] for k in sched.stats}
+    done = all(sched.requests[u].state == "finished" for u in prompts)
+    tick_ms = {k: dict(ticks=len(v), median_ms=_median(v)) for k, v in ticks.items()}
+    prof = decode_tick_profile(torch, eng, pattern, samp) if profile else None
+    eng.close()
+    return dict(res=res, wall=wall, d=d, sd=sd, ok=leak_ok and done, launches=launches,
+                tick_ms=tick_ms, profile=prof)
+
+
+def spec_phase(torch, K, gpu, params, cfg, model, phase, twin=True):
+    """The repetitive-suffix workload with speculation on; with ``twin``,
+    on fresh engines in the order off, on, on, off (the two settings
+    compared within one call, in turns).  Raises on a failed leak check, no
+    verify tick or no accepted draft, fewer packed-context launches than
+    layers x verify ticks, a decode-kernel count off layers x plain decode
+    ticks, or a replayed stream off the CPU's near-argmax; the first spec
+    run is the main path's.  In bf16, spec on and off may split at
+    near-ties (``bench.py:1046``): their token match is reported, not
+    gated."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED)
+    pattern, prompts = spec_workload(cfg, rng)
+    L = cfg.num_layers
+    runs = []
+    for on in (False, True, True, False) if twin else (True,):
+        # only the first run of each setting is profiled
+        first = all(o != on for o, _ in runs)
+        runs.append((on, spec_run(torch, K, params, cfg, on, rng, pattern, prompts,
+                                  profile=first)))
+    if not all(r["ok"] for _, r in runs):
+        raise AssertionError(f"{phase}: allocator leak check failed or a request did not finish")
+    spec = next(r for on, r in runs if on)
+    res, d, launches = spec["res"], spec["d"], spec["launches"]
+    if d["spec_ticks"] == 0 or d["spec_accepted"] == 0:
+        raise AssertionError(f"{phase}: no verify tick or no accepted draft: {d}")
+    if launches["ctx_attention"] < L * d["spec_ticks"]:
+        raise AssertionError(f"{phase}: ctx_attention launched {launches['ctx_attention']} < "
+                             f"{L} x {d['spec_ticks']} verify ticks")
+    dec = decode_kernel(cfg)
+    if launches[dec] != L * d["decode_ticks"]:
+        raise AssertionError(f"{phase}: {dec} launched {launches[dec]} != {L} x "
+                             f"{d['decode_ticks']} decode ticks")
+    uids = sorted(prompts)[:SPEC_REPLAYS]
+    worst, exact, total = replay_on_cpu(torch, _tree_cpu(params), cfg,
+                                        {u: prompts[u] for u in uids},
+                                        {u: res[u] for u in uids})
+    if worst > ARGMAX_TOL_FRAC:
+        raise AssertionError(f"{phase}: a card pick is off the CPU argmax by {worst:.4f} of the "
+                             f"logit range > {ARGMAX_TOL_FRAC}")
+    prompt_tokens = sum(len(p) for p in prompts.values())
+    gen_tokens = sum(len(r) for r in res.values())
+    seq_forwards = d["spec_seq_forwards"] + d["decode_emitted"]
+    walls = {on: [r["wall"] for o, r in runs if o == on] for on in (True, False)}
+    out = dict(
+        phase=phase, model=model, layers=L, head_dim=cfg.hd, **SPEC_SIZES,
+        engine={k: (list(v) if isinstance(v, tuple) else v) for k, v in SPEC_ENGINE.items()},
+        accept_rate=d["spec_accepted"] / max(1, d["spec_drafted"]),
+        drafted=d["spec_drafted"], accepted=d["spec_accepted"],
+        emitted_tokens_per_target_forward=(d["spec_emitted"] + d["decode_emitted"])
+        / max(1, seq_forwards),
+        verify_ticks=d["spec_ticks"], plain_decode_ticks=d["decode_ticks"],
+        preemptions=spec["sd"]["preemptions"],
+        drafts_shed=spec["sd"]["drafts_shed"] + d["spec_drafts_shed"],
+        run_order=["on" if on else "off" for on, _ in runs], spec_wall_s=walls[True],
+        spec_tokens_per_s=(prompt_tokens + gen_tokens) * len(walls[True]) / sum(walls[True]),
+        spec_generated_tokens_per_s=gen_tokens * len(walls[True]) / sum(walls[True]),
+        tick_ms=[r["tick_ms"] for on, r in runs if on], verify_tick_profile=spec["profile"],
+        allocator_leak_check="pass", argmax_replayed_streams=len(uids),
+        argmax_exact=f"{exact}/{total}", argmax_worst_gap_frac=worst,
+        launches=launches,
+        launches_per_verify_tick={"ctx_attention": launches["ctx_attention"] / d["spec_ticks"]},
+        gpu=gpu)
+    if twin:  # every run emits the same number of tokens (no stop token)
+        plain = next(r for on, r in runs if not on)
+        same = sum(a == b for u in prompts for a, b in zip(res[u], plain["res"][u]))
+        out.update(plain_wall_s=walls[False],
+                   plain_tokens_per_s=(prompt_tokens + gen_tokens) * len(walls[False])
+                   / sum(walls[False]),
+                   plain_generated_tokens_per_s=gen_tokens * len(walls[False]) / sum(walls[False]),
+                   spec_vs_plain_speedup=sum(walls[False]) / sum(walls[True]),
+                   spec_vs_plain_token_match=same / gen_tokens,
+                   plain_preemptions=plain["sd"]["preemptions"],
+                   plain_tick_ms=[r["tick_ms"] for on, r in runs if not on],
+                   plain_decode_tick_profile=plain["profile"])
+    emit(out)
+    return out
+
+
+def gpt2_serve_phase(torch, K, gpu):
+    """``gpt2_small`` at full depth (12 layers, hd 64, MHA), bf16, random
+    weights from the seed: the engine phase's shape (K1f and K2 at hd 64
+    launched 12 x packs and 12 x ticks, a one-tick profile, near-argmax
+    replay), then the repetitive-suffix workload through the scheduler with
+    speculation on."""
+    from deepspeed_tpu_torch.models.presets import get_preset
+    from deepspeed_tpu_torch.models.transformer import init_params
+
+    cfg = get_preset("gpt2_small")
+    params = init_params(cfg, seed=SEED, device=DEVICE)
+    eng = engine_phase(torch, K, gpu, params, cfg, model="gpt2_small", phase="gpt2_serve")
+    spec = spec_phase(torch, K, gpu, params, cfg, "gpt2_small", "gpt2_serve_spec", twin=False)
+    del params
+    _free(torch)
+    return eng, spec
 
 
 # ---------------------------------------------------------------------------
@@ -1386,22 +1679,13 @@ def timings(torch):
         bound_ms=bound, bound_by=by)
 
     # K2: B = 64 decode over the paged pool (mixed lengths, 8 idle slots)
-    c = decode_case(torch, gen)
-    lens = c["seq_lens"].long()
-    hkv = c["cache_k"].shape[2]
-    live = int(lens.sum())
-    kv_bytes = 2 * live * hkv * hd * c["cache_k"].element_size()
-    bound, by = _bound(4 * hd * hq * live,
-                       kv_bytes + _nbytes(c["q"], c["q"], c["block_table"], c["seq_lens"]))
-    out["paged_decode"] = dict(
-        shape=f"B64 nb2048 bs32 P128 live_tokens{live}",
-        ms=time_ms(torch, lambda: K2.paged_attention_decode_kernel(**c)),
-        plain_ms=time_ms(torch, lambda: K2.paged_attention_decode_plain(**c)),
-        library_ms=None, bound_ms=bound, bound_by=by)
+    out["paged_decode"] = decode_timing(torch, K2, decode_case(torch, gen))
+    out["paged_decode_hd64"] = decode_timing(torch, K2, decode_case(torch, gen, **GPT2_DECODE))
 
     # K3: a prefix-hit pack, 4 suffixes of 64 over 512 cached tokens each
     c = ctx_case(torch, gen, sfx=(64, 64, 64, 64), ctx=(512, 512, 512, 512), bad_ids=False)
-    t = c["q"].shape[0]
+    t, hq, hd = c["q"].shape
+    hkv = c["k"].shape[1]
     n_seg, sfx, ctx = 4, 64, 512
     flops = 4 * hd * hq * n_seg * (sfx * ctx + sfx * (sfx + 1) // 2)
     ctx_bytes = 2 * n_seg * ctx * hkv * hd * c["cache_k"].element_size()
@@ -1421,10 +1705,116 @@ def timings(torch):
             qs, ks, vs, attn_mask=smask, enable_gqa=True)),
         bound_ms=bound, bound_by=by)
     del c, ks, vs, qs
+    # K3 on a verify tick's pack (8 slots x 5 rows, mid-page contexts) at
+    # the 410M model's heads
+    hq, hkv, hd = 8, 2, 128
+    c = verify_case(torch, gen, hq, hkv, hd)
+    seg, lens = c["segment_ids"].long(), c["ctx_lens"].long()
+    rows = torch.bincount(seg[seg > 0] - 1, minlength=lens.numel())  # pack rows per slot
+    flops = 4 * hd * hq * int((rows * lens + rows * (rows + 1) // 2).sum())
+    ctx_bytes = 2 * int(lens.sum()) * hkv * hd * c["cache_k"].element_size()
+    bound, by = _bound(flops, ctx_bytes + _nbytes(c["q"], c["k"], c["v"], c["q"],
+                                                  c["segment_ids"], c["ctx_tables"]))
+    qs, ks, vs, smask = verify_sdpa_inputs(torch, c)
+    got = K3.paged_attention_packed_ctx_kernel(**c)
+    lib = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=smask, enable_gqa=True)
+    out["ctx_attention"]["at_verify_shape"] = dict(
+        shape=f"T40 N8 x (k+1 = 5) hq8 hkv2 hd128 ctx_lens {list(VERIFY_CTX)}",
+        ms=time_ms(torch, lambda: K3.paged_attention_packed_ctx_kernel(**c)),
+        plain_ms=time_ms(torch, lambda: K3.paged_attention_packed_ctx_plain(**c)),
+        library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=smask, enable_gqa=True)),
+        library_max_abs_err=_verify_rows_err(torch, got, lib, c),
+        bound_ms=bound, bound_by=by)
+    del c, qs, ks, vs, smask
     out.update(train_timings(torch, gen))
     _free(torch)
     out.update(sparse_timings(torch, gen))
     return out
+
+
+def decode_timing(torch, K2, c):
+    """K2 on a ``decode_case``: kernel, plain version, the SDPA yardstick
+    (``decode_sdpa_inputs``) and the bound (every live key and value row
+    read once, q read and out written once; 4 hd flops per live (query
+    head, key) pair)."""
+    import torch.nn.functional as F
+
+    b, hq, hd = c["q"].shape
+    hkv = c["cache_k"].shape[2]
+    live = int(c["seq_lens"].long().sum())
+    kv_bytes = 2 * live * hkv * hd * c["cache_k"].element_size()
+    bound, by = _bound(4 * hd * hq * live,
+                       kv_bytes + _nbytes(c["q"], c["q"], c["block_table"], c["seq_lens"]))
+    qs, ks, vs, mask = decode_sdpa_inputs(torch, c)
+    got = K2.paged_attention_decode_kernel(**c)
+    lib = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask, enable_gqa=True)
+    live_rows = c["block_table"][:, 0] >= 0  # idle slots (all -1 tables) are not compared
+    return dict(shape=f"B{b} hq{hq} hkv{hkv} hd{hd} bs{c['cache_k'].shape[1]} "
+                      f"P{c['block_table'].shape[1]} live_tokens{live}",
+                ms=time_ms(torch, lambda: K2.paged_attention_decode_kernel(**c)),
+                plain_ms=time_ms(torch, lambda: K2.paged_attention_decode_plain(**c)),
+                library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+                    qs, ks, vs, attn_mask=mask, enable_gqa=True)),
+                library_max_abs_err=float((got[live_rows].float()
+                                           - lib[live_rows, :, 0].float()).abs().max()),
+                bound_ms=bound, bound_by=by)
+
+
+def _contiguous_ctx(cache, table_row, n):
+    """The first ``n`` tokens of one slot's paged context, contiguous:
+    [n, hkv, hd]."""
+    pages = -(-n // cache.shape[1])
+    return cache[table_row[:pages].long()].reshape(-1, *cache.shape[2:])[:n]
+
+
+def decode_sdpa_inputs(torch, c):
+    """The library yardstick of K2 (as the K3 row's): each slot's live keys
+    gathered contiguously beforehand (the gather is not timed), padded to
+    the longest, and a length mask; q as one query row a slot.  Returns
+    (q [B, hq, 1, hd], k / v [B, hkv, L, hd], mask [B, 1, 1, L])."""
+    lens = c["seq_lens"].long()
+    n = int(lens.max())
+    pages = -(-n // c["cache_k"].shape[1])
+    idx = c["block_table"][:, :pages].long().clamp(min=0)
+    b = idx.shape[0]
+    k, v = (x[idx].reshape(b, -1, *x.shape[2:])[:, :n].transpose(1, 2).contiguous()
+            for x in (c["cache_k"], c["cache_v"]))
+    mask = torch.arange(n, device=lens.device)[None, :] < lens[:, None]
+    return c["q"][:, :, None], k, v, mask[:, None, None]
+
+
+def verify_sdpa_inputs(torch, c):
+    """The library yardstick of K3 on a verify pack (``verify_case``
+    layout: slot i's rows start at i (k + 1)): each slot's [context | pack]
+    keys gathered contiguously beforehand, padded to the longest, and a
+    mask that lets pack row r see the context and pack rows <= r.  Returns
+    (q [N, hq, k+1, hd], k / v [N, hkv, L, hd], mask [N, 1, k+1, L])."""
+    seg, lens = c["segment_ids"].long(), c["ctx_lens"].long()
+    n_slots = lens.numel()
+    k1 = seg.numel() // n_slots
+    rows = torch.bincount(seg[seg > 0] - 1, minlength=n_slots).tolist()
+    n = max(int(c_) + r for c_, r in zip(lens.tolist(), rows))
+    hkv, hd = c["k"].shape[1:]
+    ks, vs = (torch.zeros(n_slots, n, hkv, hd, dtype=c["k"].dtype, device=c["k"].device)
+              for _ in range(2))
+    for i, (c_, r) in enumerate(zip(lens.tolist(), rows)):
+        for dst, pool, pack in ((ks, c["cache_k"], c["k"]), (vs, c["cache_v"], c["v"])):
+            dst[i, :c_] = _contiguous_ctx(pool, c["ctx_tables"][i], c_)
+            dst[i, c_:c_ + r] = pack[i * k1:i * k1 + r]
+    q = c["q"].reshape(n_slots, k1, *c["q"].shape[1:]).transpose(1, 2)
+    pos = torch.arange(n, device=lens.device)
+    mask = pos[None, None, :] <= lens[:, None, None] + torch.arange(k1, device=lens.device)[
+        None, :, None]
+    return q, ks.transpose(1, 2), vs.transpose(1, 2), mask[:, None]
+
+
+def _verify_rows_err(torch, got, lib, c):
+    """Max abs difference of the live pack rows: K3's [T, hq, hd] against
+    the yardstick's [N, hq, k+1, hd]."""
+    live = c["segment_ids"] > 0
+    flat = lib.transpose(1, 2).reshape(got.shape)
+    return float((got[live].float() - flat[live].float()).abs().max())
 
 
 def train_timings(torch, gen):
@@ -1584,6 +1974,7 @@ REPLACES = {
     "flash_bwd_dq": "deepspeed_tpu/ops/pallas/flash_kernel.py:384",
     "flash_bwd_dkv": "deepspeed_tpu/ops/pallas/flash_kernel.py:407",
     "paged_decode": "deepspeed_tpu/ops/pallas/paged_attention.py:270",
+    "paged_decode_hd64": "deepspeed_tpu/ops/pallas/paged_attention.py:225",
     "ctx_attention": "deepspeed_tpu/ops/pallas/ctx_attention.py:244",
     "quant_matmul_int8": "deepspeed_tpu/ops/pallas/quant_matmul.py:115",
     "quant_matmul_fp8": "deepspeed_tpu/ops/pallas/quant_matmul.py:115",
@@ -1643,8 +2034,10 @@ def main() -> None:
     params = init_params(cfg, seed=SEED, device="cuda")
     eng = engine_phase(torch, K, gpu, params, cfg)
     sch = scheduler_phase(torch, K, gpu, params, cfg)
+    spec = spec_phase(torch, K, gpu, params, cfg, "llama3_proxy_410m", "spec_serve")
     del params
     _free(torch)
+    g_eng, g_spec = gpt2_serve_phase(torch, K, gpu)
     train_check_phase(torch, K, gpu)
     _free(torch)
     train_check_phase(torch, K, gpu, sparse=SPARSE_CHECK)
@@ -1669,11 +2062,12 @@ def main() -> None:
               sparse_bwd_pair=times.pop("sparse_bwd_pair"),
               sparse={n: times[n] for n in ATTN_KERNELS[True]},
               fused_adamw=adam_times, gpu=gpu))
-    # launches of the main paths (serving engine, scheduler, dense and
-    # block-sparse training, quantized serving, the quantizer API), each
-    # read right after its own run
-    main_paths = (eng, sch, tr, sp, qc, qs, qz)
-    per_forward = {**eng["launches_per_forward"], **sch["launches_per_forward"]}
+    # launches of the main paths (serving engine, scheduler, speculative
+    # serving, gpt2 serving, dense and block-sparse training, quantized
+    # serving, the quantizer API), each read right after its own run
+    main_paths = (eng, sch, spec, g_eng, g_spec, tr, sp, qc, qs, qz)
+    per_forward = {**eng["launches_per_forward"], **sch["launches_per_forward"],
+                   "paged_decode_hd64": g_eng["launches_per_forward"]["paged_decode_hd64"]}
     for fmt, name in QMM_NAMES.items():  # quant_serve at full depth
         per_forward[name] = qs["formats"][fmt]["launches_per_forward"][name]
     kernels = []
@@ -1692,6 +2086,11 @@ def main() -> None:
                 entry["launches_per_train_step"] = run["launches_per_step"][name]
         if name == "flash_fwd":
             entry["at_train_shape"] = times["flash_fwd_train"]
+        if name == "paged_decode_hd64":
+            entry["instantiates"] = ("paged_decode (K2, " + REPLACES["paged_decode"]
+                                     + ") at HD = 64: K2p's counterpart, no lane packing")
+        if name == "ctx_attention":
+            entry["launches_per_verify_tick"] = spec["launches_per_verify_tick"]["ctx_attention"]
         if name in K6_NAMES:  # the quantizer API: one launch per call
             entry["launches_per_call"] = 1
         kernels.append(entry)

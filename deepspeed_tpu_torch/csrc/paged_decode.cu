@@ -3,7 +3,12 @@
 // Replaces: deepspeed_tpu/ops/pallas/paged_attention.py
 // `paged_attention_decode_kernel` (the `pl.pallas_call` at :291), reached
 // from every decode tick (`model_runner.decode_step` ->
-// `paged.paged_attention_decode`).
+// `paged.paged_attention_decode`), and, at HD = 64, `_paged_decode_packed`
+// (:225, `pl.pallas_call` at :239: K2p).  The TPU packs the kv heads side
+// by side on its 128-wide lanes with a block-diagonal q because a page
+// slice of one hd-64 head is narrower than a lane tile; here a page row of
+// one kv head is HD bf16 read as 16-byte vectors, so HD = 64 is the same
+// kernel with no packing.
 //
 // What it computes: for slot b and query head hh, softmax over the first
 // lens[b] positions of the slot's pages (block_table[b, pos / bs], row
@@ -18,7 +23,9 @@
 // runs over ceil(len / bs) pages only, never over the table's width.  With
 // one CTA per (slot, kv head) and pages fetched one 32-key tile at a time
 // without prefetch, a short context leaves the memory system underused:
-// the simple first version.
+// the simple first version.  A warp owns the pairs p = warp + 4 i, so at
+// g < 4 (MHA: g = 1, one pair) warps g..3 only load tiles and wait: at g = 1
+// one warp does the dot products of a CTA.
 #include "attn_common.cuh"
 
 namespace dst {

@@ -1,10 +1,15 @@
 """Continuous-batching inference engine — counterpart of
-``deepspeed_tpu/inference/engine_v2.py`` (single device, plain weights).
+``deepspeed_tpu/inference/engine_v2.py`` (single device).
 
 ``put(uids, tokens)`` admits and prefills sequences in packed dispatches
 under ``prefill_budget`` tokens (cold packs on the flash kernel, packs that
 start past a cached prefix on the packed-context kernel); ``step()`` runs
 one batched decode tick over the fixed slot array (paged decode kernel).
+With ``enable_speculation`` a tick drafts tokens by prompt lookup
+(``speculative.propose``) and verifies every slot's [last token | drafts]
+in one forward (``model_runner.verify_packed_ctx``: the packed-context
+kernel over mid-page context), then accepts on the device
+(``sampling.spec_verify_sample``) with one host read per tick.
 Host-side block bookkeeping (``ragged.StateManager``) drives the dispatches
 and copy-on-write clones pages in place.  ``scheduler`` builds the
 queueing ``ServeScheduler`` on top.
@@ -15,12 +20,12 @@ kernels on the engine's device, one layer slice at a time
 reads the compressed bytes through the dequant-matmul kernels.
 
 Not ported yet, and refused loudly rather than ignored: weight offload,
-tensor-parallel / replica / seq-shard meshes, speculative decoding,
-``fused_serving=False`` (the JAX jnp-body lever: on the card that body is a
-kernel's plain version), and ``step_n`` (the device-resident decode burst,
-whose counterpart is a CUDA-graph replay in a later slice).  Every dispatch
-raises through to the caller: a kernel that fails to build or launch is an
-error, never a failed request.
+tensor-parallel / replica / seq-shard meshes, ``fused_serving=False`` (the
+JAX jnp-body lever: on the card that body is a kernel's plain version), and
+``step_n`` (the device-resident decode burst, whose counterpart is a
+CUDA-graph replay in a later slice).  Every dispatch raises through to the
+caller: a kernel that fails to build or launch is an error, never a failed
+request.
 """
 from __future__ import annotations
 
@@ -39,10 +44,10 @@ from ..ops.quantizer import (
     quantize_serving_params,
     tree_nbytes,
 )
-from . import model_runner
+from . import model_runner, speculative
 from .paged import init_paged_cache
 from .ragged import StateManager
-from .sampling import SamplingParams, finite_guard, sample
+from .sampling import SamplingParams, finite_guard, sample, spec_verify_sample
 
 logger = logging.getLogger("deepspeed_tpu_torch")
 
@@ -51,7 +56,13 @@ STAT_NAMES = (
     "prefill_tokens_dispatched",  # real prompt tokens run (not pad)
     "prefill_dispatches",
     "decode_ticks",
-    "decode_emitted",  # tokens emitted by decode dispatches
+    "decode_emitted",  # tokens emitted by plain decode dispatches
+    "spec_ticks",  # verify dispatches (each scores k+1 positions)
+    "spec_seq_forwards",  # sequence-participations in verify ticks
+    "spec_drafted",  # draft tokens proposed
+    "spec_accepted",  # draft tokens accepted
+    "spec_emitted",  # tokens emitted by verify ticks (accepted + 1 each)
+    "spec_drafts_shed",  # draft sets dropped by _spec_tick's capacity pre-pass
 )
 
 
@@ -85,6 +96,9 @@ class InferenceEngineV2:
         prefill_chunk: Optional[int] = None,
         kv_watermark: float = 0.0625,
         enable_speculation: bool = False,
+        spec_max_draft: int = 4,
+        spec_min_match: int = 2,
+        spec_lookup_window: int = 1024,
         fused_serving: Optional[bool] = None,
         serve_replicas: int = 1,
         seq_shards: int = 1,
@@ -92,7 +106,6 @@ class InferenceEngineV2:
     ):
         unsupported = {
             "offload_weights": offload_weights, "grid": grid is not None,
-            "enable_speculation": enable_speculation,
             "fused_serving=False": fused_serving is False,
             "serve_replicas>1": serve_replicas != 1, "seq_shards>1": seq_shards != 1,
         }
@@ -101,6 +114,10 @@ class InferenceEngineV2:
             raise NotImplementedError(f"not ported yet: {', '.join(refused)}")
         if quantize_weights not in (None, "int8", "fp8", "fp6"):
             raise ValueError(f"quantize_weights format {quantize_weights!r} (int8|fp8)")
+        if enable_speculation and spec_max_draft < 1:
+            raise ValueError("spec_max_draft must be >= 1 when speculating")
+        if enable_speculation and spec_min_match < 1:
+            raise ValueError("spec_min_match must be >= 1 when speculating")
         model_runner._check_family(cfg)
         self.device = resolve_device(device)
         self.cfg = cfg
@@ -120,6 +137,12 @@ class InferenceEngineV2:
         self.enable_prefix_caching = enable_prefix_caching
         self.prefill_chunk = prefill_chunk
         self.kv_watermark = kv_watermark
+        # speculation: up to spec_max_draft drafts per sequence verify in ONE
+        # forward; spec_min_match is the n-gram that must recur to draft
+        self.enable_speculation = enable_speculation
+        self.spec_max_draft = spec_max_draft
+        self.spec_min_match = spec_min_match
+        self.spec_lookup_window = spec_lookup_window
         self.serving_ctx = ServingContext()
         self.mgr = StateManager(num_blocks, block_size, max_seqs,
                                 enable_prefix_caching=enable_prefix_caching)
@@ -276,6 +299,174 @@ class InferenceEngineV2:
         row[:] = -1
         row[:len(seq.blocks)] = seq.blocks
 
+    # -- speculative decoding ------------------------------------------------
+    def plan_speculation(self, active_seqs, max_total_draft_tokens: Optional[int] = None,
+                         max_emit: Optional[Dict[int, int]] = None) -> Dict[int, List[int]]:
+        """Prompt-lookup drafts for one verify tick: {uid: drafts}.
+
+        A sequence's draft length follows its accept-rate EMA (one that
+        rejects everything falls to 0 = plain decode and re-probes with one
+        token after a cooldown), is clamped so the sequence cannot outgrow
+        ``max_seq_len``, and all drafts together stay under
+        ``max_total_draft_tokens`` (the scheduler passes its leftover
+        prefill-chunk budget: drafted tokens share the tick's headroom).
+        ``max_emit`` caps the tokens a sequence may still emit: a tick emits
+        at most drafts + 1, so drafts clamp to max_emit - 1 before they
+        debit the budget.  Sequences with no proposal are absent."""
+        out: Dict[int, List[int]] = {}
+        if not self.enable_speculation:
+            return out
+        budget = (max_total_draft_tokens if max_total_draft_tokens is not None
+                  else self.mgr.max_seqs * self.spec_max_draft)
+        for s in active_seqs:
+            cap = s.spec_draft_len if s.spec_draft_len >= 0 else self.spec_max_draft
+            if cap == 0:
+                # throttled: re-probe with one draft every few ticks, so a
+                # sequence that becomes compressible recovers
+                s.spec_cooldown -= 1
+                if s.spec_cooldown > 0:
+                    continue
+                cap = 1
+            cap = min(cap, self.spec_max_draft, budget, self.max_seq_len - s.cur_len - 1)
+            if max_emit is not None and s.uid in max_emit:
+                cap = min(cap, max_emit[s.uid] - 1)
+            if cap <= 0:
+                continue
+            drafts = speculative.propose(s.tokens, self.spec_min_match, cap,
+                                         self.spec_lookup_window)
+            if drafts:
+                out[s.uid] = drafts
+                budget -= len(drafts)
+        return out
+
+    def _spec_tick(self, active_seqs, sampling: SamplingParams,
+                   proposals: Optional[Dict[int, List[int]]] = None) -> Dict[int, List[int]]:
+        """One speculative tick: draft -> verify k + 1 positions per
+        sequence in one forward -> accept -> roll back.  Returns {uid:
+        emitted tokens}, between 1 (every draft rejected, or none) and
+        k + 1, appended to each descriptor ([-1] for a row whose verify
+        logits were non-finite).  With no draft at all it is a plain decode
+        tick."""
+        if proposals is None:
+            proposals = self.plan_speculation(active_seqs)
+        # reserve the pages of every row a pack writes (L-1 .. L-1+n); under
+        # pool pressure a sequence sheds its drafts and reserves only the
+        # plain-decode token, so speculation never raises where plain
+        # decode fits (the scheduler sheds first; this guards step())
+        bs = self.block_size
+        for s in active_seqs:
+            n = len(proposals.get(s.uid, []))
+            L = s.cur_len
+            try:
+                self.mgr.ensure_capacity(s, n + 1)
+                # the copy-on-write guard belongs to the same reservation:
+                # it may allocate, and may swap a page of the block list
+                for pg in range((L - 1) // bs, (L - 1 + n) // bs + 1):
+                    self.mgr.ensure_writable(s, pg * bs)
+            except RuntimeError:
+                if not n:
+                    raise
+                proposals.pop(s.uid, None)
+                self.stats["spec_drafts_shed"] += 1
+                # the draft tail's pages may be what the clone needs
+                self.mgr.truncate_to_length(s)
+                self.mgr.ensure_capacity(s, 1)
+                self.mgr.ensure_writable(s, L - 1)
+        if not proposals:
+            return {u: [t] for u, t in self._decode_tick(active_seqs, sampling).items()}
+        B, K = self.mgr.max_seqs, self.spec_max_draft
+        K1 = K + 1
+        tokens = np.zeros(B * K1, np.int32)
+        seg = np.zeros(B * K1, np.int32)
+        pos = np.zeros(B * K1, np.int32)
+        dst_pages = np.full(B * K1, -1, np.int32)
+        dst_offs = np.zeros(B * K1, np.int32)
+        draft = np.zeros((B, K), np.int32)
+        n_draft = np.zeros(B, np.int32)
+        ctx_lens = np.zeros(B, np.int32)
+        for s in active_seqs:
+            drafts = proposals.get(s.uid, [])
+            n = len(drafts)
+            L = s.cur_len
+            self._set_block_table(s)
+            draft[s.slot, :n] = drafts
+            n_draft[s.slot] = n
+            ctx_lens[s.slot] = s.seen_tokens
+            for i in range(n + 1):
+                p_tok = L - 1 + i
+                row = s.slot * K1 + i
+                tokens[row] = s.tokens[-1] if i == 0 else drafts[i - 1]
+                seg[row] = s.slot + 1
+                pos[row] = p_tok
+                dst_pages[row] = s.blocks[p_tok // bs]
+                dst_offs[row] = p_tok % bs
+        out_np, n_out = self._verify(tokens, seg, pos, dst_pages, dst_offs, ctx_lens,
+                                     draft, n_draft, sampling)
+        self.stats["spec_ticks"] += 1
+        self.stats["spec_seq_forwards"] += len(active_seqs)
+        out: Dict[int, List[int]] = {}
+        for s in active_seqs:
+            n_emit = int(n_out[s.slot])
+            emitted = [int(t) for t in out_np[s.slot, :n_emit]]
+            if any(t < 0 for t in emitted):
+                # finite_guard poisoned the row: commit nothing, return the
+                # draft pages, retract its published keys
+                s.error = "non-finite logits in verify"
+                self.mgr.quarantine_written(s)
+                if self.mgr.truncate_to_length(s):
+                    self._set_block_table(s)
+                out[s.uid] = [-1]
+                continue
+            n = int(n_draft[s.slot])
+            n_acc = n_emit - 1
+            s.tokens.extend(emitted)
+            s.seen_tokens = s.cur_len - 1
+            # rollback: free the tail pages rejected drafts reserved (their
+            # rows inside kept pages are masked by length and overwritten)
+            if self.mgr.truncate_to_length(s):
+                self._set_block_table(s)
+            self.mgr.update_hashes(s)
+            self.stats["spec_drafted"] += n
+            self.stats["spec_accepted"] += n_acc
+            self.stats["spec_emitted"] += n_emit
+            s.spec_drafted += n
+            s.spec_accepted += n_acc
+            if n > 0:
+                self._spec_update_throttle(s, n, n_acc)
+            out[s.uid] = emitted
+        return out
+
+    def _verify(self, tokens, seg, pos, dst_pages, dst_offs, ctx_lens, draft, n_draft,
+                sampling: SamplingParams):
+        """The verify dispatch (JAX ``spec_impl``): the forward over the
+        pack, acceptance on the device, and ONE host read of
+        (out [B, k+1], n_out [B]).  The host arrays go up before the
+        forward: a copy from pageable memory waits for the stream.  The
+        tick's one ``SamplingParams`` reaches the acceptance as scalars."""
+        draft_dev = torch.from_numpy(draft).to(self.device)
+        n_draft_dev = torch.from_numpy(n_draft).to(self.device)
+        logits, self.kv = model_runner.verify_packed_ctx(
+            self.params, self.cfg, tokens, seg, pos, dst_pages, dst_offs,
+            self._tables_np, ctx_lens, self.kv, ctx=self.serving_ctx)
+        B, K = draft.shape
+        logits = logits.reshape(B, K + 1, -1)
+        out, n_out = spec_verify_sample(
+            logits, draft_dev, n_draft_dev, sampling.temperature, sampling.top_p,
+            sampling.top_k, self._gen)
+        # one non-finite logit in a row's k + 1 positions poisons the row
+        host = torch.cat([finite_guard(logits, out), n_out[:, None]], dim=1).cpu().numpy()
+        return host[:, :-1], host[:, -1]
+
+    def _spec_update_throttle(self, s, n: int, n_acc: int) -> None:
+        """Fold one verify tick's (drafted, accepted) into the sequence's
+        accept-rate EMA and recompute its draft cap: full rejections decay
+        it to 0 in about 3 ticks (then a cooldown of 8 ticks before a
+        1-token probe); acceptance grows it back to ``spec_max_draft``."""
+        s.spec_ema = 0.5 * s.spec_ema + 0.5 * (n_acc / n)
+        s.spec_draft_len = int(round(s.spec_ema * self.spec_max_draft))
+        if s.spec_draft_len == 0:
+            s.spec_cooldown = 8
+
     def _decode_tick(self, active_seqs, sampling: SamplingParams) -> Dict[int, int]:
         """One batched decode dispatch over ``active_seqs`` only; appends the
         sampled token per sequence (stop/length handling is the caller's)."""
@@ -315,19 +506,44 @@ class InferenceEngineV2:
 
     def step(self, sampling: SamplingParams = SamplingParams()) -> Dict[int, int]:
         """One batched decode tick over all active sequences; returns the
-        newest token per uid (-1 for a row with non-finite logits)."""
+        newest token per uid (-1 for a row with non-finite logits).  With
+        ``enable_speculation`` a tick may emit several tokens per sequence,
+        all appended to its descriptor; a stop token inside the run cuts the
+        sequence there."""
         active_seqs = [s for s in self.mgr.active if not s.done]
         if not active_seqs:
             return {}
+        if self.enable_speculation:
+            runs = self._spec_tick(active_seqs, sampling)
+        else:
+            runs = {u: [t] for u, t in self._decode_tick(active_seqs, sampling).items()}
         out = {}
-        toks = self._decode_tick(active_seqs, sampling)
         for s in active_seqs:
-            tok = toks[s.uid]
-            if tok < 0 or (sampling.stop_token is not None and tok == sampling.stop_token) \
-                    or s.cur_len >= self.max_seq_len:
+            run = runs[s.uid]
+            if run[-1] < 0:
                 s.done = True
-            out[s.uid] = tok
+                out[s.uid] = -1
+                continue
+            run = self.cut_at_stop(s, run, sampling.stop_token)
+            if run[-1] == sampling.stop_token:
+                s.done = True
+            if s.cur_len >= self.max_seq_len:
+                s.done = True
+            out[s.uid] = run[-1]
         return out
+
+    @staticmethod
+    def cut_at_stop(seq, run: List[int], stop_token: Optional[int]) -> List[int]:
+        """``run`` (tokens a tick just appended to ``seq``) up to and
+        including the first ``stop_token``; the tokens speculated past it
+        are dropped from the descriptor too."""
+        if stop_token is None or stop_token not in run:
+            return run
+        cut = len(run) - run.index(stop_token) - 1
+        if cut:
+            del seq.tokens[-cut:]
+            seq.seen_tokens = min(seq.seen_tokens, seq.cur_len - 1)
+        return run[:len(run) - cut]
 
     def step_n(self, n: int, sampling: SamplingParams = SamplingParams()):
         raise NotImplementedError(

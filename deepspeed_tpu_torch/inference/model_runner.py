@@ -1,6 +1,6 @@
 """Inference model runner — counterpart of ``deepspeed_tpu/inference/
-model_runner.py``: prefill, packed prefill (cold and over cached context)
-and batched decode against the paged KV pools.
+model_runner.py``: prefill, packed prefill (cold and over cached context),
+batched decode and the speculative verify pass against the paged KV pools.
 
 Tensors (parameters, pools) live on the runner's device; the per-dispatch
 index metadata (segment ids, positions, page lists, block tables, lengths)
@@ -38,6 +38,7 @@ from .paged import (
     page_write_index,
     paged_attention_decode,
     paged_attention_packed_ctx,
+    spec_write_index,
     write_pages,
     write_rows,
 )
@@ -212,6 +213,51 @@ def prefill_packed_ctx(params: Params, cfg: TransformerConfig, tokens, segment_i
 
     return _packed(params, cfg, tokens, segment_ids, positions, pack_pages,
                    last_idx, kv_cache, ctx, attention)
+
+
+def verify_packed_ctx(params: Params, cfg: TransformerConfig, tokens, segment_ids,
+                      positions, dst_pages, dst_offs, ctx_tables, ctx_lens,
+                      kv_cache: Tuple, ctx=None, mesh=None, dp: int = 1,
+                      seq_shards: int = 1):
+    """Speculative verify: score k + 1 positions per sequence in ONE pass.
+    Each slot's pack segment is [its last committed token, its drafts] at
+    consecutive absolute ``positions`` (``tokens`` / ``segment_ids`` /
+    ``positions`` / ``dst_pages`` / ``dst_offs`` [T], pad rows segment 0 and
+    page -1); ``ctx_tables`` [N, P], ``ctx_lens`` [N] the committed
+    (KV-written) length per slot, which ends mid-page.
+
+    Attention is the packed-context kernel's: one softmax over the cached
+    context and the in-pack causal drafts.  Unlike ``prefill_packed_ctx``,
+    the pack's KV is written row by row (``write_spec_kv``: the pack starts
+    mid-page), and logits come back for EVERY pack row (each verifies the
+    next draft or samples the correction / bonus token).  KV rows of
+    rejected drafts stay behind, masked by length and overwritten as the
+    sequence grows.  Returns (logits [T, vocab] fp32, caches)."""
+    _check_family(cfg)
+    ck, cv = kv_cache
+    device = ck[0].device
+    tok = _dev(tokens, device, torch.long)
+    pos = _dev(positions, device, torch.long)
+    x = _embed(params, cfg, tok, pos)[None]
+    rot = rope_tables(pos, cfg.hd, cfg.rope_theta) if cfg.position == "rope" else None
+    nb, bs = ck[0].shape[:2]
+    src, dst = spec_write_index(dst_pages, dst_offs, bs, nb, device)
+    seg = _dev(segment_ids, device)
+    tables = _dev(ctx_tables, device)
+    lens = _dev(ctx_lens, device)
+    for l in range(cfg.num_layers):
+        def attend(q, k, v, l=l):
+            write_rows(ck[l], k[0], src, dst)
+            write_rows(cv[l], v[0], src, dst)
+            # ctx_lens masks the rows just written; they enter through the
+            # in-pack causal half
+            return paged_attention_packed_ctx(
+                q[0], k[0], v[0], seg, ck[l], cv[l], tables, lens,
+                logits_soft_cap=cfg.logits_soft_cap, mesh=mesh, dp=dp,
+                seq_shards=seq_shards)
+        x = _block(_layer(params, l), x, cfg, rot, attend, ctx)
+    x = norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)
+    return _lm_logits(params, cfg, x[0], ctx), kv_cache
 
 
 def decode_step(params: Params, cfg: TransformerConfig, tokens, seq_lens,

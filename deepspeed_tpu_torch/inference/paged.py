@@ -111,6 +111,30 @@ def write_decode_kv(cache_layer: torch.Tensor, kv: torch.Tensor, block_table,
     write_rows(cache_layer, kv, slots, rows)
 
 
+def spec_write_index(pages, offsets, bs: int, nb: int,
+                     device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Host destination pages / in-page rows [T] of a verify pack (page -1
+    = pad row) -> (pack rows that write, their flat pool rows
+    ``page * bs + offset``) on ``device``.  Pad rows and out-of-range pages
+    drop, like the JAX scatter's out-of-bounds sentinel."""
+    pages = np.asarray(pages, dtype=np.int64).reshape(-1)
+    offs = np.asarray(offsets, dtype=np.int64).reshape(-1)
+    keep = np.nonzero((pages >= 0) & (pages < nb))[0]
+    return (torch.from_numpy(keep).to(device),
+            torch.from_numpy(pages[keep] * bs + offs[keep]).to(device))
+
+
+def write_spec_kv(cache_layer: torch.Tensor, kv: torch.Tensor, pages, offsets) -> None:
+    """Scatter a speculative verify pack's K (or V) rows [T, hkv, hd] one
+    row each to (``pages``, ``offsets``) [T] (host arrays, page -1 = pad
+    row, written nowhere).  A verify pack starts MID-PAGE at the decode
+    head, where the page-granular ``write_pages`` would overwrite the live
+    rows before it; a row scatter is exact."""
+    nb, bs = cache_layer.shape[0], cache_layer.shape[1]
+    src, dst = spec_write_index(pages, offsets, bs, nb, cache_layer.device)
+    write_rows(cache_layer, kv, src, dst)
+
+
 # ---------------------------------------------------------------------------
 # attention over the pool
 # ---------------------------------------------------------------------------

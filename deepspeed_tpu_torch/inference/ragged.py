@@ -233,6 +233,14 @@ class SequenceDescriptor:
     done: bool = False
     cached_tokens: int = 0  # prefix tokens served from the block cache
     hashes: List[object] = field(default_factory=list)  # chained full-block keys
+    # speculative decoding (engine_v2 drives these): the accept-rate EMA
+    # sets the per-sequence draft cap; a sequence throttled to 0 decodes
+    # plainly and re-probes after spec_cooldown ticks
+    spec_draft_len: int = -1  # current draft cap; -1 = unset (engine max)
+    spec_ema: float = 1.0  # accept-rate EMA (optimistic start)
+    spec_cooldown: int = 0  # plain-decode ticks left before a re-probe
+    spec_drafted: int = 0  # lifetime drafted tokens
+    spec_accepted: int = 0  # lifetime accepted tokens
     # set when this sequence's forward produced non-finite logits (the
     # finite_guard sentinel); the scheduler turns it into a FAILED request
     error: Optional[str] = None
@@ -408,7 +416,13 @@ class StateManager:
     def truncate_to_length(self, seq: SequenceDescriptor,
                            n_tokens: Optional[int] = None) -> int:
         """Free the block tail beyond what ``n_tokens`` (default: the
-        sequence's current length) needs.  Returns blocks freed."""
+        sequence's current length) needs — the speculative rollback: a
+        verify tick reserves pages for all k + 1 pack rows, and the pages
+        of rejected drafts come back here.  Freeing drops one reference per
+        block (``free``), so a shared or prefix-cached tail block keeps its
+        other owners, its cache entry and the published chains of kept
+        blocks; the sequence's own hash list is clipped to the kept range.
+        Returns blocks freed."""
         if n_tokens is None:
             n_tokens = seq.cur_len
         keep = -(-n_tokens // self.block_size)

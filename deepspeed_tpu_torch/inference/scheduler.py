@@ -18,6 +18,11 @@ each ``tick()`` runs
   finds the pool exhausted, the youngest running request is preempted by
   recompute (its pages retire to the prefix cache, it requeues at the
   front with prompt = all tokens so far).
+* **Speculation** (``engine.enable_speculation``): the chunk budget that
+  prefill left over is the tick's draft budget; each request's drafts are
+  proposed before its pages are reserved, a request sheds its own drafts
+  before anyone is preempted, and tokens speculated past a stop token are
+  dropped.
 
 Every request ends in one terminal state (``finished`` / ``failed`` /
 ``cancelled``) through the single ``_release`` path.  A row whose logits
@@ -25,7 +30,7 @@ were non-finite (the engine's -1 sentinel) fails that request only.
 
 Not ported yet: deadlines, shed mode and the watchdog, transient retries
 and per-request isolation of a failing dispatch, fault injection, live
-knobs, megastep bursts, speculation, KV-handoff adoption, and the intake
+knobs, megastep bursts, KV-handoff adoption, and the intake
 lock (this scheduler is driven from one thread).  A dispatch exception —
 a kernel build or launch error included — propagates out of ``tick()``.
 """
@@ -54,7 +59,8 @@ CLIENT_ERRORS = frozenset((
 ))
 
 STAT_NAMES = ("submitted", "finished", "failed", "cancelled", "admissions",
-              "preemptions", "queue_wait_ticks", "prefill_chunks")
+              "preemptions", "queue_wait_ticks", "prefill_chunks",
+              "drafts_shed")  # draft sets dropped under pool pressure
 
 
 @dataclass(frozen=True)
@@ -106,6 +112,8 @@ class ServeScheduler:
         self.tick_no = 0
         self._triple = None  # the batch's shared (temperature, top_k, top_p)
         self._uid_counter = 0
+        # this tick's draft budget: the prefill chunk's leftover tokens
+        self._spec_budget = self.prefill_chunk
         self.stats: Dict[str, int] = {name: 0 for name in STAT_NAMES}
 
     # -- request intake -----------------------------------------------------
@@ -278,6 +286,10 @@ class ServeScheduler:
                     continue
             entries.append((seq, start, start + take))
             budget -= take
+        # drafting k tokens costs a k+1-row verify forward, so DRAFTED tokens
+        # share the tick's headroom with prompt chunks: a tick saturated by
+        # chunks speculates less
+        self._spec_budget = max(0, budget)
         if not entries:
             return out
         first = self.engine.prefill_entries(entries, self._base_sampling())
@@ -316,38 +328,64 @@ class ServeScheduler:
         self.waiting.appendleft(req)
         self.stats["preemptions"] += 1
 
+    @property
+    def _speculating(self) -> bool:
+        return self.engine.enable_speculation
+
     def _decode_phase(self, decoding: List[ServeRequest]) -> Dict[int, int]:
         out: Dict[int, int] = {}
-        mgr = self.engine.mgr
+        eng = self.engine
+        mgr = eng.mgr
+        # this tick's drafts, under the leftover chunk budget; each
+        # request's remaining max_new_tokens clamps inside plan_speculation
+        # so a clamped-away draft never debits the shared budget
+        proposals: Dict[int, List[int]] = {}
+        if self._speculating:
+            live = [r for r in decoding if r.state == DECODE]
+            proposals = eng.plan_speculation(
+                [mgr.seqs[r.uid] for r in live],
+                max_total_draft_tokens=self._spec_budget,
+                max_emit={r.uid: r.sampling.max_new_tokens - len(r.generated) for r in live})
         for req in decoding:
             if req.state != DECODE:  # preempted by an earlier victim pick
                 continue
             seq = mgr.seqs[req.uid]
             while True:
                 try:
-                    mgr.ensure_capacity(seq, 1)
+                    mgr.ensure_capacity(seq, 1 + len(proposals.get(req.uid, ())))
                     mgr.ensure_writable(seq, seq.cur_len - 1)
                     break
                 except RuntimeError:
+                    # shed this request's own drafts before preempting
+                    # anyone: speculation is optional, residency is not
+                    if proposals.pop(req.uid, None):
+                        self.stats["drafts_shed"] += 1
+                        continue
                     victim = self._pick_victim(exclude=req)
                     if victim is None:
                         raise RuntimeError(
                             "KV pool cannot hold even one growing sequence "
                             f"({mgr.allocator.total_blocks} blocks)") from None
+                    # a preempted victim's drafts die with its pages
+                    proposals.pop(victim.uid, None)
                     self._preempt(victim)
         survivors = [r for r in decoding if r.state == DECODE]
         if not survivors:
             return out
-        toks = self.engine._decode_tick([mgr.seqs[r.uid] for r in survivors],
-                                        self._base_sampling())
+        seqs = [mgr.seqs[r.uid] for r in survivors]
+        if self._speculating:  # proposals hold survivors only: victims' were dropped
+            runs = eng._spec_tick(seqs, self._base_sampling(), proposals)
+        else:
+            runs = {u: [t] for u, t in eng._decode_tick(seqs, self._base_sampling()).items()}
         for req in survivors:
-            tok = toks[req.uid]
-            if tok < 0:
+            emitted = runs[req.uid]
+            if emitted[-1] < 0:
                 self._release(req, FAILED,
                               mgr.seqs[req.uid].error or "non-finite logits in decode")
                 continue
-            req.generated.append(tok)
-            out[req.uid] = tok
+            emitted = eng.cut_at_stop(mgr.seqs[req.uid], emitted, req.sampling.stop_token)
+            req.generated.extend(emitted)
+            out[req.uid] = emitted[-1]
             self._maybe_finish(req)
         return out
 

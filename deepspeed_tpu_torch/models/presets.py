@@ -1,7 +1,8 @@
 """Named architecture presets — counterpart of ``deepspeed_tpu/models/
 presets.py``.  Ported so far: the flagship of the serving and training
-slices, Llama-3-8B (quantized serving) and the test config; other families
-follow with the modules they need."""
+slices, Llama-3-8B (quantized serving), GPT-2 small (serving at head_dim
+64) and the test configs; other families follow with the modules they
+need."""
 from __future__ import annotations
 
 from .transformer import TransformerConfig
@@ -34,7 +35,18 @@ register("llama3_proxy_410m", TransformerConfig(
     num_heads=8, num_kv_heads=2, max_seq_len=4096, rope_theta=500_000.0,
     remat="selective", attn_impl="auto"))
 
-# tiny config for tests
+# GPT-2 small: LayerNorm, learned positions, GELU, tied embeddings, 12
+# heads of 64 with no GQA (the port's only served preset at head_dim 64)
+register("gpt2_small", TransformerConfig(
+    vocab_size=50257, hidden_size=768, intermediate_size=3072, num_layers=12,
+    num_heads=12, num_kv_heads=12, max_seq_len=1024, norm="layernorm",
+    activation="gelu", gated_mlp=False, position="learned", tie_embeddings=True))
+
+# tiny configs for tests
 register("tiny", TransformerConfig(
     vocab_size=256, hidden_size=64, intermediate_size=128, num_layers=2,
     num_heads=4, num_kv_heads=2, max_seq_len=128))
+register("tiny_gpt2", TransformerConfig(
+    vocab_size=256, hidden_size=64, intermediate_size=128, num_layers=2,
+    num_heads=4, num_kv_heads=4, max_seq_len=128, norm="layernorm",
+    activation="gelu", gated_mlp=False, position="learned", tie_embeddings=True))

@@ -33,9 +33,10 @@ BUILD_ROOT = os.path.join(CSRC, "build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-# kernel name -> source file.  One library per source: both backward
-# kernels live in flash_bwd.cu and the block-sparse forward, dq and dk/dv
-# kernels in sparse_flash.cu; the int8 / e4m3 / fp6 dequant-matmuls share
+# kernel name -> source file.  One library per source: the decode kernel's
+# head_dim-64 instantiation (the counterpart of the TPU's lane-packed K2p)
+# counts under its own name; both backward kernels live in flash_bwd.cu and
+# the block-sparse forward, dq and dk/dv kernels in sparse_flash.cu; the int8 / e4m3 / fp6 dequant-matmuls share
 # quant_matmul.cu and the row quantizers quantize.cu, each format counted
 # under its own name.
 SOURCES = {
@@ -43,6 +44,7 @@ SOURCES = {
     "flash_bwd_dq": "flash_bwd.cu",
     "flash_bwd_dkv": "flash_bwd.cu",
     "paged_decode": "paged_decode.cu",
+    "paged_decode_hd64": "paged_decode.cu",
     "ctx_attention": "ctx_attention.cu",
     "quant_matmul_int8": "quant_matmul.cu",
     "quant_matmul_fp8": "quant_matmul.cu",
@@ -68,8 +70,8 @@ _ARGTYPES = {
                      [_PTR] * 8 + [_INT] * 5 + [_FLOAT, _FLOAT, _PTR]),
     "flash_bwd_dkv": ("dst_flash_bwd_dkv",
                       [_PTR] * 9 + [_INT] * 5 + [_FLOAT, _FLOAT, _PTR]),
-    "paged_decode": ("dst_paged_decode",
-                     [_PTR] * 6 + [_INT] * 7 + [_FLOAT, _FLOAT, _PTR]),
+    **{name: ("dst_paged_decode", [_PTR] * 6 + [_INT] * 7 + [_FLOAT, _FLOAT, _PTR])
+       for name in ("paged_decode", "paged_decode_hd64")},
     "ctx_attention": ("dst_ctx_attention",
                       [_PTR] * 9 + [_INT] * 8 + [_FLOAT, _FLOAT, _PTR]),
     **{name: ("dst_quant_matmul", [_PTR] * 6 + [_INT] * 8 + [_PTR])

@@ -4,8 +4,16 @@ paged_attention.py``.
 ``paged_attention_decode`` dispatches on the device: a CPU tensor runs the
 plain body ``paged_attention_decode_plain`` (the JAX dense body,
 ``inference/paged.py:698``, in PyTorch); a CUDA tensor runs
-``csrc/paged_decode.cu`` (bf16, head_dim 64 or 128, soft cap fused — so no
+``csrc/paged_decode.cu`` (bf16, head_dim 64 or 128, any group size up to
+16 query heads per kv head, MHA included, soft cap fused — so no
 configuration sends decode to the plain body on the card).
+
+At head_dim 64 the kernel is also the counterpart of the TPU's K2p
+(``paged_attention.py:225 _paged_decode_packed``), which packs kv heads
+side by side on the 128-wide lanes because a TPU page slice must be 128
+lanes wide.  The CUDA kernel reads the ``[nb, bs, hkv, hd]`` pool one kv
+head at a time in 16-byte vectors and needs no packing; its launches count
+under ``paged_decode_hd64`` (``paged_decode`` at head_dim 128).
 """
 from __future__ import annotations
 
@@ -73,7 +81,7 @@ def paged_attention_decode_kernel(q, cache_k, cache_v, block_table, seq_lens,
         raise ValueError("block_table/seq_lens on another device than q")
     out = torch.empty_like(q)
     sc, cap = scalars(scale if scale is not None else hd ** -0.5, logits_soft_cap)
-    launch("paged_decode", ptr(q), ptr(cache_k), ptr(cache_v), ptr(block_table),
-           ptr(seq_lens), ptr(out), b, hq, hkv, hd, nb, bs, block_table.shape[1],
-           sc, cap)
+    launch("paged_decode_hd64" if hd == 64 else "paged_decode", ptr(q), ptr(cache_k),
+           ptr(cache_v), ptr(block_table), ptr(seq_lens), ptr(out), b, hq, hkv, hd, nb, bs,
+           block_table.shape[1], sc, cap)
     return out

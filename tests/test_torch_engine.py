@@ -132,11 +132,15 @@ def test_submit_reasons_and_generate(pair):
 
 def test_unsupported_arguments_raise(pair):
     _, _, tcfg, tp = pair
-    for kw in (dict(fused_serving=False), dict(enable_speculation=True),
-               dict(offload_weights=True), dict(grid=object()), dict(serve_replicas=2),
-               dict(seq_shards=2)):
+    for kw in (dict(fused_serving=False), dict(offload_weights=True), dict(grid=object()),
+               dict(serve_replicas=2), dict(seq_shards=2)):
         with pytest.raises(NotImplementedError):
             InferenceEngineV2(tp, tcfg, device="cpu", num_blocks=8, **kw)
+    # speculation is ported; its arguments are checked as in JAX
+    for kw in (dict(spec_max_draft=0), dict(spec_min_match=0)):
+        with pytest.raises(ValueError):
+            InferenceEngineV2(tp, tcfg, device="cpu", num_blocks=8, enable_speculation=True,
+                              **kw)
     eng = InferenceEngineV2(tp, tcfg, device="cpu", num_blocks=8)
     with pytest.raises(NotImplementedError):
         eng.step_n(2)

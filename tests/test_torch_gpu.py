@@ -4,7 +4,9 @@ CUDA device, since a CUDA kernel has no CPU mode).
 Each kernel wrapper against its plain PyTorch version on the CPU in fp32,
 on the same bf16 inputs: max abs err <= 2e-2 (bf16 output rounding of
 unit-scale values plus a different fp32 summation order), and each call
-counts exactly one launch.  The training backward: K1f's lse within 1e-3,
+counts exactly one launch (K2 at head_dim 64, gpt2_small's MHA heads and
+a GQA group of 4, under ``paged_decode_hd64``; K3 also on a verify tick's
+pack, contexts ending mid-page).  The training backward: K1f's lse within 1e-3,
 and dq, dk and dv within ``chip_smoke.BWD_TOL`` relative Frobenius error,
 over the whole tensor and in every 64-row block of one head (the kernels
 round only their bf16 outputs), each launched once per call.  Quantized
@@ -55,6 +57,43 @@ def test_cuda_kernel_matches_plain(name):
     assert K.LAUNCHES[name] == 1
     ref = fn(**_cpu_f32(c))
     assert float((got.float().cpu() - ref).abs().max()) <= TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hq,hkv", [(12, 12), (8, 2)])
+def test_decode_kernel_at_head_dim_64_matches_plain(hq, hkv):
+    """K2 at head_dim 64 (the counterpart of the TPU's K2p): gpt2_small's
+    MHA heads (g = 1) and a GQA group of 4, counted under its own name."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    c = chip_smoke.decode_case(torch, gen, B=16, nb=256, P=16, hq=hq, hkv=hkv, hd=64,
+                               inactive=2, max_len=300)
+    K.reset_launches()
+    got = paged_attention_decode(**c)
+    torch.cuda.synchronize()
+    assert (K.LAUNCHES["paged_decode_hd64"], K.LAUNCHES["paged_decode"]) == (1, 0)
+    ref = paged_attention_decode(**_cpu_f32(c))
+    assert float((got.float().cpu() - ref).abs().max()) <= TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hq,hkv,hd", [(12, 12, 64), (8, 2, 128)])
+def test_ctx_kernel_on_a_mid_page_verify_pack(hq, hkv, hd):
+    """K3 on a verify tick's pack: 8 slots x 5 rows, contexts that end
+    mid-page, a slot with no drafts; pad rows exactly 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    c = chip_smoke.verify_case(torch, gen, hq, hkv, hd)
+    K.reset_launches()
+    got = paged_attention_packed_ctx(**c)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["ctx_attention"] == 1
+    ref = paged_attention_packed_ctx(**_cpu_f32(c))
+    assert float((got.float().cpu() - ref).abs().max()) <= TOL
+    pad = (c["segment_ids"] == 0).cpu()
+    assert bool(pad.any()) and not bool(got.cpu()[pad].ne(0).any())
 
 
 @pytest.mark.gpu
