@@ -19,7 +19,13 @@ Phases, each raising on failure (so the exit code is non-zero):
                [4096, 14336] bf16 rows with a zero row, byte-identical;
                K2 at head_dim 64 (gpt2_small's MHA decode and a GQA group
                of 4) and K3 on verify-shaped packs whose contexts end
-               mid-page (hd 64 MHA and hd 128 GQA);
+               mid-page (hd 64 MHA and hd 128 GQA); the partial modes
+               (seq-sharded serving) on each shard's view of pools striped
+               over 2 (K3: the scheduler's pack and the verify packs,
+               include_pack on and off) and 2 or 4 shards (K2 at the
+               engine's decode shape, and gpt2_small's), rows with no key
+               on a shard exactly (0, -1e30, 0), and the shards' partials
+               merged against K3 / K2 on the whole pool;
 3. engine   -- ``InferenceEngineV2`` on ``llama3_proxy_410m`` (24 layers,
                bf16, random weights from a seed): 64 prompts of 128 tokens
                through ``put``, then 64 greedy ``step``s; the flash and
@@ -40,6 +46,21 @@ Phases, each raising on failure (so the exit code is non-zero):
                ticks times, and 4 streams replayed on the CPU in fp32
                (near-argmax); accept rate, tokens per target forward and
                tokens/s off and on;
+   longctx_check -- the 410M model at full width with 2 layers, bf16,
+               ``seq_shards`` 2 and 4: three streams of the shared-prefix
+               workload and a 1,100-token prompt through the scheduler,
+               replayed on the CPU in fp32 on one pool (near-argmax); the
+               partial kernels launched layers x S times per decode tick
+               and per context pack, K2 and K3 never;
+   longctx  -- the workload of ``bench.py --serving --longctx`` (TPU
+               branch, uncut): 8 requests of a 256-token system prompt +
+               a 64-token suffix, 32 greedy tokens, Poisson(2) arrivals,
+               4 slots, 96 blocks of 32; the seq_shards = 2 engine and its
+               single-pool twin in turns (S2, single, single, S2):
+               effective tokens/s, decode tick p50, twin token match, a
+               profiled tick each; then a 1,792-token prompt that a
+               48-block single slice rejects (pool_impossible, budget 48)
+               and the S = 2 engine serves to 32 tokens, leak-free;
    gpt2_serve -- ``gpt2_small`` at full depth (12 layers, 12 heads of 64,
                MHA), bf16: the engine phase's shape (K1f and K2 at head_dim
                64 launched 12 x packs and 12 x ticks, a one-tick profile),
@@ -95,7 +116,8 @@ Phases, each raising on failure (so the exit code is non-zero):
                bound for the same work (the backward kernels, and K1f
                again, at the training flagship's per-call shape; K4 / K5
                at M 16 and 512 on [4096, 14336]; K7f / K7b at the sparse
-               flagship's per-call shape).
+               flagship's per-call shape; the partial modes on shard 0 of
+               2 at the scheduler's pack and the engine's decode shape).
 
 Prints one JSON line per phase, the ``kernels`` JSON line, the card's name
 and power limit, and last ``{"ok": true, "device": {...}}``.  Exits non-zero
@@ -210,35 +232,48 @@ def flash_case(torch, gen, seg_lens, pad, hq=8, hkv=2, hd=128, cap=None):
     return dict(q=q, k=k, v=v, segment_ids=seg[None].to(DEVICE), cap=cap)
 
 
+def _pages(torch, gcpu, nb, stripes=1):
+    """``take(n)``: the pages of a fresh chain of ``n``, handed out as the
+    striped allocator does (chain position i from stripe i % ``stripes`` of
+    the pool's contiguous stripes), drawn at random from each stripe; one
+    stripe: consecutive entries of one permutation of the pool."""
+    nbl = nb // stripes
+    perms = [(s * nbl + torch.randperm(nbl, generator=gcpu)).tolist() for s in range(stripes)]
+
+    def take(n):
+        return torch.tensor([perms[i % stripes].pop(0) for i in range(n)], dtype=torch.int32)
+
+    return take
+
+
 def decode_case(torch, gen, B=64, nb=2048, bs=32, P=128, hq=8, hkv=2, hd=128,
-                inactive=8, max_len=1200, min_len=1):
+                inactive=8, max_len=1200, min_len=1, stripes=1):
     """Mixed lengths in [min_len, max_len), -1 table tails, ``inactive``
     slots with len 1 and an all -1 row (how the engine presents an idle
-    slot)."""
+    slot); each slot's pages striped over ``stripes`` seq shards."""
     ck = _randn(torch, (nb, bs, hkv, hd), gen, torch.bfloat16)
     cv = _randn(torch, (nb, bs, hkv, hd), gen, torch.bfloat16)
     q = _randn(torch, (B, hq, hd), gen, torch.bfloat16)
     lens = torch.randint(min_len, max_len, (B,), generator=torch.Generator().manual_seed(SEED),
                          dtype=torch.int32)
-    perm = torch.randperm(nb, generator=torch.Generator().manual_seed(SEED + 1))
+    take = _pages(torch, torch.Generator().manual_seed(SEED + 1), nb, stripes)
     table = torch.full((B, P), -1, dtype=torch.int32)
-    nxt = 0
     for b in range(B):
         if b >= B - inactive:
             lens[b] = 1
             continue
         n = -(-int(lens[b]) // bs)
-        table[b, :n] = perm[nxt:nxt + n].to(torch.int32)
-        nxt += n
+        table[b, :n] = take(n)
     return dict(q=q, cache_k=ck, cache_v=cv, block_table=table.to(DEVICE),
                 seq_lens=lens.to(DEVICE))
 
 
 def ctx_case(torch, gen, sfx=(48, 64, 17, 64), ctx=(512, 500, 37, 512), N=8,
-             nb=192, bs=32, P=22, hq=8, hkv=2, hd=128, bad_ids=True):
+             nb=192, bs=32, P=22, hq=8, hkv=2, hd=128, bad_ids=True, stripes=1):
     """A prefix-hit / chunked-prefill pack: segments page-aligned in the pack
     (pad rows between them), context lengths including mid-page ones, table
-    tails -1, and (``bad_ids``) an out-of-range id past a context's end."""
+    tails -1, and (``bad_ids``) an out-of-range id past a context's end;
+    each context's pages striped over ``stripes`` seq shards."""
     gcpu = torch.Generator().manual_seed(SEED + 2)
     segs, cur = [], 0
     for n in sfx:
@@ -249,13 +284,11 @@ def ctx_case(torch, gen, sfx=(48, 64, 17, 64), ctx=(512, 500, 37, 512), N=8,
     rows = torch.randperm(N, generator=gcpu)[:len(sfx)]
     tables = torch.full((N, P), -1, dtype=torch.int32)
     lens = torch.zeros(N, dtype=torch.int32)
-    perm = torch.randperm(nb, generator=gcpu)
-    nxt = 0
+    take = _pages(torch, gcpu, nb, stripes)
     for (start, n), r, c in zip(segs, rows.tolist(), ctx):
         seg[start:start + n] = r + 1
         pages = -(-c // bs)
-        tables[r, :pages] = perm[nxt:nxt + pages].to(torch.int32)
-        nxt += pages
+        tables[r, :pages] = take(pages)
         lens[r] = c
         if bad_ids and pages < P:
             tables[r, pages] = nb + 5  # never read: past ctx_len and out of range
@@ -280,23 +313,22 @@ VERIFY_DRAFTS = (4, 4, 0, 3, 4, 2, 4, 1)
 
 
 def verify_case(torch, gen, hq, hkv, hd, ctx=VERIFY_CTX, drafts=VERIFY_DRAFTS, K=4,
-                nb=256, bs=32):
+                nb=256, bs=32, stripes=1):
     """The packed-context kernel's input on a verify tick
     (``engine_v2._spec_tick``): slot i's rows i (K + 1) .. i (K + 1) +
     drafts[i], segment i + 1, the rest pad; its table covers the context
-    and the pack's own pages (already written: ``ctx_lens`` masks them)."""
+    and the pack's own pages (already written: ``ctx_lens`` masks them),
+    striped over ``stripes`` seq shards."""
     gcpu = torch.Generator().manual_seed(SEED + 5)
     N, K1 = len(ctx), K + 1
     P = -(-(max(ctx) + K1) // bs)
     seg = torch.zeros(N * K1, dtype=torch.int32)
     tables = torch.full((N, P), -1, dtype=torch.int32)
-    perm = torch.randperm(nb, generator=gcpu)
-    nxt = 0
+    take = _pages(torch, gcpu, nb, stripes)
     for i, (c, n) in enumerate(zip(ctx, drafts)):
         seg[i * K1:i * K1 + n + 1] = i + 1
         pages = -(-(c + n + 1) // bs)
-        tables[i, :pages] = perm[nxt:nxt + pages].to(torch.int32)
-        nxt += pages
+        tables[i, :pages] = take(pages)
     t = N * K1
     return dict(q=_randn(torch, (t, hq, hd), gen, torch.bfloat16),
                 k=_randn(torch, (t, hkv, hd), gen, torch.bfloat16),
@@ -357,17 +389,20 @@ def kernel_checks(torch):
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     errs = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0,
             "paged_decode": 0.0, "paged_decode_hd64": 0.0, "ctx_attention": 0.0,
+            "ctx_attention_partial": 0.0, "paged_decode_partial": 0.0,
             "sparse_fwd": 0.0,
             "sparse_bwd_dq": 0.0, "sparse_bwd_dkv": 0.0}
     results = []
 
-    def record(name, label, got, ref, tol=KERNEL_TOL, relative=False):
-        """Absolute: max |got - ref| <= tol.  ``relative``: the whole-tensor
-        and the worst block's relative Frobenius error (``rel_errs``) <= tol."""
+    def record(name, label, got, ref, tol=KERNEL_TOL, relative=False, err=None):
+        """Absolute: max |got - ref| <= tol (or ``err``, computed by the
+        caller, <= tol).  ``relative``: the whole-tensor and the worst
+        block's relative Frobenius error (``rel_errs``) <= tol."""
         torch.cuda.synchronize()
-        if not bool(torch.isfinite(got).all()):
-            raise AssertionError(f"{name} {label}: non-finite output")
-        err = float((got.float() - ref.float()).abs().max())
+        if err is None:
+            if not bool(torch.isfinite(got).all()):
+                raise AssertionError(f"{name} {label}: non-finite output")
+            err = float((got.float() - ref.float()).abs().max())
         errs[name] = max(errs[name], err)
         row = dict(kernel=name, case=label, max_abs_err=err, limit=tol)
         if relative:
@@ -424,6 +459,7 @@ def kernel_checks(torch):
         if bool(pad.any()) and bool(got[pad].ne(0).any()):
             raise AssertionError(f"ctx_attention {label}: pad rows not exactly 0")
         record("ctx_attention", label, got, ref)
+    partial_kernel_checks(torch, gen, record)
 
     # the training backward: K1f with lse, then the dq and dk/dv kernels, each
     # against the plain FA2 formulas on the same bf16 inputs (and the
@@ -452,6 +488,101 @@ def kernel_checks(torch):
     sparse_kernel_checks(torch, record)
     errs["fused_adamw"], adam_cases_ = adam_kernel_checks(torch)
     return errs, results + adam_cases_
+
+
+def shard_view(torch, case, s, stripes, table_key):
+    """Seq shard ``s``'s inputs of a striped case: its slice of the pools
+    (a view) and its translated table (``paged.seq_shard_tables``)."""
+    from deepspeed_tpu_torch.inference.paged import seq_shard_tables
+
+    nb = case["cache_k"].shape[0]
+    nbl = nb // stripes
+    out = dict(case)
+    out["cache_k"] = case["cache_k"][s * nbl:(s + 1) * nbl]
+    out["cache_v"] = case["cache_v"][s * nbl:(s + 1) * nbl]
+    out[table_key] = seq_shard_tables(case[table_key], nb, stripes)[s]
+    return out
+
+
+def partial_errs(torch, got, ref, label):
+    """The error of a partial triple against its plain version, in output
+    units: max |acc - acc_ref| / max(l_ref, 1) (the unnormalized acc scales
+    with l), |m - m_ref| and |l - l_ref| / max(l_ref, 1).  Rows whose
+    reference has no key here (l_ref = 0: pad rows, another shard's slot)
+    must come back exactly (0, -1e30, 0)."""
+    acc, m, l = got
+    acc_r, m_r, l_r = ref
+    torch.cuda.synchronize()
+    if not all(bool(torch.isfinite(x).all()) for x in got):
+        raise AssertionError(f"{label}: non-finite partial")
+    scale = l_r.clamp_min(1.0)
+    err = max(float(((acc - acc_r).abs() / scale[..., None]).max()),
+              float((m - m_r).abs().max()), float(((l - l_r).abs() / scale).max()))
+    empty = l_r == 0
+    if bool(empty.any()) and not (bool(acc[empty].eq(0).all()) and bool(l[empty].eq(0).all())
+                                  and bool(m[empty].eq(-1e30).all())):
+        raise AssertionError(f"{label}: a row with no key here is not exactly (0, -1e30, 0)")
+    return err, int(empty.sum())
+
+
+def partial_kernel_checks(torch, gen, record):
+    """The partial modes (seq-sharded serving) against their plain versions
+    on each shard's view of a striped pool, with ``include_pack`` on and off
+    for K3; the S partials merged (``paged.merge_partials``) against the
+    non-partial kernel on the whole pool.  Rows with no key on a shard (pad
+    rows, idle slots, slots whose pages all lie elsewhere) must be exactly
+    (0, -1e30, 0)."""
+    from deepspeed_tpu_torch.inference.paged import merge_partials
+    from deepspeed_tpu_torch.ops.kernels import ctx_attention as K3
+    from deepspeed_tpu_torch.ops.kernels import paged_attention as K2
+
+    def check_triple(name, label, got, ref):
+        err, empty = partial_errs(torch, got, ref, f"{name} {label}")
+        record(name, f"{label} (empty rows {empty})", None, None, err=err)
+
+    S = 2
+    for label, case in (
+        ("sched_T256_N8_4x(512ctx+64sfx)", ctx_case(torch, gen, sfx=(64, 64, 64, 64),
+                                                     ctx=(512, 512, 512, 512), stripes=S)),
+        ("verify_N8x5_hq12_hkv12_hd64_midpage", verify_case(torch, gen, 12, 12, 64,
+                                                            stripes=S)),
+        ("verify_N8x5_hq8_hkv2_hd128_midpage", verify_case(torch, gen, 8, 2, 128, stripes=S)),
+    ):
+        parts = []
+        for s in range(S):
+            sh = shard_view(torch, case, s, S, "ctx_tables")
+            for inc in (True, False):
+                got = K3.paged_attention_packed_ctx_partial_kernel(**sh, include_pack=inc)
+                ref = K3.paged_attention_packed_ctx_partial_plain(**_f32(sh), include_pack=inc)
+                check_triple("ctx_attention_partial",
+                             f"{label}_S{S}_shard{s}_pack{int(inc)}", got, ref)
+                if inc == (s == 0):
+                    parts.append(got)
+        merged = merge_partials(parts, torch.bfloat16)
+        full = K3.paged_attention_packed_ctx_kernel(**case)
+        if bool(merged[case["segment_ids"] == 0].ne(0).any()):
+            raise AssertionError(f"ctx_attention_partial {label}: merged pad rows not 0")
+        record("ctx_attention_partial", f"{label}_S{S}_merged_vs_ctx_attention", merged, full)
+    for label, S, kw in (
+        ("engine_B64_P128_bs32", 2, {}),
+        ("engine_B64_P128_bs32", 4, {}),
+        ("gpt2_B64_hq12_hkv12_hd64", 2, GPT2_DECODE),
+    ):
+        case = decode_case(torch, gen, stripes=S, **kw)
+        parts = []
+        for s in range(S):
+            sh = shard_view(torch, case, s, S, "block_table")
+            got = K2.paged_attention_decode_partial_kernel(**sh)
+            ref = K2.paged_attention_decode_partial_plain(**_f32(sh))
+            check_triple("paged_decode_partial", f"{label}_S{S}_shard{s}", got, ref)
+            parts.append(got)
+        merged = merge_partials(parts, torch.bfloat16)
+        full = K2.paged_attention_decode_kernel(**case)
+        live = case["block_table"][:, 0] >= 0  # K2 clamps an idle slot's -1 to page 0
+        if bool(merged[~live].ne(0).any()):
+            raise AssertionError(f"paged_decode_partial {label}: merged idle slots not 0")
+        record("paged_decode_partial", f"{label}_S{S}_merged_vs_paged_decode", merged[live],
+               full[live])
 
 
 def sparse_layout(spec, s):
@@ -992,6 +1123,267 @@ def gpt2_serve_phase(torch, K, gpu):
     del params
     _free(torch)
     return eng, spec
+
+
+# ---------------------------------------------------------------------------
+# seq-sharded long-context serving: longctx_check (2 layers, against the CPU)
+# and longctx (`bench.py --serving --longctx`, the TPU branch, uncut)
+# ---------------------------------------------------------------------------
+# bench.py:1466-1476: aggregate 96 blocks x 32 = 3072 tokens, one slice of
+# the two holds 1536; the long prompt (56 blocks) fits the aggregate only
+LONGCTX_ENGINE = dict(max_seqs=4, block_size=32, max_seq_len=2048,
+                      prefill_buckets=(64, 128, 256, 512, 1024, 2048), prefill_budget=2048,
+                      prefill_chunk=256, enable_prefix_caching=True)
+LONGCTX_SIZES = dict(n_req=8, sys_len=256, sfx_len=64, max_new=32)
+LONGCTX_BLOCKS, LONGCTX_SHARDS, LONGCTX_LONG = 96, 2, 1792
+
+
+def longctx_workload(cfg, n_req, sys_len, sfx_len):
+    """``bench.py:1495-1503``: a shared system prompt + a random suffix per
+    request, and Poisson(2) arrival gaps in ticks, from ``default_rng(0)``."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED)
+    sys_prompt = rng.integers(1, cfg.vocab_size, sys_len).tolist()
+    prompts = {u: sys_prompt + rng.integers(1, cfg.vocab_size, sfx_len).tolist()
+               for u in range(1, n_req + 1)}
+    return prompts, np.cumsum(rng.poisson(2.0, n_req)).tolist()
+
+
+def seq_engine(params, cfg, shards, num_blocks):
+    """The long-context engine: ``shards`` seq shards of the pool on the
+    card (one device repeated), or a single pool at ``shards`` 1."""
+    from deepspeed_tpu_torch.inference.engine_v2 import InferenceEngineV2
+    from deepspeed_tpu_torch.parallel.topology import initialize_mesh
+
+    grid = initialize_mesh(devices=[DEVICE] * shards, seq=shards) if shards > 1 else None
+    return InferenceEngineV2(params, cfg, grid=grid, seq_shards=shards, num_blocks=num_blocks,
+                             device=DEVICE, **LONGCTX_ENGINE)
+
+
+def check_seq_launches(phase, launches, L, S, d):
+    """Layers x S partial launches per decode tick and per context pack
+    (``d``: the engine's counter deltas), none of the non-partial decode
+    and context kernels; at S = 1 the reverse.  Returns (decode ticks,
+    context packs)."""
+    cold = launches["flash_fwd"] // L
+    ctx_packs = d["prefill_dispatches"] - cold
+    ticks = d["decode_ticks"]
+    dec, ctx = (("paged_decode_partial", "ctx_attention_partial") if S > 1
+                else ("paged_decode", "ctx_attention"))
+    other = (("paged_decode", "ctx_attention") if S > 1
+             else ("paged_decode_partial", "ctx_attention_partial"))
+    if launches["flash_fwd"] != L * cold or cold == 0:
+        raise AssertionError(f"{phase}: flash_fwd launches {launches['flash_fwd']} != {L} x "
+                             f"cold packs")
+    if launches[dec] != L * S * ticks or ticks == 0:
+        raise AssertionError(f"{phase} S={S}: {dec} launched {launches[dec]} != {L} x {S} x "
+                             f"{ticks} decode ticks")
+    if launches[ctx] != L * S * ctx_packs or ctx_packs == 0:
+        raise AssertionError(f"{phase} S={S}: {ctx} launched {launches[ctx]} != {L} x {S} x "
+                             f"{ctx_packs} context packs")
+    if any(launches[n] for n in other):
+        raise AssertionError(f"{phase} S={S}: {other} launched: {launches}")
+    return ticks, ctx_packs
+
+
+def serve_tick_profile(torch, eng, prompts, samp, n=3):
+    """``n`` decode ticks of ``max_seqs`` fresh sequences under the
+    profiler, after one warm-up tick: wall and device ms a tick, idle
+    share, the top device rows."""
+    uids = list(range(30_001, 30_001 + eng.mgr.max_seqs))
+    eng.put(uids, [prompts[u] for u in sorted(prompts)[:len(uids)]], samp)
+    eng.step(samp)
+    wall_ms, dev_ms, rows = _device_profile(torch, lambda: eng.step(samp), n=n, top=8)
+    eng.flush(uids)
+    return dict(batch=len(uids), wall_ms=wall_ms, device_ms=dev_ms,
+                idle_share=None if dev_ms is None else 1.0 - dev_ms / wall_ms, top=rows)
+
+
+def longctx_run(torch, K, params, cfg, shards, num_blocks, prompts, arrivals, max_new,
+                profile=False):
+    """One engine through the arrival workload (``bench.py:1505-1520``):
+    request i is submitted once the scheduler's tick count reaches
+    ``arrivals[i]``.  Returns the results, wall seconds, the engine counter
+    deltas, the run's launches, the host ms of each tick that decoded with
+    no prefill, and (``profile``) a profiled decode tick."""
+    from deepspeed_tpu_torch.inference.sampling import SamplingParams
+
+    eng = seq_engine(params, cfg, shards, num_blocks)
+    sched = eng.scheduler
+    samp = SamplingParams(temperature=0.0, max_new_tokens=max_new)
+    uids = sorted(prompts)
+    stats0 = dict(eng.stats)
+    tick_ms = []
+    submitted = 0
+    K.reset_launches()
+    t0 = time.perf_counter()
+    while submitted < len(uids) or not sched.idle:
+        while submitted < len(uids) and arrivals[submitted] <= sched.tick_no:
+            sched.submit(uids[submitted], prompts[uids[submitted]], samp)
+            submitted += 1
+        before = dict(eng.stats)
+        t = time.perf_counter()
+        sched.tick()  # a decoding tick reads its sampled tokens: synced
+        ms = 1e3 * (time.perf_counter() - t)
+        if (eng.stats["prefill_dispatches"] == before["prefill_dispatches"]
+                and eng.stats["decode_ticks"] > before["decode_ticks"]):
+            tick_ms.append(ms)
+    wall = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    results = {u: sched.pop_result(u) for u in uids}
+    bad = [u for u, r in results.items() if len(r) != max_new or min(r) < 0]
+    if bad:
+        raise AssertionError(f"longctx S={shards}: requests {bad} did not finish with "
+                             f"{max_new} tokens")
+    d = {k: eng.stats[k] - stats0[k] for k in eng.stats}
+    prof = serve_tick_profile(torch, eng, prompts, samp) if profile else None
+    audit = eng.close()
+    if audit["blocks_in_use"] != 0:
+        raise AssertionError(f"longctx S={shards}: leaked blocks {audit}")
+    total = sum(len(p) for p in prompts.values()) + sum(len(r) for r in results.values())
+    return dict(results=results, wall=wall, d=d, launches=launches, tick_ms=tick_ms,
+                tokens_per_s=total / wall, profile=prof, close=audit)
+
+
+def longctx_check_phase(torch, K, gpu, cfg):
+    """``llama3_proxy_410m`` at full width with 2 layers, bf16, random
+    weights from the seed, at ``seq_shards`` 2 and 4 on the card: three
+    streams of the shared-prefix workload and one 1,100-token prompt
+    (chunked prefill over a striped context), 8 greedy tokens each; every
+    stream replayed through the port on the CPU in fp32 on one pool
+    (near-argmax).  The partial kernels must launch layers x S times per
+    decode tick and per context pack, the non-partial ones never."""
+    import numpy as np
+    from deepspeed_tpu_torch.models.transformer import init_params
+
+    cfg2 = cfg.replace(num_layers=2)
+    params = init_params(cfg2, seed=SEED, device=DEVICE)
+    prompts, arrivals = longctx_workload(cfg2, 3, LONGCTX_SIZES["sys_len"],
+                                         LONGCTX_SIZES["sfx_len"])
+    prompts[4] = np.random.default_rng(SEED + 1).integers(1, cfg2.vocab_size, 1100).tolist()
+    arrivals.append(arrivals[-1] + 1)
+    params_cpu = _tree_cpu(params)
+    out = dict(phase="longctx_check", model="llama3_proxy_410m", layers=2,
+               prompt_lens=[len(p) for p in prompts.values()], max_new_tokens=8,
+               num_blocks=LONGCTX_BLOCKS, engine=dict(LONGCTX_ENGINE), runs={}, gpu=gpu)
+    out["engine"]["prefill_buckets"] = list(LONGCTX_ENGINE["prefill_buckets"])
+    launches = {n: 0 for n in K.LAUNCHES}
+    for S in (2, 4):
+        run = longctx_run(torch, K, params, cfg2, S, LONGCTX_BLOCKS, prompts, arrivals, 8)
+        ticks, packs = check_seq_launches("longctx_check", run["launches"], 2, S, run["d"])
+        worst, exact, total = replay_on_cpu(torch, params_cpu, cfg2, prompts, run["results"])
+        if worst > ARGMAX_TOL_FRAC:
+            raise AssertionError(f"longctx_check S={S}: a card pick is off the CPU argmax by "
+                                 f"{worst:.4f} of the logit range > {ARGMAX_TOL_FRAC}")
+        for n, c in run["launches"].items():
+            launches[n] += c
+        out["runs"][f"S{S}"] = dict(decode_ticks=ticks, context_packs=packs,
+                                    launches={n: c for n, c in run["launches"].items() if c},
+                                    argmax_exact=f"{exact}/{total}",
+                                    argmax_worst_gap_frac=worst)
+    out["launches"] = launches
+    emit(out)
+    del params, params_cpu
+    _free(torch)
+    return out
+
+
+def longctx_phase(torch, K, gpu, params, cfg):
+    """The workload of ``bench.py --serving --longctx`` (TPU branch, uncut):
+    the S = 2 engine and its single-pool twin (same 96 blocks) in turns,
+    S2, single, single, S2, on fresh engines; then the over-one-pool
+    contract: the single-slice twin (48 blocks) rejects the 1,792-token
+    prompt with ``pool_impossible`` at budget 48, and the S = 2 engine
+    serves it to 32 tokens with no leaked block.  The first S = 2 run and
+    the long prompt are the main path's; their launches must be layers x 2
+    per decode tick and per context pack."""
+    import numpy as np
+    from deepspeed_tpu_torch.inference.sampling import SamplingParams
+    from deepspeed_tpu_torch.inference.scheduler import REJECT_POOL_IMPOSSIBLE
+
+    L, S = cfg.num_layers, LONGCTX_SHARDS
+    prompts, arrivals = longctx_workload(cfg, LONGCTX_SIZES["n_req"], LONGCTX_SIZES["sys_len"],
+                                         LONGCTX_SIZES["sfx_len"])
+    max_new = LONGCTX_SIZES["max_new"]
+    runs = []
+    for shards in (S, 1, 1, S):
+        first = all(sh != shards for sh, _ in runs)
+        runs.append((shards, longctx_run(torch, K, params, cfg, shards, LONGCTX_BLOCKS, prompts,
+                                         arrivals, max_new, profile=first)))
+    per = {}
+    for shards in (S, 1):
+        mine = [r for sh, r in runs if sh == shards]
+        ticks, packs = check_seq_launches("longctx", mine[0]["launches"], L, shards,
+                                          mine[0]["d"])
+        dec = "paged_decode_partial" if shards > 1 else "paged_decode"
+        ctx = "ctx_attention_partial" if shards > 1 else "ctx_attention"
+        per[shards] = dict(
+            tokens_per_s=[r["tokens_per_s"] for r in mine],
+            wall_s=[r["wall"] for r in mine],
+            decode_tick_ms_p50=[_median(r["tick_ms"]) for r in mine],
+            decode_ticks_timed=[len(r["tick_ms"]) for r in mine],
+            decode_ticks=ticks, context_packs=packs,
+            launches_per_forward={dec: mine[0]["launches"][dec] / ticks,
+                                  ctx: mine[0]["launches"][ctx] / packs},
+            tick_profile=mine[0]["profile"])
+    s2 = next(r for sh, r in runs if sh == S)
+    one = next(r for sh, r in runs if sh == 1)
+    gen = sum(len(r) for r in s2["results"].values())
+    match = sum(a == b for u in prompts for a, b in zip(s2["results"][u], one["results"][u]))
+
+    # the over-one-pool contract
+    samp = SamplingParams(temperature=0.0, max_new_tokens=max_new)
+    long_prompt = np.random.default_rng(SEED + 1).integers(1, cfg.vocab_size,
+                                                           LONGCTX_LONG).tolist()
+    small = seq_engine(params, cfg, 1, LONGCTX_BLOCKS // S)
+    verdict = small.scheduler.try_submit(1, long_prompt, samp)
+    small.close()
+    if (verdict.accepted or verdict.reason != REJECT_POOL_IMPOSSIBLE
+            or verdict.budget_blocks != LONGCTX_BLOCKS // S
+            or verdict.budget_scope != "replica_pool"):
+        raise AssertionError(f"longctx: the single-slice twin did not reject the long prompt "
+                             f"as expected: {verdict}")
+    eng = seq_engine(params, cfg, S, LONGCTX_BLOCKS)
+    sched = eng.scheduler
+    res = sched.try_submit(1, long_prompt, samp)
+    if not res.accepted:
+        raise AssertionError(f"longctx: the S = {S} engine refused the long prompt: {res}")
+    stats0 = dict(eng.stats)
+    K.reset_launches()
+    t0 = time.perf_counter()
+    sched.run(wait_for=[1])
+    long_s = time.perf_counter() - t0
+    long_launches = dict(K.LAUNCHES)
+    req = sched.requests[1]
+    long_out = sched.pop_result(1)
+    if req.state != "finished" or len(long_out) != max_new or min(long_out) < 0:
+        raise AssertionError(f"longctx: the long prompt ended {req.state} ({req.error}) with "
+                             f"{len(long_out)} tokens")
+    d = {k: eng.stats[k] - stats0[k] for k in eng.stats}
+    long_ticks, long_packs = check_seq_launches("longctx long prompt", long_launches, L, S, d)
+    audit = eng.close()
+    if audit["blocks_in_use"] != 0:
+        raise AssertionError(f"longctx: the long prompt leaked blocks: {audit}")
+
+    launches = {n: s2["launches"][n] + long_launches[n] for n in K.LAUNCHES}
+    out = dict(
+        phase="longctx", model="llama3_proxy_410m", layers=L, seq_shards=S,
+        **LONGCTX_SIZES, num_blocks=LONGCTX_BLOCKS, run_order=[sh for sh, _ in runs],
+        engine={k: (list(v) if isinstance(v, tuple) else v) for k, v in LONGCTX_ENGINE.items()},
+        seq_sharded=per[S], single_pool=per[1],
+        seq_sharded_vs_single_pool_speed=sum(per[1]["wall_s"]) / sum(per[S]["wall_s"]),
+        twin_token_match=match / gen,
+        over_one_pool=dict(prompt_len=LONGCTX_LONG, blocks=-(-(LONGCTX_LONG + max_new) // 32),
+                           single_slice=dict(reason=verdict.reason,
+                                             budget_blocks=verdict.budget_blocks,
+                                             budget_scope=verdict.budget_scope),
+                           served_tokens=len(long_out), wall_s=long_s, decode_ticks=long_ticks,
+                           context_packs=long_packs, close=audit),
+        launches=launches,
+        launches_per_forward=per[S]["launches_per_forward"], gpu=gpu)
+    emit(out)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1727,6 +2119,8 @@ def timings(torch):
         library_max_abs_err=_verify_rows_err(torch, got, lib, c),
         bound_ms=bound, bound_by=by)
     del c, qs, ks, vs, smask
+    out["ctx_attention_partial"] = ctx_partial_timing(torch, K3, gen)
+    out["paged_decode_partial"] = decode_partial_timing(torch, K2, gen)
     out.update(train_timings(torch, gen))
     _free(torch)
     out.update(sparse_timings(torch, gen))
@@ -1758,6 +2152,98 @@ def decode_timing(torch, K2, c):
                     qs, ks, vs, attn_mask=mask, enable_gqa=True)),
                 library_max_abs_err=float((got[live_rows].float()
                                            - lib[live_rows, :, 0].float()).abs().max()),
+                bound_ms=bound, bound_by=by)
+
+
+def owned_keys(torch, tables, lens, nb, bs):
+    """[rows, P * bs] bool: the key positions below ``lens`` whose page lies
+    in ``[0, nb)`` (this shard's, under a translated table)."""
+    page = tables.long().repeat_interleave(bs, dim=1)
+    pos = torch.arange(page.shape[1], device=tables.device)
+    return (pos[None, :] < lens.long()[:, None]) & (page >= 0) & (page < nb)
+
+
+def _gather_owned(torch, c, ok, table_key):
+    """Each row's owned keys (``owned_keys``) gathered contiguously, padded
+    to the longest: (k, v [rows, L, hkv, hd], count [rows])."""
+    nb, bs = c["cache_k"].shape[:2]
+    count = ok.sum(1)
+    L = max(int(count.max()), 1)
+    order = torch.argsort((~ok).to(torch.int8), dim=1, stable=True)[:, :L]
+    pages = c[table_key].long().gather(1, order // bs).clamp(0, nb - 1)
+    return c["cache_k"][pages, order % bs], c["cache_v"][pages, order % bs], count
+
+
+def decode_partial_timing(torch, K2, gen):
+    """The decode partial at the engine's decode shape (B 64, P 128, bs 32)
+    striped over 2 shards, shard 0's view: kernel, plain version, the SDPA
+    yardstick over the shard's owned keys (gathered beforehand, untimed,
+    padded to the longest, length mask), and the bound (the owned key and
+    value rows read once, q, the table and lengths read once, the fp32
+    triple written once; 4 hd flops per owned (query head, key) pair)."""
+    import torch.nn.functional as F
+
+    S = 2
+    c = shard_view(torch, decode_case(torch, gen, stripes=S), 0, S, "block_table")
+    b, hq, hd = c["q"].shape
+    nb, bs, hkv, _ = c["cache_k"].shape
+    ok = owned_keys(torch, c["block_table"], c["seq_lens"], nb, bs)
+    owned = int(ok.sum())
+    triple = b * hq * (hd + 2) * 4
+    bound, by = _bound(4 * hd * hq * owned,
+                       2 * owned * hkv * hd * c["cache_k"].element_size() + triple
+                       + _nbytes(c["q"], c["block_table"], c["seq_lens"]))
+    k, v, count = _gather_owned(torch, c, ok, "block_table")
+    mask = torch.arange(k.shape[1], device=DEVICE)[None, :] < count[:, None]
+    qs, ks, vs = c["q"][:, :, None], k.transpose(1, 2), v.transpose(1, 2)
+    return dict(shape=f"B{b} hq{hq} hkv{hkv} hd{hd} bs{bs} P{c['block_table'].shape[1]} "
+                      f"shard 0 of {S} ({nb} of {nb * S} blocks) owned_keys{owned}",
+                ms=time_ms(torch, lambda: K2.paged_attention_decode_partial_kernel(**c)),
+                plain_ms=time_ms(torch, lambda: K2.paged_attention_decode_partial_plain(**c)),
+                library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+                    qs, ks, vs, attn_mask=mask[:, None, None], enable_gqa=True)),
+                bound_ms=bound, bound_by=by)
+
+
+def ctx_partial_timing(torch, K3, gen):
+    """K3's partial mode at the scheduler's prefix-hit shape (T 256, N 8,
+    4 x (512 ctx + 64 sfx)) striped over 2 shards, shard 0's view with the
+    pack's own keys: kernel, plain version, the SDPA yardstick (each
+    segment's owned context keys and its pack keys gathered beforehand,
+    untimed; causal over the pack), and the bound (owned context rows, q and
+    the pack's k / v read once, the fp32 triple written once; 4 hd flops
+    per (query head, key) pair)."""
+    import torch.nn.functional as F
+
+    S, sfx = 2, 64
+    c = shard_view(torch, ctx_case(torch, gen, sfx=(sfx,) * 4, ctx=(512,) * 4, bad_ids=False,
+                                   stripes=S), 0, S, "ctx_tables")
+    t, hq, hd = c["q"].shape
+    nb, bs, hkv, _ = c["cache_k"].shape
+    seg = c["segment_ids"].long()
+    slots = torch.unique(seg[seg > 0]) - 1
+    ok = owned_keys(torch, c["ctx_tables"][slots], c["ctx_lens"][slots], nb, bs)
+    owned = ok.sum(1)  # per live slot
+    pairs = int((sfx * owned).sum()) + len(slots) * sfx * (sfx + 1) // 2
+    bound, by = _bound(4 * hd * hq * pairs,
+                       2 * int(owned.sum()) * hkv * hd * c["cache_k"].element_size()
+                       + t * hq * (hd + 2) * 4
+                       + _nbytes(c["q"], c["k"], c["v"], c["segment_ids"], c["ctx_tables"],
+                                 c["ctx_lens"]))
+    k, v, count = _gather_owned(torch, dict(c, ctx_tables=c["ctx_tables"][slots]), ok,
+                                "ctx_tables")
+    L = int(count.max()) + sfx  # every slot owns the same count here
+    rows = torch.stack([(seg == int(i) + 1).nonzero()[:, 0] for i in slots])  # [n, sfx]
+    ks = torch.cat([k, c["k"][rows]], dim=1).transpose(1, 2)
+    vs = torch.cat([v, c["v"][rows]], dim=1).transpose(1, 2)
+    qs = c["q"][rows].transpose(1, 2)
+    smask = torch.ones(sfx, L, dtype=torch.bool, device=DEVICE).tril(L - sfx)
+    return dict(shape=f"T{t} N8 4x(512 ctx + 64 sfx) shard 0 of {S} ({nb} of {nb * S} blocks), "
+                      f"include_pack, owned_ctx_keys{int(owned.sum())}",
+                ms=time_ms(torch, lambda: K3.paged_attention_packed_ctx_partial_kernel(**c)),
+                plain_ms=time_ms(torch, lambda: K3.paged_attention_packed_ctx_partial_plain(**c)),
+                library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+                    qs, ks, vs, attn_mask=smask, enable_gqa=True)),
                 bound_ms=bound, bound_by=by)
 
 
@@ -1976,6 +2462,8 @@ REPLACES = {
     "paged_decode": "deepspeed_tpu/ops/pallas/paged_attention.py:270",
     "paged_decode_hd64": "deepspeed_tpu/ops/pallas/paged_attention.py:225",
     "ctx_attention": "deepspeed_tpu/ops/pallas/ctx_attention.py:244",
+    "ctx_attention_partial": "deepspeed_tpu/ops/pallas/ctx_attention.py:297",
+    "paged_decode_partial": "deepspeed_tpu/inference/paged.py:558",
     "quant_matmul_int8": "deepspeed_tpu/ops/pallas/quant_matmul.py:115",
     "quant_matmul_fp8": "deepspeed_tpu/ops/pallas/quant_matmul.py:115",
     "quant_matmul_fp6": "deepspeed_tpu/ops/pallas/quant_matmul.py:237",
@@ -1986,6 +2474,14 @@ REPLACES = {
     "sparse_bwd_dq": "deepspeed_tpu/ops/pallas/flash_kernel.py:662",
     "sparse_bwd_dkv": "deepspeed_tpu/ops/pallas/flash_kernel.py:687",
     "fused_adamw": "deepspeed_tpu/ops/pallas/fused_adam.py:46",
+}
+
+
+PARTIAL_NOTES = {
+    "ctx_attention_partial": "the pallas_call at ctx_attention.py:297 with partial=True: the "
+                             "(acc, m, l) triple per seq shard, include_pack on shard 0",
+    "paged_decode_partial": "_paged_attention_decode_partial, a jnp body (no pallas_call): "
+                            "K2 in its partial mode per seq shard, other shards' pages skipped",
 }
 
 
@@ -2035,6 +2531,8 @@ def main() -> None:
     eng = engine_phase(torch, K, gpu, params, cfg)
     sch = scheduler_phase(torch, K, gpu, params, cfg)
     spec = spec_phase(torch, K, gpu, params, cfg, "llama3_proxy_410m", "spec_serve")
+    lcc = longctx_check_phase(torch, K, gpu, cfg)
+    lc = longctx_phase(torch, K, gpu, params, cfg)
     del params
     _free(torch)
     g_eng, g_spec = gpt2_serve_phase(torch, K, gpu)
@@ -2063,11 +2561,14 @@ def main() -> None:
               sparse={n: times[n] for n in ATTN_KERNELS[True]},
               fused_adamw=adam_times, gpu=gpu))
     # launches of the main paths (serving engine, scheduler, speculative
-    # serving, gpt2 serving, dense and block-sparse training, quantized
-    # serving, the quantizer API), each read right after its own run
-    main_paths = (eng, sch, spec, g_eng, g_spec, tr, sp, qc, qs, qz)
+    # serving, seq-sharded long-context serving, gpt2 serving, dense and
+    # block-sparse training, quantized serving, the quantizer API), each
+    # read right after its own run
+    main_paths = (eng, sch, spec, lcc, lc, g_eng, g_spec, tr, sp, qc, qs, qz)
     per_forward = {**eng["launches_per_forward"], **sch["launches_per_forward"],
                    "paged_decode_hd64": g_eng["launches_per_forward"]["paged_decode_hd64"]}
+    for name in ("paged_decode_partial", "ctx_attention_partial"):  # longctx, S = 2
+        per_forward[name] = lc["launches_per_forward"][name]
     for fmt, name in QMM_NAMES.items():  # quant_serve at full depth
         per_forward[name] = qs["formats"][fmt]["launches_per_forward"][name]
     kernels = []
@@ -2091,6 +2592,8 @@ def main() -> None:
                                      + ") at HD = 64: K2p's counterpart, no lane packing")
         if name == "ctx_attention":
             entry["launches_per_verify_tick"] = spec["launches_per_verify_tick"]["ctx_attention"]
+        if name in PARTIAL_NOTES:
+            entry["note"] = PARTIAL_NOTES[name]
         if name in K6_NAMES:  # the quantizer API: one launch per call
             entry["launches_per_call"] = 1
         kernels.append(entry)

@@ -1,8 +1,8 @@
 """deepspeed_tpu_torch — the PyTorch / CUDA port of ``deepspeed_tpu``.
 
 A second package beside the JAX one, mirroring its module layout
-(``models``, ``ops``, ``inference``, ``runtime``, ``config``, ``sequence``)
-so each module's counterpart is found by name.  It imports ``torch`` and
+(``models``, ``ops``, ``inference``, ``runtime``, ``config``, ``sequence``,
+``parallel``) so each module's counterpart is found by name.  It imports ``torch`` and
 never ``jax`` or ``deepspeed_tpu``.  Entry points run on a CUDA device
 unless the caller passes ``device="cpu"``; every Pallas kernel of the ported
 paths is a hand-written CUDA kernel under ``csrc/`` (see ``ops/kernels``).
@@ -10,8 +10,9 @@ paths is a hand-written CUDA kernel under ``csrc/`` (see ``ops/kernels``).
 Ported so far:
 
 - serving: ``inference.engine_v2.InferenceEngineV2`` (paged KV cache, packed
-  prefill, prefix caching, chunked prefill, batched decode) and its
-  ``inference.scheduler.ServeScheduler``;
+  prefill, prefix caching, chunked prefill, batched decode, speculation,
+  quantized weights, a KV pool seq-sharded over a ``parallel.topology``
+  grid) and its ``inference.scheduler.ServeScheduler``;
 - training: ``initialize`` -> ``runtime.engine.DeepSpeedTorchEngine``
   (``train_batch``, ``train_on_loader``) over ``models.transformer.CausalLM``
   on one GPU.

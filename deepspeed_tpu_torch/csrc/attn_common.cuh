@@ -216,6 +216,30 @@ __device__ __forceinline__ void store_out(const PairState<HD, PPW>& st, int npai
   }
 }
 
+// The partial modes (seq-sharded serving): write every pair's UNnormalized
+// fp32 state as it stands -- acc [HD] at aptr(p), the running max at m[mi(p)]
+// and the running sum at l[mi(p)].  A pair that met no key keeps its initial
+// (0, kNegInf, 0): finite, so the log-sum-exp merge of two empty partials
+// stays (0, kNegInf, 0) instead of NaN.
+template <int HD, int PPW, typename APtr, typename MIdx>
+__device__ __forceinline__ void store_partial(const PairState<HD, PPW>& st, int npairs,
+                                              APtr aptr, float* m, float* l, MIdx mi) {
+  constexpr int kVpl = HD / 32;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+#pragma unroll
+  for (int i = 0; i < PPW; ++i) {
+    const int p = warp + kWarps * i;
+    if (p >= npairs) break;
+    float* a = aptr(p) + lane * kVpl;
+#pragma unroll
+    for (int c = 0; c < kVpl; ++c) a[c] = st.acc[i][c];
+    if (lane == 0) {
+      m[mi(p)] = st.m[i];
+      l[mi(p)] = st.l[i];
+    }
+  }
+}
+
 // --- backward helpers (flash_bwd.cu, sparse_flash.cu) ---
 
 // a (fp32, the same row for every lane: a broadcast) . b (bf16, this lane's

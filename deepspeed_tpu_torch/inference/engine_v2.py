@@ -19,11 +19,19 @@ kernels on the engine's device, one layer slice at a time
 (``ops.quantizer.quantize_serving_params``), and every serving matmul then
 reads the compressed bytes through the dequant-matmul kernels.
 
+``grid=initialize_mesh(devices=[dev] * S, seq=S), seq_shards=S`` serves
+long contexts: the KV pool splits into ``S`` seq-shard slices, a
+sequence's pages stripe across them, every pool-reading attention runs per
+shard through the kernels' partial modes and merges by log-sum-exp
+(``paged.py``), so a prompt bigger than one slice fits as long as the whole
+pool does.  The ``S`` shards run in one process on the engine's device.
+
 Not ported yet, and refused loudly rather than ignored: weight offload,
-tensor-parallel / replica / seq-shard meshes, ``fused_serving=False`` (the
-JAX jnp-body lever: on the card that body is a kernel's plain version), and
-``step_n`` (the device-resident decode burst, whose counterpart is a
-CUDA-graph replay in a later slice).  Every dispatch raises through to the
+tensor-parallel and replica meshes and seq shards on distinct devices
+(ROADMAP queue 1 item 7), ``fused_serving=False`` (the JAX jnp-body lever:
+on the card that body is a kernel's plain version), and ``step_n`` (the
+device-resident decode burst, whose counterpart is a CUDA-graph replay in
+a later slice).  Every dispatch raises through to the
 caller: a kernel that fails to build or launch is an error, never a failed
 request.
 """
@@ -44,6 +52,7 @@ from ..ops.quantizer import (
     quantize_serving_params,
     tree_nbytes,
 )
+from ..parallel.topology import Grid, normalize_device
 from . import model_runner, speculative
 from .paged import init_paged_cache
 from .ragged import StateManager
@@ -105,21 +114,50 @@ class InferenceEngineV2:
         device=None,
     ):
         unsupported = {
-            "offload_weights": offload_weights, "grid": grid is not None,
+            "offload_weights": offload_weights,
             "fused_serving=False": fused_serving is False,
-            "serve_replicas>1": serve_replicas != 1, "seq_shards>1": seq_shards != 1,
+            "serve_replicas>1": serve_replicas != 1,
         }
         refused = [k for k, on in unsupported.items() if on]
         if refused:
             raise NotImplementedError(f"not ported yet: {', '.join(refused)}")
+        sq = int(seq_shards)
+        if grid is not None:
+            if not isinstance(grid, Grid):
+                raise TypeError("grid must be a deepspeed_tpu_torch.parallel.topology.Grid "
+                                "(initialize_mesh)")
+            if grid.spec.model > 1 or grid.spec.data > 1:
+                raise NotImplementedError(
+                    f"a grid with model {grid.spec.model} / batch {grid.spec.data} is not "
+                    "ported yet (ROADMAP queue 1 item 7)")
+            if device is None:
+                device = grid.devices[0]
+        # seq-sharded pool: ``seq_shards`` > 1 slices the block pool over the
+        # grid's seq axis; a sequence's pages round-robin across the slices,
+        # each shard attends over its own pages and the partials merge by
+        # log-sum-exp, so a context bigger than one slice serves as long as
+        # the AGGREGATE pool fits it
+        if sq > 1:
+            if grid is None or grid.spec.seq != sq:
+                raise ValueError(
+                    f"seq_shards={sq} needs a grid whose seq axis is exactly {sq} -- "
+                    f"build it with initialize_mesh(devices=[dev] * {sq}, seq={sq})")
+            if num_blocks % sq:
+                raise ValueError(f"num_blocks ({num_blocks}) must divide into 1 replicas x "
+                                 f"{sq} seq shards")
         if quantize_weights not in (None, "int8", "fp8", "fp6"):
-            raise ValueError(f"quantize_weights format {quantize_weights!r} (int8|fp8)")
+            raise ValueError(f"quantize_weights format {quantize_weights!r} (int8|fp8|fp6)")
         if enable_speculation and spec_max_draft < 1:
             raise ValueError("spec_max_draft must be >= 1 when speculating")
         if enable_speculation and spec_min_match < 1:
             raise ValueError("spec_min_match must be >= 1 when speculating")
         model_runner._check_family(cfg)
         self.device = resolve_device(device)
+        if grid is not None and any(d != normalize_device(self.device) for d in grid.devices):
+            raise ValueError(f"the grid's devices {[str(d) for d in grid.devices]} are not "
+                             f"the engine's device {self.device}")
+        self.seq_shards = sq
+        self._mesh = grid if sq > 1 else None
         self.cfg = cfg
         self.quantize_weights = quantize_weights
         if quantize_weights is None:
@@ -145,7 +183,8 @@ class InferenceEngineV2:
         self.spec_lookup_window = spec_lookup_window
         self.serving_ctx = ServingContext()
         self.mgr = StateManager(num_blocks, block_size, max_seqs,
-                                enable_prefix_caching=enable_prefix_caching)
+                                enable_prefix_caching=enable_prefix_caching,
+                                seq_shards=sq)
         self._scheduler = None
         self.stats: Dict[str, int] = {name: 0 for name in STAT_NAMES}
         self.prefill_buckets = [b for b in prefill_buckets if b <= self.max_seq_len] \
@@ -263,7 +302,8 @@ class InferenceEngineV2:
         if use_ctx:
             logits, self.kv = model_runner.prefill_packed_ctx(
                 self.params, self.cfg, tokens, seg, pos, pack_pages, last_idx,
-                ctx_tables, ctx_lens, self.kv, ctx=self.serving_ctx)
+                ctx_tables, ctx_lens, self.kv, ctx=self.serving_ctx, mesh=self._mesh,
+                seq_shards=self.seq_shards)
         else:
             logits, self.kv = model_runner.prefill_packed(
                 self.params, self.cfg, tokens, seg, pos, pack_pages, last_idx,
@@ -447,7 +487,8 @@ class InferenceEngineV2:
         n_draft_dev = torch.from_numpy(n_draft).to(self.device)
         logits, self.kv = model_runner.verify_packed_ctx(
             self.params, self.cfg, tokens, seg, pos, dst_pages, dst_offs,
-            self._tables_np, ctx_lens, self.kv, ctx=self.serving_ctx)
+            self._tables_np, ctx_lens, self.kv, ctx=self.serving_ctx, mesh=self._mesh,
+            seq_shards=self.seq_shards)
         B, K = draft.shape
         logits = logits.reshape(B, K + 1, -1)
         out, n_out = spec_verify_sample(
@@ -484,7 +525,7 @@ class InferenceEngineV2:
             active[s.slot] = True
         logits, self.kv = model_runner.decode_step(
             self.params, self.cfg, tokens, seq_lens, self._tables_np, active,
-            self.kv, ctx=self.serving_ctx)
+            self.kv, ctx=self.serving_ctx, mesh=self._mesh, seq_shards=self.seq_shards)
         next_tokens = self._sample(logits, sampling)
         self.stats["decode_ticks"] += 1
         self.stats["decode_emitted"] += len(active_seqs)

@@ -13,7 +13,10 @@ are the caller's tensors, updated in place.
 Attention goes through the CUDA kernels on a CUDA device (flash prefill,
 paged decode, packed-context) and through their plain bodies on the CPU;
 so do the matmuls of a quantized tree (``serving_mm``: the dequant-matmul
-kernels).
+kernels).  ``seq_shards > 1`` (seq-sharded serving) sends the decode,
+context and verify dispatches through the partial kernels and their
+log-sum-exp merge (``paged.py``); a cold pack attends densely on the flash
+kernel and has no ring, as in JAX.
 """
 from __future__ import annotations
 
@@ -38,6 +41,7 @@ from .paged import (
     page_write_index,
     paged_attention_decode,
     paged_attention_packed_ctx,
+    seq_shard_tables,
     spec_write_index,
     write_pages,
     write_rows,
@@ -62,6 +66,14 @@ def _layer(params: Params, l: int) -> Params:
 def _dev(x, device, dtype=torch.int32) -> torch.Tensor:
     """Host metadata -> device tensor."""
     return torch.as_tensor(np.asarray(x), dtype=dtype).to(device)
+
+
+def _shard_tables(tables, kv_cache, seq_shards: int):
+    """Per-seq-shard translated tables, once per dispatch for every layer
+    (None on one shard)."""
+    if seq_shards == 1:
+        return None
+    return seq_shard_tables(tables, kv_cache[0][0].shape[0], seq_shards)
 
 
 def _qkv(lw, x, cfg: TransformerConfig, ctx=None):
@@ -203,13 +215,14 @@ def prefill_packed_ctx(params: Params, cfg: TransformerConfig, tokens, segment_i
     device = kv_cache[0][0].device
     tables = _dev(ctx_tables, device)
     lens = _dev(ctx_lens, device)
+    shards = _shard_tables(tables, kv_cache, seq_shards)
 
     def attention(q, k, v, seg, ck, cv):
         # the pool already holds this pack's pages; ctx_lens masks them
         return paged_attention_packed_ctx(
             q[0], k[0], v[0], seg, ck, cv, tables, lens,
             logits_soft_cap=cfg.logits_soft_cap, mesh=mesh, dp=dp,
-            seq_shards=seq_shards)
+            seq_shards=seq_shards, shard_tables=shards)
 
     return _packed(params, cfg, tokens, segment_ids, positions, pack_pages,
                    last_idx, kv_cache, ctx, attention)
@@ -245,6 +258,7 @@ def verify_packed_ctx(params: Params, cfg: TransformerConfig, tokens, segment_id
     seg = _dev(segment_ids, device)
     tables = _dev(ctx_tables, device)
     lens = _dev(ctx_lens, device)
+    shards = _shard_tables(tables, kv_cache, seq_shards)
     for l in range(cfg.num_layers):
         def attend(q, k, v, l=l):
             write_rows(ck[l], k[0], src, dst)
@@ -254,7 +268,7 @@ def verify_packed_ctx(params: Params, cfg: TransformerConfig, tokens, segment_id
             return paged_attention_packed_ctx(
                 q[0], k[0], v[0], seg, ck[l], cv[l], tables, lens,
                 logits_soft_cap=cfg.logits_soft_cap, mesh=mesh, dp=dp,
-                seq_shards=seq_shards)
+                seq_shards=seq_shards, shard_tables=shards)
         x = _block(_layer(params, l), x, cfg, rot, attend, ctx)
     x = norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)
     return _lm_logits(params, cfg, x[0], ctx), kv_cache
@@ -278,6 +292,7 @@ def decode_step(params: Params, cfg: TransformerConfig, tokens, seq_lens,
     slots, rows = decode_write_index(block_tables, lens_np, active, bs, nb, device)
     tables = _dev(block_tables, device)
     lens_after = _dev(lens_np + 1, device)  # attention length incl. this token
+    shards = _shard_tables(tables, kv_cache, seq_shards)
     for l in range(cfg.num_layers):
         def attend(q, k, v, l=l):
             write_rows(ck[l], k[:, 0], slots, rows)
@@ -285,7 +300,7 @@ def decode_step(params: Params, cfg: TransformerConfig, tokens, seq_lens,
             return paged_attention_decode(
                 q[:, 0], ck[l], cv[l], tables, lens_after,
                 logits_soft_cap=cfg.logits_soft_cap, mesh=mesh, dp=dp,
-                seq_shards=seq_shards)
+                seq_shards=seq_shards, shard_tables=shards)
         x = _block(_layer(params, l), x, cfg, rot, attend, ctx)
     x = norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)
     return _lm_logits(params, cfg, x[:, 0], ctx), kv_cache

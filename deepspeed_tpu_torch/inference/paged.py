@@ -9,12 +9,26 @@ are dropped from a write; which entries survive is decided on the host,
 from the host-built page lists, so no write needs a device round trip.
 
 Attention over the pool dispatches to the CUDA kernels on a CUDA tensor and
-to the plain bodies on a CPU tensor (``ops/kernels``).  Single device only:
-a ``mesh`` / ``dp`` / ``seq_shards`` argument raises.
+to the plain bodies on a CPU tensor (``ops/kernels``).
+
+Seq-sharded serving (``seq_shards = S > 1``, JAX's ``_paged_attention_
+decode_tp`` / ``_paged_attention_packed_ctx_tp`` at one replica and no
+tensor parallelism): the pool's block dim splits into ``S`` contiguous
+slices and a sequence's pages stripe across them (``ragged.StateManager``).
+Shard ``s`` attends over its slice only -- the pool view
+``pool[s*nbl:(s+1)*nbl]``, its tables translated by ``-s*nbl`` so another
+shard's pages fall outside ``[0, nbl)`` and are skipped -- with the partial
+modes of the decode and packed-context kernels, which return the
+unnormalized fp32 ``(acc, m, l)``.  The ``S`` partials then fold by
+log-sum-exp in the order JAX's ``S-1``-hop ring leaves them on shard 0.
+Here the shards run in one process on one device, so a shard's slice is a
+view of the one pool and page writes and copy-on-write keep their global
+block ids; placing the shards on separate devices is ROADMAP queue 1
+item 7 (a ``mesh`` with ``model > 1`` or ``dp > 1`` raises).
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -22,16 +36,22 @@ import torch
 from ..ops.kernels import resolve_device
 from ..ops.kernels.ctx_attention import (
     paged_attention_packed_ctx as _packed_ctx_dispatch,
+    paged_attention_packed_ctx_partial,
+    paged_attention_packed_ctx_partial_plain,
     paged_attention_packed_ctx_plain,
 )
 from ..ops.kernels.paged_attention import (
     paged_attention_decode as _decode_dispatch,
+    paged_attention_decode_partial,
+    paged_attention_decode_partial_plain,
     paged_attention_decode_plain,
 )
 
-# the JAX module's names for the dense ground-truth bodies
+# the JAX module's names for the dense ground-truth bodies and the partials
 _paged_attention_decode_dense = paged_attention_decode_plain
 _paged_attention_packed_ctx_dense = paged_attention_packed_ctx_plain
+_paged_attention_decode_partial = paged_attention_decode_partial_plain
+_packed_ctx_partial = paged_attention_packed_ctx_partial_plain
 
 
 def init_paged_cache(num_layers: int, num_blocks: int, block_size: int,
@@ -138,35 +158,120 @@ def write_spec_kv(cache_layer: torch.Tensor, kv: torch.Tensor, pages, offsets) -
 # ---------------------------------------------------------------------------
 # attention over the pool
 # ---------------------------------------------------------------------------
-def _single_device(mesh, dp: int, seq_shards: int) -> None:
-    if mesh is not None or dp != 1 or seq_shards != 1:
+def _single_device(mesh, dp: int) -> None:
+    """What this module runs: one replica, no tensor parallelism; the seq
+    shards of a grid's ``seq`` axis on its one device."""
+    tp = mesh.spec.model if mesh is not None else 1
+    if tp > 1 or dp != 1:
         raise NotImplementedError(
-            "mesh / dp / seq_shards serving is not ported yet (single device only)")
+            f"tensor-parallel (model {tp}) / replica (dp {dp}) serving is not ported yet "
+            "(ROADMAP queue 1 item 7)")
+
+
+def seq_shard_tables(block_table: torch.Tensor, num_blocks: int,
+                     seq_shards: int) -> List[torch.Tensor]:
+    """``block_table`` translated for each seq shard of a pool of
+    ``num_blocks`` (JAX ``paged.py:296-299``, ``:660-669``): shard ``s``'s
+    table holds ``bt - s * nbl`` (-1 stays -1), so only its own pages land
+    in ``[0, nbl)``.  One translation per dispatch serves every layer."""
+    nbl = num_blocks // seq_shards
+    return [torch.where(block_table >= 0, block_table - s * nbl, -1) for s in range(seq_shards)]
+
+
+def _shard_views(pool: torch.Tensor, seq_shards: int) -> List[torch.Tensor]:
+    """Seq shard ``s``'s slice ``pool[s*nbl:(s+1)*nbl]``: a view, not a copy."""
+    nbl = pool.shape[0] // seq_shards
+    return [pool[s * nbl:(s + 1) * nbl] for s in range(seq_shards)]
+
+
+def _check_seq_shards(pool: torch.Tensor, seq_shards: int) -> None:
+    if pool.shape[0] % seq_shards:
+        raise ValueError(f"{seq_shards} seq shards must divide the block pool "
+                         f"({pool.shape[0]})")
+
+
+def _lse_merge(a, b):
+    """Log-sum-exp combine of two flash partials ``(acc, m, l)``; rows with
+    no key anywhere stay ``(0, -1e30, 0)``."""
+    acc_a, m_a, l_a = a
+    acc_b, m_b, l_b = b
+    m = torch.maximum(m_a, m_b)
+    wa = torch.exp(m_a - m)
+    wb = torch.exp(m_b - m)
+    return acc_a * wa[..., None] + acc_b * wb[..., None], m, l_a * wa + l_b * wb
+
+
+def _lse_merge_packed(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """JAX ``paged.py:542``: ``_lse_merge`` on packed partials
+    ``[..., hd + 2]`` = ``concat([acc, m, l], -1)``."""
+    acc, m, l = _lse_merge((a[..., :-2], a[..., -2], a[..., -1]),
+                           (b[..., :-2], b[..., -2], b[..., -1]))
+    return torch.cat([acc, m[..., None], l[..., None]], dim=-1)
+
+
+def merge_partials(parts, dtype: torch.dtype) -> torch.Tensor:
+    """The ``S`` shards' partials -> the normalized output.  The fold is the
+    one JAX's ring leaves on shard 0 (each hop: ``merge(received, mine)``):
+    shard 1's partial, merged with shards 2 .. S-1 in turn, then with shard
+    0's.  Divides by ``max(l, 1e-30)`` (a keyless row gives 0) and casts."""
+    c = parts[1]
+    for mine in (*parts[2:], parts[0]):
+        c = _lse_merge(c, mine)
+    acc, _, l = c
+    return (acc / l.clamp_min(1e-30)[..., None]).to(dtype)
 
 
 def paged_attention_decode(q, cache_k_layer, cache_v_layer, block_table, seq_lens,
                            scale: Optional[float] = None,
                            logits_soft_cap: Optional[float] = None, mesh=None,
-                           dp: int = 1, seq_shards: int = 1):
+                           dp: int = 1, seq_shards: int = 1,
+                           shard_tables: Optional[List[torch.Tensor]] = None):
     """Single-token attention against paged KV.  q [B, hq, hd]; pools
     [nb, bs, hkv, hd]; block_table [B, P] int32; seq_lens [B] int32 (length
-    INCLUDING the current token) -> [B, hq, hd]."""
-    _single_device(mesh, dp, seq_shards)
-    return _decode_dispatch(q, cache_k_layer, cache_v_layer, block_table, seq_lens,
-                            scale=scale, logits_soft_cap=logits_soft_cap)
+    INCLUDING the current token) -> [B, hq, hd].  With ``seq_shards > 1``
+    each shard's partial runs over its pool slice and the partials merge;
+    ``shard_tables`` (``seq_shard_tables``) saves the per-call
+    translation."""
+    _single_device(mesh, dp)
+    if seq_shards == 1:
+        return _decode_dispatch(q, cache_k_layer, cache_v_layer, block_table, seq_lens,
+                                scale=scale, logits_soft_cap=logits_soft_cap)
+    _check_seq_shards(cache_k_layer, seq_shards)
+    if shard_tables is None:
+        shard_tables = seq_shard_tables(block_table, cache_k_layer.shape[0], seq_shards)
+    parts = [paged_attention_decode_partial(q, ck, cv, bt, seq_lens, scale=scale,
+                                            logits_soft_cap=logits_soft_cap)
+             for ck, cv, bt in zip(_shard_views(cache_k_layer, seq_shards),
+                                   _shard_views(cache_v_layer, seq_shards), shard_tables)]
+    return merge_partials(parts, q.dtype)
 
 
 def paged_attention_packed_ctx(q, k, v, segment_ids, cache_k_layer, cache_v_layer,
                                ctx_tables, ctx_lens, scale: Optional[float] = None,
                                logits_soft_cap: Optional[float] = None, mesh=None,
-                               dp: int = 1, seq_shards: int = 1, ctx=None):
+                               dp: int = 1, seq_shards: int = 1, ctx=None,
+                               shard_tables: Optional[List[torch.Tensor]] = None):
     """Packed-prefill attention where each pack segment also attends to its
     slot's cached pages below its start offset (prefix-cache hits, chunked
     prefill).  q/k/v [T, h, hd]; segment_ids [T] (slot + 1, 0 = pad);
     pools WITH this pack's pages already written (masked out by
     ``ctx_lens``); ctx_tables [N, P]; ctx_lens [N] -> [T, hq, hd], pad rows
-    0.  ``ctx`` (the serving context) is accepted for the JAX signature."""
-    _single_device(mesh, dp, seq_shards)
-    return _packed_ctx_dispatch(q, k, v, segment_ids, cache_k_layer, cache_v_layer,
-                                ctx_tables, ctx_lens, scale=scale,
-                                logits_soft_cap=logits_soft_cap)
+    0.  With ``seq_shards > 1`` each shard's partial covers its own pages,
+    the pack's own keys are charged to shard 0 only, and the partials
+    merge.  ``ctx`` (the serving context) is accepted for the JAX
+    signature."""
+    _single_device(mesh, dp)
+    if seq_shards == 1:
+        return _packed_ctx_dispatch(q, k, v, segment_ids, cache_k_layer, cache_v_layer,
+                                    ctx_tables, ctx_lens, scale=scale,
+                                    logits_soft_cap=logits_soft_cap)
+    _check_seq_shards(cache_k_layer, seq_shards)
+    if shard_tables is None:
+        shard_tables = seq_shard_tables(ctx_tables, cache_k_layer.shape[0], seq_shards)
+    parts = [paged_attention_packed_ctx_partial(
+        q, k, v, segment_ids, ck, cv, bt, ctx_lens, include_pack=(s == 0), scale=scale,
+        logits_soft_cap=logits_soft_cap)
+        for s, (ck, cv, bt) in enumerate(zip(_shard_views(cache_k_layer, seq_shards),
+                                             _shard_views(cache_v_layer, seq_shards),
+                                             shard_tables))]
+    return merge_partials(parts, q.dtype)

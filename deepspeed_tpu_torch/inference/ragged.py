@@ -3,9 +3,12 @@ ragged.py``: refcounted blocked KV allocator with a prefix cache, sequence
 descriptors, state manager.
 
 Host-side Python, kept close to the JAX module line for line so the two
-hand out the same block ids under the same operations.  One replica and one
-stripe only: the 2-D / 3-D serve meshes' replica partitioning and seq-shard
-striping come with the distributed slice (other values raise).
+hand out the same block ids under the same operations.  One replica (the
+2-D serve mesh's replica partitioning comes with the distributed layers;
+other values raise), any number of seq-shard stripes: with
+``seq_shards = S`` the pool splits into ``S`` contiguous stripes, one per
+seq shard's slice of the device pool, and a sequence's chain round-robins
+over them (chain position ``i`` lives on stripe ``i % S``).
 
 Blocks are refcounted; FULL blocks carry a content key chained on their
 parent block, a new prompt reuses any cached prefix run of matching blocks,
@@ -49,11 +52,25 @@ class BlockedAllocator:
     def __init__(self, num_blocks: int, start: int = 0, stripes: int = 1):
         if num_blocks < 1:
             raise ValueError(f"need at least one block, got {num_blocks}")
-        if stripes != 1:
-            raise NotImplementedError("seq-shard striping is not ported yet")
+        if stripes < 1 or num_blocks % stripes:
+            raise ValueError(
+                f"stripes ({stripes}) must be >= 1 and divide the pool "
+                f"({num_blocks} blocks)")
         self._start = start
         self._num_blocks = num_blocks
-        self._free: List[int] = list(range(start, start + num_blocks))
+        # ``stripes`` (seq-sharded serving): the pool splits into
+        # ``stripes`` CONTIGUOUS sub-ranges -- stripe s owns global ids
+        # [start + s*size, start + (s+1)*size) -- mirroring the device pool's
+        # seq-shard slices, and ``allocate(first_pos=...)`` round-robins a
+        # sequence's chain over them so chain position i's page lives on
+        # seq shard i % stripes (a long sequence fits iff the AGGREGATE pool
+        # fits it)
+        self._stripes = stripes
+        self._stripe_size = num_blocks // stripes
+        self._free: List[List[int]] = [
+            list(range(start + s * self._stripe_size, start + (s + 1) * self._stripe_size))
+            for s in range(stripes)
+        ]
         self._refs: List[int] = [0] * num_blocks  # indexed by (block - start)
         self._key_of: Dict[int, object] = {}  # block -> content key
         self._by_key: Dict[object, int] = {}  # content key -> block
@@ -65,7 +82,19 @@ class BlockedAllocator:
 
     @property
     def free_blocks(self) -> int:
-        return len(self._free)
+        return sum(len(f) for f in self._free)
+
+    @property
+    def stripes(self) -> int:
+        return self._stripes
+
+    def stripe_of(self, block: int) -> int:
+        """Which stripe (seq shard) owns ``block``."""
+        self._check(block)
+        return (block - self._start) // self._stripe_size
+
+    def _push_free(self, block: int) -> None:
+        self._free[(block - self._start) // self._stripe_size].append(block)
 
     @property
     def cached_blocks(self) -> int:
@@ -73,8 +102,8 @@ class BlockedAllocator:
 
     @property
     def available_blocks(self) -> int:
-        """Immediately allocatable: free list + evictable cached blocks."""
-        return len(self._free) + len(self._lru)
+        """Immediately allocatable: free lists + evictable cached blocks."""
+        return self.free_blocks + len(self._lru)
 
     @property
     def total_blocks(self) -> int:
@@ -89,29 +118,52 @@ class BlockedAllocator:
             raise ValueError(f"invalid block id {block}")
 
     def can_allocate(self, n: int, first_pos: int = 0, hold=()) -> bool:
-        """Whether ``allocate(n)`` would succeed.  ``hold``: cached-LRU
-        blocks an admission is about to revive, charged as unavailable."""
-        return n <= self.available_blocks - len(set(hold) & self._lru.keys())
+        """Whether ``allocate(n, first_pos)`` would succeed.  Under striping
+        aggregate headroom is NOT enough: run entry ``j`` must come from
+        stripe ``(first_pos + j) % stripes``.  ``hold``: cached-LRU blocks
+        an admission is about to revive, charged as unavailable."""
+        held = set(hold)
+        if self._stripes == 1:
+            return n <= self.available_blocks - len(held & self._lru.keys())
+        need = [0] * self._stripes
+        for j in range(n):
+            need[(first_pos + j) % self._stripes] += 1
+        lru_per = [0] * self._stripes
+        for b in self._lru:
+            if b not in held:
+                lru_per[(b - self._start) // self._stripe_size] += 1
+        return all(len(self._free[s]) + lru_per[s] >= need[s]
+                   for s in range(self._stripes))
 
     def allocate(self, n: int, first_pos: int = 0) -> List[int]:
-        """Hand out ``n`` fresh blocks (``first_pos`` is the chain position
-        of the first one; it matters only under striping)."""
-        if not self.can_allocate(n):
+        """Hand out ``n`` fresh blocks; run entry ``j`` comes from stripe
+        ``(first_pos + j) % stripes`` (``first_pos``: the chain position of
+        the run's first block; the identity at one stripe)."""
+        if not self.can_allocate(n, first_pos):
             raise RuntimeError(
                 f"cannot allocate {n} blocks ({self.available_blocks} available)"
             )
         out: List[int] = []
-        for _ in range(n):
+        for j in range(n):
+            s = (first_pos + j) % self._stripes
             # LIFO: O(1), and recently-freed pages are the warmest
-            b = self._free.pop() if self._free else self._evict_one()
+            b = self._free[s].pop() if self._free[s] else self._evict_one(s)
             self._refs[b - self._start] = 1
             out.append(b)
         return out
 
-    def _evict_one(self) -> int:
-        """Drop the least-recently-used cached block, cascading its key AND
-        every cached descendant's key."""
-        b, _ = self._lru.popitem(last=False)
+    def _evict_one(self, stripe: Optional[int] = None) -> int:
+        """Drop the least-recently-used cached block (of ``stripe``, when
+        the pool is striped), cascading its key AND every cached
+        descendant's key."""
+        if stripe is None or self._stripes == 1:
+            b, _ = self._lru.popitem(last=False)
+        else:
+            b = next((x for x in self._lru
+                      if (x - self._start) // self._stripe_size == stripe), None)
+            if b is None:
+                raise RuntimeError(f"no evictable blocks in stripe {stripe}")
+            del self._lru[b]
         self._drop_key(b)
         self.evictions += 1
         return b
@@ -131,7 +183,7 @@ class BlockedAllocator:
             # the free list (the root itself is the caller's to hand out)
             if x != root and self._refs[x - self._start] == 0 and x in self._lru:
                 del self._lru[x]
-                self._free.append(x)
+                self._push_free(x)
 
     def ref(self, block: int) -> None:
         """Take a reference on an allocated or cached block."""
@@ -158,7 +210,7 @@ class BlockedAllocator:
                     self._lru[b] = None
                     self._lru.move_to_end(b)
                 else:
-                    self._free.append(b)
+                    self._push_free(b)
 
     def register(self, block: int, key, parent: Optional[int] = None) -> bool:
         """Publish ``block`` as holding the content ``key`` (a FULL block),
@@ -187,7 +239,7 @@ class BlockedAllocator:
         self._drop_key(block)
         if self._refs[block - self._start] == 0 and block in self._lru:
             del self._lru[block]
-            self._free.append(block)
+            self._push_free(block)
 
     def lookup(self, key) -> Optional[int]:
         """Block currently holding content ``key`` (caller must ``ref`` it)."""
@@ -202,10 +254,15 @@ class BlockedAllocator:
                 raise RuntimeError(f"allocator audit: {msg}")
 
         owned = set(range(self._start, self._start + self._num_blocks))
-        free = set(self._free)
+        for s, fl in enumerate(self._free):
+            for b in fl:
+                expect((b - self._start) // self._stripe_size == s,
+                       f"block {b} on stripe {s}'s free list but owned by stripe "
+                       f"{(b - self._start) // self._stripe_size}")
+        free = {b for fl in self._free for b in fl}
         lru = set(self._lru)
         active = {b for b in owned if self._refs[b - self._start] > 0}
-        expect(len(free) == len(self._free), "duplicate free-list entries")
+        expect(len(free) == self.free_blocks, "duplicate free-list entries")
         expect(not (free & lru), f"free/lru overlap: {free & lru}")
         expect(not (free & active), f"free/active overlap: {free & active}")
         expect(not (lru & active), f"lru/active overlap: {lru & active}")
@@ -264,13 +321,23 @@ class StateManager:
     def __init__(self, num_blocks: int, block_size: int, max_seqs: int,
                  enable_prefix_caching: bool = False, replicas: int = 1,
                  seq_shards: int = 1):
-        if replicas != 1 or seq_shards != 1:
+        if replicas != 1:
             raise NotImplementedError(
-                "replica-partitioned / seq-sharded pools are not ported yet")
+                "replica-partitioned pools are not ported yet (ROADMAP queue 1 item 7)")
+        # ``seq_shards``: the pool stripes into ``seq_shards`` contiguous
+        # sub-ranges and a sequence's chain round-robins across them --
+        # stripe s is exactly seq shard s's slice of the device pool, so the
+        # attention's global -> local block-id translation needs no host help
+        if seq_shards < 1:
+            raise ValueError(f"seq_shards must be >= 1, got {seq_shards}")
+        if num_blocks % seq_shards:
+            raise ValueError(
+                f"each replica's pool ({num_blocks} blocks) must divide into "
+                f"{seq_shards} seq shards")
         self.block_size = block_size
         self.replicas = 1
-        self.seq_shards = 1
-        self.allocator = BlockedAllocator(num_blocks)
+        self.seq_shards = seq_shards
+        self.allocator = BlockedAllocator(num_blocks, stripes=seq_shards)
         self.allocators = [self.allocator]
         self.max_seqs = max_seqs
         self.seqs: Dict[int, SequenceDescriptor] = {}
@@ -341,7 +408,11 @@ class StateManager:
                             else (0, []))
             fresh_lru = [b for b in lru if b not in revived]
             need = (blocks - matched) + len(fresh_lru)
-            if avail < need:
+            # the running total catches cross-admission pressure; the
+            # per-stripe probe (against the CURRENT state) a full stripe
+            # hiding behind aggregate headroom
+            if avail < need or not self.allocator.can_allocate(
+                    blocks - matched, first_pos=matched, hold=fresh_lru):
                 return False
             slots -= 1
             avail -= need
@@ -360,7 +431,9 @@ class StateManager:
                         if self.enable_prefix_caching and tokens is not None
                         else (0, []))
         blocks = -(-prompt_len // self.block_size)
-        return self.allocator.can_allocate(blocks - matched, hold=lru)
+        # fresh blocks land at chain positions matched..blocks-1, each in
+        # its own stripe
+        return self.allocator.can_allocate(blocks - matched, first_pos=matched, hold=lru)
 
     def _match_prefix(self, tokens: List[int]) -> Tuple[List[int], List[object]]:
         """Longest cached run of FULL leading blocks for ``tokens``, each
@@ -405,7 +478,7 @@ class StateManager:
         b = seq.blocks[i]
         if self.allocator.refcount(b) <= 1:
             return
-        [new] = self.allocator.allocate(1, first_pos=i)
+        [new] = self.allocator.allocate(1, first_pos=i)  # stay in position i's stripe
         if self.cow_hook is not None:
             self.cow_hook(b, new)
         self.allocator.free([b])

@@ -66,12 +66,20 @@ STAT_NAMES = ("submitted", "finished", "failed", "cancelled", "admissions",
 @dataclass(frozen=True)
 class SubmitResult:
     """What ``try_submit`` returns: ``accepted`` or a reason
-    (``CLIENT_ERRORS``: the request is invalid outright)."""
+    (``CLIENT_ERRORS``: the request is invalid outright).
+
+    ``budget_blocks`` / ``budget_scope`` accompany ``REJECT_POOL_IMPOSSIBLE``:
+    the KV-block budget the request was judged against and what it spans
+    (``"replica_pool"``, or ``"replica_pool(aggregate over S seq shards)"``
+    on a seq-sharded engine), so a caller can tell "too long for THIS
+    configuration" (more ``seq_shards`` / ``num_blocks`` would serve it)
+    from "too long ever" (``REJECT_PROMPT_TOO_LONG``)."""
 
     uid: int
     reason: str
     detail: str = ""
     budget_blocks: Optional[int] = None
+    budget_scope: str = ""
 
     @property
     def accepted(self) -> bool:
@@ -143,12 +151,16 @@ class ServeScheduler:
         # growth eventually exhausts the pool with no victim left to preempt
         max_len = min(len(tokens) + sampling.max_new_tokens, eng.max_seq_len)
         blocks = -(-max_len // eng.block_size)
-        pool = eng.mgr.allocator.total_blocks
+        # a replica's pool aggregates its seq shards (the sequence stripes
+        # across all S slices): bigger contexts fit by raising seq_shards
+        pool = eng.mgr.allocator.total_blocks // eng.mgr.replicas
         if blocks > pool:
+            scope = ("replica_pool" if eng.mgr.seq_shards <= 1 else
+                     f"replica_pool(aggregate over {eng.mgr.seq_shards} seq shards)")
             return SubmitResult(
                 uid, REJECT_POOL_IMPOSSIBLE,
-                f"prompt + max_new_tokens needs {blocks} KV blocks; the pool "
-                f"only has {pool}", budget_blocks=pool)
+                f"prompt + max_new_tokens needs {blocks} KV blocks; a replica's pool "
+                f"only has {pool} ({scope})", budget_blocks=pool, budget_scope=scope)
         triple = (sampling.temperature, sampling.top_k, sampling.top_p)
         if not self._running and not self.waiting:
             self._triple = triple
@@ -232,7 +244,14 @@ class ServeScheduler:
             mgr.release(req.uid)
             mgr.hit_stats_restore(snap)
             return False
-        mgr.ensure_capacity(seq, 0)  # reserve every prompt page up front
+        try:
+            mgr.ensure_capacity(seq, 0)  # reserve every prompt page up front
+        except RuntimeError:
+            # a seq-sharded pool: one stripe is full behind aggregate headroom.
+            # Roll back and wait for the running requests to free pages
+            mgr.release(req.uid)
+            mgr.hit_stats_restore(snap)
+            return False
         req.state = PREFILL
         if req.admit_tick < 0:
             req.admit_tick = self.tick_no

@@ -35,8 +35,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # kernel name -> source file.  One library per source: the decode kernel's
 # head_dim-64 instantiation (the counterpart of the TPU's lane-packed K2p)
-# counts under its own name; both backward kernels live in flash_bwd.cu and
-# the block-sparse forward, dq and dk/dv kernels in sparse_flash.cu; the int8 / e4m3 / fp6 dequant-matmuls share
+# counts under its own name, and so do the partial modes of the decode and
+# packed-context kernels (seq-sharded serving); both backward kernels live
+# in flash_bwd.cu and the block-sparse forward, dq and dk/dv kernels in
+# sparse_flash.cu; the int8 / e4m3 / fp6 dequant-matmuls share
 # quant_matmul.cu and the row quantizers quantize.cu, each format counted
 # under its own name.
 SOURCES = {
@@ -45,7 +47,9 @@ SOURCES = {
     "flash_bwd_dkv": "flash_bwd.cu",
     "paged_decode": "paged_decode.cu",
     "paged_decode_hd64": "paged_decode.cu",
+    "paged_decode_partial": "paged_decode.cu",
     "ctx_attention": "ctx_attention.cu",
+    "ctx_attention_partial": "ctx_attention.cu",
     "quant_matmul_int8": "quant_matmul.cu",
     "quant_matmul_fp8": "quant_matmul.cu",
     "quant_matmul_fp6": "quant_matmul.cu",
@@ -72,8 +76,12 @@ _ARGTYPES = {
                       [_PTR] * 9 + [_INT] * 5 + [_FLOAT, _FLOAT, _PTR]),
     **{name: ("dst_paged_decode", [_PTR] * 6 + [_INT] * 7 + [_FLOAT, _FLOAT, _PTR])
        for name in ("paged_decode", "paged_decode_hd64")},
+    "paged_decode_partial": ("dst_paged_decode_partial",
+                             [_PTR] * 8 + [_INT] * 7 + [_FLOAT, _FLOAT, _PTR]),
     "ctx_attention": ("dst_ctx_attention",
                       [_PTR] * 9 + [_INT] * 8 + [_FLOAT, _FLOAT, _PTR]),
+    "ctx_attention_partial": ("dst_ctx_attention_partial",
+                              [_PTR] * 11 + [_INT] * 9 + [_FLOAT, _FLOAT, _PTR]),
     **{name: ("dst_quant_matmul", [_PTR] * 6 + [_INT] * 8 + [_PTR])
        for name in ("quant_matmul_int8", "quant_matmul_fp8", "quant_matmul_fp6")},
     **{name: ("dst_quantize_rows", [_PTR] * 3 + [_INT] * 4 + [_FLOAT, _PTR])
@@ -227,6 +235,23 @@ def check_cuda(name: str, dtype: torch.dtype, *tensors: torch.Tensor) -> None:
             raise ValueError(f"{name}: tensors must be contiguous")
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: tensor data must be 16-byte aligned")
+
+
+def check_heads(name: str, hq: int, hkv: int, hd: int, max_group: int) -> None:
+    """Head-shape validation of the attention wrappers, run before any
+    device check: ``hkv`` must divide ``hq``; a head_dim other than 64 and
+    128, or a query group ``hq / hkv`` above the kernel's limit, is a shape
+    the kernel does not take yet and raises ``NotImplementedError``."""
+    if hkv <= 0 or hq % hkv:
+        raise ValueError(f"{name}: hkv {hkv} must divide hq {hq}")
+    if hd not in (64, 128):
+        raise NotImplementedError(
+            f"{name}: head_dim {hd} is not ported to the card yet (ROADMAP queue 2); "
+            "the kernels take head_dim 64 or 128")
+    if hq // hkv > max_group:
+        raise NotImplementedError(
+            f"{name}: query group {hq // hkv} (hq {hq} / hkv {hkv}) is above this kernel's "
+            f"limit of {max_group} (ROADMAP queue 2)")
 
 
 def scalars(scale: float, soft_cap: Optional[float]):

@@ -26,7 +26,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..attention import dot_product_attention, repeat_kv
-from . import check_cuda, launch, ptr, scalars
+from . import check_cuda, check_heads, launch, ptr, scalars
 
 
 # ---------------------------------------------------------------------------
@@ -88,14 +88,17 @@ def flash_attention_bwd_plain(q, k, v, seg, o, lse, do, scale, cap, kv_seg=None,
 # ---------------------------------------------------------------------------
 # CUDA kernel wrappers
 # ---------------------------------------------------------------------------
-def _check(name, q, k, v, segment_ids):
+# query heads a kv head: K1f's pairs per CTA (csrc/flash_fwd.cu), K1b's dq
+# kernel's (csrc/flash_bwd.cu)
+MAX_GROUP_FWD = 64
+MAX_GROUP_BWD = 32
+
+
+def _check(name, q, k, v, segment_ids, max_group):
     b, s, hq, d = q.shape
     if k.shape != (b, s, k.shape[2], d) or v.shape != k.shape:
         raise ValueError(f"{name}: q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
-    hkv = k.shape[2]
-    if hq % hkv or d not in (64, 128):
-        raise ValueError(f"{name}: hq {hq} / hkv {hkv} / head_dim {d} not supported "
-                         "(head_dim 64 or 128, hkv | hq)")
+    check_heads(name, hq, k.shape[2], d, max_group)
     check_cuda(name, torch.bfloat16, q, k, v)
     if segment_ids is None:
         return None
@@ -110,7 +113,7 @@ def _check(name, q, k, v, segment_ids):
 def flash_attention_kernel(q, k, v, segment_ids=None, scale=None, logits_soft_cap=None,
                            return_lse: bool = False):
     """The forward kernel: o, or (o, lse) with ``return_lse``."""
-    seg_ptr = _check("flash_attention", q, k, v, segment_ids)
+    seg_ptr = _check("flash_attention", q, k, v, segment_ids, MAX_GROUP_FWD)
     b, s, hq, d = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((b, hq, s), dtype=torch.float32, device=q.device) if return_lse else None
@@ -124,7 +127,7 @@ def flash_attention_bwd_kernel(q, k, v, segment_ids, o, lse, do, scale=None,
                                logits_soft_cap=None):
     """The backward kernels: (dq, dk, dv) in bf16.  delta = rowsum(dO * o)
     is one PyTorch reduction (JAX too computes it outside Pallas)."""
-    seg_ptr = _check("flash_attention_bwd", q, k, v, segment_ids)
+    seg_ptr = _check("flash_attention_bwd", q, k, v, segment_ids, MAX_GROUP_BWD)
     check_cuda("flash_attention_bwd", torch.bfloat16, o, do)
     b, s, hq, d = q.shape
     hkv = k.shape[2]

@@ -35,7 +35,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from . import check_cuda, launch, ptr, scalars
+from . import check_cuda, check_heads, launch, ptr, scalars
 from .flash_attention import flash_attention_bwd_plain, flash_attention_fwd_plain
 
 MAX_GROUP = 32  # query heads a kv head: the dq kernel's pairs per CTA
@@ -168,13 +168,7 @@ def _check(name, q, k, v, qseg, kseg, plan: SparsePlan):
     if k.shape != (b, s, k.shape[2], d) or v.shape != k.shape:
         raise ValueError(f"{name}: q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
     hkv = k.shape[2]
-    if d == 256:
-        raise NotImplementedError(
-            f"{name}: head_dim 256 is not ported to the card yet (ROADMAP queue 1 item 8); "
-            "the kernels take head_dim 64 or 128")
-    if hq % hkv or hq // hkv > MAX_GROUP or d not in (64, 128):
-        raise ValueError(f"{name}: hq {hq} / hkv {hkv} / head_dim {d} not supported "
-                         f"(head_dim 64 or 128, hkv | hq, hq / hkv <= {MAX_GROUP})")
+    check_heads(name, hq, hkv, d, MAX_GROUP)
     if s != plan.n * plan.block:
         raise ValueError(f"{name}: s {s} != {plan.n} blocks of {plan.block}")
     check_cuda(name, torch.bfloat16, q, k, v)

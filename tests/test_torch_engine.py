@@ -131,11 +131,21 @@ def test_submit_reasons_and_generate(pair):
 
 
 def test_unsupported_arguments_raise(pair):
+    from deepspeed_tpu_torch.parallel.topology import Grid, MeshSpec
+
     _, _, tcfg, tp = pair
-    for kw in (dict(fused_serving=False), dict(offload_weights=True), dict(grid=object()),
-               dict(serve_replicas=2), dict(seq_shards=2)):
+    # a tensor-parallel grid is refused with the rest (ROADMAP queue 1 item
+    # 7); seq shards are ported (tests/test_torch_seq_shard.py)
+    tp_grid = Grid(spec=MeshSpec(model=2), devices=[torch.device("cpu")] * 2)
+    for kw in (dict(fused_serving=False), dict(offload_weights=True), dict(grid=tp_grid),
+               dict(serve_replicas=2)):
         with pytest.raises(NotImplementedError):
             InferenceEngineV2(tp, tcfg, device="cpu", num_blocks=8, **kw)
+    # seq_shards without a grid whose seq axis matches, as in JAX
+    with pytest.raises(ValueError, match="seq axis"):
+        InferenceEngineV2(tp, tcfg, device="cpu", num_blocks=8, seq_shards=2)
+    with pytest.raises(TypeError):
+        InferenceEngineV2(tp, tcfg, device="cpu", num_blocks=8, grid=object())
     # speculation is ported; its arguments are checked as in JAX
     for kw in (dict(spec_max_draft=0), dict(spec_min_match=0)):
         with pytest.raises(ValueError):

@@ -6,7 +6,8 @@ on the same bf16 inputs: max abs err <= 2e-2 (bf16 output rounding of
 unit-scale values plus a different fp32 summation order), and each call
 counts exactly one launch (K2 at head_dim 64, gpt2_small's MHA heads and
 a GQA group of 4, under ``paged_decode_hd64``; K3 also on a verify tick's
-pack, contexts ending mid-page).  The training backward: K1f's lse within 1e-3,
+pack, contexts ending mid-page; the partial modes of K3 and K2 on striped
+pools, and their merge against the non-partial kernels).  The training backward: K1f's lse within 1e-3,
 and dq, dk and dv within ``chip_smoke.BWD_TOL`` relative Frobenius error,
 over the whole tensor and in every 64-row block of one head (the kernels
 round only their bf16 outputs), each launched once per call.  Quantized
@@ -94,6 +95,58 @@ def test_ctx_kernel_on_a_mid_page_verify_pack(hq, hkv, hd):
     assert float((got.float().cpu() - ref).abs().max()) <= TOL
     pad = (c["segment_ids"] == 0).cpu()
     assert bool(pad.any()) and not bool(got.cpu()[pad].ne(0).any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["ctx", "verify_hd64", "decode", "decode_hd64"])
+@pytest.mark.parametrize("S", [2, 4])
+def test_partial_kernels_match_plain_and_merge_to_the_full_kernel(case, S):
+    """The partial modes (seq-sharded serving) on each shard's view of a
+    pool striped over ``S`` shards, against their plain versions on the
+    same inputs (``chip_smoke.partial_errs``: the triple in output units
+    within ``TOL``, rows with no key here exactly (0, -1e30, 0)), one launch
+    each under its own name; the partials merged equal the non-partial
+    kernel on the whole pool within ``TOL`` (idle decode slots, which K2
+    clamps to page 0, excepted: the merge gives 0 there)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from deepspeed_tpu_torch.inference.paged import merge_partials
+    from deepspeed_tpu_torch.ops.kernels import ctx_attention as K3
+    from deepspeed_tpu_torch.ops.kernels import paged_attention as K2
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    if case.startswith("decode"):
+        kw = chip_smoke.GPT2_DECODE if case == "decode_hd64" else {}
+        c = chip_smoke.decode_case(torch, gen, **dict(kw, B=16, inactive=2, stripes=S))
+        key, name = "block_table", "paged_decode_partial"
+        partial, plain, full = (K2.paged_attention_decode_partial_kernel,
+                                K2.paged_attention_decode_partial_plain,
+                                K2.paged_attention_decode_kernel)
+        live = c["block_table"][:, 0] >= 0
+    else:
+        c = (chip_smoke.ctx_case(torch, gen, stripes=S) if case == "ctx"
+             else chip_smoke.verify_case(torch, gen, 12, 12, 64, stripes=S))
+        key, name = "ctx_tables", "ctx_attention_partial"
+        partial, plain, full = (K3.paged_attention_packed_ctx_partial_kernel,
+                                K3.paged_attention_packed_ctx_partial_plain,
+                                K3.paged_attention_packed_ctx_kernel)
+        live = torch.ones(c["q"].shape[0], dtype=torch.bool, device="cuda")
+    parts = []
+    for s in range(S):
+        sh = chip_smoke.shard_view(torch, c, s, S, key)
+        kw = {} if key == "block_table" else dict(include_pack=s == 0)
+        K.reset_launches()
+        got = partial(**sh, **kw)
+        torch.cuda.synchronize()
+        assert K.LAUNCHES[name] == 1 and sum(K.LAUNCHES.values()) == 1
+        ref = plain(**_cpu_f32(sh), **kw)
+        err, _ = chip_smoke.partial_errs(torch, [x.cpu() for x in got], ref, f"{case} {s}")
+        assert err <= TOL, (s, err)
+        parts.append(got)
+    merged = merge_partials(parts, torch.bfloat16)
+    want = full(**c)
+    assert float((merged[live].float() - want[live].float()).abs().max()) <= TOL
+    assert not bool(merged[~live].ne(0).any())
 
 
 @pytest.mark.gpu

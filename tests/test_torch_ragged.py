@@ -107,7 +107,15 @@ def test_same_blocks_and_refcounts_as_jax(seed):
 
 
 def test_one_replica_one_stripe_only():
-    with pytest.raises(NotImplementedError):
+    """Replica partitioning is still refused (ROADMAP queue 1 item 7); seq-shard
+    stripes are ported (tests/test_torch_seq_shard.py) and take the JAX
+    module's argument checks."""
+    with pytest.raises(NotImplementedError, match="item 7"):
         tr.StateManager(8, 4, 2, replicas=2)
-    with pytest.raises(NotImplementedError):
-        tr.BlockedAllocator(8, stripes=2)
+    for make in (lambda m: m.BlockedAllocator(8, stripes=3),
+                 lambda m: m.BlockedAllocator(8, stripes=0),
+                 lambda m: m.StateManager(9, 4, 2, seq_shards=2)):
+        for m in (jr, tr):
+            with pytest.raises(ValueError):
+                make(m)
+    assert tr.StateManager(8, 4, 2, seq_shards=2).allocator.stripes == 2
