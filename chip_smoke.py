@@ -7,13 +7,20 @@ Phases, each raising on failure (so the exit code is non-zero):
 1. build    -- compile the CUDA kernels from ``deepspeed_tpu_torch/csrc``
                (one nvcc per source, in parallel) and print the build time
                and each kernel's register / shared-memory report;
+   sass     -- for every kernel of the two flash libraries, its HGMMA, HMMA
+               and FFMA instruction counts (``cuobjdump -sass``) beside
+               ptxas's registers and spills; fails if a flash kernel holds
+               no tensor-core instruction (the forward no HGMMA);
 2. kernels  -- each kernel against its plain PyTorch version on the card,
                bf16 inputs, the plain version computing in fp32, at the
-               serving path's shapes (tolerance KERNEL_TOL), and the
+               serving path's shapes (tolerance KERNEL_TOL; K1f also at
+               head_dim 64 / 256 and a query group of 71), and the
                training backward (K1f's lse, the dq and dk/dv kernels) at
-               s 4096, a packed batch with segments and soft cap, s 200
-               and head_dim 64 (BWD_TOL, LSE_TOL); the dequant-matmuls (K4
-               int8 / e4m3, K5 fp6) at every llama3_8b serving-matmul shape,
+               s 4096 and 4097, packed batches with segments and soft cap,
+               s 200, head_dim 64 and 256, and a group of 71 (falcon_7b's
+               71 query heads on 1 kv head; BWD_TOL, LSE_TOL); the
+               dequant-matmuls (K4 int8 / e4m3, K5 fp6) at every llama3_8b
+               serving-matmul shape,
                M 16 and 512, and ragged shapes with a bias (QMM_TOL,
                relative Frobenius); the row quantizers (K6a/b/c) on
                [4096, 14336] bf16 rows with a zero row, byte-identical;
@@ -117,7 +124,9 @@ Phases, each raising on failure (so the exit code is non-zero):
                again, at the training flagship's per-call shape; K4 / K5
                at M 16 and 512 on [4096, 14336]; K7f / K7b at the sparse
                flagship's per-call shape; the partial modes on shard 0 of
-               2 at the scheduler's pack and the engine's decode shape).
+               2 at the scheduler's pack and the engine's decode shape),
+               and K1's CUDA-core times before its tensor-core redesign
+               (``K1_EARLIER_MS``, from PERF.md) as ``earlier_ms``.
 
 Prints one JSON line per phase, the ``kernels`` JSON line, the card's name
 and power limit, and last ``{"ok": true, "device": {...}}``.  Exits non-zero
@@ -127,6 +136,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -156,7 +166,7 @@ LSE_TOL = 1e-3
 TRAIN_LOSS_RTOL = 1e-2
 GRAD_COS_MIN = 0.99
 # timed steps of the train phase, as many as one bench.py loop (each step
-# runs the CUDA-core attention kernels 48 times forward and backward: ~6 s)
+# runs the attention kernels 48 times forward and backward: about 1 s)
 TRAIN_STEPS = 6
 SPARSE_TRAIN_STEPS = 3
 # K8 against its plain version on the same fp32 inputs: both compute in
@@ -192,6 +202,16 @@ PEAK_BYTES = 3.35e12
 
 SEED = 0
 DEVICE = "cuda"  # where the input builders put their tensors
+
+# SASS opcodes counted in the flash libraries: the tensor-core products
+# (HGMMA: wgmma, HMMA: mma.sync) and fp32 FMAs (the CUDA-core arithmetic)
+SASS_OPS = ("HGMMA", "HMMA", "FFMA")
+FLASH_SOURCES = ("flash_fwd.cu", "flash_bwd.cu")
+# K1's CUDA-core kernels before the tensor-core redesign (PERF.md section 6:
+# PR 2's and PR 4's runs on an H100 80GB HBM3 at 700 W), printed beside this
+# run's times in the timings line; never compared or gated
+K1_EARLIER_MS = {"flash_fwd": 0.19663, "flash_fwd_train": 28.774, "flash_bwd_dq": 32.868,
+                 "flash_bwd_dkv": 47.843, "flash_bwd_pair": 80.978}
 
 
 def fail(msg: str) -> None:
@@ -379,6 +399,62 @@ def _f32(case):
             for k, v in case.items()}
 
 
+def _sass_op(line):
+    """The opcode of one ``cuobjdump -sass`` instruction line (no predicate,
+    no modifiers), or None."""
+    if "*/" not in line:
+        return None
+    words = line.split("*/", 1)[1].split()
+    if words and words[0].startswith("@"):
+        words = words[1:]
+    return words[0].split(".")[0] if words else None
+
+
+def _flash_kernel_key(mangled):
+    """``flash_bwd_dq_kernel<hd 128>`` from a mangled kernel name (its
+    tile shape's first template argument is the head dim)."""
+    m = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv)_kernel)I.*?Li(\d+)E", mangled)
+    return f"{m.group(1)}<hd {m.group(2)}>" if m else mangled
+
+
+def sass_phase(K):
+    """Phase 1b: per kernel of the flash libraries, the SASS counts of
+    ``SASS_OPS`` and ptxas's registers and spills; raises when a kernel
+    holds no tensor-core instruction, or the forward no HGMMA."""
+    cuobjdump = os.path.join(os.path.dirname(K._nvcc()), "cuobjdump")
+    out = {}
+    for src in FLASH_SOURCES:
+        sass = subprocess.run([cuobjdump, "-sass", K._lib_path(src)], capture_output=True,
+                              text=True, check=True).stdout
+        counts, name = {}, None
+        for ln in sass.splitlines():
+            if "Function :" in ln:
+                name = ln.split("Function :", 1)[1].strip()
+                counts[name] = dict.fromkeys(SASS_OPS, 0)
+            elif name is not None and _sass_op(ln) in SASS_OPS:
+                counts[name][_sass_op(ln)] += 1
+        regs, cur = {}, None
+        for ln in K.build_log(src).splitlines():
+            m = re.search(r"Function properties for (\S+)", ln)
+            if m:
+                cur = m.group(1)
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+            if m and cur:
+                regs.setdefault(cur, {}).update(spill_stores=int(m.group(1)),
+                                                spill_loads=int(m.group(2)))
+            m = re.search(r"Used (\d+) registers", ln)
+            if m and cur:
+                regs.setdefault(cur, {})["registers"] = int(m.group(1))
+        for mangled, c in counts.items():
+            key = _flash_kernel_key(mangled)
+            out[key] = dict(source=src, **c, **regs.get(mangled, {}))
+            if c["HGMMA"] + c["HMMA"] == 0 or ("flash_fwd" in key and c["HGMMA"] == 0):
+                raise AssertionError(f"sass: {key} holds no tensor-core instruction: {c}")
+    if not out:
+        raise AssertionError("sass: no kernel found in the flash libraries")
+    return out
+
+
 def kernel_checks(torch):
     """Phase 2.  Returns {kernel: max_abs_err} (worst case per kernel)."""
     from deepspeed_tpu_torch.ops.attention import dot_product_attention
@@ -420,6 +496,8 @@ def kernel_checks(torch):
         ("T64_50+pad14", flash_case(torch, gen, [50], 14)),
         ("T256_cap2", flash_case(torch, gen, [100, 60], 96, cap=2.0)),
         ("T192_noseg", dict(flash_case(torch, gen, [192], 0), segment_ids=None)),
+        ("T300_hd256", flash_case(torch, gen, [100, 200], 0, hd=256)),
+        ("T200_hq71_hkv1_hd64", flash_case(torch, gen, [120, 80], 0, hq=71, hkv=1, hd=64)),
     ):
         got = K1.flash_attention_kernel(case["q"], case["k"], case["v"], case["segment_ids"],
                                         logits_soft_cap=case["cap"])
@@ -461,29 +539,35 @@ def kernel_checks(torch):
         record("ctx_attention", label, got, ref)
     partial_kernel_checks(torch, gen, record)
 
-    # the training backward: K1f with lse, then the dq and dk/dv kernels, each
-    # against the plain FA2 formulas on the same bf16 inputs (and the
-    # kernel's own o and lse), in fp32
+    # the training backward: K1f's o and lse against the plain forward, then
+    # the dq and dk/dv kernels against the plain FA2 formulas on the same
+    # bf16 inputs (and the kernel's own o and lse), in fp32
     for label, case in (
         ("b1_s4096_hq8_hkv2_hd128", bwd_case(torch, gen, 1, 4096, 8, 2, 128)),
         ("b2_s1024_packed_cap2", bwd_case(torch, gen, 2, 1024, 8, 2, 128,
                                           seg_lens=[300, 500, 100, 124], cap=2.0)),
         ("b2_s200_hq8_hkv2_hd128", bwd_case(torch, gen, 2, 200, 8, 2, 128)),
         ("b1_s512_hq4_hkv4_hd64", bwd_case(torch, gen, 1, 512, 4, 4, 64)),
+        ("b1_s4097_hq8_hkv2_hd128", bwd_case(torch, gen, 1, 4097, 8, 2, 128)),
+        ("b1_s512_hq4_hkv2_hd256", bwd_case(torch, gen, 1, 512, 4, 2, 256)),
+        ("b1_s256_hq71_hkv1_hd64", bwd_case(torch, gen, 1, 256, 71, 1, 64)),
+        ("b2_s640_hq4_hkv1_hd256_packed_cap5", bwd_case(torch, gen, 2, 640, 4, 1, 256,
+                                                        seg_lens=[200, 300, 100], cap=5.0)),
     ):
         q, k, v, do, seg, cap = (case[n] for n in ("q", "k", "v", "do", "seg", "cap"))
         sc = q.shape[-1] ** -0.5
         o, lse = K1.flash_attention_kernel(q, k, v, seg, sc, cap, return_lse=True)
         dq, dk, dv = K1.flash_attention_bwd_kernel(q, k, v, seg, o, lse, do, sc, cap)
         f = [x.float() for x in (q, k, v, o, do)]
-        _, lse_ref = K1.flash_attention_fwd_plain(f[0], f[1], f[2], seg, sc, cap)
+        o_ref, lse_ref = K1.flash_attention_fwd_plain(f[0], f[1], f[2], seg, sc, cap)
         dq_r, dk_r, dv_r = K1.flash_attention_bwd_plain(f[0], f[1], f[2], seg, f[3], lse,
                                                          f[4], sc, cap)
+        record("flash_fwd", label, o, o_ref)
         record("flash_fwd", label + "_lse", lse, lse_ref, tol=LSE_TOL)
         record("flash_bwd_dq", label, dq, dq_r, tol=BWD_TOL, relative=True)
         record("flash_bwd_dkv", label + "_dk", dk, dk_r, tol=BWD_TOL, relative=True)
         record("flash_bwd_dkv", label + "_dv", dv, dv_r, tol=BWD_TOL, relative=True)
-        del case, q, k, v, do, o, lse, dq, dk, dv, f, lse_ref, dq_r, dk_r, dv_r
+        del case, q, k, v, do, o, lse, dq, dk, dv, f, o_ref, lse_ref, dq_r, dk_r, dv_r
     _free(torch)
     sparse_kernel_checks(torch, record)
     errs["fused_adamw"], adam_cases_ = adam_kernel_checks(torch)
@@ -2515,6 +2599,7 @@ def main() -> None:
              for src in dict.fromkeys(K.SOURCES.values())}
     emit(dict(phase="build", seconds=build["seconds"], built=build["built"],
               ptxas=ptxas, gpu=gpu))
+    emit(dict(phase="sass", ops=list(SASS_OPS), kernels=sass_phase(K), gpu=gpu))
 
     errs, cases = kernel_checks(torch)
     _free(torch)
@@ -2555,7 +2640,7 @@ def main() -> None:
     times.update(quant_timings(torch))
     times["fused_adamw"] = adam_times
     emit(dict(phase="timings", flash_bwd_pair=times.pop("flash_bwd_pair"),
-              flash_fwd_train=times["flash_fwd_train"],
+              flash_fwd_train=times["flash_fwd_train"], earlier_ms=K1_EARLIER_MS,
               quant={n: times[n] for n in (*QMM_NAMES.values(), *K6_NAMES)},
               sparse_bwd_pair=times.pop("sparse_bwd_pair"),
               sparse={n: times[n] for n in ATTN_KERNELS[True]},

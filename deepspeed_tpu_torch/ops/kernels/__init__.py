@@ -61,7 +61,6 @@ SOURCES = {
     "sparse_bwd_dkv": "sparse_flash.cu",
     "fused_adamw": "fused_adam.cu",
 }
-_HEADERS = ("attn_common.cuh",)  # hashed into every library's build key
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
 
@@ -132,9 +131,23 @@ def _nvcc() -> str:
         "built, and a CUDA tensor has no other path")
 
 
+def _local_includes(src: str) -> list:
+    """``src`` and the ``csrc`` headers it includes (``#include "..."``),
+    transitively, in first-seen order."""
+    seen = [src]
+    for f in seen:
+        with open(os.path.join(CSRC, f)) as fh:
+            for line in fh:
+                parts = line.split('"')
+                if line.startswith("#include") and len(parts) > 1 and parts[1] not in seen:
+                    seen.append(parts[1])
+    return seen
+
+
 def _source_hash(src: str) -> str:
+    """The build key: the flags, the source and the headers it includes."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for f in (src,) + _HEADERS:
+    for f in _local_includes(src):
         with open(os.path.join(CSRC, f), "rb") as fh:
             h.update(fh.read())
     return h.hexdigest()[:16]
@@ -237,18 +250,21 @@ def check_cuda(name: str, dtype: torch.dtype, *tensors: torch.Tensor) -> None:
             raise ValueError(f"{name}: tensor data must be 16-byte aligned")
 
 
-def check_heads(name: str, hq: int, hkv: int, hd: int, max_group: int) -> None:
+def check_heads(name: str, hq: int, hkv: int, hd: int, max_group: Optional[int] = None,
+                head_dims: Iterable[int] = (64, 128)) -> None:
     """Head-shape validation of the attention wrappers, run before any
-    device check: ``hkv`` must divide ``hq``; a head_dim other than 64 and
-    128, or a query group ``hq / hkv`` above the kernel's limit, is a shape
-    the kernel does not take yet and raises ``NotImplementedError``."""
+    device check: ``hkv`` must divide ``hq``; a head_dim outside the
+    kernel's ``head_dims``, or a query group ``hq / hkv`` above its
+    ``max_group`` (None: any group), is a shape the kernel does not take yet
+    and raises ``NotImplementedError``."""
     if hkv <= 0 or hq % hkv:
         raise ValueError(f"{name}: hkv {hkv} must divide hq {hq}")
-    if hd not in (64, 128):
+    dims = tuple(head_dims)
+    if hd not in dims:
         raise NotImplementedError(
             f"{name}: head_dim {hd} is not ported to the card yet (ROADMAP queue 2); "
-            "the kernels take head_dim 64 or 128")
-    if hq // hkv > max_group:
+            f"the kernels take head_dim {' or '.join(map(str, dims))}")
+    if max_group is not None and hq // hkv > max_group:
         raise NotImplementedError(
             f"{name}: query group {hq // hkv} (hq {hq} / hkv {hkv}) is above this kernel's "
             f"limit of {max_group} (ROADMAP queue 2)")

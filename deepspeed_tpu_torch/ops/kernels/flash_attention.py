@@ -10,10 +10,12 @@ dot_product_attention``) and a CUDA tensor the forward kernel
 backward is ``csrc/flash_bwd.cu`` (dq kernel, dk/dv kernel).  The Function
 is the same on both devices; only its two inner calls dispatch on the
 tensor's device: the plain versions on the CPU (the tests), the kernels on
-CUDA.  The kernels take causal attention with GQA, packed ``segment_ids``
-and the soft cap, bf16, head_dim 64 or 128, any sequence length (there is no
-TPU minimum).  A non-causal call or ``q_offset != 0`` runs the plain body on
-a CPU tensor and raises on a CUDA one.
+CUDA.  The kernels (wgmma on the tensor cores) take causal attention with
+GQA, packed ``segment_ids`` and the soft cap, bf16, head_dim 64, 128 or 256
+(the head dims JAX's gate admits, ``flash_kernel.py:108``), any query group
+(a CTA per query head) and any sequence length (there is no TPU minimum).
+A non-causal call or ``q_offset != 0`` runs the plain body on a CPU tensor
+and raises on a CUDA one.
 
 Shapes: q/o/dO ``[b, s, hq, d]``, k/v ``[b, s, hkv, d]`` (hkv divides hq),
 segment_ids ``[b, s]`` int32, lse ``[b, hq, s]`` fp32 in capped scaled-score
@@ -88,17 +90,15 @@ def flash_attention_bwd_plain(q, k, v, seg, o, lse, do, scale, cap, kv_seg=None,
 # ---------------------------------------------------------------------------
 # CUDA kernel wrappers
 # ---------------------------------------------------------------------------
-# query heads a kv head: K1f's pairs per CTA (csrc/flash_fwd.cu), K1b's dq
-# kernel's (csrc/flash_bwd.cu)
-MAX_GROUP_FWD = 64
-MAX_GROUP_BWD = 32
+# the head dims csrc/flash_fwd.cu and csrc/flash_bwd.cu are instantiated for
+HEAD_DIMS = (64, 128, 256)
 
 
-def _check(name, q, k, v, segment_ids, max_group):
+def _check(name, q, k, v, segment_ids):
     b, s, hq, d = q.shape
     if k.shape != (b, s, k.shape[2], d) or v.shape != k.shape:
         raise ValueError(f"{name}: q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
-    check_heads(name, hq, k.shape[2], d, max_group)
+    check_heads(name, hq, k.shape[2], d, head_dims=HEAD_DIMS)
     check_cuda(name, torch.bfloat16, q, k, v)
     if segment_ids is None:
         return None
@@ -113,7 +113,7 @@ def _check(name, q, k, v, segment_ids, max_group):
 def flash_attention_kernel(q, k, v, segment_ids=None, scale=None, logits_soft_cap=None,
                            return_lse: bool = False):
     """The forward kernel: o, or (o, lse) with ``return_lse``."""
-    seg_ptr = _check("flash_attention", q, k, v, segment_ids, MAX_GROUP_FWD)
+    seg_ptr = _check("flash_attention", q, k, v, segment_ids)
     b, s, hq, d = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((b, hq, s), dtype=torch.float32, device=q.device) if return_lse else None
@@ -127,7 +127,7 @@ def flash_attention_bwd_kernel(q, k, v, segment_ids, o, lse, do, scale=None,
                                logits_soft_cap=None):
     """The backward kernels: (dq, dk, dv) in bf16.  delta = rowsum(dO * o)
     is one PyTorch reduction (JAX too computes it outside Pallas)."""
-    seg_ptr = _check("flash_attention_bwd", q, k, v, segment_ids, MAX_GROUP_BWD)
+    seg_ptr = _check("flash_attention_bwd", q, k, v, segment_ids)
     check_cuda("flash_attention_bwd", torch.bfloat16, o, do)
     b, s, hq, d = q.shape
     hkv = k.shape[2]

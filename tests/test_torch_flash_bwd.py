@@ -35,6 +35,10 @@ CASES = []
 for i, (s, (hq, hkv), hd) in enumerate(
         (s, h, d) for s in (128, 256) for h in ((2, 2), (4, 2), (8, 2)) for d in (64, 128)):
     CASES.append((s, hq, hkv, hd, i % 2 == 1, 3.0 if i % 4 >= 2 else None))
+# head_dim 256 (the largest JAX's gate admits) and a large query group: the
+# shapes K1's tensor-core kernels took on besides 64 / 128 and groups of 8
+CASES += [(128, 4, 2, 256, True, 3.0), (128, 2, 1, 256, False, None),
+          (128, 16, 1, 64, True, None), (128, 16, 1, 128, False, 2.0)]
 
 
 def _np(shape, seed):

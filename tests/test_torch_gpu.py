@@ -7,10 +7,11 @@ unit-scale values plus a different fp32 summation order), and each call
 counts exactly one launch (K2 at head_dim 64, gpt2_small's MHA heads and
 a GQA group of 4, under ``paged_decode_hd64``; K3 also on a verify tick's
 pack, contexts ending mid-page; the partial modes of K3 and K2 on striped
-pools, and their merge against the non-partial kernels).  The training backward: K1f's lse within 1e-3,
+pools, and their merge against the non-partial kernels).  The training backward: K1f's o within 2e-2 and lse within 1e-3,
 and dq, dk and dv within ``chip_smoke.BWD_TOL`` relative Frobenius error,
 over the whole tensor and in every 64-row block of one head (the kernels
-round only their bf16 outputs), each launched once per call.  Quantized
+round only their bf16 outputs), each launched once per call, also at
+head_dim 256 and a query group of 71.  Quantized
 serving: K4 / K5 within ``chip_smoke.QMM_TOL`` relative Frobenius error,
 K6 byte-identical, and a call the kernels refuse raises without reaching
 a plain body.  This file imports neither JAX nor the JAX package, so it
@@ -150,13 +151,25 @@ def test_partial_kernels_match_plain_and_merge_to_the_full_kernel(case, S):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("seg_lens,cap,hd", [(None, None, 128), ([70, 100, 30], 2.0, 128),
-                                             (None, None, 64)])
-def test_flash_backward_kernels_match_plain(seg_lens, cap, hd):
+@pytest.mark.parametrize("b,s,hq,hkv,hd,seg_lens,cap", [
+    (2, 200, 8, 2, 128, None, None),
+    (2, 200, 8, 2, 128, [70, 100, 30], 2.0),
+    (2, 200, 8, 2, 64, None, None),
+    (1, 600, 8, 2, 128, None, None),
+    (1, 200, 4, 2, 256, None, None),
+    (1, 200, 4, 1, 256, [90, 70, 40], 5.0),
+    (1, 200, 71, 1, 64, None, None),
+    (1, 200, 71, 1, 64, [120, 80], 2.0),
+])
+def test_flash_backward_kernels_match_plain(b, s, hq, hkv, hd, seg_lens, cap):
+    """K1f's o within ``TOL`` and lse within 1e-3, dq / dk / dv within
+    ``chip_smoke.BWD_TOL`` per 64-row block, one launch of each kernel; at
+    head_dim 64 / 128 / 256, falcon_7b's 71 query heads on one kv head, and
+    s 600 (five key tiles at head_dim 128, so the K/V ring is refilled)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     gen = torch.Generator(device="cuda").manual_seed(0)
-    c = chip_smoke.bwd_case(torch, gen, 2, 200, 8, 2, hd, seg_lens=seg_lens, cap=cap)
+    c = chip_smoke.bwd_case(torch, gen, b, s, hq, hkv, hd, seg_lens=seg_lens, cap=cap)
     q, k, v, do, seg = c["q"], c["k"], c["v"], c["do"], c["seg"]
     sc = hd ** -0.5
     K.reset_launches()
@@ -167,7 +180,8 @@ def test_flash_backward_kernels_match_plain(seg_lens, cap, hd):
             K.LAUNCHES["flash_bwd_dkv"]) == (1, 1, 1)
     f = [x.cpu().float() for x in (q, k, v, o, do)]
     segc = seg.cpu() if seg is not None else None
-    _, lse_ref = K1.flash_attention_fwd_plain(f[0], f[1], f[2], segc, sc, cap)
+    o_ref, lse_ref = K1.flash_attention_fwd_plain(f[0], f[1], f[2], segc, sc, cap)
+    assert float((o.cpu().float() - o_ref).abs().max()) <= TOL
     assert float((lse.cpu() - lse_ref).abs().max()) <= 1e-3
     refs = K1.flash_attention_bwd_plain(f[0], f[1], f[2], segc, f[3], lse.cpu(), f[4], sc, cap)
     for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), refs):
