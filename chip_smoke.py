@@ -7,14 +7,15 @@ Phases, each raising on failure (so the exit code is non-zero):
 1. build    -- compile the CUDA kernels from ``deepspeed_tpu_torch/csrc``
                (one nvcc per source, in parallel) and print the build time
                and each kernel's register / shared-memory report;
-   sass     -- for every kernel of the two flash libraries, its HGMMA, HMMA
-               and FFMA instruction counts (``cuobjdump -sass``) beside
-               ptxas's registers and spills; fails if a flash kernel holds
-               no tensor-core instruction (the forward no HGMMA);
+   sass     -- for every kernel of the tensor-core attention libraries
+               (K1 dense, K7 block-sparse), its HGMMA, HMMA and FFMA
+               instruction counts (``cuobjdump -sass``) beside ptxas's
+               registers and spills; fails if a kernel holds no HGMMA;
 2. kernels  -- each kernel against its plain PyTorch version on the card,
                bf16 inputs, the plain version computing in fp32, at the
-               serving path's shapes (tolerance KERNEL_TOL; K1f also at
-               head_dim 64 / 256 and a query group of 71), and the
+               serving path's shapes (tolerance KERNEL_TOL; K1f's o also
+               BWD_TOL per 64-row block, at head_dim 64 / 256 and a query
+               group of 71), and the
                training backward (K1f's lse, the dq and dk/dv kernels) at
                s 4096 and 4097, packed batches with segments and soft cap,
                s 200, head_dim 64 and 256, and a group of 71 (falcon_7b's
@@ -73,11 +74,14 @@ Phases, each raising on failure (so the exit code is non-zero):
                64 launched 12 x packs and 12 x ticks, a one-tick profile),
                then the spec workload with speculation on; near-argmax
                replays of both;
-   Block-sparse attention (K7f's o and lse, K7b's dq and dk/dv) at b 2,
-               s 4096, hq 8 / hkv 2, hd 128 under fixed(128, 4, 1) and
-               bigbird(128), a packed batch with segments and soft cap 30
-               at s 1024, hd 64 under fixed(128, 2, 1), and a block-256
-               layout (KERNEL_TOL, LSE_TOL, BWD_TOL); the fused AdamW (K8)
+   Block-sparse attention (K7f's o and lse, K7b's dq and dk/dv;
+               ``SPARSE_CASES``) at b 2, s 4096, hq 8 / hkv 2, hd 128 under
+               fixed(128, 4, 1) and bigbird(128), a packed batch with
+               segments and soft cap 30 at s 1024, hd 64 under
+               fixed(128, 2, 1), a block-256 layout, hd 256, a group of 71,
+               a block-512 layout (four forward CTAs a block) and a packed
+               batch whose key ids differ from the rows' (KERNEL_TOL and
+               BWD_TOL on o, LSE_TOL, BWD_TOL); the fused AdamW (K8)
                on an odd-sized buffer of 2^24 + 37 elements at steps 1 and
                1000, wd 0 and 0.1, aligned and not (K8_TOL), and a
                ``finite = False`` step that changes no bit;
@@ -97,7 +101,8 @@ Phases, each raising on failure (so the exit code is non-zero):
                TRAIN_STEPS steps of ``train_on_loader``; loss finite and
                falling, flash_fwd / flash_bwd_dq / flash_bwd_dkv launched
                24 x 2 times per step and K8 once; step time, tokens/s, MFU,
-               peak memory and a one-step profile; then K8 timed on the
+               peak memory and a one-step profile (with the attention
+               kernels' device ms and their share); then K8 timed on the
                engine's own flat buffers (430,752,768 elements) beside
                ``torch._fused_adamw_`` over the same leaves;
    sparse_train -- the flagship with ``sparse_attention`` fixed(128, 4, 1)
@@ -125,8 +130,9 @@ Phases, each raising on failure (so the exit code is non-zero):
                at M 16 and 512 on [4096, 14336]; K7f / K7b at the sparse
                flagship's per-call shape; the partial modes on shard 0 of
                2 at the scheduler's pack and the engine's decode shape),
-               and K1's CUDA-core times before its tensor-core redesign
-               (``K1_EARLIER_MS``, from PERF.md) as ``earlier_ms``.
+               and K1's and K7's CUDA-core times before their tensor-core
+               redesigns (``K1_EARLIER_MS``, ``K7_EARLIER_MS``, from
+               PERF.md) as ``earlier_ms``.
 
 Prints one JSON line per phase, the ``kernels`` JSON line, the card's name
 and power limit, and last ``{"ok": true, "device": {...}}``.  Exits non-zero
@@ -153,7 +159,11 @@ KERNEL_TOL = 2e-2
 # 64-row block of one head of one batch row (BWD_BLOCK), ||got - ref||_F /
 # ||ref||_F <= BWD_TOL, and the same over the whole tensor.  The kernels
 # compute in fp32 and round only their bf16 outputs: an error uniform within
-# half an ulp (ulp 2^-7 on [1, 2)), about 1.6e-3 relative RMS.
+# half an ulp (ulp 2^-7 on [1, 2)), about 1.6e-3 relative RMS.  The
+# attention forwards' o is held the same way besides KERNEL_TOL: a late row
+# that attends thousands of keys has |o| of a few hundredths, where the
+# absolute limit alone would let a wrong V tile through (they round P to
+# bf16 for the P V product as well, another ~1e-3).
 BWD_TOL = 1e-2
 BWD_BLOCK = 64
 # K1f's lse in fp32 (fast exp / log in the kernel): absolute.
@@ -178,6 +188,12 @@ K8_TOL = 1e-6
 # at the smallest block the kernels skip by
 SPARSE_FLAGSHIP = {"mode": "fixed", "block": 128, "num_local_blocks": 4, "num_global_blocks": 1}
 SPARSE_CHECK = {"mode": "fixed", "block": 128, "num_local_blocks": 2, "num_global_blocks": 1}
+# a layout block that holds four forward CTAs' rows
+SPARSE_BLOCK512 = {"mode": "fixed", "block": 512, "num_local_blocks": 2, "num_global_blocks": 1}
+# the packed K7 case with key ids apart from the rows' (s 1024): every row
+# still sees a key of its own id under SPARSE_CHECK (sparse_results asserts)
+SPARSE_QSEG_LENS = (300, 400, 200, 124)
+SPARSE_KSEG_LENS = (200, 500, 150, 174)
 # Near-argmax check of the card's greedy pick against fp32 CPU logits: the
 # picked token's CPU logit must be within this fraction of the CPU row's
 # logit range (max - min) of the row's maximum.  bf16 weights and
@@ -203,15 +219,21 @@ PEAK_BYTES = 3.35e12
 SEED = 0
 DEVICE = "cuda"  # where the input builders put their tensors
 
-# SASS opcodes counted in the flash libraries: the tensor-core products
-# (HGMMA: wgmma, HMMA: mma.sync) and fp32 FMAs (the CUDA-core arithmetic)
+# SASS opcodes counted in the tensor-core attention libraries (K1 dense, K7
+# block-sparse: flash_tc.cuh's bodies): the tensor-core products (HGMMA:
+# wgmma, HMMA: mma.sync) and fp32 FMAs (the CUDA-core arithmetic)
 SASS_OPS = ("HGMMA", "HMMA", "FFMA")
-FLASH_SOURCES = ("flash_fwd.cu", "flash_bwd.cu")
+FLASH_SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "sparse_flash.cu")
 # K1's CUDA-core kernels before the tensor-core redesign (PERF.md section 6:
 # PR 2's and PR 4's runs on an H100 80GB HBM3 at 700 W), printed beside this
 # run's times in the timings line; never compared or gated
 K1_EARLIER_MS = {"flash_fwd": 0.19663, "flash_fwd_train": 28.774, "flash_bwd_dq": 32.868,
                  "flash_bwd_dkv": 47.843, "flash_bwd_pair": 80.978}
+# K7's CUDA-core kernels before the tensor-core redesign (PERF.md section 6,
+# on an H100 80GB HBM3 at 700 W), at the sparse flagship's per-call shape;
+# printed in the timings line beside K1's, never compared or gated
+K7_EARLIER_MS = {"sparse_fwd": 9.4238, "sparse_bwd_dq": 11.122, "sparse_bwd_dkv": 14.974,
+                 "sparse_bwd_pair": 26.469}
 
 
 def fail(msg: str) -> None:
@@ -360,21 +382,30 @@ def verify_case(torch, gen, hq, hkv, hd, ctx=VERIFY_CTX, drafts=VERIFY_DRAFTS, K
                 ctx_lens=torch.tensor(ctx, dtype=torch.int32, device=DEVICE))
 
 
-def bwd_case(torch, gen, b, s, hq, hkv, hd, seg_lens=None, cap=None):
+def _packed_ids(torch, b, s, lens):
+    """[b, s] int32 segment ids on the card: each batch row packs segments of
+    these lengths as ids 1, 2, ...; the rest pads as segment 0."""
+    seg = torch.zeros(b, s, dtype=torch.int32)
+    cur = 0
+    for i, n in enumerate(lens):
+        seg[:, cur:cur + n] = i + 1
+        cur += n
+    return seg.to(DEVICE)
+
+
+def bwd_case(torch, gen, b, s, hq, hkv, hd, seg_lens=None, cap=None, kseg_lens=None):
     """q / k / v / dO for the training backward; ``seg_lens``: each batch
-    row packs segments of these lengths (the rest pads as segment 0)."""
-    seg = None
-    if seg_lens is not None:
-        seg = torch.zeros(b, s, dtype=torch.int32)
-        cur = 0
-        for i, n in enumerate(seg_lens):
-            seg[:, cur:cur + n] = i + 1
-            cur += n
-        seg = seg.to(DEVICE)
+    row packs segments of these lengths (the rest pads as segment 0);
+    ``kseg_lens``: the keys' ids pack other lengths (JAX's
+    ``kv_segment_ids``; the block-sparse kernels take them apart), else the
+    keys carry the rows' ids."""
+    seg = None if seg_lens is None else _packed_ids(torch, b, s, seg_lens)
+    kseg = seg if kseg_lens is None else _packed_ids(torch, b, s, kseg_lens)
     return dict(q=_randn(torch, (b, s, hq, hd), gen, torch.bfloat16),
                 k=_randn(torch, (b, s, hkv, hd), gen, torch.bfloat16),
                 v=_randn(torch, (b, s, hkv, hd), gen, torch.bfloat16),
-                do=_randn(torch, (b, s, hq, hd), gen, torch.bfloat16), seg=seg, cap=cap)
+                do=_randn(torch, (b, s, hq, hd), gen, torch.bfloat16), seg=seg, kseg=kseg,
+                cap=cap)
 
 
 def rel_errs(torch, got, ref, rows=BWD_BLOCK):
@@ -411,16 +442,18 @@ def _sass_op(line):
 
 
 def _flash_kernel_key(mangled):
-    """``flash_bwd_dq_kernel<hd 128>`` from a mangled kernel name (its
-    tile shape's first template argument is the head dim)."""
-    m = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv)_kernel)I.*?Li(\d+)E", mangled)
-    return f"{m.group(1)}<hd {m.group(2)}>" if m else mangled
+    """``flash_bwd_dq_kernel<hd 128, DenseWalk>`` from a mangled kernel name
+    (its tile shape's first template argument is the head dim, its second
+    the tile walk: DenseWalk for K1, TableWalk for K7)."""
+    m = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv)_kernel)I.*?Li(\d+)E.*?(DenseWalk|TableWalk)",
+                  mangled)
+    return f"{m.group(1)}<hd {m.group(2)}, {m.group(3)}>" if m else mangled
 
 
 def sass_phase(K):
-    """Phase 1b: per kernel of the flash libraries, the SASS counts of
-    ``SASS_OPS`` and ptxas's registers and spills; raises when a kernel
-    holds no tensor-core instruction, or the forward no HGMMA."""
+    """Phase 1b: per kernel of the tensor-core attention libraries (K1 and
+    K7), the SASS counts of ``SASS_OPS`` and ptxas's registers and spills;
+    raises when a kernel holds no HGMMA (every product is a wgmma)."""
     cuobjdump = os.path.join(os.path.dirname(K._nvcc()), "cuobjdump")
     out = {}
     for src in FLASH_SOURCES:
@@ -448,10 +481,10 @@ def sass_phase(K):
         for mangled, c in counts.items():
             key = _flash_kernel_key(mangled)
             out[key] = dict(source=src, **c, **regs.get(mangled, {}))
-            if c["HGMMA"] + c["HMMA"] == 0 or ("flash_fwd" in key and c["HGMMA"] == 0):
-                raise AssertionError(f"sass: {key} holds no tensor-core instruction: {c}")
-    if not out:
-        raise AssertionError("sass: no kernel found in the flash libraries")
+            if c["HGMMA"] == 0:
+                raise AssertionError(f"sass: {key} ({src}) holds no HGMMA: {c}")
+        if not counts:
+            raise AssertionError(f"sass: no kernel found in {src}")
     return out
 
 
@@ -506,6 +539,7 @@ def kernel_checks(torch):
                                     segment_ids=case["segment_ids"],
                                     logits_soft_cap=case["cap"])
         record("flash_fwd", label, got, ref)
+        record("flash_fwd", label + "_rel", got, ref, tol=BWD_TOL, relative=True)
 
     for label, case, cap in (
         ("B64_mixed", decode_case(torch, gen), None),
@@ -563,6 +597,7 @@ def kernel_checks(torch):
         dq_r, dk_r, dv_r = K1.flash_attention_bwd_plain(f[0], f[1], f[2], seg, f[3], lse,
                                                          f[4], sc, cap)
         record("flash_fwd", label, o, o_ref)
+        record("flash_fwd", label + "_rel", o, o_ref, tol=BWD_TOL, relative=True)
         record("flash_fwd", label + "_lse", lse, lse_ref, tol=LSE_TOL)
         record("flash_bwd_dq", label, dq, dq_r, tol=BWD_TOL, relative=True)
         record("flash_bwd_dkv", label + "_dk", dk, dk_r, tol=BWD_TOL, relative=True)
@@ -682,42 +717,65 @@ def sparse_results(torch, case, layout, block):
     """K7f (o, lse) and K7b (dq, dk, dv) on a ``bwd_case`` against the plain
     versions in fp32 on the same bf16 inputs (the backward's on the
     kernel's own o and lse): a list of (kernel, suffix, got, ref, tol,
-    relative)."""
+    relative).  With segment ids, every query row must see at least one key
+    under the layout, the causal mask and the ids (else its lse is -inf and
+    the case holds nothing)."""
     from deepspeed_tpu_torch.ops.kernels import sparse_attention as K7
 
-    q, k, v, do, seg, cap = (case[n] for n in ("q", "k", "v", "do", "seg", "cap"))
+    q, k, v, do, seg, kseg, cap = (case[n] for n in ("q", "k", "v", "do", "seg", "kseg", "cap"))
+    if seg is not None:
+        s = q.shape[1]
+        allowed = (K7.element_mask(layout, block) & torch.ones(s, s, dtype=torch.bool).tril())
+        seen = (allowed.to(DEVICE) & (seg[:, :, None] == kseg[:, None, :])).any(-1)
+        if not bool(seen.all()):
+            raise AssertionError(f"sparse case: {int((~seen).sum())} query rows see no key")
     sc = q.shape[-1] ** -0.5
     plan = K7.sparse_plan(layout, block, True, q.device)
-    o, lse = K7.sparse_attention_kernel(q, k, v, seg, seg, plan, sc, cap)
-    dq, dk, dv = K7.sparse_attention_bwd_kernel(q, k, v, seg, seg, o, lse, do, plan, sc, cap)
+    o, lse = K7.sparse_attention_kernel(q, k, v, seg, kseg, plan, sc, cap)
+    dq, dk, dv = K7.sparse_attention_bwd_kernel(q, k, v, seg, kseg, o, lse, do, plan, sc, cap)
     f = [x.float() for x in (q, k, v, o, do)]
-    o_ref, lse_ref = K7.sparse_attention_fwd_plain(f[0], f[1], f[2], seg, seg, layout, block,
+    o_ref, lse_ref = K7.sparse_attention_fwd_plain(f[0], f[1], f[2], seg, kseg, layout, block,
                                                    sc, cap)
-    refs = K7.sparse_attention_bwd_plain(f[0], f[1], f[2], seg, seg, f[3], lse, f[4], layout,
+    refs = K7.sparse_attention_bwd_plain(f[0], f[1], f[2], seg, kseg, f[3], lse, f[4], layout,
                                          block, sc, cap)
     return [("sparse_fwd", "", o, o_ref, KERNEL_TOL, False),
+            ("sparse_fwd", "_rel", o, o_ref, BWD_TOL, True),
             ("sparse_fwd", "_lse", lse, lse_ref, LSE_TOL, False),
             ("sparse_bwd_dq", "", dq, refs[0], BWD_TOL, True),
             ("sparse_bwd_dkv", "_dk", dk, refs[1], BWD_TOL, True),
             ("sparse_bwd_dkv", "_dv", dv, refs[2], BWD_TOL, True)]
 
 
+# the K7 cases of the kernels phase: (label, ``bwd_case`` arguments, layout)
+SPARSE_CASES = (
+    ("b2_s4096_hd128_fixed128_4_1", dict(b=2, s=4096, hq=8, hkv=2, hd=128), SPARSE_FLAGSHIP),
+    ("b2_s4096_hd128_bigbird128", dict(b=2, s=4096, hq=8, hkv=2, hd=128),
+     {"mode": "bigbird", "block": 128}),
+    ("b2_s1024_hd64_packed_cap30_fixed128_2_1",
+     dict(b=2, s=1024, hq=8, hkv=2, hd=64, seg_lens=[300, 400, 200, 100], cap=30.0),
+     SPARSE_CHECK),
+    ("b1_s2048_hd128_bslongformer256", dict(b=1, s=2048, hq=8, hkv=2, hd=128),
+     {"mode": "bsLongformer", "block": 256, "num_sliding_window_blocks": 3,
+      "global_block_indices": [0, 5]}),
+    ("b2_s1024_hd256_fixed128_4_1", dict(b=2, s=1024, hq=8, hkv=2, hd=256), SPARSE_FLAGSHIP),
+    ("b1_s1024_hq71_hkv1_hd64_fixed128_4_1", dict(b=1, s=1024, hq=71, hkv=1, hd=64),
+     SPARSE_FLAGSHIP),
+    ("b1_s4096_hd128_fixed512_2_1", dict(b=1, s=4096, hq=8, hkv=2, hd=128), SPARSE_BLOCK512),
+    # the keys' ids pack other lengths than the rows': keys 200-299 carry the
+    # second segment's id, so a skip that read the rows' ids for the keys
+    # would drop their tile
+    ("b2_s1024_hd128_packed_kseg_apart_cap5_fixed128_2_1",
+     dict(b=2, s=1024, hq=8, hkv=2, hd=128, seg_lens=SPARSE_QSEG_LENS, cap=5.0,
+          kseg_lens=SPARSE_KSEG_LENS), SPARSE_CHECK),
+)
+
+
 def sparse_kernel_checks(torch, record):
-    """K7f / K7b cases (module docstring, phase 2), each through ``record``."""
+    """K7f / K7b on ``SPARSE_CASES``, each through ``record``."""
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 3)
-    for label, case, spec in (
-        ("b2_s4096_hd128_fixed128_4_1", bwd_case(torch, gen, 2, 4096, 8, 2, 128),
-         SPARSE_FLAGSHIP),
-        ("b2_s4096_hd128_bigbird128", bwd_case(torch, gen, 2, 4096, 8, 2, 128),
-         {"mode": "bigbird", "block": 128}),
-        ("b2_s1024_hd64_packed_cap30_fixed128_2_1",
-         bwd_case(torch, gen, 2, 1024, 8, 2, 64, seg_lens=[300, 400, 200, 100], cap=30.0),
-         SPARSE_CHECK),
-        ("b1_s2048_hd128_bslongformer256", bwd_case(torch, gen, 1, 2048, 8, 2, 128),
-         {"mode": "bsLongformer", "block": 256, "num_sliding_window_blocks": 3,
-          "global_block_indices": [0, 5]}),
-    ):
-        layout, block = sparse_layout(spec, case["q"].shape[1])
+    for label, kw, spec in SPARSE_CASES:
+        case = bwd_case(torch, gen, **kw)
+        layout, block = sparse_layout(spec, kw["s"])
         for name, suffix, got, ref, tol, rel in sparse_results(torch, case, layout, block):
             record(name, label + suffix, got, ref, tol=tol, relative=rel)
         del case
@@ -1630,7 +1688,15 @@ def train_phase(torch, K, gpu, sparse=None, steps=TRAIN_STEPS):
         raise AssertionError(f"{phase}: loss not finite and falling: first {first}, last {last}")
     peak = torch.cuda.max_memory_allocated()
     htod = {}
-    wall_ms, dev_ms, rows = _device_profile(torch, lambda: engine.train_batch(batch), htod=htod)
+    wall_ms, dev_ms, rows = _device_profile(torch, lambda: engine.train_batch(batch), top=None,
+                                            htod=htod)
+    # the step's attention kernels (K1 on the dense path, K7 on the sparse
+    # one: the same three bodies) by kind, and their share of device time
+    attn = {}
+    for r in rows:
+        m = re.search(r"flash_(?:fwd|bwd_dq|bwd_dkv)_kernel", r["name"])
+        if m:
+            attn[m.group(0)] = attn.get(m.group(0), 0.0) + r["ms_per_call"]
     if htod["copies"] > len(batch):  # the batch's arrays; tables and scalars stay on the card
         raise AssertionError(f"{phase}: {htod['copies']} host-to-device copies in a step, "
                              f"expected at most {len(batch)} (the batch)")
@@ -1647,7 +1713,9 @@ def train_phase(torch, K, gpu, sparse=None, steps=TRAIN_STEPS):
                                                      for n in launches},
                profile_step_wall_ms=wall_ms, profile_step_device_ms=dev_ms,
                device_idle_share=None if dev_ms is None else 1.0 - dev_ms / wall_ms,
-               profile_htod_copies=htod["copies"], profile_top=rows, gpu=gpu)
+               profile_htod_copies=htod["copies"], profile_top=rows[:10],
+               attention_ms=attn,
+               attention_share=None if dev_ms is None else sum(attn.values()) / dev_ms, gpu=gpu)
     if sparse is None:  # MFU counts dense attention: the dense flagship only
         flops_tok = model.flops_per_token(seq)
         res.update(flops_per_token=flops_tok,
@@ -2526,7 +2594,7 @@ def sparse_timings(torch, gen):
     note = ("plain_ms and library_ms time the whole backward (dq, dk and dv together; the "
             "library's backward alone, library_fwd_bwd_ms with its forward)")
     lib = dict(library_ms=lib_bwd, library_fwd_bwd_ms=lib_fwd + lib_bwd)
-    return {
+    out = {
         "sparse_fwd": dict(shape=shape, ms=ms_fwd, plain_ms=plain_fwd, library_ms=lib_fwd,
                            bound_ms=b_fwd[0], bound_by=b_fwd[1]),
         "sparse_bwd_dq": dict(shape=shape, ms=ms_dq, plain_ms=plain_bwd, bound_ms=b_dq[0],
@@ -2537,6 +2605,7 @@ def sparse_timings(torch, gen):
                                 bound_ms=b_pair[0], bound_by=b_pair[1],
                                 note="dq + dk/dv kernels and the delta reduction", **lib),
     }
+    return out
 
 
 REPLACES = {
@@ -2640,7 +2709,8 @@ def main() -> None:
     times.update(quant_timings(torch))
     times["fused_adamw"] = adam_times
     emit(dict(phase="timings", flash_bwd_pair=times.pop("flash_bwd_pair"),
-              flash_fwd_train=times["flash_fwd_train"], earlier_ms=K1_EARLIER_MS,
+              flash_fwd_train=times["flash_fwd_train"],
+              earlier_ms={**K1_EARLIER_MS, **K7_EARLIER_MS},
               quant={n: times[n] for n in (*QMM_NAMES.values(), *K6_NAMES)},
               sparse_bwd_pair=times.pop("sparse_bwd_pair"),
               sparse={n: times[n] for n in ATTN_KERNELS[True]},

@@ -1,5 +1,7 @@
-// Shared building blocks of the three attention kernels (flash prefill,
-// paged decode, packed-context prefill).
+// Shared building blocks of the CUDA-core attention kernels (paged decode
+// and packed-context attention, each with its partial mode); the
+// tensor-core kernels (tc_common.cuh, flash_tc.cuh) take only bf16, kFull
+// and allow_smem from here.
 //
 // Work unit: one CTA of 4 warps owns up to 4 * PPW (query row, query head)
 // PAIRS that read the same kv head.  The GQA group of g query heads of one
@@ -237,63 +239,6 @@ __device__ __forceinline__ void store_partial(const PairState<HD, PPW>& st, int 
       m[mi(p)] = st.m[i];
       l[mi(p)] = st.l[i];
     }
-  }
-}
-
-// --- backward helpers (flash_bwd.cu, sparse_flash.cu) ---
-
-// a (fp32, the same row for every lane: a broadcast) . b (bf16, this lane's
-// padded row).
-template <int HD>
-__device__ __forceinline__ float dot_f32_bf16(const float* a, const bf16* b) {
-  float s = 0.f;
-#pragma unroll
-  for (int c = 0; c < HD / 8; ++c) {
-    const uint4 raw = reinterpret_cast<const uint4*>(b)[c];
-    const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
-    const float4 xa = reinterpret_cast<const float4*>(a + c * 8)[0];
-    const float4 xb = reinterpret_cast<const float4*>(a + c * 8)[1];
-    const float2 b0 = __bfloat1622float2(h2[0]);
-    const float2 b1 = __bfloat1622float2(h2[1]);
-    const float2 b2 = __bfloat1622float2(h2[2]);
-    const float2 b3 = __bfloat1622float2(h2[3]);
-    s += xa.x * b0.x + xa.y * b0.y + xa.z * b1.x + xa.w * b1.y +
-         xb.x * b2.x + xb.y * b2.y + xb.z * b3.x + xb.w * b3.y;
-  }
-  return s;
-}
-
-// Soft cap and the probability / score gradient of one (query, key) score.
-// s_raw is the scaled score; returns p and sets *ds.  A masked score gives
-// exactly 0 for both, whatever lse and delta hold (a missing row's are never
-// loaded).
-__device__ __forceinline__ float prob_and_ds(float s_raw, bool ok, float lse, float dp,
-                                             float delta, float scale, float cap, float* ds) {
-  if (!ok) {
-    *ds = 0.f;
-    return 0.f;
-  }
-  float sc = s_raw, capf = 1.f;
-  if (cap > 0.f) {
-    sc = cap * tanhf(s_raw / cap);
-    const float t = sc / cap;
-    capf = 1.f - t * t;
-  }
-  const float p = __expf(sc - lse);
-  *ds = p * (dp - delta) * capf * scale;
-  return p;
-}
-
-// Rows of `n` bf16 vectors into a padded bf16 tile; rows(t) -> the row or
-// nullptr (zero-filled).
-template <int HD, typename Rows>
-__device__ __forceinline__ void load_rows_bf16(bf16* tile, int n, Rows rows) {
-  constexpr int kVecs = HD / 8;
-  for (int idx = threadIdx.x; idx < n * kVecs; idx += blockDim.x) {
-    const int t = idx / kVecs, c = idx % kVecs;
-    const bf16* src = rows(t);
-    const uint4 val = src ? reinterpret_cast<const uint4*>(src)[c] : make_uint4(0, 0, 0, 0);
-    reinterpret_cast<uint4*>(tile + t * (HD + 8))[c] = val;
   }
 }
 

@@ -1,9 +1,10 @@
-// Tensor-core building blocks of the Hopper attention kernels (flash_fwd.cu,
-// flash_bwd.cu): cp.async tile loads into the 128-byte-swizzled shared-memory
-// layout that wgmma's descriptors read, the descriptors, the wgmma.mma_async
-// forms the kernels issue (SS: both operands in shared memory; RS: A from
-// registers), the accumulator -> A-fragment conversion, quad reductions and
-// the segment-range scan behind the tile skip.
+// Tensor-core building blocks of the Hopper attention kernels (flash_tc.cuh,
+// walked densely by flash_fwd.cu / flash_bwd.cu and over a block-sparse
+// layout by sparse_flash.cu): cp.async tile loads into the 128-byte-swizzled
+// shared-memory layout that wgmma's descriptors read, the descriptors, the
+// wgmma.mma_async forms the kernels issue (SS: both operands in shared
+// memory; RS: A from registers), the accumulator -> A-fragment conversion,
+// quad reductions and the segment-range scan behind the tile skip.
 //
 // A tile [R rows][HD] bf16 in shared memory is HD / 64 column chunks, each
 // [R][64] (128 bytes a row) and 1024-byte aligned; inside a chunk the 16-byte

@@ -90,7 +90,8 @@ def flash_attention_bwd_plain(q, k, v, seg, o, lse, do, scale, cap, kv_seg=None,
 # ---------------------------------------------------------------------------
 # CUDA kernel wrappers
 # ---------------------------------------------------------------------------
-# the head dims csrc/flash_fwd.cu and csrc/flash_bwd.cu are instantiated for
+# the head dims the tensor-core kernels (csrc/flash_tc.cuh: K1 and K7) are
+# instantiated for
 HEAD_DIMS = (64, 128, 256)
 
 

@@ -8,9 +8,10 @@ A layout is a ``[n, n]`` numpy bool mask over blocks of ``block`` rows and
 keys (``ops/sparse_attention.py``).  ``sparse_tables`` lists each query
 block's active key blocks under the causal trim (and, transposed, each key
 block's active query blocks); masked blocks are never read or computed.
-The kernels (``csrc/sparse_flash.cu``: forward with lse, dq, dk/dv) walk
-those tables; inside an active block they walk their own 32-key tiles, and
-the causal mask bites only in the diagonal block.  The tables live on the
+The kernels (``csrc/sparse_flash.cu``: forward with lse, dq, dk/dv) are the
+dense flash kernels' tensor-core bodies (``csrc/flash_tc.cuh``) walking
+those tables; inside an active block they walk their own tiles, and the
+causal mask bites only in the diagonal block.  The tables live on the
 device in a ``SparsePlan``, built once per (layout, block, causal, device)
 and cached, so a training step copies nothing to the device for them and
 never waits on the host.
@@ -18,10 +19,12 @@ never waits on the host.
 ``SparseFlashFn`` is the same on both devices; only its two inner calls
 dispatch on the tensor's device: the plain versions (fp32 masked bodies
 that return the lse as ``flash_attention_fwd_plain`` does) on the CPU, the
-kernels on CUDA.  The kernels take causal attention with GQA (at most 32
-query heads a kv head), packed segments and the soft cap, bf16, head_dim 64
-or 128.  Head_dim 256, which the gate admits as JAX's does, raises
-``NotImplementedError`` on a CUDA tensor.
+kernels on CUDA.  The kernels take causal attention with GQA (any query
+group: a CTA per query head), packed segments (query and key ids apart, as
+JAX's ``kv_segment_ids``) and the soft cap, bf16, head_dim 64, 128 or 256 --
+the head dims JAX's gate admits.  Head_dim 80 or 96 never reaches them
+(``sparse_supports`` sends it to the masked dense body), and a direct call
+raises ``NotImplementedError``.
 
 Shapes: q / o / dO ``[b, s, hq, d]``, k / v ``[b, s, hkv, d]``, segment ids
 ``[b, s]`` int32, lse ``[b, hq, s]`` fp32 in capped scaled-score units,
@@ -36,9 +39,7 @@ import numpy as np
 import torch
 
 from . import check_cuda, check_heads, launch, ptr, scalars
-from .flash_attention import flash_attention_bwd_plain, flash_attention_fwd_plain
-
-MAX_GROUP = 32  # query heads a kv head: the dq kernel's pairs per CTA
+from .flash_attention import HEAD_DIMS, flash_attention_bwd_plain, flash_attention_fwd_plain
 
 
 def sparse_tables(layout: np.ndarray, causal: bool):
@@ -168,7 +169,7 @@ def _check(name, q, k, v, qseg, kseg, plan: SparsePlan):
     if k.shape != (b, s, k.shape[2], d) or v.shape != k.shape:
         raise ValueError(f"{name}: q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
     hkv = k.shape[2]
-    check_heads(name, hq, hkv, d, MAX_GROUP)
+    check_heads(name, hq, hkv, d, head_dims=HEAD_DIMS)
     if s != plan.n * plan.block:
         raise ValueError(f"{name}: s {s} != {plan.n} blocks of {plan.block}")
     check_cuda(name, torch.bfloat16, q, k, v)

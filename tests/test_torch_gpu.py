@@ -11,7 +11,8 @@ pools, and their merge against the non-partial kernels).  The training backward:
 and dq, dk and dv within ``chip_smoke.BWD_TOL`` relative Frobenius error,
 over the whole tensor and in every 64-row block of one head (the kernels
 round only their bf16 outputs), each launched once per call, also at
-head_dim 256 and a query group of 71.  Quantized
+head_dim 256 and a query group of 71; the block-sparse K7f / K7b the same
+way, also at head_dim 256 and a group of 71.  Quantized
 serving: K4 / K5 within ``chip_smoke.QMM_TOL`` relative Frobenius error,
 K6 byte-identical, and a call the kernels refuse raises without reaching
 a plain body.  This file imports neither JAX nor the JAX package, so it
@@ -162,8 +163,9 @@ def test_partial_kernels_match_plain_and_merge_to_the_full_kernel(case, S):
     (1, 200, 71, 1, 64, [120, 80], 2.0),
 ])
 def test_flash_backward_kernels_match_plain(b, s, hq, hkv, hd, seg_lens, cap):
-    """K1f's o within ``TOL`` and lse within 1e-3, dq / dk / dv within
-    ``chip_smoke.BWD_TOL`` per 64-row block, one launch of each kernel; at
+    """K1f's o within ``TOL`` (and ``chip_smoke.BWD_TOL`` per 64-row block)
+    and lse within 1e-3, dq / dk / dv within ``chip_smoke.BWD_TOL`` per
+    64-row block, one launch of each kernel; at
     head_dim 64 / 128 / 256, falcon_7b's 71 query heads on one kv head, and
     s 600 (five key tiles at head_dim 128, so the K/V ring is refilled)."""
     if not torch.cuda.is_available():
@@ -182,6 +184,7 @@ def test_flash_backward_kernels_match_plain(b, s, hq, hkv, hd, seg_lens, cap):
     segc = seg.cpu() if seg is not None else None
     o_ref, lse_ref = K1.flash_attention_fwd_plain(f[0], f[1], f[2], segc, sc, cap)
     assert float((o.cpu().float() - o_ref).abs().max()) <= TOL
+    assert max(chip_smoke.rel_errs(torch, o.cpu(), o_ref)) <= chip_smoke.BWD_TOL
     assert float((lse.cpu() - lse_ref).abs().max()) <= 1e-3
     refs = K1.flash_attention_bwd_plain(f[0], f[1], f[2], segc, f[3], lse.cpu(), f[4], sc, cap)
     for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), refs):
@@ -330,20 +333,23 @@ def test_a_refused_call_raises_and_never_runs_the_plain_body(monkeypatch):
 # block-sparse training: K7f / K7b (sparse attention), K8 (fused AdamW)
 # ---------------------------------------------------------------------------
 @pytest.mark.gpu
-@pytest.mark.parametrize("spec,s,hd,seg_lens,cap", [
-    (chip_smoke.SPARSE_CHECK, 512, 128, None, None),
-    ({"mode": "bigbird", "block": 128}, 512, 64, [100, 250, 62], 30.0),
-    ({"mode": "bsLongformer", "block": 256, "global_block_indices": [1]}, 1024, 128, None,
-     None),
+@pytest.mark.parametrize("spec,s,hq,hkv,hd,seg_lens,cap", [
+    (chip_smoke.SPARSE_CHECK, 512, 8, 2, 128, None, None),
+    ({"mode": "bigbird", "block": 128}, 512, 8, 2, 64, [100, 250, 62], 30.0),
+    ({"mode": "bsLongformer", "block": 256, "global_block_indices": [1]}, 1024, 8, 2, 128,
+     None, None),
+    (chip_smoke.SPARSE_FLAGSHIP, 512, 4, 2, 256, [200, 312], 5.0),
+    (chip_smoke.SPARSE_CHECK, 512, 71, 1, 64, None, None),
 ])
-def test_sparse_kernels_match_plain(spec, s, hd, seg_lens, cap):
-    """K7f's o (``chip_smoke.KERNEL_TOL``) and lse (``LSE_TOL``), K7b's dq /
-    dk / dv (``BWD_TOL`` per 64-row block) against the plain versions in
-    fp32 on the same bf16 inputs; one launch of each kernel."""
+def test_sparse_kernels_match_plain(spec, s, hq, hkv, hd, seg_lens, cap):
+    """K7f's o (``chip_smoke.KERNEL_TOL``, and ``BWD_TOL`` per 64-row block)
+    and lse (``LSE_TOL``), K7b's dq / dk / dv (``BWD_TOL`` per 64-row block)
+    against the plain versions in fp32 on the same bf16 inputs, also at
+    head_dim 256 and falcon_7b's group of 71; one launch of each kernel."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     gen = torch.Generator(device="cuda").manual_seed(0)
-    case = chip_smoke.bwd_case(torch, gen, 2, s, 8, 2, hd, seg_lens=seg_lens, cap=cap)
+    case = chip_smoke.bwd_case(torch, gen, 2, s, hq, hkv, hd, seg_lens=seg_lens, cap=cap)
     layout, block = chip_smoke.sparse_layout(spec, s)
     K.reset_launches()
     results = chip_smoke.sparse_results(torch, case, layout, block)
@@ -357,24 +363,6 @@ def test_sparse_kernels_match_plain(spec, s, hd, seg_lens, cap):
             assert max(whole, worst) <= tol, (name + suffix, whole, worst)
         else:
             assert float((got.float() - ref.float()).abs().max()) <= tol, name + suffix
-
-
-@pytest.mark.gpu
-def test_sparse_head_dim_256_raises_on_the_card():
-    """The gate admits head_dim 256 as JAX's does; the card's kernels take 64
-    and 128, so a CUDA tensor raises instead of running anything else."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
-    from deepspeed_tpu_torch.ops.sparse_attention import (
-        FixedSparsityConfig,
-        block_sparse_attention,
-    )
-
-    q = torch.zeros(1, 256, 2, 256, dtype=torch.bfloat16, device="cuda")
-    K.reset_launches()
-    with pytest.raises(NotImplementedError, match="head_dim 256"):
-        block_sparse_attention(q, q, q, FixedSparsityConfig(block=128))
-    assert sum(K.LAUNCHES.values()) == 0
 
 
 @pytest.mark.gpu

@@ -578,8 +578,8 @@ def _sparse_bwd(hq, hkv, hd):
     return K7.sparse_attention_bwd_kernel(q, kv, kv, None, None, q, None, q, None, 1.0, None)
 
 
-# (wrapper, its group limit; None: any group and head_dim 256 -- K1's
-# tensor-core kernels run a CTA per query head)
+# (wrapper, its group limit; None: any group and head_dim 256 -- K1's and
+# K7's tensor-core kernels run a CTA per query head)
 WRAPPERS = {
     "flash_fwd": (_flash, None),
     "flash_bwd": (_flash_bwd, None),
@@ -587,8 +587,8 @@ WRAPPERS = {
     "paged_decode_partial": (_decode(K2.paged_attention_decode_partial_kernel), 16),
     "ctx_attention": (_ctx(K3.paged_attention_packed_ctx_kernel), 16),
     "ctx_attention_partial": (_ctx(K3.paged_attention_packed_ctx_partial_kernel), 16),
-    "sparse_fwd": (_sparse, 32),
-    "sparse_bwd": (_sparse_bwd, 32),
+    "sparse_fwd": (_sparse, None),
+    "sparse_bwd": (_sparse_bwd, None),
 }
 
 
@@ -597,8 +597,8 @@ def test_wrappers_refuse_unported_heads_with_queue_2(name):
     """A group above the kernel's limit, or head_dim 96, raises
     ``NotImplementedError`` naming ROADMAP queue 2 before any launch (a CPU
     tensor reaches the check); the limit itself passes it and stops at the
-    device check.  K1 (no limit) takes falcon_7b's group of 71 and head_dim
-    256 to the device check, and still refuses head_dim 96 and 80."""
+    device check.  K1 and K7 (no limit) take falcon_7b's group of 71 and
+    head_dim 256 to the device check, and still refuse head_dim 96 and 80."""
     call, limit = WRAPPERS[name]
     with pytest.raises(NotImplementedError, match="head_dim 96.*queue 2"):
         call(4, 2, 96)

@@ -6,7 +6,8 @@
 - K7's plain versions (what the port's ``SparseFlashFn`` runs on a CPU
   tensor) against JAX ``pallas_block_sparse_attention`` in interpret mode:
   the output and the q / k / v gradients, without and with packed segments
-  and a soft cap.  Tolerances of ``tests/test_flash_kernel.py:228-235``:
+  and a soft cap, at head_dim 256, and at 16 query heads on one kv head with
+  the keys' ids (``kv_segment_ids``) apart from the rows'.  Tolerances of ``tests/test_flash_kernel.py:228-235``:
   output atol 2e-5, gradients atol 5e-4 / rtol 1e-3 (fp32; the interpreted
   kernel sums blockwise with an online softmax, the plain body at once).
 - ``block_sparse_attention``'s dispatch: a block-16 layout (the masked dense
@@ -127,29 +128,45 @@ def _grads_jax(fn, q, k, v, cot):
     return np.asarray(out), [np.asarray(g) for g in vjp(jnp.asarray(cot))]
 
 
-@pytest.mark.parametrize("packed", [False, True])
-def test_plain_k7_matches_interpreted_pallas(packed):
-    """b 1, s 256, hq 4 / hkv 2, hd 64, block 128: block (1, 0) off (plain),
-    or every causal block on with segments crossing the block edge and a
-    soft cap."""
-    b, s, hq, hkv, d, block = 1, 256, 4, 2, 64, 128
+# b 1, s 256, block 128: (hq, hkv, head_dim, packed) of each case
+K7_CASES = {
+    "plain": (4, 2, 64, False),
+    "packed": (4, 2, 64, True),
+    "hd256": (4, 2, 256, False),
+    "group16_kv_segments": (16, 1, 64, True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(K7_CASES))
+def test_plain_k7_matches_interpreted_pallas(case):
+    """b 1, s 256, block 128.  Unpacked: block (1, 0) off.  Packed: every
+    causal block on, segments crossing the block edge and a soft cap; in
+    ``group16_kv_segments`` (16 query heads on one kv head) the keys carry
+    their own ids (``kv_segment_ids``), packed at other lengths than the
+    rows', as the kernels take them apart.  Head_dim 256 and the large
+    group are the shapes the tensor-core kernels took on."""
+    b, s, block = 1, 256, 128
+    hq, hkv, d, packed = K7_CASES[case]
     q, k, v, cot = _qkv(b, s, hq, hkv, d, seed=7 + packed)
+    layout, seg, kv_seg, cap = np.eye(2, dtype=bool), None, None, None
     if packed:
         layout = np.ones((2, 2), bool)
         seg = np.zeros((b, s), np.int32)
         seg[:, :100], seg[:, 100:200], seg[:, 200:] = 1, 2, 3
         cap = 5.0
-    else:
-        layout = np.eye(2, dtype=bool)
-        seg, cap = None, None
-    tseg = None if seg is None else torch.from_numpy(seg)
-    jseg = None if seg is None else jnp.asarray(seg)
+        if case == "group16_kv_segments":
+            kv_seg = np.zeros((b, s), np.int32)
+            kv_seg[:, :60], kv_seg[:, 60:180], kv_seg[:, 180:] = 1, 2, 3
+    tseg, tkv = (None if x is None else torch.from_numpy(x) for x in (seg, kv_seg))
+    jseg, jkv = (None if x is None else jnp.asarray(x) for x in (seg, kv_seg))
     got = _grads_port(lambda *a: K7.block_sparse_flash_attention(
-        *a, layout, block, segment_ids=tseg, logits_soft_cap=cap), q, k, v, cot)
+        *a, layout, block, segment_ids=tseg, kv_segment_ids=tkv, logits_soft_cap=cap),
+        q, k, v, cot)
     jfk.set_interpret(True)
     try:
         want = _grads_jax(lambda *a: jfk.pallas_block_sparse_attention(
-            *a, layout, block, segment_ids=jseg, logits_soft_cap=cap), q, k, v, cot)
+            *a, layout, block, segment_ids=jseg, kv_segment_ids=jkv, logits_soft_cap=cap),
+            q, k, v, cot)
     finally:
         jfk.set_interpret(False)
     np.testing.assert_allclose(got[0], want[0], **FWD_TOL)
