@@ -7,10 +7,13 @@ Phases, each raising on failure (so the exit code is non-zero):
 1. build    -- compile the CUDA kernels from ``deepspeed_tpu_torch/csrc``
                (one nvcc per source, in parallel) and print the build time
                and each kernel's register / shared-memory report;
-   sass     -- for every kernel of the tensor-core attention libraries
-               (K1 dense, K7 block-sparse), its HGMMA, HMMA and FFMA
-               instruction counts (``cuobjdump -sass``) beside ptxas's
-               registers and spills; fails if a kernel holds no HGMMA;
+   sass     -- for every kernel of the tensor-core libraries (K1 dense,
+               K7 block-sparse, the dequant-matmuls K4 / K5), its HGMMA,
+               HMMA and FFMA instruction counts (``cuobjdump -sass``)
+               beside ptxas's registers and spills; fails if an attention
+               kernel or a dequant-matmul product kernel holds no HGMMA, a
+               dequant-matmul kernel holds HMMA, or one of its one-CTA-an-SM
+               kernels launches with other than QMM_LAUNCH_REGS registers;
 2. kernels  -- each kernel against its plain PyTorch version on the card,
                bf16 inputs, the plain version computing in fp32, at the
                serving path's shapes (tolerance KERNEL_TOL; K1f's o also
@@ -21,9 +24,10 @@ Phases, each raising on failure (so the exit code is non-zero):
                s 200, head_dim 64 and 256, and a group of 71 (falcon_7b's
                71 query heads on 1 kv head; BWD_TOL, LSE_TOL); the
                dequant-matmuls (K4 int8 / e4m3, K5 fp6) at every llama3_8b
-               serving-matmul shape,
-               M 16 and 512, and ragged shapes with a bias (QMM_TOL,
-               relative Frobenius); the row quantizers (K6a/b/c) on
+               serving-matmul shape, M 1, 16, 300, 512 and 2048, and ragged
+               and unaligned shapes with a bias (QMM_TOL, relative
+               Frobenius), every weight code decoded exactly (x = the
+               identity, bit-identical); the row quantizers (K6a/b/c) on
                [4096, 14336] bf16 rows with a zero row, byte-identical;
                K2 at head_dim 64 (gpt2_small's MHA decode and a GQA group
                of 4) and K3 on verify-shaped packs whose contexts end
@@ -127,7 +131,9 @@ Phases, each raising on failure (so the exit code is non-zero):
                ms where one computes the same function, and the card's
                bound for the same work (the backward kernels, and K1f
                again, at the training flagship's per-call shape; K4 / K5
-               at M 16 and 512 on [4096, 14336]; K7f / K7b at the sparse
+               at M 16 and 512 on every llama3_8b matmul shape, by CUDA-
+               graph replay and eager, [4096, 14336] the kernels line's
+               entry, beside torch.matmul; K7f / K7b at the sparse
                flagship's per-call shape; the partial modes on shard 0 of
                2 at the scheduler's pack and the engine's decode shape),
                and K1's and K7's CUDA-core times before their tensor-core
@@ -209,6 +215,10 @@ QMM_TOL = 1e-2
 # every serving matmul shape of llama3_8b: wq / wo, wk / wv, w_up / w_gate,
 # w_down, the vocabulary head
 QUANT_SHAPES_8B = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096), (4096, 128256)]
+# rows checked at each of them: decode at batch 1 and 16 (16-token tiles), a
+# 300-row pack (a 256-token tile and its ragged edge), prefill of 512 and
+# 2048 rows
+QUANT_CHECK_M = (1, 16, 300, 512, 2048)
 
 # published peaks of one H100 SXM (dense): bf16 tensor rate, fp32 CUDA-core
 # rate, HBM3 rate
@@ -219,11 +229,18 @@ PEAK_BYTES = 3.35e12
 SEED = 0
 DEVICE = "cuda"  # where the input builders put their tensors
 
-# SASS opcodes counted in the tensor-core attention libraries (K1 dense, K7
-# block-sparse: flash_tc.cuh's bodies): the tensor-core products (HGMMA:
-# wgmma, HMMA: mma.sync) and fp32 FMAs (the CUDA-core arithmetic)
+# SASS opcodes counted in the tensor-core libraries (K1 dense, K7 block-sparse:
+# flash_tc.cuh's bodies; K4 / K5: quant_matmul.cu): the tensor-core products
+# (HGMMA: wgmma, HMMA: mma.sync) and fp32 FMAs (the CUDA-core arithmetic)
 SASS_OPS = ("HGMMA", "HMMA", "FFMA")
 FLASH_SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "sparse_flash.cu")
+QMM_SOURCE = "quant_matmul.cu"
+# the registers a thread of the one-CTA-an-SM dequant-matmul kernels (token
+# tiles 128 and 256) launches with: the launch bound's share, which their
+# setmaxnreg hand-over from the producer to the consumer warpgroups assumes
+# (quant_matmul.cu kLaunchRegs)
+QMM_LAUNCH_REGS = 168
+QMM_FORMATS = {"0": "int8", "1": "e4m3", "2": "fp6"}
 # K1's CUDA-core kernels before the tensor-core redesign (PERF.md section 6:
 # PR 2's and PR 4's runs on an H100 80GB HBM3 at 700 W), printed beside this
 # run's times in the timings line; never compared or gated
@@ -450,13 +467,29 @@ def _flash_kernel_key(mangled):
     return f"{m.group(1)}<hd {m.group(2)}, {m.group(3)}>" if m else mangled
 
 
+def _qmm_kernel_key(mangled):
+    """``qmm_kernel<fp6, bt 256>`` from a mangled dequant-matmul kernel name
+    (template arguments: the weight format, the token tile), or the
+    unmangled name of the split-K reduce kernel."""
+    m = re.search(r"(qmm_kernel)ILi(\d+)ELi(\d+)E", mangled)
+    if m:
+        return f"{m.group(1)}<{QMM_FORMATS[m.group(2)]}, bt {m.group(3)}>"
+    m = re.search(r"(qmm_\w+?_kernel)", mangled)
+    return m.group(1) if m else mangled
+
+
 def sass_phase(K):
-    """Phase 1b: per kernel of the tensor-core attention libraries (K1 and
-    K7), the SASS counts of ``SASS_OPS`` and ptxas's registers and spills;
-    raises when a kernel holds no HGMMA (every product is a wgmma)."""
+    """Phase 1b: per kernel of the tensor-core libraries (K1, K7 and the
+    dequant-matmuls K4 / K5), the SASS counts of ``SASS_OPS`` and ptxas's
+    registers and spills; raises when an attention kernel or a dequant-matmul
+    product kernel holds no HGMMA (every product is a wgmma), or a
+    dequant-matmul kernel still holds HMMA (the mma.sync of its WMMA
+    version), or a dequant-matmul kernel at token tile 128 or 256 launches
+    with other than ``QMM_LAUNCH_REGS`` registers a thread.  The split-K
+    reduce kernel has no product."""
     cuobjdump = os.path.join(os.path.dirname(K._nvcc()), "cuobjdump")
     out = {}
-    for src in FLASH_SOURCES:
+    for src in (*FLASH_SOURCES, QMM_SOURCE):
         sass = subprocess.run([cuobjdump, "-sass", K._lib_path(src)], capture_output=True,
                               text=True, check=True).stdout
         counts, name = {}, None
@@ -479,10 +512,18 @@ def sass_phase(K):
             if m and cur:
                 regs.setdefault(cur, {})["registers"] = int(m.group(1))
         for mangled, c in counts.items():
-            key = _flash_kernel_key(mangled)
+            key = _qmm_kernel_key(mangled) if src == QMM_SOURCE else _flash_kernel_key(mangled)
             out[key] = dict(source=src, **c, **regs.get(mangled, {}))
-            if c["HGMMA"] == 0:
+            product = src != QMM_SOURCE or key.startswith("qmm_kernel<")
+            if product and c["HGMMA"] == 0:
                 raise AssertionError(f"sass: {key} ({src}) holds no HGMMA: {c}")
+            if src == QMM_SOURCE and c["HMMA"]:
+                raise AssertionError(f"sass: {key} ({src}) still holds HMMA: {c}")
+            one_cta = re.search(r"bt (128|256)>", key)
+            if one_cta and out[key].get("registers") != QMM_LAUNCH_REGS:
+                raise AssertionError(
+                    f"sass: {key} launches with {out[key].get('registers')} registers a "
+                    f"thread; its setmaxnreg hand-over is balanced at {QMM_LAUNCH_REGS}")
         if not counts:
             raise AssertionError(f"sass: no kernel found in {src}")
     return out
@@ -1806,19 +1847,61 @@ def _as_bytes(torch, t):
     return t.view(torch.uint8) if t.element_size() == 1 else t
 
 
+def quant_codes_check(torch, gen):
+    """Every weight code decodes exactly: K4 / K5 on x = the identity [256,
+    256] with unit scales return the decoded weight itself, bit for bit
+    equal to the plain version's (int8: all 256 bytes; e4m3: all but the
+    two NaN codes; fp6: random plane bytes, every code many times).  A
+    decode that flushed subnormals (e4m3 exponent 0, e2m3 exponent 0) or
+    rounded would differ here; the random-weight cases could hide it."""
+    from deepspeed_tpu_torch.ops.kernels import quant_matmul as QM
+
+    k, n = 256, 128
+    x = torch.eye(k, device=DEVICE, dtype=torch.bfloat16)
+    s = torch.ones(n, device=DEVICE)
+    codes = torch.randint(0, 256, (k, n), generator=gen, device=DEVICE,
+                          dtype=torch.int32).to(torch.uint8)
+    codes[:, 0] = torch.arange(256, device=DEVICE).to(torch.uint8)
+    e4m3 = codes.clone()
+    e4m3[(e4m3 & 0x7F) == 0x7F] = 0  # NaN
+    planes = torch.randint(0, 256, (3, k // 4, n), generator=gen, device=DEVICE,
+                           dtype=torch.int32).to(torch.uint8)
+    runs = {QMM_NAMES["int8"]: lambda f: f(x, codes.view(torch.int8), s),
+            QMM_NAMES["fp8"]: lambda f: f(x, e4m3.view(torch.float8_e4m3fn), s)}
+    cases = []
+    for name, run in runs.items():
+        got, ref = run(QM.quant_matmul_kernel), run(QM.quant_matmul_plain)
+        cases.append((name, got, ref))
+    cases.append((QMM_NAMES["fp6"], QM.quant_matmul_fp6_kernel(x, planes, s, k),
+                  QM.quant_matmul_fp6_plain(x, planes, s, k)))
+    torch.cuda.synchronize()
+    out = []
+    for name, got, ref in cases:
+        bad = int((got.view(torch.int16) != ref.view(torch.int16)).sum())
+        out.append(dict(kernel=name, case="all_codes_identity_K256_N128",
+                        elements_differing=bad, limit=0))
+        if bad:
+            raise AssertionError(f"{name}: {out[-1]} (every code must decode exactly)")
+    return out
+
+
 def quant_kernel_checks(torch):
-    """K4 (int8, e4m3) and K5 at every 8B serving-matmul shape, M = 16 and
-    512, plus ragged cases with a bias, each held by relative Frobenius
-    error against the plain version in fp32 on the same bf16 input; then
-    K6a/b/c on [4096, 14336] bf16 rows with a zero row: q bytes, scales and
-    the dequantized tensor identical to the plain version."""
+    """K4 (int8, e4m3) and K5 at every 8B serving-matmul shape, M = 1, 16,
+    300, 512 and 2048 (the decode tile of 16 tokens, a 256-token tile's
+    ragged edge, the prefill tiles), plus ragged cases with a bias, each
+    held by relative Frobenius error against the plain version in fp32 on
+    the same bf16 input; every code decoded exactly (``quant_codes_check``);
+    then K6a/b/c on [4096, 14336] bf16 rows with a zero row: q bytes, scales
+    and the dequantized tensor identical to the plain version."""
     from deepspeed_tpu_torch.ops.kernels import quant_kernel as QK
 
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 20)
     errs = {n: 0.0 for n in (*QMM_NAMES.values(), *K6_NAMES)}
-    cases = []
-    shapes = [(k, n, m, False) for k, n in QUANT_SHAPES_8B for m in (16, 512)]
+    cases = quant_codes_check(torch, gen)
+    shapes = [(k, n, m, False) for k, n in QUANT_SHAPES_8B for m in QUANT_CHECK_M]
     shapes += [(4100, 1000, 5, True), (1024, 1040, 100, True)]  # ragged M, N, K
+    # x rows through cp.async and weight rows through registers, and the reverse
+    shapes += [(4096, 1000, 300, True), (1028, 1024, 17, True)]
     for k, n in dict.fromkeys((k, n) for k, n, _, _ in shapes):
         w = _randn(torch, (k, n), gen, torch.bfloat16) * k ** -0.5
         payloads = _payloads(torch, w)
@@ -2112,42 +2195,63 @@ def quantizer_phase(torch, K, gpu, w):
     return res
 
 
-def quant_timings(torch):
-    """K4 / K5 at [4096, 14336] (w_up / w_gate: the most bytes a layer
-    streams) for M = 16 (a decode tick at batch 16) and M = 512 (a prefill
-    dispatch); K6 on [4096, 14336] bf16.  Bounds: every input read once and
-    every output written once, the weight at its compressed size, over
-    3.35 TB/s; 2 M K N over the bf16 tensor rate (K4 / K5) or 4 (quantize)
-    and 2 (dequantize) operations an element over the fp32 rate (K6)."""
-    from deepspeed_tpu_torch.ops.kernels import quant_kernel as QK
-    from deepspeed_tpu_torch.ops.kernels.quant_matmul import fp6_decode, fp6_unpack
-
-    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 30)
-    k, n = 4096, 14336
-    w = _randn(torch, (k, n), gen, torch.bfloat16) * k ** -0.5
-    payloads = _payloads(torch, w)
-    out = {}
-    for name, p in payloads.items():
-        wbytes = _nbytes(p.packed if name == QMM_NAMES["fp6"] else p.q, p.s)
-        if name == QMM_NAMES["fp6"]:
-            deq = (fp6_decode(fp6_unpack(p.packed, k), torch.float32) * p.s).to(torch.bfloat16)
-        else:
-            deq = (p.q.float() * p.s).to(torch.bfloat16)
-        per_m = {}
+def qmm_shape_times(torch, gen, plain=True):
+    """{kernel name: {"M.. K.. N..": row}}: K4 / K5 at every 8B serving-matmul
+    shape for M = 16 (a decode tick at batch 16) and M = 512 (a prefill
+    dispatch), device time by CUDA-graph replay (``ms``) and back-to-back
+    eager calls (``eager_ms``: the wrapper's host time shows there when it
+    exceeds the kernel's), beside ``torch.matmul`` of x with the dequantized
+    bf16 weight (what serving without quantization pays).  That yardstick's
+    cost does not depend on the format, so it is timed once a shape and M,
+    on the int8 payload's dequantized weight, and shared by the three rows.
+    ``plain``: the plain version too, at [4096, 14336] only.  Bounds: every
+    input read once and every output written once, the weight at its
+    compressed size, over 3.35 TB/s, or 2 M K N over the bf16 tensor rate."""
+    out = {name: {} for name in QMM_NAMES.values()}
+    for k, n in QUANT_SHAPES_8B:
+        w = _randn(torch, (k, n), gen, torch.bfloat16) * k ** -0.5
+        payloads = _payloads(torch, w)
+        del w
+        p8 = payloads[QMM_NAMES["int8"]]
+        deq = (p8.q.float() * p8.s).to(torch.bfloat16)
         for m in (16, 512):
             x = _randn(torch, (m, k), gen, torch.bfloat16)
-            bound, by = _bound(2 * m * k * n, _nbytes(x) + wbytes + 2 * m * n)
-            per_m[m] = dict(
-                shape=f"M{m} K{k} N{n}",
-                ms=time_ms(torch, lambda: _qmm(name, p, x)),
-                plain_ms=time_ms(torch, lambda: _qmm(name, p, x, plain=True), iters=10),
-                library_ms=time_ms(torch, lambda: torch.matmul(x, deq)),
-                bound_ms=bound, bound_by=by)
-        out[name] = dict(per_m[16], at_prefill_shape=per_m[512],
+            lib = lambda: torch.matmul(x, deq)  # noqa: E731
+            library = dict(library_ms=graph_ms(torch, lib), library_eager_ms=time_ms(torch, lib))
+            for name, p in payloads.items():
+                wbytes = _nbytes(p.packed if name == QMM_NAMES["fp6"] else p.q, p.s)
+                bound, by = _bound(2 * m * k * n, _nbytes(x) + wbytes + 2 * m * n)
+                kern = lambda: _qmm(name, p, x)  # noqa: E731
+                row = dict(shape=f"M{m} K{k} N{n}", ms=graph_ms(torch, kern),
+                           eager_ms=time_ms(torch, kern), **library, bound_ms=bound,
+                           bound_by=by)
+                if plain and (k, n) == (4096, 14336):
+                    row["plain_ms"] = time_ms(torch, lambda: _qmm(name, p, x, plain=True),
+                                              iters=10)
+                out[name][row["shape"]] = row
+        del deq, payloads
+        _free(torch)
+    return out
+
+
+def quant_timings(torch):
+    """K4 / K5 by ``qmm_shape_times``; the kernel's top-level entry is [4096,
+    14336] (w_up / w_gate: the most bytes a layer streams) at M 16, with M
+    512 as ``at_prefill_shape``, the only shape where the plain version is
+    timed.  K6 on [4096, 14336] bf16: bounds over 3.35 TB/s or 4 (quantize)
+    and 2 (dequantize) operations an element over the fp32 rate."""
+    from deepspeed_tpu_torch.ops.kernels import quant_kernel as QK
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 30)
+    out = {}
+    for name, by_shape in qmm_shape_times(torch, gen).items():
+        out[name] = dict(by_shape["M16 K4096 N14336"], by_shape=by_shape,
+                         at_prefill_shape=by_shape["M512 K4096 N14336"],
                          library_note="torch.matmul of x with the dequantized bf16 weight "
-                                      "(what serving without quantization pays)")
-        del deq
-    del payloads, w
+                                      "(what serving without quantization pays), timed once "
+                                      "a shape and M",
+                         timing_note="ms and library_ms: CUDA-graph replay (device time); "
+                                     "eager_ms: back-to-back calls (host time shows)")
     x = _randn(torch, (4096, 14336), gen, torch.bfloat16)
     elems = x.numel()
     note = "null: no single PyTorch call computes a per-row amax-scaled quantization"
@@ -2183,6 +2287,33 @@ def time_ms(torch, fn, iters=30, warm=3):
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / iters
+
+
+def graph_ms(torch, fn, iters=20, reps=5):
+    """Device ms per call of ``fn``: ``iters`` calls captured in one CUDA
+    graph, the fastest of ``reps`` timed replays (no host time between the
+    launches)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the capture, as graphs want
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    best = float("inf")
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        torch.cuda.synchronize()
+        best = min(best, a.elapsed_time(b) / iters)
+    del graph
+    return best
 
 
 def _bound(flops, nbytes, peak_flops=PEAK_BF16_FLOPS):

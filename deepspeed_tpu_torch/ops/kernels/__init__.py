@@ -81,7 +81,7 @@ _ARGTYPES = {
                       [_PTR] * 9 + [_INT] * 8 + [_FLOAT, _FLOAT, _PTR]),
     "ctx_attention_partial": ("dst_ctx_attention_partial",
                               [_PTR] * 11 + [_INT] * 9 + [_FLOAT, _FLOAT, _PTR]),
-    **{name: ("dst_quant_matmul", [_PTR] * 6 + [_INT] * 8 + [_PTR])
+    **{name: ("dst_quant_matmul", [_PTR] * 6 + [_INT] * 9 + [_PTR])
        for name in ("quant_matmul_int8", "quant_matmul_fp8", "quant_matmul_fp6")},
     **{name: ("dst_quantize_rows", [_PTR] * 3 + [_INT] * 4 + [_FLOAT, _PTR])
        for name in ("quantize_int8", "quantize_fp8")},

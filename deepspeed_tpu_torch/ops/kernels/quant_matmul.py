@@ -26,7 +26,11 @@ from . import launch, ptr
 
 _FMT = {torch.int8: 0, torch.float8_e4m3fn: 1}
 _FP6 = 2
-_BN, _BK, _BK4 = 128, 64, 16  # the kernel's tile width and K-step (csrc)
+_BN, _BK, _BK4 = 128, 64, 16  # the kernel's weight columns a CTA and K-step (csrc)
+# The kernel's token tiles (the wgmma's N), each with the CTAs an SM holds at
+# once there (their shared memory and registers): the cases of dispatch_bt
+# and Plan::MIN_CTAS in csrc/quant_matmul.cu, which a CPU test holds to this.
+TOKEN_TILES = {16: 2, 64: 2, 128: 1, 256: 1}
 _SMS = {}  # device index -> SM count
 
 
@@ -125,14 +129,25 @@ def _sm_count(device: torch.device) -> int:
     return _SMS[idx]
 
 
+def token_tile(m: int) -> int:
+    """The kernel's token tile (the wgmma's N): the smallest of
+    ``TOKEN_TILES`` that holds the m rows, 256 above that."""
+    return next((t for t in TOKEN_TILES if t >= m), max(TOKEN_TILES))
+
+
 def split_k(m: int, n: int, steps: int, sms: int):
-    """(splits, K-steps per split): split K across CTAs until the grid has
-    about two CTAs per SM, keeping at least 4 K-steps (256 rows of K) in
-    each split, with no empty split."""
-    tiles = -(-m // (16 if m <= 16 else 64)) * -(-n // _BN)
-    splits = 1
-    if tiles < 2 * sms:
-        splits = max(1, min(-(-2 * sms // tiles), steps // 4, 65535))
+    """(splits, K-steps per split).  K is split into as many parts as keep
+    the whole grid resident at once, at the CTAs an SM that ``TOKEN_TILES``
+    gives the token tile (two at 16 and 64, one at 128 and 256).  At
+    decode (bytes-bound) every CTA then streams its weight bytes from the
+    start, with no second wave; at prefill (operations-bound) a narrow N
+    (wq / wo, wk / wv, w_down) keeps its 256-token tiles, the fewest bytes a
+    product, and fills the SMs through K.  At least 4 K-steps (256 rows of
+    K) a split, and no empty split."""
+    bt = token_tile(m)
+    tiles = -(-m // bt) * -(-n // _BN)
+    slots = TOKEN_TILES[bt] * sms
+    splits = max(1, min(slots // tiles, steps // 4, 65535))
     per = -(-steps // splits)
     return -(-steps // per), per
 
@@ -165,5 +180,5 @@ def _run(name, fmt, x, w, s, bias, k, n, steps):
     xvec = k % 8 == 0 and (fmt != _FP6 or (k // 4) % 8 == 0) and x2.data_ptr() % 16 == 0
     wvec = n % 16 == 0 and w.data_ptr() % 16 == 0
     launch(name, ptr(x2), ptr(w), ptr(s32), ptr(b32), ptr(y), ptr(ws), m, n, k, fmt,
-           splits, per, int(xvec), int(wvec))
+           token_tile(m), splits, per, int(xvec), int(wvec))
     return y.reshape(*lead, n)

@@ -254,23 +254,29 @@ def _quant_setup():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("fmt", ["int8", "fp8", "fp6"])
-def test_quant_matmul_kernels_match_plain(fmt):
-    """``serving_mm`` at the 8B wk / wv shape ([4096, 1024]) and a decode
-    batch of 16 launches K4 / K5 once and agrees with the plain version on
-    the CPU in fp32 within ``chip_smoke.QMM_TOL`` relative Frobenius error."""
+@pytest.mark.parametrize("m,k,n,with_bias", [
+    (16, 4096, 1024, False),   # decode at the 8B wk / wv shape: n16 tiles, K split
+    (512, 4096, 1024, False),  # prefill at the same shape: 256-token tiles, K split
+    (100, 1028, 1000, True),   # ragged M, K and N (unaligned rows), 128 tokens, a bias
+])
+def test_quant_matmul_kernels_match_plain(fmt, m, k, n, with_bias):
+    """``serving_mm`` launches K4 / K5 once and agrees with the plain
+    version on the CPU in fp32 within ``chip_smoke.QMM_TOL`` relative
+    Frobenius error, at a decode batch, a prefill pack and a ragged shape."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     _, QM, Q = _quant_setup()
     gen = torch.Generator(device="cuda").manual_seed(0)
-    w = chip_smoke._randn(torch, (4096, 1024), gen, torch.bfloat16) * 4096 ** -0.5
+    w = chip_smoke._randn(torch, (k, n), gen, torch.bfloat16) * k ** -0.5
     p = chip_smoke._payloads(torch, w)[chip_smoke.QMM_NAMES[fmt]]
-    x = chip_smoke._randn(torch, (16, 4096), gen, torch.bfloat16)
+    x = chip_smoke._randn(torch, (m, k), gen, torch.bfloat16)
+    bias = chip_smoke._randn(torch, (n,), gen, torch.float32) if with_bias else None
     K.reset_launches()
-    got = Q.serving_mm(x, p)
+    got = Q.serving_mm(x, p, bias)
     torch.cuda.synchronize()
     assert {n: c for n, c in K.LAUNCHES.items() if c} == {chip_smoke.QMM_NAMES[fmt]: 1}
     pc = Q.map_quant(p, lambda t: t.cpu())
-    ref = Q.serving_mm(x.cpu().float(), pc)
+    ref = Q.serving_mm(x.cpu().float(), pc, None if bias is None else bias.cpu())
     assert float((got.cpu().float() - ref).norm() / ref.norm()) <= chip_smoke.QMM_TOL
 
 

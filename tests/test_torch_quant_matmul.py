@@ -12,6 +12,9 @@ K5 is held against the JAX decode-then-matmul body with the kernel's fp32
 epilogue.  The port's kernels take any shape; a CPU tensor never launches
 one.
 """
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -161,14 +164,86 @@ def test_kernel_wrappers_refuse_what_the_kernel_does_not_take():
     assert sum(K.LAUNCHES[n] for n in K.LAUNCHES if n.startswith("quant_matmul")) == 0
 
 
+# the 8B serving matmuls (K, N): wq / wo, wk / wv, w_up / w_gate, w_down, the head
+_SHAPES_8B = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096), (4096, 128256)]
+
+
 @pytest.mark.parametrize("m,n,steps,expect", [
     (16, 1024, 64, (16, 4)),      # decode wk / wv: 8 tiles, split 16 ways
-    (16, 14336, 64, (3, 22)),     # decode w_up: 112 tiles
+    (16, 14336, 64, (2, 32)),     # decode w_up: 112 tiles, 224 CTAs resident at once
     (16, 128256, 64, (1, 64)),    # the head fills the card alone
-    (512, 4096, 224, (2, 112)),   # prefill w_down: 256 tiles
+    (512, 4096, 224, (2, 112)),   # prefill w_down: 64 tiles of 256 tokens, split 2 ways
     (5, 100, 3, (1, 3)),          # too short to split
+    # decode at batch 1: the tiles of batch 16
+    *[(1, n, -(-k // 64), e) for (k, n), e in zip(
+        _SHAPES_8B, [(8, 8), (16, 4), (2, 32), (8, 28), (1, 64)])],
+    # prefill of 2048 rows: 256-token tiles, only wk / wv split
+    *[(2048, n, -(-k // 64), e) for (k, n), e in zip(
+        _SHAPES_8B, [(1, 64), (2, 32), (1, 64), (1, 224), (1, 64)])],
 ])
 def test_split_k_choice(m, n, steps, expect):
     splits, per = tqm.split_k(m, n, steps, 132)
     assert (splits, per) == expect
     assert (splits - 1) * per < steps <= splits * per  # no empty split
+
+
+@pytest.mark.parametrize("m,expect", [
+    (1, 16), (16, 16),                 # decode: the n16 product
+    (17, 64), (64, 64), (65, 128), (100, 128), (128, 128),
+    (129, 256), (300, 256), (512, 256), (2048, 256),
+])
+def test_token_tile_choice(m, expect):
+    bt = tqm.token_tile(m)
+    assert bt == expect and bt in tqm.TOKEN_TILES
+
+
+def test_token_tiles_match_the_kernel_dispatch():
+    """The wrapper's tile table is the kernel's: ``token_tile`` picks only
+    tiles that ``dispatch_bt`` launches, and ``split_k`` counts the CTAs an
+    SM that ``Plan::MIN_CTAS`` (the launch bound) holds at each."""
+    src = (Path(tqm.__file__).parents[2] / "csrc" / "quant_matmul.cu").read_text()
+    body = src[src.index("cudaError_t dispatch_bt("):]
+    body = body[:body.index("default:")]
+    cases = [int(a) for a, b in re.findall(r"case (\d+): return launch<FMT, (\d+)>", body)
+             if a == b]
+    assert sorted(cases) == sorted(tqm.TOKEN_TILES)
+    (edge,) = re.findall(r"MIN_CTAS = BT <= (\d+) \? 2 : 1;", src)
+    assert tqm.TOKEN_TILES == {bt: 2 if bt <= int(edge) else 1 for bt in cases}
+
+
+@pytest.mark.parametrize("fmt,m,k,n,xvec,wvec", [
+    ("int8", 16, 4096, 14336, 1, 1),    # decode w_up: 16-token tiles, K split 2 ways
+    ("fp8", 512, 14336, 4096, 1, 1),    # prefill w_down: 256-token tiles, split 2 ways
+    ("fp6", 300, 4096, 1024, 1, 1),     # a ragged 256-token tile, wk / wv split 8 ways
+    ("int8", 5, 4100, 1000, 0, 0),      # unaligned x and weight rows: through registers
+    ("fp6", 17, 1028, 1024, 0, 1),      # fp6 quarters of 257 columns: x through registers
+])
+def test_kernel_wrapper_passes_the_plan_to_the_launch(monkeypatch, fmt, m, k, n, xvec, wvec):
+    """The wrapper's C call, checked without a card: the argument count of
+    ``dst_quant_matmul`` (the token tile is its own argument), the shapes,
+    the planned (token tile, splits, K-steps per split), a workspace exactly
+    when K is split, and the cp.async flags."""
+    calls = []
+    monkeypatch.setattr(tqm, "launch", lambda name, *args: calls.append((name, args)))
+    monkeypatch.setattr(tqm, "_sm_count", lambda dev: 132)
+    x = torch.zeros(m, k, dtype=torch.bfloat16)
+    s = torch.ones(n)
+    if fmt == "fp6":
+        y = tqm.quant_matmul_fp6_kernel(x, torch.zeros(3, k // 4, n, dtype=torch.uint8), s, k)
+        steps = -(-(k // 4) // 16)
+    else:
+        dtype = torch.int8 if fmt == "int8" else torch.float8_e4m3fn
+        y = tqm.quant_matmul_kernel(x, torch.zeros(k, n, dtype=dtype), s)
+        steps = -(-k // 64)
+    assert y.shape == (m, n) and y.dtype == torch.bfloat16
+    (name, args), = calls
+    assert name == {"int8": "quant_matmul_int8", "fp8": "quant_matmul_fp8",
+                    "fp6": "quant_matmul_fp6"}[fmt]
+    assert len(args) + 1 == len(K._ARGTYPES[name][1])  # + the stream
+    ws = args[5].value
+    m_, n_, k_, code, bt, splits, per, xv, wv = args[6:]
+    splits_exp, per_exp = tqm.split_k(m, n, steps, 132)
+    assert (m_, n_, k_, code) == (m, n, k, {"int8": 0, "fp8": 1, "fp6": 2}[fmt])
+    assert (bt, splits, per) == (tqm.token_tile(m), splits_exp, per_exp)
+    assert (ws is None) == (splits == 1)
+    assert (xv, wv) == (xvec, wvec)
