@@ -8,12 +8,14 @@ Phases, each raising on failure (so the exit code is non-zero):
                (one nvcc per source, in parallel) and print the build time
                and each kernel's register / shared-memory report;
    sass     -- for every kernel of the tensor-core libraries (K1 dense,
-               K7 block-sparse, the dequant-matmuls K4 / K5), its HGMMA,
-               HMMA and FFMA instruction counts (``cuobjdump -sass``)
-               beside ptxas's registers and spills; fails if an attention
-               kernel or a dequant-matmul product kernel holds no HGMMA, a
-               dequant-matmul kernel holds HMMA, or one of its one-CTA-an-SM
-               kernels launches with other than QMM_LAUNCH_REGS registers;
+               K7 block-sparse, K2 / K3 paged, the dequant-matmuls K4 /
+               K5), its HGMMA, HMMA and FFMA instruction counts
+               (``cuobjdump -sass``) beside ptxas's registers and spills;
+               fails if an attention kernel or a dequant-matmul product
+               kernel holds no HGMMA, a K2 / K3 kernel spills, a
+               dequant-matmul kernel holds HMMA, or one of its
+               one-CTA-an-SM kernels launches with other than
+               QMM_LAUNCH_REGS registers;
 2. kernels  -- each kernel against its plain PyTorch version on the card,
                bf16 inputs, the plain version computing in fp32, at the
                serving path's shapes (tolerance KERNEL_TOL; K1f's o also
@@ -29,15 +31,17 @@ Phases, each raising on failure (so the exit code is non-zero):
                Frobenius), every weight code decoded exactly (x = the
                identity, bit-identical); the row quantizers (K6a/b/c) on
                [4096, 14336] bf16 rows with a zero row, byte-identical;
-               K2 at head_dim 64 (gpt2_small's MHA decode and a GQA group
-               of 4) and K3 on verify-shaped packs whose contexts end
-               mid-page (hd 64 MHA and hd 128 GQA); the partial modes
-               (seq-sharded serving) on each shard's view of pools striped
-               over 2 (K3: the scheduler's pack and the verify packs,
-               include_pack on and off) and 2 or 4 shards (K2 at the
-               engine's decode shape, and gpt2_small's), rows with no key
-               on a shard exactly (0, -1e30, 0), and the shards' partials
-               merged against K3 / K2 on the whole pool;
+               K2 and K3 (``DECODE_CASES``, ``CTX_CASES``) at head_dim 64 /
+               128 / 256, query groups 1, 4, 16 and 71, blocks of 8, 16
+               and 32: idle slots, a 4,096-key slot and context, -1 and
+               out-of-range ids, soft caps, verify-shaped packs whose
+               contexts end mid-page, pad rows exactly 0; the partial modes
+               (seq-sharded serving, ``CTX_PARTIAL_CASES``,
+               ``DECODE_PARTIAL_CASES``) on each shard's view of pools
+               striped over 2 or 4 shards (K3 with include_pack on and
+               off), rows with no key on a shard exactly (0, -1e30, 0), and
+               the shards' partials merged against K3 / K2 on the whole
+               pool;
 3. engine   -- ``InferenceEngineV2`` on ``llama3_proxy_410m`` (24 layers,
                bf16, random weights from a seed): 64 prompts of 128 tokens
                through ``put``, then 64 greedy ``step``s; the flash and
@@ -134,8 +138,10 @@ Phases, each raising on failure (so the exit code is non-zero):
                at M 16 and 512 on every llama3_8b matmul shape, by CUDA-
                graph replay and eager, [4096, 14336] the kernels line's
                entry, beside torch.matmul; K7f / K7b at the sparse
-               flagship's per-call shape; the partial modes on shard 0 of
-               2 at the scheduler's pack and the engine's decode shape),
+               flagship's per-call shape; K2, K2p, K3 on the scheduler's
+               and a verify tick's pack and the partial modes on shard 0 of
+               2, each by CUDA-graph replay and eager beside SDPA timed the
+               same two ways, ``paged_timings``),
                and K1's and K7's CUDA-core times before their tensor-core
                redesigns (``K1_EARLIER_MS``, ``K7_EARLIER_MS``, from
                PERF.md) as ``earlier_ms``.
@@ -234,6 +240,8 @@ DEVICE = "cuda"  # where the input builders put their tensors
 # (HGMMA: wgmma, HMMA: mma.sync) and fp32 FMAs (the CUDA-core arithmetic)
 SASS_OPS = ("HGMMA", "HMMA", "FFMA")
 FLASH_SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "sparse_flash.cu")
+# K2 and K3 (paged_tc.cuh's body, decode and packed-context instantiations)
+PAGED_SOURCES = ("paged_decode.cu", "ctx_attention.cu")
 QMM_SOURCE = "quant_matmul.cu"
 # the registers a thread of the one-CTA-an-SM dequant-matmul kernels (token
 # tiles 128 and 256) launches with: the launch bound's share, which their
@@ -306,15 +314,21 @@ def _pages(torch, gcpu, nb, stripes=1):
 
 
 def decode_case(torch, gen, B=64, nb=2048, bs=32, P=128, hq=8, hkv=2, hd=128,
-                inactive=8, max_len=1200, min_len=1, stripes=1):
+                inactive=8, max_len=1200, min_len=1, stripes=1, first_len=None,
+                bad_ids=False):
     """Mixed lengths in [min_len, max_len), -1 table tails, ``inactive``
     slots with len 1 and an all -1 row (how the engine presents an idle
-    slot); each slot's pages striped over ``stripes`` seq shards."""
+    slot); each slot's pages striped over ``stripes`` seq shards.
+    ``first_len``: slot 0's length instead (a long context); ``bad_ids``: a
+    -1 and an out-of-range id inside the lengths of slots 0 and 1 (K2 clamps
+    both to the pool, its partial mode skips them)."""
     ck = _randn(torch, (nb, bs, hkv, hd), gen, torch.bfloat16)
     cv = _randn(torch, (nb, bs, hkv, hd), gen, torch.bfloat16)
     q = _randn(torch, (B, hq, hd), gen, torch.bfloat16)
     lens = torch.randint(min_len, max_len, (B,), generator=torch.Generator().manual_seed(SEED),
                          dtype=torch.int32)
+    if first_len is not None:
+        lens[0] = first_len
     take = _pages(torch, torch.Generator().manual_seed(SEED + 1), nb, stripes)
     table = torch.full((B, P), -1, dtype=torch.int32)
     for b in range(B):
@@ -323,6 +337,8 @@ def decode_case(torch, gen, B=64, nb=2048, bs=32, P=128, hq=8, hkv=2, hd=128,
             continue
         n = -(-int(lens[b]) // bs)
         table[b, :n] = take(n)
+        if bad_ids and b < 2 and n > 1:
+            table[b, 1] = -1 if b == 0 else nb + 3
     return dict(q=q, cache_k=ck, cache_v=cv, block_table=table.to(DEVICE),
                 seq_lens=lens.to(DEVICE))
 
@@ -399,6 +415,77 @@ def verify_case(torch, gen, hq, hkv, hd, ctx=VERIFY_CTX, drafts=VERIFY_DRAFTS, K
                 ctx_lens=torch.tensor(ctx, dtype=torch.int32, device=DEVICE))
 
 
+# K2 on the card, (label, decode_case arguments, soft cap): head dims 64 /
+# 128 / 256, query groups 1, 4, 16 and 71 (falcon_7b's 71 heads on one kv
+# head), blocks of 8, 16 and 32, idle slots, a slot of 4,096 keys (many split
+# shares long), -1 and out-of-range ids inside a length, soft caps
+DECODE_CASES = (
+    ("B64_mixed", {}, None),
+    ("B64_mixed_cap5", dict(max_len=300), 5.0),
+    ("gpt2_B64_hq12_hkv12_hd64_len129-256", GPT2_DECODE, None),
+    ("B64_hq8_hkv2_hd64_mixed", dict(hq=8, hkv=2, hd=64, max_len=600), None),
+    ("B16_hq8_hkv8_hd128_bs8_badids", dict(B=16, nb=2560, bs=8, P=160, hq=8, hkv=8, inactive=2,
+                                           bad_ids=True), None),
+    ("B16_hq16_hkv16_hd256_bs16_len4096", dict(B=16, nb=2048, bs=16, P=256, hq=16, hkv=16,
+                                               hd=256, inactive=2, first_len=4096), None),
+    ("B16_hq8_hkv2_hd256_bs8_cap5", dict(B=16, nb=2560, bs=8, P=160, hq=8, hkv=2, hd=256,
+                                         inactive=2), 5.0),
+    ("B16_hq16_hkv1_hd128_len4096", dict(B=16, nb=1024, hq=16, hkv=1, inactive=2,
+                                         first_len=4096), None),
+    ("B16_hq71_hkv1_hd64_bs16_badids", dict(B=16, nb=2048, bs=16, P=80, hq=71, hkv=1, hd=64,
+                                            inactive=2, bad_ids=True), None),
+    ("B8_hq71_hkv1_hd128_cap5", dict(B=8, nb=512, hq=71, hkv=1, inactive=1), 5.0),
+)
+# K3 on the card, (label, case kind, its arguments, soft cap): the scheduler's
+# and verify ticks' packs, contexts ending mid-page, pad rows between
+# segments, out-of-range ids past a context, the same head dims, groups and
+# blocks as K2, and a context of 4,096 keys
+CTX_CASES = (
+    ("T256_N8_ctx512", "ctx", dict(sfx=(64, 64, 64, 64), ctx=(512, 512, 512, 512)), None),
+    ("midpage_pad_badids", "ctx", {}, None),
+    ("verify_N8x5_hq12_hkv12_hd64_midpage", "verify", dict(hq=12, hkv=12, hd=64), None),
+    ("verify_N8x5_hq8_hkv2_hd128_midpage", "verify", dict(hq=8, hkv=2, hd=128), None),
+    ("verify_N8x5_hq16_hkv16_hd256_bs16", "verify", dict(hq=16, hkv=16, hd=256, bs=16), None),
+    ("verify_N8x5_hq71_hkv1_hd64_cap5", "verify", dict(hq=71, hkv=1, hd=64), 5.0),
+    ("midpage_hq8_hkv2_hd256_bs16_cap5", "ctx", dict(hd=256, bs=16, P=40, nb=256), 5.0),
+    ("midpage_hq16_hkv1_hd128_bs8", "ctx", dict(hq=16, hkv=1, bs=8, P=80, nb=512), None),
+    ("midpage_hq71_hkv1_hd64_bs16", "ctx", dict(hq=71, hkv=1, hd=64, bs=16, P=40, nb=256), None),
+    ("ctx4096_hq8_hkv2_hd128", "ctx", dict(sfx=(64, 17), ctx=(4096, 300), P=130, nb=512), None),
+)
+# the partial modes on striped pools, (label, case kind, arguments, shards)
+CTX_PARTIAL_CASES = (
+    ("sched_T256_N8_4x(512ctx+64sfx)", "ctx", dict(sfx=(64, 64, 64, 64),
+                                                   ctx=(512, 512, 512, 512)), 2),
+    ("sched_T256_N8_4x(512ctx+64sfx)", "ctx", dict(sfx=(64, 64, 64, 64),
+                                                   ctx=(512, 512, 512, 512)), 4),
+    ("verify_N8x5_hq12_hkv12_hd64_midpage", "verify", dict(hq=12, hkv=12, hd=64), 2),
+    ("verify_N8x5_hq8_hkv2_hd128_midpage", "verify", dict(hq=8, hkv=2, hd=128), 2),
+    ("verify_N8x5_hq71_hkv1_hd64", "verify", dict(hq=71, hkv=1, hd=64), 4),
+    ("midpage_hq8_hkv2_hd256_bs16", "ctx", dict(hd=256, bs=16, P=40, nb=256), 2),
+    ("midpage_hq16_hkv1_hd128_bs8", "ctx", dict(hq=16, hkv=1, bs=8, P=80, nb=512), 4),
+)
+DECODE_PARTIAL_CASES = (
+    ("engine_B64_P128_bs32", {}, 2),
+    ("engine_B64_P128_bs32", {}, 4),
+    ("gpt2_B64_hq12_hkv12_hd64", GPT2_DECODE, 2),
+    ("B16_hq16_hkv16_hd256_bs16", dict(B=16, nb=2048, bs=16, P=80, hq=16, hkv=16, hd=256,
+                                       inactive=2), 2),
+    ("B16_hq71_hkv1_hd64_bs8", dict(B=16, nb=2560, bs=8, P=160, hq=71, hkv=1, hd=64,
+                                    inactive=2), 4),
+    ("B16_hq16_hkv1_hd128_len4096", dict(B=16, nb=1024, hq=16, hkv=1, inactive=2,
+                                         first_len=4096), 2),
+)
+
+
+def paged_case(torch, gen, kind, kw, stripes=1):
+    """A K3 input from ``ctx_case`` or ``verify_case``."""
+    if kind == "verify":
+        kw = dict(kw)
+        return verify_case(torch, gen, kw.pop("hq"), kw.pop("hkv"), kw.pop("hd"),
+                           stripes=stripes, **kw)
+    return ctx_case(torch, gen, stripes=stripes, **kw)
+
+
 def _packed_ids(torch, b, s, lens):
     """[b, s] int32 segment ids on the card: each batch row packs segments of
     these lengths as ids 1, 2, ...; the rest pads as segment 0."""
@@ -467,6 +554,20 @@ def _flash_kernel_key(mangled):
     return f"{m.group(1)}<hd {m.group(2)}, {m.group(3)}>" if m else mangled
 
 
+def _paged_kernel_key(mangled):
+    """``decode_kernel<hd 128, nq 8, partial>`` or ``ctx_attn_kernel<hd 128,
+    normal>`` from a mangled K2 / K3 kernel name (template arguments: the
+    head dim, K2's query heads in the products, the partial switch)."""
+    m = re.search(r"(decode_kernel)ILi(\d+)ELi(\d+)ELb([01])E", mangled)
+    if m:
+        return (f"{m.group(1)}<hd {m.group(2)}, nq {m.group(3)}, "
+                f"{'partial' if m.group(4) == '1' else 'normal'}>")
+    m = re.search(r"(ctx_attn_kernel)ILi(\d+)ELb([01])E", mangled)
+    if m:
+        return f"{m.group(1)}<hd {m.group(2)}, {'partial' if m.group(3) == '1' else 'normal'}>"
+    return mangled
+
+
 def _qmm_kernel_key(mangled):
     """``qmm_kernel<fp6, bt 256>`` from a mangled dequant-matmul kernel name
     (template arguments: the weight format, the token tile), or the
@@ -479,17 +580,17 @@ def _qmm_kernel_key(mangled):
 
 
 def sass_phase(K):
-    """Phase 1b: per kernel of the tensor-core libraries (K1, K7 and the
-    dequant-matmuls K4 / K5), the SASS counts of ``SASS_OPS`` and ptxas's
-    registers and spills; raises when an attention kernel or a dequant-matmul
-    product kernel holds no HGMMA (every product is a wgmma), or a
-    dequant-matmul kernel still holds HMMA (the mma.sync of its WMMA
-    version), or a dequant-matmul kernel at token tile 128 or 256 launches
-    with other than ``QMM_LAUNCH_REGS`` registers a thread.  The split-K
-    reduce kernel has no product."""
+    """Phase 1b: per kernel of the tensor-core libraries (K1, K7, K2 / K3
+    and the dequant-matmuls K4 / K5), the SASS counts of ``SASS_OPS`` and
+    ptxas's registers and spills; raises when an attention kernel or a
+    dequant-matmul product kernel holds no HGMMA (every product is a wgmma),
+    a K2 / K3 kernel spills, a dequant-matmul kernel still holds HMMA (the
+    mma.sync of its WMMA version), or a dequant-matmul kernel at token tile
+    128 or 256 launches with other than ``QMM_LAUNCH_REGS`` registers a
+    thread.  The split-K reduce kernel has no product."""
     cuobjdump = os.path.join(os.path.dirname(K._nvcc()), "cuobjdump")
     out = {}
-    for src in (*FLASH_SOURCES, QMM_SOURCE):
+    for src in (*FLASH_SOURCES, *PAGED_SOURCES, QMM_SOURCE):
         sass = subprocess.run([cuobjdump, "-sass", K._lib_path(src)], capture_output=True,
                               text=True, check=True).stdout
         counts, name = {}, None
@@ -512,8 +613,13 @@ def sass_phase(K):
             if m and cur:
                 regs.setdefault(cur, {})["registers"] = int(m.group(1))
         for mangled, c in counts.items():
-            key = _qmm_kernel_key(mangled) if src == QMM_SOURCE else _flash_kernel_key(mangled)
+            key = (_qmm_kernel_key(mangled) if src == QMM_SOURCE else
+                   _paged_kernel_key(mangled) if src in PAGED_SOURCES else
+                   _flash_kernel_key(mangled))
             out[key] = dict(source=src, **c, **regs.get(mangled, {}))
+            if src in PAGED_SOURCES and (out[key].get("spill_stores", 0)
+                                         or out[key].get("spill_loads", 0)):
+                raise AssertionError(f"sass: {key} ({src}) spills: {out[key]}")
             product = src != QMM_SOURCE or key.startswith("qmm_kernel<")
             if product and c["HGMMA"] == 0:
                 raise AssertionError(f"sass: {key} ({src}) holds no HGMMA: {c}")
@@ -582,36 +688,23 @@ def kernel_checks(torch):
         record("flash_fwd", label, got, ref)
         record("flash_fwd", label + "_rel", got, ref, tol=BWD_TOL, relative=True)
 
-    for label, case, cap in (
-        ("B64_mixed", decode_case(torch, gen), None),
-        ("B64_mixed_cap5", decode_case(torch, gen, max_len=300), 5.0),
-    ):
+    for label, kw, cap in DECODE_CASES:
+        case = decode_case(torch, gen, **kw)
+        name = "paged_decode_hd64" if case["q"].shape[-1] == 64 else "paged_decode"
         got = K2.paged_attention_decode_kernel(**case, logits_soft_cap=cap)
         ref = K2.paged_attention_decode_plain(**_f32(case), logits_soft_cap=cap)
-        record("paged_decode", label, got, ref)
-    # K2 at head_dim 64 (K2p's counterpart): gpt2_small's MHA decode (g = 1)
-    # and a GQA group of 4 (JAX's packed-kernel test shape)
-    for label, case in (
-        ("gpt2_B64_hq12_hkv12_hd64_len129-256", decode_case(torch, gen, **GPT2_DECODE)),
-        ("B64_hq8_hkv2_hd64_mixed", decode_case(torch, gen, hq=8, hkv=2, hd=64, max_len=600)),
-    ):
-        got = K2.paged_attention_decode_kernel(**case)
-        ref = K2.paged_attention_decode_plain(**_f32(case))
-        record("paged_decode_hd64", label, got, ref)
-
-    for label, case in (
-        ("T256_N8_ctx512", ctx_case(torch, gen, sfx=(64, 64, 64, 64),
-                                    ctx=(512, 512, 512, 512))),
-        ("midpage_pad_badids", ctx_case(torch, gen)),
-        ("verify_N8x5_hq12_hkv12_hd64_midpage", verify_case(torch, gen, 12, 12, 64)),
-        ("verify_N8x5_hq8_hkv2_hd128_midpage", verify_case(torch, gen, 8, 2, 128)),
-    ):
-        got = K3.paged_attention_packed_ctx_kernel(**case)
-        ref = K3.paged_attention_packed_ctx_plain(**_f32(case))
+        record(name, label, got, ref)
+        del case, got, ref
+    for label, kind, kw, cap in CTX_CASES:
+        case = paged_case(torch, gen, kind, kw)
+        got = K3.paged_attention_packed_ctx_kernel(**case, logits_soft_cap=cap)
+        ref = K3.paged_attention_packed_ctx_plain(**_f32(case), logits_soft_cap=cap)
         pad = case["segment_ids"] == 0
         if bool(pad.any()) and bool(got[pad].ne(0).any()):
             raise AssertionError(f"ctx_attention {label}: pad rows not exactly 0")
         record("ctx_attention", label, got, ref)
+        del case, got, ref
+    _free(torch)
     partial_kernel_checks(torch, gen, record)
 
     # the training backward: K1f's o and lse against the plain forward, then
@@ -700,14 +793,8 @@ def partial_kernel_checks(torch, gen, record):
         err, empty = partial_errs(torch, got, ref, f"{name} {label}")
         record(name, f"{label} (empty rows {empty})", None, None, err=err)
 
-    S = 2
-    for label, case in (
-        ("sched_T256_N8_4x(512ctx+64sfx)", ctx_case(torch, gen, sfx=(64, 64, 64, 64),
-                                                     ctx=(512, 512, 512, 512), stripes=S)),
-        ("verify_N8x5_hq12_hkv12_hd64_midpage", verify_case(torch, gen, 12, 12, 64,
-                                                            stripes=S)),
-        ("verify_N8x5_hq8_hkv2_hd128_midpage", verify_case(torch, gen, 8, 2, 128, stripes=S)),
-    ):
+    for label, kind, kw, S in CTX_PARTIAL_CASES:
+        case = paged_case(torch, gen, kind, kw, stripes=S)
         parts = []
         for s in range(S):
             sh = shard_view(torch, case, s, S, "ctx_tables")
@@ -723,11 +810,8 @@ def partial_kernel_checks(torch, gen, record):
         if bool(merged[case["segment_ids"] == 0].ne(0).any()):
             raise AssertionError(f"ctx_attention_partial {label}: merged pad rows not 0")
         record("ctx_attention_partial", f"{label}_S{S}_merged_vs_ctx_attention", merged, full)
-    for label, S, kw in (
-        ("engine_B64_P128_bs32", 2, {}),
-        ("engine_B64_P128_bs32", 4, {}),
-        ("gpt2_B64_hq12_hkv12_hd64", 2, GPT2_DECODE),
-    ):
+        del case, parts, merged, full
+    for label, kw, S in DECODE_PARTIAL_CASES:
         case = decode_case(torch, gen, stripes=S, **kw)
         parts = []
         for s in range(S):
@@ -743,6 +827,8 @@ def partial_kernel_checks(torch, gen, record):
             raise AssertionError(f"paged_decode_partial {label}: merged idle slots not 0")
         record("paged_decode_partial", f"{label}_S{S}_merged_vs_paged_decode", merged[live],
                full[live])
+        del case, parts, merged, full
+    _free(torch)
 
 
 def sparse_layout(spec, s):
@@ -918,6 +1004,10 @@ def near_argmax(torch, logits, picks):
     return float(gap.max()), int((logits.argmax(dim=-1) == picks).sum())
 
 
+# K2's device-kernel name in a profile (paged_tc.cuh's decode body)
+K2_PROFILE_NAME = "decode_kernel<"
+
+
 def decode_kernel(cfg):
     """The decode kernel's launch name for ``cfg``'s head_dim."""
     return "paged_decode_hd64" if cfg.hd == 64 else "paged_decode"
@@ -981,7 +1071,7 @@ def engine_phase(torch, K, gpu, params, cfg, model="llama3_proxy_410m", phase="e
            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     # None ("not measured") when the profiler sees no device activity
     dev_ms = sum(e.self_device_time_total for e in evs) / 1e3 / 4 if evs else None
-    k2_ms = sum(e.self_device_time_total for e in evs if "paged_decode" in e.key) / 1e3 / 4
+    k2_ms = sum(e.self_device_time_total for e in evs if K2_PROFILE_NAME in e.key) / 1e3 / 4
     top = sorted(evs, key=lambda e: -e.self_device_time_total)[:8]
     profile_rows = [dict(name=e.key[:60], ms_per_tick=e.self_device_time_total / 1e3 / 4,
                          calls_per_tick=e.count / 4) for e in top]
@@ -2030,7 +2120,7 @@ def quant_check_phase(torch, K, gpu):
 PROFILE_CATEGORIES = {  # substrings of device-kernel names, first match wins
     "quant_matmul (K4/K5)": ("qmm_",),
     "cublas_matmul": ("gemm", "nvjet", "xmma", "cutlass", "splitK"),
-    "paged_decode (K2)": ("paged_decode",),
+    "paged_decode (K2)": (K2_PROFILE_NAME,),
     "flash_fwd (K1f)": ("flash_fwd",),
 }
 
@@ -2316,6 +2406,15 @@ def graph_ms(torch, fn, iters=20, reps=5):
     return best
 
 
+def paired_ms(torch, kernel, library):
+    """A kernel and its library yardstick timed alike: device ms by CUDA-graph
+    replay (``ms``, ``library_ms``; no host time between launches) and by
+    back-to-back eager calls (``eager_ms``, ``library_eager_ms``; the
+    wrapper's host time shows where it exceeds the kernel's)."""
+    return dict(ms=graph_ms(torch, kernel), eager_ms=time_ms(torch, kernel),
+                library_ms=graph_ms(torch, library), library_eager_ms=time_ms(torch, library))
+
+
 def _bound(flops, nbytes, peak_flops=PEAK_BF16_FLOPS):
     t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES
     return (1e3 * max(t_ops, t_bytes), "operations" if t_ops > t_bytes else "bytes")
@@ -2328,9 +2427,7 @@ def _nbytes(*ts):
 def timings(torch):
     import torch.nn.functional as F
     from deepspeed_tpu_torch.ops.attention import dot_product_attention
-    from deepspeed_tpu_torch.ops.kernels import ctx_attention as K3
     from deepspeed_tpu_torch.ops.kernels import flash_attention as K1
-    from deepspeed_tpu_torch.ops.kernels import paged_attention as K2
 
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 10)
     out = {}
@@ -2353,9 +2450,27 @@ def timings(torch):
             qt, kt, vt, attn_mask=mask, enable_gqa=True)),
         bound_ms=bound, bound_by=by)
 
+    out.update(paged_timings(torch, gen))
+    out.update(train_timings(torch, gen))
+    _free(torch)
+    out.update(sparse_timings(torch, gen))
+    return out
+
+
+def paged_timings(torch, gen, plain=True):
+    """K2 (the 410M decode shape and gpt2_small's, K2p's counterpart), K3 (the
+    scheduler's prefix-hit pack and a verify tick's pack) and both partial
+    modes, each by ``paired_ms`` beside its SDPA yardstick, with the bound;
+    ``plain``: the plain versions' eager ms too."""
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops.kernels import ctx_attention as K3
+    from deepspeed_tpu_torch.ops.kernels import paged_attention as K2
+
+    out = {}
     # K2: B = 64 decode over the paged pool (mixed lengths, 8 idle slots)
-    out["paged_decode"] = decode_timing(torch, K2, decode_case(torch, gen))
-    out["paged_decode_hd64"] = decode_timing(torch, K2, decode_case(torch, gen, **GPT2_DECODE))
+    out["paged_decode"] = decode_timing(torch, K2, decode_case(torch, gen), plain)
+    out["paged_decode_hd64"] = decode_timing(torch, K2, decode_case(torch, gen, **GPT2_DECODE),
+                                              plain)
 
     # K3: a prefix-hit pack, 4 suffixes of 64 over 512 cached tokens each
     c = ctx_case(torch, gen, sfx=(64, 64, 64, 64), ctx=(512, 512, 512, 512), bad_ids=False)
@@ -2374,10 +2489,10 @@ def timings(torch):
     smask = torch.ones(sfx, ctx + sfx, dtype=torch.bool, device=DEVICE).tril(ctx)
     out["ctx_attention"] = dict(
         shape=f"T{t} N8 4x(512 ctx + 64 sfx)",
-        ms=time_ms(torch, lambda: K3.paged_attention_packed_ctx_kernel(**c)),
-        plain_ms=time_ms(torch, lambda: K3.paged_attention_packed_ctx_plain(**c)),
-        library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
-            qs, ks, vs, attn_mask=smask, enable_gqa=True)),
+        **paired_ms(torch, lambda: K3.paged_attention_packed_ctx_kernel(**c),
+                    lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=smask,
+                                                           enable_gqa=True)),
+        **_plain_ms(torch, plain, lambda: K3.paged_attention_packed_ctx_plain(**c)),
         bound_ms=bound, bound_by=by)
     del c, ks, vs, qs
     # K3 on a verify tick's pack (8 slots x 5 rows, mid-page contexts) at
@@ -2395,22 +2510,23 @@ def timings(torch):
     lib = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=smask, enable_gqa=True)
     out["ctx_attention"]["at_verify_shape"] = dict(
         shape=f"T40 N8 x (k+1 = 5) hq8 hkv2 hd128 ctx_lens {list(VERIFY_CTX)}",
-        ms=time_ms(torch, lambda: K3.paged_attention_packed_ctx_kernel(**c)),
-        plain_ms=time_ms(torch, lambda: K3.paged_attention_packed_ctx_plain(**c)),
-        library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
-            qs, ks, vs, attn_mask=smask, enable_gqa=True)),
+        **paired_ms(torch, lambda: K3.paged_attention_packed_ctx_kernel(**c),
+                    lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=smask,
+                                                           enable_gqa=True)),
+        **_plain_ms(torch, plain, lambda: K3.paged_attention_packed_ctx_plain(**c)),
         library_max_abs_err=_verify_rows_err(torch, got, lib, c),
         bound_ms=bound, bound_by=by)
     del c, qs, ks, vs, smask
-    out["ctx_attention_partial"] = ctx_partial_timing(torch, K3, gen)
-    out["paged_decode_partial"] = decode_partial_timing(torch, K2, gen)
-    out.update(train_timings(torch, gen))
-    _free(torch)
-    out.update(sparse_timings(torch, gen))
+    out["ctx_attention_partial"] = ctx_partial_timing(torch, K3, gen, plain)
+    out["paged_decode_partial"] = decode_partial_timing(torch, K2, gen, plain)
     return out
 
 
-def decode_timing(torch, K2, c):
+def _plain_ms(torch, plain, fn):
+    return dict(plain_ms=time_ms(torch, fn)) if plain else {}
+
+
+def decode_timing(torch, K2, c, plain=True):
     """K2 on a ``decode_case``: kernel, plain version, the SDPA yardstick
     (``decode_sdpa_inputs``) and the bound (every live key and value row
     read once, q read and out written once; 4 hd flops per live (query
@@ -2429,10 +2545,10 @@ def decode_timing(torch, K2, c):
     live_rows = c["block_table"][:, 0] >= 0  # idle slots (all -1 tables) are not compared
     return dict(shape=f"B{b} hq{hq} hkv{hkv} hd{hd} bs{c['cache_k'].shape[1]} "
                       f"P{c['block_table'].shape[1]} live_tokens{live}",
-                ms=time_ms(torch, lambda: K2.paged_attention_decode_kernel(**c)),
-                plain_ms=time_ms(torch, lambda: K2.paged_attention_decode_plain(**c)),
-                library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
-                    qs, ks, vs, attn_mask=mask, enable_gqa=True)),
+                **paired_ms(torch, lambda: K2.paged_attention_decode_kernel(**c),
+                            lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
+                                                                   enable_gqa=True)),
+                **_plain_ms(torch, plain, lambda: K2.paged_attention_decode_plain(**c)),
                 library_max_abs_err=float((got[live_rows].float()
                                            - lib[live_rows, :, 0].float()).abs().max()),
                 bound_ms=bound, bound_by=by)
@@ -2457,7 +2573,7 @@ def _gather_owned(torch, c, ok, table_key):
     return c["cache_k"][pages, order % bs], c["cache_v"][pages, order % bs], count
 
 
-def decode_partial_timing(torch, K2, gen):
+def decode_partial_timing(torch, K2, gen, plain=True):
     """The decode partial at the engine's decode shape (B 64, P 128, bs 32)
     striped over 2 shards, shard 0's view: kernel, plain version, the SDPA
     yardstick over the shard's owned keys (gathered beforehand, untimed,
@@ -2481,14 +2597,15 @@ def decode_partial_timing(torch, K2, gen):
     qs, ks, vs = c["q"][:, :, None], k.transpose(1, 2), v.transpose(1, 2)
     return dict(shape=f"B{b} hq{hq} hkv{hkv} hd{hd} bs{bs} P{c['block_table'].shape[1]} "
                       f"shard 0 of {S} ({nb} of {nb * S} blocks) owned_keys{owned}",
-                ms=time_ms(torch, lambda: K2.paged_attention_decode_partial_kernel(**c)),
-                plain_ms=time_ms(torch, lambda: K2.paged_attention_decode_partial_plain(**c)),
-                library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
-                    qs, ks, vs, attn_mask=mask[:, None, None], enable_gqa=True)),
+                **paired_ms(torch, lambda: K2.paged_attention_decode_partial_kernel(**c),
+                            lambda: F.scaled_dot_product_attention(
+                                qs, ks, vs, attn_mask=mask[:, None, None], enable_gqa=True)),
+                **_plain_ms(torch, plain,
+                            lambda: K2.paged_attention_decode_partial_plain(**c)),
                 bound_ms=bound, bound_by=by)
 
 
-def ctx_partial_timing(torch, K3, gen):
+def ctx_partial_timing(torch, K3, gen, plain=True):
     """K3's partial mode at the scheduler's prefix-hit shape (T 256, N 8,
     4 x (512 ctx + 64 sfx)) striped over 2 shards, shard 0's view with the
     pack's own keys: kernel, plain version, the SDPA yardstick (each
@@ -2523,10 +2640,11 @@ def ctx_partial_timing(torch, K3, gen):
     smask = torch.ones(sfx, L, dtype=torch.bool, device=DEVICE).tril(L - sfx)
     return dict(shape=f"T{t} N8 4x(512 ctx + 64 sfx) shard 0 of {S} ({nb} of {nb * S} blocks), "
                       f"include_pack, owned_ctx_keys{int(owned.sum())}",
-                ms=time_ms(torch, lambda: K3.paged_attention_packed_ctx_partial_kernel(**c)),
-                plain_ms=time_ms(torch, lambda: K3.paged_attention_packed_ctx_partial_plain(**c)),
-                library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
-                    qs, ks, vs, attn_mask=smask, enable_gqa=True)),
+                **paired_ms(torch, lambda: K3.paged_attention_packed_ctx_partial_kernel(**c),
+                            lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=smask,
+                                                                   enable_gqa=True)),
+                **_plain_ms(torch, plain,
+                            lambda: K3.paged_attention_packed_ctx_partial_plain(**c)),
                 bound_ms=bound, bound_by=by)
 
 

@@ -1,9 +1,10 @@
-// Packed-suffix attention over cached context pages plus in-pack causal keys.
+// Packed-suffix attention over cached context pages plus in-pack causal
+// keys, on Hopper's tensor cores (wgmma).
 //
 // Replaces: deepspeed_tpu/ops/pallas/ctx_attention.py
-// `paged_attention_packed_ctx_kernel` (the `pl.pallas_call` at :297), both
-// modes: partial=False (normalized bf16 output), reached from prefix-cache
-// hits, chunked-prefill continuation chunks and verify packs
+// `paged_attention_packed_ctx_kernel` (:244, the `pl.pallas_call` at :297),
+// both modes: partial=False (normalized bf16 output), reached from
+// prefix-cache hits, chunked-prefill continuation chunks and verify packs
 // (`model_runner.prefill_packed_ctx` / `verify_packed_ctx` ->
 // `paged.paged_attention_packed_ctx`), and partial=True (:325), the same
 // packs under seq-sharded serving: each seq shard runs it over its own slice
@@ -18,209 +19,79 @@
 // segment in the pack at or before its row.  Soft cap fused before the mask.
 // Rows whose segment id is not in [1, N] (padding) come out exactly 0; in
 // the partial mode as (acc 0, m -1e30, l 0), as does a row with no key on
-// this shard.  A key tile none of whose pages is valid here (another shard's
+// this shard.  A key tile none of whose keys is valid here (another shard's
 // pages, padding) is skipped whole, so a shard's work follows the pages it
-// owns.
-// Segments must be contiguous runs of the pack, in position order (the
-// engine's pack builder guarantees it; the TPU kernel assumes the same).
+// owns.  Segments must be contiguous runs of the pack, in position order
+// (the engine's pack assembly guarantees it; the TPU kernel assumes the
+// same).
 //
 // Bound on H100: bytes of the live context pages plus the pack's q/k/v/o at
 // short packs; flops (4 * hd per query-key-head) once the pack is long.
-// The TPU kernel carries one (m, l, acc) triple across a sequential grid;
-// CTAs here run in no order, so each CTA owns its rows' whole reduction:
-// one CTA per (row tile of 16 / g rows of one segment, kv head, segment),
-// looping over the segment's context pages and then its in-pack keys
-// (attn_common.cuh).  Each CTA finds its segment's first row and length
-// from segment_ids itself (a pass over T ids), and an extra z-slice of CTAs
-// writes the zero pad rows, so the output needs no memset.  CUDA-core fp32
-// arithmetic: the simple first version.
-#include "attn_common.cuh"
+// The packs are small (a verify tick's 5 rows a slot, a 64-row suffix), so
+// latency and wasted work decide the time.  Design (paged_tc.cuh
+// `ctx_attn_kernel`; its key feed, ring and cluster merge are shared with
+// paged_decode.cu): a unit is 64 (row, query head) pairs of one
+// segment and one kv head, so a verify segment's 5 rows x g heads share one
+// tile and read their context once per kv head, and a 64-row suffix at
+// g = 4 fills 4 tiles; S = Q K^T and O += P V are wgmma products, the causal
+// mask of (b) taken from each pair's row; the context pages are gathered
+// row by row by cp.async into a ring, then the pack's keys; a unit's tiles
+// are dealt over a cluster of CTAs and merged through distributed shared
+// memory.  A CTA finds its unit in one pass over the segment ids (no CTA
+// per (row tile, segment) pair), and the CTAs write the pad rows of their
+// share of the pack, so the output needs no memset and no extra grid slice.
+#include "paged_tc.cuh"
 
-namespace dst {
+namespace {
 
-constexpr int kPPW = 4;  // 16 pairs per CTA: more CTAs over a short pack
-constexpr int kMaxPairs = kWarps * kPPW;
+// The find_unit scratch (3 N + 1 ints) fits the smallest ring.
+constexpr int kMaxSegments = 4096;
 
-// Where a CTA writes: the normalized bf16 rows (o), or the partial triple.
-struct CtxOut {
-  bf16* o;
-  float* acc;
-  float* m;
-  float* l;
-};
-
-template <int HD, bool PARTIAL>
-__global__ void __launch_bounds__(kThreads)
-ctx_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, const int* __restrict__ seg,
-                     const bf16* __restrict__ kpool, const bf16* __restrict__ vpool,
-                     const int* __restrict__ tables, const int* __restrict__ ctx_lens,
-                     CtxOut out, int T, int hq, int hkv, int nb, int bs, int N, int P,
-                     int include_pack, float scale, float cap) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ int s_start, s_len;
-  __shared__ int kvalid[kKeyTile];
-  const Smem<HD> sm(smem_raw, kMaxPairs);
-  const int g = hq / hkv;
-  const int bm = kMaxPairs / g;
-  const int h = blockIdx.y, n = blockIdx.z;
-  const size_t qstride = static_cast<size_t>(hq) * HD;
-  const size_t kstride = static_cast<size_t>(hkv) * HD;
-
-  if (n == N) {  // pad rows of this kv head's query heads: exactly 0 / (0, -1e30, 0)
-    const int row0 = blockIdx.x * bm;
-    const int rows = min(bm, T - row0);
-    for (int idx = threadIdx.x; idx < rows * g * HD; idx += blockDim.x) {
-      const int r = row0 + idx / (g * HD);
-      const int id = seg[r];
-      if (id >= 1 && id <= N) continue;
-      const size_t off = r * qstride + h * g * HD + idx % (g * HD);
-      if (PARTIAL) {
-        out.acc[off] = 0.f;
-      } else {
-        out.o[off] = __float2bfloat16(0.f);
-      }
-    }
-    if (PARTIAL) {
-      for (int idx = threadIdx.x; idx < rows * g; idx += blockDim.x) {
-        const int r = row0 + idx / g;
-        const int id = seg[r];
-        if (id >= 1 && id <= N) continue;
-        const size_t off = static_cast<size_t>(r) * hq + h * g + idx % g;
-        out.m[off] = kNegInf;
-        out.l[off] = 0.f;
-      }
-    }
-    return;
-  }
-
-  if (threadIdx.x == 0) {
-    s_start = T;
-    s_len = 0;
-  }
-  __syncthreads();
-  int lo = T, cnt = 0;
-  for (int r = threadIdx.x; r < T; r += blockDim.x) {
-    if (seg[r] == n + 1) {
-      lo = min(lo, r);
-      ++cnt;
-    }
-  }
-  if (cnt) {
-    atomicMin(&s_start, lo);
-    atomicAdd(&s_len, cnt);
-  }
-  __syncthreads();
-  const int start = s_start, slen = s_len;
-  const int row0 = start + blockIdx.x * bm;
-  const int nrows = min(bm, start + slen - row0);
-  if (nrows <= 0) return;
-  const int npairs = nrows * g;
-  load_q<HD>(sm.q, npairs, scale, [&](int p) {
-    return q + (row0 + p / g) * qstride + (h * g + p % g) * HD;
-  });
-
-  PairState<HD, kPPW> st;
-  st.init();
-  // (a) cached context of the slot, through its page table
-  const int ctx_len = min(ctx_lens[n], P * bs);
-  const int* row = tables + static_cast<size_t>(n) * P;
-  for (int j0 = 0; j0 < ctx_len; j0 += kKeyTile) {
-    __syncthreads();  // previous tile consumed; q written on the first pass
-    int page = -1;
-    if (threadIdx.x < kKeyTile) {
-      const int pos = j0 + threadIdx.x;
-      page = pos < ctx_len ? row[pos / bs] : -1;
-      if (page >= nb) page = -1;
-      kvalid[threadIdx.x] = page;
-    }
-    if (!__syncthreads_or(page >= 0)) continue;  // no key of this tile lives here
-    load_tile<HD>(sm, [&](int t, const bf16** kp, const bf16** vp) {
-      const int pg = kvalid[t];
-      if (pg < 0) return false;
-      const size_t off = ((static_cast<size_t>(pg) * bs + (j0 + t) % bs) * hkv + h) * HD;
-      *kp = kpool + off;
-      *vp = vpool + off;
-      return true;
-    });
-    __syncthreads();
-    attend_tile<HD>(sm, npairs, cap, st, [&](int, int t) { return kvalid[t] >= 0; });
-  }
-  // (b) the segment's own keys in the pack, causal by pack row
-  const int kend = include_pack ? row0 + nrows : start;
-  for (int j0 = start; j0 < kend; j0 += kKeyTile) {
-    __syncthreads();
-    load_tile<HD>(sm, [&](int t, const bf16** kp, const bf16** vp) {
-      const int j = j0 + t;
-      if (j >= kend) return false;
-      *kp = k + j * kstride + h * HD;
-      *vp = v + j * kstride + h * HD;
-      return true;
-    });
-    __syncthreads();
-    attend_tile<HD>(sm, npairs, cap, st, [&](int p, int t) { return j0 + t <= row0 + p / g; });
-  }
-  if (PARTIAL) {
-    store_partial<HD>(
-        st, npairs,
-        [&](int p) { return out.acc + (row0 + p / g) * qstride + (h * g + p % g) * HD; },
-        out.m, out.l, [&](int p) { return static_cast<size_t>(row0 + p / g) * hq + h * g + p % g; });
-  } else {
-    store_out<HD>(st, npairs, [&](int p) {
-      return out.o + (row0 + p / g) * qstride + (h * g + p % g) * HD;
-    });
-  }
+bool make_ctx(const void* q, const void* k, const void* v, const int* seg, const void* kpool,
+              const void* vpool, const int* tables, const int* ctx_lens, int T, int hq, int hkv,
+              int nb, int bs, int N, int P, int include_pack, float scale, float cap,
+              dst::PagedArgs* a) {
+  if (hkv <= 0 || hq % hkv || T <= 0 || N < 1 || N > kMaxSegments || nb <= 0 || bs <= 0 ||
+      P <= 0)
+    return false;
+  *a = dst::PagedArgs{};
+  a->q = static_cast<const dst::bf16*>(q);
+  a->k = static_cast<const dst::bf16*>(k);
+  a->v = static_cast<const dst::bf16*>(v);
+  a->seg = seg;
+  a->kpool = static_cast<const dst::bf16*>(kpool);
+  a->vpool = static_cast<const dst::bf16*>(vpool);
+  a->tables = tables;
+  a->lens = ctx_lens;
+  a->T = T;
+  a->hq = hq;
+  a->hkv = hkv;
+  a->nb = nb;
+  a->bs = bs;
+  a->N = N;
+  a->P = P;
+  a->include_pack = include_pack;
+  a->scale = scale;
+  a->cap = cap;
+  return true;
 }
 
-template <int HD, bool PARTIAL>
-cudaError_t launch(const void* q, const void* k, const void* v, const int* seg, const void* kpool,
-                   const void* vpool, const int* tables, const int* ctx_lens, CtxOut out, int T,
-                   int hq, int hkv, int nb, int bs, int N, int P, int include_pack, float scale,
-                   float cap, cudaStream_t stream) {
-  const size_t smem = smem_bytes<HD, kPPW>();
-  cudaError_t err = allow_smem(ctx_attention_kernel<HD, PARTIAL>, smem);
-  if (err != cudaSuccess) return err;
-  const int bm = kMaxPairs / (hq / hkv);
-  const dim3 grid((T + bm - 1) / bm, hkv, N + 1);  // z = N: the pad-row slice
-  ctx_attention_kernel<HD, PARTIAL><<<grid, kThreads, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v), seg,
-      static_cast<const bf16*>(kpool), static_cast<const bf16*>(vpool), tables, ctx_lens, out, T,
-      hq, hkv, nb, bs, N, P, include_pack, scale, cap);
-  return cudaGetLastError();
-}
-
-template <bool PARTIAL>
-int dispatch(const void* q, const void* k, const void* v, const int* seg, const void* kpool,
-             const void* vpool, const int* tables, const int* ctx_lens, CtxOut out, int T, int hq,
-             int hkv, int hd, int nb, int bs, int N, int P, int include_pack, float scale,
-             float cap, void* stream) {
-  if (hkv <= 0 || hq % hkv || hq / hkv > kMaxPairs || N < 1) return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (hd) {
-    case 64:
-      return launch<64, PARTIAL>(q, k, v, seg, kpool, vpool, tables, ctx_lens, out, T, hq, hkv,
-                                 nb, bs, N, P, include_pack, scale, cap, st);
-    case 128:
-      return launch<128, PARTIAL>(q, k, v, seg, kpool, vpool, tables, ctx_lens, out, T, hq, hkv,
-                                  nb, bs, N, P, include_pack, scale, cap, st);
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
-
-}  // namespace dst
+}  // namespace
 
 // q [T, hq, hd], k/v [T, hkv, hd], pools [nb, bs, hkv, hd] bf16; seg [T]
 // int32 (slot + 1, 0 = pad); tables [N, P] int32; ctx_lens [N] int32;
-// o [T, hq, hd] bf16.
+// o [T, hq, hd] bf16.  hd 64, 128 or 256, any hkv dividing hq, N <= 4096.
 extern "C" int dst_ctx_attention(const void* q, const void* k, const void* v, const int* seg,
                                  const void* kpool, const void* vpool, const int* tables,
                                  const int* ctx_lens, void* o, int T, int hq, int hkv, int hd,
                                  int nb, int bs, int N, int P, float scale, float cap,
                                  void* stream) {
-  const dst::CtxOut out{static_cast<dst::bf16*>(o), nullptr, nullptr, nullptr};
-  return dst::dispatch<false>(q, k, v, seg, kpool, vpool, tables, ctx_lens, out, T, hq, hkv, hd,
-                              nb, bs, N, P, 1, scale, cap, stream);
+  dst::PagedArgs a;
+  if (!make_ctx(q, k, v, seg, kpool, vpool, tables, ctx_lens, T, hq, hkv, nb, bs, N, P, 1,
+                scale, cap, &a))
+    return cudaErrorInvalidValue;
+  a.o = static_cast<dst::bf16*>(o);
+  return dst::ctx_attention<false>(a, hd, static_cast<cudaStream_t>(stream));
 }
 
 // The partial mode: the same inputs (tables translated to this shard's pool
@@ -232,7 +103,12 @@ extern "C" int dst_ctx_attention_partial(const void* q, const void* k, const voi
                                          float* m, float* l, int T, int hq, int hkv, int hd,
                                          int nb, int bs, int N, int P, int include_pack,
                                          float scale, float cap, void* stream) {
-  const dst::CtxOut out{nullptr, acc, m, l};
-  return dst::dispatch<true>(q, k, v, seg, kpool, vpool, tables, ctx_lens, out, T, hq, hkv, hd,
-                             nb, bs, N, P, include_pack, scale, cap, stream);
+  dst::PagedArgs a;
+  if (!make_ctx(q, k, v, seg, kpool, vpool, tables, ctx_lens, T, hq, hkv, nb, bs, N, P,
+                include_pack, scale, cap, &a))
+    return cudaErrorInvalidValue;
+  a.acc = acc;
+  a.m = m;
+  a.l = l;
+  return dst::ctx_attention<true>(a, hd, static_cast<cudaStream_t>(stream));
 }

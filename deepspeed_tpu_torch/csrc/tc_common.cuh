@@ -1,12 +1,16 @@
-// Tensor-core building blocks of the Hopper attention kernels (flash_tc.cuh,
-// walked densely by flash_fwd.cu / flash_bwd.cu and over a block-sparse
-// layout by sparse_flash.cu) and the dequant-matmuls (quant_matmul.cu):
-// cp.async tile loads into the 128-byte-swizzled shared-memory layout that
-// wgmma's descriptors read, the descriptors, the wgmma.mma_async forms the
-// kernels issue (SS: both operands in shared memory; RS: A from registers,
-// B MN-major for attention's P V, K-major for the dequant-matmuls), the
-// accumulator -> A-fragment conversion, quad reductions and the
-// segment-range scan behind the tile skip.
+// Tensor-core building blocks of the Hopper kernels: the attention bodies
+// (flash_tc.cuh, walked densely by flash_fwd.cu / flash_bwd.cu and over a
+// block-sparse layout by sparse_flash.cu; paged_tc.cuh, the paged decode and
+// packed-context kernels of paged_decode.cu / ctx_attention.cu) and the
+// dequant-matmuls (quant_matmul.cu): cp.async tile loads into the 128-byte-
+// swizzled shared-memory layout that wgmma's descriptors read, the
+// descriptors, the wgmma.mma_async forms the kernels issue (SS: both operands
+// in shared memory, A K-major or, for the paged decode's O^T = V^T P^T,
+// MN-major; RS: A from registers, B MN-major for attention's P V, K-major
+// for the dequant-matmuls), the accumulator -> A-fragment
+// conversion, quad reductions, the segment-range scan behind the tile skip,
+// and the few plain helpers every kernel takes (bf16, the full warp mask,
+// allow_smem).
 //
 // A tile [R rows][HD] bf16 in shared memory is HD / 64 column chunks, each
 // [R][64] (128 bytes a row) and 1024-byte aligned; inside a chunk the 16-byte
@@ -28,11 +32,24 @@
 // order (row, col), (row + 8, col), (row, col + 8), (row + 8, col + 8).
 #pragma once
 
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <math.h>
-
-#include "attn_common.cuh"  // bf16, kFull, allow_smem
+#include <stdint.h>
 
 namespace dst {
+
+typedef __nv_bfloat16 bf16;
+constexpr unsigned kFull = 0xffffffffu;  // every lane of a warp
+
+// Lets `kernel` launch with `bytes` of dynamic shared memory (above 48 KB
+// only after this call).
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
 namespace tc {
 
 constexpr float kLog2e = 1.4426950408889634f;
@@ -157,10 +174,11 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// d[64 x N] (+)= A[64 x 16] . B[16 x N], A and B K-major in shared memory;
-// acc = 0 overwrites d.
-template <int N>
-__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db, int acc);
+// d[64 x N] (+)= A[64 x 16] . B[16 x N], both from shared memory, B K-major;
+// A K-major (TA = 0) or MN-major (TA = 1: paged_tc.cuh's decode reads V as
+// V^T); acc = 0 overwrites d.  TA is wgmma's trans-a immediate.
+template <int N, int TA>
+struct WgmmaSS;
 // d[64 x N] (+)= A[64 x 16] (registers) . B[16 x N]: B MN-major (TB = 1,
 // attention's P V) or K-major (TB = 0, the dequant-matmuls: A the decoded
 // weight, B the activations, whose rows run along the contraction).  TB is
@@ -168,46 +186,81 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_
 template <int N, int TB>
 struct WgmmaRs;
 
-template <>
-__device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t da, uint64_t db, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(acc));
-}
+template <int TA>
+struct WgmmaSS<8, TA> {
+  static __device__ __forceinline__ void run(float (&d)[4], uint64_t da, uint64_t db,
+                                             int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3"
+        "}, %4, %5, p, 1, 1, %7, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "l"(da), "l"(db), "r"(acc), "n"(TA));
+  }
+};
 
-template <>
-__device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t da, uint64_t db, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(acc));
-}
+template <int TA>
+struct WgmmaSS<16, TA> {
+  static __device__ __forceinline__ void run(float (&d)[8], uint64_t da, uint64_t db,
+                                             int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7"
+        "}, %8, %9, p, 1, 1, %11, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7])
+        : "l"(da), "l"(db), "r"(acc), "n"(TA));
+  }
+};
+
+template <int TA>
+struct WgmmaSS<64, TA> {
+  static __device__ __forceinline__ void run(float (&d)[32], uint64_t da, uint64_t db,
+                                             int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, %35, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "r"(acc), "n"(TA));
+  }
+};
+
+template <int TA>
+struct WgmmaSS<128, TA> {
+  static __device__ __forceinline__ void run(float (&d)[64], uint64_t da, uint64_t db,
+                                             int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "}, %64, %65, p, 1, 1, %67, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(da), "l"(db), "r"(acc), "n"(TA));
+  }
+};
 
 template <int TB>
 struct WgmmaRs<16, TB> {
@@ -316,6 +369,11 @@ struct WgmmaRs<256, TB> {
           "n"(TB));
   }
 };
+
+template <int N, int TA = 0>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db, int acc) {
+  WgmmaSS<N, TA>::run(d, da, db, acc);
+}
 
 template <int N, int TB = 1>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db,

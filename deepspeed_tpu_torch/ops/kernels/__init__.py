@@ -250,24 +250,22 @@ def check_cuda(name: str, dtype: torch.dtype, *tensors: torch.Tensor) -> None:
             raise ValueError(f"{name}: tensor data must be 16-byte aligned")
 
 
-def check_heads(name: str, hq: int, hkv: int, hd: int, max_group: Optional[int] = None,
-                head_dims: Iterable[int] = (64, 128)) -> None:
+# the head dims every attention kernel is instantiated for (csrc/flash_tc.cuh:
+# K1 and K7; csrc/paged_tc.cuh: K2 and K3), each at any query group
+HEAD_DIMS = (64, 128, 256)
+
+
+def check_heads(name: str, hq: int, hkv: int, hd: int) -> None:
     """Head-shape validation of the attention wrappers, run before any
-    device check: ``hkv`` must divide ``hq``; a head_dim outside the
-    kernel's ``head_dims``, or a query group ``hq / hkv`` above its
-    ``max_group`` (None: any group), is a shape the kernel does not take yet
-    and raises ``NotImplementedError``."""
+    device check: ``hkv`` must divide ``hq``; a head_dim outside
+    ``HEAD_DIMS`` is a shape the kernels do not take yet and raises
+    ``NotImplementedError``."""
     if hkv <= 0 or hq % hkv:
         raise ValueError(f"{name}: hkv {hkv} must divide hq {hq}")
-    dims = tuple(head_dims)
-    if hd not in dims:
+    if hd not in HEAD_DIMS:
         raise NotImplementedError(
             f"{name}: head_dim {hd} is not ported to the card yet (ROADMAP queue 2); "
-            f"the kernels take head_dim {' or '.join(map(str, dims))}")
-    if max_group is not None and hq // hkv > max_group:
-        raise NotImplementedError(
-            f"{name}: query group {hq // hkv} (hq {hq} / hkv {hkv}) is above this kernel's "
-            f"limit of {max_group} (ROADMAP queue 2)")
+            f"the kernels take head_dim {' or '.join(map(str, HEAD_DIMS))}")
 
 
 def scalars(scale: float, soft_cap: Optional[float]):

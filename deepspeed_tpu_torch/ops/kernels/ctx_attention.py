@@ -5,9 +5,9 @@ pallas/ctx_attention.py``, both modes.
 ``paged_attention_packed_ctx_plain`` (the JAX dense body,
 ``inference/paged.py:328``, in PyTorch, with the kernel's rules: table ids
 outside ``[0, nb)`` are skipped and pad rows come back exactly 0); a CUDA
-tensor runs ``csrc/ctx_attention.cu`` (bf16, head_dim 64 or 128, at most 16
-query heads a kv head, soft cap fused, mid-page ``ctx_lens``; other head
-dims and groups raise ``NotImplementedError``, ROADMAP queue 2).
+tensor runs ``csrc/ctx_attention.cu`` (bf16, head_dim 64, 128 or 256, any
+group of query heads a kv head, soft cap fused, mid-page ``ctx_lens``; other
+head dims raise ``NotImplementedError``, ROADMAP queue 2).
 
 ``paged_attention_packed_ctx_partial`` is the TPU kernel's ``partial=True``
 mode, the per-shard body of seq-sharded serving: over one shard's slice of
@@ -30,7 +30,7 @@ import torch
 from . import check_cuda, check_heads, launch, ptr, scalars
 
 NEG_INF = -1e30
-MAX_GROUP = 16  # query heads a kv head: pairs per CTA (csrc/ctx_attention.cu)
+MAX_SEGMENTS = 4096  # ctx_tables rows the kernel's segment scan holds
 
 
 def paged_attention_packed_ctx_plain(q, k, v, segment_ids, cache_k, cache_v,
@@ -172,10 +172,12 @@ def _check(name, q, k, v, segment_ids, cache_k, cache_v, ctx_tables, ctx_lens):
             or hd_k != hd:
         raise ValueError(f"{name}: q {tuple(q.shape)} k {tuple(k.shape)} "
                          f"pool {tuple(cache_k.shape)} do not match")
-    check_heads(name, hq, hkv, hd, MAX_GROUP)
+    check_heads(name, hq, hkv, hd)
     if segment_ids.shape != (t,) or ctx_lens.shape != (n,):
         raise ValueError(f"{name}: segment_ids {tuple(segment_ids.shape)} / ctx_lens "
                          f"{tuple(ctx_lens.shape)} do not match T {t} / N {n}")
+    if t < 1 or not 1 <= n <= MAX_SEGMENTS:
+        raise ValueError(f"{name}: T {t} and N {n} must be >= 1, N at most {MAX_SEGMENTS}")
     check_cuda(name, torch.bfloat16, q, k, v, cache_k, cache_v)
     check_cuda(name, torch.int32, segment_ids, ctx_tables, ctx_lens)
     if segment_ids.device != q.device:

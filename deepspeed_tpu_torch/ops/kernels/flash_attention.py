@@ -90,16 +90,11 @@ def flash_attention_bwd_plain(q, k, v, seg, o, lse, do, scale, cap, kv_seg=None,
 # ---------------------------------------------------------------------------
 # CUDA kernel wrappers
 # ---------------------------------------------------------------------------
-# the head dims the tensor-core kernels (csrc/flash_tc.cuh: K1 and K7) are
-# instantiated for
-HEAD_DIMS = (64, 128, 256)
-
-
 def _check(name, q, k, v, segment_ids):
     b, s, hq, d = q.shape
     if k.shape != (b, s, k.shape[2], d) or v.shape != k.shape:
         raise ValueError(f"{name}: q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
-    check_heads(name, hq, k.shape[2], d, head_dims=HEAD_DIMS)
+    check_heads(name, hq, k.shape[2], d)
     check_cuda(name, torch.bfloat16, q, k, v)
     if segment_ids is None:
         return None

@@ -4,10 +4,10 @@ paged_attention.py``.
 ``paged_attention_decode`` dispatches on the device: a CPU tensor runs the
 plain body ``paged_attention_decode_plain`` (the JAX dense body,
 ``inference/paged.py:698``, in PyTorch); a CUDA tensor runs
-``csrc/paged_decode.cu`` (bf16, head_dim 64 or 128, any group size up to
-16 query heads per kv head, MHA included, soft cap fused — so no
-configuration sends decode to the plain body on the card).  Other head dims
-and larger groups raise ``NotImplementedError`` (ROADMAP queue 2).
+``csrc/paged_decode.cu`` (bf16, head_dim 64, 128 or 256, any group of
+query heads per kv head, MHA included, soft cap fused — so no configuration
+sends decode to the plain body on the card).  Other head dims raise
+``NotImplementedError`` (ROADMAP queue 2).
 
 ``paged_attention_decode_partial`` is the seq-sharded decode's per-shard
 body (JAX ``inference/paged.py:558``, a jnp body there): the same kernel in
@@ -17,7 +17,7 @@ its partial mode, over one shard's slice of the pool, returning the fp32
 At head_dim 64 the kernel is also the counterpart of the TPU's K2p
 (``paged_attention.py:225 _paged_decode_packed``), which packs kv heads
 side by side on the 128-wide lanes because a TPU page slice must be 128
-lanes wide.  The CUDA kernel reads the ``[nb, bs, hkv, hd]`` pool one kv
+lanes wide.  The CUDA kernel gathers the ``[nb, bs, hkv, hd]`` pool one kv
 head at a time in 16-byte vectors and needs no packing; its launches count
 under ``paged_decode_hd64`` (``paged_decode`` at head_dim 128).
 """
@@ -30,7 +30,6 @@ import torch
 from . import check_cuda, check_heads, launch, ptr, scalars
 
 NEG_INF = -1e30
-MAX_GROUP = 16  # query heads a kv head: pairs per CTA (csrc/paged_decode.cu)
 
 
 def paged_attention_decode_plain(q, cache_k, cache_v, block_table, seq_lens,
@@ -123,7 +122,7 @@ def _check(name, q, cache_k, cache_v, block_table, seq_lens):
     if cache_v.shape != cache_k.shape or hd_k != hd:
         raise ValueError(f"{name}: q {tuple(q.shape)} pool {tuple(cache_k.shape)} / "
                          f"{tuple(cache_v.shape)} do not match")
-    check_heads(name, hq, hkv, hd, MAX_GROUP)
+    check_heads(name, hq, hkv, hd)
     if block_table.shape[0] != b or seq_lens.shape != (b,):
         raise ValueError(f"{name}: block_table {tuple(block_table.shape)} / seq_lens "
                          f"{tuple(seq_lens.shape)} do not match batch {b}")

@@ -39,7 +39,7 @@ import numpy as np
 import torch
 
 from . import check_cuda, check_heads, launch, ptr, scalars
-from .flash_attention import HEAD_DIMS, flash_attention_bwd_plain, flash_attention_fwd_plain
+from .flash_attention import flash_attention_bwd_plain, flash_attention_fwd_plain
 
 
 def sparse_tables(layout: np.ndarray, causal: bool):
@@ -169,7 +169,7 @@ def _check(name, q, k, v, qseg, kseg, plan: SparsePlan):
     if k.shape != (b, s, k.shape[2], d) or v.shape != k.shape:
         raise ValueError(f"{name}: q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
     hkv = k.shape[2]
-    check_heads(name, hq, hkv, d, head_dims=HEAD_DIMS)
+    check_heads(name, hq, hkv, d)
     if s != plan.n * plan.block:
         raise ValueError(f"{name}: s {s} != {plan.n} blocks of {plan.block}")
     check_cuda(name, torch.bfloat16, q, k, v)

@@ -7,7 +7,8 @@ unit-scale values plus a different fp32 summation order), and each call
 counts exactly one launch (K2 at head_dim 64, gpt2_small's MHA heads and
 a GQA group of 4, under ``paged_decode_hd64``; K3 also on a verify tick's
 pack, contexts ending mid-page; the partial modes of K3 and K2 on striped
-pools, and their merge against the non-partial kernels).  The training backward: K1f's o within 2e-2 and lse within 1e-3,
+pools, and their merge against the non-partial kernels; both at head_dim
+256 and a query group of 71, ``PAGED_WIDE``).  The training backward: K1f's o within 2e-2 and lse within 1e-3,
 and dq, dk and dv within ``chip_smoke.BWD_TOL`` relative Frobenius error,
 over the whole tensor and in every 64-row block of one head (the kernels
 round only their bf16 outputs), each launched once per call, also at
@@ -149,6 +150,61 @@ def test_partial_kernels_match_plain_and_merge_to_the_full_kernel(case, S):
     want = full(**c)
     assert float((merged[live].float() - want[live].float()).abs().max()) <= TOL
     assert not bool(merged[~live].ne(0).any())
+
+
+# K2 / K3 at the shapes their tensor-core kernels took on in their redesign:
+# head_dim 256 (gptj_6b's MHA heads, blocks of 16) and falcon_7b's 71 query
+# heads on one kv head (blocks of 8 and 16), a 4,096-key slot, soft caps
+PAGED_WIDE = [
+    ("decode", dict(B=8, nb=1024, bs=16, P=256, hq=16, hkv=16, hd=256, inactive=1,
+                    first_len=4096), None),
+    ("decode", dict(B=8, nb=1024, bs=8, P=160, hq=71, hkv=1, hd=64, inactive=1), 5.0),
+    ("verify", dict(hq=16, hkv=16, hd=256, bs=16), None),
+    ("verify", dict(hq=71, hkv=1, hd=64), 5.0),
+    ("ctx", dict(hq=71, hkv=1, hd=64, bs=16, P=40, nb=256), None),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,kw,cap", PAGED_WIDE)
+@pytest.mark.parametrize("partial", [False, True])
+def test_paged_kernels_at_head_dim_256_and_group_71(kind, kw, cap, partial):
+    """K2 / K3 (and their partial modes, on shard 0 of a pool striped over 2)
+    against the plain versions: within ``TOL`` (partials in output units,
+    ``chip_smoke.partial_errs``), pad rows exactly 0 / (0, -1e30, 0), one
+    launch under the wrapper's own name."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from deepspeed_tpu_torch.ops.kernels import ctx_attention as K3
+    from deepspeed_tpu_torch.ops.kernels import paged_attention as K2
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    if kind == "decode":
+        c = chip_smoke.decode_case(torch, gen, stripes=2 if partial else 1, **kw)
+        key, mod, fn = "block_table", K2, "paged_attention_decode"
+        name = "paged_decode_hd64" if kw["hd"] == 64 else "paged_decode"
+    else:
+        c = chip_smoke.paged_case(torch, gen, kind, kw, stripes=2 if partial else 1)
+        key, mod, fn, name = "ctx_tables", K3, "paged_attention_packed_ctx", "ctx_attention"
+    kwargs = dict(logits_soft_cap=cap)
+    if partial:
+        c = chip_smoke.shard_view(torch, c, 0, 2, key)
+        fn, name = fn + "_partial", name.replace("_hd64", "") + "_partial"
+        if kind != "decode":
+            kwargs["include_pack"] = True
+    K.reset_launches()
+    got = getattr(mod, fn + "_kernel")(**c, **kwargs)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES[name] == 1 and sum(K.LAUNCHES.values()) == 1
+    ref = getattr(mod, fn + "_plain")(**_cpu_f32(c), **kwargs)
+    if partial:
+        err, _ = chip_smoke.partial_errs(torch, [x.cpu() for x in got], ref, f"{kind} {kw}")
+        assert err <= TOL
+        return
+    assert float((got.float().cpu() - ref).abs().max()) <= TOL
+    if kind != "decode":
+        pad = (c["segment_ids"] == 0).cpu()
+        assert bool(pad.any()) and not bool(got.cpu()[pad].ne(0).any())
 
 
 @pytest.mark.gpu

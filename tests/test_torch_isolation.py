@@ -1,5 +1,5 @@
 """The port stands alone: ``deepspeed_tpu_torch``, ``chip_smoke.py`` and
-``bench_qmm.py`` import neither JAX nor anything of the JAX package ``deepspeed_tpu``."""
+``bench_kernels.py`` import neither JAX nor anything of the JAX package ``deepspeed_tpu``."""
 import ast
 import os
 import subprocess
@@ -16,7 +16,7 @@ def _port_files():
             if f.endswith(".py"):
                 yield os.path.join(root, f)
     yield os.path.join(REPO, "chip_smoke.py")
-    yield os.path.join(REPO, "bench_qmm.py")
+    yield os.path.join(REPO, "bench_kernels.py")
 
 
 def test_importing_every_module_loads_no_jax():
@@ -25,7 +25,7 @@ def test_importing_every_module_loads_no_jax():
         "import deepspeed_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
-        "import chip_smoke, bench_qmm\n"
+        "import chip_smoke, bench_kernels\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in %r)\n"
         "assert not bad, bad\n"
         "print(len([n for n in sys.modules if n.startswith('deepspeed_tpu_torch')]))\n"

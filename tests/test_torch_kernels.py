@@ -35,6 +35,9 @@ ATOL, RTOL = 1e-5, 1e-4
 
 # (hq, hkv, hd): the tiny preset's heads, and a narrow hd-128 GQA-4:1 shape
 SHAPES = [(4, 2, 16), (4, 1, 128)]
+# K2 / K3 also at the shapes their tensor-core kernels take on the card:
+# head_dim 256, a query group of 16, and one above 16 (32 heads on one kv head)
+PAGED_SHAPES = SHAPES + [(4, 2, 256), (16, 1, 64), (32, 1, 64)]
 
 
 def _np(shape, seed, scale=1.0):
@@ -114,7 +117,7 @@ def _decode_inputs(hq, hkv, hd, B=5, nb=32, bs=16, P=6, lens=(5, 16, 33, 90, 1))
     return q, ck, cv, table, np.asarray(lens, np.int32)
 
 
-@pytest.mark.parametrize("hq,hkv,hd", SHAPES)
+@pytest.mark.parametrize("hq,hkv,hd", PAGED_SHAPES)
 @pytest.mark.parametrize("cap", [None, 2.0])
 def test_decode_plain_matches_jax(jax_interpret, hq, hkv, hd, cap):
     q, ck, cv, table, lens = _decode_inputs(hq, hkv, hd)
@@ -156,7 +159,7 @@ def _ctx_inputs(hq, hkv, hd, bad_inside=False, nb=24, bs=16, N=4, P=5):
     return q, k, v, seg, ck, cv, tables, lens
 
 
-@pytest.mark.parametrize("hq,hkv,hd", SHAPES)
+@pytest.mark.parametrize("hq,hkv,hd", PAGED_SHAPES)
 def test_ctx_plain_matches_jax_dense(hq, hkv, hd):
     args = _ctx_inputs(hq, hkv, hd)
     got = paged_attention_packed_ctx(*(torch.from_numpy(x) for x in args)).numpy()
@@ -167,7 +170,7 @@ def test_ctx_plain_matches_jax_dense(hq, hkv, hd):
     assert (got[~live] == 0).all()  # pad rows come back exactly 0
 
 
-@pytest.mark.parametrize("hq,hkv,hd", SHAPES)
+@pytest.mark.parametrize("hq,hkv,hd", PAGED_SHAPES)
 def test_ctx_plain_skips_bad_ids_like_the_kernel(hq, hkv, hd):
     """Table ids outside [0, nb) inside ctx_len are skipped (the TPU
     kernel's rule, ctx_attention.py:197-198); the JAX flash-partial body

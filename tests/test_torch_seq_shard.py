@@ -279,7 +279,13 @@ def _jax(case):
     return [jnp.asarray(v) for v in case.values()]
 
 
-@pytest.mark.parametrize("hq,hkv,hd", [(4, 2, 16), (4, 1, 128)])
+# (hq, hkv, hd): tiny's heads, a narrow hd-128 GQA-4:1 shape, and the shapes
+# the tensor-core K2 / K3 take on the card: head_dim 256, a group of 16 and
+# one above 16
+PARTIAL_SHAPES = [(4, 2, 16), (4, 1, 128), (4, 2, 256), (16, 1, 64), (32, 1, 64)]
+
+
+@pytest.mark.parametrize("hq,hkv,hd", PARTIAL_SHAPES)
 @pytest.mark.parametrize("shard", [0, 1])
 @pytest.mark.parametrize("include_pack", [True, False])
 @pytest.mark.parametrize("cap", [None, 5.0])
@@ -312,7 +318,7 @@ def _decode_case(hq, hkv, hd, S, bs=8, nb=32, P=6, lens=(1, 9, 24, 41, 3, 17), s
                 seq_lens=np.asarray(lens, np.int32))
 
 
-@pytest.mark.parametrize("hq,hkv,hd", [(4, 2, 16), (4, 1, 128)])
+@pytest.mark.parametrize("hq,hkv,hd", PARTIAL_SHAPES)
 @pytest.mark.parametrize("shard", [0, 1])
 @pytest.mark.parametrize("cap", [None, 5.0])
 def test_decode_partial_plain_matches_jax(hq, hkv, hd, shard, cap):
@@ -578,41 +584,33 @@ def _sparse_bwd(hq, hkv, hd):
     return K7.sparse_attention_bwd_kernel(q, kv, kv, None, None, q, None, q, None, 1.0, None)
 
 
-# (wrapper, its group limit; None: any group and head_dim 256 -- K1's and
-# K7's tensor-core kernels run a CTA per query head)
+# every attention wrapper takes any query group and head_dim 64 / 128 / 256:
+# K1's and K7's tensor-core kernels run a CTA per query head, K2's and K3's
+# tile the (row, query head) pairs of a kv head
 WRAPPERS = {
-    "flash_fwd": (_flash, None),
-    "flash_bwd": (_flash_bwd, None),
-    "paged_decode": (_decode(K2.paged_attention_decode_kernel), 16),
-    "paged_decode_partial": (_decode(K2.paged_attention_decode_partial_kernel), 16),
-    "ctx_attention": (_ctx(K3.paged_attention_packed_ctx_kernel), 16),
-    "ctx_attention_partial": (_ctx(K3.paged_attention_packed_ctx_partial_kernel), 16),
-    "sparse_fwd": (_sparse, None),
-    "sparse_bwd": (_sparse_bwd, None),
+    "flash_fwd": _flash,
+    "flash_bwd": _flash_bwd,
+    "paged_decode": _decode(K2.paged_attention_decode_kernel),
+    "paged_decode_partial": _decode(K2.paged_attention_decode_partial_kernel),
+    "ctx_attention": _ctx(K3.paged_attention_packed_ctx_kernel),
+    "ctx_attention_partial": _ctx(K3.paged_attention_packed_ctx_partial_kernel),
+    "sparse_fwd": _sparse,
+    "sparse_bwd": _sparse_bwd,
 }
 
 
 @pytest.mark.parametrize("name", sorted(WRAPPERS))
 def test_wrappers_refuse_unported_heads_with_queue_2(name):
-    """A group above the kernel's limit, or head_dim 96, raises
-    ``NotImplementedError`` naming ROADMAP queue 2 before any launch (a CPU
-    tensor reaches the check); the limit itself passes it and stops at the
-    device check.  K1 and K7 (no limit) take falcon_7b's group of 71 and
-    head_dim 256 to the device check, and still refuse head_dim 96 and 80."""
-    call, limit = WRAPPERS[name]
-    with pytest.raises(NotImplementedError, match="head_dim 96.*queue 2"):
-        call(4, 2, 96)
-    if limit is None:
-        with pytest.raises(NotImplementedError, match="head_dim 80.*queue 2"):
-            call(4, 2, 80)
-        for hq, hkv, hd in ((71, 1, 64), (4, 2, 256)):
-            with pytest.raises((ValueError, TypeError, AttributeError)):
-                call(hq, hkv, hd)
-        return
-    with pytest.raises(NotImplementedError, match=f"limit of {limit}.*queue 2"):
-        call(limit * 2, 1, 64)
-    with pytest.raises((ValueError, TypeError, AttributeError)):
-        call(limit, 1, 64)
+    """head_dim 96 and 80 raise ``NotImplementedError`` naming ROADMAP queue 2
+    before any launch (a CPU tensor reaches the check); falcon_7b's group of
+    71 and head_dim 256 pass it and stop at the device check."""
+    call = WRAPPERS[name]
+    for hd in (96, 80):
+        with pytest.raises(NotImplementedError, match=f"head_dim {hd}.*queue 2"):
+            call(4, 2, hd)
+    for hq, hkv, hd in ((71, 1, 64), (4, 2, 256)):
+        with pytest.raises((ValueError, TypeError, AttributeError)):
+            call(hq, hkv, hd)
 
 
 def test_quantize_weights_message_lists_fp6(tiny):
