@@ -1,6 +1,6 @@
 """Device times of one kernel family of one checkout.
 
-    python3 bench_kernels.py --family qmm|paged [--root DIR] [--label NAME] [--out FILE]
+    python3 bench_kernels.py --family qmm|paged|quant_rows [--root DIR] [--label NAME] [--out FILE]
 
 Imports ``deepspeed_tpu_torch`` from DIR (default: the checkout this script
 is in), builds its kernels and times one family the way ``chip_smoke.py``
@@ -13,7 +13,12 @@ from:
   dequantized bf16 weight;
 - ``paged``: K2 at the 410M decode shape and gpt2_small's, K3 on the
   scheduler's and a verify tick's pack, and both partial modes
-  (``chip_smoke.paged_timings``), beside their SDPA yardsticks.
+  (``chip_smoke.paged_timings``), beside their SDPA yardsticks;
+- ``quant_rows``: the row quantizers K6a (int8), K6c (e4m3, and e5m2) and
+  the dequantizer K6b on [4096, 14336] bf16 (``chip_smoke.quant_row_times``),
+  and how many bytes, scales and dequantized values of the checkout's
+  kernels differ from its plain versions on ``chip_smoke.row_quant_inputs``
+  (edge rows with inf, NaN and subnormals, ragged and unaligned shapes).
 
 Each kernel by CUDA-graph replay (``ms``) and back-to-back eager calls
 (``eager_ms``).  The inputs come from a fixed seed, so two checkouts see the
@@ -40,7 +45,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--family", choices=("qmm", "paged"), required=True)
+    ap.add_argument("--family", choices=("qmm", "paged", "quant_rows"), required=True)
     ap.add_argument("--root", default=HERE, help="checkout whose deepspeed_tpu_torch is timed")
     ap.add_argument("--label", default="this")
     ap.add_argument("--out", default=None, help="file the JSON line is appended to")
@@ -67,9 +72,18 @@ def main() -> None:
     if args.family == "qmm":
         gen = torch.Generator(device=smoke.DEVICE).manual_seed(smoke.SEED + 30)
         times = smoke.qmm_shape_times(torch, gen, plain=False)
-    else:
+    elif args.family == "paged":
         gen = torch.Generator(device=smoke.DEVICE).manual_seed(smoke.SEED + 40)
         times = smoke.paged_timings(torch, gen, plain=False)
+    else:
+        from deepspeed_tpu_torch.ops.kernels import quant_kernel as QK
+
+        gen = torch.Generator(device=smoke.DEVICE).manual_seed(smoke.SEED + 30)
+        times = smoke.quant_row_times(torch, gen, plain=False)
+        gen = torch.Generator(device=smoke.DEVICE).manual_seed(smoke.SEED + 20)
+        times["agreement_with_plain"] = {
+            f"{label}_to_{dtype}": smoke.row_quant_agreement(torch, QK, x, dtype)
+            for label, x in smoke.row_quant_inputs(torch, gen) for dtype in smoke.K6_DTYPES}
     line = json.dumps({"label": args.label, "root": os.path.relpath(root, HERE), "card": card,
                        "family": args.family, args.family: times})
     print(line, flush=True)

@@ -15,7 +15,11 @@ Phases, each raising on failure (so the exit code is non-zero):
                kernel holds no HGMMA, a K2 / K3 kernel spills, a
                dequant-matmul kernel holds HMMA, or one of its
                one-CTA-an-SM kernels launches with other than
-               QMM_LAUNCH_REGS registers;
+               QMM_LAUNCH_REGS registers; and the row quantizers'
+               (``quantize.cu``) F2FP, F2I and 16-byte load / store counts
+               (``rowq_sass``, with calls and local-memory traffic: fails
+               if a quantize kernel has no 16-byte load or store, or an
+               fp8 one no F2FP);
 2. kernels  -- each kernel against its plain PyTorch version on the card,
                bf16 inputs, the plain version computing in fp32, at the
                serving path's shapes (tolerance KERNEL_TOL; K1f's o also
@@ -29,8 +33,11 @@ Phases, each raising on failure (so the exit code is non-zero):
                serving-matmul shape, M 1, 16, 300, 512 and 2048, and ragged
                and unaligned shapes with a bias (QMM_TOL, relative
                Frobenius), every weight code decoded exactly (x = the
-               identity, bit-identical); the row quantizers (K6a/b/c) on
-               [4096, 14336] bf16 rows with a zero row, byte-identical;
+               identity, bit-identical); the row quantizers (K6a/b/c)
+               byte-identical on ``row_quant_inputs``: [4096, 14336] bf16
+               rows with zero, inf, NaN, subnormal and outlier rows, N not
+               a multiple of 16, fp32 / fp16 rows, rows wider than the
+               registers hold and an unaligned base;
                K2 and K3 (``DECODE_CASES``, ``CTX_CASES``) at head_dim 64 /
                128 / 256, query groups 1, 4, 16 and 71, blocks of 8, 16
                and 32: idle slots, a 4,096-key slot and context, -1 and
@@ -113,6 +120,15 @@ Phases, each raising on failure (so the exit code is non-zero):
                kernels' device ms and their share); then K8 timed on the
                engine's own flat buffers (430,752,768 elements) beside
                ``torch._fused_adamw_`` over the same leaves;
+   train_shim -- the flagship again from the same seed, two steps through
+               the reference's ``forward`` / ``backward`` / ``step``: each
+               step's mean micro-batch loss against the train phase's first
+               two ``train_batch`` losses (SHIM_LOSS_RTOL), boundaries, and
+               the launches of two ``train_batch`` steps;
+   sampling -- ``sample`` with top-p on CUDA over 256 rows of llama3's
+               vocab (ROADMAP queue 3 fault 1's reproduction first) whose
+               fp32 cumulative probability may never reach top_p: valid
+               tokens, nothing masked in those rows, and such rows seen;
    sparse_train -- the flagship with ``sparse_attention`` fixed(128, 4, 1)
                (192 of 528 causal blocks) and FusedAdam: SPARSE_TRAIN_STEPS
                timed steps; sparse_fwd / sparse_bwd_dq / sparse_bwd_dkv 48
@@ -141,7 +157,9 @@ Phases, each raising on failure (so the exit code is non-zero):
                flagship's per-call shape; K2, K2p, K3 on the scheduler's
                and a verify tick's pack and the partial modes on shard 0 of
                2, each by CUDA-graph replay and eager beside SDPA timed the
-               same two ways, ``paged_timings``),
+               same two ways, ``paged_timings``; K6a / K6b / K6c on
+               [4096, 14336] bf16 by CUDA-graph replay and eager,
+               ``quant_row_times``),
                and K1's and K7's CUDA-core times before their tensor-core
                redesigns (``K1_EARLIER_MS``, ``K7_EARLIER_MS``, from
                PERF.md) as ``earlier_ms``.
@@ -535,14 +553,48 @@ def _f32(case):
 
 
 def _sass_op(line):
-    """The opcode of one ``cuobjdump -sass`` instruction line (no predicate,
-    no modifiers), or None."""
+    """The opcode of one ``cuobjdump -sass`` instruction line with its
+    modifiers (``LDG.E.128.CONSTANT``; no predicate), or None."""
     if "*/" not in line:
         return None
     words = line.split("*/", 1)[1].split()
     if words and words[0].startswith("@"):
         words = words[1:]
-    return words[0].split(".")[0] if words else None
+    return words[0].rstrip(";") if words else None
+
+
+def _sass_functions(K, src):
+    """{mangled kernel name: [its opcodes with modifiers]} of ``src``'s
+    library (``cuobjdump -sass``)."""
+    cuobjdump = os.path.join(os.path.dirname(K._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", K._lib_path(src)], capture_output=True,
+                          text=True, check=True).stdout
+    out, name = {}, None
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            name = ln.split("Function :", 1)[1].strip()
+            out[name] = []
+        elif name is not None and _sass_op(ln):
+            out[name].append(_sass_op(ln))
+    return out
+
+
+def _ptxas_regs(K, src):
+    """{mangled kernel name: {registers, spill_stores, spill_loads}} from
+    ptxas's report in ``src``'s build log."""
+    regs, cur = {}, None
+    for ln in K.build_log(src).splitlines():
+        m = re.search(r"Function properties for (\S+)", ln)
+        if m:
+            cur = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m and cur:
+            regs.setdefault(cur, {}).update(spill_stores=int(m.group(1)),
+                                            spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and cur:
+            regs.setdefault(cur, {})["registers"] = int(m.group(1))
+    return regs
 
 
 def _flash_kernel_key(mangled):
@@ -588,30 +640,11 @@ def sass_phase(K):
     mma.sync of its WMMA version), or a dequant-matmul kernel at token tile
     128 or 256 launches with other than ``QMM_LAUNCH_REGS`` registers a
     thread.  The split-K reduce kernel has no product."""
-    cuobjdump = os.path.join(os.path.dirname(K._nvcc()), "cuobjdump")
     out = {}
     for src in (*FLASH_SOURCES, *PAGED_SOURCES, QMM_SOURCE):
-        sass = subprocess.run([cuobjdump, "-sass", K._lib_path(src)], capture_output=True,
-                              text=True, check=True).stdout
-        counts, name = {}, None
-        for ln in sass.splitlines():
-            if "Function :" in ln:
-                name = ln.split("Function :", 1)[1].strip()
-                counts[name] = dict.fromkeys(SASS_OPS, 0)
-            elif name is not None and _sass_op(ln) in SASS_OPS:
-                counts[name][_sass_op(ln)] += 1
-        regs, cur = {}, None
-        for ln in K.build_log(src).splitlines():
-            m = re.search(r"Function properties for (\S+)", ln)
-            if m:
-                cur = m.group(1)
-            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
-            if m and cur:
-                regs.setdefault(cur, {}).update(spill_stores=int(m.group(1)),
-                                                spill_loads=int(m.group(2)))
-            m = re.search(r"Used (\d+) registers", ln)
-            if m and cur:
-                regs.setdefault(cur, {})["registers"] = int(m.group(1))
+        counts = {name: {op: sum(o.split(".")[0] == op for o in ops) for op in SASS_OPS}
+                  for name, ops in _sass_functions(K, src).items()}
+        regs = _ptxas_regs(K, src)
         for mangled, c in counts.items():
             key = (_qmm_kernel_key(mangled) if src == QMM_SOURCE else
                    _paged_kernel_key(mangled) if src in PAGED_SOURCES else
@@ -632,6 +665,55 @@ def sass_phase(K):
                     f"thread; its setmaxnreg hand-over is balanced at {QMM_LAUNCH_REGS}")
         if not counts:
             raise AssertionError(f"sass: no kernel found in {src}")
+    return out
+
+
+ROWQ_SOURCE = "quantize.cu"
+ROWQ_TYPES = {"f": "fp32", "13__nv_bfloat16": "bf16", "6__half": "fp16"}
+ROWQ_FORMATS = {"0": "int8", "1": "e4m3", "2": "e5m2"}
+
+
+def _rowq_kernel_key(mangled):
+    """``quantize_rows_kernel<bf16, e4m3, cpt 4>`` from a mangled row
+    quantizer name (template arguments: input type, code format, chunks a
+    thread), or the dequantizer's ``dequantize_rows_kernel<...>``."""
+    m = re.search(r"(quantize_rows_kernel)I(f|13__nv_bfloat16|6__half)Li(\d)ELi(\d+)E",
+                  mangled)
+    if m:
+        return (f"{m.group(1)}<{ROWQ_TYPES[m.group(2)]}, {ROWQ_FORMATS[m.group(3)]}, "
+                f"cpt {m.group(4)}>")
+    m = re.search(r"(dequantize_rows_kernel)ILi(\d)E(f|13__nv_bfloat16|6__half)", mangled)
+    if m:
+        return f"{m.group(1)}<{ROWQ_FORMATS[m.group(2)]}, {ROWQ_TYPES[m.group(3)]}>"
+    return mangled
+
+
+def rowq_sass(K):
+    """The row quantizers' SASS (``quantize.cu``): per kernel the hardware
+    fp8 pair conversions (F2FP), the float-to-int conversions (F2I), the
+    16-byte loads and stores and all global loads and stores, the calls
+    (the IEEE division's slow path is a subroutine) and the local-memory
+    stores and loads (``STL`` / ``LDL``: ptxas's spills, which save
+    registers around those calls), beside ptxas's registers and spills.
+    Raises when a quantize kernel has no 16-byte load or store, or an fp8
+    one no F2FP."""
+    regs = _ptxas_regs(K, ROWQ_SOURCE)
+    out = {}
+    for mangled, ops in _sass_functions(K, ROWQ_SOURCE).items():
+        base = [op.split(".")[0] for op in ops]
+        c = {op: base.count(op) for op in ("F2FP", "F2I", "LDG", "STG", "CALL", "STL", "LDL")}
+        c.update(LDG_128=sum(op.startswith("LDG") and ".128" in op for op in ops),
+                 STG_128=sum(op.startswith("STG") and ".128" in op for op in ops))
+        key = _rowq_kernel_key(mangled)
+        out[key] = dict(source=ROWQ_SOURCE, **c, **regs.get(mangled, {}))
+        if not key.startswith("quantize_rows_kernel<"):
+            continue
+        if not (c["LDG_128"] and c["STG_128"]):
+            raise AssertionError(f"sass: {key} has no 16-byte load or store: {c}")
+        if ("e4m3" in key or "e5m2" in key) and not c["F2FP"]:
+            raise AssertionError(f"sass: {key} holds no F2FP (hardware fp8 pair conversion)")
+    if not any(k.startswith("quantize_rows_kernel<") for k in out):
+        raise AssertionError(f"sass: no quantize kernel found in {ROWQ_SOURCE}")
     return out
 
 
@@ -1803,13 +1885,14 @@ def train_phase(torch, K, gpu, sparse=None, steps=TRAIN_STEPS):
     first = float(engine.train_batch(batch))  # warm-up (cuBLAS handles, allocator)
     warm_s = time.perf_counter() - t0
     K.reset_launches()
-    step_s = []
+    step_s, losses = [], []
     t0 = t_prev = time.perf_counter()
-    for _ in engine.train_on_loader(itertools.repeat(batch, steps)):
+    for loss in engine.train_on_loader(itertools.repeat(batch, steps)):
         torch.cuda.synchronize()
         t = time.perf_counter()
         step_s.append(t - t_prev)
         t_prev = t
+        losses.append(loss)
     last = engine.get_last_loss()
     loop_s = time.perf_counter() - t0
     launches = dict(K.LAUNCHES)
@@ -1840,6 +1923,7 @@ def train_phase(torch, K, gpu, sparse=None, steps=TRAIN_STEPS):
                step_s=step_s, step_s_median=med, loop_s_per_step=loop_s / steps,
                tokens_per_step=tokens, tokens_per_s=tokens / med,
                loss_first=first, loss_last=last, peak_memory_bytes=peak,
+               train_batch_losses=[first] + [float(x) for x in losses],
                launches=launches, launches_per_step={n: launches[n] / steps
                                                      for n in launches},
                profile_step_wall_ms=wall_ms, profile_step_device_ms=dev_ms,
@@ -1859,6 +1943,110 @@ def train_phase(torch, K, gpu, sparse=None, steps=TRAIN_STEPS):
     if sparse is None:
         res["fused_adamw_timing"] = adam_timing(torch, engine)
     del engine
+    return res
+
+
+SHIM_LOSS_RTOL = 1e-3
+
+
+def train_shim_phase(torch, K, gpu, want_losses):
+    """Phase 6b (``train_shim``): the flagship at full width and depth
+    (``llama3_proxy_410m``, seq 4096, micro 8, GAS 2, bf16, AdamW) through
+    the reference's API, ``forward`` / ``backward`` / ``step``, from the
+    same seed, batch and config as the train phase: its two steps' losses
+    (the mean of each step's two micro-batch losses) against the train
+    phase's first two ``train_batch`` losses (``want_losses``) within
+    SHIM_LOSS_RTOL (the same bf16 kernels on the same inputs; step 2 sees
+    the flash backward's and the fp32 sums' ordering once more), and the
+    launches of a ``train_batch`` step: the flash kernels layers x GAS
+    times a step, K8 once, at the boundary step only."""
+    import numpy as np
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.models.presets import get_preset
+    from deepspeed_tpu_torch.models.transformer import CausalLM
+
+    micro, seq, gas, steps = 8, 4096, 2, 2
+    model = CausalLM(get_preset("llama3_proxy_410m", loss_chunk_size=2048))
+    engine, _, _, _ = initialize(model=model, config=bench_config(micro, gas))
+    cfg = model.cfg
+    batch = {"input_ids": np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (gas, micro, seq + 1), dtype=np.int64)}
+    K.reset_launches()
+    micro_losses, boundaries = [], []
+    for _ in range(steps):
+        for i in range(gas):
+            loss = engine.forward({"input_ids": batch["input_ids"][i]})
+            engine.backward(loss)
+            boundaries.append(engine.is_gradient_accumulation_boundary())
+            engine.step()
+            micro_losses.append(float(loss))
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    check_train_launches("train_shim", launches, cfg.num_layers, gas, steps, False)
+    got = [float(np.mean(micro_losses[i * gas:(i + 1) * gas])) for i in range(steps)]
+    rel = [abs(g - w) / abs(w) for g, w in zip(got, want_losses[:steps])]
+    res = dict(phase="train_shim", model="llama3_proxy_410m", layers=cfg.num_layers, seq=seq,
+               micro_batch=micro, gas=gas, steps=steps, micro_losses=micro_losses,
+               step_losses=got, train_batch_losses=want_losses[:steps], loss_rel_diff=rel,
+               limit=SHIM_LOSS_RTOL, boundaries=boundaries, global_steps=engine.global_steps,
+               loss_scale=engine.loss_scale, launches=launches, gpu=gpu)
+    emit(res)
+    if boundaries != [False, True] * steps or engine.global_steps != steps:
+        raise AssertionError(f"train_shim: boundaries {boundaries}, "
+                             f"global_steps {engine.global_steps}")
+    if not all(np.isfinite(got)) or max(rel) > SHIM_LOSS_RTOL:
+        raise AssertionError(f"train_shim: losses {got} against train_batch's "
+                             f"{want_losses[:steps]} (rel {rel} > {SHIM_LOSS_RTOL})")
+    del engine
+    return res
+
+
+FAULT1_TOP_P = 0.99999994  # the largest fp32 below 1
+
+
+def fault1_logits(torch):
+    """ROADMAP queue 3 fault 1's reproduction (8 rows of llama3's vocab, on
+    the CPU generator: row 7's fp32 cumulative probability ends below
+    FAULT1_TOP_P there), then 248 more rows of the same kind."""
+    v = 128256
+    return torch.cat([torch.randn(8, v, generator=torch.Generator().manual_seed(0)),
+                      torch.randn(248, v, generator=torch.Generator().manual_seed(1))]) * 0.1
+
+
+def sampling_phase(torch, gpu):
+    """Phase 6c (``sampling``): ``sample`` with top-p on CUDA over rows
+    whose fp32 cumulative probability may never reach ``top_p`` (the cutoff
+    index then equals the vocab size; the gather there was a device-side
+    assert that killed the context).  At FAULT1_TOP_P and at 1 - 1e-9
+    (1.0 in fp32: every row whose device cumsum ends below 1): every row
+    samples a token in [0, v) that the filter kept, every row whose cutoff
+    is past the vocab keeps every logit, and at least one row takes that
+    path on the card."""
+    from deepspeed_tpu_torch.inference.sampling import SamplingParams, sample, top_p_filter
+
+    logits = fault1_logits(torch).to(DEVICE)
+    v = logits.shape[-1]
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    res = dict(phase="sampling", rows=logits.shape[0], vocab=v, gpu=gpu, cases={})
+    for top_p in (FAULT1_TOP_P, 1.0 - 1e-9):
+        toks = sample(logits, SamplingParams(temperature=1.0, top_p=top_p), gen).long()
+        kept = top_p_filter(logits, top_p)
+        cum = torch.cumsum(torch.softmax(torch.sort(logits, dim=-1, descending=True).values,
+                                         dim=-1), dim=-1)
+        past = (cum < top_p).sum(dim=-1) == v
+        torch.cuda.synchronize()
+        valid = bool(((toks >= 0) & (toks < v)).all())
+        on_kept = bool(torch.isfinite(kept[torch.arange(len(toks), device=DEVICE), toks]).all())
+        masked_past = int(torch.isinf(kept[past]).sum())
+        res["cases"][repr(top_p)] = dict(rows_cutoff_past_vocab=int(past.sum()),
+                                         row7_cutoff_past_vocab=bool(past[7]),
+                                         tokens_valid=valid, tokens_on_kept_logits=on_kept,
+                                         masked_logits_in_those_rows=masked_past)
+        if not (valid and on_kept) or masked_past:
+            raise AssertionError(f"sampling: {res['cases'][repr(top_p)]} at top_p {top_p}")
+    emit(res)
+    if not any(c["rows_cutoff_past_vocab"] for c in res["cases"].values()):
+        raise AssertionError("sampling: no row's cutoff was past the vocab on the card")
     return res
 
 
@@ -1975,14 +2163,77 @@ def quant_codes_check(torch, gen):
     return out
 
 
+K6_DTYPES = ("int8", "float8_e4m3fn", "float8_e5m2")
+
+
+def row_quant_inputs(torch, gen):
+    """(label, x) pairs for the row quantizers on the card: the quantizer
+    API's [4096, 14336] bf16 shape with edge rows (a zero row, an inf, a
+    NaN, -inf beside NaN, a subnormal amax, an amax just above the 1e-12
+    floor, an outlier that sends the rest to fp8's subnormals), an N that
+    is not a multiple of 16 (every row's chunks start at another column),
+    fp32 and fp16 rows, rows wider than the kernel's registers hold, tiny
+    rows, and a tensor whose base is not 16-byte aligned."""
+    x = _randn(torch, (4096, 14336), gen, torch.bfloat16)
+    x[7] = 0.0  # scale max(0, 1e-12) / qmax
+    x[11, 5] = float("inf")
+    x[12, 9000] = float("nan")
+    x[13, 3], x[13, 4] = float("-inf"), float("nan")
+    x[14] = (_randn(torch, (14336,), gen, torch.float32) * 1e-39).to(torch.bfloat16)
+    x[15] = (_randn(torch, (14336,), gen, torch.float32) * 1e-12).to(torch.bfloat16)
+    x[16] *= 1e-3
+    x[16, 100] = 1e3
+    yield "G4096_N14336_bf16_edges", x
+    del x
+    x = _randn(torch, (37, 14343), gen, torch.bfloat16)
+    x[3, 14342], x[4, 0] = float("inf"), float("nan")
+    yield "G37_N14343_bf16", x
+    for dt in (torch.float32, torch.float16):
+        x = _randn(torch, (64, 4100), gen, dt) * 3.0
+        x[1, 17] = float("nan")
+        yield f"G64_N4100_{str(dt).split('.')[-1]}", x
+    yield "G8_N70001_bf16", _randn(torch, (8, 70001), gen, torch.bfloat16)
+    yield "G5_N40_bf16", _randn(torch, (5, 40), gen, torch.bfloat16)
+    base = _randn(torch, (33 * 1000 + 1,), gen, torch.bfloat16)
+    yield "G33_N1000_bf16_base_off_by_2_bytes", base[1:].view(33, 1000)
+
+
+def row_quant_agreement(torch, QK, x, dtype):
+    """Quantize ``x`` to ``dtype`` (a torch dtype name) by the kernel and by
+    the plain version on the card, dequantize the kernel's codes by K6b and
+    by the plain version: how many q bytes, scales (bit for bit; two NaNs
+    agree) and dequantized bf16 bit patterns differ, and the largest
+    difference between finite codes / dequantized values."""
+    dtype = getattr(torch, dtype)
+    q, s = QK.quantize_kernel(x, dtype)
+    d = QK.dequantize_kernel(q, s, torch.bfloat16)
+    torch.cuda.synchronize()
+    qp, sp = QK.quantize_rows_plain(x, dtype)
+    dp = QK.dequantize_rows_plain(q, s, torch.bfloat16)
+
+    def finite_err(a, b):
+        a, b = a.float(), b.float()
+        ok = torch.isfinite(a) & torch.isfinite(b)
+        return float(torch.where(ok, a - b, 0.0).abs().max())
+
+    both_nan = torch.isnan(s) & torch.isnan(sp)
+    return dict(q_bytes_differing=int((_as_bytes(torch, q) != _as_bytes(torch, qp)).sum()),
+                scales_differing=int(((s.view(torch.int32) != sp.view(torch.int32))
+                                      & ~both_nan).sum()),
+                nan_scales=int(torch.isnan(s).sum()),
+                dequantized_bits_differing=int((d.view(torch.int16)
+                                                != dp.view(torch.int16)).sum()),
+                q_max_abs_err=finite_err(q, qp), dequantized_max_abs_err=finite_err(d, dp))
+
+
 def quant_kernel_checks(torch):
     """K4 (int8, e4m3) and K5 at every 8B serving-matmul shape, M = 1, 16,
     300, 512 and 2048 (the decode tile of 16 tokens, a 256-token tile's
     ragged edge, the prefill tiles), plus ragged cases with a bias, each
     held by relative Frobenius error against the plain version in fp32 on
     the same bf16 input; every code decoded exactly (``quant_codes_check``);
-    then K6a/b/c on [4096, 14336] bf16 rows with a zero row: q bytes, scales
-    and the dequantized tensor identical to the plain version."""
+    then K6a/b/c on ``row_quant_inputs``: q bytes, scales and the
+    dequantized tensor identical to the plain version."""
     from deepspeed_tpu_torch.ops.kernels import quant_kernel as QK
 
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 20)
@@ -2018,26 +2269,18 @@ def quant_kernel_checks(torch):
         del payloads
         _free(torch)
 
-    x = _randn(torch, (4096, 14336), gen, torch.bfloat16)
-    x[7] = 0.0  # a zero row: scale max(0, 1e-12) / qmax
-    for dtype in (torch.int8, torch.float8_e4m3fn, torch.float8_e5m2):
-        name = "quantize_int8" if dtype == torch.int8 else "quantize_fp8"
-        q, s = QK.quantize_kernel(x, dtype)
-        d = QK.dequantize_kernel(q, s, torch.bfloat16)
-        torch.cuda.synchronize()
-        qp, sp = QK.quantize_rows_plain(x, dtype)
-        dp = QK.dequantize_rows_plain(q, s, torch.bfloat16)
-        bad_q = int((_as_bytes(torch, q) != _as_bytes(torch, qp)).sum())
-        bad_s = int((s != sp).sum())
-        bad_d = int((d.view(torch.int16) != dp.view(torch.int16)).sum())
-        errs[name] = max(errs[name], float((q.float() - qp.float()).abs().max()))
-        errs["dequantize"] = max(errs["dequantize"], float((d.float() - dp.float()).abs().max()))
-        cases.append(dict(kernel=f"{name}+dequantize", case=f"G4096_N14336_bf16_to_{dtype}",
-                          q_bytes_differing=bad_q, scales_differing=bad_s,
-                          dequantized_bits_differing=bad_d, limit=0))
-        if bad_q or bad_s or bad_d:
-            raise AssertionError(f"{name}: {cases[-1]} (must be identical)")
-    del x, q, s, d, qp, sp, dp
+    for label, x in row_quant_inputs(torch, gen):
+        for dtype in K6_DTYPES:
+            row = row_quant_agreement(torch, QK, x, dtype)
+            name = "quantize_int8" if dtype == "int8" else "quantize_fp8"
+            errs[name] = max(errs[name], row.pop("q_max_abs_err"))
+            errs["dequantize"] = max(errs["dequantize"], row.pop("dequantized_max_abs_err"))
+            cases.append(dict(kernel=f"{name}+dequantize", case=f"{label}_to_{dtype}", **row,
+                              limit=0))
+            if row["q_bytes_differing"] or row["scales_differing"] or \
+                    row["dequantized_bits_differing"]:
+                raise AssertionError(f"{name}: {cases[-1]} (must be identical)")
+        del x
     _free(torch)
     return errs, cases
 
@@ -2241,8 +2484,10 @@ def quantizer_phase(torch, K, gpu, w):
     ``quantize_fp8`` (e4m3, e5m2) -> ``dequantize``, ``fake_quantize_int8``.
     Each element is held to its format's rounding bound: int8 within half a
     step (s / 2) of x, fp8 within half an ulp (2^-(m+1) |x|, or half the
-    subnormal step in the subnormal range)."""
+    subnormal step in the subnormal range), and the codes and scales equal
+    the plain version's on the same rows, byte for byte."""
     from deepspeed_tpu_torch.ops import quantizer as Q
+    from deepspeed_tpu_torch.ops.kernels import quant_kernel as QK
 
     gs = w.shape[-1]
     K.reset_launches()
@@ -2260,10 +2505,20 @@ def quantizer_phase(torch, K, gpu, w):
         raise AssertionError(f"quantizer: launches {launches}, expected {want}")
     if not torch.equal(fake, di) or di.dtype != w.dtype or di.shape != w.shape:
         raise AssertionError("quantizer: fake_quantize_int8 != dequantize(quantize_int8)")
+    differing = {}
+    for dtype, qt in ((torch.int8, qi), *((d, v[0]) for d, v in fp8.items())):
+        qp, sp = QK.quantize_rows_plain(w.reshape(-1, gs), dtype)
+        differing[str(dtype).split(".")[-1]] = (
+            int((_as_bytes(torch, qt.data).reshape(qp.shape) != _as_bytes(torch, qp)).sum()),
+            int((qt.scales.view(torch.int32) != sp.view(torch.int32)).sum()))
+    if any(sum(v) for v in differing.values()):
+        raise AssertionError(f"quantizer: (bytes, scales) differing from the plain version "
+                             f"{differing}")
     xf = w.float()
     s = qi.scales[:, None]
     step_err = float(((xf - qi.data.float() * s).abs() / s).max())
     res = dict(phase="quantizer", shape=list(w.shape), group_size=gs,
+               bytes_and_scales_differing_from_plain=differing,
                int8_max_err_in_steps=step_err, limit_in_steps=0.5 + 1e-4,
                int8_rel_fro_err=float((di.float() - xf).norm() / xf.norm()))
     if step_err > 0.5 + 1e-4:  # + fp32 rounding of x / s and q * s
@@ -2328,10 +2583,7 @@ def quant_timings(torch):
     """K4 / K5 by ``qmm_shape_times``; the kernel's top-level entry is [4096,
     14336] (w_up / w_gate: the most bytes a layer streams) at M 16, with M
     512 as ``at_prefill_shape``, the only shape where the plain version is
-    timed.  K6 on [4096, 14336] bf16: bounds over 3.35 TB/s or 4 (quantize)
-    and 2 (dequantize) operations an element over the fp32 rate."""
-    from deepspeed_tpu_torch.ops.kernels import quant_kernel as QK
-
+    timed.  K6 by ``quant_row_times``."""
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 30)
     out = {}
     for name, by_shape in qmm_shape_times(torch, gen).items():
@@ -2342,21 +2594,43 @@ def quant_timings(torch):
                                       "a shape and M",
                          timing_note="ms and library_ms: CUDA-graph replay (device time); "
                                      "eager_ms: back-to-back calls (host time shows)")
+    out.update(quant_row_times(torch, gen))
+    return out
+
+
+def quant_row_times(torch, gen, plain=True):
+    """K6a (int8), K6c (e4m3; e5m2 beside it as ``quantize_fp8_e5m2``) and
+    K6b (int8 -> bf16) on [4096, 14336] bf16 (the 8B tree's w_up, the
+    quantizer API's shape): device time by CUDA-graph replay (``ms``) and
+    back-to-back eager calls (``eager_ms``), the plain version eager
+    (``plain``).  Bounds over 3.35 TB/s (every byte once: 2 in, 1 out an
+    element, the scales) or 4 (quantize) and 2 (dequantize) operations an
+    element over the fp32 rate."""
+    from deepspeed_tpu_torch.ops.kernels import quant_kernel as QK
+
     x = _randn(torch, (4096, 14336), gen, torch.bfloat16)
     elems = x.numel()
     note = "null: no single PyTorch call computes a per-row amax-scaled quantization"
-    for name, dtype in (("quantize_int8", torch.int8), ("quantize_fp8", torch.float8_e4m3fn)):
+    out = {}
+    for name, dtype in (("quantize_int8", torch.int8), ("quantize_fp8", torch.float8_e4m3fn),
+                        ("quantize_fp8_e5m2", torch.float8_e5m2)):
         bound, by = _bound(4 * elems, 3 * elems + 4 * x.shape[0], PEAK_FP32_FLOPS)
+        kern = lambda: QK.quantize_kernel(x, dtype)  # noqa: E731
         out[name] = dict(shape="G4096 N14336 bf16 -> " + str(dtype).split(".")[-1],
-                         ms=time_ms(torch, lambda: QK.quantize_kernel(x, dtype)),
-                         plain_ms=time_ms(torch, lambda: QK.quantize_rows_plain(x, dtype)),
+                         ms=graph_ms(torch, kern), eager_ms=time_ms(torch, kern),
                          library_ms=None, library_note=note, bound_ms=bound, bound_by=by)
+        if plain:
+            out[name]["plain_ms"] = time_ms(torch, lambda: QK.quantize_rows_plain(x, dtype))
     q, s = QK.quantize_kernel(x, torch.int8)
     bound, by = _bound(2 * elems, 3 * elems + 4 * x.shape[0], PEAK_FP32_FLOPS)
-    out["dequantize"] = dict(shape="G4096 N14336 int8 -> bf16",
-                             ms=time_ms(torch, lambda: QK.dequantize_kernel(q, s)),
-                             plain_ms=time_ms(torch, lambda: QK.dequantize_rows_plain(q, s)),
-                             library_ms=None, library_note=note, bound_ms=bound, bound_by=by)
+    kern = lambda: QK.dequantize_kernel(q, s)  # noqa: E731
+    out["dequantize"] = dict(shape="G4096 N14336 int8 -> bf16", ms=graph_ms(torch, kern),
+                             eager_ms=time_ms(torch, kern), library_ms=None,
+                             library_note=note, bound_ms=bound, bound_by=by)
+    if plain:
+        out["dequantize"]["plain_ms"] = time_ms(torch, lambda: QK.dequantize_rows_plain(q, s))
+    for row in out.values():
+        row["timing_note"] = "ms: CUDA-graph replay (device time); eager_ms: back-to-back calls"
     del x, q, s
     _free(torch)
     return out
@@ -2917,7 +3191,8 @@ def main() -> None:
              for src in dict.fromkeys(K.SOURCES.values())}
     emit(dict(phase="build", seconds=build["seconds"], built=build["built"],
               ptxas=ptxas, gpu=gpu))
-    emit(dict(phase="sass", ops=list(SASS_OPS), kernels=sass_phase(K), gpu=gpu))
+    emit(dict(phase="sass", ops=list(SASS_OPS), kernels=sass_phase(K),
+              row_quantizers=rowq_sass(K), gpu=gpu))
 
     errs, cases = kernel_checks(torch)
     _free(torch)
@@ -2946,6 +3221,9 @@ def main() -> None:
     tr = train_phase(torch, K, gpu)
     adam_times = tr.pop("fused_adamw_timing")
     _free(torch)
+    shim = train_shim_phase(torch, K, gpu, tr["train_batch_losses"])
+    _free(torch)
+    sampling_phase(torch, gpu)
     sp = train_phase(torch, K, gpu, sparse=SPARSE_FLAGSHIP, steps=SPARSE_TRAIN_STEPS)
     _free(torch)
     qc = quant_check_phase(torch, K, gpu)
@@ -2960,7 +3238,8 @@ def main() -> None:
     emit(dict(phase="timings", flash_bwd_pair=times.pop("flash_bwd_pair"),
               flash_fwd_train=times["flash_fwd_train"],
               earlier_ms={**K1_EARLIER_MS, **K7_EARLIER_MS},
-              quant={n: times[n] for n in (*QMM_NAMES.values(), *K6_NAMES)},
+              quant={n: times[n] for n in (*QMM_NAMES.values(), *K6_NAMES,
+                                           "quantize_fp8_e5m2")},
               sparse_bwd_pair=times.pop("sparse_bwd_pair"),
               sparse={n: times[n] for n in ATTN_KERNELS[True]},
               fused_adamw=adam_times, gpu=gpu))
@@ -2968,7 +3247,7 @@ def main() -> None:
     # serving, seq-sharded long-context serving, gpt2 serving, dense and
     # block-sparse training, quantized serving, the quantizer API), each
     # read right after its own run
-    main_paths = (eng, sch, spec, lcc, lc, g_eng, g_spec, tr, sp, qc, qs, qz)
+    main_paths = (eng, sch, spec, lcc, lc, g_eng, g_spec, tr, shim, sp, qc, qs, qz)
     per_forward = {**eng["launches_per_forward"], **sch["launches_per_forward"],
                    "paged_decode_hd64": g_eng["launches_per_forward"]["paged_decode_hd64"]}
     for name in ("paged_decode_partial", "ctx_attention_partial"):  # longctx, S = 2

@@ -14,8 +14,9 @@ Ported so far:
   quantized weights, a KV pool seq-sharded over a ``parallel.topology``
   grid) and its ``inference.scheduler.ServeScheduler``;
 - training: ``initialize`` -> ``runtime.engine.DeepSpeedTorchEngine``
-  (``train_batch``, ``train_on_loader``) over ``models.transformer.CausalLM``
-  on one GPU.
+  (``train_batch``, ``train_on_loader``, and the reference's ``forward`` /
+  ``backward`` / ``step``, ``eval_batch``, ``no_sync``) over
+  ``models.transformer.CausalLM`` on one GPU.
 """
 from __future__ import annotations
 
@@ -23,14 +24,17 @@ from typing import Any, Callable, Optional
 
 
 def initialize(model=None, params: Any = None, config: Any = None, device=None,
-               loss_fn: Optional[Callable] = None, mesh=None, training_data=None):
+               loss_fn: Optional[Callable] = None, mesh=None, training_data=None,
+               eval_fn: Optional[Callable] = None):
     """Build the training engine — ``deepspeed_tpu.initialize`` on one GPU.
 
     ``model`` is a ``models.transformer.CausalLM`` (or pass ``loss_fn`` and
     ``params``); ``params=None`` initialises fp32 parameters from
     ``config['seed']`` on the device.  ``device`` is CUDA unless the caller
     names another.  Returns ``(engine, engine, dataloader, lr_scheduler)``
-    like the reference; the dataloader is None.  ``config['sparse_attention']``
+    like the reference; the dataloader is None.  ``eval_fn`` (the
+    ``loss_fn`` contract) is what ``engine.eval_batch`` runs, ``loss_fn`` by
+    default.  ``config['sparse_attention']``
     sets the block-sparse layout on ``model.cfg`` (JAX ``initialize``); it
     needs ``model=``.
 
@@ -69,6 +73,6 @@ def initialize(model=None, params: Any = None, config: Any = None, device=None,
         if model is None:
             raise ValueError("initialize() needs params with a bare loss_fn")
         params = model.init_params(seed=cfg.seed, device=device)
-    engine = DeepSpeedTorchEngine(loss_fn, params, cfg, device)
+    engine = DeepSpeedTorchEngine(loss_fn, params, cfg, device, eval_fn=eval_fn)
     engine.model = model
     return engine, engine, None, engine.lr_scheduler

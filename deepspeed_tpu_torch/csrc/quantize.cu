@@ -8,32 +8,67 @@
 // `deepspeed.ops.quantizer`.
 //
 // What it computes, for each row (group) of x [G, N]:
-//   amax = max |x| (fp32), s = max(amax, 1e-12) * (1 / qmax) with 1 / qmax
-//   rounded to fp32 (XLA compiles the Pallas kernel's division by the
-//   constant qmax to this multiply, so these are the JAX kernel's scales),
-//   int8: q = clip(rint(x / s), -127, 127)      (round half to even)
+//   amax = max |x| (fp32; a NaN anywhere makes it NaN, as torch's and jnp's
+//   max do), s = max(amax, 1e-12) * (1 / qmax) with 1 / qmax rounded to
+//   fp32 (XLA compiles the Pallas kernel's division by the constant qmax to
+//   this multiply, so these are the JAX kernel's scales; NaN stays NaN),
+//   int8: q = clip(rint(x / s), -127, 127)      (round half to even; NaN -> 0)
 //   fp8:  q = fp8(x / s), e4m3fn (qmax 448) or e5m2 (qmax 57344), the
 //         round-to-nearest-even cast without saturation that torch's
 //         `.to(float8_*)` and ml_dtypes share,
 // and dequantize: out = dtype(float(q) * s) for int8, e4m3 or e5m2 q.
-// x / s is an IEEE division (this source is built without fast math), so
-// the bytes and scales equal the plain PyTorch version's and JAX's.
+// x / s is an IEEE division (`__fdiv_rn`; this source is built without fast
+// math), so the bytes and scales equal the plain PyTorch version's and JAX's.
 //
-// Bound on H100: bytes (a few operations per element).  Design: one CTA of
-// 256 threads per row; the amax pass reads the row with coalesced loads and
-// reduces by warp shuffles, the second pass reads it again (now from L1 /
-// L2) and writes q.  A row never leaves its CTA, so no cross-CTA reduction
-// is needed.  The simple first version: scalar loads.
+// Bound on H100: bytes.  [4096, 14336] bf16 -> 8-bit moves 176 MB, 0.0526
+// ms at 3.35 TB/s; the arithmetic (about a dozen instructions an element,
+// most of them the division) fits under that if the loads keep flowing.
+//
+// Quantize design (K6a / K6c):
+// - one CTA a row; the row is read from device memory once and kept in
+//   registers between the amax and the write: chunks of 16 elements (two
+//   16-byte loads of bf16 / fp16, four of fp32), CPT chunks a thread, chunk
+//   j * T + t for thread t (a 14,336-wide bf16 row: T = 224, CPT = 4, 32
+//   registers of data a thread, four CTAs an SM, 112 KB of loads in flight
+//   an SM).  Each thread issues all its loads before it reduces anything;
+//   the other CTAs of the SM overlap one row's reduction and stores with
+//   their loads.
+// - q goes out 16 bytes a store (a chunk's 16 codes).  Chunks start where
+//   the element index g * N + i is a multiple of 16, so every row's vector
+//   loads and stores are aligned for any N; a row's first and last few
+//   elements (fewer than 16 each), the chunks past CPT * T of a row wider
+//   than the registers hold (two passes, the second from L2) and a tensor
+//   whose base is not 16-byte aligned take scalar loads.
+// - amax by NaN-propagating max (HMNMX2 on bf16 / fp16 pairs, unsigned max
+//   on fp32 |x| bits, REDUX across a warp).
+// - the conversions, on a row whose scale is finite (every x finite):
+//   |x / s| <= qmax (1 + 2^-23): s >= amax / qmax * (1 - 2^-24)^2, with
+//   fp32(1 / qmax) and the product rounded to nearest.  So
+//   * int8: rint(x / s) lies in [-127, 127] and needs no clip; it is the
+//     low byte of fp32(x / s + 1.5 * 2^23) (a full-rate add that rounds
+//     half to even to an integer, instead of a quarter-rate F2I);
+//   * fp8: the hardware pair conversion `cvt.rn.satfinite.{e4m3,e5m2}x2.f32`
+//     (F2FP, two codes an instruction) equals the cast without saturation:
+//     the two differ only above 464 (e4m3: NaN against 448) and above 61440
+//     (e5m2: inf against 57344).
+//   A row with an inf or NaN (scale inf or NaN; x / s is then +-0 or NaN)
+//   takes the element-wise conversion of the reference: the same branch for
+//   the whole row, chosen once from the scale.
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
+#include <type_traits>
+
 namespace dstk {
 
 typedef __nv_bfloat16 bf16;
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;   // the dequantizer's CTA
+constexpr int kMaxThreads = 256;  // the quantizer's largest CTA
+constexpr int kChunk = 16;      // elements a chunk: one 16-byte store of codes
 
 enum Type { kF32 = 0, kBF16 = 1, kF16 = 2 };    // float input / output types
 enum QFmt { kInt8 = 0, kE4M3 = 1, kE5M2 = 2 };  // quantized types
@@ -66,48 +101,232 @@ __device__ __forceinline__ float q_to_f(uint8_t b) {
   }
 }
 
-__device__ __forceinline__ float block_max(float v) {
-  __shared__ float part[kThreads / 32];
+// ---------------------------------------------------------------------------
+// quantize
+// ---------------------------------------------------------------------------
+// 16-byte words a chunk of 16 elements takes
+template <typename InT>
+struct Words {
+  static constexpr int kN = sizeof(InT);
+};
+
+// |v| as bits: for non-negative floats the unsigned order is the float
+// order, and every NaN is above inf, so an unsigned max propagates NaN
+__device__ __forceinline__ uint32_t abs_bits(float v) { return __float_as_uint(v) & 0x7fffffffu; }
+
+template <typename InT>
+__device__ __forceinline__ uint32_t chunk_amax(const uint4 (&w)[Words<InT>::kN]) {
+  constexpr int W = Words<InT>::kN;
+  if constexpr (sizeof(InT) == 4) {
+    uint32_t m = 0;
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  if (threadIdx.x % 32 == 0) part[threadIdx.x / 32] = v;
-  __syncthreads();
-  v = part[0];
+    for (int k = 0; k < W; ++k) {
+      m = max(m, abs_bits(__uint_as_float(w[k].x)));
+      m = max(m, abs_bits(__uint_as_float(w[k].y)));
+      m = max(m, abs_bits(__uint_as_float(w[k].z)));
+      m = max(m, abs_bits(__uint_as_float(w[k].w)));
+    }
+    return m;
+  } else if constexpr (std::is_same<InT, bf16>::value) {
+    const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(w);
+    __nv_bfloat162 m = __habs2(p[0]);
 #pragma unroll
-  for (int i = 1; i < kThreads / 32; ++i) v = fmaxf(v, part[i]);
-  return v;
+    for (int k = 1; k < 4 * W; ++k) m = __hmax2_nan(m, __habs2(p[k]));
+    const uint32_t u = *reinterpret_cast<const uint32_t*>(&m);  // both halves >= +0
+    return max(u << 16, u & 0xffff0000u);
+  } else {
+    const __half2* p = reinterpret_cast<const __half2*>(w);
+    __half2 m = __habs2(p[0]);
+#pragma unroll
+    for (int k = 1; k < 4 * W; ++k) m = __hmax2_nan(m, __habs2(p[k]));
+    const float2 f = __half22float2(m);
+    return max(abs_bits(f.x), abs_bits(f.y));
+  }
 }
 
-template <typename InT, int Q>
-__global__ void __launch_bounds__(kThreads)
-quantize_rows_kernel(const InT* __restrict__ x, uint8_t* __restrict__ q, float* __restrict__ s,
-                     int N, float inv_qmax) {
-  const long base = static_cast<long>(blockIdx.x) * N;
-  const InT* xr = x + base;
-  float amax = 0.f;
-  for (int i = threadIdx.x; i < N; i += kThreads) amax = fmaxf(amax, fabsf(to_f(xr[i])));
-  amax = block_max(amax);
-  const float scale = fmaxf(amax, 1e-12f) * inv_qmax;
-  if (threadIdx.x == 0) s[blockIdx.x] = scale;
-  uint8_t* qr = q + base;
-  for (int i = threadIdx.x; i < N; i += kThreads) {
-    const float v = to_f(xr[i]) / scale;
-    if constexpr (Q == kInt8) {
-      qr[i] = static_cast<uint8_t>(static_cast<int8_t>(fminf(fmaxf(rintf(v), -127.f), 127.f)));
-    } else {
-      qr[i] = __nv_cvt_float_to_fp8(v, __NV_NOSAT, Q == kE4M3 ? __NV_E4M3 : __NV_E5M2);
+// the 16 elements of a chunk as floats (exact)
+template <typename InT>
+__device__ __forceinline__ void chunk_floats(const uint4 (&w)[Words<InT>::kN], float (&f)[kChunk]) {
+  const uint32_t* u = reinterpret_cast<const uint32_t*>(w);
+  if constexpr (sizeof(InT) == 4) {
+#pragma unroll
+    for (int i = 0; i < kChunk; ++i) f[i] = __uint_as_float(u[i]);
+  } else if constexpr (std::is_same<InT, bf16>::value) {
+#pragma unroll
+    for (int i = 0; i < kChunk / 2; ++i) {
+      f[2 * i] = __uint_as_float(u[i] << 16);
+      f[2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < kChunk / 2; ++i) {
+      const float2 t = __half22float2(*reinterpret_cast<const __half2*>(&u[i]));
+      f[2 * i] = t.x;
+      f[2 * i + 1] = t.y;
     }
   }
 }
 
-template <int Q, typename OutT>
-__global__ void __launch_bounds__(kThreads)
-dequantize_rows_kernel(const uint8_t* __restrict__ q, const float* __restrict__ s,
-                       OutT* __restrict__ out, int N) {
+// one code, exactly as the reference writes it (any v, NaN included)
+template <int Q>
+__device__ __forceinline__ uint32_t code1(float v) {
+  if constexpr (Q == kInt8) {
+    if (v != v) return 0u;  // torch / XLA cast NaN to int8 0
+    return static_cast<uint8_t>(static_cast<int8_t>(fminf(fmaxf(rintf(v), -127.f), 127.f)));
+  } else {
+    return __nv_cvt_float_to_fp8(v, __NV_NOSAT, Q == kE4M3 ? __NV_E4M3 : __NV_E5M2);
+  }
+}
+
+// four codes packed little-endian, on a finite row (|v| <= qmax (1 + 2^-23))
+template <int Q>
+__device__ __forceinline__ uint32_t codes4_finite(float a, float b, float c, float d) {
+  if constexpr (Q == kInt8) {
+    constexpr float kMagic = 12582912.f;  // 1.5 * 2^23: the low byte is rint(v)
+    const uint32_t ab = __byte_perm(__float_as_uint(__fadd_rn(a, kMagic)),
+                                    __float_as_uint(__fadd_rn(b, kMagic)), 0x0040);
+    const uint32_t cd = __byte_perm(__float_as_uint(__fadd_rn(c, kMagic)),
+                                    __float_as_uint(__fadd_rn(d, kMagic)), 0x0040);
+    return __byte_perm(ab, cd, 0x5410);
+  } else {
+    // cvt d, hi, lo: the first operand lands in the upper byte
+    unsigned short lo, hi;
+    if constexpr (Q == kE4M3) {
+      asm("cvt.rn.satfinite.e4m3x2.f32 %0, %1, %2;" : "=h"(lo) : "f"(b), "f"(a));
+      asm("cvt.rn.satfinite.e4m3x2.f32 %0, %1, %2;" : "=h"(hi) : "f"(d), "f"(c));
+    } else {
+      asm("cvt.rn.satfinite.e5m2x2.f32 %0, %1, %2;" : "=h"(lo) : "f"(b), "f"(a));
+      asm("cvt.rn.satfinite.e5m2x2.f32 %0, %1, %2;" : "=h"(hi) : "f"(d), "f"(c));
+    }
+    return static_cast<uint32_t>(lo) | (static_cast<uint32_t>(hi) << 16);
+  }
+}
+
+template <typename InT, int Q, bool kFinite>
+__device__ __forceinline__ uint4 chunk_codes(const uint4 (&w)[Words<InT>::kN], float scale) {
+  float f[kChunk];
+  chunk_floats<InT>(w, f);
+#pragma unroll
+  for (int i = 0; i < kChunk; ++i) f[i] = __fdiv_rn(f[i], scale);
+  uint32_t out[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    if constexpr (kFinite) {
+      out[k] = codes4_finite<Q>(f[4 * k], f[4 * k + 1], f[4 * k + 2], f[4 * k + 3]);
+    } else {
+      out[k] = code1<Q>(f[4 * k]) | (code1<Q>(f[4 * k + 1]) << 8) |
+               (code1<Q>(f[4 * k + 2]) << 16) | (code1<Q>(f[4 * k + 3]) << 24);
+    }
+  }
+  return make_uint4(out[0], out[1], out[2], out[3]);
+}
+
+template <typename InT>
+__device__ __forceinline__ void load_chunk(const uint4* src, uint4 (&w)[Words<InT>::kN]) {
+#pragma unroll
+  for (int k = 0; k < Words<InT>::kN; ++k) w[k] = src[k];
+}
+
+__device__ __forceinline__ uint32_t block_max_bits(uint32_t v) {
+  __shared__ uint32_t part[kMaxThreads / 32];
+  v = __reduce_max_sync(0xffffffffu, v);
+  if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = v;
+  __syncthreads();
+  v = part[0];
+  for (int i = 1; i < static_cast<int>(blockDim.x >> 5); ++i) v = max(v, part[i]);
+  return v;
+}
+
+// one CTA of blockDim.x (a multiple of 32, <= kMaxThreads) threads a row;
+// vec: x and q are 16-byte aligned (else every element is scalar)
+template <typename InT, int Q, int CPT>
+__global__ void __launch_bounds__(kMaxThreads)
+quantize_rows_kernel(const InT* __restrict__ x, uint8_t* __restrict__ q, float* __restrict__ s,
+                     int N, float inv_qmax, int vec) {
+  constexpr int W = Words<InT>::kN;
+  const int T = blockDim.x, t = threadIdx.x;
   const long base = static_cast<long>(blockIdx.x) * N;
-  const float scale = s[blockIdx.x];
-  for (int i = threadIdx.x; i < N; i += kThreads)
-    out[base + i] = from_f<OutT>(q_to_f<Q>(q[base + i]) * scale);
+  const InT* xr = x + base;
+  uint8_t* qr = q + base;
+  // scalar head up to the first element whose global index is a multiple
+  // of 16, chunks, scalar tail
+  const int head = vec ? min(N, static_cast<int>((kChunk - (base & (kChunk - 1))) & (kChunk - 1)))
+                       : N;
+  const int nc = (N - head) / kChunk;
+  const int tail = head + nc * kChunk;
+  const uint4* xv = reinterpret_cast<const uint4*>(xr + head);
+  uint4* qv = reinterpret_cast<uint4*>(qr + head);
+
+  uint4 w[CPT][W];
+  uint32_t am = 0;
+#pragma unroll
+  for (int j = 0; j < CPT; ++j)
+    if (j * T + t < nc) load_chunk<InT>(xv + (j * T + t) * W, w[j]);
+#pragma unroll
+  for (int j = 0; j < CPT; ++j)
+    if (j * T + t < nc) am = max(am, chunk_amax<InT>(w[j]));
+  for (int c = CPT * T + t; c < nc; c += T) {  // wider than the registers hold
+    uint4 u[W];
+    load_chunk<InT>(xv + c * W, u);
+    am = max(am, chunk_amax<InT>(u));
+  }
+  for (int i = t; i < head; i += T) am = max(am, abs_bits(to_f(xr[i])));
+  for (int i = tail + t; i < N; i += T) am = max(am, abs_bits(to_f(xr[i])));
+  const float amax = __uint_as_float(block_max_bits(am));
+  const float scale = __fmul_rn(amax < 1e-12f ? 1e-12f : amax, inv_qmax);  // NaN stays NaN
+  if (t == 0) s[blockIdx.x] = scale;
+
+  if (isfinite(scale)) {
+#pragma unroll
+    for (int j = 0; j < CPT; ++j)
+      if (j * T + t < nc) qv[j * T + t] = chunk_codes<InT, Q, true>(w[j], scale);
+    for (int c = CPT * T + t; c < nc; c += T) {
+      uint4 u[W];
+      load_chunk<InT>(xv + c * W, u);
+      qv[c] = chunk_codes<InT, Q, true>(u, scale);
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < CPT; ++j)
+      if (j * T + t < nc) qv[j * T + t] = chunk_codes<InT, Q, false>(w[j], scale);
+    for (int c = CPT * T + t; c < nc; c += T) {
+      uint4 u[W];
+      load_chunk<InT>(xv + c * W, u);
+      qv[c] = chunk_codes<InT, Q, false>(u, scale);
+    }
+  }
+  for (int i = t; i < head; i += T) qr[i] = code1<Q>(__fdiv_rn(to_f(xr[i]), scale));
+  for (int i = tail + t; i < N; i += T) qr[i] = code1<Q>(__fdiv_rn(to_f(xr[i]), scale));
+}
+
+template <typename InT, int Q>
+cudaError_t quantize_q(const InT* x, uint8_t* q, float* s, int G, int N, float inv_qmax,
+                       cudaStream_t st) {
+  const int vec = (reinterpret_cast<uintptr_t>(x) % 16 == 0) &&
+                  (reinterpret_cast<uintptr_t>(q) % 16 == 0);
+  // the most chunks a row can hold; the fewest chunks a thread (CPT in 1, 2,
+  // 4, 8) that keeps the CTA at <= kMaxThreads, the rest streamed
+  const int nc = vec ? N / kChunk : 0;
+  int cpt = 1;
+  while (cpt < 8 && (nc + cpt - 1) / cpt > kMaxThreads) cpt *= 2;
+  const int want = vec ? (nc + cpt - 1) / cpt : N;
+  const int threads = std::min(kMaxThreads, std::max(32, (want + 31) / 32 * 32));
+  const int v = vec;
+  switch (cpt) {
+    case 1:
+      quantize_rows_kernel<InT, Q, 1><<<G, threads, 0, st>>>(x, q, s, N, inv_qmax, v);
+      break;
+    case 2:
+      quantize_rows_kernel<InT, Q, 2><<<G, threads, 0, st>>>(x, q, s, N, inv_qmax, v);
+      break;
+    case 4:
+      quantize_rows_kernel<InT, Q, 4><<<G, threads, 0, st>>>(x, q, s, N, inv_qmax, v);
+      break;
+    default:
+      quantize_rows_kernel<InT, Q, 8><<<G, threads, 0, st>>>(x, q, s, N, inv_qmax, v);
+      break;
+  }
+  return cudaGetLastError();
 }
 
 template <typename InT>
@@ -117,18 +336,27 @@ cudaError_t quantize_in(const void* x, void* q, float* s, int G, int N, int qfmt
   uint8_t* qo = static_cast<uint8_t*>(q);
   switch (qfmt) {
     case kInt8:
-      quantize_rows_kernel<InT, kInt8><<<G, kThreads, 0, st>>>(xi, qo, s, N, inv_qmax);
-      break;
+      return quantize_q<InT, kInt8>(xi, qo, s, G, N, inv_qmax, st);
     case kE4M3:
-      quantize_rows_kernel<InT, kE4M3><<<G, kThreads, 0, st>>>(xi, qo, s, N, inv_qmax);
-      break;
+      return quantize_q<InT, kE4M3>(xi, qo, s, G, N, inv_qmax, st);
     case kE5M2:
-      quantize_rows_kernel<InT, kE5M2><<<G, kThreads, 0, st>>>(xi, qo, s, N, inv_qmax);
-      break;
+      return quantize_q<InT, kE5M2>(xi, qo, s, G, N, inv_qmax, st);
     default:
       return cudaErrorInvalidValue;
   }
-  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// dequantize (K6b): one CTA of 256 threads a row, scalar loads and stores
+// ---------------------------------------------------------------------------
+template <int Q, typename OutT>
+__global__ void __launch_bounds__(kThreads)
+dequantize_rows_kernel(const uint8_t* __restrict__ q, const float* __restrict__ s,
+                       OutT* __restrict__ out, int N) {
+  const long base = static_cast<long>(blockIdx.x) * N;
+  const float scale = s[blockIdx.x];
+  for (int i = threadIdx.x; i < N; i += kThreads)
+    out[base + i] = from_f<OutT>(q_to_f<Q>(q[base + i]) * scale);
 }
 
 template <int Q>

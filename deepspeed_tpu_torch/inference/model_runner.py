@@ -116,9 +116,23 @@ def _embed(params, cfg, tokens, positions):
 
 
 def _check_family(cfg: TransformerConfig) -> None:
-    if cfg.position == "alibi" or cfg.parallel_block or cfg.moe_num_experts:
+    """The reference's v2 engine refuses ALiBi and parallel-block models by
+    design and serves them through its dense v1 engine ``init_inference``
+    (ROADMAP queue 1 item 9 in the port); MoE is a port gap (item 7)."""
+    if cfg.position == "alibi":
         raise NotImplementedError(
-            "alibi / parallel-block / MoE families are not ported yet")
+            "InferenceEngineV2 cannot serve position='alibi' models: the paged decode "
+            "kernel has no additive positional-bias operand — use init_inference (the "
+            "dense v1 engine, which the port adds with ROADMAP queue 1 item 9) instead")
+    if cfg.parallel_block:
+        raise NotImplementedError(
+            "InferenceEngineV2 cannot serve parallel_block models (falcon/gptj/phi "
+            "layout): the runner wires sequential attn_norm/mlp_norm blocks — use "
+            "init_inference (the dense v1 engine, which the port adds with ROADMAP "
+            "queue 1 item 9) instead")
+    if cfg.moe_num_experts:
+        raise NotImplementedError(
+            "MoE models are not ported to the serving engine yet (ROADMAP queue 1 item 7)")
 
 
 def _block(lw, x, cfg, rot, attend, ctx):

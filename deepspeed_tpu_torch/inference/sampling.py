@@ -116,6 +116,22 @@ def finite_guard(logits: torch.Tensor, sampled: torch.Tensor) -> torch.Tensor:
     return torch.where(ok, sampled, torch.full_like(sampled, -1))
 
 
+def top_p_filter(logits: torch.Tensor, top_p: float) -> torch.Tensor:
+    """Mask (to -inf) every logit of a row [B, v] outside the smallest
+    prefix of its descending order whose cumulative probability reaches
+    ``top_p``.  A row whose fp32 cumulative sum never reaches ``top_p``
+    masks nothing, as JAX's out-of-range gather does: its cutoff index (v)
+    never reaches the gather, which on CUDA would be a device-side assert
+    that fails every request of the engine."""
+    v = logits.shape[-1]
+    sorted_logits = torch.sort(logits, dim=-1, descending=True).values
+    cum = torch.cumsum(torch.softmax(sorted_logits, dim=-1), dim=-1)
+    cutoff_idx = (cum < top_p).sum(dim=-1, keepdim=True)
+    cutoff = torch.gather(sorted_logits, -1, cutoff_idx.clamp(max=v - 1))
+    cutoff = torch.where(cutoff_idx < v, cutoff, float("-inf"))
+    return torch.where(logits < cutoff, float("-inf"), logits)
+
+
 def sample(logits: torch.Tensor, params: SamplingParams,
            generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """logits [B, v] (fp32) -> token ids [B] int32."""
@@ -127,12 +143,7 @@ def sample(logits: torch.Tensor, params: SamplingParams,
         kth = torch.topk(logits, k, dim=-1).values[:, -1:]
         logits = torch.where(logits < kth, float("-inf"), logits)
     if params.top_p < 1.0:
-        sorted_logits = torch.sort(logits, dim=-1, descending=True).values
-        cum = torch.cumsum(torch.softmax(sorted_logits, dim=-1), dim=-1)
-        # keep the smallest prefix with cumulative probability >= top_p
-        cutoff_idx = (cum < params.top_p).sum(dim=-1, keepdim=True)
-        cutoff = torch.gather(sorted_logits, -1, cutoff_idx)
-        logits = torch.where(logits < cutoff, float("-inf"), logits)
+        logits = top_p_filter(logits, params.top_p)
     probs = torch.softmax(logits, dim=-1)
     # a non-finite row would make multinomial raise; it draws from uniform
     # weights instead and finite_guard turns its sample into the sentinel

@@ -18,23 +18,32 @@ same computation in the same order:
 - ``_apply_grads`` (JAX :530-573): unscale, fp16 overflow check, global
   norm, clip, optimizer update, overflow-skip select and loss-scale update,
   all on the device;
-- the step counter, the learning rate (a function of the device step), the
-  loss scale and the step metrics are device tensors: the loop syncs with
-  the host only at ``steps_per_print`` boundaries (``async_metrics``) and
-  in ``get_last_loss`` / ``get_global_grad_norm``.
+- the step counter (``device_step``), the learning rate (a function of
+  it), the loss-scale state (``loss_scale_state``) and the step metrics are
+  device tensors: the loop syncs with the host only at ``steps_per_print``
+  boundaries (``async_metrics``) and in ``get_last_loss`` /
+  ``get_global_grad_norm``.
 
 ``train_on_loader`` overlaps the host-to-device copy of batch k+1 with step
 k (``runtime/prefetch.py``).  On one GPU the ZeRO stage changes no number.
+
+The reference's forward / backward / step API (JAX :1133-1346) runs the
+same step in pieces: ``forward`` computes one micro-batch's loss and keeps
+its autograd graph, ``backward`` adds its scaled gradient to the flat
+gradient buffer, and ``step`` applies the sum at the accumulation boundary
+through ``_apply_grads`` (K8 on the card), as ``train_batch`` does.
 """
 from __future__ import annotations
 
 import logging
+from contextlib import contextmanager
 from typing import Any, Callable, Dict, List, NamedTuple, Optional
 
 import torch
 
 from ..config.config import Config
 from ..ops.optimizers import build_optimizer
+from ..utils.memory import memory_breakdown_report
 from . import precision
 from .lr_schedules import LRScheduler, get_lr_schedule_fn
 from .prefetch import DevicePrefetcher, MetricsBuffer, StagedBatch, host_scalar, stage
@@ -114,12 +123,15 @@ class DeepSpeedTorchEngine:
 
     Contract: ``loss_fn(params, batch, rng) -> scalar loss``, a function of
     the compute-type parameters (``models.transformer.CausalLM.loss_fn``);
-    ``rng`` is the engine's ``torch.Generator``."""
+    ``rng`` is the engine's ``torch.Generator``; ``eval_fn`` (same
+    contract, default ``loss_fn``) is what ``eval_batch`` runs."""
 
-    def __init__(self, loss_fn: Callable, params, config: Config, device: torch.device):
+    def __init__(self, loss_fn: Callable, params, config: Config, device: torch.device,
+                 eval_fn: Optional[Callable] = None):
         self.config = config
         self.device = device
         self.loss_fn = loss_fn
+        self.eval_fn = eval_fn
         self.model = None  # attached by initialize()
         self.lr_schedule_fn = self._build_lr_schedule()
         self.lr_scheduler = LRScheduler(self.lr_schedule_fn)
@@ -131,14 +143,19 @@ class DeepSpeedTorchEngine:
         self._params_list = self._masters.leaves
         self.opt_state = self.optimizer.init([self._masters.flat])
         fp16 = config.fp16
-        self.loss_scale = precision.init_loss_scale(
+        self.loss_scale_state = precision.init_loss_scale(
             dynamic=fp16.enabled and fp16.loss_scale == 0,
             initial_scale_power=fp16.initial_scale_power,
             static_scale=fp16.loss_scale if fp16.enabled else 1.0,
             hysteresis=fp16.hysteresis, device=device)
-        self.step = torch.zeros((), dtype=torch.int32, device=device)
+        self.device_step = torch.zeros((), dtype=torch.int32, device=device)
         self.global_steps = 0
         self.skipped_steps = 0
+        # the forward / backward / step API's bookkeeping (JAX :365-368)
+        self._pending: Optional[torch.Tensor] = None  # forward's loss, graph attached
+        self._micro_steps = 0
+        self._grads_pending = False  # backward() added to the gradient buffer
+        self._inside_no_sync = False
         self._last_metrics: Optional[StepMetrics] = None
         self._metrics_buffer = MetricsBuffer()
         self._h2d_stream = None  # the prefetcher's side stream, made at first use
@@ -157,11 +174,16 @@ class DeepSpeedTorchEngine:
     # ------------------------------------------------------------------
     # the step
     # ------------------------------------------------------------------
+    def _micro_loss(self, micro: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """Loss of one micro-batch through the compute-type cast of the
+        masters, its autograd graph attached."""
+        cp = precision.cast_floating(self.params, self.compute_dtype)
+        return self.loss_fn(cp, micro, self.generator)
+
     def _micro_backward(self, micro: Dict[str, torch.Tensor], scale) -> torch.Tensor:
         """Loss of one micro-batch; ``(loss * scale).backward()`` adds its
         gradient, through the compute-type cast, to the masters' ``.grad``."""
-        cp = precision.cast_floating(self.params, self.compute_dtype)
-        loss = self.loss_fn(cp, micro, self.generator)
+        loss = self._micro_loss(micro)
         (loss * scale if scale is not None else loss).backward()
         return loss.detach().float()
 
@@ -173,18 +195,18 @@ class DeepSpeedTorchEngine:
         grad_norm = precision.global_grad_norm([grad])
         if cfg.gradient_clipping and cfg.gradient_clipping > 0:
             grad.mul_(precision.clip_factor(grad_norm, cfg.gradient_clipping))
-        lr = self.lr_schedule_fn(self.step)
+        lr = self.lr_schedule_fn(self.device_step)
         self.optimizer.step([self._masters.flat], [grad], self.opt_state, lr, finite)
         grad.zero_()
         if fp16 and cfg.fp16.loss_scale == 0:
-            self.loss_scale = precision.update_loss_scale(
-                self.loss_scale, finite, loss_scale_window=cfg.fp16.loss_scale_window,
+            self.loss_scale_state = precision.update_loss_scale(
+                self.loss_scale_state, finite, loss_scale_window=cfg.fp16.loss_scale_window,
                 min_scale=cfg.fp16.min_loss_scale, init_hysteresis=cfg.fp16.hysteresis)
         if finite is None:
-            self.step += 1
+            self.device_step += 1
             skipped = torch.zeros((), dtype=torch.bool, device=self.device)
         else:
-            self.step += finite.to(torch.int32)
+            self.device_step += finite.to(torch.int32)
             skipped = ~finite
         return grad_norm, lr, skipped
 
@@ -204,13 +226,13 @@ class DeepSpeedTorchEngine:
         cfg = self.config
         gas = cfg.gradient_accumulation_steps
         fp16 = cfg.fp16.enabled
-        scale = self.loss_scale.scale if fp16 else None
+        scale = self.loss_scale_state.scale if fp16 else None
         loss_sum = torch.zeros((), dtype=torch.float32, device=self.device)
         for i in range(gas):
             loss_sum += self._micro_backward({k: v[i] for k, v in batch.items()}, scale)
         divisor = scale * gas if fp16 else float(gas)
         grad_norm, lr, skipped = self._apply_grads(divisor)
-        loss_scale = self.loss_scale.scale if fp16 else torch.ones((), device=self.device)
+        loss_scale = self.loss_scale_state.scale if fp16 else torch.ones((), device=self.device)
         metrics = StepMetrics(loss_sum / gas, grad_norm, lr, loss_scale, skipped)
         self._last_metrics = metrics
         self.global_steps += 1
@@ -230,6 +252,89 @@ class DeepSpeedTorchEngine:
             if step % self.config.steps_per_print == 0:
                 logger.info("step=%d loss=%.4f lr=%.3e grad_norm=%.3f", step, m.loss, m.lr,
                             m.grad_norm)
+
+    # ------------------------------------------------------------------
+    # the reference's forward / backward / step API (JAX :1133-1283)
+    # ------------------------------------------------------------------
+    def forward(self, micro_batch) -> torch.Tensor:
+        """One micro-batch's loss (``[micro, ...]`` arrays), through the
+        compute-type cast of the masters as ``_micro_backward`` computes it;
+        its autograd graph waits for ``backward``.  A second ``forward``
+        before ``backward`` replaces the pending one.  Returns the loss as a
+        detached fp32 device scalar."""
+        self._pending = self._micro_loss(stage(micro_batch, self.device).batch)
+        return self._pending.detach().float()
+
+    __call__ = forward
+
+    def backward(self, loss=None) -> None:
+        """Add the pending micro-batch's gradient, scaled by the fp16 loss
+        scale (or 1), to the flat fp32 gradient buffer and count a micro
+        step.  ``loss`` is accepted for the reference's signature; the
+        gradient is the pending ``forward``'s."""
+        assert self._pending is not None, "backward() without a prior forward()"
+        loss, self._pending = self._pending, None
+        (loss * self.loss_scale_state.scale if self.config.fp16.enabled else loss).backward()
+        self._micro_steps += 1
+        self._grads_pending = True
+
+    def is_gradient_accumulation_boundary(self) -> bool:
+        """Whether ``step`` applies the gradients now: every
+        ``gradient_accumulation_steps`` micro steps, never inside
+        ``no_sync``."""
+        if self._inside_no_sync:
+            return False
+        return self._micro_steps % self.config.gradient_accumulation_steps == 0
+
+    @contextmanager
+    def no_sync(self):
+        """The reference's contract: illegal at ZeRO stage >= 2 (there the
+        partitioning is the reduction), not re-entrant, ``step()`` inside it
+        raises, and no micro step inside it is a boundary.  On one device
+        there is no reduction to defer, so it changes no number."""
+        stage_ = self.config.zero_optimization.stage
+        if stage_ >= 2:
+            raise RuntimeError(
+                f"no_sync is incompatible with the gradient partitioning of ZeRO stage {stage_}")
+        if self._inside_no_sync:
+            raise RuntimeError("no_sync context manager reentry is unsupported")
+        self._inside_no_sync = True
+        try:
+            yield
+        finally:
+            self._inside_no_sync = False
+
+    def step(self) -> None:
+        """At the accumulation boundary, apply the summed gradients (divided
+        by scale x GAS) as ``train_batch`` does, count the step (and an fp16
+        overflow skip: a host read) and step the LR scheduler; off the
+        boundary, nothing."""
+        if self._inside_no_sync:
+            raise RuntimeError("it is illegal to call engine.step() within no_sync")
+        if not self.is_gradient_accumulation_boundary():
+            return
+        if not self._grads_pending:
+            raise RuntimeError("step() at the accumulation boundary without a backward() "
+                               "since the last step")
+        gas = self.config.gradient_accumulation_steps
+        fp16 = self.config.fp16.enabled
+        _, _, skipped = self._apply_grads(self.loss_scale_state.scale * gas if fp16
+                                          else float(gas))
+        self._grads_pending = False
+        self.global_steps += 1
+        if fp16 and bool(skipped):
+            self.skipped_steps += 1
+        self.lr_scheduler.step()
+
+    def eval_batch(self, batch) -> torch.Tensor:
+        """``eval_fn`` (or ``loss_fn``) of the compute-type parameters on one
+        batch, without gradients; settles the deferred step metrics first."""
+        self._flush_step_metrics()
+        fn = self.eval_fn or self.loss_fn
+        b = stage(batch, self.device).batch
+        with torch.no_grad():
+            cp = precision.cast_floating(self.params, self.compute_dtype)
+            return fn(cp, b, self.generator)
 
     # ------------------------------------------------------------------
     # the pipelined loop
@@ -295,3 +400,29 @@ class DeepSpeedTorchEngine:
 
     def get_lr(self) -> List[float]:
         return self.lr_scheduler.get_last_lr()
+
+    @property
+    def loss_scale(self) -> float:
+        """The current loss scale (1.0 without fp16); a host read."""
+        return host_scalar(self.loss_scale_state.scale)
+
+    def gradient_accumulation_steps(self) -> int:
+        return self.config.gradient_accumulation_steps
+
+    def train_micro_batch_size_per_gpu(self) -> int:
+        return self.config.train_micro_batch_size_per_gpu
+
+    @property
+    def dp_world_size(self) -> int:
+        return self.config.dp_world_size
+
+    def module_params(self):
+        """The parameters in the compute type (a detached copy of the
+        masters' tree; the masters themselves when that is fp32)."""
+        with torch.no_grad():
+            return precision.cast_floating(self.params, self.compute_dtype)
+
+    def memory_breakdown(self) -> Dict[str, Any]:
+        """Bytes of the fp32 masters and the optimizer state, and a device /
+        host memory snapshot (JAX ``memory_breakdown_report``)."""
+        return memory_breakdown_report(self)

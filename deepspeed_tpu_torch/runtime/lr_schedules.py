@@ -137,3 +137,9 @@ class LRScheduler:
 
     def get_last_lr(self) -> List[float]:
         return [float(self.schedule_fn(self.last_step))]
+
+    def state_dict(self) -> Dict[str, Any]:
+        return {"last_step": self.last_step}
+
+    def load_state_dict(self, sd: Dict[str, Any]) -> None:
+        self.last_step = int(sd["last_step"])

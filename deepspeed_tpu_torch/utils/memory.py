@@ -1,0 +1,71 @@
+"""Memory reporting — counterpart of ``deepspeed_tpu/utils/memory.py``
+(``memory_stats``, ``memory_breakdown_report``), the reference's
+``see_memory_usage`` analogue.
+
+The device figures come from PyTorch's caching allocator
+(``torch.cuda.memory_stats``: bytes allocated now and at peak) and the
+card's total memory; a CPU device reports zeros there, as the JAX version
+does on a backend without allocator stats.  The host figures are the
+process's RSS and peak RSS from procfs.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+
+
+def _host_memory() -> Dict[str, float]:
+    """VmRSS / VmHWM (peak RSS) in GiB from procfs; zeros off Linux."""
+    out = {"host_rss_gb": 0.0, "host_peak_rss_gb": 0.0}
+    try:
+        with open("/proc/self/status") as fh:
+            for line in fh:
+                if line.startswith("VmRSS:"):
+                    out["host_rss_gb"] = int(line.split()[1]) / 1024 ** 2
+                elif line.startswith("VmHWM:"):
+                    out["host_peak_rss_gb"] = int(line.split()[1]) / 1024 ** 2
+    except OSError:
+        pass
+    return out
+
+
+def memory_stats(device=None) -> Dict[str, Any]:
+    """Device and host memory snapshot: ``device_bytes_in_use``,
+    ``device_peak_bytes``, ``device_bytes_limit`` (the card's, zeros for a
+    CPU device or none at all), ``host_rss_gb``, ``host_peak_rss_gb``."""
+    stats = {"device_bytes_in_use": 0, "device_peak_bytes": 0, "device_bytes_limit": 0}
+    if device is None and torch.cuda.is_available():
+        device = torch.device("cuda", torch.cuda.current_device())
+    dev = None if device is None else torch.device(device)
+    if dev is not None and dev.type == "cuda":
+        raw = torch.cuda.memory_stats(dev)
+        stats["device_bytes_in_use"] = int(raw.get("allocated_bytes.all.current", 0))
+        stats["device_peak_bytes"] = int(raw.get("allocated_bytes.all.peak", 0))
+        stats["device_bytes_limit"] = int(torch.cuda.get_device_properties(dev).total_memory)
+    stats.update(_host_memory())
+    return stats
+
+
+def _tree_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_tree_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(_tree_bytes(v) for v in tree)
+    if torch.is_tensor(tree):
+        return tree.numel() * tree.element_size()
+    return 0
+
+
+def memory_breakdown_report(engine) -> Dict[str, Any]:
+    """Bytes by state component of a training engine, exact from its
+    buffers: the fp32 masters (one flat buffer), the optimizer state (its
+    flat moment buffers and step count), their total, and a
+    ``memory_stats`` snapshot of the engine's device."""
+    report = {
+        "master_params_bytes": _tree_bytes(engine._masters.flat),
+        "opt_state_bytes": _tree_bytes(engine.opt_state),
+        "snapshot": memory_stats(engine.device),
+    }
+    report["state_total_bytes"] = report["master_params_bytes"] + report["opt_state_bytes"]
+    return report

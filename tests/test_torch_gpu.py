@@ -15,8 +15,12 @@ round only their bf16 outputs), each launched once per call, also at
 head_dim 256 and a query group of 71; the block-sparse K7f / K7b the same
 way, also at head_dim 256 and a group of 71.  Quantized
 serving: K4 / K5 within ``chip_smoke.QMM_TOL`` relative Frobenius error,
-K6 byte-identical, and a call the kernels refuse raises without reaching
-a plain body.  This file imports neither JAX nor the JAX package, so it
+K6 byte-identical (also on ``chip_smoke.row_quant_inputs``: inf, NaN,
+subnormal and outlier rows, ragged and unaligned shapes, fp32 / fp16), and
+a call the kernels refuse raises without reaching a plain body.  The
+reference API: top-p sampling on CUDA over rows whose cumulative sum never
+reaches top_p (``chip_smoke.sampling_phase``), and the training engine's
+forward / backward / step against ``train_batch`` on the card.  This file imports neither JAX nor the JAX package, so it
 runs where only PyTorch is installed::
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
@@ -359,6 +363,72 @@ def test_row_quantizers_match_plain_bytes():
         assert torch.equal(q.cpu().view(torch.uint8), qp.view(torch.uint8))
         assert torch.equal(s.cpu(), sp)
         assert torch.equal(d.cpu(), QK.dequantize_rows_plain(qp, sp, torch.bfloat16))
+
+
+@pytest.mark.gpu
+def test_row_quantizers_match_plain_on_edge_rows():
+    """K6a/b/c against the plain version on the card, bytes, scales (two
+    NaNs agree) and dequantized bits identical, on every
+    ``chip_smoke.row_quant_inputs`` case and code format."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    QK, _, _ = _quant_setup()
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    for label, x in chip_smoke.row_quant_inputs(torch, gen):
+        for dtype in chip_smoke.K6_DTYPES:
+            row = chip_smoke.row_quant_agreement(torch, QK, x, dtype)
+            assert (row["q_bytes_differing"], row["scales_differing"],
+                    row["dequantized_bits_differing"]) == (0, 0, 0), (label, dtype, row)
+
+
+@pytest.mark.gpu
+def test_top_p_sampling_past_the_vocab_on_cuda():
+    """ROADMAP queue 3 fault 1 on the card: ``sample`` with top-p over rows
+    whose fp32 cumulative probability never reaches top_p draws a kept
+    token in every row and raises no device-side assert."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    res = chip_smoke.sampling_phase(torch, "test")
+    assert any(c["rows_cutoff_past_vocab"] for c in res["cases"].values())
+
+
+@pytest.mark.gpu
+def test_forward_backward_step_equals_train_batch_on_the_card():
+    """The reference API on the card (bf16, GAS 2, two steps) against
+    ``train_batch`` from the same weights: the step losses within
+    ``chip_smoke.SHIM_LOSS_RTOL``, ``step()`` a no-op off the boundary,
+    and the launches of ``train_batch``: the flash kernels once per layer
+    and micro-batch, K8 once a step."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    import numpy as np
+
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.models.presets import get_preset
+    from deepspeed_tpu_torch.models.transformer import CausalLM, init_params
+
+    cfg = get_preset("tiny", hidden_size=256, intermediate_size=512, attn_impl="flash",
+                     remat="selective")
+    params = init_params(cfg, seed=0, device="cpu", dtype=torch.float32)
+    batch = {"input_ids": np.random.default_rng(0).integers(0, 256, (2, 2, 97))}
+    conf = {"train_micro_batch_size_per_gpu": 2, "gradient_accumulation_steps": 2,
+            "optimizer": {"type": "adamw", "params": {"lr": 1e-3}}}
+    fused, _, _, _ = dst.initialize(model=CausalLM(cfg), params=params, config=conf)
+    shim, _, _, _ = dst.initialize(model=CausalLM(cfg), params=params, config=conf)
+    want = [float(fused.train_batch(batch)) for _ in range(2)]
+    K.reset_launches()
+    got = []
+    for _ in range(2):
+        losses = []
+        for i in range(2):
+            losses.append(float(shim.forward({"input_ids": batch["input_ids"][i]})))
+            shim.backward()
+            shim.step()
+            assert shim.global_steps == len(got) + i  # a step only at the boundary
+        got.append(sum(losses) / 2)
+    chip_smoke.check_train_launches("test", dict(K.LAUNCHES), cfg.num_layers, 2, 2, False)
+    for g, w in zip(got, want):
+        assert abs(g - w) <= chip_smoke.SHIM_LOSS_RTOL * abs(w), (got, want)
 
 
 @pytest.mark.gpu

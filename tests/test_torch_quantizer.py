@@ -8,7 +8,8 @@ Exact: the q bytes are identical, the scales equal bit for bit, and so is
 the dequantized tensor, for int8, e4m3fn and e5m2, fp32 and bf16 inputs,
 groups of the trailing dimension or a smaller group size, a zero row, and
 a group size that does not divide (the single-group fallback, which
-warns).
+warns); on rows with an inf, a NaN or a subnormal amax too, where e5m2's
+NaN codes are compared as NaN (ml_dtypes and torch encode them apart).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -108,6 +109,38 @@ def test_row_kernels_plain_versions_match_pallas_directly():
         tq8, ts8 = tqk.quantize_fp8(torch.from_numpy(x), td8)
         np.testing.assert_array_equal(_bytes(tq8), _bytes(jq8))
         np.testing.assert_array_equal(ts8.numpy(), np.asarray(js8))
+
+
+def test_rows_with_inf_nan_and_subnormals_match_pallas():
+    """The row semantics the CUDA kernel is held to on the card (its plain
+    version) against the Pallas kernels on rows with an inf, a NaN, both,
+    and a subnormal amax: a NaN anywhere makes the scale NaN (max
+    propagates it), x / s is then NaN, which int8 takes to 0 and fp8 to
+    NaN; an inf makes the scale inf and every finite x / s a signed 0.
+    int8 and e4m3 bytes are identical; e5m2 NaN codes are NaN in both
+    packages but ml_dtypes writes them 0x7e / 0xfe where torch writes 0x7f
+    / 0xff, so e5m2 is compared as NaN positions plus the finite bytes."""
+    x = _x((8, 256), 11)
+    x[2, 5] = np.inf
+    x[3, 7] = np.nan
+    x[4, 3], x[4, 4] = -np.inf, np.nan
+    x[5] *= 1e-39
+    jq, js = jqk.quantize_int8(jnp.asarray(x))
+    tq, ts = tqk.quantize_int8(torch.from_numpy(x))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))  # NaN equals NaN here
+    assert np.isnan(ts.numpy()[[3, 4]]).all() and np.isinf(ts.numpy()[2])
+    np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
+    jq8, js8 = jqk.quantize_fp8(jnp.asarray(x), dtype=jnp.float8_e4m3fn)
+    tq8, ts8 = tqk.quantize_fp8(torch.from_numpy(x), torch.float8_e4m3fn)
+    np.testing.assert_array_equal(_bytes(tq8), _bytes(jq8))
+    np.testing.assert_array_equal(ts8.numpy(), np.asarray(js8))
+    jq8, js8 = jqk.quantize_fp8(jnp.asarray(x), dtype=jnp.float8_e5m2)
+    tq8, ts8 = tqk.quantize_fp8(torch.from_numpy(x), torch.float8_e5m2)
+    jf, tf = np.asarray(jq8, np.float32), tq8.float().numpy()
+    np.testing.assert_array_equal(np.isnan(tf), np.isnan(jf))
+    finite = ~np.isnan(jf)
+    np.testing.assert_array_equal(_bytes(tq8)[finite], _bytes(jq8)[finite])
+    np.testing.assert_array_equal(ts8.numpy(), np.asarray(js8))
 
 
 def test_row_kernel_wrappers_refuse_what_the_kernel_does_not_take():

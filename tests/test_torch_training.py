@@ -284,7 +284,7 @@ def test_engine_trajectory_matches_jax_engine():
     for key in fj:
         np.testing.assert_allclose(ft[key].detach().numpy(), fj[key], err_msg=key,
                                    **ENGINE_TOL)
-    assert int(engine.step) == 5 and engine.global_steps == 5
+    assert int(engine.device_step) == 5 and engine.global_steps == 5
 
 
 # ---------------------------------------------------------------------------
@@ -446,7 +446,7 @@ def test_fp16_engine_skips_an_overflowing_step():
     before = {k: v.detach().clone() for k, v in _flat(engine.params).items()}
     engine.train_batch(_batches(1)[0])
     assert engine.get_last_loss() is not None and engine.skipped_steps == 1
-    assert int(engine.step) == 0 and float(engine.loss_scale.scale) == 2.0 ** 126
+    assert int(engine.device_step) == 0 and engine.loss_scale == 2.0 ** 126
     for key, p in _flat(engine.params).items():
         assert torch.equal(p, before[key]), key
 
