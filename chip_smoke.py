@@ -55,6 +55,28 @@ Phases, each raising on failure (so the exit code is non-zero):
                decode kernels must have launched layers x dispatches times,
                and a few sequences are replayed through the port's own
                model runner on the CPU in fp32 (near-argmax check);
+   megastep -- the same engine cell as ``bench.py:1071-1110`` runs it:
+               the 64 prompts through ``put``, 8 per-tick ``step``s, then
+               ``step_n(64)``, every tick a replay of the tick's CUDA graph
+               (captured by the warm-up's ``step_n(2)``): wall ms per token
+               of the burst and of the per-tick ticks, a profiled
+               ``step_n(16)`` (device ms per tick, idle share, host-to-device
+               and device-to-host copies per burst), launches per replay;
+               one burst of 64 ticks, K2 24 times a replayed tick, 4 streams
+               near-argmax on the CPU, 0 blocks after ``close()``; the token
+               match with the engine phase's per-tick streams reported;
+   megastep_stops -- one burst of 16 ticks whose rows end mid-burst at a
+               stop token, an emission cap and ``max_seq_len``, against a
+               free burst: every run ends exactly there, the descriptors'
+               lengths and block lists and the block-table rows agree, no
+               leak;
+   megastep_serve -- ``bench.py --serving --megastep`` (TPU branch,
+               uncut): 16 requests of a 512-token system prompt + a 64-token
+               suffix, 48 greedy tokens, Poisson(2) arrivals, 8 slots, 256
+               blocks, ``decode_megastep`` 1 and 8 on fresh engines in turns
+               (1, 8, 8, 1): effective tokens/s, decode tick p50, host syncs
+               per token; 16/16 finish, bursts only at 8, no leak, 4 fused
+               streams near-argmax on the CPU;
 4. scheduler -- the shared-prefix workload through ``engine.scheduler``
                (16 requests of a 512-token system prompt + 64-token suffix,
                32 new tokens each, prefix caching, chunked prefill); the
@@ -74,7 +96,9 @@ Phases, each raising on failure (so the exit code is non-zero):
                workload and a 1,100-token prompt through the scheduler,
                replayed on the CPU in fp32 on one pool (near-argmax); the
                partial kernels launched layers x S times per decode tick
-               and per context pack, K2 and K3 never;
+               and per context pack, K2 and K3 never; then the prompts
+               through ``put`` and one ``step_n(8)`` burst at each S, the
+               decode partial layers x S times a replayed tick, near-argmax;
    longctx  -- the workload of ``bench.py --serving --longctx`` (TPU
                branch, uncut): 8 requests of a 256-token system prompt +
                a 64-token suffix, 32 greedy tokens, Poisson(2) arrivals,
@@ -87,8 +111,9 @@ Phases, each raising on failure (so the exit code is non-zero):
    gpt2_serve -- ``gpt2_small`` at full depth (12 layers, 12 heads of 64,
                MHA), bf16: the engine phase's shape (K1f and K2 at head_dim
                64 launched 12 x packs and 12 x ticks, a one-tick profile),
-               then the spec workload with speculation on; near-argmax
-               replays of both;
+               its burst (the megastep phase's shape with ``step_n(16)``,
+               K2 at head_dim 64 12 times a replayed tick), then the spec
+               workload with speculation on; near-argmax replays of all;
    Block-sparse attention (K7f's o and lse, K7b's dq and dk/dv;
                ``SPARSE_CASES``) at b 2, s 4096, hq 8 / hkv 2, hd 128 under
                fixed(128, 4, 1) and bigbird(128), a packed batch with
@@ -145,7 +170,10 @@ Phases, each raising on failure (so the exit code is non-zero):
                ``step``s) in bf16 (the anchor), int8, fp8 and fp6 from one
                bf16 tree on the card: weight bytes, ms per tick, tokens/s,
                effective weight GB/s, prefill tokens/s, a one-tick profile
-               and idle share, launches per forward (K4 / K5: 225);
+               and idle share, launches per forward (K4 / K5: 225); then a
+               ``step_n(32)`` burst per format (K4 / K5 225 and K2 32 times
+               a replayed tick): wall and device ms per token beside the
+               per-tick ones;
 9. quantizer -- the quantizer API (K6) on layer 0's w_up of that tree;
 10. timings -- per kernel: kernel ms, plain ms, one PyTorch library call's
                ms where one computes the same function, and the card's
@@ -1179,6 +1207,7 @@ def engine_phase(torch, K, gpu, params, cfg, model="llama3_proxy_410m", phase="e
                profile_decode_kernel_ms=k2_ms if evs else None,
                profile_top=profile_rows, gpu=gpu)
     emit(res)
+    res["streams"] = gen  # the per-tick twin of the burst phase (not printed)
     return res
 
 
@@ -1264,6 +1293,293 @@ def scheduler_phase(torch, K, gpu, params, cfg):
                launches=launches,
                launches_per_forward={"ctx_attention": launches["ctx_attention"] / ctx_dispatches},
                close=audit, gpu=gpu)
+    emit(res)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# megastep: device-resident decode bursts (step_n, the scheduler's megastep)
+# ---------------------------------------------------------------------------
+GREEDY = (0.0, 0, 1.0)  # the greedy sampling triple, a burst graph's key
+BURST_REPLAYS = (1, 2, 3, 64)  # the uids of the streams replayed on the CPU
+
+
+def burst_profile(torch, eng, samp, n):
+    """One ``step_n(n)`` burst (its graph captured already) under the
+    profiler: wall and device ms per tick, idle share, host-to-device and
+    device-to-host copies in the burst, and the top device rows."""
+    copies = {}
+    wall_ms, dev_ms, rows = _device_profile(torch, lambda: eng.step_n(n, samp), top=8,
+                                            htod=copies)
+    return dict(ticks=n, wall_ms_per_tick=wall_ms / n,
+                device_ms_per_tick=None if dev_ms is None else dev_ms / n,
+                idle_share=None if dev_ms is None else 1.0 - dev_ms / wall_ms,
+                htod_copies_per_burst=copies["copies"], dtoh_copies_per_burst=copies["dtoh"],
+                top=rows)
+
+
+def burst_graph_launches(eng):
+    """The launches recorded in the engine's greedy burst graph (one tick)."""
+    return dict(eng._burst.graphs[GREEDY].launches)
+
+
+def burst_engine_phase(torch, K, gpu, params, cfg, tick_streams, model, phase, n):
+    """``bench.py:1071-1110``'s engine cell with the burst: batch 64, 2,048
+    blocks of 32, 64 prompts of 128 through ``put`` (the engine phase's
+    prompts), 8 per-tick ``step``s, then ``step_n(n)``, every tick of it a
+    replay of the greedy tick's graph (captured by the warm-up's
+    ``step_n(2)``); then a profiled ``step_n(16)``.  Gates: one burst of
+    ``n`` ticks, the decode kernel layers x ``n`` times (layers per
+    replay), ``BURST_REPLAYS`` streams near-argmax against the port on the
+    CPU in fp32, 0 blocks in use after ``close()``.  The token match with
+    the engine phase's per-tick streams (``tick_streams``) is reported,
+    not gated (bf16 near-ties)."""
+    import numpy as np
+    from deepspeed_tpu_torch.inference.engine_v2 import InferenceEngineV2
+    from deepspeed_tpu_torch.inference.sampling import SamplingParams
+
+    B, prompt_len, per_tick = 64, 128, 8
+    eng = InferenceEngineV2(params, cfg, max_seqs=B, num_blocks=2048, block_size=32,
+                            prefill_budget=2048)
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(1, cfg.vocab_size, prompt_len).tolist() for _ in range(B)]
+    samp = SamplingParams(temperature=0.0, max_new_tokens=per_tick + n + 8)
+    # warm-up (bench.py:1089-1096): a full pack, a tick and a burst, which
+    # captures the greedy tick, on throwaway uids
+    warm = list(range(10_001, 10_017))
+    eng.put(warm, [prompts[0]] * len(warm), samp)
+    eng.step(samp)
+    eng.step_n(2, samp)
+    eng.flush(warm)
+    torch.cuda.synchronize()
+    uids = list(range(1, B + 1))
+    first = eng.put(uids, prompts, samp)
+    gen = {u: [first[u]] for u in uids}
+    tick_ms = []
+    for _ in range(per_tick):
+        t0 = time.perf_counter()
+        out = eng.step(samp)  # fetches the sampled tokens: synced
+        tick_ms.append(1e3 * (time.perf_counter() - t0))
+        for u, tok in out.items():
+            gen[u].append(tok)
+    stats0 = dict(eng.stats)
+    K.reset_launches()
+    t0 = time.perf_counter()
+    eng.step_n(n, samp)  # ends in its one fetch: synced
+    burst_ms = 1e3 * (time.perf_counter() - t0)
+    launches = dict(K.LAUNCHES)
+    d = {k: eng.stats[k] - stats0[k] for k in eng.stats}
+    for u in uids:
+        gen[u] += eng.mgr.seqs[u].tokens[prompt_len + 1 + per_tick:]
+    L, dec = cfg.num_layers, decode_kernel(cfg)
+    per_replay = burst_graph_launches(eng)
+    if d["decode_bursts"] != 1 or d["burst_ticks"] != n or d["decode_ticks"]:
+        raise AssertionError(f"{phase}: stats {d} are not one burst of {n} ticks")
+    if per_replay.get(dec) != L or launches[dec] != L * n:
+        raise AssertionError(f"{phase}: {dec} launched {launches[dec]} in the burst, "
+                             f"{per_replay} a replay; want {L} x {n}")
+    if any(len(g) != 1 + per_tick + n or min(g) < 0 for g in gen.values()):
+        raise AssertionError(f"{phase}: a stream did not emit {n} burst tokens")
+    prof = burst_profile(torch, eng, samp, 16)
+    if eng.close()["blocks_in_use"]:
+        raise AssertionError(f"{phase}: blocks leaked after close()")
+    worst, exact, total = replay_on_cpu(torch, _tree_cpu(params), cfg,
+                                        {u: prompts[u - 1] for u in BURST_REPLAYS},
+                                        {u: gen[u] for u in BURST_REPLAYS})
+    if worst > ARGMAX_TOL_FRAC:
+        raise AssertionError(f"{phase}: a card pick is off the CPU argmax by {worst:.4f} of the "
+                             f"logit range > {ARGMAX_TOL_FRAC}")
+    both = [(a, b) for u in uids for a, b in zip(gen[u], tick_streams[u])]
+    med, dev = _median(tick_ms), prof["device_ms_per_tick"]
+    res = dict(phase=phase, model=model, layers=L, batch=B, prompt_len=prompt_len,
+               per_tick_steps=per_tick, burst_ticks=n, burst_wall_ms=burst_ms,
+               burst_ms_per_tick=burst_ms / n, burst_ms_per_token=burst_ms / n / B,
+               tick_ms_median=med, tick_ms_per_token=med / B,
+               burst_tokens_per_s=B * n * 1e3 / burst_ms, tick_tokens_per_s=B * 1e3 / med,
+               host_syncs_per_token={"burst": 1 / (n * B), "per_tick": 1 / B},
+               # the profiled burst's device time over the timed burst's wall
+               burst_idle_share=None if dev is None else 1.0 - dev / (burst_ms / n),
+               burst_profile=prof, launches=launches, launches_per_replay=per_replay,
+               stats=d, argmax_replayed_streams=len(BURST_REPLAYS),
+               argmax_exact=f"{exact}/{total}", argmax_worst_gap_frac=worst,
+               per_tick_token_match=f"{sum(a == b for a, b in both)}/{len(both)}", gpu=gpu)
+    emit(res)
+    return res
+
+
+def burst_stops_phase(torch, K, gpu, params, cfg):
+    """Stop-exactness of a burst on the card (410M, bf16): four rows, one
+    burst of 16 greedy ticks, each row's own end mid-burst: row 1 its stop
+    token (the 4th token of a free run), row 2 an emission cap of 5, row 3
+    ``max_seq_len`` (its 150-token prompt leaves 9 ticks), row 4 none.
+    Against a free burst of the same rows: each run ends exactly there
+    (nothing past a stop), the descriptors' lengths and block lists and the
+    engine's block-table rows agree, and nothing leaks."""
+    import numpy as np
+    from deepspeed_tpu_torch.inference.engine_v2 import InferenceEngineV2
+    from deepspeed_tpu_torch.inference.sampling import SamplingParams
+
+    n, bs = 16, 32
+    rng = np.random.default_rng(SEED + 2)
+    prompts = {u: rng.integers(1, cfg.vocab_size, ln).tolist()
+               for u, ln in ((1, 40), (2, 40), (3, 150), (4, 40))}
+    samp = SamplingParams(temperature=0.0)
+
+    def burst(**kw):
+        eng = InferenceEngineV2(params, cfg, max_seqs=4, num_blocks=64, block_size=bs,
+                                max_seq_len=160, prefill_buckets=(64, 160),
+                                prefill_budget=160)
+        eng.put(list(prompts), list(prompts.values()), samp)
+        seqs = [eng.mgr.seqs[u] for u in prompts]
+        runs = eng._decode_burst(seqs, samp, n, **kw)
+        for s in seqs:
+            want_blocks = -(-s.cur_len // bs)
+            row = eng._tables_np[s.slot]
+            if (s.cur_len != len(prompts[s.uid]) + 1 + len(runs[s.uid])
+                    or len(s.blocks) != want_blocks or list(row[:want_blocks]) != s.blocks
+                    or (row[want_blocks:] != -1).any()):
+                raise AssertionError(f"burst_stops: uid {s.uid}: length {s.cur_len}, blocks "
+                                     f"{s.blocks}, table row {row.tolist()} for run "
+                                     f"{runs[s.uid]}")
+        eng.flush(list(prompts))
+        audit = eng.close()
+        if audit["blocks_in_use"]:
+            raise AssertionError(f"burst_stops: leaked blocks {audit}")
+        return runs
+
+    free = burst()
+    stop = free[1][3]
+    runs = burst(stop_tokens={1: stop}, max_emit={2: 5})
+    want = {1: free[1][:free[1].index(stop) + 1], 2: free[2][:5], 3: free[3], 4: free[4]}
+    if runs != want or len(free[3]) != 160 - 151 or len(free[4]) != n:
+        raise AssertionError(f"burst_stops: runs {runs} != {want} (free {free})")
+    res = dict(phase="megastep_stops", model="llama3_proxy_410m", burst_ticks=n,
+               run_lengths={u: len(r) for u, r in runs.items()},
+               free_run_lengths={u: len(r) for u, r in free.items()}, stop_token=stop,
+               exact=True, gpu=gpu)
+    emit(res)
+    return res
+
+
+# bench.py:1319-1330, `bench.py --serving --megastep`'s TPU branch, uncut
+MEGASTEP_ENGINE = dict(max_seqs=8, num_blocks=256, block_size=32, max_seq_len=704,
+                       prefill_buckets=(64, 128, 256), prefill_budget=256, prefill_chunk=256,
+                       enable_prefix_caching=True)
+MEGASTEP_SIZES = dict(n_req=16, sys_len=512, sfx_len=64, max_new=48)
+MEGASTEP_FUSE = 8
+
+
+def megastep_run(torch, K, params, cfg, fuse):
+    """One fresh engine through the megastep workload (``bench.py:1343-
+    1372``: a shared 512-token system prompt + a 64-token suffix, Poisson(2)
+    arrivals in ticks, ``default_rng(0)``) after a one-request rehearsal
+    (captures the burst graph).  Returns the results, wall s, counter
+    deltas, launches, the host ms of each decode-only tick and of each
+    decode tick in it (a burst's ms over its ticks), and the close audit."""
+    import numpy as np
+    from deepspeed_tpu_torch.inference.engine_v2 import InferenceEngineV2
+    from deepspeed_tpu_torch.inference.sampling import SamplingParams
+
+    sz = MEGASTEP_SIZES
+    rng = np.random.default_rng(SEED)
+    sys_prompt = rng.integers(1, cfg.vocab_size, sz["sys_len"]).tolist()
+    prompts = {u: sys_prompt + rng.integers(1, cfg.vocab_size, sz["sfx_len"]).tolist()
+               for u in range(1, sz["n_req"] + 1)}
+    arrivals = np.cumsum(rng.poisson(2.0, sz["n_req"]))
+    eng = InferenceEngineV2(params, cfg, serve={"decode_megastep": fuse}, **MEGASTEP_ENGINE)
+    sched = eng.scheduler
+    samp = SamplingParams(temperature=0.0, max_new_tokens=sz["max_new"])
+    warm = np.random.default_rng(SEED + 3).integers(1, cfg.vocab_size, 64).tolist()
+    sched.submit(100_000, warm, SamplingParams(temperature=0.0, max_new_tokens=12))
+    sched.run()
+    sched.pop_result(100_000)
+    torch.cuda.synchronize()
+    stats0 = dict(eng.stats)
+    tick_ms, per_decode_tick_ms = [], []
+    submitted, t0 = 0, time.perf_counter()
+    K.reset_launches()
+    while submitted < sz["n_req"] or not sched.idle:
+        while submitted < sz["n_req"] and arrivals[submitted] <= sched.tick_no:
+            submitted += 1
+            sched.submit(submitted, prompts[submitted], samp)
+        before = dict(eng.stats)
+        t = time.perf_counter()
+        sched.tick()  # a decoding tick ends in its one fetch: synced
+        ms = 1e3 * (time.perf_counter() - t)
+        ticks = (eng.stats["decode_ticks"] - before["decode_ticks"]
+                 + eng.stats["burst_ticks"] - before["burst_ticks"])
+        if ticks and eng.stats["prefill_dispatches"] == before["prefill_dispatches"]:
+            tick_ms.append(ms)
+            per_decode_tick_ms += [ms / ticks] * ticks
+    wall = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    results = {u: sched.pop_result(u) for u in prompts}
+    d = {k: eng.stats[k] - stats0[k] for k in eng.stats}
+    audit = eng.close()
+    return dict(prompts=prompts, results=results, wall=wall, d=d, launches=launches,
+                tick_ms=tick_ms, per_decode_tick_ms=per_decode_tick_ms, close=audit,
+                total_tokens=sum(len(p) for p in prompts.values())
+                + sum(len(r) for r in results.values()))
+
+
+def megastep_serve_phase(torch, K, gpu, params, cfg):
+    """``bench.py --serving --megastep`` on the card (TPU branch, uncut):
+    ``decode_megastep`` 1 and 8 on fresh engines, in turns (1, 8, 8, 1).
+    Gates: every run finishes 16/16 requests with 48 tokens and leaks no
+    block; the fused runs burst, the per-tick runs never; the decode kernel
+    launched layers x (decode ticks + burst ticks), the prefill kernels
+    layers x dispatches.  Reports effective tokens/s, the p50 host ms of a
+    decode-only scheduler tick and of a decode tick within it, host syncs
+    per token (decode ticks + bursts over emitted tokens, ``bench.py:1378-
+    1381``) and the token match of the two settings (not gated: bf16
+    near-ties, and the two settings pack their prefills differently); 4
+    streams of the first fused run near-argmax against the CPU in fp32."""
+    L, sz = cfg.num_layers, MEGASTEP_SIZES
+    runs = []
+    for fuse in (1, MEGASTEP_FUSE, MEGASTEP_FUSE, 1):
+        r = megastep_run(torch, K, params, cfg, fuse)
+        d, lc = r["d"], r["launches"]
+        bad = [u for u, t in r["results"].items() if len(t) != sz["max_new"]]
+        if bad or r["close"]["blocks_in_use"]:
+            raise AssertionError(f"megastep_serve x{fuse}: unfinished {bad}, close {r['close']}")
+        if (d["decode_bursts"] > 0) != (fuse > 1):
+            raise AssertionError(f"megastep_serve x{fuse}: {d['decode_bursts']} bursts")
+        if lc["paged_decode"] != L * (d["decode_ticks"] + d["burst_ticks"]):
+            raise AssertionError(f"megastep_serve x{fuse}: paged_decode {lc['paged_decode']} != "
+                                 f"{L} x {d['decode_ticks']} + {d['burst_ticks']} ticks")
+        if lc["flash_fwd"] + lc["ctx_attention"] != L * d["prefill_dispatches"]:
+            raise AssertionError(f"megastep_serve x{fuse}: prefill launches {lc}")
+        runs.append((fuse, r))
+
+    def summary(fuse, r):
+        d = r["d"]
+        syncs = d["decode_ticks"] + d["spec_ticks"] + d["decode_bursts"]
+        return dict(decode_megastep=fuse, wall_s=r["wall"],
+                    effective_tokens_per_s=r["total_tokens"] / r["wall"],
+                    decode_only_tick_ms_p50=_median(r["tick_ms"]),
+                    decode_tick_ms_p50=_median(r["per_decode_tick_ms"]),
+                    host_syncs_per_token=syncs / max(1, d["decode_emitted"]
+                                                     + d["burst_emitted"]),
+                    decode_ticks=d["decode_ticks"], bursts=d["decode_bursts"],
+                    burst_ticks=d["burst_ticks"], prefill_dispatches=d["prefill_dispatches"])
+
+    tick_run = runs[0][1]["results"]
+    fused = runs[1][1]
+    match = [a == b for u in tick_run for a, b in zip(tick_run[u], fused["results"][u])]
+    uids = sorted(fused["prompts"])[:4]
+    worst, exact, total = replay_on_cpu(torch, _tree_cpu(params), cfg,
+                                        {u: fused["prompts"][u] for u in uids},
+                                        {u: fused["results"][u] for u in uids})
+    if worst > ARGMAX_TOL_FRAC:
+        raise AssertionError(f"megastep_serve: a fused pick is off the CPU argmax by "
+                             f"{worst:.4f} of the logit range > {ARGMAX_TOL_FRAC}")
+    res = dict(phase="megastep_serve", model="llama3_proxy_410m", layers=L, **sz,
+               engine={k: (list(v) if isinstance(v, tuple) else v)
+                       for k, v in MEGASTEP_ENGINE.items()},
+               runs=[summary(f, r) for f, r in runs],
+               token_match=f"{sum(match)}/{len(match)}", argmax_replayed_streams=len(uids),
+               argmax_exact=f"{exact}/{total}", argmax_worst_gap_frac=worst,
+               launches=fused["launches"], gpu=gpu)
     emit(res)
     return res
 
@@ -1466,18 +1782,21 @@ def gpt2_serve_phase(torch, K, gpu):
     """``gpt2_small`` at full depth (12 layers, hd 64, MHA), bf16, random
     weights from the seed: the engine phase's shape (K1f and K2 at hd 64
     launched 12 x packs and 12 x ticks, a one-tick profile, near-argmax
-    replay), then the repetitive-suffix workload through the scheduler with
-    speculation on."""
+    replay), its burst (``step_n(16)``: K2 at hd 64 12 times a replayed
+    tick, near-argmax replay), then the repetitive-suffix workload through
+    the scheduler with speculation on."""
     from deepspeed_tpu_torch.models.presets import get_preset
     from deepspeed_tpu_torch.models.transformer import init_params
 
     cfg = get_preset("gpt2_small")
     params = init_params(cfg, seed=SEED, device=DEVICE)
     eng = engine_phase(torch, K, gpu, params, cfg, model="gpt2_small", phase="gpt2_serve")
+    burst = burst_engine_phase(torch, K, gpu, params, cfg, eng["streams"], "gpt2_small",
+                               "gpt2_serve_megastep", n=16)
     spec = spec_phase(torch, K, gpu, params, cfg, "gpt2_small", "gpt2_serve_spec", twin=False)
     del params
     _free(torch)
-    return eng, spec
+    return eng, burst, spec
 
 
 # ---------------------------------------------------------------------------
@@ -1601,6 +1920,39 @@ def longctx_run(torch, K, params, cfg, shards, num_blocks, prompts, arrivals, ma
                 tokens_per_s=total / wall, profile=prof, close=audit)
 
 
+def longctx_burst(torch, K, params, params_cpu, cfg, S, prompts, n=8):
+    """The ``longctx_check`` prompts through ``put`` on a fresh S-shard
+    engine, then one ``step_n(n)`` burst: the decode partial kernel
+    launched layers x S times per tick (first tick eager, the rest replays
+    of the captured graph, with the merge), K2 never; every stream
+    near-argmax against the port on the CPU in fp32 on one pool."""
+    from deepspeed_tpu_torch.inference.sampling import SamplingParams
+
+    eng = seq_engine(params, cfg, S, LONGCTX_BLOCKS)
+    samp = SamplingParams(temperature=0.0)
+    uids = sorted(prompts)
+    first = eng.put(uids, [prompts[u] for u in uids], samp)
+    K.reset_launches()
+    eng.step_n(n, samp)
+    launches = dict(K.LAUNCHES)
+    per_replay = burst_graph_launches(eng)
+    L = cfg.num_layers
+    gen = {u: [first[u]] + eng.mgr.seqs[u].tokens[len(prompts[u]) + 1:] for u in uids}
+    if (launches["paged_decode_partial"] != L * S * n or launches["paged_decode"]
+            or per_replay.get("paged_decode_partial") != L * S
+            or any(len(g) != n + 1 for g in gen.values())):
+        raise AssertionError(f"longctx_check S={S}: burst launches {launches}, per replay "
+                             f"{per_replay}, runs {[len(g) for g in gen.values()]}")
+    if eng.close()["blocks_in_use"]:
+        raise AssertionError(f"longctx_check S={S}: the burst leaked blocks")
+    worst, exact, total = replay_on_cpu(torch, params_cpu, cfg, prompts, gen)
+    if worst > ARGMAX_TOL_FRAC:
+        raise AssertionError(f"longctx_check S={S}: a burst pick is off the CPU argmax by "
+                             f"{worst:.4f} of the logit range > {ARGMAX_TOL_FRAC}")
+    return dict(burst_ticks=n, launches_per_replay=per_replay, argmax_exact=f"{exact}/{total}",
+                argmax_worst_gap_frac=worst, launches=launches)
+
+
 def longctx_check_phase(torch, K, gpu, cfg):
     """``llama3_proxy_410m`` at full width with 2 layers, bf16, random
     weights from the seed, at ``seq_shards`` 2 and 4 on the card: three
@@ -1608,7 +1960,9 @@ def longctx_check_phase(torch, K, gpu, cfg):
     (chunked prefill over a striped context), 8 greedy tokens each; every
     stream replayed through the port on the CPU in fp32 on one pool
     (near-argmax).  The partial kernels must launch layers x S times per
-    decode tick and per context pack, the non-partial ones never."""
+    decode tick and per context pack, the non-partial ones never.  Then the
+    same prompts through ``put`` and one burst at each S
+    (``longctx_burst``)."""
     import numpy as np
     from deepspeed_tpu_torch.models.transformer import init_params
 
@@ -1631,12 +1985,13 @@ def longctx_check_phase(torch, K, gpu, cfg):
         if worst > ARGMAX_TOL_FRAC:
             raise AssertionError(f"longctx_check S={S}: a card pick is off the CPU argmax by "
                                  f"{worst:.4f} of the logit range > {ARGMAX_TOL_FRAC}")
-        for n, c in run["launches"].items():
+        burst = longctx_burst(torch, K, params, params_cpu, cfg2, S, prompts)
+        for n, c in (*run["launches"].items(), *burst.pop("launches").items()):
             launches[n] += c
         out["runs"][f"S{S}"] = dict(decode_ticks=ticks, context_packs=packs,
                                     launches={n: c for n, c in run["launches"].items() if c},
                                     argmax_exact=f"{exact}/{total}",
-                                    argmax_worst_gap_frac=worst)
+                                    argmax_worst_gap_frac=worst, burst=burst)
     out["launches"] = launches
     emit(out)
     del params, params_cpu
@@ -1842,7 +2197,8 @@ def _device_profile(torch, fn, n=1, top=10, htod=None):
     rows, all of them for None) of ``n`` calls of ``fn`` under
     ``torch.profiler`` (device-side rows only: an operator's row repeats
     its kernels' time).  ``htod``, a dict, receives the host-to-device
-    copies per call under ``"copies"``."""
+    copies per call under ``"copies"`` and the device-to-host ones under
+    ``"dtoh"``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1856,6 +2212,7 @@ def _device_profile(torch, fn, n=1, top=10, htod=None):
            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     if htod is not None:
         htod["copies"] = sum(e.count for e in evs if "HtoD" in e.key) / n
+        htod["dtoh"] = sum(e.count for e in evs if "DtoH" in e.key) / n
     dev_ms = sum(e.self_device_time_total for e in evs) / 1e3 / n if evs else None
     evs = sorted(evs, key=lambda e: -e.self_device_time_total)[:top]
     rows = [dict(name=e.key[:60], ms_per_call=e.self_device_time_total / 1e3 / n,
@@ -2382,8 +2739,11 @@ def quant_serve_phase(torch, K, gpu):
     """``llama3_8b`` at full depth (``bench.py --serve8b`` at batch 16): for
     bf16 (plain weights, the anchor) then int8, fp8 and fp6 from one bf16
     tree on the card, 16 prompts of 128 tokens through ``put``, 4 warm-up
-    and 32 timed greedy ``step``s, one profiled tick.  Returns the phase
-    result and layer 0's w_up (the quantizer phase's input)."""
+    and 32 timed greedy ``step``s, one profiled tick; then the burst: a
+    ``step_n(2)`` that captures the tick, a timed ``step_n(32)`` (K4 / K5
+    225 and K2 32 times a replayed tick) and a profiled ``step_n(8)``.
+    Returns the phase result and layer 0's w_up (the quantizer phase's
+    input)."""
     import numpy as np
     from deepspeed_tpu_torch.inference.engine_v2 import InferenceEngineV2
     from deepspeed_tpu_torch.inference.sampling import SamplingParams
@@ -2437,6 +2797,20 @@ def quant_serve_phase(torch, K, gpu):
         if any(t < 0 for g in gen.values() for t in g):
             raise AssertionError(f"quant_serve {fmt or 'bf16'}: non-finite logits")
         wall_ms, dev_ms, rows = _device_profile(torch, lambda: eng.step(samp), top=None)
+        # the burst: a step_n(2) captures the tick, then step_n(steps) replays it
+        eng.step_n(2, samp)
+        K.reset_launches()
+        t0 = time.perf_counter()
+        eng.step_n(steps, samp)  # ends in its one fetch: synced
+        burst_ms = 1e3 * (time.perf_counter() - t0)
+        b_got = dict(K.LAUNCHES)
+        b_want = {"paged_decode": L * steps,
+                  **({qname: (7 * L + 1) * steps} if qname else {})}
+        if any(b_got[k] != w for k, w in b_want.items()):
+            raise AssertionError(f"quant_serve {fmt or 'bf16'}: burst launches {b_got}, want "
+                                 f"{b_want}")
+        per_replay = burst_graph_launches(eng)
+        b_prof = burst_profile(torch, eng, samp, 8)
         eng.flush(uids)
         a = eng.mgr.allocator
         in_use = a.total_blocks - a.free_blocks - a.cached_blocks
@@ -2462,9 +2836,22 @@ def quant_serve_phase(torch, K, gpu):
                                      if qname else {})},
             profile_tick_wall_ms=wall_ms, profile_tick_device_ms=dev_ms,
             device_idle_share=None if dev_ms is None else 1.0 - dev_ms / med,
-            device_ms_by_category=_categorize(rows), profile_top=rows[:8])
+            device_ms_by_category=_categorize(rows), profile_top=rows[:8],
+            tick_ms_per_token=med / B, burst_ticks=steps, burst_ms_per_tick=burst_ms / steps,
+            burst_ms_per_token=burst_ms / steps / B,
+            burst_device_ms_per_tick=b_prof["device_ms_per_tick"],
+            burst_device_ms_per_token=None if b_prof["device_ms_per_tick"] is None
+            else b_prof["device_ms_per_tick"] / B,
+            tick_device_ms_per_token=None if dev_ms is None else dev_ms / B,
+            burst_idle_share=None if b_prof["device_ms_per_tick"] is None
+            else 1.0 - b_prof["device_ms_per_tick"] / (burst_ms / steps),
+            burst_profile_idle_share=b_prof["idle_share"], burst_profile_top=b_prof["top"],
+            host_syncs_per_token={"burst": 1 / (steps * B), "per_tick": 1 / B},
+            burst_copies={"htod": b_prof["htod_copies_per_burst"],
+                          "dtoh": b_prof["dtoh_copies_per_burst"]},
+            launches_per_replay=per_replay)
         for n in launches:
-            launches[n] += got[n]
+            launches[n] += got[n] + b_got[n]
     w_up0 = params["layers"]["mlp"]["w_up"][0].clone()
     peak = torch.cuda.max_memory_allocated()
     del params
@@ -3207,13 +3594,17 @@ def main() -> None:
     cfg = get_preset("llama3_proxy_410m")
     params = init_params(cfg, seed=SEED, device="cuda")
     eng = engine_phase(torch, K, gpu, params, cfg)
+    ms_eng = burst_engine_phase(torch, K, gpu, params, cfg, eng["streams"],
+                                "llama3_proxy_410m", "megastep", n=64)
+    burst_stops_phase(torch, K, gpu, params, cfg)
+    ms_sch = megastep_serve_phase(torch, K, gpu, params, cfg)
     sch = scheduler_phase(torch, K, gpu, params, cfg)
     spec = spec_phase(torch, K, gpu, params, cfg, "llama3_proxy_410m", "spec_serve")
     lcc = longctx_check_phase(torch, K, gpu, cfg)
     lc = longctx_phase(torch, K, gpu, params, cfg)
     del params
     _free(torch)
-    g_eng, g_spec = gpt2_serve_phase(torch, K, gpu)
+    g_eng, g_burst, g_spec = gpt2_serve_phase(torch, K, gpu)
     train_check_phase(torch, K, gpu)
     _free(torch)
     train_check_phase(torch, K, gpu, sparse=SPARSE_CHECK)
@@ -3243,17 +3634,23 @@ def main() -> None:
               sparse_bwd_pair=times.pop("sparse_bwd_pair"),
               sparse={n: times[n] for n in ATTN_KERNELS[True]},
               fused_adamw=adam_times, gpu=gpu))
-    # launches of the main paths (serving engine, scheduler, speculative
-    # serving, seq-sharded long-context serving, gpt2 serving, dense and
-    # block-sparse training, quantized serving, the quantizer API), each
-    # read right after its own run
-    main_paths = (eng, sch, spec, lcc, lc, g_eng, g_spec, tr, shim, sp, qc, qs, qz)
+    # launches of the main paths (serving engine, its burst, the megastep
+    # scheduler, scheduler, speculative serving, seq-sharded long-context
+    # serving, gpt2 serving, dense and block-sparse training, quantized
+    # serving, the quantizer API), each read right after its own run
+    main_paths = (eng, ms_eng, ms_sch, sch, spec, lcc, lc, g_eng, g_burst, g_spec, tr, shim, sp,
+                  qc, qs, qz)
     per_forward = {**eng["launches_per_forward"], **sch["launches_per_forward"],
                    "paged_decode_hd64": g_eng["launches_per_forward"]["paged_decode_hd64"]}
     for name in ("paged_decode_partial", "ctx_attention_partial"):  # longctx, S = 2
         per_forward[name] = lc["launches_per_forward"][name]
     for fmt, name in QMM_NAMES.items():  # quant_serve at full depth
         per_forward[name] = qs["formats"][fmt]["launches_per_forward"][name]
+    # the burst graphs' launches per replayed tick: 410M, gpt2_small, S = 2, 8B
+    per_replay = {**ms_eng["launches_per_replay"], **g_burst["launches_per_replay"],
+                  **lcc["runs"]["S2"]["burst"]["launches_per_replay"]}
+    for fmt, name in QMM_NAMES.items():
+        per_replay[name] = qs["formats"][fmt]["launches_per_replay"][name]
     kernels = []
     for name in K.SOURCES:
         launches = sum(p["launches"][name] for p in main_paths)
@@ -3265,6 +3662,8 @@ def main() -> None:
                      max_abs_err=errs[name], **times[name])
         if name in per_forward:  # serving: launches per model forward
             entry["launches_per_forward"] = per_forward[name]
+        if name in per_replay:  # decode bursts: launches per replayed tick
+            entry["launches_per_replayed_tick"] = per_replay[name]
         for run in (tr, sp):  # training: launches per optimizer step
             if run["launches"][name]:
                 entry["launches_per_train_step"] = run["launches_per_step"][name]

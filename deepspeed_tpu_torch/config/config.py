@@ -15,6 +15,10 @@ the training path reads:
   every ZeRO stage keeps the whole state on the one device: the stage is
   validated and changes no number.
 
+``ServeConfig`` is the serving engine's block (``InferenceEngineV2(serve=
+...)``), not a training key: ``decode_megastep`` runs, the rest of JAX's
+fields are refused until their items land.
+
 An unknown key raises ``ConfigError`` naming it, as in JAX.  A key the JAX
 package knows but the port does not run yet (offload, ZeRO++ quantization,
 compression, progressive layer drop, eigenvalue, curriculum, elasticity,
@@ -270,6 +274,90 @@ class Config:
         if self.fp16.enabled and self.bf16.enabled:
             raise ConfigError("fp16 and bf16 cannot both be enabled")
         return self
+
+
+# ServeConfig fields of the JAX package that the port does not run yet, with
+# the ROADMAP queue 1 item that brings each
+_SERVE_UNPORTED = {
+    "deadline_ms": 6, "ttft_deadline_ms": 6, "max_retries": 6, "retry_backoff_ms": 6,
+    "shed_queue_depth": 6, "watchdog_tick_ms": 6, "watchdog_grace_ticks": 6,
+    "quant_comm": 7, "comm_tiles": 7,
+}
+
+
+@dataclass
+class ServeConfig:
+    """The serving stack's config block (``InferenceEngineV2(serve=...)``,
+    a ``ServeConfig`` or a dict) — counterpart of JAX's ``ServeConfig``
+    (``deepspeed_tpu/config/config.py:259``), with its defaults and checks.
+
+    ``decode_megastep``: fuse up to this many decode-only scheduler ticks
+    into ONE device-resident engine burst (``engine._decode_burst``: one
+    host sync for the run of ticks; stop tokens and length caps are
+    detected on the device, so the fused ticks stay token-identical to
+    per-tick decode).  1 = off.  The scheduler collapses to per-tick
+    whenever a tick has other work (waiting or prefilling requests, live
+    speculation proposals).
+
+    The other fields are JAX's and are not ported yet: each raises
+    ``NotImplementedError`` naming its ROADMAP item when set away from its
+    default (deadlines, retries, shed mode, the watchdog and ``adaptation``:
+    item 6; ``quant_comm`` / ``comm_tiles``: item 7).  ``fused_serving=False``
+    is refused as the engine's own argument is."""
+
+    deadline_ms: Optional[float] = None
+    ttft_deadline_ms: Optional[float] = None
+    max_retries: int = 3
+    retry_backoff_ms: float = 20.0
+    shed_queue_depth: Optional[int] = None
+    watchdog_tick_ms: Optional[float] = None
+    watchdog_grace_ticks: int = 3
+    fused_serving: Optional[bool] = None
+    quant_comm: str = "none"
+    comm_tiles: int = 1
+    decode_megastep: int = 1
+    adaptation: Optional[Dict[str, Any]] = None
+
+    def __post_init__(self):
+        # JAX's checks, with its texts (config.py:319-349)
+        if self.quant_comm not in ("none", "int8", "fp8"):
+            raise ConfigError(
+                f"serve.quant_comm must be one of 'none'|'int8'|'fp8', "
+                f"got {self.quant_comm!r}")
+        if self.comm_tiles < 1:
+            raise ConfigError(f"serve.comm_tiles must be >= 1, got {self.comm_tiles}")
+        if self.decode_megastep < 1:
+            raise ConfigError(
+                f"serve.decode_megastep must be >= 1, got {self.decode_megastep}")
+        for k in ("deadline_ms", "ttft_deadline_ms", "watchdog_tick_ms"):
+            v = getattr(self, k)
+            if v is not None and v <= 0:
+                raise ConfigError(f"serve.{k} must be positive or None, got {v}")
+        if self.max_retries < 0:
+            raise ConfigError(f"serve.max_retries must be >= 0, got {self.max_retries}")
+        if self.retry_backoff_ms < 0:
+            raise ConfigError(
+                f"serve.retry_backoff_ms must be >= 0, got {self.retry_backoff_ms}")
+        if self.shed_queue_depth is not None and self.shed_queue_depth < 1:
+            raise ConfigError(
+                f"serve.shed_queue_depth must be >= 1 or None, got {self.shed_queue_depth}")
+        if self.watchdog_grace_ticks < 1:
+            raise ConfigError(
+                f"serve.watchdog_grace_ticks must be >= 1, got {self.watchdog_grace_ticks}")
+        defaults = ServeConfig.__dataclass_fields__
+        for k, item in _SERVE_UNPORTED.items():
+            if getattr(self, k) != defaults[k].default:
+                raise NotImplementedError(
+                    f"serve.{k} is not ported yet (ROADMAP queue 1 item {item})")
+        if self.fused_serving is False:
+            raise NotImplementedError(
+                "serve.fused_serving=False is not ported yet (ROADMAP queue 1 item 7)")
+        a = self.adaptation
+        if a is not None and (not isinstance(a, dict)
+                              or any(k != "enabled" or v for k, v in a.items())):
+            raise NotImplementedError(
+                "serve.adaptation (the online autotuning controller) is not ported yet "
+                "(ROADMAP queue 1 item 6)")
 
 
 def _strip_auto(obj):

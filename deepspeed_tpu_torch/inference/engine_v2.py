@@ -26,14 +26,24 @@ shard through the kernels' partial modes and merges by log-sum-exp
 (``paged.py``), so a prompt bigger than one slice fits as long as the whole
 pool does.  The ``S`` shards run in one process on the engine's device.
 
+``step_n(n)`` and the scheduler's megastep (``serve={"decode_megastep":
+n}``) run device-resident decode bursts (``_decode_burst``): every page a
+burst can touch is reserved first, the decode tick (forward, sampling,
+non-finite guard, on-device termination by stop token and emission cap)
+runs n times on persistent device tensors with no host read between
+ticks, and one fetch at the end returns every row's run.  On CUDA the tick
+is captured once as a CUDA graph (``ops.kernels.CapturedGraph``) per
+sampling triple and replayed n times; on the CPU the same tick body runs
+eagerly n times.  ``step()`` stays an eager tick over the same body.
+
 Not ported yet, and refused loudly rather than ignored: weight offload,
 tensor-parallel and replica meshes and seq shards on distinct devices
 (ROADMAP queue 1 item 7), ``fused_serving=False`` (the JAX jnp-body lever:
-on the card that body is a kernel's plain version), and ``step_n`` (the
-device-resident decode burst, whose counterpart is a CUDA-graph replay in
-a later slice).  Every dispatch raises through to the
-caller: a kernel that fails to build or launch is an error, never a failed
-request.
+on the card that body is a kernel's plain version), and the ``serve``
+fields of items 6 and 7 (``config.ServeConfig``).  Every dispatch raises
+through to the caller: a kernel that fails to build or launch, or a graph
+that fails to capture or replay, is an error, never a failed request or an
+eager fallback.
 """
 from __future__ import annotations
 
@@ -43,8 +53,9 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..config.config import ServeConfig, _coerce
 from ..models.transformer import TransformerConfig
-from ..ops.kernels import resolve_device
+from ..ops.kernels import CapturedGraph, resolve_device
 from ..ops.quantizer import (
     QUANT_TYPES,
     ServingContext,
@@ -66,6 +77,9 @@ STAT_NAMES = (
     "prefill_dispatches",
     "decode_ticks",
     "decode_emitted",  # tokens emitted by plain decode dispatches
+    "decode_bursts",  # device-resident bursts (ONE host sync each)
+    "burst_ticks",  # decode ticks run inside bursts
+    "burst_emitted",  # tokens committed out of burst fetches
     "spec_ticks",  # verify dispatches (each scores k+1 positions)
     "spec_seq_forwards",  # sequence-participations in verify ticks
     "spec_drafted",  # draft tokens proposed
@@ -73,6 +87,12 @@ STAT_NAMES = (
     "spec_emitted",  # tokens emitted by verify ticks (accepted + 1 each)
     "spec_drafts_shed",  # draft sets dropped by _spec_tick's capacity pre-pass
 )
+
+
+# burst-accumulator pad written by rows already deactivated on the device:
+# distinct from the -1 finite_guard poison sentinel (a real emission, always
+# a row's LAST, that the host must see to quarantine)
+_BURST_PAD = -2
 
 
 def _bucket(n: int, buckets: Sequence[int]) -> int:
@@ -111,8 +131,12 @@ class InferenceEngineV2:
         fused_serving: Optional[bool] = None,
         serve_replicas: int = 1,
         seq_shards: int = 1,
+        serve=None,
         device=None,
     ):
+        # the serving config block (a ServeConfig or a dict); the fields the
+        # port does not run yet raise in ServeConfig itself
+        self.serve = serve if isinstance(serve, ServeConfig) else _coerce(ServeConfig, serve)
         unsupported = {
             "offload_weights": offload_weights,
             "fused_serving=False": fused_serving is False,
@@ -194,8 +218,10 @@ class InferenceEngineV2:
                                   self.prefill_buckets[-1])
         self.kv = init_paged_cache(cfg.num_layers, num_blocks, block_size,
                                    cfg.num_kv_heads, cfg.hd, dtype=cfg.dtype,
-                                   device=self.device)
+                                   device=self.device, max_seqs=max_seqs)
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
+        self._burst_cap = 64  # step_n accumulator rows (doubles on demand)
+        self._burst: Optional[_BurstState] = None  # the bursts' device tensors and graphs
         # host block-table mirror, handed to every decode dispatch
         self._tables_np = np.full((max_seqs, self.max_pages), -1, np.int32)
         self.mgr.cow_hook = self._cow
@@ -586,9 +612,190 @@ class InferenceEngineV2:
             seq.seen_tokens = min(seq.seen_tokens, seq.cur_len - 1)
         return run[:len(run) - cut]
 
-    def step_n(self, n: int, sampling: SamplingParams = SamplingParams()):
-        raise NotImplementedError(
-            "step_n (device-resident decode bursts) is not ported yet; call step()")
+    # -- device-resident decode bursts -----------------------------------
+    def _burst_tick(self, st: "_BurstState", sampling: SamplingParams) -> None:
+        """One decode tick of a burst on ``st``'s device tensors, in place
+        (JAX ``decode_burst_impl``): forward, sampling, the non-finite
+        guard; the row emitted into ``st.buf[tick + 1]`` (``_BURST_PAD``
+        where the row was already inactive) and the counts into row 0; a
+        row deactivates on the poison sentinel, its stop token or its
+        emission cap, AFTER this tick's emission; lengths advance only for
+        rows that emitted; the next token is clamped to >= 0.  Reads
+        nothing back to the host: a CUDA graph holds it."""
+        logits, _ = model_runner.decode_body(
+            self.params, self.cfg, st.tokens, st.lens, st.tables, st.active, self.kv,
+            ctx=self.serving_ctx, mesh=self._mesh, seq_shards=self.seq_shards)
+        sampled = finite_guard(logits, sample(logits, sampling, self._gen))
+        act_i = st.active.int()
+        st.buf.index_copy_(0, st.tick + 1, torch.where(st.active, sampled, _BURST_PAD)[None])
+        st.emitted += act_i
+        st.buf[0].copy_(st.emitted)
+        hit_stop = (st.stop >= 0) & (sampled == st.stop)
+        st.active &= (sampled >= 0) & ~hit_stop & (st.emitted < st.max_emit)
+        st.lens += act_i
+        st.tokens.copy_(torch.where(st.active, sampled.clamp(min=0), st.tokens))
+        st.tick += 1
+
+    def _run_burst(self, st: "_BurstState", sampling: SamplingParams, n: int) -> None:
+        """``n`` ticks of ``_burst_tick``.  On the CPU they run eagerly.  On
+        CUDA the tick is a captured graph per sampling triple, replayed:
+        a triple's first burst runs its first tick eagerly on the capture
+        stream (the warm-up that builds and configures every kernel before
+        any capture), then captures the tick and replays it for the rest.
+        A capture or replay error raises; nothing falls back to eager
+        ticks."""
+        if self.device.type != "cuda":
+            for _ in range(n):
+                self._burst_tick(st, sampling)
+            return
+        key = (sampling.temperature, sampling.top_k, sampling.top_p)
+        graph = st.graphs.get(key)
+        if graph is None:
+            stream = st.stream
+            stream.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(stream):
+                self._burst_tick(st, sampling)
+            torch.cuda.current_stream(self.device).wait_stream(stream)
+            n -= 1
+            graph = CapturedGraph()
+            graph.capture(lambda: self._burst_tick(st, sampling), stream=stream,
+                          generators=(self._gen,) if sampling.temperature > 0 else ())
+            st.graphs[key] = graph
+        for _ in range(n):
+            graph.replay()
+
+    def _decode_burst(self, active_seqs, sampling: SamplingParams, n: int,
+                      max_emit: Optional[Dict[int, int]] = None,
+                      stop_tokens: Optional[Dict[int, Optional[int]]] = None
+                      ) -> Dict[int, List[int]]:
+        """Device-resident multi-tick decode (JAX ``_decode_burst``): up to
+        ``n`` decode ticks over ``active_seqs`` with on-device termination
+        and ONE end-of-burst fetch; ``step_n`` and the scheduler's megastep
+        both ride this.
+
+        Per-slot stop tokens (``stop_tokens`` {uid: id}, default
+        ``sampling.stop_token``) and emission caps (``max_emit`` {uid: n},
+        clamped by the ``max_seq_len`` headroom) ride device tensors; each
+        row deactivates the tick it stops, so later ticks neither sample it
+        nor write its KV and the runs are token-identical to per-tick
+        ``step()``.  Every page a row's burst can touch is reserved before
+        the first tick, so the block tables go up once.
+
+        Returns {uid: emitted run}.  A poisoned row's run ends with the -1
+        sentinel: the healthy prefix before it is committed and its
+        published cache keys are retracted.  Rows given no emission
+        headroom return an empty run untouched."""
+        B = self.mgr.max_seqs
+        uids = [s.uid for s in active_seqs]
+        P = self.max_pages
+        host = np.zeros(4 * B + B * P, np.int32)
+        tokens0, base_lens, stop_rows, emit_cap = host[:4 * B].reshape(4, B)
+        stop_rows[:] = -1
+        for s in active_seqs:
+            cap_i = min(n, self.max_seq_len - s.cur_len)
+            if max_emit is not None and s.uid in max_emit:
+                cap_i = min(cap_i, int(max_emit[s.uid]))
+            if cap_i < 1:
+                continue  # no headroom: empty run, the row never enters the batch
+            # reserve every page this row's burst can touch: the block table
+            # is then static for all its ticks (one upload); rows that stop
+            # early hand the unused tail back after the fetch
+            self.mgr.ensure_capacity(s, cap_i)
+            self.mgr.ensure_writable(s, s.cur_len - 1)
+            self._set_block_table(s)
+            base_lens[s.slot] = s.cur_len - 1
+            tokens0[s.slot] = s.tokens[-1]
+            emit_cap[s.slot] = cap_i
+            stop = sampling.stop_token if stop_tokens is None \
+                else stop_tokens.get(s.uid, sampling.stop_token)
+            stop_rows[s.slot] = -1 if stop is None else int(stop)
+        active = emit_cap > 0
+        if not active.any():
+            return {u: [] for u in uids}
+        # no tick can emit once every row is past its cap: clamp the burst
+        n = min(n, int(emit_cap.max()))
+        host[4 * B:] = self._tables_np.reshape(-1)
+        cap = self._burst_cap
+        while cap < n:
+            cap *= 2
+        self._burst_cap = cap
+        if self._burst is None or self._burst.buf.shape[0] < cap + 1:
+            self._burst = None  # drop the old buffer's graphs before the new ones
+            self._burst = _BurstState(B, P, cap, self.device)
+        st = self._burst
+        st.inputs.copy_(torch.from_numpy(host))  # the burst's one upload
+        st.active.copy_(st.max_emit > 0)
+        st.emitted.zero_()
+        st.tick.zero_()
+        st.buf.fill_(_BURST_PAD)
+        st.buf[0].zero_()
+        base = SamplingParams(sampling.temperature, sampling.top_k, sampling.top_p)
+        self._run_burst(st, base, n)
+        self.stats["decode_bursts"] += 1
+        self.stats["burst_ticks"] += n
+        burst = st.buf[:n + 1].cpu().numpy()  # the ONE host sync
+        out: Dict[int, List[int]] = {}
+        total = 0
+        for s in active_seqs:
+            if not active[s.slot]:
+                out[s.uid] = []
+                continue
+            m = int(burst[0, s.slot])
+            run = [int(t) for t in burst[1:1 + m, s.slot]]
+            committed = run[:-1] if run and run[-1] == -1 else run
+            s.tokens.extend(committed)
+            s.seen_tokens = s.cur_len - 1
+            if run and run[-1] < 0:
+                # the row deactivated at its first bad tick on the device; its
+                # published keys are retracted (its written KV is suspect)
+                s.error = "non-finite logits in decode burst"
+                self.mgr.quarantine_written(s)
+            else:
+                self.mgr.update_hashes(s)
+            # hand back the unused tail reservation in one truncate
+            if self.mgr.truncate_to_length(s):
+                self._set_block_table(s)
+            total += len(committed)
+            out[s.uid] = run
+        self.stats["burst_emitted"] += total
+        return out
+
+    def step_n(self, n: int, sampling: SamplingParams = SamplingParams()) -> Dict[int, int]:
+        """``n`` decode ticks as one device-resident burst: the sampled
+        tokens stay on the device between ticks and the host reads once,
+        at the end.  Stop-exact: each row's stop token and length cap are
+        checked on the device, so the tokens equal those of ``n`` per-tick
+        ``step()`` calls.  Returns {uid: last kept token} (-1 for a
+        poisoned row, as ``step()``)."""
+        active_seqs = [s for s in self.mgr.active if not s.done]
+        if not active_seqs or n <= 0:
+            return {}
+        # sequences already at the length cap finish; the rest keep decoding
+        for s in active_seqs:
+            if s.cur_len >= self.max_seq_len:
+                s.done = True
+        active_seqs = [s for s in active_seqs if not s.done]
+        if not active_seqs:
+            return {}
+        # rows stop at their own length caps on the device, so the burst
+        # length follows the least constrained row
+        n = min(n, self.max_seq_len - min(s.cur_len for s in active_seqs))
+        runs = self._decode_burst(active_seqs, sampling, n)
+        out: Dict[int, int] = {}
+        for s in active_seqs:
+            run = runs[s.uid]
+            if not run:
+                continue
+            if run[-1] < 0:
+                s.done = True
+                out[s.uid] = -1
+                continue
+            if sampling.stop_token is not None and run[-1] == sampling.stop_token:
+                s.done = True
+            if s.cur_len >= self.max_seq_len:
+                s.done = True
+            out[s.uid] = run[-1]
+        return out
 
     def flush(self, uids: Sequence[int]) -> None:
         for uid in uids:
@@ -611,6 +818,7 @@ class InferenceEngineV2:
             "blocks_in_use": a.total_blocks - a.free_blocks - a.cached_blocks,
             "cached_blocks": a.cached_blocks,
         }
+        self._burst = None  # the graphs first, then the tensors they read
         self.params = None
         self.kv = None
         self.mgr.cow_hook = None
@@ -640,6 +848,27 @@ class InferenceEngineV2:
             sched.pop_result(uid)
             raise RuntimeError(f"generate() request {state}: {err or state}")
         return sched.pop_result(uid)
+
+
+class _BurstState:
+    """The device tensors the decode bursts read and advance in place, and
+    the graphs captured over them.  One per engine, reused by every burst
+    until the accumulator must grow, so a captured tick's pointers stay
+    valid across its replays.  ``inputs`` holds the per-burst upload:
+    tokens, lengths, stop tokens, emission caps ([B] each) and the block
+    tables [B, P], int32; ``buf`` [cap + 1, B] the accumulator (row 0 the
+    emission counts, row 1 + t tick t's emissions)."""
+
+    def __init__(self, B: int, P: int, cap: int, device: torch.device):
+        self.inputs = torch.zeros(4 * B + B * P, dtype=torch.int32, device=device)
+        self.tokens, self.lens, self.stop, self.max_emit = self.inputs[:4 * B].view(4, B)
+        self.tables = self.inputs[4 * B:].view(B, P)
+        self.active = torch.zeros(B, dtype=torch.bool, device=device)
+        self.emitted = torch.zeros(B, dtype=torch.int32, device=device)
+        self.tick = torch.zeros(1, dtype=torch.long, device=device)
+        self.buf = torch.full((cap + 1, B), _BURST_PAD, dtype=torch.int32, device=device)
+        self.graphs: Dict[tuple, CapturedGraph] = {}  # sampling triple -> its tick
+        self.stream = torch.cuda.Stream(device) if device.type == "cuda" else None
 
 
 def _to_device(params, device):

@@ -5,8 +5,12 @@ batched decode and the speculative verify pass against the paged KV pools.
 Tensors (parameters, pools) live on the runner's device; the per-dispatch
 index metadata (segment ids, positions, page lists, block tables, lengths)
 arrives as host arrays (numpy or CPU tensors), built by the engine on the
-host anyway.  Which KV rows a dispatch writes is decided on the host from
-them, so the in-place pool writes never wait for the device.  Each function
+host anyway.  Which KV rows a prefill or verify dispatch writes is decided
+on the host from them, so the in-place pool writes never wait for the
+device.  The decode tick's body, ``decode_body``, takes device tensors and
+decides its rows on the device, at a fixed shape: a CUDA graph holds it
+(the engine's decode bursts), and ``decode_step`` uploads host arrays to
+it.  Each function
 returns ``(logits fp32, (k_pools, v_pools))`` like the JAX one; the pools
 are the caller's tensors, updated in place.
 
@@ -37,12 +41,13 @@ from ..models.transformer import (
 from ..ops.kernels.flash_attention import flash_attention
 from ..ops.quantizer import QUANT_TYPES, map_quant, serving_mm
 from .paged import (
-    decode_write_index,
+    decode_rows,
     page_write_index,
     paged_attention_decode,
     paged_attention_packed_ctx,
     seq_shard_tables,
     spec_write_index,
+    write_decode_rows,
     write_pages,
     write_rows,
 )
@@ -288,33 +293,46 @@ def verify_packed_ctx(params: Params, cfg: TransformerConfig, tokens, segment_id
     return _lm_logits(params, cfg, x[0], ctx), kv_cache
 
 
-def decode_step(params: Params, cfg: TransformerConfig, tokens, seq_lens,
-                block_tables, active, kv_cache: Tuple, ctx=None, mesh=None,
-                dp: int = 1, seq_shards: int = 1):
-    """One batched decode tick: ``tokens`` [B] last sampled token per slot,
-    ``seq_lens`` [B] length BEFORE this token, ``block_tables`` [B, P],
-    ``active`` [B].  Returns (logits [B, vocab], caches)."""
+def decode_body(params: Params, cfg: TransformerConfig, tokens: torch.Tensor,
+                seq_lens: torch.Tensor, block_tables: torch.Tensor, active: torch.Tensor,
+                kv_cache: Tuple, ctx=None, mesh=None, dp: int = 1, seq_shards: int = 1):
+    """One batched decode tick on device tensors: ``tokens`` [B] the last
+    sampled token per slot, ``seq_lens`` [B] int32 the length BEFORE this
+    token, ``block_tables`` [B, P] int32, ``active`` [B] bool, all on the
+    pools' device.  Reads nothing back to the host (the KV write's rows come
+    from ``paged.decode_rows``), so a CUDA graph can hold it: the engine's
+    per-tick ``step()`` and its decode bursts both run it.  Returns (logits
+    [B, vocab] fp32, caches)."""
     _check_family(cfg)
     ck, cv = kv_cache
-    device = ck[0].device
-    lens_np = np.asarray(seq_lens, dtype=np.int64)
-    tok = _dev(tokens, device, torch.long)
-    pos = torch.as_tensor(lens_np).to(device)
-    x = _embed(params, cfg, tok, pos)[:, None]  # [B, 1, d]
-    rot = rope_tables(pos[:, None], cfg.hd, cfg.rope_theta) if cfg.position == "rope" else None
     nb, bs = ck[0].shape[:2]
-    slots, rows = decode_write_index(block_tables, lens_np, active, bs, nb, device)
-    tables = _dev(block_tables, device)
-    lens_after = _dev(lens_np + 1, device)  # attention length incl. this token
-    shards = _shard_tables(tables, kv_cache, seq_shards)
+    pos = seq_lens.long()
+    x = _embed(params, cfg, tokens.long(), pos)[:, None]  # [B, 1, d]
+    rot = rope_tables(pos[:, None], cfg.hd, cfg.rope_theta) if cfg.position == "rope" else None
+    rows = decode_rows(block_tables, pos, active, bs, nb)
+    lens_after = seq_lens + 1  # attention length incl. this token
+    shards = _shard_tables(block_tables, kv_cache, seq_shards)
     for l in range(cfg.num_layers):
         def attend(q, k, v, l=l):
-            write_rows(ck[l], k[:, 0], slots, rows)
-            write_rows(cv[l], v[:, 0], slots, rows)
+            write_decode_rows(ck[l], k[:, 0], rows)
+            write_decode_rows(cv[l], v[:, 0], rows)
             return paged_attention_decode(
-                q[:, 0], ck[l], cv[l], tables, lens_after,
+                q[:, 0], ck[l], cv[l], block_tables, lens_after,
                 logits_soft_cap=cfg.logits_soft_cap, mesh=mesh, dp=dp,
                 seq_shards=seq_shards, shard_tables=shards)
         x = _block(_layer(params, l), x, cfg, rot, attend, ctx)
     x = norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)
     return _lm_logits(params, cfg, x[:, 0], ctx), kv_cache
+
+
+def decode_step(params: Params, cfg: TransformerConfig, tokens, seq_lens,
+                block_tables, active, kv_cache: Tuple, ctx=None, mesh=None,
+                dp: int = 1, seq_shards: int = 1):
+    """One batched decode tick from host arrays: ``tokens`` [B] last sampled
+    token per slot, ``seq_lens`` [B] length BEFORE this token,
+    ``block_tables`` [B, P], ``active`` [B]; uploaded, then ``decode_body``.
+    Returns (logits [B, vocab], caches)."""
+    device = kv_cache[0][0].device
+    return decode_body(params, cfg, _dev(tokens, device), _dev(seq_lens, device),
+                       _dev(block_tables, device), _dev(active, device, torch.bool),
+                       kv_cache, ctx=ctx, mesh=mesh, dp=dp, seq_shards=seq_shards)

@@ -5,8 +5,15 @@ tables map each sequence slot to its pages.  Writes update the pools IN
 PLACE (``index_copy_``), which takes the place of JAX buffer donation: the
 functions that write return nothing new, the caller's pool tensors hold the
 result.  Entries whose page is -1 (or, for decode, whose slot is inactive)
-are dropped from a write; which entries survive is decided on the host,
-from the host-built page lists, so no write needs a device round trip.
+are dropped from a write.  For prefill and verify packs, which entries
+survive is decided on the host, from the host-built page lists.  The
+decode write is decided on the device, at a fixed shape, so a CUDA graph
+can hold it (``decode_rows``): JAX scatters a dropped slot to an
+out-of-bounds sentinel that its scatter drops; PyTorch has no dropping
+scatter, so each pool's storage holds one spare row per slot past its
+``nb * bs`` rows (``init_paged_cache(max_seqs=...)``), and dropped slot
+``b`` writes its own spare row ``nb * bs + b``.  No two slots share a
+target, and no dropped slot touches a real row.
 
 Attention over the pool dispatches to the CUDA kernels on a CUDA tensor and
 to the plain bodies on a CPU tensor (``ops/kernels``).
@@ -56,15 +63,22 @@ _packed_ctx_partial = paged_attention_packed_ctx_partial_plain
 
 def init_paged_cache(num_layers: int, num_blocks: int, block_size: int,
                      num_kv_heads: int, head_dim: int, dtype=torch.bfloat16,
-                     device=None) -> Tuple[Tuple[torch.Tensor, ...], Tuple[torch.Tensor, ...]]:
+                     device=None, max_seqs: int = 64
+                     ) -> Tuple[Tuple[torch.Tensor, ...], Tuple[torch.Tensor, ...]]:
     """Per-LAYER block pools (a tuple of [num_blocks, bs, hkv, hd] tensors
     for K and one for V), zero-filled, on ``device`` (CUDA unless the caller
-    names another; see ``ops.kernels.resolve_device``)."""
+    names another; see ``ops.kernels.resolve_device``).  Each pool's storage
+    holds ``max_seqs`` spare rows past its end: the drop rows of a decode
+    write over up to ``max_seqs`` slots (``write_decode_rows``)."""
     device = resolve_device(device)
-    shape = (num_blocks, block_size, num_kv_heads, head_dim)
-    k = tuple(torch.zeros(shape, dtype=dtype, device=device) for _ in range(num_layers))
-    v = tuple(torch.zeros(shape, dtype=dtype, device=device) for _ in range(num_layers))
-    return k, v
+    rows = num_blocks * block_size
+
+    def pool():
+        flat = torch.zeros(rows + max_seqs, num_kv_heads, head_dim, dtype=dtype, device=device)
+        return flat[:rows].view(num_blocks, block_size, num_kv_heads, head_dim)
+
+    return (tuple(pool() for _ in range(num_layers)),
+            tuple(pool() for _ in range(num_layers)))
 
 
 # ---------------------------------------------------------------------------
@@ -97,22 +111,6 @@ def write_prefill_kv(cache_layer: torch.Tensor, kv: torch.Tensor, blocks, length
     write_pages(cache_layer, kv.reshape(-1, bs, *kv.shape[1:]), src, dst)
 
 
-def decode_write_index(block_table, positions, active, bs: int, nb: int,
-                       device) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Host block table [B, P], positions [B] and active [B] -> (slots that
-    write, their flat pool rows ``page * bs + pos % bs``) on ``device``.
-    Inactive slots and -1 pages drop."""
-    table = np.asarray(block_table)
-    pos = np.asarray(positions, dtype=np.int64)
-    act = np.asarray(active, dtype=bool)
-    slots = np.arange(table.shape[0])
-    col = np.minimum(pos // bs, table.shape[1] - 1)
-    page = table[slots, col].astype(np.int64)
-    keep = np.nonzero(act & (page >= 0) & (page < nb))[0]
-    rows = page[keep] * bs + pos[keep] % bs
-    return torch.from_numpy(keep).to(device), torch.from_numpy(rows).to(device)
-
-
 def write_rows(cache_layer: torch.Tensor, kv: torch.Tensor, slots: torch.Tensor,
                rows: torch.Tensor) -> None:
     """One new token per writing slot: ``pool.flat[rows] = kv[slots]`` in
@@ -124,11 +122,48 @@ def write_rows(cache_layer: torch.Tensor, kv: torch.Tensor, slots: torch.Tensor,
 
 def write_decode_kv(cache_layer: torch.Tensor, kv: torch.Tensor, block_table,
                     positions, active) -> None:
-    """Scatter one new token per active sequence (host metadata)."""
+    """Scatter one new token per active sequence (JAX's signature; any
+    pool): ``decode_rows``'s rows, the dropped slots left out on the host."""
     nb, bs = cache_layer.shape[0], cache_layer.shape[1]
-    slots, rows = decode_write_index(block_table, positions, active, bs, nb,
-                                     cache_layer.device)
-    write_rows(cache_layer, kv, slots, rows)
+    dev = cache_layer.device
+    rows = decode_rows(torch.as_tensor(np.asarray(block_table), device=dev),
+                       torch.as_tensor(np.asarray(positions), device=dev),
+                       torch.as_tensor(np.asarray(active), device=dev), bs, nb)
+    slots = torch.nonzero(rows < nb * bs)[:, 0]
+    write_rows(cache_layer, kv, slots, rows[slots])
+
+
+def decode_rows(block_table: torch.Tensor, positions: torch.Tensor, active: torch.Tensor,
+                bs: int, nb: int) -> torch.Tensor:
+    """The decode write's target rows on the device, one per slot, at a
+    fixed shape (JAX ``write_decode_kv``'s rule): block table [B, P],
+    positions [B] and active [B] -> [B] flat pool rows ``page * bs + pos %
+    bs``; an inactive slot, or one whose page is -1 or past the pool, gets
+    its own drop row ``nb * bs + b``.  Reads nothing back to the host."""
+    b, p = block_table.shape
+    pos = positions.long()
+    col = torch.clamp(pos // bs, max=p - 1)
+    page = block_table.long().gather(1, col[:, None])[:, 0]
+    keep = active & (page >= 0) & (page < nb)
+    drop = nb * bs + torch.arange(b, device=block_table.device)
+    return torch.where(keep, page * bs + pos % bs, drop)
+
+
+def write_decode_rows(cache_layer: torch.Tensor, kv: torch.Tensor, rows: torch.Tensor) -> None:
+    """``pool.flat[rows] = kv`` in place over the pool's rows AND its spare
+    rows (``init_paged_cache``), kv [B, hkv, hd]: the fixed-shape decode
+    write, ``rows`` from ``decode_rows``.  Raises if the pool's storage
+    holds fewer than B spare rows."""
+    nb, bs, hkv, hd = cache_layer.shape
+    n = nb * bs + kv.shape[0]
+    have = cache_layer.untyped_storage().nbytes() // cache_layer.element_size() \
+        - cache_layer.storage_offset()
+    if not cache_layer.is_contiguous() or have < n * hkv * hd:
+        raise ValueError(f"the pool holds {have // (hkv * hd) - nb * bs} spare rows, the "
+                         f"decode write needs {kv.shape[0]}: build it with "
+                         f"init_paged_cache(max_seqs={kv.shape[0]})")
+    flat = cache_layer.as_strided((n, hkv, hd), (hkv * hd, hd, 1))
+    flat.index_copy_(0, rows, kv.to(cache_layer.dtype))
 
 
 def spec_write_index(pages, offsets, bs: int, nb: int,

@@ -5,7 +5,9 @@ speculative verify acceptance).
 Randomness comes from a ``torch.Generator`` owned by the caller, on the
 logits' device; it draws other numbers than ``jax.random`` for the same
 seed, so only greedy sampling is token-identical across the two packages
-(the tests compare sampled distributions).
+(the tests compare sampled distributions).  Every draw is a Gumbel-max
+(``gumbel_argmax``), which reads nothing back to the host: the engine's
+decode bursts capture ``sample`` in a CUDA graph.
 """
 from __future__ import annotations
 
@@ -94,11 +96,7 @@ def spec_verify_sample(logits: torch.Tensor, draft: torch.Tensor, n_draft: torch
         d_j = torch.zeros(b, dtype=torch.long, device=dev)
     rejected = n_acc < n_draft
     drop = rejected[:, None] & (torch.arange(v, device=dev)[None, :] == d_j[:, None])
-    # the categorical draw as Gumbel-max (as jax.random.categorical draws):
-    # unlike torch.multinomial it reads nothing back to the host
-    g = torch.rand((b, v), generator=generator, device=dev)
-    g.clamp_(min=torch.finfo(torch.float32).tiny)
-    final = torch.argmax(torch.where(drop, float("-inf"), dist) - torch.log(-torch.log(g)), dim=-1)
+    final = gumbel_argmax(torch.where(drop, float("-inf"), dist), generator).long()
     idx = torch.arange(k1, device=dev)[None, :]
     draft_pad = torch.nn.functional.pad(draft, (0, 1))
     out = torch.where(idx < n_acc[:, None], draft_pad,
@@ -144,8 +142,16 @@ def sample(logits: torch.Tensor, params: SamplingParams,
         logits = torch.where(logits < kth, float("-inf"), logits)
     if params.top_p < 1.0:
         logits = top_p_filter(logits, params.top_p)
-    probs = torch.softmax(logits, dim=-1)
-    # a non-finite row would make multinomial raise; it draws from uniform
-    # weights instead and finite_guard turns its sample into the sentinel
-    probs = torch.where(torch.isfinite(probs).all(-1, keepdim=True), probs, 1.0)
-    return torch.multinomial(probs, 1, generator=generator)[:, 0].to(torch.int32)
+    return gumbel_argmax(logits, generator)
+
+
+def gumbel_argmax(logits: torch.Tensor, generator: Optional[torch.Generator] = None
+                  ) -> torch.Tensor:
+    """One categorical draw per row of ``logits`` [B, v] by Gumbel-max (as
+    ``jax.random.categorical`` draws): argmax(logits - log(-log(u))), u
+    uniform from ``generator``.  Unlike ``torch.multinomial`` it checks
+    nothing on the host, so a CUDA graph can hold it; a non-finite row
+    draws some index, which ``finite_guard`` turns into the sentinel."""
+    u = torch.rand(logits.shape, generator=generator, device=logits.device)
+    u.clamp_(min=torch.finfo(torch.float32).tiny)
+    return torch.argmax(logits - torch.log(-torch.log(u)), dim=-1).to(torch.int32)

@@ -23,16 +23,24 @@ each ``tick()`` runs
   proposed before its pages are reserved, a request sheds its own drafts
   before anyone is preempted, and tokens speculated past a stop token are
   dropped.
+* **Megastep** (``engine.serve.decode_megastep`` = n > 1): a decode-only
+  tick fuses up to n decode ticks into ONE device-resident engine burst
+  (``engine._decode_burst``: one host sync, per-request stop tokens and
+  emission caps enforced on the device).  The plan collapses to one tick
+  whenever a request waits, a running request is still in prefill, or
+  speculation has proposals; under pool pressure it collapses to one tick
+  before anyone is preempted.
 
 Every request ends in one terminal state (``finished`` / ``failed`` /
 ``cancelled``) through the single ``_release`` path.  A row whose logits
 were non-finite (the engine's -1 sentinel) fails that request only.
 
-Not ported yet: deadlines, shed mode and the watchdog, transient retries
-and per-request isolation of a failing dispatch, fault injection, live
-knobs, megastep bursts, KV-handoff adoption, and the intake
-lock (this scheduler is driven from one thread).  A dispatch exception —
-a kernel build or launch error included — propagates out of ``tick()``.
+Not ported yet: deadlines (and with them the megastep's deadline clamp),
+shed mode and the watchdog, transient retries and per-request isolation of
+a failing dispatch, fault injection, live knobs, KV-handoff adoption, and
+the intake lock (this scheduler is driven from one thread).  A dispatch
+exception — a kernel build or launch error, or a graph capture or replay
+error, included — propagates out of ``tick()``.
 """
 from __future__ import annotations
 
@@ -351,6 +359,31 @@ class ServeScheduler:
     def _speculating(self) -> bool:
         return self.engine.enable_speculation
 
+    def _remaining_emit(self, req: ServeRequest) -> int:
+        """Tokens ``req`` may still emit: its ``max_new_tokens`` budget and
+        the engine's ``max_seq_len`` headroom (>= 1 for a live DECODE
+        request: anything at either cap finished last tick)."""
+        seq = self.engine.mgr.seqs[req.uid]
+        return max(1, min(req.sampling.max_new_tokens - len(req.generated),
+                          self.engine.max_seq_len - seq.cur_len))
+
+    def _plan_megastep(self, decoding: List[ServeRequest], proposals) -> int:
+        """Decode ticks to fuse into ONE device burst this tick (JAX
+        ``_plan_megastep`` without its deadline clamp: the port has no
+        deadlines yet).  ``serve.decode_megastep`` is the ceiling; the plan
+        is 1 whenever the tick has other work (waiting requests, running
+        requests still in PREFILL, live speculation proposals), else the
+        ceiling clamped to the largest remaining emission."""
+        n = self.engine.serve.decode_megastep
+        if n <= 1 or self.waiting:
+            return 1
+        live = [r for r in decoding if r.state == DECODE]
+        if not live or any(r.state == PREFILL for r in self._running):
+            return 1
+        if self._speculating and proposals:
+            return 1
+        return max(1, min(n, max(self._remaining_emit(r) for r in live)))
+
     def _decode_phase(self, decoding: List[ServeRequest]) -> Dict[int, int]:
         out: Dict[int, int] = {}
         eng = self.engine
@@ -365,13 +398,18 @@ class ServeScheduler:
                 [mgr.seqs[r.uid] for r in live],
                 max_total_draft_tokens=self._spec_budget,
                 max_emit={r.uid: r.sampling.max_new_tokens - len(r.generated) for r in live})
+        # how many decode ticks this tick fuses into one device burst
+        n_fuse = self._plan_megastep(decoding, proposals)
         for req in decoding:
             if req.state != DECODE:  # preempted by an earlier victim pick
                 continue
             seq = mgr.seqs[req.uid]
             while True:
+                # a megastep reserves each row's whole burst up front
+                need = (min(n_fuse, self._remaining_emit(req)) if n_fuse > 1
+                        else 1 + len(proposals.get(req.uid, ())))
                 try:
-                    mgr.ensure_capacity(seq, 1 + len(proposals.get(req.uid, ())))
+                    mgr.ensure_capacity(seq, need)
                     mgr.ensure_writable(seq, seq.cur_len - 1)
                     break
                 except RuntimeError:
@@ -379,6 +417,12 @@ class ServeScheduler:
                     # anyone: speculation is optional, residency is not
                     if proposals.pop(req.uid, None):
                         self.stats["drafts_shed"] += 1
+                        continue
+                    if n_fuse > 1:
+                        # pool pressure: collapse the megastep to one tick
+                        # before evicting anyone (plain decode needs only
+                        # one page of growth)
+                        n_fuse = 1
                         continue
                     victim = self._pick_victim(exclude=req)
                     if victim is None:
@@ -392,12 +436,19 @@ class ServeScheduler:
         if not survivors:
             return out
         seqs = [mgr.seqs[r.uid] for r in survivors]
-        if self._speculating:  # proposals hold survivors only: victims' were dropped
+        if n_fuse > 1:
+            runs = eng._decode_burst(
+                seqs, self._base_sampling(), n_fuse,
+                max_emit={r.uid: self._remaining_emit(r) for r in survivors},
+                stop_tokens={r.uid: r.sampling.stop_token for r in survivors})
+        elif self._speculating:  # proposals hold survivors only: victims' were dropped
             runs = eng._spec_tick(seqs, self._base_sampling(), proposals)
         else:
             runs = {u: [t] for u, t in eng._decode_tick(seqs, self._base_sampling()).items()}
         for req in survivors:
             emitted = runs[req.uid]
+            if not emitted:
+                continue  # no emission headroom this burst
             if emitted[-1] < 0:
                 self._release(req, FAILED,
                               mgr.seqs[req.uid].error or "non-finite logits in decode")

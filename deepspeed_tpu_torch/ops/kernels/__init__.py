@@ -13,7 +13,8 @@ interface, loaded with ``ctypes``) at first use, all sources in parallel,
 into ``csrc/build/<source hash>/``.  Nothing is built at import.
 
 ``LAUNCHES`` counts each wrapper's kernel launches, so a run can show that
-its main path went through the kernels.
+its main path went through the kernels.  A launch recorded into a
+``CapturedGraph`` counts once per replay of the graph, not at capture.
 """
 from __future__ import annotations
 
@@ -217,7 +218,15 @@ def _load(src: str) -> ctypes.CDLL:
 
 def launch(name: str, *args) -> None:
     """Call kernel ``name``'s C entry on the current stream and count the
-    launch; raises when the launch was refused (``cudaGetLastError``)."""
+    launch; raises when the launch was refused (``cudaGetLastError``).
+
+    On a capturing stream the call records the launch into the graph;
+    ``CapturedGraph`` moves that count from capture time to each replay.
+    Nothing is built under a capture: the first call of a kernel runs
+    eagerly before its graph is captured."""
+    if SOURCES[name] not in _LIBS and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(f"CUDA kernel {name} was not built before a CUDA-graph capture: "
+                           "run the captured function once eagerly first")
     build([name])
     sym, _ = _ARGTYPES[name]
     stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
@@ -225,6 +234,46 @@ def launch(name: str, *args) -> None:
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {err}")
     LAUNCHES[name] += 1
+
+
+class CapturedGraph:
+    """A ``torch.cuda.CUDAGraph`` whose replays count the kernel launches
+    captured in it: ``capture(fn)`` records ``fn``'s work (run ``fn`` once
+    eagerly before, so every kernel is built and configured), ``replay()``
+    runs it and adds the captured launches to ``LAUNCHES``.  Tensors that
+    ``fn`` allocates live in the graph's private memory pool for as long as
+    the graph does."""
+
+    def __init__(self):
+        self.graph = torch.cuda.CUDAGraph()
+        self.launches: Dict[str, int] = {}
+
+    def capture(self, fn, stream: Optional["torch.cuda.Stream"] = None,
+                generators: Iterable[torch.Generator] = ()):
+        """Capture ``fn()`` on ``stream`` (a side stream by default) and
+        return what it returns.  ``generators``: the CUDA generators ``fn``
+        draws from, registered with the graph so each replay draws anew
+        (the default generator is registered by PyTorch itself)."""
+        for gen in generators:
+            if not hasattr(self.graph, "register_generator_state"):
+                raise NotImplementedError(
+                    f"PyTorch {torch.__version__} cannot capture draws from a torch.Generator "
+                    "(CUDAGraph.register_generator_state is missing)")
+            self.graph.register_generator_state(gen)
+        before = dict(LAUNCHES)
+        try:
+            with torch.cuda.graph(self.graph, stream=stream):
+                out = fn()
+        finally:
+            # the calls recorded launches that run only at replay
+            self.launches = {n: LAUNCHES[n] - c for n, c in before.items() if LAUNCHES[n] != c}
+            LAUNCHES.update(before)
+        return out
+
+    def replay(self) -> None:
+        self.graph.replay()
+        for n, c in self.launches.items():
+            LAUNCHES[n] += c
 
 
 def ptr(t: Optional[torch.Tensor]) -> ctypes.c_void_p:

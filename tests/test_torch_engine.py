@@ -133,7 +133,7 @@ def test_submit_reasons_and_generate(pair):
 def test_unsupported_arguments_raise(pair):
     from deepspeed_tpu_torch.parallel.topology import Grid, MeshSpec
 
-    _, _, tcfg, tp = pair
+    jcfg, jp, tcfg, tp = pair
     # a tensor-parallel grid is refused with the rest (ROADMAP queue 1 item
     # 7); seq shards are ported (tests/test_torch_seq_shard.py)
     tp_grid = Grid(spec=MeshSpec(model=2), devices=[torch.device("cpu")] * 2)
@@ -151,9 +151,16 @@ def test_unsupported_arguments_raise(pair):
         with pytest.raises(ValueError):
             InferenceEngineV2(tp, tcfg, device="cpu", num_blocks=8, enable_speculation=True,
                               **kw)
+    # step_n is ported (tests/test_torch_megastep.py): a burst of two ticks
+    # returns the last token of each sequence, as JAX's does
     eng = InferenceEngineV2(tp, tcfg, device="cpu", num_blocks=8)
-    with pytest.raises(NotImplementedError):
-        eng.step_n(2)
+    je = JEngine(jp, jcfg, num_blocks=8)
+    assert eng.put([1], [[5, 6, 7, 8]]) == je.put([1], [[5, 6, 7, 8]])
+    out = eng.step_n(2)
+    assert out == je.step_n(2) and set(out) == {1} and out[1] >= 0
+    assert eng.mgr.seqs[1].tokens == je.mgr.seqs[1].tokens
+    assert len(eng.mgr.seqs[1].tokens) == 4 + 1 + 2
+    _close_both(je, eng)
 
 
 def test_no_device_and_no_cuda_raises(pair):

@@ -20,7 +20,10 @@ subnormal and outlier rows, ragged and unaligned shapes, fp32 / fp16), and
 a call the kernels refuse raises without reaching a plain body.  The
 reference API: top-p sampling on CUDA over rows whose cumulative sum never
 reaches top_p (``chip_smoke.sampling_phase``), and the training engine's
-forward / backward / step against ``train_batch`` on the card.  This file imports neither JAX nor the JAX package, so it
+forward / backward / step against ``train_batch`` on the card.  Decode
+bursts: a captured K2 call counts one launch per replay; a sampled burst
+draws from the filtered softmax (a frequency test over 2,048 draws); a
+burst after a copy-on-write clone reads the clone.  This file imports neither JAX nor the JAX package, so it
 runs where only PyTorch is installed::
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
@@ -568,3 +571,141 @@ def test_sparse_training_step_on_the_card():
     want = float(cpu.train_batch(batch))
     assert abs(got - want) <= 1e-2 * abs(want)
     assert all(bool(torch.isfinite(p).all()) for p in card._params_list)
+
+
+# ---------------------------------------------------------------------------
+# decode bursts: the tick as a captured CUDA graph
+# ---------------------------------------------------------------------------
+def _small_serving_cfg():
+    """``tiny`` at head_dim 64 (the kernels' smallest), bf16."""
+    from deepspeed_tpu_torch.models.presets import get_preset
+
+    return get_preset("tiny", hidden_size=128, num_heads=2, num_kv_heads=1, head_dim=64)
+
+
+@pytest.mark.gpu
+def test_captured_kernel_launches_count_per_replay():
+    """K2 captured in a ``CapturedGraph`` and replayed 3 times adds 3 to
+    ``LAUNCHES`` (the capture itself adds nothing), and the replays compute
+    what an eager call computes.  A timing graph captured outside
+    ``CapturedGraph`` (``chip_smoke.graph_ms``) counts its calls as eager
+    ones, at capture."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    c = chip_smoke.decode_case(torch, gen, B=8, inactive=2, max_len=300)
+    want = paged_attention_decode(**c)  # eager: builds and configures K2
+    K.reset_launches()
+    graph = K.CapturedGraph()
+    out = graph.capture(lambda: paged_attention_decode(**c))
+    assert K.LAUNCHES["paged_decode"] == 0 and graph.launches == {"paged_decode": 1}
+    for _ in range(3):
+        graph.replay()
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["paged_decode"] == 3
+    assert torch.equal(out, want)
+    # graph_ms: one eager warm-up call, then two calls captured
+    chip_smoke.graph_ms(torch, lambda: paged_attention_decode(**c), iters=2, reps=1)
+    assert K.LAUNCHES["paged_decode"] == 6
+
+
+def _constant_logits_params(cfg, logits):
+    """Weights whose logits are ``logits`` [v] at every row and position:
+    every token embeds to ones, the attention and MLP outputs are zeroed
+    (K2 still runs and writes the pools), the final norm of ones is ones,
+    and the head's column j sums to logits[j]."""
+    from deepspeed_tpu_torch.models.transformer import init_params
+
+    p = init_params(cfg, seed=0, device="cuda")
+    d = cfg.hidden_size
+    p["embed"]["embedding"].fill_(1.0)
+    p["layers"]["attn"]["wo"].zero_()
+    p["layers"]["mlp"]["w_down"].zero_()
+    p["lm_head"]["kernel"].copy_((logits / d)[None, :].expand(d, -1))
+    return p
+
+
+@pytest.mark.gpu
+def test_sampled_burst_draws_from_the_filtered_softmax():
+    """A temperature > 0 burst (top_p 0.9, temperature 0.8) on weights whose
+    logits are the same at every row and tick: 64 rows x 16 ticks x 2 bursts
+    (the first captures, the second only replays) are 2,048 draws from one
+    distribution.  Each token's frequency is within 5 standard errors of its
+    filtered-softmax probability, no filtered-out token is drawn, and the
+    replayed ticks draw anew (the engine's generator is registered with the
+    graph)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from deepspeed_tpu_torch.inference import model_runner
+    from deepspeed_tpu_torch.inference.engine_v2 import InferenceEngineV2
+    from deepspeed_tpu_torch.inference.sampling import SamplingParams, top_p_filter
+
+    cfg = _small_serving_cfg()
+    v, B, n = cfg.vocab_size, 64, 16
+    target = torch.where(torch.arange(v) < 48, 3.0 - 0.08 * torch.arange(v), -8.0)
+    params = _constant_logits_params(cfg, target.cuda())
+    eng = InferenceEngineV2(params, cfg, max_seqs=B, num_blocks=256, block_size=16,
+                            prefill_buckets=(64,), prefill_budget=64)
+    samp = SamplingParams(temperature=0.8, top_p=0.9, max_new_tokens=64)
+    eng.put(list(range(1, B + 1)), [[1, 2, 3, 4]] * B, samp)
+    logits, _ = model_runner.decode_step(eng.params, cfg, [5], [4], eng._tables_np[:1],
+                                         [False], eng.kv)
+    probs = torch.softmax(top_p_filter(logits[0].float().cpu() / 0.8, 0.9), dim=-1)
+    draws = []
+    for _ in range(2):
+        before = [len(eng.mgr.seqs[u].tokens) for u in range(1, B + 1)]
+        eng.step_n(n, samp)
+        draws.append(torch.tensor([eng.mgr.seqs[u].tokens[b:] for u, b in
+                                   zip(range(1, B + 1), before)]))  # [B, n]
+    assert eng.stats["decode_bursts"] == 2 and eng.stats["burst_ticks"] == 2 * n
+    ticks = torch.cat(draws, dim=1)  # [B, 2n]
+    assert any(not torch.equal(ticks[:, 1], ticks[:, t]) for t in range(2, 2 * n))
+    freq = torch.bincount(ticks.reshape(-1), minlength=v).double() / ticks.numel()
+    assert float(freq[probs == 0].sum()) == 0.0
+    se = (probs * (1 - probs) / ticks.numel()).sqrt()
+    assert bool((freq - probs).abs().le(5 * se + 1e-3).all()), (freq - probs).abs().max()
+    assert eng.close()["blocks_in_use"] == 0
+
+
+@pytest.mark.gpu
+def test_burst_after_copy_on_write_reads_the_clone_on_the_card():
+    """The first burst captures the tick; then the page the sequence writes
+    next gets a second owner, so the next burst's reservation clones it in
+    place (``cow_hook``) in the same pool tensors the graph reads: the
+    replayed ticks read the clone, and the tokens equal an engine that never
+    shared the page.  K2 launched layers x (1 eager + 1 replayed) ticks in
+    the first burst and layers x 6 replays in the second."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from deepspeed_tpu_torch.inference.engine_v2 import InferenceEngineV2
+    from deepspeed_tpu_torch.models.transformer import init_params
+
+    cfg = _small_serving_cfg()
+    params = init_params(cfg, seed=0, device="cuda")
+    L = cfg.num_layers
+    prompt = list(range(3, 14))  # 11 tokens: the 12th to 16th land in page 0 (bs 16)
+
+    def run(share):
+        eng = InferenceEngineV2(params, cfg, max_seqs=4, num_blocks=32, block_size=16,
+                                prefill_buckets=(64,), prefill_budget=64)
+        eng.put([1], [prompt])
+        K.reset_launches()
+        eng.step_n(2)
+        assert K.LAUNCHES["paged_decode_hd64"] == 2 * L
+        seq = eng.mgr.seqs[1]
+        page = seq.blocks[(seq.cur_len - 1) // 16]
+        if share:
+            eng.mgr.allocator.ref(page)
+        K.reset_launches()
+        eng.step_n(6)
+        assert K.LAUNCHES["paged_decode_hd64"] == 6 * L
+        clones = eng.mgr.cow_copies
+        if share:
+            assert page not in seq.blocks
+            eng.mgr.allocator.free([page])
+        toks = list(seq.tokens)
+        assert eng.close()["blocks_in_use"] == 0
+        return toks, clones
+
+    (shared, clones), (plain, none) = run(True), run(False)
+    assert shared == plain and clones == 1 and none == 0
