@@ -27,8 +27,12 @@ Phases, each raising on failure (so the exit code is non-zero):
                group of 71), and the
                training backward (K1f's lse, the dq and dk/dv kernels) at
                s 4096 and 4097, packed batches with segments and soft cap,
-               s 200, head_dim 64 and 256, and a group of 71 (falcon_7b's
-               71 query heads on 1 kv head; BWD_TOL, LSE_TOL); the
+               s 200, head_dim 64 and 256, and groups of 71 (falcon_7b's
+               71 query heads on 1 kv head) and 7 (qwen2_7b's 28 on 4;
+               BWD_TOL, LSE_TOL); K1f / K1b at head_dim 80 and 96 through
+               the ``flash_attention`` entry's zero padding to 128
+               (``PADDED_CASES``: o, dq, dk, dv against the plain versions
+               at the real head dim, one launch of each kernel); the
                dequant-matmuls (K4 int8 / e4m3, K5 fp6) at every llama3_8b
                serving-matmul shape, M 1, 16, 300, 512 and 2048, and ragged
                and unaligned shapes with a bias (QMM_TOL, relative
@@ -39,7 +43,7 @@ Phases, each raising on failure (so the exit code is non-zero):
                a multiple of 16, fp32 / fp16 rows, rows wider than the
                registers hold and an unaligned base;
                K2 and K3 (``DECODE_CASES``, ``CTX_CASES``) at head_dim 64 /
-               128 / 256, query groups 1, 4, 16 and 71, blocks of 8, 16
+               128 / 256, query groups 1, 4, 7, 16 and 71, blocks of 8, 16
                and 32: idle slots, a 4,096-key slot and context, -1 and
                out-of-range ids, soft caps, verify-shaped packs whose
                contexts end mid-page, pad rows exactly 0; the partial modes
@@ -160,6 +164,36 @@ Phases, each raising on failure (so the exit code is non-zero):
                times a step, K8 once, no flash kernel; the profiled step's
                host-to-device copies (the batch only: the layout's tables
                are cached on the card);
+   optimizers -- Lamb, Lion, Adagrad and Muon (plain PyTorch updates; JAX
+               builds them with optax): 3 updates of the 2-layer
+               full-width flagship tree in the engine's layout on the card
+               and on the CPU from the same seeded fp32 gradients (max abs
+               error over max |p| within OPT_TOL, Muon OPT_NS_TOL); then
+               the train flagship with each (one warm-up, 3 timed steps):
+               step time and tokens/s beside the train phase's AdamW, the
+               update alone (CUDA events, and device ms under the
+               profiler) beside its bound,
+               ``opt_state_bytes``, finite losses, no K8 launch;
+   remat    -- the train flagship under remat none, full, selective, dots
+               and offload (micro 8, or all at micro 4 if none does not
+               fit): step time, peak memory of the timed steps, K1f / K1b
+               launches a step (K1f twice a layer under full and dots),
+               the bytes offload moves to the host and back a step;
+               peak(full) <= peak(dots) <= peak(none), peak(offload) <
+               peak(selective);
+   presets_train -- every registered preset but llama3_70b and the two
+               covered above, at full width and 2 layers, bf16, its own
+               remat and attention: one train step at seq 64 against the
+               port on the CPU in fp32 (TRAIN_LOSS_RTOL, GRAD_COS_MIN on
+               layer 0's attention gradients), K1f / K1b launches (phi_2
+               and gpt_neox_20b through the padding; none for the
+               reference attention), peak memory;
+   presets_serve -- llama2_7b, mistral_7b, qwen2_7b and opt_6_7b at full
+               depth, bf16: 16 prompts of 128 through ``put``, 32 greedy
+               ``step``s (K1f and K2 layers x dispatches), a profiled tick;
+               a 2-layer full-width copy serves 2 streams that replay on
+               the CPU in fp32 (near-argmax); no block in use after
+               ``close()``;
 7. quant_check -- ``llama3_8b`` at full width, 2 layers: for int8, fp8 and
                fp6 an engine on the card serves 4 prompts of 64 tokens and 8
                greedy steps; the same payloads replay every stream on the
@@ -188,6 +222,9 @@ Phases, each raising on failure (so the exit code is non-zero):
                same two ways, ``paged_timings``; K6a / K6b / K6c on
                [4096, 14336] bf16 by CUDA-graph replay and eager,
                ``quant_row_times``),
+               K1f / K1b at head_dim 80 and 96 through the padded entry
+               at phi_2's and gpt_neox_20b's heads beside SDPA at the real
+               head dim (``padded_timings``),
                and K1's and K7's CUDA-core times before their tensor-core
                redesigns (``K1_EARLIER_MS``, ``K7_EARLIER_MS``, from
                PERF.md) as ``earlier_ms``.
@@ -481,6 +518,7 @@ DECODE_CASES = (
     ("B16_hq71_hkv1_hd64_bs16_badids", dict(B=16, nb=2048, bs=16, P=80, hq=71, hkv=1, hd=64,
                                             inactive=2, bad_ids=True), None),
     ("B8_hq71_hkv1_hd128_cap5", dict(B=8, nb=512, hq=71, hkv=1, inactive=1), 5.0),
+    ("B16_hq28_hkv4_hd128_qwen2", dict(B=16, nb=1024, hq=28, hkv=4, inactive=2), None),
 )
 # K3 on the card, (label, case kind, its arguments, soft cap): the scheduler's
 # and verify ticks' packs, contexts ending mid-page, pad rows between
@@ -497,6 +535,8 @@ CTX_CASES = (
     ("midpage_hq16_hkv1_hd128_bs8", "ctx", dict(hq=16, hkv=1, bs=8, P=80, nb=512), None),
     ("midpage_hq71_hkv1_hd64_bs16", "ctx", dict(hq=71, hkv=1, hd=64, bs=16, P=40, nb=256), None),
     ("ctx4096_hq8_hkv2_hd128", "ctx", dict(sfx=(64, 17), ctx=(4096, 300), P=130, nb=512), None),
+    ("verify_N8x5_hq28_hkv4_hd128_qwen2", "verify", dict(hq=28, hkv=4, hd=128), None),
+    ("midpage_hq28_hkv4_hd128_bs16_cap5", "ctx", dict(hq=28, hkv=4, bs=16, P=40, nb=256), 5.0),
 )
 # the partial modes on striped pools, (label, case kind, arguments, shards)
 CTX_PARTIAL_CASES = (
@@ -788,6 +828,7 @@ def kernel_checks(torch):
         ("T192_noseg", dict(flash_case(torch, gen, [192], 0), segment_ids=None)),
         ("T300_hd256", flash_case(torch, gen, [100, 200], 0, hd=256)),
         ("T200_hq71_hkv1_hd64", flash_case(torch, gen, [120, 80], 0, hq=71, hkv=1, hd=64)),
+        ("T300_hq28_hkv4_hd128", flash_case(torch, gen, [100, 150], 50, hq=28, hkv=4)),
     ):
         got = K1.flash_attention_kernel(case["q"], case["k"], case["v"], case["segment_ids"],
                                         logits_soft_cap=case["cap"])
@@ -831,6 +872,9 @@ def kernel_checks(torch):
         ("b1_s256_hq71_hkv1_hd64", bwd_case(torch, gen, 1, 256, 71, 1, 64)),
         ("b2_s640_hq4_hkv1_hd256_packed_cap5", bwd_case(torch, gen, 2, 640, 4, 1, 256,
                                                         seg_lens=[200, 300, 100], cap=5.0)),
+        ("b1_s512_hq28_hkv4_hd128", bwd_case(torch, gen, 1, 512, 28, 4, 128)),
+        ("b2_s300_hq28_hkv4_hd128_packed", bwd_case(torch, gen, 2, 300, 28, 4, 128,
+                                                    seg_lens=[120, 100, 60])),
     ):
         q, k, v, do, seg, cap = (case[n] for n in ("q", "k", "v", "do", "seg", "cap"))
         sc = q.shape[-1] ** -0.5
@@ -848,9 +892,56 @@ def kernel_checks(torch):
         record("flash_bwd_dkv", label + "_dv", dv, dv_r, tol=BWD_TOL, relative=True)
         del case, q, k, v, do, o, lse, dq, dk, dv, f, o_ref, lse_ref, dq_r, dk_r, dv_r
     _free(torch)
+    padded_kernel_checks(torch, gen, record)
     sparse_kernel_checks(torch, record)
     errs["fused_adamw"], adam_cases_ = adam_kernel_checks(torch)
     return errs, results + adam_cases_
+
+
+# the flash entry's padded head dims (phi_2: 80, gpt_neox_20b: 96), each
+# (label, bwd_case arguments): the kernels run at 128 on zero-padded q / k / v
+PADDED_CASES = (
+    ("b1_s512_hq32_hkv32_hd80_phi2", dict(b=1, s=512, hq=32, hkv=32, hd=80)),
+    ("b2_s300_hq8_hkv2_hd80_packed_cap5", dict(b=2, s=300, hq=8, hkv=2, hd=80,
+                                                seg_lens=[120, 100, 60], cap=5.0)),
+    ("b1_s512_hq16_hkv16_hd96_neox", dict(b=1, s=512, hq=16, hkv=16, hd=96)),
+    ("b1_s4097_hq8_hkv8_hd96", dict(b=1, s=4097, hq=8, hkv=8, hd=96)),
+)
+
+
+def padded_kernel_checks(torch, gen, record):
+    """K1f / K1b at head dims 80 and 96 through the ``flash_attention`` entry
+    (autograd through the zero pad and the slice): o, dq, dk, dv against the
+    plain versions at the real head dim in fp32 (KERNEL_TOL on o, BWD_TOL
+    relative per block on all four); each case launches K1f once and each
+    backward kernel once."""
+    from deepspeed_tpu_torch.ops import kernels as K
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as K1
+
+    for label, kw in PADDED_CASES:
+        c = bwd_case(torch, gen, **kw)
+        q, k, v = (c[n].requires_grad_(True) for n in ("q", "k", "v"))
+        before = dict(K.LAUNCHES)
+        o = K1.flash_attention(q, k, v, segment_ids=c["seg"], logits_soft_cap=c["cap"])
+        dq, dk, dv = torch.autograd.grad(o, (q, k, v), c["do"])
+        ran = {n: K.LAUNCHES[n] - before[n] for n in ("flash_fwd", "flash_bwd_dq",
+                                                      "flash_bwd_dkv")}
+        if ran != {"flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}:
+            raise AssertionError(f"padded {label}: launches {ran}")
+        f = [x.detach().float() for x in (q, k, v)]
+        sc = kw["hd"] ** -0.5
+        o_ref, lse = K1.flash_attention_fwd_plain(*f, c["seg"], sc, c["cap"])
+        refs = K1.flash_attention_bwd_plain(*f, c["seg"], o_ref, lse, c["do"].float(), sc,
+                                            c["cap"])
+        o = o.detach()
+        record("flash_fwd", label, o, o_ref)
+        record("flash_fwd", label + "_rel", o, o_ref, tol=BWD_TOL, relative=True)
+        for name, suffix, got, ref in (("flash_bwd_dq", "", dq, refs[0]),
+                                       ("flash_bwd_dkv", "_dk", dk, refs[1]),
+                                       ("flash_bwd_dkv", "_dv", dv, refs[2])):
+            record(name, label + suffix, got, ref, tol=BWD_TOL, relative=True)
+        del c, q, k, v, o, dq, dk, dv, f, o_ref, lse, refs
+    _free(torch)
 
 
 def shard_view(torch, case, s, stripes, table_key):
@@ -2147,6 +2238,14 @@ def _attn_grads(torch, engine, micro):
     return {n: g[0].float().cpu().flatten() for n, g in zip(names, grads)}
 
 
+def grad_cosines(torch, got, ref):
+    """{name: cosine similarity of got[name] and ref[name]}, in fp64: a
+    float32 reduction over a 4096 x 4096 gradient errs by about 0.5 %, and
+    reads above 1."""
+    return {n: float(torch.nn.functional.cosine_similarity(got[n].double(), ref[n].double(),
+                                                           dim=0)) for n in got}
+
+
 def train_check_phase(torch, K, gpu, sparse=None):
     """Phase 5 (``train_check``), or with a ``sparse_attention`` section
     ``sparse`` the same check of the block-sparse path
@@ -2168,8 +2267,7 @@ def train_check_phase(torch, K, gpu, sparse=None):
     micro0 = {"input_ids": batch["input_ids"][0]}
     g_card = _attn_grads(torch, card, micro0)
     g_cpu = _attn_grads(torch, cpu, micro0)
-    cos = {n: float(torch.nn.functional.cosine_similarity(g_card[n], g_cpu[n], dim=0))
-           for n in g_card}
+    cos = grad_cosines(torch, g_card, g_cpu)
     K.reset_launches()
     card_losses = [float(card.train_batch(batch)) for _ in range(steps)]
     launches = dict(K.LAUNCHES)
@@ -2447,6 +2545,424 @@ def adam_timing(torch, engine):
                 plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound, bound_by=by,
                 library_note="torch._fused_adamw_ over the same leaves (multi-tensor "
                              "apply), the same update up to rounding")
+
+
+# ---------------------------------------------------------------------------
+# the rest of the one-card training surface: optimizers, remat, presets
+# ---------------------------------------------------------------------------
+# the optimizers that are plain PyTorch updates (JAX builds them with optax
+# and no Pallas kernel), each with the config params the phases give it
+NEW_OPTIMIZERS = {"lamb": {"lr": 1e-4, "weight_decay": 0.1},
+                  "lion": {"lr": 1e-4, "weight_decay": 0.1},
+                  "adagrad": {"lr": 1e-4}, "muon": {"lr": 1e-4}}
+# the card's parameters after 3 updates against the CPU's from the same fp32
+# gradients, max |p_card - p_cpu| / max |p|.  The elementwise rules are the
+# same IEEE fp32 operations in the same order on both (bit-equal but for
+# pow / rsqrt / the norms' summation order, which move an update by an ulp
+# or two); Muon's update is 15 fp32 matrix products a 2-D leaf a step, whose
+# summation order cuBLAS and the CPU's BLAS choose apart, and Newton-Schulz
+# iterations amplify the differences of small singular directions.
+OPT_TOL = 1e-6
+OPT_NS_TOL = 1e-5
+OPT_CHECK_LR = 1e-3
+OPT_STEPS = 3
+# the train flagship's shape (bench.py:42-109), which the optimizers' and
+# remat phases run at
+FLAGSHIP = dict(seq=4096, micro=8, gas=2)
+
+
+def optimizer_check(torch, name):
+    """``name`` on the 2-layer full-width flagship tree, OPT_STEPS updates on
+    the card and on the CPU from the same seeded fp32 gradients."""
+    from deepspeed_tpu_torch.models.presets import get_preset
+    from deepspeed_tpu_torch.models.transformer import init_params
+    from deepspeed_tpu_torch.ops.optimizers import build_optimizer
+    from deepspeed_tpu_torch.runtime.engine import _flat_masters, _leaves
+
+    cfg = get_preset("llama3_proxy_410m", num_layers=2)
+    tree = _tree_cpu(init_params(cfg, seed=SEED, device=DEVICE, dtype=torch.float32))
+    p0 = torch.cat([x.reshape(-1) for x in _leaves(tree, [])])
+    gen = torch.Generator().manual_seed(SEED + 7)
+    grads = [torch.randn(p0.numel(), generator=gen) * 1e-3 for _ in range(OPT_STEPS)]
+    out = {}
+    for dev in (DEVICE, "cpu"):
+        masters = _flat_masters(tree, torch.device(dev))  # the engine's layout
+        opt = build_optimizer(name, NEW_OPTIMIZERS[name])
+        state = opt.init(masters.leaves)
+        lr = torch.tensor(OPT_CHECK_LR, device=dev)
+        t0 = time.perf_counter()
+        for g in grads:
+            masters.grad.copy_(g)
+            opt.step(masters.leaves, masters.grads, state, lr)
+        if dev == DEVICE:
+            torch.cuda.synchronize()
+        out[dev] = (masters.flat.detach().cpu(), time.perf_counter() - t0)
+    card, cpu = out[DEVICE][0], out["cpu"][0]
+    err = float((card - cpu).abs().max()) / float(cpu.abs().max())
+    upd_err = float((card - cpu).abs().max()) / float((cpu - p0).abs().max())
+    tol = OPT_NS_TOL if name == "muon" else OPT_TOL
+    res = dict(optimizer=name, elements=p0.numel(), steps=OPT_STEPS, lr=OPT_CHECK_LR,
+               max_abs_err_over_max_p=err, limit=tol,
+               max_abs_err_over_max_update=upd_err, card_s=out[DEVICE][1],
+               cpu_s=out["cpu"][1])
+    if not (err <= tol and torch.isfinite(card).all()):
+        raise AssertionError(f"optimizers: {name} card against CPU {res}")
+    return res
+
+
+def optimizer_cost(torch, K, name, adamw_step_s):
+    """The train flagship (seq 4096, micro 8, GAS 2) with optimizer ``name``:
+    one warm-up, 3 timed ``train_batch`` steps, the optimizer's update alone
+    on the engine's buffers under the profiler, its state bytes."""
+    import numpy as np
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.models.presets import get_preset
+    from deepspeed_tpu_torch.models.transformer import CausalLM
+
+    micro, seq, gas, steps = FLAGSHIP["micro"], FLAGSHIP["seq"], FLAGSHIP["gas"], 3
+    model = CausalLM(get_preset("llama3_proxy_410m", loss_chunk_size=2048))
+    conf = bench_config(micro, gas)
+    conf["optimizer"] = {"type": name, "params": NEW_OPTIMIZERS[name]}
+    engine, _, _, _ = initialize(model=model, config=conf)
+    batch = {"input_ids": np.random.default_rng(SEED).integers(
+        0, model.cfg.vocab_size, (gas, micro, seq + 1), dtype=np.int64)}
+    losses = [float(engine.train_batch(batch))]
+    K.reset_launches()
+    step_s = []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(engine.train_batch(batch)))
+        step_s.append(time.perf_counter() - t0)
+    launches = dict(K.LAUNCHES)
+    want = {"flash_fwd": model.cfg.num_layers * gas * steps, "fused_adamw": 0}
+    if any(launches[n] != w for n, w in want.items()):
+        raise AssertionError(f"optimizers: {name} launches {launches} against {want}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"optimizers: {name} losses {losses}")
+    lr = torch.tensor(1e-4, device=DEVICE)
+
+    def update():
+        engine.optimizer.step(engine._params_list, engine._masters.grads, engine.opt_state, lr)
+
+    update_ms = time_ms(torch, update, iters=3, warm=1)
+    opt_wall, opt_dev, rows = _device_profile(torch, update, top=5)
+    bound, by = _update_bound(name, engine._params_list)
+    med = sorted(step_s)[len(step_s) // 2]
+    tokens = gas * micro * seq
+    res = dict(optimizer=name, step_s=step_s, step_s_median=med, tokens_per_s=tokens / med,
+               adamw_step_s_median=adamw_step_s, step_over_adamw=med / adamw_step_s,
+               update_ms=update_ms, update_bound_ms=bound, update_bound_by=by,
+               update_wall_ms=opt_wall, update_device_ms=opt_dev, update_top=rows,
+               opt_state_bytes=engine.memory_breakdown()["opt_state_bytes"],
+               peak_memory_bytes=torch.cuda.max_memory_allocated(), losses=losses,
+               launches=launches)
+    del engine
+    _free(torch)
+    return res
+
+
+def _update_bound(name, leaves):
+    """(ms, what bounds it) of one update over ``leaves``: fp32 bytes of
+    the parameters, gradients and moments each read once and the
+    parameters and moments written once (Lion, Adagrad and Muon's 2-D
+    leaves 5 an element, Lamb and NAdamW 7), against Muon's Newton-Schulz
+    products at the fp32 rate (5 steps of 4 m^2 n + 2 m^3 flops on an m x
+    n leaf, m <= n)."""
+    per_elem = {"lamb": 7, "lion": 5, "adagrad": 5}
+    flops, nbytes = 0, 0
+    for p in leaves:
+        if name == "muon" and p.dim() == 2:
+            m, n = sorted(p.shape)
+            flops += 5 * (4 * m * m * n + 2 * m ** 3)
+            nbytes += 5 * 4 * p.numel()
+        else:
+            nbytes += per_elem.get(name, 7) * 4 * p.numel()
+    return _bound(flops, nbytes, PEAK_FP32_FLOPS)
+
+
+def optimizers_phase(torch, K, gpu, adamw_step_s):
+    """Lamb, Lion, Adagrad and Muon: ``optimizer_check`` (card against CPU)
+    and ``optimizer_cost`` (the train flagship's step beside AdamW's)."""
+    t0 = time.perf_counter()
+    checks = {n: optimizer_check(torch, n) for n in NEW_OPTIMIZERS}
+    _free(torch)
+    costs = {}
+    for n in NEW_OPTIMIZERS:
+        torch.cuda.reset_peak_memory_stats()
+        costs[n] = optimizer_cost(torch, K, n, adamw_step_s)
+    launches = {k: sum(c["launches"][k] for c in costs.values()) for k in K.LAUNCHES}
+    for c in costs.values():
+        del c["launches"]
+    res = dict(phase="optimizers", checks=checks, cost=costs, launches=launches,
+               seconds=time.perf_counter() - t0, gpu=gpu)
+    emit(res)
+    return res
+
+
+# the remat policies of the train flagship, in the order they run
+REMAT_POLICIES = ("none", "full", "selective", "dots", "offload")
+# attention forwards a layer runs per micro-batch under each policy: the
+# policies that recompute the attention (full: the layer; dots: all but its
+# products) run K1f again in the backward
+REMAT_FWD_PER_LAYER = {"none": 1, "full": 2, "selective": 1, "dots": 2, "offload": 1}
+
+
+def remat_run(torch, K, remat, micro, steps=2):
+    """The train flagship under ``remat``: a warm-up step, then ``steps``
+    timed steps with the peak memory reset before them."""
+    import numpy as np
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.models import transformer as T
+    from deepspeed_tpu_torch.models.presets import get_preset
+
+    seq, gas = FLAGSHIP["seq"], FLAGSHIP["gas"]
+    model = T.CausalLM(get_preset("llama3_proxy_410m", loss_chunk_size=2048, remat=remat))
+    engine, _, _, _ = initialize(model=model, config=bench_config(micro, gas))
+    batch = {"input_ids": np.random.default_rng(SEED).integers(
+        0, model.cfg.vocab_size, (gas, micro, seq + 1), dtype=np.int64)}
+    try:
+        first = float(engine.train_batch(batch))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launches()
+        moved0 = dict(T.OFFLOAD_BYTES)
+        step_s = []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            loss = float(engine.train_batch(batch))
+            step_s.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated()
+        launches = dict(K.LAUNCHES)
+        moved = {k: (T.OFFLOAD_BYTES[k] - moved0[k]) / steps for k in moved0}
+    finally:
+        del engine
+        _free(torch)
+    L = model.cfg.num_layers
+    want = {"flash_fwd": REMAT_FWD_PER_LAYER[remat] * L * gas * steps,
+            "flash_bwd_dq": L * gas * steps, "flash_bwd_dkv": L * gas * steps}
+    if any(launches[n] != w for n, w in want.items()) or not np.isfinite([first, loss]).all():
+        raise AssertionError(f"remat {remat}: launches {launches} against {want}, "
+                             f"losses {first} {loss}")
+    return dict(step_s=step_s, step_s_median=sorted(step_s)[len(step_s) // 2],
+                peak_memory_bytes=peak, losses=[first, loss],
+                launches_per_step={n: launches[n] / steps for n in want},
+                offload_bytes_per_step=moved if remat == "offload" else None,
+                launches=launches)
+
+
+def remat_phase(torch, K, gpu):
+    """The train flagship under each remat policy at micro 8 (all at micro 4
+    if ``none`` does not fit): step time, peak memory, K1f / K1b launches
+    per step against ``REMAT_FWD_PER_LAYER``, the bytes ``offload`` moves;
+    peak(full) <= peak(dots) <= peak(none) and peak(offload) <
+    peak(selective)."""
+    t0 = time.perf_counter()
+    runs, micro = {}, FLAGSHIP["micro"]
+    try:
+        runs["none"] = remat_run(torch, K, "none", micro)
+    except torch.cuda.OutOfMemoryError:
+        micro //= 2  # retried outside the handler, once its traceback has let go
+    if micro != FLAGSHIP["micro"]:
+        _free(torch)
+        runs["none"] = remat_run(torch, K, "none", micro)
+    for remat in REMAT_POLICIES[1:]:
+        runs[remat] = remat_run(torch, K, remat, micro)
+    peak = {r: runs[r]["peak_memory_bytes"] for r in runs}
+    order = dict(full_le_dots=peak["full"] <= peak["dots"],
+                 dots_le_none=peak["dots"] <= peak["none"],
+                 offload_lt_selective=peak["offload"] < peak["selective"])
+    launches = {k: sum(r["launches"][k] for r in runs.values()) for k in K.LAUNCHES}
+    for r in runs.values():
+        del r["launches"]
+    res = dict(phase="remat", model="llama3_proxy_410m", seq=FLAGSHIP["seq"],
+               micro_batch=micro, gas=FLAGSHIP["gas"],
+               none_fits_at_flagship_micro=micro == FLAGSHIP["micro"], runs=runs,
+               peak_order=order,
+               launches=launches, seconds=time.perf_counter() - t0, gpu=gpu)
+    emit(res)
+    if not all(order.values()):
+        raise AssertionError(f"remat: peak memory order {order}: {peak}")
+    return res
+
+
+# presets_train: every preset the card trains at full width, except the two
+# the earlier phases cover (llama3_proxy_410m, gpt2_small) and llama3_70b
+# (its fp32 masters and moments do not fit one card: item 7)
+PRESETS_TRAIN_SKIP = ("llama3_70b", "llama3_proxy_410m", "gpt2_small")
+PRESET_SEQ, PRESET_MICRO = 64, 2
+
+
+def _cpu_attn_grads(torch, cfg, params_cpu, micro):
+    """(loss, layer 0's wq / wk / wv / wo gradients) of one micro-batch
+    through the port on the CPU in fp32."""
+    from deepspeed_tpu_torch.models.transformer import CausalLM
+
+    attn = params_cpu["layers"]["attn"]
+    names = ("wq", "wk", "wv", "wo")
+    for n in names:
+        attn[n].requires_grad_(True)
+    loss = CausalLM(cfg.replace(dtype=torch.float32)).loss_fn(
+        params_cpu, {k: torch.as_tensor(v) for k, v in micro.items()})
+    grads = torch.autograd.grad(loss, [attn[n] for n in names])
+    return float(loss.detach()), {n: g[0].flatten() for n, g in zip(names, grads)}
+
+
+def preset_train_one(torch, K, name):
+    """``name`` at full width and 2 layers, bf16, its own remat and
+    attention: one ``train_batch`` on the card against the port on the CPU
+    in fp32 from the same weights and batch."""
+    import numpy as np
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.models.presets import get_preset
+    from deepspeed_tpu_torch.models.transformer import CausalLM, init_params
+
+    cfg = get_preset(name, num_layers=2)
+    params = init_params(cfg, seed=SEED, device=DEVICE, dtype=torch.float32)
+    params_cpu = _tree_cpu(params)
+    batch = {"input_ids": np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (1, PRESET_MICRO, PRESET_SEQ + 1), dtype=np.int64)}
+    micro0 = {"input_ids": batch["input_ids"][0]}
+    torch.cuda.reset_peak_memory_stats()
+    engine, _, _, _ = initialize(model=CausalLM(cfg), params=params,
+                                 config=bench_config(PRESET_MICRO, 1))
+    del params
+    g_card = _attn_grads(torch, engine, micro0)
+    K.reset_launches()
+    card_loss = float(engine.train_batch(batch))
+    launches = dict(K.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    del engine
+    _free(torch)
+    cpu_loss, g_cpu = _cpu_attn_grads(torch, cfg, params_cpu, micro0)
+    cos = grad_cosines(torch, g_card, g_cpu)
+    rel = abs(card_loss - cpu_loss) / abs(cpu_loss)
+    L = cfg.num_layers
+    flash = cfg.attn_impl != "reference"
+    want = {"flash_fwd": REMAT_FWD_PER_LAYER[cfg.remat] * L if flash else 0,
+            "flash_bwd_dq": L if flash else 0, "flash_bwd_dkv": L if flash else 0,
+            "fused_adamw": 1}
+    res = dict(model=name, hidden=cfg.hidden_size, heads=cfg.num_heads,
+               kv_heads=cfg.num_kv_heads, head_dim=cfg.hd, remat=cfg.remat,
+               attn_impl=cfg.attn_impl, params=cfg.param_count, card_loss=card_loss,
+               cpu_loss=cpu_loss, step1_loss_rel_err=rel, grad_cosine_layer0=cos,
+               launches={n: launches[n] for n in want}, peak_memory_bytes=peak)
+    bad = [n for n, w in want.items() if launches[n] != w]
+    if bad or not rel <= TRAIN_LOSS_RTOL or not all(c > GRAD_COS_MIN for c in cos.values()):
+        raise AssertionError(f"presets_train: {res} (launches expected {want})")
+    return res, launches
+
+
+def presets_train_phase(torch, K, gpu):
+    from deepspeed_tpu_torch.models.presets import list_presets
+
+    t0 = time.perf_counter()
+    runs, launches = {}, {k: 0 for k in K.LAUNCHES}
+    for name in list_presets():
+        if name in PRESETS_TRAIN_SKIP:
+            continue
+        t1 = time.perf_counter()
+        runs[name], ran = preset_train_one(torch, K, name)
+        runs[name]["seconds"] = time.perf_counter() - t1
+        for k in launches:
+            launches[k] += ran[k]
+    res = dict(phase="presets_train", layers=2, seq=PRESET_SEQ, micro_batch=PRESET_MICRO,
+               loss_rtol=TRAIN_LOSS_RTOL, grad_cos_min=GRAD_COS_MIN, runs=runs,
+               launches=launches, seconds=time.perf_counter() - t0, gpu=gpu)
+    emit(res)
+    return res
+
+
+# presets_serve: the presets JAX's v2 engine serves (no parallel block, no
+# ALiBi) at full depth, each a 13-15 GB bf16 tree on the card
+PRESETS_SERVE = ("llama2_7b", "mistral_7b", "qwen2_7b", "opt_6_7b")
+PRESET_SERVE_SIZES = dict(batch=16, prompt_len=128, steps=32)
+
+
+def preset_serve_one(torch, K, name):
+    """``name`` at full depth: 16 prompts of 128 through ``put``, 32 greedy
+    ``step``s (K1f and K2 layers x dispatches), a profiled tick; then its
+    first 2 layers at full width serve 2 streams that replay on the CPU in
+    fp32 (near-argmax), and no block stays in use after ``close()``."""
+    import numpy as np
+    from deepspeed_tpu_torch.inference.engine_v2 import InferenceEngineV2
+    from deepspeed_tpu_torch.inference.sampling import SamplingParams
+    from deepspeed_tpu_torch.models.presets import get_preset
+    from deepspeed_tpu_torch.models.transformer import init_params
+
+    B, n, steps = (PRESET_SERVE_SIZES[k] for k in ("batch", "prompt_len", "steps"))
+    cfg = get_preset(name)
+    params = init_params(cfg, seed=SEED, device=DEVICE)
+    eng = InferenceEngineV2(params, cfg, max_seqs=B, num_blocks=256, block_size=32,
+                            prefill_budget=2048)
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(1, cfg.vocab_size, n).tolist() for _ in range(B)]
+    samp = SamplingParams(temperature=0.0, max_new_tokens=steps + 8)
+    eng.put([10_001], [prompts[0]], samp)  # warm-up
+    eng.step(samp)
+    eng.flush([10_001])
+    stats0 = dict(eng.stats)
+    K.reset_launches()
+    first = eng.put(list(range(1, B + 1)), prompts, samp)
+    tick_ms = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        eng.step(samp)
+        tick_ms.append(1e3 * (time.perf_counter() - t0))
+    launches = dict(K.LAUNCHES)
+    d_prefill = eng.stats["prefill_dispatches"] - stats0["prefill_dispatches"]
+    d_ticks = eng.stats["decode_ticks"] - stats0["decode_ticks"]
+    L = cfg.num_layers
+    if (launches["flash_fwd"] != L * d_prefill or launches["paged_decode"] != L * d_ticks
+            or d_ticks != steps or not first):
+        raise AssertionError(f"presets_serve {name}: launches {launches}, prefill "
+                             f"dispatches {d_prefill}, ticks {d_ticks}")
+    wall_ms, dev_ms, _ = _device_profile(torch, lambda: eng.step(samp), n=2, top=0)
+    leaked = eng.close()["blocks_in_use"]
+    del eng, params
+    _free(torch)
+    # the 2-layer full-width copy: served on the card, replayed on the CPU
+    cfg2 = cfg.replace(num_layers=2)
+    params2 = init_params(cfg2, seed=SEED, device=DEVICE)
+    eng = InferenceEngineV2(params2, cfg2, max_seqs=4, num_blocks=64, block_size=32)
+    short = {u: prompts[u - 1][:64] for u in (1, 2)}
+    samp2 = SamplingParams(temperature=0.0, max_new_tokens=16)
+    gen = {u: [t] for u, t in eng.put(list(short), list(short.values()), samp2).items()}
+    for _ in range(8):
+        for u, t in eng.step(samp2).items():
+            gen[u].append(t)
+    leaked += eng.close()["blocks_in_use"]
+    worst, exact, total = replay_on_cpu(torch, _tree_cpu(params2), cfg2, short, gen)
+    del eng, params2
+    _free(torch)
+    med = sorted(tick_ms)[len(tick_ms) // 2]
+    res = dict(model=name, layers=L, heads=cfg.num_heads, kv_heads=cfg.num_kv_heads,
+               head_dim=cfg.hd, batch=B, prompt_len=n, decode_steps=steps,
+               prefill_dispatches=d_prefill, decode_tick_ms_median=med,
+               decode_tokens_per_s=B * 1e3 / med, profile_tick_wall_ms=wall_ms,
+               profile_tick_device_ms=dev_ms,
+               launches_per_forward={"flash_fwd": launches["flash_fwd"] / d_prefill,
+                                     "paged_decode": launches["paged_decode"] / d_ticks},
+               two_layer_argmax_exact=f"{exact}/{total}", two_layer_argmax_worst_gap=worst,
+               blocks_in_use_after_close=leaked)
+    if leaked or worst > ARGMAX_TOL_FRAC:
+        raise AssertionError(f"presets_serve: {res}")
+    return res, launches
+
+
+def presets_serve_phase(torch, K, gpu):
+    t0 = time.perf_counter()
+    runs, launches = {}, {k: 0 for k in K.LAUNCHES}
+    for name in PRESETS_SERVE:
+        t1 = time.perf_counter()
+        runs[name], ran = preset_serve_one(torch, K, name)
+        runs[name]["seconds"] = time.perf_counter() - t1
+        for k in launches:
+            launches[k] += ran[k]
+    res = dict(phase="presets_serve", runs=runs, launches=launches,
+               seconds=time.perf_counter() - t0, gpu=gpu)
+    emit(res)
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -3114,6 +3630,7 @@ def timings(torch):
     out.update(paged_timings(torch, gen))
     out.update(train_timings(torch, gen))
     _free(torch)
+    out["padded_head_dims"] = padded_timings(torch, gen)
     out.update(sparse_timings(torch, gen))
     return out
 
@@ -3433,6 +3950,61 @@ def train_timings(torch, gen):
     }
 
 
+# the padded head dims timed per call: (preset, b, s, hq, hkv, hd) at the
+# preset's heads, 2 rows of 2,048 tokens
+PADDED_TIMED = (("phi_2", 2, 2048, 32, 32, 80), ("gpt_neox_20b", 2, 2048, 64, 64, 96))
+
+
+def padded_timings(torch, gen):
+    """K1f / K1b at head dims 80 and 96 through the ``flash_attention``
+    entry (q / k / v zero-padded to 128, the kernels, o sliced back; the
+    backward through the slice and the pad): the forward with its lse
+    (``ms``) and the backward pair (``bwd_ms``), beside the plain versions
+    and SDPA at the real head dim (the library yardstick: one call forward,
+    its backward alone).  Bounds count the real head dim's work (4 hd flops
+    a causal pair forward, 10 hd backward; each input read once, each
+    output written once), so the padding shows as distance from them."""
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops.attention import dot_product_attention
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as K1
+
+    out = {}
+    for preset, b, s, hq, hkv, hd in PADDED_TIMED:
+        c = bwd_case(torch, gen, b, s, hq, hkv, hd)
+        q, k, v, do = (c[n].requires_grad_(n != "do") for n in ("q", "k", "v", "do"))
+        o = K1.flash_attention(q, k, v)
+        fwd_ms = time_ms(torch, lambda: K1.flash_attention(q, k, v), iters=5, warm=1)
+        bwd_ms = time_ms(torch, lambda: torch.autograd.grad(o, (q, k, v), do,
+                                                            retain_graph=True), iters=5, warm=1)
+        with torch.no_grad():
+            plain_fwd = time_ms(torch, lambda: dot_product_attention(q, k, v), iters=2, warm=1)
+            ol = K1.flash_attention_fwd_plain(q, k, v, None, hd ** -0.5, None)
+            plain_bwd = time_ms(torch, lambda: K1.flash_attention_bwd_plain(
+                q, k, v, None, ol[0], ol[1], do, hd ** -0.5, None), iters=2, warm=1)
+        del ol
+        qt, kt, vt = (x.detach().transpose(1, 2).contiguous().requires_grad_(True)
+                      for x in (q, k, v))
+        dot = do.transpose(1, 2).contiguous()
+        lib_fwd = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), iters=5, warm=1)
+        lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+        lib_bwd = time_ms(torch, lambda: torch.autograd.grad(lib_out, (qt, kt, vt), dot,
+                                                             retain_graph=True), iters=5, warm=1)
+        pairs = b * hq * s * (s + 1) // 2
+        lse_bytes = b * hq * s * 4
+        b_fwd = _bound(4 * hd * pairs, _nbytes(q, k, v, q) + lse_bytes)
+        b_bwd = _bound(10 * hd * pairs, _nbytes(q, k, v, q, do, q, k, v) + lse_bytes)
+        out[f"hd{hd}"] = dict(
+            shape=f"{preset}: b{b} s{s} hq{hq} hkv{hkv} hd{hd} causal, padded to "
+                  f"{K1.padded_head_dim(hd)}",
+            ms=fwd_ms, plain_ms=plain_fwd, library_ms=lib_fwd, bound_ms=b_fwd[0],
+            bound_by=b_fwd[1], bwd_ms=bwd_ms, bwd_plain_ms=plain_bwd, bwd_library_ms=lib_bwd,
+            bwd_bound_ms=b_bwd[0], bwd_bound_by=b_bwd[1])
+        del c, q, k, v, do, o, qt, kt, vt, dot, lib_out
+        _free(torch)
+    return out
+
+
 def active_pairs(layout, block):
     """Causal (query, key) pairs inside the layout's active blocks, per head
     of one batch row: B^2 per block below the diagonal, B (B + 1) / 2 on it."""
@@ -3617,6 +4189,11 @@ def main() -> None:
     sampling_phase(torch, gpu)
     sp = train_phase(torch, K, gpu, sparse=SPARSE_FLAGSHIP, steps=SPARSE_TRAIN_STEPS)
     _free(torch)
+    opt = optimizers_phase(torch, K, gpu, tr["step_s_median"])
+    rm = remat_phase(torch, K, gpu)
+    pt = presets_train_phase(torch, K, gpu)
+    ps = presets_serve_phase(torch, K, gpu)
+    _free(torch)
     qc = quant_check_phase(torch, K, gpu)
     qs, w_up0 = quant_serve_phase(torch, K, gpu)
     qz = quantizer_phase(torch, K, gpu, w_up0)
@@ -3626,8 +4203,9 @@ def main() -> None:
     times = timings(torch)
     times.update(quant_timings(torch))
     times["fused_adamw"] = adam_times
+    padded = times.pop("padded_head_dims")
     emit(dict(phase="timings", flash_bwd_pair=times.pop("flash_bwd_pair"),
-              flash_fwd_train=times["flash_fwd_train"],
+              flash_fwd_train=times["flash_fwd_train"], padded_head_dims=padded,
               earlier_ms={**K1_EARLIER_MS, **K7_EARLIER_MS},
               quant={n: times[n] for n in (*QMM_NAMES.values(), *K6_NAMES,
                                            "quantize_fp8_e5m2")},
@@ -3636,10 +4214,11 @@ def main() -> None:
               fused_adamw=adam_times, gpu=gpu))
     # launches of the main paths (serving engine, its burst, the megastep
     # scheduler, scheduler, speculative serving, seq-sharded long-context
-    # serving, gpt2 serving, dense and block-sparse training, quantized
-    # serving, the quantizer API), each read right after its own run
+    # serving, gpt2 serving, dense and block-sparse training, the other
+    # optimizers, the remat policies, the presets' training and serving,
+    # quantized serving, the quantizer API), each read right after its own run
     main_paths = (eng, ms_eng, ms_sch, sch, spec, lcc, lc, g_eng, g_burst, g_spec, tr, shim, sp,
-                  qc, qs, qz)
+                  opt, rm, pt, ps, qc, qs, qz)
     per_forward = {**eng["launches_per_forward"], **sch["launches_per_forward"],
                    "paged_decode_hd64": g_eng["launches_per_forward"]["paged_decode_hd64"]}
     for name in ("paged_decode_partial", "ctx_attention_partial"):  # longctx, S = 2
@@ -3669,6 +4248,8 @@ def main() -> None:
                 entry["launches_per_train_step"] = run["launches_per_step"][name]
         if name == "flash_fwd":
             entry["at_train_shape"] = times["flash_fwd_train"]
+        if name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):  # K1 at hd 80 / 96
+            entry["padded_head_dims"] = padded
         if name == "paged_decode_hd64":
             entry["instantiates"] = ("paged_decode (K2, " + REPLACES["paged_decode"]
                                      + ") at HD = 64: K2p's counterpart, no lane packing")

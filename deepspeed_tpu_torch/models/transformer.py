@@ -6,13 +6,28 @@ transformer.py``: the building blocks serving reads, and the training half
 Parameters keep the JAX layout so converting a JAX checkpoint is a copy: a
 nested dict with stacked ``[L, ...]`` layer weights and ``[in, out]``
 kernels (``params_from_numpy``).  ``forward`` is a Python loop over the
-stacked layers (JAX scans them).  Remat policies: ``none``, ``full`` (each
-layer under ``torch.utils.checkpoint``) and ``selective``, which keeps the
-JAX save set (q, k, v and the attention output, ``transformer.py:306-313``)
-without a selective-checkpoint policy: norm, q/k/v and rope run under one
-checkpoint, the flash attention Function outside it (it saves q/k/v/o/lse
-itself), and the output projection, residual, MLP norm, MLP and residual
-under a second checkpoint.
+stacked layers (JAX scans them), each layer under a remat policy (JAX
+``transformer.py:683-710``):
+
+- ``none``; ``full``: the layer under ``torch.utils.checkpoint``;
+- ``selective``: the JAX save set (q, k, v and the attention output,
+  ``transformer.py:306-313``) without a selective-checkpoint policy: norm,
+  q/k/v and rope run under one checkpoint, the flash attention Function
+  outside it (it saves q/k/v/o/lse itself), and the output projection,
+  residual, MLP norm, MLP and residual under a second checkpoint;
+- ``dots`` (``checkpoint_dots_with_no_batch_dims``): the layer under one
+  checkpoint whose selective policy saves the outputs of ``aten.mm`` /
+  ``aten.addmm`` — the projections whose outputs the backward reads, as
+  JAX saves them — and recomputes the rest.  The attention's batched products are not among
+  them, and the flash kernels launch through ``ctypes`` where no policy
+  sees them, so the attention forward runs again in the backward, as in
+  JAX;
+- ``offload`` (``save_and_offload_only_these_names``): ``selective``'s
+  structure with nothing of the attention kept on the device: what the
+  attention saves (q, k, v, o and the kernel's lse) and the output that
+  the second checkpoint keeps (o again: one host copy serves both) go to
+  host memory (pinned on CUDA) and come back in the backward.  The layer
+  input stays on the device, as JAX keeps it.
 
 A ``sparse_attention`` layout (``ops/sparse_attention.py``, set by
 ``initialize`` from the config) routes attention through
@@ -21,23 +36,24 @@ A ``sparse_attention`` layout (``ops/sparse_attention.py``, set by
 Not ported, each refused with ``NotImplementedError`` naming the option and
 its ROADMAP queue-1 item: MoE layers (item 7), ``domino_chunks`` (item 7),
 sequence parallelism (item 7), ``act_quant_bits`` (item 9, compression),
-the ``dots`` / ``offload`` remat policies and ``CausalLM(stack_apply=...)``
-(item 7: pipeline), progressive layer drop (a batch's ``pld_theta``,
-item 9).  Manual tensor parallelism (JAX ``decoder_layer``'s ``tp_axis``,
-item 7) has no counterpart here: one GPU.
+``CausalLM(stack_apply=...)`` (item 7: pipeline), progressive layer drop
+(a batch's ``pld_theta``, item 9).  Manual tensor parallelism (JAX
+``decoder_layer``'s ``tp_axis``, item 7) has no counterpart here: one GPU.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
 import math
+import weakref
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                     create_selective_checkpoint_contexts)
 
 from ..ops.attention import get_attention_impl
 from ..ops.kernels import resolve_device
@@ -75,7 +91,7 @@ class TransformerConfig:
     moe_num_experts: int = 0
     dtype: torch.dtype = torch.bfloat16
     # training
-    remat: str = "none"  # 'none' | 'full' | 'selective'
+    remat: str = "none"  # 'none' | 'full' | 'selective' | 'dots' | 'offload'
     attn_impl: str = "reference"  # 'reference' | 'math' | 'flash' | 'auto'
     loss_chunk_size: int = 0  # chunked logits + loss; 0 = full logits
     # block-sparse layout (ops/sparse_attention.SparsityConfig), set by
@@ -305,7 +321,65 @@ def head_bias_vec(params: Params):
 # ---------------------------------------------------------------------------
 # training half
 # ---------------------------------------------------------------------------
-_REMAT = ("none", "full", "selective")
+_REMAT = ("none", "full", "selective", "dots", "offload")
+# remat="dots": the products with no batch dims, as torch dispatches them
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_context(unread: tuple):
+    """The selective-checkpoint contexts of ``remat="dots"``: save the
+    outputs of the unbatched products, recompute the rest.  A product
+    whose weight is one of ``unread`` (by address) only feeds the residual
+    sum, which the backward never reads, so JAX's residuals leave it out,
+    and so does this policy."""
+    def policy(ctx, op, *args, **kwargs):
+        if op in _DOTS and args[-1].data_ptr() not in unread:
+            return CheckpointPolicy.MUST_SAVE
+        return CheckpointPolicy.PREFER_RECOMPUTE
+
+    return create_selective_checkpoint_contexts(policy)
+
+
+# bytes that remat="offload" moved between a CUDA device and the host
+OFFLOAD_BYTES = {"to_host": 0, "to_device": 0}
+
+
+def _to_host(t: torch.Tensor) -> torch.Tensor:
+    """A host copy of a saved tensor (pinned, copied without a sync, from a
+    CUDA tensor; a CPU tensor is already there)."""
+    if t.device.type != "cuda":
+        return t
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    OFFLOAD_BYTES["to_host"] += t.numel() * t.element_size()
+    return host.copy_(t, non_blocking=True)
+
+
+def offload_saved(keep_on_device: Callable[[torch.Tensor], bool], copies: list):
+    """Hooks that send every tensor saved for the backward inside the block
+    to host memory, except those ``keep_on_device`` names, and bring each
+    back to its device when the backward reads it (``remat="offload"``).
+    ``copies`` holds (weak reference, host copy) pairs: a tensor saved
+    twice is copied once."""
+
+    def pack(t):
+        if keep_on_device(t):
+            return t
+        for ref, host in copies:
+            if ref() is t:
+                return t.device, host
+        host = _to_host(t)
+        copies.append((weakref.ref(t), host))
+        return t.device, host
+
+    def unpack(saved):
+        if isinstance(saved, torch.Tensor):
+            return saved
+        device, host = saved
+        if device.type == "cuda":
+            OFFLOAD_BYTES["to_device"] += host.numel() * host.element_size()
+        return host.to(device, non_blocking=True)
+
+    return torch.autograd.graph.saved_tensors_hooks(pack, unpack)
 
 
 def _refuse_unported(cfg: TransformerConfig) -> None:
@@ -324,11 +398,7 @@ def _refuse_unported(cfg: TransformerConfig) -> None:
         raise NotImplementedError("position='alibi' with sparse_attention: the block-sparse "
                                   "bodies take no bias operand (as in JAX)")
     if cfg.remat not in _REMAT:
-        if cfg.remat in ("dots", "offload"):
-            raise NotImplementedError(
-                f"remat={cfg.remat!r} is not ported yet (ROADMAP queue 1 item 7); "
-                f"use one of {_REMAT}")
-        raise ValueError(f"unknown remat policy {cfg.remat!r}")
+        raise ValueError(f"unknown remat policy {cfg.remat!r}; use one of {_REMAT}")
 
 
 def get_attn_fn(cfg: TransformerConfig, device) -> Callable:
@@ -497,11 +567,29 @@ def forward(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
         o = _attend(q, k, v, cfg, positions, attn_fn, segment_ids)
         return checkpoint(_post_attention, lw, x, o, cfg, use_reentrant=False)
 
+    def offload(lw, x):
+        q, k, v = checkpoint(_pre_attention, lw, x, cfg, rope_cs, use_reentrant=False)
+        # the attention's residuals (the segment ids aside: one tensor
+        # shared by every layer), then the one input of the second
+        # checkpoint that is not the layer's own (its weights and x)
+        copies: list = []
+        with offload_saved(lambda t: t is segment_ids, copies):
+            o = _attend(q, k, v, cfg, positions, attn_fn, segment_ids)
+        with offload_saved(lambda t: t is not o, copies):
+            return checkpoint(_post_attention, lw, x, o, cfg, use_reentrant=False)
+
     for lw in _unstack(params["layers"], cfg.num_layers):
         if cfg.remat == "full":
             x = checkpoint(layer, lw, x, use_reentrant=False)
+        elif cfg.remat == "dots":
+            unread = (lw["mlp"]["w_down"].data_ptr(),) + (
+                (lw["attn"]["wo"].data_ptr(),) if cfg.parallel_block else ())
+            x = checkpoint(layer, lw, x, use_reentrant=False,
+                           context_fn=functools.partial(_dots_context, unread))
         elif cfg.remat == "selective":
             x = selective(lw, x)
+        elif cfg.remat == "offload":
+            x = offload(lw, x)
         else:
             x = layer(lw, x)
     x = norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)

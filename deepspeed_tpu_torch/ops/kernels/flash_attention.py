@@ -14,8 +14,15 @@ CUDA.  The kernels (wgmma on the tensor cores) take causal attention with
 GQA, packed ``segment_ids`` and the soft cap, bf16, head_dim 64, 128 or 256
 (the head dims JAX's gate admits, ``flash_kernel.py:108``), any query group
 (a CTA per query head) and any sequence length (there is no TPU minimum).
-A non-causal call or ``q_offset != 0`` runs the plain body on a CPU tensor
-and raises on a CUDA one.
+The entry pads a head dim below 256 that the kernels do not take (80 for
+``phi_2``, 96 for ``gpt_neox_20b``) with zeros to the next one they do,
+passes the scale of the real head dim and slices the output back: the
+zeros add nothing to q k^T, the padded columns of o are 0, and autograd
+slices dq / dk / dv back through the pad, so the kernels run at 128 and the
+result is the unpadded one.  The kernel wrappers themselves keep taking
+only ``HEAD_DIMS``; a head dim above 256 raises.  A non-causal call or
+``q_offset != 0`` runs the plain body on a CPU tensor and raises on a CUDA
+one.
 
 Shapes: q/o/dO ``[b, s, hq, d]``, k/v ``[b, s, hkv, d]`` (hkv divides hq),
 segment_ids ``[b, s]`` int32, lse ``[b, hq, s]`` fp32 in capped scaled-score
@@ -28,7 +35,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..attention import dot_product_attention, repeat_kv
-from . import check_cuda, check_heads, launch, ptr, scalars
+from . import HEAD_DIMS, check_cuda, check_heads, launch, ptr, scalars
 
 
 # ---------------------------------------------------------------------------
@@ -176,6 +183,16 @@ class FlashAttentionFn(torch.autograd.Function):
         return dq, dk, dv, None, None, None
 
 
+def padded_head_dim(d: int) -> int:
+    """The head dim the kernels run a head dim ``d`` at: the least of
+    ``HEAD_DIMS`` that holds it."""
+    for wide in HEAD_DIMS:
+        if d <= wide:
+            return wide
+    raise NotImplementedError(
+        f"flash_attention: head_dim {d} is above the kernels' largest, {HEAD_DIMS[-1]}")
+
+
 def flash_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -197,11 +214,18 @@ def flash_attention(
         return dot_product_attention(q, k, v, causal=causal, q_offset=q_offset,
                                      segment_ids=segment_ids, scale=scale,
                                      logits_soft_cap=logits_soft_cap)
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        sc = float(scale) if scale is not None else q.shape[-1] ** -0.5
-        cap = float(logits_soft_cap) if logits_soft_cap is not None else None
-        return FlashAttentionFn.apply(q, k, v, segment_ids, sc, cap)
-    if q.device.type == "cpu":
+    grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad)
+    if q.device.type == "cpu" and not grad:
         return dot_product_attention(q, k, v, causal=True, segment_ids=segment_ids,
                                      scale=scale, logits_soft_cap=logits_soft_cap)
+    d = q.shape[-1]
+    if d not in HEAD_DIMS:
+        wide = padded_head_dim(d)
+        q, k, v = (torch.nn.functional.pad(t, (0, wide - d)) for t in (q, k, v))
+        scale = scale if scale is not None else d ** -0.5
+        return flash_attention(q, k, v, True, segment_ids, scale, logits_soft_cap)[..., :d]
+    if grad:
+        sc = float(scale) if scale is not None else d ** -0.5
+        cap = float(logits_soft_cap) if logits_soft_cap is not None else None
+        return FlashAttentionFn.apply(q, k, v, segment_ids, sc, cap)
     return flash_attention_kernel(q, k, v, segment_ids, scale, logits_soft_cap)

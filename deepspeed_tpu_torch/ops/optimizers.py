@@ -2,39 +2,63 @@
 counterpart of ``deepspeed_tpu/ops/optimizers.py:41 build_optimizer``, with
 optax's exact update rules.
 
-An optimizer here is a plain object over lists of fp32 tensors:
+An optimizer here is a plain object over lists of fp32 tensors (the leaves):
 ``init(params) -> state`` and ``step(params, grads, state, lr, finite=None)``,
 which updates ``params`` and ``state`` in place.  ``lr`` is a device scalar
 (the engine computes it from its device step counter, so no host sync), and
-``finite`` (fp16 only) is a device bool: where it is false every tensor
-keeps its old value, the step counter included — the overflow-skip select
-of JAX's ``_apply_grads``.
+``finite`` (fp16 only) is a device bool: where it is false every tensor of
+the state keeps its old value, the step counter included — the
+overflow-skip select of JAX's ``_apply_grads``.
 
-Rules (``g`` the gradient, ``t`` the 1-based update count):
+The engine hands over its leaves: views, in order, of its flat fp32 master
+and gradient buffers.  Such leaves tile one buffer, and an optimizer then
+keeps each moment as one flat buffer laid out like it (``_state_like``): an
+elementwise rule is one pass over the flat buffers, and a rule that needs
+the leaves (Lamb's trust ratio, Muon's 2-D rule) reads views of them at the
+same offsets.  Tensors that do not tile one buffer are taken one by one.
+
+Rules (``g`` the gradient, ``t`` the 1-based update count, ``bc_b(t) = 1 -
+b^t``):
 
 - ``adamw``, and ``adam`` / ``fusedadam`` / ``deepspeedcpuadam`` in
   ``adam_w_mode`` (the default) or with weight decay:
   ``m = b1 m + (1-b1) g; v = b2 v + (1-b2) g^2;
-  p -= lr (m/(1-b1^t) / (sqrt(v/(1-b2^t)) + eps) + wd p)`` — optax's
+  p -= lr (m/bc_b1(t) / (sqrt(v/bc_b2(t)) + eps) + wd p)`` — optax's
   ``scale_by_adam`` + ``add_decayed_weights`` + ``scale_by_learning_rate``,
-  the decay applied to every leaf;
-- ``adam`` / ``fusedadam`` with ``adam_w_mode: false`` and no decay: the
-  same without ``wd p``;
+  the decay applied to every leaf; ``adam`` / ``fusedadam`` with
+  ``adam_w_mode: false`` and no decay: the same without ``wd p``.  Every
+  Adam-family update runs K8 (``ops/kernels/fused_adam.py``): one launch
+  over the engine's flat buffers;
+- ``lamb`` / ``fusedlamb`` (optax ``lamb``): the Adam direction above plus
+  ``wd p`` (``eps`` from the config, default 1e-8), scaled per leaf by the
+  trust ratio ``||p|| / ||u||`` (1 where either norm is 0): a stacked
+  ``[L, ...]`` leaf takes one ratio over its L layers;
+- ``lion`` / ``fusedlion`` (optax ``lion``, betas default (0.9, 0.99)):
+  ``u = sign((1-b1) g + b1 m) + wd p; m = (1-b2) g + b2 m; p -= lr u``;
+- ``adagrad`` (optax ``adagrad``, eps default 1e-10): the accumulator
+  starts at 0.1; ``acc += g^2; p -= lr g where(acc > 0, rsqrt(acc + eps),
+  0)``;
+- ``muon`` (``optax.contrib.muon(lr)``; JAX passes no other argument):
+  every 2-D leaf takes Nesterov momentum (beta 0.95, both bias corrections)
+  orthogonalized by 5 Newton–Schulz steps (coefficients (3.4445, -4.775,
+  2.0315), after a transpose when rows > cols and a division by
+  ``||x||_F + 1e-8``), scaled by ``sqrt(max(1, cols / rows))``; every other
+  leaf (the stacked ``[L, in, out]`` layer weights, 1-D norms) takes NAdamW
+  (optax ``adamw(nesterov=True)``, eps 1e-8, no decay), which is not K8's
+  plain AdamW.  The products are fp32 ``torch.matmul`` without TF32 (XLA's
+  products in JAX);
 - ``sgd``: ``buf = g + momentum buf; p -= lr (g + momentum buf if nesterov
   else buf)`` (optax ``trace``).
 
-Every Adam-family update runs K8 (``ops/kernels/fused_adam.py``): the
-CUDA kernel on CUDA tensors, its plain version on CPU ones.  The engine
-keeps its parameters, gradients and moments as one flat fp32 buffer each,
-so a step is one launch; a caller with several tensors gets one launch a
-tensor.  ``sgd`` stays plain PyTorch (JAX has no kernel for it).
-
-Refused, each naming itself: ``lamb``, ``lion``, ``adagrad`` (optax starts
-its accumulator at 0.1, torch at 0), ``muon`` (ROADMAP queue 1 item 8) and
-the 1-bit family (item 7).
+Only the Adam family has a kernel: JAX builds the others with optax and no
+Pallas kernel.  Refused, each naming itself: the 1-bit family (ROADMAP
+queue 1 item 7).  Reference keys JAX ignores (for example FusedLamb's
+``max_coeff``) are ignored here too.
 """
 from __future__ import annotations
 
+import math
+from contextlib import contextmanager
 from typing import Any, Dict, List, Optional
 
 import torch
@@ -42,14 +66,69 @@ import torch
 from .kernels.fused_adam import fused_adamw_flat
 
 _ADAM_NAMES = ("adam", "adamw", "fusedadam", "deepspeedcpuadam")
-_REFUSED = {
-    "lamb": 8, "fusedlamb": 8, "lion": 8, "fusedlion": 8, "adagrad": 8, "muon": 8,
-    "onebitadam": 7, "zerooneadam": 7, "onebitlamb": 7,
-}
+_REFUSED = {"onebitadam": 7, "zerooneadam": 7, "onebitlamb": 7}
 
 
 def _assign(dst: torch.Tensor, new: torch.Tensor, finite: Optional[torch.Tensor]) -> None:
     dst.copy_(new if finite is None else torch.where(finite, new, dst))
+
+
+def _span(tensors: List[torch.Tensor]) -> Optional[torch.Tensor]:
+    """The 1-D buffer that ``tensors`` tile in order (contiguous, back to
+    back in one storage, one type: the engine's leaves), or None."""
+    first = tensors[0]
+    storage = first.untyped_storage().data_ptr()
+    start = end = first.storage_offset()
+    for t in tensors:
+        if (not t.is_contiguous() or t.dtype != first.dtype
+                or t.untyped_storage().data_ptr() != storage or t.storage_offset() != end):
+            return None
+        end += t.numel()
+    return first.detach().as_strided((end - start,), (1,), start)
+
+
+def _aligned(params, grads, *states):
+    """(params, grads, *states) as lists an elementwise rule zips: one span
+    each when the parameters and the gradients both tile one buffer and the
+    state was laid out over such a span (the engine), else leaf by leaf."""
+    ps, gs = _span(params), _span(grads)
+    if ps is not None and gs is not None and all(len(s) == 1 for s in states):
+        return ([ps], [gs], *states)
+    return ([p.detach() for p in params], [g.detach() for g in grads],
+            *(_leaf_views(s, params) for s in states))
+
+
+def _state_like(params: List[torch.Tensor], fill: float = 0.0) -> List[torch.Tensor]:
+    """A state buffer filled with ``fill``: one flat buffer when ``params``
+    tile one (the engine's leaves), else one tensor a leaf."""
+    span = _span(params)
+    return [torch.full_like(s, fill) for s in ([span] if span is not None else params)]
+
+
+def _leaf_views(bufs: List[torch.Tensor], params: List[torch.Tensor]) -> List[torch.Tensor]:
+    """The views, shaped like ``params``, of tensors laid out as
+    ``_state_like(params)``."""
+    if len(bufs) == len(params):
+        return [b.view(p.shape) for b, p in zip(bufs, params)]
+    parts = bufs[0].split([p.numel() for p in params])
+    return [x.view(p.shape) for x, p in zip(parts, params)]
+
+
+def _flat_zeros(tensors: List[torch.Tensor], device) -> List[torch.Tensor]:
+    """Zeros shaped like ``tensors``: views of one flat fp32 buffer."""
+    buf = torch.zeros(sum(t.numel() for t in tensors), dtype=torch.float32, device=device)
+    return _leaf_views([buf], tensors) if tensors else []
+
+
+def _advance(count: torch.Tensor, finite: Optional[torch.Tensor]) -> torch.Tensor:
+    """Count this update (not where ``finite`` is false); returns ``t`` as
+    fp32, the exponent of the bias corrections."""
+    count += 1 if finite is None else finite.to(count.dtype)
+    return count.float()
+
+
+def _count(params: List[torch.Tensor]) -> torch.Tensor:
+    return torch.zeros((), dtype=torch.int32, device=params[0].device)
 
 
 class Adam:
@@ -60,17 +139,166 @@ class Adam:
         self.b1, self.b2, self.eps, self.wd = b1, b2, eps, weight_decay
 
     def init(self, params: List[torch.Tensor]) -> Dict[str, Any]:
-        return {"count": torch.zeros((), dtype=torch.int32, device=params[0].device),
-                "mu": [torch.zeros_like(p) for p in params],
-                "nu": [torch.zeros_like(p) for p in params]}
+        return {"count": _count(params), "mu": _state_like(params), "nu": _state_like(params)}
 
     @torch.no_grad()
     def step(self, params, grads, state, lr: torch.Tensor, finite=None) -> None:
-        count = state["count"]
-        count += 1 if finite is None else finite.to(count.dtype)  # t of this update
-        for p, g, m, v in zip(params, grads, state["mu"], state["nu"]):
-            fused_adamw_flat(p, g, m, v, lr, count, self.b1, self.b2, self.eps, self.wd,
-                             finite)
+        _advance(state["count"], finite)  # t of this update
+        for p, g, m, v in zip(*_aligned(params, grads, state["mu"], state["nu"])):
+            fused_adamw_flat(p, g, m, v, lr, state["count"], self.b1, self.b2, self.eps,
+                             self.wd, finite)
+
+
+class Lamb:
+    """optax ``lamb``: ``scale_by_adam`` -> ``add_decayed_weights`` ->
+    ``scale_by_trust_ratio`` (per leaf) -> the learning rate."""
+
+    def __init__(self, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+                 weight_decay: float = 0.0):
+        self.b1, self.b2, self.eps, self.wd = b1, b2, eps, weight_decay
+
+    def init(self, params: List[torch.Tensor]) -> Dict[str, Any]:
+        return {"count": _count(params), "mu": _state_like(params), "nu": _state_like(params)}
+
+    @torch.no_grad()
+    def step(self, params, grads, state, lr: torch.Tensor, finite=None) -> None:
+        b1, b2 = self.b1, self.b2
+        t = _advance(state["count"], finite)
+        bc1, bc2 = 1.0 - torch.pow(b1, t), 1.0 - torch.pow(b2, t)
+        upd = []
+        for p, g, m, v in zip(*_aligned(params, grads, state["mu"], state["nu"])):
+            m_new = (1.0 - b1) * g + b1 * m
+            v_new = (1.0 - b2) * g.square() + b2 * v
+            upd.append((m_new / bc1) / (torch.sqrt(v_new / bc2) + self.eps) + self.wd * p)
+            _assign(m, m_new, finite)
+            _assign(v, v_new, finite)
+        for p, u in zip(params, _leaf_views(upd, params)):
+            p = p.detach()
+            pn, un = torch.linalg.vector_norm(p), torch.linalg.vector_norm(u)
+            ratio = torch.where((pn == 0) | (un == 0), 1.0, pn / un)
+            _assign(p, p - lr * (u * ratio), finite)
+
+
+class Lion:
+    """optax ``lion`` (+ ``add_decayed_weights``)."""
+
+    def __init__(self, b1: float = 0.9, b2: float = 0.99, weight_decay: float = 0.0):
+        self.b1, self.b2, self.wd = b1, b2, weight_decay
+
+    def init(self, params: List[torch.Tensor]) -> Dict[str, Any]:
+        return {"count": _count(params), "mu": _state_like(params)}
+
+    @torch.no_grad()
+    def step(self, params, grads, state, lr: torch.Tensor, finite=None) -> None:
+        b1, b2 = self.b1, self.b2
+        _advance(state["count"], finite)
+        for p, g, m in zip(*_aligned(params, grads, state["mu"])):
+            u = torch.sign((1.0 - b1) * g + b1 * m)
+            if self.wd:
+                u = u + self.wd * p
+            _assign(m, (1.0 - b2) * g + b2 * m, finite)
+            _assign(p, p - lr * u, finite)
+
+
+class Adagrad:
+    """optax ``adagrad`` (``scale_by_rss`` from 0.1, then the learning
+    rate)."""
+
+    INITIAL_ACCUMULATOR = 0.1
+
+    def __init__(self, eps: float = 1e-10):
+        self.eps = eps
+
+    def init(self, params: List[torch.Tensor]) -> Dict[str, Any]:
+        return {"count": _count(params),
+                "sum_of_squares": _state_like(params, self.INITIAL_ACCUMULATOR)}
+
+    @torch.no_grad()
+    def step(self, params, grads, state, lr: torch.Tensor, finite=None) -> None:
+        _advance(state["count"], finite)
+        for p, g, acc in zip(*_aligned(params, grads, state["sum_of_squares"])):
+            acc_new = g.square() + acc
+            u = torch.where(acc_new > 0, torch.rsqrt(acc_new + self.eps), 0.0) * g
+            _assign(acc, acc_new, finite)
+            _assign(p, p - lr * u, finite)
+
+
+@contextmanager
+def _fp32_products():
+    """fp32 matmuls at full precision (no TF32) inside the block."""
+    old = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(old)
+
+
+def newton_schulz(x: torch.Tensor, coeffs=(3.4445, -4.7750, 2.0315), steps: int = 5,
+                  eps: float = 1e-8) -> torch.Tensor:
+    """optax ``orthogonalize_via_newton_schulz`` of a 2-D ``x``, its products
+    in the same order."""
+    c0, c1, c2 = coeffs
+    transposed = x.shape[0] > x.shape[1]
+    if transposed:
+        x = x.T
+    x = x / (torch.linalg.vector_norm(x) + eps)
+    for _ in range(steps):
+        a = x @ x.T
+        b = c1 * a + (c2 * a) @ a
+        x = c0 * x + b @ x
+    return x.T if transposed else x
+
+
+class Muon:
+    """``optax.contrib.muon(lr)``: Muon on the 2-D leaves, NAdamW on the
+    others.  State: ``count`` (both of optax's counts), ``muon.mu`` over the
+    2-D leaves and ``adam.mu`` / ``adam.nu`` over the others, each one flat
+    buffer with a view a leaf."""
+
+    def __init__(self, beta: float = 0.95, eps: float = 1e-8, ns_steps: int = 5,
+                 adam_b1: float = 0.9, adam_b2: float = 0.999):
+        self.beta, self.eps, self.ns_steps = beta, eps, ns_steps
+        self.b1, self.b2 = adam_b1, adam_b2
+
+    @staticmethod
+    def _split(tensors):
+        muon = [x for x in tensors if x.dim() == 2]
+        return muon, [x for x in tensors if x.dim() != 2]
+
+    def init(self, params: List[torch.Tensor]) -> Dict[str, Any]:
+        muon, adam = self._split(params)
+        dev = params[0].device
+        return {"count": _count(params), "muon": {"mu": _flat_zeros(muon, dev)},
+                "adam": {"mu": _flat_zeros(adam, dev), "nu": _flat_zeros(adam, dev)}}
+
+    @torch.no_grad()
+    def step(self, params, grads, state, lr: torch.Tensor, finite=None) -> None:
+        t = _advance(state["count"], finite)
+        (mp, ap), (mg, ag) = self._split(params), self._split(grads)
+        beta = self.beta
+        bc, bc_next = 1.0 - torch.pow(beta, t), 1.0 - torch.pow(beta, t + 1)
+        with _fp32_products():
+            for p, g, m in zip(mp, mg, state["muon"]["mu"]):
+                p = p.detach()
+                m_new = (1.0 - beta) * g + beta * m
+                mu_hat = beta * (m_new / bc_next) + (1.0 - beta) * (g / bc)
+                o = newton_schulz(mu_hat, steps=self.ns_steps, eps=self.eps)
+                o = math.sqrt(max(1.0, p.shape[1] / p.shape[0])) * o
+                _assign(m, m_new, finite)
+                _assign(p, p - lr * o, finite)
+        b1, b2 = self.b1, self.b2
+        bc1, bc1_next = 1.0 - torch.pow(b1, t), 1.0 - torch.pow(b1, t + 1)
+        bc2 = 1.0 - torch.pow(b2, t)
+        for p, g, m, v in zip(ap, ag, state["adam"]["mu"], state["adam"]["nu"]):
+            p = p.detach()
+            m_new = (1.0 - b1) * g + b1 * m
+            v_new = (1.0 - b2) * g.square() + b2 * v
+            mu_hat = b1 * (m_new / bc1_next) + (1.0 - b1) * (g / bc1)
+            u = mu_hat / (torch.sqrt(v_new / bc2) + self.eps)
+            _assign(m, m_new, finite)
+            _assign(v, v_new, finite)
+            _assign(p, p - lr * u, finite)
 
 
 class SGD:
@@ -80,17 +308,16 @@ class SGD:
         self.momentum, self.nesterov = momentum, nesterov
 
     def init(self, params: List[torch.Tensor]) -> Dict[str, Any]:
-        return {"count": torch.zeros((), dtype=torch.int32, device=params[0].device),
-                "trace": [torch.zeros_like(p) for p in params]}
+        return {"count": _count(params), "trace": _state_like(params)}
 
     @torch.no_grad()
     def step(self, params, grads, state, lr: torch.Tensor, finite=None) -> None:
-        for p, g, buf in zip(params, grads, state["trace"]):
+        for p, g, buf in zip(*_aligned(params, grads, state["trace"])):
             new_buf = g + self.momentum * buf
             upd = g + self.momentum * new_buf if self.nesterov else new_buf
             _assign(buf, new_buf, finite)
             _assign(p, p - lr * upd, finite)
-        _assign(state["count"], state["count"] + 1, finite)
+        _advance(state["count"], finite)
 
 
 def build_optimizer(type_name: str, params: Optional[Dict[str, Any]] = None):
@@ -106,6 +333,15 @@ def build_optimizer(type_name: str, params: Optional[Dict[str, Any]] = None):
     wd = params.get("weight_decay", 0.0)
     if name in _ADAM_NAMES:
         return Adam(b1=betas[0], b2=betas[1], eps=eps, weight_decay=wd)
+    if name in ("lamb", "fusedlamb"):
+        return Lamb(b1=betas[0], b2=betas[1], eps=eps, weight_decay=wd)
+    if name in ("lion", "fusedlion"):
+        b = params.get("betas", (0.9, 0.99))
+        return Lion(b1=b[0], b2=b[1], weight_decay=wd)
+    if name == "adagrad":
+        return Adagrad(eps=params.get("eps", 1e-10))
+    if name == "muon":
+        return Muon()
     if name == "sgd":
         return SGD(momentum=params.get("momentum", 0.0), nesterov=params.get("nesterov", False))
     raise ValueError(f"unknown optimizer type '{type_name}'")

@@ -13,8 +13,11 @@ same computation in the same order:
 - the fp32 masters, their gradients and the optimizer's moments are one
   flat buffer each (JAX's ``ravel_pytree``): every parameter is a view of
   the master buffer, and its ``.grad`` a view of the gradient buffer that
-  autograd accumulates into in place, so the whole update is one launch of
-  the fused AdamW kernel (K8) with no copy of the gradients;
+  autograd accumulates into in place.  The optimizer gets these leaf views
+  and lays its moments out like the buffers (``ops/optimizers.py``), so an
+  Adam-family update is one launch of the fused AdamW kernel (K8) with no
+  copy of the gradients, an elementwise rule one pass, and Lamb's and
+  Muon's leaf rules read the leaves;
 - ``_apply_grads`` (JAX :530-573): unscale, fp16 overflow check, global
   norm, clip, optimizer update, overflow-skip select and loss-scale update,
   all on the device;
@@ -31,7 +34,8 @@ The reference's forward / backward / step API (JAX :1133-1346) runs the
 same step in pieces: ``forward`` computes one micro-batch's loss and keeps
 its autograd graph, ``backward`` adds its scaled gradient to the flat
 gradient buffer, and ``step`` applies the sum at the accumulation boundary
-through ``_apply_grads`` (K8 on the card), as ``train_batch`` does.
+through ``_apply_grads`` (the optimizer's update; K8 on the card for the
+Adam family), as ``train_batch`` does.
 """
 from __future__ import annotations
 
@@ -82,13 +86,15 @@ def _leaves(tree, out: List[torch.Tensor]) -> List[torch.Tensor]:
 
 class FlatMasters(NamedTuple):
     """fp32 masters as one buffer: ``params`` is the tree of leaf views
-    (each a leaf that requires grad), ``grad`` the gradient buffer whose
-    views are the leaves' ``.grad``."""
+    (each a leaf that requires grad, listed in order in ``leaves``),
+    ``grad`` the gradient buffer whose views, ``grads``, are the leaves'
+    ``.grad``."""
 
     params: Any
     leaves: List[torch.Tensor]
     flat: torch.Tensor
     grad: torch.Tensor
+    grads: List[torch.Tensor]
 
 
 def _flat_masters(tree, device: torch.device) -> FlatMasters:
@@ -99,6 +105,7 @@ def _flat_masters(tree, device: torch.device) -> FlatMasters:
     flat = torch.empty(total, dtype=torch.float32, device=device)
     grad = torch.zeros(total, dtype=torch.float32, device=device)
     views: List[torch.Tensor] = []
+    grads: List[torch.Tensor] = []
     offset = 0
 
     def place(node):
@@ -113,9 +120,10 @@ def _flat_masters(tree, device: torch.device) -> FlatMasters:
         view.grad = grad[offset:offset + n].view(x.shape)
         offset += n
         views.append(view)
+        grads.append(view.grad)
         return view
 
-    return FlatMasters(place(tree), views, flat, grad)
+    return FlatMasters(place(tree), views, flat, grad, grads)
 
 
 class DeepSpeedTorchEngine:
@@ -141,7 +149,7 @@ class DeepSpeedTorchEngine:
         self._masters = _flat_masters(params, device)
         self.params = self._masters.params
         self._params_list = self._masters.leaves
-        self.opt_state = self.optimizer.init([self._masters.flat])
+        self.opt_state = self.optimizer.init(self._params_list)
         fp16 = config.fp16
         self.loss_scale_state = precision.init_loss_scale(
             dynamic=fp16.enabled and fp16.loss_scale == 0,
@@ -196,7 +204,7 @@ class DeepSpeedTorchEngine:
         if cfg.gradient_clipping and cfg.gradient_clipping > 0:
             grad.mul_(precision.clip_factor(grad_norm, cfg.gradient_clipping))
         lr = self.lr_schedule_fn(self.device_step)
-        self.optimizer.step([self._masters.flat], [grad], self.opt_state, lr, finite)
+        self.optimizer.step(self._params_list, self._masters.grads, self.opt_state, lr, finite)
         grad.zero_()
         if fp16 and cfg.fp16.loss_scale == 0:
             self.loss_scale_state = precision.update_loss_scale(

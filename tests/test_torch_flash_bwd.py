@@ -99,7 +99,9 @@ def test_plain_lse_and_backward_match_jax_kernels(jax_interpret, s, hq, hkv, hd,
 @pytest.mark.parametrize("hq,hkv,use_seg,cap", [(4, 2, False, None), (8, 2, True, 2.0),
                                                 (4, 4, True, None), (6, 2, False, 5.0)])
 def test_autograd_function_matches_autograd_of_plain_body(hq, hkv, use_seg, cap):
-    b, s, d = 2, 45, 16  # an s that is no multiple of any tile
+    # an s that is no multiple of any tile; a head dim the kernels take (the
+    # entry pads any other, test_entry_pads_other_head_dims)
+    b, s, d = 2, 45, 64
     inputs = [torch.from_numpy(_np((b, s, h, d), 10 + i)).requires_grad_(True)
               for i, h in enumerate((hq, hkv, hkv))]
     seg = torch.from_numpy(_segments(b, s)) if use_seg else None
@@ -112,6 +114,35 @@ def test_autograd_function_matches_autograd_of_plain_body(hq, hkv, use_seg, cap)
     _close(got.detach(), want.detach())
     for g, w in zip(got_g, want_g):
         _close(g, w)
+
+
+@pytest.mark.parametrize("d", [16, 80, 96])
+def test_entry_pads_other_head_dims(d):
+    """A head dim below 256 that the kernels do not take runs the Function
+    at the next one they do (zeros appended, the real head dim's scale, o
+    sliced back; dq / dk / dv sliced through the pad), equal to the plain
+    body's autograd at the real head dim; above 256 the entry refuses."""
+    b, s, hq, hkv = 2, 45, 4, 2
+    inputs = [torch.from_numpy(_np((b, s, h, d), 30 + i)).requires_grad_(True)
+              for i, h in enumerate((hq, hkv, hkv))]
+    do = torch.from_numpy(_np((b, s, hq, d), 40))
+    seg = torch.from_numpy(_segments(b, s))
+    want = dot_product_attention(*inputs, segment_ids=seg, logits_soft_cap=5.0)
+    want_g = torch.autograd.grad(want, inputs, do)
+    got = F1.flash_attention(*inputs, segment_ids=seg, logits_soft_cap=5.0)
+    assert got.shape == want.shape
+    fn = got.grad_fn.next_functions[0][0]  # the slice back to d, over the Function
+    assert type(fn).__name__ == "FlashAttentionFnBackward"
+    assert fn.saved_tensors[0].shape[-1] == F1.padded_head_dim(d) == (64 if d < 64 else 128)
+    got_g = torch.autograd.grad(got, inputs, do)
+    _close(got.detach(), want.detach())
+    for g, w in zip(got_g, want_g):
+        assert g.shape == w.shape
+        _close(g, w)
+    wide = [torch.nn.functional.pad(x.detach(), (0, 320 - d)).requires_grad_(True)
+            for x in inputs]
+    with pytest.raises(NotImplementedError, match="head_dim 320"):
+        F1.flash_attention(*wide)
 
 
 def test_without_grad_or_noncausal_the_cpu_takes_the_plain_body():

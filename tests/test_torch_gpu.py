@@ -709,3 +709,135 @@ def test_burst_after_copy_on_write_reads_the_clone_on_the_card():
 
     (shared, clones), (plain, none) = run(True), run(False)
     assert shared == plain and clones == 1 and none == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd,hq,hkv", [(80, 8, 2), (96, 16, 16)])
+def test_padded_head_dims_match_plain(hd, hq, hkv):
+    """K1f / K1b at head dims 80 and 96 through the ``flash_attention``
+    entry (the kernels run at 128 on zero-padded q / k / v): o within 2e-2
+    and dq / dk / dv within ``chip_smoke.BWD_TOL`` relative per block of
+    the plain versions at the real head dim, one launch of each kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    c = chip_smoke.bwd_case(torch, gen, 2, 200, hq, hkv, hd, seg_lens=[90, 70], cap=5.0)
+    q, k, v = (c[n].requires_grad_(True) for n in ("q", "k", "v"))
+    K.reset_launches()
+    o = flash_attention(q, k, v, segment_ids=c["seg"], logits_soft_cap=5.0)
+    grads = torch.autograd.grad(o, (q, k, v), c["do"])
+    assert {n: K.LAUNCHES[n] for n in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")} == {
+        "flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
+    f = [x.detach().float() for x in (q, k, v)]
+    o_ref, lse = K1.flash_attention_fwd_plain(*f, c["seg"], hd ** -0.5, 5.0)
+    refs = K1.flash_attention_bwd_plain(*f, c["seg"], o_ref, lse, c["do"].float(), hd ** -0.5,
+                                        5.0)
+    assert o.shape[-1] == hd and float((o.detach().float() - o_ref).abs().max()) <= TOL
+    for got, ref in zip(grads, refs):
+        assert got.shape == ref.shape
+        assert max(chip_smoke.rel_errs(torch, got, ref)) <= chip_smoke.BWD_TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(chip_smoke.NEW_OPTIMIZERS))
+def test_new_optimizers_on_cuda_match_the_cpu(name):
+    """Lamb, Lion, Adagrad and Muon on the engine's layout (leaves tiling
+    one flat buffer): three updates on the card against the CPU from the
+    same fp32 gradients, within ``chip_smoke.OPT_TOL`` (Muon
+    ``OPT_NS_TOL``) of max |p|; no kernel launches; an overflowing step
+    changes nothing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from deepspeed_tpu_torch.ops.optimizers import build_optimizer
+    from deepspeed_tpu_torch.runtime.engine import _flat_masters
+
+    gen = torch.Generator().manual_seed(5)
+    tree = {"embed": torch.randn(300, 64, generator=gen) * 0.1,
+            "w": torch.randn(2, 64, 96, generator=gen) * 0.1,
+            "norm": torch.ones(2, 64), "final": torch.ones(64)}
+    grads = [{k: torch.randn(v.shape, generator=gen) * 1e-2 for k, v in tree.items()}
+             for _ in range(3)]
+    out = {}
+    K.reset_launches()
+    for dev in ("cuda", "cpu"):
+        masters = _flat_masters(tree, torch.device(dev))
+        leaves, gviews = masters.leaves, masters.grads
+        opt = build_optimizer(name, chip_smoke.NEW_OPTIMIZERS[name])
+        state = opt.init(leaves)
+        lr = torch.tensor(1e-3, device=dev)
+        for g in grads:
+            for view, x in zip(gviews, g.values()):
+                view.copy_(x)
+            opt.step(leaves, gviews, state, lr)
+        before = masters.flat.detach().clone()
+        for view in gviews:
+            view.fill_(float("inf"))
+        opt.step(leaves, gviews, state, lr, finite=torch.tensor(False, device=dev))
+        assert torch.equal(masters.flat, before) and int(state["count"]) == 3
+        out[dev] = before.cpu()
+    assert sum(K.LAUNCHES.values()) == 0
+    tol = chip_smoke.OPT_NS_TOL if name == "muon" else chip_smoke.OPT_TOL
+    assert float((out["cuda"] - out["cpu"]).abs().max()) <= tol * float(out["cpu"].abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("remat", ["dots", "offload"])
+def test_dots_and_offload_gradients_equal_none_on_the_card(remat):
+    """``tiny`` with one head of 64, bf16, through K1f / K1b: the same
+    gradients, bit for bit, under ``remat`` as under ``none``; under
+    ``dots`` K1f runs twice a layer, under ``offload`` once, and offload's
+    copies are counted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from deepspeed_tpu_torch.models import transformer as T
+    from deepspeed_tpu_torch.models.presets import get_preset
+
+    # one head of 64 (no query group: K1b sums no heads into a kv head)
+    cfg = get_preset("tiny", num_heads=1, num_kv_heads=1, attn_impl="flash")
+    params = T.init_params(cfg, seed=0, device="cuda")
+    tokens = torch.randint(0, 256, (2, 129), generator=torch.Generator().manual_seed(1)).cuda()
+
+    def grads(r):
+        leaves = []
+
+        def walk(node):
+            if isinstance(node, dict):
+                return {k: walk(v) for k, v in node.items()}
+            leaves.append(node.detach().clone().requires_grad_(True))
+            return leaves[-1]
+
+        tree = walk(params)
+        K.reset_launches()
+        T.CausalLM(cfg.replace(remat=r)).loss_fn(tree, {"input_ids": tokens}).backward()
+        return [x.grad for x in leaves], K.LAUNCHES["flash_fwd"]
+
+    want, fwd_none = grads("none")
+    before = dict(T.OFFLOAD_BYTES)
+    got, fwd = grads(remat)
+    moved = {k: T.OFFLOAD_BYTES[k] - before[k] for k in before}
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert fwd_none == cfg.num_layers
+    assert fwd == (2 if remat == "dots" else 1) * cfg.num_layers
+    if remat == "offload":  # every copy to the host comes back (o twice: two readers)
+        assert 0 < moved["to_host"] <= moved["to_device"]
+
+
+@pytest.mark.gpu
+def test_offload_keeps_its_saved_tensors_in_pinned_host_memory():
+    """Under ``offload_saved`` a CUDA tensor saved for the backward lives in
+    pinned host memory until the backward brings it back; the tensors it is
+    told to keep stay on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from deepspeed_tpu_torch.models import transformer as T
+
+    x = torch.randn(64, 64, device="cuda", requires_grad=True)
+    keep = torch.randn(64, 64, device="cuda", requires_grad=True)
+    copies: list = []
+    with T.offload_saved(lambda t: t is keep, copies):
+        y = (x.sin() * keep).sum()
+    assert copies and all(h.device.type == "cpu" and h.is_pinned() for _, h in copies)
+    assert all(h.shape == (64, 64) for _, h in copies)
+    y.backward()
+    torch.testing.assert_close(x.grad, x.detach().cos() * keep.detach())
+    torch.testing.assert_close(keep.grad, x.detach().sin())

@@ -279,8 +279,7 @@ def test_llama3_8b_preset_matches_jax():
               "num_kv_heads", "max_seq_len", "rope_theta", "remat", "attn_impl", "hd"):
         assert getattr(t, f) == getattr(j, f), f
     assert t.param_count == j.param_count
-    with pytest.raises(NotImplementedError, match="dots"):
-        CausalLM(t)  # training refuses remat="dots" (not ported)
+    assert CausalLM(t).cfg.remat == "dots"  # trains under the dots policy
 
 
 def test_refusals(tiny):

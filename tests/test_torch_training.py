@@ -6,10 +6,15 @@
     family variants, and ``llama3_proxy_410m`` cut to 2 layers at seq 64.
     The port runs the flash Function (its plain versions on the CPU) under
     selective remat; JAX runs its reference body (Pallas needs a TPU).
-(d) remat ``none`` / ``full`` / ``selective`` give identical gradients, and
-    the chunked cross-entropy equals the full one.
+(d) remat ``full`` / ``selective`` / ``dots`` / ``offload`` give gradients
+    identical to ``none`` (``tiny`` and ``tiny_parallel``); ``dots`` saves
+    the products JAX's ``checkpoint_dots_with_no_batch_dims`` saves and
+    ``offload`` moves JAX's offloaded names to the host, and the attention
+    forward runs as often as those sets imply; the chunked cross-entropy
+    equals the full one.
 (e) A 5-step loss trajectory and the final parameters of the port's engine
-    against the JAX engine on a one-device mesh.
+    against the JAX engine on a one-device mesh, for AdamW, Lamb, Lion,
+    Adagrad and Muon, and the optimizer state's bytes against JAX's.
 (f) The five LR schedules and ``build_optimizer``'s updates against JAX's
     schedules and optax on the same gradients.
 (g) ``parse_config`` errors.  (h) ``train_on_loader`` equals a
@@ -21,8 +26,11 @@ which moves fp32 sums of a few hundred terms by a few ulps and the small
 gradient entries (1e-4 and below) by relatively more.  Engine trajectories:
 atol 1e-5 / rtol 1e-4 on losses and parameters after five AdamW steps (the
 update divides by sqrt(v) + eps, which amplifies ulp-level gradient
-differences of near-zero entries).  Schedules and optimizer steps: rtol
-1e-6 / atol 1e-7, one fp32 expression each.
+differences of near-zero entries; the same for Lamb, Lion, Adagrad and
+Muon: Muon's Newton-Schulz products are fp32 matmuls in both frameworks, 15
+of them a 2-D leaf a step, which round like the model's own).  Schedules:
+rtol 1e-6 / atol 1e-7, one fp32 expression each; optimizer steps atol 1e-6
+/ rtol 1e-5 after four updates.
 """
 import itertools
 
@@ -176,8 +184,6 @@ def test_alibi_bias_matches_jax():
     # block-sparse attention is ported; what stays refused, as in JAX, is
     # its composition with ALiBi (the sparse bodies take no bias)
     (dict(sparse_attention=FixedSparsityConfig(block=16), position="alibi"), "sparse_attention"),
-    (dict(remat="dots"), "remat='dots'"),
-    (dict(remat="offload"), "remat='offload'"),
 ])
 def test_unported_model_options_are_refused(over, match):
     with pytest.raises(NotImplementedError, match=match):
@@ -199,18 +205,94 @@ def test_unported_forward_arguments_are_refused():
 # ---------------------------------------------------------------------------
 # (d) remat policies and chunked cross-entropy
 # ---------------------------------------------------------------------------
-def test_remat_policies_give_identical_grads():
-    _, jp = _pair("tiny", {})
+def _remat_grads(name, remat, jp, tokens):
+    cfg = get_preset(name, dtype=torch.float32, remat=remat)
+    cfg = cfg.replace(attn_impl="reference" if cfg.position == "alibi" else "flash")
+    tp = _torch_params(jp, cfg)
+    tt.CausalLM(cfg).loss_fn(tp, {"input_ids": tokens}).backward()
+    return {k: v.grad for k, v in _flat(tp).items()}
+
+
+@pytest.mark.parametrize("name,remat", [(n, r) for n in ("tiny", "tiny_parallel")
+                                        for r in ("full", "selective", "dots", "offload")])
+def test_remat_policies_give_identical_grads(name, remat):
+    _, jp = _pair(name, {})
     tokens = torch.from_numpy(_tokens(2, 33, 256, seed=5)).long()
-    grads = {}
-    for remat in ("none", "full", "selective"):
-        cfg = get_preset("tiny", dtype=torch.float32, remat=remat, attn_impl="flash")
-        tp = _torch_params(jp, cfg)
-        tt.CausalLM(cfg).loss_fn(tp, {"input_ids": tokens}).backward()
-        grads[remat] = {k: v.grad for k, v in _flat(tp).items()}
-    for remat in ("full", "selective"):
-        for key, g in grads["none"].items():
-            assert torch.equal(grads[remat][key], g), (remat, key)
+    want = _remat_grads(name, "none", jp, tokens)
+    got = _remat_grads(name, remat, jp, tokens)
+    for key, g in want.items():
+        assert torch.equal(got[key], g), (remat, key)
+
+
+def _jax_layer_residuals(name, remat, b, s):
+    """The per-layer residuals of JAX's layer scan under ``remat`` (the
+    stacked outputs of the scan, at 3 layers), as (shape, on host) pairs."""
+    from jax._src.ad_checkpoint import saved_residuals  # print_saved_residuals' data
+
+    jcfg = j_preset(name, dtype=jnp.float32, remat=remat, num_layers=3)
+    jp = jt.init_params(jax.random.PRNGKey(0), jcfg)
+    tok = jnp.zeros((b, s + 1), jnp.int32)
+    res = saved_residuals(lambda p: jt.CausalLM(jcfg).loss_fn(p, {"input_ids": tok}), jp)
+    return sorted((tuple(a.shape[1:]), "<host>" in str(a)) for a, what in res
+                  if "output of scan" in what and a.ndim >= 4 and a.shape[0] == 3)
+
+
+@pytest.mark.parametrize("name", ["tiny", "tiny_parallel", "tiny_alibi"])
+def test_remat_saves_what_jax_saves(name, monkeypatch):
+    """``dots``: the products the policy saves and the layer input the
+    checkpoint keeps are JAX's per-layer residuals (a product only the
+    residual sum reads, ``w_down``'s and a parallel block's ``wo``'s, in
+    neither).  ``offload``: what goes to the host is JAX's four offloaded
+    names (q, k, v and the attention output; the flash Function's lse
+    besides, on the flash path) and the layer input stays.  The attention
+    forward (K1f on the card) runs once a layer under ``none`` /
+    ``selective`` / ``offload`` and twice under ``full`` / ``dots``."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as F1
+
+    b, s = 2, 15
+    flash = get_preset(name).position != "alibi"
+    saved, host, fwd = [], [], []
+    make_ctx = tt.create_selective_checkpoint_contexts
+
+    def spy_ctx(policy):
+        def spy(ctx, op, *args, **kw):
+            out = policy(ctx, op, *args, **kw)
+            if out == CheckpointPolicy.MUST_SAVE and not ctx.is_recompute:
+                saved.append((b, s, args[-1].shape[-1]))
+            return out
+        return make_ctx(spy)
+
+    to_host = tt._to_host
+    monkeypatch.setattr(tt, "create_selective_checkpoint_contexts", spy_ctx)
+    monkeypatch.setattr(tt, "_to_host", lambda t: host.append(tuple(t.shape)) or to_host(t))
+    fwd_with_lse = F1._fwd_with_lse
+    monkeypatch.setattr(F1, "_fwd_with_lse", lambda *a: fwd.append(1) or fwd_with_lse(*a))
+    _, jp = _pair(name, {}, seed=1)
+    tokens = torch.from_numpy(_tokens(b, s + 1, 256)).long()
+    cfg = get_preset(name)
+    layers, d, hd = cfg.num_layers, cfg.hidden_size, cfg.hd
+    counts = {}
+    for remat in ("none", "full", "selective", "dots", "offload"):
+        saved.clear(), host.clear(), fwd.clear()
+        _remat_grads(name, remat, jp, tokens)
+        counts[remat] = len(fwd)
+        if remat == "dots":
+            want = [x for x, _ in _jax_layer_residuals(name, "dots", b, s)]
+            assert sorted(saved + [(b, s, d)] * layers) == sorted(want * layers)
+        if remat == "offload" and flash:
+            want = _jax_layer_residuals(name, "offload", b, s)
+            assert [x for x, on_host in want if not on_host] == [(b, s, d)]
+            # q, k, v and o as the Function saves them, at the kernels' head
+            # dim; the sliced o besides when that is padded (one copy else)
+            wide = F1.padded_head_dim(hd)
+            named = [x[:3] + (wide,) for x, on_host in want if on_host]
+            extra = [(b, s, cfg.num_heads, hd)] if wide != hd else []
+            assert sorted(x for x in host if len(x) == 4) == sorted((named + extra) * layers)
+    if flash:
+        assert counts == {"none": layers, "full": 2 * layers, "selective": layers,
+                          "dots": 2 * layers, "offload": layers}
 
 
 @pytest.mark.parametrize("s,chunk", [(32, 8), (30, 8), (7, 16)])
@@ -265,14 +347,30 @@ def _torch_engine(jp, dtype=torch.float32, **cfg_over):
     return engine
 
 
-def test_engine_trajectory_matches_jax_engine():
+ENGINE_OPTIMIZERS = {
+    "adamw": {"type": "adamw", "params": {"weight_decay": 0.1}},
+    "lamb": {"type": "lamb", "params": {"weight_decay": 0.1}},
+    "lion": {"type": "lion", "params": {"weight_decay": 0.1}},
+    "adagrad": {"type": "adagrad", "params": {}},
+    "muon": {"type": "muon", "params": {}},
+}
+
+
+def _jax_engine(jcfg, jp, **cfg_over):
+    engine, _, _, _ = jds.initialize(
+        model=jt.CausalLM(jcfg), params=jax.tree_util.tree_map(jnp.asarray, jp),
+        config=_engine_config(**cfg_over), mesh=initialize_mesh(devices=jax.devices()[:1], data=1))
+    return engine
+
+
+@pytest.mark.parametrize("opt", sorted(ENGINE_OPTIMIZERS))
+def test_engine_trajectory_matches_jax_engine(opt):
     jcfg, jp = _pair("tiny", {})
     batches = _batches(5)
-    jengine, _, _, _ = jds.initialize(
-        model=jt.CausalLM(jcfg), params=jax.tree_util.tree_map(jnp.asarray, jp),
-        config=_engine_config(), mesh=initialize_mesh(devices=jax.devices()[:1], data=1))
+    over = dict(optimizer=ENGINE_OPTIMIZERS[opt])
+    jengine = _jax_engine(jcfg, jp, **over)
     j_losses = [float(jengine.train_batch(b)) for b in batches]
-    engine = _torch_engine(jp)
+    engine = _torch_engine(jp, **over)
     t_losses = [float(engine.train_batch(b)) for b in batches]
     np.testing.assert_allclose(t_losses, j_losses, **ENGINE_TOL)
     np.testing.assert_allclose(engine.get_global_grad_norm(),
@@ -285,6 +383,26 @@ def test_engine_trajectory_matches_jax_engine():
         np.testing.assert_allclose(ft[key].detach().numpy(), fj[key], err_msg=key,
                                    **ENGINE_TOL)
     assert int(engine.device_step) == 5 and engine.global_steps == 5
+
+
+@pytest.mark.parametrize("opt", sorted(ENGINE_OPTIMIZERS))
+def test_optimizer_state_bytes_match_jax_engine(opt):
+    """``memory_breakdown()["opt_state_bytes"]`` against the JAX engine's on
+    the same tree: the moments agree exactly, the step counters (int32
+    scalars: optax keeps one a transform, Muon two and its 3 fp32
+    coefficients; the port one) within 32 bytes."""
+    jcfg, jp = _pair("tiny", {})
+    over = dict(optimizer=ENGINE_OPTIMIZERS[opt])
+    got = _torch_engine(jp, **over).memory_breakdown()["opt_state_bytes"]
+    want = _jax_engine(jcfg, jp, **over).memory_breakdown()["opt_state_bytes"]
+    masters = sum(x.size * 4 for x in jax.tree_util.tree_leaves(jp))
+    moments = {"adamw": 2, "lamb": 2, "lion": 1, "adagrad": 1, "muon": None}[opt]
+    if moments is not None:
+        assert got == moments * masters + 4
+    else:  # mu over every leaf, nu over the leaves that are not 2-D
+        nu = sum(x.size * 4 for x in jax.tree_util.tree_leaves(jp) if x.ndim != 2)
+        assert got == masters + nu + 4
+    assert abs(got - want) <= 32, (got, want)
 
 
 # ---------------------------------------------------------------------------
@@ -373,13 +491,20 @@ OPTIMIZERS = [
     ("sgd", dict(lr=0.1)),
     ("sgd", dict(lr=0.1, momentum=0.9)),
     ("sgd", dict(lr=0.1, momentum=0.9, nesterov=True)),
+    ("lamb", dict(lr=1e-2, weight_decay=0.1, betas=(0.8, 0.95), eps=1e-6)),
+    ("fusedlamb", dict(lr=1e-2, max_coeff=10.0)),
+    ("lion", dict(lr=1e-3, weight_decay=0.1)),
+    ("fusedlion", dict(lr=1e-3, betas=(0.95, 0.98))),
+    ("adagrad", dict(lr=0.1)),
+    ("adagrad", dict(lr=0.1, eps=1e-6)),
+    ("muon", dict(lr=1e-2)),
 ]
 
 
 @pytest.mark.parametrize("name,params", OPTIMIZERS)
 def test_optimizer_updates_match_optax(name, params):
     rng = np.random.default_rng(11)
-    shapes = [(5, 3), (7,)]
+    shapes = [(5, 3), (7,), (2, 5, 3)]  # 2-D, 1-D and a stacked [L, in, out] leaf
     p0 = [rng.normal(size=s).astype(np.float32) for s in shapes]
     grads = [[rng.normal(size=s).astype(np.float32) for s in shapes] for _ in range(4)]
     tx = j_build_optimizer(name, params)
@@ -408,8 +533,50 @@ def test_optimizer_skips_the_whole_update_on_overflow():
     assert not state["mu"][0].any() and not state["nu"][0].any()
 
 
-@pytest.mark.parametrize("name", ["lamb", "lion", "adagrad", "muon", "onebitadam",
-                                  "zerooneadam", "onebitlamb"])
+@pytest.mark.parametrize("name", ["lamb", "lion", "adagrad", "muon", "sgd"])
+def test_every_optimizer_keeps_its_whole_state_on_overflow(name):
+    """A ``finite = False`` step, on the engine's layout (leaves tiling one
+    buffer) and on separate tensors, changes no bit of the parameters or of
+    any state tensor, the count included; a finite step then moves them."""
+    rng = np.random.default_rng(13)
+    shapes = [(5, 3), (7,), (2, 5, 3)]
+    flat = torch.from_numpy(rng.normal(size=sum(int(np.prod(x)) for x in shapes))
+                            .astype(np.float32))
+    views, off = [], 0
+    for shape in shapes:
+        n = int(np.prod(shape))
+        views.append(flat[off:off + n].view(shape))
+        off += n
+    separate = [v.clone() for v in views]
+    for params in (views, separate):
+        opt = build_optimizer(name, dict(weight_decay=0.1, momentum=0.9))
+        state = opt.init(params)
+        lr = torch.tensor(1e-2)
+        opt.step(params, [torch.ones_like(p) for p in params], state, lr)
+        tensors = lambda: [*params, *_flat_state(state)]  # noqa: E731
+        before = [t.clone() for t in tensors()]
+        bad = [torch.full_like(p, float("inf")) for p in params]
+        opt.step(params, bad, state, lr, finite=torch.tensor(False))
+        assert all(torch.equal(a, b) for a, b in zip(before, tensors()))
+        assert int(state["count"]) == 1
+        opt.step(params, [torch.ones_like(p) for p in params], state, lr,
+                 finite=torch.tensor(True))
+        assert int(state["count"]) == 2 and not torch.equal(before[0], params[0])
+
+
+def _flat_state(state):
+    out = []
+    for v in state.values():
+        if isinstance(v, dict):
+            out += _flat_state(v)
+        elif isinstance(v, list):
+            out += v
+        else:
+            out.append(v)
+    return out
+
+
+@pytest.mark.parametrize("name", ["onebitadam", "zerooneadam", "onebitlamb"])
 def test_unported_optimizers_are_refused(name):
     with pytest.raises(NotImplementedError, match=name):
         build_optimizer(name, {})
