@@ -85,6 +85,40 @@ Phases, each raising on failure (so the exit code is non-zero):
                (16 requests of a 512-token system prompt + 64-token suffix,
                32 new tokens each, prefix caching, chunked prefill); the
                packed-context kernel must have launched;
+   router   -- ``bench.py --serving --router`` (TPU branch, uncut) on the
+               410M model: 48 requests (half on a shared 128-token system
+               prompt, each with a 32-token suffix), 24 greedy tokens, 8
+               slots, 192 blocks of 32, buckets 64-512, prefix caching;
+               the single engine, then the router over 2 workers: 48/48
+               finished, prefix hits, namespaces serve / serve2, zero-leak
+               closes, each worker's memory growth within 10 % of its KV
+               pool (shared weights), 4 routed streams near-argmax on the
+               CPU; routed and single-engine tokens/s, per-worker launches;
+   router_handoff -- 3 workers (1 prefill), the 512-token prompt migrating
+               at first token with ``handoff_fmt`` 'none' then 'int8': one
+               handoff each, the wire bytes exact ('none': 12,582,912 B)
+               or within [1, 1.5) x the elements ('int8'); then the pages
+               once more into a decode worker whose burst graph was
+               captured before, and ``step_n(16)`` replays it over the
+               injected pool near-argmax; extract / codec / inject ms;
+   router_check -- the 410M model cut to 2 layers through the same router
+               and handoffs, every routed and handoff stream near-argmax
+               against the port on the CPU in fp32 (the int8 stream on a
+               CPU engine holding the card's dequantized pages); the int8
+               codec's bytes on the card's pages equal JAX's numpy codec;
+   router_fleet -- telemetry on, 3 workers (1 prefill), a fleet collector
+               thread: merged ttft / e2e percentiles equal the pooled
+               samples, the stitched trace's route and handoff spans, SLO
+               availability 1.0, deferred spans resolved with device time,
+               and a telemetry-off twin with equal router stats (the
+               telemetry tax printed);
+   router_chaos -- the bench's storm (FaultInjector seed 0) on a single
+               engine, then on the router with a worker kill (seed 1):
+               availability >= the baseline, one worker death, SLO
+               availability = the terminal states, zero leaks;
+   kernel_errors_surface -- one worker's paged-decode launches made to
+               raise ``KernelError``: ``router.tick()`` raises it, no
+               request FAILED, no retry, no worker death;
    spec_serve -- the workload of ``bench.py --serving --spec`` on the same
                model (16 requests of a random 96-token base + an 8-token
                pattern repeated to 64, 64 greedy tokens each, 8 slots, 96
@@ -1384,6 +1418,722 @@ def scheduler_phase(torch, K, gpu, params, cfg):
                launches=launches,
                launches_per_forward={"ctx_attention": launches["ctx_attention"] / ctx_dispatches},
                close=audit, gpu=gpu)
+    emit(res)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# the serve front end: router, paged-KV handoff, fleet plane, chaos, and
+# kernel faults surfacing through it (ROADMAP queue 1 item 6, first half)
+# ---------------------------------------------------------------------------
+# bench.py --serving --router, its TPU branch (bench.py:703-710), uncut
+ROUTER_SEC = dict(max_seqs=8, num_blocks=192, block_size=32, max_seq_len=704,
+                  prefill_buckets=[64, 128, 256, 512], prefill_budget=512,
+                  enable_prefix_caching=True)
+ROUTER_SIZES = dict(n_req=48, sys_len=128, sfx_len=32, max_new=24, long_len=512)
+ROUTER_DISAGG = 160  # bench.py: min(long_len, sys_len + sfx_len)
+ROUTER_MEM_TOL = 0.10  # a worker's memory growth over its KV pool
+ROUTER_REPLAYS = (1, 2, 47, 48)  # routed streams replayed on the CPU (near-argmax)
+ROUTER_CHECK_LAYERS = 2
+ROUTER_CHECK_REQ = 6  # the bench's requests in router_check, each with a 100-token cut
+HANDOFF_BURST = 16  # the replayed burst on the handoff's destination
+LONG_UID = 9001
+
+
+def router_workload(cfg, z=ROUTER_SIZES):
+    """bench.py's mixed traffic, drawn in its order from ``SEED``: odd uids
+    share a system prompt (the affinity population), even uids are cold;
+    then the long prompt."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED)
+    sys_prompt = rng.integers(1, cfg.vocab_size, z["sys_len"]).tolist()
+    prompts = {}
+    for u in range(1, z["n_req"] + 1):
+        sfx = rng.integers(1, cfg.vocab_size, z["sfx_len"]).tolist()
+        prompts[u] = (sys_prompt + sfx if u % 2 else
+                      rng.integers(1, cfg.vocab_size, z["sys_len"]).tolist() + sfx)
+    return prompts, rng.integers(1, cfg.vocab_size, z["long_len"]).tolist()
+
+
+def _sync(torch):
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
+def _mem(torch):
+    return torch.cuda.memory_allocated() if DEVICE == "cuda" else 0
+
+
+def pool_bytes(eng):
+    """Bytes of an engine's KV pool tensors (their storage, spare rows
+    included)."""
+    return sum(p.untyped_storage().nbytes() for p in eng._pool_leaves())
+
+
+def count_worker_launches(K, router):
+    """Per-worker kernel launches: each worker's ticks wrapped to add the
+    launches they made to that worker's row (the router runs its workers
+    one after another in this process)."""
+    per = {w.index: {} for w in router.pool.workers}
+    for w in router.pool.workers:
+        def tick(n=1, w=w, orig=w.begin_tick):
+            before = dict(K.LAUNCHES)
+            try:
+                orig(n)
+            finally:
+                for k, v in K.LAUNCHES.items():
+                    if v != before[k]:
+                        per[w.index][k] = per[w.index].get(k, 0) + v - before[k]
+        w.begin_tick = tick
+    return per
+
+
+def token_match(a, b):
+    pairs = [(x, y) for u in a for x, y in zip(a[u], b[u])]
+    return f"{sum(x == y for x, y in pairs)}/{len(pairs)}"
+
+
+def _gate_audits(phase, audits):
+    if any(a["blocks_in_use"] for a in audits):
+        raise AssertionError(f"{phase}: leaked blocks at close: {audits}")
+
+
+def router_phase(torch, K, gpu, params, cfg, params_cpu):
+    """``bench.py --serving --router`` (TPU branch, uncut) on the 410M model:
+    the single-engine reference, then the router over 2 workers.  Gates:
+    48/48 finished, prefix hit rate > 0, namespaces serve / serve2, zero
+    blocks in use at every close, each worker's memory growth within
+    ``ROUTER_MEM_TOL`` of its KV pool (the workers share the weights), and
+    ``ROUTER_REPLAYS`` routed streams near-argmax against the port on the
+    CPU in fp32.  Reported: routed and single-engine tokens/s, the token
+    match with the single engine, per-worker launches."""
+    from deepspeed_tpu_torch.inference.engine_v2 import build_serve_engine
+    from deepspeed_tpu_torch.inference.sampling import SamplingParams
+    from deepspeed_tpu_torch.serving import build_router
+
+    z = ROUTER_SIZES
+    prompts, long_prompt = router_workload(cfg)
+    samp = SamplingParams(temperature=0.0, max_new_tokens=z["max_new"])
+    ref = build_serve_engine(params, cfg, ROUTER_SEC, device=DEVICE)
+    ref.generate(long_prompt[:100], samp)  # warm-up on a cold prompt
+    sched = ref.scheduler
+    t0 = time.perf_counter()
+    for u, p in prompts.items():
+        if not sched.try_submit(u, p, samp).accepted:
+            raise AssertionError(f"router: the single engine refused uid {u}")
+    sched.run()
+    _sync(torch)
+    single_s = time.perf_counter() - t0
+    want = {u: sched.pop_result(u) for u in prompts}
+    single_hit = ref.mgr.cached_prompt_tokens / max(ref.mgr.prompt_tokens_total, 1)
+    want_long = ref.generate(long_prompt, samp)
+    _gate_audits("router", [ref.close()])
+    del ref, sched
+    if DEVICE == "cuda":
+        _free(torch)
+
+    mem0 = _mem(torch)
+    router = build_router(params, cfg, ROUTER_SEC, router=dict(n_workers=2), device=DEVICE)
+    mem1 = _mem(torch)
+    pool = pool_bytes(router.pool.workers[0].engine)
+    per_worker_mem = (mem1 - mem0) / 2
+    per_worker = count_worker_launches(K, router)
+    K.reset_launches()
+    t0 = time.perf_counter()
+    for u, p in prompts.items():
+        if not router.try_submit(u, p, samp).accepted:
+            raise AssertionError(f"router: refused uid {u}")
+    out = router.run()
+    _sync(torch)
+    routed_s = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    stats = dict(router.stats)
+    hit = router.prefix_hit_rate()
+    namespaces = [w.ns for w in router.pool.workers]
+    got = {u: out[u][1] for u in prompts}
+    unfinished = [u for u in prompts if out[u][0] != "finished" or len(got[u]) != z["max_new"]]
+    audits = router.close()
+    if unfinished:
+        raise AssertionError(f"router: requests not finished with {z['max_new']} tokens: "
+                             f"{unfinished}")
+    if hit <= 0:
+        raise AssertionError("router: affinity routing recovered no prefix hits")
+    if namespaces != ["serve", "serve2"]:
+        raise AssertionError(f"router: worker namespaces {namespaces}")
+    _gate_audits("router", audits)
+    if DEVICE == "cuda" and abs(per_worker_mem - pool) > ROUTER_MEM_TOL * pool:
+        raise AssertionError(f"router: a worker grew device memory by {per_worker_mem:.0f} B, "
+                             f"its KV pool is {pool} B (the weights must be shared)")
+    worst, exact, total = replay_on_cpu(torch, params_cpu, cfg,
+                                        {u: prompts[u] for u in ROUTER_REPLAYS},
+                                        {u: got[u] for u in ROUTER_REPLAYS})
+    if worst > ARGMAX_TOL_FRAC:
+        raise AssertionError(f"router: a routed pick is off the CPU argmax by {worst:.4f}")
+    n_tok = sum(len(p) for p in prompts.values()) + sum(len(g) for g in got.values())
+    res = dict(phase="router", model="llama3_proxy_410m", workers=2, requests=z["n_req"],
+               finished=z["n_req"] - len(unfinished), sec=ROUTER_SEC,
+               routed_wall_s=routed_s, single_wall_s=single_s,
+               routed_tokens_per_s=n_tok / routed_s, single_tokens_per_s=n_tok / single_s,
+               prefix_hit_rate=hit, single_engine_hit_rate=single_hit, router_stats=stats,
+               namespaces=namespaces, close_audits=audits, kv_pool_bytes=pool,
+               per_worker_memory_growth_bytes=per_worker_mem if DEVICE == "cuda" else None,
+               token_match_single_engine=token_match(got, want), launches=launches,
+               launches_per_worker={f"worker{i}": {k: v for k, v in d.items()
+                                                   if k in ("flash_fwd", "paged_decode",
+                                                            "ctx_attention")}
+                                    for i, d in per_worker.items()},
+               argmax_replayed_streams=len(ROUTER_REPLAYS), argmax_exact=f"{exact}/{total}",
+               argmax_worst_gap_frac=worst, gpu=gpu)
+    emit(res)
+    res["want_long"] = want_long  # the unmigrated stream (not printed)
+    return res
+
+
+def _adopt_injected(eng, ho):
+    """Admit ``ho``'s sequence on ``eng`` as ``adopt_prefilled`` does
+    (fresh exclusive pages, ``seen_tokens`` = the migrated context), outside
+    the scheduler, and inject its pages; returns the descriptor."""
+    from deepspeed_tpu_torch.serving import inject_request
+
+    seq = eng.mgr.admit(ho.uid, ho.tokens, match_prefix=False)
+    eng.mgr.ensure_capacity(seq, 0)
+    seq.seen_tokens = ho.n_ctx
+    inject_request(eng, ho)
+    return seq
+
+
+def router_handoff_phase(torch, K, gpu, params, cfg, params_cpu, want_long):
+    """Prefill/decode disaggregation on the 410M model: 3 workers, worker 0
+    in the prefill role, ``disagg_threshold`` 160, the 512-token prompt,
+    with ``handoff_fmt`` 'none' and then 'int8'.  Gates: one handoff, one
+    MIGRATED on the source and one adoption on a decode worker, each
+    worker's memory growth within ``ROUTER_MEM_TOL`` of its pool, the
+    'none' wire exactly 2 x layers x 16 pages x 32 x hkv x hd x 2 B, the
+    'int8' wire within [1.0, 1.5) x the element count.  After the 'none'
+    run, the pages of the same prompt move once more, engine to engine,
+    into a decode worker whose greedy burst graph was captured BEFORE
+    either handoff: ``step_n(16)`` replays that graph (no recapture) over
+    the injected pool and stays near-argmax against the CPU in fp32.
+    Reported: extract (device gather + one host copy), codec and inject
+    ms, the token match with the unmigrated stream."""
+    from deepspeed_tpu_torch.comm import qcomm
+    from deepspeed_tpu_torch.inference.sampling import SamplingParams
+    from deepspeed_tpu_torch.serving import build_router, extract_request
+
+    z = ROUTER_SIZES
+    _, long_prompt = router_workload(cfg)
+    samp = SamplingParams(temperature=0.0, max_new_tokens=z["max_new"])
+    L, bs = cfg.num_layers, ROUTER_SEC["block_size"]
+    n_pages = -(-z["long_len"] // bs)
+    els = 2 * L * n_pages * bs * cfg.num_kv_heads * cfg.hd
+    runs, launches = {}, {}
+    for fmt in ("none", "int8"):
+        mem0 = _mem(torch)
+        r = build_router(params, cfg, ROUTER_SEC, device=DEVICE, router=dict(
+            n_workers=3, prefill_workers=1, disagg_threshold=ROUTER_DISAGG, handoff_fmt=fmt))
+        mem1 = _mem(torch)
+        src, dst = r.pool.workers[0].engine, r.pool.workers[1].engine
+        pool = pool_bytes(src)
+        # every decode worker captures its greedy burst graph now, before
+        # any page of a handoff lands in its pool
+        for w in r.pool.workers[1:]:
+            w.engine.put([20_001], [long_prompt[:64]], samp)
+            w.engine.step_n(2, samp)
+            w.engine.flush([20_001])
+        graph = dst._burst.graphs[GREEDY] if DEVICE == "cuda" else None
+        K.reset_launches()
+        t0 = time.perf_counter()
+        r.submit(1, long_prompt, samp)
+        out = r.run()
+        _sync(torch)
+        wall = time.perf_counter() - t0
+        for k, v in K.LAUNCHES.items():
+            launches[k] = launches.get(k, 0) + v
+        stats = dict(r.stats)
+        migrated = dict(r.pool.workers[0].scheduler.stats)["migrated"]
+        adopted = [dict(w.scheduler.stats)["adopted"] for w in r.pool.workers[1:]]
+        if stats["handoffs"] != 1 or migrated != 1 or sum(adopted) != 1:
+            raise AssertionError(f"router_handoff[{fmt}]: handoffs {stats['handoffs']}, "
+                                 f"migrated {migrated}, adopted {adopted}")
+        if out[1][0] != "finished" or len(out[1][1]) != z["max_new"]:
+            raise AssertionError(f"router_handoff[{fmt}]: the long request ended {out[1][0]}")
+        wire = stats["handoff_wire_bytes"]
+        esize = src.kv[0][0].element_size()  # the pool's dtype: bf16 on the card
+        if fmt == "none" and wire != els * esize:
+            raise AssertionError(f"router_handoff: 'none' wire {wire} B != {els * esize} B")
+        if fmt == "int8" and not els <= wire < 1.5 * els:
+            raise AssertionError(f"router_handoff: 'int8' wire {wire} B outside [{els}, "
+                                 f"{1.5 * els})")
+        if DEVICE == "cuda" and abs((mem1 - mem0) / 3 - pool) > ROUTER_MEM_TOL * pool:
+            raise AssertionError(f"router_handoff: a worker grew device memory by "
+                                 f"{(mem1 - mem0) / 3:.0f} B, its pool is {pool} B")
+        # the same pages once more, engine to engine, each step timed
+        uid = 30_001
+        src.put([uid], [long_prompt], samp)
+        blocks = src.mgr.seqs[uid].blocks[:n_pages]
+        _sync(torch)
+        t0 = time.perf_counter()
+        pages = src.extract_kv_blocks(blocks)
+        t1 = time.perf_counter()
+        for leaf in (*pages[0], *pages[1]):
+            qcomm.quantize_payload(leaf, fmt)
+        t2 = time.perf_counter()
+        ho = extract_request(src, uid, fmt)
+        t3 = time.perf_counter()
+        seq = _adopt_injected(dst, ho)
+        _sync(torch)
+        t4 = time.perf_counter()
+        run = dict(wall_s=wall, handoff_wire_bytes=wire, wire_bytes_per_element=wire / els,
+                   router_stats=stats, extract_ms=1e3 * (t1 - t0), codec_ms=1e3 * (t2 - t1),
+                   extract_request_ms=1e3 * (t3 - t2), inject_ms=1e3 * (t4 - t3),
+                   token_match_unmigrated=token_match({1: out[1][1]}, {1: want_long}),
+                   per_worker_memory_growth_bytes=(mem1 - mem0) / 3 if DEVICE == "cuda"
+                   else None)
+        if fmt == "none":
+            before = dict(K.LAUNCHES)
+            dst.step_n(HANDOFF_BURST, samp)
+            burst_launches = {k: v - before[k] for k, v in K.LAUNCHES.items() if v != before[k]}
+            if DEVICE == "cuda" and dst._burst.graphs.get(GREEDY) is not graph:
+                raise AssertionError("router_handoff: the burst graph was recaptured")
+            dec = decode_kernel(cfg)
+            if DEVICE == "cuda" and burst_launches.get(dec) != L * HANDOFF_BURST:
+                raise AssertionError(f"router_handoff: the burst launched {burst_launches}")
+            gen = seq.tokens[z["long_len"]:]
+            worst, exact, total = replay_on_cpu(torch, params_cpu, cfg, {uid: long_prompt},
+                                                {uid: gen})
+            if len(gen) != 1 + HANDOFF_BURST or worst > ARGMAX_TOL_FRAC:
+                raise AssertionError(f"router_handoff: the burst after the injection is off "
+                                     f"the CPU argmax by {worst:.4f} ({len(gen)} tokens)")
+            run.update(burst_after_inject=dict(ticks=HANDOFF_BURST, launches=burst_launches,
+                                               argmax_exact=f"{exact}/{total}",
+                                               argmax_worst_gap_frac=worst))
+        dst.flush([uid])
+        src.flush([uid])
+        audits = r.close()
+        _gate_audits(f"router_handoff[{fmt}]", audits)
+        run["close_audits"] = audits
+        runs[fmt] = run
+        del r, src, dst
+    res = dict(phase="router_handoff", model="llama3_proxy_410m", workers=3,
+               prefill_workers=1, disagg_threshold=ROUTER_DISAGG, long_len=z["long_len"],
+               elements=els, kv_pool_bytes=pool, runs=runs, launches=launches, gpu=gpu)
+    emit(res)
+    return res
+
+
+def _int8_payload_np(page):
+    """JAX's numpy int8 codec (comm/qcomm.py:487-520) on one page: the
+    reference the port's torch codec is held to, byte for byte."""
+    import numpy as np
+
+    flat = np.asarray(page, np.float32).reshape(-1)
+    pad = (-flat.shape[0]) % 256
+    if pad:
+        flat = np.pad(flat, (0, pad))
+    buf = flat.reshape(-1, 256)
+    s = (np.maximum(np.max(np.abs(buf), axis=-1), 1e-12) / 127.0).astype(np.float32)
+    return np.clip(np.round(buf / s[:, None]), -127, 127).astype(np.int8), s
+
+
+def cpu_forced_logits(torch, eng, seq, forced):
+    """fp32 logits of ``seq``'s decode steps on a CPU engine whose pool
+    holds its context, feeding ``forced`` (the card's picks) one by one:
+    row i scores the token after ``seq.tokens[-1]`` at step i."""
+    import numpy as np
+    from deepspeed_tpu_torch.inference import model_runner
+
+    B = eng.mgr.max_seqs
+    rows = []
+    for tok in forced:
+        eng.mgr.ensure_capacity(seq, 1)
+        eng._set_block_table(seq)
+        tokens, lens, active = np.zeros(B, np.int32), np.zeros(B, np.int32), np.zeros(B, bool)
+        tokens[seq.slot], lens[seq.slot], active[seq.slot] = seq.tokens[-1], seq.cur_len - 1, True
+        logits, eng.kv = model_runner.decode_step(eng.params, eng.cfg, tokens, lens,
+                                                  eng._tables_np, active, eng.kv,
+                                                  ctx=eng.serving_ctx)
+        rows.append(logits[seq.slot].float())
+        seq.tokens.append(int(tok))
+        seq.seen_tokens = seq.cur_len - 1
+    return torch.stack(rows)
+
+
+def router_check_phase(torch, K, gpu, cfg):
+    """The 410M model at full width with ``ROUTER_CHECK_LAYERS`` layers,
+    bf16 on the card, through the router (3 workers, 1 prefill, the
+    bench's threshold of 160) with 'none' and then 'int8' handoffs,
+    against the port on the CPU in fp32: the long prompt first (it
+    migrates while the decode workers are idle), then ``ROUTER_CHECK_REQ``
+    of the bench's 160-token requests (they route to the prefill worker and
+    migrate too) and as many 100-token cuts of them (routed by affinity or
+    load, never migrated).  Every stream is near-argmax on every step: a
+    migrated stream's first token by a replay of its prompt, its decode on
+    a CPU engine holding the card's pages through the same codec (for
+    'int8' the dequantized bytes the card's decode read); an unmigrated
+    stream by a plain replay.  The int8 codec on the card's pages equals
+    JAX's numpy codec byte for byte."""
+    import numpy as np
+    from deepspeed_tpu_torch.inference.engine_v2 import InferenceEngineV2
+    from deepspeed_tpu_torch.inference.sampling import SamplingParams
+    from deepspeed_tpu_torch.models.transformer import init_params
+    from deepspeed_tpu_torch.serving import build_router
+
+    cfg2 = cfg.replace(num_layers=ROUTER_CHECK_LAYERS)
+    params2 = init_params(cfg2, seed=SEED, device=DEVICE)
+    params_cpu = _tree_cpu(params2)
+    cfg_cpu = cfg2.replace(dtype=torch.float32)
+    z = ROUTER_SIZES
+    bench_prompts, long_prompt = router_workload(cfg)
+    prompts = {LONG_UID: long_prompt}
+    for u in range(1, ROUTER_CHECK_REQ + 1):
+        prompts[u] = bench_prompts[u]
+        prompts[100 + u] = bench_prompts[u][:100]
+    samp = SamplingParams(temperature=0.0, max_new_tokens=z["max_new"])
+    runs, launches = {}, {}
+    for fmt in ("none", "int8"):
+        r = build_router(params2, cfg2, ROUTER_SEC, device=DEVICE, router=dict(
+            n_workers=3, prefill_workers=1, disagg_threshold=ROUTER_DISAGG, handoff_fmt=fmt))
+        w0 = r.pool.workers[0]
+        kept = {}
+
+        def keep(uid, fmt, orig=w0.extract_handoff, eng=w0.engine):
+            seq = eng.mgr.seqs[uid]
+            raw = eng.extract_kv_blocks(seq.blocks[:-(-seq.seen_tokens // eng.block_size)])
+            ho = orig(uid, fmt)
+            kept[uid] = (ho, raw)
+            return ho
+
+        detached = []
+
+        def detach(uid, orig=w0.detach_migrated):
+            ok = orig(uid)
+            if ok:
+                detached.append(uid)
+            return ok
+
+        w0.extract_handoff, w0.detach_migrated = keep, detach
+        K.reset_launches()
+        r.submit(LONG_UID, long_prompt, samp)
+        r.tick()
+        for u, p in prompts.items():
+            if u != LONG_UID:
+                r.submit(u, p, samp)
+        out = r.run()
+        for k, v in K.LAUNCHES.items():
+            launches[k] = launches.get(k, 0) + v
+        stats = dict(r.stats)
+        _gate_audits(f"router_check[{fmt}]", r.close())
+        got = {u: out[u][1] for u in prompts}
+        if any(out[u][0] != "finished" or len(g) != z["max_new"] for u, g in got.items()):
+            raise AssertionError(f"router_check[{fmt}]: unfinished streams")
+        if LONG_UID not in detached or stats["handoffs"] != len(detached):
+            raise AssertionError(f"router_check[{fmt}]: {stats['handoffs']} handoffs, "
+                                 f"{sorted(detached)} detached")
+        # a stream extracted but not adopted (a fallback) decoded where it was
+        moved = sorted(detached)
+        stay = [u for u in prompts if u not in detached]
+        if not stay:
+            raise AssertionError(f"router_check[{fmt}]: every stream migrated")
+        # unmigrated streams, and the migrated ones' first tokens (sampled on
+        # the prefill worker from its own exact KV): plain replays
+        w_a, e_a, t_a = replay_on_cpu(torch, params_cpu, cfg2,
+                                      {u: prompts[u] for u in prompts},
+                                      {u: got[u] if u in stay else got[u][:1] for u in prompts})
+        # migrated streams' decode: on a CPU engine holding the card's pages
+        eng = InferenceEngineV2(params_cpu, cfg_cpu, device="cpu", **dict(
+            ROUTER_SEC, max_seqs=len(moved), num_blocks=len(moved) * 24))
+        w_b, e_b, t_b = 0.0, 0, 0
+        codec_equal = True
+        for u in moved:
+            ho, raw = kept[u]
+            seq = _adopt_injected(eng, ho)
+            logits = cpu_forced_logits(torch, eng, seq, got[u][1:])
+            w, e = near_argmax(torch, logits, torch.tensor(got[u][1:]))
+            w_b, e_b, t_b = max(w_b, w), e_b + e, t_b + len(got[u]) - 1
+            eng.flush([u])
+            if fmt == "int8":
+                for (q, sc, _, _), page in zip(ho.payloads, (*raw[0], *raw[1])):
+                    rq, rs = _int8_payload_np(page.float().numpy())
+                    codec_equal &= bool(np.array_equal(q.numpy(), rq)
+                                        and np.array_equal(sc.numpy(), rs))
+        eng.close()
+        if not codec_equal:
+            raise AssertionError("router_check: the int8 codec's bytes on the card's pages "
+                                 "differ from the numpy codec's")
+        worst = max(w_a, w_b)
+        if worst > ARGMAX_TOL_FRAC:
+            raise AssertionError(f"router_check[{fmt}]: a card pick is off the CPU argmax by "
+                                 f"{worst:.4f}")
+        runs[fmt] = dict(migrated_streams=len(moved), routed_streams=len(stay),
+                         replay_argmax_exact=f"{e_a}/{t_a}", replay_worst_gap_frac=w_a,
+                         migrated_decode_argmax_exact=f"{e_b}/{t_b}",
+                         migrated_decode_worst_gap_frac=w_b,
+                         codec_bytes_equal_numpy=codec_equal if fmt == "int8" else None,
+                         router_stats=stats)
+    res = dict(phase="router_check", model="llama3_proxy_410m", layers=ROUTER_CHECK_LAYERS,
+               streams=len(prompts), runs=runs, launches=launches,
+               tolerance=ARGMAX_TOL_FRAC, gpu=gpu)
+    emit(res)
+    return res
+
+
+def router_fleet_phase(torch, K, gpu, params, cfg):
+    """The fleet plane on the 410M model: telemetry on, 3 workers (1
+    prefill), a fleet collector thread pulling every 25 ms, the long prompt
+    first (it migrates while the decode workers are idle), then the 48
+    prompts.  Gates: the merged ttft_ms / e2e_ms p50 / p90 / p99 equal the
+    pooled per-worker samples, the stitched trace holds the migrated uid's
+    route and handoff spans and at least 2 request pids, SLO availability
+    1.0, every deferred span (a prefill pack that samples nothing, probed
+    on a decode worker after the run) resolved with device_ms > 0, and a
+    telemetry-off twin with equal router stats.  Reported: the twin's token
+    match and both wall times (the telemetry tax)."""
+    import math
+
+    from deepspeed_tpu_torch.inference.sampling import SamplingParams
+    from deepspeed_tpu_torch.serving import build_router
+    from deepspeed_tpu_torch.telemetry import (Telemetry, attach_fleet_collector,
+                                               fleet_chrome_trace)
+
+    z = ROUTER_SIZES
+    prompts, long_prompt = router_workload(cfg)
+    samp = SamplingParams(temperature=0.0, max_new_tokens=z["max_new"])
+    runs = {}
+    for on in (True, False):
+        tel = Telemetry(True) if on else None
+        r = build_router(params, cfg, ROUTER_SEC, telemetry=tel, device=DEVICE, router=dict(
+            n_workers=3, prefill_workers=1, disagg_threshold=ROUTER_DISAGG,
+            metrics_pull_interval_ms=25.0 if on else None))
+        coll = attach_fleet_collector(r, start=True) if on else None
+        K.reset_launches()
+        t0 = time.perf_counter()
+        r.submit(LONG_UID, long_prompt, samp)
+        r.tick()
+        for u, p in prompts.items():
+            if not r.try_submit(u, p, samp).accepted:
+                raise AssertionError(f"router_fleet: refused uid {u}")
+        out = r.run()
+        _sync(torch)
+        wall = time.perf_counter() - t0
+        run = dict(out=out, stats=dict(r.stats), wall_s=wall, launches=dict(K.LAUNCHES))
+        if on:
+            coll.stop(final_pull=True)
+            fleet = coll.fleet
+            merged = {}
+            for metric in ("ttft_ms", "e2e_ms"):
+                pooled = sorted(v for st in fleet.histogram_states(metric)
+                                for v in st["samples"] or [])
+                h = fleet.merged_histogram(metric)
+                if h is None or not h.exact or h.count != len(pooled) or not pooled:
+                    raise AssertionError(f"router_fleet: {metric} merged {h} vs "
+                                         f"{len(pooled)} pooled samples")
+                for q in (50, 90, 99):
+                    truth = pooled[min(len(pooled), max(1, math.ceil(q / 100 * len(pooled)))) - 1]
+                    if h.percentile(q) != truth:
+                        raise AssertionError(f"router_fleet: {metric} p{q} {h.percentile(q)} "
+                                             f"!= pooled {truth}")
+                merged[metric] = dict(count=h.count, **h.quantiles((50, 90, 99)))
+            sig = r.signals()
+            trace = fleet_chrome_trace(fleet, telemetry=tel)
+            xs = [e for e in trace["traceEvents"] if e.get("ph") == "X"]
+            mig = {e["name"] for e in xs if e["pid"] == 0
+                   and e.get("args", {}).get("uid") == LONG_UID}
+            req_pids = {e["pid"] for e in xs if e["pid"] % 2 == 1}
+            if not {"route", "handoff"} <= mig or len(req_pids) < 2:
+                raise AssertionError(f"router_fleet: trace spans {mig}, request pids {req_pids}")
+            if sig["slo"]["availability"] != 1.0 or run["stats"]["handoffs"] < 1:
+                raise AssertionError(f"router_fleet: slo {sig['slo']}, stats {run['stats']}")
+            # a prefill pack that samples nothing ends with a deferred device
+            # reading (a CUDA event), resolved at the flush
+            eng = r.pool.workers[1].engine
+            seq = eng.mgr.admit(40_001, long_prompt[:256], match_prefix=False)
+            eng.mgr.ensure_capacity(seq, 0)
+            eng.prefill_entries([(seq, 0, 128)], samp)
+            eng.mgr.release(40_001)
+            tel.flush()
+            deferred = [sp for sp in tel.recorder._spans if sp.t_end is None]
+            if not deferred or any(not sp.device_ms or sp.device_ms <= 0 for sp in deferred):
+                raise AssertionError(f"router_fleet: deferred spans {[sp.device_ms for sp in deferred]}")
+            run.update(merged=merged, slo=sig["slo"], fleet_counters=sig["fleet_counters"],
+                       trace_events=len(trace["traceEvents"]), request_pids=sorted(req_pids),
+                       deferred_spans=len(deferred),
+                       deferred_device_ms=[sp.device_ms for sp in deferred],
+                       spans_recorded=len(tel.recorder), pulls=sig["fleet"])
+        _gate_audits("router_fleet", r.close())
+        runs["on" if on else "off"] = run
+    on, off = runs["on"], runs["off"]
+    if on["stats"] != off["stats"]:
+        raise AssertionError(f"router_fleet: telemetry changed the router stats "
+                             f"{on['stats']} vs {off['stats']}")
+    match = token_match({u: on["out"][u][1] for u in on["out"]},
+                        {u: off["out"][u][1] for u in off["out"]})
+    res = dict(phase="router_fleet", model="llama3_proxy_410m", workers=3, prefill_workers=1,
+               requests=z["n_req"] + 1, wall_s_on=on["wall_s"], wall_s_off=off["wall_s"],
+               telemetry_tax=on["wall_s"] / off["wall_s"] - 1.0, twin_token_match=match,
+               router_stats=on["stats"],
+               **{k: on[k] for k in ("merged", "slo", "fleet_counters", "trace_events",
+                                     "request_pids", "deferred_spans", "deferred_device_ms",
+                                     "spans_recorded")},
+               launches=on["launches"], gpu=gpu)
+    emit(res)
+    return res
+
+
+def router_chaos_phase(torch, K, gpu, params, cfg):
+    """``bench.py --serving --router --chaos``'s storm (bench.py:896-960) on
+    the 410M model: the single-engine storm baseline (``FaultInjector``
+    seed 0: transient and fatal runner exceptions, NaN logits, allocator
+    exhaustion, slow ticks), then the router over 2 workers under the same
+    storm plus a ``worker_kill`` (seed 1).  Gates: healthy-request
+    availability >= the baseline's, one worker death, SLO availability
+    equal to the terminal states' count, zero leaks on every worker."""
+    from deepspeed_tpu_torch.inference.engine_v2 import build_serve_engine
+    from deepspeed_tpu_torch.inference.faults import FaultInjector
+    from deepspeed_tpu_torch.inference.sampling import SamplingParams
+    from deepspeed_tpu_torch.serving import build_router
+    from deepspeed_tpu_torch.telemetry import attach_fleet_collector
+
+    z = ROUTER_SIZES
+    prompts, _ = router_workload(cfg)
+    samp = SamplingParams(temperature=0.0, max_new_tokens=z["max_new"])
+    serve_kw = dict(max_retries=4, retry_backoff_ms=1.0, shed_queue_depth=max(2, z["n_req"] // 4))
+    nan_victims, fatal_victims = [5, 9], [3]
+    injected = set(nan_victims) | set(fatal_victims)
+
+    def storm():
+        return (FaultInjector(seed=0)
+                .arm("runner_exception", p=0.05, transient=True)
+                .arm("runner_exception", uids=fatal_victims)
+                .arm("nan_logits", uids=nan_victims, times=len(nan_victims))
+                .arm("alloc_exhaustion", p=0.05, transient=True, times=8)
+                .arm("slow_tick", p=0.1, delay_s=0.002, times=10))
+
+    def availability(results):
+        healthy = [u for u in prompts if u not in injected]
+        return sum(results[u][0] == "finished" for u in healthy) / len(healthy)
+
+    base = build_serve_engine(params, cfg, ROUTER_SEC, serve=serve_kw, faults=storm(),
+                              device=DEVICE)
+    sched = base.scheduler
+    t0 = time.perf_counter()
+    for u, p in prompts.items():
+        if not sched.try_submit(u, p, samp).accepted:
+            raise AssertionError(f"router_chaos: the baseline refused uid {u}")
+    sched.run()
+    base_s = time.perf_counter() - t0
+    base_out = {u: (sched.requests[u].state, sched.pop_result(u)) for u in prompts}
+    base_avail = availability(base_out)
+    base_stats = {k: base.stats[k] for k in ("failed", "nan_failures", "retries",
+                                             "isolation_probes", "shed_transitions")}
+    _gate_audits("router_chaos", [base.close()])
+    kill = FaultInjector(seed=1).arm("worker_kill", uids=[1], after=4, times=1)
+    engine_faults = storm()
+    r = build_router(params, cfg, ROUTER_SEC, router=dict(n_workers=2), serve=serve_kw,
+                     faults=kill, engine_faults=engine_faults, device=DEVICE)
+    coll = attach_fleet_collector(r, start=False)
+    K.reset_launches()
+    t0 = time.perf_counter()
+    backlog = []
+    for u, p in prompts.items():
+        if not r.try_submit(u, p, samp).accepted:
+            backlog.append(u)
+    ticks = 0
+    while backlog or not r.idle:
+        if backlog and r.try_submit(backlog[0], prompts[backlog[0]], samp).accepted:
+            backlog.pop(0)
+        r.tick()
+        ticks += 1
+        if ticks > 100_000:
+            raise AssertionError("router_chaos: the storm did not converge")
+    _sync(torch)
+    storm_s = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    out = {u: r.pop_result(u) for u in prompts}
+    avail = availability(out)
+    coll.pull_once()
+    slo = r.signals()["slo"]
+    term = [out[u][0] for u in prompts]
+    n_fin = sum(s == "finished" for s in term)
+    n_err = sum(s in ("failed", "timed_out") for s in term)
+    stats = dict(r.stats)
+    audits = r.close()
+    _gate_audits("router_chaos", audits)
+    if abs(slo["availability"] - n_fin / max(n_fin + n_err, 1)) > 1e-12 \
+            or slo["finished"] != n_fin or slo["errors"] != n_err:
+        raise AssertionError(f"router_chaos: slo {slo} vs {n_fin} finished / {n_err} errors")
+    if stats["worker_deaths"] != 1:
+        raise AssertionError(f"router_chaos: {stats['worker_deaths']} worker deaths")
+    if avail < base_avail:
+        raise AssertionError(f"router_chaos: availability {avail} < baseline {base_avail}")
+    res = dict(phase="router_chaos", model="llama3_proxy_410m", workers=2,
+               requests=z["n_req"], injected=sorted(injected), serve=serve_kw,
+               availability=avail, baseline_availability=base_avail, slo=slo,
+               router_stats=stats, baseline_stats=base_stats,
+               faults_fired={p: engine_faults.fired(p) for p in (
+                   "runner_exception", "nan_logits", "alloc_exhaustion", "slow_tick")},
+               storm_wall_s=storm_s, baseline_wall_s=base_s, router_ticks=ticks,
+               terminal_states={s: term.count(s) for s in sorted(set(term))},
+               close_audits=audits, launches=launches, gpu=gpu)
+    emit(res)
+    return res
+
+
+def kernel_errors_phase(torch, K, gpu, cfg):
+    """A kernel fault inside a worker's tick surfaces: on a 2-worker router
+    (the 410M model cut to 2 layers, on the card), worker 1's paged-decode
+    launches are made to raise the kernel layer's ``KernelError`` (worker 0
+    launches for real).  ``router.tick()`` must raise it; no request may be
+    FAILED, no retry or isolation probe counted, no worker marked dead."""
+    from deepspeed_tpu_torch.inference.sampling import SamplingParams
+    from deepspeed_tpu_torch.models.transformer import init_params
+    from deepspeed_tpu_torch.ops.kernels import paged_attention as PA
+    from deepspeed_tpu_torch.serving import build_router
+
+    cfg2 = cfg.replace(num_layers=ROUTER_CHECK_LAYERS)
+    params2 = init_params(cfg2, seed=SEED, device=DEVICE)
+    prompts, _ = router_workload(cfg)
+    r = build_router(params2, cfg2, ROUTER_SEC, router=dict(n_workers=2), device=DEVICE,
+                     serve=dict(max_retries=3, retry_backoff_ms=0.0))
+    samp = SamplingParams(temperature=0.0, max_new_tokens=8)
+    for u in range(1, 9):
+        r.submit(u, prompts[u], samp)
+    r.tick()  # admission and prefill, fault-free
+    victim = {p.data_ptr() for p in r.pool.workers[1].engine._pool_leaves()}
+    real = PA.launch
+    fired = []
+
+    def launch(name, *args):
+        if name.startswith("paged_decode") and args[1].value in victim:
+            fired.append(name)
+            raise K.KernelError(f"CUDA kernel {name} failed to launch: cudaError 719 "
+                                "(made to fail on worker 1)")
+        return real(name, *args)
+
+    caught = None
+    PA.launch = launch
+    try:
+        r.tick()
+    except K.KernelError as e:
+        caught = str(e)
+    finally:
+        PA.launch = real
+    engines = [w.engine for w in r.pool.workers]
+    failed = [u for w in r.pool.workers for u, q in w.scheduler.requests.items()
+              if q.state == "failed"]
+    counts = {k: sum(e.stats[k] for e in engines) for k in ("failed", "retries",
+                                                            "isolation_probes")}
+    stats = dict(r.stats)
+    alive = [w.alive for w in r.pool.workers]
+    r.close()
+    if caught is None or not fired:
+        raise AssertionError("kernel_errors_surface: router.tick() did not raise the "
+                             "kernel's error")
+    if failed or any(counts.values()) or stats["worker_deaths"] or not all(alive):
+        raise AssertionError(f"kernel_errors_surface: failed {failed}, counts {counts}, "
+                             f"deaths {stats['worker_deaths']}, alive {alive}")
+    res = dict(phase="kernel_errors_surface", raised=caught, launches_refused=len(fired),
+               failed_requests=0, retries=0, isolation_probes=0, worker_deaths=0, gpu=gpu)
     emit(res)
     return res
 
@@ -4171,6 +4921,17 @@ def main() -> None:
     burst_stops_phase(torch, K, gpu, params, cfg)
     ms_sch = megastep_serve_phase(torch, K, gpu, params, cfg)
     sch = scheduler_phase(torch, K, gpu, params, cfg)
+    # the serve front end (router, handoff, fleet plane, chaos) on the same model
+    params_cpu = _tree_cpu(params)
+    rt = router_phase(torch, K, gpu, params, cfg, params_cpu)
+    rh = router_handoff_phase(torch, K, gpu, params, cfg, params_cpu, rt.pop("want_long"))
+    del params_cpu
+    _free(torch)
+    rk = router_check_phase(torch, K, gpu, cfg)
+    rf = router_fleet_phase(torch, K, gpu, params, cfg)
+    rc = router_chaos_phase(torch, K, gpu, params, cfg)
+    kernel_errors_phase(torch, K, gpu, cfg)
+    _free(torch)
     spec = spec_phase(torch, K, gpu, params, cfg, "llama3_proxy_410m", "spec_serve")
     lcc = longctx_check_phase(torch, K, gpu, cfg)
     lc = longctx_phase(torch, K, gpu, params, cfg)
@@ -4218,7 +4979,9 @@ def main() -> None:
     # optimizers, the remat policies, the presets' training and serving,
     # quantized serving, the quantizer API), each read right after its own run
     main_paths = (eng, ms_eng, ms_sch, sch, spec, lcc, lc, g_eng, g_burst, g_spec, tr, shim, sp,
-                  opt, rm, pt, ps, qc, qs, qz)
+                  opt, rm, pt, ps, qc, qs, qz, rt, rh, rk, rf, rc)
+    router_paths = {"router": rt, "router_handoff": rh, "router_check": rk,
+                    "router_fleet": rf, "router_chaos": rc}
     per_forward = {**eng["launches_per_forward"], **sch["launches_per_forward"],
                    "paged_decode_hd64": g_eng["launches_per_forward"]["paged_decode_hd64"]}
     for name in ("paged_decode_partial", "ctx_attention_partial"):  # longctx, S = 2
@@ -4239,6 +5002,10 @@ def main() -> None:
                      source=f"deepspeed_tpu_torch/csrc/{K.SOURCES[name]}",
                      replaces=REPLACES[name], launches=launches,
                      max_abs_err=errs[name], **times[name])
+        router_launches = {k: p["launches"][name] for k, p in router_paths.items()
+                           if p["launches"].get(name)}
+        if router_launches:  # the serve front end's phases (ROADMAP item 6)
+            entry["launches_router_phases"] = router_launches
         if name in per_forward:  # serving: launches per model forward
             entry["launches_per_forward"] = per_forward[name]
         if name in per_replay:  # decode bursts: launches per replayed tick

@@ -2,7 +2,8 @@
 
 A second package beside the JAX one, mirroring its module layout
 (``models``, ``ops``, ``inference``, ``runtime``, ``config``, ``sequence``,
-``parallel``) so each module's counterpart is found by name.  It imports ``torch`` and
+``parallel``, ``serving``, ``telemetry``, ``comm``) so each module's
+counterpart is found by name.  It imports ``torch`` and
 never ``jax`` or ``deepspeed_tpu``.  Entry points run on a CUDA device
 unless the caller passes ``device="cpu"``; every Pallas kernel of the ported
 paths is a hand-written CUDA kernel under ``csrc/`` (see ``ops/kernels``).
@@ -10,9 +11,14 @@ paths is a hand-written CUDA kernel under ``csrc/`` (see ``ops/kernels``).
 Ported so far:
 
 - serving: ``inference.engine_v2.InferenceEngineV2`` (paged KV cache, packed
-  prefill, prefix caching, chunked prefill, batched decode, speculation,
-  quantized weights, a KV pool seq-sharded over a ``parallel.topology``
-  grid) and its ``inference.scheduler.ServeScheduler``;
+  prefill, prefix caching, chunked prefill, batched decode, decode bursts,
+  speculation, quantized weights, a KV pool seq-sharded over a
+  ``parallel.topology`` grid) and its ``inference.scheduler.ServeScheduler``
+  with JAX's fault-tolerance layer (``inference.faults``);
+- the serve front end in one process: ``serving.build_router`` (prefix
+  affinity, prefill/decode disaggregation through the paged-KV handoff,
+  worker-death replay), with ``telemetry`` (registry, traces, the fleet
+  plane);
 - training: ``initialize`` -> ``runtime.engine.DeepSpeedTorchEngine``
   (``train_batch``, ``train_on_loader``, and the reference's ``forward`` /
   ``backward`` / ``step``, ``eval_batch``, ``no_sync``) over

@@ -1,6 +1,6 @@
 """Config: one JSON / dict tree -> validated dataclasses — counterpart of
 ``deepspeed_tpu/config/config.py`` (``parse_config`` :1134), for the keys
-the training path reads:
+the port runs:
 
 - ``train_batch_size``, ``train_micro_batch_size_per_gpu``,
   ``gradient_accumulation_steps`` (any two determine the third; all three
@@ -13,17 +13,24 @@ the training path reads:
 - ``zero_optimization.stage`` 0-3 and ``param_persistence_threshold``.
   The port runs on one GPU, where, as on the JAX package's one-device mesh,
   every ZeRO stage keeps the whole state on the one device: the stage is
-  validated and changes no number.
-
-``ServeConfig`` is the serving engine's block (``InferenceEngineV2(serve=
-...)``), not a training key: ``decode_megastep`` runs, the rest of JAX's
-fields are refused until their items land.
+  validated and changes no number;
+- ``telemetry`` (``TelemetryConfig``: the training engine records its
+  ``train_batch`` spans and ``train/step_ms`` histogram under it);
+- the serving blocks ``serve`` (``ServeConfig``: megastep, deadlines,
+  retries, shed mode and the watchdog), ``serve_engine``
+  (``ServeEngineConfig``, the ``build_serve_engine`` seam) and ``router``
+  (``RouterConfig``, ``serving.build_router``).  The JAX ``Config`` keeps
+  only ``telemetry``; the port's also carries the three serving blocks so
+  one file configures a front end.
 
 An unknown key raises ``ConfigError`` naming it, as in JAX.  A key the JAX
-package knows but the port does not run yet (offload, ZeRO++ quantization,
-compression, progressive layer drop, eigenvalue, curriculum, elasticity,
-monitors, ...) raises ``NotImplementedError`` naming it.  The reference keys
-JAX accepts and ignores are accepted and ignored here too.
+package knows but the port does not run yet raises ``NotImplementedError``
+naming it and its ROADMAP item: ``autotune`` and ``adaptation`` (item 6's
+second half), ``serve.adaptation`` (item 6), ``serve.quant_comm`` /
+``comm_tiles`` and tensor-parallel or replicated serving engines (item 7),
+offload, ZeRO++ quantization, compression, progressive layer drop,
+eigenvalue, curriculum, elasticity, monitors, ...  The reference keys JAX
+accepts and ignores are accepted and ignored here too.
 """
 from __future__ import annotations
 
@@ -47,8 +54,10 @@ _UNPORTED_TOP = {
     "checkpoint", "compression_training", "data_efficiency", "curriculum_learning",
     "tensorboard", "csv_monitor", "wandb", "comet", "elasticity", "progressive_layer_drop",
     "eigenvalue", "compile", "hybrid_engine", "aio", "nebula",
-    "telemetry", "autotune", "serve", "serve_engine", "router", "adaptation",
 }
+# the autotuner and its online controller: the second half of ROADMAP queue
+# 1 item 6
+_ITEM6_TOP = {"autotune", "adaptation"}
 # zero_optimization keys the port does not run yet
 _UNPORTED_ZERO = {
     "offload_optimizer", "offload_param", "offload_nvme_path", "offload_pipeline",
@@ -225,6 +234,10 @@ class Config:
     scheduler: SchedulerConfig = field(default_factory=SchedulerConfig)
     train_data: TrainDataConfig = field(default_factory=TrainDataConfig)
     sparse_attention: SparseAttentionConfig = field(default_factory=SparseAttentionConfig)
+    telemetry: "TelemetryConfig" = field(default_factory=lambda: TelemetryConfig())
+    serve: "ServeConfig" = field(default_factory=lambda: ServeConfig())
+    serve_engine: "ServeEngineConfig" = field(default_factory=lambda: ServeEngineConfig())
+    router: "RouterConfig" = field(default_factory=lambda: RouterConfig())
     dp_world_size: int = 1  # derived by finalize
 
     @property
@@ -276,20 +289,57 @@ class Config:
         return self
 
 
-# ServeConfig fields of the JAX package that the port does not run yet, with
-# the ROADMAP queue 1 item that brings each
-_SERVE_UNPORTED = {
-    "deadline_ms": 6, "ttft_deadline_ms": 6, "max_retries": 6, "retry_backoff_ms": 6,
-    "shed_queue_depth": 6, "watchdog_tick_ms": 6, "watchdog_grace_ticks": 6,
-    "quant_comm": 7, "comm_tiles": 7,
-}
+@dataclass
+class TelemetryConfig:
+    """Unified-telemetry knobs (``telemetry/``: metrics registry, tick
+    spans, per-request serve traces) — JAX's ``TelemetryConfig``
+    (config.py:171), with its defaults and checks.
+
+    ``enabled`` turns on histogram/span/trace recording; the engines'
+    ``stats`` counters count either way.  ``jsonl_path`` appends structured
+    events (per-request summaries) one JSON object per line.
+    ``chrome_trace_path`` writes the span + request timeline as Chrome
+    trace-event JSON on close/exit.  ``jax_profiler`` keeps JAX's key name:
+    it wraps train / serve dispatches in a labelled
+    ``torch.profiler.record_function`` (and NVTX) range.
+    ``exact_quantiles`` is the raw sample count histograms retain before
+    degrading to the log-bucket estimate; ``max_spans`` bounds the span
+    ring buffer."""
+
+    enabled: bool = False
+    jsonl_path: Optional[str] = None
+    chrome_trace_path: Optional[str] = None
+    jax_profiler: bool = False
+    exact_quantiles: int = 4096
+    max_spans: int = 65536
+
+    def __post_init__(self):
+        if self.exact_quantiles < 0:
+            raise ConfigError(
+                f"telemetry.exact_quantiles must be >= 0, got {self.exact_quantiles}")
+        if self.max_spans < 1:
+            raise ConfigError(f"telemetry.max_spans must be >= 1, got {self.max_spans}")
+
+
+_ITEM7 = "(ROADMAP queue 1 item 7)"
 
 
 @dataclass
 class ServeConfig:
     """The serving stack's config block (``InferenceEngineV2(serve=...)``,
-    a ``ServeConfig`` or a dict) — counterpart of JAX's ``ServeConfig``
+    a ``ServeConfig`` or a dict) — JAX's ``ServeConfig``
     (``deepspeed_tpu/config/config.py:259``), with its defaults and checks.
+
+    ``deadline_ms`` / ``ttft_deadline_ms``: default per-request end-to-end /
+    first-token deadlines, checked at tick boundaries (None = none; a
+    ``submit()`` may override per request).  ``max_retries``: bounded
+    retries of a transiently failing dispatch before requests are failed;
+    ``retry_backoff_ms`` is the exponential-backoff base.
+    ``shed_queue_depth``: waiting-queue depth that flips the scheduler into
+    shed mode (typed RETRY_LATER rejections, speculation off until the
+    queue drains; None = never shed).  ``watchdog_tick_ms``: this many
+    milliseconds per tick, ``watchdog_grace_ticks`` ticks in a row, also
+    enters shed mode (None disables the watchdog).
 
     ``decode_megastep``: fuse up to this many decode-only scheduler ticks
     into ONE device-resident engine burst (``engine._decode_burst``: one
@@ -297,13 +347,14 @@ class ServeConfig:
     detected on the device, so the fused ticks stay token-identical to
     per-tick decode).  1 = off.  The scheduler collapses to per-tick
     whenever a tick has other work (waiting or prefilling requests, live
-    speculation proposals).
+    speculation proposals) and clamps the fuse count to the nearest
+    request deadline.
 
-    The other fields are JAX's and are not ported yet: each raises
-    ``NotImplementedError`` naming its ROADMAP item when set away from its
-    default (deadlines, retries, shed mode, the watchdog and ``adaptation``:
-    item 6; ``quant_comm`` / ``comm_tiles``: item 7).  ``fused_serving=False``
-    is refused as the engine's own argument is."""
+    Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
+    item when set away from its default: ``adaptation`` (the online
+    autotuning controller, item 6), ``quant_comm`` and ``comm_tiles``
+    (tensor-parallel serving, item 7).  ``fused_serving=False`` is refused
+    as the engine's own argument is (item 7)."""
 
     deadline_ms: Optional[float] = None
     ttft_deadline_ms: Optional[float] = None
@@ -344,20 +395,235 @@ class ServeConfig:
         if self.watchdog_grace_ticks < 1:
             raise ConfigError(
                 f"serve.watchdog_grace_ticks must be >= 1, got {self.watchdog_grace_ticks}")
-        defaults = ServeConfig.__dataclass_fields__
-        for k, item in _SERVE_UNPORTED.items():
-            if getattr(self, k) != defaults[k].default:
-                raise NotImplementedError(
-                    f"serve.{k} is not ported yet (ROADMAP queue 1 item {item})")
+        for k in ("quant_comm", "comm_tiles"):
+            if getattr(self, k) != ServeConfig.__dataclass_fields__[k].default:
+                raise NotImplementedError(f"serve.{k} is not ported yet {_ITEM7}")
         if self.fused_serving is False:
-            raise NotImplementedError(
-                "serve.fused_serving=False is not ported yet (ROADMAP queue 1 item 7)")
+            raise NotImplementedError(f"serve.fused_serving=False is not ported yet {_ITEM7}")
         a = self.adaptation
         if a is not None and (not isinstance(a, dict)
                               or any(k != "enabled" or v for k, v in a.items())):
             raise NotImplementedError(
                 "serve.adaptation (the online autotuning controller) is not ported yet "
                 "(ROADMAP queue 1 item 6)")
+
+
+@dataclass
+class ServeEngineConfig:
+    """The build-an-``InferenceEngineV2``-from-config seam — JAX's
+    ``ServeEngineConfig`` (config.py:353), with its defaults and checks:
+    one validated block of the engine's constructor surface, consumed by
+    ``inference.engine_v2.build_serve_engine`` (and through it by every
+    worker of ``serving.build_router``).
+
+    ``seq_shards`` > 1 makes ``build_serve_engine`` bring up the one-card seq grid
+    (``initialize_mesh(devices=[dev] * S, seq=S)``).  ``tp`` > 1,
+    ``serve_replicas`` > 1 and ``quant_comm`` other than 'none' are not
+    ported yet and raise ``NotImplementedError`` naming ROADMAP item 7."""
+
+    max_seqs: int = 8
+    num_blocks: int = 96
+    block_size: int = 32
+    max_seq_len: Optional[int] = None
+    prefill_buckets: List[int] = field(default_factory=lambda: [64, 128, 256])
+    prefill_budget: Optional[int] = None
+    prefill_chunk: Optional[int] = None
+    kv_watermark: float = 0.0625
+    enable_prefix_caching: bool = False
+    enable_speculation: bool = False
+    spec_max_draft: int = 4
+    quantize_weights: Optional[str] = None
+    tp: int = 1
+    serve_replicas: int = 1
+    seq_shards: int = 1
+    quant_comm: str = "none"
+    comm_tiles: int = 1
+    seed: int = 0
+
+    def __post_init__(self):
+        for k in ("max_seqs", "num_blocks", "block_size", "tp",
+                  "serve_replicas", "seq_shards", "comm_tiles"):
+            if int(getattr(self, k)) < 1:
+                raise ConfigError(f"serve_engine.{k} must be >= 1, got "
+                                  f"{getattr(self, k)}")
+        if not 0.0 <= self.kv_watermark < 1.0:
+            raise ConfigError(
+                f"serve_engine.kv_watermark must be in [0, 1), got "
+                f"{self.kv_watermark}")
+        if self.quantize_weights not in (None, "int8", "fp8", "fp6"):
+            raise ConfigError(
+                f"serve_engine.quantize_weights must be None|int8|fp8|fp6, "
+                f"got {self.quantize_weights!r}")
+        if self.quant_comm not in ("none", "int8", "fp8"):
+            raise ConfigError(
+                f"serve_engine.quant_comm must be none|int8|fp8, got "
+                f"{self.quant_comm!r}")
+        if not self.prefill_buckets:
+            raise ConfigError("serve_engine.prefill_buckets cannot be empty")
+        if self.prefill_chunk is not None and self.prefill_chunk < 1:
+            raise ConfigError(
+                f"serve_engine.prefill_chunk must be >= 1 or None, got "
+                f"{self.prefill_chunk}")
+        for k in ("tp", "serve_replicas", "comm_tiles"):
+            if getattr(self, k) > 1:
+                raise NotImplementedError(
+                    f"serve_engine.{k}={getattr(self, k)} is not ported yet {_ITEM7}")
+        if self.quant_comm != "none":
+            raise NotImplementedError(
+                f"serve_engine.quant_comm={self.quant_comm!r} is not ported yet {_ITEM7}")
+
+    def engine_kwargs(self) -> Dict[str, Any]:
+        """The ``InferenceEngineV2`` constructor kwargs this block encodes
+        (``build_serve_engine`` makes the seq grid)."""
+        return dict(
+            max_seqs=self.max_seqs, num_blocks=self.num_blocks,
+            block_size=self.block_size, max_seq_len=self.max_seq_len,
+            prefill_buckets=tuple(self.prefill_buckets),
+            prefill_budget=self.prefill_budget,
+            prefill_chunk=self.prefill_chunk,
+            kv_watermark=self.kv_watermark,
+            enable_prefix_caching=self.enable_prefix_caching,
+            enable_speculation=self.enable_speculation,
+            spec_max_draft=max(self.spec_max_draft, 1),
+            quantize_weights=self.quantize_weights,
+            serve_replicas=self.serve_replicas,
+            seq_shards=self.seq_shards,
+            seed=self.seed,
+        )
+
+
+@dataclass
+class RouterConfig:
+    """Serve-front-end knobs (``serving/``: the request router over N
+    engine workers) — JAX's ``RouterConfig`` (config.py:432), with its
+    defaults and checks.  Consumed by ``serving.Router`` /
+    ``serving.build_router``.
+
+    ``n_workers``: engine workers the pool stamps out (each through
+    ``build_serve_engine`` from one ``ServeEngineConfig``, in this
+    process); ``prefill_workers``: the first K take the PREFILL role — long
+    prompts land there and migrate to a decode worker at first token via
+    the paged-KV handoff (0 disables disaggregation).
+    ``disagg_threshold``: prompt length from which a request counts as long
+    (None = the engine's prefill chunk).  ``handoff_fmt``: the handoff's
+    wire format — 'none' ships pages in the cache dtype (token-exact),
+    'int8' / 'fp8' quantize per ``comm.qcomm``'s per-chunk-scale codec.
+    ``affinity``: prefix-affinity routing (``affinity_max_keys`` bounds
+    its LRU map).  ``shed_queue_depth``: router backlog depth that sheds
+    new submissions with typed RETRY_LATER (None = never).
+    ``max_replays``: re-routes after a worker death before a request fails.
+    ``retry_backoff_ms``: backoff when a worker rejects RETRY_LATER
+    without a hint.  ``decode_megastep``: scheduler ticks each worker runs
+    per router tick.  ``metrics_pull_interval_ms`` / ``pull_spans`` /
+    ``slo_*``: the fleet collector's pacing and the SLO monitor.
+
+    The transport knobs (``heartbeat_interval_ms``, ``lease_ms``,
+    ``rpc_*``, ``connect_timeout_ms``, ``max_frame_bytes``) are validated
+    as in JAX and read by nothing yet: in-process pools have no socket
+    (the transport is ROADMAP queue 1 item 6)."""
+
+    n_workers: int = 2
+    prefill_workers: int = 0
+    disagg_threshold: Optional[int] = None
+    handoff_fmt: str = "none"
+    affinity: bool = True
+    affinity_max_keys: int = 8192
+    shed_queue_depth: Optional[int] = None
+    max_replays: int = 3
+    retry_backoff_ms: float = 20.0
+    heartbeat_interval_ms: float = 50.0
+    lease_ms: float = 1000.0
+    rpc_deadline_ms: float = 120_000.0
+    rpc_max_attempts: int = 5
+    rpc_backoff_ms: float = 10.0
+    rpc_backoff_max_ms: float = 250.0
+    connect_timeout_ms: float = 30_000.0
+    max_frame_bytes: int = 64 * 1024 * 1024
+    decode_megastep: int = 1
+    metrics_pull_interval_ms: Optional[float] = None
+    pull_spans: bool = True
+    slo_objective: float = 0.999
+    slo_fast_window_s: float = 5.0
+    slo_slow_window_s: float = 60.0
+
+    def __post_init__(self):
+        if self.n_workers < 1:
+            raise ConfigError(
+                f"router.n_workers must be >= 1, got {self.n_workers}")
+        if not 0 <= self.prefill_workers < self.n_workers:
+            raise ConfigError(
+                f"router.prefill_workers must be in [0, n_workers), got "
+                f"{self.prefill_workers} of {self.n_workers} (at least one "
+                "decode-capable worker must remain)")
+        if self.handoff_fmt not in ("none", "int8", "fp8"):
+            raise ConfigError(
+                f"router.handoff_fmt must be none|int8|fp8, got "
+                f"{self.handoff_fmt!r}")
+        if self.disagg_threshold is not None and self.disagg_threshold < 1:
+            raise ConfigError(
+                f"router.disagg_threshold must be >= 1 or None, got "
+                f"{self.disagg_threshold}")
+        if self.affinity_max_keys < 1:
+            raise ConfigError(
+                f"router.affinity_max_keys must be >= 1, got "
+                f"{self.affinity_max_keys}")
+        if self.shed_queue_depth is not None and self.shed_queue_depth < 1:
+            raise ConfigError(
+                f"router.shed_queue_depth must be >= 1 or None, got "
+                f"{self.shed_queue_depth}")
+        if self.max_replays < 0:
+            raise ConfigError(
+                f"router.max_replays must be >= 0, got {self.max_replays}")
+        if self.retry_backoff_ms < 0:
+            raise ConfigError(
+                f"router.retry_backoff_ms must be >= 0, got "
+                f"{self.retry_backoff_ms}")
+        if self.heartbeat_interval_ms <= 0:
+            raise ConfigError(
+                f"router.heartbeat_interval_ms must be > 0, got "
+                f"{self.heartbeat_interval_ms}")
+        if self.lease_ms <= self.heartbeat_interval_ms:
+            raise ConfigError(
+                f"router.lease_ms ({self.lease_ms}) must exceed "
+                f"heartbeat_interval_ms ({self.heartbeat_interval_ms}) — a "
+                "lease shorter than one ping interval expires every healthy "
+                "worker")
+        if self.rpc_deadline_ms <= 0 or self.connect_timeout_ms <= 0:
+            raise ConfigError(
+                "router.rpc_deadline_ms and connect_timeout_ms must be > 0")
+        if self.rpc_max_attempts < 1:
+            raise ConfigError(
+                f"router.rpc_max_attempts must be >= 1, got "
+                f"{self.rpc_max_attempts}")
+        if self.rpc_backoff_ms < 0 or self.rpc_backoff_max_ms < self.rpc_backoff_ms:
+            raise ConfigError(
+                "router rpc backoff must satisfy 0 <= rpc_backoff_ms <= "
+                f"rpc_backoff_max_ms, got {self.rpc_backoff_ms}/"
+                f"{self.rpc_backoff_max_ms}")
+        if self.max_frame_bytes < 4096:
+            raise ConfigError(
+                f"router.max_frame_bytes must be >= 4096, got "
+                f"{self.max_frame_bytes}")
+        if self.decode_megastep < 1:
+            raise ConfigError(
+                f"router.decode_megastep must be >= 1, got "
+                f"{self.decode_megastep}")
+        if (self.metrics_pull_interval_ms is not None
+                and self.metrics_pull_interval_ms <= 0):
+            raise ConfigError(
+                f"router.metrics_pull_interval_ms must be > 0 or None, got "
+                f"{self.metrics_pull_interval_ms}")
+        if not 0.0 < self.slo_objective < 1.0:
+            raise ConfigError(
+                f"router.slo_objective must be in (0, 1), got "
+                f"{self.slo_objective}")
+        if self.slo_fast_window_s <= 0 or self.slo_slow_window_s <= 0:
+            raise ConfigError(
+                "router.slo_fast_window_s and slo_slow_window_s must be > 0")
+        if self.slo_slow_window_s < self.slo_fast_window_s:
+            raise ConfigError(
+                f"router.slo_slow_window_s ({self.slo_slow_window_s}) must "
+                f"be >= slo_fast_window_s ({self.slo_fast_window_s})")
 
 
 def _strip_auto(obj):
@@ -371,9 +637,13 @@ def _strip_auto(obj):
 
 def _refuse_unported(raw: Dict[str, Any]) -> None:
     for k in raw:
+        if k in _ITEM6_TOP:
+            raise NotImplementedError(
+                f"config key '{k}' (the autotuner and its online controller) is not "
+                "ported yet (ROADMAP queue 1 item 6)")
         if k in _UNPORTED_TOP:
             raise NotImplementedError(
-                f"config key '{k}' is not ported yet (ROADMAP queue 1 items 6-9)")
+                f"config key '{k}' is not ported yet (ROADMAP queue 1 items 7-9)")
     zero = raw.get("zero_optimization")
     if isinstance(zero, dict):
         for k in list(zero):

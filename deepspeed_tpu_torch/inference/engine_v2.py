@@ -36,6 +36,23 @@ is captured once as a CUDA graph (``ops.kernels.CapturedGraph``) per
 sampling triple and replayed n times; on the CPU the same tick body runs
 eagerly n times.  ``step()`` stays an eager tick over the same body.
 
+Telemetry (``telemetry=``: a ``TelemetryConfig``, a bool or a shared
+``telemetry.Telemetry``): ``stats`` is a read-through ``StatsView`` over
+the engine's claimed ``serve*/`` counters (they count with telemetry off
+too); prefill packs, decode and verify ticks and bursts are spans with
+histograms (``prefill_pack_ms``, ``decode_tick_ms``, ``spec_tick_ms``,
+``burst_tick_ms``, the drafter's ``spec_draft_len`` /
+``spec_match_distance``); a prefill pack that samples nothing ends with a
+CUDA event the recorder resolves later.  Engines sharing one ``Telemetry``
+claim ``serve``, ``serve2``, ... (with paired ``sched*`` / ``comm*``), and
+``close()`` releases them.  ``faults=`` takes a seeded
+``faults.FaultInjector``: its points fire before every dispatch (a burst
+checks once, before its graph replays) and poison rows after the fetch.
+``extract_kv_blocks`` / ``inject_kv_blocks`` are the paged-KV handoff's
+device halves (``serving/handoff.py``): inject writes the existing pool
+tensors in place, so a captured burst graph keeps reading the live pool.
+``build_serve_engine`` builds an engine from a ``ServeEngineConfig``.
+
 Not ported yet, and refused loudly rather than ignored: weight offload,
 tensor-parallel and replica meshes and seq shards on distinct devices
 (ROADMAP queue 1 item 7), ``fused_serving=False`` (the JAX jnp-body lever:
@@ -43,12 +60,13 @@ on the card that body is a kernel's plain version), and the ``serve``
 fields of items 6 and 7 (``config.ServeConfig``).  Every dispatch raises
 through to the caller: a kernel that fails to build or launch, or a graph
 that fails to capture or replay, is an error, never a failed request or an
-eager fallback.
+eager fallback (the scheduler's guards re-raise it, ``ops.kernels.
+surfaces``).
 """
 from __future__ import annotations
 
 import logging
-from typing import Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -64,6 +82,7 @@ from ..ops.quantizer import (
     tree_nbytes,
 )
 from ..parallel.topology import Grid, normalize_device
+from ..telemetry import StatsView, Telemetry, device_ready
 from . import model_runner, speculative
 from .paged import init_paged_cache
 from .ragged import StateManager
@@ -72,6 +91,8 @@ from .sampling import SamplingParams, finite_guard, sample, spec_verify_sample
 logger = logging.getLogger("deepspeed_tpu_torch")
 
 # counter names of the JAX engine's stats view that this engine moves
+# (JAX's table / sampling upload counters have no counterpart here: the
+# port hands its host tables to each dispatch)
 STAT_NAMES = (
     "prefill_tokens_dispatched",  # real prompt tokens run (not pad)
     "prefill_dispatches",
@@ -86,7 +107,21 @@ STAT_NAMES = (
     "spec_accepted",  # draft tokens accepted
     "spec_emitted",  # tokens emitted by verify ticks (accepted + 1 each)
     "spec_drafts_shed",  # draft sets dropped by _spec_tick's capacity pre-pass
+    # fault-tolerance transitions, counted by the paired ServeScheduler
+    # (registry counters are memoized by name: its handles are these)
+    "failed",  # requests reaching FAILED (isolation / NaN sentinel)
+    "timed_out",  # deadline expirations (TTFT or e2e)
+    "cancelled",  # cancel(uid) calls that landed
+    "retries",  # transient-dispatch retries (bounded backoff loop)
+    "nan_failures",  # FAILED through the -1 logits sentinel
+    "isolation_probes",  # solo re-dispatches after a batch failure
+    "shed_transitions",  # shed-mode flips (both directions)
+    "shed_rejections",  # try_submit calls rejected RETRY_LATER
+    "watchdog_trips",  # tick-duration watchdog firings
 )
+# the engine's histograms (``{ns}/<name>``)
+HIST_NAMES = ("prefill_pack_ms", "decode_tick_ms", "spec_tick_ms", "burst_tick_ms",
+              "spec_draft_len", "spec_match_distance")
 
 
 # burst-accumulator pad written by rows already deactivated on the device:
@@ -132,6 +167,8 @@ class InferenceEngineV2:
         serve_replicas: int = 1,
         seq_shards: int = 1,
         serve=None,
+        telemetry=None,
+        faults=None,
         device=None,
     ):
         # the serving config block (a ServeConfig or a dict); the fields the
@@ -206,11 +243,32 @@ class InferenceEngineV2:
         self.spec_min_match = spec_min_match
         self.spec_lookup_window = spec_lookup_window
         self.serving_ctx = ServingContext()
+        # chaos harness (inference/faults.py): a seeded FaultInjector whose
+        # points fire at this engine's dispatch sites and in the allocator's
+        # growth path; None = every check is a no-op
+        self.faults = faults
         self.mgr = StateManager(num_blocks, block_size, max_seqs,
                                 enable_prefix_caching=enable_prefix_caching,
                                 seq_shards=sq)
+        self.mgr.faults = faults
+        # speculation totals [drafted, accepted] of the one replica (the
+        # spec half of ``replica_stats``)
+        self._spec_by_replica = [[0, 0]]
         self._scheduler = None
-        self.stats: Dict[str, int] = {name: 0 for name in STAT_NAMES}
+        self.telemetry = Telemetry.ensure(telemetry)
+        if self.telemetry.enabled:
+            # a configured chrome_trace_path / jsonl_path is written at exit
+            self.telemetry.register_exit_close()
+        # the engine's namespace group, claimed atomically: a second engine
+        # on a shared Telemetry gets serve2 / sched2 / comm2
+        self._ns, self._sched_ns, self._comm_ns = \
+            self.telemetry.claim_prefixes(("serve", "sched", "comm"))
+        self._c = self.telemetry.counters(self._ns, STAT_NAMES)
+        self.stats = StatsView(self._c)
+        reg = self.telemetry.registry
+        self._h = {k: reg.histogram(f"{self._ns}/{k}") for k in HIST_NAMES}
+        # the namespace's request-latency histograms exist before any request
+        self.telemetry.request_hists(self._ns)
         self.prefill_buckets = [b for b in prefill_buckets if b <= self.max_seq_len] \
             or [self.max_seq_len]
         # SplitFuse-style token budget, clamped to the largest bucket
@@ -232,6 +290,13 @@ class InferenceEngineV2:
             pool[dst].copy_(pool[src])
 
     # -- scheduling queries --------------------------------------------------
+    def query(self, uid: int) -> Tuple[int, int]:
+        """(max admissible new tokens, allocatable blocks): admission info,
+        evictable prefix-cache blocks included (JAX ``query``; one
+        replica)."""
+        free = max(a.available_blocks for a in self.mgr.allocators)
+        return free * self.block_size, free
+
     def can_schedule(self, prompt_lens: Sequence[int], token_lists=None) -> bool:
         return self.mgr.can_admit_all(prompt_lens, token_lists=token_lists)
 
@@ -297,6 +362,7 @@ class InferenceEngineV2:
         boundary of the pack (segment-0 gap padding between prompts) so KV
         lands as page-granular writes.  Cold packs (all starts 0) take the
         flash kernel; any non-zero start takes the packed-context kernel."""
+        self._maybe_fault("runner_exception", [s.uid for s, _, _ in entries])
         bs = self.block_size
         t_pad = _bucket(max(sum(-(-(e - s) // bs) * bs for _, s, e in entries), bs),
                         self.prefill_buckets)
@@ -325,17 +391,25 @@ class InferenceEngineV2:
             ctx_tables[s.slot, :len(s.blocks)] = s.blocks
             ctx_lens[s.slot] = start
             cur += n_pages * bs  # next prompt starts page-aligned
-        if use_ctx:
-            logits, self.kv = model_runner.prefill_packed_ctx(
-                self.params, self.cfg, tokens, seg, pos, pack_pages, last_idx,
-                ctx_tables, ctx_lens, self.kv, ctx=self.serving_ctx, mesh=self._mesh,
-                seq_shards=self.seq_shards)
-        else:
-            logits, self.kv = model_runner.prefill_packed(
-                self.params, self.cfg, tokens, seg, pos, pack_pages, last_idx,
-                self.kv, ctx=self.serving_ctx)
-        self.stats["prefill_tokens_dispatched"] += sum(e - s for _, s, e in entries)
-        self.stats["prefill_dispatches"] += 1
+        n_real = sum(e - s for _, s, e in entries)
+        sp = self.telemetry.recorder.start(
+            "prefill_pack", track=self._ns, hist=self._h["prefill_pack_ms"],
+            tokens=n_real, pad=t_pad, entries=len(entries), ctx=use_ctx)
+        with self.telemetry.step_annotation("prefill_pack",
+                                            self._c["prefill_dispatches"].value + 1):
+            if use_ctx:
+                logits, self.kv = model_runner.prefill_packed_ctx(
+                    self.params, self.cfg, tokens, seg, pos, pack_pages, last_idx,
+                    ctx_tables, ctx_lens, self.kv, ctx=self.serving_ctx, mesh=self._mesh,
+                    seq_shards=self.seq_shards)
+            else:
+                logits, self.kv = model_runner.prefill_packed(
+                    self.params, self.cfg, tokens, seg, pos, pack_pages, last_idx,
+                    self.kv, ctx=self.serving_ctx)
+        sp.dispatched()
+        self._c["prefill_tokens_dispatched"].inc(n_real)
+        self._c["prefill_dispatches"].inc()
+        poison = self._poisoned([s.uid for s, _, end in entries if end == len(s.tokens)])
         next_tokens = None
         for s, _start, end in entries:
             s.seen_tokens = end
@@ -343,6 +417,8 @@ class InferenceEngineV2:
                 if next_tokens is None:
                     next_tokens = self._sample(logits, sampling)
                 tok = int(next_tokens[s.slot])
+                if s.uid in poison:
+                    tok = -1
                 if tok < 0:
                     # finite_guard sentinel: commit nothing, retract the keys
                     # this sequence published, report -1 for this uid only
@@ -354,6 +430,32 @@ class InferenceEngineV2:
                 self._set_block_table(s)
                 out[s.uid] = tok
             self.mgr.update_hashes(s)
+        if next_tokens is not None:
+            sp.end()  # host-complete: the sampled fetch synced the pack
+        else:
+            # intermediate chunks only: nothing was read back, so the pack
+            # may still run on the device.  Its reading is deferred to a
+            # CUDA event on the dispatch's stream (the next host-synced span
+            # on this track, or a flush, resolves it); on the CPU the logits
+            # are ready at once.
+            sp.end(sync_obj=device_ready(logits))
+
+    # -- fault hooks -----------------------------------------------------------
+    def _maybe_fault(self, point: str, uids) -> None:
+        """Chaos-harness check before a dispatch site: raised BEFORE any
+        device work, so a retry or an isolation probe re-dispatches against
+        an intact pool (a burst checks once, before its graph replays —
+        never inside a capture)."""
+        if self.faults is not None:
+            self.faults.maybe_raise(point, uids=uids)
+
+    def _poisoned(self, uids) -> frozenset:
+        """Uids whose rows the chaos harness poisons this dispatch: the same
+        ``-1`` sentinel ``finite_guard`` produces, so the whole quarantine
+        path runs."""
+        if self.faults is None:
+            return frozenset()
+        return frozenset(self.faults.select("nan_logits", uids))
 
     def _sample(self, logits: torch.Tensor, sampling: SamplingParams) -> np.ndarray:
         """Sample + non-finite guard on the device, one fetch to the host."""
@@ -398,11 +500,16 @@ class InferenceEngineV2:
                 cap = min(cap, max_emit[s.uid] - 1)
             if cap <= 0:
                 continue
-            drafts = speculative.propose(s.tokens, self.spec_min_match, cap,
-                                         self.spec_lookup_window)
+            drafts, match_start = speculative.propose_detail(
+                s.tokens, self.spec_min_match, cap, self.spec_lookup_window)
             if drafts:
                 out[s.uid] = drafts
                 budget -= len(drafts)
+                self._h["spec_draft_len"].observe(len(drafts))
+                # tail -> matched n-gram distance: ~0 in a repetition loop,
+                # large on a prompt-copy workload
+                self._h["spec_match_distance"].observe(
+                    len(s.tokens) - self.spec_min_match - match_start)
         return out
 
     def _spec_tick(self, active_seqs, sampling: SamplingParams,
@@ -433,13 +540,14 @@ class InferenceEngineV2:
                 if not n:
                     raise
                 proposals.pop(s.uid, None)
-                self.stats["spec_drafts_shed"] += 1
+                self._c["spec_drafts_shed"].inc()
                 # the draft tail's pages may be what the clone needs
                 self.mgr.truncate_to_length(s)
                 self.mgr.ensure_capacity(s, 1)
                 self.mgr.ensure_writable(s, L - 1)
         if not proposals:
             return {u: [t] for u, t in self._decode_tick(active_seqs, sampling).items()}
+        self._maybe_fault("runner_exception", [s.uid for s in active_seqs])
         B, K = self.mgr.max_seqs, self.spec_max_draft
         K1 = K + 1
         tokens = np.zeros(B * K1, np.int32)
@@ -466,15 +574,22 @@ class InferenceEngineV2:
                 pos[row] = p_tok
                 dst_pages[row] = s.blocks[p_tok // bs]
                 dst_offs[row] = p_tok % bs
-        out_np, n_out = self._verify(tokens, seg, pos, dst_pages, dst_offs, ctx_lens,
-                                     draft, n_draft, sampling)
-        self.stats["spec_ticks"] += 1
-        self.stats["spec_seq_forwards"] += len(active_seqs)
+        sp = self.telemetry.recorder.start(
+            "spec_tick", track=self._ns, hist=self._h["spec_tick_ms"],
+            batch=len(active_seqs), drafted=int(n_draft.sum()))
+        with self.telemetry.step_annotation("spec_tick", self._c["spec_ticks"].value + 1):
+            out_np, n_out = self._verify(tokens, seg, pos, dst_pages, dst_offs, ctx_lens,
+                                         draft, n_draft, sampling)
+        sp.dispatched()
+        self._c["spec_ticks"].inc()
+        self._c["spec_seq_forwards"].inc(len(active_seqs))
+        sp.end()  # the verify's host read is the tick's sync
+        poison = self._poisoned([s.uid for s in active_seqs])
         out: Dict[int, List[int]] = {}
         for s in active_seqs:
             n_emit = int(n_out[s.slot])
             emitted = [int(t) for t in out_np[s.slot, :n_emit]]
-            if any(t < 0 for t in emitted):
+            if s.uid in poison or any(t < 0 for t in emitted):
                 # finite_guard poisoned the row: commit nothing, return the
                 # draft pages, retract its published keys
                 s.error = "non-finite logits in verify"
@@ -492,11 +607,13 @@ class InferenceEngineV2:
             if self.mgr.truncate_to_length(s):
                 self._set_block_table(s)
             self.mgr.update_hashes(s)
-            self.stats["spec_drafted"] += n
-            self.stats["spec_accepted"] += n_acc
-            self.stats["spec_emitted"] += n_emit
+            self._c["spec_drafted"].inc(n)
+            self._c["spec_accepted"].inc(n_acc)
+            self._c["spec_emitted"].inc(n_emit)
             s.spec_drafted += n
             s.spec_accepted += n_acc
+            self._spec_by_replica[0][0] += n
+            self._spec_by_replica[0][1] += n_acc
             if n > 0:
                 self._spec_update_throttle(s, n, n_acc)
             out[s.uid] = emitted
@@ -549,15 +666,25 @@ class InferenceEngineV2:
             tokens[s.slot] = s.tokens[-1]
             seq_lens[s.slot] = s.cur_len - 1  # KV position of the new token
             active[s.slot] = True
-        logits, self.kv = model_runner.decode_step(
-            self.params, self.cfg, tokens, seq_lens, self._tables_np, active,
-            self.kv, ctx=self.serving_ctx, mesh=self._mesh, seq_shards=self.seq_shards)
+        self._maybe_fault("runner_exception", [s.uid for s in active_seqs])
+        sp = self.telemetry.recorder.start(
+            "decode_tick", track=self._ns, hist=self._h["decode_tick_ms"],
+            batch=len(active_seqs))
+        with self.telemetry.step_annotation("decode_tick", self._c["decode_ticks"].value + 1):
+            logits, self.kv = model_runner.decode_step(
+                self.params, self.cfg, tokens, seq_lens, self._tables_np, active,
+                self.kv, ctx=self.serving_ctx, mesh=self._mesh, seq_shards=self.seq_shards)
+        sp.dispatched()
+        self._c["decode_ticks"].inc()
+        self._c["decode_emitted"].inc(len(active_seqs))
         next_tokens = self._sample(logits, sampling)
-        self.stats["decode_ticks"] += 1
-        self.stats["decode_emitted"] += len(active_seqs)
+        sp.end()  # the fetch above is the tick's host sync
+        poison = self._poisoned([s.uid for s in active_seqs])
         out = {}
         for s in active_seqs:
             tok = int(next_tokens[s.slot])
+            if s.uid in poison:
+                tok = -1
             if tok < 0:
                 s.error = "non-finite logits in decode"
                 self.mgr.quarantine_written(s)
@@ -714,6 +841,8 @@ class InferenceEngineV2:
             return {u: [] for u in uids}
         # no tick can emit once every row is past its cap: clamp the burst
         n = min(n, int(emit_cap.max()))
+        # the burst's one fault check, before any replay (never in a capture)
+        self._maybe_fault("runner_exception", uids)
         host[4 * B:] = self._tables_np.reshape(-1)
         cap = self._burst_cap
         while cap < n:
@@ -730,10 +859,22 @@ class InferenceEngineV2:
         st.buf.fill_(_BURST_PAD)
         st.buf[0].zero_()
         base = SamplingParams(sampling.temperature, sampling.top_k, sampling.top_p)
-        self._run_burst(st, base, n)
-        self.stats["decode_bursts"] += 1
-        self.stats["burst_ticks"] += n
+        # ONE span for the whole burst; the per-tick figure is the burst
+        # average, observed once per tick
+        sp = self.telemetry.recorder.start(
+            "decode_burst", track=self._ns, ticks=n, batch=len(active_seqs))
+        with self.telemetry.step_annotation("decode_burst", n):
+            self._run_burst(st, base, n)
+        sp.dispatched()
+        self._c["decode_bursts"].inc()
+        self._c["burst_ticks"].inc(n)
         burst = st.buf[:n + 1].cpu().numpy()  # the ONE host sync
+        sp = sp.end()
+        if sp.duration_ms is not None:
+            per_tick = sp.duration_ms / n
+            for _ in range(n):
+                self._h["burst_tick_ms"].observe(per_tick)
+        poison_inj = self._poisoned(uids)
         out: Dict[int, List[int]] = {}
         total = 0
         for s in active_seqs:
@@ -742,6 +883,9 @@ class InferenceEngineV2:
                 continue
             m = int(burst[0, s.slot])
             run = [int(t) for t in burst[1:1 + m, s.slot]]
+            if s.uid in poison_inj:
+                # injected poison: nothing committed, the row quarantined
+                run = [-1]
             committed = run[:-1] if run and run[-1] == -1 else run
             s.tokens.extend(committed)
             s.seen_tokens = s.cur_len - 1
@@ -757,7 +901,7 @@ class InferenceEngineV2:
                 self._set_block_table(s)
             total += len(committed)
             out[s.uid] = run
-        self.stats["burst_emitted"] += total
+        self._c["burst_emitted"].inc(total)
         return out
 
     def step_n(self, n: int, sampling: SamplingParams = SamplingParams()) -> Dict[int, int]:
@@ -801,11 +945,116 @@ class InferenceEngineV2:
         for uid in uids:
             self.mgr.release(uid)
 
+    # -- paged-KV handoff (serving/handoff.py rides these) -------------------
+    def _pool_leaves(self) -> List[torch.Tensor]:
+        """The pool tensors in JAX's ``tree_leaves`` order over
+        ``(k_layers, v_layers)``: every layer's K, then every layer's V."""
+        return [*self.kv[0], *self.kv[1]]
+
+    def extract_kv_blocks(self, blocks: Sequence[int]):
+        """Device -> host copy of a block range: per-layer ``(k, v)`` page
+        tensors ``[n_blocks, bs, hkv, hd]`` on the CPU for ``blocks`` (any
+        order), in the pool's structure.  One gather per leaf on the device
+        and ONE host copy for the whole tree (never one per page)."""
+        idx = torch.as_tensor([int(b) for b in blocks], dtype=torch.long, device=self.device)
+        leaves = self._pool_leaves()
+        host = torch.stack([pool.index_select(0, idx) for pool in leaves]).cpu()
+        L = len(self.kv[0])
+        pages = list(host.unbind(0))
+        return tuple(pages[:L]), tuple(pages[L:])
+
+    def inject_kv_blocks(self, blocks: Sequence[int], pages) -> None:
+        """Scatter extracted pages into THIS engine's pool at ``blocks``
+        (the decode half of the handoff), in place: each layer's pool
+        tensor keeps its storage, so a captured burst graph that reads the
+        pool stays valid.  ``pages`` is the :meth:`extract_kv_blocks`
+        structure (any device and float dtype; one host-to-device copy for
+        the whole tree).  The caller owns ``blocks`` (freshly allocated,
+        refcount 1): this never consults the allocator."""
+        idx = torch.as_tensor([int(b) for b in blocks], dtype=torch.long, device=self.device)
+        leaves = self._pool_leaves()
+        flat = [*pages[0], *pages[1]]
+        if len(flat) != len(leaves):
+            raise ValueError(f"handoff carries {len(flat)} pool leaves, this engine has "
+                             f"{len(leaves)}")
+        dev = torch.stack([torch.as_tensor(p) for p in flat]).to(
+            device=self.device, dtype=leaves[0].dtype)
+        for pool, page in zip(leaves, dev.unbind(0)):
+            pool.index_copy_(0, idx, page)
+
+    # -- per-replica telemetry ------------------------------------------------
+    def replica_stats(self) -> List[Dict[str, float]]:
+        """Host-side per-replica serving stats (one row: the pool is one
+        replica): the allocator / hit-rate row of the state manager plus
+        this engine's speculation totals."""
+        rows = self.mgr.replica_stats()
+        for r, row in enumerate(rows):
+            drafted, accepted = self._spec_by_replica[r]
+            row["spec_drafted"] = drafted
+            row["spec_accepted"] = accepted
+            row["spec_accept_rate"] = accepted / drafted if drafted else 0.0
+        return rows
+
+    def update_replica_gauges(self) -> None:
+        """Refresh the ``serve/replicaN/*`` gauges (prefix-hit rate, pool
+        headroom, spec accept rate) from ``replica_stats``; the names ride
+        this engine's claimed namespace, so ``close`` sweeps them."""
+        if not self.telemetry.enabled:
+            return
+        reg = self.telemetry.registry
+        for r, row in enumerate(self.replica_stats()):
+            pre = f"{self._ns}/replica{r}"
+            reg.gauge(f"{pre}/prefix_hit_rate").set(row["prefix_hit_rate"])
+            reg.gauge(f"{pre}/pool_headroom").set(row["headroom"])
+            reg.gauge(f"{pre}/spec_accept_rate").set(row["spec_accept_rate"])
+
+    # -- live retune surface --------------------------------------------------
+    def apply_knobs(self, *, enable_speculation: Optional[bool] = None,
+                    spec_max_draft: Optional[int] = None,
+                    kv_watermark: Optional[float] = None,
+                    prefill_chunk: Optional[int] = None) -> Dict[str, Any]:
+        """Retune the engine-owned live knobs (plain attributes read each
+        tick), validated as at construction; raises ``ValueError`` before
+        applying anything (all or nothing).  Returns the applied
+        ``{knob: value}``.  Call from the engine's owner thread (the
+        scheduler applies staged knobs at its tick boundary)."""
+        spec_on = (self.enable_speculation if enable_speculation is None
+                   else bool(enable_speculation))
+        draft = self.spec_max_draft if spec_max_draft is None else int(spec_max_draft)
+        if spec_on and draft < 1:
+            raise ValueError("spec_max_draft must be >= 1 when speculating")
+        if spec_on and not self.enable_speculation \
+                and self._scheduler is not None and not self._scheduler.idle:
+            # live sequences carry no drafter state: turning it on needs a drain
+            raise ValueError(
+                "enable_speculation can only turn on while the scheduler "
+                "is drained (live sequences carry no drafter state)")
+        if kv_watermark is not None and not 0.0 <= float(kv_watermark) < 1.0:
+            raise ValueError(f"kv_watermark must be in [0, 1), got {kv_watermark}")
+        if prefill_chunk is not None and int(prefill_chunk) < 1:
+            raise ValueError(f"prefill_chunk must be >= 1, got {prefill_chunk}")
+        applied: Dict[str, Any] = {}
+        if enable_speculation is not None:
+            self.enable_speculation = spec_on
+            applied["enable_speculation"] = spec_on
+        if spec_max_draft is not None:
+            self.spec_max_draft = draft
+            applied["spec_max_draft"] = draft
+        if kv_watermark is not None:
+            self.kv_watermark = float(kv_watermark)
+            applied["kv_watermark"] = self.kv_watermark
+        if prefill_chunk is not None:
+            self.prefill_chunk = int(prefill_chunk)
+            applied["prefill_chunk"] = self.prefill_chunk
+        return applied
+
     def close(self) -> Dict[str, int]:
         """Cancel every scheduler request, release every sequence, audit the
-        allocator (raises on a broken invariant) and drop the device
-        tensors.  Idempotent.  Returns ``{"blocks_in_use", "cached_blocks"}``
-        after release — the zero-leak audit."""
+        allocator (raises on a broken invariant), settle the telemetry and
+        release the engine's claimed namespaces (the next engine on a
+        shared ``Telemetry`` gets ``serve`` back), and drop the device
+        tensors.  Idempotent.  Returns ``{"blocks_in_use",
+        "cached_blocks"}`` after release — the zero-leak audit."""
         if getattr(self, "_closed", False):
             return dict(self._close_audit)
         if self._scheduler is not None:
@@ -818,6 +1067,9 @@ class InferenceEngineV2:
             "blocks_in_use": a.total_blocks - a.free_blocks - a.cached_blocks,
             "cached_blocks": a.cached_blocks,
         }
+        self.telemetry.flush()
+        for ns in (self._ns, self._sched_ns, self._comm_ns):
+            self.telemetry.release_prefix(ns)
         self._burst = None  # the graphs first, then the tensors they read
         self.params = None
         self.kv = None
@@ -832,7 +1084,8 @@ class InferenceEngineV2:
             from .scheduler import ServeScheduler
 
             self._scheduler = ServeScheduler(
-                self, prefill_chunk=self.prefill_chunk, kv_watermark=self.kv_watermark)
+                self, prefill_chunk=self.prefill_chunk, kv_watermark=self.kv_watermark,
+                serve=self.serve, faults=self.faults)
         return self._scheduler
 
     def generate(self, prompt_tokens: Sequence[int],
@@ -848,6 +1101,26 @@ class InferenceEngineV2:
             sched.pop_result(uid)
             raise RuntimeError(f"generate() request {state}: {err or state}")
         return sched.pop_result(uid)
+
+
+def build_serve_engine(params, cfg, sec, *, telemetry=None, serve=None, faults=None,
+                       device=None) -> InferenceEngineV2:
+    """The config -> engine seam (JAX ``build_serve_engine``): an
+    ``InferenceEngineV2`` from a ``config.ServeEngineConfig`` (or a dict
+    coerced into one).  ``seq_shards`` > 1 brings up the one-card seq grid
+    (``initialize_mesh(devices=[dev] * S, seq=S)``); ``tp`` /
+    ``serve_replicas`` > 1 are refused by the config (ROADMAP queue 1 item
+    7).  ``device``: CUDA unless the caller names another."""
+    from ..config.config import ServeEngineConfig
+    from ..parallel.topology import initialize_mesh
+
+    sec = sec if isinstance(sec, ServeEngineConfig) else _coerce(ServeEngineConfig, dict(sec))
+    dev = resolve_device(device)
+    grid = None
+    if sec.seq_shards > 1:
+        grid = initialize_mesh(devices=[dev] * sec.seq_shards, seq=sec.seq_shards)
+    return InferenceEngineV2(params, cfg, grid=grid, telemetry=telemetry, serve=serve,
+                             faults=faults, device=dev, **sec.engine_kwargs())
 
 
 class _BurstState:

@@ -344,6 +344,10 @@ class StateManager:
         self._slots = list(range(max_seqs))
         self.enable_prefix_caching = enable_prefix_caching
         self.cow_hook: Optional[Callable[[int, int], None]] = None
+        # chaos-harness hook (inference/faults.py FaultInjector): when set,
+        # ``ensure_capacity`` consults the ``alloc_exhaustion`` point before
+        # touching the pool
+        self.faults = None
         self.prompt_tokens_total = 0
         self.cached_prompt_tokens = 0
         self.cow_copies = 0
@@ -467,6 +471,10 @@ class StateManager:
     def ensure_capacity(self, seq: SequenceDescriptor, new_tokens: int) -> None:
         n = self.blocks_needed(seq, new_tokens)
         if n:
+            if self.faults is not None:
+                # only growth consults the injector: a no-growth call stays
+                # infallible (retry loops rely on it converging)
+                self.faults.maybe_raise("alloc_exhaustion", uids=(seq.uid,))
             seq.blocks.extend(self.allocator.allocate(n, first_pos=len(seq.blocks)))
 
     def ensure_writable(self, seq: SequenceDescriptor, pos: int) -> None:
@@ -570,6 +578,24 @@ class StateManager:
 
     def hit_stats_restore(self, snap: tuple) -> None:
         self.prompt_tokens_total, self.cached_prompt_tokens = snap
+
+    def replica_stats(self) -> List[Dict[str, float]]:
+        """Per-replica serving-health rows (JAX ``replica_stats``; one row
+        here, the pool being one replica): pool occupancy and the
+        prefix-hit split."""
+        a = self.allocator
+        pt, ct = self.prompt_tokens_total, self.cached_prompt_tokens
+        return [dict(
+            free_blocks=a.free_blocks,
+            cached_blocks=a.cached_blocks,
+            available_blocks=a.available_blocks,
+            total_blocks=a.total_blocks,
+            free_slots=len(self._slots),
+            prompt_tokens=pt,
+            cached_prompt_tokens=ct,
+            prefix_hit_rate=(ct / pt if pt else 0.0),
+            headroom=a.available_blocks / a.total_blocks,
+        )]
 
     def release(self, uid: int) -> None:
         seq = self.seqs.pop(uid)

@@ -20,7 +20,7 @@ so preemption, prefix-cache swaps and uid reuse need no invalidation here.
 """
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Sequence, Tuple
 
 
 def propose(tokens: Sequence[int], min_match: int, max_draft: int,
@@ -33,9 +33,19 @@ def propose(tokens: Sequence[int], min_match: int, max_draft: int,
     sequence is periodic with a period under ``min_match + max_draft``), it
     cycles the period, so a period-1 loop still yields a full draft.
     Returns ``[]`` when the history is too short or no n-gram recurs."""
+    return propose_detail(tokens, min_match, max_draft, lookup_window)[0]
+
+
+def propose_detail(tokens: Sequence[int], min_match: int, max_draft: int,
+                   lookup_window: int = 1024) -> Tuple[List[int], int]:
+    """``propose`` plus the drafter diagnostic the telemetry records:
+    ``(drafts, match_start)``, ``match_start`` the index of the matched
+    n-gram's first token (-1 when nothing was proposed).  The tail-to-match
+    distance ``(len(tokens) - min_match) - match_start`` is ~0 in a local
+    repetition loop and large on a prompt-copy workload."""
     n = len(tokens)
     if max_draft <= 0 or min_match <= 0 or n < min_match + 1:
-        return []
+        return [], -1
     suffix = tuple(tokens[-min_match:])
     lo = max(0, n - lookup_window)
     # newest first; the suffix itself starts at n - min_match
@@ -50,5 +60,5 @@ def propose(tokens: Sequence[int], min_match: int, max_draft: int,
             while idx >= n:  # past the end: cycle the period
                 idx -= period
             out.append(int(tokens[idx]))
-        return out
-    return []
+        return out, i
+    return [], -1

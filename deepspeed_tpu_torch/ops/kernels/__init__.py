@@ -15,6 +15,12 @@ into ``csrc/build/<source hash>/``.  Nothing is built at import.
 ``LAUNCHES`` counts each wrapper's kernel launches, so a run can show that
 its main path went through the kernels.  A launch recorded into a
 ``CapturedGraph`` counts once per replay of the graph, not at capture.
+
+A kernel that fails to build, load or launch raises ``KernelError``;
+``surfaces(exc)`` says whether an exception is such a fault (or any CUDA
+error, or one raised inside this package's wrappers), which the serving
+stack's retry and isolation guards re-raise untouched instead of turning
+it into a failed request.
 """
 from __future__ import annotations
 
@@ -28,6 +34,37 @@ from typing import Dict, Iterable, Optional
 
 import torch
 
+class KernelError(RuntimeError):
+    """A CUDA kernel of this package failed to build, load or launch."""
+
+
+def surfaces(exc: BaseException) -> bool:
+    """Whether ``exc`` is a kernel or device fault that must reach the
+    caller as it is: a ``KernelError``, a CUDA error from PyTorch
+    (``torch.AcceleratorError``, ``torch.cuda.OutOfMemoryError``, or a
+    ``RuntimeError`` naming CUDA), or any exception raised inside a kernel
+    wrapper of this package (its traceback passes through this package's
+    directory).  Serving's transient-retry and per-request isolation
+    guards consult this first: such an error is never retried and never
+    becomes a FAILED request."""
+    if isinstance(exc, KernelError):
+        return True
+    accel = getattr(torch, "AcceleratorError", None)
+    if accel is not None and isinstance(exc, accel):
+        return True
+    if isinstance(exc, torch.cuda.OutOfMemoryError):
+        return True
+    if isinstance(exc, RuntimeError) and "CUDA" in str(exc):
+        return True
+    tb = exc.__traceback__
+    while tb is not None:
+        if os.path.dirname(os.path.abspath(tb.tb_frame.f_code.co_filename)) == _HERE:
+            return True
+        tb = tb.tb_next
+    return False
+
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "csrc")
 BUILD_ROOT = os.path.join(CSRC, "build")
@@ -127,7 +164,7 @@ def _nvcc() -> str:
                               "bin", "nvcc")):
         if cand and os.path.exists(cand):
             return cand
-    raise RuntimeError(
+    raise KernelError(
         "nvcc not found (PATH, $CUDA_HOME/bin): the CUDA kernels cannot be "
         "built, and a CUDA tensor has no other path")
 
@@ -188,7 +225,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
             else:
                 os.replace(tmp, out)
         if errors:
-            raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(errors))
+            raise KernelError("CUDA kernel build failed:\n" + "\n".join(errors))
     for src in srcs:
         _load(src)
     return {"seconds": time.perf_counter() - t0, "built": len(todo)}
@@ -225,14 +262,14 @@ def launch(name: str, *args) -> None:
     Nothing is built under a capture: the first call of a kernel runs
     eagerly before its graph is captured."""
     if SOURCES[name] not in _LIBS and torch.cuda.is_current_stream_capturing():
-        raise RuntimeError(f"CUDA kernel {name} was not built before a CUDA-graph capture: "
+        raise KernelError(f"CUDA kernel {name} was not built before a CUDA-graph capture: "
                            "run the captured function once eagerly first")
     build([name])
     sym, _ = _ARGTYPES[name]
     stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
     err = getattr(_LIBS[SOURCES[name]], sym)(*args, stream)
     if err != 0:
-        raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {err}")
+        raise KernelError(f"CUDA kernel {name} failed to launch: cudaError {err}")
     LAUNCHES[name] += 1
 
 

@@ -30,6 +30,13 @@ same computation in the same order:
 ``train_on_loader`` overlaps the host-to-device copy of batch k+1 with step
 k (``runtime/prefetch.py``).  On one GPU the ZeRO stage changes no number.
 
+``telemetry`` (JAX :176-181, :1026-1030): each ``train_batch`` is a
+``train_batch`` span on the ``train`` track whose device reading is
+deferred to a CUDA event (no per-step host sync) and lands in the
+``train/step_ms`` histogram when the metrics flush at the
+``steps_per_print`` boundary or in ``get_last_loss``; shared no-ops unless
+``telemetry.enabled``.
+
 The reference's forward / backward / step API (JAX :1133-1346) runs the
 same step in pieces: ``forward`` computes one micro-batch's loss and keeps
 its autograd graph, ``backward`` adds its scaled gradient to the flat
@@ -47,6 +54,7 @@ import torch
 
 from ..config.config import Config
 from ..ops.optimizers import build_optimizer
+from ..telemetry import Telemetry, device_ready
 from ..utils.memory import memory_breakdown_report
 from . import precision
 from .lr_schedules import LRScheduler, get_lr_schedule_fn
@@ -141,6 +149,12 @@ class DeepSpeedTorchEngine:
         self.loss_fn = loss_fn
         self.eval_fn = eval_fn
         self.model = None  # attached by initialize()
+        # unified telemetry: train_batch spans with deferred device readings
+        self.telemetry = Telemetry(config.telemetry)
+        self._h_step = self.telemetry.registry.histogram("train/step_ms")
+        if self.telemetry.enabled:
+            # settles the spans and writes a configured chrome_trace_path
+            self.telemetry.register_exit_close()
         self.lr_schedule_fn = self._build_lr_schedule()
         self.lr_scheduler = LRScheduler(self.lr_schedule_fn)
         self.optimizer = build_optimizer(config.optimizer.type, config.optimizer.params)
@@ -235,13 +249,19 @@ class DeepSpeedTorchEngine:
         gas = cfg.gradient_accumulation_steps
         fp16 = cfg.fp16.enabled
         scale = self.loss_scale_state.scale if fp16 else None
-        loss_sum = torch.zeros((), dtype=torch.float32, device=self.device)
-        for i in range(gas):
-            loss_sum += self._micro_backward({k: v[i] for k, v in batch.items()}, scale)
-        divisor = scale * gas if fp16 else float(gas)
-        grad_norm, lr, skipped = self._apply_grads(divisor)
+        # the dispatch wall time lands now; the device reading waits for
+        # the metrics flush (no per-step host sync)
+        tb_span = self.telemetry.recorder.start(
+            "train_batch", track="train", hist=self._h_step, step=self.global_steps + 1)
+        with self.telemetry.step_annotation("train_batch", self.global_steps + 1):
+            loss_sum = torch.zeros((), dtype=torch.float32, device=self.device)
+            for i in range(gas):
+                loss_sum += self._micro_backward({k: v[i] for k, v in batch.items()}, scale)
+            divisor = scale * gas if fp16 else float(gas)
+            grad_norm, lr, skipped = self._apply_grads(divisor)
         loss_scale = self.loss_scale_state.scale if fp16 else torch.ones((), device=self.device)
         metrics = StepMetrics(loss_sum / gas, grad_norm, lr, loss_scale, skipped)
+        tb_span.end(sync_obj=device_ready(metrics.loss) if self.telemetry.enabled else None)
         self._last_metrics = metrics
         self.global_steps += 1
         self.lr_scheduler.step()
@@ -253,7 +273,9 @@ class DeepSpeedTorchEngine:
 
     def _flush_step_metrics(self) -> None:
         """Host accounting of the buffered metrics: fp16 skip counts and the
-        ``steps_per_print`` log line."""
+        ``steps_per_print`` log line; the deferred telemetry spans settle at
+        the same boundary."""
+        self.telemetry.flush()
         for step, m in self._metrics_buffer.flush():
             if self.config.fp16.enabled and m.skipped:
                 self.skipped_steps += 1

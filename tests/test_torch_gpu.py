@@ -23,7 +23,11 @@ reaches top_p (``chip_smoke.sampling_phase``), and the training engine's
 forward / backward / step against ``train_batch`` on the card.  Decode
 bursts: a captured K2 call counts one launch per replay; a sampled burst
 draws from the filtered softmax (a frequency test over 2,048 draws); a
-burst after a copy-on-write clone reads the clone.  This file imports neither JAX nor the JAX package, so it
+burst after a copy-on-write clone reads the clone.  The serve front end:
+a burst graph captured before a paged-KV injection replays over the
+injected pages; the router's routed and migrated streams near-argmax
+against the CPU; a kernel error in a worker's tick raises through
+``Router.tick``.  This file imports neither JAX nor the JAX package, so it
 runs where only PyTorch is installed::
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
@@ -841,3 +845,72 @@ def test_offload_keeps_its_saved_tensors_in_pinned_host_memory():
     y.backward()
     torch.testing.assert_close(x.grad, x.detach().cos() * keep.detach())
     torch.testing.assert_close(keep.grad, x.detach().sin())
+
+
+@pytest.mark.gpu
+def test_inject_under_a_captured_graph_reads_the_injected_pages():
+    """The paged-KV handoff writes the destination's pool tensors in place:
+    a burst graph captured BEFORE the injection replays over the injected
+    pages (no recapture, the pool's addresses unchanged) and its picks stay
+    near-argmax against the port on the CPU in fp32."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from deepspeed_tpu_torch.inference.engine_v2 import InferenceEngineV2
+    from deepspeed_tpu_torch.models.transformer import init_params
+    from deepspeed_tpu_torch.serving import extract_request
+
+    cfg = _small_serving_cfg()
+    params = init_params(cfg, seed=0, device="cuda")
+    kw = dict(max_seqs=4, num_blocks=32, block_size=16, prefill_buckets=(64,),
+              prefill_budget=64)
+    src, dst = InferenceEngineV2(params, cfg, **kw), InferenceEngineV2(params, cfg, **kw)
+    prompt = list(range(3, 43))
+    src.put([1], [prompt])
+    dst.put([9], [list(range(50, 70))])
+    dst.step_n(2)  # captures the greedy tick over dst's pool
+    dst.flush([9])
+    graph, ptrs = dst._burst.graphs[chip_smoke.GREEDY], [p.data_ptr() for p in dst._pool_leaves()]
+    for fmt in ("none", "int8"):
+        ho = extract_request(src, 1, fmt)
+        assert ho.n_pages == 3 and ho.fmt == fmt
+        seq = chip_smoke._adopt_injected(dst, ho)
+        K.reset_launches()
+        dst.step_n(6)
+        assert K.LAUNCHES["paged_decode_hd64"] == 6 * cfg.num_layers
+        assert dst._burst.graphs[chip_smoke.GREEDY] is graph
+        assert [p.data_ptr() for p in dst._pool_leaves()] == ptrs
+        gen = seq.tokens[len(prompt):]
+        worst, _, _ = chip_smoke.replay_on_cpu(torch, chip_smoke._tree_cpu(params), cfg,
+                                               {1: prompt}, {1: gen})
+        assert len(gen) == 7 and worst <= chip_smoke.ARGMAX_TOL_FRAC, (fmt, worst)
+        dst.flush([1])
+    for eng in (src, dst):
+        assert eng.close()["blocks_in_use"] == 0
+
+
+@pytest.mark.gpu
+def test_router_on_the_card_matches_the_cpu():
+    """The router over 3 workers (1 prefill) on the card, 2 layers of the
+    410M model: every routed and migrated stream near-argmax against the
+    port on the CPU in fp32, for the 'none' and 'int8' handoffs
+    (``chip_smoke.router_check_phase``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from deepspeed_tpu_torch.models.presets import get_preset
+
+    res = chip_smoke.router_check_phase(torch, K, "test", get_preset("llama3_proxy_410m"))
+    assert res["runs"]["int8"]["codec_bytes_equal_numpy"] is True
+    assert all(r["migrated_streams"] and r["routed_streams"] for r in res["runs"].values())
+
+
+@pytest.mark.gpu
+def test_kernel_errors_surface_through_the_router_on_the_card():
+    """A ``KernelError`` from one worker's paged-decode launch raises out of
+    ``Router.tick``: no request FAILED, no retry, no worker death
+    (``chip_smoke.kernel_errors_phase``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from deepspeed_tpu_torch.models.presets import get_preset
+
+    res = chip_smoke.kernel_errors_phase(torch, K, "test", get_preset("llama3_proxy_410m"))
+    assert res["launches_refused"] >= 1 and "cudaError" in res["raised"]

@@ -1,5 +1,6 @@
 """The port stands alone: ``deepspeed_tpu_torch``, ``chip_smoke.py`` and
-``bench_kernels.py`` import neither JAX nor anything of the JAX package ``deepspeed_tpu``."""
+``bench_kernels.py`` import neither JAX (nor ``ml_dtypes``) nor anything of the JAX package
+``deepspeed_tpu``."""
 import ast
 import os
 import subprocess
@@ -7,7 +8,7 @@ import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "deepspeed_tpu_torch")
-FORBIDDEN = ("jax", "jaxlib", "deepspeed_tpu")
+FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "deepspeed_tpu")
 
 
 def _port_files():

@@ -328,20 +328,39 @@ def test_serve_config_checks_say_what_jax_says(kw):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(deadline_ms=100.0), 6), (dict(ttft_deadline_ms=50.0), 6), (dict(max_retries=0), 6),
-    (dict(retry_backoff_ms=0.0), 6), (dict(shed_queue_depth=4), 6),
-    (dict(watchdog_tick_ms=10.0), 6), (dict(watchdog_grace_ticks=5), 6),
-    (dict(adaptation={"enabled": True}), 6), (dict(quant_comm="int8"), 7),
-    (dict(comm_tiles=2), 7), (dict(fused_serving=False), 7),
+    pytest.param(dict(adaptation={"enabled": True}), 6, id="kw7-6"),
+    pytest.param(dict(quant_comm="int8"), 7, id="kw8-7"),
+    pytest.param(dict(comm_tiles=2), 7, id="kw9-7"),
+    pytest.param(dict(fused_serving=False), 7, id="kw10-7"),
 ])
 def test_serve_config_refuses_unported_fields(models, kw, item):
-    """A field of items 6 and 7 set away from its default raises, naming its
-    item, from ``ServeConfig`` and from the engine's ``serve=`` dict."""
+    """A field of items 6 and 7 not ported yet, set away from its default,
+    raises naming its item, from ``ServeConfig`` and from the engine's
+    ``serve=`` dict (the deadline, retry, shed and watchdog fields run now:
+    ``test_serve_config_runs_fault_tolerance_fields``)."""
     _, _, tcfg, tp = models("tiny")
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         ServeConfig(**kw)
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         InferenceEngineV2(tp, tcfg, device="cpu", num_blocks=8, serve=kw)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(deadline_ms=100.0), dict(ttft_deadline_ms=50.0), dict(max_retries=0),
+    dict(retry_backoff_ms=0.0), dict(shed_queue_depth=4), dict(watchdog_tick_ms=10.0),
+    dict(watchdog_grace_ticks=5),
+])
+def test_serve_config_runs_fault_tolerance_fields(models, kw):
+    """The fault-tolerance fields (ROADMAP item 6's first half) are accepted
+    with JAX's values and reach the engine's scheduler."""
+    _, _, tcfg, tp = models("tiny")
+    t, j = ServeConfig(**kw), JServeConfig(**kw)
+    for f in kw:
+        assert getattr(t, f) == getattr(j, f) == kw[f]
+    eng = InferenceEngineV2(tp, tcfg, device="cpu", num_blocks=8, serve=kw)
+    for f, v in kw.items():
+        assert getattr(eng.scheduler.serve, f) == v
+    _close(eng)
 
 
 def test_serve_config_defaults_and_engine_block(models):
