@@ -119,6 +119,38 @@ Phases, each raising on failure (so the exit code is non-zero):
    kernel_errors_surface -- one worker's paged-decode launches made to
                raise ``KernelError``: ``router.tick()`` raises it, no
                request FAILED, no retry, no worker death;
+   remote_router -- ``build_remote_router`` over 2 subprocess workers on
+               this card (``python -m deepspeed_tpu_torch.serving.remote``,
+               each its own CUDA context, seeded weights and pool; the
+               kernels built above, so a child only loads them): the router
+               workload after a rehearsal, per tick, then with
+               ``decode_megastep`` 8 pushed to both children: 48/48 each,
+               4 streams near-argmax, each child's launches (its ``stats``
+               reply) show K1f, K2 and K3, the megastep pass's K2 layers x
+               burst ticks, no death, 0-block audits, children reaped;
+               tokens/s beside the in-process router and single engine,
+               and an in-process router warmed alike run alternately with
+               the children over COMPARE_ROUNDS fresh draws (medians and
+               spread of each side); then ``serve_worker_main`` over a pipe to one child: one
+               request, a clean exit on EOF with a 0-block audit;
+   remote_handoff -- 3 children (1 prefill): the 512-token prompt migrating
+               across processes in 'none' and 'int8', wire bytes equal to
+               router_handoff's exactly, near-argmax; extract / codec /
+               inject / wire ms, the prefill child's reply-cache bytes;
+   remote_fleet -- the same 3 children with a collector pulling every 25 ms
+               over their metrics channels: merged percentiles = the pooled
+               samples, a clock offset per worker, SLO availability 1.0;
+   remote_chaos -- ``bench.py:591-660``'s seeded network storm on 3 children
+               and a real SIGKILL of worker 1 at router tick 6: all
+               terminal, availability >= router_chaos's, one death found by
+               lease, replays near-argmax, survivors 0 blocks, the killed
+               child reaped;
+   adapt_serve -- ``bench.py --serving --adapt``'s drift twin at its
+               accelerator sizes: static vs ``attach_controller``, the
+               injected bad retune rolled back, 4 streams near-argmax;
+   autotune_serve -- ``autotune_serving`` on the 410M model over the rows
+               the port builds, their serve_replicas 2 twins refused with
+               the port's text; the winner rebuilt and served;
    spec_serve -- the workload of ``bench.py --serving --spec`` on the same
                model (16 requests of a random 96-token base + an 8-token
                pattern repeated to 64, 64 greedy tokens each, 8 slots, 96
@@ -388,6 +420,28 @@ def gpu_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+class GpuBusy:
+    """``nvidia-smi``'s utilization.gpu (the share of each sample period in
+    which a kernel ran, any context), sampled every 100 ms while the block
+    runs: ``.mean`` over the samples (None off the card)."""
+
+    def __enter__(self):
+        self.proc, self.mean = None, None
+        if DEVICE == "cuda":
+            self.proc = subprocess.Popen(
+                ["nvidia-smi", "--query-gpu=utilization.gpu", "--format=csv,noheader,nounits",
+                 "-lms", "100"], stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        return self
+
+    def __exit__(self, *exc):
+        if self.proc is not None:
+            self.proc.terminate()
+            out, _ = self.proc.communicate(timeout=10)
+            vals = [float(v) for v in out.split() if v.replace(".", "", 1).isdigit()]
+            self.mean = sum(vals) / len(vals) / 100.0 if vals else None
+        return False
 
 
 def emit(obj) -> None:
@@ -1440,13 +1494,13 @@ HANDOFF_BURST = 16  # the replayed burst on the handoff's destination
 LONG_UID = 9001
 
 
-def router_workload(cfg, z=ROUTER_SIZES):
-    """bench.py's mixed traffic, drawn in its order from ``SEED``: odd uids
+def router_workload(cfg, z=ROUTER_SIZES, seed=SEED):
+    """bench.py's mixed traffic, drawn in its order from ``seed``: odd uids
     share a system prompt (the affinity population), even uids are cold;
     then the long prompt."""
     import numpy as np
 
-    rng = np.random.default_rng(SEED)
+    rng = np.random.default_rng(seed)
     sys_prompt = rng.integers(1, cfg.vocab_size, z["sys_len"]).tolist()
     prompts = {}
     for u in range(1, z["n_req"] + 1):
@@ -1587,6 +1641,7 @@ def router_phase(torch, K, gpu, params, cfg, params_cpu):
                argmax_worst_gap_frac=worst, gpu=gpu)
     emit(res)
     res["want_long"] = want_long  # the unmigrated stream (not printed)
+    res["routed"] = got  # the routed streams (not printed)
     return res
 
 
@@ -1627,7 +1682,7 @@ def router_handoff_phase(torch, K, gpu, params, cfg, params_cpu, want_long):
     L, bs = cfg.num_layers, ROUTER_SEC["block_size"]
     n_pages = -(-z["long_len"] // bs)
     els = 2 * L * n_pages * bs * cfg.num_kv_heads * cfg.hd
-    runs, launches = {}, {}
+    runs, launches, tokens = {}, {}, {}
     for fmt in ("none", "int8"):
         mem0 = _mem(torch)
         r = build_router(params, cfg, ROUTER_SEC, device=DEVICE, router=dict(
@@ -1684,6 +1739,7 @@ def router_handoff_phase(torch, K, gpu, params, cfg, params_cpu, want_long):
         seq = _adopt_injected(dst, ho)
         _sync(torch)
         t4 = time.perf_counter()
+        tokens[fmt] = out[1][1]
         run = dict(wall_s=wall, handoff_wire_bytes=wire, wire_bytes_per_element=wire / els,
                    router_stats=stats, extract_ms=1e3 * (t1 - t0), codec_ms=1e3 * (t2 - t1),
                    extract_request_ms=1e3 * (t3 - t2), inject_ms=1e3 * (t4 - t3),
@@ -1719,6 +1775,7 @@ def router_handoff_phase(torch, K, gpu, params, cfg, params_cpu, want_long):
                prefill_workers=1, disagg_threshold=ROUTER_DISAGG, long_len=z["long_len"],
                elements=els, kv_pool_bytes=pool, runs=runs, launches=launches, gpu=gpu)
     emit(res)
+    res["tokens"] = tokens  # the migrated streams (not printed)
     return res
 
 
@@ -2134,6 +2191,828 @@ def kernel_errors_phase(torch, K, gpu, cfg):
                              f"deaths {stats['worker_deaths']}, alive {alive}")
     res = dict(phase="kernel_errors_surface", raised=caught, launches_refused=len(fired),
                failed_requests=0, retries=0, isolation_probes=0, worker_deaths=0, gpu=gpu)
+    emit(res)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# the out-of-process serve plane: subprocess workers on the card
+# ---------------------------------------------------------------------------
+REMOTE_PRESET = "llama3_proxy_410m"  # what the children build (CPU rehearsals: "tiny")
+# bench.py:553-554's transport knobs for the card storm
+REMOTE_KNOBS = dict(heartbeat_interval_ms=40.0, lease_ms=1500.0, rpc_backoff_ms=5.0,
+                    rpc_backoff_max_ms=100.0)
+REMOTE_READY_S = 300.0  # a child's wait_ready limit
+REMOTE_KILL_TICK = 6  # router tick of remote_chaos's real SIGKILL (bench.py:616)
+REMOTE_REPLAYS = 4  # replayed streams held near-argmax against the CPU
+COMPARE_ROUNDS = 4  # alternating in-process / remote rounds of compare_routers
+REMOTE_KERNELS = ("flash_fwd", "paged_decode", "paged_decode_hd64", "ctx_attention")
+
+
+def remote_spec(cfg, telemetry=False):
+    """The children's spec: ``REMOTE_PRESET`` at ``cfg``'s dtype and length,
+    weights from ``SEED`` on ``DEVICE`` (the parent's ``params`` are the
+    same tensors: one seed, one device type), ``ROUTER_SEC``'s engine."""
+    return {"preset": REMOTE_PRESET, "seed": SEED, "dtype": str(cfg.dtype).split(".")[-1],
+            "max_seq_len": cfg.max_seq_len, "sec": ROUTER_SEC, "device": DEVICE,
+            "telemetry": telemetry}
+
+
+def child_stats(router):
+    """{worker index: its ``stats`` reply} for every live child."""
+    return {w.index: w.stats() for w in router.pool.workers if w.alive}
+
+
+def child_launches(before, after):
+    """{worker: {kernel: launches}} made by each child between two stats."""
+    out = {}
+    for i, st in after.items():
+        b = before.get(i, {}).get("launches", {})
+        d = {k: v - b.get(k, 0) for k, v in st["launches"].items() if v != b.get(k, 0)}
+        out[f"worker{i}"] = d
+    return out
+
+
+def _sum_launches(per_child):
+    tot = {}
+    for d in per_child.values():
+        for k, v in d.items():
+            tot[k] = tot.get(k, 0) + v
+    return tot
+
+
+def _counter_diff(a, b):
+    return {k: b[k] - a.get(k, 0) for k in b if isinstance(b[k], (int, float))}
+
+
+def remote_rehearse(router, cfg, samp, n, long_len=0, uid0=60_000):
+    """Run every shape once before a measured or chaotic window (first
+    kernel loads, cuBLAS handles, a burst graph's capture), on prompts
+    that share no prefix with the workload."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 101)
+    z = ROUTER_SIZES
+    uids = []
+    for i in range(n):
+        uids.append(uid0 + i)
+        router.submit(uid0 + i, rng.integers(1, cfg.vocab_size, z["sys_len"]
+                                             + z["sfx_len"]).tolist(), samp)
+    if long_len:
+        uids.append(uid0 + n)
+        router.submit(uid0 + n, rng.integers(1, cfg.vocab_size, long_len).tolist(), samp)
+    out = router.run()
+    for u in uids:
+        router.pop_result(u)
+    return {u: out[u][0] for u in uids}
+
+
+def _reap_all(handles):
+    return [h.reap() for h in handles]
+
+
+def _gate_reaped(phase, handles):
+    alive = [h.pid for h in handles if h.proc.poll() is None]
+    if alive:
+        raise AssertionError(f"{phase}: children not reaped: {alive}")
+
+
+def _routed_pass(torch, router, prompts, samp, uid0):
+    """Submit ``prompts`` (uids shifted by ``uid0``), run to the end; returns
+    (outputs by workload uid, wall s, children's launches, router stats
+    diff, prefix hit rate of the pass, each child's engine-counter diff)."""
+    before, rs0 = child_stats(router), dict(router.stats)
+    hit0 = [(w.prompt_tokens_total, w.cached_prompt_tokens) for w in router.pool.workers]
+    got, wall = _timed_pass(torch, router, prompts, samp, uid0)
+    after = child_stats(router)
+    pt = sum(w.prompt_tokens_total - a for w, (a, _) in zip(router.pool.workers, hit0))
+    ct = sum(w.cached_prompt_tokens - c for w, (_, c) in zip(router.pool.workers, hit0))
+    serve = {f"worker{i}": _counter_diff(before[i]["serve"], st["serve"])
+             for i, st in after.items()}
+    return (got, wall, child_launches(before, after), _counter_diff(rs0, dict(router.stats)),
+            ct / pt if pt else 0.0, serve)
+
+
+def _timed_pass(torch, router, prompts, samp, uid0):
+    """Submit ``prompts`` (uids shifted by ``uid0``) to ``router``, run it
+    to the end and pop every result; returns ({workload uid: (state,
+    tokens)}, wall s)."""
+    t0 = time.perf_counter()
+    for u, p in prompts.items():
+        if not router.try_submit(uid0 + u, p, samp).accepted:
+            raise AssertionError(f"routed pass: refused uid {uid0 + u}")
+    out = router.run()
+    _sync(torch)
+    wall = time.perf_counter() - t0
+    for u in prompts:
+        router.pop_result(uid0 + u)
+    return {u: out[uid0 + u] for u in prompts}, wall
+
+
+def compare_routers(torch, params, cfg, remote, samp, rounds=COMPARE_ROUNDS):
+    """The in-process router (2 workers, one process) against ``remote``
+    (2 children), warmed alike (``remote_rehearse`` on each) and run
+    alternately on the same fresh draws: round k serves draw ``SEED + 10 +
+    k`` on both, in-process first in even rounds, remote first in odd ones.
+    Each pass runs under ``GpuBusy``, on both sides alike.  Gates: every
+    request finishes on both sides, the in-process router's audits hold 0
+    blocks.  Reported: each side's tokens/s per round, their medians and
+    spread, the ratio of the medians, the token match per round, and
+    ``nvidia-smi``'s utilization per pass (a coarse 100 ms sample of any
+    kernel running, not a share from a trace)."""
+    import statistics
+
+    from deepspeed_tpu_torch.serving import build_router
+
+    z = ROUTER_SIZES
+    local = build_router(params, cfg, ROUTER_SEC, router=dict(n_workers=2), device=DEVICE)
+    routers = {"inprocess": local, "remote": remote}
+    side = {k: dict(tokens_per_s=[], nvidia_smi_utilization=[]) for k in routers}
+    match = []
+    try:
+        remote_rehearse(local, cfg, samp, n=4)
+        for k in range(rounds):
+            prompts, _ = router_workload(cfg, seed=SEED + 10 + k)
+            n_prompt = sum(len(p) for p in prompts.values())
+            order = ("inprocess", "remote") if k % 2 == 0 else ("remote", "inprocess")
+            toks = {}
+            for name in order:
+                with GpuBusy() as busy:
+                    got, wall = _timed_pass(torch, routers[name], prompts, samp,
+                                            uid0=10_000 * (k + 2))
+                bad = [u for u in prompts if got[u][0] != "finished"
+                       or len(got[u][1]) != z["max_new"]]
+                if bad:
+                    raise AssertionError(f"compare_routers[{name}, round {k}]: unfinished {bad}")
+                toks[name] = {u: got[u][1] for u in prompts}
+                n_tok = n_prompt + sum(len(t) for t in toks[name].values())
+                side[name]["tokens_per_s"].append(n_tok / wall)
+                side[name]["nvidia_smi_utilization"].append(busy.mean)
+            match.append(token_match(toks["remote"], toks["inprocess"]))
+        audits = local.close()
+        local = None
+    finally:
+        if local is not None:
+            local.close()
+    _gate_audits("compare_routers", audits)
+    for d in side.values():
+        v = d["tokens_per_s"]
+        d.update(median=statistics.median(v), min=min(v), max=max(v))
+    return dict(rounds=rounds, order="in-process first in even rounds, remote first in odd",
+                ratio_of_medians=side["remote"]["median"] / side["inprocess"]["median"],
+                ratio_per_round=[r / i for r, i in zip(side["remote"]["tokens_per_s"],
+                                                       side["inprocess"]["tokens_per_s"])],
+                token_match_per_round=match, **side)
+
+
+def remote_router_phase(torch, K, gpu, params, cfg, params_cpu, rt):
+    """``build_remote_router`` over 2 subprocess workers on the card (each
+    its own CUDA context, weights and pool), the router phase's workload,
+    after a rehearsal: per tick, then ``decode_megastep`` 8 pushed live to
+    both children (``apply_knobs``) with the router's ``step_burst`` of 8.
+    Gates: 48/48 finished each pass, ``ROUTER_REPLAYS`` near-argmax against
+    the CPU, each child's launches show K1f and K2 (and K3 on the affinity
+    hits), the megastep pass's K2 launches include burst replays (layers x
+    burst ticks), no death, both audits 0 blocks, both children reaped.
+    Then ``serve_worker_main`` over a pipe to one child on the card: one
+    request, a clean shutdown on EOF with a 0-block audit.  Between the
+    two passes, ``compare_routers`` against an in-process router warmed
+    alike, alternating (kernels of several contexts time-slice; no MPS).
+    Reported: tokens/s beside the router phase's in-process router and
+    single engine, the comparison's medians and spread, hit rate, token
+    match with the in-process router, each child's ``memory_allocated``."""
+    import dataclasses
+
+    from deepspeed_tpu_torch.inference.sampling import SamplingParams
+    from deepspeed_tpu_torch.serving import build_remote_router
+
+    z = ROUTER_SIZES
+    samp = SamplingParams(temperature=0.0, max_new_tokens=z["max_new"])
+    L = cfg.num_layers
+    dec = decode_kernel(cfg)
+    t0 = time.perf_counter()
+    r = build_remote_router(remote_spec(cfg), router=dict(n_workers=2, **REMOTE_KNOBS))
+    spawn_s = time.perf_counter() - t0
+    handles = [w.handle for w in r.pool.workers]
+    passes, launches, audits = {}, {}, None
+    try:
+        remote_rehearse(r, cfg, samp, n=4)
+        for i, (name, fuse) in enumerate((("per_tick", 1), ("megastep", MEGASTEP_FUSE))):
+            if fuse > 1:
+                staged = r.apply_knobs({"decode_megastep": fuse})
+                if any(isinstance(v, str) for v in staged.values()):
+                    raise AssertionError(f"remote_router: apply_knobs refused: {staged}")
+                r.config = dataclasses.replace(r.config, decode_megastep=fuse)
+                remote_rehearse(r, cfg, samp, n=8, uid0=61_000)  # captures the burst graphs
+            # the per-tick pass serves the router phase's prompts; the
+            # megastep pass a fresh draw of the same shapes (cold caches)
+            prompts, _ = router_workload(cfg, seed=SEED + i)
+            n_tok_prompt = sum(len(p) for p in prompts.values())
+            got, wall, per_child, stats, hit, serve = _routed_pass(
+                torch, r, prompts, samp, uid0=1000 * (i + 1))
+            unfinished = [u for u in prompts if got[u][0] != "finished"
+                          or len(got[u][1]) != z["max_new"]]
+            if unfinished:
+                raise AssertionError(f"remote_router[{name}]: unfinished {unfinished}")
+            tokens = {u: got[u][1] for u in prompts}
+            on_card = DEVICE == "cuda"  # a CPU rehearsal launches no kernel
+            for w, d in per_child.items():
+                if on_card and (not d.get("flash_fwd") or not d.get(dec)):
+                    raise AssertionError(f"remote_router[{name}]: {w} launched {d}")
+            tot = _sum_launches(per_child)
+            if on_card and hit > 0 and not tot.get("ctx_attention"):
+                raise AssertionError(f"remote_router[{name}]: hit rate {hit} without K3")
+            bursts = {w: d["burst_ticks"] for w, d in serve.items()}
+            if fuse > 1:
+                ticks = sum(bursts.values())
+                if ticks <= 0 or (on_card and tot.get(dec, 0) < L * ticks):
+                    raise AssertionError(f"remote_router[megastep]: {ticks} burst ticks, "
+                                         f"{tot.get(dec)} {dec} launches")
+            worst, exact, total = replay_on_cpu(torch, params_cpu, cfg,
+                                                {u: prompts[u] for u in ROUTER_REPLAYS},
+                                                {u: tokens[u] for u in ROUTER_REPLAYS})
+            if worst > ARGMAX_TOL_FRAC:
+                raise AssertionError(f"remote_router[{name}]: a pick is off the CPU argmax "
+                                     f"by {worst:.4f}")
+            n_tok = n_tok_prompt + sum(len(t) for t in tokens.values())
+            passes[name] = dict(
+                decode_megastep=fuse, wall_s=wall, tokens_per_s=n_tok / wall,
+                prefix_hit_rate=hit, router_stats=stats, launches_per_child=per_child,
+                burst_ticks=bursts,
+                token_match_inprocess_router=token_match(tokens, rt["routed"]) if i == 0 else None,
+                argmax_exact=f"{exact}/{total}", argmax_worst_gap_frac=worst)
+            for k, v in tot.items():
+                launches[k] = launches.get(k, 0) + v
+            if fuse == 1:
+                compare = compare_routers(torch, params, cfg, r, samp)
+        mem = {f"worker{i}": st["memory_allocated"] for i, st in child_stats(r).items()}
+        cache = {f"worker{i}": st["reply_cache_bytes"] for i, st in child_stats(r).items()}
+        deaths = dict(r.stats)["worker_deaths"]
+        audits = r.close()
+    finally:
+        if audits is None:
+            r.close()
+        _reap_all(handles)
+    if deaths:
+        raise AssertionError(f"remote_router: {deaths} worker deaths no fault caused")
+    if any(a is None for a in audits):
+        raise AssertionError(f"remote_router: a child returned no audit: {audits}")
+    _gate_audits("remote_router", audits)
+    _gate_reaped("remote_router", handles)
+    pipe = pipe_worker_run(torch, params, cfg, router_workload(cfg)[0][1], samp)
+    for k, v in pipe.pop("launches").items():
+        launches[k] = launches.get(k, 0) + v
+    res = dict(phase="remote_router", model=REMOTE_PRESET, workers=2, requests=z["n_req"],
+               transport=REMOTE_KNOBS, spawn_s=spawn_s, passes=passes,
+               inprocess_router_tokens_per_s=rt["routed_tokens_per_s"],
+               compare_inprocess=compare,
+               single_engine_tokens_per_s=rt["single_tokens_per_s"],
+               child_memory_allocated=mem, reply_cache_bytes=cache, close_audits=audits,
+               stdio_worker=pipe, launches=launches, gpu=gpu)
+    emit(res)
+    return res
+
+
+_PIPE_CHILD = r'''
+import json, sys, torch
+from deepspeed_tpu_torch.models.presets import get_preset
+from deepspeed_tpu_torch.models.transformer import init_params
+from deepspeed_tpu_torch.serving.pool import serve_worker_main
+spec = json.loads(sys.argv[1])
+dtype = getattr(torch, spec["dtype"])
+cfg = get_preset(spec["preset"], max_seq_len=spec["max_seq_len"], dtype=dtype)
+params = init_params(cfg, seed=spec["seed"], device=spec["device"], dtype=dtype)
+audit = serve_worker_main(params=params, cfg=cfg, sec=spec["sec"], device=spec["device"])
+print("DSTPU_STDIO_AUDIT " + json.dumps(audit), file=sys.stderr, flush=True)
+'''
+
+
+def pipe_worker_run(torch, params, cfg, prompt, samp):
+    """``serve_worker_main`` in a child over its stdin / stdout pipe: the
+    framed handshake, one request (submit, ticks, pop, stats), then EOF.
+    Gates: the request finishes, the child exits 0 with a 0-block audit.
+    Reported: whether its tokens equal an in-process engine's serving the
+    same request alone."""
+    import subprocess
+    import tempfile
+
+    from deepspeed_tpu_torch.inference.engine_v2 import build_serve_engine
+    from deepspeed_tpu_torch.serving import transport as T
+
+    spec = remote_spec(cfg)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = HERE + (os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    err = tempfile.TemporaryFile()
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-c", _PIPE_CHILD, json.dumps(spec)], cwd=HERE,
+                            env=env, stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=err)
+    try:
+        stream = T.FrameStream(rfile=proc.stdout, wfile=proc.stdin)
+        ident = T.client_handshake(stream, "rpc", timeout=REMOTE_READY_S)
+        up_s = time.perf_counter() - t0
+        c = T.RpcClient(lambda: (stream, ident))
+        reply, _ = c.call({"op": "submit", "uid": 1, "tokens": list(prompt),
+                           "sampling": {"max_new_tokens": samp.max_new_tokens}})
+        if not reply["ok"] or reply["result"]["reason"] != "queued":
+            raise AssertionError(f"stdio worker: submit {reply}")
+        for _ in range(4 * samp.max_new_tokens):
+            reply, _ = c.call({"op": "tick"})
+            if reply["requests"]["1"]["state"] == "finished":
+                break
+        res, _ = c.call({"op": "pop", "uid": 1})
+        stats, _ = c.call({"op": "stats"})
+        proc.stdin.close()  # EOF: the child's clean shutdown
+        rc = proc.wait(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        err.seek(0)
+        tail = err.read().decode(errors="replace")
+        err.close()
+    lines = [ln for ln in tail.splitlines() if ln.startswith("DSTPU_STDIO_AUDIT ")]
+    audit = json.loads(lines[-1].split(" ", 1)[1]) if lines else None
+    tokens = res["result"]["tokens"]
+    if rc != 0 or audit is None or audit["blocks_in_use"] or \
+            res["result"]["state"] != "finished" or len(tokens) != samp.max_new_tokens:
+        raise AssertionError(f"stdio worker: rc {rc}, audit {audit}, result {res['result']}, "
+                             f"stderr {tail[-2000:]}")
+    ref = build_serve_engine(params, cfg, ROUTER_SEC, device=DEVICE)
+    want = ref.generate(list(prompt), samp)
+    _gate_audits("stdio worker", [ref.close()])
+    return dict(up_s=up_s, exit_code=rc, close_audit=audit, tokens_equal_inprocess=tokens == want,
+                token_match_inprocess=token_match({1: tokens}, {1: want}),
+                memory_allocated=stats["memory_allocated"],
+                launches={k: v for k, v in stats["launches"].items() if v})
+
+
+def remote_handoff_phase(torch, K, gpu, cfg, params_cpu, rh):
+    """Prefill/decode disaggregation across processes: 3 children (worker 0
+    prefill, telemetry on), ``disagg_threshold`` 160, the 512-token prompt
+    in the formats 'none' and 'int8' (``handoff_fmt`` switched on the
+    router between runs), after a rehearsal that migrates a cold long
+    prompt.  Gates: one handoff a run, ``handoff_wire_bytes`` equal to the
+    in-process ``router_handoff`` run of this smoke exactly, the migrated
+    stream near-argmax against the CPU.  Reported: the source's extract
+    and encode ms, this side's decode and encode, the adopter's decode
+    and inject, the wire ms (round trips less the workers' own time), the
+    children's launches, the prefill child's reply-cache bytes.  The same
+    pool then runs ``remote_fleet`` (returned for it)."""
+    import dataclasses
+
+    from deepspeed_tpu_torch.inference.sampling import SamplingParams
+    from deepspeed_tpu_torch.serving import build_remote_router
+
+    z = ROUTER_SIZES
+    _, long_prompt = router_workload(cfg)
+    samp = SamplingParams(temperature=0.0, max_new_tokens=z["max_new"])
+    t0 = time.perf_counter()
+    r = build_remote_router(remote_spec(cfg, telemetry=True), router=dict(
+        n_workers=3, prefill_workers=1, disagg_threshold=ROUTER_DISAGG,
+        metrics_pull_interval_ms=25.0, **REMOTE_KNOBS))
+    spawn_s = time.perf_counter() - t0
+    handles = [w.handle for w in r.pool.workers]
+    runs, launches = {}, {}
+    try:
+        remote_rehearse(r, cfg, samp, n=3, long_len=z["long_len"])
+        src = r.pool.workers[0]
+        for i, fmt in enumerate(("none", "int8")):
+            r.config = dataclasses.replace(r.config, handoff_fmt=fmt)
+            for w in r.pool.workers:
+                w.last_handoff_ms, w.last_adopt_ms = {}, {}
+            uid = 2000 + i
+            before, rs0 = child_stats(r), dict(r.stats)
+            t0 = time.perf_counter()
+            r.submit(uid, long_prompt, samp)
+            out = r.run()
+            wall = time.perf_counter() - t0
+            after = child_stats(r)
+            stats = _counter_diff(rs0, dict(r.stats))
+            state, tokens = r.pop_result(uid)
+            per_child = child_launches(before, after)
+            for k, v in _sum_launches(per_child).items():
+                launches[k] = launches.get(k, 0) + v
+            want = rh["runs"][fmt]["handoff_wire_bytes"]
+            if stats["handoffs"] != 1 or stats["handoff_wire_bytes"] != want:
+                raise AssertionError(f"remote_handoff[{fmt}]: {stats['handoffs']} handoffs, "
+                                     f"{stats['handoff_wire_bytes']} B on the wire, in-process "
+                                     f"{want} B")
+            if state != "finished" or len(tokens) != z["max_new"]:
+                raise AssertionError(f"remote_handoff[{fmt}]: the long request ended {state}")
+            worst, exact, total = replay_on_cpu(torch, params_cpu, cfg, {uid: long_prompt},
+                                                {uid: tokens})
+            if worst > ARGMAX_TOL_FRAC:
+                raise AssertionError(f"remote_handoff[{fmt}]: off the CPU argmax by {worst:.4f}")
+            ext = src.last_handoff_ms
+            adopt = next(w.last_adopt_ms for w in r.pool.workers if w.last_adopt_ms)
+            runs[fmt] = dict(
+                wall_s=wall, handoff_wire_bytes=stats["handoff_wire_bytes"],
+                inprocess_wire_bytes=want, router_stats=stats,
+                extract_ms=ext.get("extract"), source_encode_ms=ext.get("encode"),
+                router_decode_ms=ext.get("decode"), router_encode_ms=adopt.get("encode"),
+                adopter_decode_ms=adopt.get("decode"), inject_ms=adopt.get("inject"),
+                extract_rpc_ms=ext.get("rpc"), adopt_rpc_ms=adopt.get("rpc"),
+                wire_ms=(ext["rpc"] - ext["extract"] - ext["encode"])
+                + (adopt["rpc"] - adopt["decode"] - adopt.get("inject", 0.0)),
+                launches_per_child=per_child,
+                token_match_inprocess=token_match({1: tokens}, {1: rh["tokens"][fmt]}),
+                argmax_exact=f"{exact}/{total}", argmax_worst_gap_frac=worst)
+        cache = src.stats()["reply_cache_bytes"]
+    except BaseException:
+        r.close()
+        _reap_all(handles)
+        raise
+    res = dict(phase="remote_handoff", model=REMOTE_PRESET, workers=3, prefill_workers=1,
+               disagg_threshold=ROUTER_DISAGG, long_len=z["long_len"], spawn_s=spawn_s,
+               runs=runs, prefill_reply_cache_bytes=cache, launches=launches, gpu=gpu)
+    emit(res)
+    return res, r
+
+
+def remote_fleet_phase(torch, K, gpu, cfg, r):
+    """The fleet plane over the handoff phase's 3 children: a collector
+    thread pulling every 25 ms over each child's metrics channel, the long
+    prompt first, then the 48.  Gates: merged ttft_ms / e2e_ms p50 / p90 /
+    p99 equal the pooled per-worker samples, every worker has a heartbeat
+    clock offset with its error bound, SLO availability 1.0, no death,
+    every audit 0 blocks, every child reaped.  Reported: the pulls, the
+    offsets, the children's reply-cache bytes after the run."""
+    import math
+
+    from deepspeed_tpu_torch.inference.sampling import SamplingParams
+    from deepspeed_tpu_torch.telemetry import attach_fleet_collector
+
+    z = ROUTER_SIZES
+    prompts, long_prompt = router_workload(cfg)
+    samp = SamplingParams(temperature=0.0, max_new_tokens=z["max_new"])
+    handles = [w.handle for w in r.pool.workers]
+    audits = None
+    try:
+        coll = attach_fleet_collector(r, start=True)
+        before, rs0 = child_stats(r), dict(r.stats)
+        t0 = time.perf_counter()
+        r.submit(3000 + LONG_UID, long_prompt, samp)
+        r.tick()
+        for u, p in prompts.items():
+            if not r.try_submit(3000 + u, p, samp).accepted:
+                raise AssertionError(f"remote_fleet: refused uid {u}")
+        out = r.run()
+        wall = time.perf_counter() - t0
+        coll.stop(final_pull=True)
+        after = child_stats(r)
+        stats = _counter_diff(rs0, dict(r.stats))
+        fleet = coll.fleet
+        merged = {}
+        for metric in ("ttft_ms", "e2e_ms"):
+            pooled = sorted(v for st in fleet.histogram_states(metric) for v in st["samples"] or [])
+            h = fleet.merged_histogram(metric)
+            if h is None or not h.exact or h.count != len(pooled) or not pooled:
+                raise AssertionError(f"remote_fleet: {metric} merged {h} vs {len(pooled)} pooled")
+            for q in (50, 90, 99):
+                truth = pooled[min(len(pooled), max(1, math.ceil(q / 100 * len(pooled)))) - 1]
+                if h.percentile(q) != truth:
+                    raise AssertionError(f"remote_fleet: {metric} p{q} {h.percentile(q)} != "
+                                         f"pooled {truth}")
+            merged[metric] = dict(count=h.count, **h.quantiles((50, 90, 99)))
+        offsets = {f"worker{w.index}": r.pool.monitor.clock_offset(w.index)
+                   for w in r.pool.workers}
+        if any(o is None or o[1] is None or o[1] < 0 for o in offsets.values()):
+            raise AssertionError(f"remote_fleet: clock offsets {offsets}")
+        sig = r.signals()
+        unfinished = [u for u, (s, _) in out.items() if s != "finished"]
+        if sig["slo"]["availability"] != 1.0 or unfinished:
+            raise AssertionError(f"remote_fleet: slo {sig['slo']}, unfinished {unfinished}")
+        cache = {f"worker{i}": st["reply_cache_bytes"] for i, st in after.items()}
+        per_child = child_launches(before, after)
+        deaths = dict(r.stats)["worker_deaths"]
+        audits = r.close()
+    finally:
+        if audits is None:
+            r.close()
+        _reap_all(handles)
+    if deaths:
+        raise AssertionError(f"remote_fleet: {deaths} worker deaths no fault caused")
+    if any(a is None for a in audits):
+        raise AssertionError(f"remote_fleet: a child returned no audit: {audits}")
+    _gate_audits("remote_fleet", audits)
+    _gate_reaped("remote_fleet", handles)
+    res = dict(phase="remote_fleet", model=REMOTE_PRESET, workers=3, prefill_workers=1,
+               requests=z["n_req"] + 1, wall_s=wall, router_stats=stats, merged=merged,
+               clock_offsets=offsets, slo=sig["slo"], pulls=sig["fleet"],
+               reply_cache_bytes=cache, close_audits=audits,
+               launches=_sum_launches(per_child), launches_per_child=per_child, gpu=gpu)
+    emit(res)
+    return res
+
+
+def remote_chaos_phase(torch, K, gpu, cfg, params_cpu, rt, rc_inproc):
+    """``bench.py:591-660``'s seeded network storm on 3 children: the rpc
+    injector (seed 2: conn_drop p .04 x 6, conn_delay p .05 4 ms x 12,
+    partial_write p .05 x 3) and the heartbeat injector (seed 3:
+    heartbeat_loss p .03 x 4, a 0.4 s partition of worker 2 after 40
+    checks), armed after a fault-free rehearsal; worker 1's process killed
+    with a real SIGKILL at router tick 6.  Gates: every request terminal,
+    availability >= ``router_chaos``'s of this run, worker_deaths ==
+    discovered_deaths == 1, replays > 0, two survivors' audits with 0
+    blocks, the killed child reaped, ``REMOTE_REPLAYS`` replayed streams
+    near-argmax against the CPU.  Reported: each network point's fired
+    count, replay token identity against the in-process router."""
+    from deepspeed_tpu_torch.inference.faults import FaultInjector
+    from deepspeed_tpu_torch.inference.sampling import SamplingParams
+    from deepspeed_tpu_torch.serving import build_remote_router
+
+    z = ROUTER_SIZES
+    prompts, _ = router_workload(cfg)
+    samp = SamplingParams(temperature=0.0, max_new_tokens=z["max_new"])
+    rpc_faults = (FaultInjector(seed=2, enabled=False)
+                  .arm("conn_drop", p=0.04, times=6)
+                  .arm("conn_delay", p=0.05, delay_s=0.004, times=12)
+                  .arm("partial_write", p=0.05, times=3))
+    hb_faults = (FaultInjector(seed=3, enabled=False)
+                 .arm("heartbeat_loss", p=0.03, times=4)
+                 .arm("partition", uids=[2], after=40, times=1, delay_s=0.4))
+    r = build_remote_router(remote_spec(cfg), router=dict(
+        n_workers=3, max_replays=3, retry_backoff_ms=10.0, **REMOTE_KNOBS),
+        faults=rpc_faults, hb_faults=hb_faults)
+    handles = [w.handle for w in r.pool.workers]
+    audits = None
+    try:
+        remote_rehearse(r, cfg, samp, n=6)
+        before = child_stats(r)
+        rpc_faults.enabled = hb_faults.enabled = True
+        t0 = time.perf_counter()
+        backlog = [u for u, p in prompts.items() if not r.try_submit(u, p, samp).accepted]
+        ticks, lost, killed_pid = 0, [], None
+        while backlog or not r.idle:
+            if ticks == REMOTE_KILL_TICK:
+                victim = r.pool.workers[1]
+                lost = sorted(u for u, rec in r._reqs.items()
+                              if rec.worker == 1 and rec.phase == "submitted")
+                killed_pid = victim.handle.pid
+                victim.handle.kill_process()  # SIGKILL: no flag, found by lease
+            if backlog and r.try_submit(backlog[0], prompts[backlog[0]], samp).accepted:
+                backlog.pop(0)
+            r.tick()
+            ticks += 1
+            if ticks > 50_000:
+                raise AssertionError("remote_chaos: the storm did not converge")
+        storm_s = time.perf_counter() - t0
+        after = child_stats(r)
+        out = {u: r.pop_result(u) for u in prompts}
+        stats = dict(r.stats)
+        audits = r.close()
+    finally:
+        if audits is None:
+            r.close()
+        _reap_all(handles)
+    terminal = ("finished", "failed", "timed_out", "cancelled")
+    if any(s not in terminal for s, _ in out.values()):
+        raise AssertionError(f"remote_chaos: non-terminal states {out}")
+    avail = sum(s == "finished" for s, _ in out.values()) / len(out)
+    if avail < rc_inproc["availability"]:
+        raise AssertionError(f"remote_chaos: availability {avail} < in-process "
+                             f"{rc_inproc['availability']}")
+    if stats["worker_deaths"] != 1 or stats["discovered_deaths"] != 1 or stats["replays"] <= 0:
+        raise AssertionError(f"remote_chaos: stats {stats}")
+    survivors = [a for a in audits if a is not None]
+    if len(survivors) != 2:
+        raise AssertionError(f"remote_chaos: survivor audits {audits}")
+    _gate_audits("remote_chaos", survivors)
+    _gate_reaped("remote_chaos", handles)
+    replayed = [u for u in lost if out[u][0] == "finished"][:REMOTE_REPLAYS]
+    if len(replayed) < min(REMOTE_REPLAYS, len(lost)) or not lost:
+        raise AssertionError(f"remote_chaos: lost {lost}, replayed and finished {replayed}")
+    worst, exact, total = replay_on_cpu(torch, params_cpu, cfg,
+                                        {u: prompts[u] for u in replayed},
+                                        {u: out[u][1] for u in replayed})
+    if worst > ARGMAX_TOL_FRAC:
+        raise AssertionError(f"remote_chaos: a replayed pick is off the CPU argmax by {worst:.4f}")
+    per_child = child_launches(before, after)
+    res = dict(phase="remote_chaos", model=REMOTE_PRESET, workers=3, requests=z["n_req"],
+               transport=REMOTE_KNOBS, kill_tick=REMOTE_KILL_TICK, killed_pid=killed_pid,
+               availability=avail, inprocess_router_chaos_availability=rc_inproc["availability"],
+               router_stats=stats, router_ticks=ticks, storm_wall_s=storm_s,
+               fired={p: inj.fired(p) for inj, ps in (
+                   (rpc_faults, ("conn_drop", "conn_delay", "partial_write")),
+                   (hb_faults, ("heartbeat_loss", "partition"))) for p in ps},
+               lost_on_kill=lost,
+               replay_token_match_inprocess_router=token_match(
+                   {u: out[u][1] for u in lost if out[u][0] == "finished"}, rt["routed"]),
+               argmax_exact=f"{exact}/{total}", argmax_worst_gap_frac=worst,
+               close_audits=audits, launches=_sum_launches(per_child),
+               launches_per_child=per_child, gpu=gpu)
+    emit(res)
+    return res
+
+
+# bench.py:1638-1651 at its accelerator sizes
+ADAPT_SIZES = dict(per_phase=12, sys_len=256, sfx_len=32, long_len=448, max_new=32, tail_new=96)
+ADAPT_ENGINE = dict(max_seqs=8, num_blocks=256, block_size=32, max_seq_len=704,
+                    prefill_buckets=(64, 128, 256), prefill_budget=256, prefill_chunk=128)
+ADAPT_CHUNKS = (256, 32)  # chunk_hi, chunk_lo
+ADAPT_CONFIG = dict(enabled=True, epoch_s=0.05, min_window=2, guard_epochs=1,
+                    regress_tolerance=1.3, cooldown_epochs=1, max_decode_megastep=8,
+                    allow_rebuild=False)
+ADAPT_REPLAYS = (1, 13, 25, 26)  # one of phases A and B, two of C
+
+
+def adapt_serve_phase(torch, K, gpu, params, cfg, params_cpu):
+    """``bench.py --serving --adapt``'s drift twin at its accelerator sizes
+    (``ADAPT_*``: a prefix-heavy, an incompressible and a long-prompt phase
+    of 12 requests, Poisson(2) arrivals): a static engine, then an engine
+    with ``attach_controller`` stepped every 2 ticks, each after
+    rehearsing every shape the controller can reach; then the guard proof
+    on the adaptive engine: an injected bad retune (``prefill_chunk`` 32,
+    guarded on TTFT p90) rolled back and its knob restored.  Gates: both
+    twins finish every request with its length and no leak, the rollback
+    fires and restores the chunk, ``ADAPT_REPLAYS`` streams near-argmax.
+    Reported: ``serve_adapt_ab_ratio`` (adaptive over static tokens/s),
+    serve-loop ticks, the decision log, the twins' token match."""
+    import numpy as np
+
+    from deepspeed_tpu_torch.autotuning import attach_controller
+    from deepspeed_tpu_torch.config.config import AdaptationConfig, ServeConfig
+    from deepspeed_tpu_torch.inference.engine_v2 import InferenceEngineV2
+    from deepspeed_tpu_torch.inference.sampling import SamplingParams
+
+    z, ekw = ADAPT_SIZES, ADAPT_ENGINE
+    chunk_hi, chunk_lo = ADAPT_CHUNKS
+    samp = SamplingParams(temperature=0.0, max_new_tokens=z["max_new"])
+    samp_tail = SamplingParams(temperature=0.0, max_new_tokens=z["tail_new"])
+    adapt_cfg = AdaptationConfig(**ADAPT_CONFIG)
+    rng = np.random.default_rng(1)
+    n = 3 * z["per_phase"]
+    sys_prompt = rng.integers(1, cfg.vocab_size, z["sys_len"]).tolist()
+    prompts = {}
+    for i in range(z["per_phase"]):
+        prompts[i + 1] = sys_prompt + rng.integers(1, cfg.vocab_size, z["sfx_len"]).tolist()
+    for i in range(z["per_phase"]):
+        prompts[z["per_phase"] + i + 1] = rng.integers(
+            1, cfg.vocab_size, z["sys_len"] + z["sfx_len"]).tolist()
+    for i in range(z["per_phase"]):
+        prompts[2 * z["per_phase"] + i + 1] = rng.integers(1, cfg.vocab_size,
+                                                           z["long_len"]).tolist()
+    arrivals = np.cumsum(rng.poisson(2.0, n))
+
+    def rehearse(eng):
+        sched, uid = eng.scheduler, 9000
+        for chunk, fuse in ((ekw["prefill_chunk"], 1), (chunk_hi, 2), (chunk_hi, 4),
+                            (chunk_hi, 8), (chunk_lo, 1)):
+            sched.apply_knobs(prefill_chunk=chunk, decode_megastep=fuse)
+            batch = []
+            for _ in range(ekw["max_seqs"]):
+                uid += 1
+                batch.append(uid)
+                sched.submit(uid, rng.integers(1, cfg.vocab_size, z["long_len"]).tolist(), samp)
+            while not sched.idle:
+                sched.tick()
+            for u in batch:
+                sched.pop_result(u)
+        sched.apply_knobs(prefill_chunk=ekw["prefill_chunk"], decode_megastep=1)
+        sched.tick()
+        eng.telemetry.reset_window()
+
+    def run(adaptive):
+        eng = InferenceEngineV2(params, cfg, device=DEVICE, enable_prefix_caching=True,
+                                telemetry=True, serve=ServeConfig(decode_megastep=1,
+                                                                  adaptation=adapt_cfg), **ekw)
+        ctl = attach_controller(eng) if adaptive else None
+        sched = eng.scheduler
+        rehearse(eng)
+        before = dict(K.LAUNCHES)
+        submitted, ticks = 0, 0
+        t0 = time.perf_counter()
+        while submitted < n or not sched.idle:
+            while submitted < n and arrivals[submitted] <= sched.tick_no:
+                submitted += 1
+                sched.submit(submitted, prompts[submitted],
+                             samp_tail if submitted > 2 * z["per_phase"] else samp)
+            sched.tick()
+            ticks += 1
+            if ctl is not None and sched.tick_no % 2 == 0:
+                ctl.step_epoch()
+        _sync(torch)
+        dt = time.perf_counter() - t0
+        launches = {k: v - before[k] for k, v in K.LAUNCHES.items() if v != before[k]}
+        results = {u: sched.pop_result(u) for u in range(1, n + 1)}
+        short = [u for u in results if len(results[u]) != (
+            z["tail_new"] if u > 2 * z["per_phase"] else z["max_new"])]
+        if short:
+            raise AssertionError(f"adapt_serve: requests cut short {short}")
+        toks = sum(len(p) for p in prompts.values()) + sum(len(r) for r in results.values())
+        return dict(eng=eng, ctl=ctl, results=results, wall_s=dt, ticks=ticks,
+                    tokens_per_s=toks / dt, knobs=sched.knobs(), launches=launches)
+
+    s = run(False)
+    _gate_audits("adapt_serve", [s.pop("eng").close()])
+    a = run(True)
+    eng, ctl = a.pop("eng"), a.pop("ctl")
+    sched = eng.scheduler
+    applied = [d for d in ctl.decisions if d["outcome"] == "applied"]
+    # the guard proof: an injected bad retune must roll back
+    eng.telemetry.reset_window()
+    uid = [9500]
+
+    def proof_job():
+        uid[0] += 1
+        sched.submit(uid[0], rng.integers(1, cfg.vocab_size, z["long_len"]).tolist(), samp)
+        while not sched.idle:
+            sched.tick()
+        sched.pop_result(uid[0])
+
+    for _ in range(4):
+        proof_job()
+    ctl.inject_retune(_metric="ttft_ms_p90", _better="lower", prefill_chunk=chunk_lo)
+    n0 = len(ctl.decisions)
+    rollback = None
+    for _ in range(24):
+        proof_job()
+        ctl.step_epoch()
+        rollback = next((d for d in ctl.decisions[n0:] if d["action"] == "rollback"
+                         and "prefill_chunk" in d["knobs"]), None)
+        if rollback is not None:
+            break
+    sched.tick()
+    restored = sched.knobs()["prefill_chunk"]
+    _gate_audits("adapt_serve", [eng.close()])
+    if rollback is None or restored <= chunk_lo:
+        raise AssertionError(f"adapt_serve: injected retune rollback {rollback}, chunk "
+                             f"{restored}")
+    worst, exact, total = replay_on_cpu(torch, params_cpu, cfg,
+                                        {u: prompts[u] for u in ADAPT_REPLAYS},
+                                        {u: a["results"][u] for u in ADAPT_REPLAYS})
+    if worst > ARGMAX_TOL_FRAC:
+        raise AssertionError(f"adapt_serve: an adaptive pick is off the CPU argmax by {worst:.4f}")
+    launches = dict(s["launches"])
+    for k, v in a["launches"].items():
+        launches[k] = launches.get(k, 0) + v
+    res = dict(phase="adapt_serve", model="llama3_proxy_410m", sizes=z, engine=ekw,
+               adaptation=ADAPT_CONFIG, serve_adapt_ab_ratio=a["tokens_per_s"] / s["tokens_per_s"],
+               static=dict((k, s[k]) for k in ("wall_s", "ticks", "tokens_per_s", "knobs")),
+               adaptive=dict((k, a[k]) for k in ("wall_s", "ticks", "tokens_per_s", "knobs")),
+               retunes_applied=len(applied),
+               decisions=[{k: d[k] for k in ("epoch", "action", "knobs", "outcome") if k in d}
+                          for d in ctl.decisions],
+               rollback=dict(metric=rollback["metric"], baseline=rollback["baseline"],
+                             current=rollback["current"], prefill_chunk_restored=restored),
+               twin_token_match=token_match(a["results"], s["results"]),
+               argmax_exact=f"{exact}/{total}", argmax_worst_gap_frac=worst,
+               launches=launches, gpu=gpu)
+    emit(res)
+    return res
+
+
+def autotune_serve_phase(torch, K, gpu, params, cfg):
+    """``autotune_serving`` on the 410M model over the rows the port builds
+    (tp 1, serve_replicas 1, quant None / int8, prefill_chunk None / 128,
+    decode_megastep 1 / 4, seq_shards 1) plus their serve_replicas 2
+    twins, which a 2-device declaration lets past the roofline and the
+    engine refuses (ROADMAP item 7): rungs 0.5 / 1.0, the trial
+    runner's shared-prefix workload.  Gates: every refused row's verdict
+    carries the port's refusal text, no serve_replicas 1 row's verdict is
+    an ``error:`` (a kernel fault raises out of the search), the winner is
+    rebuilt and serves its workload leak-free.  Reported: the predicted (roofline) order beside
+    the measured order, the leaderboard's rows."""
+    from deepspeed_tpu_torch.autotuning import (ServeTrialRunner, ServeWorkload,
+                                                autotune_serving, leaderboard, serving_space)
+
+    sp = serving_space(tp=(1,), serve_replicas=(1, 2), quant=(None, "int8"),
+                       prefill_chunk=(None, 128), kv_watermark=(0.0625,), spec=(False,),
+                       quant_comm=("none",), decode_megastep=(1, 4), seq_shards=(1,))
+    base = dict(max_seqs=8, num_blocks=96, block_size=32, prefill_buckets=[64, 128, 256],
+                enable_prefix_caching=True)
+    wl = ServeWorkload()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    w, trials, tuner = autotune_serving(params, cfg, workload=wl, base=base, space=sp,
+                                        rungs=(0.5, 1.0), top_k=16, device=DEVICE, n_devices=2)
+    search_s = time.perf_counter() - t0
+    refused = [t for t in trials if t.candidate["serve_replicas"] == 2]
+    text = "serve_engine.serve_replicas=2 is not ported yet (ROADMAP queue 1 item 7)"
+    if not refused or any(text not in t.verdict for t in refused):
+        raise AssertionError(f"autotune_serve: refused rows {[t.verdict for t in refused]}")
+    built = [t for t in trials if t.candidate["serve_replicas"] == 1]
+    errors = [t.verdict for t in built if t.verdict.startswith("error:")]
+    if errors:
+        raise AssertionError(f"autotune_serve: a buildable row failed: {errors}")
+    if w is None or w.candidate["serve_replicas"] != 1:
+        raise AssertionError(f"autotune_serve: winner {w}")
+    score, metrics = ServeTrialRunner(params, cfg, wl, base=base, device=DEVICE)(w.candidate)
+    if metrics["finished"] != wl.n_req:
+        raise AssertionError(f"autotune_serve: the rebuilt winner finished {metrics}")
+    launches = dict(K.LAUNCHES)
+    key = lambda t: json.dumps(t.candidate, sort_keys=True)  # noqa: E731
+    predicted = [key(t) for t in sorted(built, key=lambda t: (t.predicted_cost, t.index))]
+    final = [t for t in built if t.measured]
+    measured = [key(t) for t in sorted(final, key=lambda t: (-t.rung, -t.score, t.index))]
+    board = leaderboard(trials, {"model": "llama3_proxy_410m"})
+    res = dict(phase="autotune_serve", model="llama3_proxy_410m", rows=len(trials),
+               refused_rows=len(refused), refusal=text, search_s=search_s,
+               winner=w.candidate, winner_score=w.score, rebuilt_winner_score=score,
+               predicted_order=predicted, measured_order=measured,
+               leaderboard=[{k: row[k] for k in ("candidate", "predicted_cost", "verdict",
+                                                 "score", "rung")} for row in board["trials"]],
+               launches=launches, gpu=gpu)
     emit(res)
     return res
 
@@ -4925,12 +5804,23 @@ def main() -> None:
     params_cpu = _tree_cpu(params)
     rt = router_phase(torch, K, gpu, params, cfg, params_cpu)
     rh = router_handoff_phase(torch, K, gpu, params, cfg, params_cpu, rt.pop("want_long"))
-    del params_cpu
     _free(torch)
     rk = router_check_phase(torch, K, gpu, cfg)
     rf = router_fleet_phase(torch, K, gpu, params, cfg)
     rc = router_chaos_phase(torch, K, gpu, params, cfg)
     kernel_errors_phase(torch, K, gpu, cfg)
+    _free(torch)
+    # the out-of-process serve plane (subprocess workers on this card, the
+    # kernels built above) and the autotuning package, on the same model
+    rr = remote_router_phase(torch, K, gpu, params, cfg, params_cpu, rt)
+    rho, remote = remote_handoff_phase(torch, K, gpu, cfg, params_cpu, rh)
+    rfl = remote_fleet_phase(torch, K, gpu, cfg, remote)
+    del remote
+    rch = remote_chaos_phase(torch, K, gpu, cfg, params_cpu, rt, rc)
+    ad = adapt_serve_phase(torch, K, gpu, params, cfg, params_cpu)
+    del params_cpu
+    _free(torch)
+    at = autotune_serve_phase(torch, K, gpu, params, cfg)
     _free(torch)
     spec = spec_phase(torch, K, gpu, params, cfg, "llama3_proxy_410m", "spec_serve")
     lcc = longctx_check_phase(torch, K, gpu, cfg)
@@ -4979,9 +5869,12 @@ def main() -> None:
     # optimizers, the remat policies, the presets' training and serving,
     # quantized serving, the quantizer API), each read right after its own run
     main_paths = (eng, ms_eng, ms_sch, sch, spec, lcc, lc, g_eng, g_burst, g_spec, tr, shim, sp,
-                  opt, rm, pt, ps, qc, qs, qz, rt, rh, rk, rf, rc)
+                  opt, rm, pt, ps, qc, qs, qz, rt, rh, rk, rf, rc, rr, rho, rfl, rch, ad, at)
     router_paths = {"router": rt, "router_handoff": rh, "router_check": rk,
                     "router_fleet": rf, "router_chaos": rc}
+    # the subprocess workers' launches, read from each child's stats reply
+    remote_paths = {"remote_router": rr, "remote_handoff": rho, "remote_fleet": rfl,
+                    "remote_chaos": rch}
     per_forward = {**eng["launches_per_forward"], **sch["launches_per_forward"],
                    "paged_decode_hd64": g_eng["launches_per_forward"]["paged_decode_hd64"]}
     for name in ("paged_decode_partial", "ctx_attention_partial"):  # longctx, S = 2
@@ -4995,17 +5888,21 @@ def main() -> None:
         per_replay[name] = qs["formats"][fmt]["launches_per_replay"][name]
     kernels = []
     for name in K.SOURCES:
-        launches = sum(p["launches"][name] for p in main_paths)
+        launches = sum(p["launches"].get(name, 0) for p in main_paths)
         if launches == 0:
             raise AssertionError(f"kernel {name} never launched on the main paths")
         entry = dict(name=name, route="cuda",
                      source=f"deepspeed_tpu_torch/csrc/{K.SOURCES[name]}",
                      replaces=REPLACES[name], launches=launches,
                      max_abs_err=errs[name], **times[name])
-        router_launches = {k: p["launches"][name] for k, p in router_paths.items()
+        router_launches = {k: p["launches"].get(name, 0) for k, p in router_paths.items()
                            if p["launches"].get(name)}
         if router_launches:  # the serve front end's phases (ROADMAP item 6)
             entry["launches_router_phases"] = router_launches
+        remote_launches = {k: p["launches"].get(name, 0) for k, p in remote_paths.items()
+                           if p["launches"].get(name)}
+        if remote_launches:  # launched inside the subprocess workers
+            entry["launches_remote_phases"] = remote_launches
         if name in per_forward:  # serving: launches per model forward
             entry["launches_per_forward"] = per_forward[name]
         if name in per_replay:  # decode bursts: launches per replayed tick

@@ -2,7 +2,8 @@
 
 A second package beside the JAX one, mirroring its module layout
 (``models``, ``ops``, ``inference``, ``runtime``, ``config``, ``sequence``,
-``parallel``, ``serving``, ``telemetry``, ``comm``) so each module's
+``parallel``, ``serving``, ``telemetry``, ``comm``, ``autotuning``,
+``utils``) so each module's
 counterpart is found by name.  It imports ``torch`` and
 never ``jax`` or ``deepspeed_tpu``.  Entry points run on a CUDA device
 unless the caller passes ``device="cpu"``; every Pallas kernel of the ported
@@ -15,10 +16,14 @@ Ported so far:
   speculation, quantized weights, a KV pool seq-sharded over a
   ``parallel.topology`` grid) and its ``inference.scheduler.ServeScheduler``
   with JAX's fault-tolerance layer (``inference.faults``);
-- the serve front end in one process: ``serving.build_router`` (prefix
-  affinity, prefill/decode disaggregation through the paged-KV handoff,
-  worker-death replay), with ``telemetry`` (registry, traces, the fleet
-  plane);
+- the serve front end: ``serving.build_router`` (workers in this process)
+  and ``serving.build_remote_router`` (subprocess workers behind the DSTP
+  socket transport, ``serving.transport``), with prefix affinity,
+  prefill/decode disaggregation through the paged-KV handoff, worker-death
+  replay, ``telemetry`` (registry, traces, the fleet plane);
+- autotuning: the online controller (``autotuning.attach_controller``) and
+  the roofline-seeded offline search (``autotune_serving`` /
+  ``autotune_model``);
 - training: ``initialize`` -> ``runtime.engine.DeepSpeedTorchEngine``
   (``train_batch``, ``train_on_loader``, and the reference's ``forward`` /
   ``backward`` / ``step``, ``eval_batch``, ``no_sync``) over

@@ -1,2 +1,4 @@
-"""Communication helpers of the port — so far only the host-side payload
-codec of ``qcomm`` (the paged-KV handoff's wire format)."""
+"""Communication helpers of the port: the host-side payload codec of
+``qcomm`` (the paged-KV handoff's wire format, and qcomm's wire-byte
+accounting) and ``budget``'s collective plans, which the autotuner's
+roofline reads."""

@@ -11,8 +11,10 @@ codec computes in torch on CPU tensors, in fp32, so its bytes and scales
 equal JAX's numpy codec on the same input.  ``fmt='none'`` passes the
 array through.
 
-The quantized collectives of qcomm (tensor-parallel serving) are not
-ported yet (ROADMAP queue 1 item 7).
+``wire_bytes`` is qcomm's per-collective wire accounting (qcomm.py:125),
+which ``comm/budget.py`` and the autotuner's roofline read.  The quantized
+collectives themselves (tensor-parallel serving) are not ported yet
+(ROADMAP queue 1 item 7).
 """
 from __future__ import annotations
 
@@ -92,3 +94,25 @@ def payload_wire_bytes(n_elements: int, fmt: str, chunk: int = DEFAULT_CHUNK,
     if fmt == "none":
         return n_elements * none_bytes_per_el
     return n_elements * _FMT_BYTES[fmt] + 4 * (-(-n_elements // chunk))
+
+
+def wire_bytes(op: str, n_elements: int, fmt: str, world: int,
+               chunk: int = DEFAULT_CHUNK, none_bytes_per_el: int = 4) -> int:
+    """Per-device payload bytes ONE collective call puts on the wire
+    (payload + fp32 scales) — JAX's accounting.  ``op``: 'all_gather' |
+    'reduce_scatter' | 'all_reduce' | 'all_to_all' | 'collective_permute'.
+    ``n_elements`` is the FULL logical tensor (for all_to_all: this rank's
+    local buffer).  Counts what a device SENDS on a ring: (W-1)/W of the
+    buffer per hop, twice for all_reduce; a permute sends the whole buffer
+    once."""
+    _check_fmt(fmt)
+    per_el = none_bytes_per_el if fmt == "none" else _FMT_BYTES[fmt]
+    scale_b = 0 if fmt == "none" else 4 * (-(-n_elements // chunk))
+    body = n_elements * per_el + scale_b
+    if op in ("all_gather", "reduce_scatter", "all_to_all"):
+        return body * (world - 1) // world
+    if op == "all_reduce":
+        return 2 * (body * (world - 1) // world)
+    if op == "collective_permute":
+        return body
+    raise QCommError(f"wire_bytes op {op!r}")

@@ -16,17 +16,21 @@ the port runs:
   validated and changes no number;
 - ``telemetry`` (``TelemetryConfig``: the training engine records its
   ``train_batch`` spans and ``train/step_ms`` histogram under it);
+- ``autotune`` (``AutotuneConfig``: the offline search's knobs, consumed
+  by ``autotuning.autotune_model`` / ``autotune_serving``, never by the
+  runtime engine);
 - the serving blocks ``serve`` (``ServeConfig``: megastep, deadlines,
   retries, shed mode and the watchdog), ``serve_engine``
   (``ServeEngineConfig``, the ``build_serve_engine`` seam) and ``router``
   (``RouterConfig``, ``serving.build_router``).  The JAX ``Config`` keeps
   only ``telemetry``; the port's also carries the three serving blocks so
-  one file configures a front end.
+  one file configures a front end.  ``serve.adaptation``
+  (``AdaptationConfig``) configures the online controller
+  (``autotuning.attach_controller``).
 
 An unknown key raises ``ConfigError`` naming it, as in JAX.  A key the JAX
 package knows but the port does not run yet raises ``NotImplementedError``
-naming it and its ROADMAP item: ``autotune`` and ``adaptation`` (item 6's
-second half), ``serve.adaptation`` (item 6), ``serve.quant_comm`` /
+naming it and its ROADMAP item: ``serve.quant_comm`` /
 ``comm_tiles`` and tensor-parallel or replicated serving engines (item 7),
 offload, ZeRO++ quantization, compression, progressive layer drop,
 eigenvalue, curriculum, elasticity, monitors, ...  The reference keys JAX
@@ -55,9 +59,6 @@ _UNPORTED_TOP = {
     "tensorboard", "csv_monitor", "wandb", "comet", "elasticity", "progressive_layer_drop",
     "eigenvalue", "compile", "hybrid_engine", "aio", "nebula",
 }
-# the autotuner and its online controller: the second half of ROADMAP queue
-# 1 item 6
-_ITEM6_TOP = {"autotune", "adaptation"}
 # zero_optimization keys the port does not run yet
 _UNPORTED_ZERO = {
     "offload_optimizer", "offload_param", "offload_nvme_path", "offload_pipeline",
@@ -238,6 +239,7 @@ class Config:
     serve: "ServeConfig" = field(default_factory=lambda: ServeConfig())
     serve_engine: "ServeEngineConfig" = field(default_factory=lambda: ServeEngineConfig())
     router: "RouterConfig" = field(default_factory=lambda: RouterConfig())
+    autotune: "AutotuneConfig" = field(default_factory=lambda: AutotuneConfig())
     dp_world_size: int = 1  # derived by finalize
 
     @property
@@ -325,6 +327,103 @@ _ITEM7 = "(ROADMAP queue 1 item 7)"
 
 
 @dataclass
+class AdaptationConfig:
+    """Online-autotuning controller knobs (``autotuning/controller.py``) —
+    JAX's ``AdaptationConfig`` (config.py:205), with its defaults and
+    checks.
+
+    The controller samples the live telemetry registry every ``epoch_s``
+    seconds (windowed TTFT/TBT percentiles, spec accept-rate, queue depth,
+    pool headroom) and retunes the live-tier knobs (``prefill_chunk``,
+    ``kv_watermark``, ``spec_max_draft``, shed thresholds,
+    ``decode_megastep``) through ``ServeScheduler.apply_knobs``.  Every
+    retune opens ``guard_epochs`` A/B guard epochs: if the SLO percentile
+    the change was meant to improve regresses by more than
+    ``regress_tolerance`` (ratio), the change rolls back and the knob
+    enters ``cooldown_epochs`` of cooldown.  Rebuild-tier knobs (tp /
+    serve_replicas / weight quant / ``quant_comm``) are only PROPOSED, and
+    only when the roofline-predicted win clears ``rebuild_hysteresis``;
+    the engine's owner thread executes a rebuild, never the controller
+    thread (and the port's engine refuses tp / serve_replicas /
+    ``quant_comm`` until ROADMAP queue 1 item 7)."""
+
+    enabled: bool = False
+    epoch_s: float = 0.25
+    min_window: int = 4  # min windowed samples before any decision
+    guard_epochs: int = 2
+    regress_tolerance: float = 1.15  # guard metric ratio that triggers rollback
+    cooldown_epochs: int = 4
+    rebuild_hysteresis: float = 1.25  # predicted-cost ratio gating a rebuild proposal
+    allow_rebuild: bool = True
+    # SLO targets the retune heuristics steer toward (None = throughput-only)
+    ttft_slo_ms: Optional[float] = None
+    tbt_slo_ms: Optional[float] = None
+    max_decode_megastep: int = 8
+    max_spec_draft: int = 8
+
+    def __post_init__(self):
+        # JAX's checks, with its texts (config.py:239-256)
+        if self.epoch_s <= 0:
+            raise ConfigError(f"adaptation.epoch_s must be positive, got {self.epoch_s}")
+        for k in ("min_window", "guard_epochs", "cooldown_epochs",
+                  "max_decode_megastep", "max_spec_draft"):
+            if int(getattr(self, k)) < 1:
+                raise ConfigError(f"adaptation.{k} must be >= 1, got {getattr(self, k)}")
+        for k in ("regress_tolerance", "rebuild_hysteresis"):
+            if getattr(self, k) < 1.0:
+                raise ConfigError(
+                    f"adaptation.{k} must be >= 1.0 (a ratio), got {getattr(self, k)}")
+        for k in ("ttft_slo_ms", "tbt_slo_ms"):
+            v = getattr(self, k)
+            if v is not None and v <= 0:
+                raise ConfigError(f"adaptation.{k} must be positive or None, got {v}")
+
+
+@dataclass
+class AutotuneConfig:
+    """Autotuner knobs (``autotuning/``: the roofline-seeded config search)
+    — JAX's ``AutotuneConfig`` (config.py:596), with its defaults and
+    checks.  Consumed by the offline entry points
+    (``autotuning.autotune_model`` / ``autotune_serving``), never by the
+    runtime engine.
+
+    ``mode`` picks the workload (``training`` | ``serving``); ``rungs``
+    are the successive-halving budget fractions (ascending, final must be
+    1.0 = the full trial workload); ``top_k`` is the rung-0 cohort size
+    taken from the roofline ranking; ``eta`` the halving divisor;
+    ``max_trials`` caps total measured runs.  ``artifacts_dir`` points the
+    roofline calibration at a directory of records that name an NVIDIA
+    card (``chip_smoke.py``'s JSON lines; None = the H100 defaults).
+    ``leaderboard_path`` is where the per-trial JSON leaderboard lands."""
+
+    enabled: bool = False
+    mode: str = "serving"
+    metric: str = "throughput"
+    max_trials: int = 16
+    top_k: int = 8
+    eta: int = 2
+    rungs: List[float] = field(default_factory=lambda: [0.25, 1.0])
+    seed: int = 0
+    artifacts_dir: Optional[str] = None
+    leaderboard_path: Optional[str] = None
+
+    def __post_init__(self):
+        # JAX's checks, with its texts (config.py:622-637)
+        if self.mode not in ("training", "serving"):
+            raise ConfigError(f"autotune.mode must be training|serving, got {self.mode!r}")
+        if self.metric not in ("throughput", "latency"):
+            raise ConfigError(
+                f"autotune.metric must be throughput|latency, got {self.metric!r}")
+        if self.max_trials < 1 or self.top_k < 1:
+            raise ConfigError("autotune.max_trials/top_k must be >= 1")
+        if self.eta < 2:
+            raise ConfigError(f"autotune.eta must be >= 2, got {self.eta}")
+        if (not self.rungs or list(self.rungs) != sorted(self.rungs)
+                or self.rungs[0] <= 0 or abs(self.rungs[-1] - 1.0) > 1e-9):
+            raise ConfigError(f"autotune.rungs must ascend and end at 1.0, got {self.rungs}")
+
+
+@dataclass
 class ServeConfig:
     """The serving stack's config block (``InferenceEngineV2(serve=...)``,
     a ``ServeConfig`` or a dict) — JAX's ``ServeConfig``
@@ -350,9 +449,13 @@ class ServeConfig:
     speculation proposals) and clamps the fuse count to the nearest
     request deadline.
 
+    ``adaptation``: the online autotuning controller's block
+    (``AdaptationConfig``, a dict is coerced into one); off by default —
+    ``enabled=False`` is token-identical to no controller.
+    ``autotuning.attach_controller(engine)`` reads it.
+
     Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
-    item when set away from its default: ``adaptation`` (the online
-    autotuning controller, item 6), ``quant_comm`` and ``comm_tiles``
+    item when set away from its default: ``quant_comm`` and ``comm_tiles``
     (tensor-parallel serving, item 7).  ``fused_serving=False`` is refused
     as the engine's own argument is (item 7)."""
 
@@ -367,9 +470,11 @@ class ServeConfig:
     quant_comm: str = "none"
     comm_tiles: int = 1
     decode_megastep: int = 1
-    adaptation: Optional[Dict[str, Any]] = None
+    adaptation: AdaptationConfig = field(default_factory=AdaptationConfig)
 
     def __post_init__(self):
+        if not isinstance(self.adaptation, AdaptationConfig):
+            self.adaptation = _coerce(AdaptationConfig, self.adaptation)
         # JAX's checks, with its texts (config.py:319-349)
         if self.quant_comm not in ("none", "int8", "fp8"):
             raise ConfigError(
@@ -400,12 +505,6 @@ class ServeConfig:
                 raise NotImplementedError(f"serve.{k} is not ported yet {_ITEM7}")
         if self.fused_serving is False:
             raise NotImplementedError(f"serve.fused_serving=False is not ported yet {_ITEM7}")
-        a = self.adaptation
-        if a is not None and (not isinstance(a, dict)
-                              or any(k != "enabled" or v for k, v in a.items())):
-            raise NotImplementedError(
-                "serve.adaptation (the online autotuning controller) is not ported yet "
-                "(ROADMAP queue 1 item 6)")
 
 
 @dataclass
@@ -501,7 +600,8 @@ class RouterConfig:
 
     ``n_workers``: engine workers the pool stamps out (each through
     ``build_serve_engine`` from one ``ServeEngineConfig``, in this
-    process); ``prefill_workers``: the first K take the PREFILL role — long
+    process or, through ``serving.build_remote_router``, one subprocess
+    each); ``prefill_workers``: the first K take the PREFILL role — long
     prompts land there and migrate to a decode worker at first token via
     the paged-KV handoff (0 disables disaggregation).
     ``disagg_threshold``: prompt length from which a request counts as long
@@ -518,9 +618,10 @@ class RouterConfig:
     ``slo_*``: the fleet collector's pacing and the SLO monitor.
 
     The transport knobs (``heartbeat_interval_ms``, ``lease_ms``,
-    ``rpc_*``, ``connect_timeout_ms``, ``max_frame_bytes``) are validated
-    as in JAX and read by nothing yet: in-process pools have no socket
-    (the transport is ROADMAP queue 1 item 6)."""
+    ``rpc_*``, ``connect_timeout_ms``, ``max_frame_bytes``) are read by
+    the subprocess pools (``serving.remote``: the heartbeat monitor, each
+    worker's RPC client and dials); in-process pools have no socket and
+    ignore them."""
 
     n_workers: int = 2
     prefill_workers: int = 0
@@ -637,10 +738,6 @@ def _strip_auto(obj):
 
 def _refuse_unported(raw: Dict[str, Any]) -> None:
     for k in raw:
-        if k in _ITEM6_TOP:
-            raise NotImplementedError(
-                f"config key '{k}' (the autotuner and its online controller) is not "
-                "ported yet (ROADMAP queue 1 item 6)")
         if k in _UNPORTED_TOP:
             raise NotImplementedError(
                 f"config key '{k}' is not ported yet (ROADMAP queue 1 items 7-9)")

@@ -28,9 +28,10 @@ one seed fires the same faults in both packages for one call order.
     ============================  ==============================================
 
 The network points (``conn_drop``, ``conn_delay``, ``partial_write``,
-``partition``, ``heartbeat_loss``) are listed and can be armed; they fire
-once the socket transport between router and workers exists (ROADMAP queue
-1 item 6).
+``partition``, ``heartbeat_loss``) fire in ``serving/transport.py``'s
+``ChaosLink``, per frame sent or received on a channel to a worker (uids
+are worker indices), as JAX's do: ``build_remote_router(faults=...)`` arms
+the router-thread RPC channels, ``hb_faults=...`` the heartbeat thread's.
 
 Faults are *typed*: ``InjectedFault.transient`` separates the
 retry-with-backoff class (allocator races, transfer hiccups) from the

@@ -1,17 +1,16 @@
-"""The serve front end's typed transport failure.
-
-``WorkerDead`` is what the router catches when a worker cannot answer
-(JAX ``serving/transport.py``).  In-process pools die only through the
-chaos ``worker_kill`` point, so nothing raises it yet; the socket transport
-(ROADMAP queue 1 item 6) will raise and re-export it.  A kernel or CUDA
-error is never a worker death (``ops.kernels.surfaces``).
+"""The serve front end's typed transport failures, re-exported from
+``serving/transport.py`` (JAX ``serving/transport.py:99-135``), where the
+socket transport raises them: ``WorkerDead`` is what the router catches
+when a worker cannot answer (lease expired, retries exhausted, process
+exit).  A kernel or CUDA error is never a worker death
+(``ops.kernels.surfaces``).
 """
 from __future__ import annotations
 
-
-class TransportError(RuntimeError):
-    """Base of the transport's typed failures."""
-
-
-class WorkerDead(TransportError):
-    """A worker is gone (lease expired, retries exhausted, process exit)."""
+from .transport import (  # noqa: F401
+    ConnectionLost,
+    ProtocolError,
+    RpcTimeout,
+    TransportError,
+    WorkerDead,
+)

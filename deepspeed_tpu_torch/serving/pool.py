@@ -16,8 +16,16 @@ workers also share the caller's weight tensors: the engine keeps tensors
 already on its device as they are, so each extra worker adds only its KV
 pool.
 
-The cross-process worker (JAX ``serve_worker_main``, ``remote.py``) waits
-for the socket transport (ROADMAP queue 1 item 6).
+``serving/remote.py RemoteWorker`` implements the SAME interface over the
+socket transport, so the router is deployment-agnostic: in-process pools
+for tests and shared weights, subprocess pools for workers with a process
+(and a CUDA context) each.
+
+:func:`serve_worker_main` is the cross-process stdio worker — it speaks the
+FRAMED protocol (``serving/transport.py``: length prefix + version
+handshake + payload checksum) over a binary pipe; a torn, oversized, or
+junk frame gets a typed protocol-error frame back and a clean audited
+shutdown, never an unhandled exception.
 """
 from __future__ import annotations
 
@@ -46,8 +54,7 @@ class Worker:
         # a RETRY_LATER rejection's retry_after_ms hint)
         self.backoff_until = 0.0
         self.close_audit: Optional[Dict[str, int]] = None
-        # optional external liveness oracle (a heartbeat lease once the
-        # transport exists)
+        # optional external liveness oracle (a heartbeat lease, say)
         self.health_check = None
 
     @property
@@ -294,4 +301,42 @@ class WorkerPool:
                 for w in self.workers]
 
 
-__all__: List[Any] = ["MIXED_ROLE", "PREFILL_ROLE", "Worker", "WorkerPool"]
+def serve_worker_main(stdin=None, stdout=None, params=None, cfg=None,
+                      sec=None, serve=None, device=None) -> Optional[Dict[str, int]]:
+    """Cross-process stdio worker: the FRAMED protocol over a binary pipe.
+
+    Serves the same RPC op set the socket workers speak
+    (``transport.WorkerServer``: handshake, ``submit`` / ``tick`` / ``pop``
+    / ``cancel`` / ``extract`` / ``adopt`` / ``detach`` / ``stats`` /
+    ``close``) on an engine built from ``params`` / ``cfg`` / ``sec`` on
+    ``device`` (CUDA unless the caller names another), with the stdio
+    hardening contract: any torn, oversized, or junk frame is answered
+    with a typed protocol-error frame (where the pipe still writes)
+    followed by a clean audited shutdown — never an unhandled exception,
+    never a zombie engine.  A clean EOF shuts down the same way.
+
+    ``stdin`` / ``stdout`` must be BINARY streams; None uses this process's
+    ``sys.std{in,out}.buffer`` (every byte on the pipe is a frame).  One
+    process serves: a ``DSTPU_NUM_PROCESSES`` > 1 bootstrap is not ported
+    yet (ROADMAP queue 1 item 7) and raises.  Returns the engine's
+    zero-leak close audit once the stream ends."""
+    import os
+    import sys
+
+    from .transport import FrameStream, WorkerServer
+
+    if int(os.environ.get("DSTPU_NUM_PROCESSES", "1") or 1) > 1:
+        raise NotImplementedError(
+            "a multi-process DSTPU_* bootstrap (comm.init_distributed) is not "
+            "ported yet (ROADMAP queue 1 item 7); a worker serves one process")
+    stdin = stdin if stdin is not None else sys.stdin.buffer
+    stdout = stdout if stdout is not None else sys.stdout.buffer
+    engine = build_serve_engine(params, cfg, sec, serve=serve, device=device)
+    server = WorkerServer(engine)
+    server.serve_stream(FrameStream(rfile=stdin, wfile=stdout))
+    return server.close_audit
+
+
+__all__: List[Any] = [
+    "MIXED_ROLE", "PREFILL_ROLE", "Worker", "WorkerPool", "serve_worker_main",
+]

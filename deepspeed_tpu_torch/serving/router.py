@@ -1,6 +1,7 @@
 """Request router: the client-facing front end over N engine workers —
-the port of ``deepspeed_tpu/serving/router.py`` (in-process workers on one
-card).
+the port of ``deepspeed_tpu/serving/router.py``, over in-process workers
+(``pool.WorkerPool``) or subprocess workers behind the socket transport
+(``remote.RemotePool``).
 
 The router owns the request lifecycle — typed admission at the front door,
 placement, re-route / replay on worker death — and dispatches to the
@@ -21,13 +22,15 @@ policies compose:
 * **SLO-aware admission** — a worker's ``RETRY_LATER`` backs that worker
   off for its ``retry_after_ms`` hint and re-routes; the router's own
   backlog sheds at the front door; a worker death (the chaos
-  ``worker_kill`` point, or ``WorkerDead``) re-routes and replays every
+  ``worker_kill`` point, a heartbeat lease expiry, or ``WorkerDead``)
+  re-routes and replays every
   lost request from its prompt under the ``max_replays`` budget; zero live
   workers is a loud typed refusal, never a hang.
 
 A kernel or CUDA error is neither a worker death nor a failed handoff: the
 router lets it propagate out of ``tick()`` (``ops.kernels.surfaces``), as
-the schedulers' guards do.
+the schedulers' guards do; a subprocess worker replies it typed and its
+``RemoteWorker`` raises it as ``KernelError`` from the op that met it.
 
 Single-threaded like the engine tick loop: ``tick()`` drives every live
 worker once and the router's control work happens between ticks.  Router
@@ -398,7 +401,7 @@ class Router:
     def _kill_worker(self, w, discovered: bool = False) -> None:
         self._c["worker_deaths"].inc()
         if discovered:
-            # found by the health probe (an external liveness oracle, transport
+            # found by the health probe (heartbeat lease expiry, transport
             # retry exhaustion) rather than injected — the out-of-process
             # death-detection path
             self._c["discovered_deaths"].inc()
@@ -527,9 +530,10 @@ class Router:
             if not w.healthy():
                 self._kill_worker(w, discovered=True)
                 continue
-            # up to decode_megastep scheduler ticks per worker per router
-            # tick — death discovery/cancel/collection move to those
-            # boundaries, bounded by n x worker tick duration
+            # one pipelined RPC per remote worker per megastep (a step_burst
+            # of up to decode_megastep ticks; in-process workers run them
+            # here): remote ticks overlap across processes, and death
+            # discovery/cancel/collection move to megastep boundaries
             w.begin_tick(self.config.decode_megastep)
             ticked.append(w)
         for w in ticked:

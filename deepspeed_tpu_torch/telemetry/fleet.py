@@ -1,8 +1,11 @@
 """Fleet observability plane: N workers as ONE system — a copy of
-``deepspeed_tpu/telemetry/fleet.py`` (pure Python, same names).  The port
-serves its workers in one process (``serving.pool.Worker``), so the
-collector pulls them through ``Worker.export_metrics`` and reads host
-state only: it never touches a device tensor or synchronizes a stream.
+``deepspeed_tpu/telemetry/fleet.py`` (pure Python, same names).  The
+collector pulls in-process workers through ``serving.pool.Worker.
+export_metrics`` and subprocess workers through ``serving.remote.
+RemoteWorker.export_metrics``, over each worker's dedicated metrics
+channel, with the heartbeat monitor's ``clock_offset`` stitching a child's
+spans onto the router's timeline.  It reads host state only: it never
+touches a device tensor or synchronizes a stream.
 
 Three pieces, layered strictly ABOVE the serving data plane (nothing on a
 tick path imports this module; the router holds the collector by duck

@@ -153,7 +153,7 @@ def test_injector_units():
         FaultInjector().arm("not_a_point")
     with pytest.raises(ValueError):
         FaultInjector().arm("runner_exception", p=1.5)
-    assert "conn_drop" in POINTS  # listed, fires once the transport exists
+    assert "conn_drop" in POINTS  # fires in serving/transport.py's ChaosLink
 
 
 @pytest.mark.parametrize("exc", [

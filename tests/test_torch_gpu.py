@@ -27,7 +27,9 @@ burst after a copy-on-write clone reads the clone.  The serve front end:
 a burst graph captured before a paged-KV injection replays over the
 injected pages; the router's routed and migrated streams near-argmax
 against the CPU; a kernel error in a worker's tick raises through
-``Router.tick``.  This file imports neither JAX nor the JAX package, so it
+``Router.tick``.  The out-of-process plane: a spawned CUDA worker serves a
+request with the in-process engine's tokens and its own kernel launches; a
+bf16 handoff makes a round trip over a socket bit for bit.  This file imports neither JAX nor the JAX package, so it
 runs where only PyTorch is installed::
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
@@ -914,3 +916,97 @@ def test_kernel_errors_surface_through_the_router_on_the_card():
 
     res = chip_smoke.kernel_errors_phase(torch, K, "test", get_preset("llama3_proxy_410m"))
     assert res["launches_refused"] >= 1 and "cudaError" in res["raised"]
+
+
+@pytest.mark.gpu
+def test_spawned_cuda_worker_serves_a_request():
+    """A subprocess worker on the card (its own CUDA context; the kernels
+    built here first): one request's tokens equal an in-process engine's on
+    the same seeded weights, its ``stats`` show its own K1f and K2 launches
+    and device memory, its close audit holds 0 blocks, and it is reaped."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from deepspeed_tpu_torch.inference.engine_v2 import build_serve_engine
+    from deepspeed_tpu_torch.inference.sampling import SamplingParams
+    from deepspeed_tpu_torch.models.transformer import init_params
+    from deepspeed_tpu_torch.serving import RemotePool, Router
+
+    from deepspeed_tpu_torch.models.presets import get_preset
+
+    # the spec names a registered preset (hd 128: K2's paged_decode)
+    cfg = get_preset("llama3_proxy_410m", max_seq_len=256, dtype=torch.bfloat16)
+    sec = dict(max_seqs=4, num_blocks=32, block_size=16, prefill_buckets=[64], prefill_budget=64)
+    spec = {"preset": "llama3_proxy_410m", "seed": 0, "dtype": "bfloat16",
+            "max_seq_len": cfg.max_seq_len, "sec": sec, "device": "cuda"}
+    samp = SamplingParams(temperature=0.0, max_new_tokens=8)
+    prompt = list(range(3, 43))
+    ref = build_serve_engine(init_params(cfg, seed=0, device="cuda", dtype=torch.bfloat16),
+                             cfg, sec)
+    want = ref.generate(prompt, samp)
+    assert ref.close()["blocks_in_use"] == 0
+    pool = RemotePool(spec, n_workers=1, config=dict(n_workers=1, heartbeat_interval_ms=40.0,
+                                                     lease_ms=1500.0))
+    router = Router(pool, pool.config)
+    handle = pool.workers[0].handle
+    try:
+        router.submit(1, prompt, samp)
+        assert router.run(max_ticks=200)[1] == ("finished", want)
+        st = pool.workers[0].stats()
+        assert st["launches"]["flash_fwd"] >= cfg.num_layers
+        assert st["launches"]["paged_decode"] >= 7 * cfg.num_layers
+        assert st["memory_allocated"] > 0
+        audits = router.close()
+    finally:
+        pool.close()
+    assert audits == [{"blocks_in_use": 0, "cached_blocks": audits[0]["cached_blocks"]}]
+    assert handle.proc.poll() is not None
+
+
+@pytest.mark.gpu
+def test_bf16_handoff_round_trips_over_a_socket_on_the_card():
+    """bf16 pages extracted on the card go over a socket as ``"bfloat16"``
+    leaves into a ``WorkerServer``'s engine (``adopt``), come back out of it
+    (``extract``) bit for bit, and the adopter decodes the source's own
+    continuation."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    import threading
+
+    from deepspeed_tpu_torch.inference.engine_v2 import InferenceEngineV2
+    from deepspeed_tpu_torch.models.transformer import init_params
+    from deepspeed_tpu_torch.serving import extract_request, transport as T
+
+    cfg = _small_serving_cfg()
+    params = init_params(cfg, seed=0, device="cuda")
+    kw = dict(max_seqs=4, num_blocks=32, block_size=16, prefill_buckets=(64,), prefill_budget=64)
+    src, dst = InferenceEngineV2(params, cfg, **kw), InferenceEngineV2(params, cfg, **kw)
+    prompt = list(range(3, 43))
+    src.put([1], [prompt])
+    ho = extract_request(src, 1, "none")
+    meta, blobs = T.encode_handoff(ho)
+    assert {leaf["dtype"] for leaf in meta["leaves"]} == {"bfloat16"}
+    srv = T.WorkerServer(dst)
+    srv.bind()
+    t = threading.Thread(target=srv.serve_socket, daemon=True)
+    t.start()
+    try:
+        c = T.RpcClient(lambda: T.dial("127.0.0.1", srv.port, "rpc"))
+        reply, _ = c.call({"op": "adopt", "handoff": meta, "sampling": {"max_new_tokens": 5}},
+                          blobs)
+        assert reply["ok"] and reply["result"]["reason"] == "queued", reply
+        reply, back = c.call({"op": "extract", "uid": 1, "fmt": "none"})
+        assert back == blobs  # the pages, bit for bit, after a round trip
+        for _ in range(8):
+            reply, _ = c.call({"op": "tick"})
+            if reply["requests"]["1"]["state"] == "finished":
+                break
+        reply, _ = c.call({"op": "pop", "uid": 1})
+        for _ in range(4):
+            src.step()
+        assert reply["result"]["tokens"] == src.mgr.seqs[1].tokens[len(prompt):]
+        c.call({"op": "close"})
+        c.close()
+    finally:
+        srv.shutdown()
+        t.join(timeout=5.0)
+    assert srv.close_audit["blocks_in_use"] == 0 and src.close()["blocks_in_use"] == 0

@@ -328,21 +328,36 @@ def test_serve_config_checks_say_what_jax_says(kw):
 
 
 @pytest.mark.parametrize("kw,item", [
-    pytest.param(dict(adaptation={"enabled": True}), 6, id="kw7-6"),
     pytest.param(dict(quant_comm="int8"), 7, id="kw8-7"),
     pytest.param(dict(comm_tiles=2), 7, id="kw9-7"),
     pytest.param(dict(fused_serving=False), 7, id="kw10-7"),
 ])
 def test_serve_config_refuses_unported_fields(models, kw, item):
-    """A field of items 6 and 7 not ported yet, set away from its default,
-    raises naming its item, from ``ServeConfig`` and from the engine's
-    ``serve=`` dict (the deadline, retry, shed and watchdog fields run now:
-    ``test_serve_config_runs_fault_tolerance_fields``)."""
+    """A field of item 7 not ported yet, set away from its default, raises
+    naming its item, from ``ServeConfig`` and from the engine's ``serve=``
+    dict (the deadline, retry, shed and watchdog fields run:
+    ``test_serve_config_runs_fault_tolerance_fields``; ``adaptation`` too:
+    ``test_serve_config_takes_adaptation_as_jax_does``)."""
     _, _, tcfg, tp = models("tiny")
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         ServeConfig(**kw)
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         InferenceEngineV2(tp, tcfg, device="cpu", num_blocks=8, serve=kw)
+
+
+def test_serve_config_takes_adaptation_as_jax_does(models):
+    """``serve.adaptation`` (the online controller's block, ROADMAP item
+    6's second half) is accepted: a dict coerces into ``AdaptationConfig``
+    with JAX's values, and the engine carries it for ``attach_controller``."""
+    import dataclasses
+
+    _, _, tcfg, tp = models("tiny")
+    kw = dict(adaptation={"enabled": True, "epoch_s": 0.05, "min_window": 2})
+    t, j = ServeConfig(**kw), JServeConfig(**kw)
+    assert dataclasses.asdict(t.adaptation) == dataclasses.asdict(j.adaptation)
+    eng = InferenceEngineV2(tp, tcfg, device="cpu", num_blocks=8, serve=kw)
+    assert eng.serve.adaptation.enabled and eng.serve.adaptation.min_window == 2
+    eng.close()
 
 
 @pytest.mark.parametrize("kw", [

@@ -20,6 +20,8 @@ JAX package's on the CPU, fp32, on ``tiny`` with the ``SEC`` of
 - a kernel or CUDA error in a worker's tick raises through
   ``Router.tick``: no FAILED request, no retry, no worker death.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -447,9 +449,18 @@ def test_parse_config_takes_the_serving_sections():
                         "router": {"n_workers": 3, "prefill_workers": 1}})
     assert cfg.serve.deadline_ms == 100.0 and cfg.serve_engine.max_seqs == 4
     assert cfg.router.prefill_workers == 1
-    for key in ("autotune", "adaptation"):
-        with pytest.raises(NotImplementedError, match="item 6"):
-            parse_config({key: {"enabled": True}})
+    # the autotuner's section parses as JAX's does; a top-level
+    # 'adaptation' is an unknown key in both (it lives under 'serve')
+    from deepspeed_tpu.config.config import parse_config as j_parse_config
+
+    got = parse_config({"autotune": {"enabled": True, "top_k": 4}}).autotune
+    want = j_parse_config({"autotune": {"enabled": True, "top_k": 4}}).autotune
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    with pytest.raises(JConfigError) as jerr:
+        j_parse_config({"adaptation": {"enabled": True}})
+    with pytest.raises(ConfigError) as terr:
+        parse_config({"adaptation": {"enabled": True}})
+    assert str(terr.value) == str(jerr.value)
     with pytest.raises(ConfigError, match="unknown config key 'n_worker'"):
         parse_config({"router": {"n_worker": 2}})
 
