@@ -224,6 +224,26 @@ Phases, each raising on failure (so the exit code is non-zero):
                vocab (ROADMAP queue 3 fault 1's reproduction first) whose
                fp32 cumulative probability may never reach top_p: valid
                tokens, nothing masked in those rows, and such rows seen;
+   checkpoint -- resumable training on the same flagship (prefetch depth 2)
+               through ``initialize(training_data=<token rows from the
+               seed>)``: run A takes 3 steps; run B takes 1 and calls
+               ``save_checkpoint`` with batches parked in the prefetcher;
+               run C loads into a fresh engine and takes 2.  Fails unless
+               C's state after the load is byte-equal to B's at the save
+               (masters, moments, counters, LR, sampler position), C's
+               losses equal A's 2nd and 3rd to the bit, and K1f / K1b / K8
+               launch 48 / 48 / 1 times a step; then the same with
+               ``checkpoint.async_save``, where the step after the save
+               must start before the write ends and ``latest`` move only
+               at the commit.  Prints bytes, save (blocking and commit),
+               load and sha256 seconds, and the free disk it checked
+               first;
+   hf_roundtrip -- ``export_hf_checkpoint`` of the 410M model's bf16
+               parameters, ``initialize(model=<dir>)`` (masters equal to
+               them in fp32) and ``load_hf_checkpoint`` streamed onto the
+               card in bf16 (leaves bitwise equal; host peak beside the
+               tree's bytes); greedy serving of 4 prompts x 16 tokens from
+               both trees token-identical (K1f, K2 layers x dispatches);
    sparse_train -- the flagship with ``sparse_attention`` fixed(128, 4, 1)
                (192 of 528 causal blocks) and FusedAdam: SPARSE_TRAIN_STEPS
                timed steps; sparse_fwd / sparse_bwd_dq / sparse_bwd_dkv 48
@@ -2629,14 +2649,25 @@ def remote_handoff_phase(torch, K, gpu, cfg, params_cpu, rh):
     return res, r
 
 
+def reply_cache_cap() -> int:
+    """The byte cap of a worker's reply cache: ``WorkerServer``'s default,
+    which the subprocess workers run with."""
+    import inspect
+
+    from deepspeed_tpu_torch.serving.transport import WorkerServer
+
+    return inspect.signature(WorkerServer).parameters["reply_cache_bytes"].default
+
+
 def remote_fleet_phase(torch, K, gpu, cfg, r):
     """The fleet plane over the handoff phase's 3 children: a collector
     thread pulling every 25 ms over each child's metrics channel, the long
     prompt first, then the 48.  Gates: merged ttft_ms / e2e_ms p50 / p90 /
     p99 equal the pooled per-worker samples, every worker has a heartbeat
     clock offset with its error bound, SLO availability 1.0, no death,
-    every audit 0 blocks, every child reaped.  Reported: the pulls, the
-    offsets, the children's reply-cache bytes after the run."""
+    every audit 0 blocks, every child reaped, every child's reply cache
+    within its byte cap.  Reported: the pulls, the offsets, the children's
+    reply-cache bytes after the run."""
     import math
 
     from deepspeed_tpu_torch.inference.sampling import SamplingParams
@@ -2683,6 +2714,9 @@ def remote_fleet_phase(torch, K, gpu, cfg, r):
         if sig["slo"]["availability"] != 1.0 or unfinished:
             raise AssertionError(f"remote_fleet: slo {sig['slo']}, unfinished {unfinished}")
         cache = {f"worker{i}": st["reply_cache_bytes"] for i, st in after.items()}
+        cap = reply_cache_cap()
+        if any(b > cap for b in cache.values()):
+            raise AssertionError(f"remote_fleet: reply caches {cache} over the byte cap {cap}")
         per_child = child_launches(before, after)
         deaths = dict(r.stats)["worker_deaths"]
         audits = r.close()
@@ -2699,7 +2733,7 @@ def remote_fleet_phase(torch, K, gpu, cfg, r):
     res = dict(phase="remote_fleet", model=REMOTE_PRESET, workers=3, prefill_workers=1,
                requests=z["n_req"] + 1, wall_s=wall, router_stats=stats, merged=merged,
                clock_offsets=offsets, slo=sig["slo"], pulls=sig["fleet"],
-               reply_cache_bytes=cache, close_audits=audits,
+               reply_cache_bytes=cache, reply_cache_cap_bytes=cap, close_audits=audits,
                launches=_sum_launches(per_child), launches_per_child=per_child, gpu=gpu)
     emit(res)
     return res
@@ -4030,6 +4064,319 @@ def train_phase(torch, K, gpu, sparse=None, steps=TRAIN_STEPS):
     return res
 
 
+# ---------------------------------------------------------------------------
+# resumable training (checkpoint/, the data loader) and the HF round trip
+# ---------------------------------------------------------------------------
+CKPT_PRESET = "llama3_proxy_410m"  # CPU rehearsals: "tiny"
+CKPT_SIZES = dict(seq=4096, micro=8, gas=2, rows=64)
+CKPT_DISK_MARGIN = 1.25  # free disk wanted over two checkpoints' bytes
+HF_SERVE = dict(prompts=4, prompt_len=64, new=16)
+
+
+class TokenRows:
+    """``rows`` token rows of ``seq + 1`` ids from the seed: the training
+    data ``initialize(training_data=...)`` takes."""
+
+    def __init__(self, vocab, rows, seq, seed=SEED):
+        import numpy as np
+
+        self.x = np.random.default_rng(seed).integers(0, vocab, (rows, seq + 1), dtype=np.int64)
+
+    def __len__(self):
+        return len(self.x)
+
+    def __getitem__(self, i):
+        return {"input_ids": self.x[i]}
+
+
+def _ckpt_engine(async_save=False):
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.models.presets import get_preset
+    from deepspeed_tpu_torch.models.transformer import CausalLM
+
+    z = CKPT_SIZES
+    over = dict(loss_chunk_size=2048) if CKPT_PRESET == "llama3_proxy_410m" else \
+        dict(max_seq_len=z["seq"] + 1)
+    model = CausalLM(get_preset(CKPT_PRESET, **over))
+    conf = bench_config(z["micro"], z["gas"])
+    conf["train_data"] = {"prefetch_depth": 2}
+    conf["checkpoint"] = {"async_save": async_save}
+    engine, _, loader, _ = initialize(model=model, config=conf, device=DEVICE,
+                                      training_data=TokenRows(model.cfg.vocab_size, z["rows"],
+                                                              z["seq"]))
+    return engine, loader
+
+
+def _state_snapshot(torch, engine):
+    """A device copy of every leaf of the training state, with the step
+    counters, the LR scheduler's state and the loader's position (under a
+    live ``train_on_loader``, that of the oldest batch not consumed)."""
+    from deepspeed_tpu_torch.checkpoint.saving import train_state
+
+    leaves = {k: v.detach().clone() for k, v in train_state(engine).items()}
+    pf = engine._active_prefetcher
+    pos = pf.resume_state() if pf is not None else engine.training_dataloader.state_dict()
+    return leaves, (engine.global_steps, engine.skipped_steps,
+                    engine.lr_scheduler.state_dict(), pos)
+
+
+def _same_bytes(torch, a, b):
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
+
+
+def _byte_diff(torch, a, b):
+    """Names of the leaves whose bytes differ (and the counters, if they do)."""
+    bad = [k for k in a[0] if not _same_bytes(torch, a[0][k], b[0][k])]
+    if a[1] != b[1]:
+        bad.append(f"counters {a[1]} != {b[1]}")
+    return bad
+
+
+def _dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs)
+
+
+def checkpoint_phase(torch, K, gpu):
+    """Resumable training on the training flagship through
+    ``initialize(training_data=...)`` at prefetch depth 2: run A takes 3
+    steps; run B takes 1 and saves mid-``train_on_loader`` (batches parked
+    in the prefetcher); run C loads into a fresh engine and takes 2.  Gates:
+    C's state after the load byte-equal to B's at the save (masters,
+    moments, counters, LR, sampler position), C's losses equal to A's 2nd
+    and 3rd to the bit, K1f / K1b / K8 per step as the train phase's.  Then
+    the same with ``checkpoint.async_save``: the ``train_batch`` after the
+    save starts before the write ends, ``latest`` moves only at the commit,
+    and the resume holds the same gates.  Numbers: bytes, save / load /
+    sha256 seconds, free disk."""
+    import shutil
+    import tempfile
+
+    from deepspeed_tpu_torch.checkpoint import saving
+
+    z = CKPT_SIZES
+    root = tempfile.mkdtemp(prefix="dst_ckpt_")
+    try:
+        free = shutil.disk_usage(root).free
+        a, loader = _ckpt_engine()
+        want = [float(x) for x in a.train_on_loader(loader, num_steps=3)]
+        n_state = sum(v.numel() * v.element_size()
+                      for v in saving.train_state(a).values())
+        del a, loader
+        _free(torch)
+        if free < CKPT_DISK_MARGIN * 2 * n_state:
+            raise AssertionError(f"checkpoint: {free} B free under {root}, two checkpoints "
+                                 f"take {2 * n_state} B")
+        runs = {}
+        for mode in ("sync", "async"):
+            b, loader = _ckpt_engine(async_save=mode == "async")
+            gen = b.train_on_loader(loader)
+            got = [float(next(gen))]
+            parked = b._active_prefetcher.qsize()
+            t0 = time.perf_counter()
+            b.save_checkpoint(root, tag=mode)
+            save_s = time.perf_counter() - t0
+            at_save = _state_snapshot(torch, b)
+            res = dict(save_s=save_s, parked_batches=parked)
+            if mode == "async":
+                ce = b._ckpt_engine
+                latest_before = saving.get_latest_tag(root)
+                t_next = time.perf_counter()
+                b_second = float(next(gen))  # the step after the save
+                if not (ce.pending and (ce.write_done_at is None or t_next < ce.write_done_at)):
+                    raise AssertionError("checkpoint: the train_batch after the async save "
+                                         "did not start before the write ended")
+                if saving.get_latest_tag(root) != latest_before:
+                    raise AssertionError("checkpoint: latest moved before the async commit")
+                b.wait_pending_checkpoint()
+                res.update(blocking_s=save_s, commit_s=time.perf_counter() - t0,
+                           write_s=ce.write_done_at - t0,
+                           b_second_loss_equal=b_second == want[1])
+            gen.close()
+            if saving.get_latest_tag(root) != mode:
+                raise AssertionError(f"checkpoint: latest is {saving.get_latest_tag(root)}, "
+                                     f"not {mode}")
+            t0 = time.perf_counter()
+            err = saving.verify_tag(root, mode)
+            res["sha256_s"] = time.perf_counter() - t0
+            if err is not None:
+                raise AssertionError(f"checkpoint: {mode} does not verify: {err}")
+            res["bytes_written"] = _dir_bytes(os.path.join(root, mode))
+            del b, gen, loader
+            _free(torch)
+            c, loader = _ckpt_engine(async_save=mode == "async")
+            t0 = time.perf_counter()
+            path, _ = c.load_checkpoint(root)
+            torch.cuda.synchronize() if DEVICE == "cuda" else None
+            res["load_s"] = time.perf_counter() - t0
+            if not path.endswith(mode):
+                raise AssertionError(f"checkpoint: loaded {path}, not {mode}")
+            bad = _byte_diff(torch, _state_snapshot(torch, c), at_save)
+            if bad:
+                raise AssertionError(f"checkpoint {mode}: state after load differs from the "
+                                     f"save in {bad[:6]}")
+            del at_save
+            K.reset_launches()
+            got += [float(x) for x in c.train_on_loader(loader, num_steps=2)]
+            launches = dict(K.LAUNCHES)
+            if DEVICE == "cuda":
+                check_train_launches(f"checkpoint {mode}", launches, c.model.cfg.num_layers,
+                                     z["gas"], 2, False)
+            if got != want:
+                # the twin: where the resumed run leaves the uninterrupted one
+                first = next(i for i, (x, y) in enumerate(zip(got, want)) if x != y)
+                raise AssertionError(f"checkpoint {mode}: losses {got} != uninterrupted "
+                                     f"{want}; first divergence at step {first + 1}")
+            res.update(losses=got, launches={n: v for n, v in launches.items() if v},
+                       launches_per_step={n: v / 2 for n, v in launches.items() if v})
+            runs[mode] = res
+            del c, loader
+            _free(torch)
+        out = dict(phase="checkpoint", model=CKPT_PRESET, seq=z["seq"], micro_batch=z["micro"],
+                   gas=z["gas"], prefetch_depth=2, free_disk_bytes=free,
+                   state_bytes=n_state, uninterrupted_losses=want, runs=runs,
+                   launches={n: sum(r["launches"].get(n, 0) for r in runs.values())
+                             for n in K.LAUNCHES
+                             if any(r["launches"].get(n) for r in runs.values())}, gpu=gpu)
+        emit(out)
+        return out
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+class HostPeak:
+    """Peak resident-set growth of this process while the block runs,
+    sampled every millisecond from ``/proc/self/statm``."""
+
+    def __enter__(self):
+        import threading
+
+        self.page = os.sysconf("SC_PAGE_SIZE")
+        self.base = self.peak = self._rss()
+        self._stop = threading.Event()
+        self._t = threading.Thread(target=self._run, daemon=True)
+        self._t.start()
+        return self
+
+    def _rss(self):
+        with open("/proc/self/statm") as fh:
+            return int(fh.read().split()[1]) * self.page
+
+    def _run(self):
+        while not self._stop.is_set():
+            self.peak = max(self.peak, self._rss())
+            time.sleep(0.001)
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._t.join()
+        self.peak = max(self.peak, self._rss())
+        self.growth = self.peak - self.base
+        return False
+
+
+def _serve_greedy(eng, prompts, samp):
+    first = eng.put(list(range(1, len(prompts) + 1)), prompts, samp)
+    out = {u: [t] for u, t in first.items()}
+    for _ in range(samp.max_new_tokens - 1):
+        for u, t in eng.step(samp).items():
+            out[u].append(t)
+    return out
+
+
+def hf_roundtrip_phase(torch, K, gpu):
+    """``export_hf_checkpoint`` of the 410M model's bf16 parameters (fp32
+    safetensors), ``initialize(model=<dir>)`` (masters equal to the
+    parameters in fp32) and ``load_hf_checkpoint`` in bf16, streamed onto
+    the card (leaves bitwise equal to the originals; host peak against the
+    tree's bytes); greedy serving of 4 prompts x 16 tokens from the
+    imported tree token-identical to the original's, K1f / K2 launches read
+    as the serving phases read them."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.checkpoint.hf_import import (export_hf_checkpoint,
+                                                          load_hf_checkpoint)
+    from deepspeed_tpu_torch.inference.engine_v2 import InferenceEngineV2
+    from deepspeed_tpu_torch.inference.sampling import SamplingParams
+    from deepspeed_tpu_torch.models.presets import get_preset
+    from deepspeed_tpu_torch.models.transformer import init_params
+
+    def flat(tree, prefix=""):
+        out = {}
+        for k, v in tree.items():
+            out.update(flat(v, prefix + k + "/") if isinstance(v, dict) else {prefix + k: v})
+        return out
+
+    cfg = get_preset(CKPT_PRESET)
+    params = init_params(cfg, seed=SEED, device=DEVICE)
+    tree_bytes = sum(v.numel() * v.element_size() for v in flat(params).values())
+    root = tempfile.mkdtemp(prefix="dst_hf_")
+    try:
+        t0 = time.perf_counter()
+        file_bytes = export_hf_checkpoint(params, cfg, root)
+        export_s = time.perf_counter() - t0
+        engine, _, _, _ = initialize(model=root, config=bench_config(1, 1), device=DEVICE)
+        masters = flat(engine.params)
+        bad = [k for k, v in flat(params).items()
+               if not torch.equal(masters[k].detach(), v.float())]
+        if bad:
+            raise AssertionError(f"hf_roundtrip: the engine's masters differ in {bad[:6]}")
+        del engine, masters
+        _free(torch)
+        with HostPeak() as hp:
+            t0 = time.perf_counter()
+            loaded, lcfg = load_hf_checkpoint(root, dtype=cfg.dtype, device=DEVICE)
+            import_s = time.perf_counter() - t0
+        fl, fo = flat(loaded), flat(params)
+        bad = [k for k in fo if not _same_bytes(torch, fl[k], fo[k])]
+        if set(fl) != set(fo) or bad:
+            raise AssertionError(f"hf_roundtrip: imported leaves differ: {bad[:6]}")
+        from deepspeed_tpu_torch.checkpoint.safetensors_io import SafetensorsReader, list_shards
+
+        largest = max(e["data_offsets"][1] - e["data_offsets"][0]  # the largest HF tensor
+                      for path in list_shards(root)
+                      for e in SafetensorsReader(path).header.values())
+        rng = np.random.default_rng(SEED)
+        z = HF_SERVE
+        prompts = [rng.integers(1, cfg.vocab_size, z["prompt_len"]).tolist()
+                   for _ in range(z["prompts"])]
+        samp = SamplingParams(temperature=0.0, max_new_tokens=z["new"])
+        streams, launches = {}, {}
+        for name, tree, c in (("original", params, cfg), ("imported", loaded, lcfg)):
+            eng = InferenceEngineV2(tree, c, max_seqs=z["prompts"], num_blocks=64,
+                                    block_size=32, prefill_budget=512, device=DEVICE)
+            K.reset_launches()
+            streams[name] = _serve_greedy(eng, prompts, samp)
+            launches[name] = dict(K.LAUNCHES)
+            d_prefill, d_ticks = eng.stats["prefill_dispatches"], eng.stats["decode_ticks"]
+            if eng.close()["blocks_in_use"]:
+                raise AssertionError("hf_roundtrip: blocks left in use")
+            if DEVICE == "cuda":
+                L = c.num_layers
+                if launches[name]["flash_fwd"] != L * d_prefill or \
+                        launches[name]["paged_decode"] != L * d_ticks or not d_ticks:
+                    raise AssertionError(f"hf_roundtrip {name}: launches {launches[name]} vs "
+                                         f"{L} x ({d_prefill}, {d_ticks})")
+        if streams["imported"] != streams["original"]:
+            raise AssertionError("hf_roundtrip: the imported tree's tokens differ")
+        out = dict(phase="hf_roundtrip", model=CKPT_PRESET, file_bytes=file_bytes,
+                   tree_bytes=tree_bytes, export_s=export_s, import_s=import_s,
+                   import_host_peak_bytes=hp.growth, largest_hf_tensor_bytes=largest,
+                   prompts=z["prompts"], new_tokens=z["new"], tokens_identical=True,
+                   launches={n: launches["original"][n] + launches["imported"][n]
+                             for n in K.LAUNCHES if launches["original"][n]},
+                   launches_per_engine={n: v for n, v in launches["imported"].items() if v},
+                   gpu=gpu)
+        emit(out)
+        return out
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+SHIM_LOSS_RTOL = 1e-3
 SHIM_LOSS_RTOL = 1e-3
 
 
@@ -5838,6 +6185,10 @@ def main() -> None:
     shim = train_shim_phase(torch, K, gpu, tr["train_batch_losses"])
     _free(torch)
     sampling_phase(torch, gpu)
+    _free(torch)
+    ck = checkpoint_phase(torch, K, gpu)
+    hf = hf_roundtrip_phase(torch, K, gpu)
+    _free(torch)
     sp = train_phase(torch, K, gpu, sparse=SPARSE_FLAGSHIP, steps=SPARSE_TRAIN_STEPS)
     _free(torch)
     opt = optimizers_phase(torch, K, gpu, tr["step_s_median"])
@@ -5869,7 +6220,9 @@ def main() -> None:
     # optimizers, the remat policies, the presets' training and serving,
     # quantized serving, the quantizer API), each read right after its own run
     main_paths = (eng, ms_eng, ms_sch, sch, spec, lcc, lc, g_eng, g_burst, g_spec, tr, shim, sp,
-                  opt, rm, pt, ps, qc, qs, qz, rt, rh, rk, rf, rc, rr, rho, rfl, rch, ad, at)
+                  opt, rm, pt, ps, qc, qs, qz, rt, rh, rk, rf, rc, rr, rho, rfl, rch, ad, at,
+                  ck, hf)
+    resume_paths = {"checkpoint": ck, "hf_roundtrip": hf}
     router_paths = {"router": rt, "router_handoff": rh, "router_check": rk,
                     "router_fleet": rf, "router_chaos": rc}
     # the subprocess workers' launches, read from each child's stats reply
@@ -5903,6 +6256,10 @@ def main() -> None:
                            if p["launches"].get(name)}
         if remote_launches:  # launched inside the subprocess workers
             entry["launches_remote_phases"] = remote_launches
+        resume_launches = {k: p["launches"].get(name, 0) for k, p in resume_paths.items()
+                           if p["launches"].get(name)}
+        if resume_launches:  # resumed training and the HF round trip
+            entry["launches_resume_phases"] = resume_launches
         if name in per_forward:  # serving: launches per model forward
             entry["launches_per_forward"] = per_forward[name]
         if name in per_replay:  # decode bursts: launches per replayed tick

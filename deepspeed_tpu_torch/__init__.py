@@ -3,7 +3,7 @@
 A second package beside the JAX one, mirroring its module layout
 (``models``, ``ops``, ``inference``, ``runtime``, ``config``, ``sequence``,
 ``parallel``, ``serving``, ``telemetry``, ``comm``, ``autotuning``,
-``utils``) so each module's
+``checkpoint``, ``data``, ``analysis``, ``utils``) so each module's
 counterpart is found by name.  It imports ``torch`` and
 never ``jax`` or ``deepspeed_tpu``.  Entry points run on a CUDA device
 unless the caller passes ``device="cpu"``; every Pallas kernel of the ported
@@ -27,7 +27,12 @@ Ported so far:
 - training: ``initialize`` -> ``runtime.engine.DeepSpeedTorchEngine``
   (``train_batch``, ``train_on_loader``, and the reference's ``forward`` /
   ``backward`` / ``step``, ``eval_batch``, ``no_sync``) over
-  ``models.transformer.CausalLM`` on one GPU.
+  ``models.transformer.CausalLM`` on one GPU, with its data loader
+  (``runtime.dataloader``, a resumable position) and checkpoints
+  (``checkpoint``: crash-safe save / load, sync or async, the fp32 export
+  and Hugging Face safetensors import / export);
+- the static analysis (``analysis``: the AST lints, the race lint and the
+  scheduler scenario explorer) over this package.
 """
 from __future__ import annotations
 
@@ -36,38 +41,52 @@ from typing import Any, Callable, Optional
 
 def initialize(model=None, params: Any = None, config: Any = None, device=None,
                loss_fn: Optional[Callable] = None, mesh=None, training_data=None,
-               eval_fn: Optional[Callable] = None):
+               eval_fn: Optional[Callable] = None, collate_fn: Optional[Callable] = None):
     """Build the training engine — ``deepspeed_tpu.initialize`` on one GPU.
 
     ``model`` is a ``models.transformer.CausalLM`` (or pass ``loss_fn`` and
-    ``params``); ``params=None`` initialises fp32 parameters from
-    ``config['seed']`` on the device.  ``device`` is CUDA unless the caller
-    names another.  Returns ``(engine, engine, dataloader, lr_scheduler)``
-    like the reference; the dataloader is None.  ``eval_fn`` (the
-    ``loss_fn`` contract) is what ``engine.eval_batch`` runs, ``loss_fn`` by
-    default.  ``config['sparse_attention']``
-    sets the block-sparse layout on ``model.cfg`` (JAX ``initialize``); it
-    needs ``model=``.
+    ``params``), or the path of a Hugging Face checkpoint directory: its
+    ``config.json`` gives the model (``checkpoint.config_from_hf``) and its
+    safetensors are streamed onto the device one tensor at a time
+    (``checkpoint.load_hf_checkpoint``).  ``params=None`` otherwise
+    initialises fp32 parameters from ``config['seed']`` on the device.
+    ``device`` is CUDA unless the caller names another.  Returns
+    ``(engine, engine, dataloader, lr_scheduler)`` like the reference.
+    ``training_data`` (an indexable dataset) becomes a
+    ``runtime.dataloader.DeepSpeedTpuDataLoader`` (``collate_fn``, the
+    config's micro-batch, GAS and seed; dp world size 1), returned and
+    attached as ``engine.training_dataloader`` so that its position rides
+    the checkpoints.  ``eval_fn`` (the ``loss_fn`` contract) is what
+    ``engine.eval_batch`` runs, ``loss_fn`` by default.
+    ``config['sparse_attention']`` sets the block-sparse layout on
+    ``model.cfg`` (JAX ``initialize``); it needs ``model=``.
 
-    Refused with ``NotImplementedError``: a Hugging Face directory as
-    ``model`` and ``training_data`` (the data loader; ROADMAP queue 1
-    item 9), and ``mesh`` (one device only; item 7)."""
+    Refused with ``NotImplementedError``: ``mesh`` (one device only;
+    ROADMAP queue 1 item 7) and an enabled ``data_efficiency`` curriculum
+    (item 9, refused by the config parser)."""
     from .config.config import ConfigError, parse_config
     from .ops.kernels import resolve_device
+    from .runtime.dataloader import DeepSpeedTpuDataLoader
     from .runtime.engine import DeepSpeedTorchEngine
 
-    if isinstance(model, str):
-        raise NotImplementedError("loading a Hugging Face directory is not ported yet "
-                                  "(ROADMAP queue 1 item 9)")
     if mesh is not None:
         raise NotImplementedError("a device mesh is not ported yet: the port trains on "
                                   "one device (ROADMAP queue 1 item 7)")
-    if training_data is not None:
-        raise NotImplementedError("training_data (the data loader) is not ported yet "
-                                  "(ROADMAP queue 1 item 9); pass batches to train_batch "
-                                  "or an iterable to train_on_loader")
     cfg = parse_config(config)
     cfg.finalize(1)
+    device = resolve_device(device)
+    if isinstance(model, str):
+        import json
+        import os
+
+        from .checkpoint.hf_import import config_from_hf, load_hf_checkpoint
+        from .models.transformer import CausalLM
+
+        with open(os.path.join(model, "config.json")) as fh:
+            model_cfg = config_from_hf(json.load(fh))
+        hf_dir, model = model, CausalLM(model_cfg)
+        if params is None:
+            params, model.cfg = load_hf_checkpoint(hf_dir, model_cfg, device=device)
     if cfg.sparse_attention.mode:
         # a layout changes the model's forward: it needs the model, never a
         # raw loss_fn it could not reach (JAX ``initialize``)
@@ -75,7 +94,6 @@ def initialize(model=None, params: Any = None, config: Any = None, device=None,
             raise ConfigError("sparse_attention requires model= (a models.CausalLM); it "
                               "cannot be injected into a raw loss_fn")
         model.cfg = model.cfg.replace(sparse_attention=cfg.sparse_attention.build())
-    device = resolve_device(device)
     if loss_fn is None:
         if model is None:
             raise ValueError("initialize() needs model= or (loss_fn, params)")
@@ -86,4 +104,11 @@ def initialize(model=None, params: Any = None, config: Any = None, device=None,
         params = model.init_params(seed=cfg.seed, device=device)
     engine = DeepSpeedTorchEngine(loss_fn, params, cfg, device, eval_fn=eval_fn)
     engine.model = model
-    return engine, engine, None, engine.lr_scheduler
+    dataloader = None
+    if training_data is not None:
+        dataloader = DeepSpeedTpuDataLoader(
+            training_data, micro_batch_size=cfg.train_micro_batch_size_per_gpu,
+            dp_world_size=1, gradient_accumulation_steps=cfg.gradient_accumulation_steps,
+            collate_fn=collate_fn, seed=cfg.seed)
+        engine.training_dataloader = dataloader  # its position rides the checkpoints
+    return engine, engine, dataloader, engine.lr_scheduler

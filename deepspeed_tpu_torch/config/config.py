@@ -28,13 +28,20 @@ the port runs:
   (``AdaptationConfig``) configures the online controller
   (``autotuning.attach_controller``).
 
+- ``checkpoint`` / ``nebula`` (``checkpoint.async_save`` or
+  ``nebula.enabled`` selects the async checkpoint engine) and
+  ``prescale_gradients``, ``dump_state``, ``activation_checkpointing``
+  (accepted and never read, as in JAX).
+
 An unknown key raises ``ConfigError`` naming it, as in JAX.  A key the JAX
-package knows but the port does not run yet raises ``NotImplementedError``
-naming it and its ROADMAP item: ``serve.quant_comm`` /
-``comm_tiles`` and tensor-parallel or replicated serving engines (item 7),
-offload, ZeRO++ quantization, compression, progressive layer drop,
-eigenvalue, curriculum, elasticity, monitors, ...  The reference keys JAX
-accepts and ignores are accepted and ignored here too.
+package knows but the port does not run yet is accepted at JAX's default
+and raises ``NotImplementedError`` naming it and its ROADMAP queue-1 item
+when its value differs (``_UNPORTED_TOP``, ``_UNPORTED_ZERO``): the mesh,
+MoE, tensor parallelism, the comms logger, ZeRO++ and ``serve.quant_comm``
+/ ``comm_tiles`` are item 7; offload, compression, progressive layer drop,
+eigenvalue, curriculum, elasticity, monitors, the profiler and the rest are
+item 9.  The reference keys JAX accepts and ignores are accepted and
+ignored here too.
 """
 from __future__ import annotations
 
@@ -51,19 +58,58 @@ class ConfigError(ValueError):
     pass
 
 
-# top-level keys of the JAX Config the port does not run yet
+_MONITOR = ("MonitorSubConfig", dict(
+    enabled=False, output_path="", job_name="DeepSpeedTpuJob", team=None, group=None,
+    project=None, api_key=None, workspace=None, experiment_name=None, experiment_key=None,
+    online=None, mode=None, samples_log_interval=100))
+# Top-level keys and sections of the JAX Config the port does not run yet:
+# (JAX's default value, or (JAX's dataclass name, its fields' defaults), and
+# the ROADMAP queue-1 item that ports it).  A key is refused only when its
+# value differs from JAX's default, which an enabled section always does; at
+# the default it is accepted and changes nothing, as in JAX.
 _UNPORTED_TOP = {
-    "prescale_gradients", "wall_clock_breakdown", "memory_breakdown", "dump_state", "mesh",
-    "moe", "tensor_parallel", "comms_logger", "flops_profiler", "activation_checkpointing",
-    "checkpoint", "compression_training", "data_efficiency", "curriculum_learning",
-    "tensorboard", "csv_monitor", "wandb", "comet", "elasticity", "progressive_layer_drop",
-    "eigenvalue", "compile", "hybrid_engine", "aio", "nebula",
+    "wall_clock_breakdown": (False, 9),
+    "memory_breakdown": (False, 9),
+    "mesh": (("MeshConfig", dict(data=0, fsdp=0, model=1, seq=1, expert=1, stage=1)), 7),
+    "moe": (("MoEConfig", dict(enabled=False, num_experts=1, top_k=2, capacity_factor=1.0,
+                               eval_capacity_factor=1.0, min_capacity=4, drop_tokens=True,
+                               aux_loss_coef=0.01)), 7),
+    "tensor_parallel": (("TensorParallelConfig", dict(enabled=False, tp_size=1,
+                                                      domino_chunks=1)), 7),
+    "comms_logger": (("CommsLoggerConfig", dict(enabled=False, verbose=False, prof_all=True,
+                                                debug=False, prof_ops=[])), 7),
+    "flops_profiler": (("FlopsProfilerConfig", dict(
+        enabled=False, profile_step=1, module_depth=-1, top_modules=1, detailed=True,
+        output_file=None)), 9),
+    "compression_training": (("CompressionConfig", dict(
+        enabled=False, weight_quantization={}, activation_quantization={}, sparse_pruning={},
+        row_pruning={}, head_pruning={}, channel_pruning={}, layer_reduction={})), 9),
+    "data_efficiency": (("DataEfficiencyConfig", dict(enabled=False,
+                                                      curriculum_learning={})), 9),
+    "tensorboard": (_MONITOR, 9),
+    "csv_monitor": (_MONITOR, 9),
+    "wandb": (_MONITOR, 9),
+    "comet": (_MONITOR, 9),
+    "elasticity": ({}, 9),
+    "progressive_layer_drop": (("PLDConfig", dict(enabled=False, theta=0.5, gamma=0.001)), 9),
+    "eigenvalue": (("EigenvalueConfig", dict(
+        enabled=False, verbose=False, max_iter=100, tol=1e-2, stability=1e-6,
+        gas_boundary_resolution=1, layer_name="", layer_num=0)), 9),
+    "compile": (("CompileConfig", dict(enabled=True, disable=False, backend="xla",
+                                       kwargs={})), 9),
+    "hybrid_engine": (("HybridEngineConfig", dict(
+        enabled=False, max_out_tokens=512, inference_tp_size=1, release_inference_cache=False,
+        pin_parameters=True, tp_gather_partition_size=8)), 9),
+    "aio": (("AIOConfig", dict(block_size=1 << 20, queue_depth=32, thread_count=8,
+                               single_submit=False, overlap_events=True)), 9),
 }
-# zero_optimization keys the port does not run yet
+# zero_optimization keys the port does not run yet: (JAX's default, item)
 _UNPORTED_ZERO = {
-    "offload_optimizer", "offload_param", "offload_nvme_path", "offload_pipeline",
-    "offload_grad_dtype", "zero_quantized_weights", "zero_quantized_gradients",
-    "zeropp_loco_param", "zero_hpz_partition_size", "mics_shard_size",
+    "offload_optimizer": (None, 9), "offload_param": (None, 9),
+    "offload_nvme_path": ("/tmp/deepspeed_tpu_nvme", 9), "offload_pipeline": (False, 9),
+    "offload_grad_dtype": ("fp32", 9), "zero_quantized_weights": (False, 7),
+    "zero_quantized_gradients": (False, 7), "zeropp_loco_param": (None, 7),
+    "zero_hpz_partition_size": (1, 7), "mics_shard_size": (-1, 7),
 }
 # reference keys JAX accepts and deliberately ignores (config.py:1100)
 _PASSTHROUGH_TOP = {
@@ -156,6 +202,43 @@ class SchedulerConfig:
 
 
 @dataclass
+class CheckpointConfig:
+    """``async_save``: the async checkpoint engine (``checkpoint/engine.py``);
+    the other two are accepted and change nothing, as in JAX."""
+
+    use_node_local_storage: bool = False
+    load_universal: bool = False
+    async_save: bool = False
+
+
+@dataclass
+class NebulaConfig:
+    """The reference's async checkpoint service: ``enabled`` selects the
+    async checkpoint engine (JAX ``parse_config``); the rest is accepted."""
+
+    enabled: bool = False
+    persistent_storage_path: Optional[str] = None
+    persistent_time_interval: int = 100
+    num_of_version_in_retention: int = 2
+    enable_nebula_load: bool = True
+    load_path: Optional[str] = None
+
+
+@dataclass
+class ActivationCheckpointingConfig:
+    """Accepted and never read, as in JAX (the model's ``remat`` is the
+    switch)."""
+
+    partition_activations: bool = False
+    cpu_checkpointing: bool = False
+    contiguous_memory_optimization: bool = False
+    number_checkpoints: Optional[int] = None
+    synchronize_checkpoint_boundary: bool = False
+    profile: bool = False
+    policy: str = "nothing_saveable"
+
+
+@dataclass
 class SparseAttentionConfig:
     """``sparse_attention``: mode ``""`` (absent) is off; the other modes
     name the layouts of ``ops/sparse_attention.py`` (JAX
@@ -240,6 +323,13 @@ class Config:
     serve_engine: "ServeEngineConfig" = field(default_factory=lambda: ServeEngineConfig())
     router: "RouterConfig" = field(default_factory=lambda: RouterConfig())
     autotune: "AutotuneConfig" = field(default_factory=lambda: AutotuneConfig())
+    checkpoint: CheckpointConfig = field(default_factory=CheckpointConfig)
+    nebula: NebulaConfig = field(default_factory=NebulaConfig)
+    # accepted and never read, as in JAX
+    prescale_gradients: bool = False
+    dump_state: bool = False
+    activation_checkpointing: ActivationCheckpointingConfig = field(
+        default_factory=ActivationCheckpointingConfig)
     dp_world_size: int = 1  # derived by finalize
 
     @property
@@ -736,19 +826,38 @@ def _strip_auto(obj):
     return obj
 
 
+def _refuse(name: str, item: int) -> None:
+    raise NotImplementedError(
+        f"config key '{name}' is not ported yet: the port runs it only at JAX's "
+        f"default (ROADMAP queue 1 item {item})")
+
+
 def _refuse_unported(raw: Dict[str, Any]) -> None:
-    for k in raw:
-        if k in _UNPORTED_TOP:
-            raise NotImplementedError(
-                f"config key '{k}' is not ported yet (ROADMAP queue 1 items 7-9)")
+    """Refuse each unported key whose value differs from JAX's default and
+    drop the ones at it.  An unknown field of an unported section is a
+    ``ConfigError`` naming JAX's dataclass, as JAX raises it."""
+    for k in [k for k in raw if k in _UNPORTED_TOP]:
+        default, item = _UNPORTED_TOP[k]
+        value = raw.pop(k)
+        if isinstance(default, tuple):
+            cls_name, fields = default
+            if not isinstance(value, dict):
+                raise ConfigError(f"expected dict for {cls_name}, got {type(value)}")
+            for f in value:
+                if f not in fields:
+                    raise ConfigError(f"unknown config key '{f}' for {cls_name}")
+            if any(v != fields[f] for f, v in value.items()):
+                _refuse(k, item)
+        elif value != default:
+            _refuse(k, item)
     zero = raw.get("zero_optimization")
     if isinstance(zero, dict):
         for k in list(zero):
             if k in _UNPORTED_ZERO:
-                raise NotImplementedError(
-                    f"config key 'zero_optimization.{k}' is not ported yet "
-                    "(ROADMAP queue 1 items 7, 9)")
-            if k in _PASSTHROUGH_ZERO:
+                default, item = _UNPORTED_ZERO[k]
+                if zero.pop(k) != default:
+                    _refuse(f"zero_optimization.{k}", item)
+            elif k in _PASSTHROUGH_ZERO:
                 zero.pop(k)
 
 
@@ -771,8 +880,19 @@ def parse_config(source: Any, dp_world_size: Optional[int] = None) -> Config:
         raise ConfigError(f"cannot parse config from {type(source)}")
     for k in _PASSTHROUGH_TOP & set(raw):
         raw.pop(k)
+    # the legacy top-level curriculum maps onto data_efficiency (JAX
+    # parse_config); the modern section wins when both are present
+    # (its mapped section is at JAX's default only when the legacy one is empty)
+    if "curriculum_learning" in raw:
+        legacy = raw.pop("curriculum_learning")
+        if "data_efficiency" not in raw and legacy:
+            _refuse("curriculum_learning", 9)
+    raw = _strip_auto(raw)
     _refuse_unported(raw)
-    cfg = _coerce(Config, _strip_auto(raw))
+    cfg = _coerce(Config, raw)
+    if cfg.nebula.enabled:
+        # nebula is an async checkpoint service: the async engine (JAX)
+        cfg.checkpoint.async_save = True
     if dp_world_size is not None:
         cfg.finalize(dp_world_size)
     return cfg

@@ -28,7 +28,12 @@ same computation in the same order:
   ``get_global_grad_norm``.
 
 ``train_on_loader`` overlaps the host-to-device copy of batch k+1 with step
-k (``runtime/prefetch.py``).  On one GPU the ZeRO stage changes no number.
+k (``runtime/prefetch.py``); the prefetcher keeps the loader's position
+for each queued batch, so a checkpoint saved mid-loop records the oldest
+unconsumed batch's position and closing the loop hands the unconsumed
+batches back (JAX :1422-1522).  ``save_checkpoint`` / ``load_checkpoint``
+delegate to ``checkpoint/saving.py`` with the reference's signatures.  On
+one GPU the ZeRO stage changes no number.
 
 ``telemetry`` (JAX :176-181, :1026-1030): each ``train_batch`` is a
 ``train_batch`` span on the ``train`` track whose device reading is
@@ -57,6 +62,7 @@ from ..ops.optimizers import build_optimizer
 from ..telemetry import Telemetry, device_ready
 from ..utils.memory import memory_breakdown_report
 from . import precision
+from .dataloader import unwrap_loader_chain
 from .lr_schedules import LRScheduler, get_lr_schedule_fn
 from .prefetch import DevicePrefetcher, MetricsBuffer, StagedBatch, host_scalar, stage
 
@@ -182,6 +188,9 @@ class DeepSpeedTorchEngine:
         self._metrics_buffer = MetricsBuffer()
         self._h2d_stream = None  # the prefetcher's side stream, made at first use
         self._active_prefetcher: Optional[DevicePrefetcher] = None
+        self._prefetch_loader = None  # what the active prefetcher draws from
+        self.training_dataloader = None  # set by initialize(training_data=...)
+        self._ckpt_engine = None  # checkpoint/engine.py, made at the first save / load
         logger.info("engine ready: zero_stage=%d dtype=%s micro_batch=%d gas=%d device=%s",
                     config.zero_optimization.stage, config.precision_dtype,
                     config.train_micro_batch_size_per_gpu,
@@ -381,8 +390,16 @@ class DeepSpeedTorchEngine:
         """Generator over ``train_batch`` steps on the batches of
         ``data_loader``, with ``train_data.prefetch_depth`` batches copied to
         the device ahead of the step.  Yields each step's loss as a device
-        scalar; ``get_last_loss()`` gives a synced value."""
+        scalar; ``get_last_loss()`` gives a synced value.  When the generator
+        closes, the batches prefetched and never consumed go back to the
+        loader's position, and a checkpoint saved meanwhile records that
+        same position.  A sampler with an ``index_filter`` (curriculum)
+        reads its difficulty at draw time, so it runs without prefetch,
+        as in JAX."""
         depth = self.config.train_data.prefetch_depth
+        if depth > 0 and any(getattr(getattr(link, "data_sampler", None), "index_filter", None)
+                             is not None for link in unwrap_loader_chain(data_loader)):
+            depth = 0
         n = 0
         if depth == 0:
             try:
@@ -399,8 +416,14 @@ class DeepSpeedTorchEngine:
                                "close the previous generator first")
         if self.device.type == "cuda" and self._h2d_stream is None:
             self._h2d_stream = torch.cuda.Stream(device=self.device)
-        pf = DevicePrefetcher(iter(data_loader), self._place_batch, depth=depth)
+        # the position's owner, found along the wrapper chain the
+        # checkpoint's drain check walks too (JAX :1479-1522)
+        state_owner = next((link for link in unwrap_loader_chain(data_loader)
+                            if callable(getattr(link, "state_dict", None))), None)
+        pf = DevicePrefetcher(iter(data_loader), self._place_batch, depth=depth,
+                              state_fn=state_owner.state_dict if state_owner else None)
         self._active_prefetcher = pf
+        self._prefetch_loader = data_loader
         try:
             for staged in pf:
                 yield self.train_batch(staged)
@@ -408,9 +431,57 @@ class DeepSpeedTorchEngine:
                 if num_steps is not None and n >= num_steps:
                     return
         finally:
-            pf.close()
+            stopped = pf.close()
+            resume = pf.resume_state()
             self._active_prefetcher = None
+            self._prefetch_loader = None
+            if stopped and resume is not None and callable(
+                    getattr(state_owner, "load_state_dict", None)):
+                # the batches prefetched and never consumed go back to the loader
+                state_owner.load_state_dict(resume)
+            elif not stopped:
+                logger.warning("prefetch worker did not stop within its timeout; the "
+                               "loader's position is left as it is")
             self._flush_step_metrics()
+
+    # ------------------------------------------------------------------
+    # checkpoints (checkpoint/saving.py), with the reference's signatures
+    # (runtime/engine.py:3218, :2872)
+    # ------------------------------------------------------------------
+    def save_checkpoint(self, save_dir, tag=None, client_state=None, save_latest: bool = True,
+                        exclude_frozen_parameters: bool = False):
+        """Save the training state, the step counters, the LR scheduler, the
+        data position and ``client_state`` under ``save_dir/tag``; returns
+        the tag's path.  Every parameter trains here, so
+        ``exclude_frozen_parameters`` changes nothing."""
+        from ..checkpoint.saving import save_checkpoint as _save
+
+        return _save(self, save_dir, tag=tag, client_state=client_state or {},
+                     save_latest=save_latest)
+
+    def load_checkpoint(self, load_dir, tag=None, load_module_strict: bool = True,
+                        load_optimizer_states: bool = True,
+                        load_lr_scheduler_states: bool = True,
+                        load_module_only: bool = False, custom_load_fn=None):
+        """Restore a checkpoint in place; returns ``(path, client_state)``
+        (``(None, {})`` when there is none).  ``load_module_only`` restores
+        the parameters and counters without the optimizer and LR state.
+        The load is always strict; ``custom_load_fn`` is refused."""
+        from ..checkpoint.saving import load_checkpoint as _load
+
+        if custom_load_fn is not None:
+            raise NotImplementedError("custom_load_fn is not supported: the checkpoint's "
+                                      "leaves load into the engine's own tensors")
+        if load_module_only:
+            load_optimizer_states = load_lr_scheduler_states = False
+        return _load(self, load_dir, tag=tag, load_optimizer_states=load_optimizer_states,
+                     load_lr_scheduler_states=load_lr_scheduler_states)
+
+    def wait_pending_checkpoint(self) -> None:
+        """Block until an async save has been written and published (the
+        reference's ``NebulaCheckpointEngine`` commit)."""
+        if self._ckpt_engine is not None:
+            self._ckpt_engine.wait()
 
     # ------------------------------------------------------------------
     # reads

@@ -12,14 +12,18 @@ prefetch.py``.
   per-step host sync.
 - ``host_scalar``: the one place a device scalar becomes a host float.
 
-Not ported: the loader-position snapshots behind checkpoint-exact resume
-(the data loader and checkpoints are ROADMAP queue 1 item 9).
+``state_fn`` (the loader's ``state_dict``) is snapshotted under the
+prefetcher's lock just before each draw from the source, one snapshot per
+batch drawn and not yet handed to the consumer, so ``resume_state`` gives
+the position of the oldest undelivered batch: a checkpoint taken with
+batches parked in the queue resumes without skipping or repeating one.
 """
 from __future__ import annotations
 
 import queue
 import threading
-from typing import Any, Callable, Dict, Iterable, List, Tuple
+from collections import deque
+from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
 import torch
 
@@ -72,14 +76,21 @@ _END, _ERR, _BATCH = "end", "err", "batch"
 class DevicePrefetcher:
     """Bounded background prefetcher over a batch iterator.  ``place_fn``
     runs on the worker thread; worker exceptions re-raise in the consumer
-    where they occurred in the stream."""
+    where they occurred in the stream.  ``state_fn`` (optional) gives the
+    source's position for ``resume_state``."""
 
-    def __init__(self, iterator: Iterable, place_fn: Callable[[Any], Any], depth: int = 2):
+    def __init__(self, iterator: Iterable, place_fn: Callable[[Any], Any], depth: int = 2,
+                 state_fn: Optional[Callable[[], Any]] = None):
         if depth < 1:
             raise ValueError(f"prefetch depth must be >= 1, got {depth}")
         self._it = iter(iterator)
         self._place = place_fn
+        self._state_fn = state_fn
         self._queue: "queue.Queue[Tuple[str, Any]]" = queue.Queue(maxsize=depth)
+        # positions of the batches drawn and not yet delivered (the one being
+        # drawn or staged included)
+        self._pending_states: "deque[Any]" = deque()
+        self._lock = threading.Lock()
         self._stop = threading.Event()
         self._closed = False
         self._thread = threading.Thread(target=self._run, name="dst-input-prefetch",
@@ -89,14 +100,25 @@ class DevicePrefetcher:
     def _run(self) -> None:
         try:
             while not self._stop.is_set():
+                # snapshot before the draw and append it at once: a
+                # resume_state() during the draw rewinds to this batch (it
+                # replays, never skips, it).  The lock covers the
+                # bookkeeping, not the draw, so the consumer never waits
+                # on a collate.
+                with self._lock:
+                    self._pending_states.append(
+                        self._state_fn() if self._state_fn is not None else None)
                 try:
                     batch = next(self._it)
                 except StopIteration:
+                    with self._lock:
+                        self._pending_states.pop()  # nothing was drawn
                     self._offer((_END, None))
                     return
                 if not self._offer((_BATCH, self._place(batch))):
                     return  # closed while blocked on a full queue
         except BaseException as e:  # noqa: BLE001 -- re-raised in the consumer
+            # the failed batch's snapshot stays pending: resuming replays it
             self._offer((_ERR, e))
 
     def _offer(self, item) -> bool:
@@ -126,11 +148,27 @@ class DevicePrefetcher:
             raise StopIteration
         if kind == _ERR:
             raise payload
+        with self._lock:
+            self._pending_states.popleft()
         return payload
+
+    def qsize(self) -> int:
+        """Batches parked in the queue."""
+        return self._queue.qsize()
+
+    def resume_state(self) -> Any:
+        """The source's position as if no drawn-but-undelivered batch had
+        been drawn: the oldest pending snapshot, else the live position;
+        None without a ``state_fn``."""
+        with self._lock:
+            if self._pending_states:
+                return self._pending_states[0]
+            return self._state_fn() if self._state_fn is not None else None
 
     def close(self) -> bool:
         """Stop the worker and drop queued batches.  Idempotent; True when
-        the worker has exited."""
+        the worker has exited (a worker stuck in a slow draw could still
+        move the source's position: restore it only after True)."""
         if not self._closed:
             self._closed = True
             self._stop.set()

@@ -44,7 +44,8 @@ What the port adds to the reference, all invisible to a JAX peer:
   request.
 * The ``stats`` reply also carries the worker process's kernel launch
   counts (``launches``), its CUDA ``memory_allocated`` and the bytes its
-  reply cache holds (``reply_cache_bytes``).
+  reply cache holds (``reply_cache_bytes``, bounded by the server's byte
+  cap beside its count cap).
 * The handoff codec writes a bf16 or fp8 leaf's dtype by its name
   (``"bfloat16"``, ``"float8_e4m3fn"``), which numpy reads back whenever
   ``ml_dtypes`` is loaded; the ambiguous void string (``'<V2'``) numpy
@@ -1134,11 +1135,23 @@ class WorkerServer:
     likewise get their own threads reading only the lock-guarded telemetry
     state, so a fleet pull can never block (or be blocked by) a tick.  An
     exactly-once reply cache keyed by request id makes client retries
-    after lost responses safe for mutating ops."""
+    after lost responses safe for mutating ops.
+
+    The cache holds at most ``reply_cache_size`` replies and
+    ``reply_cache_bytes`` bytes of their blobs; the oldest replies go first
+    until both caps hold, and the reply just stored always stays (a retry
+    of it must find it).  The byte cap is what bounds host memory: a
+    cached ``extract`` keeps its handoff pages, and one 512-token bf16
+    handoff of the 24-layer 410M model (2 kv heads, head_dim 128) is
+    12,582,912 B, so the default 256 MiB keeps about 21 of them where the
+    count cap alone would let 4,096 take about 50 GB.  A retried id whose
+    reply was evicted, by either cap, executes again, as one evicted by
+    count always did."""
 
     def __init__(self, engine, max_frame_bytes: int = DEFAULT_MAX_FRAME_BYTES,
                  reply_cache_size: int = 4096,
-                 identity: Optional[Dict[str, Any]] = None):
+                 identity: Optional[Dict[str, Any]] = None,
+                 reply_cache_bytes: int = 256 << 20):
         self.engine = engine
         self.scheduler = engine.scheduler
         # stashed for the metrics-channel threads: telemetry state is
@@ -1152,6 +1165,8 @@ class WorkerServer:
         self._replies: "OrderedDict[int, Tuple[Dict, List[bytes]]]" = \
             OrderedDict()
         self._reply_cache_size = int(reply_cache_size)
+        self._reply_cache_cap_bytes = int(reply_cache_bytes)
+        self._reply_bytes = 0  # blob bytes the cache holds
         self._running = True
         self.identity = dict(identity or {})
         self.identity.setdefault("pid", os.getpid())
@@ -1241,6 +1256,7 @@ class WorkerServer:
         of the cache)."""
         if nonce != self._client_nonce:
             self._replies.clear()
+            self._reply_bytes = 0
             self._client_nonce = nonce
 
     def _acceptor(self) -> None:
@@ -1457,9 +1473,7 @@ class WorkerServer:
         if cached is None:
             reply, rblobs = self._dispatch(op, blobs)
             if not no_cache:
-                self._replies[f.rid] = (reply, rblobs)
-                while len(self._replies) > self._reply_cache_size:
-                    self._replies.popitem(last=False)
+                self._cache_reply(f.rid, reply, rblobs)
         else:
             reply, rblobs = cached
         stream.send_json(FT_RESPONSE, f.rid, {**reply, "blobs": len(rblobs)})
@@ -1630,11 +1644,21 @@ class WorkerServer:
                 "memory_allocated": mem,
                 "reply_cache_bytes": self.reply_cache_bytes()}
 
+    def _cache_reply(self, rid: int, reply: Dict, rblobs: List[bytes]) -> None:
+        """Store a reply, then evict the oldest until the count and byte
+        caps hold; the reply just stored is never evicted."""
+        self._replies[rid] = (reply, rblobs)
+        self._reply_bytes += sum(len(b) for b in rblobs)
+        while len(self._replies) > 1 and (
+                len(self._replies) > self._reply_cache_size
+                or self._reply_bytes > self._reply_cache_cap_bytes):
+            _, (_, old) = self._replies.popitem(last=False)
+            self._reply_bytes -= sum(len(b) for b in old)
+
     def reply_cache_bytes(self) -> int:
         """Blob bytes the exactly-once reply cache holds (a cached
         ``extract`` keeps its handoff pages until the cache evicts it)."""
-        return sum(len(b) for _, rblobs in list(self._replies.values())
-                   for b in rblobs)
+        return self._reply_bytes
 
     def _op_apply_knobs(self, op, blobs):
         """Stage a live-retune batch on this worker's scheduler (the wire

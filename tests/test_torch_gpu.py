@@ -29,7 +29,10 @@ injected pages; the router's routed and migrated streams near-argmax
 against the CPU; a kernel error in a worker's tick raises through
 ``Router.tick``.  The out-of-process plane: a spawned CUDA worker serves a
 request with the in-process engine's tokens and its own kernel launches; a
-bf16 handoff makes a round trip over a socket bit for bit.  This file imports neither JAX nor the JAX package, so it
+bf16 handoff makes a round trip over a socket bit for bit; spawned
+children keep their reply caches under the byte cap.  Resumable training:
+an async save mid-``train_on_loader`` and a resume, bitwise; an HF round
+trip served with the original's tokens.  This file imports neither JAX nor the JAX package, so it
 runs where only PyTorch is installed::
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
@@ -1010,3 +1013,123 @@ def test_bf16_handoff_round_trips_over_a_socket_on_the_card():
         srv.shutdown()
         t.join(timeout=5.0)
     assert srv.close_audit["blocks_in_use"] == 0 and src.close()["blocks_in_use"] == 0
+
+
+def _flat_tree(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        out.update(_flat_tree(v, prefix + k + "/") if isinstance(v, dict) else {prefix + k: v})
+    return out
+
+
+@pytest.mark.gpu
+def test_async_save_and_resume_on_the_card_is_bitwise(tmp_path):
+    """A 2-layer model of the 410M's width on CUDA (bf16 over fp32 masters,
+    K1 and K8): 3 uninterrupted steps; a fresh engine takes 1, saves
+    asynchronously mid-``train_on_loader`` and takes its next step during
+    the write; a third loads and takes 2.  The resumed losses equal the
+    uninterrupted ones to the bit and the state after the load the saved
+    one byte for byte."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    chip_smoke.CKPT_SIZES = dict(seq=512, micro=2, gas=2, rows=24)
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.models.presets import get_preset
+    from deepspeed_tpu_torch.models.transformer import CausalLM
+
+    def make():
+        model = CausalLM(get_preset("llama3_proxy_410m", num_layers=2))
+        conf = chip_smoke.bench_config(2, 2)
+        conf["checkpoint"] = {"async_save": True}
+        engine, _, loader, _ = initialize(
+            model=model, config=conf,
+            training_data=chip_smoke.TokenRows(model.cfg.vocab_size, 24, 512))
+        return engine, loader
+
+    a, la = make()
+    want = [float(x) for x in a.train_on_loader(la, num_steps=3)]
+    b, lb = make()
+    gen = b.train_on_loader(lb)
+    got = [float(next(gen))]
+    b.save_checkpoint(str(tmp_path), tag="t")
+    at_save = chip_smoke._state_snapshot(torch, b)
+    assert b._ckpt_engine.pending
+    assert float(next(gen)) == want[1]
+    b.wait_pending_checkpoint()
+    gen.close()
+    c, lc = make()
+    K.reset_launches()
+    c.load_checkpoint(str(tmp_path))
+    assert chip_smoke._byte_diff(torch, chip_smoke._state_snapshot(torch, c), at_save) == []
+    got += [float(x) for x in c.train_on_loader(lc, num_steps=2)]
+    assert got == want
+    assert K.LAUNCHES["flash_fwd"] == 2 * 2 * 2 and K.LAUNCHES["fused_adamw"] == 2
+
+
+@pytest.mark.gpu
+def test_hf_round_trip_serves_the_same_tokens_on_the_card(tmp_path):
+    """The 410M model cut to 2 layers, bf16: exported to safetensors,
+    streamed back onto the card (bitwise), and served greedily with the
+    original's tokens (K1f and K2 launched)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from deepspeed_tpu_torch.checkpoint.hf_import import export_hf_checkpoint, load_hf_checkpoint
+    from deepspeed_tpu_torch.inference.engine_v2 import InferenceEngineV2
+    from deepspeed_tpu_torch.inference.sampling import SamplingParams
+    from deepspeed_tpu_torch.models.presets import get_preset
+    from deepspeed_tpu_torch.models.transformer import init_params
+
+    cfg = get_preset("llama3_proxy_410m", num_layers=2)
+    params = init_params(cfg, seed=1, device="cuda")
+    export_hf_checkpoint(params, cfg, str(tmp_path))
+    loaded, lcfg = load_hf_checkpoint(str(tmp_path), dtype=torch.bfloat16)
+    fo, fl = _flat_tree(params), _flat_tree(loaded)
+    assert set(fo) == set(fl)
+    assert all(fl[k].is_cuda and chip_smoke._same_bytes(torch, fl[k], fo[k]) for k in fo)
+    prompts = [list(range(5 + i, 45 + i)) for i in range(4)]
+    samp = SamplingParams(temperature=0.0, max_new_tokens=16)
+    out = {}
+    for name, tree, c in (("original", params, cfg), ("imported", loaded, lcfg)):
+        eng = InferenceEngineV2(tree, c, max_seqs=4, num_blocks=64, block_size=32,
+                                prefill_budget=256)
+        K.reset_launches()
+        out[name] = chip_smoke._serve_greedy(eng, prompts, samp)
+        assert K.LAUNCHES["flash_fwd"] >= 2 and K.LAUNCHES["paged_decode"] >= 2 * 15
+        assert eng.close()["blocks_in_use"] == 0
+    assert out["imported"] == out["original"]
+
+
+@pytest.mark.gpu
+def test_spawned_children_keep_their_reply_caches_under_the_byte_cap():
+    """Long prompts migrate from a spawned prefill child to a decode child
+    (each handoff's pages ride a cached ``extract`` reply): every child's
+    ``reply_cache_bytes`` stays within ``WorkerServer``'s byte cap."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from deepspeed_tpu_torch.inference.sampling import SamplingParams
+    from deepspeed_tpu_torch.serving import RemotePool, Router
+
+    sec = dict(max_seqs=4, num_blocks=64, block_size=16, prefill_buckets=[64, 128, 256],
+               prefill_budget=256)
+    spec = {"preset": "llama3_proxy_410m", "seed": 0, "dtype": "bfloat16", "max_seq_len": 512,
+            "sec": sec, "device": "cuda"}
+    pool = RemotePool(spec, n_workers=2, prefill_workers=1,
+                      config=dict(n_workers=2, prefill_workers=1,
+                                  disagg_threshold=64, heartbeat_interval_ms=40.0,
+                                  lease_ms=1500.0))
+    router = Router(pool, pool.config)
+    handles = [w.handle for w in pool.workers]
+    try:
+        samp = SamplingParams(temperature=0.0, max_new_tokens=4)
+        for u in range(6):
+            router.submit(u + 1, list(range(3 + u, 203 + u)), samp)
+        out = router.run(max_ticks=400)
+        assert all(s == "finished" for s, _ in out.values())
+        assert router.stats["handoffs"] >= 1
+        caches = [w.stats()["reply_cache_bytes"] for w in pool.workers]
+        audits = router.close()
+    finally:
+        pool.close()
+    assert max(caches) > 0 and all(c <= chip_smoke.reply_cache_cap() for c in caches)
+    assert all(a["blocks_in_use"] == 0 for a in audits)
+    assert all(h.proc.poll() is not None for h in handles)

@@ -32,7 +32,9 @@ of them a 2-D leaf a step, which round like the model's own).  Schedules:
 rtol 1e-6 / atol 1e-7, one fp32 expression each; optimizer steps atol 1e-6
 / rtol 1e-5 after four updates.
 """
+import dataclasses
 import itertools
+import re
 
 import jax
 import jax.numpy as jnp
@@ -663,7 +665,7 @@ def test_parse_config_batch_triangulation_matches_jax():
     ({"zero_optimization": {"stage": 3, "offload_optimizer": {"device": "cpu"}}},
      "zero_optimization.offload_optimizer"),
     ({"zero_optimization": {"zero_quantized_weights": True}}, "zero_quantized_weights"),
-    ({"compression_training": {}}, "compression_training"),
+    ({"compression_training": {"enabled": True}}, "compression_training"),
     ({"progressive_layer_drop": {"enabled": True}}, "progressive_layer_drop"),
     ({"eigenvalue": {"enabled": True}}, "eigenvalue"),
     ({"curriculum_learning": {"enabled": True}}, "curriculum_learning"),
@@ -672,6 +674,75 @@ def test_parse_config_batch_triangulation_matches_jax():
 def test_unported_config_keys_are_refused(raw, key):
     with pytest.raises(NotImplementedError, match=key):
         parse_config(raw)
+
+
+OFF_CONFIGS = [
+    {"wall_clock_breakdown": False}, {"memory_breakdown": False},
+    {"prescale_gradients": True}, {"dump_state": True},
+    {"activation_checkpointing": {"partition_activations": True, "number_checkpoints": 4}},
+    {"mesh": {"data": 0, "model": 1}}, {"moe": {"enabled": False}},
+    {"tensor_parallel": {"tp_size": 1}}, {"comms_logger": {"enabled": False}},
+    {"flops_profiler": {"enabled": False}}, {"tensorboard": {"enabled": False}},
+    {"csv_monitor": {}}, {"wandb": {"enabled": False}}, {"comet": {"enabled": False}},
+    {"compression_training": {}}, {"data_efficiency": {"enabled": False}},
+    {"curriculum_learning": {}}, {"elasticity": {}},
+    {"progressive_layer_drop": {"enabled": False}}, {"eigenvalue": {"enabled": False}},
+    {"compile": {"enabled": True}}, {"hybrid_engine": {"enabled": False}},
+    {"aio": {"thread_count": 8}},
+    {"checkpoint": {"async_save": True}}, {"nebula": {"enabled": True}},
+    {"zero_optimization": {"stage": 1, "offload_optimizer": None, "zero_quantized_weights": False,
+                           "mics_shard_size": -1, "offload_grad_dtype": "fp32"}},
+]
+ON_CONFIGS = [
+    ({"wall_clock_breakdown": True}, "wall_clock_breakdown", 9),
+    ({"memory_breakdown": True}, "memory_breakdown", 9),
+    ({"mesh": {"model": 2}}, "mesh", 7), ({"moe": {"enabled": True}}, "moe", 7),
+    ({"tensor_parallel": {"enabled": True, "tp_size": 2}}, "tensor_parallel", 7),
+    ({"comms_logger": {"enabled": True}}, "comms_logger", 7),
+    ({"flops_profiler": {"enabled": True}}, "flops_profiler", 9),
+    ({"flops_profiler": {"profile_step": 3}}, "flops_profiler", 9),
+    ({"tensorboard": {"enabled": True, "output_path": "tb"}}, "tensorboard", 9),
+    ({"compression_training": {"weight_quantization": {"enabled": True}}},
+     "compression_training", 9),
+    ({"data_efficiency": {"enabled": True}}, "data_efficiency", 9),
+    ({"curriculum_learning": {"enabled": False, "curriculum_type": "seqlen"}},
+     "curriculum_learning", 9),
+    ({"compile": {"disable": True}}, "compile", 9),
+    ({"aio": {"queue_depth": 64}}, "aio", 9),
+    ({"zero_optimization": {"offload_param": "cpu"}}, "zero_optimization.offload_param", 9),
+    ({"zero_optimization": {"zero_hpz_partition_size": 2}},
+     "zero_optimization.zero_hpz_partition_size", 7),
+]
+
+
+@pytest.mark.parametrize("raw", OFF_CONFIGS, ids=lambda r: next(iter(r)))
+def test_keys_off_or_at_jax_default_parse_as_jax(raw):
+    """What JAX's parser takes with the feature off (or at its default), the
+    port takes too; the sections the port carries equal JAX's."""
+    j, t = j_parse_config(raw, dp_world_size=1), parse_config(raw, dp_world_size=1)
+    for name in ("checkpoint", "nebula", "activation_checkpointing"):
+        assert dataclasses.asdict(getattr(t, name)) == dataclasses.asdict(getattr(j, name))
+    for name in ("prescale_gradients", "dump_state"):
+        assert getattr(t, name) == getattr(j, name)
+    assert t.zero_optimization.stage == j.zero_optimization.stage
+
+
+@pytest.mark.parametrize("raw,key,item", ON_CONFIGS, ids=lambda r: str(r))
+def test_keys_on_are_refused_with_their_one_item(raw, key, item):
+    j_parse_config(raw, dp_world_size=1)  # JAX runs it
+    with pytest.raises(NotImplementedError,
+                       match=rf"config key '{re.escape(key)}' .*queue 1 item {item}\)"):
+        parse_config(raw)
+
+
+@pytest.mark.parametrize("raw", [{"flops_profiler": {"enabeld": False}},
+                                 {"moe": {"experts": 4}}, {"checkpoint": {"async": True}}])
+def test_unknown_fields_of_those_sections_raise_as_jax(raw):
+    with pytest.raises(JConfigError) as jerr:
+        j_parse_config(raw)
+    with pytest.raises(ConfigError) as terr:
+        parse_config(raw)
+    assert str(terr.value) == str(jerr.value)
 
 
 def test_reference_passthrough_keys_are_accepted():
@@ -705,13 +776,28 @@ def test_entry_points_need_cuda_or_an_explicit_device(monkeypatch):
     assert engine.device.type == "cpu"
 
 
-def test_initialize_refuses_unported_arguments():
-    model = tt.CausalLM(get_preset("tiny", dtype=torch.float32))
-    for kw, match in ((dict(model="some/hf/dir"), "Hugging Face"),
-                      (dict(model=model, mesh=object()), "mesh"),
-                      (dict(model=model, training_data=[1]), "training_data")):
-        with pytest.raises(NotImplementedError, match=match):
-            tds.initialize(device="cpu", **kw)
+def test_initialize_refuses_unported_arguments(tmp_path):
+    """``mesh`` stays refused (item 7); ``training_data`` and a Hugging Face
+    directory now work (``test_torch_dataloader.py`` and
+    ``test_torch_hf_import.py`` hold them against JAX)."""
+    from deepspeed_tpu_torch.checkpoint.hf_import import export_hf_checkpoint
+
+    cfg = get_preset("tiny", dtype=torch.float32)
+    model = tt.CausalLM(cfg)
+    with pytest.raises(NotImplementedError, match="mesh"):
+        tds.initialize(device="cpu", model=model, mesh=object())
+    rows = [{"input_ids": np.full(9, i, np.int64)} for i in range(8)]
+    conf = {"train_micro_batch_size_per_gpu": 2, "bf16": {"enabled": False}}
+    engine, _, loader, _ = tds.initialize(device="cpu", model=model, training_data=rows,
+                                          config=conf)
+    assert engine.training_dataloader is loader and len(loader) == 4
+    assert tuple(next(iter(loader))["input_ids"].shape) == (1, 2, 9)
+    export_hf_checkpoint(engine.params, cfg, str(tmp_path))
+    hf_engine, _, _, _ = tds.initialize(device="cpu", model=str(tmp_path), config=conf)
+    got, want = _flat(hf_engine.params), _flat(engine.params)
+    assert set(got) == set(want)
+    for k in want:
+        assert torch.equal(got[k].detach(), want[k].detach()), k
 
 
 def test_initialize_from_seed_is_reproducible():

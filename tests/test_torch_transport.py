@@ -671,3 +671,101 @@ def test_kernel_error_in_a_server_tick_raises_through_router(servers):
     out = router.run(max_ticks=512)  # the router carries on after the caller's handling
     assert all(s == "finished" for s, _ in out.values())
     assert all(a["blocks_in_use"] == 0 for a in router.close())
+
+
+# ---------------------------------------------------------------------------
+# the reply cache's byte cap
+# ---------------------------------------------------------------------------
+def test_reply_cache_byte_cap_evicts_oldest_first(tiny):
+    """Count cap and byte cap both hold after every store; the oldest
+    replies go first; the reply just stored stays even when it alone is
+    over the byte cap."""
+    _, _, tcfg, tp = tiny
+    eng = build_serve_engine(tp, tcfg, SEC, device="cpu")
+    srv = T.WorkerServer(eng, reply_cache_size=4, reply_cache_bytes=100)
+    for rid in (1, 2, 3):
+        srv._cache_reply(rid, {"ok": True}, [b"x" * 40])
+    assert list(srv._replies) == [2, 3] and srv.reply_cache_bytes() == 80
+    for rid in (4, 5, 6, 7, 8):
+        srv._cache_reply(rid, {"ok": True}, [])
+    assert list(srv._replies) == [5, 6, 7, 8] and srv.reply_cache_bytes() == 0
+    srv._cache_reply(9, {"ok": True}, [b"y" * 30, b"z" * 30])
+    assert list(srv._replies) == [6, 7, 8, 9] and srv.reply_cache_bytes() == 60
+    srv._cache_reply(10, {"ok": True}, [b"w" * 500])
+    assert list(srv._replies) == [10] and srv.reply_cache_bytes() == 500
+    srv._note_client("another client")
+    assert not srv._replies and srv.reply_cache_bytes() == 0
+    eng.close()
+
+
+def _request_bytes(srv, mod, rid, op):
+    """Serve one REQUEST frame (``rid``, ``op``) through ``srv`` over a
+    socketpair and return every byte the server wrote back."""
+    a, b = socket.socketpair()
+    mod.FrameStream(a).send_json(mod.FT_REQUEST, rid, op)
+    server_side = (T if isinstance(srv, T.WorkerServer) else JT).FrameStream(b)
+    srv._serve_request(server_side, server_side.recv_frame(timeout=5.0))
+    a.settimeout(0.5)
+    out = b""
+    try:
+        while True:
+            chunk = a.recv(1 << 16)
+            if not chunk:
+                break
+            out += chunk
+    except socket.timeout:
+        pass
+    a.close()
+    b.close()
+    return out
+
+
+def _jax_reads(raw):
+    """A JAX ``FrameStream`` reads a reply's bytes: (response frame, blobs)."""
+    a, b = socket.socketpair()
+    a.sendall(raw)
+    fs = JT.FrameStream(b)
+    head = fs.recv_frame(timeout=5.0)
+    blobs = [fs.recv_frame(timeout=5.0).payload for _ in range(head.json().get("blobs", 0))]
+    a.close()
+    b.close()
+    return head, blobs
+
+
+def test_byte_capped_cache_replays_jax_frames_and_reexecutes_evicted(tiny):
+    """Under a byte cap that holds one ``extract`` reply, a retry of the
+    newest extract replays its frames byte for byte (a JAX ``FrameStream``
+    reads them: the wire is unchanged); the older extract, evicted by
+    bytes, executes again on its retry, as an id evicted by count does;
+    and a ``submit`` reply's frames are byte-equal to a JAX server's."""
+    jcfg, jp, tcfg, tp = tiny
+    eng = build_serve_engine(tp, tcfg, SEC, device="cpu")
+    jeng = j_build_engine(jp, jcfg, SEC)
+    srv = T.WorkerServer(eng, identity={"worker": 0})
+    jsrv = JT.WorkerServer(jeng, identity={"worker": 0})
+    sub = {"op": "submit", "uid": 1, "tokens": [3, 14, 15, 92, 65],
+           "sampling": {"max_new_tokens": 8}, "_cn": "c"}
+    assert _request_bytes(srv, JT, 1, dict(sub)) == _request_bytes(jsrv, JT, 1, dict(sub))
+    srv.scheduler.submit(2, [7, 8, 9, 10, 11, 12], SamplingParams(max_new_tokens=8))
+    srv.scheduler.tick()
+    ext = lambda uid: {"op": "extract", "uid": uid, "fmt": "none", "_cn": "c"}  # noqa: E731
+    first = _request_bytes(srv, JT, 2, ext(1))
+    one = srv.reply_cache_bytes()
+    assert one > 0
+    srv._reply_cache_cap_bytes = one + one // 2  # holds one extract, not two
+    second = _request_bytes(srv, JT, 3, ext(2))
+    assert 2 not in srv._replies and 3 in srv._replies
+    assert srv.reply_cache_bytes() <= srv._reply_cache_cap_bytes
+    assert _request_bytes(srv, JT, 3, ext(2)) == second  # cached: the same bytes
+    head, _ = _jax_reads(second)
+    assert head.ftype == JT.FT_RESPONSE and head.rid == 3 and head.json()["ok"]
+    calls = []
+    real = srv._op_extract
+    srv._op_extract = lambda op, blobs: calls.append(op["uid"]) or real(op, blobs)
+    again = _request_bytes(srv, JT, 2, ext(1))  # evicted by bytes: runs again
+    assert calls == [1]
+    (h1, b1), (h2, b2) = _jax_reads(first), _jax_reads(again)
+    assert h1.json()["handoff"] == h2.json()["handoff"] and b1 == b2  # the same pages
+    assert srv.reply_cache_bytes() <= srv._reply_cache_cap_bytes
+    eng.close()
+    jeng.close()
