@@ -321,6 +321,7 @@ with no result when there is no CUDA device or the package is missing.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -4764,7 +4765,12 @@ def remat_phase(torch, K, gpu):
 
 # presets_train: every preset the card trains at full width, except the two
 # the earlier phases cover (llama3_proxy_410m, gpt2_small) and llama3_70b
-# (its fp32 masters and moments do not fit one card: item 7)
+# (its fp32 masters and moments do not fit one card: item 7).  A MoE
+# preset's CPU run takes the card's expert choices (RoutePin): bf16
+# activations move a near-tied router choice, and the token then runs
+# through another expert and, past capacity, drops another token: a
+# discrete change, not rounding.  Its unpinned cosine and the number of
+# choices that moved are reported beside the gated pinned one.
 PRESETS_TRAIN_SKIP = ("llama3_70b", "llama3_proxy_410m", "gpt2_small")
 PRESET_SEQ, PRESET_MICRO = 64, 2
 
@@ -4784,10 +4790,72 @@ def _cpu_attn_grads(torch, cfg, params_cpu, micro):
     return float(loss.detach()), {n: g[0].flatten() for n, g in zip(names, grads)}
 
 
+class RoutePin:
+    """Expert choices of routed MoE calls, in call order.  Under
+    ``record()`` every ``top_k`` of the router keeps its choices; under
+    ``replay()`` each call takes the recorded choices instead (its own
+    probabilities at them, so the weights and gradients stay its own) and
+    counts where its own choices differ: ``moved`` tokens chose another
+    set of experts, ``reordered`` ones the same set in another order (which
+    changes the capacity queue, not a dropless output).  The capacity gate
+    and the dropless block both choose through ``sharded_moe.top_k``, so a
+    replay pins the experts and, by them, the slots."""
+
+    def __init__(self):
+        self.calls, self.replayed, self.moved, self.reordered, self.tokens = [], 0, 0, 0, 0
+
+    @contextlib.contextmanager
+    def _patched(self, fn):
+        from deepspeed_tpu_torch.moe import layer, sharded_moe
+
+        orig = sharded_moe.top_k
+
+        def wrapped(probs, k):
+            return fn(orig, probs, k)
+
+        sharded_moe.top_k = layer.top_k = wrapped
+        try:
+            yield self
+        finally:
+            sharded_moe.top_k = layer.top_k = orig
+
+    def record(self):
+        def keep(orig, probs, k):
+            vals, idx = orig(probs, k)
+            self.calls.append(idx.detach().cpu())
+            return vals, idx
+
+        return self._patched(keep)
+
+    def replay(self):
+        def pinned(orig, probs, k):
+            _, own = orig(probs, k)
+            rec = self.calls[self.replayed].to(probs.device)
+            self.replayed += 1
+            if rec.shape != own.shape:
+                raise AssertionError(f"RoutePin: call {self.replayed} has {tuple(own.shape)} "
+                                     f"choices, the record {tuple(rec.shape)}")
+            same_set = (own.sort(-1).values == rec.sort(-1).values).all(-1)
+            self.moved += int((~same_set).sum())
+            self.reordered += int((same_set & (own != rec).any(-1)).sum())
+            self.tokens += own.shape[0]
+            return probs.gather(-1, rec), rec
+
+        return self._patched(pinned)
+
+    def summary(self):
+        if self.replayed != len(self.calls):
+            raise AssertionError(f"RoutePin: {self.replayed} of {len(self.calls)} recorded "
+                                 "calls replayed")
+        return dict(routed_calls=len(self.calls), token_choices=self.tokens,
+                    tokens_moved=self.moved, tokens_reordered=self.reordered)
+
+
 def preset_train_one(torch, K, name):
     """``name`` at full width and 2 layers, bf16, its own remat and
     attention: one ``train_batch`` on the card against the port on the CPU
-    in fp32 from the same weights and batch."""
+    in fp32 from the same weights and batch (a MoE preset's CPU run on the
+    card's expert choices: ``RoutePin``)."""
     import numpy as np
     from deepspeed_tpu_torch import initialize
     from deepspeed_tpu_torch.models.presets import get_preset
@@ -4803,14 +4871,24 @@ def preset_train_one(torch, K, name):
     engine, _, _, _ = initialize(model=CausalLM(cfg), params=params,
                                  config=bench_config(PRESET_MICRO, 1))
     del params
-    g_card = _attn_grads(torch, engine, micro0)
+    pin = RoutePin() if cfg.moe_num_experts else None
+    with pin.record() if pin else contextlib.nullcontext():
+        g_card = _attn_grads(torch, engine, micro0)
     K.reset_launches()
     card_loss = float(engine.train_batch(batch))
     launches = dict(K.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     del engine
     _free(torch)
-    cpu_loss, g_cpu = _cpu_attn_grads(torch, cfg, params_cpu, micro0)
+    routing = None
+    if pin:
+        free_loss, g_free = _cpu_attn_grads(torch, cfg, params_cpu, micro0)
+        with pin.replay():
+            cpu_loss, g_cpu = _cpu_attn_grads(torch, cfg, params_cpu, micro0)
+        routing = dict(pin.summary(), cpu_loss_unpinned=free_loss,
+                       grad_cosine_layer0_unpinned=grad_cosines(torch, g_card, g_free))
+    else:
+        cpu_loss, g_cpu = _cpu_attn_grads(torch, cfg, params_cpu, micro0)
     cos = grad_cosines(torch, g_card, g_cpu)
     rel = abs(card_loss - cpu_loss) / abs(cpu_loss)
     L = cfg.num_layers
@@ -4823,6 +4901,8 @@ def preset_train_one(torch, K, name):
                attn_impl=cfg.attn_impl, params=cfg.param_count, card_loss=card_loss,
                cpu_loss=cpu_loss, step1_loss_rel_err=rel, grad_cosine_layer0=cos,
                launches={n: launches[n] for n in want}, peak_memory_bytes=peak)
+    if routing:
+        res["cpu_on_card_routing"] = routing
     bad = [n for n, w in want.items() if launches[n] != w]
     if bad or not rel <= TRAIN_LOSS_RTOL or not all(c > GRAD_COS_MIN for c in cos.values()):
         raise AssertionError(f"presets_train: {res} (launches expected {want})")
@@ -4937,6 +5017,615 @@ def presets_serve_phase(torch, K, gpu):
             launches[k] += ran[k]
     res = dict(phase="presets_serve", runs=runs, launches=launches,
                seconds=time.perf_counter() - t0, gpu=gpu)
+    emit(res)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# Mixtral-style MoE (moe_train, moe_serve) and the dense v1 engine (v1_serve)
+# ---------------------------------------------------------------------------
+# moe_train: mixtral_8x7b at full width cut to 2 layers (about 3.16 G
+# parameters: 57 GB of fp32 masters, gradients and AdamW moments), seq 4096,
+# micro-batch 1, the preset's remat="full", AdamW through K8
+MOE_TRAIN = dict(layers=2, seq=4096, micro=1, steps=3)
+MOE_PEAK_LIMIT = 75e9  # bytes; past it the phase is to run 1 layer instead
+# the narrow fp32 MoE check (moe_train) and the v1 / v2 token check
+# (v1_serve): mixtral_8x7b's switches at hidden 256 with 4 experts
+MOE_NARROW = dict(hidden_size=256, intermediate_size=512, num_heads=2, num_kv_heads=1,
+                  moe_num_experts=4, num_layers=2, vocab_size=1024)
+# card against CPU, both fp32 (TF32 off), on the narrow config: relative
+# Frobenius error of the loss and of every gradient leaf.  The two differ
+# in summation order only (~1e-6); a wrong dispatch, combine or routing
+# decision moves a leaf by orders of magnitude more.
+MOE_CHECK_TOL = 1e-4
+# K8 on the MoE engine's own flat buffers, which pass 2^31 elements: the
+# spans at the start, around element 2^31 and at the end against the plain
+# version (K8_TOL)
+K8_PAST = 1 << 31
+K8_SPAN = 1 << 16
+# moe_serve: mixtral_8x7b at full width, 8 layers (about 24 GB in bf16),
+# through the v2 scheduler: 4 requests of a shared 256-token prefix and a
+# 64-token suffix, 64 new greedy tokens each; per tick and in bursts
+MOE_SERVE = dict(layers=8, n_req=4, sys_len=256, sfx_len=64, max_new=64, burst=16)
+MOE_SERVE_ENGINE = dict(max_seqs=4, num_blocks=64, block_size=32, max_seq_len=512,
+                        prefill_buckets=(64, 128, 256, 512), prefill_budget=512,
+                        enable_prefix_caching=True)
+# v1's prefill logits against v2's on the same bf16 weights and prompts,
+# 8 layers: max |v1 - v2| over the row's logit range (max - min).  The two
+# attend differently (v1 the plain body over the dense cache, v2 the flash
+# kernel) and round to bf16 at other points, so a near-tied router choice
+# can move between them: each moved choice sends a token through another
+# expert.  On v2's expert choices (RoutePin) only the rounding is left:
+# read 0.76 % of the range, of which the bf16 logits' own rounding (up to
+# 2^-8 of a logit on each side, |logit| about half the range) can make
+# 0.4 %; held to MOE_V1_PINNED_TOL = 1 %.  On its own choices v1 read
+# 1.39 % (40 of 2,048 token choices moved), held to MOE_V1_LOGIT_TOL =
+# 2 %, the near-argmax limit for a bf16 pick (ARGMAX_TOL_FRAC).  A wrong
+# layer moves either by tens of percent.
+MOE_V1_LOGIT_TOL = 0.02
+MOE_V1_PINNED_TOL = 0.01
+# the 2-layer full-width copy of moe_serve's model, per tick and in bursts
+# of 8, replayed on the CPU in fp32 (near-argmax, ARGMAX_TOL_FRAC)
+MOE_REPLAY = dict(layers=2, n_req=2, prompt_len=64, max_new=16, burst=8)
+# v1_serve: the families JAX serves only through init_inference, at full depth
+V1_SERVE = ("bloom_7b1", "falcon_7b", "gptj_6b")
+V1_SIZES = dict(batch=4, prompt_len=128, new=32)
+V1_REPLAY = dict(batch=2, prompt_len=64, new=16)  # 2-layer copies replayed on the CPU
+
+
+def _leaves(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_leaves(v, prefix + k + "/"))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def _to(tree, device, dtype=None):
+    """A parameter tree's copy on ``device`` (in ``dtype`` when given)."""
+    return {k: _to(v, device, dtype) if isinstance(v, dict)
+            else v.detach().to(device, dtype or v.dtype) for k, v in tree.items()}
+
+
+def moe_narrow_check(torch):
+    """The narrow fp32 MoE config: ``loss_fn`` and every gradient on the
+    card against the port on the CPU (the plain attention body on both: the
+    attention kernels take bf16; what is checked is the routed path)."""
+    import numpy as np
+    from deepspeed_tpu_torch.models.presets import get_preset
+    from deepspeed_tpu_torch.models.transformer import CausalLM, init_params
+
+    cfg = get_preset("mixtral_8x7b", dtype=torch.float32, attn_impl="reference",
+                     remat="none", **MOE_NARROW)
+    params = init_params(cfg, seed=SEED, device="cpu", dtype=torch.float32)
+    tokens = torch.as_tensor(np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (2, 257), dtype=np.int64))
+    out = {}
+    for dev in ("cpu", DEVICE):
+        p = _to(params, dev)
+        for leaf in _leaves(p).values():
+            leaf.requires_grad_(True)
+        loss = CausalLM(cfg).loss_fn(p, {"input_ids": tokens.to(dev)})
+        loss.backward()
+        out[dev] = float(loss.detach()), {k: v.grad.cpu() for k, v in _leaves(p).items()}
+    (l_cpu, g_cpu), (l_card, g_card) = out["cpu"], out[DEVICE]
+    errs = {k: float((g_card[k] - g_cpu[k]).norm() / g_cpu[k].norm().clamp(min=1e-30))
+            for k in g_cpu}
+    res = dict(config={k: v for k, v in MOE_NARROW.items()}, card_loss=l_card, cpu_loss=l_cpu,
+               loss_rel_err=abs(l_card - l_cpu) / abs(l_cpu), worst_grad_rel_err=max(
+                   errs.values()), worst_grad_leaf=max(errs, key=errs.get),
+               tolerance=MOE_CHECK_TOL)
+    if res["loss_rel_err"] > MOE_CHECK_TOL or res["worst_grad_rel_err"] > MOE_CHECK_TOL:
+        raise AssertionError(f"moe_train: narrow fp32 card vs CPU {res}")
+    return res
+
+
+def k8_past_2_31(torch, engine):
+    """K8 over the engine's flat fp32 buffers (more than 2^31 elements:
+    the kernel indexes with 64-bit offsets) against the plain version on
+    copies of three spans: the start, around element 2^31 and the end."""
+    from deepspeed_tpu_torch.ops.kernels import fused_adam as K8
+
+    flat, grad = engine._masters.flat, engine._masters.grad
+    m, v = engine.opt_state["mu"][0], engine.opt_state["nu"][0]
+    n = flat.numel()
+    if n <= K8_PAST + K8_SPAN:
+        raise AssertionError(f"moe_train: {n} elements do not pass 2^31")
+    grad.normal_(0.0, 1e-3)
+    spans = [(0, K8_SPAN), (K8_PAST - K8_SPAN, K8_PAST + K8_SPAN), (n - K8_SPAN, n)]
+    snaps = [[t[a:b].clone() for t in (flat, grad, m, v)] for a, b in spans]
+    lr = torch.tensor(1e-4, device=flat.device)
+    step = torch.tensor(4, dtype=torch.int32, device=flat.device)
+    K8.fused_adamw_kernel(flat, grad, m, v, lr, step, wd=0.1)
+    worst = 0.0
+    for (a, b), (p0, g0, m0, v0) in zip(spans, snaps):
+        K8.fused_adamw_flat_plain(p0, g0, m0, v0, lr, step, wd=0.1)
+        for got, ref in ((flat[a:b], p0), (m[a:b], m0), (v[a:b], v0)):
+            worst = max(worst, float((got - ref).abs().max() / ref.abs().max()))
+    grad.zero_()
+    res = dict(elements=n, spans=[[a, b] for a, b in spans], worst_rel_err=worst,
+               limit=K8_TOL)
+    if not worst <= K8_TOL:
+        raise AssertionError(f"moe_train: K8 past 2^31 {res}")
+    return res
+
+
+# device-kernel name fragments of a routed MoE block's pieces (first match
+# wins): the GEMMs are the expert products (the fp32 router product among
+# them: 0.27 GFLOP against the experts' 3.6 TFLOP at the training shape)
+MOE_CATEGORIES = (("expert_products", ("gemm", "xmma", "nvjet", "cutlass", "Kernel2")),
+                  ("gating", ("softmax", "sort", "Sort", "radix", "scan", "cumsum",
+                              "one_hot", "topk")),
+                  ("dispatch_combine", ("index", "gather", "scatter", "Cat", "take", "put")))
+
+
+def moe_block_profile(torch, cfg, seq):
+    """One routed block (``moe_block``) forward and backward at the
+    training shape (1 x ``seq`` tokens, the preset's width, bf16) under
+    ``torch.profiler``: device ms by piece (``MOE_CATEGORIES``; the rest is
+    the activation, the weighting and sums, casts and copies)."""
+    from deepspeed_tpu_torch.moe.layer import moe_block
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 7)
+    d, f, E = cfg.hidden_size, cfg.intermediate_size, cfg.moe_num_experts
+    shapes = {"router": ((d, E), d), "w_gate": ((E, d, f), d), "w_up": ((E, d, f), d),
+              "w_down": ((E, f, d), f)}
+    lw = {k: (_randn(torch, s, gen, torch.float32) * fan ** -0.5).bfloat16().requires_grad_()
+          for k, (s, fan) in shapes.items()}
+    x = _randn(torch, (1, seq, d), gen, torch.bfloat16).requires_grad_()
+
+    def step():
+        out, aux = moe_block(lw, x, cfg)
+        (out.float().square().mean() + aux).backward()
+
+    step()
+    wall_ms, dev_ms, rows = _device_profile(torch, step, top=None)
+    cats = {name: 0.0 for name, _ in MOE_CATEGORIES}
+    cats["other"] = 0.0
+    for r in rows:
+        name = next((c for c, keys in MOE_CATEGORIES if any(k in r["name"] for k in keys)),
+                    "other")
+        cats[name] += r["ms_per_call"]
+    total = sum(cats.values())
+    del lw, x
+    return dict(tokens=seq, wall_ms=wall_ms, device_ms=dev_ms, ms=cats,
+                share={k: v / total for k, v in cats.items()} if total else None,
+                top=rows[:12])
+
+
+def moe_train_phase(torch, K, gpu):
+    """``mixtral_8x7b`` at full width and ``MOE_TRAIN['layers']`` layers:
+    the narrow fp32 check, then warm-up and 3 timed ``train_batch`` steps
+    (K1f twice per layer under remat full, K1b once, K8 once), the gate's
+    dropped fraction and aux loss, a profiled step, K8 past 2^31 on the
+    engine's buffers, and one routed block profiled by piece."""
+    import numpy as np
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.models.presets import get_preset
+    from deepspeed_tpu_torch.models.transformer import CausalLM, init_params
+    from deepspeed_tpu_torch.moe import layer as moe_layer
+
+    t_phase = time.perf_counter()
+    check = moe_narrow_check(torch)
+    z = MOE_TRAIN
+    cfg = get_preset("mixtral_8x7b", num_layers=z["layers"])
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, seed=SEED, device=DEVICE, dtype=torch.bfloat16)
+    engine, _, _, _ = initialize(model=CausalLM(cfg), params=params,
+                                 config=bench_config(z["micro"], 1), device=DEVICE)
+    del params
+    _free(torch)
+    batch = {"input_ids": np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (1, z["micro"], z["seq"] + 1), dtype=np.int64)}
+    t0 = time.perf_counter()
+    first = float(engine.train_batch(batch))  # warm-up
+    warm_s = time.perf_counter() - t0
+    K.reset_launches()
+    moe_layer.GATE_STATS = []
+    step_s, losses = [], []
+    for _ in range(z["steps"]):
+        t0 = time.perf_counter()
+        losses.append(float(engine.train_batch(batch)))  # reads the loss: synced
+        step_s.append(time.perf_counter() - t0)
+    launches = dict(K.LAUNCHES)
+    gates, moe_layer.GATE_STATS = moe_layer.GATE_STATS, None
+    peak = torch.cuda.max_memory_allocated()
+    L, steps = cfg.num_layers, z["steps"]
+    want = {"flash_fwd": REMAT_FWD_PER_LAYER[cfg.remat] * L * steps,
+            "flash_bwd_dq": L * steps, "flash_bwd_dkv": L * steps, "fused_adamw": steps}
+    bad = {n: (launches[n], w) for n, w in want.items() if launches[n] != w}
+    if bad or not all(np.isfinite([first] + losses)):
+        raise AssertionError(f"moe_train: launches (got, want) {bad}, losses {first} {losses}")
+    dropped = [float(g["dropped_fraction"]) for g in gates]
+    aux = [float(g["aux_loss"]) for g in gates]
+    counts = gates[-1]["expert_counts"].tolist()
+    wall_ms, dev_ms, rows = _device_profile(torch, lambda: engine.train_batch(batch), top=12)
+    k8 = k8_past_2_31(torch, engine)
+    n_params = engine._masters.flat.numel()
+    del engine
+    _free(torch)
+    block = moe_block_profile(torch, cfg, z["seq"])
+    _free(torch)
+    med = _median(step_s)
+    tokens = z["micro"] * z["seq"]
+    res = dict(phase="moe_train", model="mixtral_8x7b", layers=L, seq=z["seq"],
+               micro_batch=z["micro"], remat=cfg.remat, experts=cfg.moe_num_experts,
+               top_k=cfg.moe_top_k, capacity_factor=cfg.moe_capacity_factor,
+               params=n_params, optimizer="adamw (K8)", warmup_step_s=warm_s, step_s=step_s,
+               step_s_median=med, tokens_per_s=tokens / med, loss_first=first, losses=losses,
+               peak_memory_bytes=peak, peak_within_limit=peak <= MOE_PEAK_LIMIT,
+               gate_calls=len(gates), dropped_fraction_mean=sum(dropped) / len(dropped),
+               dropped_fraction_max=max(dropped), aux_loss_mean=sum(aux) / len(aux),
+               last_layer_expert_counts=counts, launches=launches,
+               launches_per_step={n: launches[n] / steps for n in want},
+               profile_step_wall_ms=wall_ms, profile_step_device_ms=dev_ms,
+               device_idle_share=None if dev_ms is None else 1.0 - dev_ms / wall_ms,
+               profile_top=rows, moe_block_profile=block, k8_past_2_31=k8,
+               narrow_fp32_check=check, seconds=time.perf_counter() - t_phase, gpu=gpu)
+    emit(res)
+    return res
+
+
+def card_prefill_logits(torch, params, cfg, token_lists):
+    """The last-row logits of each sequence through the v2 runner's packed
+    prefill on the card (no KV written: every page id is -1)."""
+    import numpy as np
+    from deepspeed_tpu_torch.inference import model_runner
+    from deepspeed_tpu_torch.inference.paged import init_paged_cache
+
+    bs = 32
+    t = sum(-(-len(toks) // bs) * bs for toks in token_lists)
+    tok, seg, pos = (np.zeros(t, np.int32) for _ in range(3))
+    last, cur = [], 0
+    for i, toks in enumerate(token_lists):
+        n = len(toks)
+        tok[cur:cur + n], seg[cur:cur + n], pos[cur:cur + n] = toks, i + 1, np.arange(n)
+        last.append(cur + n - 1)
+        cur += -(-n // bs) * bs
+    kv = init_paged_cache(cfg.num_layers, 1, bs, cfg.num_kv_heads, cfg.hd, dtype=cfg.dtype,
+                          device=DEVICE)
+    with torch.no_grad():
+        logits, _ = model_runner.prefill_packed(params, cfg, tok, seg, pos,
+                                                np.full(t // bs, -1, np.int32),
+                                                np.asarray(last, np.int32), kv)
+    return logits.float()
+
+
+def moe_serve_run(torch, K, params, cfg, fuse, quant, prompts, max_new=None):
+    """A fresh engine (``decode_megastep`` ``fuse``, weights ``quant``)
+    through the MoE workload after a one-request rehearsal (which captures
+    the burst graph): request 1 alone, then the rest, which hit its cached
+    prefix.  Returns results, wall s, counter deltas, launches and the
+    close audit."""
+    import numpy as np
+    from deepspeed_tpu_torch.inference.engine_v2 import InferenceEngineV2
+    from deepspeed_tpu_torch.inference.sampling import SamplingParams
+
+    eng = InferenceEngineV2(params, cfg, quantize_weights=quant, device=DEVICE,
+                            serve={"decode_megastep": fuse}, **MOE_SERVE_ENGINE)
+    sched = eng.scheduler
+    warm = np.random.default_rng(SEED + 3).integers(1, cfg.vocab_size, 64).tolist()
+    sched.submit(100_000, warm, SamplingParams(temperature=0.0, max_new_tokens=fuse + 4))
+    sched.run()
+    sched.pop_result(100_000)
+    _sync(torch)
+    samp = SamplingParams(temperature=0.0, max_new_tokens=max_new or MOE_SERVE["max_new"])
+    stats0 = dict(eng.stats)
+    K.reset_launches()
+    t0 = time.perf_counter()
+    sched.submit(1, prompts[1], samp)
+    sched.tick()
+    for u in sorted(prompts)[1:]:
+        sched.submit(u, prompts[u], samp)
+    sched.run()
+    wall = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    results = {u: sched.pop_result(u) for u in prompts}
+    d = {k: eng.stats[k] - stats0[k] for k in eng.stats}
+    audit = eng.close()
+    return dict(results=results, wall=wall, d=d, launches=launches, close=audit)
+
+
+def moe_serve_replay(torch, K, cfg):
+    """``cfg``'s first 2 layers at full width through the v2 scheduler in
+    bf16, per tick and in bursts (``MOE_REPLAY``): the bursts
+    token-identical to the per-tick run, every pick near the CPU's fp32
+    argmax over the same stream (the CPU routes its own experts, dropless
+    as the engine does)."""
+    import numpy as np
+    from deepspeed_tpu_torch.models.transformer import init_params
+
+    z = MOE_REPLAY
+    cfg2 = cfg.replace(num_layers=z["layers"])
+    params2 = init_params(cfg2, seed=SEED, device=DEVICE)
+    rng = np.random.default_rng(SEED + 5)
+    prompts = {u: rng.integers(1, cfg.vocab_size, z["prompt_len"]).tolist()
+               for u in range(1, z["n_req"] + 1)}
+    streams, launches, bursts = {}, {k: 0 for k in K.LAUNCHES}, {}
+    for fuse in (1, z["burst"]):
+        r = moe_serve_run(torch, K, params2, cfg2, fuse, None, prompts, z["max_new"])
+        streams[fuse], bursts[fuse] = r["results"], r["d"]["decode_bursts"]
+        for k in launches:
+            launches[k] += r["launches"][k]
+    worst, exact, total = replay_on_cpu(torch, _tree_cpu(params2), cfg2, prompts, streams[1])
+    del params2
+    _free(torch)
+    res = dict(layers=z["layers"], requests=z["n_req"], prompt_len=z["prompt_len"],
+               new_tokens=z["max_new"], burst=z["burst"], bursts=bursts[z["burst"]],
+               bursts_token_identical_to_per_tick=streams[1] == streams[z["burst"]],
+               argmax_exact=f"{exact}/{total}", argmax_worst_gap=worst,
+               tolerance=ARGMAX_TOL_FRAC)
+    if (not res["bursts_token_identical_to_per_tick"] or not bursts[z["burst"]]
+            or bursts[1] or worst > ARGMAX_TOL_FRAC
+            or any(len(t) != z["max_new"] for t in streams[1].values())):
+        raise AssertionError(f"moe_serve: 2-layer replay {res}")
+    return res, launches
+
+
+def moe_serve_phase(torch, K, gpu):
+    """``mixtral_8x7b`` at full width, ``MOE_SERVE['layers']`` layers, bf16
+    and then int8 weights (the experts stay bf16, as JAX's quantizer leaves
+    them), each per tick and with ``decode_megastep`` bursts on fresh
+    engines.  Gates: every request finishes with 64 tokens, the bursts are
+    token-identical to the per-tick run, the kernels launched layers x
+    dispatches (K1f / K3 on the prefills, K2 on every decode tick, K4 on the
+    int8 runs), no block leaks.  Then v1's prefill logits against v2's on
+    the same weights, on v1's own expert choices (``MOE_V1_LOGIT_TOL``)
+    and on v2's (``MOE_V1_PINNED_TOL``), and the 2-layer copy replayed on
+    the CPU (``moe_serve_replay``).  Returns the result and the 8-layer
+    (cfg, params) for ``v1_serve``."""
+    import numpy as np
+    from deepspeed_tpu_torch.inference import init_inference
+    from deepspeed_tpu_torch.models.presets import get_preset
+    from deepspeed_tpu_torch.models.transformer import CausalLM, init_params
+
+    t_phase = time.perf_counter()
+    z = MOE_SERVE
+    cfg = get_preset("mixtral_8x7b", num_layers=z["layers"], max_seq_len=512)
+    params = init_params(cfg, seed=SEED, device=DEVICE)
+    rng = np.random.default_rng(SEED)
+    sys_prompt = rng.integers(1, cfg.vocab_size, z["sys_len"]).tolist()
+    prompts = {u: sys_prompt + rng.integers(1, cfg.vocab_size, z["sfx_len"]).tolist()
+               for u in range(1, z["n_req"] + 1)}
+    L = cfg.num_layers
+    runs, launches = {}, {k: 0 for k in K.LAUNCHES}
+    for quant in (None, "int8"):
+        pair = {}
+        for fuse in (1, z["burst"]):
+            r = moe_serve_run(torch, K, params, cfg, fuse, quant, prompts)
+            d, lc = r["d"], r["launches"]
+            label = f"{quant or 'bf16'}_x{fuse}"
+            bad = [u for u, t in r["results"].items() if len(t) != z["max_new"]]
+            if bad or r["close"]["blocks_in_use"]:
+                raise AssertionError(f"moe_serve {label}: unfinished {bad}, {r['close']}")
+            if (d["decode_bursts"] > 0) != (fuse > 1):
+                raise AssertionError(f"moe_serve {label}: {d['decode_bursts']} bursts")
+            if (lc["paged_decode"] != L * (d["decode_ticks"] + d["burst_ticks"])
+                    or lc["flash_fwd"] + lc["ctx_attention"] != L * d["prefill_dispatches"]
+                    or not lc["flash_fwd"] or not lc["ctx_attention"]
+                    or (quant == "int8") != (lc["quant_matmul_int8"] > 0)):
+                raise AssertionError(f"moe_serve {label}: launches {lc}, stats {d}")
+            gen = sum(len(t) for t in r["results"].values())
+            runs[label] = dict(decode_megastep=fuse, weights=quant or "bf16", wall_s=r["wall"],
+                               generated_tokens_per_s=gen / r["wall"],
+                               effective_tokens_per_s=(gen + sum(map(len, prompts.values())))
+                               / r["wall"], prefill_dispatches=d["prefill_dispatches"],
+                               prefix_hit_blocks=d.get("prefix_hit_blocks"),
+                               decode_ticks=d["decode_ticks"], bursts=d["decode_bursts"],
+                               burst_ticks=d["burst_ticks"],
+                               launches={n: lc[n] for n in ("flash_fwd", "ctx_attention",
+                                                            "paged_decode",
+                                                            "quant_matmul_int8")})
+            pair[fuse] = r["results"]
+            for k in launches:
+                launches[k] += lc[k]
+        if pair[1] != pair[z["burst"]]:
+            diff = [u for u in pair[1] if pair[1][u] != pair[z["burst"]][u]]
+            raise AssertionError(f"moe_serve {quant or 'bf16'}: bursts differ from the "
+                                 f"per-tick run in streams {diff}")
+    # v1 on the same weights: its prefill logits against v2's runner, on
+    # its own expert choices and on v2's (the packed prefill's rows are the
+    # [2, 128] batch's in order: no padding at 128)
+    from deepspeed_tpu_torch.models.transformer import init_kv_cache
+
+    v1 = init_inference(CausalLM(cfg), params, device=DEVICE)
+    heads = [prompts[u][:128] for u in (1, 2)]
+    pin = RoutePin()
+    with pin.record():
+        v2_logits = card_prefill_logits(torch, params, cfg, heads)
+    rng_row = (v2_logits.max(-1).values - v2_logits.min(-1).values)
+    gaps, argmax_same = {}, {}
+    for mode in ("own", "pinned"):
+        with pin.replay() if mode == "pinned" else contextlib.nullcontext():
+            v1_logits, _ = v1.prefill(torch.tensor(heads, device=DEVICE),
+                                      init_kv_cache(cfg, 2, 129, device=DEVICE))
+        gaps[mode] = float(((v1_logits - v2_logits).abs().max(-1).values / rng_row).max())
+        argmax_same[mode] = f"{int((v1_logits.argmax(-1) == v2_logits.argmax(-1)).sum())}/2"
+    routing = pin.summary()
+    del v1
+    if gaps["own"] > MOE_V1_LOGIT_TOL or gaps["pinned"] > MOE_V1_PINNED_TOL:
+        raise AssertionError(f"moe_serve: v1 prefill logits off v2's {gaps} of the range "
+                             f"(limits {MOE_V1_LOGIT_TOL}, {MOE_V1_PINNED_TOL}), {routing}")
+    replay, ran = moe_serve_replay(torch, K, cfg)
+    for k in launches:
+        launches[k] += ran[k]
+    res = dict(phase="moe_serve", model="mixtral_8x7b", **z,
+               engine={k: (list(v) if isinstance(v, tuple) else v)
+                       for k, v in MOE_SERVE_ENGINE.items()}, runs=runs,
+               bursts_token_identical_to_per_tick=True, launches=launches,
+               v1_vs_v2_prefill=dict(prompts=2, prompt_len=128, max_gap_frac=gaps["own"],
+                                     tolerance=MOE_V1_LOGIT_TOL, argmax_same=argmax_same,
+                                     max_gap_frac_on_v2_routing=gaps["pinned"],
+                                     tolerance_on_v2_routing=MOE_V1_PINNED_TOL,
+                                     v1_routing_against_v2=routing),
+               two_layer_replay=replay,
+               seconds=time.perf_counter() - t_phase, gpu=gpu)
+    emit(res)
+    return res, (cfg, params)
+
+
+def _cpu_rows_logits(torch, params_cpu, cfg, tokens, rows):
+    """fp32 logits of ``tokens`` [b, s] at the positions ``rows`` through
+    the port's serving forward on the CPU (a dense cache filled from index
+    0, so MoE layers route dropless as both engines do)."""
+    from deepspeed_tpu_torch.models.transformer import forward, init_kv_cache, lm_logits
+
+    cfg = cfg.replace(dtype=torch.float32)
+    cache = init_kv_cache(cfg, tokens.shape[0], tokens.shape[1], device="cpu")
+    with torch.no_grad():
+        h, _, _ = forward(params_cpu, tokens, cfg, cache=cache, cache_index=0,
+                          return_hidden=True)
+        return lm_logits(params_cpu, cfg, h[:, rows])
+
+
+def v1_serve_one(torch, K, name, cfg=None, params=None, replay=True):
+    """``init_inference`` on ``name`` at full depth (or the given cfg and
+    params): batch 4, 128-token prompts, 32 greedy tokens, timed; each
+    attention call's body counted (``transformer.CACHE_ATTENTION``); a
+    prefill that fills its whole cache (JAX's flash case); then, with
+    ``replay``, a 2-layer full-width copy near-argmax against the CPU."""
+    import numpy as np
+    from deepspeed_tpu_torch.inference import InferenceEngine, init_inference
+    from deepspeed_tpu_torch.inference.sampling import SamplingParams
+    from deepspeed_tpu_torch.models import transformer as T
+    from deepspeed_tpu_torch.models.presets import get_preset
+
+    t_one = time.perf_counter()
+    B, n, new = (V1_SIZES[k] for k in ("batch", "prompt_len", "new"))
+    cfg = cfg or get_preset(name)
+    params = params if params is not None else T.init_params(cfg, seed=SEED, device=DEVICE)
+    eng = init_inference(T.CausalLM(cfg), params, device=DEVICE)
+    prompts = np.random.default_rng(SEED).integers(1, cfg.vocab_size, (B, n))
+    eng.generate(prompts[:1, :16], SamplingParams(max_new_tokens=2))  # warm-up
+    _sync(torch)
+    T.CACHE_ATTENTION.update(flash=0, plain=0)
+    K.reset_launches()
+    t0 = time.perf_counter()
+    out = eng.generate(prompts, SamplingParams(max_new_tokens=new))  # returns host ids
+    gen_s = time.perf_counter() - t0
+    bodies = dict(T.CACHE_ATTENTION)
+    cache = T.init_kv_cache(cfg, B, n + 1, device=DEVICE)
+    t0 = time.perf_counter()
+    eng.prefill(torch.as_tensor(prompts, device=DEVICE), cache)
+    _sync(torch)
+    prefill_s = time.perf_counter() - t0
+    del cache
+    L = cfg.num_layers
+    if out.shape != (B, new) or out.min() < 0 or out.max() >= cfg.vocab_size:
+        raise AssertionError(f"v1_serve {name}: ids {out.shape} out of range")
+    if bodies != {"flash": 0, "plain": L * (1 + new)}:
+        raise AssertionError(f"v1_serve {name}: attention bodies {bodies}, want "
+                             f"{L * (1 + new)} plain")
+    # a prefill that fills the whole cache: JAX's flash case where its
+    # predicate holds (here: not ALiBi's reference body)
+    full = InferenceEngine(eng.model, eng.params, max_seq_len=n, device=DEVICE)
+    T.CACHE_ATTENTION.update(flash=0, plain=0)
+    full.generate(prompts, SamplingParams(max_new_tokens=4))
+    full_bodies = dict(T.CACHE_ATTENTION)
+    launches = dict(K.LAUNCHES)
+    q = torch.empty(1, n, cfg.num_heads, cfg.hd)
+    kk = torch.empty(1, n, cfg.num_kv_heads, cfg.hd)
+    flash_ok = cfg.attn_impl in ("flash", "auto") and T.flash_supports(q, kk, 0)
+    if full_bodies != ({"flash": L, "plain": 0} if flash_ok else {"flash": 0, "plain": L}) \
+            or launches["flash_fwd"] != (L if flash_ok else 0):
+        raise AssertionError(f"v1_serve {name}: full-cache prefill bodies {full_bodies}, "
+                             f"flash_fwd {launches['flash_fwd']}")
+    del eng, full
+    res = dict(model=name, layers=L, heads=cfg.num_heads, kv_heads=cfg.num_kv_heads,
+               head_dim=cfg.hd, position=cfg.position, parallel_block=cfg.parallel_block,
+               experts=cfg.moe_num_experts, batch=B, prompt_len=n, new_tokens=new,
+               generate_s=gen_s, prefill_s=prefill_s,
+               decode_tokens_per_s=B * new / max(gen_s - prefill_s, 1e-9),
+               attention_bodies=bodies, full_cache_prefill_bodies=full_bodies)
+    if replay:
+        cfg2 = cfg.replace(num_layers=2)
+        params2 = T.init_params(cfg2, seed=SEED, device=DEVICE)
+        b2, n2, new2 = (V1_REPLAY[k] for k in ("batch", "prompt_len", "new"))
+        gen2 = init_inference(T.CausalLM(cfg2), params2, device=DEVICE).generate(
+            prompts[:b2, :n2], SamplingParams(max_new_tokens=new2))
+        seqs = torch.as_tensor(np.concatenate([prompts[:b2, :n2], gen2[:, :-1]], 1))
+        logits = _cpu_rows_logits(torch, _tree_cpu(params2), cfg2, seqs,
+                                  list(range(n2 - 1, n2 - 1 + new2)))
+        worst, exact = 0.0, 0
+        for row, picks in zip(logits, gen2):
+            w, e = near_argmax(torch, row, torch.as_tensor(picks, dtype=torch.long))
+            worst, exact = max(worst, w), exact + e
+        del params2
+        res.update(two_layer_argmax_exact=f"{exact}/{b2 * new2}",
+                   two_layer_argmax_worst_gap=worst)
+        if worst > ARGMAX_TOL_FRAC:
+            raise AssertionError(f"v1_serve {name}: 2-layer pick off the CPU argmax {worst}")
+    res["seconds"] = time.perf_counter() - t_one
+    return res, launches
+
+
+def v1_narrow_check(torch):
+    """The narrow MoE config: v1 on the card in fp32 (the plain attention
+    body, fp32 throughout) token-identical to v1 and v2 on the CPU in fp32.
+    v2 cannot run fp32 on the card (its kernels take bf16): its bf16 run is
+    held token-identical to v1 on the card and, pick by pick, near the
+    CPU's fp32 argmax over its own stream (``ARGMAX_TOL_FRAC``)."""
+    import numpy as np
+    from deepspeed_tpu_torch.inference import init_inference
+    from deepspeed_tpu_torch.inference.engine_v2 import InferenceEngineV2
+    from deepspeed_tpu_torch.inference.sampling import SamplingParams
+    from deepspeed_tpu_torch.models import transformer as T
+    from deepspeed_tpu_torch.models.presets import get_preset
+
+    cfg = get_preset("mixtral_8x7b", dtype=torch.float32, max_seq_len=256, **MOE_NARROW)
+    params = T.init_params(cfg, seed=SEED, device="cpu", dtype=torch.float32)
+    prompts = np.random.default_rng(SEED + 1).integers(1, cfg.vocab_size, (2, 40))
+    samp = SamplingParams(max_new_tokens=16)
+    card = init_inference(T.CausalLM(cfg), _to(params, DEVICE), device=DEVICE).generate(
+        prompts, samp)
+    cpu = init_inference(T.CausalLM(cfg), params, device="cpu").generate(prompts, samp)
+    v2_kw = dict(max_seqs=2, num_blocks=32, block_size=16, prefill_buckets=(64,))
+    v2_cpu = InferenceEngineV2(params, cfg, device="cpu", **v2_kw)
+    v2_cpu_out = [v2_cpu.generate(p.tolist(), samp) for p in prompts]
+    cfg16 = cfg.replace(dtype=torch.bfloat16)
+    v2_card = InferenceEngineV2(_to(params, DEVICE, torch.bfloat16), cfg16, device=DEVICE,
+                                **v2_kw)
+    v2_card_out = np.asarray([v2_card.generate(p.tolist(), samp) for p in prompts])
+    v2_card.close()
+    seqs = torch.as_tensor(np.concatenate([prompts, v2_card_out[:, :-1]], 1))
+    logits = _cpu_rows_logits(torch, params, cfg, seqs, list(range(39, 39 + 16)))
+    worst = max(near_argmax(torch, row, torch.as_tensor(p, dtype=torch.long))[0]
+                for row, p in zip(logits, v2_card_out))
+    res = dict(config=dict(MOE_NARROW), new_tokens=16,
+               v1_card_fp32_equals_cpu_v1_and_v2=bool(
+                   np.array_equal(card, cpu) and np.array_equal(cpu, np.asarray(v2_cpu_out))),
+               v2_card_bf16_token_match_v1=f"{int((v2_card_out == card).sum())}/{card.size}",
+               v2_card_bf16_argmax_worst_gap=worst, tolerance=ARGMAX_TOL_FRAC)
+    if (not res["v1_card_fp32_equals_cpu_v1_and_v2"] or not np.array_equal(v2_card_out, card)
+            or worst > ARGMAX_TOL_FRAC):
+        raise AssertionError(f"v1_serve: narrow MoE {res}: v1 card {card.tolist()} / CPU "
+                             f"{cpu.tolist()} / v2 CPU {v2_cpu_out} / v2 card "
+                             f"{v2_card_out.tolist()}")
+    return res
+
+
+def v1_serve_phase(torch, K, gpu, moe):
+    """``init_inference`` on the ALiBi and parallel-block families at full
+    depth, one at a time, each freed before the next; then on the
+    ``moe_serve`` Mixtral weights (``moe``: its cfg and params) and the
+    narrow MoE check."""
+    t_phase = time.perf_counter()
+    runs, launches = {}, {k: 0 for k in K.LAUNCHES}
+    for name in V1_SERVE:
+        runs[name], ran = v1_serve_one(torch, K, name)
+        for k in launches:
+            launches[k] += ran[k]
+        _free(torch)
+    cfg, params = moe
+    runs["mixtral_8x7b"], ran = v1_serve_one(torch, K, "mixtral_8x7b", cfg, params,
+                                             replay=False)
+    for k in launches:
+        launches[k] += ran[k]
+    narrow = v1_narrow_check(torch)
+    res = dict(phase="v1_serve", runs=runs, narrow_moe=narrow, launches=launches,
+               seconds=time.perf_counter() - t_phase, gpu=gpu)
     emit(res)
     return res
 
@@ -6196,6 +6885,13 @@ def main() -> None:
     pt = presets_train_phase(torch, K, gpu)
     ps = presets_serve_phase(torch, K, gpu)
     _free(torch)
+    # Mixtral-style MoE (training, v2 serving) and the dense v1 engine
+    mt = moe_train_phase(torch, K, gpu)
+    _free(torch)
+    mv, moe = moe_serve_phase(torch, K, gpu)
+    v1 = v1_serve_phase(torch, K, gpu, moe)
+    del moe
+    _free(torch)
     qc = quant_check_phase(torch, K, gpu)
     qs, w_up0 = quant_serve_phase(torch, K, gpu)
     qz = quantizer_phase(torch, K, gpu, w_up0)
@@ -6218,10 +6914,12 @@ def main() -> None:
     # scheduler, scheduler, speculative serving, seq-sharded long-context
     # serving, gpt2 serving, dense and block-sparse training, the other
     # optimizers, the remat policies, the presets' training and serving,
-    # quantized serving, the quantizer API), each read right after its own run
+    # quantized serving, the quantizer API, MoE training and serving, the v1
+    # engine), each read right after its own run
     main_paths = (eng, ms_eng, ms_sch, sch, spec, lcc, lc, g_eng, g_burst, g_spec, tr, shim, sp,
                   opt, rm, pt, ps, qc, qs, qz, rt, rh, rk, rf, rc, rr, rho, rfl, rch, ad, at,
-                  ck, hf)
+                  ck, hf, mt, mv, v1)
+    moe_paths = {"moe_train": mt, "moe_serve": mv, "v1_serve": v1}
     resume_paths = {"checkpoint": ck, "hf_roundtrip": hf}
     router_paths = {"router": rt, "router_handoff": rh, "router_check": rk,
                     "router_fleet": rf, "router_chaos": rc}
@@ -6260,6 +6958,10 @@ def main() -> None:
                            if p["launches"].get(name)}
         if resume_launches:  # resumed training and the HF round trip
             entry["launches_resume_phases"] = resume_launches
+        moe_launches = {k: p["launches"].get(name, 0) for k, p in moe_paths.items()
+                        if p["launches"].get(name)}
+        if moe_launches:  # Mixtral training and serving, the v1 engine
+            entry["launches_moe_v1_phases"] = moe_launches
         if name in per_forward:  # serving: launches per model forward
             entry["launches_per_forward"] = per_forward[name]
         if name in per_replay:  # decode bursts: launches per replayed tick

@@ -1,9 +1,9 @@
 """deepspeed_tpu_torch — the PyTorch / CUDA port of ``deepspeed_tpu``.
 
 A second package beside the JAX one, mirroring its module layout
-(``models``, ``ops``, ``inference``, ``runtime``, ``config``, ``sequence``,
-``parallel``, ``serving``, ``telemetry``, ``comm``, ``autotuning``,
-``checkpoint``, ``data``, ``analysis``, ``utils``) so each module's
+(``models``, ``moe``, ``ops``, ``inference``, ``runtime``, ``config``,
+``sequence``, ``parallel``, ``serving``, ``telemetry``, ``comm``,
+``autotuning``, ``checkpoint``, ``data``, ``analysis``, ``utils``) so each module's
 counterpart is found by name.  It imports ``torch`` and
 never ``jax`` or ``deepspeed_tpu``.  Entry points run on a CUDA device
 unless the caller passes ``device="cpu"``; every Pallas kernel of the ported
@@ -11,6 +11,11 @@ paths is a hand-written CUDA kernel under ``csrc/`` (see ``ops/kernels``).
 
 Ported so far:
 
+- the dense v1 engine ``inference.init_inference`` (every family, ALiBi
+  and the parallel block included);
+- Mixtral-style MoE on one card (``moe``: top-k gating with capacity,
+  the routed layer, dropless serving; the ``mixtral_8x7b`` preset trains,
+  serves and imports from Hugging Face);
 - serving: ``inference.engine_v2.InferenceEngineV2`` (paged KV cache, packed
   prefill, prefix caching, chunked prefill, batched decode, decode bursts,
   speculation, quantized weights, a KV pool seq-sharded over a

@@ -9,16 +9,18 @@ qwen2, gpt2 (learned positions, Conv1D fused qkv), opt (positions offset
 by 2, ReLU), bloom (ALiBi, per-head fused qkv, embedding LayerNorm),
 falcon (parallel block; its three fused-qkv layouts: multi-query, per-head
 interleaved and the grouped new decoder architecture), gptj (parallel
-block, interleaved partial rotary permuted to half-split at import) and phi
-(parallel block, partial rotary, biases).  Mixtral, or any config with
-``num_local_experts``, raises: MoE is ROADMAP queue 1 item 7.
+block, interleaved partial rotary permuted to half-split at import), phi
+(parallel block, partial rotary, biases) and mixtral (llama attention with
+``block_sparse_moe`` experts: the router ``gate`` and each expert's ``w1``
+/ ``w3`` / ``w2`` as ``w_gate`` / ``w_up`` / ``w_down``, stacked ``[L, E,
+...]``).
 
 The import streams: each HF tensor is read from disk on its own
 (``safetensors_io.SafetensorsReader``), moved to ``device`` and written
 into its leaf there, so the host holds one tensor at a time, never the
 tree.  JAX's mesh-sharded ``load_hf_checkpoint_sharded`` is item 7; on one
 device this is its streamed form.  The export writes one tensor at a time
-too, as float32, in JAX's llama / qwen2 layout.
+too, as float32, in JAX's llama / qwen2 / mixtral layout.
 """
 from __future__ import annotations
 
@@ -38,9 +40,6 @@ Params = Any
 def config_from_hf(hf: Dict[str, Any]) -> TransformerConfig:
     """An HF ``config.json`` dict as a ``TransformerConfig`` (JAX's mapping)."""
     model_type = hf.get("model_type", "llama")
-    if model_type == "mixtral" or hf.get("num_local_experts"):
-        raise NotImplementedError("MoE checkpoints (mixtral, num_local_experts) are not "
-                                  "ported yet (ROADMAP queue 1 item 7)")
     if model_type in ("gpt2", "gptj"):
         d, heads, L = hf["n_embd"], hf["n_head"], hf["n_layer"]
         kw = dict(vocab_size=hf["vocab_size"], hidden_size=d,
@@ -121,7 +120,10 @@ def config_from_hf(hf: Dict[str, Any]) -> TransformerConfig:
         norm_eps=hf.get("rms_norm_eps", 1e-5), rope_theta=hf.get("rope_theta", 10000.0),
         tie_embeddings=hf.get("tie_word_embeddings", False), norm="rmsnorm",
         activation="silu", gated_mlp=True, position="rope",
-        qkv_bias=model_type in ("qwen2", "qwen"))
+        qkv_bias=model_type in ("qwen2", "qwen"),
+        **(dict(moe_num_experts=hf.get("num_local_experts", 0),
+                moe_top_k=hf.get("num_experts_per_tok", 2))
+           if model_type == "mixtral" or hf.get("num_local_experts") else {}))
 
 
 def _interleaved_to_half(w: torch.Tensor, heads: int, hd: int, rot: int) -> torch.Tensor:
@@ -155,16 +157,21 @@ class _Store:
         self.left.discard(name)
         return self.where[name].get(name).to(self.device)
 
-    def stack(self, fmt: str, L: int, transpose: bool = True) -> torch.Tensor:
-        """The per-layer tensors ``fmt.format(i=i)`` stacked on the device,
-        one layer read at a time."""
+    def stack(self, fmt: str, L: int, transpose: bool = True, E: int = 0) -> torch.Tensor:
+        """The per-layer tensors ``fmt.format(i=i)`` stacked on the device
+        (``[L, ...]``), or with ``E`` the per-layer per-expert tensors
+        ``fmt.format(i=i, e=e)`` (``[L, E, ...]``), one tensor read at a
+        time."""
+        keys = [(i,) for i in range(L)] if not E else [(i, e) for i in range(L)
+                                                       for e in range(E)]
         out = None
-        for i in range(L):
-            w = self.take(fmt.format(i=i))
+        for key in keys:
+            w = self.take(fmt.format(i=key[0], e=key[-1]))
             w = w.T if transpose else w
             if out is None:
-                out = torch.empty((L,) + tuple(w.shape), dtype=w.dtype, device=self.device)
-            out[i].copy_(w)
+                lead = (L, E) if E else (L,)
+                out = torch.empty(lead + tuple(w.shape), dtype=w.dtype, device=self.device)
+            out[key].copy_(w)
             del w
         return out
 
@@ -347,18 +354,22 @@ def _llama_params(t: _Store, cfg: TransformerConfig) -> Params:
         attn.update(bq=stack(p + "self_attn.q_proj.bias", False),
                     bk=stack(p + "self_attn.k_proj.bias", False),
                     bv=stack(p + "self_attn.v_proj.bias", False))
-    return {
-        "embed": {"embedding": t.take("model.embed_tokens.weight")},
-        "layers": {
-            "attn": attn,
-            "attn_norm": {"scale": stack(p + "input_layernorm.weight", False)},
-            "mlp_norm": {"scale": stack(p + "post_attention_layernorm.weight", False)},
-            "mlp": {"w_gate": stack(p + "mlp.gate_proj.weight"),
-                    "w_up": stack(p + "mlp.up_proj.weight"),
-                    "w_down": stack(p + "mlp.down_proj.weight")},
-        },
-        "final_norm": {"scale": t.take("model.norm.weight")},
-    }
+    layers = {"attn": attn,
+              "attn_norm": {"scale": stack(p + "input_layernorm.weight", False)},
+              "mlp_norm": {"scale": stack(p + "post_attention_layernorm.weight", False)}}
+    if cfg.moe_num_experts > 0:
+        # mixtral's experts: w1 = gate, w3 = up, w2 = down
+        moe, E = p + "block_sparse_moe.", cfg.moe_num_experts
+        layers["moe"] = {"router": stack(moe + "gate.weight"),
+                         "w_gate": t.stack(moe + "experts.{e}.w1.weight", L, E=E),
+                         "w_up": t.stack(moe + "experts.{e}.w3.weight", L, E=E),
+                         "w_down": t.stack(moe + "experts.{e}.w2.weight", L, E=E)}
+    else:
+        layers["mlp"] = {"w_gate": stack(p + "mlp.gate_proj.weight"),
+                         "w_up": stack(p + "mlp.up_proj.weight"),
+                         "w_down": stack(p + "mlp.down_proj.weight")}
+    return {"embed": {"embedding": t.take("model.embed_tokens.weight")}, "layers": layers,
+            "final_norm": {"scale": t.take("model.norm.weight")}}
 
 
 def _cast(tree, dtype):
@@ -382,8 +393,6 @@ def load_hf_checkpoint(model_dir: str, cfg: Optional[TransformerConfig] = None,
         hf_cfg = json.load(fh)
     if cfg is None:
         cfg = config_from_hf(hf_cfg)
-    elif cfg.moe_num_experts:
-        raise NotImplementedError("MoE layers are not ported yet (ROADMAP queue 1 item 7)")
     t = _Store(model_dir, device)
     model_type = hf_cfg.get("model_type")
     family = model_type in _FAMILY_LOADERS
@@ -411,8 +420,6 @@ def load_hf_checkpoint(model_dir: str, cfg: Optional[TransformerConfig] = None,
 
 def _export_specs(params: Params, cfg: TransformerConfig):
     """(HF name, param leaf getter, transpose) in JAX's export order."""
-    if cfg.moe_num_experts:
-        raise NotImplementedError("MoE layers are not ported yet (ROADMAP queue 1 item 7)")
     lw = params["layers"]
     out = [("model.embed_tokens.weight", lambda: params["embed"]["embedding"], False),
            ("model.norm.weight", lambda: params["final_norm"]["scale"], False)]
@@ -421,7 +428,9 @@ def _export_specs(params: Params, cfg: TransformerConfig):
     for i in range(cfg.num_layers):
         pre = f"model.layers.{i}"
 
-        def leaf(*path, i=i):
+        def leaf(*path, i=i, e=None):
+            if e is not None:
+                return lambda: lw[path[0]][path[1]][i, e]
             return lambda: lw[path[0]][path[1]][i]
 
         out += [(f"{pre}.self_attn.q_proj.weight", leaf("attn", "wq"), True),
@@ -433,17 +442,25 @@ def _export_specs(params: Params, cfg: TransformerConfig):
                     (f"{pre}.self_attn.k_proj.bias", leaf("attn", "bk"), False),
                     (f"{pre}.self_attn.v_proj.bias", leaf("attn", "bv"), False)]
         out += [(f"{pre}.input_layernorm.weight", leaf("attn_norm", "scale"), False),
-                (f"{pre}.post_attention_layernorm.weight", leaf("mlp_norm", "scale"), False),
-                (f"{pre}.mlp.gate_proj.weight", leaf("mlp", "w_gate"), True),
-                (f"{pre}.mlp.up_proj.weight", leaf("mlp", "w_up"), True),
-                (f"{pre}.mlp.down_proj.weight", leaf("mlp", "w_down"), True)]
+                (f"{pre}.post_attention_layernorm.weight", leaf("mlp_norm", "scale"), False)]
+        if cfg.moe_num_experts > 0:
+            moe = f"{pre}.block_sparse_moe"
+            out.append((f"{moe}.gate.weight", leaf("moe", "router"), True))
+            for e in range(cfg.moe_num_experts):
+                out += [(f"{moe}.experts.{e}.w1.weight", leaf("moe", "w_gate", e=e), True),
+                        (f"{moe}.experts.{e}.w3.weight", leaf("moe", "w_up", e=e), True),
+                        (f"{moe}.experts.{e}.w2.weight", leaf("moe", "w_down", e=e), True)]
+        else:
+            out += [(f"{pre}.mlp.gate_proj.weight", leaf("mlp", "w_gate"), True),
+                    (f"{pre}.mlp.up_proj.weight", leaf("mlp", "w_up"), True),
+                    (f"{pre}.mlp.down_proj.weight", leaf("mlp", "w_down"), True)]
     return out
 
 
 def export_hf_checkpoint(params: Params, cfg: TransformerConfig, out_dir: str) -> int:
     """The parameter tree -> HF-layout ``model.safetensors`` (float32, one
     tensor on the host at a time) and ``config.json``, as JAX writes them
-    for the llama / qwen2 families.  Returns the bytes written."""
+    for the llama / qwen2 / mixtral families.  Returns the bytes written."""
     os.makedirs(out_dir, exist_ok=True)
     specs = _export_specs(params, cfg)
     get = {name: (fn, tr) for name, fn, tr in specs}
@@ -460,10 +477,12 @@ def export_hf_checkpoint(params: Params, cfg: TransformerConfig, out_dir: str) -
 
     n = write_safetensors(os.path.join(out_dir, "model.safetensors"),
                           [(name, torch.float32, shape(name)) for name, _, _ in specs], produce)
-    model_type = "qwen2" if cfg.qkv_bias else "llama"
+    model_type = ("mixtral" if cfg.moe_num_experts > 0
+                  else "qwen2" if cfg.qkv_bias else "llama")
     hf_cfg = {
         "model_type": model_type,
-        "architectures": ["Qwen2ForCausalLM" if model_type == "qwen2" else "LlamaForCausalLM"],
+        "architectures": [{"mixtral": "MixtralForCausalLM", "qwen2": "Qwen2ForCausalLM",
+                           "llama": "LlamaForCausalLM"}[model_type]],
         "vocab_size": cfg.vocab_size, "hidden_size": cfg.hidden_size,
         "intermediate_size": cfg.intermediate_size, "num_hidden_layers": cfg.num_layers,
         "num_attention_heads": cfg.num_heads, "num_key_value_heads": cfg.num_kv_heads,
@@ -471,6 +490,9 @@ def export_hf_checkpoint(params: Params, cfg: TransformerConfig, out_dir: str) -
         "rms_norm_eps": cfg.norm_eps, "rope_theta": cfg.rope_theta,
         "tie_word_embeddings": cfg.tie_embeddings, "torch_dtype": "float32",
     }
+    if cfg.moe_num_experts > 0:
+        hf_cfg["num_local_experts"] = cfg.moe_num_experts
+        hf_cfg["num_experts_per_tok"] = cfg.moe_top_k
     with open(os.path.join(out_dir, "config.json"), "w") as fh:
         json.dump(hf_cfg, fh, indent=2)
     log_dist(f"hf export: wrote {len(specs)} tensors to {out_dir}")

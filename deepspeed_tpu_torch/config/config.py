@@ -30,14 +30,15 @@ the port runs:
 
 - ``checkpoint`` / ``nebula`` (``checkpoint.async_save`` or
   ``nebula.enabled`` selects the async checkpoint engine) and
-  ``prescale_gradients``, ``dump_state``, ``activation_checkpointing``
-  (accepted and never read, as in JAX).
+  ``moe``, ``prescale_gradients``, ``dump_state``,
+  ``activation_checkpointing`` (accepted and never read, as in JAX).
 
 An unknown key raises ``ConfigError`` naming it, as in JAX.  A key the JAX
 package knows but the port does not run yet is accepted at JAX's default
 and raises ``NotImplementedError`` naming it and its ROADMAP queue-1 item
-when its value differs (``_UNPORTED_TOP``, ``_UNPORTED_ZERO``): the mesh,
-MoE, tensor parallelism, the comms logger, ZeRO++ and ``serve.quant_comm``
+when its value differs (``_UNPORTED_TOP``, ``_UNPORTED_ZERO``): the mesh
+(an expert axis included), tensor parallelism, the comms logger, ZeRO++ and
+``serve.quant_comm``
 / ``comm_tiles`` are item 7; offload, compression, progressive layer drop,
 eigenvalue, curriculum, elasticity, monitors, the profiler and the rest are
 item 9.  The reference keys JAX accepts and ignores are accepted and
@@ -71,9 +72,6 @@ _UNPORTED_TOP = {
     "wall_clock_breakdown": (False, 9),
     "memory_breakdown": (False, 9),
     "mesh": (("MeshConfig", dict(data=0, fsdp=0, model=1, seq=1, expert=1, stage=1)), 7),
-    "moe": (("MoEConfig", dict(enabled=False, num_experts=1, top_k=2, capacity_factor=1.0,
-                               eval_capacity_factor=1.0, min_capacity=4, drop_tokens=True,
-                               aux_loss_coef=0.01)), 7),
     "tensor_parallel": (("TensorParallelConfig", dict(enabled=False, tp_size=1,
                                                       domino_chunks=1)), 7),
     "comms_logger": (("CommsLoggerConfig", dict(enabled=False, verbose=False, prof_all=True,
@@ -304,6 +302,22 @@ class SparseAttentionConfig:
 
 
 @dataclass
+class MoEConfig:
+    """``moe`` (JAX ``MoEConfig``): parsed with JAX's fields and defaults;
+    nothing reads it, as in JAX (the model's ``moe_*`` fields are the
+    switch).  An expert mesh axis above 1 stays refused with ``mesh``."""
+
+    enabled: bool = False
+    num_experts: int = 1
+    top_k: int = 2
+    capacity_factor: float = 1.0
+    eval_capacity_factor: float = 1.0
+    min_capacity: int = 4
+    drop_tokens: bool = True
+    aux_loss_coef: float = 0.01
+
+
+@dataclass
 class Config:
     train_batch_size: Optional[int] = None
     train_micro_batch_size_per_gpu: Optional[int] = None
@@ -324,6 +338,7 @@ class Config:
     router: "RouterConfig" = field(default_factory=lambda: RouterConfig())
     autotune: "AutotuneConfig" = field(default_factory=lambda: AutotuneConfig())
     checkpoint: CheckpointConfig = field(default_factory=CheckpointConfig)
+    moe: MoEConfig = field(default_factory=MoEConfig)
     nebula: NebulaConfig = field(default_factory=NebulaConfig)
     # accepted and never read, as in JAX
     prescale_gradients: bool = False

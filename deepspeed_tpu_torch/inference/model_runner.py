@@ -38,6 +38,7 @@ from ..models.transformer import (
     norm,
     rope_tables,
 )
+from ..moe.layer import moe_block_dropless
 from ..ops.kernels.flash_attention import flash_attention
 from ..ops.quantizer import QUANT_TYPES, map_quant, serving_mm
 from .paged import (
@@ -91,6 +92,11 @@ def _qkv(lw, x, cfg: TransformerConfig, ctx=None):
 
 
 def _ffn(lw, x, cfg, ctx=None):
+    if cfg.moe_num_experts > 0:
+        # dropless at inference: capacity competition would make routing
+        # depend on batch padding (JAX model_runner._ffn); the experts stay
+        # unquantized, as JAX's quantizer leaves them
+        return moe_block_dropless(lw["moe"], x, cfg)[0]
     mlp = lw["mlp"]
     act = _activation(cfg.activation)
     up = serving_mm(x, mlp["w_up"], mlp.get("b_up"), ctx=ctx)
@@ -123,21 +129,18 @@ def _embed(params, cfg, tokens, positions):
 def _check_family(cfg: TransformerConfig) -> None:
     """The reference's v2 engine refuses ALiBi and parallel-block models by
     design and serves them through its dense v1 engine ``init_inference``
-    (ROADMAP queue 1 item 9 in the port); MoE is a port gap (item 7)."""
+    (``inference/engine.py``), as JAX does."""
     if cfg.position == "alibi":
         raise NotImplementedError(
             "InferenceEngineV2 cannot serve position='alibi' models: the paged decode "
-            "kernel has no additive positional-bias operand — use init_inference (the "
-            "dense v1 engine, which the port adds with ROADMAP queue 1 item 9) instead")
+            "kernel has no additive positional-bias operand — use init_inference "
+            "(deepspeed_tpu_torch.inference.init_inference, the dense v1 engine) instead")
     if cfg.parallel_block:
         raise NotImplementedError(
             "InferenceEngineV2 cannot serve parallel_block models (falcon/gptj/phi "
             "layout): the runner wires sequential attn_norm/mlp_norm blocks — use "
-            "init_inference (the dense v1 engine, which the port adds with ROADMAP "
-            "queue 1 item 9) instead")
-    if cfg.moe_num_experts:
-        raise NotImplementedError(
-            "MoE models are not ported to the serving engine yet (ROADMAP queue 1 item 7)")
+            "init_inference (deepspeed_tpu_torch.inference.init_inference, the dense "
+            "v1 engine) instead")
 
 
 def _block(lw, x, cfg, rot, attend, ctx):

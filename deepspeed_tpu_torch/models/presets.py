@@ -1,14 +1,17 @@
 """Named architecture presets — counterpart of ``deepspeed_tpu/models/
 presets.py``, every JAX preset whose layers the port has, with JAX's field
-values: the Llama, Mistral, Qwen-2, Falcon, GPT-J, Phi-2, GPT-NeoX, Bloom,
-OPT and GPT-2 families, the 410M flagship and the test configs.
+values: the Llama, Mistral, Mixtral, Qwen-2, Falcon, GPT-J, Phi-2,
+GPT-NeoX, Bloom, OPT and GPT-2 families, the 410M flagship and the test
+configs.
 
-``mixtral_8x7b`` and ``tiny_moe`` wait for MoE layers (ROADMAP queue 1 item
-7).  ``llama3_70b`` is registered for its configuration; on one card its
-fp32 masters and moments do not fit (item 7 shards them).  ``phi_2`` (head
+``mixtral_8x7b`` and ``tiny_moe`` run their routed experts on one card
+(expert-parallel width 1).  ``llama3_70b`` is registered for its
+configuration; on one card its fp32 masters and moments do not fit (item 7
+shards them).  ``phi_2`` (head
 dim 80) and ``gpt_neox_20b`` (96) train through K1 padded to head dim 128
 (``ops/kernels/flash_attention.py``).  Serving takes the presets without a
-parallel block or ALiBi, as JAX's v2 engine does.
+parallel block or ALiBi, as JAX's v2 engine does; the dense v1 engine
+(``inference.init_inference``) serves every preset.
 """
 from __future__ import annotations
 
@@ -58,6 +61,10 @@ register("mistral_7b", TransformerConfig(
     vocab_size=32000, hidden_size=4096, intermediate_size=14336, num_layers=32,
     num_heads=32, num_kv_heads=8, max_seq_len=8192, rope_theta=10_000.0,
     remat="dots", attn_impl="auto"))
+register("mixtral_8x7b", TransformerConfig(
+    vocab_size=32000, hidden_size=4096, intermediate_size=14336, num_layers=32,
+    num_heads=32, num_kv_heads=8, max_seq_len=8192, rope_theta=1_000_000.0,
+    moe_num_experts=8, moe_top_k=2, remat="full", attn_impl="auto"))
 
 # --- GPT-2 (LayerNorm + learned positions + GELU, tied embeddings) ----------
 register("gpt2_small", TransformerConfig(
@@ -123,6 +130,10 @@ register("opt_6_7b", TransformerConfig(
 register("tiny", TransformerConfig(
     vocab_size=256, hidden_size=64, intermediate_size=128, num_layers=2,
     num_heads=4, num_kv_heads=2, max_seq_len=128))
+register("tiny_moe", TransformerConfig(
+    vocab_size=256, hidden_size=64, intermediate_size=128, num_layers=2,
+    num_heads=4, num_kv_heads=2, max_seq_len=128,
+    moe_num_experts=4, moe_top_k=2))
 register("tiny_gpt2", TransformerConfig(
     vocab_size=256, hidden_size=64, intermediate_size=128, num_layers=2,
     num_heads=4, num_kv_heads=4, max_seq_len=128, norm="layernorm",

@@ -33,8 +33,24 @@ A ``sparse_attention`` layout (``ops/sparse_attention.py``, set by
 ``initialize`` from the config) routes attention through
 ``block_sparse_attention``; ALiBi does not compose with it, as in JAX.
 
+``moe_num_experts > 0`` turns the MLP into Mixtral-style top-k routed
+experts (``moe/layer.py``): ``moe_block`` (capacity and drops) without a
+cache, ``moe_block_dropless`` with one, as JAX routes them; ``forward``
+sums the layers' aux losses and ``CausalLM.loss_fn`` adds ``coef * aux /
+L``.  ``moe_qcomm`` only acts on an expert mesh axis, which one card does
+not have (item 7), so it changes nothing here, as in JAX without one.
+
+The dense KV cache (``init_kv_cache``; the v1 engine ``inference/
+engine.py``): ``forward(cache=, cache_index=)`` writes each layer's k / v
+at ``cache_index`` and attends over the whole cache with the queries at
+that offset.  The attention body is chosen as JAX's flash entry chooses it
+(``flash_supports``, JAX ``flash_kernel.supports``): the flash kernel where
+that predicate holds, the plain body everywhere else (a cache longer than
+the queries, a non-zero offset); ``CACHE_ATTENTION`` counts each body's
+calls.
+
 Not ported, each refused with ``NotImplementedError`` naming the option and
-its ROADMAP queue-1 item: MoE layers (item 7), ``domino_chunks`` (item 7),
+its ROADMAP queue-1 item: ``domino_chunks`` (item 7),
 sequence parallelism (item 7), ``act_quant_bits`` (item 9, compression),
 ``CausalLM(stack_apply=...)`` (item 7: pipeline), progressive layer drop
 (a batch's ``pld_theta``, item 9).  Manual tensor parallelism (JAX
@@ -55,8 +71,10 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                      create_selective_checkpoint_contexts)
 
-from ..ops.attention import get_attention_impl
+from ..moe.layer import moe_block, moe_block_dropless
+from ..ops.attention import dot_product_attention, get_attention_impl
 from ..ops.kernels import resolve_device
+from ..ops.kernels.flash_attention import flash_attention
 from ..ops.quantizer import ServingQuant, ServingQuantFP6
 from ..ops.sparse_attention import block_sparse_attention
 
@@ -88,7 +106,14 @@ class TransformerConfig:
     mlp_bias: bool = False
     embedding_norm: bool = False
     head_bias: bool = False
+    # MoE (Mixtral): > 0 turns the MLP into a top-k routed expert layer
     moe_num_experts: int = 0
+    moe_top_k: int = 2
+    moe_capacity_factor: float = 1.25
+    moe_aux_loss_coef: float = 0.01
+    # the expert-parallel wire format (JAX routed_ffn_ep); acts only on an
+    # expert mesh axis > 1, which one card does not have
+    moe_qcomm: Optional[str] = None
     dtype: torch.dtype = torch.bfloat16
     # training
     remat: str = "none"  # 'none' | 'full' | 'selective' | 'dots' | 'offload'
@@ -112,6 +137,8 @@ class TransformerConfig:
         hq, hkv, hd = self.num_heads, self.num_kv_heads, self.hd
         attn = d * hq * hd + 2 * d * hkv * hd + hq * hd * d
         mlp = (3 if self.gated_mlp else 2) * d * f
+        if self.moe_num_experts > 0:
+            mlp = mlp * self.moe_num_experts + d * self.moe_num_experts
         per_layer = attn + mlp + 2 * d
         emb = v * d * (1 if self.tie_embeddings else 2)
         return L * per_layer + emb + d
@@ -131,8 +158,6 @@ def init_params(cfg: TransformerConfig, seed: int = 0, device=None,
     ``ops.kernels.resolve_device``).  The numbers differ from JAX
     ``init_params`` for the same seed; tests that compare the two packages
     use ``params_from_numpy`` instead."""
-    if cfg.moe_num_experts:
-        raise NotImplementedError("MoE layers are not ported yet (ROADMAP queue 1 item 7)")
     dtype = dtype or cfg.dtype
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -154,18 +179,23 @@ def init_params(cfg: TransformerConfig, seed: int = 0, device=None,
             "wo": dense((L, hq * hd, d), hq * hd),
         },
         "attn_norm": {"scale": const((L, d), 1.0)},
-        "mlp": {"w_up": dense((L, d, f), d), "w_down": dense((L, f, d), f)},
     }
+    if cfg.moe_num_experts > 0:
+        E = cfg.moe_num_experts
+        layers["moe"] = {"router": dense((L, d, E), d), "w_gate": dense((L, E, d, f), d),
+                         "w_up": dense((L, E, d, f), d), "w_down": dense((L, E, f, d), f)}
+    else:
+        layers["mlp"] = {"w_up": dense((L, d, f), d), "w_down": dense((L, f, d), f)}
+        if cfg.gated_mlp:
+            layers["mlp"]["w_gate"] = dense((L, d, f), d)
     if not cfg.parallel_block:  # a parallel block shares attn_norm
         layers["mlp_norm"] = {"scale": const((L, d), 1.0)}
-    if cfg.gated_mlp:
-        layers["mlp"]["w_gate"] = dense((L, d, f), d)
     if cfg.qkv_bias:
         for name, width in (("bq", hq * hd), ("bk", hkv * hd), ("bv", hkv * hd)):
             layers["attn"][name] = const((L, width), 0.0)
     if cfg.attn_out_bias:
         layers["attn"]["bo"] = const((L, d), 0.0)
-    if cfg.mlp_bias:
+    if cfg.mlp_bias and "mlp" in layers:
         layers["mlp"]["b_up"] = const((L, f), 0.0)
         layers["mlp"]["b_down"] = const((L, d), 0.0)
         if cfg.gated_mlp:
@@ -230,10 +260,7 @@ def params_from_numpy(tree, cfg: TransformerConfig, device=None,
         a = np.array(x, dtype=np.float32)  # a writable copy
         return torch.from_numpy(a).to(device=device, dtype=dtype)
 
-    params = conv(tree)
-    if "moe" in params.get("layers", {}):
-        raise NotImplementedError("MoE layers are not ported yet (ROADMAP queue 1 item 7)")
-    return params
+    return conv(tree)
 
 
 # ---------------------------------------------------------------------------
@@ -318,6 +345,14 @@ def head_bias_vec(params: Params):
     return lm.get("bias") if lm else None
 
 
+def lm_logits(params: Params, cfg: TransformerConfig, h: torch.Tensor) -> torch.Tensor:
+    """Final hidden states [..., d] -> logits [..., v]: the output
+    projection and, where the tree has one, the lm_head bias."""
+    out = h @ head_kernel(params, cfg)
+    hb = head_bias_vec(params)
+    return out + hb if hb is not None else out
+
+
 # ---------------------------------------------------------------------------
 # training half
 # ---------------------------------------------------------------------------
@@ -386,7 +421,6 @@ def _refuse_unported(cfg: TransformerConfig) -> None:
     """Raise for a JAX option the port does not run yet, naming it and its
     ROADMAP queue-1 item; never run a different computation quietly."""
     refused = [
-        (cfg.moe_num_experts > 0, "moe_num_experts (MoE layers)", 7),
         (cfg.sequence_parallel != "none", f"sequence_parallel={cfg.sequence_parallel!r}", 7),
         (cfg.domino_chunks != 1, "domino_chunks", 7),
         (cfg.act_quant_bits is not None, "act_quant_bits", 9),
@@ -486,28 +520,83 @@ def _pre_attention(lw: Params, x, cfg: TransformerConfig, rope_cs):
     return _qkv(lw["attn"], norm(x, lw["attn_norm"], cfg.norm, cfg.norm_eps), cfg, rope_cs)
 
 
-def _post_attention(lw: Params, x, o, cfg: TransformerConfig):
-    """wo, residual, MLP norm, MLP and residual (a parallel block reads the
-    attention norm for both branches and adds both to one residual)."""
+def _post_attention(lw: Params, x, o, cfg: TransformerConfig, dropless: bool = False):
+    """wo, residual, MLP norm, MLP (or the routed experts) and residual (a
+    parallel block reads the attention norm for both branches and adds both
+    to one residual).  Returns (x, MoE aux loss or None); ``dropless``
+    routes the experts without capacity (the cache path, as in JAX)."""
     h = _out_proj(lw["attn"], o).to(x.dtype)
     if cfg.parallel_block:
         m = mlp_block(lw["mlp"], norm(x, lw["attn_norm"], cfg.norm, cfg.norm_eps), cfg)
-        return x + h + m.to(x.dtype)
+        return x + h + m.to(x.dtype), None
     x = x + h
     y = norm(x, lw["mlp_norm"], cfg.norm, cfg.norm_eps)
-    return x + mlp_block(lw["mlp"], y, cfg).to(x.dtype)
+    if cfg.moe_num_experts > 0:
+        m, aux = (moe_block_dropless if dropless else moe_block)(lw["moe"], y, cfg)
+        return x + m.to(x.dtype), aux
+    return x + mlp_block(lw["mlp"], y, cfg).to(x.dtype), None
 
 
 def decoder_layer(lw: Params, x: torch.Tensor, cfg: TransformerConfig, positions,
-                  attn_fn: Callable, segment_ids, rope_cs) -> torch.Tensor:
-    """Pre-norm residual block (dense MLP, or the parallel block).  JAX's
-    ``attention_block`` is split in three here (``_qkv``, ``_attend``,
-    ``_out_proj``) so that selective remat can keep the attention itself out
-    of its two checkpoints; ``rope_cs`` is ``rope_tables`` over the rotary
-    dims (None without rope)."""
+                  attn_fn: Callable, segment_ids, rope_cs):
+    """Pre-norm residual block (dense MLP, routed experts, or the parallel
+    block) -> (x, MoE aux or None).  JAX's ``attention_block`` is split in
+    three here (``_qkv``, ``_attend``, ``_out_proj``) so that selective
+    remat can keep the attention itself out of its two checkpoints;
+    ``rope_cs`` is ``rope_tables`` over the rotary dims (None without
+    rope)."""
     q, k, v = _pre_attention(lw, x, cfg, rope_cs)
     o = _attend(q, k, v, cfg, positions, attn_fn, segment_ids)
     return _post_attention(lw, x, o, cfg)
+
+
+# calls of each body by the dense-cache attention (``_attend_cache``)
+CACHE_ATTENTION = {"flash": 0, "plain": 0}
+
+
+def flash_supports(q: torch.Tensor, k: torch.Tensor, q_offset, segment_ids=None) -> bool:
+    """JAX ``flash_kernel.supports`` (causal): where JAX's flash entry runs
+    its Pallas kernel — an integer ``q_offset`` of 0, as many keys as
+    queries, at least 128 and a multiple of 128 (a block), head dim 64 /
+    128 / 256, whole query groups, segment ids [b, s].  Everywhere else JAX
+    runs its plain body."""
+    b, sq, hq, d = q.shape
+    sk, hk = k.shape[1], k.shape[2]
+    return (isinstance(q_offset, int) and q_offset == 0 and sq == sk and sq >= 128
+            and sq % 128 == 0 and d in (64, 128, 256) and hq % hk == 0
+            and (segment_ids is None or tuple(segment_ids.shape) == (b, sq)))
+
+
+def _attend_cache(q, k, v, cfg: TransformerConfig, positions, attn_fn, q_offset: int):
+    """Attention over the dense cache (k / v [b, S, hkv, hd]) with the
+    queries at ``q_offset``: the flash kernel where ``flash_supports`` holds
+    and the configured body is flash, the plain body otherwise (JAX's
+    static choice, made before the call).  ALiBi's key positions are the
+    cache indices, as in JAX."""
+    if attn_fn is flash_attention and flash_supports(q, k, q_offset):
+        CACHE_ATTENTION["flash"] += 1
+        return flash_attention(q, k, v, causal=True, logits_soft_cap=cfg.logits_soft_cap)
+    kw = {}
+    if cfg.position == "alibi":
+        kw["bias"] = alibi_bias(cfg.num_heads, positions,
+                                torch.arange(k.shape[1], device=q.device))
+    CACHE_ATTENTION["plain"] += 1
+    return dot_product_attention(q, k, v, causal=True, q_offset=q_offset,
+                                 logits_soft_cap=cfg.logits_soft_cap, **kw)
+
+
+def _cached_layer(lw: Params, x, cfg: TransformerConfig, positions, attn_fn, layer_cache,
+                  cache_index: int, rope_cs):
+    """``decoder_layer`` over the dense cache: this layer's k / v written
+    at ``cache_index`` (in place), attention over the whole cache, the
+    experts dropless."""
+    q, k, v = _pre_attention(lw, x, cfg, rope_cs)
+    ck, cv = layer_cache
+    s = q.shape[1]
+    ck[:, cache_index:cache_index + s] = k.to(ck.dtype)
+    cv[:, cache_index:cache_index + s] = v.to(cv.dtype)
+    o = _attend_cache(q, ck, cv, cfg, positions, attn_fn, cache_index)
+    return _post_attention(lw, x, o, cfg, dropless=True)
 
 
 def _unstack(tree: Params, L: int):
@@ -536,18 +625,41 @@ def _unstack(tree: Params, L: int):
     return out
 
 
+def init_kv_cache(cfg: TransformerConfig, batch: int, max_len: int, dtype=None,
+                  device=None):
+    """The dense KV cache of the v1 engine: ``([L, b, S, hkv, hd], same)``
+    zeros in ``dtype`` (default ``cfg.dtype``) on ``device`` (CUDA unless
+    the caller names another)."""
+    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.hd)
+    dtype, device = dtype or cfg.dtype, resolve_device(device)
+    return (torch.zeros(shape, dtype=dtype, device=device),
+            torch.zeros(shape, dtype=dtype, device=device))
+
+
 def forward(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
             positions: Optional[torch.Tensor] = None,
             segment_ids: Optional[torch.Tensor] = None,
-            return_hidden: bool = False) -> torch.Tensor:
+            return_hidden: bool = False, cache=None, cache_index=None,
+            with_aux: bool = False):
     """tokens [b, s] -> logits [b, s, v] (or the final-norm hidden states):
-    a Python loop over the stacked layers, each under ``cfg.remat``."""
+    a Python loop over the stacked layers, each under ``cfg.remat``.
+
+    With ``cache`` (``init_kv_cache``, written in place) or ``with_aux``,
+    returns JAX's triple ``(out, cache, moe_aux)``: ``moe_aux`` is the sum
+    of the layers' load-balance losses (0 for a dense model).  Positions
+    then start at ``cache_index`` (JAX ``forward``), and the layers run
+    without remat (the cache path serves)."""
     _refuse_unported(cfg)
     device = tokens.device
     attn_fn = get_attn_fn(cfg, device)
     b, s = tokens.shape
+    ci = 0
+    if cache is not None:
+        if cfg.sparse_attention is not None:
+            raise NotImplementedError("a dense KV cache with sparse_attention is not ported")
+        ci = int(cache_index or 0)
     if positions is None:
-        positions = torch.arange(s, device=device)[None, :].expand(b, s)
+        positions = (torch.arange(s, device=device) + ci)[None, :].expand(b, s)
     if segment_ids is not None:  # the kernels take contiguous int32
         segment_ids = segment_ids.to(device=device, dtype=torch.int32).contiguous()
     x = params["embed"]["embedding"][tokens].to(cfg.dtype)
@@ -578,26 +690,35 @@ def forward(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
         with offload_saved(lambda t: t is not o, copies):
             return checkpoint(_post_attention, lw, x, o, cfg, use_reentrant=False)
 
-    for lw in _unstack(params["layers"], cfg.num_layers):
-        if cfg.remat == "full":
-            x = checkpoint(layer, lw, x, use_reentrant=False)
+    aux_total = None
+    for l, lw in enumerate(_unstack(params["layers"], cfg.num_layers)):
+        if cache is not None:
+            x, aux = _cached_layer(lw, x, cfg, positions, attn_fn,
+                                   (cache[0][l], cache[1][l]), ci, rope_cs)
+        elif cfg.remat == "full":
+            x, aux = checkpoint(layer, lw, x, use_reentrant=False)
         elif cfg.remat == "dots":
-            unread = (lw["mlp"]["w_down"].data_ptr(),) + (
-                (lw["attn"]["wo"].data_ptr(),) if cfg.parallel_block else ())
-            x = checkpoint(layer, lw, x, use_reentrant=False,
-                           context_fn=functools.partial(_dots_context, unread))
+            # a product that only feeds the residual sum is not saved
+            unread = tuple(w.data_ptr() for w in (
+                lw["mlp"]["w_down"] if "mlp" in lw else None,
+                lw["attn"]["wo"] if cfg.parallel_block else None) if w is not None)
+            x, aux = checkpoint(layer, lw, x, use_reentrant=False,
+                                context_fn=functools.partial(_dots_context, unread))
         elif cfg.remat == "selective":
-            x = selective(lw, x)
+            x, aux = selective(lw, x)
         elif cfg.remat == "offload":
-            x = offload(lw, x)
+            x, aux = offload(lw, x)
         else:
-            x = layer(lw, x)
+            x, aux = layer(lw, x)
+        if aux is not None:
+            aux_total = aux if aux_total is None else aux_total + aux
     x = norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)
-    if return_hidden:
-        return x
-    logits = x @ head_kernel(params, cfg)
-    hb = head_bias_vec(params)
-    return logits + hb if hb is not None else logits
+    out = x if return_hidden else lm_logits(params, cfg, x)
+    if cache is None and not with_aux:
+        return out
+    if aux_total is None:
+        aux_total = torch.zeros((), device=device)
+    return out, cache, aux_total
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
@@ -651,13 +772,18 @@ class CausalLM:
         if self.cfg.loss_chunk_size:
             from ..sequence.cross_entropy import chunked_cross_entropy
 
-            hidden = forward(params, inputs, self.cfg, segment_ids=segment_ids,
-                             return_hidden=True)
-            return chunked_cross_entropy(hidden, head_kernel(params, self.cfg), labels,
+            hidden, _, aux = forward(params, inputs, self.cfg, segment_ids=segment_ids,
+                                     return_hidden=True, with_aux=True)
+            loss = chunked_cross_entropy(hidden, head_kernel(params, self.cfg), labels,
                                          chunk_size=self.cfg.loss_chunk_size,
                                          head_bias=head_bias_vec(params))
-        logits = forward(params, inputs, self.cfg, segment_ids=segment_ids)
-        return cross_entropy_loss(logits, labels)
+        else:
+            logits, _, aux = forward(params, inputs, self.cfg, segment_ids=segment_ids,
+                                     with_aux=True)
+            loss = cross_entropy_loss(logits, labels)
+        if self.cfg.moe_num_experts > 0:  # JAX: coef * aux / L
+            loss = loss + self.cfg.moe_aux_loss_coef * aux / max(self.cfg.num_layers, 1)
+        return loss
 
     @property
     def param_count(self) -> int:

@@ -224,7 +224,7 @@ class Adagrad:
 
 
 @contextmanager
-def _fp32_products():
+def fp32_products():
     """fp32 matmuls at full precision (no TF32) inside the block."""
     old = torch.get_float32_matmul_precision()
     torch.set_float32_matmul_precision("highest")
@@ -278,7 +278,7 @@ class Muon:
         (mp, ap), (mg, ag) = self._split(params), self._split(grads)
         beta = self.beta
         bc, bc_next = 1.0 - torch.pow(beta, t), 1.0 - torch.pow(beta, t + 1)
-        with _fp32_products():
+        with fp32_products():
             for p, g, m in zip(mp, mg, state["muon"]["mu"]):
                 p = p.detach()
                 m_new = (1.0 - beta) * g + beta * m

@@ -32,7 +32,12 @@ request with the in-process engine's tokens and its own kernel launches; a
 bf16 handoff makes a round trip over a socket bit for bit; spawned
 children keep their reply caches under the byte cap.  Resumable training:
 an async save mid-``train_on_loader`` and a resume, bitwise; an HF round
-trip served with the original's tokens.  This file imports neither JAX nor the JAX package, so it
+trip served with the original's tokens.  MoE and the v1 engine: the
+routed path's loss and gradients in fp32 against the CPU
+(``chip_smoke.moe_narrow_check``), a MoE ``step_n`` burst token-identical
+to per-tick steps, ``init_inference`` in fp32 token-identical to the CPU
+on the MoE, ALiBi and parallel-block families, and a prefill that fills
+its dense cache on K1f.  This file imports neither JAX nor the JAX package, so it
 runs where only PyTorch is installed::
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
@@ -1133,3 +1138,107 @@ def test_spawned_children_keep_their_reply_caches_under_the_byte_cap():
     assert max(caches) > 0 and all(c <= chip_smoke.reply_cache_cap() for c in caches)
     assert all(a["blocks_in_use"] == 0 for a in audits)
     assert all(h.proc.poll() is not None for h in handles)
+
+
+def _narrow_moe(dtype, **over):
+    """mixtral_8x7b's switches at the smoke's narrow width
+    (``chip_smoke.MOE_NARROW``)."""
+    from deepspeed_tpu_torch.models.presets import get_preset
+
+    return get_preset("mixtral_8x7b", dtype=dtype, max_seq_len=256,
+                      **{**chip_smoke.MOE_NARROW, **over})
+
+
+@pytest.mark.gpu
+def test_moe_loss_and_grads_on_the_card_match_the_cpu():
+    """The routed path (gather into the [E, C, d] slab, batched expert
+    products, weighted combine) in fp32 on the card against the CPU:
+    ``chip_smoke.moe_narrow_check`` (loss and every gradient leaf within
+    ``MOE_CHECK_TOL`` relative Frobenius error)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    res = chip_smoke.moe_narrow_check(torch)
+    assert res["worst_grad_rel_err"] <= chip_smoke.MOE_CHECK_TOL
+
+
+@pytest.mark.gpu
+def test_moe_burst_is_token_identical_to_per_tick_steps_on_the_card():
+    """A narrow bf16 MoE tree on the v2 engine: ``step_n`` (the captured
+    decode graph, dropless experts inside) gives the tokens of per-tick
+    ``step()``s, and K2 launches layers x ticks in both."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from deepspeed_tpu_torch.inference.engine_v2 import InferenceEngineV2
+    from deepspeed_tpu_torch.inference.sampling import SamplingParams
+    from deepspeed_tpu_torch.models.transformer import init_params
+
+    cfg = _narrow_moe(torch.bfloat16)
+    params = init_params(cfg, seed=2, device="cuda")
+    prompts = [list(range(3 + i, 60 + i)) for i in range(3)]
+    samp = SamplingParams(temperature=0.0, max_new_tokens=40)
+    streams = []
+    for burst in (False, True):
+        eng = InferenceEngineV2(params, cfg, max_seqs=4, num_blocks=32, block_size=32)
+        eng.put([1, 2, 3], prompts, samp)
+        eng.step_n(2, samp) if burst else [eng.step(samp) for _ in range(2)]  # capture
+        K.reset_launches()
+        if burst:
+            eng.step_n(12, samp)
+        else:
+            for _ in range(12):
+                eng.step(samp)
+        assert K.LAUNCHES["paged_decode"] == cfg.num_layers * 12
+        streams.append([list(eng.mgr.seqs[u].tokens) for u in (1, 2, 3)])
+        assert eng.close()["blocks_in_use"] == 0
+    assert streams[0] == streams[1]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family", ["moe", "alibi", "parallel"])
+def test_v1_engine_on_the_card_is_token_identical_to_the_cpu(family):
+    """``init_inference`` in fp32 on the card (the plain attention body over
+    the dense cache) against the CPU: the narrow MoE config, and
+    ``tiny_alibi`` / ``tiny_parallel`` at hidden 256."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    import numpy as np
+    from deepspeed_tpu_torch.inference import init_inference
+    from deepspeed_tpu_torch.inference.sampling import SamplingParams
+    from deepspeed_tpu_torch.models.presets import get_preset
+    from deepspeed_tpu_torch.models.transformer import CausalLM, init_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = (_narrow_moe(torch.float32) if family == "moe" else
+           get_preset(f"tiny_{family}", dtype=torch.float32, hidden_size=256,
+                      intermediate_size=512))
+    params = init_params(cfg, seed=3, device="cpu", dtype=torch.float32)
+    prompts = np.random.default_rng(3).integers(1, cfg.vocab_size, (2, 33))
+    samp = SamplingParams(max_new_tokens=12)
+    cpu = init_inference(CausalLM(cfg), params, device="cpu").generate(prompts, samp)
+    card = init_inference(CausalLM(cfg), chip_smoke._to(params, "cuda")).generate(prompts, samp)
+    np.testing.assert_array_equal(card, cpu)
+
+
+@pytest.mark.gpu
+def test_v1_full_cache_prefill_takes_the_flash_kernel_on_the_card():
+    """A prompt that fills the whole dense cache (s = max_seq_len = 128,
+    head dim 64, bf16): every layer's attention is K1f (one launch each),
+    the decode after it the plain body, as JAX's ``supports()`` chooses."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    import numpy as np
+    from deepspeed_tpu_torch.inference import init_inference
+    from deepspeed_tpu_torch.inference.sampling import SamplingParams
+    from deepspeed_tpu_torch.models import transformer as T
+    from deepspeed_tpu_torch.models.presets import get_preset
+
+    cfg = get_preset("tiny", hidden_size=256, num_heads=4, num_kv_heads=2, attn_impl="auto")
+    eng = init_inference(T.CausalLM(cfg), seed=4, max_seq_len=128)
+    prompts = np.random.default_rng(4).integers(1, cfg.vocab_size, (2, 128))
+    T.CACHE_ATTENTION.update(flash=0, plain=0)
+    K.reset_launches()
+    out = eng.generate(prompts, SamplingParams(max_new_tokens=3))
+    assert out.shape == (2, 1)
+    assert T.CACHE_ATTENTION == {"flash": cfg.num_layers, "plain": 0}
+    assert K.LAUNCHES["flash_fwd"] == cfg.num_layers

@@ -5,7 +5,7 @@ against the JAX package's, on the CPU.
 - every family: a state dict with HF names and shapes is built here from a
   seed, written with the ``safetensors`` package, and read by both
   packages' ``load_hf_checkpoint``: the trees are equal bit for bit and
-  ``config_from_hf`` agrees field by field (dtype by name); mixtral raises;
+  ``config_from_hf`` agrees field by field (dtype by name), mixtral's too;
 - JAX ``export_hf_checkpoint`` -> the port's loader equals JAX's loader,
   and the reverse; the port's export file is byte-identical to JAX's;
 - the port's own safetensors reader and writer agree byte for byte with
@@ -267,11 +267,17 @@ def test_bf16_checkpoint_imports_exactly(tmp_path, name):
 
 
 def test_mixtral_raises_item_7():
-    moe = dict(FAMILIES["llama"], model_type="mixtral", num_local_experts=4)
+    """Mixtral imports now (``tests/test_torch_moe.py`` holds its tensors
+    against JAX): its config maps as JAX maps it, and what stays item 7 is
+    expert parallelism."""
+    from deepspeed_tpu_torch.moe.layer import routed_ffn_ep
+
+    for hf in (dict(FAMILIES["llama"], model_type="mixtral", num_local_experts=4,
+                    num_experts_per_tok=2),
+               dict(FAMILIES["llama"], num_local_experts=2)):
+        _same_config(thf.config_from_hf(hf), jhf.config_from_hf(hf))
     with pytest.raises(NotImplementedError, match="item 7"):
-        thf.config_from_hf(moe)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        thf.config_from_hf(dict(FAMILIES["llama"], num_local_experts=2))
+        routed_ffn_ep({}, torch.zeros(1, 2, 4), thf.config_from_hf(hf), mesh=None)
 
 
 @pytest.mark.parametrize("preset", ["tiny", "tiny_qwen_like"])

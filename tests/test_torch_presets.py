@@ -1,7 +1,7 @@
 """The port's presets against the JAX package's, on the CPU in fp32.
 
 - Every port preset's fields equal JAX ``get_preset``'s (dtype by name),
-  and ``list_presets()`` is JAX's less the two MoE presets.
+  and ``list_presets()`` is JAX's, the two MoE presets included.
 - Each preset the port added, cut to 2 layers at a narrow width through
   ``get_preset(name, **NARROW[name])`` (its family switches, query group,
   rotary dims and, for ``phi_2`` and ``gpt_neox_20b``, head dims 80 and 96
@@ -84,10 +84,11 @@ def _pair(name, **over):
 
 
 def test_list_presets_is_jax_less_the_moe_presets():
-    assert presets.list_presets() == sorted(
-        set(jpresets.list_presets()) - {"mixtral_8x7b", "tiny_moe"})
+    """Every JAX preset: the two MoE presets joined the port with its MoE
+    layers (``tests/test_torch_moe.py`` holds them against JAX)."""
+    assert presets.list_presets() == sorted(jpresets.list_presets())
     assert set(NARROW) | {"llama3_8b", "llama3_proxy_410m", "gpt2_small", "tiny",
-                          "tiny_gpt2"} == set(presets.list_presets())
+                          "tiny_gpt2", "mixtral_8x7b", "tiny_moe"} == set(presets.list_presets())
 
 
 @pytest.mark.parametrize("name", presets.list_presets())

@@ -5,8 +5,8 @@
     there fills NaN and masks nothing, and the port must do the same
     (before, its ``torch.gather`` raised on the CPU and asserted on CUDA).
 (b) The serving runner's refusals: ALiBi and parallel-block models are
-    refused by design, as JAX's v2 engine refuses them, and sent to the v1
-    engine; MoE is a port gap.
+    refused by design, as JAX's v2 engine refuses them, and sent to the
+    port's v1 engine; MoE serves, and expert parallelism is a port gap.
 (c) The training engine's forward / backward / step API (the reference's
     shim) on ``tiny`` in fp32 against ``train_batch`` and JAX's shim: GAS 2
     over 3 steps, an fp16 overflow skip, ``no_sync`` and the
@@ -94,13 +94,17 @@ def test_top_p_cutoff_inside_the_vocab_still_filters():
 # ---------------------------------------------------------------------------
 # (b) the serving runner's refusals
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("over,jax_says,item", [
+# the third value is where the port's text sends the caller: its own v1
+# engine
+@pytest.mark.parametrize("over,jax_says,where", [
     (dict(position="alibi", num_kv_heads=4, norm="layernorm"),
-     "InferenceEngineV2 cannot serve position='alibi' models", "item 9"),
+     "InferenceEngineV2 cannot serve position='alibi' models",
+     "deepspeed_tpu_torch.inference.init_inference"),
     (dict(parallel_block=True, norm="layernorm"),
-     "InferenceEngineV2 cannot serve parallel_block models", "item 9"),
+     "InferenceEngineV2 cannot serve parallel_block models",
+     "deepspeed_tpu_torch.inference.init_inference"),
 ])
-def test_runner_refuses_alibi_and_parallel_block_as_jax_v2_does(over, jax_says, item):
+def test_runner_refuses_alibi_and_parallel_block_as_jax_v2_does(over, jax_says, where):
     cfg = get_preset("tiny", dtype=torch.float32, **over)
     with pytest.raises(NotImplementedError) as port:
         model_runner._check_family(cfg)
@@ -109,12 +113,17 @@ def test_runner_refuses_alibi_and_parallel_block_as_jax_v2_does(over, jax_says, 
         JEngineV2(None, jcfg)
     for msg in (str(port.value), str(ref.value)):
         assert msg.startswith(jax_says) and "use init_inference" in msg
-    assert item in str(port.value) and "not ported" not in str(port.value)
+    assert where in str(port.value) and "not ported" not in str(port.value)
 
 
 def test_runner_refuses_moe_as_a_port_gap():
-    with pytest.raises(NotImplementedError, match=r"MoE .*not ported .*item 7"):
-        model_runner._check_family(get_preset("tiny", dtype=torch.float32, moe_num_experts=4))
+    """MoE serves on one card now (the runner routes its experts dropless);
+    what stays a port gap is expert parallelism, refused naming item 7."""
+    model_runner._check_family(get_preset("tiny", dtype=torch.float32, moe_num_experts=4))
+    from deepspeed_tpu_torch.moe.layer import routed_ffn_ep
+
+    with pytest.raises(NotImplementedError, match=r"routed_ffn_ep .*not ported .*item 7"):
+        routed_ffn_ep({}, torch.zeros(1, 2, 4), get_preset("tiny_moe"), mesh=None)
 
 
 # ---------------------------------------------------------------------------

@@ -178,14 +178,17 @@ def test_alibi_bias_matches_jax():
             jt.alibi_bias(heads, jnp.asarray(pos[0]), jnp.asarray(pos[0])), **FN_TOL)
 
 
+# MoE layers run (tests/test_torch_moe.py); the ids are the names these
+# cases have had since the list began
 @pytest.mark.parametrize("over,match", [
-    (dict(moe_num_experts=4), "moe_num_experts"),
-    (dict(sequence_parallel="ulysses"), "sequence_parallel"),
-    (dict(domino_chunks=2), "domino_chunks"),
-    (dict(act_quant_bits=8), "act_quant_bits"),
+    pytest.param(dict(sequence_parallel="ulysses"), "sequence_parallel",
+                 id="over1-sequence_parallel"),
+    pytest.param(dict(domino_chunks=2), "domino_chunks", id="over2-domino_chunks"),
+    pytest.param(dict(act_quant_bits=8), "act_quant_bits", id="over3-act_quant_bits"),
     # block-sparse attention is ported; what stays refused, as in JAX, is
     # its composition with ALiBi (the sparse bodies take no bias)
-    (dict(sparse_attention=FixedSparsityConfig(block=16), position="alibi"), "sparse_attention"),
+    pytest.param(dict(sparse_attention=FixedSparsityConfig(block=16), position="alibi"),
+                 "sparse_attention", id="over4-sparse_attention"),
 ])
 def test_unported_model_options_are_refused(over, match):
     with pytest.raises(NotImplementedError, match=match):
@@ -696,7 +699,10 @@ OFF_CONFIGS = [
 ON_CONFIGS = [
     ({"wall_clock_breakdown": True}, "wall_clock_breakdown", 9),
     ({"memory_breakdown": True}, "memory_breakdown", 9),
-    ({"mesh": {"model": 2}}, "mesh", 7), ({"moe": {"enabled": True}}, "moe", 7),
+    ({"mesh": {"model": 2}}, "mesh", 7),
+    # the moe section is parsed (tests/test_torch_moe.py); an expert axis
+    # stays refused with it
+    ({"moe": {"enabled": True}, "mesh": {"expert": 2}}, "mesh", 7),
     ({"tensor_parallel": {"enabled": True, "tp_size": 2}}, "tensor_parallel", 7),
     ({"comms_logger": {"enabled": True}}, "comms_logger", 7),
     ({"flops_profiler": {"enabled": True}}, "flops_profiler", 9),
