@@ -6755,6 +6755,513 @@ def sparse_timings(torch, gen):
     return out
 
 
+# ---------------------------------------------------------------------------
+# ZeRO-Offload on one card (runtime/offload.py): the CPU tier streams the
+# fp32 masters and Adam moments from pinned host memory through the card
+# each step (K8 chunk by chunk); the NVMe tier keeps them in swap files and
+# updates them with the host AdamW (csrc/host/host_adam.cpp)
+# ---------------------------------------------------------------------------
+OFFLOAD_PRESET = "llama3_proxy_410m"  # offload_check's widths and nvme_train's model
+OFFLOAD_CHECK = dict(layers=2, seq=4096, micro=8, gas=2, steps=3)
+# Lion and Lamb through the CPU tier against the plain engine, of max |p|:
+# Lion is elementwise (exact expected), Lamb's per-leaf norms reduce the
+# same leaf at another address, where a reduction may take another order
+OFFLOAD_OPT_TOL = 1e-6
+# the NVMe tier's masters against the plain engine's after one step, of
+# max |p|: the same gradients (step 1 runs the same bf16 weights), the host
+# AdamW against K8, both fp32: the host kernel rounds 1 - b2 in fp32
+# arithmetic (1.3e-5 off K8's, from double) and contracts into FMAs, a few
+# ulps.  From step 2 the bf16 compute copies see those ulps, and an entry
+# whose gradient is bf16 noise can take Adam's full step of lr either way:
+# the later steps are held to NVME_TOL + 2 lr (steps - 1) / max |p|
+# (nvme_drift_bound)
+NVME_TOL = 1e-6
+# nvme_train's sequential losses against the train phase's first three
+# (same weights, batch and config): step 1 runs the same bf16 weights; a
+# few ulps in the masters move some bf16 roundings after it
+NVME_LOSS_RTOL = 1e-3
+# torch.cuda.memory_allocated() after a CPU-tier init against the compute
+# copy + the fp32 gradient buffer + the staging chunks
+OFFLOAD_MEM_TOL = 0.05
+OFFLOAD_TRAIN = dict(model="llama3_8b", seq=4096, micro=1, gas=2, steps=3)
+OFFLOAD_PEAK_LIMIT = 75e9  # bytes: past it the phase runs remat full in place of dots
+CARD_BYTES = 80e9  # the card's memory, against which the state must not fit
+# host bytes left free beside the pinned state: the process, the page cache
+# the disk phases use, the next phase's buffers
+OFFLOAD_HOST_RESERVE = 10 << 30
+NVME_TRAIN = dict(seq_steps=3, pipe_steps=4, bench_mb=2048)
+
+
+def _proc_memory():
+    """MemTotal / MemAvailable from /proc/meminfo and this process's VmLck /
+    VmPin / VmRSS from /proc/self/status, in bytes."""
+    out = {"MemTotal": 0, "MemAvailable": 0, "VmLck": 0, "VmPin": 0, "VmRSS": 0}
+    for path in ("/proc/meminfo", "/proc/self/status"):
+        with open(path) as fh:
+            for line in fh:
+                key, _, rest = line.partition(":")
+                if key in out:
+                    out[key] = int(rest.split()[0]) * 1024
+    return out
+
+
+def host_sizes(torch, path=None):
+    """What the host gives the offload tiers: ``free -b`` (total, used,
+    free, available bytes), ``ulimit -l`` (RLIMIT_MEMLOCK, kB or
+    "unlimited"), this process's locked / pinned / resident bytes, and the
+    free bytes under ``path``."""
+    import resource
+    import shutil
+
+    free = subprocess.run(["free", "-b"], capture_output=True, text=True, check=True).stdout
+    mem = next(ln.split()[1:] for ln in free.splitlines() if ln.startswith("Mem:"))
+    soft, _ = resource.getrlimit(resource.RLIMIT_MEMLOCK)
+    out = dict(free_b=dict(zip(("total", "used", "free", "shared", "buff_cache",
+                                "available"), map(int, mem))),
+               ulimit_l="unlimited" if soft == resource.RLIM_INFINITY else soft // 1024,
+               proc=_proc_memory())
+    if path is not None:
+        out["disk_free_bytes"] = shutil.disk_usage(path).free
+        out["disk_path"] = path
+    return out
+
+
+def _offload_conf(micro, gas, opt=None, **zero):
+    conf = bench_config(micro, gas)
+    if opt is not None:
+        conf["optimizer"] = {"type": opt, "params": NEW_OPTIMIZERS[opt]}
+    conf["zero_optimization"].update(zero)
+    return conf
+
+
+def _masters_cpu(torch, engine):
+    """The engine's fp32 masters by path, on the host (the swap files under
+    the NVMe tier, pinned memory under the CPU tier)."""
+    from deepspeed_tpu_torch.checkpoint.saving import export_fp32_state_dict
+
+    return {k: v.detach().float().cpu()
+            for k, v in _leaves(export_fp32_state_dict(engine)).items()}
+
+
+def _rel_to_max(torch, got, ref):
+    return max(float((got[k] - v).abs().max()) for k, v in ref.items()) / _max_abs(ref)
+
+
+def _max_abs(tree):
+    return max(float(v.abs().max()) for v in tree.values())
+
+
+def nvme_drift_bound(lr, steps, ref):
+    """NVME_TOL after one step, plus Adam's full step of ``lr`` either way
+    on each later step, relative to max |p| of ``ref``."""
+    return NVME_TOL + 2 * lr * (steps - 1) / _max_abs(ref)
+
+
+def _close_engine(engine):
+    if engine._offload is not None:
+        engine._offload.close()
+    if engine._nvme_opt is not None:
+        engine.flush_nvme_pipeline()
+        engine._nvme_opt.close()
+
+
+def offload_check_phase(torch, K, gpu):
+    """``offload_check``: the flagship's widths at 2 layers (seq 4096,
+    micro 8, GAS 2, bf16): the CPU tier bit-identical to the plain engine
+    (losses and masters), Lion and Lamb through it within
+    OFFLOAD_OPT_TOL, the NVMe tier within NVME_TOL, a save after step 1
+    resumed bit for bit under each tier, the state in pinned host memory and
+    the card's bytes after init."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.models.presets import get_preset
+    from deepspeed_tpu_torch.models.transformer import CausalLM
+
+    t_phase = time.perf_counter()
+    z = OFFLOAD_CHECK
+    cfg = get_preset(OFFLOAD_PRESET, num_layers=z["layers"], loss_chunk_size=2048)
+    batches = [{"input_ids": b} for b in np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (z["steps"], z["gas"], z["micro"], z["seq"] + 1), dtype=np.int64)]
+    tmp = tempfile.mkdtemp(prefix="dst_offload_check_")
+
+    def make(opt=None, **zero):
+        return initialize(model=CausalLM(cfg), config=_offload_conf(
+            z["micro"], z["gas"], opt, **zero), device=DEVICE)[0]
+
+    def run(engine, bs):
+        return [float(engine.train_batch(b)) for b in bs]
+
+    try:
+        plain = make()
+        p_losses = run(plain, batches[:1])
+        p_masters1 = _masters_cpu(torch, plain)
+        p_losses += run(plain, batches[1:])
+        p_masters = _masters_cpu(torch, plain)
+        del plain
+        _free(torch)
+        # the CPU tier: placement, the card's bytes, the run with a save after step 1
+        before = torch.cuda.memory_allocated()
+        tier = make(offload_optimizer="cpu")
+        dev_bytes = torch.cuda.memory_allocated() - before
+        mem = tier.memory_breakdown()["offload"]
+        want_bytes = (mem["device_compute_bytes"] + mem["device_grad_bytes"]
+                      + mem["device_staging_bytes"])
+        mem_rel = abs(dev_bytes - want_bytes) / want_bytes
+        host_state = [tier._offload.masters, *tier._offload.slot_flat]
+        pinned = all(t.is_pinned() for t in host_state)
+        K.reset_launches()
+        c_losses = run(tier, batches[:1])
+        tier.save_checkpoint(os.path.join(tmp, "cpu"), tag="s1")
+        c_losses += run(tier, batches[1:])
+        launches = dict(K.LAUNCHES)
+        chunks = len(tier._offload.chunks)
+        c_masters = _masters_cpu(torch, tier)
+        _close_engine(tier)
+        del tier
+        _free(torch)
+        resumed = make(offload_optimizer="cpu")
+        resumed.load_checkpoint(os.path.join(tmp, "cpu"), tag="s1")
+        r_losses = run(resumed, batches[1:])
+        r_masters = _masters_cpu(torch, resumed)
+        _close_engine(resumed)
+        del resumed
+        _free(torch)
+        cpu_exact = c_losses == p_losses and all(torch.equal(c_masters[k], p_masters[k])
+                                                 for k in p_masters)
+        cpu_resume_exact = r_losses == c_losses[1:] and all(
+            torch.equal(r_masters[k], c_masters[k]) for k in c_masters)
+        # Lion and Lamb through the tier against the plain engine
+        opt_errs = {}
+        for opt in ("lion", "lamb"):
+            ref = make(opt)
+            run(ref, batches)
+            ref_m = _masters_cpu(torch, ref)
+            del ref
+            _free(torch)
+            got = make(opt, offload_optimizer="cpu")
+            run(got, batches)
+            opt_errs[opt] = _rel_to_max(torch, _masters_cpu(torch, got), ref_m)
+            _close_engine(got)
+            del got
+            _free(torch)
+        # the NVMe tier, with a save after step 1
+        nvme_zero = dict(offload_optimizer={"device": "nvme",
+                                            "nvme_path": os.path.join(tmp, "swap_a")})
+        nv = make(**nvme_zero)
+        n_losses = run(nv, batches[:1])
+        nvme_err1 = _rel_to_max(torch, _masters_cpu(torch, nv), p_masters1)
+        nv.save_checkpoint(os.path.join(tmp, "nvme"), tag="s1")
+        n_losses += run(nv, batches[1:])
+        n_masters = _masters_cpu(torch, nv)
+        _close_engine(nv)
+        del nv
+        _free(torch)
+        nvme_err = _rel_to_max(torch, n_masters, p_masters)
+        lr = NEW_OPTIMIZERS["lion"]["lr"]  # bench_config's AdamW lr, 1e-4
+        drift = nvme_drift_bound(lr, z["steps"], p_masters)
+        nv2 = make(offload_optimizer={"device": "nvme", "nvme_path": os.path.join(tmp, "swap_b")})
+        nv2.load_checkpoint(os.path.join(tmp, "nvme"), tag="s1")
+        n2_losses = run(nv2, batches[1:])
+        n2_masters = _masters_cpu(torch, nv2)
+        _close_engine(nv2)
+        del nv2
+        _free(torch)
+        nvme_resume_exact = n2_losses == n_losses[1:] and all(
+            torch.equal(n2_masters[k], n_masters[k]) for k in n_masters)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    steps = z["steps"]
+    res = dict(phase="offload_check", model="llama3_proxy_410m", layers=z["layers"],
+               seq=z["seq"], micro_batch=z["micro"], gas=z["gas"], steps=steps,
+               params=sum(v.numel() for v in p_masters.values()),
+               plain_losses=p_losses, cpu_tier_losses=c_losses,
+               cpu_tier_bit_identical=cpu_exact, cpu_tier_resume_bit_identical=cpu_resume_exact,
+               state_pinned=pinned, host_state_bytes=mem["host_state_bytes"],
+               pinned_bytes=mem["pinned_bytes"], device_bytes_after_init=dev_bytes,
+               device_bytes_expected=want_bytes, device_bytes_rel_err=mem_rel,
+               device_bytes_tolerance=OFFLOAD_MEM_TOL, chunks_per_step=chunks,
+               optimizer_errs=opt_errs, optimizer_tolerance=OFFLOAD_OPT_TOL,
+               nvme_losses=n_losses, nvme_masters_err_step1=nvme_err1,
+               nvme_tolerance_step1=NVME_TOL, nvme_masters_err=nvme_err,
+               nvme_drift_bound=drift,
+               nvme_resume_bit_identical=nvme_resume_exact, launches=launches,
+               launches_per_step={n: c / steps for n, c in launches.items() if c},
+               seconds=time.perf_counter() - t_phase, gpu=gpu)
+    emit(res)
+    bad = []
+    if not cpu_exact:
+        bad.append("the CPU tier differs from the plain engine")
+    if not cpu_resume_exact:
+        bad.append("the CPU tier's resume differs from its uninterrupted run")
+    if not pinned:
+        bad.append("the CPU tier's state is not in pinned host memory")
+    if mem_rel > OFFLOAD_MEM_TOL:
+        bad.append(f"device bytes after init {dev_bytes} vs {want_bytes}")
+    if launches["fused_adamw"] != steps * chunks:
+        bad.append(f"K8 launched {launches['fused_adamw']} times, want {steps * chunks}")
+    bad += [f"{o} through the tier: {e} > {OFFLOAD_OPT_TOL}"
+            for o, e in opt_errs.items() if not e <= OFFLOAD_OPT_TOL]
+    if not nvme_err1 <= NVME_TOL:
+        bad.append(f"NVMe tier masters after step 1: {nvme_err1} > {NVME_TOL}")
+    if not nvme_err <= drift:
+        bad.append(f"NVMe tier masters after {steps} steps: {nvme_err} > {drift}")
+    if not nvme_resume_exact:
+        bad.append("the NVMe tier's resume differs from its uninterrupted run")
+    if bad:
+        raise AssertionError(f"offload_check: {bad}")
+    return res
+
+
+def _layer_params(torch, cfg):
+    """(parameters outside the layers, parameters a layer) of ``cfg``."""
+    one = cfg.replace(num_layers=1).param_count
+    two = cfg.replace(num_layers=2).param_count
+    return one - (two - one), two - one
+
+
+def offload_depth(torch, cfg, avail):
+    """The deepest depth <= ``cfg.num_layers`` whose masters and two Adam
+    moments (12 bytes a parameter) fit in ``avail`` host bytes less
+    OFFLOAD_HOST_RESERVE; (depth, parameters)."""
+    fixed, per = _layer_params(torch, cfg)
+    depth = cfg.num_layers
+    while depth > 0 and 12 * (fixed + depth * per) > avail - OFFLOAD_HOST_RESERVE:
+        depth -= 1
+    return depth, fixed + depth * per
+
+
+def _profile_split(rows, wall_ms):
+    """A profiled step's device time by kind: host-to-device and
+    device-to-host copies, K8, and every other kernel (forward, backward,
+    casts); the compute stream's idle share (copies run on side streams)."""
+    h2d = sum(r["ms_per_call"] for r in rows if "HtoD" in r["name"])
+    d2h = sum(r["ms_per_call"] for r in rows if "DtoH" in r["name"])
+    k8 = sum(r["ms_per_call"] for r in rows if "fused_adamw" in r["name"])
+    other = sum(r["ms_per_call"] for r in rows) - h2d - d2h - k8
+    return dict(h2d_ms=h2d, d2h_ms=d2h, k8_ms=k8, forward_backward_ms=other,
+                compute_stream_idle_share=1.0 - (other + k8) / wall_ms)
+
+
+def offload_train_phase(torch, K, gpu):
+    """``offload_train``: ``llama3_8b`` at full width through the CPU tier
+    (seq 4096, micro 1, GAS 2, bf16, AdamW), at full depth or the deepest
+    the host's memory holds while the state still exceeds the card: a
+    warm-up step (its peak picks remat dots or full), timed steps, a
+    profiled step."""
+    import numpy as np
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.models.presets import get_preset
+    from deepspeed_tpu_torch.models.transformer import CausalLM, init_params
+
+    t_phase = time.perf_counter()
+    z = OFFLOAD_TRAIN
+    sizes0 = host_sizes(torch)
+    emit(dict(phase="offload_train_host", when="before init", **sizes0, gpu=gpu))
+    full = get_preset(z["model"], loss_chunk_size=2048)
+    depth, n_params = offload_depth(torch, full, sizes0["free_b"]["available"])
+    state_bytes = 16 * n_params  # fp32 masters, gradients, m, v: a non-offloaded engine
+    if state_bytes <= CARD_BYTES:
+        raise AssertionError(f"offload_train: the host holds the state of {depth} layers "
+                             f"({state_bytes} bytes), which the card holds too")
+    cfg = full.replace(num_layers=depth)
+    cut = None if depth == full.num_layers else (
+        f"{depth} of {full.num_layers} layers: 12 bytes a parameter of pinned host state "
+        f"must fit in MemAvailable {sizes0['free_b']['available']} less "
+        f"{OFFLOAD_HOST_RESERVE} reserved")
+    model = CausalLM(cfg)
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=SEED, device=DEVICE, dtype=torch.bfloat16)
+    engine, _, _, _ = initialize(model=model, params=params, config=_offload_conf(
+        z["micro"], z["gas"], offload_optimizer="cpu"), device=DEVICE)
+    del params
+    _free(torch)
+    init_s = time.perf_counter() - t0
+    sizes1 = host_sizes(torch)
+    mem = engine.memory_breakdown()["offload"]
+    emit(dict(phase="offload_train_host", when="after init", **sizes1,
+              pinned_bytes_registered=mem["pinned_bytes"], gpu=gpu))
+    batch = {"input_ids": np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (z["gas"], z["micro"], z["seq"] + 1), dtype=np.int64)}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    first = float(engine.train_batch(batch))  # warm-up
+    warm_s = time.perf_counter() - t0
+    warm_peak = torch.cuda.max_memory_allocated()
+    remat = cfg.remat
+    if warm_peak > OFFLOAD_PEAK_LIMIT:
+        remat = "full"
+        model.cfg = cfg.replace(remat="full")
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    steps = z["steps"] - 1
+    step_s, losses = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(float(engine.train_batch(batch)))  # reads the loss: synced
+        step_s.append(time.perf_counter() - t0)
+    launches = dict(K.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    wall_ms, dev_ms, rows = _device_profile(torch, lambda: engine.train_batch(batch), top=None)
+    split = _profile_split(rows, wall_ms)
+    chunks = len(engine._offload.chunks)
+    _close_engine(engine)
+    del engine
+    _free(torch)
+    med = _median(step_s)
+    tokens = z["gas"] * z["micro"] * z["seq"]
+    flops_tok = model.flops_per_token(z["seq"])
+    L = depth
+    fwd = REMAT_FWD_PER_LAYER[remat]
+    want = {"flash_fwd": fwd * L * z["gas"] * steps, "flash_bwd_dq": L * z["gas"] * steps,
+            "flash_bwd_dkv": L * z["gas"] * steps, "fused_adamw": chunks * steps}
+    res = dict(phase="offload_train", model=z["model"], layers=L,
+               full_layers=full.num_layers, depth_cut=cut, hidden=cfg.hidden_size,
+               vocab=cfg.vocab_size, seq=z["seq"], micro_batch=z["micro"], gas=z["gas"],
+               remat=remat, warmup_peak_bytes=warm_peak, params=n_params,
+               non_offloaded_state_bytes=state_bytes, card_bytes=CARD_BYTES,
+               host_state_bytes=mem["host_state_bytes"], pinned_bytes=mem["pinned_bytes"],
+               device_compute_bytes=mem["device_compute_bytes"],
+               device_grad_bytes=mem["device_grad_bytes"],
+               device_staging_bytes=mem["device_staging_bytes"], chunks_per_step=chunks,
+               init_s=init_s, warmup_step_s=warm_s, loss_first=first, losses=losses,
+               step_s=step_s, step_s_median=med, tokens_per_step=tokens,
+               tokens_per_s=tokens / med, flops_per_token=flops_tok,
+               mfu=tokens / med * flops_tok / PEAK_BF16_FLOPS, peak_memory_bytes=peak,
+               profile_step_wall_ms=wall_ms, profile_step_device_ms=dev_ms,
+               profile_split=split, profile_top=sorted(rows, key=lambda r: -r["ms_per_call"])[:12],
+               launches=launches, launches_per_step={n: launches[n] / steps for n in want},
+               host_before=sizes0, host_after_init=sizes1,
+               seconds=time.perf_counter() - t_phase, gpu=gpu)
+    emit(res)
+    bad = {n: (launches[n], w) for n, w in want.items() if launches[n] != w}
+    if bad:
+        raise AssertionError(f"offload_train: launches (got, want) {bad}")
+    if not (np.isfinite([first] + losses).all() and losses[-1] < first):
+        raise AssertionError(f"offload_train: losses not finite and falling: {first} {losses}")
+    if not peak < CARD_BYTES:
+        raise AssertionError(f"offload_train: peak device bytes {peak} >= {CARD_BYTES}")
+    return res
+
+
+def nvme_train_phase(torch, K, gpu, train_losses):
+    """``nvme_train``: the training flagship (24 layers, seq 4096, micro 8,
+    GAS 2) on the NVMe tier under a temporary directory: 3 sequential steps
+    against the train phase's first 3 losses, then a pipelined engine's 4
+    steps, its walks against the next dispatches, and the async I/O
+    engine's rates at the same directory (``nvme/bench.py``)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.models.presets import get_preset
+    from deepspeed_tpu_torch.models.transformer import CausalLM
+    from deepspeed_tpu_torch.nvme.bench import run_bench
+
+    t_phase = time.perf_counter()
+    z = NVME_TRAIN
+    micro, seq, gas = 8, 4096, 2
+    tmp = tempfile.mkdtemp(prefix="dst_nvme_train_")
+    try:
+        sizes = host_sizes(torch, tmp)
+        emit(dict(phase="nvme_train_host", when="before init", **sizes, gpu=gpu))
+        cfg = get_preset(OFFLOAD_PRESET, loss_chunk_size=2048)
+        batch = {"input_ids": np.random.default_rng(SEED).integers(
+            0, cfg.vocab_size, (gas, micro, seq + 1), dtype=np.int64)}
+
+        def make(path, **extra):
+            conf = _offload_conf(micro, gas, offload_optimizer={
+                "device": "nvme", "nvme_path": os.path.join(tmp, path), **extra})
+            return initialize(model=CausalLM(cfg), config=conf, device=DEVICE)[0]
+
+        t0 = time.perf_counter()
+        engine = make("seq")
+        init_s = time.perf_counter() - t0
+        K.reset_launches()
+        seq_losses, seq_s = [], []
+        nv = engine._nvme_opt
+        r0, w0 = nv.bytes_read, nv.bytes_written
+        for _ in range(z["seq_steps"]):
+            t0 = time.perf_counter()
+            seq_losses.append(float(engine.train_batch(batch)))
+            seq_s.append(time.perf_counter() - t0)
+        launches = dict(K.LAUNCHES)
+        seq_read = (nv.bytes_read - r0) / z["seq_steps"]
+        seq_written = (nv.bytes_written - w0) / z["seq_steps"]
+        swap_bytes = engine.memory_breakdown()["offload"]["swap_bytes"]
+        _close_engine(engine)
+        del engine
+        _free(torch)
+        pipe = make("pipe", pipeline=True)
+        nv = pipe._nvme_opt
+        r0, w0 = nv.bytes_read, nv.bytes_written
+        pipe_losses, pipe_s = [], []
+        for _ in range(z["pipe_steps"]):
+            t0 = time.perf_counter()
+            pipe_losses.append(float(pipe.train_batch(batch)))
+            pipe_s.append(time.perf_counter() - t0)
+        pipe.flush_nvme_pipeline()
+        walks = z["pipe_steps"]
+        pipe_read = (nv.bytes_read - r0) / walks
+        pipe_written = (nv.bytes_written - w0) / walks
+        timeline = list(pipe._nvme_timeline)
+        _close_engine(pipe)
+        del pipe
+        _free(torch)
+        bench = run_bench(os.path.join(tmp, "bench"), size_mb=z["bench_mb"], threads=8, ops=16)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    spans, start = [], None
+    for kind, t in timeline:
+        if kind == "walk_start":
+            start = t
+        elif kind == "walk_end" and start is not None:
+            spans.append((start, t))
+            start = None
+    dispatches = [t for kind, t in timeline if kind == "dispatch"]
+    overlaps = [[s < d < e for d in dispatches].count(True) for s, e in spans]
+    walk_s = [e - s for s, e in spans]
+    med_walk = _median(walk_s)
+    ref = train_losses[:z["seq_steps"]]
+    rel = [abs(a - b) / abs(b) for a, b in zip(seq_losses, ref)]
+    tokens = gas * micro * seq
+    res = dict(phase="nvme_train", model="llama3_proxy_410m", layers=cfg.num_layers, seq=seq,
+               micro_batch=micro, gas=gas, optimizer="adamw (host)", swap_bytes=swap_bytes,
+               init_s=init_s, sequential_losses=seq_losses, train_phase_losses=ref,
+               loss_rel_errs=rel, loss_tolerance=NVME_LOSS_RTOL,
+               first_loss_equal=seq_losses[0] == ref[0], sequential_step_s=seq_s,
+               sequential_tokens_per_s=tokens / _median(seq_s),
+               sequential_read_bytes_per_step=seq_read,
+               sequential_written_bytes_per_step=seq_written,
+               pipelined_losses=pipe_losses, pipelined_step_s=pipe_s,
+               pipelined_tokens_per_s=tokens / _median(pipe_s[1:]),
+               walk_s=walk_s, walk_s_median=med_walk,
+               walk_read_GBps=pipe_read / 2 ** 30 / med_walk,
+               walk_write_GBps=pipe_written / 2 ** 30 / med_walk,
+               dispatches_inside_walks=overlaps, bench=bench, host=sizes,
+               launches=launches, launches_per_step={n: c / z["seq_steps"]
+                                                     for n, c in launches.items() if c},
+               seconds=time.perf_counter() - t_phase, gpu=gpu)
+    emit(res)
+    bad = []
+    if not all(r <= NVME_LOSS_RTOL for r in rel):
+        bad.append(f"sequential losses {seq_losses} vs the train phase's {ref}")
+    if pipe_losses[0] != seq_losses[0]:
+        bad.append(f"first pipelined loss {pipe_losses[0]} != sequential {seq_losses[0]}")
+    if not any(overlaps):
+        bad.append(f"no dispatch inside a walk: {timeline}")
+    if not (seq_losses[-1] < seq_losses[0] and pipe_losses[-1] < pipe_losses[0]):
+        bad.append(f"losses not falling: {seq_losses} {pipe_losses}")
+    if launches["fused_adamw"]:
+        bad.append("K8 launched under the NVMe tier (its update is the host AdamW)")
+    if bad:
+        raise AssertionError(f"nvme_train: {bad}")
+    return res
+
+
 REPLACES = {
     "flash_fwd": "deepspeed_tpu/ops/pallas/flash_kernel.py:253",
     "flash_bwd_dq": "deepspeed_tpu/ops/pallas/flash_kernel.py:384",
@@ -6878,6 +7385,14 @@ def main() -> None:
     ck = checkpoint_phase(torch, K, gpu)
     hf = hf_roundtrip_phase(torch, K, gpu)
     _free(torch)
+    # ZeRO-Offload: the CPU tier and the NVMe tier checked against the plain
+    # engine, the NVMe tier on the flagship, llama3_8b through the CPU tier
+    oc = offload_check_phase(torch, K, gpu)
+    _free(torch)
+    nt = nvme_train_phase(torch, K, gpu, tr["train_batch_losses"])
+    _free(torch)
+    ot = offload_train_phase(torch, K, gpu)
+    _free(torch)
     sp = train_phase(torch, K, gpu, sparse=SPARSE_FLAGSHIP, steps=SPARSE_TRAIN_STEPS)
     _free(torch)
     opt = optimizers_phase(torch, K, gpu, tr["step_s_median"])
@@ -6918,8 +7433,9 @@ def main() -> None:
     # engine), each read right after its own run
     main_paths = (eng, ms_eng, ms_sch, sch, spec, lcc, lc, g_eng, g_burst, g_spec, tr, shim, sp,
                   opt, rm, pt, ps, qc, qs, qz, rt, rh, rk, rf, rc, rr, rho, rfl, rch, ad, at,
-                  ck, hf, mt, mv, v1)
+                  ck, hf, mt, mv, v1, oc, nt, ot)
     moe_paths = {"moe_train": mt, "moe_serve": mv, "v1_serve": v1}
+    offload_paths = {"offload_check": oc, "nvme_train": nt, "offload_train": ot}
     resume_paths = {"checkpoint": ck, "hf_roundtrip": hf}
     router_paths = {"router": rt, "router_handoff": rh, "router_check": rk,
                     "router_fleet": rf, "router_chaos": rc}
@@ -6962,6 +7478,16 @@ def main() -> None:
                         if p["launches"].get(name)}
         if moe_launches:  # Mixtral training and serving, the v1 engine
             entry["launches_moe_v1_phases"] = moe_launches
+        offload_launches = {k: p["launches"].get(name, 0) for k, p in offload_paths.items()
+                            if p["launches"].get(name)}
+        if offload_launches:  # ZeRO-Offload: K8 once a chunk under the CPU tier
+            entry["launches_offload_phases"] = offload_launches
+        if name == "fused_adamw":
+            entry["launches_per_offloaded_step"] = {
+                "offload_check": oc["launches_per_step"]["fused_adamw"],
+                f"offload_train ({ot['model']}, {ot['layers']} layers)":
+                    ot["launches_per_step"]["fused_adamw"]}
+            entry["offload_train_k8_ms_per_step"] = ot["profile_split"]["k8_ms"]
         if name in per_forward:  # serving: launches per model forward
             entry["launches_per_forward"] = per_forward[name]
         if name in per_replay:  # decode bursts: launches per replayed tick

@@ -3,7 +3,7 @@
 A second package beside the JAX one, mirroring its module layout
 (``models``, ``moe``, ``ops``, ``inference``, ``runtime``, ``config``,
 ``sequence``, ``parallel``, ``serving``, ``telemetry``, ``comm``,
-``autotuning``, ``checkpoint``, ``data``, ``analysis``, ``utils``) so each module's
+``autotuning``, ``checkpoint``, ``data``, ``analysis``, ``nvme``, ``utils``) so each module's
 counterpart is found by name.  It imports ``torch`` and
 never ``jax`` or ``deepspeed_tpu``.  Entry points run on a CUDA device
 unless the caller passes ``device="cpu"``; every Pallas kernel of the ported
@@ -35,7 +35,11 @@ Ported so far:
   ``models.transformer.CausalLM`` on one GPU, with its data loader
   (``runtime.dataloader``, a resumable position) and checkpoints
   (``checkpoint``: crash-safe save / load, sync or async, the fp32 export
-  and Hugging Face safetensors import / export);
+  and Hugging Face safetensors import / export), and ZeRO-Offload
+  (``runtime.offload``: the CPU tier streams fp32 masters and moments from
+  pinned host memory through the card; the NVMe tier keeps them in swap
+  files under the host AdamW, ``ops.host_adam``, and the async I/O engine,
+  ``nvme``, built from ``csrc/host`` by ``ops.op_builder``);
 - the static analysis (``analysis``: the AST lints, the race lint and the
   scheduler scenario explorer) over this package.
 """

@@ -35,8 +35,17 @@ verifies the tag (meta present, checksums match); when ``latest`` names a
 torn or corrupt save it falls back to the newest tag that verifies.  An
 explicit tag is never substituted.
 
-``curriculum`` and the NVMe tier are absent, as in JAX with those features
-off; the port refuses both when enabled (ROADMAP queue 1 item 9).
+ZeRO-Offload (JAX :179-216, :370-398): under the CPU tier the masters and
+moments are read from and loaded into pinned host memory (their
+write-backs settled first; after a load the compute copy is recast from
+the masters), with the plain engine's leaf names.  Under the NVMe tier the
+state's ``params`` are the compute copy, as in JAX, and the swap files
+(masters and moments) are copied to ``<tag>/nvme_state/`` beside it and
+restored from there.  ``export_fp32_state_dict`` reads the masters from
+the swap files or from host memory, never from the compute copy.
+
+``curriculum`` is absent, as in JAX with it off; the port refuses it when
+enabled (ROADMAP queue 1 item 9).
 """
 from __future__ import annotations
 
@@ -184,6 +193,18 @@ def _feeds_loader(prefetch_src, loader) -> bool:
     return any(link is loader for link in unwrap_loader_chain(prefetch_src))
 
 
+def _nvme_dir(path: str) -> str:
+    return os.path.join(path, "nvme_state")
+
+
+def _settle_offload(engine) -> None:
+    """An offloaded engine's host-side state complete before the host reads
+    or writes it (``DeepSpeedTorchEngine._before_state_io``)."""
+    settle = getattr(engine, "_before_state_io", None)
+    if callable(settle):
+        settle()
+
+
 def _settle_deferred_metrics(engine) -> None:
     """The deferred step metrics (``runtime/prefetch.py`` ``MetricsBuffer``)
     land before a snapshot of ``skipped_steps``; here, so that direct callers
@@ -259,6 +280,7 @@ def save_checkpoint(engine, save_dir: str, tag: Optional[str] = None, client_sta
     the async engine the files are written in the background and the tag
     and ``latest`` are published at its commit."""
     _settle_deferred_metrics(engine)
+    _settle_offload(engine)
     ce = get_checkpoint_engine(engine)
     tag = _tag(engine, tag)
     save_dir = os.path.abspath(save_dir)
@@ -270,6 +292,11 @@ def save_checkpoint(engine, save_dir: str, tag: Optional[str] = None, client_sta
     os.makedirs(tmp_path, exist_ok=True)
     ce.create(tag)
     ce.save(train_state(engine), os.path.join(tmp_path, "state"))
+    nvme = getattr(engine, "_nvme_opt", None)
+    if nvme is not None:
+        # the NVMe tier: masters and moments live in the swap pool, not the
+        # training state; they are saved beside it
+        nvme.save_to(_nvme_dir(tmp_path))
     meta = {
         "global_steps": engine.global_steps,
         "skipped_steps": engine.skipped_steps,
@@ -348,6 +375,7 @@ def load_checkpoint(engine, load_dir: str, tag: Optional[str] = None,
     newest tag that verifies) into the engine in place; returns ``(path,
     client_state)``, or ``(None, {})`` when there is nothing to load."""
     _settle_deferred_metrics(engine)  # buffered metrics are pre-restore steps
+    _settle_offload(engine)
     ce = get_checkpoint_engine(engine)
     ce.wait()  # a pending async save lands before the read
     explicit = tag is not None
@@ -377,6 +405,12 @@ def load_checkpoint(engine, load_dir: str, tag: Optional[str] = None,
     if not load_optimizer_states:
         targets = {k: v for k, v in targets.items() if not k.startswith("opt_state/")}
     ce.load(os.path.join(path, "state"), targets)
+    nvme = getattr(engine, "_nvme_opt", None)
+    if nvme is not None and load_optimizer_states:
+        nvme.restore_from(_nvme_dir(path))
+    after = getattr(engine, "_after_state_load", None)
+    if callable(after):
+        after()
     engine.generator.set_state(targets["rng"])
     with open(os.path.join(path, "meta.json")) as fh:
         meta = json.load(fh)
@@ -394,7 +428,19 @@ def load_checkpoint(engine, load_dir: str, tag: Optional[str] = None,
 
 def export_fp32_state_dict(engine):
     """The fp32 masters as the parameter tree of CPU tensors (the
-    reference's ``zero_to_fp32``, ``utils/zero_to_fp32.py:533``)."""
+    reference's ``zero_to_fp32``, ``utils/zero_to_fp32.py:533``): from the
+    swap files under the NVMe tier (``engine.params`` is the compute copy
+    there), from host memory under the CPU tier."""
+    _settle_offload(engine)
+    nvme = getattr(engine, "_nvme_opt", None)
+    if nvme is not None:
+        from ..ops.optimizers import set_path
+
+        out: Dict[str, Any] = {}
+        for path, leaf in zip(engine._nvme_paths, nvme.export_masters()):
+            set_path(out, path, leaf)
+        return out
+
     def walk(node):
         if isinstance(node, dict):
             return {k: walk(v) for k, v in node.items()}

@@ -14,6 +14,12 @@ the port runs:
   The port runs on one GPU, where, as on the JAX package's one-device mesh,
   every ZeRO stage keeps the whole state on the one device: the stage is
   validated and changes no number;
+- ZeRO-Offload (``ZeroConfig``, JAX's parse and texts):
+  ``offload_optimizer`` / ``offload_param`` (``"cpu"``, ``"nvme"`` for
+  the optimizer, or the reference's nested ``{"device", "nvme_path",
+  "pipeline", "pipeline_read", "pipeline_write"}``), ``offload_nvme_path``,
+  ``offload_pipeline``, ``offload_grad_dtype``, and the ``aio`` section
+  (``AIOConfig``: the async I/O engine's threads and queue depth);
 - ``telemetry`` (``TelemetryConfig``: the training engine records its
   ``train_batch`` spans and ``train/step_ms`` histogram under it);
 - ``autotune`` (``AutotuneConfig``: the offline search's knobs, consumed
@@ -39,7 +45,7 @@ and raises ``NotImplementedError`` naming it and its ROADMAP queue-1 item
 when its value differs (``_UNPORTED_TOP``, ``_UNPORTED_ZERO``): the mesh
 (an expert axis included), tensor parallelism, the comms logger, ZeRO++ and
 ``serve.quant_comm``
-/ ``comm_tiles`` are item 7; offload, compression, progressive layer drop,
+/ ``comm_tiles`` are item 7; compression, progressive layer drop,
 eigenvalue, curriculum, elasticity, monitors, the profiler and the rest are
 item 9.  The reference keys JAX accepts and ignores are accepted and
 ignored here too.
@@ -98,14 +104,10 @@ _UNPORTED_TOP = {
     "hybrid_engine": (("HybridEngineConfig", dict(
         enabled=False, max_out_tokens=512, inference_tp_size=1, release_inference_cache=False,
         pin_parameters=True, tp_gather_partition_size=8)), 9),
-    "aio": (("AIOConfig", dict(block_size=1 << 20, queue_depth=32, thread_count=8,
-                               single_submit=False, overlap_events=True)), 9),
 }
 # zero_optimization keys the port does not run yet: (JAX's default, item)
 _UNPORTED_ZERO = {
-    "offload_optimizer": (None, 9), "offload_param": (None, 9),
-    "offload_nvme_path": ("/tmp/deepspeed_tpu_nvme", 9), "offload_pipeline": (False, 9),
-    "offload_grad_dtype": ("fp32", 9), "zero_quantized_weights": (False, 7),
+    "zero_quantized_weights": (False, 7),
     "zero_quantized_gradients": (False, 7), "zeropp_loco_param": (None, 7),
     "zero_hpz_partition_size": (1, 7), "mics_shard_size": (-1, 7),
 }
@@ -148,15 +150,85 @@ def _coerce(cls, value):
 
 @dataclass
 class ZeroConfig:
+    """JAX's ``ZeroConfig`` (config.py:57) for the keys the port runs.
+
+    Offload targets: None, ``"cpu"`` (the fp32 masters and the optimizer's
+    moments in pinned host memory, streamed through the card each step) or,
+    for the optimizer, ``"nvme"`` (masters and moments in swap files under
+    ``offload_nvme_path``, updated by the host AdamW).  ``offload_param:
+    "cpu"`` selects the CPU tier too: the fp32 masters are this design's
+    one persistent parameter copy.  ``offload_pipeline`` (NVMe only)
+    overlaps step k's host walk with step k+1's gradients (the delayed
+    parameter update); ``offload_grad_dtype`` is the type the gradients
+    travel to the host in."""
+
     stage: int = 0
     param_persistence_threshold: int = 10_000
     stage3_param_persistence_threshold: Optional[int] = None
+    offload_optimizer: Any = None
+    offload_param: Any = None
+    offload_nvme_path: str = "/tmp/deepspeed_tpu_nvme"
+    offload_pipeline: bool = False
+    offload_grad_dtype: str = "fp32"
 
     def __post_init__(self):
         if not 0 <= self.stage <= 3:
             raise ConfigError(f"zero_optimization.stage must be 0-3, got {self.stage}")
         if self.stage3_param_persistence_threshold is not None:
             self.param_persistence_threshold = self.stage3_param_persistence_threshold
+        for k in ("offload_optimizer", "offload_param"):
+            v = getattr(self, k)
+            if isinstance(v, dict):  # the reference nests {"device": "cpu", ...}
+                if v.get("nvme_path"):
+                    self.offload_nvme_path = v["nvme_path"]
+                if k == "offload_optimizer" and (
+                        v.get("pipeline") or v.get("pipeline_read") or v.get("pipeline_write")):
+                    self.offload_pipeline = True
+                setattr(self, k, v.get("device"))
+        if self.offload_optimizer not in (None, "none", "cpu", "nvme"):
+            raise ConfigError(f"bad offload_optimizer {self.offload_optimizer}")
+        if self.offload_param not in (None, "none", "cpu"):
+            raise ConfigError(
+                f"bad offload_param {self.offload_param!r} (supported: cpu; "
+                "params-to-nvme has no TPU implementation yet)")
+        if self.offload_optimizer == "none":
+            self.offload_optimizer = None
+        if self.offload_param == "none":
+            self.offload_param = None
+        if self.offload_grad_dtype not in ("fp32", "bf16"):
+            raise ConfigError(
+                f"offload_grad_dtype must be fp32|bf16, got {self.offload_grad_dtype!r}")
+        if self.offload_pipeline and self.offload_optimizer != "nvme":
+            raise ConfigError(
+                "offload_optimizer pipeline/pipeline_read/pipeline_write is "
+                "implemented for device='nvme' only (the CPU tier's step is "
+                "a single fused jit with nothing to overlap)")
+
+    @property
+    def offload_nvme(self) -> bool:
+        """The NVMe tier is on."""
+        return self.offload_optimizer == "nvme"
+
+    @property
+    def offload_cpu(self) -> bool:
+        """The CPU tier is on (JAX ``wants_cpu_offload``, runtime/zero.py:128)."""
+        return not self.offload_nvme and "cpu" in (self.offload_optimizer, self.offload_param)
+
+
+@dataclass
+class AIOConfig:
+    """JAX's ``AIOConfig`` (config.py:958; the reference's
+    ``runtime/swap_tensor/aio_config.py``): ``thread_count`` and
+    ``queue_depth`` reach the async I/O engine behind the NVMe tier.
+    ``block_size``, ``single_submit`` and ``overlap_events`` are libaio
+    knobs with no counterpart in the thread pool, accepted for the
+    reference's configs."""
+
+    block_size: int = 1 << 20
+    queue_depth: int = 32
+    thread_count: int = 8
+    single_submit: bool = False
+    overlap_events: bool = True
 
 
 @dataclass
@@ -340,6 +412,7 @@ class Config:
     checkpoint: CheckpointConfig = field(default_factory=CheckpointConfig)
     moe: MoEConfig = field(default_factory=MoEConfig)
     nebula: NebulaConfig = field(default_factory=NebulaConfig)
+    aio: AIOConfig = field(default_factory=AIOConfig)
     # accepted and never read, as in JAX
     prescale_gradients: bool = False
     dump_state: bool = False

@@ -602,7 +602,10 @@ def _cached_layer(lw: Params, x, cfg: TransformerConfig, positions, attn_fn, lay
 def _unstack(tree: Params, L: int):
     """Stacked ``[L, ...]`` leaves -> one dict per layer.  ``unbind`` keeps
     the backward to one stack per leaf (indexing would build an [L, ...]
-    zero gradient for every layer)."""
+    zero gradient for every layer).  A leaf may instead be the sequence of
+    its L layers' tensors: an offloaded engine's compute copy
+    (``runtime/offload.py``), whose per-layer leaves take each layer's
+    gradient as that layer's backward ends."""
     flat = {}
 
     def walk(node, path):
@@ -610,7 +613,8 @@ def _unstack(tree: Params, L: int):
             if isinstance(val, dict):
                 walk(val, path + (key,))
             else:
-                flat[path + (key,)] = torch.unbind(val, 0)
+                flat[path + (key,)] = (tuple(val) if isinstance(val, (list, tuple))
+                                       else torch.unbind(val, 0))
 
     walk(tree, ())
     out = []

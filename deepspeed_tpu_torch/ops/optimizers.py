@@ -50,6 +50,14 @@ b^t``):
 - ``sgd``: ``buf = g + momentum buf; p -= lr (g + momentum buf if nesterov
   else buf)`` (optax ``trace``).
 
+Each rule declares its per-element state as ``SLOTS`` (a path in the
+state tree -> initial value; Muon's ``slots`` also says which leaves each
+covers) and whether its update is ``ELEMENTWISE`` (no per-leaf reduction);
+``init`` builds the state from them, and the ZeRO-Offload CPU tier
+(``runtime/offload.py``) builds the same layout in pinned host memory and
+streams it through the card in chunks: any cut of the buffers for an
+elementwise rule, whole leaves for Lamb and Muon.
+
 Only the Adam family has a kernel: JAX builds the others with optax and no
 Pallas kernel.  Refused, each naming itself: the 1-bit family (ROADMAP
 queue 1 item 7).  Reference keys JAX ignores (for example FusedLamb's
@@ -114,12 +122,6 @@ def _leaf_views(bufs: List[torch.Tensor], params: List[torch.Tensor]) -> List[to
     return [x.view(p.shape) for x, p in zip(parts, params)]
 
 
-def _flat_zeros(tensors: List[torch.Tensor], device) -> List[torch.Tensor]:
-    """Zeros shaped like ``tensors``: views of one flat fp32 buffer."""
-    buf = torch.zeros(sum(t.numel() for t in tensors), dtype=torch.float32, device=device)
-    return _leaf_views([buf], tensors) if tensors else []
-
-
 def _advance(count: torch.Tensor, finite: Optional[torch.Tensor]) -> torch.Tensor:
     """Count this update (not where ``finite`` is false); returns ``t`` as
     fp32, the exponent of the bias corrections."""
@@ -131,15 +133,54 @@ def _count(params: List[torch.Tensor]) -> torch.Tensor:
     return torch.zeros((), dtype=torch.int32, device=params[0].device)
 
 
-class Adam:
+def slot_state(params: List[torch.Tensor], fill: float,
+               idx: Optional[List[int]]) -> List[torch.Tensor]:
+    """One slot's state filled with ``fill``: over every leaf laid out as
+    ``_state_like`` (``idx`` None), else over the leaves ``idx``, one flat
+    buffer with a view each."""
+    if idx is None:
+        return _state_like(params, fill)
+    sub = [params[i] for i in idx]
+    buf = torch.full((sum(t.numel() for t in sub),), fill, dtype=torch.float32,
+                     device=params[0].device)
+    return _leaf_views([buf], sub) if sub else []
+
+
+def set_path(tree: Dict[str, Any], path, value) -> None:
+    for key in path[:-1]:
+        tree = tree.setdefault(key, {})
+    tree[path[-1]] = value
+
+
+class _Rule:
+    """What the rules share: ``SLOTS`` (path -> initial value, each slot
+    over every leaf unless ``slots`` says otherwise), ``ELEMENTWISE``, and
+    ``init`` built from them."""
+
+    SLOTS: Dict[tuple, float] = {}
+    ELEMENTWISE = True
+
+    def slots(self, params: List[torch.Tensor]):
+        """``[(path, initial value, leaves)]``: ``leaves`` None for a slot
+        over every leaf (``_state_like``), else the indices of the leaves it
+        covers, a view each (``slot_state``)."""
+        return [(path, fill, None) for path, fill in self.SLOTS.items()]
+
+    def init(self, params: List[torch.Tensor]) -> Dict[str, Any]:
+        state: Dict[str, Any] = {"count": _count(params)}
+        for path, fill, idx in self.slots(params):
+            set_path(state, path, slot_state(params, fill, idx))
+        return state
+
+
+class Adam(_Rule):
     """optax ``adamw`` (``weight_decay`` > 0) or ``adam`` (0), through K8."""
+
+    SLOTS = {("mu",): 0.0, ("nu",): 0.0}
 
     def __init__(self, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
                  weight_decay: float = 0.0):
         self.b1, self.b2, self.eps, self.wd = b1, b2, eps, weight_decay
-
-    def init(self, params: List[torch.Tensor]) -> Dict[str, Any]:
-        return {"count": _count(params), "mu": _state_like(params), "nu": _state_like(params)}
 
     @torch.no_grad()
     def step(self, params, grads, state, lr: torch.Tensor, finite=None) -> None:
@@ -149,16 +190,16 @@ class Adam:
                              self.wd, finite)
 
 
-class Lamb:
+class Lamb(_Rule):
     """optax ``lamb``: ``scale_by_adam`` -> ``add_decayed_weights`` ->
     ``scale_by_trust_ratio`` (per leaf) -> the learning rate."""
+
+    SLOTS = {("mu",): 0.0, ("nu",): 0.0}
+    ELEMENTWISE = False  # the trust ratio's per-leaf norms
 
     def __init__(self, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
                  weight_decay: float = 0.0):
         self.b1, self.b2, self.eps, self.wd = b1, b2, eps, weight_decay
-
-    def init(self, params: List[torch.Tensor]) -> Dict[str, Any]:
-        return {"count": _count(params), "mu": _state_like(params), "nu": _state_like(params)}
 
     @torch.no_grad()
     def step(self, params, grads, state, lr: torch.Tensor, finite=None) -> None:
@@ -179,14 +220,13 @@ class Lamb:
             _assign(p, p - lr * (u * ratio), finite)
 
 
-class Lion:
+class Lion(_Rule):
     """optax ``lion`` (+ ``add_decayed_weights``)."""
+
+    SLOTS = {("mu",): 0.0}
 
     def __init__(self, b1: float = 0.9, b2: float = 0.99, weight_decay: float = 0.0):
         self.b1, self.b2, self.wd = b1, b2, weight_decay
-
-    def init(self, params: List[torch.Tensor]) -> Dict[str, Any]:
-        return {"count": _count(params), "mu": _state_like(params)}
 
     @torch.no_grad()
     def step(self, params, grads, state, lr: torch.Tensor, finite=None) -> None:
@@ -200,18 +240,15 @@ class Lion:
             _assign(p, p - lr * u, finite)
 
 
-class Adagrad:
+class Adagrad(_Rule):
     """optax ``adagrad`` (``scale_by_rss`` from 0.1, then the learning
     rate)."""
 
     INITIAL_ACCUMULATOR = 0.1
+    SLOTS = {("sum_of_squares",): INITIAL_ACCUMULATOR}
 
     def __init__(self, eps: float = 1e-10):
         self.eps = eps
-
-    def init(self, params: List[torch.Tensor]) -> Dict[str, Any]:
-        return {"count": _count(params),
-                "sum_of_squares": _state_like(params, self.INITIAL_ACCUMULATOR)}
 
     @torch.no_grad()
     def step(self, params, grads, state, lr: torch.Tensor, finite=None) -> None:
@@ -250,11 +287,13 @@ def newton_schulz(x: torch.Tensor, coeffs=(3.4445, -4.7750, 2.0315), steps: int 
     return x.T if transposed else x
 
 
-class Muon:
+class Muon(_Rule):
     """``optax.contrib.muon(lr)``: Muon on the 2-D leaves, NAdamW on the
     others.  State: ``count`` (both of optax's counts), ``muon.mu`` over the
     2-D leaves and ``adam.mu`` / ``adam.nu`` over the others, each one flat
     buffer with a view a leaf."""
+
+    ELEMENTWISE = False  # Newton-Schulz over each 2-D leaf
 
     def __init__(self, beta: float = 0.95, eps: float = 1e-8, ns_steps: int = 5,
                  adam_b1: float = 0.9, adam_b2: float = 0.999):
@@ -266,11 +305,11 @@ class Muon:
         muon = [x for x in tensors if x.dim() == 2]
         return muon, [x for x in tensors if x.dim() != 2]
 
-    def init(self, params: List[torch.Tensor]) -> Dict[str, Any]:
-        muon, adam = self._split(params)
-        dev = params[0].device
-        return {"count": _count(params), "muon": {"mu": _flat_zeros(muon, dev)},
-                "adam": {"mu": _flat_zeros(adam, dev), "nu": _flat_zeros(adam, dev)}}
+    def slots(self, params: List[torch.Tensor]):
+        two_d = [i for i, p in enumerate(params) if p.dim() == 2]
+        other = [i for i, p in enumerate(params) if p.dim() != 2]
+        return [(("muon", "mu"), 0.0, two_d), (("adam", "mu"), 0.0, other),
+                (("adam", "nu"), 0.0, other)]
 
     @torch.no_grad()
     def step(self, params, grads, state, lr: torch.Tensor, finite=None) -> None:
@@ -301,14 +340,13 @@ class Muon:
             _assign(p, p - lr * u, finite)
 
 
-class SGD:
+class SGD(_Rule):
     """optax ``sgd`` (``trace`` momentum, optionally Nesterov)."""
+
+    SLOTS = {("trace",): 0.0}
 
     def __init__(self, momentum: float = 0.0, nesterov: bool = False):
         self.momentum, self.nesterov = momentum, nesterov
-
-    def init(self, params: List[torch.Tensor]) -> Dict[str, Any]:
-        return {"count": _count(params), "trace": _state_like(params)}
 
     @torch.no_grad()
     def step(self, params, grads, state, lr: torch.Tensor, finite=None) -> None:

@@ -42,6 +42,20 @@ deferred to a CUDA event (no per-step host sync) and lands in the
 ``steps_per_print`` boundary or in ``get_last_loss``; shared no-ops unless
 ``telemetry.enabled``.
 
+ZeRO-Offload (``runtime/offload.py``; JAX :266-330, :698-752, :778-995):
+under the CPU tier the masters and moments live in pinned host memory
+(``self._offload``, a ``HostStream``) and ``_apply_grads`` streams them
+through the card chunk by chunk; under the NVMe tier they are swap files
+(``self._nvme_opt``) and ``_nvme_apply`` runs JAX's step: the gradients'
+norm on the card, every leaf's copy to the host started before the norm
+is read, the host AdamW walk leaf by leaf with each updated master's
+upload started as it finishes, and with ``offload_pipeline`` the walk of
+step k on a worker thread while step k+1's gradients compute against the
+parameters one walk stale (``flush_nvme_pipeline`` joins it).  Both tiers
+keep the compute-type parameters on the card as the autograd leaves
+(``self._compute``) and fold each leaf's gradient into the fp32 gradient
+buffer as it lands.
+
 The reference's forward / backward / step API (JAX :1133-1346) runs the
 same step in pieces: ``forward`` computes one micro-batch's loss and keeps
 its autograd graph, ``backward`` adds its scaled gradient to the flat
@@ -52,18 +66,21 @@ Adam family), as ``train_batch`` does.
 from __future__ import annotations
 
 import logging
-from contextlib import contextmanager
+import time
+from collections import deque
+from contextlib import contextmanager, nullcontext
 from typing import Any, Callable, Dict, List, NamedTuple, Optional
 
 import torch
 
-from ..config.config import Config
-from ..ops.optimizers import build_optimizer
+from ..config.config import Config, ConfigError
+from ..ops.optimizers import _leaf_views, build_optimizer, set_path
 from ..telemetry import Telemetry, device_ready
 from ..utils.memory import memory_breakdown_report
 from . import precision
 from .dataloader import unwrap_loader_chain
 from .lr_schedules import LRScheduler, get_lr_schedule_fn
+from .offload import ComputeCopy, HostStream, NVMeOptimizer, PinnedPool, leaf_paths, swap_names
 from .prefetch import DevicePrefetcher, MetricsBuffer, StagedBatch, host_scalar, stage
 
 logger = logging.getLogger("deepspeed_tpu_torch")
@@ -140,6 +157,27 @@ def _flat_masters(tree, device: torch.device) -> FlatMasters:
     return FlatMasters(place(tree), views, flat, grad, grads)
 
 
+class _Landing:
+    """The gradients' host copies, leaf by leaf: iterating waits for each
+    leaf's copy to land (its event) before yielding it."""
+
+    def __init__(self, leaves: List[torch.Tensor], events: List[Any]):
+        self.leaves, self.events = leaves, events
+
+    def __len__(self) -> int:
+        return len(self.leaves)
+
+    def __iter__(self):
+        for t, ev in zip(self.leaves, self.events):
+            if ev is not None:
+                ev.synchronize()
+            yield t
+
+
+def _detached(tree):
+    return {k: _detached(v) if isinstance(v, dict) else v.detach() for k, v in tree.items()}
+
+
 class DeepSpeedTorchEngine:
     """A loss function and parameters made into a training loop.
 
@@ -166,10 +204,19 @@ class DeepSpeedTorchEngine:
         self.optimizer = build_optimizer(config.optimizer.type, config.optimizer.params)
         self.compute_dtype = precision.compute_dtype(config.precision_dtype)
         self.generator = torch.Generator(device=device).manual_seed(config.seed)
-        self._masters = _flat_masters(params, device)
-        self.params = self._masters.params
-        self._params_list = self._masters.leaves
-        self.opt_state = self.optimizer.init(self._params_list)
+        zcfg = config.zero_optimization
+        self._offload = None  # the CPU tier's HostStream
+        self._nvme_opt = None  # the NVMe tier's NVMeOptimizer
+        self._compute = None  # an offloaded engine's compute copy (ComputeCopy)
+        if zcfg.offload_nvme:
+            self._init_nvme_offload(params)
+        elif zcfg.offload_cpu:
+            self._init_cpu_offload(params)
+        else:
+            self._masters = _flat_masters(params, device)
+            self.params = self._masters.params
+            self._params_list = self._masters.leaves
+            self.opt_state = self.optimizer.init(self._params_list)
         fp16 = config.fp16
         self.loss_scale_state = precision.init_loss_scale(
             dynamic=fp16.enabled and fp16.loss_scale == 0,
@@ -196,6 +243,235 @@ class DeepSpeedTorchEngine:
                     config.train_micro_batch_size_per_gpu,
                     config.gradient_accumulation_steps, device)
 
+    # ------------------------------------------------------------------
+    # ZeRO-Offload (runtime/offload.py)
+    # ------------------------------------------------------------------
+    def _offloaded_leaves(self, params):
+        """(paths, the parameters' leaves, the fp32 gradient buffer on the
+        card, its leaf views) of an offloaded engine."""
+        paths = leaf_paths(params)
+        leaves = [torch.as_tensor(x) for _, x in paths]
+        grad = torch.zeros(sum(x.numel() for x in leaves), dtype=torch.float32,
+                           device=self.device)
+        return [p for p, _ in paths], leaves, grad, _leaf_views([grad], leaves)
+
+    def _compute_copy(self, paths, leaves, grads):
+        cc = ComputeCopy([(p, x.shape) for p, x in zip(paths, leaves)], self.compute_dtype,
+                         self.device, grads)
+        cc.load(leaves)
+        return cc
+
+    def _init_cpu_offload(self, params) -> None:
+        """The CPU tier (JAX :266-330): masters and moments in pinned host
+        memory, the compute copy and the fp32 gradients on the card."""
+        paths, leaves, grad, grads = self._offloaded_leaves(params)
+        self._offload = HostStream(self.optimizer, [x.shape for x in leaves], self.device)
+        host = self._offload.leaves
+        with torch.no_grad():
+            for h, x in zip(host, leaves):
+                h.copy_(x)
+        tree: Dict[str, Any] = {}
+        for p, h in zip(paths, host):
+            set_path(tree, p, h)
+        self._compute = self._compute_copy(paths, leaves, grads)
+        self._masters = FlatMasters(tree, host, self._offload.masters, grad, grads)
+        self.params = tree
+        self._params_list = host
+        self.opt_state = self._offload.state
+        logger.info("ZeRO-Offload(cpu): %d fp32 masters and optimizer state in %s host "
+                    "memory (%d bytes), %d chunks a step", len(host),
+                    "pinned" if self.device.type == "cuda" else "CPU",
+                    self._offload.host_bytes, len(self._offload.chunks))
+
+    def _init_nvme_offload(self, params) -> None:
+        """The NVMe tier (JAX ``_init_nvme_offload`` :780-830): the compute
+        copy on the card, the fp32 masters and Adam moments on disk."""
+        from concurrent.futures import ThreadPoolExecutor
+
+        cfg = self.config
+        if cfg.fp16.enabled:
+            raise ConfigError("offload_optimizer=nvme requires bf16 (no fp16 loss scaling)")
+        if cfg.optimizer.type.lower() not in ("adam", "adamw"):
+            raise ConfigError(
+                f"offload_optimizer=nvme supports adam/adamw (host fused kernel), "
+                f"got {cfg.optimizer.type}")
+        op = cfg.optimizer.params or {}
+        zcfg = cfg.zero_optimization
+        self._nvme_opt = NVMeOptimizer(
+            zcfg.offload_nvme_path, lr=float(op.get("lr", 1e-3)),
+            betas=tuple(op.get("betas", (0.9, 0.999))), eps=float(op.get("eps", 1e-8)),
+            weight_decay=float(op.get("weight_decay", 0.0)),
+            num_threads=cfg.aio.thread_count, queue_depth=cfg.aio.queue_depth)
+        paths, leaves, grad, grads = self._offloaded_leaves(params)
+        self._compute = self._compute_copy(paths, leaves, grads)
+        self._nvme_opt.init(swap_names(paths), leaves)
+        self._grad, self._grads = grad, grads
+        self._masters = None
+        self.params = self._compute.tree  # the compute copy; masters are on disk
+        self._params_list = self._compute.leaves
+        self.opt_state = {}
+        self._nvme_paths = paths
+        cuda = self.device.type == "cuda"
+        self._nvme_d2h = torch.cuda.Stream(device=self.device) if cuda else None
+        self._nvme_upload = torch.cuda.Stream(device=self.device) if cuda else None
+        wire = torch.bfloat16 if zcfg.offload_grad_dtype == "bf16" else torch.float32
+        self._nvme_pool = PinnedPool(self.device)
+        # the host's landing buffers for the gradients: two when pipelined
+        # (step k's walk reads one while step k+1's copies fill the other)
+        self._nvme_host_grads = [self._nvme_pool.full(grad.numel(), 0.0, wire)
+                                 for _ in range(2 if zcfg.offload_pipeline else 1)]
+        self._nvme_wire = wire
+        self._nvme_calls = 0
+        self._nvme_pending = None
+        self._nvme_walk_span = None
+        # bounded: instrumentation for tests and diagnostics, not a step log
+        self._nvme_timeline: deque = deque(maxlen=512)
+        self._nvme_executor = None
+        self._compute_spare = None
+        if zcfg.offload_pipeline:
+            # one worker: walks are strictly ordered (step k joins before
+            # step k+1's walk is submitted)
+            self._nvme_executor = ThreadPoolExecutor(max_workers=1,
+                                                     thread_name_prefix="dst-nvme-walk")
+            self._compute_spare = self._compute_copy(paths, leaves, grads)
+            logger.info("nvme offload: pipelined (delayed parameter update: the host Adam "
+                        "walk overlaps the next step's gradients)")
+
+    def _nvme_apply(self, divisor):
+        """The NVMe tier's step after the micro-batches' backward (JAX
+        ``_make_nvme_train_step`` :832-975): gradients averaged, their
+        norm, every leaf's copy to the host started, the previous walk
+        joined (pipelined), then the host AdamW walk of this step, on the
+        worker thread when pipelined, here otherwise."""
+        cfg = self.config
+        pipelined = self._nvme_executor is not None
+        grad = self._grad.div_(divisor)
+        grad_norm = precision.global_grad_norm([grad])
+        wire = grad if self._nvme_wire == torch.float32 else grad.to(self._nvme_wire)
+        host = self._nvme_host_grads[self._nvme_calls % len(self._nvme_host_grads)]
+        self._nvme_calls += 1
+        if pipelined:
+            self._nvme_timeline.append(("dispatch", time.perf_counter()))
+        landed = self._nvme_copy_down(wire, host)
+        joined = self._join_nvme_walk()  # the host blocks; the card is busy
+        gn = float(grad_norm)
+        clip = cfg.gradient_clipping
+        coef = min(1.0, clip / (gn + 1e-6)) if clip and clip > 0 else 1.0
+        lr = float(self.lr_schedule_fn(self.device_step))
+        step_num = int(self.device_step) + 1
+        done = torch.cuda.Event() if self._nvme_upload is not None else None
+        if done is not None:  # the walk's uploads wait for this step's reads of the params
+            done.record(torch.cuda.current_stream(self.device))
+        if pipelined:
+            if joined is not None:
+                self._adopt_walk(joined)
+            target = self._compute_spare
+            self._nvme_pending = self._nvme_executor.submit(
+                self._timed_walk, landed, lr, step_num, coef, target, done)
+        else:
+            self._adopt_walk(self._host_walk(landed, lr, step_num, coef, self._compute, done))
+        self.device_step += 1
+        lr_t = torch.tensor(lr, dtype=torch.float32, device=self.device)
+        return grad_norm, lr_t, torch.zeros((), dtype=torch.bool, device=self.device)
+
+    def _nvme_copy_down(self, wire: torch.Tensor, host: torch.Tensor) -> "_Landing":
+        """Start each leaf's gradient copy into ``host`` (a side stream on
+        the card), then zero the gradient buffer behind them."""
+        views = []
+        events = []
+        off = 0
+        side = self._nvme_d2h
+        if side is not None:
+            side.wait_stream(torch.cuda.current_stream(self.device))
+        for g in self._grads:
+            n = g.numel()
+            dst = host[off:off + n].view(g.shape)
+            if side is not None:
+                with torch.cuda.stream(side):
+                    dst.copy_(wire[off:off + n].view(g.shape), non_blocking=True)
+                    ev = torch.cuda.Event()
+                    ev.record(side)
+                events.append(ev)
+            else:
+                dst.copy_(wire[off:off + n].view(g.shape))
+                events.append(None)
+            views.append(dst)
+            off += n
+        if side is not None:  # the buffer is zeroed (and ``wire`` freed) behind the copies
+            torch.cuda.current_stream(self.device).wait_stream(side)
+        self._grad.zero_()
+        return _Landing(views, events)
+
+    def _host_walk(self, grads: "_Landing", lr: float, step_num: int, coef: float,
+                   target, ready):
+        """Step k's host side: swap I/O, the host AdamW, and each updated
+        master's upload into ``target`` (a ``ComputeCopy``) as soon as it is
+        done.  Returns ``(target, event)``: the event marks the uploads on
+        the card."""
+        up = self._nvme_upload
+        if up is not None:
+            up.wait_event(ready)
+        leaves = target.leaves
+
+        def on_leaf(i, master):
+            with (torch.cuda.stream(up) if up is not None else nullcontext()), torch.no_grad():
+                leaves[i].copy_(master.view(leaves[i].shape))
+
+        self._nvme_opt.step(grads, lr, step_num, coef, on_leaf=on_leaf)
+        ev = None
+        if up is not None:
+            ev = torch.cuda.Event()
+            ev.record(up)
+        return target, ev
+
+    def _timed_walk(self, grads, lr, step_num, coef, target, ready):
+        t0 = time.perf_counter()
+        self._nvme_timeline.append(("walk_start", t0))
+        out = self._host_walk(grads, lr, step_num, coef, target, ready)
+        t1 = time.perf_counter()
+        self._nvme_timeline.append(("walk_end", t1))
+        self._nvme_walk_span = (t0, t1)
+        return out
+
+    def _adopt_walk(self, walk) -> None:
+        """Make a finished walk's compute copy the live one."""
+        target, ev = walk
+        if ev is not None:
+            torch.cuda.current_stream(self.device).wait_event(ev)
+        if target is not self._compute:
+            self._compute_spare, self._compute = self._compute, target
+        self.params = self._compute.tree
+        self._params_list = self._compute.leaves
+
+    def _join_nvme_walk(self):
+        """The pending background walk's result (pipelined), or None."""
+        pending = getattr(self, "_nvme_pending", None)
+        if pending is None:
+            return None
+        self._nvme_pending = None
+        return pending.result()
+
+    def flush_nvme_pipeline(self) -> None:
+        """Complete any background host walk and adopt its parameters
+        (before checkpoint save / load, eval and exports, so the visible
+        state is exact and no worker races the swap files)."""
+        walk = self._join_nvme_walk()
+        if walk is not None:
+            self._adopt_walk(walk)
+
+    def _before_state_io(self) -> None:
+        """Make the host-side state complete before the host reads or
+        writes it: join the NVMe walk, land the CPU tier's write-backs."""
+        self.flush_nvme_pipeline()
+        if self._offload is not None:
+            self._offload.settle()
+
+    def _after_state_load(self) -> None:
+        """After a checkpoint load: the CPU tier's compute copy from the
+        loaded host masters."""
+        if self._offload is not None:
+            self._offload.refresh(self._compute.flat)
+
     def _build_lr_schedule(self) -> Callable:
         sched = self.config.scheduler
         if sched.type is None and "lr" in (self.config.optimizer.params or {}):
@@ -205,11 +481,18 @@ class DeepSpeedTorchEngine:
     # ------------------------------------------------------------------
     # the step
     # ------------------------------------------------------------------
+    def _compute_params(self):
+        """The compute-type parameters the loss runs on: the cast of the
+        masters (autograd reaches the masters through it), or an offloaded
+        engine's compute copy."""
+        if self._compute is not None:
+            return self._compute.loss_tree
+        return precision.cast_floating(self.params, self.compute_dtype)
+
     def _micro_loss(self, micro: Dict[str, torch.Tensor]) -> torch.Tensor:
-        """Loss of one micro-batch through the compute-type cast of the
-        masters, its autograd graph attached."""
-        cp = precision.cast_floating(self.params, self.compute_dtype)
-        return self.loss_fn(cp, micro, self.generator)
+        """Loss of one micro-batch through the compute-type parameters, its
+        autograd graph attached."""
+        return self.loss_fn(self._compute_params(), micro, self.generator)
 
     def _micro_backward(self, micro: Dict[str, torch.Tensor], scale) -> torch.Tensor:
         """Loss of one micro-batch; ``(loss * scale).backward()`` adds its
@@ -227,7 +510,11 @@ class DeepSpeedTorchEngine:
         if cfg.gradient_clipping and cfg.gradient_clipping > 0:
             grad.mul_(precision.clip_factor(grad_norm, cfg.gradient_clipping))
         lr = self.lr_schedule_fn(self.device_step)
-        self.optimizer.step(self._params_list, self._masters.grads, self.opt_state, lr, finite)
+        if self._offload is not None:  # the CPU tier: the state streamed through the card
+            self._offload.update(grad, self._masters.grads, self._compute.flat, lr, finite)
+        else:
+            self.optimizer.step(self._params_list, self._masters.grads, self.opt_state, lr,
+                                finite)
         grad.zero_()
         if fp16 and cfg.fp16.loss_scale == 0:
             self.loss_scale_state = precision.update_loss_scale(
@@ -267,7 +554,10 @@ class DeepSpeedTorchEngine:
             for i in range(gas):
                 loss_sum += self._micro_backward({k: v[i] for k, v in batch.items()}, scale)
             divisor = scale * gas if fp16 else float(gas)
-            grad_norm, lr, skipped = self._apply_grads(divisor)
+            if self._nvme_opt is not None:
+                grad_norm, lr, skipped = self._nvme_apply(divisor)
+            else:
+                grad_norm, lr, skipped = self._apply_grads(divisor)
         loss_scale = self.loss_scale_state.scale if fp16 else torch.ones((), device=self.device)
         metrics = StepMetrics(loss_sum / gas, grad_norm, lr, loss_scale, skipped)
         tb_span.end(sync_obj=device_ready(metrics.loss) if self.telemetry.enabled else None)
@@ -300,7 +590,11 @@ class DeepSpeedTorchEngine:
         compute-type cast of the masters as ``_micro_backward`` computes it;
         its autograd graph waits for ``backward``.  A second ``forward``
         before ``backward`` replaces the pending one.  Returns the loss as a
-        detached fp32 device scalar."""
+        detached fp32 device scalar.  Refused under the NVMe tier, as in
+        JAX."""
+        if self._nvme_opt is not None:
+            raise NotImplementedError(
+                "offload_optimizer=nvme supports the fused train_batch() path only")
         self._pending = self._micro_loss(stage(micro_batch, self.device).batch)
         return self._pending.detach().float()
 
@@ -367,13 +661,14 @@ class DeepSpeedTorchEngine:
 
     def eval_batch(self, batch) -> torch.Tensor:
         """``eval_fn`` (or ``loss_fn``) of the compute-type parameters on one
-        batch, without gradients; settles the deferred step metrics first."""
+        batch, without gradients; joins a pipelined NVMe walk and settles
+        the deferred step metrics first."""
+        self.flush_nvme_pipeline()
         self._flush_step_metrics()
         fn = self.eval_fn or self.loss_fn
         b = stage(batch, self.device).batch
         with torch.no_grad():
-            cp = precision.cast_floating(self.params, self.compute_dtype)
-            return fn(cp, b, self.generator)
+            return fn(self._compute_params(), b, self.generator)
 
     # ------------------------------------------------------------------
     # the pipelined loop
@@ -456,6 +751,7 @@ class DeepSpeedTorchEngine:
         ``exclude_frozen_parameters`` changes nothing."""
         from ..checkpoint.saving import save_checkpoint as _save
 
+        self.flush_nvme_pipeline()
         return _save(self, save_dir, tag=tag, client_state=client_state or {},
                      save_latest=save_latest)
 
@@ -474,6 +770,9 @@ class DeepSpeedTorchEngine:
                                       "leaves load into the engine's own tensors")
         if load_module_only:
             load_optimizer_states = load_lr_scheduler_states = False
+        # a pending walk would race the swap files being restored, and its
+        # result would overwrite the loaded parameters at the next join
+        self.flush_nvme_pipeline()
         return _load(self, load_dir, tag=tag, load_optimizer_states=load_optimizer_states,
                      load_lr_scheduler_states=load_lr_scheduler_states)
 
@@ -519,7 +818,11 @@ class DeepSpeedTorchEngine:
 
     def module_params(self):
         """The parameters in the compute type (a detached copy of the
-        masters' tree; the masters themselves when that is fp32)."""
+        masters' tree; the masters themselves when that is fp32; an
+        offloaded engine's compute copy, detached views of it)."""
+        self.flush_nvme_pipeline()
+        if self._compute is not None:
+            return _detached(self._compute.tree)
         with torch.no_grad():
             return precision.cast_floating(self.params, self.compute_dtype)
 

@@ -89,11 +89,24 @@ def update_loss_scale(state: LossScaleState, finite: torch.Tensor,
     )
 
 
+# elements squared at a time by global_grad_norm: the engine's flat
+# gradient buffer holds 4 bytes a parameter, and squaring it whole would
+# take as much again (30 GB for llama3_8b at 30 layers)
+NORM_CHUNK = 1 << 26
+
+
+def _sum_squares(g: torch.Tensor) -> torch.Tensor:
+    if g.numel() <= NORM_CHUNK:
+        return g.float().square().sum()
+    return sum(c.float().square().sum() for c in g.reshape(-1).split(NORM_CHUNK))
+
+
 def global_grad_norm(grads: List[torch.Tensor]) -> torch.Tensor:
-    """The L2 norm over every gradient, fp32 (a device scalar)."""
+    """The L2 norm over every gradient, fp32 (a device scalar); a tensor
+    past ``NORM_CHUNK`` elements is squared and summed chunk by chunk."""
     if not grads:
         return torch.zeros((), dtype=torch.float32)
-    return torch.sqrt(sum(g.float().square().sum() for g in grads))
+    return torch.sqrt(sum(_sum_squares(g) for g in grads))
 
 
 def clip_factor(norm: torch.Tensor, max_norm: float) -> torch.Tensor:

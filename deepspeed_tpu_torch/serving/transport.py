@@ -1061,7 +1061,9 @@ class HeartbeatMonitor:
                     break
                 if time.monotonic() >= deadline:
                     return None
-        except TransportError:
+        except (TransportError, OSError):
+            # OSError: the stream was closed under the ping (its socket's
+            # settimeout raises EBADF): a miss, never the thread's end
             return None
         chaos = stream.chaos
         if chaos is not None and chaos.heartbeat_lost():

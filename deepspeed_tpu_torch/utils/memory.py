@@ -59,13 +59,35 @@ def _tree_bytes(tree) -> int:
 
 def memory_breakdown_report(engine) -> Dict[str, Any]:
     """Bytes by state component of a training engine, exact from its
-    buffers: the fp32 masters (one flat buffer), the optimizer state (its
-    flat moment buffers and step count), their total, and a
-    ``memory_stats`` snapshot of the engine's device."""
+    buffers: the parameters it keeps (the fp32 masters; under the NVMe tier
+    the compute copy, as JAX counts ``state.params``), the optimizer state
+    (its moment buffers and step count), their total, and a
+    ``memory_stats`` snapshot of the engine's device.
+
+    An offloaded engine adds ``offload``: its tier, the host bytes of its
+    state and, for the CPU tier, the bytes page-locked for it
+    (``pinned_bytes``; 0 on a CPU device), beside what it keeps on the
+    device: the compute copy, the fp32 gradient buffer and the staging
+    chunks.  The NVMe tier gives the bytes of its swap files instead."""
     report = {
-        "master_params_bytes": _tree_bytes(engine._masters.flat),
+        "master_params_bytes": _tree_bytes(engine.params),
         "opt_state_bytes": _tree_bytes(engine.opt_state),
         "snapshot": memory_stats(engine.device),
     }
     report["state_total_bytes"] = report["master_params_bytes"] + report["opt_state_bytes"]
+    compute = getattr(engine, "_compute", None)
+    if compute is not None:
+        off: Dict[str, Any] = {"device_compute_bytes": _tree_bytes(compute.flat)}
+        host = getattr(engine, "_offload", None)
+        if host is not None:
+            off.update(tier="cpu", host_state_bytes=host.host_bytes,
+                       pinned_bytes=host.pool.registered_bytes,
+                       device_grad_bytes=_tree_bytes(engine._masters.grad),
+                       device_staging_bytes=host.staging_bytes)
+        else:
+            nvme = engine._nvme_opt
+            off.update(tier="nvme", swap_bytes=12 * _tree_bytes(engine._grad) // 4,
+                       swap_dir=nvme.swapper.dir, device_grad_bytes=_tree_bytes(engine._grad),
+                       pinned_bytes=engine._nvme_pool.registered_bytes)
+        report["offload"] = off
     return report

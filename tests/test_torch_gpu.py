@@ -37,7 +37,11 @@ routed path's loss and gradients in fp32 against the CPU
 (``chip_smoke.moe_narrow_check``), a MoE ``step_n`` burst token-identical
 to per-tick steps, ``init_inference`` in fp32 token-identical to the CPU
 on the MoE, ALiBi and parallel-block families, and a prefill that fills
-its dense cache on K1f.  This file imports neither JAX nor the JAX package, so it
+its dense cache on K1f.  ZeRO-Offload: the CPU tier bit-identical to the
+plain engine on a 2-layer model (its state in pinned host memory, the
+card's bytes the compute copy, the gradients and the staging chunks), the
+NVMe tier within ``chip_smoke.NVME_TOL``, and a save / load resume under
+each tier bit for bit.  This file imports neither JAX nor the JAX package, so it
 runs where only PyTorch is installed::
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
@@ -1242,3 +1246,100 @@ def test_v1_full_cache_prefill_takes_the_flash_kernel_on_the_card():
     assert out.shape == (2, 1)
     assert T.CACHE_ATTENTION == {"flash": cfg.num_layers, "plain": 0}
     assert K.LAUNCHES["flash_fwd"] == cfg.num_layers
+
+
+def _offload_engines(tmp_path, **zero):
+    """A 2-layer flagship-width engine (seq 256, micro 2, GAS 2, bf16,
+    AdamW) with the given ``zero_optimization`` keys, and 3 batches."""
+    import numpy as np
+
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.models.presets import get_preset
+    from deepspeed_tpu_torch.models.transformer import CausalLM
+
+    cfg = get_preset("llama3_proxy_410m", num_layers=2, loss_chunk_size=2048)
+    batches = [{"input_ids": b} for b in np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (3, 2, 2, 257), dtype=np.int64)]
+    conf = chip_smoke._offload_conf(2, 2, **zero)
+    return initialize(model=CausalLM(cfg), config=conf, device="cuda")[0], batches
+
+
+def _needs_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the offload tiers stream through the card)")
+
+
+@pytest.mark.gpu
+def test_cpu_tier_is_bit_identical_to_the_plain_engine_on_the_card(tmp_path, monkeypatch):
+    _needs_card()
+    from deepspeed_tpu_torch.runtime import offload
+
+    monkeypatch.setattr(offload, "CHUNK_ELEMS", 1 << 20)  # several chunks a step
+    plain, batches = _offload_engines(tmp_path)
+    p_losses = [float(plain.train_batch(b)) for b in batches]
+    p_masters = chip_smoke._masters_cpu(torch, plain)
+    del plain
+    tier, _ = _offload_engines(tmp_path, offload_optimizer="cpu")
+    K.reset_launches()
+    t_losses = [float(tier.train_batch(b)) for b in batches]
+    assert K.LAUNCHES["fused_adamw"] == 3 * len(tier._offload.chunks) > 3
+    assert t_losses == p_losses
+    got = chip_smoke._masters_cpu(torch, tier)
+    assert all(torch.equal(got[k], p_masters[k]) for k in p_masters)
+    chip_smoke._close_engine(tier)
+
+
+@pytest.mark.gpu
+def test_cpu_tier_state_is_pinned_and_the_card_holds_the_rest(tmp_path):
+    _needs_card()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    tier, _ = _offload_engines(tmp_path, offload_param="cpu")
+    used = torch.cuda.memory_allocated() - before
+    off = tier.memory_breakdown()["offload"]
+    want = off["device_compute_bytes"] + off["device_grad_bytes"] + off["device_staging_bytes"]
+    assert abs(used - want) <= chip_smoke.OFFLOAD_MEM_TOL * want, (used, want)
+    host = [tier._offload.masters, *tier._offload.slot_flat]
+    assert all(t.device.type == "cpu" and t.is_pinned() for t in host)
+    assert off["pinned_bytes"] == off["host_state_bytes"] == sum(t.numel() * 4 for t in host)
+    chip_smoke._close_engine(tier)
+
+
+@pytest.mark.gpu
+def test_nvme_tier_within_tolerance_of_the_plain_engine_on_the_card(tmp_path):
+    _needs_card()
+    plain, batches = _offload_engines(tmp_path)
+    nv, _ = _offload_engines(tmp_path, offload_optimizer={
+        "device": "nvme", "nvme_path": str(tmp_path / "swap")}, offload_grad_dtype="bf16")
+    for i, b in enumerate(batches):
+        n_loss, p_loss = float(nv.train_batch(b)), float(plain.train_batch(b))
+        assert i or n_loss == p_loss  # step 1 runs the same bf16 weights
+        ref = chip_smoke._masters_cpu(torch, plain)
+        err = chip_smoke._rel_to_max(torch, chip_smoke._masters_cpu(torch, nv), ref)
+        assert err <= chip_smoke.nvme_drift_bound(1e-4, i + 1, ref), (i, err)
+    chip_smoke._close_engine(nv)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tier", ["cpu", "nvme"])
+def test_offload_resume_on_the_card_is_bitwise(tmp_path, tier):
+    _needs_card()
+
+    def zero(name):
+        if tier == "cpu":
+            return {"offload_optimizer": "cpu"}
+        return {"offload_optimizer": {"device": "nvme", "nvme_path": str(tmp_path / name)}}
+
+    run, batches = _offload_engines(tmp_path, **zero("a"))
+    run.train_batch(batches[0])
+    run.save_checkpoint(str(tmp_path / "ckpt"), tag="s1")
+    ref = [float(run.train_batch(b)) for b in batches[1:]]
+    ref_m = chip_smoke._masters_cpu(torch, run)
+    chip_smoke._close_engine(run)
+    del run
+    resumed, _ = _offload_engines(tmp_path, **zero("b"))
+    resumed.load_checkpoint(str(tmp_path / "ckpt"), tag="s1")
+    assert [float(resumed.train_batch(b)) for b in batches[1:]] == ref
+    got = chip_smoke._masters_cpu(torch, resumed)
+    assert all(torch.equal(got[k], ref_m[k]) for k in ref_m)
+    chip_smoke._close_engine(resumed)

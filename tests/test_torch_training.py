@@ -665,8 +665,11 @@ def test_parse_config_batch_triangulation_matches_jax():
 
 
 @pytest.mark.parametrize("raw,key", [
-    ({"zero_optimization": {"stage": 3, "offload_optimizer": {"device": "cpu"}}},
-     "zero_optimization.offload_optimizer"),
+    # offload_optimizer runs since slice 18 (tests/test_torch_offload.py);
+    # the case holds the ZeRO++ gradient key beside ZeRO-3 it rode with
+    pytest.param({"zero_optimization": {"stage": 3, "zero_quantized_gradients": True}},
+                 "zero_optimization.zero_quantized_gradients",
+                 id="zero3-quantized-gradients-item-7"),
     ({"zero_optimization": {"zero_quantized_weights": True}}, "zero_quantized_weights"),
     ({"compression_training": {"enabled": True}}, "compression_training"),
     ({"progressive_layer_drop": {"enabled": True}}, "progressive_layer_drop"),
@@ -714,8 +717,12 @@ ON_CONFIGS = [
     ({"curriculum_learning": {"enabled": False, "curriculum_type": "seqlen"}},
      "curriculum_learning", 9),
     ({"compile": {"disable": True}}, "compile", 9),
-    ({"aio": {"queue_depth": 64}}, "aio", 9),
-    ({"zero_optimization": {"offload_param": "cpu"}}, "zero_optimization.offload_param", 9),
+    # aio and offload_param parse since slice 18 (tests/test_torch_offload.py);
+    # these two cases hold ZeRO++ keys the port still refuses
+    pytest.param({"zero_optimization": {"mics_shard_size": 2}},
+                 "zero_optimization.mics_shard_size", 7, id="mics-shard-size-item-7"),
+    pytest.param({"zero_optimization": {"zeropp_loco_param": {"err_beta": 0.8}}},
+                 "zero_optimization.zeropp_loco_param", 7, id="zeropp-loco-param-item-7"),
     ({"zero_optimization": {"zero_hpz_partition_size": 2}},
      "zero_optimization.zero_hpz_partition_size", 7),
 ]

@@ -530,6 +530,34 @@ def test_heartbeat_lease_expiry_on_freeze_and_on_loss(servers):
         lossy_mon.stop()
 
 
+def test_heartbeat_thread_survives_a_stream_closed_mid_ping():
+    """A heartbeat stream closed while the monitor waits for its PONG (its
+    socket's settimeout then raises EBADF) counts as a miss: the
+    dstpu-heartbeat thread lives on and keeps charging misses."""
+    a, b = socket.socketpair()
+    stream = T.FrameStream(sock=a)
+    mon = T.HeartbeatMonitor(interval_ms=20.0, lease_ms=60_000.0)
+    mon.watch(0, stream)
+    errors = []
+    old_hook = threading.excepthook
+    threading.excepthook = lambda args: errors.append(args.exc_value)
+    mon.start()
+    try:
+        b.settimeout(5.0)
+        assert b.recv(64)  # the PING is out: the monitor now waits in recv
+        stream.close()  # closed under the ping, no PONG ever comes
+        deadline = time.monotonic() + 5.0
+        while mon.snapshot()[0]["misses"] < 3:
+            assert time.monotonic() < deadline, "the monitor stopped counting misses"
+            time.sleep(0.02)
+        assert mon._thread is not None and mon._thread.is_alive()
+        assert not errors, errors
+    finally:
+        mon.stop()
+        threading.excepthook = old_hook
+        b.close()
+
+
 def _chaos_trace(tmod, Inj, seed):
     """The actions a seeded storm's ChaosLinks take over a fixed call order
     on a fake clock (no sockets): check() per frame, heartbeat_lost()."""
