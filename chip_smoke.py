@@ -244,6 +244,23 @@ Phases, each raising on failure (so the exit code is non-zero):
                card in bf16 (leaves bitwise equal; host peak beside the
                tree's bytes); greedy serving of 4 prompts x 16 tokens from
                both trees token-identical (K1f, K2 layers x dispatches);
+   schedule_check -- the flagship's width at 2 layers with a seqlen
+               curriculum cutting 1,024 tokens to 520 (K1 on a partial
+               tile), the card against the CPU in fp32 with train_check's
+               limits, unmasked and under a layer mask that drops layer 1;
+               K1f / K1b kept layers x GAS a step, and the flops
+               profiler's K1 count equal to its closed form;
+   schedule_train -- the flagship at full depth with the curriculum
+               (512 -> 4096), progressive layer drop, the CSV monitor,
+               wall_clock_breakdown, memory_breakdown and the flops
+               profiler on: 8 ``train_batch`` steps, then 3 of
+               ``train_on_loader`` over an indexed dataset analyzed by
+               ``DataAnalyzer`` (``data_analysis_path``); every step at
+               the scheduler's length, K1f / K1b kept layers x GAS, the
+               CSV's losses those of ``get_last_loss``, every drawn sample
+               within the difficulty; prints the profiler's MFU beside the
+               train phase's, and the step time with wall_clock_breakdown
+               off and on and with the count on;
    sparse_train -- the flagship with ``sparse_attention`` fixed(128, 4, 1)
                (192 of 528 causal blocks) and FusedAdam: SPARSE_TRAIN_STEPS
                timed steps; sparse_fwd / sparse_bwd_dq / sparse_bwd_dkv 48
@@ -465,7 +482,13 @@ class GpuBusy:
         return False
 
 
+# (phase, perf_counter when it emitted): the smoke's timeline, read by main
+PHASE_ENDS = []
+
+
 def emit(obj) -> None:
+    if isinstance(obj, dict) and "phase" in obj:
+        PHASE_ENDS.append((obj["phase"], time.perf_counter()))
     print(json.dumps(obj), flush=True)
 
 
@@ -3887,10 +3910,11 @@ def check_train_launches(phase, launches, layers, gas, steps, sparse):
         raise AssertionError(f"{phase}: launches (got, expected) {bad} in {steps} steps")
 
 
-def _attn_grads(torch, engine, micro):
-    """Gradients of one micro-batch's loss (``micro``: name -> [b, s + 1]
-    array) w.r.t. layer 0's attention weights (fp32 masters, through the
-    engine's compute-type cast)."""
+def _loss_and_attn_grads(torch, engine, micro):
+    """(loss, gradients) of one micro-batch's loss (``micro``: name -> [b,
+    s + 1] array, or any batch key the model takes) w.r.t. layer 0's
+    attention weights (fp32 masters, through the engine's compute-type
+    cast)."""
     from deepspeed_tpu_torch.runtime.precision import cast_floating
 
     names = ("wq", "wk", "wv", "wo")
@@ -3899,7 +3923,12 @@ def _attn_grads(torch, engine, micro):
     loss = engine.model.loss_fn(cp, {k: torch.as_tensor(v).to(engine.device)
                                      for k, v in micro.items()})
     grads = torch.autograd.grad(loss, [attn[n] for n in names])
-    return {n: g[0].float().cpu().flatten() for n, g in zip(names, grads)}
+    return float(loss.detach()), {n: g[0].float().cpu().flatten() for n, g in zip(names, grads)}
+
+
+def _attn_grads(torch, engine, micro):
+    """``_loss_and_attn_grads``' gradients."""
+    return _loss_and_attn_grads(torch, engine, micro)[1]
 
 
 def grad_cosines(torch, got, ref):
@@ -4069,7 +4098,10 @@ def train_phase(torch, K, gpu, sparse=None, steps=TRAIN_STEPS):
 # resumable training (checkpoint/, the data loader) and the HF round trip
 # ---------------------------------------------------------------------------
 CKPT_PRESET = "llama3_proxy_410m"  # CPU rehearsals: "tiny"
-CKPT_SIZES = dict(seq=4096, micro=8, gas=2, rows=64)
+# 12 of the flagship's 24 layers: the resume gates (losses to the bit, state
+# byte-equal) hold at any depth, and the full depth's saves cost the smoke's
+# time limit about 20 s
+CKPT_SIZES = dict(seq=4096, micro=8, gas=2, rows=64, layers=12)
 CKPT_DISK_MARGIN = 1.25  # free disk wanted over two checkpoints' bytes
 HF_SERVE = dict(prompts=4, prompt_len=64, new=16)
 
@@ -4096,7 +4128,8 @@ def _ckpt_engine(async_save=False):
     from deepspeed_tpu_torch.models.transformer import CausalLM
 
     z = CKPT_SIZES
-    over = dict(loss_chunk_size=2048) if CKPT_PRESET == "llama3_proxy_410m" else \
+    over = dict(loss_chunk_size=2048, num_layers=z["layers"]) \
+        if CKPT_PRESET == "llama3_proxy_410m" else \
         dict(max_seq_len=z["seq"] + 1)
     model = CausalLM(get_preset(CKPT_PRESET, **over))
     conf = bench_config(z["micro"], z["gas"])
@@ -6783,7 +6816,10 @@ NVME_LOSS_RTOL = 1e-3
 # torch.cuda.memory_allocated() after a CPU-tier init against the compute
 # copy + the fp32 gradient buffer + the staging chunks
 OFFLOAD_MEM_TOL = 0.05
-OFFLOAD_TRAIN = dict(model="llama3_8b", seq=4096, micro=1, gas=2, steps=3)
+# depth capped at 20 of 32 layers (5.41 G parameters: 86.6 GB of state at 16
+# bytes a parameter, past the card's 80 GB) to keep the whole smoke inside
+# its time limit; the host's MemAvailable may cut it further
+OFFLOAD_TRAIN = dict(model="llama3_8b", seq=4096, micro=1, gas=2, steps=3, max_layers=20)
 OFFLOAD_PEAK_LIMIT = 75e9  # bytes: past it the phase runs remat full in place of dots
 CARD_BYTES = 80e9  # the card's memory, against which the state must not fit
 # host bytes left free beside the pinned state: the process, the page cache
@@ -7023,11 +7059,12 @@ def _layer_params(torch, cfg):
 
 
 def offload_depth(torch, cfg, avail):
-    """The deepest depth <= ``cfg.num_layers`` whose masters and two Adam
-    moments (12 bytes a parameter) fit in ``avail`` host bytes less
-    OFFLOAD_HOST_RESERVE; (depth, parameters)."""
+    """The deepest depth <= ``cfg.num_layers`` and OFFLOAD_TRAIN's
+    ``max_layers`` whose masters and two Adam moments (12 bytes a
+    parameter) fit in ``avail`` host bytes less OFFLOAD_HOST_RESERVE;
+    (depth, parameters)."""
     fixed, per = _layer_params(torch, cfg)
-    depth = cfg.num_layers
+    depth = min(cfg.num_layers, OFFLOAD_TRAIN.get("max_layers", cfg.num_layers))
     while depth > 0 and 12 * (fixed + depth * per) > avail - OFFLOAD_HOST_RESERVE:
         depth -= 1
     return depth, fixed + depth * per
@@ -7068,9 +7105,9 @@ def offload_train_phase(torch, K, gpu):
                              f"({state_bytes} bytes), which the card holds too")
     cfg = full.replace(num_layers=depth)
     cut = None if depth == full.num_layers else (
-        f"{depth} of {full.num_layers} layers: 12 bytes a parameter of pinned host state "
-        f"must fit in MemAvailable {sizes0['free_b']['available']} less "
-        f"{OFFLOAD_HOST_RESERVE} reserved")
+        f"{depth} of {full.num_layers} layers: at most {z.get('max_layers')} (the smoke's "
+        f"time limit), and 12 bytes a parameter of pinned host state must fit in "
+        f"MemAvailable {sizes0['free_b']['available']} less {OFFLOAD_HOST_RESERVE} reserved")
     model = CausalLM(cfg)
     t0 = time.perf_counter()
     params = init_params(cfg, seed=SEED, device=DEVICE, dtype=torch.bfloat16)
@@ -7262,6 +7299,338 @@ def nvme_train_phase(torch, K, gpu, train_losses):
     return res
 
 
+# ---------------------------------------------------------------------------
+# the instrumented, scheduled step: timers, memory report, flops profiler,
+# CSV monitor, curriculum learning (seqlen, and analyzed-difficulty
+# sampling) and progressive layer drop
+# ---------------------------------------------------------------------------
+SCHEDULE_PRESET = "llama3_proxy_410m"  # CPU rehearsals: "tiny"
+SCHEDULE_CHECK = dict(layers=2, seq=1024, cut=520, micro=2, gas=2)
+SCHEDULE_TRAIN = dict(seq=4096, micro=8, gas=2, steps=8, loader_steps=3, timed=4, docs=96,
+                      min_doc=256)
+SCHEDULE_CURRICULUM = dict(min_difficulty=512, max_difficulty=4096, total_curriculum_step=10,
+                           difficulty_step=8)
+SCHEDULE_PLD = dict(theta=0.5, gamma=0.5)
+SCHEDULE_PROFILE_STEP = 3
+
+
+def _schedule_model(seq, layers=None):
+    from deepspeed_tpu_torch.models.presets import get_preset
+    from deepspeed_tpu_torch.models.transformer import CausalLM
+
+    over = dict(loss_chunk_size=2048) if SCHEDULE_PRESET == "llama3_proxy_410m" else \
+        dict(max_seq_len=seq + 1)
+    if layers is not None:
+        over["num_layers"] = layers
+    return CausalLM(get_preset(SCHEDULE_PRESET, **over))
+
+
+def _curriculum(lo, hi, total, step, analysis=None):
+    """A ``data_efficiency`` section: the seqlen curriculum ``fixed_linear``
+    from ``lo`` to ``hi`` over ``total`` steps in steps of ``step``."""
+    cl = {"enabled": True, "curriculum_type": "seqlen", "min_difficulty": lo,
+          "max_difficulty": hi, "schedule_type": "fixed_linear",
+          "schedule_config": {"total_curriculum_step": total, "difficulty_step": step}}
+    if analysis is not None:
+        cl["data_analysis_path"] = analysis
+    return {"enabled": True, "curriculum_learning": cl}
+
+
+def k1_closed_form(cfg, micro, seq, kept_layers):
+    """K1's operations in a step whose micro-batches run ``kept_layers``
+    (one count a micro-batch) at ``seq`` tokens: 4 hd a causal pair and
+    query head forward, 10 hd backward (PERF.md's bound counts)."""
+    pairs = micro * seq * (seq + 1) // 2 * cfg.hd * cfg.num_heads * sum(kept_layers)
+    return {"flash_fwd": 4 * pairs, "flash_bwd": 10 * pairs}
+
+
+def _step_launch_gate(phase, launches, kept):
+    """K1f / K1b: the micro-batches' kept layers summed; K8 once."""
+    if DEVICE != "cuda":
+        return
+    want = {n: sum(kept) for n in ATTN_KERNELS[False]}
+    want["fused_adamw"] = 1
+    bad = {n: (launches.get(n, 0), w) for n, w in want.items() if launches.get(n, 0) != w}
+    if bad:
+        raise AssertionError(f"{phase}: launches (got, expected) {bad} in a step")
+
+
+def _launch_diff(K, before):
+    return {n: K.LAUNCHES[n] - before[n] for n in K.LAUNCHES if K.LAUNCHES[n] != before[n]}
+
+
+def schedule_check_phase(torch, K, gpu):
+    """``schedule_check``: the flagship's width at 2 layers, the card (bf16)
+    against the port on the CPU (fp32) with train_check's limits, on a
+    curriculum step cut from 1,024 to 520 tokens (K1 on a partial tile) and
+    under a given layer mask that drops layer 1.  Before any step: the
+    loss and layer 0's attention gradients of a cut micro-batch, unmasked
+    and masked (step-1 loss within TRAIN_LOSS_RTOL, cosines above
+    GRAD_COS_MIN).  Step 1 (curriculum, the flops profiler's step): K1f /
+    K1b layers x GAS, K8 once, the profiler's K1 count equal to
+    ``k1_closed_form`` and the card's loss against the CPU engine's.  Step
+    2 (the mask in the batch): K1f / K1b kept layers x GAS."""
+    import tempfile
+
+    import numpy as np
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.models.transformer import CausalLM, init_params
+
+    z = SCHEDULE_CHECK
+    model = _schedule_model(z["seq"], z["layers"])
+    cfg = model.cfg
+    params = init_params(cfg, seed=SEED, device="cpu", dtype=torch.float32)
+    batch = {"input_ids": np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (z["gas"], z["micro"], z["seq"] + 1), dtype=np.int64)}
+    keep = np.ones((z["gas"], cfg.num_layers), bool)
+    keep[:, 1] = False
+    conf = bench_config(z["micro"], z["gas"])
+    conf["data_efficiency"] = _curriculum(z["cut"], z["cut"], 1, 8)
+    with tempfile.TemporaryDirectory() as tmp:
+        report_path = os.path.join(tmp, "profile.txt")
+        card, _, _, _ = initialize(model=model, params=params, device=DEVICE, config=dict(
+            conf, flops_profiler={"enabled": True, "profile_step": 1,
+                                  "output_file": report_path}))
+        cpu, _, _, _ = initialize(model=CausalLM(cfg.replace(dtype=torch.float32)),
+                                  params=params, config={**conf, "bf16": {"enabled": False}},
+                                  device="cpu")
+        cut = {"input_ids": batch["input_ids"][0][:, :z["cut"] + 1]}
+        masked = dict(cut, layer_keep=keep[0])
+        checks = {}
+        for name, micro in (("cut", cut), ("masked", masked)):
+            (lc, gc), (lp, gp) = (_loss_and_attn_grads(torch, e, micro) for e in (card, cpu))
+            checks[name] = dict(card_loss=lc, cpu_loss=lp, loss_rel_err=abs(lc - lp) / abs(lp),
+                                grad_cosine_layer0=grad_cosines(torch, gc, gp))
+        K.reset_launches()
+        before = dict(K.LAUNCHES)
+        card_losses = [float(card.train_batch(batch))]
+        launches_cut = _launch_diff(K, before)
+        executed = card.flops_profiler.get_executed()
+        with open(report_path) as fh:
+            report = fh.read()
+        before = dict(K.LAUNCHES)
+        card_losses.append(float(card.train_batch(dict(batch, layer_keep=keep))))
+        launches_masked = _launch_diff(K, before)
+        launches = dict(K.LAUNCHES)
+    cpu_loss = float(cpu.train_batch(batch))
+    step1_rel = abs(card_losses[0] - cpu_loss) / abs(cpu_loss)
+    closed = k1_closed_form(cfg, z["micro"], z["cut"], [cfg.num_layers] * z["gas"])
+    res = dict(phase="schedule_check", model=SCHEDULE_PRESET, layers=cfg.num_layers,
+               seq=z["seq"], curriculum_seq=z["cut"], micro_batch=z["micro"], gas=z["gas"],
+               layer_keep=keep[0].tolist(), before_steps=checks, card_losses=card_losses,
+               cpu_step1_loss=cpu_loss, step1_loss_rel_err=step1_rel,
+               launches_curriculum_step=launches_cut, launches_masked_step=launches_masked,
+               profiler_kernel_flops=executed["kernel_flops"], k1_closed_form=closed,
+               profiler_executed_flops=executed["flops"],
+               profiler_peak_bytes=executed.get("peak_bytes"), launches=launches, gpu=gpu)
+    emit(res)
+    bad = [f"{n}: loss rel {c['loss_rel_err']}" for n, c in checks.items()
+           if not c["loss_rel_err"] <= TRAIN_LOSS_RTOL]
+    bad += [f"{n}: cosine {c['grad_cosine_layer0']}" for n, c in checks.items()
+            if not all(v > GRAD_COS_MIN for v in c["grad_cosine_layer0"].values())]
+    if not (np.isfinite(card_losses).all() and step1_rel <= TRAIN_LOSS_RTOL):
+        bad.append(f"step-1 loss card {card_losses[0]} vs CPU {cpu_loss} (rel {step1_rel})")
+    if "executed FLOPs" not in report or "train FLOPs" not in report:
+        bad.append("the profiler's report lacks the analytic or the executed FLOPs")
+    if DEVICE == "cuda" and executed["kernel_flops"] != closed:
+        bad.append(f"the profiler's K1 count {executed['kernel_flops']} != {closed}")
+    if bad:
+        raise AssertionError(f"schedule_check: {bad}")
+    _step_launch_gate("schedule_check (curriculum)", launches_cut,
+                      [cfg.num_layers] * z["gas"])
+    _step_launch_gate("schedule_check (masked)", launches_masked,
+                      [int(k.sum()) for k in keep])
+    del card, cpu
+    return res
+
+
+def schedule_train_phase(torch, K, gpu, train_mfu):
+    """``schedule_train``: the flagship at full depth with every switch on
+    (the seqlen curriculum ``fixed_linear`` 512 -> 4096 in steps of 8 over
+    10 steps; progressive layer drop at SCHEDULE_PLD; ``csv_monitor``,
+    ``wall_clock_breakdown``, ``memory_breakdown``; the flops profiler at
+    step SCHEDULE_PROFILE_STEP), trained 8 steps by ``train_batch``, then 3
+    by ``train_on_loader`` over a token dataset made from the seed, written
+    as an indexed dataset in a temporary directory, analyzed by
+    ``DataAnalyzer`` and sampled through ``data_analysis_path``.  Then, at
+    the full length with PLD paused, the step time with
+    ``wall_clock_breakdown`` off / on / on / off (4 steps each, no host read
+    between them; each block holds one ``steps_per_print`` boundary), and
+    steps alone, uncounted / counted by ``analyze_train_step`` / counted /
+    uncounted, none at a boundary (the count's own cost).  Gates, every
+    step: the model saw the scheduler's length; K1f / K1b the kept layers
+    x GAS, K8 once; the loss finite and the CSV's row of it the float
+    ``get_last_loss`` read; some step drops a layer;
+    every drawn sample's length within the difficulty when it was drawn;
+    the profiler's report with the analytic and the executed FLOPs, its K1
+    count equal to ``k1_closed_form`` for the profiled step's masks."""
+    import tempfile
+
+    import numpy as np
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.data import (DataAnalyzer, MMapIndexedDataset,
+                                          MMapIndexedDatasetBuilder)
+    from deepspeed_tpu_torch.profiling import analyze_train_step
+
+    z = SCHEDULE_TRAIN
+    model = _schedule_model(z["seq"])
+    cfg = model.cfg
+    rng = np.random.default_rng(SEED)
+    drawn = []  # (a drawn sample's length, the scheduler's difficulty then)
+    engine = None
+
+    def pad(samples):
+        out = np.zeros((len(samples), z["seq"] + 1), np.int64)
+        for i, smp in enumerate(samples):
+            out[i, :len(smp)] = smp
+            drawn.append((len(smp), engine.curriculum_scheduler.get_current_difficulty()))
+        return {"input_ids": torch.from_numpy(out)}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        prefix, analysis = os.path.join(tmp, "docs"), os.path.join(tmp, "analysis")
+        builder = MMapIndexedDatasetBuilder(prefix)
+        for n in rng.integers(z["min_doc"], z["seq"] + 2, z["docs"]):
+            builder.add_item(rng.integers(0, cfg.vocab_size, int(n)))
+        builder.finalize()
+        dataset = MMapIndexedDataset(prefix)
+        t0 = time.perf_counter()
+        DataAnalyzer(dataset, num_workers=2, save_path=analysis).run_map_reduce(processes=1)
+        analyze_s = time.perf_counter() - t0
+        c = SCHEDULE_CURRICULUM
+        conf = bench_config(z["micro"], z["gas"])
+        conf.update(
+            steps_per_print=4, wall_clock_breakdown=True, memory_breakdown=True,
+            data_efficiency=_curriculum(c["min_difficulty"], c["max_difficulty"],
+                                        c["total_curriculum_step"], c["difficulty_step"],
+                                        analysis),
+            progressive_layer_drop={"enabled": True, **SCHEDULE_PLD},
+            csv_monitor={"enabled": True, "output_path": tmp, "job_name": "schedule"},
+            flops_profiler={"enabled": True, "profile_step": SCHEDULE_PROFILE_STEP,
+                            "output_file": os.path.join(tmp, "profile.txt")})
+        engine, _, loader, _ = initialize(model=model, config=conf, device=DEVICE,
+                                          training_data=dataset, collate_fn=pad)
+        seen = []  # the token count each micro-batch's loss ran at
+        loss_fn = engine.loss_fn
+
+        def spy(params, micro, gen):
+            seen.append(int(micro["input_ids"].shape[-1]) - 1)
+            return loss_fn(params, micro, gen)
+
+        engine.loss_fn = spy
+        batch = {"input_ids": rng.integers(0, cfg.vocab_size,
+                                           (z["gas"], z["micro"], z["seq"] + 1))}
+        steps = []
+
+        def take(kind, run):
+            before, n_seen = dict(K.LAUNCHES), len(seen)
+            t0 = time.perf_counter()
+            run()
+            loss = engine.get_last_loss()
+            steps.append(dict(kind=kind, step=engine.global_steps,
+                              difficulty=engine.curriculum_scheduler.get_current_difficulty(),
+                              seq=seen[n_seen:], kept=[int(m.sum()) for m in engine.pld_masks],
+                              launches=_launch_diff(K, before), loss=loss,
+                              s=time.perf_counter() - t0))
+
+        K.reset_launches()
+        for _ in range(z["steps"]):
+            take("train_batch", lambda: engine.train_batch(batch))
+        gen = engine.train_on_loader(loader, num_steps=z["loader_steps"])
+        for _ in range(z["loader_steps"]):
+            take("train_on_loader", lambda: next(gen))
+        gen.close()
+        prof = engine.flops_profiler
+        executed = prof.get_executed()
+        profiled = steps[SCHEDULE_PROFILE_STEP - 1]
+        closed = k1_closed_form(cfg, z["micro"], profiled["difficulty"], profiled["kept"])
+        with open(os.path.join(tmp, "profile.txt")) as fh:
+            report = fh.read()
+        # wall_clock_breakdown's tax at the full length, PLD paused so that
+        # every step runs all layers: no host read between a block's steps
+        pld, engine.progressive_layer_drop = engine.progressive_layer_drop, None
+        timed = {"off": [], "on": []}
+        before = dict(K.LAUNCHES)
+        for mode in ("off", "on", "on", "off"):
+            engine.config.wall_clock_breakdown = mode == "on"
+            _sync(torch)
+            t0 = time.perf_counter()
+            for _ in range(z["timed"]):
+                engine.train_batch(batch)
+            _sync(torch)
+            timed[mode].append((time.perf_counter() - t0) / z["timed"])
+        timed_launches = _launch_diff(K, before)
+        engine.config.wall_clock_breakdown = False
+        # a step alone, uncounted / counted / counted / uncounted, none of
+        # them a steps_per_print boundary (its flush and memory report)
+        every = engine.config.steps_per_print
+        engine.config.steps_per_print = 10 ** 9
+        single = {"plain": [], "counted": []}
+        for kind in ("plain", "counted", "counted", "plain"):
+            _sync(torch)
+            t0 = time.perf_counter()
+            if kind == "plain":
+                engine.train_batch(batch)
+            else:
+                analyze_train_step(engine, batch)
+            _sync(torch)
+            single[kind].append(time.perf_counter() - t0)
+        engine.config.steps_per_print = every
+        engine.progressive_layer_drop = pld
+        engine.get_last_loss()
+        launches = dict(K.LAUNCHES)
+        with open(os.path.join(tmp, "schedule", "Train_Samples_train_loss.csv")) as fh:
+            csv_rows = {int(a): float(b) for a, b in
+                        (ln.split(",") for ln in fh.read().splitlines()[1:])}
+    duration = prof.get_total_duration()
+    analytic = 3 * prof.get_total_flops()  # fwd + bwd: 6 x MACs
+    off, on = sorted(timed["off"]), sorted(timed["on"])
+    res = dict(phase="schedule_train", model=SCHEDULE_PRESET, layers=cfg.num_layers,
+               seq=z["seq"], micro_batch=z["micro"], gas=z["gas"], curriculum=c,
+               pld=SCHEDULE_PLD, docs=z["docs"], analyze_s=analyze_s, steps=steps,
+               drawn_samples=len(drawn), drawn_max_len=max((n for n, _ in drawn), default=0),
+               eligible_at_draw=int(sum(1 for n in dataset.sizes if drawn and n <= drawn[0][1])),
+               profile_step=SCHEDULE_PROFILE_STEP, profile_seq=profiled["difficulty"],
+               profile_kept=profiled["kept"], profiler_duration_s=duration,
+               profiler_train_flops_analytic=analytic,
+               profiler_executed_flops=executed["flops"],
+               profiler_aten_flops=executed["aten_flops"],
+               profiler_kernel_flops=executed["kernel_flops"], k1_closed_form=closed,
+               profiler_peak_bytes=executed.get("peak_bytes"),
+               profiler_mfu_analytic=analytic / duration / PEAK_BF16_FLOPS,
+               profiler_mfu_executed=executed["flops"] / duration / PEAK_BF16_FLOPS,
+               train_phase_mfu=train_mfu, wall_clock_off_s=timed["off"],
+               wall_clock_on_s=timed["on"],
+               wall_clock_tax=(sum(on) / len(on)) / (sum(off) / len(off)) - 1.0,
+               single_step_s=single["plain"], counted_step_s=single["counted"],
+               count_tax=sum(single["counted"]) / sum(single["plain"]) - 1.0,
+               timed_launches=timed_launches, launches=launches, gpu=gpu)
+    emit(res)
+    bad = []
+    for st in steps:
+        if st["seq"] != [st["difficulty"]] * z["gas"]:
+            bad.append(f"step {st['step']}: lengths {st['seq']} != difficulty "
+                       f"{st['difficulty']}")
+        if not np.isfinite(st["loss"]) or csv_rows.get(st["step"]) != st["loss"]:
+            bad.append(f"step {st['step']}: loss {st['loss']}, CSV row "
+                       f"{csv_rows.get(st['step'])}")
+        _step_launch_gate(f"schedule_train step {st['step']}", st["launches"], st["kept"])
+    if not any(k < cfg.num_layers for st in steps for k in st["kept"]):
+        bad.append("no step dropped a layer")
+    if not drawn or any(n > d for n, d in drawn):
+        bad.append(f"drawn samples past the difficulty: {[x for x in drawn if x[0] > x[1]]}")
+    if "executed FLOPs" not in report or "train FLOPs" not in report:
+        bad.append("the profiler's report lacks the analytic or the executed FLOPs")
+    if DEVICE == "cuda" and executed["kernel_flops"] != closed:
+        bad.append(f"the profiler's K1 count {executed['kernel_flops']} != {closed}")
+    want_timed = 4 * z["timed"] * cfg.num_layers * z["gas"]
+    if DEVICE == "cuda" and timed_launches.get("flash_fwd") != want_timed:
+        bad.append(f"timed steps: K1f {timed_launches.get('flash_fwd')} != {want_timed}")
+    if bad:
+        raise AssertionError(f"schedule_train: {bad}")
+    del engine
+    return res
+
+
 REPLACES = {
     "flash_fwd": "deepspeed_tpu/ops/pallas/flash_kernel.py:253",
     "flash_bwd_dq": "deepspeed_tpu/ops/pallas/flash_kernel.py:384",
@@ -7300,6 +7669,7 @@ def _free(torch):
 
 
 def main() -> None:
+    t_start = time.perf_counter()
     try:
         import torch
     except ImportError:
@@ -7385,6 +7755,12 @@ def main() -> None:
     ck = checkpoint_phase(torch, K, gpu)
     hf = hf_roundtrip_phase(torch, K, gpu)
     _free(torch)
+    # the instrumented, scheduled step: timers, the profiler, the CSV
+    # monitor, curriculum learning and progressive layer drop
+    sc = schedule_check_phase(torch, K, gpu)
+    _free(torch)
+    st = schedule_train_phase(torch, K, gpu, tr["mfu"])
+    _free(torch)
     # ZeRO-Offload: the CPU tier and the NVMe tier checked against the plain
     # engine, the NVMe tier on the flagship, llama3_8b through the CPU tier
     oc = offload_check_phase(torch, K, gpu)
@@ -7433,7 +7809,8 @@ def main() -> None:
     # engine), each read right after its own run
     main_paths = (eng, ms_eng, ms_sch, sch, spec, lcc, lc, g_eng, g_burst, g_spec, tr, shim, sp,
                   opt, rm, pt, ps, qc, qs, qz, rt, rh, rk, rf, rc, rr, rho, rfl, rch, ad, at,
-                  ck, hf, mt, mv, v1, oc, nt, ot)
+                  ck, hf, mt, mv, v1, oc, nt, ot, sc, st)
+    schedule_paths = {"schedule_check": sc, "schedule_train": st}
     moe_paths = {"moe_train": mt, "moe_serve": mv, "v1_serve": v1}
     offload_paths = {"offload_check": oc, "nvme_train": nt, "offload_train": ot}
     resume_paths = {"checkpoint": ck, "hf_roundtrip": hf}
@@ -7482,6 +7859,10 @@ def main() -> None:
                             if p["launches"].get(name)}
         if offload_launches:  # ZeRO-Offload: K8 once a chunk under the CPU tier
             entry["launches_offload_phases"] = offload_launches
+        schedule_launches = {k: p["launches"].get(name, 0) for k, p in schedule_paths.items()
+                             if p["launches"].get(name)}
+        if schedule_launches:  # the scheduled step: curriculum lengths, dropped layers
+            entry["launches_schedule_phases"] = schedule_launches
         if name == "fused_adamw":
             entry["launches_per_offloaded_step"] = {
                 "offload_check": oc["launches_per_step"]["fused_adamw"],
@@ -7509,6 +7890,11 @@ def main() -> None:
         if name in K6_NAMES:  # the quantizer API: one launch per call
             entry["launches_per_call"] = 1
         kernels.append(entry)
+    ends, prev = {}, t_start
+    for phase, t in PHASE_ENDS:  # each phase's seconds: since the previous emit
+        ends[phase] = ends.get(phase, 0.0) + (t - prev)
+        prev = t
+    emit(dict(timeline_s=ends, total_s=time.perf_counter() - t_start))
     emit({"kernels": kernels})
     print(gpu, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

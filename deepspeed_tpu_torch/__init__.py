@@ -3,7 +3,8 @@
 A second package beside the JAX one, mirroring its module layout
 (``models``, ``moe``, ``ops``, ``inference``, ``runtime``, ``config``,
 ``sequence``, ``parallel``, ``serving``, ``telemetry``, ``comm``,
-``autotuning``, ``checkpoint``, ``data``, ``analysis``, ``nvme``, ``utils``) so each module's
+``autotuning``, ``checkpoint``, ``data``, ``analysis``, ``nvme``, ``utils``,
+``accelerator``, ``monitor``, ``profiling``) so each module's
 counterpart is found by name.  It imports ``torch`` and
 never ``jax`` or ``deepspeed_tpu``.  Entry points run on a CUDA device
 unless the caller passes ``device="cpu"``; every Pallas kernel of the ported
@@ -40,6 +41,13 @@ Ported so far:
   pinned host memory through the card; the NVMe tier keeps them in swap
   files under the host AdamW, ``ops.host_adam``, and the async I/O engine,
   ``nvme``, built from ``csrc/host`` by ``ops.op_builder``);
+- the instrumented, scheduled training step: timers with
+  ``wall_clock_breakdown`` / ``memory_breakdown`` (``utils.timer``,
+  ``utils.memory``), the flops profiler (``profiling``), the monitors
+  (``monitor``: TensorBoard, CSV, WandB, Comet), curriculum learning
+  (``data``: the scheduler, the indexed dataset, the data analyzer and its
+  difficulty-filtered sampling), progressive layer drop
+  (``runtime.progressive_layer_drop``) and ``accelerator.get_accelerator``;
 - the static analysis (``analysis``: the AST lints, the race lint and the
   scheduler scenario explorer) over this package.
 """
@@ -69,11 +77,18 @@ def initialize(model=None, params: Any = None, config: Any = None, device=None,
     ``engine.eval_batch`` runs, ``loss_fn`` by default.
     ``config['sparse_attention']`` sets the block-sparse layout on
     ``model.cfg`` (JAX ``initialize``); it needs ``model=``.
+    ``engine.monitor`` is a ``monitor.MonitorMaster`` over the config's
+    four monitor sections.  With curriculum learning on and a
+    ``data_efficiency.curriculum_learning.data_analysis_path`` (a
+    ``data.DataAnalyzer`` output directory), the loader's sampler admits
+    only the samples whose analyzed metric (``difficulty_metric``, else the
+    ``curriculum_type``) is within the scheduler's current difficulty
+    (``data.curriculum_index_filter``).
 
     Refused with ``NotImplementedError``: ``mesh`` (one device only;
-    ROADMAP queue 1 item 7) and an enabled ``data_efficiency`` curriculum
-    (item 9, refused by the config parser)."""
+    ROADMAP queue 1 item 7)."""
     from .config.config import ConfigError, parse_config
+    from .monitor.monitor import MonitorMaster
     from .ops.kernels import resolve_device
     from .runtime.dataloader import DeepSpeedTpuDataLoader
     from .runtime.engine import DeepSpeedTorchEngine
@@ -112,12 +127,22 @@ def initialize(model=None, params: Any = None, config: Any = None, device=None,
             raise ValueError("initialize() needs params with a bare loss_fn")
         params = model.init_params(seed=cfg.seed, device=device)
     engine = DeepSpeedTorchEngine(loss_fn, params, cfg, device, eval_fn=eval_fn)
-    engine.model = model
+    engine.monitor = MonitorMaster(cfg)
+    engine.model = model  # the flops profiler reads .cfg for its module tree
     dataloader = None
     if training_data is not None:
+        index_filter = None
+        cl = cfg.data_efficiency.curriculum_learning or {}
+        if cl.get("data_analysis_path") and engine.curriculum_scheduler is not None:
+            from .data.data_analyzer import curriculum_index_filter
+
+            index_filter = curriculum_index_filter(
+                cl["data_analysis_path"],
+                cl.get("difficulty_metric", cl.get("curriculum_type", "seqlen")),
+                engine.curriculum_scheduler)
         dataloader = DeepSpeedTpuDataLoader(
             training_data, micro_batch_size=cfg.train_micro_batch_size_per_gpu,
             dp_world_size=1, gradient_accumulation_steps=cfg.gradient_accumulation_steps,
-            collate_fn=collate_fn, seed=cfg.seed)
+            collate_fn=collate_fn, seed=cfg.seed, index_filter=index_filter)
         engine.training_dataloader = dataloader  # its position rides the checkpoints
     return engine, engine, dataloader, engine.lr_scheduler

@@ -44,8 +44,10 @@ state's ``params`` are the compute copy, as in JAX, and the swap files
 restored from there.  ``export_fp32_state_dict`` reads the masters from
 the swap files or from host memory, never from the compute copy.
 
-``curriculum`` is absent, as in JAX with it off; the port refuses it when
-enabled (ROADMAP queue 1 item 9).
+With curriculum learning on, ``meta.json`` carries the scheduler's state
+under ``curriculum`` and a load restores it, as JAX does (its
+``saving.py:245-246``, ``:387-388``), so either package resumes the other's
+schedule.
 """
 from __future__ import annotations
 
@@ -318,6 +320,8 @@ def save_checkpoint(engine, save_dir: str, tag: Optional[str] = None, client_sta
                 ds_state = drained
         if ds_state is not None:
             meta["data_sampler"] = ds_state
+    if getattr(engine, "curriculum_scheduler", None) is not None:
+        meta["curriculum"] = engine.curriculum_scheduler.get_state()
 
     def finalize():
         """Checksum and fsync the shards, write meta.json, rename the tmp
@@ -422,6 +426,8 @@ def load_checkpoint(engine, load_dir: str, tag: Optional[str] = None,
     if (loader is not None and hasattr(loader, "load_state_dict")
             and meta.get("data_sampler") is not None):
         loader.load_state_dict(meta["data_sampler"])
+    if getattr(engine, "curriculum_scheduler", None) is not None and "curriculum" in meta:
+        engine.curriculum_scheduler.set_state(meta["curriculum"])
     log_dist(f"loaded checkpoint {path}")
     return path, meta.get("client_state", {})
 

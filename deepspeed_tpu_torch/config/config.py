@@ -37,7 +37,13 @@ the port runs:
 - ``checkpoint`` / ``nebula`` (``checkpoint.async_save`` or
   ``nebula.enabled`` selects the async checkpoint engine) and
   ``moe``, ``prescale_gradients``, ``dump_state``,
-  ``activation_checkpointing`` (accepted and never read, as in JAX).
+  ``activation_checkpointing`` (accepted and never read, as in JAX);
+- the training step's instruments and schedules, in JAX's dataclasses:
+  ``wall_clock_breakdown``, ``memory_breakdown``, ``flops_profiler``
+  (``FlopsProfilerConfig``), the monitors ``tensorboard`` / ``csv_monitor``
+  / ``wandb`` / ``comet`` (``MonitorSubConfig``), ``data_efficiency``
+  (``DataEfficiencyConfig``; the legacy top-level ``curriculum_learning``
+  maps onto it, as in JAX) and ``progressive_layer_drop`` (``PLDConfig``).
 
 An unknown key raises ``ConfigError`` naming it, as in JAX.  A key the JAX
 package knows but the port does not run yet is accepted at JAX's default
@@ -45,10 +51,9 @@ and raises ``NotImplementedError`` naming it and its ROADMAP queue-1 item
 when its value differs (``_UNPORTED_TOP``, ``_UNPORTED_ZERO``): the mesh
 (an expert axis included), tensor parallelism, the comms logger, ZeRO++ and
 ``serve.quant_comm``
-/ ``comm_tiles`` are item 7; compression, progressive layer drop,
-eigenvalue, curriculum, elasticity, monitors, the profiler and the rest are
-item 9.  The reference keys JAX accepts and ignores are accepted and
-ignored here too.
+/ ``comm_tiles`` are item 7; ``compression_training``, ``eigenvalue``,
+``elasticity``, ``compile`` and ``hybrid_engine`` are item 9.  The
+reference keys JAX accepts and ignores are accepted and ignored here too.
 """
 from __future__ import annotations
 
@@ -65,37 +70,21 @@ class ConfigError(ValueError):
     pass
 
 
-_MONITOR = ("MonitorSubConfig", dict(
-    enabled=False, output_path="", job_name="DeepSpeedTpuJob", team=None, group=None,
-    project=None, api_key=None, workspace=None, experiment_name=None, experiment_key=None,
-    online=None, mode=None, samples_log_interval=100))
 # Top-level keys and sections of the JAX Config the port does not run yet:
 # (JAX's default value, or (JAX's dataclass name, its fields' defaults), and
 # the ROADMAP queue-1 item that ports it).  A key is refused only when its
 # value differs from JAX's default, which an enabled section always does; at
 # the default it is accepted and changes nothing, as in JAX.
 _UNPORTED_TOP = {
-    "wall_clock_breakdown": (False, 9),
-    "memory_breakdown": (False, 9),
     "mesh": (("MeshConfig", dict(data=0, fsdp=0, model=1, seq=1, expert=1, stage=1)), 7),
     "tensor_parallel": (("TensorParallelConfig", dict(enabled=False, tp_size=1,
                                                       domino_chunks=1)), 7),
     "comms_logger": (("CommsLoggerConfig", dict(enabled=False, verbose=False, prof_all=True,
                                                 debug=False, prof_ops=[])), 7),
-    "flops_profiler": (("FlopsProfilerConfig", dict(
-        enabled=False, profile_step=1, module_depth=-1, top_modules=1, detailed=True,
-        output_file=None)), 9),
     "compression_training": (("CompressionConfig", dict(
         enabled=False, weight_quantization={}, activation_quantization={}, sparse_pruning={},
         row_pruning={}, head_pruning={}, channel_pruning={}, layer_reduction={})), 9),
-    "data_efficiency": (("DataEfficiencyConfig", dict(enabled=False,
-                                                      curriculum_learning={})), 9),
-    "tensorboard": (_MONITOR, 9),
-    "csv_monitor": (_MONITOR, 9),
-    "wandb": (_MONITOR, 9),
-    "comet": (_MONITOR, 9),
     "elasticity": ({}, 9),
-    "progressive_layer_drop": (("PLDConfig", dict(enabled=False, theta=0.5, gamma=0.001)), 9),
     "eigenvalue": (("EigenvalueConfig", dict(
         enabled=False, verbose=False, max_iter=100, tol=1e-2, stability=1e-6,
         gas_boundary_resolution=1, layer_name="", layer_num=0)), 9),
@@ -390,6 +379,61 @@ class MoEConfig:
 
 
 @dataclass
+class MonitorSubConfig:
+    """One monitor section (``tensorboard``, ``csv_monitor``, ``wandb``,
+    ``comet``; JAX's ``MonitorSubConfig``)."""
+
+    enabled: bool = False
+    output_path: str = ""
+    job_name: str = "DeepSpeedTpuJob"
+    # wandb extras
+    team: Optional[str] = None
+    group: Optional[str] = None
+    project: Optional[str] = None
+    # comet extras (reference monitor/config.py CometConfig)
+    api_key: Optional[str] = None
+    workspace: Optional[str] = None
+    experiment_name: Optional[str] = None
+    experiment_key: Optional[str] = None
+    online: Optional[bool] = None
+    mode: Optional[str] = None
+    samples_log_interval: int = 100
+
+
+@dataclass
+class FlopsProfilerConfig:
+    """``flops_profiler`` (JAX's ``FlopsProfilerConfig``): the engine counts
+    step ``profile_step`` and writes the report to ``output_file`` (the log
+    when None)."""
+
+    enabled: bool = False
+    profile_step: int = 1
+    module_depth: int = -1
+    top_modules: int = 1
+    detailed: bool = True
+    output_file: Optional[str] = None
+
+
+@dataclass
+class DataEfficiencyConfig:
+    """``data_efficiency`` (JAX's): ``curriculum_learning`` is the
+    ``data.CurriculumScheduler`` config plus ``enabled``,
+    ``curriculum_type`` and ``data_analysis_path``."""
+
+    enabled: bool = False
+    curriculum_learning: Dict[str, Any] = field(default_factory=dict)
+
+
+@dataclass
+class PLDConfig:
+    """``progressive_layer_drop`` (JAX's ``PLDConfig``)."""
+
+    enabled: bool = False
+    theta: float = 0.5
+    gamma: float = 0.001
+
+
+@dataclass
 class Config:
     train_batch_size: Optional[int] = None
     train_micro_batch_size_per_gpu: Optional[int] = None
@@ -418,6 +462,16 @@ class Config:
     dump_state: bool = False
     activation_checkpointing: ActivationCheckpointingConfig = field(
         default_factory=ActivationCheckpointingConfig)
+    # the training step's instruments and schedules
+    wall_clock_breakdown: bool = False
+    memory_breakdown: bool = False
+    flops_profiler: FlopsProfilerConfig = field(default_factory=FlopsProfilerConfig)
+    data_efficiency: DataEfficiencyConfig = field(default_factory=DataEfficiencyConfig)
+    tensorboard: MonitorSubConfig = field(default_factory=MonitorSubConfig)
+    csv_monitor: MonitorSubConfig = field(default_factory=MonitorSubConfig)
+    wandb: MonitorSubConfig = field(default_factory=MonitorSubConfig)
+    comet: MonitorSubConfig = field(default_factory=MonitorSubConfig)
+    progressive_layer_drop: PLDConfig = field(default_factory=PLDConfig)
     dp_world_size: int = 1  # derived by finalize
 
     @property
@@ -968,13 +1022,14 @@ def parse_config(source: Any, dp_world_size: Optional[int] = None) -> Config:
         raise ConfigError(f"cannot parse config from {type(source)}")
     for k in _PASSTHROUGH_TOP & set(raw):
         raw.pop(k)
-    # the legacy top-level curriculum maps onto data_efficiency (JAX
-    # parse_config); the modern section wins when both are present
-    # (its mapped section is at JAX's default only when the legacy one is empty)
+    # the legacy top-level curriculum (the reference's
+    # curriculum_learning_legacy) maps onto data_efficiency, as in JAX's
+    # parse_config; the modern section wins when both are present
     if "curriculum_learning" in raw:
         legacy = raw.pop("curriculum_learning")
-        if "data_efficiency" not in raw and legacy:
-            _refuse("curriculum_learning", 9)
+        if "data_efficiency" not in raw:
+            raw["data_efficiency"] = {"enabled": bool(legacy.get("enabled", False)),
+                                      "curriculum_learning": legacy}
     raw = _strip_auto(raw)
     _refuse_unported(raw)
     cfg = _coerce(Config, raw)

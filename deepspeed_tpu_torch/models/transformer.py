@@ -49,12 +49,20 @@ that predicate holds, the plain body everywhere else (a cache longer than
 the queries, a non-zero offset); ``CACHE_ATTENTION`` counts each body's
 calls.
 
+Progressive layer drop (``runtime/progressive_layer_drop.py``):
+``forward(layer_keep=...)`` takes a host mask of the layers to run and
+skips the others outright — nothing is launched for a dropped layer, as
+JAX's ``lax.cond`` runs one branch (``transformer.py:662-680``), so it is
+the identity and its weights get no gradient.  A batch carries the mask
+as ``layer_keep`` (the engine draws it; a test can pass the mask JAX drew)
+or, as in JAX, a ``pld_theta`` to draw it from (``CausalLM.prepare_batch``).
+
 Not ported, each refused with ``NotImplementedError`` naming the option and
 its ROADMAP queue-1 item: ``domino_chunks`` (item 7),
 sequence parallelism (item 7), ``act_quant_bits`` (item 9, compression),
-``CausalLM(stack_apply=...)`` (item 7: pipeline), progressive layer drop
-(a batch's ``pld_theta``, item 9).  Manual tensor parallelism (JAX
-``decoder_layer``'s ``tp_axis``, item 7) has no counterpart here: one GPU.
+``CausalLM(stack_apply=...)`` (item 7: pipeline).  Manual tensor
+parallelism (JAX ``decoder_layer``'s ``tp_axis``, item 7) has no
+counterpart here: one GPU.
 """
 from __future__ import annotations
 
@@ -644,9 +652,11 @@ def forward(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
             positions: Optional[torch.Tensor] = None,
             segment_ids: Optional[torch.Tensor] = None,
             return_hidden: bool = False, cache=None, cache_index=None,
-            with_aux: bool = False):
+            with_aux: bool = False, layer_keep=None):
     """tokens [b, s] -> logits [b, s, v] (or the final-norm hidden states):
     a Python loop over the stacked layers, each under ``cfg.remat``.
+    ``layer_keep`` ([L] host bools or 0 / 1, progressive layer drop) skips
+    each layer whose entry is false.
 
     With ``cache`` (``init_kv_cache``, written in place) or ``with_aux``,
     returns JAX's triple ``(out, cache, moe_aux)``: ``moe_aux`` is the sum
@@ -694,8 +704,15 @@ def forward(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
         with offload_saved(lambda t: t is not o, copies):
             return checkpoint(_post_attention, lw, x, o, cfg, use_reentrant=False)
 
+    keep = None
+    if layer_keep is not None:
+        keep = [bool(k) for k in torch.as_tensor(layer_keep).reshape(-1).tolist()]
+        if len(keep) != cfg.num_layers:
+            raise ValueError(f"layer_keep has {len(keep)} entries for {cfg.num_layers} layers")
     aux_total = None
     for l, lw in enumerate(_unstack(params["layers"], cfg.num_layers)):
+        if keep is not None and not keep[l]:
+            continue  # a dropped layer is the identity: nothing runs
         if cache is not None:
             x, aux = _cached_layer(lw, x, cfg, positions, attn_fn,
                                    (cache[0][l], cache[1][l]), ci, rope_cs)
@@ -759,31 +776,39 @@ class CausalLM:
         return forward(params, tokens, self.cfg, **kw)
 
     def prepare_batch(self, batch, rng=None):
-        """(inputs, labels, segment_ids): the label shift and segment trim."""
-        if batch.get("pld_theta") is not None:
-            raise NotImplementedError("progressive layer drop (pld_theta) is not ported yet "
-                                      "(ROADMAP queue 1 item 9)")
+        """(inputs, labels, segment_ids, layer_keep): the label shift and
+        segment trim, and the progressive-layer-drop mask — the batch's
+        ``layer_keep``, or one drawn from its ``pld_theta`` with ``rng``
+        when that is a CPU generator (else PyTorch's default one), as JAX
+        draws it from the step's theta."""
         tokens = batch["input_ids"]
         segment_ids = batch.get("segment_ids")
+        layer_keep = batch.get("layer_keep")
+        if layer_keep is None and batch.get("pld_theta") is not None:
+            from ..runtime.progressive_layer_drop import layer_keep_mask
+
+            host = isinstance(rng, torch.Generator) and rng.device.type == "cpu"
+            layer_keep = layer_keep_mask(rng if host else None, self.cfg.num_layers,
+                                         float(batch["pld_theta"]))
         if "labels" in batch:
-            return tokens, batch["labels"], segment_ids
+            return tokens, batch["labels"], segment_ids, layer_keep
         if segment_ids is not None:
             segment_ids = segment_ids[:, :-1]
-        return tokens[:, :-1], tokens[:, 1:], segment_ids
+        return tokens[:, :-1], tokens[:, 1:], segment_ids, layer_keep
 
     def loss_fn(self, params: Params, batch, rng=None) -> torch.Tensor:
-        inputs, labels, segment_ids = self.prepare_batch(batch, rng)
+        inputs, labels, segment_ids, layer_keep = self.prepare_batch(batch, rng)
         if self.cfg.loss_chunk_size:
             from ..sequence.cross_entropy import chunked_cross_entropy
 
             hidden, _, aux = forward(params, inputs, self.cfg, segment_ids=segment_ids,
-                                     return_hidden=True, with_aux=True)
+                                     return_hidden=True, with_aux=True, layer_keep=layer_keep)
             loss = chunked_cross_entropy(hidden, head_kernel(params, self.cfg), labels,
                                          chunk_size=self.cfg.loss_chunk_size,
                                          head_bias=head_bias_vec(params))
         else:
             logits, _, aux = forward(params, inputs, self.cfg, segment_ids=segment_ids,
-                                     with_aux=True)
+                                     with_aux=True, layer_keep=layer_keep)
             loss = cross_entropy_loss(logits, labels)
         if self.cfg.moe_num_experts > 0:  # JAX: coef * aux / L
             loss = loss + self.cfg.moe_aux_loss_coef * aux / max(self.cfg.num_layers, 1)

@@ -16,6 +16,11 @@ into ``csrc/build/<source hash>/``.  Nothing is built at import.
 its main path went through the kernels.  A launch recorded into a
 ``CapturedGraph`` counts once per replay of the graph, not at capture.
 
+Inside ``count_kernel_flops()`` the training path's attention wrappers
+(K1f, K1b, K7f, K7b) also add the operations of each launch to
+``KERNEL_FLOPS``: a ``ctypes`` launch is invisible to PyTorch's
+``FlopCounterMode``, which the flops profiler reads for everything else.
+
 A kernel that fails to build, load or launch raises ``KernelError``;
 ``surfaces(exc)`` says whether an exception is such a fault (or any CUDA
 error, or one raised inside this package's wrappers), which the serving
@@ -30,7 +35,8 @@ import os
 import shutil
 import subprocess
 import time
-from typing import Dict, Iterable, Optional
+from contextlib import contextmanager
+from typing import Callable, Dict, Iterable, Optional
 
 import torch
 
@@ -156,6 +162,32 @@ def resolve_device(device=None) -> torch.device:
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+# kernel name -> operations launched inside ``count_kernel_flops``
+KERNEL_FLOPS: Dict[str, int] = {}
+_FLOP_COUNTING = {"depth": 0}
+
+
+@contextmanager
+def count_kernel_flops():
+    """Count the attention kernels' operations into ``KERNEL_FLOPS``
+    (cleared on entry) while the block runs.  Counting a launch with
+    segment ids reads the ids' pair count back to the host, so counting is
+    off outside such a block."""
+    KERNEL_FLOPS.clear()
+    _FLOP_COUNTING["depth"] += 1
+    try:
+        yield KERNEL_FLOPS
+    finally:
+        _FLOP_COUNTING["depth"] -= 1
+
+
+def add_flops(name: str, count: Callable[[], int]) -> None:
+    """Add ``count()`` operations to kernel ``name`` inside
+    ``count_kernel_flops`` (``count`` is not called outside it)."""
+    if _FLOP_COUNTING["depth"]:
+        KERNEL_FLOPS[name] = KERNEL_FLOPS.get(name, 0) + int(count())
 
 
 def _nvcc() -> str:

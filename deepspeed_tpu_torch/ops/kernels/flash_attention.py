@@ -27,6 +27,11 @@ one.
 Shapes: q/o/dO ``[b, s, hq, d]``, k/v ``[b, s, hkv, d]`` (hkv divides hq),
 segment_ids ``[b, s]`` int32, lse ``[b, hq, s]`` fp32 in capped scaled-score
 units (``flash_kernel.py:170``), delta ``[b, s, hq]`` fp32.
+
+Inside ``ops.kernels.count_kernel_flops`` a launch adds its operations to
+``KERNEL_FLOPS``: 4 hd a causal (query, key) pair and query head forward
+(``flash_fwd``), 10 hd backward (``flash_bwd``, the dq and dk/dv kernels
+as one pair), the counts ``PERF.md``'s bounds use.
 """
 from __future__ import annotations
 
@@ -35,7 +40,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..attention import dot_product_attention, repeat_kv
-from . import HEAD_DIMS, check_cuda, check_heads, launch, ptr, scalars
+from . import HEAD_DIMS, add_flops, check_cuda, check_heads, launch, ptr, scalars
 
 
 # ---------------------------------------------------------------------------
@@ -94,6 +99,23 @@ def flash_attention_bwd_plain(q, k, v, seg, o, lse, do, scale, cap, kv_seg=None,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def attention_pairs(q, segment_ids=None, kv_segment_ids=None, mask=None) -> int:
+    """The (query, key) pairs one query head of ``q`` [b, s, ...] attends
+    over: b s (s + 1) / 2 causal pairs, or, with segment ids (``kv_segment_ids``
+    for the keys) or an [s, s] bool ``mask``, the allowed pairs counted on
+    the device (a host read)."""
+    b, s = q.shape[:2]
+    if segment_ids is None and mask is None:
+        return b * s * (s + 1) // 2
+    allowed = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
+    if mask is not None:
+        allowed &= mask.to(q.device)
+    if segment_ids is None:
+        return b * int(allowed.sum())
+    ks = kv_segment_ids if kv_segment_ids is not None else segment_ids
+    return int((allowed[None] & (segment_ids[:, :, None] == ks[:, None, :])).sum())
+
+
 # ---------------------------------------------------------------------------
 # CUDA kernel wrappers
 # ---------------------------------------------------------------------------
@@ -123,6 +145,7 @@ def flash_attention_kernel(q, k, v, segment_ids=None, scale=None, logits_soft_ca
     sc, cap = scalars(scale if scale is not None else d ** -0.5, logits_soft_cap)
     launch("flash_fwd", ptr(q), ptr(k), ptr(v), seg_ptr, ptr(out),
            ptr(lse) if return_lse else None, b, s, hq, k.shape[2], d, sc, cap)
+    add_flops("flash_fwd", lambda: 4 * d * hq * attention_pairs(q, segment_ids))
     return (out, lse) if return_lse else out
 
 
@@ -146,6 +169,7 @@ def flash_attention_bwd_kernel(q, k, v, segment_ids, o, lse, do, scale=None,
     common = (ptr(q), ptr(k), ptr(v), seg_ptr, ptr(do), ptr(lse), ptr(delta))
     launch("flash_bwd_dq", *common, ptr(dq), b, s, hq, hkv, d, sc, cap)
     launch("flash_bwd_dkv", *common, ptr(dk), ptr(dv), b, s, hq, hkv, d, sc, cap)
+    add_flops("flash_bwd", lambda: 10 * d * hq * attention_pairs(q, segment_ids))
     return dq, dk, dv
 
 

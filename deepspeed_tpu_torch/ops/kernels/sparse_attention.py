@@ -38,8 +38,9 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from . import check_cuda, check_heads, launch, ptr, scalars
-from .flash_attention import flash_attention_bwd_plain, flash_attention_fwd_plain
+from . import add_flops, check_cuda, check_heads, launch, ptr, scalars
+from .flash_attention import (attention_pairs, flash_attention_bwd_plain,
+                              flash_attention_fwd_plain)
 
 
 def sparse_tables(layout: np.ndarray, causal: bool):
@@ -188,6 +189,18 @@ def _check(name, q, k, v, qseg, kseg, plan: SparsePlan):
     return ptr(qseg), ptr(kseg)
 
 
+def _active_pairs(q, qseg, kseg, plan: SparsePlan) -> int:
+    """(query, key) pairs one query head attends over under the plan's
+    causal layout: B^2 a block below the diagonal, B (B + 1) / 2 on it, a
+    batch row; with segment ids the allowed pairs counted on the device."""
+    if qseg is None:
+        below = int(np.tril(plan.layout, -1).sum())
+        diag = int(np.diag(plan.layout).sum())
+        bs = plan.block
+        return q.shape[0] * (below * bs * bs + diag * bs * (bs + 1) // 2)
+    return attention_pairs(q, qseg, kseg, element_mask(plan.layout, plan.block))
+
+
 def sparse_attention_kernel(q, k, v, qseg, kseg, plan: SparsePlan, scale, cap):
     """K7f: (o, lse)."""
     qs, ks = _check("sparse_attention", q, k, v, qseg, kseg, plan)
@@ -198,6 +211,7 @@ def sparse_attention_kernel(q, k, v, qseg, kseg, plan: SparsePlan, scale, cap):
     launch("sparse_fwd", ptr(q), ptr(k), ptr(v), qs, ks, ptr(out), ptr(lse), ptr(plan.tbl),
            ptr(plan.cnt), ptr(plan.perm), b, s, hq, k.shape[2], d, plan.block,
            plan.tbl.shape[1], sc, cp)
+    add_flops("sparse_fwd", lambda: 4 * d * hq * _active_pairs(q, qseg, kseg, plan))
     return out, lse
 
 
@@ -223,6 +237,7 @@ def sparse_attention_bwd_kernel(q, k, v, qseg, kseg, o, lse, do, plan: SparsePla
            b, s, hq, hkv, d, plan.block, plan.tbl.shape[1], sc, cp)
     launch("sparse_bwd_dkv", *common, ptr(dk), ptr(dv), ptr(plan.tblT), ptr(plan.cntT),
            ptr(plan.permT), b, s, hq, hkv, d, plan.block, plan.tblT.shape[1], sc, cp)
+    add_flops("sparse_bwd", lambda: 10 * d * hq * _active_pairs(q, qseg, kseg, plan))
     return dq, dk, dv
 
 

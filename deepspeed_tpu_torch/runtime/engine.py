@@ -62,6 +62,34 @@ its autograd graph, ``backward`` adds its scaled gradient to the flat
 gradient buffer, and ``step`` applies the sum at the accumulation boundary
 through ``_apply_grads`` (the optimizer's update; K8 on the card for the
 Adam family), as ``train_batch`` does.
+
+The step's instruments and schedules (JAX :170-178, :403-446,
+:1009-1131, :1356-1395), each off unless its config section turns it on:
+
+- timers (``utils/timer.py``): ``step`` around ``train_batch``, fenced only
+  under ``wall_clock_breakdown`` or at the profiler's step; ``fwd`` / ``bwd``
+  around ``forward`` / ``backward``; logged and reset at ``steps_per_print``
+  boundaries under ``wall_clock_breakdown``.  The throughput timer fences
+  at those boundaries (every step without ``async_metrics``);
+- ``memory_breakdown``: ``see_memory_usage`` at the boundaries;
+- the flops profiler: the step ``flops_profiler.profile_step`` runs under
+  ``profiling.executed_analysis`` (it counts and changes no result), then
+  ``FlopsProfiler.engine_step_hook`` writes the report;
+- the monitor (``engine.monitor``, attached by ``initialize``): each step's
+  ``Train/Samples/train_loss`` / ``lr`` / ``loss_scale`` and the telemetry
+  registry's snapshot, written when the metrics flush;
+- curriculum learning (``data_efficiency.curriculum_learning``): the
+  scheduler's difficulty at ``global_steps + 1``; under ``seqlen`` the
+  batch is cut to it;
+- progressive layer drop: each micro-batch gets a ``layer_keep`` mask
+  drawn on the host from theta at the step count (JAX's ``state.step``:
+  ``global_steps``, or, under fp16, ``device_step`` read back because an
+  overflow skip does not advance it), from a CPU ``torch.Generator``
+  seeded by (config seed, step, micro-batch) — JAX folds its step key the
+  same way, so a resumed run draws the masks the uninterrupted one did;
+  the model skips the dropped layers.  A loss
+  function without a model's layer count gets ``pld_theta`` instead, as in
+  JAX.
 """
 from __future__ import annotations
 
@@ -76,7 +104,9 @@ import torch
 from ..config.config import Config, ConfigError
 from ..ops.optimizers import _leaf_views, build_optimizer, set_path
 from ..telemetry import Telemetry, device_ready
-from ..utils.memory import memory_breakdown_report
+from ..utils.memory import memory_breakdown_report, see_memory_usage
+from ..utils.timer import (BACKWARD_GLOBAL_TIMER, FORWARD_GLOBAL_TIMER, STEP_GLOBAL_TIMER,
+                           SynchronizedWallClockTimer, ThroughputTimer)
 from . import precision
 from .dataloader import unwrap_loader_chain
 from .lr_schedules import LRScheduler, get_lr_schedule_fn
@@ -193,6 +223,11 @@ class DeepSpeedTorchEngine:
         self.loss_fn = loss_fn
         self.eval_fn = eval_fn
         self.model = None  # attached by initialize()
+        self.timers = SynchronizedWallClockTimer()
+        self.tput_timer = ThroughputTimer(batch_size=config.train_batch_size,
+                                          steps_per_output=config.steps_per_print)
+        self.monitor = None  # attached by initialize()
+        self.flops_profiler = None  # the profiler of the last profile_step
         # unified telemetry: train_batch spans with deferred device readings
         self.telemetry = Telemetry(config.telemetry)
         self._h_step = self.telemetry.registry.histogram("train/step_ms")
@@ -238,6 +273,23 @@ class DeepSpeedTorchEngine:
         self._prefetch_loader = None  # what the active prefetcher draws from
         self.training_dataloader = None  # set by initialize(training_data=...)
         self._ckpt_engine = None  # checkpoint/engine.py, made at the first save / load
+        self.progressive_layer_drop = None
+        self.pld_masks: List[torch.Tensor] = []  # the last step's mask of each micro-batch
+        if config.progressive_layer_drop.enabled:
+            from .progressive_layer_drop import ProgressiveLayerDrop
+
+            p = config.progressive_layer_drop
+            self.progressive_layer_drop = ProgressiveLayerDrop(p.theta, p.gamma)
+            logger.info("progressive layer drop enabled: theta=%s gamma=%s", p.theta, p.gamma)
+        self.curriculum_scheduler = None
+        cl = config.data_efficiency.curriculum_learning or {}
+        if config.data_efficiency.enabled and cl.get("enabled"):
+            from ..data.curriculum_scheduler import CurriculumScheduler
+
+            self.curriculum_scheduler = CurriculumScheduler(cl)
+            self._curriculum_metric = cl.get("curriculum_type", "seqlen")
+            logger.info("curriculum learning enabled: metric=%s schedule=%s",
+                        self._curriculum_metric, cl.get("schedule_type"))
         logger.info("engine ready: zero_stage=%d dtype=%s micro_batch=%d gas=%d device=%s",
                     config.zero_optimization.stage, config.precision_dtype,
                     config.train_micro_batch_size_per_gpu,
@@ -489,15 +541,39 @@ class DeepSpeedTorchEngine:
             return self._compute.loss_tree
         return precision.cast_floating(self.params, self.compute_dtype)
 
-    def _micro_loss(self, micro: Dict[str, torch.Tensor]) -> torch.Tensor:
-        """Loss of one micro-batch through the compute-type parameters, its
-        autograd graph attached."""
+    def _pld_step(self) -> int:
+        """The step count PLD's theta reads (JAX's ``state.step``): the
+        applied updates, which under fp16 lag ``global_steps`` by the
+        overflow skips (a host read of ``device_step``)."""
+        if self.config.fp16.enabled:
+            return int(self.device_step)
+        return self.global_steps
+
+    def _micro_loss(self, micro: Dict[str, torch.Tensor], index: int = 0) -> torch.Tensor:
+        """Loss of micro-batch ``index`` of the step through the compute-type
+        parameters, its autograd graph attached; under PLD the micro-batch
+        carries the layer mask drawn for it."""
+        pld = self.progressive_layer_drop
+        if pld is not None:
+            theta = pld.theta_at(self._pld_step())
+            cfg = getattr(self.model, "cfg", None)
+            if cfg is None:
+                micro = dict(micro, pld_theta=theta)
+            else:
+                from .progressive_layer_drop import layer_keep_mask, pld_generator
+
+                gen = pld_generator(self.config.seed, self.global_steps + 1, index)
+                keep = layer_keep_mask(gen, cfg.num_layers, theta)
+                self.pld_masks.append(keep)
+                micro = dict(micro, layer_keep=keep)
         return self.loss_fn(self._compute_params(), micro, self.generator)
 
-    def _micro_backward(self, micro: Dict[str, torch.Tensor], scale) -> torch.Tensor:
-        """Loss of one micro-batch; ``(loss * scale).backward()`` adds its
-        gradient, through the compute-type cast, to the masters' ``.grad``."""
-        loss = self._micro_loss(micro)
+    def _micro_backward(self, micro: Dict[str, torch.Tensor], scale,
+                        index: int = 0) -> torch.Tensor:
+        """Loss of micro-batch ``index``; ``(loss * scale).backward()`` adds
+        its gradient, through the compute-type cast, to the masters'
+        ``.grad``."""
+        loss = self._micro_loss(micro, index)
         (loss * scale if scale is not None else loss).backward()
         return loss.detach().float()
 
@@ -542,17 +618,34 @@ class DeepSpeedTorchEngine:
         scalar."""
         batch = self._to_device(batch)
         cfg = self.config
+        if self.curriculum_scheduler is not None:
+            difficulty = self.curriculum_scheduler.update_difficulty(self.global_steps + 1)
+            if self._curriculum_metric == "seqlen":
+                from ..data.curriculum_scheduler import truncate_to_seqlen
+
+                batch = truncate_to_seqlen(batch, difficulty)
         gas = cfg.gradient_accumulation_steps
         fp16 = cfg.fp16.enabled
         scale = self.loss_scale_state.scale if fp16 else None
+        fp = cfg.flops_profiler
+        profiling_now = fp.enabled and self.global_steps + 1 == fp.profile_step
+        counting = nullcontext({})
+        if profiling_now:
+            from ..profiling.flops_profiler import executed_analysis
+
+            counting = executed_analysis(self.device)
+        self.pld_masks = []
+        self.tput_timer.start()
+        self.timers(STEP_GLOBAL_TIMER).start()
         # the dispatch wall time lands now; the device reading waits for
         # the metrics flush (no per-step host sync)
         tb_span = self.telemetry.recorder.start(
             "train_batch", track="train", hist=self._h_step, step=self.global_steps + 1)
-        with self.telemetry.step_annotation("train_batch", self.global_steps + 1):
+        with self.telemetry.step_annotation("train_batch", self.global_steps + 1), \
+                counting as executed:
             loss_sum = torch.zeros((), dtype=torch.float32, device=self.device)
             for i in range(gas):
-                loss_sum += self._micro_backward({k: v[i] for k, v in batch.items()}, scale)
+                loss_sum += self._micro_backward({k: v[i] for k, v in batch.items()}, scale, i)
             divisor = scale * gas if fp16 else float(gas)
             if self._nvme_opt is not None:
                 grad_norm, lr, skipped = self._nvme_apply(divisor)
@@ -564,23 +657,66 @@ class DeepSpeedTorchEngine:
         self._last_metrics = metrics
         self.global_steps += 1
         self.lr_scheduler.step()
-        self._metrics_buffer.append(self.global_steps, metrics, keep_history=fp16)
-        if (not cfg.train_data.async_metrics
-                or self.global_steps % cfg.steps_per_print == 0):
+        self._metrics_buffer.append(
+            self.global_steps, metrics,
+            keep_history=fp16 or (self.monitor is not None and self.monitor.enabled))
+        if self.progressive_layer_drop is not None:
+            self.progressive_layer_drop.update_state(self.global_steps)
+        # the profiler divides its FLOPs by this window: a fenced device time
+        self.timers(STEP_GLOBAL_TIMER).stop(
+            sync_obj=metrics.loss if (cfg.wall_clock_breakdown or profiling_now) else None)
+        print_boundary = self.global_steps % cfg.steps_per_print == 0
+        async_metrics = cfg.train_data.async_metrics
+        self.tput_timer.stop(
+            sync_obj=metrics.loss if (not async_metrics or print_boundary) else None)
+        if cfg.memory_breakdown and print_boundary:
+            see_memory_usage(f"after step {self.global_steps}", force=True, device=self.device)
+        if not async_metrics or print_boundary:
             self._flush_step_metrics()
+        if profiling_now:
+            # before the timers' log below: log(reset=True) zeroes the step
+            # timer the profiler reads its latency from
+            self._run_flops_profiler(batch, executed)
+        if cfg.wall_clock_breakdown and print_boundary:
+            self.timers.log([FORWARD_GLOBAL_TIMER, BACKWARD_GLOBAL_TIMER, STEP_GLOBAL_TIMER],
+                            reset=True)
         return metrics.loss
 
+    def _run_flops_profiler(self, batch, executed) -> None:
+        """The flops profiler at ``profile_step`` (JAX :1118-1131): the
+        step's fenced duration, its counts, the report."""
+        from ..profiling.flops_profiler import FlopsProfiler
+
+        prof = FlopsProfiler(model=self.model, engine=self)
+        # this step's fenced duration, not the mean (step 1 carries the
+        # first calls' setup: set profile_step >= 2 for a clean reading)
+        prof._duration = self.timers(STEP_GLOBAL_TIMER).last()
+        prof.engine_step_hook(self, batch, executed)
+        self.flops_profiler = prof
+
     def _flush_step_metrics(self) -> None:
-        """Host accounting of the buffered metrics: fp16 skip counts and the
-        ``steps_per_print`` log line; the deferred telemetry spans settle at
-        the same boundary."""
+        """Host accounting of the buffered metrics: fp16 skip counts, the
+        ``steps_per_print`` log line and the monitor's events, a step at a
+        time in order (JAX :1356-1395); the deferred telemetry spans settle
+        at the same boundary."""
         self.telemetry.flush()
+        emit = self.monitor is not None and self.monitor.enabled
+        events = []
         for step, m in self._metrics_buffer.flush():
             if self.config.fp16.enabled and m.skipped:
                 self.skipped_steps += 1
             if step % self.config.steps_per_print == 0:
                 logger.info("step=%d loss=%.4f lr=%.3e grad_norm=%.3f", step, m.loss, m.lr,
                             m.grad_norm)
+            if emit:
+                events.extend([("Train/Samples/train_loss", m.loss, step),
+                               ("Train/Samples/lr", m.lr, step),
+                               ("Train/Samples/loss_scale", m.loss_scale, step)])
+        if emit and self.telemetry.enabled:
+            # the registry's aggregates ride the same (label, value, step) fan-out
+            events.extend(self.telemetry.registry.snapshot(self.global_steps))
+        if events:
+            self.monitor.write_events(events)
 
     # ------------------------------------------------------------------
     # the reference's forward / backward / step API (JAX :1133-1283)
@@ -595,7 +731,11 @@ class DeepSpeedTorchEngine:
         if self._nvme_opt is not None:
             raise NotImplementedError(
                 "offload_optimizer=nvme supports the fused train_batch() path only")
-        self._pending = self._micro_loss(stage(micro_batch, self.device).batch)
+        self.timers(FORWARD_GLOBAL_TIMER).start()
+        self.pld_masks = []
+        self._pending = self._micro_loss(stage(micro_batch, self.device).batch,
+                                         self._micro_steps % self.config.gradient_accumulation_steps)
+        self.timers(FORWARD_GLOBAL_TIMER).stop()
         return self._pending.detach().float()
 
     __call__ = forward
@@ -606,10 +746,12 @@ class DeepSpeedTorchEngine:
         step.  ``loss`` is accepted for the reference's signature; the
         gradient is the pending ``forward``'s."""
         assert self._pending is not None, "backward() without a prior forward()"
+        self.timers(BACKWARD_GLOBAL_TIMER).start()
         loss, self._pending = self._pending, None
         (loss * self.loss_scale_state.scale if self.config.fp16.enabled else loss).backward()
         self._micro_steps += 1
         self._grads_pending = True
+        self.timers(BACKWARD_GLOBAL_TIMER).stop()
 
     def is_gradient_accumulation_boundary(self) -> bool:
         """Whether ``step`` applies the gradients now: every
@@ -688,12 +830,22 @@ class DeepSpeedTorchEngine:
         scalar; ``get_last_loss()`` gives a synced value.  When the generator
         closes, the batches prefetched and never consumed go back to the
         loader's position, and a checkpoint saved meanwhile records that
-        same position.  A sampler with an ``index_filter`` (curriculum)
-        reads its difficulty at draw time, so it runs without prefetch,
-        as in JAX."""
+        same position.  A sampler with an ``index_filter`` (curriculum) or a
+        ``CurriculumDataSampler`` reads the live difficulty at draw time, so
+        it runs without prefetch, as in JAX (:1439-1450)."""
+        from ..data.data_analyzer import CurriculumDataSampler
+
+        def draws_at_live_difficulty(link) -> bool:
+            sampler = getattr(link, "data_sampler", None)
+            return (getattr(sampler, "index_filter", None) is not None
+                    or isinstance(sampler, CurriculumDataSampler)
+                    or isinstance(link, CurriculumDataSampler))
+
         depth = self.config.train_data.prefetch_depth
-        if depth > 0 and any(getattr(getattr(link, "data_sampler", None), "index_filter", None)
-                             is not None for link in unwrap_loader_chain(data_loader)):
+        if depth > 0 and any(draws_at_live_difficulty(link)
+                             for link in unwrap_loader_chain(data_loader)):
+            logger.info("train_on_loader: curriculum-driven sampling — no prefetch for this "
+                        "loader (the eligible pool is built at the consuming step's difficulty)")
             depth = 0
         n = 0
         if depth == 0:

@@ -1,6 +1,6 @@
 """Memory reporting — counterpart of ``deepspeed_tpu/utils/memory.py``
-(``memory_stats``, ``memory_breakdown_report``), the reference's
-``see_memory_usage`` analogue.
+(``memory_stats``, ``see_memory_usage``, ``memory_breakdown_report``),
+the reference's ``see_memory_usage`` analogue.
 
 The device figures come from PyTorch's caching allocator
 (``torch.cuda.memory_stats``: bytes allocated now and at peak) and the
@@ -10,9 +10,14 @@ process's RSS and peak RSS from procfs.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+import gc
+from typing import Any, Dict, Optional
 
 import torch
+
+from .logging import log_dist
+
+_GiB = 1024 ** 3
 
 
 def _host_memory() -> Dict[str, float]:
@@ -91,3 +96,28 @@ def memory_breakdown_report(engine) -> Dict[str, Any]:
                        pinned_bytes=engine._nvme_pool.registered_bytes)
         report["offload"] = off
     return report
+
+
+def see_memory_usage(message: str, force: bool = False, collect: bool = False,
+                     device=None) -> Optional[Dict[str, Any]]:
+    """Log a one-line memory breakdown and return the ``memory_stats``
+    snapshot (JAX ``see_memory_usage``, the reference's
+    ``runtime/utils.py:771``).  Without ``force`` it does nothing and
+    returns None, so call sites stay in the code and the engine's
+    ``memory_breakdown`` switch turns them on.  ``collect`` runs the host's
+    garbage collector and empties PyTorch's cache of free device blocks
+    first, as the reference does."""
+    if not force:
+        return None
+    if collect:
+        gc.collect()
+        if torch.cuda.is_available():
+            torch.cuda.empty_cache()
+    s = memory_stats(device)
+    log_dist(
+        f"MEMSTATS {message} | "
+        f"HBM in-use {s['device_bytes_in_use'] / _GiB:.2f} GB "
+        f"(peak {s['device_peak_bytes'] / _GiB:.2f} GB, "
+        f"limit {s['device_bytes_limit'] / _GiB:.2f} GB) | "
+        f"host RSS {s['host_rss_gb']:.2f} GB (peak {s['host_peak_rss_gb']:.2f} GB)")
+    return s

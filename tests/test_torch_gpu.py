@@ -41,7 +41,12 @@ its dense cache on K1f.  ZeRO-Offload: the CPU tier bit-identical to the
 plain engine on a 2-layer model (its state in pinned host memory, the
 card's bytes the compute copy, the gradients and the staging chunks), the
 NVMe tier within ``chip_smoke.NVME_TOL``, and a save / load resume under
-each tier bit for bit.  This file imports neither JAX nor the JAX package, so it
+each tier bit for bit.  The scheduled step: ``get_accelerator`` and a timer
+fence on the card; the flops profiler's count of K1 at its closed form on a
+520-token partial tile, with and without segments; a 3-layer engine with
+the curriculum, progressive layer drop and the profiler bit-identical to
+the same run unprofiled, K1f / K1b launched the kept layers x GAS.  This
+file imports neither JAX nor the JAX package, so it
 runs where only PyTorch is installed::
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
@@ -1343,3 +1348,92 @@ def test_offload_resume_on_the_card_is_bitwise(tmp_path, tier):
     got = chip_smoke._masters_cpu(torch, resumed)
     assert all(torch.equal(got[k], ref_m[k]) for k in ref_m)
     chip_smoke._close_engine(resumed)
+
+
+# ---------------------------------------------------------------------------
+# the instrumented, scheduled step (timers, accelerator, flops profiler,
+# progressive layer drop, curriculum lengths)
+# ---------------------------------------------------------------------------
+@pytest.mark.gpu
+def test_accelerator_and_timer_fence_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from deepspeed_tpu_torch.accelerator import get_accelerator
+    from deepspeed_tpu_torch.utils import timer
+
+    acc = get_accelerator()
+    assert acc.platform() == "cuda" and acc.device_kind() == torch.cuda.get_device_name(0)
+    assert acc.communication_backend_name() == "nccl"
+    x = torch.ones(1 << 20, device="cuda")
+    stats = acc.memory_stats()
+    assert stats["bytes_in_use"] >= x.numel() * 4 and stats["bytes_limit"] > 0
+    before = timer.TIMER_SYNCS["count"]
+    y = x * 2
+    timer._block(y)
+    assert timer.TIMER_SYNCS["count"] == before + 1 and torch.cuda.current_stream().query()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seg_lens", [None, [300, 220]])
+def test_profiler_counts_k1_at_its_closed_form_on_the_card(seg_lens):
+    """K1f / K1b under ``executed_analysis`` on the card: the kernels' own
+    count (4 hd a causal pair and query head, 10 hd backward) at s 520,
+    a partial tile; with segments, the pairs within them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from deepspeed_tpu_torch.profiling import executed_analysis
+
+    b, s, hq, hkv, hd = 2, 520, 8, 2, 128
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v = (torch.randn(b, s, h, hd, generator=gen, device="cuda", dtype=torch.bfloat16)
+               .requires_grad_(True) for h in (hq, hkv, hkv))
+    seg = None
+    pairs = b * s * (s + 1) // 2
+    if seg_lens is not None:
+        seg = torch.tensor([[0] * seg_lens[0] + [1] * seg_lens[1]] * b, dtype=torch.int32,
+                           device="cuda")
+        pairs = b * sum(n * (n + 1) // 2 for n in seg_lens)
+    with executed_analysis("cuda") as out:
+        flash_attention(q, k, v, segment_ids=seg).float().square().sum().backward()
+    assert out["kernel_flops"] == {"flash_fwd": 4 * hd * hq * pairs,
+                                   "flash_bwd": 10 * hd * hq * pairs}
+    assert out["peak_bytes"] > 0 and out["flops"] == out["aten_flops"] + 14 * hd * hq * pairs
+
+
+@pytest.mark.gpu
+def test_scheduled_step_on_the_card_is_bit_identical_with_the_profiler():
+    """A 2-layer engine with the curriculum (cut to 520), PLD and the
+    profiler on, against the same engine with the profiler off: the same
+    losses and masters to the bit; K1f / K1b the kept layers x GAS a step."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    import numpy as np
+
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.models.presets import get_preset
+    from deepspeed_tpu_torch.models.transformer import CausalLM, init_params
+
+    cfg = get_preset("tiny", hidden_size=256, intermediate_size=512, num_heads=2,
+                     num_kv_heads=1, num_layers=3, attn_impl="flash", remat="selective")
+    params = init_params(cfg, seed=0, device="cpu", dtype=torch.float32)
+    batch = {"input_ids": np.random.default_rng(0).integers(0, 256, (2, 2, 1025))}
+    conf = {"train_micro_batch_size_per_gpu": 2, "gradient_accumulation_steps": 2,
+            "optimizer": {"type": "adamw", "params": {"lr": 1e-3}},
+            "progressive_layer_drop": {"enabled": True, "theta": 0.3, "gamma": 1.0},
+            "data_efficiency": chip_smoke._curriculum(520, 1024, 4, 8)}
+    runs = {}
+    for prof in (False, True):
+        eng, _, _, _ = dst.initialize(model=CausalLM(cfg), params=params, config=dict(
+            conf, flops_profiler={"enabled": prof, "profile_step": 2}))
+        losses, kept, launches = [], [], []
+        for _ in range(3):
+            before = dict(K.LAUNCHES)
+            losses.append(float(eng.train_batch(batch)))
+            kept.append([int(m.sum()) for m in eng.pld_masks])
+            launches.append(chip_smoke._launch_diff(K, before))
+        runs[prof] = (losses, kept, launches, eng._masters.flat.clone())
+    assert runs[True][:2] == runs[False][:2]
+    assert torch.equal(runs[True][3], runs[False][3])
+    for ks, ls in zip(runs[True][1], runs[True][2]):
+        chip_smoke._step_launch_gate("test", ls, ks)
+    assert any(k < cfg.num_layers for ks in runs[True][1] for k in ks)

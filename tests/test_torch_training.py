@@ -201,8 +201,8 @@ def test_unported_forward_arguments_are_refused():
     tok = torch.zeros(1, 4, dtype=torch.long)
     with pytest.raises(NotImplementedError, match="stack_apply"):
         tt.CausalLM(cfg, stack_apply=lambda *a: None)
-    with pytest.raises(NotImplementedError, match="pld_theta"):
-        tt.CausalLM(cfg).loss_fn(params, {"input_ids": tok, "pld_theta": 0.5})
+    # a batch's pld_theta runs since slice 19 (tests/test_torch_pld.py)
+    tt.CausalLM(cfg).loss_fn(params, {"input_ids": tok, "pld_theta": 0.5})
     with pytest.raises(NotImplementedError, match="alibi"):
         tt.get_attn_fn(cfg.replace(position="alibi", attn_impl="flash"), "cpu")
 
@@ -672,9 +672,12 @@ def test_parse_config_batch_triangulation_matches_jax():
                  id="zero3-quantized-gradients-item-7"),
     ({"zero_optimization": {"zero_quantized_weights": True}}, "zero_quantized_weights"),
     ({"compression_training": {"enabled": True}}, "compression_training"),
-    ({"progressive_layer_drop": {"enabled": True}}, "progressive_layer_drop"),
+    # progressive_layer_drop and curriculum_learning run since slice 19
+    # (tests/test_torch_pld.py, test_torch_curriculum.py); these two cases
+    # hold sections still refused beside them
+    ({"hybrid_engine": {"enabled": True}}, "hybrid_engine"),
     ({"eigenvalue": {"enabled": True}}, "eigenvalue"),
-    ({"curriculum_learning": {"enabled": True}}, "curriculum_learning"),
+    ({"compile": {"enabled": False}}, "compile"),
     ({"elasticity": {"enabled": True}}, "elasticity"),
 ])
 def test_unported_config_keys_are_refused(raw, key):
@@ -700,22 +703,24 @@ OFF_CONFIGS = [
                            "mics_shard_size": -1, "offload_grad_dtype": "fp32"}},
 ]
 ON_CONFIGS = [
-    ({"wall_clock_breakdown": True}, "wall_clock_breakdown", 9),
-    ({"memory_breakdown": True}, "memory_breakdown", 9),
+    # the timers, the profiler, the monitors and data_efficiency run since
+    # slice 19 (tests/test_torch_timer_monitor.py); these cases hold the
+    # item-9 sections still refused
+    ({"eigenvalue": {"max_iter": 5}}, "eigenvalue", 9),
+    ({"hybrid_engine": {"enabled": True}}, "hybrid_engine", 9),
     ({"mesh": {"model": 2}}, "mesh", 7),
     # the moe section is parsed (tests/test_torch_moe.py); an expert axis
     # stays refused with it
     ({"moe": {"enabled": True}, "mesh": {"expert": 2}}, "mesh", 7),
     ({"tensor_parallel": {"enabled": True, "tp_size": 2}}, "tensor_parallel", 7),
     ({"comms_logger": {"enabled": True}}, "comms_logger", 7),
-    ({"flops_profiler": {"enabled": True}}, "flops_profiler", 9),
-    ({"flops_profiler": {"profile_step": 3}}, "flops_profiler", 9),
-    ({"tensorboard": {"enabled": True, "output_path": "tb"}}, "tensorboard", 9),
+    ({"elasticity": {"enabled": True}}, "elasticity", 9),
+    ({"hybrid_engine": {"max_out_tokens": 8}}, "hybrid_engine", 9),
+    ({"compile": {"backend": "inductor"}}, "compile", 9),
     ({"compression_training": {"weight_quantization": {"enabled": True}}},
      "compression_training", 9),
-    ({"data_efficiency": {"enabled": True}}, "data_efficiency", 9),
-    ({"curriculum_learning": {"enabled": False, "curriculum_type": "seqlen"}},
-     "curriculum_learning", 9),
+    ({"compression_training": {"enabled": True}}, "compression_training", 9),
+    ({"eigenvalue": {"enabled": True}}, "eigenvalue", 9),
     ({"compile": {"disable": True}}, "compile", 9),
     # aio and offload_param parse since slice 18 (tests/test_torch_offload.py);
     # these two cases hold ZeRO++ keys the port still refuses
