@@ -5,8 +5,15 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 Phases, each raising on failure (so the exit code is non-zero):
 
 1. build    -- compile the CUDA kernels from ``deepspeed_tpu_torch/csrc``
-               (one nvcc per source, in parallel) and print the build time
-               and each kernel's register / shared-memory report;
+               (one nvcc per source, in parallel), then dump each
+               library's SASS (one ``cuobjdump`` each, in parallel); all
+               the while the checks' halves that launch no kernel run
+               (``build_window_references``: the optimizers' updates and
+               eigen_check's HVP on the card and the CPU, compress_check's
+               transform pairs, the CPU engines of train_check,
+               sparse_train_check, schedule_check and compress_check);
+               print the build time, the window's and each kernel's
+               register / shared-memory report;
    sass     -- for every kernel of the tensor-core libraries (K1 dense,
                K7 block-sparse, K2 / K3 paged, the dequant-matmuls K4 /
                K5), its HGMMA, HMMA and FFMA instruction counts
@@ -261,6 +268,40 @@ Phases, each raising on failure (so the exit code is non-zero):
                within the difficulty; prints the profiler's MFU beside the
                train phase's, and the step time with wall_clock_breakdown
                off and on and with the count on;
+   compress_check -- the flagship's width at 2 layers: the compression
+               transform (QAT with an 8 -> 4 bit ramp on the MLP, l1
+               pruning of the attention, half the kv groups by head pruning
+               with wo related, half the MLP rows with w_down related) on
+               the card against the CPU in fp32 at steps before, at and
+               after the offsets and in bf16 at and after them, bit for
+               bit, and
+               ``redundancy_clean``'s kept units and shrunk tree; then
+               engines with every technique and 8-bit activations, the card
+               against the CPU in bf16 with train_check's limits;
+   compress_train -- the train cell with every technique on, 4 timed
+               steps beside the train phase's step, the transform's device
+               ms by profile; l1's kept count per leaf, half the units
+               kept, the shrunk tree's fp32 logits the masked tree's
+               within CLEAN_RTOL (and a tree keeping the pruned units
+               beyond it), the sort's threshold ``kthvalue``'s (both
+               timed);
+   kd_train -- a 12-layer student from the 24-layer teacher's odd layers
+               (``layer_reduction_init``) trained by ``make_kd_loss_fn``:
+               K1f (24 + 12) x GAS, K1b 12 x GAS a step;
+   lora_hybrid -- ``LoRACausalLM`` over the 24 layers (r 16, alpha 32)
+               trained 3 steps of the train cell: K8 once a step over the
+               adapters' elements alone, the bf16 base unchanged to the
+               bit, state bytes beside the plain engine's; the hybrid
+               engine's ``generate_batch`` (8 x 128 + 32) before and after
+               (the streams change; K1f / K2 layers x dispatches); a
+               ``decode_megastep`` hybrid's bursts, captured before
+               training, token-identical after the refresh to a per-tick
+               hybrid; a 2-layer merged copy near-argmax on the CPU;
+   eigen_check -- the flagship's width at 2 layers: the fp32
+               Hessian-vector product on the card against the CPU
+               (HVP_RTOL), the engine's ``block_eigenvalues`` at every
+               second step (its training on K1, the estimator on the plain
+               body), and a double backward through K1 and K7 raising;
    sparse_train -- the flagship with ``sparse_attention`` fixed(128, 4, 1)
                (192 of 528 causal blocks) and FusedAdam: SPARSE_TRAIN_STEPS
                timed steps; sparse_fwd / sparse_bwd_dq / sparse_bwd_dkv 48
@@ -344,6 +385,7 @@ import os
 import re
 import subprocess
 import sys
+import threading
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -763,19 +805,43 @@ def _sass_op(line):
     return words[0].rstrip(";") if words else None
 
 
-def _sass_functions(K, src):
-    """{mangled kernel name: [its opcodes with modifiers]} of ``src``'s
-    library (``cuobjdump -sass``)."""
+# {source: its library's ``cuobjdump -sass`` text}, for the sass phase
+SASS_DUMPS = {}
+
+
+def build_and_dump(K, out):
+    """``K.build()``, then the ``cuobjdump -sass`` of every library the sass
+    phase reads into SASS_DUMPS, one process each, all started together.
+    Fills ``out["build"]``, or ``out["error"]`` with what it raised."""
+    from concurrent.futures import ThreadPoolExecutor
+
     cuobjdump = os.path.join(os.path.dirname(K._nvcc()), "cuobjdump")
-    sass = subprocess.run([cuobjdump, "-sass", K._lib_path(src)], capture_output=True,
-                          text=True, check=True).stdout
+    srcs = (*FLASH_SOURCES, *PAGED_SOURCES, QMM_SOURCE, ROWQ_SOURCE)
+
+    def dump(src):
+        return subprocess.run([cuobjdump, "-sass", K._lib_path(src)], capture_output=True,
+                              text=True, check=True).stdout
+
+    try:
+        out["build"] = K.build()
+        with ThreadPoolExecutor(len(srcs)) as pool:
+            SASS_DUMPS.update(zip(srcs, pool.map(dump, srcs)))
+    except BaseException as exc:  # re-raised by the main thread
+        out["error"] = exc
+
+
+def _sass_functions(src):
+    """{mangled kernel name: [its opcodes with modifiers]} of ``src``'s
+    library, from its ``cuobjdump -sass`` text in SASS_DUMPS."""
     out, name = {}, None
-    for ln in sass.splitlines():
+    for ln in SASS_DUMPS[src].splitlines():
         if "Function :" in ln:
             name = ln.split("Function :", 1)[1].strip()
             out[name] = []
-        elif name is not None and _sass_op(ln):
-            out[name].append(_sass_op(ln))
+        elif name is not None:
+            op = _sass_op(ln)
+            if op:
+                out[name].append(op)
     return out
 
 
@@ -843,7 +909,7 @@ def sass_phase(K):
     out = {}
     for src in (*FLASH_SOURCES, *PAGED_SOURCES, QMM_SOURCE):
         counts = {name: {op: sum(o.split(".")[0] == op for o in ops) for op in SASS_OPS}
-                  for name, ops in _sass_functions(K, src).items()}
+                  for name, ops in _sass_functions(src).items()}
         regs = _ptxas_regs(K, src)
         for mangled, c in counts.items():
             key = (_qmm_kernel_key(mangled) if src == QMM_SOURCE else
@@ -899,7 +965,7 @@ def rowq_sass(K):
     one no F2FP."""
     regs = _ptxas_regs(K, ROWQ_SOURCE)
     out = {}
-    for mangled, ops in _sass_functions(K, ROWQ_SOURCE).items():
+    for mangled, ops in _sass_functions(ROWQ_SOURCE).items():
         base = [op.split(".")[0] for op in ops]
         c = {op: base.count(op) for op in ("F2FP", "F2I", "LDG", "STG", "CALL", "STL", "LDL")}
         c.update(LDG_128=sum(op.startswith("LDG") and ".128" in op for op in ops),
@@ -3939,34 +4005,53 @@ def grad_cosines(torch, got, ref):
                                                            dim=0)) for n in got}
 
 
-def train_check_phase(torch, K, gpu, sparse=None):
-    """Phase 5 (``train_check``), or with a ``sparse_attention`` section
-    ``sparse`` the same check of the block-sparse path
-    (``sparse_train_check``)."""
+TRAIN_CHECK = dict(seq=512, micro=2, gas=2, steps=2)
+
+
+def train_check_reference(torch, sparse=None):
+    """train_check's CPU half, which launches no kernel (``main`` runs it
+    while the kernels build): the port on the CPU in fp32 from the seeded
+    2-layer tree, layer 0's attention gradients of micro-batch 0 and the
+    losses of TRAIN_CHECK's steps, with the inputs both engines take."""
     import numpy as np
     from deepspeed_tpu_torch import initialize
     from deepspeed_tpu_torch.models.presets import get_preset
     from deepspeed_tpu_torch.models.transformer import CausalLM, init_params
 
-    seq, micro, gas, steps = 512, 2, 2, 2
+    z = TRAIN_CHECK
     cfg = get_preset("llama3_proxy_410m", num_layers=2, loss_chunk_size=2048)
     params = init_params(cfg, seed=SEED, device="cpu", dtype=torch.float32)
     batch = {"input_ids": np.random.default_rng(SEED).integers(
-        0, cfg.vocab_size, (gas, micro, seq + 1), dtype=np.int64)}
-    conf = bench_config(micro, gas, sparse)
-    card, _, _, _ = initialize(model=CausalLM(cfg), params=params, config=conf)
+        0, cfg.vocab_size, (z["gas"], z["micro"], z["seq"] + 1), dtype=np.int64)}
+    conf = bench_config(z["micro"], z["gas"], sparse)
     cpu, _, _, _ = initialize(model=CausalLM(cfg.replace(dtype=torch.float32)), params=params,
                               config={**conf, "bf16": {"enabled": False}}, device="cpu")
-    micro0 = {"input_ids": batch["input_ids"][0]}
-    g_card = _attn_grads(torch, card, micro0)
-    g_cpu = _attn_grads(torch, cpu, micro0)
-    cos = grad_cosines(torch, g_card, g_cpu)
+    grads = _attn_grads(torch, cpu, {"input_ids": batch["input_ids"][0]})
+    losses = [float(cpu.train_batch(batch)) for _ in range(z["steps"])]
+    return dict(cfg=cfg, params=params, batch=batch, conf=conf, sparse=sparse, grads=grads,
+                losses=losses)
+
+
+def train_check_phase(torch, K, gpu, ref):
+    """Phase 5 (``train_check``), or with the reference of a
+    ``sparse_attention`` section the same check of the block-sparse path
+    (``sparse_train_check``): the card (bf16) against ``ref``, the CPU
+    half of ``train_check_reference``."""
+    import numpy as np
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.models.transformer import CausalLM
+
+    z, cfg, sparse, batch = TRAIN_CHECK, ref["cfg"], ref["sparse"], ref["batch"]
+    card, _, _, _ = initialize(model=CausalLM(cfg), params=ref["params"], config=ref["conf"])
+    g_card = _attn_grads(torch, card, {"input_ids": batch["input_ids"][0]})
+    cos = grad_cosines(torch, g_card, ref["grads"])
     K.reset_launches()
-    card_losses = [float(card.train_batch(batch)) for _ in range(steps)]
+    card_losses = [float(card.train_batch(batch)) for _ in range(z["steps"])]
     launches = dict(K.LAUNCHES)
-    cpu_losses = [float(cpu.train_batch(batch)) for _ in range(steps)]
+    cpu_losses = ref["losses"]
     phase = "sparse_train_check" if sparse else "train_check"
-    check_train_launches(phase, launches, cfg.num_layers, gas, steps, sparse is not None)
+    check_train_launches(phase, launches, cfg.num_layers, z["gas"], z["steps"],
+                         sparse is not None)
     rel = abs(card_losses[0] - cpu_losses[0]) / abs(cpu_losses[0])
     if not all(np.isfinite(card_losses)) or rel > TRAIN_LOSS_RTOL:
         raise AssertionError(f"{phase}: step-1 loss card {card_losses[0]} vs CPU "
@@ -3975,10 +4060,10 @@ def train_check_phase(torch, K, gpu, sparse=None):
     if bad:
         raise AssertionError(f"{phase}: gradient cosine similarity {bad} <= {GRAD_COS_MIN}")
     res = dict(phase=phase, model="llama3_proxy_410m", layers=cfg.num_layers,
-               seq=seq, micro_batch=micro, gas=gas, steps=steps, sparse_attention=sparse,
-               optimizer=conf["optimizer"]["type"], card_losses=card_losses,
-               cpu_losses=cpu_losses, step1_loss_rel_err=rel, grad_cosine_layer0=cos,
-               launches=launches, gpu=gpu)
+               seq=z["seq"], micro_batch=z["micro"], gas=z["gas"], steps=z["steps"],
+               sparse_attention=sparse, optimizer=ref["conf"]["optimizer"]["type"],
+               card_losses=card_losses, cpu_losses=cpu_losses, step1_loss_rel_err=rel,
+               grad_cosine_layer0=cos, launches=launches, gpu=gpu)
     emit(res)
     return res
 
@@ -4098,10 +4183,11 @@ def train_phase(torch, K, gpu, sparse=None, steps=TRAIN_STEPS):
 # resumable training (checkpoint/, the data loader) and the HF round trip
 # ---------------------------------------------------------------------------
 CKPT_PRESET = "llama3_proxy_410m"  # CPU rehearsals: "tiny"
-# 12 of the flagship's 24 layers: the resume gates (losses to the bit, state
-# byte-equal) hold at any depth, and the full depth's saves cost the smoke's
-# time limit about 20 s
-CKPT_SIZES = dict(seq=4096, micro=8, gas=2, rows=64, layers=12)
+# 8 of the flagship's 24 layers: the resume gates (losses to the bit, state
+# byte-equal) hold at any depth, and the deeper saves cost the smoke's time
+# limit (24 layers about 20 s more than 12, which the model-shaping phases
+# then pushed past 1,100 s)
+CKPT_SIZES = dict(seq=4096, micro=8, gas=2, rows=64, layers=8)
 CKPT_DISK_MARGIN = 1.25  # free disk wanted over two checkpoints' bytes
 HF_SERVE = dict(prompts=4, prompt_len=64, new=16)
 
@@ -4581,19 +4667,28 @@ OPT_STEPS = 3
 FLAGSHIP = dict(seq=4096, micro=8, gas=2)
 
 
-def optimizer_check(torch, name):
-    """``name`` on the 2-layer full-width flagship tree, OPT_STEPS updates on
-    the card and on the CPU from the same seeded fp32 gradients."""
+def optimizer_inputs(torch):
+    """The optimizer checks' inputs: the 2-layer full-width flagship tree
+    (on the CPU), its flat copy and OPT_STEPS seeded fp32 gradients."""
     from deepspeed_tpu_torch.models.presets import get_preset
     from deepspeed_tpu_torch.models.transformer import init_params
-    from deepspeed_tpu_torch.ops.optimizers import build_optimizer
-    from deepspeed_tpu_torch.runtime.engine import _flat_masters, _leaves
+    from deepspeed_tpu_torch.runtime.engine import _leaves
 
     cfg = get_preset("llama3_proxy_410m", num_layers=2)
     tree = _tree_cpu(init_params(cfg, seed=SEED, device=DEVICE, dtype=torch.float32))
     p0 = torch.cat([x.reshape(-1) for x in _leaves(tree, [])])
     gen = torch.Generator().manual_seed(SEED + 7)
-    grads = [torch.randn(p0.numel(), generator=gen) * 1e-3 for _ in range(OPT_STEPS)]
+    return tree, p0, [torch.randn(p0.numel(), generator=gen) * 1e-3 for _ in range(OPT_STEPS)]
+
+
+def optimizer_check(torch, name, inputs):
+    """``name`` on the 2-layer full-width flagship tree, OPT_STEPS updates on
+    the card and on the CPU from the same seeded fp32 gradients
+    (``inputs``, ``optimizer_inputs``' result)."""
+    from deepspeed_tpu_torch.ops.optimizers import build_optimizer
+    from deepspeed_tpu_torch.runtime.engine import _flat_masters
+
+    tree, p0, grads = inputs
     out = {}
     for dev in (DEVICE, "cpu"):
         masters = _flat_masters(tree, torch.device(dev))  # the engine's layout
@@ -4691,12 +4786,12 @@ def _update_bound(name, leaves):
     return _bound(flops, nbytes, PEAK_FP32_FLOPS)
 
 
-def optimizers_phase(torch, K, gpu, adamw_step_s):
-    """Lamb, Lion, Adagrad and Muon: ``optimizer_check`` (card against CPU)
-    and ``optimizer_cost`` (the train flagship's step beside AdamW's)."""
+def optimizers_phase(torch, K, gpu, adamw_step_s, checks):
+    """Lamb, Lion, Adagrad and Muon: ``checks``, their ``optimizer_check``
+    (card against CPU, which launches no kernel: ``main`` runs it while the
+    kernels build), and ``optimizer_cost`` (the train flagship's step
+    beside AdamW's)."""
     t0 = time.perf_counter()
-    checks = {n: optimizer_check(torch, n) for n in NEW_OPTIMIZERS}
-    _free(torch)
     costs = {}
     for n in NEW_OPTIMIZERS:
         torch.cuda.reset_peak_memory_stats()
@@ -7359,9 +7454,44 @@ def _launch_diff(K, before):
     return {n: K.LAUNCHES[n] - before[n] for n in K.LAUNCHES if K.LAUNCHES[n] != before[n]}
 
 
-def schedule_check_phase(torch, K, gpu):
+def _schedule_micros(batch, keep):
+    """schedule_check's two micro-batches before any step: micro-batch 0
+    cut to the curriculum length, unmasked and under layer mask ``keep``."""
+    cut = {"input_ids": batch["input_ids"][0][:, :SCHEDULE_CHECK["cut"] + 1]}
+    return (("cut", cut), ("masked", dict(cut, layer_keep=keep[0])))
+
+
+def schedule_check_reference(torch):
+    """schedule_check's CPU half, which launches no kernel (``main`` runs
+    it while the kernels build): the port on the CPU in fp32 from the
+    seeded tree, the loss and layer 0's attention gradients of each of
+    ``_schedule_micros`` and step 1's loss, with the inputs both engines
+    take."""
+    import numpy as np
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.models.transformer import CausalLM, init_params
+
+    z = SCHEDULE_CHECK
+    cfg = _schedule_model(z["seq"], z["layers"]).cfg
+    params = init_params(cfg, seed=SEED, device="cpu", dtype=torch.float32)
+    batch = {"input_ids": np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (z["gas"], z["micro"], z["seq"] + 1), dtype=np.int64)}
+    keep = np.ones((z["gas"], cfg.num_layers), bool)
+    keep[:, 1] = False
+    conf = bench_config(z["micro"], z["gas"])
+    conf["data_efficiency"] = _curriculum(z["cut"], z["cut"], 1, 8)
+    cpu, _, _, _ = initialize(model=CausalLM(cfg.replace(dtype=torch.float32)), params=params,
+                              config={**conf, "bf16": {"enabled": False}}, device="cpu")
+    micros = {name: _loss_and_attn_grads(torch, cpu, micro)
+              for name, micro in _schedule_micros(batch, keep)}
+    return dict(params=params, batch=batch, keep=keep, conf=conf, micros=micros,
+                step1_loss=float(cpu.train_batch(batch)))
+
+
+def schedule_check_phase(torch, K, gpu, ref):
     """``schedule_check``: the flagship's width at 2 layers, the card (bf16)
-    against the port on the CPU (fp32) with train_check's limits, on a
+    against the port on the CPU (fp32, ``ref`` from
+    ``schedule_check_reference``) with train_check's limits, on a
     curriculum step cut from 1,024 to 520 tokens (K1 on a partial tile) and
     under a given layer mask that drops layer 1.  Before any step: the
     loss and layer 0's attention gradients of a cut micro-batch, unmasked
@@ -7374,31 +7504,19 @@ def schedule_check_phase(torch, K, gpu):
 
     import numpy as np
     from deepspeed_tpu_torch import initialize
-    from deepspeed_tpu_torch.models.transformer import CausalLM, init_params
 
     z = SCHEDULE_CHECK
     model = _schedule_model(z["seq"], z["layers"])
-    cfg = model.cfg
-    params = init_params(cfg, seed=SEED, device="cpu", dtype=torch.float32)
-    batch = {"input_ids": np.random.default_rng(SEED).integers(
-        0, cfg.vocab_size, (z["gas"], z["micro"], z["seq"] + 1), dtype=np.int64)}
-    keep = np.ones((z["gas"], cfg.num_layers), bool)
-    keep[:, 1] = False
-    conf = bench_config(z["micro"], z["gas"])
-    conf["data_efficiency"] = _curriculum(z["cut"], z["cut"], 1, 8)
+    cfg, batch, keep, conf = model.cfg, ref["batch"], ref["keep"], ref["conf"]
     with tempfile.TemporaryDirectory() as tmp:
         report_path = os.path.join(tmp, "profile.txt")
-        card, _, _, _ = initialize(model=model, params=params, device=DEVICE, config=dict(
+        card, _, _, _ = initialize(model=model, params=ref["params"], device=DEVICE, config=dict(
             conf, flops_profiler={"enabled": True, "profile_step": 1,
                                   "output_file": report_path}))
-        cpu, _, _, _ = initialize(model=CausalLM(cfg.replace(dtype=torch.float32)),
-                                  params=params, config={**conf, "bf16": {"enabled": False}},
-                                  device="cpu")
-        cut = {"input_ids": batch["input_ids"][0][:, :z["cut"] + 1]}
-        masked = dict(cut, layer_keep=keep[0])
         checks = {}
-        for name, micro in (("cut", cut), ("masked", masked)):
-            (lc, gc), (lp, gp) = (_loss_and_attn_grads(torch, e, micro) for e in (card, cpu))
+        for name, micro in _schedule_micros(batch, keep):
+            lc, gc = _loss_and_attn_grads(torch, card, micro)
+            lp, gp = ref["micros"][name]
             checks[name] = dict(card_loss=lc, cpu_loss=lp, loss_rel_err=abs(lc - lp) / abs(lp),
                                 grad_cosine_layer0=grad_cosines(torch, gc, gp))
         K.reset_launches()
@@ -7412,7 +7530,7 @@ def schedule_check_phase(torch, K, gpu):
         card_losses.append(float(card.train_batch(dict(batch, layer_keep=keep))))
         launches_masked = _launch_diff(K, before)
         launches = dict(K.LAUNCHES)
-    cpu_loss = float(cpu.train_batch(batch))
+    cpu_loss = ref["step1_loss"]
     step1_rel = abs(card_losses[0] - cpu_loss) / abs(cpu_loss)
     closed = k1_closed_form(cfg, z["micro"], z["cut"], [cfg.num_layers] * z["gas"])
     res = dict(phase="schedule_check", model=SCHEDULE_PRESET, layers=cfg.num_layers,
@@ -7440,7 +7558,7 @@ def schedule_check_phase(torch, K, gpu):
                       [cfg.num_layers] * z["gas"])
     _step_launch_gate("schedule_check (masked)", launches_masked,
                       [int(k.sum()) for k in keep])
-    del card, cpu
+    del card
     return res
 
 
@@ -7661,6 +7779,805 @@ PARTIAL_NOTES = {
 }
 
 
+# ---------------------------------------------------------------------------
+# compression-aware and parameter-efficient training: compression/ (QAT,
+# activation quantization, pruning, layer reduction + distillation), the
+# eigenvalue estimator, LoRA and the hybrid engine's generate
+# ---------------------------------------------------------------------------
+SHAPING_PRESET = "llama3_proxy_410m"  # CPU rehearsals: "tiny"
+# the transform card against CPU at 2 layers: steps before, at and after the
+# offsets (QAT and l1 pruning at 2, the structured masks at 3) in fp32, and
+# the bf16 leaves at and after them (the CPU's full-width transforms are
+# most of the phase's time); the engines at seq 256
+COMPRESS_CHECK = dict(layers=2, seq=256, micro=2, gas=2, steps=(1, 2, 3, 6),
+                      bf16_steps=(3, 6), offset=2)
+COMPRESS_TRAIN = dict(seq=4096, micro=8, gas=2, steps=4, offset=1)
+# redundancy_clean's shrunk tree against the masked tree: one sequence of
+# CLEAN_CHECK_SEQ tokens in fp32, max |logits difference| over max |logits|.
+# Read on an NVIDIA H100 80GB HBM3 at 700 W (llama3_proxy_410m, 24 layers):
+# 2.6e-6 for the right units, 1.33 for a tree keeping the pruned ones
+CLEAN_CHECK_SEQ = 512
+CLEAN_RTOL = 1e-4
+# the student's micro-batch holds the two [micro, seq, vocab] fp32 logits
+# the KD term reads (1 GB each at micro 2)
+KD_TRAIN = dict(seq=4096, micro=2, gas=2, steps=3, student_layers=12, alpha=0.5,
+                temperature=2.0)
+LORA_TRAIN = dict(seq=4096, micro=8, gas=2, steps=3, r=16, alpha=32.0, lr=1e-3)
+LORA_GEN = dict(prompts=8, prompt_len=128, new=32, burst=8, burst_prompts=2,
+                check_layers=2, check_seq=512, max_seq_len=1024)
+EIGEN_CHECK = dict(layers=2, seq=512, micro=1, gas=2, steps=2, max_iter=4, resolution=2)
+# the card's fp32 Hessian-vector product against the CPU's on the same v:
+# the same second-order sums in another order (TF32 off), relative Frobenius
+HVP_RTOL = 1e-4
+
+
+def compression_config(cfg, offset, structured_offset):
+    """Every technique at ``cfg``'s widths: QAT on the MLP with the 8 -> 4
+    bit ramp (one bit a step after ``offset``), l1 pruning of the
+    attention at 0.5, and from ``structured_offset`` half the kv groups
+    (head pruning on wq / wk / wv with ``num_heads`` the kv heads, wo's
+    input rows related: the shrunk tree keeps whole query groups) and half
+    the MLP rows (w_up / w_gate, w_down related); 8-bit activations."""
+    return {
+        "weight_quantization": {
+            "shared_parameters": {"enabled": True, "schedule_offset": offset,
+                                  "quantize_groups": 1, "quantization_type": "symmetric"},
+            "different_groups": {"wq1": {"params": {"start_bits": 8, "target_bits": 4,
+                                                    "quantization_period": 1},
+                                         "modules": ["layers/mlp"]}}},
+        "sparse_pruning": {
+            "shared_parameters": {"enabled": True, "method": "l1", "schedule_offset": offset},
+            "different_groups": {"sp1": {"params": {"dense_ratio": 0.5},
+                                         "modules": ["layers/attn"]}}},
+        "head_pruning": {
+            "shared_parameters": {"enabled": True, "num_heads": cfg.num_kv_heads,
+                                  "schedule_offset": structured_offset},
+            "different_groups": {"hp1": {"params": {"dense_ratio": 0.5},
+                                         "modules": [r"layers/attn/w[qkv]$"],
+                                         "related_modules": [[r"layers/attn/wo$"]]}}},
+        "row_pruning": {
+            "shared_parameters": {"enabled": True, "method": "l1",
+                                  "schedule_offset": structured_offset},
+            "different_groups": {"rp1": {"params": {"dense_ratio": 0.5},
+                                         "modules": [r"layers/mlp/w_(up|gate)$"],
+                                         "related_modules": [[r"layers/mlp/w_down$"]]}}},
+        "activation_quantization": {
+            "shared_parameters": {"enabled": True, "quantization_type": "symmetric"},
+            "different_groups": {"aq1": {"params": {"bits": 8}, "modules": [".*"]}}},
+    }
+
+
+def _shaping_model(layers=None, **over):
+    from deepspeed_tpu_torch.models.presets import get_preset
+    from deepspeed_tpu_torch.models.transformer import CausalLM
+
+    if SHAPING_PRESET == "llama3_proxy_410m":
+        over.setdefault("loss_chunk_size", 2048)
+    if layers is not None:
+        over["num_layers"] = layers
+    return CausalLM(get_preset(SHAPING_PRESET, **over))
+
+
+def _token_batch(cfg, gas, micro, seq, seed=SEED):
+    import numpy as np
+
+    return {"input_ids": np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (gas, micro, seq + 1), dtype=np.int64)}
+
+
+def _transformed_loss_and_attn_grads(torch, engine, micro, step, grads=True):
+    """(loss, layer 0's attention gradients) of one micro-batch through the
+    engine's compute-type cast and its compression transform at ``step``;
+    the loss alone, by a forward, without ``grads``."""
+    from deepspeed_tpu_torch.runtime.precision import cast_floating
+
+    names = ("wq", "wk", "wv", "wo")
+    attn = engine.params["layers"]["attn"]
+    with contextlib.nullcontext() if grads else torch.no_grad():
+        cp = cast_floating(engine.params, engine.compute_dtype)
+        cp = engine._compression.transform(cp, torch.tensor(step, dtype=torch.int32,
+                                                            device=engine.device))
+        loss = engine.model.loss_fn(cp, {k: torch.as_tensor(v).to(engine.device)
+                                         for k, v in micro.items()})
+    if not grads:
+        return float(loss), None
+    grads = torch.autograd.grad(loss, [attn[n] for n in names])
+    return float(loss.detach()), {n: g[0].float().cpu().flatten() for n, g in zip(names, grads)}
+
+
+def _tree_mismatches(torch, a, b):
+    """{path: differing elements} of two trees on any devices, bit for bit."""
+    fa, fb = _leaves(a), _leaves(b)
+    out = {}
+    for k in fa:
+        x, y = fa[k].detach().cpu(), fb[k].detach().cpu()
+        if x.shape != y.shape or x.dtype != y.dtype:
+            out[k] = f"shape / type {tuple(x.shape)} {x.dtype} vs {tuple(y.shape)} {y.dtype}"
+        elif not torch.equal(x.contiguous().view(torch.uint8), y.contiguous().view(torch.uint8)):
+            out[k] = int((x != y).sum())
+    return out
+
+
+def compress_check_reference(torch):
+    """compress_check's half that launches no kernel (``main`` runs it
+    while the kernels build), at the flagship's width and COMPRESS_CHECK's
+    2 layers.  The weight transform of every technique
+    (``compression_config`` with offsets 2 / 3) on the card against the CPU
+    at COMPRESS_CHECK's fp32 and bf16 steps, and ``redundancy_clean`` on
+    both: the mismatching elements of each pair, which must be none (the
+    same IEEE fp32 operations).  Then the CPU engine with every technique
+    active from step 0 (8-bit activations included) in the card's compute
+    type: the loss and layer 0's attention gradients of micro-batch 0
+    through the transform, and step 1's loss."""
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.compression.compress import CompressionManager
+    from deepspeed_tpu_torch.models.transformer import CausalLM, init_params
+
+    z = COMPRESS_CHECK
+    cfg = _shaping_model(z["layers"]).cfg
+    params = init_params(cfg, seed=SEED, device="cpu", dtype=torch.float32)
+    mgr = CompressionManager(compression_config(cfg, z["offset"], z["offset"] + 1))
+    transform = {}
+    for dtype, steps in ((torch.float32, z["steps"]), (torch.bfloat16, z["bf16_steps"])):
+        cpu_p = _to(params, "cpu", dtype)
+        card_p = _to(params, DEVICE, dtype)
+        for step in steps:
+            t0 = time.perf_counter()
+            got = mgr.transform(card_p, torch.tensor(step, dtype=torch.int32, device=DEVICE))
+            _sync(torch)
+            card_ms = 1e3 * (time.perf_counter() - t0)
+            want = mgr.transform(cpu_p, torch.tensor(step, dtype=torch.int32))
+            bits = mgr.wq_bits(mgr.weight_quant.groups[0], torch.tensor(step))
+            transform[f"{str(dtype)[6:]}_step{step}"] = dict(
+                mismatches=_tree_mismatches(torch, got, want), bits=float(bits),
+                card_ms=card_ms)
+    clean_card, info_card = mgr.redundancy_clean(_to(params, DEVICE))
+    clean_cpu, info_cpu = mgr.redundancy_clean(_to(params, "cpu"))
+    clean_mismatch = _tree_mismatches(torch, clean_card, clean_cpu)
+    del clean_card, clean_cpu
+    conf = bench_config(z["micro"], z["gas"])
+    conf["compression_training"] = compression_config(cfg, 0, 0)
+    batch = _token_batch(cfg, z["gas"], z["micro"], z["seq"])
+    # the CPU engine in the card's compute type: the transform then sees the
+    # same bf16 weights on both (identical masks and grids, as checked
+    # above), and what differs is the kernels' and products' rounding
+    cpu, _, _, _ = initialize(model=CausalLM(cfg), params=params, config=conf, device="cpu")
+    loss0, grads = _transformed_loss_and_attn_grads(
+        torch, cpu, {"input_ids": batch["input_ids"][0]}, 0)
+    # step 1's loss as train_batch reports it: the mean of the micro-batches'
+    # losses at step 0, each a forward before the step's update
+    losses = [loss0] + [_transformed_loss_and_attn_grads(torch, cpu, {"input_ids": m}, 0,
+                                                         grads=False)[0]
+                        for m in batch["input_ids"][1:]]
+    return dict(params=params, conf=conf, batch=batch, transform=transform,
+                clean_info=(info_card, info_cpu), clean_mismatch=clean_mismatch,
+                loss0=loss0, grads=grads, step1_loss=sum(losses) / len(losses))
+
+
+def compress_check_phase(torch, K, gpu, ref):
+    """``compress_check``: the flagship's width at 2 layers, the card
+    against ``ref`` (``compress_check_reference``: the transform's and
+    ``redundancy_clean``'s mismatches, card against CPU, must be none).
+    The card's engine with every technique active from step 0 (8-bit
+    activations included) in bf16 against the CPU engine's: the loss and
+    layer 0's attention gradients through the transform, step 1's loss
+    (train_check's limits), K1f / K1b layers x GAS and K8 once a step."""
+    import numpy as np
+    from deepspeed_tpu_torch import initialize
+
+    z = COMPRESS_CHECK
+    model = _shaping_model(z["layers"])
+    cfg, batch = model.cfg, ref["batch"]
+    card, _, _, _ = initialize(model=model, params=ref["params"], config=ref["conf"],
+                               device=DEVICE)
+    lc, gc = _transformed_loss_and_attn_grads(torch, card, {"input_ids": batch["input_ids"][0]},
+                                              0)
+    lp, cpu_loss = ref["loss0"], ref["step1_loss"]
+    cos = grad_cosines(torch, gc, ref["grads"])
+    K.reset_launches()
+    card_losses = [float(card.train_batch(batch)) for _ in range(2)]
+    launches = dict(K.LAUNCHES)
+    rel = abs(card_losses[0] - cpu_loss) / abs(cpu_loss)
+    transform, (info_card, info_cpu) = ref["transform"], ref["clean_info"]
+    res = dict(phase="compress_check", model=SHAPING_PRESET, layers=cfg.num_layers,
+               seq=z["seq"], micro_batch=z["micro"], gas=z["gas"], offsets=[z["offset"],
+                                                                            z["offset"] + 1],
+               transform=transform, redundancy_clean_info=info_card,
+               redundancy_clean_mismatches=ref["clean_mismatch"],
+               act_quant_bits=card.model.cfg.act_quant_bits,
+               before_step_loss=dict(card=lc, cpu=lp, rel_err=abs(lc - lp) / abs(lp)),
+               grad_cosine_layer0=cos, card_losses=card_losses, cpu_step1_loss=cpu_loss,
+               step1_loss_rel_err=rel, launches=launches, gpu=gpu)
+    emit(res)
+    bad = [f"transform {k}: {v['mismatches']}" for k, v in transform.items()
+           if v["mismatches"]]
+    if ref["clean_mismatch"] or info_card != info_cpu:
+        bad.append(f"redundancy_clean card vs CPU: {ref['clean_mismatch']} {info_card} "
+                   f"{info_cpu}")
+    if card.model.cfg.act_quant_bits != 8:
+        bad.append("activation bits not wired into the model")
+    if not abs(lc - lp) / abs(lp) <= TRAIN_LOSS_RTOL or not rel <= TRAIN_LOSS_RTOL \
+            or not np.isfinite(card_losses).all():
+        bad.append(f"losses card {lc} / {card_losses} vs CPU {lp} / {cpu_loss}")
+    if not all(c > GRAD_COS_MIN for c in cos.values()):
+        bad.append(f"gradient cosines {cos} <= {GRAD_COS_MIN}")
+    if bad:
+        raise AssertionError(f"compress_check: {bad}")
+    if DEVICE == "cuda":
+        check_train_launches("compress_check", launches, cfg.num_layers, z["gas"], 2, False)
+    del card
+    return res
+
+
+def _prune_kept(torch, leaf, dense_ratio):
+    """(kept, n, n - k, elements tied at the threshold) of l1 pruning's
+    mask over ``leaf``: n - k <= kept < n - k + ties."""
+    from deepspeed_tpu_torch.compression.compress import magnitude_prune_mask, prune_keep_index
+
+    a = leaf.float().abs().reshape(-1)
+    n = a.numel()
+    k = prune_keep_index(n, dense_ratio)
+    thr = torch.sort(a).values[k]
+    kept = int(magnitude_prune_mask(leaf, dense_ratio).sum())
+    return kept, n, n - k, int((a == thr).sum())
+
+
+def _kth_vs_sort(torch, leaf, dense_ratio):
+    """l1 pruning's threshold of ``leaf`` by a full sort (what the transform
+    runs, as JAX's ``jnp.sort``) and by ``torch.kthvalue``, the same value,
+    each timed (CUDA events, 5 calls)."""
+    from deepspeed_tpu_torch.compression.compress import prune_keep_index
+
+    a = leaf.float().abs().reshape(-1)
+    k = prune_keep_index(a.numel(), dense_ratio)
+    kth = torch.kthvalue(a, k + 1).values
+    srt = torch.sort(a).values[k]
+    out = dict(elements=a.numel(), k=k, same=bool(kth == srt), kthvalue_ms=None, sort_ms=None)
+    if DEVICE == "cuda":
+        out.update(kthvalue_ms=time_ms(torch, lambda: torch.kthvalue(a, k + 1), iters=5, warm=1),
+                   sort_ms=time_ms(torch, lambda: torch.sort(a), iters=5, warm=1))
+    return out
+
+
+def _logits_gap(torch, cfg, masked, clean, tokens):
+    """max |logits(clean) - logits(masked)| / max |logits(masked)| of
+    ``tokens`` [1, s]: ``masked`` (``export_params``) under ``cfg``,
+    ``clean`` (``redundancy_clean``, half the kv groups and MLP rows) under
+    ``cfg`` shrunk to it; both in fp32, with the plain attention body and
+    no activation fake-quant (whose rounding would move the gap by a grid
+    step)."""
+    from deepspeed_tpu_torch.models.transformer import forward
+
+    full = cfg.replace(dtype=torch.float32, attn_impl="reference", act_quant_bits=None)
+    small = full.replace(num_heads=cfg.num_heads // 2, num_kv_heads=cfg.num_kv_heads // 2,
+                         head_dim=cfg.hd, intermediate_size=cfg.intermediate_size // 2)
+    ref = forward(_to(masked, DEVICE, torch.float32), tokens, full)
+    got = forward(_to(clean, DEVICE, torch.float32), tokens, small)
+    return float((got - ref).abs().max() / ref.abs().max())
+
+
+def _clean_keeping_pruned(mgr, params):
+    """``redundancy_clean``'s shrunk tree with every structured keep-mask
+    inverted: the units that pruning removes (zeros after
+    ``export_params``) kept in place of the right ones, in the same shapes
+    at dense_ratio 0.5 — what compress_train's gate must tell apart."""
+    masks = mgr._structured_masks
+    mgr._structured_masks = lambda *a: {p: (~m, axis, units)
+                                        for p, (m, axis, units) in masks(*a).items()}
+    try:
+        return mgr.redundancy_clean(params)[0]
+    finally:
+        del mgr._structured_masks
+
+
+def compress_train_phase(torch, K, gpu, train_step_s):
+    """``compress_train``: the flagship (seq 4096, micro 8, GAS 2) with every
+    technique on (``compression_config``, offsets 1 / 2), 4 timed steps
+    beside the train phase's step (``train_step_s``, same call), then 2
+    with the activation fake-quant off; the transform's device ms by
+    profile (once a micro-batch).  Gates: K1f /
+    K1b 24 x GAS a step and K8 once; losses finite; l1's kept count per
+    attention leaf n - k (up to the ties at the threshold, the elements
+    equal to it); head / row kept units half of each; the logits of
+    ``redundancy_clean``'s shrunk tree are the masked tree's within
+    CLEAN_RTOL, where the shrunk tree that keeps the pruned units instead
+    is beyond it (``_logits_gap``)."""
+    import numpy as np
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.runtime.precision import cast_floating
+
+    z = COMPRESS_TRAIN
+    model = _shaping_model()
+    cfg = model.cfg
+    conf = bench_config(z["micro"], z["gas"])
+    conf["compression_training"] = compression_config(cfg, z["offset"], z["offset"] + 1)
+    torch.cuda.reset_peak_memory_stats()
+    engine, _, _, _ = initialize(model=model, config=conf, device=DEVICE)
+    mgr = engine._compression
+    batch = _token_batch(cfg, z["gas"], z["micro"], z["seq"])
+    first = float(engine.train_batch(batch))  # warm-up, step 0: the act quant alone
+    K.reset_launches()
+    step_s, losses = [], []
+    for _ in range(z["steps"]):
+        t0 = time.perf_counter()
+        losses.append(float(engine.train_batch(batch)))  # a host read: synced
+        step_s.append(time.perf_counter() - t0)
+    launches = dict(K.LAUNCHES)
+    # the same engine with the activation fake-quant off: its cost a step
+    bits = model.cfg.act_quant_bits
+    model.cfg = model.cfg.replace(act_quant_bits=None)
+    no_aq_s = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        float(engine.train_batch(batch))
+        no_aq_s.append(time.perf_counter() - t0)
+    model.cfg = model.cfg.replace(act_quant_bits=bits)
+    step = engine.device_step
+    with torch.no_grad():
+        cp = cast_floating(engine.params, engine.compute_dtype)
+        wall_ms, dev_ms, rows = _device_profile(torch, lambda: mgr.transform(cp, step), n=2)
+        shaped = mgr.transform(cp, step)
+        attn = _leaves(cp["layers"]["attn"])
+        pruned = {k: _prune_kept(torch, v, 0.5) for k, v in attn.items()}
+        kth = _kth_vs_sort(torch, attn["wq"], 0.5)
+        masked = mgr.export_params(cp)
+        clean, info = mgr.redundancy_clean(cp)
+        tokens = torch.as_tensor(batch["input_ids"][0][:1, :CLEAN_CHECK_SEQ]).to(DEVICE)
+        gaps = dict(kept=_logits_gap(torch, model.cfg, masked, clean, tokens),
+                    pruned_kept_instead=_logits_gap(torch, model.cfg, masked,
+                                                    _clean_keeping_pruned(mgr, cp), tokens))
+        zero_frac = {k: float((v == 0).float().mean()) for k, v in _leaves(shaped).items()
+                     if k.startswith("layers/attn") or k.startswith("layers/mlp")}
+    del cp, shaped, masked, clean
+    med = sorted(step_s)[len(step_s) // 2]
+    res = dict(phase="compress_train", model=SHAPING_PRESET, layers=cfg.num_layers,
+               seq=z["seq"], micro_batch=z["micro"], gas=z["gas"], timed_steps=z["steps"],
+               offsets=[z["offset"], z["offset"] + 1], warmup_loss=first, losses=losses,
+               step_s=step_s, step_s_median=med, train_step_s_median=train_step_s,
+               step_s_without_act_quant=no_aq_s,
+               step_vs_train=med / train_step_s if train_step_s else None,
+               transform_wall_ms=wall_ms, transform_device_ms=dev_ms,
+               transform_device_ms_per_step=None if dev_ms is None else dev_ms * z["gas"],
+               transform_step_share=None if dev_ms is None else
+               dev_ms * z["gas"] / (1e3 * med),
+               transform_profile_top=rows[:8], l1_threshold_kthvalue_vs_sort=kth,
+               l1_kept=pruned,
+               l1_kept_fraction={k: v[0] / v[1] for k, v in pruned.items()},
+               structured_info=info, zero_fraction=zero_frac,
+               redundancy_clean_logits_rel_err=gaps, redundancy_clean_tolerance=CLEAN_RTOL,
+               peak_memory_bytes=torch.cuda.max_memory_allocated() if DEVICE == "cuda"
+               else None, launches=launches,
+               launches_per_step={n: launches[n] / z["steps"] for n in launches}, gpu=gpu)
+    emit(res)
+    bad = []
+    if not (np.isfinite(first) and np.isfinite(losses).all()):
+        bad.append(f"losses {first} {losses}")
+    bad += [f"l1 {k}: kept {v[0]} of {v[1]}, want {v[2]} (+{v[3]} tied)"
+            for k, v in pruned.items() if not v[2] <= v[0] < v[2] + max(v[3], 1)]
+    for kind, per in info.items():
+        bad += [f"{kind} {p}: {u}" for p, u in per.items()
+                if u["kept_units"] != max(1, round(u["of"] * 0.5))]
+    if not gaps["kept"] <= CLEAN_RTOL < gaps["pruned_kept_instead"]:
+        bad.append(f"redundancy_clean's logits against the masked tree's: {gaps}, the "
+                   f"right units within {CLEAN_RTOL}, the pruned ones beyond it")
+    if not kth["same"]:
+        bad.append(f"kthvalue's threshold differs from the sorted one: {kth}")
+    if bad:
+        raise AssertionError(f"compress_train: {bad}")
+    if DEVICE == "cuda":
+        check_train_launches("compress_train", launches, cfg.num_layers, z["gas"], z["steps"],
+                             False)
+    del engine
+    return res
+
+
+def kd_train_phase(torch, K, gpu):
+    """``kd_train``: the flagship's 24 layers as the teacher and a 12-layer
+    student from ``layer_reduction_init`` (``teacher_layer`` the odd
+    layers) trained through ``make_kd_loss_fn`` (one student forward a
+    step, the teacher under no_grad), KD_TRAIN's steps.  Gates: the
+    student's leaves the teacher's odd layers (bit for bit); K1f (24 + 12)
+    x GAS a step, K1b 12 x GAS, K8 once; losses finite."""
+    import numpy as np
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.compression.compress import layer_reduction_init, make_kd_loss_fn
+    from deepspeed_tpu_torch.models.transformer import init_params
+
+    z = KD_TRAIN
+    teacher = _shaping_model()
+    tcfg = teacher.cfg
+    ids = list(range(1, tcfg.num_layers, 2))[:z["student_layers"]]
+    student = _shaping_model(len(ids))
+    t_params = init_params(tcfg, seed=SEED, device=DEVICE, dtype=torch.float32)
+    lr = {"enabled": True, "keep_number_layer": len(ids), "teacher_layer": ids,
+          "module_name_prefix": "layers"}
+    s_params = layer_reduction_init(t_params, lr)
+    same = all(torch.equal(s_params["layers"][g][n], t_params["layers"][g][n][ids])
+               for g in s_params["layers"] for n in s_params["layers"][g])
+    loss_fn = make_kd_loss_fn(student, teacher, t_params, alpha=z["alpha"],
+                              temperature=z["temperature"])
+    del t_params  # the loss keeps the teacher in the compute type
+    torch.cuda.reset_peak_memory_stats()
+    engine, _, _, _ = initialize(model=student, params=s_params, loss_fn=loss_fn,
+                                 config=bench_config(z["micro"], z["gas"]), device=DEVICE)
+    del s_params
+    batch = _token_batch(tcfg, z["gas"], z["micro"], z["seq"])
+    first = float(engine.train_batch(batch))
+    K.reset_launches()
+    step_s, losses = [], []
+    for _ in range(z["steps"]):
+        t0 = time.perf_counter()
+        losses.append(float(engine.train_batch(batch)))
+        step_s.append(time.perf_counter() - t0)
+    launches = dict(K.LAUNCHES)
+    res = dict(phase="kd_train", model=SHAPING_PRESET, teacher_layers=tcfg.num_layers,
+               student_layers=len(ids), teacher_layer=ids, seq=z["seq"],
+               micro_batch=z["micro"], gas=z["gas"], alpha=z["alpha"],
+               temperature=z["temperature"], student_is_teacher_layers=same,
+               warmup_loss=first, losses=losses, step_s=step_s,
+               step_s_median=sorted(step_s)[len(step_s) // 2],
+               peak_memory_bytes=torch.cuda.max_memory_allocated() if DEVICE == "cuda"
+               else None, launches=launches,
+               launches_per_step={n: launches[n] / z["steps"] for n in launches}, gpu=gpu)
+    emit(res)
+    if not same or not (np.isfinite(first) and np.isfinite(losses).all()):
+        raise AssertionError(f"kd_train: student from the teacher {same}, losses {losses}")
+    if DEVICE == "cuda":
+        n = z["steps"] * z["gas"]
+        want = {"flash_fwd": (tcfg.num_layers + len(ids)) * n, "flash_bwd_dq": len(ids) * n,
+                "flash_bwd_dkv": len(ids) * n, "fused_adamw": z["steps"]}
+        bad = {k: (launches[k], w) for k, w in want.items() if launches[k] != w}
+        if bad:
+            raise AssertionError(f"kd_train: launches (got, expected) {bad}")
+    del engine, loss_fn
+    return res
+
+
+def _hybrid_gen(torch, K, hyb, prompts, samp, batched=True):
+    """Greedy streams of ``prompts`` through the hybrid engine
+    (``generate_batch``, or ``generate`` one prompt at a time), with the
+    launches and the serving engine's dispatches they took."""
+    inf = hyb._inference
+    s0 = dict(inf.stats)
+    before = dict(K.LAUNCHES)
+    out = hyb.generate_batch(prompts, samp) if batched else [hyb.generate(p, samp)
+                                                             for p in prompts]
+    _sync(torch)
+    return out, _launch_diff(K, before), {k: inf.stats[k] - s0[k] for k in (
+        "prefill_dispatches", "decode_ticks", "decode_bursts", "burst_ticks")}
+
+
+def _k8_sizes(torch):
+    """A context recording the element count of each K8 launch by the
+    optimizers (``ops.optimizers.fused_adamw_flat``)."""
+    import deepspeed_tpu_torch.ops.optimizers as O
+
+    sizes = []
+    real = O.fused_adamw_flat
+
+    @contextlib.contextmanager
+    def ctx():
+        def rec(p, *a, **kw):
+            sizes.append(int(p.numel()))
+            return real(p, *a, **kw)
+
+        O.fused_adamw_flat = rec
+        try:
+            yield sizes
+        finally:
+            O.fused_adamw_flat = real
+
+    return ctx()
+
+
+def lora_check(torch, K):
+    """A 2-layer LoRA engine at full width, one step at LORA_GEN's check
+    length, then its hybrid's greedy streams replayed on the CPU in fp32
+    through the merged weights (near-argmax)."""
+    import numpy as np
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.inference.sampling import SamplingParams
+    from deepspeed_tpu_torch.linear import LoRACausalLM, LoRAConfig
+    from deepspeed_tpu_torch.runtime.hybrid_engine import DeepSpeedHybridEngine
+
+    z, g = LORA_TRAIN, LORA_GEN
+    model = LoRACausalLM(_shaping_model(g["check_layers"]),
+                         LoRAConfig(lora_r=z["r"], lora_alpha=z["alpha"]))
+    conf = bench_config(2, 1)
+    conf["optimizer"]["params"]["lr"] = z["lr"]
+    engine, _, _, _ = initialize(model=model, params=model.init_params(seed=SEED, device=DEVICE),
+                                 config=conf, device=DEVICE)
+    engine.train_batch(_token_batch(model.cfg, 1, 2, g["check_seq"]))
+    hyb = DeepSpeedHybridEngine(engine, max_seqs=g["prompts"], num_blocks=256, block_size=32,
+                                max_seq_len=g["max_seq_len"])
+    rng = np.random.default_rng(SEED + 20)
+    prompts = [rng.integers(1, model.cfg.vocab_size, g["prompt_len"]).tolist()
+               for _ in range(g["prompts"])]
+    out = hyb.generate_batch(prompts, SamplingParams(temperature=0.0, max_new_tokens=g["new"]))
+    merged = _tree_cpu(model.export_merged(engine.params))
+    worst, exact, total = replay_on_cpu(torch, merged, model.cfg,
+                                        dict(enumerate(prompts)), dict(enumerate(out)))
+    audit = hyb._inference.close()
+    del hyb, engine
+    return dict(layers=g["check_layers"], argmax_exact=f"{exact}/{total}",
+                argmax_worst_gap=worst, tolerance=ARGMAX_TOL_FRAC, close=audit)
+
+
+def lora_hybrid_phase(torch, K, gpu, train_res):
+    """``lora_hybrid``: ``LoRACausalLM`` over the flagship's 24 layers (r 16,
+    alpha 32, the default targets, the base frozen in bf16) trained 3
+    steps of the train cell, then ``DeepSpeedHybridEngine.generate_batch``
+    (8 prompts x 128 tokens, 32 greedy tokens) before and after.  Gates:
+    K8 once a step over exactly the adapters' elements (the launches'
+    sizes recorded); the base bit-identical after training; K1f / K2 layers
+    x dispatches; the generations change after training; a hybrid with
+    ``decode_megastep`` 8, whose burst graph was captured before training,
+    token-identical after the refresh to a per-tick hybrid (the graph
+    reads the refreshed weights in place); the 2-layer merged copy
+    near-argmax on the CPU; no leak.  Reports the masters' and the
+    optimizer's bytes beside the plain engine's (4 and 8 bytes a
+    parameter, +4) and the peak beside the train phase's
+    (``train_res``)."""
+    import numpy as np
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.inference.sampling import SamplingParams
+    from deepspeed_tpu_torch.linear import LoRACausalLM, LoRAConfig
+    from deepspeed_tpu_torch.runtime.hybrid_engine import DeepSpeedHybridEngine
+
+    z, g = LORA_TRAIN, LORA_GEN
+    K.reset_launches()
+    check = lora_check(torch, K)
+    _free(torch)
+    inner = _shaping_model()
+    cfg = inner.cfg
+    model = LoRACausalLM(inner, LoRAConfig(lora_r=z["r"], lora_alpha=z["alpha"]))
+    params = model.init_params(seed=SEED, device=DEVICE)
+    n_lora = sum(t.numel() for t in _leaves(params["lora"]).values())
+    base0 = {k: v.clone() for k, v in _leaves(params["base"]).items()}
+    conf = bench_config(z["micro"], z["gas"])
+    conf["optimizer"]["params"]["lr"] = z["lr"]
+    if DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    engine, _, _, _ = initialize(model=model, params=params, config=conf, device=DEVICE)
+    del params
+    mem = engine.memory_breakdown()
+    serve = dict(max_seqs=g["prompts"], num_blocks=256, block_size=32,
+                 max_seq_len=g["max_seq_len"])
+    hyb = DeepSpeedHybridEngine(engine, **serve)
+    burst = DeepSpeedHybridEngine(engine, serve={"decode_megastep": g["burst"]}, **serve)
+    tick = DeepSpeedHybridEngine(engine, **serve)
+    rng = np.random.default_rng(SEED + 21)
+    prompts = [rng.integers(1, cfg.vocab_size, g["prompt_len"]).tolist()
+               for _ in range(g["prompts"])]
+    samp = SamplingParams(temperature=0.0, max_new_tokens=g["new"])
+    t0 = time.perf_counter()
+    gen0, l_gen0, d_gen0 = _hybrid_gen(torch, K, hyb, prompts, samp)
+    gen0_s = time.perf_counter() - t0
+    bp = prompts[:g["burst_prompts"]]
+    b0, _, db0 = _hybrid_gen(torch, K, burst, bp, samp, batched=False)  # captures the graph
+    graphs0 = dict(burst._inference._burst.graphs) if burst._inference._burst else {}
+    batch = _token_batch(cfg, z["gas"], z["micro"], z["seq"])
+    before = dict(K.LAUNCHES)
+    step_s, losses = [], []
+    with _k8_sizes(torch) as sizes:
+        for _ in range(z["steps"]):
+            t0 = time.perf_counter()
+            losses.append(float(engine.train_batch(batch)))
+            step_s.append(time.perf_counter() - t0)
+    l_train = _launch_diff(K, before)
+    peak = torch.cuda.max_memory_allocated() if DEVICE == "cuda" else None
+    base_same = all(torch.equal(v, base0[k]) for k, v in _leaves(engine.params["base"]).items())
+    del base0
+    t0 = time.perf_counter()
+    gen1, l_gen1, d_gen1 = _hybrid_gen(torch, K, hyb, prompts, samp)  # refresh, then generate
+    gen1_s = time.perf_counter() - t0
+    b1, _, db1 = _hybrid_gen(torch, K, burst, bp, samp, batched=False)
+    t1, _, dt1 = _hybrid_gen(torch, K, tick, bp, samp, batched=False)
+    graphs1 = dict(burst._inference._burst.graphs) if burst._inference._burst else {}
+    same_graphs = bool(graphs0) and all(graphs1.get(k) is v for k, v in graphs0.items()) \
+        and len(graphs1) == len(graphs0)
+    audits = [h._inference.close() for h in (hyb, burst, tick)]
+    changed = sum(a != b for x, y in zip(gen0, gen1) for a, b in zip(x, y))
+    L = cfg.num_layers
+    dec = decode_kernel(cfg)
+    gen_gate = {name: (l.get("flash_fwd", 0), L * d["prefill_dispatches"],
+                       l.get(dec, 0), L * d["decode_ticks"])
+                for name, l, d in (("before", l_gen0, d_gen0), ("after", l_gen1, d_gen1))}
+    plain_params = cfg.param_count
+    res = dict(phase="lora_hybrid", model=SHAPING_PRESET, layers=L, r=z["r"],
+               alpha=z["alpha"], seq=z["seq"], micro_batch=z["micro"], gas=z["gas"],
+               lr=z["lr"], adapter_elements=n_lora, k8_launch_elements=sizes,
+               losses=losses, step_s=step_s, step_s_median=sorted(step_s)[len(step_s) // 2],
+               train_step_s_median=train_res["step_s_median"],
+               master_params_bytes=mem["master_params_bytes"],
+               opt_state_bytes=mem["opt_state_bytes"],
+               plain_master_params_bytes=4 * plain_params,
+               plain_opt_state_bytes=8 * plain_params + 4,
+               peak_memory_bytes=peak, train_peak_memory_bytes=train_res["peak_memory_bytes"],
+               base_bit_identical=base_same, generate_batch_s=dict(before=gen0_s, after=gen1_s),
+               generations_changed_tokens=f"{changed}/{g['prompts'] * g['new']}",
+               dispatches=dict(before=d_gen0, after=d_gen1),
+               launches_gate=gen_gate, burst_dispatches=dict(before=db0, after=db1,
+                                                             per_tick=dt1),
+               burst_graphs_kept=same_graphs,
+               bursts_token_identical_to_per_tick=b1 == t1,
+               burst_changed_after_training=b1 != b0, narrow_check=check, close=audits,
+               launches_train=l_train, launches=dict(K.LAUNCHES), gpu=gpu)
+    emit(res)
+    bad = []
+    if not np.isfinite(losses).all():
+        bad.append(f"losses {losses}")
+    if not base_same:
+        bad.append("the frozen base moved")
+    if engine._masters.flat.numel() != n_lora or mem["opt_state_bytes"] != 8 * n_lora + 4:
+        bad.append(f"masters {engine._masters.flat.numel()} / state {mem['opt_state_bytes']} "
+                   f"for {n_lora} adapter elements")
+    if changed == 0:
+        bad.append("the generations did not change after training")
+    if b1 != t1:
+        bad.append("bursts after the refresh differ from per-tick decoding")
+    if check["argmax_worst_gap"] > ARGMAX_TOL_FRAC:
+        bad.append(f"2-layer merged replay {check}")
+    if any(a["blocks_in_use"] for a in audits + [check["close"]]):
+        bad.append(f"leaked blocks {audits} {check['close']}")
+    if DEVICE == "cuda":
+        if sizes != [n_lora] * z["steps"]:
+            bad.append(f"K8 launches over {sizes}, want {z['steps']} x {n_lora}")
+        if l_train.get("fused_adamw") != z["steps"] or any(
+                l_train.get(n) != L * z["gas"] * z["steps"] for n in ATTN_KERNELS[False]):
+            bad.append(f"training launches {l_train}")
+        bad += [f"{k}: K1f {a} != {b} or {dec} {c} != {d}" for k, (a, b, c, d) in gen_gate.items()
+                if a != b or c != d or b == 0]
+        if not (db0["decode_bursts"] and db1["decode_bursts"] and same_graphs):
+            bad.append(f"bursts {db0} {db1}, graphs kept {same_graphs}")
+    if bad:
+        raise AssertionError(f"lora_hybrid: {bad}")
+    del engine, hyb, burst, tick
+    return res
+
+
+def _double_backward_raises(torch, attn, device, dtype):
+    """Whether a second derivative through ``attn`` raises the
+    once-differentiable error (s 256, 8 heads on 2 kv heads, hd 128)."""
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    q, k, v = (torch.randn((1, 256, h, 128), generator=gen, device=device).to(dtype)
+               .requires_grad_(True) for h in (8, 2, 2))
+    w = torch.randn((1, 256, 8, 128), generator=gen, device=device).to(dtype)
+    o = attn(q, k, v)
+    loss = (o.float() * w.float()).sum() ** 2 + (q.float() ** 3).sum()
+    g, = torch.autograd.grad(loss, q, create_graph=True)
+    try:
+        torch.autograd.grad((g.float() * w.float()).sum(), q)
+    except RuntimeError as exc:
+        return "differentiate twice" in str(exc)
+    return False
+
+
+def hvp_check(torch):
+    """eigen_check's Hessian-vector product, which launches no kernel
+    (``main`` runs it while the kernels build): the flagship's width at
+    EIGEN_CHECK's layers and seq, in fp32 through the plain attention body
+    the estimator runs, on the card and on the CPU on the same ``v``.
+    Returns (relative Frobenius error, card seconds, CPU seconds)."""
+    from deepspeed_tpu_torch.models.transformer import CausalLM, init_params
+    from deepspeed_tpu_torch.runtime.eigenvalue import hvp_fn
+
+    z = EIGEN_CHECK
+    cfg = _shaping_model(z["layers"]).cfg
+    params = init_params(cfg, seed=SEED, device="cpu", dtype=torch.float32)
+    batch = _token_batch(cfg, z["gas"], z["micro"], z["seq"])
+    micro0 = {"input_ids": torch.as_tensor(batch["input_ids"][0])}
+    ref = CausalLM(cfg.replace(dtype=torch.float32, attn_impl="reference"))
+    gen = torch.Generator().manual_seed(SEED + 30)
+    v = [torch.randn(x.shape, generator=gen) for x in _leaves(params).values()]
+    hv = {}
+    for dev in (DEVICE, "cpu"):
+        t0 = time.perf_counter()
+        hvp, _ = hvp_fn(ref.loss_fn, _to(params, dev),
+                        {k: t.to(dev) for k, t in micro0.items()})
+        hv[dev] = [h.cpu() for h in hvp([x.to(dev) for x in v])]
+        hv[f"{dev}_s"] = time.perf_counter() - t0
+        del hvp
+    num = sum(float(((a.double() - b.double()) ** 2).sum()) for a, b in zip(hv[DEVICE], hv["cpu"]))
+    den = sum(float((b.double() ** 2).sum()) for b in hv["cpu"])
+    return (num / den) ** 0.5, hv[f"{DEVICE}_s"], hv["cpu_s"]
+
+
+def eigen_check_phase(torch, K, gpu, hvp):
+    """``eigen_check``: the flagship's width at 2 layers, seq 512.  One
+    Hessian-vector product in fp32 (the plain attention body the
+    estimator runs) on the card against the CPU on the same ``v``
+    (``hvp``, ``hvp_check``'s result: relative Frobenius under HVP_RTOL,
+    TF32 off); the engine's ``block_eigenvalues`` at every
+    ``resolution``-th step (bf16, the flash Function in training, K1f /
+    K1b layers x GAS a step: the estimator's double backward never
+    reaches K1), finite; and a double backward through K1 and K7 on the
+    card raises."""
+    import numpy as np
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.models.transformer import init_params
+    from deepspeed_tpu_torch.ops.kernels.flash_attention import flash_attention
+    from deepspeed_tpu_torch.ops.kernels.sparse_attention import block_sparse_flash_attention
+
+    z = EIGEN_CHECK
+    model = _shaping_model(z["layers"])
+    cfg = model.cfg
+    params = init_params(cfg, seed=SEED, device="cpu", dtype=torch.float32)
+    batch = _token_batch(cfg, z["gas"], z["micro"], z["seq"])
+    rel, hvp_card_s, hvp_cpu_s = hvp
+    conf = bench_config(z["micro"], z["gas"])
+    conf["eigenvalue"] = {"enabled": True, "max_iter": z["max_iter"],
+                          "gas_boundary_resolution": z["resolution"]}
+    engine, _, _, _ = initialize(model=model, params=params, config=conf, device=DEVICE)
+    K.reset_launches()
+    t0 = time.perf_counter()
+    losses = [float(engine.train_batch(batch)) for _ in range(z["steps"])]
+    steps_s = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    eig = list(engine.block_eigenvalues)
+    raises = {}
+    if DEVICE == "cuda":
+        raises["K1"] = _double_backward_raises(
+            torch, lambda q, k, v_: flash_attention(q, k, v_, causal=True), DEVICE,
+            torch.bfloat16)
+        layout = np.tril(np.ones((2, 2), bool))
+        raises["K7"] = _double_backward_raises(
+            torch, lambda q, k, v_: block_sparse_flash_attention(q, k, v_, layout, 128),
+            DEVICE, torch.bfloat16)
+    res = dict(phase="eigen_check", model=SHAPING_PRESET, layers=cfg.num_layers, seq=z["seq"],
+               micro_batch=z["micro"], gas=z["gas"], hvp_rel_err=rel, hvp_tolerance=HVP_RTOL,
+               hvp_card_s=hvp_card_s, hvp_cpu_s=hvp_cpu_s,
+               max_iter=z["max_iter"], resolution=z["resolution"], losses=losses,
+               steps_with_estimates_s=steps_s, block_eigenvalues=eig,
+               double_backward_raises=raises, launches=launches, gpu=gpu)
+    emit(res)
+    bad = []
+    if not rel < HVP_RTOL:
+        bad.append(f"HVP card vs CPU rel {rel}")
+    want_steps = [s for s in range(1, z["steps"] + 1) if s % z["resolution"] == 0]
+    if [s for s, _ in eig] != want_steps or not all(np.isfinite(e) and e >= 0 for _, e in eig):
+        bad.append(f"block_eigenvalues {eig}, want steps {want_steps}")
+    if DEVICE == "cuda" and not all(raises.values()):
+        bad.append(f"double backward on the card: {raises}")
+    if bad:
+        raise AssertionError(f"eigen_check: {bad}")
+    if DEVICE == "cuda":
+        check_train_launches("eigen_check", launches, cfg.num_layers, z["gas"], z["steps"],
+                             False)
+    del engine
+    return res
+
+
+def build_window_references(torch, K):
+    """The checks' halves that launch no kernel of the port, which ``main``
+    runs while the kernels build: the optimizers' updates on the card and
+    the CPU, eigen_check's HVP pair, compress_check's transform and
+    ``redundancy_clean`` pairs, and the CPU engines' references of
+    train_check, sparse_train_check, schedule_check and compress_check.
+    Returns the references by phase, and ``seconds``, each one's; raises
+    if any kernel launched (a launch would build beside the builder)."""
+    def optimizers():
+        inputs = optimizer_inputs(torch)
+        return {n: optimizer_check(torch, n, inputs) for n in NEW_OPTIMIZERS}
+
+    jobs = (("optimizers", optimizers),
+            ("eigen_check", lambda: hvp_check(torch)),
+            ("compress_check", lambda: compress_check_reference(torch)),
+            ("train_check", lambda: train_check_reference(torch)),
+            ("sparse_train_check", lambda: train_check_reference(torch, SPARSE_CHECK)),
+            ("schedule_check", lambda: schedule_check_reference(torch)))
+    refs, seconds = {}, {}
+    for name, job in jobs:
+        t0 = time.perf_counter()
+        refs[name] = job()
+        seconds[name] = time.perf_counter() - t0
+    _free(torch)
+    if any(K.LAUNCHES.values()):
+        raise AssertionError(f"a kernel launched during the build: {dict(K.LAUNCHES)}")
+    refs["seconds"] = seconds
+    return refs
+
+
 def _free(torch):
     import gc
 
@@ -7687,10 +8604,23 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     gpu = gpu_line()
 
-    build = K.build()
+    # the checks' halves that launch no kernel of the port (plain PyTorch on
+    # the card, the port on the CPU) run while nvcc compiles the kernels
+    built = {}
+    builder = threading.Thread(target=build_and_dump, args=(K, built))
+    t0 = time.perf_counter()
+    builder.start()
+    try:
+        refs = build_window_references(torch, K)
+    finally:
+        builder.join()
+    if "error" in built:
+        raise built["error"]
+    build = built["build"]
     ptxas = {src: [ln.strip() for ln in K.build_log(src).splitlines() if "registers" in ln]
              for src in dict.fromkeys(K.SOURCES.values())}
     emit(dict(phase="build", seconds=build["seconds"], built=build["built"],
+              window_s=time.perf_counter() - t0, references_s=refs.pop("seconds"),
               ptxas=ptxas, gpu=gpu))
     emit(dict(phase="sass", ops=list(SASS_OPS), kernels=sass_phase(K),
               row_quantizers=rowq_sass(K), gpu=gpu))
@@ -7741,9 +8671,9 @@ def main() -> None:
     del params
     _free(torch)
     g_eng, g_burst, g_spec = gpt2_serve_phase(torch, K, gpu)
-    train_check_phase(torch, K, gpu)
+    train_check_phase(torch, K, gpu, refs.pop("train_check"))
     _free(torch)
-    train_check_phase(torch, K, gpu, sparse=SPARSE_CHECK)
+    train_check_phase(torch, K, gpu, refs.pop("sparse_train_check"))
     _free(torch)
     tr = train_phase(torch, K, gpu)
     adam_times = tr.pop("fused_adamw_timing")
@@ -7757,9 +8687,23 @@ def main() -> None:
     _free(torch)
     # the instrumented, scheduled step: timers, the profiler, the CSV
     # monitor, curriculum learning and progressive layer drop
-    sc = schedule_check_phase(torch, K, gpu)
+    sc = schedule_check_phase(torch, K, gpu, refs.pop("schedule_check"))
     _free(torch)
     st = schedule_train_phase(torch, K, gpu, tr["mfu"])
+    _free(torch)
+    # compression-aware and parameter-efficient training: the transform and
+    # the engines card against CPU, the flagship under every technique, KD
+    # into a 12-layer student, LoRA with the hybrid engine's generate, the
+    # eigenvalue estimator
+    cc = compress_check_phase(torch, K, gpu, refs.pop("compress_check"))
+    _free(torch)
+    ct = compress_train_phase(torch, K, gpu, tr["step_s_median"])
+    _free(torch)
+    kd = kd_train_phase(torch, K, gpu)
+    _free(torch)
+    lh = lora_hybrid_phase(torch, K, gpu, tr)
+    _free(torch)
+    ec = eigen_check_phase(torch, K, gpu, refs.pop("eigen_check"))
     _free(torch)
     # ZeRO-Offload: the CPU tier and the NVMe tier checked against the plain
     # engine, the NVMe tier on the flagship, llama3_8b through the CPU tier
@@ -7771,7 +8715,7 @@ def main() -> None:
     _free(torch)
     sp = train_phase(torch, K, gpu, sparse=SPARSE_FLAGSHIP, steps=SPARSE_TRAIN_STEPS)
     _free(torch)
-    opt = optimizers_phase(torch, K, gpu, tr["step_s_median"])
+    opt = optimizers_phase(torch, K, gpu, tr["step_s_median"], refs.pop("optimizers"))
     rm = remat_phase(torch, K, gpu)
     pt = presets_train_phase(torch, K, gpu)
     ps = presets_serve_phase(torch, K, gpu)
@@ -7809,8 +8753,10 @@ def main() -> None:
     # engine), each read right after its own run
     main_paths = (eng, ms_eng, ms_sch, sch, spec, lcc, lc, g_eng, g_burst, g_spec, tr, shim, sp,
                   opt, rm, pt, ps, qc, qs, qz, rt, rh, rk, rf, rc, rr, rho, rfl, rch, ad, at,
-                  ck, hf, mt, mv, v1, oc, nt, ot, sc, st)
+                  ck, hf, mt, mv, v1, oc, nt, ot, sc, st, cc, ct, kd, lh, ec)
     schedule_paths = {"schedule_check": sc, "schedule_train": st}
+    shaping_paths = {"compress_check": cc, "compress_train": ct, "kd_train": kd,
+                     "lora_hybrid": lh, "eigen_check": ec}
     moe_paths = {"moe_train": mt, "moe_serve": mv, "v1_serve": v1}
     offload_paths = {"offload_check": oc, "nvme_train": nt, "offload_train": ot}
     resume_paths = {"checkpoint": ck, "hf_roundtrip": hf}
@@ -7863,6 +8809,10 @@ def main() -> None:
                              if p["launches"].get(name)}
         if schedule_launches:  # the scheduled step: curriculum lengths, dropped layers
             entry["launches_schedule_phases"] = schedule_launches
+        shaping_launches = {k: p["launches"].get(name, 0) for k, p in shaping_paths.items()
+                            if p["launches"].get(name)}
+        if shaping_launches:  # compression, distillation, LoRA + hybrid generate, eigenvalues
+            entry["launches_shaping_phases"] = shaping_launches
         if name == "fused_adamw":
             entry["launches_per_offloaded_step"] = {
                 "offload_check": oc["launches_per_step"]["fused_adamw"],

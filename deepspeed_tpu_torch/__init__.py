@@ -49,7 +49,12 @@ Ported so far:
   difficulty-filtered sampling), progressive layer drop
   (``runtime.progressive_layer_drop``) and ``accelerator.get_accelerator``;
 - the static analysis (``analysis``: the AST lints, the race lint and the
-  scheduler scenario explorer) over this package.
+  scheduler scenario explorer) over this package;
+- compression-aware and parameter-efficient training: ``compression``
+  (QAT, activation quantization, pruning, layer reduction with
+  distillation), the eigenvalue estimator (``runtime.eigenvalue``), LoRA
+  (``linear``), the hybrid engine's generate on the live weights
+  (``runtime.hybrid_engine``) and random-LTD (``data.random_ltd``).
 """
 from __future__ import annotations
 
@@ -84,6 +89,12 @@ def initialize(model=None, params: Any = None, config: Any = None, device=None,
     only the samples whose analyzed metric (``difficulty_metric``, else the
     ``curriculum_type``) is within the scheduler's current difficulty
     (``data.curriculum_index_filter``).
+    ``compression_training.activation_quantization`` (enabled) sets
+    ``model.cfg.act_quant_bits`` to its first group's ``bits``; a model
+    with ``trainable_mask`` (``linear.LoRACausalLM``) trains only the
+    leaves it marks; with ``hybrid_engine.enabled`` the engine returned is a
+    ``runtime.hybrid_engine.DeepSpeedHybridEngine`` around it (JAX
+    ``__init__.py:120-133``, ``:284-294``, ``:337-350``).
 
     Refused with ``NotImplementedError``: ``mesh`` (one device only;
     ROADMAP queue 1 item 7)."""
@@ -118,6 +129,18 @@ def initialize(model=None, params: Any = None, config: Any = None, device=None,
             raise ConfigError("sparse_attention requires model= (a models.CausalLM); it "
                               "cannot be injected into a raw loss_fn")
         model.cfg = model.cfg.replace(sparse_attention=cfg.sparse_attention.build())
+    aq = cfg.compression_training.activation_quantization or {}
+    if (aq.get("shared_parameters", {}).get("enabled") and model is not None
+            and hasattr(getattr(model, "cfg", None), "act_quant_bits")):
+        # activation fake-quant lives in the model's forward (the engine's
+        # manager transforms weights only)
+        from .compression.compress import Technique, act_quant_bits
+
+        if hasattr(model, "inner"):
+            raise ConfigError("activation_quantization needs the model whose forward it "
+                              "quantizes: a wrapped model (LoRACausalLM) runs its inner "
+                              "model's forward, which would not read the bits")
+        model.cfg = model.cfg.replace(act_quant_bits=act_quant_bits(Technique.parse(aq)))
     if loss_fn is None:
         if model is None:
             raise ValueError("initialize() needs model= or (loss_fn, params)")
@@ -126,7 +149,11 @@ def initialize(model=None, params: Any = None, config: Any = None, device=None,
         if model is None:
             raise ValueError("initialize() needs params with a bare loss_fn")
         params = model.init_params(seed=cfg.seed, device=device)
-    engine = DeepSpeedTorchEngine(loss_fn, params, cfg, device, eval_fn=eval_fn)
+    trainable_mask = None
+    if model is not None and hasattr(model, "trainable_mask"):
+        trainable_mask = model.trainable_mask(params)
+    engine = DeepSpeedTorchEngine(loss_fn, params, cfg, device, eval_fn=eval_fn,
+                                  trainable_mask=trainable_mask)
     engine.monitor = MonitorMaster(cfg)
     engine.model = model  # the flops profiler reads .cfg for its module tree
     dataloader = None
@@ -145,4 +172,11 @@ def initialize(model=None, params: Any = None, config: Any = None, device=None,
             dp_world_size=1, gradient_accumulation_steps=cfg.gradient_accumulation_steps,
             collate_fn=collate_fn, seed=cfg.seed, index_filter=index_filter)
         engine.training_dataloader = dataloader  # its position rides the checkpoints
+    if cfg.hybrid_engine.enabled:
+        from .runtime.hybrid_engine import DeepSpeedHybridEngine
+
+        if cfg.hybrid_engine.inference_tp_size != 1:
+            raise ConfigError("hybrid_engine.inference_tp_size is not supported: hybrid "
+                              "serving follows the training mesh (set mesh.model for TP)")
+        engine = DeepSpeedHybridEngine(engine, max_out_tokens=cfg.hybrid_engine.max_out_tokens)
     return engine, engine, dataloader, engine.lr_scheduler

@@ -14,7 +14,9 @@ Layout (JAX's):
 The state's leaves are logical (unsharded) tensors named by their tree
 path: ``step``, ``params/...`` (the fp32 masters), ``opt_state/...`` (the
 optimizer's state; a moment buffer laid over the flat masters is written
-leaf by leaf under the parameters' paths), ``loss_scale/{scale,
+leaf by leaf under the parameters' paths; under a trainable mask the
+frozen leaves are among ``params/...`` in their storage type and the
+moments cover the trainable ones alone), ``loss_scale/{scale,
 good_steps, hysteresis}``, and ``rng``, the state of the engine's
 ``torch.Generator`` (JAX derives its step key from the step; the port's
 generator advances, so it is saved to resume the same stream).
@@ -230,6 +232,12 @@ def _flatten(tree, prefix: str, out: Dict[str, torch.Tensor]) -> Dict[str, torch
 
 
 def _param_paths(engine) -> List[str]:
+    """The paths of the leaves the optimizer holds: every parameter, or
+    under a trainable mask (LoRA) the trainable ones alone; the frozen
+    leaves ride ``params/...`` in their storage type."""
+    paths = getattr(engine, "_trainable_paths", None)
+    if paths is not None:
+        return list(paths)
     return list(_flatten(engine.params, "", {}))
 
 

@@ -43,7 +43,13 @@ the port runs:
   (``FlopsProfilerConfig``), the monitors ``tensorboard`` / ``csv_monitor``
   / ``wandb`` / ``comet`` (``MonitorSubConfig``), ``data_efficiency``
   (``DataEfficiencyConfig``; the legacy top-level ``curriculum_learning``
-  maps onto it, as in JAX) and ``progressive_layer_drop`` (``PLDConfig``).
+  maps onto it, as in JAX) and ``progressive_layer_drop`` (``PLDConfig``);
+- the model-shaping sections, in JAX's dataclasses: ``compression_training``
+  (``CompressionConfig``: the engine's weight transform and the activation
+  bits ``initialize`` wires into the model), ``eigenvalue``
+  (``EigenvalueConfig``: the engine's block eigenvalues) and
+  ``hybrid_engine`` (``HybridEngineConfig``: ``initialize`` returns a
+  ``runtime.hybrid_engine.DeepSpeedHybridEngine``).
 
 An unknown key raises ``ConfigError`` naming it, as in JAX.  A key the JAX
 package knows but the port does not run yet is accepted at JAX's default
@@ -51,8 +57,7 @@ and raises ``NotImplementedError`` naming it and its ROADMAP queue-1 item
 when its value differs (``_UNPORTED_TOP``, ``_UNPORTED_ZERO``): the mesh
 (an expert axis included), tensor parallelism, the comms logger, ZeRO++ and
 ``serve.quant_comm``
-/ ``comm_tiles`` are item 7; ``compression_training``, ``eigenvalue``,
-``elasticity``, ``compile`` and ``hybrid_engine`` are item 9.  The
+/ ``comm_tiles`` are item 7; ``elasticity`` and ``compile`` are item 9.  The
 reference keys JAX accepts and ignores are accepted and ignored here too.
 """
 from __future__ import annotations
@@ -81,18 +86,9 @@ _UNPORTED_TOP = {
                                                       domino_chunks=1)), 7),
     "comms_logger": (("CommsLoggerConfig", dict(enabled=False, verbose=False, prof_all=True,
                                                 debug=False, prof_ops=[])), 7),
-    "compression_training": (("CompressionConfig", dict(
-        enabled=False, weight_quantization={}, activation_quantization={}, sparse_pruning={},
-        row_pruning={}, head_pruning={}, channel_pruning={}, layer_reduction={})), 9),
     "elasticity": ({}, 9),
-    "eigenvalue": (("EigenvalueConfig", dict(
-        enabled=False, verbose=False, max_iter=100, tol=1e-2, stability=1e-6,
-        gas_boundary_resolution=1, layer_name="", layer_num=0)), 9),
     "compile": (("CompileConfig", dict(enabled=True, disable=False, backend="xla",
                                        kwargs={})), 9),
-    "hybrid_engine": (("HybridEngineConfig", dict(
-        enabled=False, max_out_tokens=512, inference_tp_size=1, release_inference_cache=False,
-        pin_parameters=True, tp_gather_partition_size=8)), 9),
 }
 # zero_optimization keys the port does not run yet: (JAX's default, item)
 _UNPORTED_ZERO = {
@@ -434,6 +430,71 @@ class PLDConfig:
 
 
 @dataclass
+class CompressionConfig:
+    """``compression_training`` (JAX's ``CompressionConfig``): each technique
+    block in the reference's schema (``compression/compress.py``)."""
+
+    enabled: bool = False
+    weight_quantization: Dict[str, Any] = field(default_factory=dict)
+    activation_quantization: Dict[str, Any] = field(default_factory=dict)
+    sparse_pruning: Dict[str, Any] = field(default_factory=dict)
+    row_pruning: Dict[str, Any] = field(default_factory=dict)
+    head_pruning: Dict[str, Any] = field(default_factory=dict)
+    channel_pruning: Dict[str, Any] = field(default_factory=dict)
+    layer_reduction: Dict[str, Any] = field(default_factory=dict)
+
+    def as_dict(self) -> Dict[str, Any]:
+        return {k: getattr(self, k) for k in (
+            "weight_quantization", "activation_quantization", "sparse_pruning", "row_pruning",
+            "head_pruning", "channel_pruning", "layer_reduction")}
+
+    @property
+    def any_technique(self) -> bool:
+        return bool(self.weight_quantization or self.activation_quantization
+                    or self.sparse_pruning or self.row_pruning or self.head_pruning
+                    or self.channel_pruning)
+
+
+@dataclass
+class EigenvalueConfig:
+    """``eigenvalue`` (JAX's ``EigenvalueConfig``): the engine's
+    power-iteration curvature estimate every ``gas_boundary_resolution``
+    steps (``runtime/eigenvalue.py``)."""
+
+    enabled: bool = False
+    verbose: bool = False
+    max_iter: int = 100
+    tol: float = 1e-2
+    stability: float = 1e-6
+    gas_boundary_resolution: int = 1
+    layer_name: str = ""
+    layer_num: int = 0
+
+    def __post_init__(self):
+        if self.gas_boundary_resolution < 1:
+            raise ConfigError(
+                f"eigenvalue.gas_boundary_resolution must be >= 1, got "
+                f"{self.gas_boundary_resolution}")
+        if self.max_iter < 1:
+            raise ConfigError(f"eigenvalue.max_iter must be >= 1, got {self.max_iter}")
+
+
+@dataclass
+class HybridEngineConfig:
+    """``hybrid_engine`` (JAX's ``HybridEngineConfig``): ``max_out_tokens``
+    caps a generate's length; ``inference_tp_size`` must stay 1;
+    ``release_inference_cache`` / ``pin_parameters`` /
+    ``tp_gather_partition_size`` are accepted and never read, as in JAX."""
+
+    enabled: bool = False
+    max_out_tokens: int = 512
+    inference_tp_size: int = 1
+    release_inference_cache: bool = False
+    pin_parameters: bool = True
+    tp_gather_partition_size: int = 8
+
+
+@dataclass
 class Config:
     train_batch_size: Optional[int] = None
     train_micro_batch_size_per_gpu: Optional[int] = None
@@ -472,6 +533,10 @@ class Config:
     wandb: MonitorSubConfig = field(default_factory=MonitorSubConfig)
     comet: MonitorSubConfig = field(default_factory=MonitorSubConfig)
     progressive_layer_drop: PLDConfig = field(default_factory=PLDConfig)
+    # the model-shaping sections
+    compression_training: CompressionConfig = field(default_factory=CompressionConfig)
+    eigenvalue: EigenvalueConfig = field(default_factory=EigenvalueConfig)
+    hybrid_engine: HybridEngineConfig = field(default_factory=HybridEngineConfig)
     dp_world_size: int = 1  # derived by finalize
 
     @property

@@ -1,6 +1,6 @@
 """The data pipeline (JAX ``deepspeed_tpu/data/``): the resumable sampler,
-the curriculum scheduler, the offline data analyzer and the memory-mapped
-indexed dataset."""
+the curriculum scheduler, the offline data analyzer, the memory-mapped
+indexed dataset and random-LTD's token routing."""
 from .curriculum_scheduler import CurriculumScheduler, truncate_to_seqlen  # noqa: F401
 from .data_analyzer import (  # noqa: F401
     CurriculumDataSampler,
@@ -10,3 +10,10 @@ from .data_analyzer import (  # noqa: F401
 )
 from .indexed_dataset import MMapIndexedDataset, MMapIndexedDatasetBuilder  # noqa: F401
 from .sampler import DeepSpeedDataSampler, find_fit_int_dtype  # noqa: F401
+from .random_ltd import (  # noqa: F401
+    RandomLTDScheduler,
+    gather_tokens,
+    random_ltd_layer,
+    sample_kept_indices,
+    scatter_tokens,
+)

@@ -57,9 +57,15 @@ the identity and its weights get no gradient.  A batch carries the mask
 as ``layer_keep`` (the engine draws it; a test can pass the mask JAX drew)
 or, as in JAX, a ``pld_theta`` to draw it from (``CausalLM.prepare_batch``).
 
+``act_quant_bits`` (set by ``initialize`` / ``compression.init_compression``
+from ``compression_training.activation_quantization``) fake-quantizes the
+attention input and the MLP input with a straight-through estimator (JAX
+``transformer.py:480-505``); a parallel block's MLP reads the quantized
+attention input, as in JAX.
+
 Not ported, each refused with ``NotImplementedError`` naming the option and
 its ROADMAP queue-1 item: ``domino_chunks`` (item 7),
-sequence parallelism (item 7), ``act_quant_bits`` (item 9, compression),
+sequence parallelism (item 7),
 ``CausalLM(stack_apply=...)`` (item 7: pipeline).  Manual tensor
 parallelism (JAX ``decoder_layer``'s ``tp_axis``, item 7) has no
 counterpart here: one GPU.
@@ -130,9 +136,10 @@ class TransformerConfig:
     # block-sparse layout (ops/sparse_attention.SparsityConfig), set by
     # initialize() from the config's sparse_attention section
     sparse_attention: Optional[Any] = None
+    # activation fake-quant bits (compression); None or 0 = off
+    act_quant_bits: Optional[int] = None
     # JAX options the port refuses so far (see the module docstring)
     sequence_parallel: str = "none"
-    act_quant_bits: Optional[int] = None
     domino_chunks: int = 1
 
     @property
@@ -431,7 +438,6 @@ def _refuse_unported(cfg: TransformerConfig) -> None:
     refused = [
         (cfg.sequence_parallel != "none", f"sequence_parallel={cfg.sequence_parallel!r}", 7),
         (cfg.domino_chunks != 1, "domino_chunks", 7),
-        (cfg.act_quant_bits is not None, "act_quant_bits", 9),
     ]
     for bad, what, item in refused:
         if bad:
@@ -524,8 +530,22 @@ def _out_proj(lw: Params, o: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _act_quant(x: torch.Tensor, cfg: TransformerConfig) -> torch.Tensor:
+    """A sublayer's input fake-quantized to ``cfg.act_quant_bits`` (STE),
+    or as it is when that is off."""
+    if not cfg.act_quant_bits:
+        return x
+    from ..compression.compress import quantize_activation
+
+    return quantize_activation(x, cfg.act_quant_bits)
+
+
+def _attn_input(lw: Params, x, cfg: TransformerConfig):
+    return _act_quant(norm(x, lw["attn_norm"], cfg.norm, cfg.norm_eps), cfg)
+
+
 def _pre_attention(lw: Params, x, cfg: TransformerConfig, rope_cs):
-    return _qkv(lw["attn"], norm(x, lw["attn_norm"], cfg.norm, cfg.norm_eps), cfg, rope_cs)
+    return _qkv(lw["attn"], _attn_input(lw, x, cfg), cfg, rope_cs)
 
 
 def _post_attention(lw: Params, x, o, cfg: TransformerConfig, dropless: bool = False):
@@ -535,10 +555,10 @@ def _post_attention(lw: Params, x, o, cfg: TransformerConfig, dropless: bool = F
     routes the experts without capacity (the cache path, as in JAX)."""
     h = _out_proj(lw["attn"], o).to(x.dtype)
     if cfg.parallel_block:
-        m = mlp_block(lw["mlp"], norm(x, lw["attn_norm"], cfg.norm, cfg.norm_eps), cfg)
+        m = mlp_block(lw["mlp"], _attn_input(lw, x, cfg), cfg)
         return x + h + m.to(x.dtype), None
     x = x + h
-    y = norm(x, lw["mlp_norm"], cfg.norm, cfg.norm_eps)
+    y = _act_quant(norm(x, lw["mlp_norm"], cfg.norm, cfg.norm_eps), cfg)
     if cfg.moe_num_experts > 0:
         m, aux = (moe_block_dropless if dropless else moe_block)(lw["moe"], y, cfg)
         return x + m.to(x.dtype), aux

@@ -370,6 +370,53 @@ def check_cuda(name: str, dtype: torch.dtype, *tensors: torch.Tensor) -> None:
 
 # the head dims every attention kernel is instantiated for (csrc/flash_tc.cuh:
 # K1 and K7; csrc/paged_tc.cuh: K2 and K3), each at any query group
+class _RefuseDoubleBackward(torch.autograd.Function):
+    """Identity on a backward's outputs whose own backward raises: the node
+    ``once_differentiable`` puts in a double backward's path."""
+
+    @staticmethod
+    def forward(ctx, n: int, *tensors):
+        return tuple(t.clone() for t in tensors[:n])
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise RuntimeError("trying to differentiate twice a function that was marked with "
+                           "@once_differentiable: the flash attention kernels have no "
+                           "second derivative (use attn_impl='reference')")
+
+
+def once_differentiable(backward: Callable) -> Callable:
+    """``torch.autograd.function.once_differentiable`` for a Function whose
+    backward launches a kernel: the backward runs without a graph, and under
+    ``create_graph`` its outputs pass through a node that raises when a
+    second derivative reaches it.  PyTorch's own decorator puts its error
+    node on the outputs alone, with no edge to the inputs, so
+    ``torch.autograd.grad(..., inputs)`` prunes it and returns a second
+    derivative without this Function's term; here the node is linked to the
+    saved tensors and the incoming gradients, so every path that needs the
+    term meets it."""
+    import functools
+
+    @functools.wraps(backward)
+    def wrapper(ctx, *grad_outputs):
+        with torch.no_grad():
+            outs = backward(ctx, *grad_outputs)
+        if not torch.is_grad_enabled():
+            return outs
+        links = [t for t in (*ctx.saved_tensors, *grad_outputs)
+                 if torch.is_tensor(t) and t.requires_grad]
+        if not links:
+            return outs
+        outs = list(outs)
+        idx = [i for i, t in enumerate(outs) if torch.is_tensor(t)]
+        guarded = _RefuseDoubleBackward.apply(len(idx), *[outs[i] for i in idx], *links)
+        for i, t in zip(idx, guarded):
+            outs[i] = t
+        return tuple(outs)
+
+    return wrapper
+
+
 HEAD_DIMS = (64, 128, 256)
 
 

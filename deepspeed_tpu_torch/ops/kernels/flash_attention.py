@@ -10,7 +10,12 @@ dot_product_attention``) and a CUDA tensor the forward kernel
 backward is ``csrc/flash_bwd.cu`` (dq kernel, dk/dv kernel).  The Function
 is the same on both devices; only its two inner calls dispatch on the
 tensor's device: the plain versions on the CPU (the tests), the kernels on
-CUDA.  The kernels (wgmma on the tensor cores) take causal attention with
+CUDA.  The backward is ``once_differentiable`` (``ops.kernels``'s, which
+links its error node to the inputs): its outputs carry no graph (on the
+card they come from a kernel; the plain version treats the saved o and lse
+as constants), so a double backward through the Function raises instead
+of returning a wrong second derivative, as JAX cannot take ``jvp``
+through its custom VJP either.  The kernels (wgmma on the tensor cores) take causal attention with
 GQA, packed ``segment_ids`` and the soft cap, bf16, head_dim 64, 128 or 256
 (the head dims JAX's gate admits, ``flash_kernel.py:108``), any query group
 (a CTA per query head) and any sequence length (there is no TPU minimum).
@@ -40,7 +45,8 @@ from typing import Optional, Tuple
 import torch
 
 from ..attention import dot_product_attention, repeat_kv
-from . import HEAD_DIMS, add_flops, check_cuda, check_heads, launch, ptr, scalars
+from . import (HEAD_DIMS, add_flops, check_cuda, check_heads, launch,
+                once_differentiable, ptr, scalars)
 
 
 # ---------------------------------------------------------------------------
@@ -201,6 +207,7 @@ class FlashAttentionFn(torch.autograd.Function):
         return o
 
     @staticmethod
+    @once_differentiable
     def backward(ctx, do):
         q, k, v, seg, o, lse = ctx.saved_tensors
         dq, dk, dv = _bwd(q, k, v, seg, o, lse, do, ctx.scale, ctx.cap)

@@ -38,7 +38,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from . import add_flops, check_cuda, check_heads, launch, ptr, scalars
+from . import add_flops, check_cuda, check_heads, launch, once_differentiable, ptr, scalars
 from .flash_attention import (attention_pairs, flash_attention_bwd_plain,
                               flash_attention_fwd_plain)
 
@@ -272,6 +272,7 @@ class SparseFlashFn(torch.autograd.Function):
         return o
 
     @staticmethod
+    @once_differentiable
     def backward(ctx, do):
         q, k, v, qseg, kseg, o, lse = ctx.saved_tensors
         dq, dk, dv = _bwd(q, k, v, qseg, kseg, o, lse, do, ctx.plan, ctx.scale, ctx.cap)

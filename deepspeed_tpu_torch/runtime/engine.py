@@ -90,6 +90,28 @@ The step's instruments and schedules (JAX :170-178, :403-446,
   the model skips the dropped layers.  A loss
   function without a model's layer count gets ``pld_theta`` instead, as in
   JAX.
+
+The model-shaping hooks (JAX :198-202, :294-305, :381-436, :508-512,
+:1055-1116):
+
+- ``compression_training`` (``compression/compress.py``): the manager's
+  weight transform runs on the compute-type parameters of every
+  micro-batch, after the cast and before the loss, on every path that runs
+  a loss (``train_batch``, the forward / backward / step API, both offload
+  tiers' compute copy), at ``device_step`` (JAX's ``state.step``: the
+  updates applied before this one; an fp16 overflow skip does not advance
+  it);
+- ``eigenvalue`` (``runtime/eigenvalue.py``): every
+  ``gas_boundary_resolution``-th ``train_batch``, the dominant Hessian
+  eigenvalue of micro-batch 0's loss at the fp32 masters, appended to
+  ``block_eigenvalues`` as ``(step, value)``; the loss runs the model with
+  the plain attention body (a double backward cannot pass the flash
+  Functions);
+- a trainable mask (``initialize`` takes it from a model's
+  ``trainable_mask``, ``linear/lora.py``): only the trainable leaves get an
+  fp32 master, a gradient and optimizer state (the flat buffers hold them
+  alone, so K8 runs over the adapters only); a frozen leaf stays on the
+  device in its storage type without ``requires_grad``.
 """
 from __future__ import annotations
 
@@ -204,6 +226,27 @@ class _Landing:
             yield t
 
 
+def _with_cfg(model, cfg):
+    """A shallow copy of a model adapter with ``cfg`` (and its wrapped
+    model's, for an adapter that wraps one)."""
+    import copy
+
+    out = copy.copy(model)
+    out.cfg = cfg
+    inner = getattr(model, "inner", None)
+    if inner is not None and getattr(inner, "cfg", None) is not None:
+        out.inner = _with_cfg(inner, cfg)
+    return out
+
+
+def _fp32_on(tree, device: torch.device):
+    """The tree's floating leaves as fp32 tensors on ``device`` (the
+    masters themselves, detached, where they are that already)."""
+    return {k: _fp32_on(v, device) if isinstance(v, dict)
+            else v.detach().to(device=device, dtype=torch.float32) if v.is_floating_point()
+            else v for k, v in tree.items()}
+
+
 def _detached(tree):
     return {k: _detached(v) if isinstance(v, dict) else v.detach() for k, v in tree.items()}
 
@@ -217,7 +260,7 @@ class DeepSpeedTorchEngine:
     contract, default ``loss_fn``) is what ``eval_batch`` runs."""
 
     def __init__(self, loss_fn: Callable, params, config: Config, device: torch.device,
-                 eval_fn: Optional[Callable] = None):
+                 eval_fn: Optional[Callable] = None, trainable_mask=None):
         self.config = config
         self.device = device
         self.loss_fn = loss_fn
@@ -243,7 +286,13 @@ class DeepSpeedTorchEngine:
         self._offload = None  # the CPU tier's HostStream
         self._nvme_opt = None  # the NVMe tier's NVMeOptimizer
         self._compute = None  # an offloaded engine's compute copy (ComputeCopy)
-        if zcfg.offload_nvme:
+        self._trainable_paths = None  # under a trainable mask: the masters' paths
+        if trainable_mask is not None and (zcfg.offload_nvme or zcfg.offload_cpu):
+            raise NotImplementedError("a trainable mask (LoRA) with ZeRO-Offload is not "
+                                      "ported yet (ROADMAP queue 1 item 9)")
+        if trainable_mask is not None:
+            self._init_masked(params, trainable_mask)
+        elif zcfg.offload_nvme:
             self._init_nvme_offload(params)
         elif zcfg.offload_cpu:
             self._init_cpu_offload(params)
@@ -281,6 +330,28 @@ class DeepSpeedTorchEngine:
             p = config.progressive_layer_drop
             self.progressive_layer_drop = ProgressiveLayerDrop(p.theta, p.gamma)
             logger.info("progressive layer drop enabled: theta=%s gamma=%s", p.theta, p.gamma)
+        self._compression = None
+        if config.compression_training.any_technique:
+            from ..compression.compress import CompressionManager
+
+            manager = CompressionManager(config.compression_training.as_dict())
+            if manager.any_weight_transform:
+                # activation quantization is wired into the model by initialize()
+                self._compression = manager
+                logger.info("compression: wq=%s prune=%s", manager.weight_quant.enabled,
+                            manager.pruning.enabled)
+        self.eigenvalue = None
+        self.block_eigenvalues: List[Any] = []
+        if config.eigenvalue.enabled:
+            from .eigenvalue import Eigenvalue
+
+            e = config.eigenvalue
+            self.eigenvalue = Eigenvalue(
+                verbose=e.verbose, max_iter=e.max_iter, tol=e.tol, stability=e.stability,
+                gas_boundary_resolution=e.gas_boundary_resolution, layer_name=e.layer_name,
+                layer_num=e.layer_num)
+            logger.info("eigenvalue estimation enabled: max_iter=%d resolution=%d",
+                        e.max_iter, e.gas_boundary_resolution)
         self.curriculum_scheduler = None
         cl = config.data_efficiency.curriculum_learning or {}
         if config.data_efficiency.enabled and cl.get("enabled"):
@@ -294,6 +365,46 @@ class DeepSpeedTorchEngine:
                     config.zero_optimization.stage, config.precision_dtype,
                     config.train_micro_batch_size_per_gpu,
                     config.gradient_accumulation_steps, device)
+
+    def _init_masked(self, params, mask) -> None:
+        """Masters for the trainable leaves only (JAX :294-305, and optax's
+        ``masked`` optimizer, :198-202): the flat fp32 buffers hold the
+        leaves whose mask is true; a frozen leaf goes to the device in its
+        own type, without ``requires_grad``, so autograd computes no
+        gradient for it."""
+        trainable: Dict[str, Any] = {}
+        frozen: Dict[tuple, torch.Tensor] = {}
+        paths: List[str] = []
+
+        def split(node, m, path):
+            for k, v in node.items():
+                if isinstance(v, dict):
+                    split(v, m[k], path + (k,))
+                elif m[k]:
+                    set_path(trainable, path + (k,), v)
+                    paths.append("/".join(path + (k,)))
+                else:
+                    frozen[path + (k,)] = torch.as_tensor(v).detach().to(self.device)
+
+        split(params, mask, ())
+        self._masters = _flat_masters(trainable, self.device)
+        views = iter(self._masters.leaves)
+
+        def join(node, path):
+            out = {}
+            for k, v in node.items():
+                p = path + (k,)
+                out[k] = join(v, p) if isinstance(v, dict) else frozen[p] if p in frozen \
+                    else next(views)
+            return out
+
+        self.params = join(params, ())
+        self._params_list = self._masters.leaves
+        self._trainable_paths = paths
+        self.opt_state = self.optimizer.init(self._params_list)
+        logger.info("trainable mask: %d of %d leaves train (%d elements), %d frozen",
+                    len(paths), len(paths) + len(frozen), self._masters.flat.numel(),
+                    len(frozen))
 
     # ------------------------------------------------------------------
     # ZeRO-Offload (runtime/offload.py)
@@ -566,7 +677,11 @@ class DeepSpeedTorchEngine:
                 keep = layer_keep_mask(gen, cfg.num_layers, theta)
                 self.pld_masks.append(keep)
                 micro = dict(micro, layer_keep=keep)
-        return self.loss_fn(self._compute_params(), micro, self.generator)
+        params = self._compute_params()
+        if self._compression is not None:
+            # QAT fake-quant / pruning (STE) at the applied-update count
+            params = self._compression.transform(params, self.device_step)
+        return self.loss_fn(params, micro, self.generator)
 
     def _micro_backward(self, micro: Dict[str, torch.Tensor], scale,
                         index: int = 0) -> torch.Tensor:
@@ -662,6 +777,9 @@ class DeepSpeedTorchEngine:
             keep_history=fp16 or (self.monitor is not None and self.monitor.enabled))
         if self.progressive_layer_drop is not None:
             self.progressive_layer_drop.update_state(self.global_steps)
+        if (self.eigenvalue is not None
+                and self.global_steps % self.eigenvalue.gas_boundary_resolution == 0):
+            self._compute_block_eigenvalue(batch)
         # the profiler divides its FLOPs by this window: a fenced device time
         self.timers(STEP_GLOBAL_TIMER).stop(
             sync_obj=metrics.loss if (cfg.wall_clock_breakdown or profiling_now) else None)
@@ -681,6 +799,35 @@ class DeepSpeedTorchEngine:
             self.timers.log([FORWARD_GLOBAL_TIMER, BACKWARD_GLOBAL_TIMER, STEP_GLOBAL_TIMER],
                             reset=True)
         return metrics.loss
+
+    def _eigen_loss_fn(self) -> Callable:
+        """The loss the eigenvalue estimator differentiates twice: the
+        model's with the plain attention body, or the engine's loss when it
+        is not the model's."""
+        model = self.model
+        if model is None or getattr(model, "cfg", None) is None or \
+                self.loss_fn != getattr(model, "loss_fn", None):
+            return self.loss_fn
+        return _with_cfg(model, model.cfg.replace(attn_impl="reference")).loss_fn
+
+    def _compute_block_eigenvalue(self, batch) -> None:
+        """The curvature estimate at the accumulation boundary (JAX
+        :1096-1116): micro-batch 0, the fp32 masters cast to the compute
+        type inside the loss; ``(step, value)`` goes to
+        ``block_eigenvalues``."""
+        micro = {k: v[0] for k, v in batch.items()}
+        loss_fn = self._eigen_loss_fn()
+        dtype = self.compute_dtype
+
+        def eig_loss(p, b, r):
+            return loss_fn(precision.cast_floating(p, dtype), b, r)
+
+        self.flush_nvme_pipeline()
+        masters = _fp32_on(self.params, self.device)
+        ev, _ = self.eigenvalue.compute_eigenvalue(eig_loss, masters, micro,
+                                                   generator=self.generator)
+        self.block_eigenvalues.append((self.global_steps, ev))
+        logger.info("eigenvalue at step %d: %.4e", self.global_steps, ev)
 
     def _run_flops_profiler(self, batch, executed) -> None:
         """The flops profiler at ``profile_step`` (JAX :1118-1131): the

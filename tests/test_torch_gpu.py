@@ -1437,3 +1437,96 @@ def test_scheduled_step_on_the_card_is_bit_identical_with_the_profiler():
     for ks, ls in zip(runs[True][1], runs[True][2]):
         chip_smoke._step_launch_gate("test", ls, ks)
     assert any(k < cfg.num_layers for ks in runs[True][1] for k in ks)
+
+
+# ---------------------------------------------------------------------------
+# compression-aware and parameter-efficient training
+# ---------------------------------------------------------------------------
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["K1", "K7"])
+def test_double_backward_through_the_flash_kernels_raises_on_the_card(kernel):
+    """A second derivative through K1's or K7's Function raises on the card
+    (the kernels' backward outputs carry no graph) instead of returning a
+    second derivative without the attention's term."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    import numpy as np
+
+    from deepspeed_tpu_torch.ops.kernels.sparse_attention import block_sparse_flash_attention
+
+    layout = np.tril(np.ones((2, 2), bool))
+    attn = {"K1": lambda q, k, v: flash_attention(q, k, v, causal=True),
+            "K7": lambda q, k, v: block_sparse_flash_attention(q, k, v, layout, 128)}[kernel]
+    assert chip_smoke._double_backward_raises(torch, attn, "cuda", torch.bfloat16)
+
+
+def _narrow_cfg(**over):
+    from deepspeed_tpu_torch.models.presets import get_preset
+
+    return get_preset("tiny", hidden_size=256, intermediate_size=512, num_heads=4,
+                      num_kv_heads=2, num_layers=2, max_seq_len=512, **over)
+
+
+@pytest.mark.gpu
+def test_compression_transform_is_identical_on_the_card_and_the_cpu():
+    """``CompressionManager.transform`` of every technique (``chip_smoke.
+    compression_config``) at steps around the offsets, fp32 and bf16: the
+    card's masks, kept units and fake-quantized bits equal the CPU's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from deepspeed_tpu_torch.compression.compress import CompressionManager
+    from deepspeed_tpu_torch.models.transformer import init_params
+
+    cfg = _narrow_cfg()
+    params = init_params(cfg, seed=0, device="cpu", dtype=torch.float32)
+    mgr = CompressionManager(chip_smoke.compression_config(cfg, 2, 3))
+    for dtype in (torch.float32, torch.bfloat16):
+        cpu_p, card_p = chip_smoke._to(params, "cpu", dtype), chip_smoke._to(params, "cuda", dtype)
+        for step in (0, 1, 2, 3, 6):
+            got = mgr.transform(card_p, torch.tensor(step, dtype=torch.int32, device="cuda"))
+            want = mgr.transform(cpu_p, torch.tensor(step, dtype=torch.int32))
+            assert chip_smoke._tree_mismatches(torch, got, want) == {}, (dtype, step)
+    a, ia = mgr.redundancy_clean(chip_smoke._to(params, "cuda"))
+    b, ib = mgr.redundancy_clean(chip_smoke._to(params, "cpu"))
+    assert ia == ib and chip_smoke._tree_mismatches(torch, a, b) == {}
+
+
+@pytest.mark.gpu
+def test_hybrid_burst_after_a_refresh_equals_per_tick_decoding_on_the_card():
+    """A LoRA engine's hybrid with ``decode_megastep`` 4 captures its burst
+    graph before training; after two steps its refresh writes the merged
+    weights into the same serving tensors, and the replayed bursts give
+    the per-tick hybrid's tokens (and not the stale weights' tokens)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    import numpy as np
+
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.inference.sampling import SamplingParams
+    from deepspeed_tpu_torch.linear import LoRACausalLM, LoRAConfig
+    from deepspeed_tpu_torch.models.transformer import CausalLM
+    from deepspeed_tpu_torch.runtime.hybrid_engine import DeepSpeedHybridEngine
+
+    cfg = _narrow_cfg(attn_impl="flash", remat="selective")
+    model = LoRACausalLM(CausalLM(cfg), LoRAConfig(lora_r=8, lora_alpha=16.0))
+    engine, _, _, _ = dst.initialize(model=model, params=model.init_params(seed=0), config={
+        "train_micro_batch_size_per_gpu": 2,
+        "optimizer": {"type": "adamw", "params": {"lr": 1e-2}}})
+    serve = dict(max_seqs=2, num_blocks=64, block_size=16, max_seq_len=256)
+    burst = DeepSpeedHybridEngine(engine, serve={"decode_megastep": 4}, **serve)
+    tick = DeepSpeedHybridEngine(engine, **serve)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, 256, 24).tolist() for _ in range(2)]
+    samp = SamplingParams(temperature=0.0, max_new_tokens=12)
+    before = [burst.generate(p, samp) for p in prompts]
+    graphs = dict(burst._inference._burst.graphs)
+    assert graphs and burst._inference.stats["decode_bursts"] > 0
+    batch = {"input_ids": rng.integers(0, 256, (2, 129))}
+    for _ in range(2):
+        engine.train_batch(batch)
+    after = [burst.generate(p, samp) for p in prompts]
+    assert after == [tick.generate(p, samp) for p in prompts]
+    assert after != before
+    assert {k: v for k, v in burst._inference._burst.graphs.items()} == graphs  # no recapture
+    for h in (burst, tick):
+        assert h._inference.close()["blocks_in_use"] == 0

@@ -358,8 +358,7 @@ def test_step_sections_parse_as_jax(raw):
         assert getattr(t, name) == getattr(j, name)
 
 
-@pytest.mark.parametrize("key", ["eigenvalue", "compression_training", "elasticity", "compile",
-                                 "hybrid_engine"])
+@pytest.mark.parametrize("key", ["elasticity", "compile"])
 def test_still_refused_keys_name_item_9(key):
     raw = {"eigenvalue": {"enabled": True}, "compression_training": {"enabled": True},
            "elasticity": {"enabled": True}, "compile": {"enabled": False},
@@ -415,3 +414,13 @@ def test_a_config_with_every_switch_trains(tmp_path, monkeypatch):
         types.SimpleNamespace(enabled=True, output_path=out, job_name="probe")).enabled)
     assert (tmp_path / "prof.txt").exists() and eng.curriculum_scheduler is not None
     assert eng.timers("step").last() > 0 and len(eng.pld_masks) == 2
+
+
+# the sections of test_still_refused_keys_name_item_9 that the port now runs
+@pytest.mark.parametrize("key", ["eigenvalue", "compression_training", "hybrid_engine"])
+def test_item_9_sections_that_run_parse_as_jax(key):
+    raw = {"eigenvalue": {"enabled": True}, "compression_training": {"enabled": True},
+           "hybrid_engine": {"enabled": True}}
+    j, t = j_parse_config({key: raw[key]}, dp_world_size=1), parse_config({key: raw[key]},
+                                                                           dp_world_size=1)
+    assert dataclasses.asdict(getattr(t, key)) == dataclasses.asdict(getattr(j, key))

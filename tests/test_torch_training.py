@@ -184,7 +184,6 @@ def test_alibi_bias_matches_jax():
     pytest.param(dict(sequence_parallel="ulysses"), "sequence_parallel",
                  id="over1-sequence_parallel"),
     pytest.param(dict(domino_chunks=2), "domino_chunks", id="over2-domino_chunks"),
-    pytest.param(dict(act_quant_bits=8), "act_quant_bits", id="over3-act_quant_bits"),
     # block-sparse attention is ported; what stays refused, as in JAX, is
     # its composition with ALiBi (the sparse bodies take no bias)
     pytest.param(dict(sparse_attention=FixedSparsityConfig(block=16), position="alibi"),
@@ -193,6 +192,16 @@ def test_alibi_bias_matches_jax():
 def test_unported_model_options_are_refused(over, match):
     with pytest.raises(NotImplementedError, match=match):
         tt.CausalLM(get_preset("tiny", **over))
+
+
+# act_quant_bits runs now (tests/test_torch_compression.py holds
+# its loss and gradients against JAX); the case refused it before
+@pytest.mark.parametrize("over", [pytest.param(dict(act_quant_bits=8), id="act_quant_bits")])
+def test_ported_model_options_run(over):
+    cfg = get_preset("tiny", dtype=torch.float32, **over)
+    tokens = torch.from_numpy(_tokens(2, 17, 256))
+    loss = tt.CausalLM(cfg).loss_fn(tt.init_params(cfg, device="cpu"), {"input_ids": tokens})
+    assert np.isfinite(loss.item())
 
 
 def test_unported_forward_arguments_are_refused():
@@ -671,18 +680,28 @@ def test_parse_config_batch_triangulation_matches_jax():
                  "zero_optimization.zero_quantized_gradients",
                  id="zero3-quantized-gradients-item-7"),
     ({"zero_optimization": {"zero_quantized_weights": True}}, "zero_quantized_weights"),
-    ({"compression_training": {"enabled": True}}, "compression_training"),
     # progressive_layer_drop and curriculum_learning run since slice 19
-    # (tests/test_torch_pld.py, test_torch_curriculum.py); these two cases
-    # hold sections still refused beside them
-    ({"hybrid_engine": {"enabled": True}}, "hybrid_engine"),
-    ({"eigenvalue": {"enabled": True}}, "eigenvalue"),
+    # (tests/test_torch_pld.py, test_torch_curriculum.py), compression_training,
+    # hybrid_engine and eigenvalue now
+    # (test_item_9_keys_that_run_parse_as_jax)
     ({"compile": {"enabled": False}}, "compile"),
     ({"elasticity": {"enabled": True}}, "elasticity"),
 ])
 def test_unported_config_keys_are_refused(raw, key):
     with pytest.raises(NotImplementedError, match=key):
         parse_config(raw)
+
+
+@pytest.mark.parametrize("raw,section", [
+    ({"compression_training": {"enabled": True}}, "compression_training"),
+    ({"hybrid_engine": {"enabled": True}}, "hybrid_engine"),
+    ({"eigenvalue": {"enabled": True}}, "eigenvalue"),
+])
+def test_item_9_keys_that_run_parse_as_jax(raw, section):
+    """The cases of ``test_unported_config_keys_are_refused`` whose sections
+    the port now runs: they parse into JAX's dataclass."""
+    j, t = j_parse_config(raw, dp_world_size=1), parse_config(raw, dp_world_size=1)
+    assert dataclasses.asdict(getattr(t, section)) == dataclasses.asdict(getattr(j, section))
 
 
 OFF_CONFIGS = [
@@ -704,10 +723,8 @@ OFF_CONFIGS = [
 ]
 ON_CONFIGS = [
     # the timers, the profiler, the monitors and data_efficiency run since
-    # slice 19 (tests/test_torch_timer_monitor.py); these cases hold the
-    # item-9 sections still refused
-    ({"eigenvalue": {"max_iter": 5}}, "eigenvalue", 9),
-    ({"hybrid_engine": {"enabled": True}}, "hybrid_engine", 9),
+    # slice 19 (tests/test_torch_timer_monitor.py), compression_training,
+    # eigenvalue and hybrid_engine now (ON_NOW_CONFIGS)
     ({"mesh": {"model": 2}}, "mesh", 7),
     # the moe section is parsed (tests/test_torch_moe.py); an expert axis
     # stays refused with it
@@ -715,12 +732,7 @@ ON_CONFIGS = [
     ({"tensor_parallel": {"enabled": True, "tp_size": 2}}, "tensor_parallel", 7),
     ({"comms_logger": {"enabled": True}}, "comms_logger", 7),
     ({"elasticity": {"enabled": True}}, "elasticity", 9),
-    ({"hybrid_engine": {"max_out_tokens": 8}}, "hybrid_engine", 9),
     ({"compile": {"backend": "inductor"}}, "compile", 9),
-    ({"compression_training": {"weight_quantization": {"enabled": True}}},
-     "compression_training", 9),
-    ({"compression_training": {"enabled": True}}, "compression_training", 9),
-    ({"eigenvalue": {"enabled": True}}, "eigenvalue", 9),
     ({"compile": {"disable": True}}, "compile", 9),
     # aio and offload_param parse since slice 18 (tests/test_torch_offload.py);
     # these two cases hold ZeRO++ keys the port still refuses
@@ -751,6 +763,24 @@ def test_keys_on_are_refused_with_their_one_item(raw, key, item):
     with pytest.raises(NotImplementedError,
                        match=rf"config key '{re.escape(key)}' .*queue 1 item {item}\)"):
         parse_config(raw)
+
+
+# ON_CONFIGS's item-9 cases whose sections the port now runs
+ON_NOW_CONFIGS = [
+    ({"eigenvalue": {"max_iter": 5}}, "eigenvalue"),
+    ({"hybrid_engine": {"enabled": True}}, "hybrid_engine"),
+    ({"hybrid_engine": {"max_out_tokens": 8}}, "hybrid_engine"),
+    ({"compression_training": {"weight_quantization": {"enabled": True}}},
+     "compression_training"),
+    ({"compression_training": {"enabled": True}}, "compression_training"),
+    ({"eigenvalue": {"enabled": True}}, "eigenvalue"),
+]
+
+
+@pytest.mark.parametrize("raw,section", ON_NOW_CONFIGS, ids=lambda r: str(r))
+def test_keys_on_that_run_parse_as_jax(raw, section):
+    j, t = j_parse_config(raw, dp_world_size=1), parse_config(raw, dp_world_size=1)
+    assert dataclasses.asdict(getattr(t, section)) == dataclasses.asdict(getattr(j, section))
 
 
 @pytest.mark.parametrize("raw", [{"flops_profiler": {"enabeld": False}},
