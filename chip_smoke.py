@@ -1260,10 +1260,10 @@ def sparse_results(torch, case, layout, block):
     o, lse = K7.sparse_attention_kernel(q, k, v, seg, kseg, plan, sc, cap)
     dq, dk, dv = K7.sparse_attention_bwd_kernel(q, k, v, seg, kseg, o, lse, do, plan, sc, cap)
     f = [x.float() for x in (q, k, v, o, do)]
-    o_ref, lse_ref = K7.sparse_attention_fwd_plain(f[0], f[1], f[2], seg, kseg, layout, block,
-                                                   sc, cap)
-    refs = K7.sparse_attention_bwd_plain(f[0], f[1], f[2], seg, kseg, f[3], lse, f[4], layout,
-                                         block, sc, cap)
+    o_ref, lse_ref = K7.sparse_attention_fwd_plain(f[0], f[1], f[2], seg, kseg, plan.tbl,
+                                                   plan.cnt, block, sc, cap)
+    refs = K7.sparse_attention_bwd_plain(f[0], f[1], f[2], seg, kseg, f[3], lse, f[4],
+                                         plan.tbl, plan.cnt, block, sc, cap)
     return [("sparse_fwd", "", o, o_ref, KERNEL_TOL, False),
             ("sparse_fwd", "_rel", o, o_ref, BWD_TOL, True),
             ("sparse_fwd", "_lse", lse, lse_ref, LSE_TOL, False),
@@ -2315,7 +2315,9 @@ REMOTE_KNOBS = dict(heartbeat_interval_ms=40.0, lease_ms=1500.0, rpc_backoff_ms=
 REMOTE_READY_S = 300.0  # a child's wait_ready limit
 REMOTE_KILL_TICK = 6  # router tick of remote_chaos's real SIGKILL (bench.py:616)
 REMOTE_REPLAYS = 4  # replayed streams held near-argmax against the CPU
-COMPARE_ROUNDS = 4  # alternating in-process / remote rounds of compare_routers
+# alternating in-process / remote rounds of compare_routers (2 for the
+# smoke's time limit: each round serves the workload on both routers)
+COMPARE_ROUNDS = 2
 REMOTE_KERNELS = ("flash_fwd", "paged_decode", "paged_decode_hd64", "ctx_attention")
 
 
@@ -2930,6 +2932,25 @@ def remote_chaos_phase(torch, K, gpu, cfg, params_cpu, rt, rc_inproc):
 
 
 # bench.py:1638-1651 at its accelerator sizes
+# spec_serve, adapt_serve, megastep_serve and longctx serve the flagship's
+# first 6 of its 24 layers: they are host-bound
+# (a tick's eager launches grow with depth), the engine, megastep,
+# scheduler and router phases serve all 24, and the compile phases took
+# the seconds (the whole smoke's time limit)
+SERVE_CUT_LAYERS = 6
+
+
+def cut_depth(params, cfg, layers):
+    """The first ``layers`` (at most all) of a stacked parameter tree
+    (views) and its config."""
+    layers = min(layers, cfg.num_layers)
+
+    def cut(node):
+        return {k: cut(v) if isinstance(v, dict) else v[:layers] for k, v in node.items()}
+
+    return dict(params, layers=cut(params["layers"])), cfg.replace(num_layers=layers)
+
+
 ADAPT_SIZES = dict(per_phase=12, sys_len=256, sfx_len=32, long_len=448, max_new=32, tail_new=96)
 ADAPT_ENGINE = dict(max_seqs=8, num_blocks=256, block_size=32, max_seq_len=704,
                     prefill_buckets=(64, 128, 256), prefill_budget=256, prefill_chunk=128)
@@ -4183,11 +4204,11 @@ def train_phase(torch, K, gpu, sparse=None, steps=TRAIN_STEPS):
 # resumable training (checkpoint/, the data loader) and the HF round trip
 # ---------------------------------------------------------------------------
 CKPT_PRESET = "llama3_proxy_410m"  # CPU rehearsals: "tiny"
-# 8 of the flagship's 24 layers: the resume gates (losses to the bit, state
+# 4 of the flagship's 24 layers: the resume gates (losses to the bit, state
 # byte-equal) hold at any depth, and the deeper saves cost the smoke's time
 # limit (24 layers about 20 s more than 12, which the model-shaping phases
-# then pushed past 1,100 s)
-CKPT_SIZES = dict(seq=4096, micro=8, gas=2, rows=64, layers=8)
+# then pushed past 1,100 s; 8 until the compile phases came)
+CKPT_SIZES = dict(seq=4096, micro=8, gas=2, rows=64, layers=4)
 CKPT_DISK_MARGIN = 1.25  # free disk wanted over two checkpoints' bytes
 HF_SERVE = dict(prompts=4, prompt_len=64, new=16)
 
@@ -4661,7 +4682,9 @@ NEW_OPTIMIZERS = {"lamb": {"lr": 1e-4, "weight_decay": 0.1},
 OPT_TOL = 1e-6
 OPT_NS_TOL = 1e-5
 OPT_CHECK_LR = 1e-3
-OPT_STEPS = 3
+# the second update reads the first's state; the CPU's updates run in the
+# build window
+OPT_STEPS = 2
 # the train flagship's shape (bench.py:42-109), which the optimizers' and
 # remat phases run at
 FLAGSHIP = dict(seq=4096, micro=8, gas=2)
@@ -4811,6 +4834,10 @@ REMAT_POLICIES = ("none", "full", "selective", "dots", "offload")
 # policies that recompute the attention (full: the layer; dots: all but its
 # products) run K1f again in the backward
 REMAT_FWD_PER_LAYER = {"none": 1, "full": 2, "selective": 1, "dots": 2, "offload": 1}
+# the flagship's first 12 of 24 layers under each policy: the peak order
+# and the launch counts hold at any depth, the train phase runs all 24, and
+# the compile phases took the seconds (the whole smoke's time limit)
+REMAT_LAYERS = 12
 
 
 def remat_run(torch, K, remat, micro, steps=2):
@@ -4822,7 +4849,8 @@ def remat_run(torch, K, remat, micro, steps=2):
     from deepspeed_tpu_torch.models.presets import get_preset
 
     seq, gas = FLAGSHIP["seq"], FLAGSHIP["gas"]
-    model = T.CausalLM(get_preset("llama3_proxy_410m", loss_chunk_size=2048, remat=remat))
+    model = T.CausalLM(get_preset("llama3_proxy_410m", loss_chunk_size=2048, remat=remat,
+                                  num_layers=REMAT_LAYERS))
     engine, _, _, _ = initialize(model=model, config=bench_config(micro, gas))
     batch = {"input_ids": np.random.default_rng(SEED).integers(
         0, model.cfg.vocab_size, (gas, micro, seq + 1), dtype=np.int64)}
@@ -4979,9 +5007,14 @@ class RoutePin:
                     tokens_moved=self.moved, tokens_reordered=self.reordered)
 
 
+# one layer at full width (2 until the compile phases took the seconds: the
+# whole smoke's time limit); train_check runs the flagship's 2 layers
+PRESET_TRAIN_LAYERS = 1
+
+
 def preset_train_one(torch, K, name):
-    """``name`` at full width and 2 layers, bf16, its own remat and
-    attention: one ``train_batch`` on the card against the port on the CPU
+    """``name`` at full width and ``PRESET_TRAIN_LAYERS`` layers, bf16, its
+    own remat and attention: one ``train_batch`` on the card against the port on the CPU
     in fp32 from the same weights and batch (a MoE preset's CPU run on the
     card's expert choices: ``RoutePin``)."""
     import numpy as np
@@ -4989,7 +5022,7 @@ def preset_train_one(torch, K, name):
     from deepspeed_tpu_torch.models.presets import get_preset
     from deepspeed_tpu_torch.models.transformer import CausalLM, init_params
 
-    cfg = get_preset(name, num_layers=2)
+    cfg = get_preset(name, num_layers=PRESET_TRAIN_LAYERS)
     params = init_params(cfg, seed=SEED, device=DEVICE, dtype=torch.float32)
     params_cpu = _tree_cpu(params)
     batch = {"input_ids": np.random.default_rng(SEED).integers(
@@ -5050,7 +5083,8 @@ def presets_train_phase(torch, K, gpu):
         runs[name]["seconds"] = time.perf_counter() - t1
         for k in launches:
             launches[k] += ran[k]
-    res = dict(phase="presets_train", layers=2, seq=PRESET_SEQ, micro_batch=PRESET_MICRO,
+    res = dict(phase="presets_train", layers=PRESET_TRAIN_LAYERS, seq=PRESET_SEQ,
+               micro_batch=PRESET_MICRO,
                loss_rtol=TRAIN_LOSS_RTOL, grad_cos_min=GRAD_COS_MIN, runs=runs,
                launches=launches, seconds=time.perf_counter() - t0, gpu=gpu)
     emit(res)
@@ -6847,10 +6881,10 @@ def sparse_timings(torch, gen):
                                                                None), iters=5, warm=1)
     del delta
     plain_fwd = time_ms(torch, lambda: K7.sparse_attention_fwd_plain(
-        q, k, v, None, None, layout, block, sc, None), iters=2, warm=1)
+        q, k, v, None, None, plan.tbl, plan.cnt, block, sc, None), iters=2, warm=1)
     _free(torch)
     plain_bwd = time_ms(torch, lambda: K7.sparse_attention_bwd_plain(
-        q, k, v, None, None, o, lse, do, layout, block, sc, None), iters=2, warm=1)
+        q, k, v, None, None, o, lse, do, plan.tbl, plan.cnt, block, sc, None), iters=2, warm=1)
     _free(torch)
     mask = (K7.element_mask(layout, block) & torch.ones(s, s, dtype=torch.bool).tril()).to(DEVICE)
     qt, kt, vt, dot = (x.transpose(1, 2).contiguous().requires_grad_(x is not do)
@@ -6920,7 +6954,9 @@ CARD_BYTES = 80e9  # the card's memory, against which the state must not fit
 # host bytes left free beside the pinned state: the process, the page cache
 # the disk phases use, the next phase's buffers
 OFFLOAD_HOST_RESERVE = 10 << 30
-NVME_TRAIN = dict(seq_steps=3, pipe_steps=4, bench_mb=2048)
+# 2 sequential and 3 pipelined steps for the smoke's time limit: a step
+# walks 5.17 GB of state at 1.1-1.2 GB/s
+NVME_TRAIN = dict(seq_steps=2, pipe_steps=3, bench_mb=2048)
 
 
 def _proc_memory():
@@ -7401,8 +7437,11 @@ def nvme_train_phase(torch, K, gpu, train_losses):
 # ---------------------------------------------------------------------------
 SCHEDULE_PRESET = "llama3_proxy_410m"  # CPU rehearsals: "tiny"
 SCHEDULE_CHECK = dict(layers=2, seq=1024, cut=520, micro=2, gas=2)
+# 12 of the flagship's 24 layers: the gates (lengths, kept layers x GAS,
+# K8 once, the CSV rows, the profiled K1 count) hold at any depth, and the
+# compile phases took the seconds (the whole smoke's time limit)
 SCHEDULE_TRAIN = dict(seq=4096, micro=8, gas=2, steps=8, loader_steps=3, timed=4, docs=96,
-                      min_doc=256)
+                      min_doc=256, layers=12)
 SCHEDULE_CURRICULUM = dict(min_difficulty=512, max_difficulty=4096, total_curriculum_step=10,
                            difficulty_step=8)
 SCHEDULE_PLD = dict(theta=0.5, gamma=0.5)
@@ -7591,7 +7630,7 @@ def schedule_train_phase(torch, K, gpu, train_mfu):
     from deepspeed_tpu_torch.profiling import analyze_train_step
 
     z = SCHEDULE_TRAIN
-    model = _schedule_model(z["seq"])
+    model = _schedule_model(z["seq"], z.get("layers"))
     cfg = model.cfg
     rng = np.random.default_rng(SEED)
     drawn = []  # (a drawn sample's length, the scheduler's difficulty then)
@@ -8578,6 +8617,351 @@ def build_window_references(torch, K):
     return refs
 
 
+# ---------------------------------------------------------------------------
+# the compile section (the attention kernels as torch.library ops under
+# torch.compile) and the hybrid engine's quantized refresh
+# ---------------------------------------------------------------------------
+COMPILE_PRESET = "llama3_proxy_410m"  # CPU rehearsals: "tiny"
+# the flagship's width and cell (seq 4096, micro 8, GAS 2, bf16 over fp32
+# masters, AdamW, selective remat, the chunked CE) at 2 of its 24 layers
+# under inductor (4 layers compiled in 45.3 s, 2 in 48.9 on a slower host:
+# the compile's cost is mostly fixed); the block-sparse twin
+# (fixed(128, 4, 1), FusedAdam) at 2 layers under aot_eager: its point is
+# K7's ops called from a compiled graph, and inductor's second compile
+# (23-29 s) would take the whole smoke past its time limit
+COMPILE_TRAIN = dict(layers=2, seq=4096, micro=8, gas=2, steps=4, sparse_layers=2,
+                     sparse_steps=2, backend="inductor", sparse_backend="aot_eager")
+# compiled against eager losses, relative: the same bf16 step, inductor's
+# fused elementwise kernels rounding in other places.  Read on the card:
+# 1.0e-5 at 2 layers, 3.3e-5 at 4; the losses move 3.4 % a step, so a
+# limit near that movement would pass a graph that drops part of a
+# gradient
+COMPILE_LOSS_RTOL = 1e-3
+# each leaf's update over the run (a stacked leaf layer by layer), compiled
+# against eager, as a cosine: a dropped gradient leaves a slice moved by
+# weight decay alone (1e-5 of it a step against Adam's 1e-4 an element),
+# whose cosine with the eager update is near 0.  The phase plants that
+# fault (layer 0's attention gradients zeroed in an eager twin,
+# ``_zero_layer0_attention_grads``) and requires a gate to catch it
+COMPILE_UPDATE_COS_MIN = 0.9
+HYBRID_QUANT = dict(layers=2, seq=512, micro=2, gas=1, steps=2, lr=1e-3, prompts=2,
+                    prompt_len=64, new=16, burst=8, max_seq_len=256)
+
+
+def _compile_model(layers):
+    from deepspeed_tpu_torch.models.presets import get_preset
+    from deepspeed_tpu_torch.models.transformer import CausalLM
+
+    over = dict(num_layers=layers)
+    if COMPILE_PRESET == "llama3_proxy_410m":
+        over["loss_chunk_size"] = 2048
+    else:
+        over["max_seq_len"] = COMPILE_TRAIN["seq"] + 1
+    return CausalLM(get_preset(COMPILE_PRESET, **over))
+
+
+def _step_categories(rows):
+    """Device ms of one step by kind of kernel (the profiler's rows):
+    attention (K1 / K7), K8, matrix products, the rest (elementwise,
+    reductions, copies; inductor's fused kernels are ``triton_*``)."""
+    cats = {"attention": 0.0, "fused_adamw": 0.0, "gemm": 0.0, "triton": 0.0, "other": 0.0}
+    for r in rows:
+        n = r["name"]
+        if re.search(r"flash_(fwd|bwd_dq|bwd_dkv)_kernel|sparse", n):
+            cats["attention"] += r["ms_per_call"]
+        elif "adamw" in n:
+            cats["fused_adamw"] += r["ms_per_call"]
+        elif re.search(r"gemm|xmma|cutlass|nvjet|sm90_|wgmma", n):
+            cats["gemm"] += r["ms_per_call"]
+        elif n.startswith("triton_"):
+            cats["triton"] += r["ms_per_call"]
+        else:
+            cats["other"] += r["ms_per_call"]
+    return cats
+
+
+def _zero_layer0_attention_grads(torch, loss_fn):
+    """``loss_fn`` whose gradients of layer 0's attention weights are zero:
+    the fault a compiled graph that dropped part of a gradient would make."""
+    def fn(params, micro, gen):
+        attn = {n: torch.cat([w[:1].detach(), w[1:]])
+                for n, w in params["layers"]["attn"].items()}
+        return loss_fn({**params, "layers": {**params["layers"], "attn": attn}}, micro, gen)
+    return fn
+
+
+def _leaf_paths(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaf_paths(v, f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def _update_cosines(torch, got, ref):
+    """{leaf (``path[i]`` for layer i of a stacked leaf): the cosine of the
+    updates ``got`` and ``ref`` in fp64}; 1 where both are zero."""
+    out = {}
+    for path, a in got.items():
+        b = ref[path]
+        pairs = ([(f"{path}[{i}]", a[i], b[i]) for i in range(a.shape[0])]
+                 if path.startswith("layers/") else [(path, a, b)])
+        for name, x, y in pairs:
+            x, y = x.double().flatten(), y.double().flatten()
+            nx, ny = float(x.norm()), float(y.norm())
+            out[name] = 1.0 if nx == ny == 0 else (
+                float(x @ y) / (nx * ny) if nx and ny else 0.0)
+    return out
+
+
+def _compile_twins(torch, K, layers, steps, backend, sparse=None, profile=False,
+                   planted=False):
+    """An eager engine and its ``compile: {"backend": backend}`` twin, from
+    the same weights, on the same batch: the first step (the compile, for
+    the twin), then ``steps`` timed steps with their launches, and each
+    leaf's update over the run as a cosine with the eager twin's.  With
+    ``planted``, a third engine, eager, whose loss drops layer 0's
+    attention gradients."""
+    import torch._dynamo
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.models.transformer import init_params
+
+    z = COMPILE_TRAIN
+    out, ref = {}, None
+    runs = [("eager", None), ("compiled", {"backend": backend})]
+    for name, section in runs + [("planted", None)] * planted:
+        torch._dynamo.reset()
+        model = _compile_model(layers)
+        conf = bench_config(z["micro"], z["gas"], sparse)
+        if DEVICE != "cuda":
+            conf["bf16"] = {"enabled": False}
+        if section is not None:
+            conf["compile"] = section
+        params = init_params(model.cfg, seed=SEED, device=DEVICE, dtype=torch.float32)
+        engine, _, _, _ = initialize(model=model, params=params, config=conf, device=DEVICE)
+        del params
+        if name == "planted":
+            engine.loss_fn = _zero_layer0_attention_grads(torch, engine.loss_fn)
+        p0 = {k: v.detach().clone() for k, v in _leaf_paths(engine.params)}
+        batch = _token_batch(model.cfg, z["gas"], z["micro"], z["seq"])
+        t0 = time.perf_counter()
+        first = float(engine.train_batch(batch))
+        first_s = time.perf_counter() - t0
+        K.reset_launches()
+        losses, step_s = [first], []
+        for _ in range(steps):
+            _sync(torch)
+            t0 = time.perf_counter()
+            losses.append(float(engine.train_batch(batch)))
+            step_s.append(time.perf_counter() - t0)
+        launches = dict(K.LAUNCHES)
+        run = dict(first_step_s=first_s, losses=losses, step_s=step_s,
+                   step_s_median=sorted(step_s)[len(step_s) // 2], launches=launches,
+                   launches_per_step={n: launches[n] / steps for n in launches
+                                      if launches[n]})
+        update = {k: v.detach() - p0.pop(k) for k, v in _leaf_paths(engine.params)}
+        if ref is None:
+            ref = update
+        else:
+            cos = _update_cosines(torch, update, ref)
+            worst = min(cos, key=cos.get)
+            run.update(update_cos_min=cos[worst], update_cos_worst_leaf=worst,
+                       loss_rel_diff=[abs(a - b) / abs(b) for a, b in
+                                      zip(losses, out["eager"]["losses"])])
+        del update, p0
+        if profile and name != "planted" and DEVICE == "cuda":
+            wall_ms, dev_ms, rows = _device_profile(torch, lambda: engine.train_batch(batch),
+                                                    top=None)
+            run.update(profile_step_wall_ms=wall_ms, profile_step_device_ms=dev_ms,
+                       device_idle_share=None if dev_ms is None else 1.0 - dev_ms / wall_ms,
+                       device_ms_by_kind=_step_categories(rows), profile_top=rows[:8])
+        out[name] = run
+        del engine
+        _free(torch)
+    del ref
+    _free(torch)
+    torch._dynamo.reset()
+    return out
+
+
+def compile_train_phase(torch, K, gpu):
+    """``compile_train``: the train cell at ``COMPILE_TRAIN``'s depth under
+    ``compile: {"backend": "inductor"}`` against its eager twin (same
+    weights, same batch), then a 2-layer block-sparse twin pair under
+    ``aot_eager``.  Gates:
+    each run's K1 (K7) kernels layers x GAS a step and K8 once, the
+    compiled run's launches equal to the eager twin's (the compiled graph
+    calls the hand-written kernels, never a generated replacement), the
+    losses within ``COMPILE_LOSS_RTOL`` and every leaf's update at a cosine
+    of at least ``COMPILE_UPDATE_COS_MIN`` with the eager twin's; an eager
+    twin that drops layer 0's attention gradients (``planted``) must fail
+    one of those two gates.  Reports the compile seconds (the
+    compiled run's first step less its median step), each run's median
+    step and its device time by kind of kernel."""
+    z = COMPILE_TRAIN
+    dense = _compile_twins(torch, K, z["layers"], z["steps"], z["backend"], profile=True,
+                           planted=True)
+    sparse = _compile_twins(torch, K, z["sparse_layers"], z["sparse_steps"],
+                            z["sparse_backend"], sparse=SPARSE_FLAGSHIP)
+    bad = []
+    for label, twins, layers, steps, is_sparse in (
+            ("dense", dense, z["layers"], z["steps"], False),
+            ("sparse", sparse, z["sparse_layers"], z["sparse_steps"], True)):
+        for name, run in twins.items():
+            if DEVICE == "cuda":
+                try:
+                    check_train_launches(f"compile_train {label} {name}", run["launches"],
+                                         layers, z["gas"], steps, is_sparse)
+                except AssertionError as exc:
+                    bad.append(str(exc))
+        watched = (*ATTN_KERNELS[is_sparse], "fused_adamw")
+        lc, le = twins["compiled"]["launches"], twins["eager"]["launches"]
+        if any(lc[n] != le[n] for n in watched):
+            bad.append(f"{label}: compiled launches {[lc[n] for n in watched]} != eager "
+                       f"{[le[n] for n in watched]}")
+        c = twins["compiled"]
+        if not max(c["loss_rel_diff"]) <= COMPILE_LOSS_RTOL:
+            bad.append(f"{label}: losses {c['losses']} vs {twins['eager']['losses']}")
+        if not c["update_cos_min"] >= COMPILE_UPDATE_COS_MIN:
+            bad.append(f"{label}: update cosine {c['update_cos_min']} at "
+                       f"{c['update_cos_worst_leaf']}")
+        if "planted" in twins:  # the gates must catch a dropped gradient
+            p = twins["planted"]
+            p["caught_by"] = [g for g, hit in (
+                ("losses", max(p["loss_rel_diff"]) > COMPILE_LOSS_RTOL),
+                ("update_cos", p["update_cos_min"] < COMPILE_UPDATE_COS_MIN)) if hit]
+            if not p["caught_by"]:
+                bad.append(f"{label}: the planted fault passed the gates {p}")
+        twins["compile_s"] = c["first_step_s"] - c["step_s_median"]
+    res = dict(phase="compile_train", model=COMPILE_PRESET, layers=z["layers"], seq=z["seq"],
+               micro_batch=z["micro"], gas=z["gas"], backend=z["backend"],
+               sparse_backend=z["sparse_backend"],
+               loss_rtol=COMPILE_LOSS_RTOL, update_cos_min=COMPILE_UPDATE_COS_MIN,
+               dense=dense, sparse_layers=z["sparse_layers"],
+               sparse_attention=SPARSE_FLAGSHIP, sparse=sparse,
+               compile_s=dict(dense=dense["compile_s"], sparse=sparse["compile_s"]),
+               step_s_median=dict(eager=dense["eager"]["step_s_median"],
+                                  compiled=dense["compiled"]["step_s_median"]),
+               launches={n: dense["compiled"]["launches"][n] + sparse["compiled"]["launches"][n]
+                         for n in K.LAUNCHES},
+               launches_per_step=dict(dense=dense["compiled"]["launches_per_step"],
+                                      sparse=sparse["compiled"]["launches_per_step"]),
+               torch=torch.__version__, gpu=gpu)
+    emit(res)
+    if bad:
+        raise AssertionError(f"compile_train: {bad}")
+    return res
+
+
+def _quant_payloads(torch, tree, prefix=""):
+    """Every quantized leaf's payload tensors by path (the serving tree)."""
+    from deepspeed_tpu_torch.ops.quantizer import ServingQuant, ServingQuantFP6
+
+    out = {}
+    for k, v in tree.items():
+        path = f"{prefix}/{k}"
+        if isinstance(v, dict):
+            out.update(_quant_payloads(torch, v, path))
+        elif isinstance(v, ServingQuant):
+            out[path + ".q"], out[path + ".s"] = v.q.view(torch.uint8), v.s
+        elif isinstance(v, ServingQuantFP6):
+            out[path + ".packed"], out[path + ".s"] = v.packed, v.s
+    return out
+
+
+def hybrid_quant_phase(torch, K, gpu):
+    """``hybrid_quant``: for int8, fp8 and fp6, a hybrid engine over
+    ``HYBRID_QUANT``'s layers of the flagship (bf16) serving quantized
+    weights with ``decode_megastep`` bursts: a first ``generate`` captures
+    the burst graph, ``train_batch`` moves the weights, the next
+    ``generate`` re-quantizes them into the payloads in place and replays
+    the same graph.  Gates: the tokens after training equal a fresh
+    quantized engine's built from the trained weights; every payload byte
+    equals a fresh ``quantize_serving_params`` of them and differs from
+    before somewhere; the burst graphs are the ones captured before; K4 /
+    K5 launched in the generate after the refresh."""
+    import numpy as np
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.inference.engine_v2 import InferenceEngineV2
+    from deepspeed_tpu_torch.inference.sampling import SamplingParams
+    from deepspeed_tpu_torch.models.transformer import init_params
+    from deepspeed_tpu_torch.ops.quantizer import quantize_serving_params
+    from deepspeed_tpu_torch.runtime.hybrid_engine import DeepSpeedHybridEngine
+
+    z = HYBRID_QUANT
+    serve = dict(max_seqs=z["prompts"], num_blocks=64, block_size=32,
+                 max_seq_len=z["max_seq_len"], serve={"decode_megastep": z["burst"]})
+    formats, bad, launches = {}, [], {}
+    for fmt in QMM_NAMES:
+        model = _compile_model(z["layers"])
+        cfg = model.cfg
+        conf = bench_config(z["micro"], z["gas"])
+        conf["optimizer"]["params"]["lr"] = z["lr"]
+        if DEVICE != "cuda":
+            conf["bf16"] = {"enabled": False}
+        params = init_params(cfg, seed=SEED, device=DEVICE, dtype=torch.float32)
+        engine, _, _, _ = initialize(model=model, params=params, config=conf, device=DEVICE)
+        del params
+        hyb = DeepSpeedHybridEngine(engine, quantize_weights=fmt, **serve)
+        rng = np.random.default_rng(SEED + 40)
+        prompts = [rng.integers(1, cfg.vocab_size, z["prompt_len"]).tolist()
+                   for _ in range(z["prompts"])]
+        samp = SamplingParams(temperature=0.0, max_new_tokens=z["new"])
+        gen0, l_gen0, d_gen0 = _hybrid_gen(torch, K, hyb, prompts, samp, batched=False)
+        burst = hyb._inference._burst
+        graphs0 = dict(burst.graphs) if burst is not None else {}
+        old = {k: v.clone() for k, v in _quant_payloads(torch, hyb._inference.params).items()}
+        batch = _token_batch(cfg, z["gas"], z["micro"], z["seq"])
+        losses = [float(hyb.train_batch(batch)) for _ in range(z["steps"])]
+        t0 = time.perf_counter()
+        gen1, l_gen1, d_gen1 = _hybrid_gen(torch, K, hyb, prompts, samp, batched=False)
+        gen1_s = time.perf_counter() - t0
+        graphs1 = dict(burst.graphs) if burst is not None else {}
+        trained = hyb._serving_params()
+        fresh = InferenceEngineV2(params=trained, cfg=hyb._infer_cfg, device=DEVICE,
+                                  quantize_weights=fmt, **serve)
+        want = [fresh.generate(p, samp) for p in prompts]
+        got_bytes = _quant_payloads(torch, hyb._inference.params)
+        want_bytes = _quant_payloads(torch, quantize_serving_params(trained, fmt))
+        same_bytes = got_bytes.keys() == want_bytes.keys() and all(
+            torch.equal(got_bytes[k], want_bytes[k]) for k in want_bytes)
+        moved = any(not torch.equal(old[k], got_bytes[k]) for k in old)
+        kept = bool(graphs0) and graphs1.keys() == graphs0.keys() and all(
+            graphs1[k] is v for k, v in graphs0.items())
+        audits = [hyb._inference.close(), fresh.close()]
+        name = QMM_NAMES[fmt]
+        formats[fmt] = dict(losses=losses, tokens_equal_fresh=gen1 == want,
+                            generations_changed=gen1 != gen0, payload_bytes_equal=same_bytes,
+                            payloads_moved=moved, burst_graphs_kept=kept,
+                            dispatches=dict(before=d_gen0, after=d_gen1),
+                            launches_generate=dict(before=l_gen0, after=l_gen1),
+                            generate_after_refresh_s=gen1_s)
+        for n, c in l_gen0.items():
+            launches[n] = launches.get(n, 0) + c
+        for n, c in l_gen1.items():
+            launches[n] = launches.get(n, 0) + c
+        if gen1 != want:
+            bad.append(f"{fmt}: tokens {gen1} != a fresh quantized engine's {want}")
+        if not same_bytes or not moved:
+            bad.append(f"{fmt}: payload bytes equal to a fresh encoding {same_bytes}, "
+                       f"moved {moved}")
+        if DEVICE == "cuda":
+            if not (kept and d_gen1["decode_bursts"]):
+                bad.append(f"{fmt}: graphs kept {kept}, bursts {d_gen1}")
+            if not l_gen1.get(name):
+                bad.append(f"{fmt}: no {name} launch after the refresh ({l_gen1})")
+        if any(a["blocks_in_use"] for a in audits):
+            bad.append(f"{fmt}: leaked blocks {audits}")
+        del engine, hyb, fresh, trained
+        _free(torch)
+    res = dict(phase="hybrid_quant", model=COMPILE_PRESET, layers=z["layers"],
+               decode_megastep=z["burst"], formats=formats, launches=launches, gpu=gpu)
+    emit(res)
+    if bad:
+        raise AssertionError(f"hybrid_quant: {bad}")
+    return res
+
+
 def _free(torch):
     import gc
 
@@ -8641,7 +9025,7 @@ def main() -> None:
     ms_eng = burst_engine_phase(torch, K, gpu, params, cfg, eng["streams"],
                                 "llama3_proxy_410m", "megastep", n=64)
     burst_stops_phase(torch, K, gpu, params, cfg)
-    ms_sch = megastep_serve_phase(torch, K, gpu, params, cfg)
+    ms_sch = megastep_serve_phase(torch, K, gpu, *cut_depth(params, cfg, SERVE_CUT_LAYERS))
     sch = scheduler_phase(torch, K, gpu, params, cfg)
     # the serve front end (router, handoff, fleet plane, chaos) on the same model
     params_cpu = _tree_cpu(params)
@@ -8660,14 +9044,16 @@ def main() -> None:
     rfl = remote_fleet_phase(torch, K, gpu, cfg, remote)
     del remote
     rch = remote_chaos_phase(torch, K, gpu, cfg, params_cpu, rt, rc)
-    ad = adapt_serve_phase(torch, K, gpu, params, cfg, params_cpu)
+    ad = adapt_serve_phase(torch, K, gpu, *cut_depth(params, cfg, SERVE_CUT_LAYERS),
+                           cut_depth(params_cpu, cfg, SERVE_CUT_LAYERS)[0])
     del params_cpu
     _free(torch)
     at = autotune_serve_phase(torch, K, gpu, params, cfg)
     _free(torch)
-    spec = spec_phase(torch, K, gpu, params, cfg, "llama3_proxy_410m", "spec_serve")
+    spec = spec_phase(torch, K, gpu, *cut_depth(params, cfg, SERVE_CUT_LAYERS),
+                      "llama3_proxy_410m", "spec_serve")
     lcc = longctx_check_phase(torch, K, gpu, cfg)
-    lc = longctx_phase(torch, K, gpu, params, cfg)
+    lc = longctx_phase(torch, K, gpu, *cut_depth(params, cfg, SERVE_CUT_LAYERS))
     del params
     _free(torch)
     g_eng, g_burst, g_spec = gpt2_serve_phase(torch, K, gpu)
@@ -8704,6 +9090,12 @@ def main() -> None:
     lh = lora_hybrid_phase(torch, K, gpu, tr)
     _free(torch)
     ec = eigen_check_phase(torch, K, gpu, refs.pop("eigen_check"))
+    _free(torch)
+    # the attention kernels as torch.library ops under torch.compile, and
+    # the hybrid engine's quantized refresh with a burst graph captured
+    ctr = compile_train_phase(torch, K, gpu)
+    _free(torch)
+    hq = hybrid_quant_phase(torch, K, gpu)
     _free(torch)
     # ZeRO-Offload: the CPU tier and the NVMe tier checked against the plain
     # engine, the NVMe tier on the flagship, llama3_8b through the CPU tier
@@ -8753,11 +9145,12 @@ def main() -> None:
     # engine), each read right after its own run
     main_paths = (eng, ms_eng, ms_sch, sch, spec, lcc, lc, g_eng, g_burst, g_spec, tr, shim, sp,
                   opt, rm, pt, ps, qc, qs, qz, rt, rh, rk, rf, rc, rr, rho, rfl, rch, ad, at,
-                  ck, hf, mt, mv, v1, oc, nt, ot, sc, st, cc, ct, kd, lh, ec)
+                  ck, hf, mt, mv, v1, oc, nt, ot, sc, st, cc, ct, kd, lh, ec, ctr, hq)
     schedule_paths = {"schedule_check": sc, "schedule_train": st}
     shaping_paths = {"compress_check": cc, "compress_train": ct, "kd_train": kd,
                      "lora_hybrid": lh, "eigen_check": ec}
     moe_paths = {"moe_train": mt, "moe_serve": mv, "v1_serve": v1}
+    compile_paths = {"compile_train": ctr, "hybrid_quant": hq}
     offload_paths = {"offload_check": oc, "nvme_train": nt, "offload_train": ot}
     resume_paths = {"checkpoint": ck, "hf_roundtrip": hf}
     router_paths = {"router": rt, "router_handoff": rh, "router_check": rk,
@@ -8813,6 +9206,14 @@ def main() -> None:
                             if p["launches"].get(name)}
         if shaping_launches:  # compression, distillation, LoRA + hybrid generate, eigenvalues
             entry["launches_shaping_phases"] = shaping_launches
+        compile_launches = {k: p["launches"].get(name, 0) for k, p in compile_paths.items()
+                            if p["launches"].get(name)}
+        if compile_launches:  # the compiled train step, the quantized hybrid's refresh
+            entry["launches_compile_phases"] = compile_launches
+        for kind in ("dense", "sparse"):
+            if ctr["launches_per_step"][kind].get(name):
+                entry.setdefault("launches_per_compiled_train_step", {})[kind] = \
+                    ctr["launches_per_step"][kind][name]
         if name == "fused_adamw":
             entry["launches_per_offloaded_step"] = {
                 "offload_check": oc["launches_per_step"]["fused_adamw"],

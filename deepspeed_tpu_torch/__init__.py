@@ -58,7 +58,43 @@ Ported so far:
 """
 from __future__ import annotations
 
+import os
 from typing import Any, Callable, Optional
+
+__version__ = "0.1.0"  # the JAX package's
+
+
+def _adopt_elastic_batch(cfg, dp_world_size: int) -> None:
+    """The elastic batch size and micro-batch into ``cfg``, as JAX's
+    ``initialize`` (``deepspeed_tpu/__init__.py:236-280``, the reference's
+    engine.py:594-604): the elastic values always win; batch keys the user
+    also set are an ``ElasticityConfigError`` unless
+    ``ignore_non_elastic_batch_info``.  The world size handed to
+    ``compute_elastic_config`` is ``dp_world_size * model_parallel_size``
+    (v0.2 divides by the model-parallel size itself)."""
+    from .elasticity import ElasticityConfigError, compute_elastic_config
+    from .utils.logging import log_dist
+
+    mp = int(cfg.elasticity.get("model_parallel_size", 1))
+    final_batch, valid_gpus, micro = compute_elastic_config(
+        {"elasticity": cfg.elasticity}, world_size=dp_world_size * mp, return_microbatch=True)
+    user_batch_info = any(v is not None for v in (
+        cfg.train_batch_size, cfg.train_micro_batch_size_per_gpu,
+        cfg.gradient_accumulation_steps))
+    if user_batch_info and not cfg.elasticity.get("ignore_non_elastic_batch_info", False):
+        raise ElasticityConfigError(
+            "elasticity is enabled but batch sizes are also set in the config; remove "
+            "train_batch_size/train_micro_batch_size_per_gpu/gradient_accumulation_steps "
+            "or set elasticity.ignore_non_elastic_batch_info")
+    if micro is None:
+        raise ElasticityConfigError(
+            f"no micro batch in {cfg.elasticity.get('micro_batch_sizes')} divides elastic "
+            f"batch {final_batch} at world size {dp_world_size}")
+    cfg.train_batch_size = final_batch
+    cfg.train_micro_batch_size_per_gpu = micro
+    cfg.gradient_accumulation_steps = final_batch // (micro * dp_world_size)
+    log_dist(f"elasticity: train_batch_size={final_batch} micro={micro} "
+             f"valid world sizes={valid_gpus}")
 
 
 def initialize(model=None, params: Any = None, config: Any = None, device=None,
@@ -94,10 +130,17 @@ def initialize(model=None, params: Any = None, config: Any = None, device=None,
     with ``trainable_mask`` (``linear.LoRACausalLM``) trains only the
     leaves it marks; with ``hybrid_engine.enabled`` the engine returned is a
     ``runtime.hybrid_engine.DeepSpeedHybridEngine`` around it (JAX
-    ``__init__.py:120-133``, ``:284-294``, ``:337-350``).
+    ``__init__.py:120-133``, ``:284-294``, ``:337-350``).  An enabled
+    ``elasticity`` section sets the batch size, micro-batch and GAS
+    (``_adopt_elastic_batch``); the ``compile`` section compiles the
+    engine's model loss (``runtime.engine.DeepSpeedTorchEngine._jit``).
 
     Refused with ``NotImplementedError``: ``mesh`` (one device only;
-    ROADMAP queue 1 item 7)."""
+    ROADMAP queue 1 item 7), and a process launched into a world of more
+    than one (``WORLD_SIZE`` > 1 in its environment, as the elastic agent
+    and the multinode runners set it): it would train the whole batch
+    alone, on the world-1 elastic batch, beside peers writing the same
+    checkpoints (item 7)."""
     from .config.config import ConfigError, parse_config
     from .monitor.monitor import MonitorMaster
     from .ops.kernels import resolve_device
@@ -107,12 +150,20 @@ def initialize(model=None, params: Any = None, config: Any = None, device=None,
     if mesh is not None:
         raise NotImplementedError("a device mesh is not ported yet: the port trains on "
                                   "one device (ROADMAP queue 1 item 7)")
+    world = int(os.environ.get("WORLD_SIZE") or 1)
+    if world > 1:
+        raise NotImplementedError(
+            f"WORLD_SIZE={world}: training across processes is not ported yet (ROADMAP "
+            "queue 1 item 7); the port trains on one device, and each process of the "
+            "world would train the whole batch alone")
     cfg = parse_config(config)
-    cfg.finalize(1)
+    dp_world_size = 1  # one device (ROADMAP queue 1 item 7)
+    if cfg.elasticity.get("enabled"):
+        _adopt_elastic_batch(cfg, dp_world_size)
+    cfg.finalize(dp_world_size)
     device = resolve_device(device)
     if isinstance(model, str):
         import json
-        import os
 
         from .checkpoint.hf_import import config_from_hf, load_hf_checkpoint
         from .models.transformer import CausalLM

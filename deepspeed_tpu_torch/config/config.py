@@ -49,7 +49,10 @@ the port runs:
   bits ``initialize`` wires into the model), ``eigenvalue``
   (``EigenvalueConfig``: the engine's block eigenvalues) and
   ``hybrid_engine`` (``HybridEngineConfig``: ``initialize`` returns a
-  ``runtime.hybrid_engine.DeepSpeedHybridEngine``).
+  ``runtime.hybrid_engine.DeepSpeedHybridEngine``);
+- ``elasticity`` (JAX's dict: ``initialize`` adopts the elastic batch size
+  and micro-batch, ``elasticity.compute_elastic_config``) and ``compile``
+  (``CompileConfig``: the engine's ``_jit`` of the model loss).
 
 An unknown key raises ``ConfigError`` naming it, as in JAX.  A key the JAX
 package knows but the port does not run yet is accepted at JAX's default
@@ -57,7 +60,7 @@ and raises ``NotImplementedError`` naming it and its ROADMAP queue-1 item
 when its value differs (``_UNPORTED_TOP``, ``_UNPORTED_ZERO``): the mesh
 (an expert axis included), tensor parallelism, the comms logger, ZeRO++ and
 ``serve.quant_comm``
-/ ``comm_tiles`` are item 7; ``elasticity`` and ``compile`` are item 9.  The
+/ ``comm_tiles`` are item 7.  The
 reference keys JAX accepts and ignores are accepted and ignored here too.
 """
 from __future__ import annotations
@@ -86,9 +89,6 @@ _UNPORTED_TOP = {
                                                       domino_chunks=1)), 7),
     "comms_logger": (("CommsLoggerConfig", dict(enabled=False, verbose=False, prof_all=True,
                                                 debug=False, prof_ops=[])), 7),
-    "elasticity": ({}, 9),
-    "compile": (("CompileConfig", dict(enabled=True, disable=False, backend="xla",
-                                       kwargs={})), 9),
 }
 # zero_optimization keys the port does not run yet: (JAX's default, item)
 _UNPORTED_ZERO = {
@@ -479,6 +479,65 @@ class EigenvalueConfig:
             raise ConfigError(f"eigenvalue.max_iter must be >= 1, got {self.max_iter}")
 
 
+# torch.compile backends the compile section takes; "xla" is JAX's default
+# and names no torch backend (eager, the hand-written kernels as they are)
+COMPILE_BACKENDS = ("inductor", "aot_eager", "eager")
+# modes / options whose compiled graphs replay as CUDA graphs: a replay skips
+# the custom ops' Python bodies, so ``ops.kernels.LAUNCHES`` would not count
+# the kernels it runs
+_GRAPH_REPLAY = {"backend": ("cudagraphs",), "mode": ("reduce-overhead", "max-autotune"),
+                 "options": ("triton.cudagraphs",)}
+
+
+@dataclass
+class CompileConfig:
+    """JAX's ``CompileConfig`` (config.py:924), the reference's
+    ``runtime/compiler.py`` knobs, read as ``torch.compile``'s.
+
+    ``backend`` "xla" (JAX's default) runs eager, with the hand-written
+    kernels; a torch backend (``COMPILE_BACKENDS``) compiles the engine's
+    model loss when ``enabled`` and not ``disable``; ``kwargs`` go to
+    ``torch.compile`` (``fullgraph``, ``dynamic``, ``mode``, ``options``).
+    JAX jits whatever ``enabled`` says and ``disable`` alone turns it off.
+    Refused with ``ConfigError`` at parse time: any other backend, a
+    ``kwargs`` key ``torch.compile`` does not take, and a CUDA-graph replay
+    (backend "cudagraphs", mode "reduce-overhead" / "max-autotune",
+    ``options["triton.cudagraphs"]``), whose replays would run the kernels
+    without counting them."""
+
+    enabled: bool = True
+    disable: bool = False
+    backend: str = "xla"
+    kwargs: Dict[str, Any] = field(default_factory=dict)
+
+    def __post_init__(self):
+        if self.backend in _GRAPH_REPLAY["backend"] or \
+                self.kwargs.get("mode") in _GRAPH_REPLAY["mode"] or \
+                any((self.kwargs.get("options") or {}).get(k) for k in _GRAPH_REPLAY["options"]):
+            raise ConfigError(
+                "compile: a CUDA-graph replay (backend 'cudagraphs', mode 'reduce-overhead' "
+                "or 'max-autotune', options['triton.cudagraphs']) is refused: a replay skips "
+                "the kernels' op bodies, which count their launches in ops.kernels.LAUNCHES")
+        if self.backend != "xla" and self.backend not in COMPILE_BACKENDS:
+            raise ConfigError(f"compile.backend {self.backend!r}: use 'xla' (eager) or one of "
+                              f"{COMPILE_BACKENDS}")
+        if not isinstance(self.kwargs, dict):
+            raise ConfigError(f"compile.kwargs must be a dict, got {type(self.kwargs)}")
+        import inspect
+
+        import torch
+
+        taken = set(inspect.signature(torch.compile).parameters) - {"model", "backend"}
+        unknown = sorted(set(self.kwargs) - taken)
+        if unknown:
+            raise ConfigError(f"compile.kwargs {unknown}: torch.compile takes {sorted(taken)}")
+
+    @property
+    def compiles(self) -> bool:
+        """Whether the engine compiles its model loss."""
+        return self.backend != "xla" and self.enabled and not self.disable
+
+
 @dataclass
 class HybridEngineConfig:
     """``hybrid_engine`` (JAX's ``HybridEngineConfig``): ``max_out_tokens``
@@ -537,6 +596,9 @@ class Config:
     compression_training: CompressionConfig = field(default_factory=CompressionConfig)
     eigenvalue: EigenvalueConfig = field(default_factory=EigenvalueConfig)
     hybrid_engine: HybridEngineConfig = field(default_factory=HybridEngineConfig)
+    # JAX's dict (``elasticity.ElasticityConfig`` validates it in initialize)
+    elasticity: Dict[str, Any] = field(default_factory=dict)
+    compile: CompileConfig = field(default_factory=CompileConfig)
     dp_world_size: int = 1  # derived by finalize
 
     @property

@@ -5,17 +5,21 @@ VJP) and of its dispatcher ``ops/pallas/flash_attention.py``.
 ``flash_attention`` keeps the JAX entry's ``[b, s, h, d]`` layout.  Without
 grad, a CPU tensor runs the plain body (``ops.attention.
 dot_product_attention``) and a CUDA tensor the forward kernel
-``csrc/flash_fwd.cu`` with no lse (serving).  With grad it goes through
-``FlashAttentionFn``, which saves ``(q, k, v, seg, o, lse)`` and whose
-backward is ``csrc/flash_bwd.cu`` (dq kernel, dk/dv kernel).  The Function
-is the same on both devices; only its two inner calls dispatch on the
-tensor's device: the plain versions on the CPU (the tests), the kernels on
-CUDA.  The backward is ``once_differentiable`` (``ops.kernels``'s, which
-links its error node to the inputs): its outputs carry no graph (on the
-card they come from a kernel; the plain version treats the saved o and lse
-as constants), so a double backward through the Function raises instead
-of returning a wrong second derivative, as JAX cannot take ``jvp``
-through its custom VJP either.  The kernels (wgmma on the tensor cores) take causal attention with
+``csrc/flash_fwd.cu`` with no lse (serving).  With grad it calls the
+custom op ``dstpu::flash_fwd`` (``torch.library``: a schema, a fake for
+shapes and dtypes, an autograd formula), which returns ``(o, lse)`` and
+whose backward is the op ``dstpu::flash_bwd`` (``csrc/flash_bwd.cu``: the
+delta, the dq kernel, the dk/dv kernel).  Eager autograd and a
+``torch.compile``'d graph call the same two ops, so a compiled step
+launches the hand-written kernels and never a generated replacement.  Each
+op dispatches on the tensor's device: the plain versions on the CPU (the
+tests), the kernels on CUDA.  The backward is ``once_differentiable``
+(``ops.kernels``'s, which links its error node to the inputs): its outputs
+carry no graph (on the card they come from a kernel; the plain version
+treats the saved o and lse as constants), so a double backward through the
+op raises instead of returning a wrong second derivative, as JAX cannot
+take ``jvp`` through its custom VJP either.  The kernels (wgmma on the
+tensor cores) take causal attention with
 GQA, packed ``segment_ids`` and the soft cap, bf16, head_dim 64, 128 or 256
 (the head dims JAX's gate admits, ``flash_kernel.py:108``), any query group
 (a CTA per query head) and any sequence length (there is no TPU minimum).
@@ -180,38 +184,73 @@ def flash_attention_bwd_kernel(q, k, v, segment_ids, o, lse, do, scale=None,
 
 
 # ---------------------------------------------------------------------------
-# the autograd Function (the ``_flash`` custom VJP)
+# the custom ops (the ``_flash`` custom VJP)
 # ---------------------------------------------------------------------------
+def _contiguous(outs):
+    """An op's outputs in the layout its fake promises (the plain versions'
+    einsums may hand back permuted strides)."""
+    return tuple(t.contiguous() for t in outs)
+
+
 def _fwd_with_lse(q, k, v, seg, scale, cap):
     if q.device.type == "cpu":
-        return flash_attention_fwd_plain(q, k, v, seg, scale, cap)
-    return flash_attention_kernel(q, k, v, seg, scale, cap, return_lse=True)
+        return _contiguous(flash_attention_fwd_plain(q, k, v, seg, scale, cap))
+    return flash_attention_kernel(q.contiguous(), k.contiguous(), v.contiguous(), seg, scale,
+                                  cap, return_lse=True)
 
 
-def _bwd(q, k, v, seg, o, lse, do, scale, cap):
+@torch.library.custom_op("dstpu::flash_fwd", mutates_args=())
+def flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 segment_ids: Optional[torch.Tensor], scale: float,
+                 soft_cap: Optional[float]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1f as an op: (o, lse); the plain version on a CPU tensor."""
+    return _fwd_with_lse(q, k, v, segment_ids, scale, soft_cap)
+
+
+@flash_fwd_op.register_fake
+def _(q, k, v, segment_ids, scale, soft_cap):
+    b, s, hq, _ = q.shape
+    return torch.empty_like(q, memory_format=torch.contiguous_format), \
+        q.new_empty((b, hq, s), dtype=torch.float32)
+
+
+@torch.library.custom_op("dstpu::flash_bwd", mutates_args=())
+def flash_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 segment_ids: Optional[torch.Tensor], o: torch.Tensor, lse: torch.Tensor,
+                 do: torch.Tensor, scale: float,
+                 soft_cap: Optional[float]) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K1b as an op: the delta, then (dq, dk, dv); the plain version on a
+    CPU tensor."""
     if q.device.type == "cpu":
-        return flash_attention_bwd_plain(q, k, v, seg, o, lse, do, scale, cap)
-    return flash_attention_bwd_kernel(q, k, v, seg, o, lse, do.contiguous(), scale, cap)
+        return _contiguous(flash_attention_bwd_plain(q, k, v, segment_ids, o, lse, do, scale,
+                                                     soft_cap))
+    return flash_attention_bwd_kernel(q.contiguous(), k.contiguous(), v.contiguous(),
+                                      segment_ids, o.contiguous(), lse.contiguous(),
+                                      do.contiguous(), scale, soft_cap)
 
 
-class FlashAttentionFn(torch.autograd.Function):
-    """Causal flash attention whose backward rebuilds the probabilities from
-    the saved lse (``flash_kernel.py:450-471``)."""
+@flash_bwd_op.register_fake
+def _(q, k, v, segment_ids, o, lse, do, scale, soft_cap):
+    return tuple(torch.empty_like(t, memory_format=torch.contiguous_format) for t in (q, k, v))
 
-    @staticmethod
-    def forward(ctx, q, k, v, seg, scale, cap):
-        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-        o, lse = _fwd_with_lse(q, k, v, seg, scale, cap)
-        ctx.save_for_backward(q, k, v, seg, o, lse)
-        ctx.scale, ctx.cap = scale, cap
-        return o
 
-    @staticmethod
-    @once_differentiable
-    def backward(ctx, do):
-        q, k, v, seg, o, lse = ctx.saved_tensors
-        dq, dk, dv = _bwd(q, k, v, seg, o, lse, do, ctx.scale, ctx.cap)
-        return dq, dk, dv, None, None, None
+def _flash_setup(ctx, inputs, output):
+    q, k, v, seg, scale, cap = inputs
+    o, lse = output
+    ctx.save_for_backward(q, k, v, seg, o, lse)
+    ctx.scale, ctx.cap = scale, cap
+
+
+@once_differentiable
+def _flash_backward(ctx, do, _dlse):
+    q, k, v, seg, o, lse = ctx.saved_tensors
+    dq, dk, dv = flash_bwd_op(q, k, v, seg, o, lse, do, ctx.scale, ctx.cap)
+    return dq, dk, dv, None, None, None
+
+
+# the backward rebuilds the probabilities from the saved lse
+# (``flash_kernel.py:450-471``); no gradient flows into the lse output
+flash_fwd_op.register_autograd(_flash_backward, setup_context=_flash_setup)
 
 
 def padded_head_dim(d: int) -> int:
@@ -258,5 +297,6 @@ def flash_attention(
     if grad:
         sc = float(scale) if scale is not None else d ** -0.5
         cap = float(logits_soft_cap) if logits_soft_cap is not None else None
-        return FlashAttentionFn.apply(q, k, v, segment_ids, sc, cap)
+        return flash_fwd_op(q.contiguous(), k.contiguous(), v.contiguous(), segment_ids, sc,
+                            cap)[0]
     return flash_attention_kernel(q, k, v, segment_ids, scale, logits_soft_cap)

@@ -16,11 +16,20 @@ device in a ``SparsePlan``, built once per (layout, block, causal, device)
 and cached, so a training step copies nothing to the device for them and
 never waits on the host.
 
-``SparseFlashFn`` is the same on both devices; only its two inner calls
-dispatch on the tensor's device: the plain versions (fp32 masked bodies
-that return the lse as ``flash_attention_fwd_plain`` does) on the CPU, the
-kernels on CUDA.  The kernels take causal attention with GQA (any query
-group: a CTA per query head), packed segments (query and key ids apart, as
+The plan's tables are the one form of the layout past this point.  The
+entry, ``sparse_flash_attention``, takes them and calls the custom op
+``dstpu::sparse_fwd`` (``torch.library``, the six tables as tensor
+arguments and the block as an int), whose autograd formula calls
+``dstpu::sparse_bwd``; eager autograd and a ``torch.compile``'d graph call
+the same ops (the tables a constant of the trace,
+``ops.sparse_attention._plan_tables``), and ``block_sparse_flash_attention``
+(JAX's signature) looks the layout's plan up first.  Each op dispatches on
+the tensor's device: the plain versions (``sparse_attention_*_plain``:
+fp32 masked bodies over the mask the tables list, that return the lse as
+``flash_attention_fwd_plain`` does) on the CPU, the kernels on CUDA; the
+backward is
+``ops.kernels.once_differentiable``.  The kernels take causal attention
+with GQA (any query group: a CTA per query head), packed segments (query and key ids apart, as
 JAX's ``kv_segment_ids``) and the soft cap, bf16, head_dim 64, 128 or 256 --
 the head dims JAX's gate admits.  Head_dim 80 or 96 never reaches them
 (``sparse_supports`` sends it to the masked dense body), and a direct call
@@ -33,13 +42,13 @@ delta ``[b, s, hq]`` fp32.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from . import add_flops, check_cuda, check_heads, launch, once_differentiable, ptr, scalars
-from .flash_attention import (attention_pairs, flash_attention_bwd_plain,
+from .flash_attention import (_contiguous, attention_pairs, flash_attention_bwd_plain,
                               flash_attention_fwd_plain)
 
 
@@ -100,9 +109,9 @@ class SparsePlan:
     ``cntT`` [n] (active query blocks of each key block), int32; ``perm`` /
     ``permT`` order the query / key blocks by work, heaviest first, which is
     the order the kernels' CTAs start in (a global column of a ``fixed``
-    layout is read by every later row: its dk/dv CTAs go first)."""
+    layout is read by every later row: its dk/dv CTAs go first).  The
+    tables are the whole plan: the custom ops take them as tensors."""
 
-    layout: np.ndarray
     block: int
     tbl: torch.Tensor
     cnt: torch.Tensor
@@ -113,7 +122,23 @@ class SparsePlan:
 
     @property
     def n(self) -> int:
-        return self.layout.shape[0]
+        return self.tbl.shape[0]
+
+    @property
+    def tables(self):
+        return self.tbl, self.cnt, self.perm, self.tblT, self.cntT, self.permT
+
+
+def block_mask(tbl: torch.Tensor, cnt: torch.Tensor, block: int) -> torch.Tensor:
+    """The [s, s] bool mask over positions of the layout that ``tbl`` /
+    ``cnt`` list (the layout under the causal trim: with the causal mask
+    on top, the same allowed pairs as the layout itself)."""
+    n, width = tbl.shape
+    live = torch.arange(width, device=tbl.device)[None, :] < cnt[:, None]
+    blocks = torch.zeros(n, n, dtype=torch.bool, device=tbl.device)
+    rows = torch.arange(n, device=tbl.device)[:, None].expand(n, width)
+    blocks[rows[live], tbl.long()[live]] = True
+    return blocks.repeat_interleave(block, 0).repeat_interleave(block, 1)
 
 
 _PLANS: Dict[tuple, Optional[SparsePlan]] = {}
@@ -136,7 +161,7 @@ def sparse_plan(layout: np.ndarray, block: int, causal: bool,
                 return torch.tensor(np.asarray(x, np.int32), device=device)
 
             plan = SparsePlan(
-                layout=np.array(layout, bool), block=block,
+                block=block,
                 tbl=i32(tbl), cnt=i32(counts),
                 perm=i32(np.argsort(-np.asarray(counts), kind="stable")),
                 tblT=i32(tblT), cntT=i32(countsT),
@@ -148,18 +173,19 @@ def sparse_plan(layout: np.ndarray, block: int, causal: bool,
 # ---------------------------------------------------------------------------
 # plain versions (the tests, and the card's reference in chip_smoke.py)
 # ---------------------------------------------------------------------------
-def sparse_attention_fwd_plain(q, k, v, qseg, kseg, layout, block, scale, cap):
+def sparse_attention_fwd_plain(q, k, v, qseg, kseg, tbl, cnt, block, scale, cap):
     """(o [b, s, hq, d] in q's type, lse [b, hq, s] fp32): the flash
-    forward's function restricted to the layout, in fp32."""
+    forward's function restricted to the layout that a plan's ``tbl`` /
+    ``cnt`` list, in fp32 (the ops' CPU body)."""
     return flash_attention_fwd_plain(q, k, v, qseg, scale, cap, kv_seg=kseg,
-                                     mask=element_mask(layout, block))
+                                     mask=block_mask(tbl, cnt, block))
 
 
-def sparse_attention_bwd_plain(q, k, v, qseg, kseg, o, lse, do, layout, block, scale, cap):
+def sparse_attention_bwd_plain(q, k, v, qseg, kseg, o, lse, do, tbl, cnt, block, scale, cap):
     """(dq, dk, dv): the flash backward's FA2 formulas restricted to the
-    layout, in fp32."""
+    plan's layout, in fp32 (the ops' CPU body)."""
     return flash_attention_bwd_plain(q, k, v, qseg, o, lse, do, scale, cap, kv_seg=kseg,
-                                     mask=element_mask(layout, block))
+                                     mask=block_mask(tbl, cnt, block))
 
 
 # ---------------------------------------------------------------------------
@@ -193,12 +219,13 @@ def _active_pairs(q, qseg, kseg, plan: SparsePlan) -> int:
     """(query, key) pairs one query head attends over under the plan's
     causal layout: B^2 a block below the diagonal, B (B + 1) / 2 on it, a
     batch row; with segment ids the allowed pairs counted on the device."""
+    mask = block_mask(plan.tbl.cpu(), plan.cnt.cpu(), 1).numpy()  # the trimmed layout
     if qseg is None:
-        below = int(np.tril(plan.layout, -1).sum())
-        diag = int(np.diag(plan.layout).sum())
+        below = int(np.tril(mask, -1).sum())
+        diag = int(np.diag(mask).sum())
         bs = plan.block
         return q.shape[0] * (below * bs * bs + diag * bs * (bs + 1) // 2)
-    return attention_pairs(q, qseg, kseg, element_mask(plan.layout, plan.block))
+    return attention_pairs(q, qseg, kseg, element_mask(mask, plan.block))
 
 
 def sparse_attention_kernel(q, k, v, qseg, kseg, plan: SparsePlan, scale, cap):
@@ -242,41 +269,100 @@ def sparse_attention_bwd_kernel(q, k, v, qseg, kseg, o, lse, do, plan: SparsePla
 
 
 # ---------------------------------------------------------------------------
-# the autograd Function (the ``_flash_sparse`` custom VJP)
+# the custom ops (the ``_flash_sparse`` custom VJP)
 # ---------------------------------------------------------------------------
-def _fwd(q, k, v, qseg, kseg, plan, scale, cap):
+@torch.library.custom_op("dstpu::sparse_fwd", mutates_args=())
+def sparse_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  qseg: Optional[torch.Tensor], kseg: Optional[torch.Tensor],
+                  tbl: torch.Tensor, cnt: torch.Tensor, perm: torch.Tensor,
+                  tbl_t: torch.Tensor, cnt_t: torch.Tensor, perm_t: torch.Tensor,
+                  block: int, scale: float,
+                  soft_cap: Optional[float]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K7f as an op over a ``SparsePlan``'s tables: (o, lse); the plain
+    version on a CPU tensor."""
     if q.device.type == "cpu":
-        return sparse_attention_fwd_plain(q, k, v, qseg, kseg, plan.layout, plan.block, scale,
-                                          cap)
-    return sparse_attention_kernel(q, k, v, qseg, kseg, plan, scale, cap)
+        return _contiguous(sparse_attention_fwd_plain(q, k, v, qseg, kseg, tbl, cnt, block,
+                                                      scale, soft_cap))
+    plan = SparsePlan(block, tbl, cnt, perm, tbl_t, cnt_t, perm_t)
+    return sparse_attention_kernel(q.contiguous(), k.contiguous(), v.contiguous(), qseg, kseg,
+                                   plan, scale, soft_cap)
 
 
-def _bwd(q, k, v, qseg, kseg, o, lse, do, plan, scale, cap):
+@sparse_fwd_op.register_fake
+def _(q, k, v, qseg, kseg, tbl, cnt, perm, tbl_t, cnt_t, perm_t, block, scale, soft_cap):
+    b, s, hq, _ = q.shape
+    return torch.empty_like(q, memory_format=torch.contiguous_format), \
+        q.new_empty((b, hq, s), dtype=torch.float32)
+
+
+@torch.library.custom_op("dstpu::sparse_bwd", mutates_args=())
+def sparse_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  qseg: Optional[torch.Tensor], kseg: Optional[torch.Tensor],
+                  o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                  tbl: torch.Tensor, cnt: torch.Tensor, perm: torch.Tensor,
+                  tbl_t: torch.Tensor, cnt_t: torch.Tensor, perm_t: torch.Tensor,
+                  block: int, scale: float,
+                  soft_cap: Optional[float]) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K7b as an op: the delta, then (dq, dk, dv); the plain version on a
+    CPU tensor."""
     if q.device.type == "cpu":
-        return sparse_attention_bwd_plain(q, k, v, qseg, kseg, o, lse, do, plan.layout,
-                                          plan.block, scale, cap)
-    return sparse_attention_bwd_kernel(q, k, v, qseg, kseg, o, lse, do.contiguous(), plan,
-                                       scale, cap)
+        return _contiguous(sparse_attention_bwd_plain(q, k, v, qseg, kseg, o, lse, do, tbl,
+                                                      cnt, block, scale, soft_cap))
+    plan = SparsePlan(block, tbl, cnt, perm, tbl_t, cnt_t, perm_t)
+    return sparse_attention_bwd_kernel(q.contiguous(), k.contiguous(), v.contiguous(), qseg,
+                                       kseg, o.contiguous(), lse.contiguous(), do.contiguous(),
+                                       plan, scale, soft_cap)
 
 
-class SparseFlashFn(torch.autograd.Function):
-    """Block-sparse causal flash attention whose backward rebuilds the
-    probabilities from the saved lse (``flash_kernel.py:709-730``)."""
+@sparse_bwd_op.register_fake
+def _(q, k, v, qseg, kseg, o, lse, do, tbl, cnt, perm, tbl_t, cnt_t, perm_t, block, scale,
+      soft_cap):
+    return tuple(torch.empty_like(t, memory_format=torch.contiguous_format) for t in (q, k, v))
 
-    @staticmethod
-    def forward(ctx, q, k, v, qseg, kseg, scale, cap, plan):
-        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-        o, lse = _fwd(q, k, v, qseg, kseg, plan, scale, cap)
-        ctx.save_for_backward(q, k, v, qseg, kseg, o, lse)
-        ctx.scale, ctx.cap, ctx.plan = scale, cap, plan
-        return o
 
-    @staticmethod
-    @once_differentiable
-    def backward(ctx, do):
-        q, k, v, qseg, kseg, o, lse = ctx.saved_tensors
-        dq, dk, dv = _bwd(q, k, v, qseg, kseg, o, lse, do, ctx.plan, ctx.scale, ctx.cap)
-        return dq, dk, dv, None, None, None, None, None
+def _sparse_setup(ctx, inputs, output):
+    q, k, v, qseg, kseg, *tables = inputs[:11]
+    ctx.save_for_backward(q, k, v, qseg, kseg, *output, *tables)
+    ctx.block, ctx.scale, ctx.cap = inputs[11:]
+
+
+@once_differentiable
+def _sparse_backward(ctx, do, _dlse):
+    q, k, v, qseg, kseg, o, lse, *tables = ctx.saved_tensors
+    dq, dk, dv = sparse_bwd_op(q, k, v, qseg, kseg, o, lse, do, *tables, ctx.block, ctx.scale,
+                               ctx.cap)
+    return (dq, dk, dv) + (None,) * 11
+
+
+# the backward rebuilds the probabilities from the saved lse
+# (``flash_kernel.py:709-730``)
+sparse_fwd_op.register_autograd(_sparse_backward, setup_context=_sparse_setup)
+
+
+def sparse_flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    tables: tuple,
+    block: int,
+    scale: Optional[float] = None,
+    segment_ids: Optional[torch.Tensor] = None,
+    kv_segment_ids: Optional[torch.Tensor] = None,
+    logits_soft_cap: Optional[float] = None,
+) -> torch.Tensor:
+    """Causal K7 over a plan's ``tables`` (``SparsePlan.tables``, on q's
+    device): q [b, s, hq, d], k / v [b, s, hkv, d] -> [b, s, hq, d].  The
+    one entry to the ops; a compiled caller gets the tables as a constant
+    of its trace (``ops.sparse_attention._plan_tables``)."""
+    sc = float(scale) if scale is not None else float(q.shape[-1]) ** -0.5
+    cap = float(logits_soft_cap) if logits_soft_cap is not None else None
+    qseg = kseg = None
+    if segment_ids is not None:
+        kv = kv_segment_ids if kv_segment_ids is not None else segment_ids
+        qseg = segment_ids.to(torch.int32).contiguous()
+        kseg = kv.to(torch.int32).contiguous()
+    return sparse_fwd_op(q.contiguous(), k.contiguous(), v.contiguous(), qseg, kseg, *tables,
+                         block, sc, cap)[0]
 
 
 def block_sparse_flash_attention(
@@ -292,20 +378,15 @@ def block_sparse_flash_attention(
     logits_soft_cap: Optional[float] = None,
 ) -> Optional[torch.Tensor]:
     """Compute-skipping block-sparse attention (JAX
-    ``pallas_block_sparse_attention``): q [b, s, hq, d], k / v
-    [b, s, hkv, d] -> [b, s, hq, d].  Returns None when the layout has an
-    empty causal row (the caller runs the masked dense body)."""
+    ``pallas_block_sparse_attention``, its signature): the layout's cached
+    plan, then ``sparse_flash_attention``.  Returns None when the layout
+    has an empty causal row (the caller runs the masked dense body)."""
     if not causal:
         raise ValueError("block_sparse_flash_attention is causal-only; use the masked "
                          "dense body")
     plan = sparse_plan(layout, layout_block, causal, q.device)
     if plan is None:
         return None
-    sc = float(scale) if scale is not None else float(q.shape[-1]) ** -0.5
-    cap = float(logits_soft_cap) if logits_soft_cap is not None else None
-    qseg = kseg = None
-    if segment_ids is not None:
-        kv = kv_segment_ids if kv_segment_ids is not None else segment_ids
-        qseg = segment_ids.to(torch.int32).contiguous()
-        kseg = kv.to(torch.int32).contiguous()
-    return SparseFlashFn.apply(q, k, v, qseg, kseg, sc, cap, plan)
+    return sparse_flash_attention(q, k, v, plan.tables, layout_block, scale=scale,
+                                  segment_ids=segment_ids, kv_segment_ids=kv_segment_ids,
+                                  logits_soft_cap=logits_soft_cap)

@@ -125,25 +125,33 @@ def _one_shard(row_shards: int) -> None:
         raise NotImplementedError(f"fp6 row_shards={row_shards} (the row-parallel pack) {_TP_ITEM}")
 
 
-def _per_matrix(w: torch.Tensor, device, out_shapes, encode):
-    """Apply ``encode`` (fp32 [in, out] -> tensors) to each [in, out] matrix
-    of ``w`` [..., in, out], one at a time, each moved to ``device`` first,
-    into outputs preallocated there: a stacked [L, in, out] leaf never has
-    more than one layer's fp32 temporaries alive."""
-    lead, (k, n) = w.shape[:-2], w.shape[-2:]
+def _encode_into(w: torch.Tensor, outs, encode) -> None:
+    """Write ``encode`` (fp32 [in, out] -> tensors) of each [in, out] matrix
+    of ``w`` [..., in, out] into ``outs`` (each ``[n matrices, ...]``), one
+    matrix at a time, each moved to the outputs' device first: a stacked
+    [L, in, out] leaf never has more than one layer's fp32 temporaries
+    alive."""
+    k, n = w.shape[-2:]
     mats = w.reshape(-1, k, n)
-    outs = [torch.empty((mats.shape[0], *shape), dtype=dtype, device=device)
-            for shape, dtype in out_shapes]
+    device = outs[0].device
     for i in range(mats.shape[0]):
         for out, part in zip(outs, encode(mats[i].to(device=device, dtype=torch.float32))):
             out[i] = part
+
+
+def _per_matrix(w: torch.Tensor, device, out_shapes, encode):
+    """``_encode_into`` outputs preallocated on ``device``, reshaped to
+    ``w``'s leading dims."""
+    lead = w.shape[:-2]
+    n_mats = w.reshape(-1, *w.shape[-2:]).shape[0]
+    outs = [torch.empty((n_mats, *shape), dtype=dtype, device=device)
+            for shape, dtype in out_shapes]
+    _encode_into(w, outs, encode)
     return [o.reshape(*lead, *o.shape[1:]) for o in outs]
 
 
-def quantize_serving_weight(w: torch.Tensor, fmt: str = "int8", device=None) -> ServingQuant:
-    """Per-output-channel symmetric compression of a ``[..., in, out]``
-    kernel (``fmt``: 'int8' | 'fp8'); only the contraction dim (axis -2)
-    folds into each scale.  The result lives on ``device`` (default: w's)."""
+def _symmetric_encoder(fmt: str):
+    """(payload dtype, the per-output-channel encoder) of 'int8' | 'fp8'."""
     if fmt == "int8":
         qdtype, qmax = torch.int8, 127.0
     elif fmt == "fp8":
@@ -157,6 +165,14 @@ def quantize_serving_weight(w: torch.Tensor, fmt: str = "int8", device=None) -> 
         q = torch.round(v).clamp(-127, 127).to(qdtype) if fmt == "int8" else v.to(qdtype)
         return q, s
 
+    return qdtype, encode
+
+
+def quantize_serving_weight(w: torch.Tensor, fmt: str = "int8", device=None) -> ServingQuant:
+    """Per-output-channel symmetric compression of a ``[..., in, out]``
+    kernel (``fmt``: 'int8' | 'fp8'); only the contraction dim (axis -2)
+    folds into each scale.  The result lives on ``device`` (default: w's)."""
+    qdtype, encode = _symmetric_encoder(fmt)
     k, n = w.shape[-2:]
     q, s = _per_matrix(w, device or w.device, [((k, n), qdtype), ((n,), torch.float32)], encode)
     return ServingQuant(q=q, s=s)
@@ -215,13 +231,35 @@ def quantize_serving_weight_fp6(w: torch.Tensor, row_shards: int = 1,
     if k % 4:
         raise ValueError(f"fp6 packing needs in-dim % 4 == 0 (row_shards=1), got {tuple(w.shape)}")
 
-    def encode(xf):
-        s = QK.scales_from_amax(xf.abs().amax(dim=0), _FP6_MAX)
-        return _fp6_pack(_fp6_encode(xf / s[None, :])), s
-
     packed, s = _per_matrix(w, device or w.device,
-                            [((3, k // 4, n), torch.uint8), ((n,), torch.float32)], encode)
+                            [((3, k // 4, n), torch.uint8), ((n,), torch.float32)], _fp6_matrix)
     return ServingQuantFP6(packed, s, k)
+
+
+def _fp6_matrix(xf):
+    s = QK.scales_from_amax(xf.abs().amax(dim=0), _FP6_MAX)
+    return _fp6_pack(_fp6_encode(xf / s[None, :])), s
+
+
+def requantize_serving_weight_(dst, w: torch.Tensor) -> None:
+    """Encode ``w`` [..., in, out] into the payload tensors of ``dst`` (a
+    :class:`ServingQuant` or :class:`ServingQuantFP6` of ``w``'s shape), in
+    place, one matrix at a time, with the encoder that built ``dst``: the
+    bytes equal those of a fresh ``quantize_serving_weight`` (or ``_fp6``)
+    of ``w``, and every payload tensor keeps its address, so a captured
+    CUDA graph that reads them reads the new weights."""
+    if isinstance(dst, ServingQuant):
+        fmt = {torch.int8: "int8", torch.float8_e4m3fn: "fp8"}[dst.q.dtype]
+        outs, encode = (dst.q, dst.s), _symmetric_encoder(fmt)[1]
+    elif isinstance(dst, ServingQuantFP6):
+        outs, encode = (dst.packed, dst.s), _fp6_matrix
+    else:
+        raise TypeError(f"not a quantized serving weight: {type(dst).__name__}")
+    lead, (k, n) = w.shape[:-2], w.shape[-2:]
+    if tuple(dst.s.shape) != (*lead, n) or (isinstance(dst, ServingQuantFP6) and dst.in_dim != k):
+        raise ValueError(f"weight {tuple(w.shape)} does not fit the payload "
+                         f"(scales {tuple(dst.s.shape)})")
+    _encode_into(w, [o.view(-1, *o.shape[len(lead):]) for o in outs], encode)
 
 
 _SERVING_QUANT_PATHS = (

@@ -17,6 +17,7 @@ layout decides; there is no ``try`` around a kernel.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 from dataclasses import dataclass
 from typing import Optional
@@ -25,7 +26,8 @@ import numpy as np
 import torch
 
 from .attention import dot_product_attention
-from .kernels.sparse_attention import block_sparse_flash_attention, element_mask, sparse_supports
+from .kernels.sparse_attention import (element_mask, sparse_flash_attention, sparse_plan,
+                                       sparse_supports)
 
 
 @dataclass(frozen=True)
@@ -33,6 +35,14 @@ class SparsityConfig:
     """Base: the block size and the pattern.  All heads share one layout."""
 
     block: int = 64
+
+    @property
+    def key(self) -> tuple:
+        """(class path, ((field, value), ...)): the config as plain values,
+        which a compiled caller can hand to the layout's builders (dynamo
+        passes no dataclass into a function it treats as a constant)."""
+        return _path(type(self)), tuple((f.name, getattr(self, f.name))
+                                        for f in dataclasses.fields(self))
 
     def make_layout(self, seq_len: int) -> np.ndarray:
         """[n_blocks, n_blocks] bool — override per pattern."""
@@ -172,15 +182,58 @@ def block_sparse_attention(
             q, k, v, causal=causal, q_offset=q_offset, scale=scale,
             segment_ids=segment_ids, kv_segment_ids=kv_segment_ids,
             logits_soft_cap=logits_soft_cap)
-    layout = _layout(config, s)
     if sparse_supports(q, k, v, config.block, causal, q_offset, segment_ids):
-        out = block_sparse_flash_attention(
-            q, k, v, layout, config.block, causal=causal, scale=scale,
-            segment_ids=segment_ids, kv_segment_ids=kv_segment_ids,
-            logits_soft_cap=logits_soft_cap)
-        if out is not None:
-            return out
+        tables = _plan_tables(config.key, s, causal, q.device.type, q.device.index)
+        if tables:
+            return sparse_flash_attention(
+                q, k, v, tables, config.block, scale=scale, segment_ids=segment_ids,
+                kv_segment_ids=kv_segment_ids, logits_soft_cap=logits_soft_cap)
     return dot_product_attention(
         q, k, v, causal=causal, scale=scale, segment_ids=segment_ids,
         kv_segment_ids=kv_segment_ids, logits_soft_cap=logits_soft_cap,
-        attn_mask=element_mask(layout, config.block).to(q.device))
+        attn_mask=_dense_mask(config.key, s, q.device.type, q.device.index))
+
+
+def _path(cls) -> str:
+    return f"{cls.__module__}.{cls.__qualname__}"
+
+
+def _config(key: tuple) -> SparsityConfig:
+    """The config that ``SparsityConfig.key`` describes (a layout class
+    of this module or any subclass of ``SparsityConfig``)."""
+    path, fields = key
+    todo = [SparsityConfig]
+    while _path(todo[0]) != path:
+        todo.extend(todo.pop(0).__subclasses__())
+    return todo[0](**dict(fields))
+
+
+def _constant(fn):
+    """``torch.compiler.assume_constant_result(fn)`` without its import of
+    ``torch._dynamo`` (seconds, in every process that imports the model):
+    the mark dynamo reads when it traces a call of ``fn``."""
+    fn._dynamo_marked_constant = True
+    return fn
+
+
+# The layout is numpy, built on the host: a compiled caller takes what it
+# gives as constants of its trace (dynamo calls these while tracing, with
+# the config's key and the device's type and index: plain values)
+@_constant
+def _plan_tables(key: tuple, seq_len: int, causal: bool, dev_type: str, dev_index) -> tuple:
+    """The kernels' ``SparsePlan.tables`` of the layout of the config that
+    ``key`` describes, on the device (cached there), or () when a query
+    block has no active key block under the causal trim."""
+    config = _config(key)
+    plan = sparse_plan(_layout(config, seq_len), config.block, causal,
+                       torch.device(dev_type, dev_index))
+    return () if plan is None else plan.tables
+
+
+@_constant
+def _dense_mask(key: tuple, seq_len: int, dev_type: str, dev_index) -> torch.Tensor:
+    """The layout of the config that ``key`` describes as an [s, s] bool
+    mask over positions on the device."""
+    config = _config(key)
+    return element_mask(_layout(config, seq_len), config.block).to(
+        torch.device(dev_type, dev_index))

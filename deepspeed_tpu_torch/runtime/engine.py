@@ -2,7 +2,12 @@
 (``DeepSpeedTpuEngine``) for one GPU.
 
 JAX jit-compiles the whole step; here it runs eagerly with autograd, the
-same computation in the same order:
+same computation in the same order.  The ``compile`` section (a torch
+backend, ``config.CompileConfig``) makes ``_jit`` wrap the model loss in
+``torch.compile`` once, at construction; autograd then runs through the
+compiled forward, whose graph calls the attention kernels as custom ops
+(``dstpu::flash_fwd`` / ``sparse_fwd`` and their backward ops), and the
+optimizer step stays outside it:
 
 - fp32 master parameters; each micro-batch casts them to the compute type
   inside autograd (``_micro_backward``, JAX ``_micro_value_and_grad``
@@ -352,6 +357,11 @@ class DeepSpeedTorchEngine:
                 layer_num=e.layer_num)
             logger.info("eigenvalue estimation enabled: max_iter=%d resolution=%d",
                         e.max_iter, e.gas_boundary_resolution)
+        # (loss_fn, what _micro_loss calls for it): torch.compile'd under a
+        # torch backend of the compile section, the loss itself otherwise;
+        # made here, and again if a caller replaces ``loss_fn``
+        self._jitted = (None, None)
+        self._model_loss()
         self.curriculum_scheduler = None
         cl = config.data_efficiency.curriculum_learning or {}
         if config.data_efficiency.enabled and cl.get("enabled"):
@@ -365,6 +375,39 @@ class DeepSpeedTorchEngine:
                     config.zero_optimization.stage, config.precision_dtype,
                     config.train_micro_batch_size_per_gpu,
                     config.gradient_accumulation_steps, device)
+
+    def _model_loss(self) -> Callable:
+        """``loss_fn`` through ``_jit``, compiled once per function."""
+        if self._jitted[0] is not self.loss_fn:
+            self._jitted = (self.loss_fn, self._jit(self.loss_fn))
+        return self._jitted[1]
+
+    def _jit(self, fn: Callable) -> Callable:
+        """``fn`` itself unless the compile section names a torch backend
+        that is on (JAX ``_jit``, engine.py:464, which jits unless
+        ``disable``); then ``torch.compile(fn, backend, **kwargs)``.  A
+        dynamo error raises, and so does dynamo's recompile limit (each
+        engine's model is another guard on the same code; past the limit
+        dynamo would run the frame eager without a word): nothing falls
+        back to eager quietly."""
+        c = self.config.compile
+        if not c.compiles:
+            return fn
+        import torch._dynamo
+
+        if torch._dynamo.config.suppress_errors:
+            raise ConfigError("compile: torch._dynamo.config.suppress_errors is set, so a "
+                              "failed trace would run eager without a word; unset it")
+        if self.progressive_layer_drop is not None:
+            raise ConfigError("compile with progressive_layer_drop: each micro-batch's layer "
+                              "mask would trace another graph; run PLD eager")
+        logger.info("compile: the model loss under torch.compile(backend=%r, %s)", c.backend,
+                    c.kwargs)
+        flag = ("fail_on_recompile_limit_hit" if hasattr(torch._dynamo.config,
+                                                        "fail_on_recompile_limit_hit")
+                else "fail_on_cache_limit_hit")
+        return torch._dynamo.config.patch(**{flag: True})(
+            torch.compile(fn, backend=c.backend, **c.kwargs))
 
     def _init_masked(self, params, mask) -> None:
         """Masters for the trainable leaves only (JAX :294-305, and optax's
@@ -681,7 +724,7 @@ class DeepSpeedTorchEngine:
         if self._compression is not None:
             # QAT fake-quant / pruning (STE) at the applied-update count
             params = self._compression.transform(params, self.device_step)
-        return self.loss_fn(params, micro, self.generator)
+        return self._model_loss()(params, micro, self.generator)
 
     def _micro_backward(self, micro: Dict[str, torch.Tensor], scale,
                         index: int = 0) -> torch.Tensor:

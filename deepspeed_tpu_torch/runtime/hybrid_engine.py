@@ -13,7 +13,8 @@ captures its decode-burst tick as a CUDA graph over those tensors
 (``decode_megastep``); a new tree would leave the graphs replaying the old
 addresses, so the tensors are never replaced, only overwritten, and every
 captured graph then reads the new weights.  A pipelined NVMe walk is
-joined first (``flush_nvme_pipeline``), as in JAX.  Activation
+joined first (``flush_nvme_pipeline``), as in JAX.  A quantized serving
+engine's weights are re-quantized into their payloads in place.  Activation
 quantization is a training-time forward; the serving config has
 ``act_quant_bits=None``.
 """
@@ -26,6 +27,7 @@ import torch
 
 from ..inference.engine_v2 import InferenceEngineV2
 from ..inference.sampling import SamplingParams
+from ..ops.quantizer import QUANT_TYPES, requantize_serving_weight_
 from ..utils.logging import log_dist
 
 
@@ -85,12 +87,22 @@ class DeepSpeedHybridEngine:
         """Write the current training weights into the serving engine's
         tensors in place (called by ``generate`` when the step count moved):
         the captured burst graphs keep their addresses and read the new
-        values."""
+        values.  A quantized engine (``quantize_weights``) re-encodes each
+        compressed weight into its payload tensors with the encoder that
+        built them, so it keeps serving the format it was asked for, byte
+        for byte what a fresh engine would hold (JAX rebinds a cast,
+        unquantized tree here and serves plain weights from then on)."""
+
+        dtype = self._infer_cfg.dtype
 
         def write(dst, src):
             for k, v in src.items():
                 if isinstance(v, dict):
                     write(dst[k], v)
+                elif isinstance(dst[k], QUANT_TYPES):
+                    # the payload re-encoded from the serving-type cast, as
+                    # a fresh quantized engine encodes it
+                    requantize_serving_weight_(dst[k], v.detach().to(dtype))
                 else:
                     dst[k].copy_(v.detach())
 

@@ -75,10 +75,22 @@ READY_PREFIX = "DSTPU_WORKER_READY "
 def worker_launch_cmd(spec: Dict[str, Any],
                       python: Optional[str] = None) -> List[str]:
     """The argv that runs one socket worker — locally via
-    :func:`spawn_worker`; across hosts it is what a multinode runner would
-    fan out once the port has a launcher (ROADMAP queue 1 item 9)."""
+    :func:`spawn_worker`; across hosts a multinode runner fans it out
+    (:func:`remote_launch_cmd`)."""
     return [python or sys.executable, "-m", "deepspeed_tpu_torch.serving.remote",
             "--spec", json.dumps(spec)]
+
+
+def remote_launch_cmd(spec: Dict[str, Any], runner: str, hosts: Dict[str, int],
+                      python: Optional[str] = None, **runner_kw) -> List[str]:
+    """One socket worker a host, launched through a multinode runner
+    (``launcher.multinode_runner.get_runner(runner, hosts, **runner_kw)``),
+    JAX's ``get_runner(...).get_cmd(worker_launch_cmd(spec))``.  Each
+    worker gets torch.distributed's rendezvous env; a worker serves on its
+    own host (the replicas across hosts share no state)."""
+    from ..launcher.multinode_runner import get_runner
+
+    return get_runner(runner, hosts, **runner_kw).get_cmd(worker_launch_cmd(spec, python))
 
 
 @dataclass

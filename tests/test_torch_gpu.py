@@ -45,7 +45,12 @@ each tier bit for bit.  The scheduled step: ``get_accelerator`` and a timer
 fence on the card; the flops profiler's count of K1 at its closed form on a
 520-token partial tile, with and without segments; a 3-layer engine with
 the curriculum, progressive layer drop and the profiler bit-identical to
-the same run unprofiled, K1f / K1b launched the kept layers x GAS.  This
+the same run unprofiled, K1f / K1b launched the kept layers x GAS.  The
+kernels as ``torch.library`` ops: each op on CUDA against its plain
+version with one launch a kernel; a compiled step (inductor) launching
+what its eager twin launches, dense and block-sparse; a quantized hybrid
+refreshed under a burst graph captured before training, token-identical
+to a fresh quantized engine.  This
 file imports neither JAX nor the JAX package, so it
 runs where only PyTorch is installed::
 
@@ -1530,3 +1535,106 @@ def test_hybrid_burst_after_a_refresh_equals_per_tick_decoding_on_the_card():
     assert {k: v for k, v in burst._inference._burst.graphs.items()} == graphs  # no recapture
     for h in (burst, tick):
         assert h._inference.close()["blocks_in_use"] == 0
+
+
+# ---------------------------------------------------------------------------
+# the kernels as torch.library ops, under torch.compile; the quantized
+# hybrid refresh
+# ---------------------------------------------------------------------------
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["flash", "sparse"])
+def test_custom_ops_on_the_card_equal_their_plain_versions(kind):
+    """``dstpu::flash_fwd`` / ``flash_bwd`` (K1) and ``dstpu::sparse_fwd`` /
+    ``sparse_bwd`` (K7) called on CUDA bf16 tensors: one launch of each
+    kernel a call, o within ``KERNEL_TOL`` and lse within ``LSE_TOL`` of
+    the plain version on the CPU in fp32, dq / dk / dv within ``BWD_TOL``
+    relative Frobenius error (segments and a soft cap, a query group of
+    4)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from deepspeed_tpu_torch.ops.kernels import sparse_attention as K7
+
+    gen = torch.Generator().manual_seed(0)
+    b, s, d = 1, 512, 128
+    q, k, v, do = (torch.randn(b, s, h, d, generator=gen).bfloat16() for h in (8, 2, 2, 8))
+    seg = torch.tensor([[0] * 200 + [1] * 312], dtype=torch.int32)
+    sc, cap = d ** -0.5, 20.0
+    if kind == "flash":
+        fwd, bwd, names = torch.ops.dstpu.flash_fwd, torch.ops.dstpu.flash_bwd, \
+            ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+
+        def extra(dev):
+            return (seg.to(dev),)
+    else:
+        fwd, bwd, names = torch.ops.dstpu.sparse_fwd, torch.ops.dstpu.sparse_bwd, \
+            ("sparse_fwd", "sparse_bwd_dq", "sparse_bwd_dkv")
+        import numpy as np
+
+        layout = np.tril(np.ones((s // 128, s // 128), bool))
+        layout[3, 1] = False
+
+        def extra(dev):
+            return (seg.to(dev), seg.to(dev))
+
+        tables = {dev: K7.sparse_plan(layout, 128, True, dev).tables for dev in ("cpu", "cuda")}
+    outs = {}
+    for dev, dtype in (("cpu", torch.float32), ("cuda", torch.bfloat16)):
+        args = [t.to(dev, dtype) for t in (q, k, v)]
+        tail = (sc, cap) if kind == "flash" else (*tables[dev], 128, sc, cap)
+        K.reset_launches()
+        o, lse = fwd(*args, *extra(dev), *tail)
+        grads = bwd(*args, *extra(dev), o, lse, do.to(dev, dtype), *tail)
+        outs[dev] = (o, lse, grads, dict(K.LAUNCHES))
+    o, lse, grads, launches = outs["cuda"]
+    assert {n: launches[n] for n in names} == {n: 1 for n in names}
+    ro, rlse, rgrads, _ = outs["cpu"]
+    assert float((o.float().cpu() - ro).abs().max()) <= chip_smoke.KERNEL_TOL
+    assert float((lse.cpu() - rlse).abs().max()) <= chip_smoke.LSE_TOL
+    for g, r in zip(grads, rgrads):
+        whole, worst = chip_smoke.rel_errs(torch, g.cpu(), r)
+        assert whole <= chip_smoke.BWD_TOL and worst <= chip_smoke.BWD_TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sparse", [False, True])
+def test_compiled_step_launches_what_its_eager_twin_launches_on_the_card(sparse):
+    """``chip_smoke._compile_twins`` at 2 layers of the flagship's width,
+    seq 1024, under inductor: K1 (K7) layers x GAS a step and K8 once, as
+    the eager twin from the same weights, losses within
+    ``COMPILE_LOSS_RTOL``, every leaf's update at a cosine of at least
+    ``COMPILE_UPDATE_COS_MIN`` with the eager twin's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    z = dict(chip_smoke.COMPILE_TRAIN, seq=1024, micro=2)
+    old = chip_smoke.COMPILE_TRAIN
+    chip_smoke.COMPILE_TRAIN = z
+    try:
+        twins = chip_smoke._compile_twins(torch, K, 2, 2, "inductor",
+                                          sparse=chip_smoke.SPARSE_FLAGSHIP if sparse else None)
+    finally:
+        chip_smoke.COMPILE_TRAIN = old
+    for run in twins.values():
+        chip_smoke.check_train_launches("compiled twin", run["launches"], 2, z["gas"], 2, sparse)
+    for a, b in zip(twins["compiled"]["losses"], twins["eager"]["losses"]):
+        assert abs(a - b) <= chip_smoke.COMPILE_LOSS_RTOL * abs(b)
+    print("compiled twin", sparse, max(twins["compiled"]["loss_rel_diff"]),
+          twins["compiled"]["update_cos_min"], twins["compiled"]["update_cos_worst_leaf"])
+    assert twins["compiled"]["update_cos_min"] >= chip_smoke.COMPILE_UPDATE_COS_MIN
+
+
+@pytest.mark.gpu
+def test_quantized_hybrid_refresh_with_a_captured_burst_on_the_card():
+    """``chip_smoke.hybrid_quant_phase`` at 2 layers of a narrow model: for
+    int8, fp8 and fp6 the refresh re-quantizes in place under the burst
+    graph captured before training, token-identical to a fresh quantized
+    engine built from the trained weights (the phase raises otherwise)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    old = chip_smoke.COMPILE_PRESET, chip_smoke.HYBRID_QUANT, chip_smoke.emit
+    chip_smoke.HYBRID_QUANT = dict(old[1], seq=256, prompt_len=32, new=8)
+    chip_smoke.emit = lambda obj: None
+    try:
+        res = chip_smoke.hybrid_quant_phase(torch, K, "test")
+    finally:
+        chip_smoke.COMPILE_PRESET, chip_smoke.HYBRID_QUANT, chip_smoke.emit = old
+    assert all(f["tokens_equal_fresh"] and f["burst_graphs_kept"] for f in res["formats"].values())

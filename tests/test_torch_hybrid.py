@@ -130,3 +130,65 @@ def test_initialize_returns_the_hybrid_engine_with_its_clamp():
         DeepSpeedHybridEngine(tds.initialize(loss_fn=lambda p, b, r: p["w"].sum(),
                                              params={"w": torch.ones(2)}, config=CONFIG,
                                              device="cpu")[0])
+
+
+def _payload_bytes(tree):
+    """A copy of every leaf of a (mixed) serving tree as raw bytes, by path."""
+    from deepspeed_tpu_torch.ops.quantizer import ServingQuant, ServingQuantFP6
+
+    out = {}
+
+    def walk(node, path):
+        for k, v in node.items():
+            p = f"{path}/{k}"
+            if isinstance(v, dict):
+                walk(v, p)
+            elif isinstance(v, ServingQuant):
+                out[p + ".q"], out[p + ".s"] = v.q.view(torch.uint8).numpy(), v.s.numpy()
+            elif isinstance(v, ServingQuantFP6):
+                out[p + ".packed"], out[p + ".s"] = v.packed.numpy(), v.s.numpy()
+            else:
+                out[p] = v.numpy()
+
+    walk(tree, "")
+    return {p: a.copy() for p, a in out.items()}
+
+
+@pytest.mark.parametrize("fmt", ["int8", "fp8", "fp6"])
+def test_quantized_refresh_requantizes_in_place(fmt):
+    """generate -> train_batch -> generate through a quantized hybrid engine
+    (the refresh raised ``AttributeError`` on the payloads before): the
+    second generate's tokens equal a fresh quantized engine's built from the
+    trained weights, every payload byte equals a fresh
+    ``quantize_serving_params`` of them, and the payload tensors are the
+    ones the first generate read (a captured burst graph keeps them)."""
+    from deepspeed_tpu_torch.inference.engine_v2 import InferenceEngineV2
+    from deepspeed_tpu_torch.ops.quantizer import quantize_serving_params
+
+    tcfg = get_preset("tiny", max_seq_len=64, dtype=torch.float32)
+    engine, _, _, _ = tds.initialize(model=tt.CausalLM(tcfg), config=CONFIG, device="cpu")
+    th = DeepSpeedHybridEngine(engine, quantize_weights=fmt, **HYBRID)
+    rng = np.random.default_rng(3)
+    prompt = list(map(int, rng.integers(1, 250, 9)))
+    _, ts = _greedy(6)
+    before = th.generate(prompt, ts)
+    wq = th._inference.params["layers"]["attn"]["wq"]
+    ptrs = [t.data_ptr() for t in (wq.s, wq.q if fmt != "fp6" else wq.packed)]
+    old = _payload_bytes(th._inference.params)
+    batch = {"input_ids": rng.integers(0, 256, (2, 65)).astype(np.int32)}
+    for _ in range(3):
+        th.train_batch(batch)
+    after = th.generate(prompt, ts)
+    trained = th._serving_params()
+    fresh = InferenceEngineV2(params=trained, cfg=th._infer_cfg, device="cpu",
+                              quantize_weights=fmt, **HYBRID)
+    assert after == fresh.generate(prompt, ts) and len(after) == 6
+    got, want = _payload_bytes(th._inference.params), _payload_bytes(
+        quantize_serving_params(trained, fmt))
+    assert got.keys() == want.keys()
+    for path in want:
+        np.testing.assert_array_equal(got[path], want[path], err_msg=path)
+    assert any(not np.array_equal(old[p], got[p]) for p in got)  # the weights moved
+    wq = th._inference.params["layers"]["attn"]["wq"]
+    assert [t.data_ptr() for t in (wq.s, wq.q if fmt != "fp6" else wq.packed)] == ptrs
+    assert before != after or fmt == "fp6"

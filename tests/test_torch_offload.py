@@ -195,17 +195,36 @@ def test_no_offload_key_is_refused_as_unported():
 # ---------------------------------------------------------------------------
 # the CPU tier
 # ---------------------------------------------------------------------------
+_TIER_RUNS = {}
+
+
+def _tier_run(jp, opt):
+    """The CPU tier under ``opt`` trained on ``_batches(4)``: (engine,
+    losses), made once per module and optimizer (``test_cpu_tier_equals_
+    the_plain_engine`` and ``test_cpu_tier_matches_jax_cpu_offload`` read
+    the same run; neither trains it further)."""
+    if opt not in _TIER_RUNS:
+        tier = _torch_engine(jp, optimizer=OPTIMIZERS[opt], **_zero(offload_optimizer="cpu"))
+        _TIER_RUNS[opt] = tier, _train(tier, _batches(4))
+    return _TIER_RUNS[opt]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def release_tier_runs():
+    yield
+    _TIER_RUNS.clear()
+
+
 @pytest.mark.parametrize("opt", sorted(OPTIMIZERS))
 def test_cpu_tier_equals_the_plain_engine(jparams, opt):
     """Losses and masters bit-identical to the plain engine for every
     optimizer, GAS 2 with clipping; the state streamed in many chunks."""
     _, jp = jparams
     batches = _batches(4)
-    over = dict(optimizer=OPTIMIZERS[opt])
-    plain = _torch_engine(jp, **over)
-    tier = _torch_engine(jp, **over, **_zero(offload_optimizer="cpu"))
+    plain = _torch_engine(jp, optimizer=OPTIMIZERS[opt])
+    tier, losses = _tier_run(jp, opt)
     assert tier._offload is not None and len(tier._offload.chunks) > 5
-    assert _train(tier, batches) == _train(plain, batches)
+    assert losses == _train(plain, batches)
     for a, b in zip(plain._params_list, tier._params_list):
         assert torch.equal(a.detach(), b)
     for a, b in zip(_state_leaves(plain.opt_state), _state_leaves(tier.opt_state)):
@@ -263,8 +282,8 @@ def test_cpu_tier_matches_jax_cpu_offload(jparams, opt):
     jeng = _jax_engine(jcfg, jp, **over)
     assert jeng._offload_cpu
     j_losses = _train(jeng, batches)
-    teng = _torch_engine(jp, **over)
-    np.testing.assert_allclose(_train(teng, batches), j_losses, **ENGINE_TOL)
+    teng, t_losses = _tier_run(jp, opt)  # the run test_cpu_tier_equals_the_plain_engine holds
+    np.testing.assert_allclose(t_losses, j_losses, **ENGINE_TOL)
     fj = _flat(jax.tree_util.tree_map(np.asarray, jeng.state.params))
     ft = _masters(teng)
     assert set(fj) == set(ft)

@@ -15,11 +15,10 @@ sections of the instrumented step, against the JAX package on the CPU.
   ``test_torch_training.py``).
 - ``see_memory_usage`` and ``get_accelerator``'s method names and device
   rule.
-- Config: the sections this slice runs parse into JAX's values; the five
-  still refused name ROADMAP item 9.
+- Config: the sections this slice runs parse into JAX's values, and so do
+  ``elasticity`` and ``compile``, which slice 21 runs.
 """
 import dataclasses
-import re
 import sys
 import types
 
@@ -359,13 +358,16 @@ def test_step_sections_parse_as_jax(raw):
 
 
 @pytest.mark.parametrize("key", ["elasticity", "compile"])
-def test_still_refused_keys_name_item_9(key):
-    raw = {"eigenvalue": {"enabled": True}, "compression_training": {"enabled": True},
-           "elasticity": {"enabled": True}, "compile": {"enabled": False},
-           "hybrid_engine": {"enabled": True}}
-    with pytest.raises(NotImplementedError,
-                       match=rf"config key '{re.escape(key)}' .*queue 1 item 9\)"):
-        parse_config({key: raw[key]})
+def test_item_9_keys_of_slice_21_parse_as_jax(key):
+    """The two item-9 keys this test held refused until slice 21 now parse
+    into JAX's values (``tests/test_torch_compile.py`` and
+    ``test_torch_elasticity.py`` hold what they do)."""
+    raw = {"elasticity": {"enabled": True, "max_train_batch_size": 64,
+                          "micro_batch_sizes": [2]}, "compile": {"enabled": False}}
+    t, j = parse_config({key: raw[key]}, 1), j_parse_config({key: raw[key]}, dp_world_size=1)
+    value = getattr(t, key)
+    assert (value if key == "elasticity" else dataclasses.asdict(value)) == \
+        (getattr(j, key) if key == "elasticity" else dataclasses.asdict(getattr(j, key)))
 
 
 def test_a_config_with_every_switch_trains(tmp_path, monkeypatch):

@@ -422,12 +422,20 @@ def test_optimizer_state_bytes_match_jax_engine(opt):
 # ---------------------------------------------------------------------------
 # (h) train_on_loader against a train_batch loop
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("depth", [0, 2])
-def test_train_on_loader_equals_train_batch_loop(depth):
+@pytest.fixture(scope="module")
+def loop_ref():
+    """The ``train_batch`` loop every prefetch depth is held against, made
+    once for the module (no case trains it further)."""
     _, jp = _pair("tiny", {})
-    batches = _batches(4, seed=8)
     ref = _torch_engine(jp)
-    ref_losses = [float(ref.train_batch(b)) for b in batches]
+    losses = [float(ref.train_batch(b)) for b in _batches(4, seed=8)]
+    return jp, ref, losses
+
+
+@pytest.mark.parametrize("depth", [0, 2])
+def test_train_on_loader_equals_train_batch_loop(loop_ref, depth):
+    jp, ref, ref_losses = loop_ref
+    batches = _batches(4, seed=8)
     engine = _torch_engine(jp, train_data={"prefetch_depth": depth})
     losses = [float(x) for x in engine.train_on_loader(iter(batches))]
     assert losses == ref_losses
@@ -683,25 +691,32 @@ def test_parse_config_batch_triangulation_matches_jax():
     # progressive_layer_drop and curriculum_learning run since slice 19
     # (tests/test_torch_pld.py, test_torch_curriculum.py), compression_training,
     # hybrid_engine and eigenvalue now
-    # (test_item_9_keys_that_run_parse_as_jax)
-    ({"compile": {"enabled": False}}, "compile"),
-    ({"elasticity": {"enabled": True}}, "elasticity"),
+    # (test_item_9_keys_that_run_parse_as_jax), compile and elasticity since
+    # slice 21 (tests/test_torch_compile.py, test_torch_elasticity.py)
 ])
 def test_unported_config_keys_are_refused(raw, key):
     with pytest.raises(NotImplementedError, match=key):
         parse_config(raw)
 
 
+def _section(cfg, name):
+    """A parsed section as a dict (JAX's ``elasticity`` is one already)."""
+    value = getattr(cfg, name)
+    return dataclasses.asdict(value) if dataclasses.is_dataclass(value) else value
+
+
 @pytest.mark.parametrize("raw,section", [
     ({"compression_training": {"enabled": True}}, "compression_training"),
     ({"hybrid_engine": {"enabled": True}}, "hybrid_engine"),
     ({"eigenvalue": {"enabled": True}}, "eigenvalue"),
+    ({"compile": {"enabled": False}}, "compile"),
+    ({"elasticity": {"enabled": True}}, "elasticity"),
 ])
 def test_item_9_keys_that_run_parse_as_jax(raw, section):
     """The cases of ``test_unported_config_keys_are_refused`` whose sections
     the port now runs: they parse into JAX's dataclass."""
     j, t = j_parse_config(raw, dp_world_size=1), parse_config(raw, dp_world_size=1)
-    assert dataclasses.asdict(getattr(t, section)) == dataclasses.asdict(getattr(j, section))
+    assert _section(t, section) == _section(j, section)
 
 
 OFF_CONFIGS = [
@@ -731,9 +746,7 @@ ON_CONFIGS = [
     ({"moe": {"enabled": True}, "mesh": {"expert": 2}}, "mesh", 7),
     ({"tensor_parallel": {"enabled": True, "tp_size": 2}}, "tensor_parallel", 7),
     ({"comms_logger": {"enabled": True}}, "comms_logger", 7),
-    ({"elasticity": {"enabled": True}}, "elasticity", 9),
-    ({"compile": {"backend": "inductor"}}, "compile", 9),
-    ({"compile": {"disable": True}}, "compile", 9),
+    # elasticity and compile run since slice 21 (ON_NOW_CONFIGS)
     # aio and offload_param parse since slice 18 (tests/test_torch_offload.py);
     # these two cases hold ZeRO++ keys the port still refuses
     pytest.param({"zero_optimization": {"mics_shard_size": 2}},
@@ -774,13 +787,16 @@ ON_NOW_CONFIGS = [
      "compression_training"),
     ({"compression_training": {"enabled": True}}, "compression_training"),
     ({"eigenvalue": {"enabled": True}}, "eigenvalue"),
+    ({"elasticity": {"enabled": True}}, "elasticity"),
+    ({"compile": {"backend": "inductor"}}, "compile"),
+    ({"compile": {"disable": True}}, "compile"),
 ]
 
 
 @pytest.mark.parametrize("raw,section", ON_NOW_CONFIGS, ids=lambda r: str(r))
 def test_keys_on_that_run_parse_as_jax(raw, section):
     j, t = j_parse_config(raw, dp_world_size=1), parse_config(raw, dp_world_size=1)
-    assert dataclasses.asdict(getattr(t, section)) == dataclasses.asdict(getattr(j, section))
+    assert _section(t, section) == _section(j, section)
 
 
 @pytest.mark.parametrize("raw", [{"flops_profiler": {"enabeld": False}},
