@@ -379,6 +379,7 @@ with no result when there is no CUDA device or the package is missing.
 """
 from __future__ import annotations
 
+import atexit
 import contextlib
 import json
 import os
@@ -8962,6 +8963,267 @@ def hybrid_quant_phase(torch, K, gpu):
     return res
 
 
+# zero_train: one rank started through the port's launcher (``--num_gpus
+# 1``: NCCL at world 1 on cuda:0) trains the flagship's model at full width
+# and ZERO_TRAIN["layers"] layers under ZeRO stages 0-3, ZeRO++ (qwZ + qgZ
+# at stage 3) and 1-bit Adam, ZERO_TRAIN["steps"] steps each, its comms
+# logger and kernel counters reset after each engine is built.  Gates:
+# every run's collectives equal ``runtime.zero.predicted_comm_counts``;
+# stages 1-3 reach stage 0's losses within ZERO_STAGE_RTOL; the attention
+# kernels launch layers x GAS a step, K8 once (none under 1-bit Adam, whose
+# update is elementwise PyTorch, as in JAX), K6a / K6b once per quantized
+# gather and reduce; the ZeRO++ and 1-bit runs reach the same engines'
+# losses and last gradient norms on the CPU (a gloo rank through the same
+# launcher, run in the build window) within ZERO_CPU_RTOL, and each of the
+# two planted faults (ZERO_PLANTED, card runs beside the sound ones) falls
+# outside it.  1-bit Adam's last step is its compressed one
+# (``freeze_step`` = steps - 1): its norm is that of the momentum the
+# compressed all-reduce returned (the mean |momentum| times sqrt(n)), and
+# the worker error buffer's norm is gated beside it; no loss reads an
+# update taken with the variance frozen, which divides by ``eps`` alone
+# where a row of the embedding has had no gradient yet.
+ZERO_TRAIN = dict(preset="llama3_proxy_410m", layers=4, seq=257, micro=1, gas=2, steps=3,
+                  lr=1e-4, seed=SEED, cpu_threads=3)
+ZERO_CPU_CASES = ("zeropp", "onebit")
+# the planted faults, each gated against its sound case's CPU readings:
+# a ZeRO++ engine whose optimizer step does nothing (the masters never
+# move: a stale refresh or gather, a dropped K8 step), and a 1-bit engine
+# whose compressed step never sees the step's gradient
+ZERO_PLANTED = {"zeropp_planted": "zeropp", "onebit_planted": "onebit"}
+ZERO_CASES = ("stage0", "stage1", "stage2", "stage3", *ZERO_CPU_CASES, *ZERO_PLANTED)
+# stages 1-3 against stage 0, relative, on the card: the same bf16 compute
+# copies and fp32 masters; the gradient reaches the masters through a
+# reduce-scatter over one rank instead of autograd's cast (read: 0 to
+# 6.6e-5; a run whose masters never move misses by some 0.8)
+ZERO_STAGE_RTOL = 1e-3
+# the card's ZeRO++ / 1-bit readings against the CPU's, relative: bf16 on
+# both sides, the card's kernels against the plain versions, and each
+# update (the loss falls from 10.87 to about 6.1 in 3 steps) carrying the
+# first step's difference on.  Sound runs read: losses up to 2.0e-4
+# (ZeRO++) and 5.0e-4 (1-bit), ZeRO++'s last norm 2.7e-3 (an int8 rounding
+# the two sides take apart), 1-bit's norm and worker-error norm 2.9e-4 and
+# 8.3e-4.  The planted faults miss by 0.79 (ZeRO++ losses), 0.42 (its
+# norm) and 0.39 / 0.41 (1-bit's norms).  1-bit's norm is the mean
+# |momentum| times sqrt(n), summed as squares on both sides
+# (``torch.linalg.vector_norm`` on the CPU reads it 2.3 % low here:
+# ``onebit_momentum`` in the phase's line).
+ZERO_CPU_RTOL = {"zeropp": {"loss": 3e-3, "norm": 2e-2},
+                 "onebit": {"loss": 3e-3, "norm": 5e-3, "error_norm": 5e-3}}
+ZERO_WORKER = r"""
+import gc, json, sys, time
+import torch
+spec, out = json.loads(sys.argv[1]), sys.argv[2]
+torch.set_num_threads(spec["threads"])
+import deepspeed_tpu_torch as tds
+from deepspeed_tpu_torch.comm import comm
+from deepspeed_tpu_torch.models.presets import get_preset
+from deepspeed_tpu_torch.models.transformer import CausalLM
+from deepspeed_tpu_torch.ops import kernels as K
+from deepspeed_tpu_torch.parallel.topology import initialize_mesh
+from deepspeed_tpu_torch.runtime.zero import predicted_comm_counts
+
+cfg = get_preset(spec["preset"], num_layers=spec["layers"])
+g = torch.Generator().manual_seed(spec["seed"])
+# one batch every step: each update lowers its loss by far more than the
+# card and the CPU differ, so a run that does not update shows
+batches = [{"input_ids": torch.randint(0, cfg.vocab_size, (spec["gas"], spec["micro"], spec["seq"]),
+                                       generator=g)}] * spec["steps"]
+
+
+def config(case):
+    case = case.removesuffix("_planted")
+    zero = {"stage": int(case[-1]) if case.startswith("stage") else 3 if case == "zeropp" else 0}
+    opt = {"type": "adamw", "params": {"lr": spec["lr"], "weight_decay": 0.01}}
+    if case == "zeropp":
+        zero.update(zero_quantized_weights=True, zero_quantized_gradients=True)
+    if case == "onebit":
+        opt = {"type": "onebitadam", "params": {"lr": spec["lr"], "freeze_step": spec["steps"] - 1}}
+    return {"train_micro_batch_size_per_gpu": spec["micro"],
+            "gradient_accumulation_steps": spec["gas"], "bf16": {"enabled": True},
+            "gradient_clipping": 1.0, "steps_per_print": 1000, "comms_logger": {"enabled": True},
+            "zero_optimization": zero, "optimizer": opt}
+
+
+# one grid and one host-drawn tree for every run (at world 1 every ZeRO
+# stage's factoring is the same grid): a grid's process groups are made once
+comm.init_distributed(device=spec["device"])
+grid = initialize_mesh(device=spec["device"])
+params = CausalLM(cfg).init_params(seed=spec["seed"], device="cpu")
+res = {}
+for case in spec["cases"]:
+    engine, *_ = tds.initialize(model=CausalLM(cfg), params=params, config=config(case),
+                                device=spec["device"], mesh=grid)
+    if case == "zeropp_planted":  # the masters never move
+        engine.optimizer.step = lambda *a, **k: None
+    if case == "onebit_planted":  # the compressed step never sees its gradient
+        step, apply = engine._onebit, engine._onebit.apply
+
+        def dropped(eng, divisor, step=step, apply=apply):
+            if eng.global_steps >= step.freeze_step:
+                eng._masters.grad.zero_()
+            return apply(eng, divisor)
+
+        step.apply = dropped
+    logger = comm.get_comms_logger(engine.grid)
+    logger.reset()
+    K.reset_launches()
+    predicted = predicted_comm_counts(engine, spec["steps"])
+    t0 = time.perf_counter()
+    losses = [float(engine.train_batch(b)) for b in batches]
+    seconds = time.perf_counter() - t0
+    res[case] = dict(losses=losses, counts=logger.counts(), predicted=predicted,
+                     launches={k: v for k, v in K.LAUNCHES.items() if v}, seconds=seconds,
+                     grad_norm=engine.get_global_grad_norm(), backend=engine.grid.backend,
+                     world=engine.grid.world_size,
+                     resident_param_bytes=engine._zero.resident_param_bytes()
+                     if engine._zero is not None else None,
+                     replicated_groups=sum(g.kind == "replicated" for g in engine._zero.groups)
+                     if engine._zero is not None else 0)
+    if engine._onebit is not None:  # the compressed step's carried residual
+        err = engine._onebit.state["worker_error"].double()
+        res[case]["error_norm"] = float(torch.linalg.vector_norm(err))
+        # the compressed momentum is one scale (its input's mean |m|) times
+        # signs: its norm is scale * sqrt(n); vector_norm's own reading beside
+        m = engine._onebit.state["m"]
+        res[case]["momentum"] = dict(scale=float(m.abs().max()), n=m.numel(),
+                                     vector_norm=float(torch.linalg.vector_norm(m)))
+    del engine
+    gc.collect()
+    if spec["device"] == "cuda":
+        torch.cuda.empty_cache()
+with open(out, "w") as fh:
+    json.dump(res, fh)
+"""
+
+
+def zero_worker(device, cases, out, layers=None):
+    """The worker above started through the launcher, one rank (a Popen);
+    it writes its results to ``out``."""
+    spec = dict(ZERO_TRAIN, layers=layers or ZERO_TRAIN["layers"], device=device,
+                cases=list(cases), threads=ZERO_TRAIN["cpu_threads"] if device == "cpu" else 4)
+    script = os.path.join(os.path.dirname(out), "zero_worker.py")
+    with open(script, "w") as fh:
+        fh.write(ZERO_WORKER)
+    env = dict(os.environ, PYTHONPATH=HERE + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    for k in ("WORLD_SIZE", "RANK", "LOCAL_RANK"):
+        env.pop(k, None)
+    cmd = [sys.executable, "-m", "deepspeed_tpu_torch.launcher.runner", "--num_gpus", "1",
+           script, json.dumps(spec), out]
+    return subprocess.Popen(cmd, env=env, cwd=HERE)
+
+
+def zero_results(proc, out, what, timeout=600):
+    try:
+        rc = proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        raise AssertionError(f"zero_train: the {what} worker ran past {timeout} s")
+    if rc != 0 or not os.path.exists(out):
+        raise AssertionError(f"zero_train: the {what} worker exited {rc}")
+    with open(out) as fh:
+        return json.load(fh)
+
+
+def zero_cpu_gaps(run, ref):
+    """A card run's relative gaps to the CPU's readings of its sound case:
+    the largest over the losses, the last gradient norm's and, under 1-bit
+    Adam, the worker error buffer's norm."""
+    gaps = {"loss": max(abs(a - b) / abs(b) for a, b in zip(run["losses"], ref["losses"])),
+            "norm": abs(run["grad_norm"] - ref["grad_norm"]) / abs(ref["grad_norm"])}
+    if "error_norm" in ref:
+        gaps["error_norm"] = abs(run["error_norm"] - ref["error_norm"]) / ref["error_norm"]
+    return gaps
+
+
+def zero_train_run(torch, K, card_proc, card_out, cpu_proc, cpu_out, layers):
+    """The card's runs and the CPU's references, gated; returns both and
+    the gaps to the CPU's readings."""
+    z = ZERO_TRAIN
+    card = zero_results(card_proc, card_out, "card")
+    cpu = zero_results(cpu_proc, cpu_out, "cpu")
+    steps, gas = z["steps"], z["gas"]
+    for case, run in card.items():
+        if run["counts"] != run["predicted"]:
+            raise AssertionError(f"zero_train {case}: collectives {run['counts']} != the "
+                                 f"plan's {run['predicted']}")
+        if (run["backend"], run["world"]) != ("nccl", 1):
+            raise AssertionError(f"zero_train {case}: ran over {run['backend']} at world "
+                                 f"{run['world']}, not NCCL at 1")
+        if case in ZERO_PLANTED:
+            continue
+        want = {n: layers * gas * steps for n in ATTN_KERNELS[False]}
+        want["fused_adamw"] = 0 if case == "onebit" else steps
+        if case == "zeropp":  # K6a and K6b once a quantized gather and reduce (two ops
+            c = run["counts"]  # each: payload and scales); the refreshes are plain
+            gathers = c.get("all_gather@fsdp", 0) - steps * run["replicated_groups"]
+            ops = (gathers + c.get("all_to_all@fsdp", 0)) // 2
+            want.update(quantize_int8=ops, dequantize=ops)
+        got = {n: run["launches"].get(n, 0) for n in K.SOURCES}
+        bad = {n: (got[n], w) for n, w in want.items() if got[n] != w}
+        bad.update({n: (v, 0) for n, v in got.items() if v and n not in want})
+        if bad:
+            raise AssertionError(f"zero_train {case}: launches (got, want) {bad}")
+    ref = card["stage0"]["losses"]
+    for case in ("stage1", "stage2", "stage3"):
+        for a, b in zip(card[case]["losses"], ref):
+            if not abs(a - b) <= ZERO_STAGE_RTOL * abs(b):
+                raise AssertionError(f"zero_train {case}: losses {card[case]['losses']} "
+                                     f"against stage 0's {ref}")
+    gaps = {}
+    for case in ZERO_CPU_CASES:
+        if cpu[case]["counts"] != cpu[case]["predicted"] or cpu[case]["backend"] != "gloo":
+            raise AssertionError(f"zero_train {case} on the CPU: {cpu[case]['counts']} over "
+                                 f"{cpu[case]['backend']}")
+        gaps[case] = zero_cpu_gaps(card[case], cpu[case])
+        over = {k: v for k, v in gaps[case].items() if not v <= ZERO_CPU_RTOL[case][k]}
+        if over:
+            raise AssertionError(f"zero_train {case}: card against CPU gaps {over} past "
+                                 f"{ZERO_CPU_RTOL[case]}")
+    for planted, case in ZERO_PLANTED.items():
+        gaps[planted] = zero_cpu_gaps(card[planted], cpu[case])
+        if all(v <= ZERO_CPU_RTOL[case][k] for k, v in gaps[planted].items()):
+            raise AssertionError(f"zero_train {planted}: the planted fault passed the gate "
+                                 f"{ZERO_CPU_RTOL[case]} with gaps {gaps[planted]}")
+    return card, cpu, gaps
+
+
+def zero_train_phase(torch, K, gpu, cpu_proc, cpu_out, tmp):
+    card_out = os.path.join(tmp, "zero_card.json")
+    t0 = time.perf_counter()
+    card, cpu, gaps = zero_train_run(torch, K, zero_worker("cuda", ZERO_CASES, card_out),
+                                     card_out, cpu_proc, cpu_out, ZERO_TRAIN["layers"])
+    planted = {c: card.pop(c) for c in ZERO_PLANTED}  # not the main path's runs
+    launches = {}
+    for run in card.values():
+        for n, v in run["launches"].items():
+            launches[n] = launches.get(n, 0) + v
+    stage0 = card["stage0"]["losses"]
+    emit(dict(phase="zero_train", model=f"{ZERO_TRAIN['preset']}, {ZERO_TRAIN['layers']} layers",
+              launcher="--num_gpus 1", world=1, backend="nccl", shape=ZERO_TRAIN,
+              losses={c: r["losses"] for c, r in card.items()},
+              stage_rel_diff={c: max(abs(a - b) / abs(b) for a, b in zip(card[c]["losses"],
+                                                                            stage0))
+                              for c in ("stage1", "stage2", "stage3")},
+              cpu_losses={c: cpu[c]["losses"] for c in ZERO_CPU_CASES},
+              grad_norms={c: r["grad_norm"] for c, r in card.items()},
+              cpu_grad_norms={c: cpu[c]["grad_norm"] for c in ZERO_CPU_CASES},
+              error_norms={"card": card["onebit"]["error_norm"],
+                           "cpu": cpu["onebit"]["error_norm"]},
+              onebit_momentum={"card": card["onebit"]["momentum"],
+                               "cpu": cpu["onebit"]["momentum"]},
+              cpu_rel_gaps=gaps, cpu_rtol=ZERO_CPU_RTOL,
+              planted={c: dict(losses=r["losses"], grad_norm=r["grad_norm"],
+                               error_norm=r.get("error_norm")) for c, r in planted.items()},
+              comm_counts={c: r["counts"] for c, r in card.items()},
+              launches_per_run={c: r["launches"] for c, r in card.items()},
+              seconds={c: r["seconds"] for c, r in card.items()},
+              cpu_seconds={c: cpu[c]["seconds"] for c in ZERO_CPU_CASES},
+              resident_param_bytes={c: r["resident_param_bytes"] for c, r in card.items()},
+              stage_rtol=ZERO_STAGE_RTOL, phase_s=time.perf_counter() - t0, gpu=gpu))
+    return dict(launches=launches, runs=card)
+
+
 def _free(torch):
     import gc
 
@@ -8993,6 +9255,14 @@ def main() -> None:
     built = {}
     builder = threading.Thread(target=build_and_dump, args=(K, built))
     t0 = time.perf_counter()
+    # zero_train's CPU references: a gloo rank through the launcher
+    # (ZERO_TRAIN["cpu_threads"] threads), here, where no timed phase runs
+    import tempfile
+
+    zero_tmp = tempfile.mkdtemp(prefix="zero_train_")
+    zero_cpu_out = os.path.join(zero_tmp, "zero_cpu.json")
+    zero_cpu = zero_worker("cpu", ZERO_CPU_CASES, zero_cpu_out)
+    atexit.register(lambda: zero_cpu.poll() is None and zero_cpu.terminate())
     builder.start()
     try:
         refs = build_window_references(torch, K)
@@ -9097,6 +9367,9 @@ def main() -> None:
     _free(torch)
     hq = hybrid_quant_phase(torch, K, gpu)
     _free(torch)
+    # ZeRO across processes: one rank through the launcher over NCCL
+    zt = zero_train_phase(torch, K, gpu, zero_cpu, zero_cpu_out, zero_tmp)
+    _free(torch)
     # ZeRO-Offload: the CPU tier and the NVMe tier checked against the plain
     # engine, the NVMe tier on the flagship, llama3_8b through the CPU tier
     oc = offload_check_phase(torch, K, gpu)
@@ -9145,7 +9418,7 @@ def main() -> None:
     # engine), each read right after its own run
     main_paths = (eng, ms_eng, ms_sch, sch, spec, lcc, lc, g_eng, g_burst, g_spec, tr, shim, sp,
                   opt, rm, pt, ps, qc, qs, qz, rt, rh, rk, rf, rc, rr, rho, rfl, rch, ad, at,
-                  ck, hf, mt, mv, v1, oc, nt, ot, sc, st, cc, ct, kd, lh, ec, ctr, hq)
+                  ck, hf, mt, mv, v1, oc, nt, ot, sc, st, cc, ct, kd, lh, ec, ctr, hq, zt)
     schedule_paths = {"schedule_check": sc, "schedule_train": st}
     shaping_paths = {"compress_check": cc, "compress_train": ct, "kd_train": kd,
                      "lora_hybrid": lh, "eigen_check": ec}
@@ -9210,6 +9483,9 @@ def main() -> None:
                             if p["launches"].get(name)}
         if compile_launches:  # the compiled train step, the quantized hybrid's refresh
             entry["launches_compile_phases"] = compile_launches
+        if zt["launches"].get(name):  # zero_train's rank, read from its report
+            entry["launches_zero_train"] = {c: r["launches"][name] for c, r in zt["runs"].items()
+                                            if r["launches"].get(name)}
         for kind in ("dense", "sparse"):
             if ctr["launches_per_step"][kind].get(name):
                 entry.setdefault("launches_per_compiled_train_step", {})[kind] = \

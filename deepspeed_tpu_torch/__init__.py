@@ -54,7 +54,12 @@ Ported so far:
   (QAT, activation quantization, pruning, layer reduction with
   distillation), the eigenvalue estimator (``runtime.eigenvalue``), LoRA
   (``linear``), the hybrid engine's generate on the live weights
-  (``runtime.hybrid_engine``) and random-LTD (``data.random_ltd``).
+  (``runtime.hybrid_engine``) and random-LTD (``data.random_ltd``);
+- data parallelism across processes: ``comm`` over ``torch.distributed``
+  (NCCL on CUDA, gloo on the CPU), the ``data`` x ``fsdp`` x ``sub``
+  process grid (``parallel``), ZeRO stages 0-3 (``runtime.zero``), ZeRO++
+  (``runtime.zeropp``), the 1-bit optimizers (``runtime.onebit``) and the
+  launcher's process per device.
 """
 from __future__ import annotations
 
@@ -97,6 +102,52 @@ def _adopt_elastic_batch(cfg, dp_world_size: int) -> None:
              f"valid world sizes={valid_gpus}")
 
 
+def _mesh_axes_from_config(cfg, world: int, zero_stage: int):
+    """The grid's axis sizes (JAX ``_mesh_axes_from_config``,
+    ``__init__.py:20-62``): explicit sizes win; the leftover ranks go to
+    ``fsdp`` under ZeRO >= 1, else to ``data``; ``zero_hpz_partition_size``
+    / ``mics_shard_size`` factor the fsdp extent into ``(fsdp, sub)``."""
+    import math
+
+    from .config.config import ConfigError
+
+    m = cfg.mesh
+    fixed = {}
+    if m.data:
+        fixed["data"] = m.data
+    if m.fsdp:
+        fixed["fsdp"] = m.fsdp
+    used = math.prod(fixed.values()) if fixed else 1
+    if "data" not in fixed and "fsdp" not in fixed:
+        if zero_stage >= 1:
+            fixed["fsdp"], fixed["data"] = world // used, 1
+        else:
+            fixed["data"] = world // used
+    elif "data" not in fixed:
+        fixed["data"] = world // used
+    elif "fsdp" not in fixed:
+        fixed["fsdp"] = world // used
+    zo = cfg.zero_optimization
+    group = max(zo.zero_hpz_partition_size, zo.mics_shard_size)
+    if group > 1:
+        total = fixed.get("fsdp", 1)
+        if total % group:
+            raise ConfigError(f"hpZ/MiCS group size {group} does not divide the fsdp "
+                              f"extent {total}")
+        fixed["fsdp"] = total // group
+        fixed["sub"] = group
+    return fixed
+
+
+def _in_world(mesh) -> bool:
+    """A process of a torch.distributed world: a grid was given, the group
+    is up, or the launcher's env names the rank."""
+    from .comm import comm
+
+    return (mesh is not None or comm.is_initialized()
+            or ("WORLD_SIZE" in os.environ and "RANK" in os.environ))
+
+
 def initialize(model=None, params: Any = None, config: Any = None, device=None,
                loss_fn: Optional[Callable] = None, mesh=None, training_data=None,
                eval_fn: Optional[Callable] = None, collate_fn: Optional[Callable] = None):
@@ -107,7 +158,9 @@ def initialize(model=None, params: Any = None, config: Any = None, device=None,
     ``config.json`` gives the model (``checkpoint.config_from_hf``) and its
     safetensors are streamed onto the device one tensor at a time
     (``checkpoint.load_hf_checkpoint``).  ``params=None`` otherwise
-    initialises fp32 parameters from ``config['seed']`` on the device.
+    initialises fp32 parameters from ``config['seed']`` on the device (in a
+    world at ZeRO stage >= 1, each rank draws the leaves one at a time and
+    keeps its slices of each: ``runtime.zero.DeferredParams``).
     ``device`` is CUDA unless the caller names another.  Returns
     ``(engine, engine, dataloader, lr_scheduler)`` like the reference.
     ``training_data`` (an indexable dataset) becomes a
@@ -135,29 +188,57 @@ def initialize(model=None, params: Any = None, config: Any = None, device=None,
     (``_adopt_elastic_batch``); the ``compile`` section compiles the
     engine's model loss (``runtime.engine.DeepSpeedTorchEngine._jit``).
 
-    Refused with ``NotImplementedError``: ``mesh`` (one device only;
-    ROADMAP queue 1 item 7), and a process launched into a world of more
-    than one (``WORLD_SIZE`` > 1 in its environment, as the elastic agent
-    and the multinode runners set it): it would train the whole batch
-    alone, on the world-1 elastic batch, beside peers writing the same
-    checkpoints (item 7)."""
+    A process of a world (``WORLD_SIZE`` and ``RANK`` in its environment,
+    as the launcher, the elastic agent and the multinode runners set them,
+    or ``mesh=``, or a ``torch.distributed`` group already up) joins it
+    (``comm.init_distributed``: NCCL on ``cuda:LOCAL_RANK``, gloo with
+    ``device="cpu"``), builds the process grid (``mesh``, else the
+    config's ``mesh`` section with JAX's factoring: the ranks to ``fsdp``
+    under ZeRO >= 1, else to ``data``, hpZ / MiCS splitting ``(fsdp,
+    sub)``; ``_mesh_axes_from_config``) and trains one model across it:
+    the batch triple and the elastic batch take the grid's data-parallel
+    size, the loader gives each rank its slice, and the engine shards by
+    the ZeRO stage (``runtime/zero.py``).  Each rank's ``train_batch``
+    takes its own micro-batches (or the global batch, of which it takes its
+    rows).  The ``comms_logger`` section counts the collectives
+    (``comm.comm.get_comms_logger``).  The hybrid engine and the features
+    the engine lists are refused across ranks (ROADMAP queue 1 item 7)."""
     from .config.config import ConfigError, parse_config
     from .monitor.monitor import MonitorMaster
     from .ops.kernels import resolve_device
     from .runtime.dataloader import DeepSpeedTpuDataLoader
     from .runtime.engine import DeepSpeedTorchEngine
 
-    if mesh is not None:
-        raise NotImplementedError("a device mesh is not ported yet: the port trains on "
-                                  "one device (ROADMAP queue 1 item 7)")
-    world = int(os.environ.get("WORLD_SIZE") or 1)
-    if world > 1:
-        raise NotImplementedError(
-            f"WORLD_SIZE={world}: training across processes is not ported yet (ROADMAP "
-            "queue 1 item 7); the port trains on one device, and each process of the "
-            "world would train the whole batch alone")
+    from .comm import comm
+
     cfg = parse_config(config)
-    dp_world_size = 1  # one device (ROADMAP queue 1 item 7)
+    grid = None
+    dp_world_size = 1
+    if mesh is not None:
+        from .parallel.topology import ProcessGrid
+
+        if not isinstance(mesh, ProcessGrid):
+            raise NotImplementedError(
+                f"mesh={type(mesh).__name__}: training takes a process grid "
+                "(parallel.topology.initialize_mesh() in a torch.distributed world); other "
+                "meshes are not ported (ROADMAP queue 1 item 7)")
+    if _in_world(mesh):
+        from .parallel.sharding import set_current_mesh
+        from .parallel.topology import initialize_mesh
+
+        comm.init_distributed(device=device)
+        device = resolve_device(device)
+        if mesh is None:
+            axes = _mesh_axes_from_config(cfg, comm.get_world_size(),
+                                          cfg.zero_optimization.stage)
+            mesh = initialize_mesh(device=device, **axes)
+        grid = mesh
+        set_current_mesh(grid)
+        comm.configure(cfg.comms_logger, mesh=grid)
+        dp_world_size = grid.dp_world_size
+        if cfg.hybrid_engine.enabled:
+            raise NotImplementedError("hybrid_engine across ranks is not ported yet "
+                                      "(ROADMAP queue 1 item 7)")
     if cfg.elasticity.get("enabled"):
         _adopt_elastic_batch(cfg, dp_world_size)
     cfg.finalize(dp_world_size)
@@ -196,15 +277,25 @@ def initialize(model=None, params: Any = None, config: Any = None, device=None,
         if model is None:
             raise ValueError("initialize() needs model= or (loss_fn, params)")
         loss_fn = model.loss_fn
+    from .runtime.zero import DeferredParams
+
+    sliced = grid is not None and cfg.zero_optimization.stage >= 1
     if params is None:
         if model is None:
             raise ValueError("initialize() needs params with a bare loss_fn")
-        params = model.init_params(seed=cfg.seed, device=device)
+        if sliced and DeferredParams.supports(model.init_params):
+            # each rank draws the leaves one at a time and keeps its slices
+            params = DeferredParams(model.init_params, cfg.seed)
+        else:  # in a world every rank draws the same tree on the host
+            params = model.init_params(seed=cfg.seed,
+                                       device="cpu" if grid is not None else device)
+    if isinstance(params, DeferredParams) and not sliced:  # an engine of whole leaves
+        params = params.draw("cpu" if grid is not None else device)
     trainable_mask = None
     if model is not None and hasattr(model, "trainable_mask"):
         trainable_mask = model.trainable_mask(params)
     engine = DeepSpeedTorchEngine(loss_fn, params, cfg, device, eval_fn=eval_fn,
-                                  trainable_mask=trainable_mask)
+                                  trainable_mask=trainable_mask, grid=grid, model=model)
     engine.monitor = MonitorMaster(cfg)
     engine.model = model  # the flops profiler reads .cfg for its module tree
     dataloader = None
@@ -220,8 +311,10 @@ def initialize(model=None, params: Any = None, config: Any = None, device=None,
                 engine.curriculum_scheduler)
         dataloader = DeepSpeedTpuDataLoader(
             training_data, micro_batch_size=cfg.train_micro_batch_size_per_gpu,
-            dp_world_size=1, gradient_accumulation_steps=cfg.gradient_accumulation_steps,
-            collate_fn=collate_fn, seed=cfg.seed, index_filter=index_filter)
+            dp_world_size=dp_world_size, dp_rank=grid.dp_rank if grid is not None else 0,
+            gradient_accumulation_steps=cfg.gradient_accumulation_steps,
+            collate_fn=collate_fn, seed=cfg.seed, index_filter=index_filter,
+            global_batches=grid is None)
         engine.training_dataloader = dataloader  # its position rides the checkpoints
     if cfg.hybrid_engine.enabled:
         from .runtime.hybrid_engine import DeepSpeedHybridEngine

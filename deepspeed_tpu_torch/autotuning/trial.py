@@ -3,10 +3,12 @@ port of ``deepspeed_tpu/autotuning/trial.py``.
 
 The measured half of the autotuner (roofline.py is the static half).  A
 trial builds an engine in this process, drives a short workload and tears
-it down; a candidate the port refuses (a ZeRO++ key, a mesh, ``tp`` > 1,
+it down; a candidate the port refuses (a training mesh of more than one
+rank, which needs a process world and not this one process; ``tp`` > 1,
 ``serve_replicas`` > 1: ROADMAP queue 1 item 7) raises at construction,
 and the search records the refusal's text as the candidate's verdict and
-goes on.
+goes on.  A mesh of one rank runs on the one device, as JAX's one-device
+mesh does; the ZeRO++ keys run as on JAX's (a no-op over one rank).
 
 Two runners share the ``(candidate, budget) -> (score, metrics)``
 protocol the search engine calls (``budget`` is the successive-halving
@@ -28,6 +30,8 @@ units):
 Both run on ``device`` (CUDA unless the caller names another).
 """
 from __future__ import annotations
+
+import math
 
 import gc
 import time
@@ -232,10 +236,12 @@ class TrainTrialRunner:
         engine = None
         try:
             model = self.model_factory(cand.get("remat", "none"))
-            # a mesh is refused by initialize (one device; ROADMAP item 7)
-            mesh = dict(cand.get("mesh") or {}) or None
-            engine, _, _, _ = initialize(model=model, config=config,
-                                         mesh=mesh, device=self.device)
+            axes = dict(cand.get("mesh") or {})
+            if math.prod(axes.values()) > 1:
+                raise NotImplementedError(
+                    f"mesh {axes}: a trial runs in this one process; a mesh of more than "
+                    "one rank needs a process world (ROADMAP queue 1 item 7)")
+            engine, _, _, _ = initialize(model=model, config=config, device=self.device)
             vocab = getattr(getattr(model, "cfg", None), "vocab_size", 1000)
             rng = np.random.default_rng(0)
             dp = engine.dp_world_size

@@ -46,6 +46,15 @@ state's ``params`` are the compute copy, as in JAX, and the swap files
 restored from there.  ``export_fp32_state_dict`` reads the masters from
 the swap files or from host memory, never from the compute copy.
 
+Across the ranks of a process grid every rank calls save and load.  The
+state is the logical one at any stage: a ZeRO engine gathers its masters
+and moments from the slices (``engine.master_tree`` /
+``logical_opt_state``, collectives), rank 0 alone writes the tag, and
+every rank waits for it before it returns.  A load reads the logical
+tensors on every rank, which then takes its own slices
+(``engine.load_logical_state``), so a save at one world size (or on one
+device) loads at another, and the fp32 export gathers the shards.
+
 With curriculum learning on, ``meta.json`` carries the scheduler's state
 under ``curriculum`` and a load restores it, as JAX does (its
 ``saving.py:245-246``, ``:387-388``), so either package resumes the other's
@@ -264,20 +273,43 @@ def _opt_leaves(node, engine) -> Any:
     return _state_buffers(list(node), engine)
 
 
-def train_state(engine) -> Dict[str, torch.Tensor]:
-    """The engine's training state as ``{tree path: tensor}``; the tensors
-    are the engine's own (a load copies into them)."""
+def _state_tree(engine) -> Dict[str, Any]:
+    """The training state as a tree; a ZeRO engine's masters and moments
+    gathered into whole leaves (a collective), the rest the engine's own
+    tensors."""
     ls = engine.loss_scale_state
-    tree = {
+    sharded = getattr(engine, "_zero", None) is not None
+    return {
         "step": engine.device_step,
-        "params": engine.params,
-        "opt_state": _opt_leaves(engine.opt_state, engine),
+        "params": engine.master_tree() if sharded else engine.params,
+        "opt_state": engine.logical_opt_state() if sharded
+        else _opt_leaves(engine.opt_state, engine),
         "loss_scale": {"scale": ls.scale, "good_steps": ls.good_steps,
                        "hysteresis": ls.hysteresis},
     }
-    out = _flatten(tree, "", {})
+
+
+def train_state(engine, tree: Optional[Dict[str, Any]] = None) -> Dict[str, torch.Tensor]:
+    """The engine's training state as ``{tree path: tensor}``; the tensors
+    are the engine's own (a load copies into them), or for a ZeRO engine
+    the gathered whole leaves, which a load then slices."""
+    out = _flatten(tree if tree is not None else _state_tree(engine), "", {})
     out["rng"] = engine.generator.get_state()
     return out
+
+
+def _grid_rank(engine) -> int:
+    grid = getattr(engine, "grid", None)
+    return grid.rank if grid is not None else 0
+
+
+def _world_barrier(engine) -> None:
+    grid = getattr(engine, "grid", None)
+    if grid is not None:
+        from ..comm import comm
+        from ..parallel.topology import BATCH_AXES
+
+        comm.barrier(BATCH_AXES, mesh=grid)
 
 
 # ---------------------------------------------------------------------------
@@ -296,12 +328,16 @@ def save_checkpoint(engine, save_dir: str, tag: Optional[str] = None, client_sta
     save_dir = os.path.abspath(save_dir)
     path = os.path.join(save_dir, tag)
     tmp_path = path + TMP_SUFFIX
+    state = train_state(engine)  # every rank: a ZeRO engine gathers its slices
+    if _grid_rank(engine) != 0:  # rank 0 writes the world's tag
+        _world_barrier(engine)
+        return path
     ce.wait()  # a pending save commits before this one starts
     if os.path.isdir(tmp_path):
         shutil.rmtree(tmp_path)  # the leftover of a torn save
     os.makedirs(tmp_path, exist_ok=True)
     ce.create(tag)
-    ce.save(train_state(engine), os.path.join(tmp_path, "state"))
+    ce.save(state, os.path.join(tmp_path, "state"))
     nvme = getattr(engine, "_nvme_opt", None)
     if nvme is not None:
         # the NVMe tier: masters and moments live in the swap pool, not the
@@ -369,6 +405,7 @@ def save_checkpoint(engine, save_dir: str, tag: Optional[str] = None, client_sta
     else:
         finalize()
     log_dist(f"saved checkpoint {path}")
+    _world_barrier(engine)
     return path
 
 
@@ -413,10 +450,14 @@ def load_checkpoint(engine, load_dir: str, tag: Optional[str] = None,
             return None, {}
         tag = fallback
     path = os.path.join(os.path.abspath(load_dir), tag)
-    targets = train_state(engine)
+    tree = _state_tree(engine)
+    targets = train_state(engine, tree)
     if not load_optimizer_states:
         targets = {k: v for k, v in targets.items() if not k.startswith("opt_state/")}
     ce.load(os.path.join(path, "state"), targets)
+    if getattr(engine, "_zero", None) is not None:  # this rank's slices of the whole leaves
+        engine.load_logical_state(tree["params"],
+                                  tree["opt_state"] if load_optimizer_states else None)
     nvme = getattr(engine, "_nvme_opt", None)
     if nvme is not None and load_optimizer_states:
         nvme.restore_from(_nvme_dir(path))
@@ -460,4 +501,6 @@ def export_fp32_state_dict(engine):
             return {k: walk(v) for k, v in node.items()}
         return node.detach().to("cpu", copy=True)
 
+    if getattr(engine, "_zero", None) is not None:  # the shards gathered (every rank calls)
+        return walk(engine.master_tree())
     return walk(engine.params)

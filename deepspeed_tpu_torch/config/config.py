@@ -10,10 +10,14 @@ the port runs:
   ``async_metrics``;
 - ``sparse_attention`` (the block-sparse layout ``initialize`` wires into
   the model);
-- ``zero_optimization.stage`` 0-3 and ``param_persistence_threshold``.
-  The port runs on one GPU, where, as on the JAX package's one-device mesh,
-  every ZeRO stage keeps the whole state on the one device: the stage is
-  validated and changes no number;
+- ``zero_optimization.stage`` 0-3 and ``param_persistence_threshold``
+  (across the ranks of a process grid, ``runtime/zero.py``; on one device
+  outside a world, as on the JAX package's one-device mesh, every stage
+  keeps the whole state on the device and changes no number), the ZeRO++
+  keys (``zero_quantized_weights`` / ``_gradients``, ``zeropp_loco_param``,
+  ``zero_hpz_partition_size``, ``mics_shard_size``; ``runtime/zeropp.py``),
+  ``mesh`` (``MeshConfig``: ``data`` / ``fsdp`` sizes) and
+  ``comms_logger`` (``CommsLoggerConfig``);
 - ZeRO-Offload (``ZeroConfig``, JAX's parse and texts):
   ``offload_optimizer`` / ``offload_param`` (``"cpu"``, ``"nvme"`` for
   the optimizer, or the reference's nested ``{"device", "nvme_path",
@@ -57,10 +61,9 @@ the port runs:
 An unknown key raises ``ConfigError`` naming it, as in JAX.  A key the JAX
 package knows but the port does not run yet is accepted at JAX's default
 and raises ``NotImplementedError`` naming it and its ROADMAP queue-1 item
-when its value differs (``_UNPORTED_TOP``, ``_UNPORTED_ZERO``): the mesh
-(an expert axis included), tensor parallelism, the comms logger, ZeRO++ and
-``serve.quant_comm``
-/ ``comm_tiles`` are item 7.  The
+when its value differs (``_UNPORTED_TOP``, ``_UNPORTED_ZERO``): a mesh
+axis ``model`` / ``seq`` / ``expert`` / ``stage`` above 1, tensor
+parallelism, ``serve.quant_comm`` and ``comm_tiles`` are item 7.  The
 reference keys JAX accepts and ignores are accepted and ignored here too.
 """
 from __future__ import annotations
@@ -84,18 +87,14 @@ class ConfigError(ValueError):
 # value differs from JAX's default, which an enabled section always does; at
 # the default it is accepted and changes nothing, as in JAX.
 _UNPORTED_TOP = {
-    "mesh": (("MeshConfig", dict(data=0, fsdp=0, model=1, seq=1, expert=1, stage=1)), 7),
     "tensor_parallel": (("TensorParallelConfig", dict(enabled=False, tp_size=1,
                                                       domino_chunks=1)), 7),
-    "comms_logger": (("CommsLoggerConfig", dict(enabled=False, verbose=False, prof_all=True,
-                                                debug=False, prof_ops=[])), 7),
 }
+# mesh axes the port does not run across ranks yet (tensor, sequence,
+# expert and pipeline parallelism): above 1 the ``mesh`` key is refused
+_UNPORTED_MESH_AXES = ("model", "seq", "expert", "stage")
 # zero_optimization keys the port does not run yet: (JAX's default, item)
-_UNPORTED_ZERO = {
-    "zero_quantized_weights": (False, 7),
-    "zero_quantized_gradients": (False, 7), "zeropp_loco_param": (None, 7),
-    "zero_hpz_partition_size": (1, 7), "mics_shard_size": (-1, 7),
-}
+_UNPORTED_ZERO: Dict[str, Any] = {}
 # reference keys JAX accepts and deliberately ignores (config.py:1100)
 _PASSTHROUGH_TOP = {
     "zero_allow_untested_optimizer", "zero_force_ds_cpu_optimizer", "communication_data_type",
@@ -150,6 +149,14 @@ class ZeroConfig:
     stage: int = 0
     param_persistence_threshold: int = 10_000
     stage3_param_persistence_threshold: Optional[int] = None
+    # ZeRO++ (runtime/zeropp.py): int8 weight gather (qwZ), int8 gradient
+    # reduce (qgZ) with LoCo's error feedback, the hpZ secondary partition
+    # and MiCS shard groups, JAX's keys and defaults
+    zero_quantized_weights: bool = False
+    zero_quantized_gradients: bool = False
+    zeropp_loco_param: Optional[Dict[str, Any]] = None
+    zero_hpz_partition_size: int = 1
+    mics_shard_size: int = -1
     offload_optimizer: Any = None
     offload_param: Any = None
     offload_nvme_path: str = "/tmp/deepspeed_tpu_nvme"
@@ -554,6 +561,34 @@ class HybridEngineConfig:
 
 
 @dataclass
+class MeshConfig:
+    """JAX's ``MeshConfig`` (config.py:727): axis sizes, 0 inferred
+    (``initialize`` gives the leftover ranks to ``fsdp`` under ZeRO >= 1,
+    else to ``data``).  ``model``, ``seq``, ``expert`` and ``stage`` above 1
+    are refused at parse time (ROADMAP queue 1 item 7)."""
+
+    data: int = 0
+    fsdp: int = 0
+    model: int = 1
+    seq: int = 1
+    expert: int = 1
+    stage: int = 1
+
+
+@dataclass
+class CommsLoggerConfig:
+    """JAX's ``CommsLoggerConfig`` (config.py:696): ``enabled`` counts each
+    collective and its bytes (``comm.comm.CommsLogger``); ``prof_all``,
+    ``debug`` and ``prof_ops`` are the reference's keys, accepted."""
+
+    enabled: bool = False
+    verbose: bool = False
+    prof_all: bool = True
+    debug: bool = False
+    prof_ops: List[str] = field(default_factory=list)
+
+
+@dataclass
 class Config:
     train_batch_size: Optional[int] = None
     train_micro_batch_size_per_gpu: Optional[int] = None
@@ -599,6 +634,8 @@ class Config:
     # JAX's dict (``elasticity.ElasticityConfig`` validates it in initialize)
     elasticity: Dict[str, Any] = field(default_factory=dict)
     compile: CompileConfig = field(default_factory=CompileConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
+    comms_logger: CommsLoggerConfig = field(default_factory=CommsLoggerConfig)
     dp_world_size: int = 1  # derived by finalize
 
     @property
@@ -1119,6 +1156,13 @@ def _refuse_unported(raw: Dict[str, Any]) -> None:
                 _refuse(k, item)
         elif value != default:
             _refuse(k, item)
+    mesh = raw.get("mesh")
+    if isinstance(mesh, dict) and any(mesh.get(a, 1) not in (0, 1)
+                                      for a in _UNPORTED_MESH_AXES):
+        for f in mesh:  # an unknown field is JAX's ConfigError first
+            if f not in MeshConfig.__dataclass_fields__:
+                raise ConfigError(f"unknown config key '{f}' for MeshConfig")
+        _refuse("mesh", 7)
     zero = raw.get("zero_optimization")
     if isinstance(zero, dict):
         for k in list(zero):

@@ -2,16 +2,22 @@
 ``deepspeed_tpu/launcher/runner.py`` (the reference's ``deepspeed`` runner,
 ``launcher/runner.py:419 main``).
 
-The hostfile format, the host filters and the ssh wrapping are JAX's, and
-so is the process model: one process per host of the hostfile.  The
-rendezvous env is torch.distributed's, which ``init_process_group(
-init_method="env://")`` reads: ``MASTER_ADDR`` / ``MASTER_PORT`` (the
-coordinator, default the first host, port 29500), ``WORLD_SIZE`` (the
-hosts), ``RANK`` (the host's index) and ``LOCAL_RANK`` 0, where JAX sets
+The hostfile format, the host filters and the ssh wrapping are JAX's.
+The rendezvous env is torch.distributed's, which ``init_process_group(
+init_method="env://")`` reads (``comm.init_distributed``): ``MASTER_ADDR``
+/ ``MASTER_PORT`` (the coordinator, default the first host, port 29500),
+``WORLD_SIZE``, ``RANK`` and ``LOCAL_RANK``, where JAX sets
 ``DSTPU_COORDINATOR`` / ``DSTPU_NUM_PROCESSES`` / ``DSTPU_PROCESS_ID`` for
-``jax.distributed.initialize``.  A process per GPU of a many-card host
-comes with the distributed layers (ROADMAP queue 1 item 7).  On a single
-host it just runs the script.
+``jax.distributed.initialize``.
+
+The process model is torch's: one process per local device.  On this host
+``--num_gpus N`` (or ``--include localhost:0,2``, the reference's slot
+syntax) starts one process per device, each with its own ``LOCAL_RANK``
+and ``RANK`` (the device index ``initialize`` binds, ``cuda:LOCAL_RANK``),
+all in one world of the devices listed; JAX runs one process a host that
+drives every local device.  A hostfile's hosts take one process each, as
+in JAX (``WORLD_SIZE`` the hosts, ``LOCAL_RANK`` 0).  With neither, the
+script runs alone.
 """
 from __future__ import annotations
 
@@ -113,6 +119,8 @@ def parse_args(argv=None):
     p.add_argument("--coordinator-port", type=int, default=DEFAULT_MASTER_PORT,
                    help="MASTER_PORT")
     p.add_argument("--env", action="append", default=[], help="env var names to forward")
+    p.add_argument("--num_gpus", "--num_procs", type=int, default=None,
+                   help="processes on this host, one a device (ranks 0..N-1)")
     p.add_argument("--launcher", default="ssh",
                    choices=("ssh", "pdsh", "openmpi", "mpich", "impi", "slurm", "mvapich"),
                    help="multinode backend (reference launcher/multinode_runner.py)")
@@ -121,10 +129,69 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
+def local_devices(num_gpus: Optional[int], include: str = "") -> Optional[List[int]]:
+    """The local device indices to start a process on: ``0..num_gpus-1``,
+    or the slots of ``localhost:0,2`` in ``--include`` (the reference's
+    ``host:slots`` syntax for this host); None when neither asks."""
+    if include and ":" in include:
+        host, _, slots = include.partition(":")
+        if host not in ("localhost", "127.0.0.1") or "@" in include:
+            raise ValueError(f"--include {include!r}: slots are taken on this host only "
+                             "(localhost:0,1)")
+        return [int(s) for s in slots.split(",") if s.strip()]
+    if num_gpus is not None:
+        if num_gpus < 1:
+            raise ValueError(f"--num_gpus {num_gpus} < 1")
+        return list(range(num_gpus))
+    return None
+
+
+def launch_local(cmd: List[str], devices: List[int], port: Optional[int] = None) -> int:
+    """One process per local device in one world: ``RANK`` its position in
+    ``devices``, ``LOCAL_RANK`` the device index; the first failure stops
+    the others.  Returns the first non-zero exit code, or 0."""
+    import socket
+    import time
+
+    if port is None:
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+    procs = []
+    for rank, dev in enumerate(devices):
+        env = dict(os.environ, **rendezvous_env("127.0.0.1", port, len(devices)),
+                   RANK=str(rank), LOCAL_RANK=str(dev))
+        procs.append(subprocess.Popen(cmd, env=env))
+    logger.info(f"launched {len(procs)} local processes on devices {devices}")
+
+    def _kill(signum=None, frame=None):
+        for p in procs:
+            if p.poll() is None:
+                p.terminate()
+
+    signal.signal(signal.SIGINT, _kill)
+    signal.signal(signal.SIGTERM, _kill)
+    rc = 0
+    while any(p.poll() is None for p in procs):
+        bad = [p.returncode for p in procs if p.returncode not in (None, 0)]
+        if bad:
+            rc = bad[0]
+            _kill()
+        time.sleep(0.05)
+    for p in procs:
+        p.wait()
+        rc = rc or p.returncode
+    return rc
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
     cmd = [sys.executable, args.script] + list(args.script_args)
+    devices = local_devices(args.num_gpus, args.include if args.hostfile is None else "")
     if args.hostfile is None:
+        if devices is not None:
+            return launch_local(cmd, devices, None if args.coordinator_port ==
+                                DEFAULT_MASTER_PORT else args.coordinator_port)
         logger.info("no hostfile: launching single-process locally")
         return subprocess.call(cmd)
     hosts = filter_hosts(fetch_hostfile(args.hostfile), args.include, args.exclude)

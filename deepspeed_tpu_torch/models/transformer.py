@@ -166,43 +166,54 @@ class TransformerConfig:
 # parameters
 # ---------------------------------------------------------------------------
 def init_params(cfg: TransformerConfig, seed: int = 0, device=None,
-                dtype: Optional[torch.dtype] = None) -> Params:
+                dtype: Optional[torch.dtype] = None, keep: Optional[Callable] = None) -> Params:
     """Random parameters in the JAX layout (normal / sqrt(fan_in), norms at
     1, biases at 0), drawn from a ``torch.Generator`` seeded with ``seed``,
     on ``device`` (CUDA unless the caller names another; see
-    ``ops.kernels.resolve_device``).  The numbers differ from JAX
-    ``init_params`` for the same seed; tests that compare the two packages
-    use ``params_from_numpy`` instead."""
+    ``ops.kernels.resolve_device``; ``"meta"`` gives the shapes alone).
+    The numbers differ from JAX ``init_params`` for the same seed; tests
+    that compare the two packages use ``params_from_numpy`` instead.
+
+    ``keep(path, w)``, when given, takes each random leaf as it is drawn
+    (``path`` a tuple of keys) and returns what the tree holds in its
+    place: a caller that keeps a slice of each leaf holds one whole leaf at
+    a time (``runtime/zero.py`` ``DeferredParams``)."""
     dtype = dtype or cfg.dtype
     device = resolve_device(device)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    gen = torch.Generator(device="cpu" if device.type == "meta" else device).manual_seed(seed)
     d, f, L, v = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers, cfg.vocab_size
     hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
 
-    def dense(shape, fan_in):
+    def dense(shape, fan_in, path):
         w = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
-        return (w * fan_in ** -0.5).to(dtype)
+        w = (w * fan_in ** -0.5).to(dtype)
+        return keep(path, w) if keep is not None else w
 
     def const(shape, val):
         return torch.full(shape, val, device=device, dtype=dtype)
 
     layers: Params = {
         "attn": {
-            "wq": dense((L, d, hq * hd), d),
-            "wk": dense((L, d, hkv * hd), d),
-            "wv": dense((L, d, hkv * hd), d),
-            "wo": dense((L, hq * hd, d), hq * hd),
+            "wq": dense((L, d, hq * hd), d, ("layers", "attn", "wq")),
+            "wk": dense((L, d, hkv * hd), d, ("layers", "attn", "wk")),
+            "wv": dense((L, d, hkv * hd), d, ("layers", "attn", "wv")),
+            "wo": dense((L, hq * hd, d), hq * hd, ("layers", "attn", "wo")),
         },
         "attn_norm": {"scale": const((L, d), 1.0)},
     }
     if cfg.moe_num_experts > 0:
         E = cfg.moe_num_experts
-        layers["moe"] = {"router": dense((L, d, E), d), "w_gate": dense((L, E, d, f), d),
-                         "w_up": dense((L, E, d, f), d), "w_down": dense((L, E, f, d), f)}
+        moe = ("layers", "moe")
+        layers["moe"] = {"router": dense((L, d, E), d, moe + ("router",)),
+                         "w_gate": dense((L, E, d, f), d, moe + ("w_gate",)),
+                         "w_up": dense((L, E, d, f), d, moe + ("w_up",)),
+                         "w_down": dense((L, E, f, d), f, moe + ("w_down",))}
     else:
-        layers["mlp"] = {"w_up": dense((L, d, f), d), "w_down": dense((L, f, d), f)}
+        mlp = ("layers", "mlp")
+        layers["mlp"] = {"w_up": dense((L, d, f), d, mlp + ("w_up",)),
+                         "w_down": dense((L, f, d), f, mlp + ("w_down",))}
         if cfg.gated_mlp:
-            layers["mlp"]["w_gate"] = dense((L, d, f), d)
+            layers["mlp"]["w_gate"] = dense((L, d, f), d, mlp + ("w_gate",))
     if not cfg.parallel_block:  # a parallel block shares attn_norm
         layers["mlp_norm"] = {"scale": const((L, d), 1.0)}
     if cfg.qkv_bias:
@@ -216,12 +227,13 @@ def init_params(cfg: TransformerConfig, seed: int = 0, device=None,
         if cfg.gated_mlp:
             layers["mlp"]["b_gate"] = const((L, f), 0.0)
     params: Params = {
-        "embed": {"embedding": dense((v, d), d)},
+        "embed": {"embedding": dense((v, d), d, ("embed", "embedding"))},
         "layers": layers,
         "final_norm": {"scale": const((d,), 1.0)},
     }
     if cfg.position == "learned":
-        params["pos_embed"] = {"embedding": dense((cfg.max_seq_len, d), d)}
+        params["pos_embed"] = {"embedding": dense((cfg.max_seq_len, d), d,
+                                                 ("pos_embed", "embedding"))}
     if cfg.embedding_norm:
         params["embed_norm"] = {"scale": const((d,), 1.0)}
     if cfg.norm == "layernorm":
@@ -232,7 +244,7 @@ def init_params(cfg: TransformerConfig, seed: int = 0, device=None,
         if cfg.embedding_norm:
             params["embed_norm"]["bias"] = const((d,), 0.0)
     if not cfg.tie_embeddings:
-        params["lm_head"] = {"kernel": dense((d, v), d)}
+        params["lm_head"] = {"kernel": dense((d, v), d, ("lm_head", "kernel"))}
         if cfg.head_bias:
             params["lm_head"]["bias"] = const((v,), 0.0)
     return params
@@ -545,6 +557,7 @@ def _attn_input(lw: Params, x, cfg: TransformerConfig):
 
 
 def _pre_attention(lw: Params, x, cfg: TransformerConfig, rope_cs):
+    lw = fetch_layer(lw)
     return _qkv(lw["attn"], _attn_input(lw, x, cfg), cfg, rope_cs)
 
 
@@ -553,6 +566,7 @@ def _post_attention(lw: Params, x, o, cfg: TransformerConfig, dropless: bool = F
     parallel block reads the attention norm for both branches and adds both
     to one residual).  Returns (x, MoE aux loss or None); ``dropless``
     routes the experts without capacity (the cache path, as in JAX)."""
+    lw = fetch_layer(lw)
     h = _out_proj(lw["attn"], o).to(x.dtype)
     if cfg.parallel_block:
         m = mlp_block(lw["mlp"], _attn_input(lw, x, cfg), cfg)
@@ -573,6 +587,7 @@ def decoder_layer(lw: Params, x: torch.Tensor, cfg: TransformerConfig, positions
     remat can keep the attention itself out of its two checkpoints;
     ``rope_cs`` is ``rope_tables`` over the rotary dims (None without
     rope)."""
+    lw = fetch_layer(lw)  # once for both halves
     q, k, v = _pre_attention(lw, x, cfg, rope_cs)
     o = _attend(q, k, v, cfg, positions, attn_fn, segment_ids)
     return _post_attention(lw, x, o, cfg)
@@ -627,13 +642,26 @@ def _cached_layer(lw: Params, x, cfg: TransformerConfig, positions, attn_fn, lay
     return _post_attention(lw, x, o, cfg, dropless=True)
 
 
+def fetch_layer(lw):
+    """A layer's parameter dict: ``lw`` itself, or what a ZeRO stage-3
+    ``LayerHandle`` gathers now (``runtime/zero.py``).  Each function that
+    starts a layer's work calls it, so a checkpointed region gathers its
+    layer inside the region and its recomputation gathers again."""
+    fetch = getattr(lw, "fetch", None)
+    return fetch() if fetch is not None else lw
+
+
 def _unstack(tree: Params, L: int):
-    """Stacked ``[L, ...]`` leaves -> one dict per layer.  ``unbind`` keeps
+    """Stacked ``[L, ...]`` leaves -> one dict per layer (or a ZeRO stage-3
+    ``LayerSource``'s handles, one a layer, each gathered when the layer
+    runs: ``fetch_layer``).  ``unbind`` keeps
     the backward to one stack per leaf (indexing would build an [L, ...]
     zero gradient for every layer).  A leaf may instead be the sequence of
     its L layers' tensors: an offloaded engine's compute copy
     (``runtime/offload.py``), whose per-layer leaves take each layer's
     gradient as that layer's backward ends."""
+    if hasattr(tree, "layer_handles"):
+        return tree.layer_handles()
     flat = {}
 
     def walk(node, path):
@@ -787,10 +815,10 @@ class CausalLM:
         _refuse_unported(cfg)
         self.cfg = cfg
 
-    def init_params(self, seed: int = 0, device=None) -> Params:
+    def init_params(self, seed: int = 0, device=None, keep: Optional[Callable] = None) -> Params:
         """fp32 parameters (the engine keeps fp32 masters) on ``device``,
-        CUDA unless the caller names another."""
-        return init_params(self.cfg, seed=seed, device=device, dtype=torch.float32)
+        CUDA unless the caller names another; ``keep`` as ``init_params``'s."""
+        return init_params(self.cfg, seed=seed, device=device, dtype=torch.float32, keep=keep)
 
     def apply(self, params: Params, tokens: torch.Tensor, **kw) -> torch.Tensor:
         return forward(params, tokens, self.cfg, **kw)
@@ -815,6 +843,12 @@ class CausalLM:
         if segment_ids is not None:
             segment_ids = segment_ids[:, :-1]
         return tokens[:, :-1], tokens[:, 1:], segment_ids, layer_keep
+
+    def valid_tokens(self, batch) -> torch.Tensor:
+        """The count of labels ``loss_fn`` averages over (not
+        ``ignore_index``): the engine's weight of a rank across a world."""
+        labels = batch["labels"] if "labels" in batch else batch["input_ids"][:, 1:]
+        return (labels != -100).sum()
 
     def loss_fn(self, params: Params, batch, rng=None) -> torch.Tensor:
         inputs, labels, segment_ids, layer_keep = self.prepare_batch(batch, rng)

@@ -59,8 +59,10 @@ streams it through the card in chunks: any cut of the buffers for an
 elementwise rule, whole leaves for Lamb and Muon.
 
 Only the Adam family has a kernel: JAX builds the others with optax and no
-Pallas kernel.  Refused, each naming itself: the 1-bit family (ROADMAP
-queue 1 item 7).  Reference keys JAX ignores (for example FusedLamb's
+Pallas kernel.  The 1-bit family has no rule here: its update is the
+engine's compressed step across ranks (``runtime/onebit.py``), and
+``build_optimizer`` raises ``NotImplementedError`` naming it, as JAX's
+does.  Reference keys JAX ignores (for example FusedLamb's
 ``max_coeff``) are ignored here too.
 """
 from __future__ import annotations
@@ -74,7 +76,7 @@ import torch
 from .kernels.fused_adam import fused_adamw_flat
 
 _ADAM_NAMES = ("adam", "adamw", "fusedadam", "deepspeedcpuadam")
-_REFUSED = {"onebitadam": 7, "zerooneadam": 7, "onebitlamb": 7}
+_ENGINE_ONLY = ("onebitadam", "zerooneadam", "onebitlamb")
 
 
 def _assign(dst: torch.Tensor, new: torch.Tensor, finite: Optional[torch.Tensor]) -> None:
@@ -363,9 +365,10 @@ def build_optimizer(type_name: str, params: Optional[Dict[str, Any]] = None):
     rate is the engine's schedule, passed to ``step``."""
     params = dict(params or {})
     name = type_name.lower().replace("_", "")
-    if name in _REFUSED:
+    if name in _ENGINE_ONLY:
         raise NotImplementedError(
-            f"optimizer {type_name!r} is not ported yet (ROADMAP queue 1 item {_REFUSED[name]})")
+            f"optimizer {type_name!r} is the engine's compressed step across ranks "
+            "(runtime/onebit.py): initialize() runs it in a process world")
     betas = params.get("betas", (0.9, 0.999))
     eps = params.get("eps", 1e-8)
     wd = params.get("weight_decay", 0.0)

@@ -1,26 +1,33 @@
-"""Device grid — counterpart of the serving subset of
-``deepspeed_tpu/parallel/topology.py`` (``MeshSpec``, ``infer_spec``,
-``initialize_mesh``, ``Grid``).
+"""Device grids — counterpart of ``deepspeed_tpu/parallel/topology.py``
+(``MeshSpec``, ``infer_spec``, ``initialize_mesh``, ``Grid``).
 
 JAX expresses every parallel dimension as a named axis of one device mesh.
-The port's serving engine reads three of them: ``data`` (alias ``batch``,
-serving replicas), ``seq`` (seq shards of the KV pool) and ``model``
-(tensor parallelism).  This module builds a host-only grid: the axis sizes
-and the device list, no process group.
+The port has two kinds of grid:
 
-What it takes today: ``seq = S`` over ONE device repeated ``S`` times
-(``initialize_mesh(devices=["cuda:0"] * 2, seq=2)``), the counterpart of
-the JAX tests' virtual CPU devices.  The serving engine then runs the ``S``
-seq shards of its pool in one process on that device.  Distinct devices,
-``model > 1``, ``batch > 1`` and the training axes raise
-``NotImplementedError``: they come with the distributed layers (ROADMAP
-queue 1 item 7).
+- ``ProcessGrid``, the training grid over the processes of a
+  ``torch.distributed`` world, one rank a device (``initialize_mesh()``
+  once the world is up, ``comm.init_distributed``).  Its axes are
+  ``data``, ``fsdp`` and ``sub``, ranks row-major over them with ``sub``
+  fastest, as JAX's mesh orders its devices (topology.py:137).  It holds
+  one process group for every set of those axes and every coordinate of
+  the others, in the backend of its device (NCCL for CUDA, gloo for the
+  CPU), so a collective names axes (``comm/comm.py``).  ``model``,
+  ``seq``, ``expert`` and ``stage`` above 1 across ranks raise
+  ``NotImplementedError`` (ROADMAP queue 1 item 7: tensor, sequence,
+  expert and pipeline parallelism);
+- ``Grid``, the serving subset: ``seq = S`` over ONE device repeated ``S``
+  times (``initialize_mesh(devices=["cuda:0"] * 2, seq=2)``), the
+  counterpart of the JAX tests' virtual CPU devices; the serving engine runs
+  the ``S`` seq shards of its pool in one process on that device.  Distinct
+  devices, ``model > 1`` and ``batch > 1`` raise ``NotImplementedError``
+  (item 7).
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import math
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -33,6 +40,9 @@ EXPERT_AXIS = "expert"
 STAGE_AXIS = "stage"
 
 _ITEM7 = "(ROADMAP queue 1 item 7, the distributed layers)"
+# the axes a process grid spans, slowest first, over all of which the
+# gradients are averaged (JAX ``BATCH_AXES``)
+BATCH_AXES = (DATA_AXIS, FSDP_AXIS, SUB_AXIS)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,6 +66,10 @@ class MeshSpec:
     @property
     def world_size(self) -> int:
         return math.prod(self.sizes.values())
+
+    @property
+    def dp_world_size(self) -> int:
+        return self.data * self.fsdp * self.sub
 
 
 def infer_spec(world_size: int, **fixed: int) -> MeshSpec:
@@ -92,16 +106,122 @@ def normalize_device(device) -> torch.device:
     return dev
 
 
+Axes = Union[str, Sequence[str]]
+
+
+def _axes(axis_name: Axes) -> Tuple[str, ...]:
+    names = (axis_name,) if isinstance(axis_name, str) else tuple(axis_name)
+    bad = [a for a in names if a not in BATCH_AXES]
+    if bad:
+        raise NotImplementedError(f"axis {bad} across ranks is not ported yet {_ITEM7}; a "
+                                  f"process grid spans {BATCH_AXES}")
+    return tuple(a for a in BATCH_AXES if a in names)  # grid order
+
+
+class ProcessGrid:
+    """The training grid over a ``torch.distributed`` world: this rank's
+    coordinates, its device, and the process group of every set of the
+    ``data`` / ``fsdp`` / ``sub`` axes (``group``), made at construction
+    by every rank in one order (``new_group`` is collective).  JAX's
+    ``Grid`` answers the same size and rank questions from its mesh."""
+
+    def __init__(self, spec: MeshSpec, device: torch.device, backend: str):
+        import torch.distributed as dist
+
+        if not dist.is_initialized():
+            raise RuntimeError("a process grid needs torch.distributed: call "
+                               "comm.init_distributed() first")
+        others = {a: n for a, n in spec.sizes.items() if a not in BATCH_AXES and n > 1}
+        if others:
+            raise NotImplementedError(f"grid axes {others} across ranks are not ported yet "
+                                      f"{_ITEM7}; a process grid spans {BATCH_AXES}")
+        world = dist.get_world_size()
+        if spec.world_size != world:
+            raise ValueError(f"MeshSpec {spec.sizes} covers {spec.world_size} ranks but the "
+                             f"world has {world}")
+        self.spec, self.device, self.backend = spec, torch.device(device), backend
+        self.comms_logger = None  # comm.configure's CommsLogger for this grid
+        self.rank = dist.get_rank()
+        self.sizes = {a: spec.sizes[a] for a in BATCH_AXES}
+        shape = tuple(self.sizes.values())
+        self.coords = dict(zip(BATCH_AXES, _unravel(self.rank, shape)))
+        self._groups: Dict[Tuple[str, ...], object] = {}
+        # every subset of the axes, every coordinate of the rest, in one
+        # order on every rank; a rank keeps the groups it is in
+        for k in range(1, len(BATCH_AXES) + 1):
+            for sub in itertools.combinations(BATCH_AXES, k):
+                rest = [a for a in BATCH_AXES if a not in sub]
+                for fixed in itertools.product(*(range(self.sizes[a]) for a in rest)):
+                    at = dict(zip(rest, fixed))
+                    ranks = [r for r in range(world)
+                             if all(dict(zip(BATCH_AXES, _unravel(r, shape)))[a] == v
+                                    for a, v in at.items())]
+                    g = dist.new_group(ranks, backend=backend)
+                    if self.rank in ranks:
+                        self._groups[sub] = g
+
+    @property
+    def world_size(self) -> int:
+        return self.spec.world_size
+
+    @property
+    def dp_world_size(self) -> int:
+        return self.spec.dp_world_size
+
+    @property
+    def dp_rank(self) -> int:
+        """This rank's index over ``data`` x ``fsdp`` x ``sub`` (the
+        loader's shard; JAX ``Grid.local_dp_rank``)."""
+        return self.axis_rank(BATCH_AXES)
+
+    def group(self, axis_name: Axes):
+        return self._groups[_axes(axis_name)]
+
+    def axis_size(self, axis_name: Axes) -> int:
+        return math.prod(self.sizes[a] for a in _axes(axis_name))
+
+    def axis_rank(self, axis_name: Axes) -> int:
+        """This rank's index in the group of ``axis_name`` (row-major over
+        the named axes in grid order)."""
+        idx = 0
+        for a in _axes(axis_name):
+            idx = idx * self.sizes[a] + self.coords[a]
+        return idx
+
+
+def _unravel(rank: int, shape: Tuple[int, ...]) -> Tuple[int, ...]:
+    out = []
+    for n in reversed(shape):
+        out.append(rank % n)
+        rank //= n
+    return tuple(reversed(out))
+
+
 def initialize_mesh(spec: Optional[MeshSpec] = None, devices: Optional[Sequence] = None,
-                    **axes: int) -> Grid:
-    """``initialize_mesh(devices=[dev] * S, seq=S)``.  ``batch=`` is the
-    serving alias of ``data=``; ``devices`` defaults to every visible CUDA
-    device, as JAX's defaults to ``jax.devices()``."""
+                    **axes: int):
+    """``initialize_mesh(fsdp=2)`` over the processes of a
+    ``torch.distributed`` world (a ``ProcessGrid``; each rank on its
+    device, ``device=`` or CUDA ``LOCAL_RANK``), or, with ``devices``, the
+    serving grid ``initialize_mesh(devices=[dev] * S, seq=S)``.  ``batch=``
+    is the serving alias of ``data=``; ``devices`` defaults to every visible
+    CUDA device, as JAX's defaults to ``jax.devices()``."""
     if "batch" in axes:
         if "data" in axes:
             raise ValueError("pass either batch= or data=, not both "
                              "(batch is the serving alias of the data axis)")
         axes["data"] = axes.pop("batch")
+    device = axes.pop("device", None)
+    import torch.distributed as dist
+
+    if devices is None and dist.is_available() and dist.is_initialized():
+        if spec is None:
+            spec = infer_spec(dist.get_world_size(), **axes)
+        if device is None:
+            from ..comm.comm import get_local_rank
+
+            device = torch.device("cuda", get_local_rank())
+        device = torch.device(device)
+        return ProcessGrid(spec, device, "nccl" if device.type == "cuda" else "gloo")
     if devices is None:
         if not torch.cuda.is_available():
             raise RuntimeError("no CUDA device: pass devices= (e.g. ['cpu'] * S)")

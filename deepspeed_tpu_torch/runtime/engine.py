@@ -38,7 +38,33 @@ for each queued batch, so a checkpoint saved mid-loop records the oldest
 unconsumed batch's position and closing the loop hands the unconsumed
 batches back (JAX :1422-1522).  ``save_checkpoint`` / ``load_checkpoint``
 delegate to ``checkpoint/saving.py`` with the reference's signatures.  On
-one GPU the ZeRO stage changes no number.
+one device outside a process world the ZeRO stage changes no number.
+
+Across the ranks of a process grid (``grid``, a ``parallel.topology.
+ProcessGrid``; ``initialize`` builds it under ``WORLD_SIZE`` or a ``mesh``)
+each rank trains on its own micro-batches (JAX :184-330, :497-503):
+
+- the loss is the global token mean: each micro-batch's loss is weighted by
+  this rank's share of the valid tokens, all-reduced before the forward
+  (``_dp_weight``; a loss without the model's token count, ZeRO++ and the
+  1-bit optimizers weigh the ranks alike, as JAX's ``shard_map`` bodies
+  do), so the sum of the ranks' weighted gradients is the gradient of
+  the global mean;
+- stage 0: the fp32 masters are whole on every rank and the gradient
+  buffer is all-reduced over ``data`` x ``fsdp`` x ``sub`` at the boundary;
+- stages 1-3 (``runtime/zero.py`` ``ZeroShard``): each rank owns a slice
+  of the flat fp32 masters, gradients and moments; the gradients
+  reduce-scatter onto it, K8 updates the slice alone, the compute
+  parameters are all-gathered back (stage 3: each layer just before its
+  use, in the forward and again in the backward).  The norm sums the
+  slices' squares once over the shard group; an fp16 overflow on any rank
+  is all-reduced so that every rank skips the same step;
+- the 1-bit optimizers (``runtime/onebit.py``) at stage 0.
+
+Refused at world > 1 with ``NotImplementedError`` (item 7): ZeRO-Offload,
+a trainable mask (LoRA), compression's weight transform, progressive layer
+drop, the eigenvalue estimator, a ``compile`` backend, and Lamb / Muon over
+the sharded slices; ``no_sync`` stays refused at stage >= 2.
 
 ``telemetry`` (JAX :176-181, :1026-1030): each ``train_batch`` is a
 ``train_batch`` span on the ``train`` track whose device reading is
@@ -130,6 +156,7 @@ import torch
 
 from ..config.config import Config, ConfigError
 from ..ops.optimizers import _leaf_views, build_optimizer, set_path
+from ..parallel.topology import BATCH_AXES
 from ..telemetry import Telemetry, device_ready
 from ..utils.memory import memory_breakdown_report, see_memory_usage
 from ..utils.timer import (BACKWARD_GLOBAL_TIMER, FORWARD_GLOBAL_TIMER, STEP_GLOBAL_TIMER,
@@ -265,12 +292,14 @@ class DeepSpeedTorchEngine:
     contract, default ``loss_fn``) is what ``eval_batch`` runs."""
 
     def __init__(self, loss_fn: Callable, params, config: Config, device: torch.device,
-                 eval_fn: Optional[Callable] = None, trainable_mask=None):
+                 eval_fn: Optional[Callable] = None, trainable_mask=None, grid=None,
+                 model=None):
         self.config = config
         self.device = device
         self.loss_fn = loss_fn
         self.eval_fn = eval_fn
-        self.model = None  # attached by initialize()
+        self.model = model  # initialize() attaches it too
+        self.grid = grid  # the process grid of a world of ranks, or None
         self.timers = SynchronizedWallClockTimer()
         self.tput_timer = ThroughputTimer(batch_size=config.train_batch_size,
                                           steps_per_output=config.steps_per_print)
@@ -284,10 +313,23 @@ class DeepSpeedTorchEngine:
             self.telemetry.register_exit_close()
         self.lr_schedule_fn = self._build_lr_schedule()
         self.lr_scheduler = LRScheduler(self.lr_schedule_fn)
-        self.optimizer = build_optimizer(config.optimizer.type, config.optimizer.params)
+        zcfg = config.zero_optimization
+        self._zero = None  # stages 1-3 across ranks: runtime/zero.py's ZeroShard
+        self._onebit = None  # the 1-bit optimizers: runtime/onebit.py's OnebitStep
+        if grid is not None:
+            self._refuse_at_world(trainable_mask)
+        from .onebit import is_onebit
+
+        if is_onebit(config.optimizer.type):
+            if grid is None:
+                raise NotImplementedError(
+                    f"optimizer {config.optimizer.type!r} compresses the data-parallel "
+                    "all-reduce: it runs in a process world (WORLD_SIZE set, or mesh=)")
+            self.optimizer = None  # the compressed step owns the update (onebit.py)
+        else:
+            self.optimizer = build_optimizer(config.optimizer.type, config.optimizer.params)
         self.compute_dtype = precision.compute_dtype(config.precision_dtype)
         self.generator = torch.Generator(device=device).manual_seed(config.seed)
-        zcfg = config.zero_optimization
         self._offload = None  # the CPU tier's HostStream
         self._nvme_opt = None  # the NVMe tier's NVMeOptimizer
         self._compute = None  # an offloaded engine's compute copy (ComputeCopy)
@@ -295,7 +337,11 @@ class DeepSpeedTorchEngine:
         if trainable_mask is not None and (zcfg.offload_nvme or zcfg.offload_cpu):
             raise NotImplementedError("a trainable mask (LoRA) with ZeRO-Offload is not "
                                       "ported yet (ROADMAP queue 1 item 9)")
-        if trainable_mask is not None:
+        if self.optimizer is None:
+            self._init_onebit(params)
+        elif grid is not None and zcfg.stage >= 1:
+            self._init_sharded(params)
+        elif trainable_mask is not None:
             self._init_masked(params, trainable_mask)
         elif zcfg.offload_nvme:
             self._init_nvme_offload(params)
@@ -317,6 +363,7 @@ class DeepSpeedTorchEngine:
         self.skipped_steps = 0
         # the forward / backward / step API's bookkeeping (JAX :365-368)
         self._pending: Optional[torch.Tensor] = None  # forward's loss, graph attached
+        self._pending_weight: Optional[torch.Tensor] = None  # its weight across ranks
         self._micro_steps = 0
         self._grads_pending = False  # backward() added to the gradient buffer
         self._inside_no_sync = False
@@ -408,6 +455,114 @@ class DeepSpeedTorchEngine:
                 else "fail_on_cache_limit_hit")
         return torch._dynamo.config.patch(**{flag: True})(
             torch.compile(fn, backend=c.backend, **c.kwargs))
+
+    # ------------------------------------------------------------------
+    # a world of ranks (runtime/zero.py, runtime/onebit.py)
+    # ------------------------------------------------------------------
+    def _refuse_at_world(self, trainable_mask) -> None:
+        """What does not train across ranks yet raises, naming item 7; none
+        of it may train as world 1 beside its peers."""
+        c = self.config
+        z = c.zero_optimization
+        refused = [name for name, on in (
+            ("ZeRO-Offload (offload_optimizer / offload_param)",
+             z.offload_cpu or z.offload_nvme),
+            ("a trainable mask (LoRA)", trainable_mask is not None),
+            ("compression_training's weight transform", c.compression_training.any_technique),
+            ("progressive_layer_drop", c.progressive_layer_drop.enabled),
+            ("eigenvalue", c.eigenvalue.enabled),
+            ("a compile backend", c.compile.compiles),
+        ) if on]
+        if z.stage >= 1 and c.optimizer.type.lower() in ("lamb", "fusedlamb", "muon"):
+            refused.append(f"optimizer {c.optimizer.type!r} over ZeRO's flat slices (its rule "
+                           "reads whole leaves)")
+        if refused:
+            raise NotImplementedError(
+                f"{'; '.join(refused)} in a process world (here of {self.grid.world_size}) "
+                "is not ported yet (ROADMAP queue 1 item 7)")
+
+    def _layers_for_zero(self) -> Optional[int]:
+        """The model's layer count when the engine's loss is the model's
+        own (its forward fetches each stage-3 layer as it reaches it)."""
+        model = self.model
+        cfg = getattr(model, "cfg", None)
+        if cfg is None or self.loss_fn != getattr(model, "loss_fn", None):
+            return None
+        if cfg.remat == "dots":
+            raise NotImplementedError("remat 'dots' with ZeRO stage 3 across ranks is not "
+                                      "ported yet (ROADMAP queue 1 item 7): its policy reads "
+                                      "the layer's weights before they are gathered")
+        return cfg.num_layers
+
+    def _init_sharded(self, params) -> None:
+        """Stages 1-3 across the grid (``runtime/zero.py``): this rank's
+        slices of the flat fp32 masters, gradients and moments."""
+        from .zero import ZeroShard
+        from .zeropp import ZeroPP
+
+        z = self.config.zero_optimization
+        layers = self._layers_for_zero() if z.stage >= 3 else None
+        quant = ZeroPP.from_config(self.config, self.grid, self.device) \
+            if z.zero_quantized_weights or z.zero_quantized_gradients else None
+        zs = ZeroShard(params, self.config, self.grid, self.device, self.compute_dtype,
+                       layers, quant=quant)
+        if quant is not None:
+            quant.attach(zs)
+        self._zero = zs
+        self._masters = None
+        self.params = zs.masters  # this rank's slice of the flat masters
+        self._params_list = [zs.masters]
+        self.opt_state = self.optimizer.init(self._params_list)
+        logger.info("ZeRO stage %d over %s: %d groups, %d of %d fp32 elements on this rank",
+                    z.stage, self.grid.spec.sizes, len(zs.groups), zs.masters.numel(),
+                    sum(g.numel for g in zs.groups))
+
+    def _init_onebit(self, params) -> None:
+        """The 1-bit family at stage 0 (``runtime/onebit.py``): whole fp32
+        masters on every rank, the flat moments and the error buffers."""
+        from . import onebit
+
+        onebit.check_supported(self.config)
+        self._masters = _flat_masters(params, self.device)
+        self.params = self._masters.params
+        self._params_list = self._masters.leaves
+        self._onebit = onebit.OnebitStep(self.config, self.grid, self._masters.flat)
+        self.opt_state = self._onebit.state
+
+    def _dp_weight(self, micro) -> Optional[torch.Tensor]:
+        """This rank's weight in the step's mean: its share of the valid
+        tokens of the global micro-batch (the count all-reduced), so the
+        ranks' weighted losses sum to the global token mean; ``1 / W`` for
+        a loss without the model's count, under ZeRO++ and the 1-bit
+        optimizers (JAX's ``shard_map`` bodies average the ranks' means).
+        None outside a world."""
+        if self.grid is None:
+            return None
+        from ..comm import comm
+
+        z = self.config.zero_optimization
+        count = getattr(self.model, "valid_tokens", None)
+        if (count is None or self.loss_fn != getattr(self.model, "loss_fn", None)
+                or self._onebit is not None
+                or z.zero_quantized_weights or z.zero_quantized_gradients):
+            return torch.full((), 1.0 / self.grid.dp_world_size, dtype=torch.float32,
+                              device=self.device)
+        n = count(micro).to(device=self.device, dtype=torch.float32).reshape(1)
+        total = comm.all_reduce(n.clone(), BATCH_AXES, mesh=self.grid)
+        return (n / total.clamp(min=1.0))[0]
+
+    def _fold(self, batch: Dict[str, Any]) -> Dict[str, Any]:
+        """The step's ``[gas, micro, ...]`` micro-batches (``_gas_fold``); in
+        a world, a batch of the global micro-batch's size gives this rank its
+        rows (the loader's order, JAX ``data/sampler.py:90-95``)."""
+        cfg = self.config
+        gas, micro, dp = (cfg.gradient_accumulation_steps, cfg.train_micro_batch_size_per_gpu,
+                          cfg.dp_world_size)
+        batch = _gas_fold(batch, gas, micro * dp)
+        if self.grid is not None and dp > 1 and next(iter(batch.values())).shape[1] == micro * dp:
+            r = self.grid.dp_rank
+            batch = {k: v[:, r * micro:(r + 1) * micro] for k, v in batch.items()}
+        return batch
 
     def _init_masked(self, params, mask) -> None:
         """Masters for the trainable leaves only (JAX :294-305, and optax's
@@ -693,6 +848,8 @@ class DeepSpeedTorchEngine:
         engine's compute copy."""
         if self._compute is not None:
             return self._compute.loss_tree
+        if self._zero is not None:
+            return self._zero.compute_tree()
         return precision.cast_floating(self.params, self.compute_dtype)
 
     def _pld_step(self) -> int:
@@ -731,25 +888,53 @@ class DeepSpeedTorchEngine:
         """Loss of micro-batch ``index``; ``(loss * scale).backward()`` adds
         its gradient, through the compute-type cast, to the masters'
         ``.grad``."""
-        loss = self._micro_loss(micro, index)
+        weight = self._dp_weight(micro)
+        hooks = self._zero.saved_hooks() if self._zero is not None else nullcontext()
+        with hooks:
+            loss = self._micro_loss(micro, index)
+        if weight is not None:
+            loss = loss * weight
         (loss * scale if scale is not None else loss).backward()
+        if self._zero is not None:
+            self._zero.end_backward()
         return loss.detach().float()
 
     def _apply_grads(self, divisor):
         cfg = self.config
         fp16 = cfg.fp16.enabled
-        grad = self._masters.grad.div_(divisor)
+        if self._onebit is not None:
+            return self._onebit.apply(self, divisor)
+        zs = self._zero
+        if zs is not None:
+            zs.reduce_boundary()
+            grad = zs.grad.div_(divisor)
+        else:
+            grad = self._masters.grad
+            if self.grid is not None:  # stage 0: the whole buffer over every rank
+                from ..comm import comm
+
+                comm.all_reduce(grad, BATCH_AXES, mesh=self.grid)
+            grad = grad.div_(divisor)
         finite = precision.grads_finite([grad]) if fp16 else None
-        grad_norm = precision.global_grad_norm([grad])
+        if finite is not None and zs is not None:
+            # each rank sees its slice: every rank skips if any overflowed
+            from ..comm import comm
+
+            flag = finite.to(torch.float32).reshape(1)
+            finite = comm.all_reduce(flag, BATCH_AXES, op="min", mesh=self.grid)[0] > 0
+        grad_norm = zs.grad_norm() if zs is not None else precision.global_grad_norm([grad])
         if cfg.gradient_clipping and cfg.gradient_clipping > 0:
             grad.mul_(precision.clip_factor(grad_norm, cfg.gradient_clipping))
         lr = self.lr_schedule_fn(self.device_step)
         if self._offload is not None:  # the CPU tier: the state streamed through the card
             self._offload.update(grad, self._masters.grads, self._compute.flat, lr, finite)
         else:
-            self.optimizer.step(self._params_list, self._masters.grads, self.opt_state, lr,
-                                finite)
+            self.optimizer.step(self._params_list,
+                                [grad] if zs is not None else self._masters.grads,
+                                self.opt_state, lr, finite)
         grad.zero_()
+        if zs is not None:
+            zs.refresh_compute()
         if fp16 and cfg.fp16.loss_scale == 0:
             self.loss_scale_state = precision.update_loss_scale(
                 self.loss_scale_state, finite, loss_scale_window=cfg.fp16.loss_scale_window,
@@ -765,10 +950,7 @@ class DeepSpeedTorchEngine:
     def _to_device(self, batch) -> Dict[str, torch.Tensor]:
         if isinstance(batch, StagedBatch):
             return batch.wait()
-        cfg = self.config
-        batch = _gas_fold(batch, cfg.gradient_accumulation_steps,
-                          cfg.train_micro_batch_size_per_gpu * cfg.dp_world_size)
-        return stage(batch, self.device).batch
+        return stage(self._fold(batch), self.device).batch
 
     def train_batch(self, batch) -> torch.Tensor:
         """One optimizer step on a global batch ``[gas, micro, ...]`` (or
@@ -793,6 +975,8 @@ class DeepSpeedTorchEngine:
 
             counting = executed_analysis(self.device)
         self.pld_masks = []
+        if self._zero is not None and self._zero.quant is not None:
+            self._zero.quant.begin_step(self.global_steps)  # LoCo's reset
         self.tput_timer.start()
         self.timers(STEP_GLOBAL_TIMER).start()
         # the dispatch wall time lands now; the device reading waits for
@@ -809,6 +993,10 @@ class DeepSpeedTorchEngine:
                 grad_norm, lr, skipped = self._nvme_apply(divisor)
             else:
                 grad_norm, lr, skipped = self._apply_grads(divisor)
+        if self.grid is not None:  # the ranks' weighted losses sum to the global mean
+            from ..comm import comm
+
+            loss_sum = comm.all_reduce(loss_sum.reshape(1), BATCH_AXES, mesh=self.grid)[0]
         loss_scale = self.loss_scale_state.scale if fp16 else torch.ones((), device=self.device)
         metrics = StepMetrics(loss_sum / gas, grad_norm, lr, loss_scale, skipped)
         tb_span.end(sync_obj=device_ready(metrics.loss) if self.telemetry.enabled else None)
@@ -923,8 +1111,12 @@ class DeepSpeedTorchEngine:
                 "offload_optimizer=nvme supports the fused train_batch() path only")
         self.timers(FORWARD_GLOBAL_TIMER).start()
         self.pld_masks = []
-        self._pending = self._micro_loss(stage(micro_batch, self.device).batch,
-                                         self._micro_steps % self.config.gradient_accumulation_steps)
+        micro = stage(micro_batch, self.device).batch
+        # across ranks: this rank's weight in the global mean, for backward
+        self._pending_weight = self._dp_weight(micro)
+        with self._zero.saved_hooks() if self._zero is not None else nullcontext():
+            self._pending = self._micro_loss(
+                micro, self._micro_steps % self.config.gradient_accumulation_steps)
         self.timers(FORWARD_GLOBAL_TIMER).stop()
         return self._pending.detach().float()
 
@@ -938,7 +1130,11 @@ class DeepSpeedTorchEngine:
         assert self._pending is not None, "backward() without a prior forward()"
         self.timers(BACKWARD_GLOBAL_TIMER).start()
         loss, self._pending = self._pending, None
+        if self._pending_weight is not None:
+            loss = loss * self._pending_weight
         (loss * self.loss_scale_state.scale if self.config.fp16.enabled else loss).backward()
+        if self._zero is not None:
+            self._zero.end_backward()
         self._micro_steps += 1
         self._grads_pending = True
         self.timers(BACKWARD_GLOBAL_TIMER).stop()
@@ -1008,10 +1204,7 @@ class DeepSpeedTorchEngine:
     def _place_batch(self, batch) -> StagedBatch:
         """Fold and stage a batch on the prefetch worker: pinned host copy,
         host-to-device copy on a side stream (CUDA)."""
-        cfg = self.config
-        batch = _gas_fold(batch, cfg.gradient_accumulation_steps,
-                          cfg.train_micro_batch_size_per_gpu * cfg.dp_world_size)
-        return stage(batch, self.device, self._h2d_stream)
+        return stage(self._fold(batch), self.device, self._h2d_stream)
 
     def train_on_loader(self, data_loader, num_steps: Optional[int] = None):
         """Generator over ``train_batch`` steps on the batches of
@@ -1166,7 +1359,51 @@ class DeepSpeedTorchEngine:
         if self._compute is not None:
             return _detached(self._compute.tree)
         with torch.no_grad():
-            return precision.cast_floating(self.params, self.compute_dtype)
+            return precision.cast_floating(self.master_tree(), self.compute_dtype)
+
+    def master_tree(self):
+        """The fp32 masters as a tree of whole leaves: ``params`` itself, or
+        across ZeRO's slices every rank's gathered (a collective: every rank
+        calls it)."""
+        zs = self._zero
+        if zs is None:
+            return self.params
+        return zs.unflatten(zs.gather_flat(zs.masters), zs.plan.shape_tree)
+
+    def logical_opt_state(self):
+        """The optimizer's state with its moment slices gathered into trees
+        of whole leaves under the parameters' paths (a collective)."""
+        zs = self._zero
+
+        def walk(node):
+            if torch.is_tensor(node):
+                return node
+            if isinstance(node, dict):
+                return {k: walk(v) for k, v in node.items()}
+            (buf,) = node
+            return zs.unflatten(zs.gather_flat(buf), zs.plan.shape_tree)
+
+        return walk(self.opt_state)
+
+    def load_logical_state(self, params, opt_state=None) -> None:
+        """This rank's slices of whole-leaf trees (a checkpoint's masters and
+        moments, saved at any world size)."""
+        zs = self._zero
+        zs.scatter_flat(params, zs.masters)
+
+        def walk(node, logical):
+            if torch.is_tensor(node):
+                node.copy_(logical)
+            elif isinstance(node, dict):
+                for k, v in node.items():
+                    walk(v, logical[k])
+            else:
+                zs.scatter_flat(logical, node[0])
+
+        if opt_state is not None:
+            with torch.no_grad():
+                walk(self.opt_state, opt_state)
+        zs.refresh_compute()
 
     def memory_breakdown(self) -> Dict[str, Any]:
         """Bytes of the fp32 masters and the optimizer state, and a device /

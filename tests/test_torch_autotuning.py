@@ -259,21 +259,23 @@ def test_serve_search_raises_kernel_faults_and_records_out_of_memory(fault, monk
 
 
 def test_train_search_records_refusals_and_winner_roundtrips():
-    """``autotune_model`` on ``tiny``: a ZeRO++ row and a mesh row are
-    refused by the port (their verdicts carry the text), the search goes
-    on, and the winner config round-trips ``parse_config``."""
+    """``autotune_model`` on ``tiny``: a mesh row of 2 ranks is pruned on
+    one device (its verdict carries the text), the search goes on, the
+    ZeRO++ rows and the one-rank mesh rows measure (they were refused
+    until the distributed layers; they run as on JAX's one-device mesh),
+    and the winner config round-trips ``parse_config``."""
     cfg, trials = autotune_model(
         "tiny", seq_len=32, base_config={"optimizer": {"type": "adamw", "params": {"lr": 1e-3}},
                                          "bf16": {"enabled": False}},
         micro_batches=(1, 2), remat_policies=("none",), zero_stages=(1, 3),
-        zero_quant=(False, True), mesh_candidates=({}, {"fsdp": 1}), steps=1, top_k=16,
-        device="cpu")
+        zero_quant=(False, True), mesh_candidates=({}, {"fsdp": 1}, {"fsdp": 2}), steps=1,
+        top_k=24, device="cpu")
     assert cfg is not None
-    zq = [t.verdict for t in trials if t.candidate["zero_quant"] and not t.candidate["mesh"]]
-    mesh = [t.verdict for t in trials if t.candidate["mesh"]]
-    assert zq and all(v.startswith("error:NotImplementedError") and "zero_optimization" in v
-                      for v in zq)
-    assert mesh and all("a device mesh is not ported yet" in v for v in mesh)
+    zq = [t for t in trials if t.candidate["zero_quant"] and not t.candidate["mesh"]]
+    one = [t for t in trials if t.candidate["mesh"] == {"fsdp": 1}]
+    two = [t.verdict for t in trials if t.candidate["mesh"] == {"fsdp": 2}]
+    assert zq and one and all(t.measured for t in zq + one)
+    assert two and all(v.startswith("pruned:structural: mesh extent 2") for v in two)
     assert any(t.measured for t in trials)
     assert parse_config(cfg).train_micro_batch_size_per_gpu == \
         cfg["train_micro_batch_size_per_gpu"]

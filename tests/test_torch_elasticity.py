@@ -213,9 +213,10 @@ WORKER = textwrap.dedent("""
     import torch
     import deepspeed_tpu_torch as tds
 
-    # initialize refuses WORLD_SIZE > 1 (training across processes is item
-    # 7): rank 0 trains as the port's one-device job, its peers stand in
-    os.environ["WORLD_SIZE"] = "1"
+    # rank 0 trains as a one-device job (out of the world); its peers stand
+    # in for the ranks the agent supervises
+    for k in ("WORLD_SIZE", "RANK"):
+        os.environ.pop(k)
 
     def loss_fn(p, batch, rng):
         h = torch.tanh(batch["x"] @ p["w1"])
@@ -268,31 +269,45 @@ def test_agent_resumes_at_a_smaller_world_with_steps_continuing(tmp_path):
 
 
 ELASTIC_WORKER = textwrap.dedent("""
-    import os, sys, pathlib
+    import json, os, sys, pathlib, torch
     import deepspeed_tpu_torch as tds
+    torch.set_num_threads(1)
     rank = os.environ["RANK"]
-    try:
-        tds.initialize(loss_fn=lambda p, b, r: (p["w"] ** 2).sum(), device="cpu",
-                       params={"w": __import__("torch").ones(4)},
-                       config={"elasticity": %r, "bf16": {"enabled": False}})
-    except NotImplementedError as e:
-        pathlib.Path(sys.argv[1], "refused" + rank).write_text(str(e))
-        sys.exit(3)
+    engine, *_ = tds.initialize(
+        loss_fn=lambda p, b, r: ((b["x"] @ p["w"] - b["y"]) ** 2).mean(), device="cpu",
+        params={"w": torch.ones(4, 2)},
+        config={"elasticity": %r, "bf16": {"enabled": False}, "steps_per_print": 1000,
+                "zero_optimization": {"stage": 1},
+                "optimizer": {"type": "adamw", "params": {"lr": 0.05}}})
+    c = engine.config
+    g = torch.Generator().manual_seed(1)
+    n = c.train_batch_size  # the elastic batch, the world's together
+    x, y = torch.randn(n, 4, generator=g), torch.randn(n, 2, generator=g)
+    losses = [float(engine.train_batch({"x": x, "y": y})) for _ in range(3)]
+    pathlib.Path(sys.argv[1], "rank" + rank).write_text(json.dumps(dict(
+        world=engine.dp_world_size, batch=n, micro=c.train_micro_batch_size_per_gpu,
+        gas=c.gradient_accumulation_steps, losses=losses,
+        w=engine.master_tree()["w"].tolist())))
 """ % (GRID[2],))
 
 
 def test_agent_workers_with_an_elastic_section_are_refused_on_every_rank(tmp_path):
-    """Every rank of a world of 2 calls ``initialize`` with the elastic
-    config: each is refused (``NotImplementedError`` naming item 7), never
-    given the world-1 batch to train alone."""
+    """The agent's 2 workers form one world (gloo on the CPU) and train one
+    model on the elastic batch of world 2, each its half: every rank adopts
+    JAX's elastic batch, micro-batch and GAS for world 2 and reports the
+    same global losses and parameters.  (Until the distributed layers,
+    ``initialize`` refused each rank; the name is kept.)"""
     script = tmp_path / "worker.py"
     script.write_text(ELASTIC_WORKER)
     agent = T.ElasticAgent(AGENT_CFG, [sys.executable, str(script), str(tmp_path)],
                            max_restarts=0, heartbeat_interval=0.1,
                            env={"PYTHONPATH": REPO, "OMP_NUM_THREADS": "1"})
     assert agent.compute_world(2) == 2
-    with pytest.raises(T.ElasticityError, match="max_restarts"):
-        agent.run(capacity=2)
-    for rank in (0, 1):
-        msg = (tmp_path / f"refused{rank}").read_text()
-        assert "WORLD_SIZE=2" in msg and "item 7" in msg, msg
+    assert agent.run(capacity=2) == 0
+    runs = [json.loads((tmp_path / f"rank{r}").read_text()) for r in (0, 1)]
+    batch, _, micro = J.compute_elastic_config(AGENT_CFG, world_size=2, return_microbatch=True)
+    for run in runs:
+        assert (run["world"], run["batch"], run["micro"]) == (2, batch, micro)
+        assert run["gas"] == batch // (micro * 2)
+    assert runs[0]["losses"] == runs[1]["losses"] and runs[0]["w"] == runs[1]["w"]
+    assert runs[0]["losses"][-1] < runs[0]["losses"][0]

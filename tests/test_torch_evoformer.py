@@ -107,5 +107,7 @@ def test_embedding_lookup_values_and_gradient_equal_jax(ids_shape):
 
 
 def test_embedding_lookup_refuses_a_data_parallel_axis():
-    with pytest.raises(NotImplementedError, match="item 7"):
+    """Outside a process grid there is no group to gather over: an axis
+    raises (inside one it runs, ``tests/test_torch_comm.py``)."""
+    with pytest.raises(RuntimeError, match="process grid"):
         embedding_lookup(torch.zeros(4, 2), torch.zeros(3, dtype=torch.long), axis_name="data")

@@ -50,7 +50,11 @@ kernels as ``torch.library`` ops: each op on CUDA against its plain
 version with one launch a kernel; a compiled step (inductor) launching
 what its eager twin launches, dense and block-sparse; a quantized hybrid
 refreshed under a burst graph captured before training, token-identical
-to a fresh quantized engine.  This
+to a fresh quantized engine.  ZeRO across processes: ``chip_smoke``'s
+zero_train at 2 layers, one rank through the launcher over NCCL, its
+collectives and launches at the plan's counts, stages 1-3 at stage 0's
+losses, ZeRO++ and 1-bit Adam at the CPU's, two planted faults outside
+that gate.  This
 file imports neither JAX nor the JAX package, so it
 runs where only PyTorch is installed::
 
@@ -1638,3 +1642,32 @@ def test_quantized_hybrid_refresh_with_a_captured_burst_on_the_card():
     finally:
         chip_smoke.COMPILE_PRESET, chip_smoke.HYBRID_QUANT, chip_smoke.emit = old
     assert all(f["tokens_equal_fresh"] and f["burst_graphs_kept"] for f in res["formats"].values())
+
+
+@pytest.mark.gpu
+def test_zero_train_through_the_launcher_over_nccl_on_the_card(tmp_path):
+    """``chip_smoke``'s zero_train at 2 layers of the flagship's width: one
+    rank through ``launcher/runner.py --num_gpus 1`` trains stages 0-3,
+    ZeRO++ and 1-bit Adam over NCCL at world 1, and a gloo rank the
+    ZeRO++ and 1-bit runs on the CPU; ``zero_train_run`` raises unless the
+    collectives are the plan's, the launches the closed form, stages 1-3
+    at stage 0's losses, the card at the CPU's and each planted fault
+    outside that gate."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    K.build(["flash_fwd", "flash_bwd_dq", "fused_adamw", "quantize_int8"])  # the rank loads them
+    cpu_out, card_out = str(tmp_path / "cpu.json"), str(tmp_path / "card.json")
+    cpu = chip_smoke.zero_worker("cpu", chip_smoke.ZERO_CPU_CASES, cpu_out, layers=2)
+    card = chip_smoke.zero_worker("cuda", chip_smoke.ZERO_CASES, card_out, layers=2)
+    try:
+        runs, refs, gaps = chip_smoke.zero_train_run(torch, K, card, card_out, cpu, cpu_out,
+                                                     2)
+    finally:
+        for p in (cpu, card):
+            if p.poll() is None:
+                p.terminate()
+    assert set(runs) == set(chip_smoke.ZERO_CASES) and set(refs) == set(chip_smoke.ZERO_CPU_CASES)
+    assert runs["zeropp"]["launches"]["quantize_int8"] > 0
+    print("zero_train twin", {c: r["losses"] for c, r in runs.items()},
+          {c: r["losses"] for c, r in refs.items()}, gaps,
+          {c: r["seconds"] for c, r in runs.items()})

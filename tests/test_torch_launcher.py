@@ -167,7 +167,8 @@ def test_parse_args_and_a_single_host_run(tmp_path):
                        "--lr", "1"])
     j = JR.parse_args(["--hostfile", "h", "--include", "x", "--launcher", "slurm", "t.py",
                        "--lr", "1"])
-    assert vars(a) == dict(vars(j), coordinator_port=29500)
+    # the port's --num_gpus (one process a local device) is not JAX's
+    assert vars(a) == dict(vars(j), coordinator_port=29500, num_gpus=None)
     script = tmp_path / "s.py"
     script.write_text("import sys; sys.exit(int(sys.argv[1]))\n")
     assert TR.main([str(script), "3"]) == 3  # no hostfile: the script, locally

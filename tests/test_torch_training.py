@@ -682,12 +682,12 @@ def test_parse_config_batch_triangulation_matches_jax():
 
 
 @pytest.mark.parametrize("raw,key", [
-    # offload_optimizer runs since slice 18 (tests/test_torch_offload.py);
-    # the case holds the ZeRO++ gradient key beside ZeRO-3 it rode with
-    pytest.param({"zero_optimization": {"stage": 3, "zero_quantized_gradients": True}},
-                 "zero_optimization.zero_quantized_gradients",
-                 id="zero3-quantized-gradients-item-7"),
-    ({"zero_optimization": {"zero_quantized_weights": True}}, "zero_quantized_weights"),
+    # offload_optimizer runs since slice 18 (tests/test_torch_offload.py),
+    # the ZeRO++ keys since slice 22 (test_keys_on_that_run_parse_as_jax);
+    # what stays refused is the tensor-parallel section and the mesh axes
+    # beyond data / fsdp / sub
+    ({"tensor_parallel": {"enabled": True, "tp_size": 2}}, "tensor_parallel"),
+    ({"mesh": {"fsdp": 2, "stage": 2}}, "mesh"),
     # progressive_layer_drop and curriculum_learning run since slice 19
     # (tests/test_torch_pld.py, test_torch_curriculum.py), compression_training,
     # hybrid_engine and eigenvalue now
@@ -700,8 +700,11 @@ def test_unported_config_keys_are_refused(raw, key):
 
 
 def _section(cfg, name):
-    """A parsed section as a dict (JAX's ``elasticity`` is one already)."""
-    value = getattr(cfg, name)
+    """A parsed section as a dict (JAX's ``elasticity`` is one already), or
+    a dotted key's value."""
+    value = cfg
+    for part in name.split("."):
+        value = getattr(value, part)
     return dataclasses.asdict(value) if dataclasses.is_dataclass(value) else value
 
 
@@ -745,16 +748,10 @@ ON_CONFIGS = [
     # stays refused with it
     ({"moe": {"enabled": True}, "mesh": {"expert": 2}}, "mesh", 7),
     ({"tensor_parallel": {"enabled": True, "tp_size": 2}}, "tensor_parallel", 7),
-    ({"comms_logger": {"enabled": True}}, "comms_logger", 7),
-    # elasticity and compile run since slice 21 (ON_NOW_CONFIGS)
-    # aio and offload_param parse since slice 18 (tests/test_torch_offload.py);
-    # these two cases hold ZeRO++ keys the port still refuses
-    pytest.param({"zero_optimization": {"mics_shard_size": 2}},
-                 "zero_optimization.mics_shard_size", 7, id="mics-shard-size-item-7"),
-    pytest.param({"zero_optimization": {"zeropp_loco_param": {"err_beta": 0.8}}},
-                 "zero_optimization.zeropp_loco_param", 7, id="zeropp-loco-param-item-7"),
-    ({"zero_optimization": {"zero_hpz_partition_size": 2}},
-     "zero_optimization.zero_hpz_partition_size", 7),
+    # elasticity and compile run since slice 21, the comms logger and the
+    # ZeRO++ keys since slice 22 (ON_NOW_CONFIGS); aio and offload_param
+    # parse since slice 18 (tests/test_torch_offload.py)
+    ({"mesh": {"data": 2, "seq": 2}}, "mesh", 7),
 ]
 
 
@@ -790,6 +787,18 @@ ON_NOW_CONFIGS = [
     ({"elasticity": {"enabled": True}}, "elasticity"),
     ({"compile": {"backend": "inductor"}}, "compile"),
     ({"compile": {"disable": True}}, "compile"),
+    ({"comms_logger": {"enabled": True}}, "comms_logger"),
+    ({"mesh": {"data": 2, "fsdp": 2}}, "mesh"),
+    ({"zero_optimization": {"mics_shard_size": 2}}, "zero_optimization.mics_shard_size"),
+    ({"zero_optimization": {"zeropp_loco_param": {"err_beta": 0.8}}},
+     "zero_optimization.zeropp_loco_param"),
+    ({"zero_optimization": {"zero_hpz_partition_size": 2}},
+     "zero_optimization.zero_hpz_partition_size"),
+    ({"zero_optimization": {"stage": 3, "zero_quantized_weights": True,
+                            "zero_quantized_gradients": True}},
+     "zero_optimization.zero_quantized_gradients"),
+    ({"zero_optimization": {"zero_quantized_weights": True}},
+     "zero_optimization.zero_quantized_weights"),
 ]
 
 
@@ -841,7 +850,8 @@ def test_entry_points_need_cuda_or_an_explicit_device(monkeypatch):
 
 
 def test_initialize_refuses_unported_arguments(tmp_path):
-    """``mesh`` stays refused (item 7); ``training_data`` and a Hugging Face
+    """A ``mesh`` that is not a process grid stays refused (item 7; the
+    grid trains, ``test_torch_zero.py``); ``training_data`` and a Hugging Face
     directory now work (``test_torch_dataloader.py`` and
     ``test_torch_hf_import.py`` hold them against JAX)."""
     from deepspeed_tpu_torch.checkpoint.hf_import import export_hf_checkpoint

@@ -1,0 +1,364 @@
+"""A world of gloo ranks on the CPU for the port's multi-rank tests.
+
+``spawn(world, cases, tmp_path)`` starts ``world`` processes
+(``torch.multiprocessing``, a ``file://`` rendezvous under ``tmp_path``, so
+concurrent test workers never collide), each of which runs every case in
+order and writes what it measured; the parent reads rank 0's results (and
+every rank's where a case asks).  This module imports torch and the port
+only: a spawned child re-imports it, and no child imports JAX.
+
+A case is a dict: ``name``, ``kind`` (a function of this module named
+``case_<kind>``) and its arguments (plain data; weights and batches are
+``.npz`` files the parent wrote).
+"""
+from __future__ import annotations
+
+import os
+import pickle
+
+import numpy as np
+import torch
+
+
+def save_tree(path, tree) -> None:
+    """A nested dict of arrays as one ``.npz`` keyed by ``a/b/c``."""
+    flat = {}
+
+    def walk(node, prefix):
+        for k, v in node.items():
+            if isinstance(v, dict):
+                walk(v, prefix + k + "/")
+            else:
+                flat[prefix + k] = np.asarray(v)
+
+    walk(tree, "")
+    np.savez(path, **flat)
+
+
+def load_tree(path):
+    tree = {}
+    with np.load(path) as z:
+        for key in z.files:
+            node = tree
+            parts = key.split("/")
+            for p in parts[:-1]:
+                node = node.setdefault(p, {})
+            node[parts[-1]] = z[key]
+    return tree
+
+
+def _flat(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, prefix + k + "/"))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def _run(rank: int, world: int, rdv: str, spec_path: str, out_dir: str) -> None:
+    torch.set_num_threads(1)
+    os.environ.update(WORLD_SIZE=str(world), RANK=str(rank), LOCAL_RANK=str(rank))
+    from deepspeed_tpu_torch.comm import comm
+
+    comm.init_distributed(init_method=f"file://{rdv}", device="cpu")
+    with open(spec_path, "rb") as fh:
+        cases = pickle.load(fh)
+    results = {}
+    for case in cases:
+        results[case["name"]] = globals()["case_" + case["kind"]](rank, world, out_dir, **{
+            k: v for k, v in case.items() if k not in ("name", "kind")})
+    with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as fh:
+        pickle.dump(results, fh)
+    comm.destroy()
+
+
+def spawn(world: int, cases, tmp_path):
+    """Run ``cases`` on a world of ``world`` gloo ranks; returns
+    ``[results of rank r]``, each ``{case name: what the case returned}``."""
+    import torch.multiprocessing as mp
+
+    out_dir = str(tmp_path)
+    spec = os.path.join(out_dir, "cases.pkl")
+    with open(spec, "wb") as fh:
+        pickle.dump(cases, fh)
+    mp.spawn(_run, args=(world, os.path.join(out_dir, "rdv"), spec, out_dir), nprocs=world)
+    out = []
+    for r in range(world):
+        with open(os.path.join(out_dir, f"rank{r}.pkl"), "rb") as fh:
+            out.append(pickle.load(fh))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# cases
+# ---------------------------------------------------------------------------
+def _model(preset, dtype="float32", **over):
+    from deepspeed_tpu_torch.models import transformer as tt
+    from deepspeed_tpu_torch.models.presets import get_preset
+
+    return tt.CausalLM(get_preset(preset, dtype=getattr(torch, dtype), **over))
+
+
+def _engine(config, params_npz, preset="tiny", remat="selective", attn_impl="flash"):
+    import deepspeed_tpu_torch as tds
+    from deepspeed_tpu_torch.models import transformer as tt
+
+    model = _model(preset, remat=remat, attn_impl=attn_impl)
+    params = tt.params_from_numpy(load_tree(params_npz), model.cfg, device="cpu")
+    engine, *_ = tds.initialize(model=model, params=params, config=config, device="cpu")
+    return engine
+
+
+def _batches(npz):
+    with np.load(npz) as z:
+        n = len({k.split("/")[0] for k in z.files})
+        return [{k.split("/")[1]: torch.from_numpy(z[k]) for k in z.files
+                 if k.split("/")[0] == str(i)} for i in range(n)]
+
+
+def case_train(rank, world, out_dir, config, params, batches, preset="tiny",
+               remat="selective", save_params=True, ckpt=None, ckpt_after=None):
+    """Train on every batch; losses, norms, the comms logger's counts beside
+    the plan's prediction, resident parameter bytes, the final masters
+    (whole leaves) and, with ``ckpt``, a checkpoint after ``ckpt_after``
+    steps."""
+    from deepspeed_tpu_torch.comm import comm
+    from deepspeed_tpu_torch.runtime.zero import predicted_comm_counts
+
+    engine = _engine(config, params, preset=preset, remat=remat)
+    logger = comm.get_comms_logger(engine.grid)
+    if logger is not None:
+        logger.reset()
+    steps = _batches(batches)
+    predicted = predicted_comm_counts(engine, len(steps))
+    losses, norms = [], []
+    for i, b in enumerate(steps):
+        losses.append(float(engine.train_batch(b)))
+        norms.append(engine.get_global_grad_norm())
+        if ckpt is not None and i + 1 == ckpt_after:
+            engine.save_checkpoint(ckpt)
+            if logger is not None:  # the save's gathers are not the steps'
+                predicted = {k: predicted.get(k, 0) + v for k, v in logger.counts().items()}
+    out = {"losses": losses, "norms": norms, "counts": logger.counts() if logger else {},
+           "predicted": predicted, "skipped": engine.skipped_steps,
+           "loss_scale": engine.loss_scale, "dp": engine.dp_world_size}
+    zs = engine._zero
+    if zs is not None:
+        out["resident"] = zs.resident_param_bytes()
+        out["live_gathered"] = len(zs._gathered_layers)
+        out["plan"] = {k: tuple(v) for k, v in _flat(zs.plan.param_specs).items()}
+        out["master_plan"] = {k: tuple(v) for k, v in _flat(zs.plan.master_specs).items()}
+    if engine._onebit is not None:
+        out["errors"] = {k: engine._onebit.state[k].numpy().copy()
+                         for k in ("worker_error", "server_error")}
+        # the momentum's norm in float64: what the last step's norm reports
+        out["m_norm"] = float(torch.linalg.vector_norm(engine._onebit.state["m"].double()))
+    tree = engine.master_tree()
+    if save_params and rank == 0:
+        out["params"] = {k: v.detach().numpy().copy() for k, v in _flat(tree).items()}
+    return out
+
+
+def case_fn(rank, world, out_dir, fn, **kw):
+    """A function of this module over the world: ``fn_<fn>(rank, world,
+    **kw)``."""
+    return globals()["fn_" + fn](rank, world, **kw)
+
+
+def fn_overflow(rank, world, stage):
+    """fp16 on a loss whose gradient only rank 1 makes infinite: every rank
+    skips the step, keeps its parameters and halves the scale alike."""
+    import deepspeed_tpu_torch as tds
+
+    w0 = torch.linspace(-1.0, 1.0, 8)
+
+    def loss_fn(p, batch, rng):
+        return (p["w"].float() * batch["x"]).sum()
+
+    config = {"train_micro_batch_size_per_gpu": 1, "fp16": {"enabled": True, "hysteresis": 1},
+              "bf16": {"enabled": False}, "steps_per_print": 1000,
+              "zero_optimization": {"stage": stage, "param_persistence_threshold": 0},
+              "optimizer": {"type": "adamw", "params": {"lr": 0.1}}}
+    engine, *_ = tds.initialize(loss_fn=loss_fn, params={"w": w0.clone()}, config=config,
+                                device="cpu")
+    x = torch.ones(1, 8)
+    if rank == 1:
+        x[0, 0] = float("inf")
+    scale0 = engine.loss_scale
+    engine.train_batch({"x": x[None]})
+    engine.get_last_loss()  # settles the step's metrics (its skip count)
+    bad = (engine.skipped_steps, engine.loss_scale / scale0,
+           torch.equal(engine.master_tree()["w"], w0))
+    engine.train_batch({"x": torch.ones(1, 1, 8)})
+    engine.get_last_loss()
+    return {"first": bad, "then_skipped": engine.skipped_steps,
+            "then_moved": not torch.equal(engine.master_tree()["w"], w0)}
+
+
+def _grid(axes):
+    from deepspeed_tpu_torch.parallel.sharding import set_current_mesh
+    from deepspeed_tpu_torch.parallel.topology import initialize_mesh
+
+    grid = initialize_mesh(device="cpu", **axes)
+    set_current_mesh(grid)
+    return grid
+
+
+def fn_primitives(rank, world):
+    """Every collective of ``comm/comm.py`` on ``x = arange(8) + 100 *
+    rank``, and the comms logger's record of them."""
+    from deepspeed_tpu_torch.comm import comm
+
+    _grid({"data": world})
+    comm.configure(type("C", (), {"enabled": True})())
+    x = torch.arange(8, dtype=torch.float32) + 100 * rank
+    out = {
+        "sum": comm.all_reduce(x.clone(), "data"),
+        "mean": comm.all_reduce(x.clone(), "data", op="mean"),
+        "max": comm.all_reduce(x.clone(), "data", op="max"),
+        "min": comm.all_reduce(x.clone(), "data", op="min"),
+        "rs": comm.reduce_scatter(x.clone(), "data"),
+        "rs1": comm.reduce_scatter(x.reshape(2, 4).clone(), "data", scatter_dimension=1),
+        "ag": comm.all_gather(x[:3], "data"),
+        "ag_stack": comm.all_gather(x[:3], "data", tiled=False),
+        "ag1": comm.all_gather(x.reshape(2, 4), "data", axis=1),
+        "a2a": comm.all_to_all(x.clone(), "data"),
+        "a2a_t": comm.all_to_all(x.reshape(2, 4).clone(), "data", split_axis=0, concat_axis=1),
+        "bcast": comm.broadcast(x.clone(), "data", src=1),
+        "next": comm.send_recv_next(x[:2], "data"),
+        "prev": comm.send_recv_prev(x[:2], "data"),
+        "axis_rank": comm.axis_rank("data"),
+        "ranks": (comm.get_rank(), comm.get_world_size(), comm.get_local_rank()),
+    }
+    comm.barrier("data")
+    out["logged"] = {k: (r.count, r.bytes) for k, r in comm.get_comms_logger().ops.items()}
+    comm.configure(None)
+    return {k: (v.numpy().copy() if torch.is_tensor(v) else v) for k, v in out.items()}
+
+
+def fn_qcomm(rank, world, inputs):
+    """The quantized collectives of ``comm/qcomm.py`` on this rank's rows
+    of ``inputs`` (an ``.npz``), as ``test_torch_comm.py``'s JAX side runs
+    them under ``shard_map``."""
+    from deepspeed_tpu_torch.comm import compressed, qcomm
+    from deepspeed_tpu_torch.ops.sparse_grads import embedding_lookup
+
+    _grid({"data": world})
+    with np.load(inputs) as z:
+        x = {k: torch.from_numpy(z[k][rank]) for k in z.files}
+    out = {}
+    for fmt in ("int8", "fp8", "none"):
+        out[f"ag_{fmt}"] = qcomm.q_all_gather(x["a"], "data", fmt, tiled=True)
+        out[f"rs_{fmt}"], out[f"rs_err_{fmt}"] = qcomm.q_reduce_scatter(
+            x["b"], "data", fmt, mean=True, error=x["e"])
+        out[f"ar_{fmt}"] = qcomm.q_all_reduce(x["b"], "data", fmt)
+        out[f"a2a_{fmt}"] = qcomm.q_all_to_all(x["b"], "data", fmt)
+    out["psum_tiled"] = qcomm.q_psum_tiled(x["b"].reshape(4, -1), "data", "int8", tiles=3)
+    out["ring"] = qcomm.ring_permute(x["a"], "data")
+    # the straight-through backward of the quantized all-to-all
+    xb = x["b"].clone().requires_grad_(True)
+    (qcomm.q_all_to_all(xb, "data", "int8") * x["a2a_w"]).sum().backward()
+    out["a2a_grad"] = xb.grad
+    mean, werr, serr = compressed.compressed_allreduce(
+        x["m"], x["we"], x["se"], "data")
+    out.update(c_mean=mean, c_werr=werr, c_serr=serr)
+    table = x["table"].clone().requires_grad_(True)
+    (embedding_lookup(table, x["ids"], axis_name="data") * x["g"]).sum().backward()
+    out["sparse_grad"] = table.grad
+    return {k: v.detach().float().numpy().copy() for k, v in out.items()}
+
+
+def fn_refusals(rank, world):
+    """What does not train across ranks yet: each ``initialize`` raises
+    ``NotImplementedError`` naming item 7 on every rank."""
+    import deepspeed_tpu_torch as tds
+    from deepspeed_tpu_torch.linear.lora import LoRACausalLM
+
+    model = _model("tiny")
+    base = {"train_micro_batch_size_per_gpu": 1, "bf16": {"enabled": False}}
+    cases = {
+        "offload": dict(base, zero_optimization={"stage": 2, "offload_optimizer": "cpu"}),
+        "compression": dict(base, compression_training={"weight_quantization": {
+            "shared_parameters": {"enabled": True},
+            "different_groups": {"g": {"params": {"start_bits": 8, "target_bits": 8},
+                                       "modules": ["attn"]}}}}),
+        "pld": dict(base, progressive_layer_drop={"enabled": True}),
+        "eigenvalue": dict(base, eigenvalue={"enabled": True}),
+        "compile": dict(base, compile={"backend": "aot_eager"}),
+        "lamb": dict(base, zero_optimization={"stage": 1}, optimizer={"type": "lamb"}),
+        "hybrid": dict(base, hybrid_engine={"enabled": True}),
+    }
+    out = {}
+    for name, cfg in cases.items():
+        try:
+            tds.initialize(model=model, config=cfg, device="cpu")
+            out[name] = "trained"
+        except NotImplementedError as e:
+            out[name] = str(e)
+    try:
+        lora = LoRACausalLM(model)
+        tds.initialize(model=lora, config=base, device="cpu")
+        out["lora"] = "trained"
+    except NotImplementedError as e:
+        out["lora"] = str(e)
+    return out
+
+
+def fn_loader(rank, world):
+    """``initialize(training_data=...)`` in a world: the loader draws this
+    rank's rows of each global batch (``[gas, micro]``)."""
+    import deepspeed_tpu_torch as tds
+
+    rows = [{"input_ids": np.full(9, i, np.int64)} for i in range(32)]
+    engine, _, loader, _ = tds.initialize(
+        model=_model("tiny"), training_data=rows, device="cpu",
+        config={"train_micro_batch_size_per_gpu": 2, "gradient_accumulation_steps": 2,
+                "bf16": {"enabled": False}, "seed": 5})
+    batch = next(iter(loader))
+    loss = float(engine.train_batch(batch))
+    return {"ids": batch["input_ids"][..., 0].numpy().copy(), "len": len(loader),
+            "loss": loss, "state": loader.state_dict()}
+
+
+def fn_deferred(rank, world, stage):
+    """``initialize(model=...)`` without ``params`` in a world at
+    ``stage``: each rank draws the leaves one at a time and keeps its
+    slices of each, which equal the slices of the tree drawn whole; the
+    parameters ``zero.Init.materialize`` returns build the same engine."""
+    import deepspeed_tpu_torch as tds
+    from deepspeed_tpu_torch.runtime import zero
+
+    model = _model("tiny")
+    conf = {"train_micro_batch_size_per_gpu": 1, "bf16": {"enabled": False}, "seed": 4,
+            "steps_per_print": 1000,
+            "zero_optimization": {"stage": stage, "param_persistence_threshold": 0}}
+    largest = []  # the leaves a rank held whole as they were drawn
+    init_params = model.init_params
+
+    def watched(seed=0, device=None, keep=None):
+        def kept(path, w):
+            largest.append(w.numel())
+            return keep(path, w)
+
+        return init_params(seed=seed, device=device, keep=kept if keep else None)
+
+    model.init_params = watched
+    deferred, *_ = tds.initialize(model=model, config=conf, device="cpu")
+    model.init_params = init_params
+    whole, *_ = tds.initialize(model=model, params=init_params(seed=4, device="cpu"),
+                               config=conf, device="cpu")
+    with zero.Init(conf, deferred.grid) as zi:
+        params = zi.materialize(model.init_params, seed=4)
+    built, *_ = tds.initialize(model=model, params=params, config=conf, device="cpu")
+    zs = deferred._zero
+    return {"deferred": isinstance(params, zero.DeferredParams),
+            "shapes_meta": all(v.is_meta for v in _flat(params.shapes).values()),
+            "equal_whole": torch.equal(zs.masters, whole._zero.masters),
+            "equal_init": torch.equal(built._zero.masters, whole._zero.masters),
+            "compute_equal": all(torch.equal(zs.compute[k], whole._zero.compute[k])
+                                 for k in zs.compute),
+            "largest_leaf": max(largest), "drawn": sum(largest),
+            "total": sum(g.numel for g in zs.groups), "slice": zs.masters.numel()}
+
