@@ -373,6 +373,9 @@ Phases, each raising on failure (so the exit code is non-zero):
                redesigns (``K1_EARLIER_MS``, ``K7_EARLIER_MS``, from
                PERF.md) as ``earlier_ms``.
 
+The later slices' phases (compile_train, hybrid_quant, zero_train,
+tp_train, tp_serve, ...) are described beside their constants.
+
 Prints one JSON line per phase, the ``kernels`` JSON line, the card's name
 and power limit, and last ``{"ok": true, "device": {...}}``.  Exits non-zero
 with no result when there is no CUDA device or the package is missing.
@@ -2318,7 +2321,7 @@ REMOTE_KILL_TICK = 6  # router tick of remote_chaos's real SIGKILL (bench.py:616
 REMOTE_REPLAYS = 4  # replayed streams held near-argmax against the CPU
 # alternating in-process / remote rounds of compare_routers (2 for the
 # smoke's time limit: each round serves the workload on both routers)
-COMPARE_ROUNDS = 2
+COMPARE_ROUNDS = 1
 REMOTE_KERNELS = ("flash_fwd", "paged_decode", "paged_decode_hd64", "ctx_attention")
 
 
@@ -4835,10 +4838,11 @@ REMAT_POLICIES = ("none", "full", "selective", "dots", "offload")
 # policies that recompute the attention (full: the layer; dots: all but its
 # products) run K1f again in the backward
 REMAT_FWD_PER_LAYER = {"none": 1, "full": 2, "selective": 1, "dots": 2, "offload": 1}
-# the flagship's first 12 of 24 layers under each policy: the peak order
+# the flagship's first 8 of 24 layers under each policy: the peak order
 # and the launch counts hold at any depth, the train phase runs all 24, and
-# the compile phases took the seconds (the whole smoke's time limit)
-REMAT_LAYERS = 12
+# the compile and tensor-parallel phases took the seconds (the whole
+# smoke's time limit)
+REMAT_LAYERS = 8
 
 
 def remat_run(torch, K, remat, micro, steps=2):
@@ -9032,16 +9036,33 @@ batches = [{"input_ids": torch.randint(0, cfg.vocab_size, (spec["gas"], spec["mi
 
 def config(case):
     case = case.removesuffix("_planted")
+    tp = case.startswith("tp_")  # the tensor-parallel path over a model axis of 1
+    case = case.removeprefix("tp_")
     zero = {"stage": int(case[-1]) if case.startswith("stage") else 3 if case == "zeropp" else 0}
     opt = {"type": "adamw", "params": {"lr": spec["lr"], "weight_decay": 0.01}}
     if case == "zeropp":
         zero.update(zero_quantized_weights=True, zero_quantized_gradients=True)
     if case == "onebit":
         opt = {"type": "onebitadam", "params": {"lr": spec["lr"], "freeze_step": spec["steps"] - 1}}
-    return {"train_micro_batch_size_per_gpu": spec["micro"],
-            "gradient_accumulation_steps": spec["gas"], "bf16": {"enabled": True},
-            "gradient_clipping": 1.0, "steps_per_print": 1000, "comms_logger": {"enabled": True},
-            "zero_optimization": zero, "optimizer": opt}
+    out = {"train_micro_batch_size_per_gpu": spec["micro"],
+           "gradient_accumulation_steps": spec["gas"], "bf16": {"enabled": True},
+           "gradient_clipping": 1.0, "steps_per_print": 1000, "comms_logger": {"enabled": True},
+           "zero_optimization": zero, "optimizer": opt}
+    if tp:
+        out.update(mesh={"model": 1})
+    return out
+
+
+def planted_ce(T):
+    # the vocab-parallel loss's backward with the label's -1 one column off
+    # (the forward right)
+    def backward(ctx, grad):
+        logits, logz, idx, own = ctx.saved_tensors
+        g = (logits - logz[:, None]).exp() * grad[:, None]
+        off = (idx + 1) % logits.shape[-1]
+        g.scatter_add_(-1, off[:, None], torch.where(own, -grad, torch.zeros_like(grad))[:, None])
+        return g, None, None
+    return staticmethod(backward)
 
 
 # one grid and one host-drawn tree for every run (at world 1 every ZeRO
@@ -9051,10 +9072,17 @@ grid = initialize_mesh(device=spec["device"])
 params = CausalLM(cfg).init_params(seed=spec["seed"], device="cpu")
 res = {}
 for case in spec["cases"]:
+    if case == "tp_serve":
+        continue
     engine, *_ = tds.initialize(model=CausalLM(cfg), params=params, config=config(case),
                                 device=spec["device"], mesh=grid)
     if case == "zeropp_planted":  # the masters never move
         engine.optimizer.step = lambda *a, **k: None
+    if case == "tp_stage0_planted":
+        from deepspeed_tpu_torch.models import transformer as T
+
+        sound_ce = T._VocabParallelCE.__dict__["backward"]
+        T._VocabParallelCE.backward = planted_ce(T)
     if case == "onebit_planted":  # the compressed step never sees its gradient
         step, apply = engine._onebit, engine._onebit.apply
 
@@ -9078,7 +9106,9 @@ for case in spec["cases"]:
                      resident_param_bytes=engine._zero.resident_param_bytes()
                      if engine._zero is not None else None,
                      replicated_groups=sum(g.kind == "replicated" for g in engine._zero.groups)
-                     if engine._zero is not None else 0)
+                     if engine._zero is not None else 0,
+                     tp=None if engine.tp is None else [engine.tp.size, engine.tp.vocab_sharded],
+                     layers=spec["layers"])
     if engine._onebit is not None:  # the compressed step's carried residual
         err = engine._onebit.state["worker_error"].double()
         res[case]["error_norm"] = float(torch.linalg.vector_norm(err))
@@ -9087,10 +9117,55 @@ for case in spec["cases"]:
         m = engine._onebit.state["m"]
         res[case]["momentum"] = dict(scale=float(m.abs().max()), n=m.numel(),
                                      vector_norm=float(torch.linalg.vector_norm(m)))
+    if case == "tp_stage0_planted":
+        T._VocabParallelCE.backward = sound_ce
     del engine
     gc.collect()
     if spec["device"] == "cuda":
         torch.cuda.empty_cache()
+if "tp_serve" in spec["cases"]:
+    # the v2 engine over the model axis of this world of one, each format
+    # beside the same engine without a grid, on the full-depth model
+    from deepspeed_tpu_torch.inference.engine_v2 import InferenceEngineV2
+    from deepspeed_tpu_torch.inference.sampling import SamplingParams
+    from deepspeed_tpu_torch.models.transformer import init_params
+
+    sv = spec["serve"]
+    scfg = get_preset(spec["preset"])
+    sp = init_params(scfg, seed=spec["seed"], device=spec["device"])
+    gs = torch.Generator().manual_seed(spec["seed"] + 7)
+    system = torch.randint(1, scfg.vocab_size, (sv["sys_len"],), generator=gs).tolist()
+    prompts = [system + torch.randint(1, scfg.vocab_size, (sv["sfx_len"] + 16 * i,),
+                                      generator=gs).tolist() for i in range(sv["n_req"])]
+    samp = SamplingParams(max_new_tokens=sv["max_new"])
+    comm.configure(type("On", (), {"enabled": True})(), mesh=grid)
+    logger = comm.get_comms_logger(grid)
+
+    def serve(with_grid, kw):
+        eng = InferenceEngineV2(sp, scfg, grid=grid if with_grid else None,
+                                device=spec["device"], seed=0, **sv["engine"], **kw)
+        sched = eng.scheduler
+        for u, p in enumerate(prompts, 1):
+            sched.submit(u, p, samp)
+        got = sched.run()
+        pool_heads = int(eng.kv[0][0].shape[2])
+        eng.close()
+        return {u: list(got[u]) for u in got}, pool_heads
+
+    for name, kw in sv["runs"].items():
+        plain, _ = serve(False, kw)
+        logger.reset()
+        K.reset_launches()
+        t0 = time.perf_counter()
+        got, heads = serve(True, kw)
+        torch.cuda.synchronize() if spec["device"] == "cuda" else None
+        pairs = [(a, b) for u in plain for a, b in zip(got.get(u, []), plain[u])]
+        res["tp_serve_" + name] = dict(
+            tokens_equal=got == plain, match=sum(a == b for a, b in pairs) / max(len(pairs), 1),
+            tokens=sum(len(t) for t in got.values()), pool_heads=heads,
+            launches={k: v for k, v in K.LAUNCHES.items() if v}, counts=logger.counts(),
+            seconds=time.perf_counter() - t0)
+    del sp
 with open(out, "w") as fh:
     json.dump(res, fh)
 """
@@ -9098,9 +9173,12 @@ with open(out, "w") as fh:
 
 def zero_worker(device, cases, out, layers=None):
     """The worker above started through the launcher, one rank (a Popen);
-    it writes its results to ``out``."""
+    it writes its results to ``out``.  ``tp_stage0`` / ``tp_stage3`` among
+    the cases train over a model axis of one; ``tp_serve`` serves
+    ``TP_SERVE``'s runs after the training cases."""
     spec = dict(ZERO_TRAIN, layers=layers or ZERO_TRAIN["layers"], device=device,
-                cases=list(cases), threads=ZERO_TRAIN["cpu_threads"] if device == "cpu" else 4)
+                cases=list(cases), threads=ZERO_TRAIN["cpu_threads"] if device == "cpu" else 4,
+                serve=TP_SERVE)
     script = os.path.join(os.path.dirname(out), "zero_worker.py")
     with open(script, "w") as fh:
         fh.write(ZERO_WORKER)
@@ -9136,11 +9214,14 @@ def zero_cpu_gaps(run, ref):
     return gaps
 
 
-def zero_train_run(torch, K, card_proc, card_out, cpu_proc, cpu_out, layers):
+def zero_train_run(torch, K, card_proc, card_out, cpu_proc, cpu_out, layers, tp=None):
     """The card's runs and the CPU's references, gated; returns both and
-    the gaps to the CPU's readings."""
+    the gaps to the CPU's readings.  The worker's tensor-parallel runs go
+    to ``tp`` (a dict) for ``tp_train_phase`` / ``tp_serve_phase``."""
     z = ZERO_TRAIN
     card = zero_results(card_proc, card_out, "card")
+    for case in [c for c in card if c.startswith("tp_")]:
+        (tp if tp is not None else {})[case] = card.pop(case)
     cpu = zero_results(cpu_proc, cpu_out, "cpu")
     steps, gas = z["steps"], z["gas"]
     for case, run in card.items():
@@ -9188,11 +9269,14 @@ def zero_train_run(torch, K, card_proc, card_out, cpu_proc, cpu_out, layers):
     return card, cpu, gaps
 
 
-def zero_train_phase(torch, K, gpu, cpu_proc, cpu_out, tmp):
+def zero_train_phase(torch, K, gpu, cpu_proc, cpu_out, tmp, tp):
+    """zero_train; the same rank also runs the tensor-parallel cases, whose
+    results land in ``tp``."""
     card_out = os.path.join(tmp, "zero_card.json")
     t0 = time.perf_counter()
-    card, cpu, gaps = zero_train_run(torch, K, zero_worker("cuda", ZERO_CASES, card_out),
-                                     card_out, cpu_proc, cpu_out, ZERO_TRAIN["layers"])
+    card_proc = zero_worker("cuda", ZERO_CASES + TP_CASES + (TP_PLANTED, "tp_serve"), card_out)
+    card, cpu, gaps = zero_train_run(torch, K, card_proc, card_out, cpu_proc, cpu_out,
+                                     ZERO_TRAIN["layers"], tp=tp)
     planted = {c: card.pop(c) for c in ZERO_PLANTED}  # not the main path's runs
     launches = {}
     for run in card.values():
@@ -9222,6 +9306,519 @@ def zero_train_phase(torch, K, gpu, cpu_proc, cpu_out, tmp):
               resident_param_bytes={c: r["resident_param_bytes"] for c, r in card.items()},
               stage_rtol=ZERO_STAGE_RTOL, phase_s=time.perf_counter() - t0, gpu=gpu))
     return dict(launches=launches, runs=card)
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism (slice 23).  tp_train: zero_train's rank also trains
+# ZERO_TRAIN's model at stages 0 and 3 over a model axis of one
+# (``mesh={"model": 1}``: the f / g Functions and the vocab-parallel loss
+# make their NCCL all-reduces over a group of one); gates: the
+# collectives other than the model axis's equal the plan's, the model
+# axis's are there, K1f / K1b layers x GAS a step and K8 once, the losses
+# within TP_TRAIN_RTOL of the same runs without a model axis, and a
+# planted run (the loss's backward puts the label's one-hot one column
+# off) outside it; ``tp_ce_check`` holds the vocab-parallel loss and its
+# gradient to the plain cross-entropy's on one batch.  Then
+# ``tp_shard_train_check``: the port's ``decoder_layer`` on rank r's shard
+# of one full-width 410M layer with biases (4 q / 1 kv heads at tp 2, 2 q
+# / 1 kv narrowed at tp 4), the ranks run one after another in this
+# process with the model axis's all-reduces made in lockstep
+# (``_Lockstep``), forward and backward, held to the whole layer
+# (TP_SHARD_TOL); two faults planted in the port outside the gate.
+# tp_serve: the same rank serves TP_SERVE's runs over the model axis of
+# one (bf16 through the scheduler with prefix hits and chunked
+# continuations, int8, fp6), each beside the same engine without a grid:
+# greedy tokens equal, the kernels of each run launched; then
+# ``tp_shard_serve_check``: K2 / K3 on each rank's heads, K4 / K5 on
+# column and row shards (a planted per-shard bias outside the gate), a
+# quant_comm int8 payload from K6 byte-equal to the CPU's.  The checks'
+# launches are reported apart from the main paths'.
+# ---------------------------------------------------------------------------
+TP_CASES = ("tp_stage0", "tp_stage3")
+# tp_stage0 with the loss's backward faulted (the label's -1 one column
+# off, the forward right): outside TP_TRAIN_RTOL, not a main-path run
+TP_PLANTED = "tp_stage0_planted"
+# the worker's serving runs: 410M at full depth through the scheduler, a
+# shared system prompt (prefix hits and chunked continuations: K3), greedy;
+# each beside the same engine without a grid
+TP_SERVE = dict(n_req=4, sys_len=96, sfx_len=40, max_new=16,
+                engine=dict(max_seqs=4, num_blocks=96, block_size=32, max_seq_len=512,
+                            prefill_buckets=(128, 256), enable_prefix_caching=True,
+                            prefill_chunk=64),
+                runs={"bf16": {}, "int8": {"quantize_weights": "int8"},
+                      "fp6": {"quantize_weights": "fp6"}})
+# the tensor-parallel runs' losses against the same runs without a model
+# axis (the zero_train cases): relative, per step.  Read on the card: 3.3e-5
+# / 4.5e-5 sound (stages 0 / 3), 0.80 with the planted loss fault
+TP_TRAIN_RTOL = 5e-4
+# the loss check: one batch of TP_CE tokens through the 410M head, the
+# vocab-parallel loss over a model axis of one against cross_entropy_loss
+TP_CE = dict(tokens=4096)
+# the shard checks: one full-width 410M layer with random biases, b 1, s
+# 1024, bf16; every rank's output, input gradient and weight gradients (a
+# sharded leaf's against the whole gradient's slice) against the whole
+# layer's, relative Frobenius
+TP_SHARD = dict(seq=1024, tps=(2, 4))
+TP_SHARD_TOL = 2e-2
+# the serving shard checks: K2 / K3 on each rank's heads against the whole
+# call's heads, K4 / K5 on column shards (concatenated) and row shards
+# (partial sums added) against the whole quantized matmul
+TP_SERVE_TOL = 2e-2
+TP_QMM_M = (16, 300)
+TP_EXPECT = {"bf16": ("flash_fwd", "ctx_attention", "paged_decode"),
+             "int8": ("quant_matmul_int8", "paged_decode"),
+             "fp6": ("quant_matmul_fp6", "paged_decode")}
+
+
+def _rel(torch, got, ref):
+    return float((got.float() - ref.float()).norm() / ref.float().norm().clamp_min(1e-30))
+
+
+class _Pending(Exception):
+    """A rank reached an all-reduce whose sum is not known yet."""
+
+
+class _Lockstep:
+    """The model axis's all-reduce over ``tp`` ranks run one after another
+    in one process: rank r's k-th all-reduce returns the sum (or max) of
+    every rank's k-th input once every rank has reached it; until then the
+    rank's run stops there and later runs again from its start with every
+    result known so far.  ``run(fn)`` repeats ``fn(r)`` for r = 0 .. tp - 1
+    until every rank ran through."""
+
+    def __init__(self, torch, tp):
+        self.torch, self.tp = torch, tp
+        self.inputs, self.results = {}, {}
+        self.rank = self.calls = 0
+
+    def __call__(self, x, tp, op="sum"):
+        k, self.calls = self.calls, self.calls + 1
+        if k in self.results:
+            return self.results[k].clone()
+        self.inputs.setdefault(k, {})[self.rank] = (x.detach().clone(), op)
+        raise _Pending()
+
+    def run(self, fn):
+        while True:
+            outs = []
+            for r in range(self.tp):
+                self.rank, self.calls = r, 0
+                try:
+                    outs.append(fn(r))
+                except _Pending:
+                    outs.append(None)
+            if all(o is not None for o in outs):
+                return outs
+            k = min(set(self.inputs) - set(self.results))
+            got = self.inputs[k]
+            if sorted(got) != list(range(self.tp)):
+                raise AssertionError(f"all-reduce {k} reached by ranks {sorted(got)} only")
+            xs = [got[r][0] for r in range(self.tp)]
+            if got[0][1] == "max":
+                self.results[k] = self.torch.stack(xs).amax(0)
+            else:
+                acc = xs[0].clone()
+                for x in xs[1:]:
+                    acc += x
+                self.results[k] = acc
+
+
+@contextlib.contextmanager
+def _patched(obj, **attrs):
+    """``obj``'s attributes replaced for the block."""
+    old = {k: obj.__dict__[k] for k in attrs}
+    for k, v in attrs.items():
+        setattr(obj, k, v)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            setattr(obj, k, v)
+
+
+def _planted_bias_before_g(tt):
+    """The port's row-parallel attention output with its bias added on
+    every rank, before ``g``'s all-reduce."""
+    def post(lw, x, o, cfg, tp):
+        attn = dict(lw["attn"])
+        bo = attn.pop("bo")
+        b, s = o.shape[:2]
+        h = tt.tp_reduce(o.reshape(b, s, -1) @ attn["wo"] + bo, tp).to(x.dtype)
+        x = x + h
+        y = tt._act_quant(tt.norm(x, lw["mlp_norm"], cfg.norm, cfg.norm_eps), cfg)
+        return x + tt._mlp_tp(lw["mlp"], y, cfg, tp).to(x.dtype), None
+    return _patched(tt, _post_attention_tp=post)
+
+
+def _planted_g_backward(tt):
+    """The port's ``g`` all-reducing its gradient in the backward too."""
+    real = tt._ReduceFromModel.forward
+
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return real(ctx, x, tp)
+
+    def backward(ctx, grad):
+        return tt._model_all_reduce(grad, ctx.tp), None
+
+    return _patched(tt._ReduceFromModel, forward=staticmethod(forward),
+                    backward=staticmethod(backward))
+
+
+def _leaf_paths_t(tree, path=()):
+    for k_, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaf_paths_t(v, path + (k_,))
+        else:
+            yield path + (k_,), v
+
+
+def _layer_run(torch, tt, cfg, layer, x, rope_cs, dy, tp=None):
+    """The port's ``decoder_layer`` on ``layer`` (fresh autograd leaves)
+    forward and backward against ``dy``: its output, the input's gradient
+    and every weight's."""
+    from deepspeed_tpu_torch.ops.kernels.flash_attention import flash_attention
+
+    def leaves(tree):
+        return {k_: leaves(v) if isinstance(v, dict) else v.detach().clone().requires_grad_(True)
+                for k_, v in tree.items()}
+
+    lw = leaves(layer)
+    x = x.detach().requires_grad_(True)
+    b, s = x.shape[:2]
+    pos = torch.arange(s, device=x.device)[None].expand(b, s)
+    out, _ = tt.decoder_layer(lw, x, cfg, pos, flash_attention, None, rope_cs, tp=tp)
+    (out.float() * dy).sum().backward()
+    return dict(out=out.detach(), dx=x.grad,
+                grads={"/".join(p): t.grad for p, t in _leaf_paths_t(lw)})
+
+
+def _shard_errors(torch, whole, ranks, placements):
+    """Each rank's output and input gradient against the whole layer's (the
+    all-reduces make them whole on every rank), and its weight gradients:
+    a sharded leaf's against the whole gradient's slice, a replicated or
+    narrowed leaf's against the whole gradient (its partial sums added by
+    ``f``'s backward)."""
+    errs = {"out": 0.0, "dx": 0.0, "grads": 0.0}
+    for run, pls in zip(ranks, placements):
+        errs["out"] = max(errs["out"], _rel(torch, run["out"], whole["out"]))
+        errs["dx"] = max(errs["dx"], _rel(torch, run["dx"], whole["dx"]))
+        for name, g in whole["grads"].items():
+            pl = pls[("layers",) + tuple(name.split("/"))]
+            ref = g.narrow(pl.dim - 1, pl.lo, pl.hi - pl.lo) if pl.kind == "shard" else g
+            errs["grads"] = max(errs["grads"], _rel(torch, run["grads"][name], ref))
+    return errs
+
+
+def tp_shard_train_check(torch, K):
+    """For tp in ``TP_SHARD["tps"]``: the port's ``decoder_layer`` on rank
+    r's shard of one full-width 410M layer (its local heads and sliced
+    weights; random biases, so that the row-parallel bias's place shows)
+    for r = 0 .. tp - 1 in this process, the model axis's all-reduces made
+    in lockstep; every rank's output, input gradient and weight gradients
+    equal the whole layer's.  Two faults planted in the port must fail: the
+    row-parallel bias added on every rank before ``g``, and a ``g`` that
+    all-reduces in the backward too."""
+    from deepspeed_tpu_torch.models import transformer as tt
+    from deepspeed_tpu_torch.models.presets import get_preset
+    from deepspeed_tpu_torch.parallel.tensor_parallel import TensorParallel
+
+    cfg = get_preset(SHAPING_PRESET if DEVICE == "cpu" else "llama3_proxy_410m", num_layers=1,
+                     attn_impl="flash", qkv_bias=True, attn_out_bias=True, mlp_bias=True)
+    if DEVICE == "cpu":
+        cfg = cfg.replace(dtype=torch.float32)
+    seq = TP_SHARD["seq"]
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 23)
+    stacked = tt.init_params(cfg, seed=SEED, device=DEVICE)
+    for path, leaf in _leaf_paths_t(stacked):  # the biases are drawn at 0
+        if path[-1].startswith("b"):
+            leaf.copy_(_randn(torch, tuple(leaf.shape), gen, leaf.dtype))
+
+    def take0(tree):  # layer 0 of a stacked [1, ...] tree
+        return {k_: take0(v) if isinstance(v, dict) else v[0] for k_, v in tree.items()}
+
+    d = cfg.hidden_size
+    x = _randn(torch, (1, seq, d), gen, cfg.dtype)
+    dy = _randn(torch, (1, seq, d), gen, torch.float32)
+    rope_cs = tt.rope_tables(torch.arange(seq, device=DEVICE)[None], cfg.hd, cfg.rope_theta)
+    K.reset_launches()
+    whole = _layer_run(torch, tt, cfg, take0(stacked["layers"]), x, rope_cs, dy)
+    out = {}
+    for tp in TP_SHARD["tps"]:
+        ranks = [TensorParallel(None, cfg, rank=r, size=tp) for r in range(tp)]
+        pls = [t.placements(stacked) for t in ranks]
+        local = [take0(t.shard_tree(stacked)["layers"]) for t in ranks]
+
+        def shards():
+            lock = _Lockstep(torch, tp)
+            with _patched(tt, _model_all_reduce=lock):
+                runs = lock.run(lambda r: _layer_run(torch, tt, cfg, local[r], x, rope_cs, dy,
+                                                     tp=ranks[r]))
+            return runs, len(lock.results)
+
+        sound, n_reduce = shards()
+        errs = _shard_errors(torch, whole, sound, pls)
+        bad = {k_: v for k_, v in errs.items() if not v <= TP_SHARD_TOL}
+        if bad:
+            raise AssertionError(f"tp_train shard check at tp {tp}: {bad} past {TP_SHARD_TOL}")
+        planted = {}
+        for name, plant in (("bias_before_g", _planted_bias_before_g),
+                            ("g_allreduce_backward", _planted_g_backward)):
+            with plant(tt):
+                planted[name] = _shard_errors(torch, whole, shards()[0], pls)
+            if all(v <= TP_SHARD_TOL for v in planted[name].values()):
+                raise AssertionError(f"tp_train shard check at tp {tp}: the planted fault "
+                                     f"{name} passed the gate: {planted[name]}")
+        out[f"tp{tp}"] = dict(errors=errs, all_reduces=n_reduce,
+                              q_heads=ranks[0].q_heads, kv_heads=ranks[0].kv_heads,
+                              kv_sharded=ranks[0].kv_sharded,
+                              planted={k_: max(v.values()) for k_, v in planted.items()})
+    out["launches"] = {k_: v for k_, v in K.LAUNCHES.items() if v}
+    return out
+
+
+def tp_ce_check(torch, K):
+    """The vocab-parallel loss over a model axis of one against
+    ``cross_entropy_loss`` on one batch through the 410M head (bf16 hidden
+    states and kernel, fp32 loss): the losses and the gradients of the
+    logits, the hidden states and the kernel, each as its largest
+    difference and its share of elements that differ."""
+    from deepspeed_tpu_torch.models import transformer as tt
+    from deepspeed_tpu_torch.models.presets import get_preset
+    from deepspeed_tpu_torch.parallel.tensor_parallel import TensorParallel
+
+    cfg = get_preset(SHAPING_PRESET if DEVICE == "cpu" else "llama3_proxy_410m")
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 31)
+    n, d, v = TP_CE["tokens"], cfg.hidden_size, cfg.vocab_size
+    h = _randn(torch, (n, d), gen, torch.bfloat16)
+    w = (_randn(torch, (d, v), gen, torch.float32) / d ** 0.5).to(torch.bfloat16)
+    labels = torch.randint(0, v, (n,), generator=gen, device=DEVICE)
+    labels[: n // 16] = -100
+    tp = TensorParallel(None, cfg, rank=0, size=1)
+
+    def run(loss_of):
+        hh, ww = h.clone().requires_grad_(True), w.clone().requires_grad_(True)
+        logits = hh @ ww
+        logits.retain_grad()
+        loss = loss_of(logits)
+        loss.backward()
+        return loss.detach(), logits.grad, hh.grad, ww.grad
+
+    def vp(logits):
+        nll, cnt = tt.vocab_parallel_cross_entropy(logits, labels, tp)
+        return nll / cnt.clamp(min=1.0)
+
+    plain = run(lambda logits: tt.cross_entropy_loss(logits, labels))
+    lock = _Lockstep(torch, 1)
+    with _patched(tt, _model_all_reduce=lock):
+        vocab = lock.run(lambda r: run(vp))[0]
+    out = {"loss": float(vocab[0] - plain[0])}
+    for i, name in ((1, "dlogits"), (2, "dh"), (3, "dW")):
+        a, b = vocab[i].float(), plain[i].float()
+        out[name] = dict(max_abs=float((a - b).abs().max()),
+                         differ=float((vocab[i] != plain[i]).float().mean()))
+    return out
+
+
+def tp_train_phase(torch, K, gpu, tp_runs, zero_runs):
+    """The tensor-parallel path at world 1 over NCCL (``mesh={"model": 1}``:
+    the f / g Functions and the vocab-parallel loss make their all-reduces
+    over a group of one), 4 layers of the 410M at stages 0 and 3, held to
+    the same runs without a model axis, a planted loss fault outside the
+    gate; then the loss check and the shard checks at tp 2 and 4."""
+    t0 = time.perf_counter()
+    z = ZERO_TRAIN
+
+    def gap(run, ref):
+        return max(abs(a - b) / abs(b) for a, b in zip(run["losses"], ref["losses"]))
+
+    launches = {}
+    for case in TP_CASES:
+        run, ref = tp_runs[case], zero_runs[case.removeprefix("tp_")]
+        if (run["backend"], run["world"], run["tp"]) != ("nccl", 1, [1, True]):
+            raise AssertionError(f"tp_train {case}: {run['backend']} at world {run['world']}, "
+                                 f"tp {run['tp']}")
+        counts = dict(run["counts"])
+        model_ops = {k_: counts.pop(k_) for k_ in list(counts) if k_.endswith("@model")}
+        if counts != run["predicted"] or not model_ops.get("all_reduce@model"):
+            raise AssertionError(f"tp_train {case}: collectives {run['counts']} against the "
+                                 f"plan's {run['predicted']} and the model axis's")
+        want = {n: run["layers"] * z["gas"] * z["steps"] for n in ATTN_KERNELS[False]}
+        want["fused_adamw"] = z["steps"]
+        got = {n: run["launches"].get(n, 0) for n in K.SOURCES}
+        bad = {n: (got[n], w) for n, w in want.items() if got[n] != w}
+        bad.update({n: (v, 0) for n, v in got.items() if v and n not in want})
+        if bad:
+            raise AssertionError(f"tp_train {case}: launches (got, want) {bad}")
+        if not gap(run, ref) <= TP_TRAIN_RTOL:
+            raise AssertionError(f"tp_train {case}: losses {run['losses']} against the "
+                                 f"run without a model axis {ref['losses']}")
+        for n, v in run["launches"].items():
+            launches[n] = launches.get(n, 0) + v
+    planted = tp_runs[TP_PLANTED]
+    planted_gap = gap(planted, zero_runs["stage0"])
+    if planted_gap <= TP_TRAIN_RTOL:
+        raise AssertionError(f"tp_train: the planted loss fault passed the gate "
+                             f"({planted_gap} <= {TP_TRAIN_RTOL})")
+    ce = tp_ce_check(torch, K)
+    shard = tp_shard_train_check(torch, K)
+    emit(dict(phase="tp_train", model=f"{z['preset']}, {tp_runs[TP_CASES[0]]['layers']} layers",
+              world=1,
+              backend="nccl", mesh={"model": 1}, shape=z,
+              losses={c: tp_runs[c]["losses"] for c in TP_CASES},
+              plain_losses={c: zero_runs[c.removeprefix("tp_")]["losses"] for c in TP_CASES},
+              rel_diff={c: gap(tp_runs[c], zero_runs[c.removeprefix("tp_")]) for c in TP_CASES},
+              planted=dict(losses=planted["losses"], rel_diff=planted_gap),
+              grad_norms={c: tp_runs[c]["grad_norm"] for c in TP_CASES},
+              comm_counts={c: tp_runs[c]["counts"] for c in TP_CASES},
+              launches_per_run={c: tp_runs[c]["launches"] for c in TP_CASES},
+              seconds={c: tp_runs[c]["seconds"] for c in TP_CASES},
+              rtol=TP_TRAIN_RTOL, ce_check=ce, shard_check=shard, shard_tol=TP_SHARD_TOL,
+              phase_s=time.perf_counter() - t0, gpu=gpu))
+    return dict(launches=launches, shard_launches=shard["launches"])
+
+
+def tp_shard_serve_check(torch, K):
+    """K2 / K3 on each rank's q heads and kv heads of the pool (at tp 4 the
+    kv head its q heads share) against the whole call's heads; K4 / K5 on
+    column shards (outputs concatenated) and row shards (partial sums
+    added; the FP6 kernel packed per K-chunk) against the whole quantized
+    matmul, a bias added per row shard planted; a quant_comm int8 payload
+    made by K6 against the CPU codec's bytes."""
+    from deepspeed_tpu_torch.comm import qcomm
+    from deepspeed_tpu_torch.ops.kernels import ctx_attention as CA
+    from deepspeed_tpu_torch.ops.kernels import paged_attention as PA
+    from deepspeed_tpu_torch.ops.quantizer import (
+        quantize_serving_weight,
+        quantize_serving_weight_fp6,
+        shard_serving_weight,
+    )
+    from deepspeed_tpu_torch.parallel.tensor_parallel import Placement
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 29)
+
+    def _qmm_on(name, p, x):  # the kernel on the card (its plain version in a CPU rehearsal)
+        return _qmm(name, p, x, plain=DEVICE == "cpu")
+
+    K.reset_launches()
+    out = {"attention": {}, "qmm": {}}
+    hq, hkv = 8, 2
+    dec = decode_case(torch, gen, B=16, nb=512, P=40, hq=hq, hkv=hkv, max_len=1200)
+    ctx = ctx_case(torch, gen, hq=hq, hkv=hkv)
+    whole_dec = PA.paged_attention_decode(dec["q"], dec["cache_k"], dec["cache_v"],
+                                                 dec["block_table"], dec["seq_lens"])
+    whole_ctx = CA.paged_attention_packed_ctx(
+        ctx["q"], ctx["k"], ctx["v"], ctx["segment_ids"], ctx["cache_k"], ctx["cache_v"],
+        ctx["ctx_tables"], ctx["ctx_lens"])
+    for tp in TP_SHARD["tps"]:
+        errs = {"paged_decode": 0.0, "ctx_attention": 0.0}
+        for r in range(tp):
+            q0, q1 = r * hq // tp, (r + 1) * hq // tp
+            k0 = r * hkv // tp if hkv % tp == 0 else q0 * hkv // hq
+            k1 = (r + 1) * hkv // tp if hkv % tp == 0 else k0 + 1
+            heads = slice(k0, k1)
+            got = PA.paged_attention_decode(
+                dec["q"][:, q0:q1].contiguous(), dec["cache_k"][:, :, heads].contiguous(),
+                dec["cache_v"][:, :, heads].contiguous(), dec["block_table"], dec["seq_lens"])
+            errs["paged_decode"] = max(errs["paged_decode"],
+                                       _rel(torch, got, whole_dec[:, q0:q1]))
+            got = CA.paged_attention_packed_ctx(
+                ctx["q"][:, q0:q1].contiguous(), ctx["k"][:, heads].contiguous(),
+                ctx["v"][:, heads].contiguous(), ctx["segment_ids"],
+                ctx["cache_k"][:, :, heads].contiguous(), ctx["cache_v"][:, :, heads].contiguous(),
+                ctx["ctx_tables"], ctx["ctx_lens"])
+            errs["ctx_attention"] = max(errs["ctx_attention"],
+                                        _rel(torch, got, whole_ctx[:, q0:q1]))
+        out["attention"][f"tp{tp}"] = dict(errs, q_heads=hq // tp,
+                                           kv_heads=max(hkv // tp, 1),
+                                           pool="sharded" if hkv % tp == 0 else "narrowed")
+        bad = {k_: v for k_, v in errs.items() if not v <= TP_SERVE_TOL}
+        if bad:
+            raise AssertionError(f"tp_serve attention shards at tp {tp}: {bad}")
+    d, f = 1024, 4096
+    w_col = _randn(torch, (d, f), gen, torch.bfloat16)
+    w_row = _randn(torch, (f, d), gen, torch.bfloat16)
+    b_row = (_randn(torch, (d,), gen, torch.float32) * f ** 0.5).to(torch.bfloat16)  # the outputs' scale
+    for fmt in ("int8", "fp8", "fp6"):
+        name = QMM_NAMES[fmt]
+        for tp in TP_SHARD["tps"]:
+            if fmt == "fp6":
+                col, row = quantize_serving_weight_fp6(w_col), quantize_serving_weight_fp6(w_row, tp)
+                row_ref = quantize_serving_weight_fp6(w_row)  # the same codes, one pack
+            else:
+                col = quantize_serving_weight(w_col, fmt)
+                row = row_ref = quantize_serving_weight(w_row, fmt)
+            errs, planted = {}, 0.0
+            for m in TP_QMM_M:
+                xc = _randn(torch, (m, d), gen, torch.bfloat16)
+                xr = _randn(torch, (m, f), gen, torch.bfloat16)
+                ref_c = _qmm_on(name, col, xc)
+                ref_r = _qmm_on(name, row_ref, xr) + b_row
+                cols, parts = [], []
+                for r in range(tp):
+                    n, k = f // tp, f // tp
+                    cols.append(_qmm_on(name, shard_serving_weight(
+                        col, Placement("shard", 1, r * n, (r + 1) * n)), xc))
+                    parts.append(_qmm_on(name, shard_serving_weight(
+                        row, Placement("shard", 0, r * k, (r + 1) * k)),
+                        xr[:, r * k:(r + 1) * k].contiguous()).float())
+                errs[f"col_m{m}"] = _rel(torch, torch.cat(cols, -1), ref_c)
+                errs[f"row_m{m}"] = _rel(torch, sum(parts) + b_row.float(), ref_r)
+                planted = max(planted, _rel(torch, sum(p + b_row.float() for p in parts),
+                                            ref_r))
+            bad = {k_: v for k_, v in errs.items() if not v <= TP_SERVE_TOL}
+            if bad:
+                raise AssertionError(f"tp_serve {name} shards at tp {tp}: {bad}")
+            if planted <= TP_SERVE_TOL:
+                raise AssertionError(f"tp_serve {name} at tp {tp}: the planted per-shard "
+                                     f"bias passed the gate ({planted})")
+            out["qmm"][f"{name}_tp{tp}"] = dict(errs, planted_bias_every_rank=planted)
+    # a row-parallel partial sum's quant_comm payload: K6a's codes and scales
+    # against the same chunks quantized on the CPU (the plain rows), byte for
+    # byte; the host codec's codes beside (its scales divide, K6 multiplies)
+    partial = _randn(torch, (16, d), gen, torch.float32).reshape(-1)
+    chunk = qcomm.DEFAULT_CHUNK
+    q, sc = qcomm._q_chunks(partial, "int8", chunk)
+    cq, cs = qcomm._q_chunks(partial.cpu(), "int8", chunk)
+    same = bool(torch.equal(q.cpu(), cq) and torch.equal(sc.cpu(), cs))
+    if not same:
+        raise AssertionError("tp_serve: K6's quant_comm int8 payload differs from the CPU's "
+                             "bytes")
+    out["quant_comm_payload_bytes_equal"] = same
+    hq_, hs = qcomm.quantize_payload(partial.cpu(), "int8", chunk)
+    out["host_codec"] = dict(codes_equal=bool(torch.equal(hq_.reshape(-1), cq.reshape(-1))),
+                             scales_max_abs_diff=float((hs - cs).abs().max()))
+    out["launches"] = {k_: v for k_, v in K.LAUNCHES.items() if v}
+    return out
+
+
+def tp_serve_phase(torch, K, gpu, tp_runs):
+    """The v2 engine over the model axis of a world of one (NCCL): each
+    format's greedy tokens equal the engine's without a grid; then the
+    shard checks at tp 2 and 4."""
+    t0 = time.perf_counter()
+    launches = {}
+    for name, want in TP_EXPECT.items():
+        run = tp_runs["tp_serve_" + name]
+        missing = [n for n in want if not run["launches"].get(n)]
+        if missing:
+            raise AssertionError(f"tp_serve {name}: {missing} never launched ({run['launches']})")
+        if not run["tokens_equal"]:
+            raise AssertionError(f"tp_serve {name}: tokens differ from the engine without a "
+                                 f"model axis (match {run['match']})")
+        model_ops = sum(v for k_, v in run["counts"].items() if k_.endswith("@model"))
+        if not model_ops or run["pool_heads"] != 2:
+            raise AssertionError(f"tp_serve {name}: {run['counts']}, pool heads "
+                                 f"{run['pool_heads']}")
+        for n, v in run["launches"].items():
+            launches[n] = launches.get(n, 0) + v
+    shard = tp_shard_serve_check(torch, K)
+    emit(dict(phase="tp_serve", model="llama3_proxy_410m, 24 layers", world=1, backend="nccl",
+              sizes={k_: v for k_, v in TP_SERVE.items() if k_ != "runs"},
+              runs={n: {k_: v for k_, v in r.items()} for n, r in tp_runs.items()
+                    if n.startswith("tp_serve_")},
+              shard_check=shard, tol=TP_SERVE_TOL, phase_s=time.perf_counter() - t0, gpu=gpu))
+    return dict(launches=launches, shard_launches=shard["launches"])
 
 
 def _free(torch):
@@ -9367,8 +9964,15 @@ def main() -> None:
     _free(torch)
     hq = hybrid_quant_phase(torch, K, gpu)
     _free(torch)
-    # ZeRO across processes: one rank through the launcher over NCCL
-    zt = zero_train_phase(torch, K, gpu, zero_cpu, zero_cpu_out, zero_tmp)
+    # ZeRO across processes: one rank through the launcher over NCCL; the
+    # same rank trains and serves over a model axis of one (tensor
+    # parallelism), and each rank's shard of a layer runs here at tp 2 / 4
+    tp_runs = {}
+    zt = zero_train_phase(torch, K, gpu, zero_cpu, zero_cpu_out, zero_tmp, tp_runs)
+    _free(torch)
+    tpt = tp_train_phase(torch, K, gpu, tp_runs, zt["runs"])
+    _free(torch)
+    tps = tp_serve_phase(torch, K, gpu, tp_runs)
     _free(torch)
     # ZeRO-Offload: the CPU tier and the NVMe tier checked against the plain
     # engine, the NVMe tier on the flagship, llama3_8b through the CPU tier
@@ -9418,7 +10022,8 @@ def main() -> None:
     # engine), each read right after its own run
     main_paths = (eng, ms_eng, ms_sch, sch, spec, lcc, lc, g_eng, g_burst, g_spec, tr, shim, sp,
                   opt, rm, pt, ps, qc, qs, qz, rt, rh, rk, rf, rc, rr, rho, rfl, rch, ad, at,
-                  ck, hf, mt, mv, v1, oc, nt, ot, sc, st, cc, ct, kd, lh, ec, ctr, hq, zt)
+                  ck, hf, mt, mv, v1, oc, nt, ot, sc, st, cc, ct, kd, lh, ec, ctr, hq, zt,
+                  tpt, tps)
     schedule_paths = {"schedule_check": sc, "schedule_train": st}
     shaping_paths = {"compress_check": cc, "compress_train": ct, "kd_train": kd,
                      "lora_hybrid": lh, "eigen_check": ec}
@@ -9483,6 +10088,15 @@ def main() -> None:
                             if p["launches"].get(name)}
         if compile_launches:  # the compiled train step, the quantized hybrid's refresh
             entry["launches_compile_phases"] = compile_launches
+        tp_launches = {k: p["launches"][name] for k, p in (("tp_train", tpt), ("tp_serve", tps))
+                       if p["launches"].get(name)}
+        if tp_launches:  # the model axis at world 1, read from the rank's report
+            entry["launches_tp_phases"] = tp_launches
+        shard_launches = {k: p["shard_launches"][name] for k, p in (("tp_train", tpt),
+                                                                    ("tp_serve", tps))
+                          if p["shard_launches"].get(name)}
+        if shard_launches:  # the shard checks at tp 2 / 4 (checks, not in "launches")
+            entry["launches_tp_shard_checks"] = shard_launches
         if zt["launches"].get(name):  # zero_train's rank, read from its report
             entry["launches_zero_train"] = {c: r["launches"][name] for c, r in zt["runs"].items()
                                             if r["launches"].get(name)}

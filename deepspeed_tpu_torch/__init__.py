@@ -59,7 +59,14 @@ Ported so far:
   (NCCL on CUDA, gloo on the CPU), the ``data`` x ``fsdp`` x ``sub``
   process grid (``parallel``), ZeRO stages 0-3 (``runtime.zero``), ZeRO++
   (``runtime.zeropp``), the 1-bit optimizers (``runtime.onebit``) and the
-  launcher's process per device.
+  launcher's process per device;
+- tensor parallelism across processes: the ``model`` axis of the grid,
+  AutoTP's rules (``parallel.auto_tp``), a rank's shard of the tree
+  (``parallel.tensor_parallel``), manual Megatron TP in the model (the
+  ``f`` / ``g`` pair, the vocab-parallel embedding and loss,
+  ``domino_chunks``) composed with ZeRO, and serving over the axis in the
+  v2 engine and ``init_inference`` (row-parallel partial sums reduced
+  exactly or through the quantized transport).
 """
 from __future__ import annotations
 
@@ -104,15 +111,18 @@ def _adopt_elastic_batch(cfg, dp_world_size: int) -> None:
 
 def _mesh_axes_from_config(cfg, world: int, zero_stage: int):
     """The grid's axis sizes (JAX ``_mesh_axes_from_config``,
-    ``__init__.py:20-62``): explicit sizes win; the leftover ranks go to
-    ``fsdp`` under ZeRO >= 1, else to ``data``; ``zero_hpz_partition_size``
-    / ``mics_shard_size`` factor the fsdp extent into ``(fsdp, sub)``."""
+    ``__init__.py:20-62``): explicit sizes win (``model`` among them); the
+    leftover ranks go to ``fsdp`` under ZeRO >= 1, else to ``data``;
+    ``zero_hpz_partition_size`` / ``mics_shard_size`` factor the fsdp
+    extent into ``(fsdp, sub)``."""
     import math
 
     from .config.config import ConfigError
 
     m = cfg.mesh
     fixed = {}
+    if m.model and m.model > 1:
+        fixed["model"] = m.model
     if m.data:
         fixed["data"] = m.data
     if m.fsdp:
@@ -202,7 +212,17 @@ def initialize(model=None, params: Any = None, config: Any = None, device=None,
     takes its own micro-batches (or the global batch, of which it takes its
     rows).  The ``comms_logger`` section counts the collectives
     (``comm.comm.get_comms_logger``).  The hybrid engine and the features
-    the engine lists are refused across ranks (ROADMAP queue 1 item 7)."""
+    the engine lists are refused across ranks (ROADMAP queue 1 item 7).
+
+    A ``model`` axis (a ``mesh`` section that names ``model``, at any
+    size, 1 included, or a grid with ``model`` > 1) trains
+    tensor-parallel: ``model`` must be a ``CausalLM``, whose ``tp``
+    becomes this rank's ``parallel.tensor_parallel.TensorParallel``; the
+    engine keeps the rank's shard of the tree (cut from ``params``, or
+    from the tree drawn whole on the host) and ZeRO slices that.  The
+    data-parallel size is ``data`` x ``fsdp`` x ``sub``: every rank of a
+    tensor-parallel group reads the same rows.  ``tensor_parallel.
+    domino_chunks`` sets the model's ``domino_chunks``, as in JAX."""
     from .config.config import ConfigError, parse_config
     from .monitor.monitor import MonitorMaster
     from .ops.kernels import resolve_device
@@ -273,13 +293,37 @@ def initialize(model=None, params: Any = None, config: Any = None, device=None,
                               "quantizes: a wrapped model (LoRACausalLM) runs its inner "
                               "model's forward, which would not read the bits")
         model.cfg = model.cfg.replace(act_quant_bits=act_quant_bits(Technique.parse(aq)))
+    if cfg.tensor_parallel.domino_chunks > 1:
+        if model is None or not hasattr(model, "cfg"):
+            raise ConfigError("tensor_parallel.domino_chunks requires model= (a "
+                              "models.CausalLM); it cannot chunk a raw loss_fn")
+        if getattr(model.cfg, "moe_num_experts", 0) > 0:
+            raise ConfigError("domino_chunks does not compose with MoE: capacity-based "
+                              "routing per chunk would change token dropping vs the "
+                              "full-batch build (not an overlap-only transformation)")
+        model.cfg = model.cfg.replace(domino_chunks=cfg.tensor_parallel.domino_chunks)
+    tp = None
+    if hasattr(model, "tp"):
+        model.tp = None
+    if grid is not None and (grid.spec.model > 1 or cfg.mesh.model_given):
+        # a model axis: the model's loss runs this rank's shard of the tree
+        # between the Megatron collectives (models/transformer.py)
+        from .parallel.tensor_parallel import TensorParallel
+
+        if model is None or not hasattr(model, "tp") or (
+                loss_fn is not None and loss_fn != model.loss_fn):
+            raise ConfigError("a model axis needs model= (a models.CausalLM) whose loss the "
+                              "engine runs: a raw loss_fn has no layers to split")
+        tp = model.tp = TensorParallel(grid, model.cfg)
     if loss_fn is None:
         if model is None:
             raise ValueError("initialize() needs model= or (loss_fn, params)")
         loss_fn = model.loss_fn
     from .runtime.zero import DeferredParams
 
-    sliced = grid is not None and cfg.zero_optimization.stage >= 1
+    # each rank keeps its slices of each leaf as it is drawn (under a model
+    # axis the tree is drawn whole on the host and cut to the rank's shard)
+    sliced = grid is not None and cfg.zero_optimization.stage >= 1 and tp is None
     if params is None:
         if model is None:
             raise ValueError("initialize() needs params with a bare loss_fn")

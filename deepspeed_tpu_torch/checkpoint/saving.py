@@ -47,13 +47,15 @@ restored from there.  ``export_fp32_state_dict`` reads the masters from
 the swap files or from host memory, never from the compute copy.
 
 Across the ranks of a process grid every rank calls save and load.  The
-state is the logical one at any stage: a ZeRO engine gathers its masters
-and moments from the slices (``engine.master_tree`` /
-``logical_opt_state``, collectives), rank 0 alone writes the tag, and
+state is the logical one at any stage: a ZeRO engine, or one with a
+``model`` axis, gathers its masters and moments from the slices and the
+tensor-parallel shards (``engine.master_tree`` / ``logical_opt_state``,
+collectives over ``fsdp`` and ``model``), rank 0 alone writes the tag, and
 every rank waits for it before it returns.  A load reads the logical
 tensors on every rank, which then takes its own slices
-(``engine.load_logical_state``), so a save at one world size (or on one
-device) loads at another, and the fp32 export gathers the shards.
+(``engine.load_logical_state``), so a save at one world size or
+``model`` size (or on one device) loads at another, and the fp32 export
+gathers the shards.
 
 With curriculum learning on, ``meta.json`` carries the scheduler's state
 under ``curriculum`` and a load restores it, as JAX does (its
@@ -278,7 +280,7 @@ def _state_tree(engine) -> Dict[str, Any]:
     gathered into whole leaves (a collective), the rest the engine's own
     tensors."""
     ls = engine.loss_scale_state
-    sharded = getattr(engine, "_zero", None) is not None
+    sharded = getattr(engine, "holds_shards", False)
     return {
         "step": engine.device_step,
         "params": engine.master_tree() if sharded else engine.params,
@@ -307,9 +309,9 @@ def _world_barrier(engine) -> None:
     grid = getattr(engine, "grid", None)
     if grid is not None:
         from ..comm import comm
-        from ..parallel.topology import BATCH_AXES
+        from ..parallel.topology import GRID_AXES
 
-        comm.barrier(BATCH_AXES, mesh=grid)
+        comm.barrier(GRID_AXES, mesh=grid)
 
 
 # ---------------------------------------------------------------------------
@@ -455,7 +457,7 @@ def load_checkpoint(engine, load_dir: str, tag: Optional[str] = None,
     if not load_optimizer_states:
         targets = {k: v for k, v in targets.items() if not k.startswith("opt_state/")}
     ce.load(os.path.join(path, "state"), targets)
-    if getattr(engine, "_zero", None) is not None:  # this rank's slices of the whole leaves
+    if getattr(engine, "holds_shards", False):  # this rank's slices of the whole leaves
         engine.load_logical_state(tree["params"],
                                   tree["opt_state"] if load_optimizer_states else None)
     nvme = getattr(engine, "_nvme_opt", None)
@@ -501,6 +503,6 @@ def export_fp32_state_dict(engine):
             return {k: walk(v) for k, v in node.items()}
         return node.detach().to("cpu", copy=True)
 
-    if getattr(engine, "_zero", None) is not None:  # the shards gathered (every rank calls)
+    if getattr(engine, "holds_shards", False):  # the shards gathered (every rank calls)
         return walk(engine.master_tree())
     return walk(engine.params)

@@ -23,7 +23,10 @@ from one to the other.
 
 ``CommsLogger`` (JAX :64, the reference's ``utils/comms_logging.py:67``)
 counts each op and its payload bytes under ``"<op>@<axis>"`` when the
-``comms_logger`` section is enabled (``configure``).  JAX keeps one logger
+``comms_logger`` section is enabled (``configure``): the tensor-parallel
+collectives land under ``"all_reduce@model"`` / ``"all_gather@model"``
+(and the quantized transport's ``"all_to_all@model"``) beside the
+data-parallel ones.  JAX keeps one logger
 a process; the port keeps it on the grid (``ProcessGrid.comms_logger``),
 so each engine's collectives land in its own grid's logger.  JAX counts
 at trace time; the port counts every call, as the reference does.

@@ -62,8 +62,10 @@ An unknown key raises ``ConfigError`` naming it, as in JAX.  A key the JAX
 package knows but the port does not run yet is accepted at JAX's default
 and raises ``NotImplementedError`` naming it and its ROADMAP queue-1 item
 when its value differs (``_UNPORTED_TOP``, ``_UNPORTED_ZERO``): a mesh
-axis ``model`` / ``seq`` / ``expert`` / ``stage`` above 1, tensor
-parallelism, ``serve.quant_comm`` and ``comm_tiles`` are item 7.  The
+axis ``seq`` / ``expert`` / ``stage`` above 1 is item 7.  ``mesh.model``
+and ``tensor_parallel`` (its ``domino_chunks``) run in a process world
+(``initialize``); ``serve.quant_comm`` / ``comm_tiles`` and
+``serve_engine.tp`` run on a serving engine over a ``model`` grid.  The
 reference keys JAX accepts and ignores are accepted and ignored here too.
 """
 from __future__ import annotations
@@ -86,13 +88,10 @@ class ConfigError(ValueError):
 # the ROADMAP queue-1 item that ports it).  A key is refused only when its
 # value differs from JAX's default, which an enabled section always does; at
 # the default it is accepted and changes nothing, as in JAX.
-_UNPORTED_TOP = {
-    "tensor_parallel": (("TensorParallelConfig", dict(enabled=False, tp_size=1,
-                                                      domino_chunks=1)), 7),
-}
-# mesh axes the port does not run across ranks yet (tensor, sequence,
-# expert and pipeline parallelism): above 1 the ``mesh`` key is refused
-_UNPORTED_MESH_AXES = ("model", "seq", "expert", "stage")
+_UNPORTED_TOP: Dict[str, Any] = {}
+# mesh axes the port does not run across ranks yet (sequence, expert and
+# pipeline parallelism): above 1 the ``mesh`` key is refused
+_UNPORTED_MESH_AXES = ("seq", "expert", "stage")
 # zero_optimization keys the port does not run yet: (JAX's default, item)
 _UNPORTED_ZERO: Dict[str, Any] = {}
 # reference keys JAX accepts and deliberately ignores (config.py:1100)
@@ -564,7 +563,10 @@ class HybridEngineConfig:
 class MeshConfig:
     """JAX's ``MeshConfig`` (config.py:727): axis sizes, 0 inferred
     (``initialize`` gives the leftover ranks to ``fsdp`` under ZeRO >= 1,
-    else to ``data``).  ``model``, ``seq``, ``expert`` and ``stage`` above 1
+    else to ``data``).  A section that names ``model`` trains
+    tensor-parallel over that axis in a process world, at any size, 1
+    included (``model_given``, set by ``parse_config``; not a field, so the
+    section still equals JAX's).  ``seq``, ``expert`` and ``stage`` above 1
     are refused at parse time (ROADMAP queue 1 item 7)."""
 
     data: int = 0
@@ -573,6 +575,25 @@ class MeshConfig:
     seq: int = 1
     expert: int = 1
     stage: int = 1
+    model_given = False  # a class attribute: the section named ``model``
+
+
+@dataclass
+class TensorParallelConfig:
+    """JAX's ``TensorParallelConfig`` (config.py:751): ``domino_chunks``
+    batch chunks a layer runs one after another (``initialize`` sets it on
+    the model's config).  The ``mesh.model`` size is the axis;
+    ``enabled`` and ``tp_size`` are accepted and read by nothing, as in
+    JAX."""
+
+    enabled: bool = False
+    tp_size: int = 1
+    domino_chunks: int = 1
+
+    def __post_init__(self):
+        if self.domino_chunks < 1:
+            raise ConfigError(f"tensor_parallel.domino_chunks must be >= 1, got "
+                              f"{self.domino_chunks}")
 
 
 @dataclass
@@ -635,6 +656,7 @@ class Config:
     elasticity: Dict[str, Any] = field(default_factory=dict)
     compile: CompileConfig = field(default_factory=CompileConfig)
     mesh: MeshConfig = field(default_factory=MeshConfig)
+    tensor_parallel: TensorParallelConfig = field(default_factory=TensorParallelConfig)
     comms_logger: CommsLoggerConfig = field(default_factory=CommsLoggerConfig)
     dp_world_size: int = 1  # derived by finalize
 
@@ -850,10 +872,11 @@ class ServeConfig:
     ``enabled=False`` is token-identical to no controller.
     ``autotuning.attach_controller(engine)`` reads it.
 
-    Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
-    item when set away from its default: ``quant_comm`` and ``comm_tiles``
-    (tensor-parallel serving, item 7).  ``fused_serving=False`` is refused
-    as the engine's own argument is (item 7)."""
+    ``quant_comm`` / ``comm_tiles``: the transport of a tensor-parallel
+    engine's row-parallel partial sums (``comm/qcomm.py``
+    ``q_psum_tiled``); an engine without a model axis reads neither.
+    ``fused_serving=False`` is refused as the engine's own argument is
+    (item 7)."""
 
     deadline_ms: Optional[float] = None
     ttft_deadline_ms: Optional[float] = None
@@ -896,9 +919,6 @@ class ServeConfig:
         if self.watchdog_grace_ticks < 1:
             raise ConfigError(
                 f"serve.watchdog_grace_ticks must be >= 1, got {self.watchdog_grace_ticks}")
-        for k in ("quant_comm", "comm_tiles"):
-            if getattr(self, k) != ServeConfig.__dataclass_fields__[k].default:
-                raise NotImplementedError(f"serve.{k} is not ported yet {_ITEM7}")
         if self.fused_serving is False:
             raise NotImplementedError(f"serve.fused_serving=False is not ported yet {_ITEM7}")
 
@@ -912,9 +932,11 @@ class ServeEngineConfig:
     worker of ``serving.build_router``).
 
     ``seq_shards`` > 1 makes ``build_serve_engine`` bring up the one-card seq grid
-    (``initialize_mesh(devices=[dev] * S, seq=S)``).  ``tp`` > 1,
-    ``serve_replicas`` > 1 and ``quant_comm`` other than 'none' are not
-    ported yet and raise ``NotImplementedError`` naming ROADMAP item 7."""
+    (``initialize_mesh(devices=[dev] * S, seq=S)``).  ``tp`` > 1 serves
+    over the ``model`` axis of a process world (``build_serve_engine`` in
+    each rank), with ``quant_comm`` / ``comm_tiles`` its transport.
+    ``serve_replicas`` > 1 is not ported yet and raises
+    ``NotImplementedError`` naming ROADMAP item 7."""
 
     max_seqs: int = 8
     num_blocks: int = 96
@@ -959,13 +981,9 @@ class ServeEngineConfig:
             raise ConfigError(
                 f"serve_engine.prefill_chunk must be >= 1 or None, got "
                 f"{self.prefill_chunk}")
-        for k in ("tp", "serve_replicas", "comm_tiles"):
-            if getattr(self, k) > 1:
-                raise NotImplementedError(
-                    f"serve_engine.{k}={getattr(self, k)} is not ported yet {_ITEM7}")
-        if self.quant_comm != "none":
+        if self.serve_replicas > 1:
             raise NotImplementedError(
-                f"serve_engine.quant_comm={self.quant_comm!r} is not ported yet {_ITEM7}")
+                f"serve_engine.serve_replicas={self.serve_replicas} is not ported yet {_ITEM7}")
 
     def engine_kwargs(self) -> Dict[str, Any]:
         """The ``InferenceEngineV2`` constructor kwargs this block encodes
@@ -984,6 +1002,8 @@ class ServeEngineConfig:
             serve_replicas=self.serve_replicas,
             seq_shards=self.seq_shards,
             seed=self.seed,
+            quant_comm=self.quant_comm,
+            comm_tiles=self.comm_tiles,
         )
 
 
@@ -1204,6 +1224,8 @@ def parse_config(source: Any, dp_world_size: Optional[int] = None) -> Config:
     raw = _strip_auto(raw)
     _refuse_unported(raw)
     cfg = _coerce(Config, raw)
+    if isinstance(raw.get("mesh"), dict) and "model" in raw["mesh"]:
+        cfg.mesh.model_given = True
     if cfg.nebula.enabled:
         # nebula is an async checkpoint service: the async engine (JAX)
         cfg.checkpoint.async_save = True

@@ -13,8 +13,14 @@ choice: the flash kernel where JAX's ``supports()`` holds (a prefill that
 fills the whole cache), the plain body everywhere else
 (``transformer.CACHE_ATTENTION`` counts both).
 
-One device: a ``mesh`` of more than one device (JAX's tensor-parallel
-sharding of the parameters) is ROADMAP queue 1 item 7 and raises.
+``mesh`` a ``ProcessGrid`` with a ``model`` axis (JAX ``:33-49``: the
+parameters on the model's TP rules) serves over the ranks of a
+``torch.distributed`` world: each rank keeps its shard of the tree
+(``parallel.tensor_parallel.TensorParallel``, the training layout), runs
+``forward(tp=...)`` (the Megatron collectives; the dense cache holds its
+kv heads) and gathers the logits' vocab shards, so every rank samples the
+same tokens with the same generator.  A mesh of several devices in one
+process is ROADMAP queue 1 item 7 and raises.
 """
 from __future__ import annotations
 
@@ -23,7 +29,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from ..models.transformer import CausalLM, forward, init_kv_cache, lm_logits
+from ..models.transformer import CausalLM, forward, init_kv_cache, lm_logits, tp_head
 from ..ops.kernels import resolve_device
 from .sampling import SamplingParams, sample
 
@@ -40,11 +46,17 @@ class InferenceEngine:
     """Batch generation with a dense per-sequence KV cache."""
 
     def __init__(self, model, params, max_seq_len: Optional[int] = None, seed: int = 0,
-                 device=None):
+                 device=None, mesh=None):
         self.model = model
         self.cfg = model.cfg
         self.device = resolve_device(device)
         self.max_seq_len = max_seq_len or self.cfg.max_seq_len
+        self.tp = None  # the model axis of a tensor-parallel engine
+        if mesh is not None:
+            from ..parallel.tensor_parallel import TensorParallel
+
+            self.tp = TensorParallel(mesh, self.cfg)
+            params = self.tp.shard_tree(params)
         self.params = _cast(params, self.cfg.dtype, self.device)
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
 
@@ -52,7 +64,7 @@ class InferenceEngine:
     def prefill(self, tokens: torch.Tensor, cache):
         """Prompts [b, s] at cache index 0 -> (last logits [b, v] fp32, cache)."""
         hidden, cache, _ = forward(self.params, tokens, self.cfg, cache=cache, cache_index=0,
-                                   return_hidden=True)
+                                   return_hidden=True, tp=self.tp)
         return self._logits(hidden[:, -1]), cache
 
     @torch.no_grad()
@@ -60,11 +72,13 @@ class InferenceEngine:
         """One token per row [b, 1] at cache index ``pos`` -> (logits [b, v]
         fp32, cache)."""
         hidden, cache, _ = forward(self.params, tok, self.cfg, cache=cache, cache_index=pos,
-                                   return_hidden=True)
+                                   return_hidden=True, tp=self.tp)
         return self._logits(hidden[:, -1]), cache
 
     def _logits(self, h: torch.Tensor) -> torch.Tensor:
-        return lm_logits(self.params, self.cfg, h).float()
+        if self.tp is None:
+            return lm_logits(self.params, self.cfg, h).float()
+        return self.tp.gather_vocab(tp_head(self.params, self.cfg, h, self.tp).float())
 
     def generate(self, tokens, sampling: SamplingParams = SamplingParams()) -> np.ndarray:
         """Prompts [b, s] (equal lengths) -> [b, n] generated ids, n =
@@ -73,7 +87,7 @@ class InferenceEngine:
         tokens = torch.as_tensor(np.asarray(tokens), dtype=torch.long).to(self.device)
         b, s = tokens.shape
         total = min(self.max_seq_len, s + sampling.max_new_tokens)
-        cache = init_kv_cache(self.cfg, b, total, device=self.device)
+        cache = init_kv_cache(self.cfg, b, total, device=self.device, tp=self.tp)
         logits, cache = self.prefill(tokens, cache)
         outs = []
         pos = s
@@ -95,8 +109,17 @@ def init_inference(model, params: Any = None, mesh=None, seed: int = 0, device=N
     directory, streamed onto the device through
     ``checkpoint.load_hf_checkpoint``.  ``device`` is CUDA unless the
     caller names another; ``kw`` goes to ``InferenceEngine``
-    (``max_seq_len``)."""
-    if mesh is not None:
+    (``max_seq_len``).  ``mesh``: a ``ProcessGrid`` whose ``model`` axis
+    the engine serves over (its device the engine's)."""
+    from ..parallel.topology import ProcessGrid
+
+    if isinstance(mesh, ProcessGrid):
+        if any(mesh.axis_size(a) > 1 for a in ("data", "fsdp", "sub")):
+            raise NotImplementedError("init_inference over a batch axis is not ported yet "
+                                      "(ROADMAP queue 1 item 7)")
+        kw["mesh"] = mesh
+        device = mesh.device if device is None else device
+    elif mesh is not None:
         devices = getattr(mesh, "devices", [None])
         if len(devices) > 1:
             raise NotImplementedError(

@@ -53,8 +53,27 @@ device halves (``serving/handoff.py``): inject writes the existing pool
 tensors in place, so a captured burst graph keeps reading the live pool.
 ``build_serve_engine`` builds an engine from a ``ServeEngineConfig``.
 
+``grid=`` a ``ProcessGrid`` with a ``model`` axis (``initialize_mesh(
+model=tp)`` in each rank of a ``torch.distributed`` world; JAX's
+``engine_v2.py:95-130``, ``:186-215``) serves one model split over the
+ranks: each keeps its shard of the tree (``TensorParallel.
+shard_serving_tree``: the AutoTP layout at head granularity, a GQA model
+whose kv heads do not divide the axis keeping the kv head its q heads
+read; a quantized tree is quantized whole first, the FP6 row kernels
+packed per K-chunk), its pool holds its kv heads, and the runner reduces
+the row-parallel partial sums over ``model`` (``quant_comm`` /
+``comm_tiles``: the transport, ``comm/qcomm.py``) and gathers the
+logits' vocab shards.  The host side (scheduler, allocator, prefix cache)
+runs the same on every rank, and every rank samples the same logits with
+the same generator, so the ranks draw the same tokens and schedule the
+same work.  Refused over a model axis, naming item 7: the batch axis and
+``serve_replicas``, seq shards, speculation, decode bursts (``step_n`` /
+``decode_megastep`` > 1: a CUDA graph over the collectives), MoE, and the
+``serve`` knobs that read a rank's own clock (deadlines, the watchdog:
+the ranks' schedulers would decide apart).
+
 Not ported yet, and refused loudly rather than ignored: weight offload,
-tensor-parallel and replica meshes and seq shards on distinct devices
+replica meshes and seq shards on distinct devices
 (ROADMAP queue 1 item 7), ``fused_serving=False`` (the JAX jnp-body lever:
 on the card that body is a kernel's plain version), and the ``serve``
 fields of items 6 and 7 (``config.ServeConfig``).  Every dispatch raises
@@ -81,7 +100,7 @@ from ..ops.quantizer import (
     quantize_serving_params,
     tree_nbytes,
 )
-from ..parallel.topology import Grid, normalize_device
+from ..parallel.topology import BATCH_AXES, Grid, ProcessGrid, normalize_device
 from ..telemetry import StatsView, Telemetry, device_ready
 from . import model_runner, speculative
 from .paged import init_paged_cache
@@ -170,6 +189,8 @@ class InferenceEngineV2:
         telemetry=None,
         faults=None,
         device=None,
+        quant_comm: Optional[str] = None,
+        comm_tiles: Optional[int] = None,
     ):
         # the serving config block (a ServeConfig or a dict); the fields the
         # port does not run yet raise in ServeConfig itself
@@ -183,14 +204,20 @@ class InferenceEngineV2:
         if refused:
             raise NotImplementedError(f"not ported yet: {', '.join(refused)}")
         sq = int(seq_shards)
-        if grid is not None:
+        self.tp = None  # the model axis of a tensor-parallel engine
+        if isinstance(grid, ProcessGrid):
+            self.tp = self._tp_checks(grid, cfg, sq, enable_speculation, self.serve)
+            if device is None:
+                device = grid.device
+        elif grid is not None:
             if not isinstance(grid, Grid):
                 raise TypeError("grid must be a deepspeed_tpu_torch.parallel.topology.Grid "
                                 "(initialize_mesh)")
             if grid.spec.model > 1 or grid.spec.data > 1:
                 raise NotImplementedError(
-                    f"a grid with model {grid.spec.model} / batch {grid.spec.data} is not "
-                    "ported yet (ROADMAP queue 1 item 7)")
+                    f"a one-process grid with model {grid.spec.model} / batch "
+                    f"{grid.spec.data} is not ported yet (ROADMAP queue 1 item 7); a model "
+                    "axis serves over a ProcessGrid, one rank a device")
             if device is None:
                 device = grid.devices[0]
         # seq-sharded pool: ``seq_shards`` > 1 slices the block pool over the
@@ -214,20 +241,33 @@ class InferenceEngineV2:
             raise ValueError("spec_min_match must be >= 1 when speculating")
         model_runner._check_family(cfg)
         self.device = resolve_device(device)
-        if grid is not None and any(d != normalize_device(self.device) for d in grid.devices):
+        if self.tp is not None and self.device != grid.device:
+            raise ValueError(f"the grid's device {grid.device} is not the engine's device "
+                             f"{self.device}")
+        if isinstance(grid, Grid) and any(d != normalize_device(self.device)
+                                          for d in grid.devices):
             raise ValueError(f"the grid's devices {[str(d) for d in grid.devices]} are not "
                              f"the engine's device {self.device}")
         self.seq_shards = sq
         self._mesh = grid if sq > 1 else None
         self.cfg = cfg
+        # the runner's config: a tensor-parallel rank's local heads
+        self._run_cfg = cfg if self.tp is None else self.tp.local_cfg
         self.quantize_weights = quantize_weights
+        tp_size = self.tp.size if self.tp is not None else 1
         if quantize_weights is None:
+            if self.tp is not None:
+                params = self.tp.shard_serving_tree(params)
             self.params = _to_device(params, self.device)
         else:
             # on the device, one layer slice at a time; only the quantized
-            # tree is kept
+            # tree is kept (a tensor-parallel rank then cuts its shard)
             before = tree_nbytes(params)
-            self.params = quantize_serving_params(params, quantize_weights, device=self.device)
+            self.params = quantize_serving_params(params, quantize_weights,
+                                                  row_parallel_shards=tp_size,
+                                                  device=self.device)
+            if self.tp is not None:
+                self.params = self.tp.shard_serving_tree(self.params)
             logger.info("quantized-weight serving (%s): params %.1f MiB -> %.1f MiB",
                         quantize_weights, before / 2**20, tree_nbytes(self.params) / 2**20)
         self.block_size = block_size
@@ -242,7 +282,18 @@ class InferenceEngineV2:
         self.spec_max_draft = spec_max_draft
         self.spec_min_match = spec_min_match
         self.spec_lookup_window = spec_lookup_window
-        self.serving_ctx = ServingContext()
+        # the row-parallel transport (comm/qcomm.py): the argument, else the
+        # serve block; at a model axis of one there is no partial sum to
+        # move, so the sums stay exact (JAX ``engine_v2.py:292``)
+        from ..comm.qcomm import _check_fmt
+
+        self.quant_comm = _check_fmt(quant_comm if quant_comm is not None
+                                     else self.serve.quant_comm)
+        self.comm_tiles = max(int(comm_tiles if comm_tiles is not None
+                                  else self.serve.comm_tiles), 1)
+        self.serving_ctx = ServingContext(
+            tp=self.tp, comm_fmt=self.quant_comm if tp_size > 1 else "none",
+            comm_tiles=self.comm_tiles)
         # chaos harness (inference/faults.py): a seeded FaultInjector whose
         # points fire at this engine's dispatch sites and in the allocator's
         # growth path; None = every check is a no-op
@@ -275,7 +326,7 @@ class InferenceEngineV2:
         self.prefill_budget = min(prefill_budget or self.prefill_buckets[-1],
                                   self.prefill_buckets[-1])
         self.kv = init_paged_cache(cfg.num_layers, num_blocks, block_size,
-                                   cfg.num_kv_heads, cfg.hd, dtype=cfg.dtype,
+                                   self._run_cfg.num_kv_heads, cfg.hd, dtype=cfg.dtype,
                                    device=self.device, max_seqs=max_seqs)
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
         self._burst_cap = 64  # step_n accumulator rows (doubles on demand)
@@ -283,6 +334,29 @@ class InferenceEngineV2:
         # host block-table mirror, handed to every decode dispatch
         self._tables_np = np.full((max_seqs, self.max_pages), -1, np.int32)
         self.mgr.cow_hook = self._cow
+
+    @staticmethod
+    def _tp_checks(grid, cfg: TransformerConfig, seq_shards: int, speculation: bool, serve):
+        """A process grid serves over its ``model`` axis alone; what does not
+        compose with it yet raises naming item 7.  The ranks' schedulers must
+        decide alike, so knobs that read each rank's own clock (deadlines,
+        the watchdog) are refused too."""
+        from ..parallel.tensor_parallel import TensorParallel
+
+        others = {a: grid.axis_size(a) for a in BATCH_AXES if grid.axis_size(a) > 1}
+        clocked = [k for k in ("deadline_ms", "ttft_deadline_ms", "watchdog_tick_ms")
+                   if getattr(serve, k) is not None]
+        refused = [what for what, on in (
+            (f"a batch / replica axis ({others})", bool(others)),
+            ("seq shards", seq_shards > 1),
+            ("speculation", speculation),
+            ("decode bursts (serve.decode_megastep > 1)", serve.decode_megastep > 1),
+            (f"serve.{'/'.join(clocked)} (each rank's own clock)", bool(clocked)),
+        ) if on]
+        if refused:
+            raise NotImplementedError(f"{', '.join(refused)} with a model axis is not ported "
+                                      "yet (ROADMAP queue 1 item 7)")
+        return TensorParallel(grid, cfg)
 
     def _cow(self, src: int, dst: int) -> None:
         """Copy-on-write page clone, in place in every layer pool."""
@@ -399,12 +473,12 @@ class InferenceEngineV2:
                                             self._c["prefill_dispatches"].value + 1):
             if use_ctx:
                 logits, self.kv = model_runner.prefill_packed_ctx(
-                    self.params, self.cfg, tokens, seg, pos, pack_pages, last_idx,
+                    self.params, self._run_cfg, tokens, seg, pos, pack_pages, last_idx,
                     ctx_tables, ctx_lens, self.kv, ctx=self.serving_ctx, mesh=self._mesh,
                     seq_shards=self.seq_shards)
             else:
                 logits, self.kv = model_runner.prefill_packed(
-                    self.params, self.cfg, tokens, seg, pos, pack_pages, last_idx,
+                    self.params, self._run_cfg, tokens, seg, pos, pack_pages, last_idx,
                     self.kv, ctx=self.serving_ctx)
         sp.dispatched()
         self._c["prefill_tokens_dispatched"].inc(n_real)
@@ -629,7 +703,7 @@ class InferenceEngineV2:
         draft_dev = torch.from_numpy(draft).to(self.device)
         n_draft_dev = torch.from_numpy(n_draft).to(self.device)
         logits, self.kv = model_runner.verify_packed_ctx(
-            self.params, self.cfg, tokens, seg, pos, dst_pages, dst_offs,
+            self.params, self._run_cfg, tokens, seg, pos, dst_pages, dst_offs,
             self._tables_np, ctx_lens, self.kv, ctx=self.serving_ctx, mesh=self._mesh,
             seq_shards=self.seq_shards)
         B, K = draft.shape
@@ -672,7 +746,7 @@ class InferenceEngineV2:
             batch=len(active_seqs))
         with self.telemetry.step_annotation("decode_tick", self._c["decode_ticks"].value + 1):
             logits, self.kv = model_runner.decode_step(
-                self.params, self.cfg, tokens, seq_lens, self._tables_np, active,
+                self.params, self._run_cfg, tokens, seq_lens, self._tables_np, active,
                 self.kv, ctx=self.serving_ctx, mesh=self._mesh, seq_shards=self.seq_shards)
         sp.dispatched()
         self._c["decode_ticks"].inc()
@@ -750,7 +824,7 @@ class InferenceEngineV2:
         rows that emitted; the next token is clamped to >= 0.  Reads
         nothing back to the host: a CUDA graph holds it."""
         logits, _ = model_runner.decode_body(
-            self.params, self.cfg, st.tokens, st.lens, st.tables, st.active, self.kv,
+            self.params, self._run_cfg, st.tokens, st.lens, st.tables, st.active, self.kv,
             ctx=self.serving_ctx, mesh=self._mesh, seq_shards=self.seq_shards)
         sampled = finite_guard(logits, sample(logits, sampling, self._gen))
         act_i = st.active.int()
@@ -911,6 +985,10 @@ class InferenceEngineV2:
         checked on the device, so the tokens equal those of ``n`` per-tick
         ``step()`` calls.  Returns {uid: last kept token} (-1 for a
         poisoned row, as ``step()``)."""
+        if self.tp is not None:
+            raise NotImplementedError("decode bursts with a model axis (a CUDA graph over "
+                                      "the collectives) are not ported yet (ROADMAP queue 1 "
+                                      "item 7): serve it per tick (decode_megastep 1)")
         active_seqs = [s for s in self.mgr.active if not s.done]
         if not active_seqs or n <= 0:
             return {}
@@ -1108,16 +1186,20 @@ def build_serve_engine(params, cfg, sec, *, telemetry=None, serve=None, faults=N
     """The config -> engine seam (JAX ``build_serve_engine``): an
     ``InferenceEngineV2`` from a ``config.ServeEngineConfig`` (or a dict
     coerced into one).  ``seq_shards`` > 1 brings up the one-card seq grid
-    (``initialize_mesh(devices=[dev] * S, seq=S)``); ``tp`` /
-    ``serve_replicas`` > 1 are refused by the config (ROADMAP queue 1 item
-    7).  ``device``: CUDA unless the caller names another."""
+    (``initialize_mesh(devices=[dev] * S, seq=S)``); ``tp`` > 1 the
+    ``model`` axis of the ``torch.distributed`` world this process is a
+    rank of (every rank calls it); ``serve_replicas`` > 1 is refused by the
+    config (ROADMAP queue 1 item 7).  ``device``: CUDA unless the caller
+    names another."""
     from ..config.config import ServeEngineConfig
     from ..parallel.topology import initialize_mesh
 
     sec = sec if isinstance(sec, ServeEngineConfig) else _coerce(ServeEngineConfig, dict(sec))
     dev = resolve_device(device)
     grid = None
-    if sec.seq_shards > 1:
+    if sec.tp > 1:
+        grid = initialize_mesh(model=sec.tp, device=dev)
+    elif sec.seq_shards > 1:
         grid = initialize_mesh(devices=[dev] * sec.seq_shards, seq=sec.seq_shards)
     return InferenceEngineV2(params, cfg, grid=grid, telemetry=telemetry, serve=serve,
                              faults=faults, device=dev, **sec.engine_kwargs())

@@ -14,6 +14,13 @@ it.  Each function
 returns ``(logits fp32, (k_pools, v_pools))`` like the JAX one; the pools
 are the caller's tensors, updated in place.
 
+Under a tensor-parallel ``ctx`` (``ops.quantizer.ServingContext.tp``) the
+runner takes the rank's local ``cfg`` (its q and kv heads) and its shard
+of the tree: the attention runs on the local heads against a pool of the
+local kv heads, the row-parallel ``wo`` / ``w_down`` reduce their partial
+sums over ``model`` in ``serving_mm``, and the logits gather the vocab
+shards.
+
 Attention goes through the CUDA kernels on a CUDA device (flash prefill,
 paged decode, packed-context) and through their plain bodies on the CPU;
 so do the matmuls of a quantized tree (``serving_mm``: the dequant-matmul
@@ -112,7 +119,15 @@ def _attn_out(lw, x, ctx=None):
 
 
 def _lm_logits(params, cfg, x, ctx=None):
-    return serving_mm(x, head_kernel(params, cfg), head_bias_vec(params), ctx=ctx).float()
+    """fp32 logits [..., vocab]; a tensor-parallel rank computes its vocab
+    shard (a tied head reads its rows of the whole table) and gathers the
+    others' (every rank then holds the same logits)."""
+    tp = ctx.tp if ctx is not None else None
+    if tp is None or not tp.vocab_sharded:
+        return serving_mm(x, head_kernel(params, cfg), head_bias_vec(params), ctx=ctx).float()
+    w = (tp.head_rows(params["embed"]["embedding"]).t().to(cfg.dtype) if cfg.tie_embeddings
+         else params["lm_head"]["kernel"])
+    return tp.gather_vocab(serving_mm(x, w, head_bias_vec(params)).float())
 
 
 def _embed(params, cfg, tokens, positions):

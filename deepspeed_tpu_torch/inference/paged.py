@@ -18,6 +18,17 @@ target, and no dropped slot touches a real row.
 Attention over the pool dispatches to the CUDA kernels on a CUDA tensor and
 to the plain bodies on a CPU tensor (``ops/kernels``).
 
+Tensor-parallel serving (JAX's ``_paged_attention_packed_ctx_tp``,
+``:203-325``, and ``_paged_attention_decode_tp``, ``:593-695``): a rank of
+the ``model`` axis is its own process, so its attention region is the
+plain call on its own heads.  Its pool holds the kv heads JAX's
+``kv_pool_pspec`` (``:516``) gives it -- a ``1 / tp`` slice when ``tp``
+divides the kv heads -- and, where it does not, the kv head its q heads
+read, which JAX's replicated pool leaves each rank to pick
+(``narrow_kv``, ``:260-283``): the rank computes only that head
+(``parallel.tensor_parallel.TensorParallel.serving_placement``).  K3 /
+K2 take the local q heads against it as any query group.
+
 Seq-sharded serving (``seq_shards = S > 1``, JAX's ``_paged_attention_
 decode_tp`` / ``_paged_attention_packed_ctx_tp`` at one replica and no
 tensor parallelism): the pool's block dim splits into ``S`` contiguous
@@ -31,7 +42,8 @@ log-sum-exp in the order JAX's ``S-1``-hop ring leaves them on shard 0.
 Here the shards run in one process on one device, so a shard's slice is a
 view of the one pool and page writes and copy-on-write keep their global
 block ids; placing the shards on separate devices is ROADMAP queue 1
-item 7 (a ``mesh`` with ``model > 1`` or ``dp > 1`` raises).
+item 7 (a ``mesh`` with ``model > 1`` or ``dp > 1`` raises: seq shards
+with a model axis stay refused).
 """
 from __future__ import annotations
 
@@ -194,13 +206,14 @@ def write_spec_kv(cache_layer: torch.Tensor, kv: torch.Tensor, pages, offsets) -
 # attention over the pool
 # ---------------------------------------------------------------------------
 def _single_device(mesh, dp: int) -> None:
-    """What this module runs: one replica, no tensor parallelism; the seq
-    shards of a grid's ``seq`` axis on its one device."""
+    """What the seq-shard mesh runs: one replica, no model axis beside the
+    seq shards of a grid's ``seq`` axis on its one device (a tensor-parallel
+    rank attends over its own heads with no mesh)."""
     tp = mesh.spec.model if mesh is not None else 1
     if tp > 1 or dp != 1:
         raise NotImplementedError(
-            f"tensor-parallel (model {tp}) / replica (dp {dp}) serving is not ported yet "
-            "(ROADMAP queue 1 item 7)")
+            f"seq shards with a model axis (model {tp}) / replicas (dp {dp}) are not ported "
+            "yet (ROADMAP queue 1 item 7)")
 
 
 def seq_shard_tables(block_table: torch.Tensor, num_blocks: int,

@@ -63,12 +63,31 @@ attention input and the MLP input with a straight-through estimator (JAX
 ``transformer.py:480-505``); a parallel block's MLP reads the quantized
 attention input, as in JAX.
 
+Manual Megatron tensor parallelism (JAX ``decoder_layer``'s ``tp_axis``,
+``transformer.py:421-540``): ``CausalLM.tp`` (or ``forward(tp=...)``), a
+``parallel.tensor_parallel.TensorParallel``, runs each rank's shard of the
+tree — the local heads and MLP columns, the row-parallel ``wo`` /
+``w_down`` — between the ``f`` / ``g`` pair: ``f`` (``_CopyToModel``,
+JAX ``_tp_copy_fn``) is the identity forward and all-reduces its
+gradient over ``model``, ``g`` (``_ReduceFromModel``, JAX ``_tp_psum_fn``)
+all-reduces the row-parallel partial sums forward and passes the
+gradient through.  A row-parallel bias is added once, after ``g``.  The
+embedding and the head are vocab-parallel where the vocab divides the
+axis: a masked lookup then ``g``; the head's local logits go to
+``vocab_parallel_cross_entropy`` (the max and the sum of exponentials
+all-reduced, the label's logit from the rank that owns it), which equals
+``cross_entropy_loss`` over the whole logits and never forms them.
+``tp_rules(cfg)`` is JAX's rule list (GSPMD's layout; a rank's shard
+follows AutoTP's, ``parallel/tensor_parallel.py``).
+
+``domino_chunks`` (JAX ``transformer.py:620-650``): each layer runs its
+batch in ``C`` row chunks, one after another, and concatenates them; the
+value is that of one chunk (only the collectives' overlap would differ).
+With MoE it is a ``ValueError``, as in JAX.
+
 Not ported, each refused with ``NotImplementedError`` naming the option and
-its ROADMAP queue-1 item: ``domino_chunks`` (item 7),
-sequence parallelism (item 7),
-``CausalLM(stack_apply=...)`` (item 7: pipeline).  Manual tensor
-parallelism (JAX ``decoder_layer``'s ``tp_axis``, item 7) has no
-counterpart here: one GPU.
+its ROADMAP queue-1 item: sequence parallelism (item 7),
+``CausalLM(stack_apply=...)`` (item 7: pipeline).
 """
 from __future__ import annotations
 
@@ -138,8 +157,9 @@ class TransformerConfig:
     sparse_attention: Optional[Any] = None
     # activation fake-quant bits (compression); None or 0 = off
     act_quant_bits: Optional[int] = None
-    # JAX options the port refuses so far (see the module docstring)
+    # sequence parallelism is refused so far (see the module docstring)
     sequence_parallel: str = "none"
+    # batch chunks a layer runs one after another (JAX's Domino overlap)
     domino_chunks: int = 1
 
     @property
@@ -449,7 +469,6 @@ def _refuse_unported(cfg: TransformerConfig) -> None:
     ROADMAP queue-1 item; never run a different computation quietly."""
     refused = [
         (cfg.sequence_parallel != "none", f"sequence_parallel={cfg.sequence_parallel!r}", 7),
-        (cfg.domino_chunks != 1, "domino_chunks", 7),
     ]
     for bad, what, item in refused:
         if bad:
@@ -459,6 +478,11 @@ def _refuse_unported(cfg: TransformerConfig) -> None:
                                   "bodies take no bias operand (as in JAX)")
     if cfg.remat not in _REMAT:
         raise ValueError(f"unknown remat policy {cfg.remat!r}; use one of {_REMAT}")
+    if cfg.domino_chunks < 1:
+        raise ValueError(f"domino_chunks must be >= 1, got {cfg.domino_chunks}")
+    if cfg.domino_chunks > 1 and cfg.moe_num_experts > 0:
+        raise ValueError("domino_chunks does not compose with MoE (per-chunk routing "
+                         "capacity changes token dropping)")
 
 
 def get_attn_fn(cfg: TransformerConfig, device) -> Callable:
@@ -556,17 +580,109 @@ def _attn_input(lw: Params, x, cfg: TransformerConfig):
     return _act_quant(norm(x, lw["attn_norm"], cfg.norm, cfg.norm_eps), cfg)
 
 
-def _pre_attention(lw: Params, x, cfg: TransformerConfig, rope_cs):
+# ---------------------------------------------------------------------------
+# manual tensor parallelism (JAX transformer.py:421-454)
+# ---------------------------------------------------------------------------
+def _model_all_reduce(x: torch.Tensor, tp, op: str = "sum") -> torch.Tensor:
+    """``x`` all-reduced over ``model`` into a new tensor: every collective
+    of the model's tensor-parallel regions goes through here."""
+    from ..comm import comm
+
+    return comm.all_reduce(x.clone(memory_format=torch.contiguous_format), tp.axis, op=op,
+                           mesh=tp.grid)
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Megatron's ``f``: the identity forward, the gradient all-reduced
+    over ``model`` (each rank's branch gradient is partial)."""
+
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _model_all_reduce(grad, ctx.tp), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """Megatron's ``g``: the row-parallel partial sums all-reduced over
+    ``model`` forward; the gradient of the sum is already whole on every
+    rank, so it passes through."""
+
+    @staticmethod
+    def forward(ctx, x, tp):
+        return _model_all_reduce(x, tp)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def tp_copy(x: torch.Tensor, tp) -> torch.Tensor:
+    return _CopyToModel.apply(x, tp)
+
+
+def tp_reduce(x: torch.Tensor, tp) -> torch.Tensor:
+    return _ReduceFromModel.apply(x, tp)
+
+
+def _tp_attn_weights(attn: Params, tp) -> Params:
+    """The attention weights a rank reads: its shards as they are; a
+    replicated kv projection narrowed to the kv head its q heads share,
+    through ``f`` so that its partial gradient sums over ``model``."""
+    if tp.kv_sharded:
+        return attn
+    out = dict(attn)
+    lo, n = tp.kv_head0 * tp.hd, tp.kv_heads * tp.hd
+    for name in ("wk", "wv", "bk", "bv"):
+        if name in attn:
+            out[name] = tp_copy(attn[name], tp).narrow(-1, lo, n)
+    return out
+
+
+def _pre_attention(lw: Params, x, cfg: TransformerConfig, rope_cs, tp=None):
     lw = fetch_layer(lw)
-    return _qkv(lw["attn"], _attn_input(lw, x, cfg), cfg, rope_cs)
+    a = _attn_input(lw, x, cfg)
+    if tp is None:
+        return _qkv(lw["attn"], a, cfg, rope_cs)
+    return _qkv(_tp_attn_weights(lw["attn"], tp), tp_copy(a, tp), tp.local_cfg, rope_cs)
 
 
-def _post_attention(lw: Params, x, o, cfg: TransformerConfig, dropless: bool = False):
+def _mlp_tp(mlp: Params, y, cfg: TransformerConfig, tp):
+    """A column / row-parallel MLP: the local columns, the partial sums
+    reduced, ``b_down`` added once."""
+    core = {k: v for k, v in mlp.items() if k != "b_down"}
+    out = tp_reduce(mlp_block(core, tp_copy(y, tp), cfg), tp)
+    return out + mlp["b_down"] if "b_down" in mlp else out
+
+
+def _post_attention_tp(lw: Params, x, o, cfg: TransformerConfig, tp):
+    attn = lw["attn"]
+    b, s = o.shape[:2]
+    h = tp_reduce(o.reshape(b, s, -1) @ attn["wo"], tp)
+    if "bo" in attn:
+        h = h + attn["bo"]
+    h = h.to(x.dtype)
+    if cfg.parallel_block:
+        m = _mlp_tp(lw["mlp"], _attn_input(lw, x, cfg), cfg, tp)
+        return x + h + m.to(x.dtype), None
+    x = x + h
+    y = _act_quant(norm(x, lw["mlp_norm"], cfg.norm, cfg.norm_eps), cfg)
+    return x + _mlp_tp(lw["mlp"], y, cfg, tp).to(x.dtype), None
+
+
+def _post_attention(lw: Params, x, o, cfg: TransformerConfig, dropless: bool = False,
+                    tp=None):
     """wo, residual, MLP norm, MLP (or the routed experts) and residual (a
     parallel block reads the attention norm for both branches and adds both
     to one residual).  Returns (x, MoE aux loss or None); ``dropless``
-    routes the experts without capacity (the cache path, as in JAX)."""
+    routes the experts without capacity (the cache path, as in JAX).
+    Under ``tp`` the row-parallel outputs go through ``g``."""
     lw = fetch_layer(lw)
+    if tp is not None:
+        return _post_attention_tp(lw, x, o, cfg, tp)
     h = _out_proj(lw["attn"], o).to(x.dtype)
     if cfg.parallel_block:
         m = mlp_block(lw["mlp"], _attn_input(lw, x, cfg), cfg)
@@ -580,17 +696,18 @@ def _post_attention(lw: Params, x, o, cfg: TransformerConfig, dropless: bool = F
 
 
 def decoder_layer(lw: Params, x: torch.Tensor, cfg: TransformerConfig, positions,
-                  attn_fn: Callable, segment_ids, rope_cs):
+                  attn_fn: Callable, segment_ids, rope_cs, tp=None):
     """Pre-norm residual block (dense MLP, routed experts, or the parallel
     block) -> (x, MoE aux or None).  JAX's ``attention_block`` is split in
     three here (``_qkv``, ``_attend``, ``_out_proj``) so that selective
     remat can keep the attention itself out of its two checkpoints;
     ``rope_cs`` is ``rope_tables`` over the rotary dims (None without
-    rope)."""
+    rope).  ``tp`` (a ``TensorParallel``; JAX's ``tp_axis``) runs this
+    rank's shard of the layer between the ``f`` / ``g`` pair."""
     lw = fetch_layer(lw)  # once for both halves
-    q, k, v = _pre_attention(lw, x, cfg, rope_cs)
+    q, k, v = _pre_attention(lw, x, cfg, rope_cs, tp)
     o = _attend(q, k, v, cfg, positions, attn_fn, segment_ids)
-    return _post_attention(lw, x, o, cfg)
+    return _post_attention(lw, x, o, cfg, tp=tp)
 
 
 # calls of each body by the dense-cache attention (``_attend_cache``)
@@ -629,17 +746,17 @@ def _attend_cache(q, k, v, cfg: TransformerConfig, positions, attn_fn, q_offset:
 
 
 def _cached_layer(lw: Params, x, cfg: TransformerConfig, positions, attn_fn, layer_cache,
-                  cache_index: int, rope_cs):
+                  cache_index: int, rope_cs, tp=None):
     """``decoder_layer`` over the dense cache: this layer's k / v written
     at ``cache_index`` (in place), attention over the whole cache, the
-    experts dropless."""
-    q, k, v = _pre_attention(lw, x, cfg, rope_cs)
+    experts dropless.  Under ``tp`` the cache holds the rank's kv heads."""
+    q, k, v = _pre_attention(lw, x, cfg, rope_cs, tp)
     ck, cv = layer_cache
     s = q.shape[1]
     ck[:, cache_index:cache_index + s] = k.to(ck.dtype)
     cv[:, cache_index:cache_index + s] = v.to(cv.dtype)
     o = _attend_cache(q, ck, cv, cfg, positions, attn_fn, cache_index)
-    return _post_attention(lw, x, o, cfg, dropless=True)
+    return _post_attention(lw, x, o, cfg, dropless=True, tp=tp)
 
 
 def fetch_layer(lw):
@@ -686,21 +803,54 @@ def _unstack(tree: Params, L: int):
 
 
 def init_kv_cache(cfg: TransformerConfig, batch: int, max_len: int, dtype=None,
-                  device=None):
+                  device=None, tp=None):
     """The dense KV cache of the v1 engine: ``([L, b, S, hkv, hd], same)``
     zeros in ``dtype`` (default ``cfg.dtype``) on ``device`` (CUDA unless
-    the caller names another)."""
-    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.hd)
+    the caller names another); under ``tp`` the rank's kv heads."""
+    hkv = tp.kv_heads if tp is not None else cfg.num_kv_heads
+    shape = (cfg.num_layers, batch, max_len, hkv, cfg.hd)
     dtype, device = dtype or cfg.dtype, resolve_device(device)
     return (torch.zeros(shape, dtype=dtype, device=device),
             torch.zeros(shape, dtype=dtype, device=device))
+
+
+def embed_tokens(params: Params, tokens: torch.Tensor, cfg: TransformerConfig, tp=None):
+    """The token embedding [b, s, d] in ``cfg.dtype``: a lookup, or under a
+    vocab-parallel ``tp`` a masked lookup into the rank's rows then ``g``
+    (each token's row lives on one rank)."""
+    table = params["embed"]["embedding"]
+    if tp is None or not tp.vocab_sharded:
+        return table[tokens].to(cfg.dtype)
+    local = tokens - tp.vocab0
+    inside = (local >= 0) & (local < tp.vocab_local)
+    x = table[local.clamp(0, tp.vocab_local - 1)] * inside[..., None].to(table.dtype)
+    return tp_reduce(x, tp).to(cfg.dtype)
+
+
+def tp_head(params: Params, cfg: TransformerConfig, h: torch.Tensor, tp):
+    """The head's logits under ``tp``: [..., vocab / tp] of the rank's vocab
+    shard (through ``f``: the hidden's gradient sums over the shards), or
+    the whole [..., vocab] when the head is replicated."""
+    if not tp.vocab_sharded:
+        return lm_logits(params, cfg, h)
+    out = tp_copy(h, tp) @ head_kernel(params, cfg)
+    hb = head_bias_vec(params)
+    if hb is not None:  # whole on every rank: the rank reads its columns
+        out = out + tp_copy(hb, tp).narrow(0, tp.vocab0, tp.vocab_local)
+    return out
+
+
+def _rows(t, sl, b):
+    """Rows ``sl`` of a per-batch-row tensor (left whole when it is shared
+    by every row)."""
+    return t[sl] if t is not None and t.dim() > 0 and t.shape[0] == b else t
 
 
 def forward(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
             positions: Optional[torch.Tensor] = None,
             segment_ids: Optional[torch.Tensor] = None,
             return_hidden: bool = False, cache=None, cache_index=None,
-            with_aux: bool = False, layer_keep=None):
+            with_aux: bool = False, layer_keep=None, tp=None):
     """tokens [b, s] -> logits [b, s, v] (or the final-norm hidden states):
     a Python loop over the stacked layers, each under ``cfg.remat``.
     ``layer_keep`` ([L] host bools or 0 / 1, progressive layer drop) skips
@@ -710,7 +860,13 @@ def forward(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
     returns JAX's triple ``(out, cache, moe_aux)``: ``moe_aux`` is the sum
     of the layers' load-balance losses (0 for a dense model).  Positions
     then start at ``cache_index`` (JAX ``forward``), and the layers run
-    without remat (the cache path serves)."""
+    without remat (the cache path serves).
+
+    ``tp`` (``parallel.tensor_parallel.TensorParallel``) runs this rank's
+    shard of ``params``; the logits are then the rank's vocab shard
+    (``tp_head``).  ``cfg.domino_chunks`` > 1 runs each layer over that
+    many row chunks of the batch (not with a cache; a batch they do not
+    divide runs whole, as in JAX)."""
     _refuse_unported(cfg)
     device = tokens.device
     attn_fn = get_attn_fn(cfg, device)
@@ -724,7 +880,7 @@ def forward(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
         positions = (torch.arange(s, device=device) + ci)[None, :].expand(b, s)
     if segment_ids is not None:  # the kernels take contiguous int32
         segment_ids = segment_ids.to(device=device, dtype=torch.int32).contiguous()
-    x = params["embed"]["embedding"][tokens].to(cfg.dtype)
+    x = embed_tokens(params, tokens, cfg, tp)
     if cfg.position == "learned":
         x = x + params["pos_embed"]["embedding"][positions].to(cfg.dtype)
     if cfg.embedding_norm:
@@ -733,24 +889,51 @@ def forward(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
     if cfg.position == "rope":
         rope_cs = rope_tables(positions, cfg.rotary_dim or cfg.hd, cfg.rope_theta)
 
-    def layer(lw, x):
-        return decoder_layer(lw, x, cfg, positions, attn_fn, segment_ids, rope_cs)
+    def layer(lw, x, pos, seg, cs):
+        return decoder_layer(lw, x, cfg, pos, attn_fn, seg, cs, tp)
 
-    def selective(lw, x):
-        q, k, v = checkpoint(_pre_attention, lw, x, cfg, rope_cs, use_reentrant=False)
-        o = _attend(q, k, v, cfg, positions, attn_fn, segment_ids)
-        return checkpoint(_post_attention, lw, x, o, cfg, use_reentrant=False)
+    def selective(lw, x, pos, seg, cs):
+        q, k, v = checkpoint(_pre_attention, lw, x, cfg, cs, tp, use_reentrant=False)
+        o = _attend(q, k, v, cfg, pos, attn_fn, seg)
+        return checkpoint(_post_attention, lw, x, o, cfg, False, tp, use_reentrant=False)
 
-    def offload(lw, x):
-        q, k, v = checkpoint(_pre_attention, lw, x, cfg, rope_cs, use_reentrant=False)
+    def offload(lw, x, pos, seg, cs):
+        q, k, v = checkpoint(_pre_attention, lw, x, cfg, cs, tp, use_reentrant=False)
         # the attention's residuals (the segment ids aside: one tensor
         # shared by every layer), then the one input of the second
         # checkpoint that is not the layer's own (its weights and x)
         copies: list = []
-        with offload_saved(lambda t: t is segment_ids, copies):
-            o = _attend(q, k, v, cfg, positions, attn_fn, segment_ids)
+        with offload_saved(lambda t: t is seg, copies):
+            o = _attend(q, k, v, cfg, pos, attn_fn, seg)
         with offload_saved(lambda t: t is not o, copies):
-            return checkpoint(_post_attention, lw, x, o, cfg, use_reentrant=False)
+            return checkpoint(_post_attention, lw, x, o, cfg, False, tp, use_reentrant=False)
+
+    def full(lw, x, pos, seg, cs):
+        return checkpoint(layer, lw, x, pos, seg, cs, use_reentrant=False)
+
+    def dots(lw, x, pos, seg, cs):
+        # a product that only feeds the residual sum is not saved
+        lw = fetch_layer(lw)
+        unread = tuple(w.data_ptr() for w in (
+            lw["mlp"]["w_down"] if "mlp" in lw else None,
+            lw["attn"]["wo"] if cfg.parallel_block else None) if w is not None)
+        return checkpoint(layer, lw, x, pos, seg, cs, use_reentrant=False,
+                          context_fn=functools.partial(_dots_context, unread))
+
+    run = {"full": full, "dots": dots, "selective": selective, "offload": offload}.get(
+        cfg.remat, layer)
+    chunks = cfg.domino_chunks if cache is None and b % cfg.domino_chunks == 0 else 1
+
+    def domino(lw, x):
+        if chunks == 1:
+            return run(lw, x, positions, segment_ids, rope_cs)
+        bc, outs = b // chunks, []
+        for c in range(chunks):
+            sl = slice(c * bc, (c + 1) * bc)
+            cs = None if rope_cs is None else tuple(_rows(t, sl, b) for t in rope_cs)
+            outs.append(run(lw, x[sl], _rows(positions, sl, b), _rows(segment_ids, sl, b),
+                            cs)[0])
+        return torch.cat(outs, 0), None
 
     keep = None
     if layer_keep is not None:
@@ -763,31 +946,94 @@ def forward(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
             continue  # a dropped layer is the identity: nothing runs
         if cache is not None:
             x, aux = _cached_layer(lw, x, cfg, positions, attn_fn,
-                                   (cache[0][l], cache[1][l]), ci, rope_cs)
-        elif cfg.remat == "full":
-            x, aux = checkpoint(layer, lw, x, use_reentrant=False)
-        elif cfg.remat == "dots":
-            # a product that only feeds the residual sum is not saved
-            unread = tuple(w.data_ptr() for w in (
-                lw["mlp"]["w_down"] if "mlp" in lw else None,
-                lw["attn"]["wo"] if cfg.parallel_block else None) if w is not None)
-            x, aux = checkpoint(layer, lw, x, use_reentrant=False,
-                                context_fn=functools.partial(_dots_context, unread))
-        elif cfg.remat == "selective":
-            x, aux = selective(lw, x)
-        elif cfg.remat == "offload":
-            x, aux = offload(lw, x)
+                                   (cache[0][l], cache[1][l]), ci, rope_cs, tp)
         else:
-            x, aux = layer(lw, x)
+            x, aux = domino(lw, x)
         if aux is not None:
             aux_total = aux if aux_total is None else aux_total + aux
     x = norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)
-    out = x if return_hidden else lm_logits(params, cfg, x)
+    if return_hidden:
+        out = x
+    else:
+        out = lm_logits(params, cfg, x) if tp is None else tp_head(params, cfg, x, tp)
     if cache is None and not with_aux:
         return out
     if aux_total is None:
         aux_total = torch.zeros((), device=device)
     return out, cache, aux_total
+
+
+class _VocabParallelCE(torch.autograd.Function):
+    """Per-token NLL [N] from the rank's vocab shard of the logits [N,
+    vocab / tp] (fp32): the row max and the sum of exponentials all-reduced
+    over ``model``, the label's logit from the rank that owns it (a label
+    ``-100`` is owned by no rank).  Its backward is the local softmax minus
+    the label's one-hot (Megatron's ``_VocabParallelCrossEntropy``).  The
+    log-partition is formed as ``torch.logsumexp`` forms it (``log(sum(exp(x
+    - max))) + max``) and the backward as its backward and the label
+    gather's (``exp(x - logz) * grad``, then ``-grad`` added at the label),
+    so that over a model axis of one the loss and its gradient equal
+    ``cross_entropy_loss``'s bit for bit."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, tp):
+        m = _model_all_reduce(logits.max(dim=-1).values, tp, op="max")
+        e = (logits - m[:, None]).exp()
+        local = labels.long() - tp.vocab0
+        own = (local >= 0) & (local < tp.vocab_local)
+        idx = local.clamp(0, tp.vocab_local - 1)
+        gold = torch.where(own, logits.gather(-1, idx[:, None])[:, 0], torch.zeros_like(m))
+        sums = _model_all_reduce(torch.stack([e.sum(-1), gold]), tp)
+        logz = sums[0].log() + m
+        ctx.save_for_backward(logits, logz, idx, own)
+        return logz - sums[1]
+
+    @staticmethod
+    def backward(ctx, grad):
+        logits, logz, idx, own = ctx.saved_tensors
+        g = (logits - logz[:, None]).exp() * grad[:, None]
+        g.scatter_add_(-1, idx[:, None], torch.where(own, -grad, torch.zeros_like(grad))[:, None])
+        return g, None, None
+
+
+def vocab_parallel_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, tp,
+                                 ignore_index: int = -100):
+    """``(sum of NLL, count of labelled tokens)`` over the rank's vocab shard
+    of the logits ([..., vocab / tp]; fp32 math)."""
+    nll = _VocabParallelCE.apply(logits.reshape(-1, logits.shape[-1]).float(),
+                                 labels.reshape(-1), tp)
+    mask = (labels.reshape(-1) != ignore_index).float()
+    return (nll * mask).sum(), mask.sum()
+
+
+def _tp_chunk_nll(params, cfg, h, labels, tp):
+    return vocab_parallel_cross_entropy(tp_head(params, cfg, h, tp), labels, tp)
+
+
+def tp_loss(params: Params, cfg: TransformerConfig, hidden: torch.Tensor,
+            labels: torch.Tensor, tp) -> torch.Tensor:
+    """The token-mean NLL of the final hidden states under a vocab-parallel
+    head: the rank's logits shard a sequence chunk at a time
+    (``loss_chunk_size``, each chunk under a checkpoint, as
+    ``chunked_cross_entropy``) or whole; no rank forms the whole logits."""
+    chunk = cfg.loss_chunk_size or hidden.shape[1]
+    s = hidden.shape[1]
+    if s % chunk:
+        pad = chunk - s % chunk
+        hidden = F.pad(hidden, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad), value=-100)
+        s += pad
+    nll_sum = hidden.new_zeros((), dtype=torch.float32)
+    count = hidden.new_zeros((), dtype=torch.float32)
+    for c0 in range(0, s, chunk):
+        h, lab = hidden[:, c0:c0 + chunk], labels[:, c0:c0 + chunk]
+        if cfg.loss_chunk_size:
+            nll, n = checkpoint(_tp_chunk_nll, params, cfg, h, lab, tp, use_reentrant=False)
+        else:
+            nll, n = _tp_chunk_nll(params, cfg, h, lab, tp)
+        nll_sum = nll_sum + nll
+        count = count + n
+    return nll_sum / count.clamp(min=1.0)
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
@@ -814,6 +1060,10 @@ class CausalLM:
                                       "(ROADMAP queue 1 item 7)")
         _refuse_unported(cfg)
         self.cfg = cfg
+        # a ``parallel.tensor_parallel.TensorParallel``: the loss then runs
+        # this rank's shard of the tree (``initialize`` sets it in a world
+        # with a model axis)
+        self.tp = None
 
     def init_params(self, seed: int = 0, device=None, keep: Optional[Callable] = None) -> Params:
         """fp32 parameters (the engine keeps fp32 masters) on ``device``,
@@ -852,6 +1102,21 @@ class CausalLM:
 
     def loss_fn(self, params: Params, batch, rng=None) -> torch.Tensor:
         inputs, labels, segment_ids, layer_keep = self.prepare_batch(batch, rng)
+        tp = self.tp
+        if tp is not None:
+            hidden, _, aux = forward(params, inputs, self.cfg, segment_ids=segment_ids,
+                                     return_hidden=True, with_aux=True, layer_keep=layer_keep,
+                                     tp=tp)
+            if tp.vocab_sharded:
+                return tp_loss(params, self.cfg, hidden, labels, tp)
+            # a replicated head: every rank forms the same whole logits
+            if self.cfg.loss_chunk_size:
+                from ..sequence.cross_entropy import chunked_cross_entropy
+
+                return chunked_cross_entropy(hidden, head_kernel(params, self.cfg), labels,
+                                             chunk_size=self.cfg.loss_chunk_size,
+                                             head_bias=head_bias_vec(params))
+            return cross_entropy_loss(lm_logits(params, self.cfg, hidden), labels)
         if self.cfg.loss_chunk_size:
             from ..sequence.cross_entropy import chunked_cross_entropy
 
@@ -877,3 +1142,36 @@ class CausalLM:
         quadratic term (JAX ``CausalLM.flops_per_token``)."""
         c = self.cfg
         return 6.0 * c.param_count + 12 * c.num_layers * c.hidden_size * seq_len
+
+
+def tp_rules(cfg: TransformerConfig):
+    """Megatron-style tensor-parallel rules over the stacked tree (JAX
+    ``tp_rules``, ``transformer.py:853``): column-parallel wq / wk / wv,
+    w_gate / w_up (output dim on ``model``), row-parallel wo / w_down
+    (input dim), the embedding's and the head's vocab dim; the leading
+    layer dim never.  The layout GSPMD gives JAX's training; a rank's
+    shard here follows AutoTP's rules with the head hints instead
+    (``parallel.tensor_parallel.TensorParallel``), which keep ``wk`` /
+    ``wv`` whole where the kv heads do not divide the axis."""
+    from ..parallel.sharding import P
+    from ..parallel.topology import MODEL_AXIS
+
+    rules = [
+        (r"layers/attn/w[qkv]$", P(None, None, MODEL_AXIS)),
+        (r"layers/attn/b[qkv]$", P(None, MODEL_AXIS)),
+        (r"layers/attn/wo$", P(None, MODEL_AXIS, None)),
+        (r"embed/embedding$", P(MODEL_AXIS, None)),
+        (r"lm_head/kernel$", P(None, MODEL_AXIS)),
+    ]
+    if cfg.moe_num_experts > 0:
+        rules += [
+            (r"layers/moe/w_(gate|up)$", P(None, "expert", None, MODEL_AXIS)),
+            (r"layers/moe/w_down$", P(None, "expert", MODEL_AXIS, None)),
+        ]
+    else:
+        rules += [
+            (r"layers/mlp/w_(gate|up)$", P(None, None, MODEL_AXIS)),
+            (r"layers/mlp/w_down$", P(None, MODEL_AXIS, None)),
+            (r"layers/mlp/b_(gate|up)$", P(None, MODEL_AXIS)),
+        ]
+    return rules

@@ -14,9 +14,23 @@ output channel, so the dequantization is exact as a post-matmul multiply
 and the matmul reads only the compressed bytes: ``ServingQuant`` (int8 or
 float8_e4m3fn) and ``ServingQuantFP6`` (e2m3 codes in three quarter-strided
 byte planes, 0.75 bytes a weight).  ``serving_mm`` dispatches them to the
-dequant-matmul kernels K4 / K5 (``ops/kernels/quant_matmul.py``).  One
-device only: the tensor-parallel regions, the row-sharded fp6 pack
-(``row_shards > 1``) and the quantized transport are ROADMAP queue 1 item 7.
+dequant-matmul kernels K4 / K5 (``ops/kernels/quant_matmul.py``).
+
+Tensor-parallel serving (JAX's ``ServingContext`` / ``_shard_mm``,
+``quantizer.py:138-330``): each rank of the ``model`` axis holds its shard
+of every kernel (``shard_serving_weight``: a column kernel's output
+channels with their scales, a row kernel's input rows with the whole
+scales) and ``serving_mm`` runs K4 / K5 on it.  A column-parallel matmul
+reads the local channels and adds its local bias; a row-parallel one makes
+this rank's partial sum, reduces it over ``model`` through
+``comm/qcomm.py``'s ``q_psum_tiled`` (``comm_fmt`` 'none' the exact sum,
+'int8' / 'fp8' the quantized transport, K6 on CUDA; ``comm_tiles`` > 1
+splits the output channels into tiles, each its own matmul and reduce;
+a plain kernel's partial sum reduces exactly in one all-reduce, as in JAX)
+and adds the bias once.  The scale is a per-output-channel multiplier, so
+each shard's epilogue commutes with the sum.  An FP6 row kernel is packed
+per K-chunk (``quantize_serving_params(row_parallel_shards=tp)``, JAX
+``_fp6_pack(row_shards)``), so a rank's chunk is a standard pack.
 """
 from __future__ import annotations
 
@@ -28,9 +42,6 @@ import torch
 from .kernels import quant_kernel as QK
 from .kernels.quant_matmul import fp6_decode as _fp6_decode
 from .kernels.quant_matmul import fp6_unpack, quant_matmul, quant_matmul_fp6
-
-_TP_ITEM = "is not ported yet (ROADMAP queue 1 item 7: tensor parallelism)"
-
 
 # ---------------------------------------------------------------------------
 # quantizer API
@@ -99,15 +110,16 @@ class ServingQuantFP6:
     output channel ``s``.  Quarter-strided: packed row r carries the codes
     of weight rows (r, K/4 + r, K/2 + r, 3K/4 + r), so K5 decodes each
     quarter elementwise and contracts it against its own slice of x.
-    ``row_shards > 1`` (the per-K-chunk pack of tensor-parallel row layers)
-    is refused."""
+    ``row_shards > 1``: the quarter-stride runs within each of
+    ``row_shards`` contiguous K-chunks, packed chunk after chunk along the
+    packed dim (a tensor-parallel row kernel: each rank's chunk is a
+    standard pack of its rows)."""
 
     def __init__(self, packed: torch.Tensor, s: torch.Tensor, in_dim: int, row_shards: int = 1):
-        _one_shard(row_shards)
         self.packed = packed
         self.s = s
         self.in_dim = int(in_dim)
-        self.row_shards = 1
+        self.row_shards = int(row_shards)
 
 
 QUANT_TYPES = (ServingQuant, ServingQuantFP6)
@@ -118,11 +130,6 @@ def map_quant(w, fn):
     if isinstance(w, ServingQuant):
         return ServingQuant(fn(w.q), fn(w.s))
     return ServingQuantFP6(fn(w.packed), fn(w.s), w.in_dim, w.row_shards)
-
-
-def _one_shard(row_shards: int) -> None:
-    if int(row_shards) != 1:
-        raise NotImplementedError(f"fp6 row_shards={row_shards} (the row-parallel pack) {_TP_ITEM}")
 
 
 def _encode_into(w: torch.Tensor, outs, encode) -> None:
@@ -206,8 +213,14 @@ def _fp6_encode(x: torch.Tensor) -> torch.Tensor:
 
 def _fp6_pack(codes: torch.Tensor, row_shards: int = 1) -> torch.Tensor:
     """[..., in, out] 6-bit codes -> [..., 3, in/4, out] byte planes
-    (in % 4 == 0), quarter-strided (see :class:`ServingQuantFP6`)."""
-    _one_shard(row_shards)
+    (in % 4 == 0), quarter-strided (see :class:`ServingQuantFP6`);
+    ``row_shards`` > 1 packs each contiguous K-chunk on its own and lays
+    the chunk packs after one another along the packed dim."""
+    if row_shards > 1:
+        *lead, n, out = codes.shape
+        chunked = _fp6_pack(codes.reshape(*lead, row_shards, n // row_shards, out))
+        # [..., R, 3, n/(4R), out] -> [..., 3, R, n/(4R), out] -> [..., 3, n/4, out]
+        return chunked.movedim(-4, -3).reshape(*lead, 3, n // 4, out)
     *lead, n, out = codes.shape
     c = codes.reshape(*lead, 4, n // 4, out)
     c0, c1, c2, c3 = c[..., 0, :, :], c[..., 1, :, :], c[..., 2, :, :], c[..., 3, :, :]
@@ -218,27 +231,35 @@ def _fp6_pack(codes: torch.Tensor, row_shards: int = 1) -> torch.Tensor:
 
 
 def _fp6_unpack(packed: torch.Tensor, in_dim: int, row_shards: int = 1) -> torch.Tensor:
-    _one_shard(row_shards)
+    if row_shards > 1:
+        *lead, _, k4, out = packed.shape
+        chunked = packed.reshape(*lead, 3, row_shards, k4 // row_shards, out).movedim(-3, -4)
+        codes = fp6_unpack(chunked, in_dim // row_shards)  # [..., R, in/R, out]
+        return codes.reshape(*lead, in_dim, out)
     return fp6_unpack(packed, in_dim)
 
 
 def quantize_serving_weight_fp6(w: torch.Tensor, row_shards: int = 1,
                                 device=None) -> ServingQuantFP6:
     """Per-output-channel FP6 compression of a ``[..., in, out]`` kernel
-    (in % 4 == 0), on ``device`` (default: w's)."""
-    _one_shard(row_shards)
+    (in % (4 * row_shards) == 0), on ``device`` (default: w's);
+    ``row_shards`` packs per K-chunk (see :class:`ServingQuantFP6`)."""
     k, n = w.shape[-2:]
-    if k % 4:
-        raise ValueError(f"fp6 packing needs in-dim % 4 == 0 (row_shards=1), got {tuple(w.shape)}")
+    if k % (4 * row_shards):
+        raise ValueError(f"fp6 packing needs in-dim % {4 * row_shards} == 0 "
+                         f"(row_shards={row_shards}), got {tuple(w.shape)}")
+
+    def encode(xf):
+        return _fp6_matrix(xf, row_shards)
 
     packed, s = _per_matrix(w, device or w.device,
-                            [((3, k // 4, n), torch.uint8), ((n,), torch.float32)], _fp6_matrix)
-    return ServingQuantFP6(packed, s, k)
+                            [((3, k // 4, n), torch.uint8), ((n,), torch.float32)], encode)
+    return ServingQuantFP6(packed, s, k, row_shards)
 
 
-def _fp6_matrix(xf):
+def _fp6_matrix(xf, row_shards: int = 1):
     s = QK.scales_from_amax(xf.abs().amax(dim=0), _FP6_MAX)
-    return _fp6_pack(_fp6_encode(xf / s[None, :])), s
+    return _fp6_pack(_fp6_encode(xf / s[None, :]), row_shards), s
 
 
 def requantize_serving_weight_(dst, w: torch.Tensor) -> None:
@@ -252,7 +273,10 @@ def requantize_serving_weight_(dst, w: torch.Tensor) -> None:
         fmt = {torch.int8: "int8", torch.float8_e4m3fn: "fp8"}[dst.q.dtype]
         outs, encode = (dst.q, dst.s), _symmetric_encoder(fmt)[1]
     elif isinstance(dst, ServingQuantFP6):
-        outs, encode = (dst.packed, dst.s), _fp6_matrix
+        outs = (dst.packed, dst.s)
+
+        def encode(xf):
+            return _fp6_matrix(xf, dst.row_shards)
     else:
         raise TypeError(f"not a quantized serving weight: {type(dst).__name__}")
     lead, (k, n) = w.shape[:-2], w.shape[-2:]
@@ -278,8 +302,10 @@ def quantize_serving_params(params, fmt: str = "int8", row_parallel_shards: int 
     'fp6'); embeddings and norms keep their type.  Paths are JAX's
     ``path_str`` spelling (``"layers/attn/wq"``).  Every leaf lands on
     ``device`` (default: where it is); quantized leaves are encoded there one
-    layer slice at a time.  Returns the mixed tree ``serving_mm`` consumes."""
-    _one_shard(row_parallel_shards)
+    layer slice at a time.  Returns the mixed tree ``serving_mm`` consumes.
+    ``row_parallel_shards``: the ``model`` axis size; FP6 row-parallel
+    kernels (``wo``, ``w_down``) are packed per K-chunk for it (int8 / fp8
+    layouts ignore it), as JAX's."""
 
     def leaf(path, x):
         if isinstance(x, dict):
@@ -288,7 +314,9 @@ def quantize_serving_params(params, fmt: str = "int8", row_parallel_shards: int 
             return map_quant(x, lambda t: t.to(device) if device is not None else t)
         if x.dim() >= 2 and any(path.endswith(t) for t in _SERVING_QUANT_PATHS):
             if fmt == "fp6":
-                return quantize_serving_weight_fp6(x, device=device)
+                shards = (row_parallel_shards
+                          if any(path.endswith(t) for t in _SERVING_ROW_PATHS) else 1)
+                return quantize_serving_weight_fp6(x, shards, device=device)
             return quantize_serving_weight(x, fmt, device=device)
         return x.to(device) if device is not None else x
 
@@ -310,19 +338,65 @@ def tree_nbytes(tree) -> int:
 # the serving matmul
 # ---------------------------------------------------------------------------
 class ServingContext(NamedTuple):
-    """Per-engine serving-matmul policy, threaded through ``serving_mm``.
-    Empty on one device: the JAX context's fields (the tensor-parallel mesh
-    and axis, the quantized transport) come with the slices that read them,
-    and its ``fused=False`` lever (the jnp body) is not ported, since on the
-    card that body is the plain version of K4 / K5."""
+    """Per-engine serving-matmul policy, threaded through ``serving_mm``
+    (JAX :138).  ``tp`` (a ``parallel.tensor_parallel.TensorParallel``)
+    is the ``model`` axis of a tensor-parallel engine, None on one device;
+    ``comm_fmt`` / ``comm_tiles`` the transport of a quantized kernel's
+    row-parallel partial sums (``comm/qcomm.py``; a plain kernel's reduce
+    exactly, as JAX's GSPMD product does).  JAX's ``fused=False`` lever (the jnp body) is not
+    ported: on the card that body is the plain version of K4 / K5."""
+
+    tp: object = None
+    comm_fmt: str = "none"
+    comm_tiles: int = 1
 
 
 def _mm_local(x: torch.Tensor, w, bias: Optional[torch.Tensor]) -> torch.Tensor:
     """Single-device dispatch of a quantized weight to K4 (int8 / fp8) or
-    K5 (fp6)."""
+    K5 (fp6), or a plain matrix product."""
     if isinstance(w, ServingQuant):
         return quant_matmul(x, w.q, w.s, bias)
-    return quant_matmul_fp6(x, w.packed, w.s, w.in_dim, bias)
+    if isinstance(w, ServingQuantFP6):
+        if w.row_shards != 1:
+            raise ValueError("a per-K-chunk FP6 pack runs as the row shards of a "
+                             "tensor-parallel engine, one chunk a rank")
+        return quant_matmul_fp6(x, w.packed, w.s, w.in_dim, bias)
+    y = x @ w
+    return y if bias is None else y + bias
+
+
+def _out_slice(w, lo: int, hi: int):
+    """Output channels ``[lo, hi)`` of a kernel (the scales with them)."""
+    if isinstance(w, ServingQuant):
+        return ServingQuant(w.q[..., lo:hi], w.s[..., lo:hi])
+    if isinstance(w, ServingQuantFP6):
+        return ServingQuantFP6(w.packed[..., lo:hi], w.s[..., lo:hi], w.in_dim, w.row_shards)
+    return w[..., lo:hi]
+
+
+def _row_reduce(x: torch.Tensor, w, ctx: ServingContext) -> torch.Tensor:
+    """A row-parallel matmul: this rank's partial sum, reduced over
+    ``model``.  A quantized kernel runs JAX's ``_shard_mm`` 'row' region:
+    ``comm_tiles`` tiles of output channels, each its own matmul and
+    reduce through the ``comm_fmt`` transport.  A plain kernel reduces
+    exactly in one all-reduce, as JAX's GSPMD product does (JAX's
+    ``serving_mm`` applies the transport policy to quantized weights
+    only)."""
+    from ..comm.qcomm import q_psum_tiled
+
+    tp = ctx.tp
+    quantized = isinstance(w, QUANT_TYPES)
+    fmt = ctx.comm_fmt if quantized else "none"
+    n = (w.q if isinstance(w, ServingQuant) else
+         w.packed if isinstance(w, ServingQuantFP6) else w).shape[-1]
+    tiles = min(max(int(ctx.comm_tiles), 1), n) if quantized else 1
+    tile_n = -(-n // tiles)
+    outs = []
+    for lo in range(0, n, tile_n):
+        y = _mm_local(x, _out_slice(w, lo, min(lo + tile_n, n)) if tiles > 1 else w, None)
+        outs.append(q_psum_tiled(y, tp.axis, fmt, tiles=1, world=tp.size,
+                                 out_dtype=y.dtype, mesh=tp.grid))
+    return torch.cat(outs, dim=-1) if len(outs) > 1 else outs[0]
 
 
 def serving_mm(x: torch.Tensor, w, bias: Optional[torch.Tensor] = None,
@@ -331,9 +405,38 @@ def serving_mm(x: torch.Tensor, w, bias: Optional[torch.Tensor] = None,
     :class:`ServingQuantFP6` (K4 / K5: the compressed bytes are the only
     weight traffic, scale and bias ride the fp32 epilogue) or a plain
     tensor (``torch.matmul``, a plain matrix product outside any kernel, as
-    the JAX package leaves it to XLA).  ``kind`` names the JAX package's TP
-    placement and has no effect on one device."""
-    if isinstance(w, QUANT_TYPES):
-        return _mm_local(x, w, bias)
-    y = x @ w
-    return y if bias is None else y + bias
+    the JAX package leaves it to XLA).  Under a tensor-parallel ``ctx``,
+    ``kind`` 'row' makes this rank's partial sum and reduces it over
+    ``model`` before the bias (``_row_reduce``); 'col' reads the rank's
+    output channels as they are."""
+    if kind == "row" and ctx is not None and ctx.tp is not None:
+        y = _row_reduce(x, w, ctx)
+        return y if bias is None else y + bias
+    return _mm_local(x, w, bias)
+
+
+def shard_serving_weight(w, placement):
+    """This rank's shard of a (quantized) kernel ``[..., in, out]`` by its
+    ``parallel.tensor_parallel.Placement``: the last dim (output channels,
+    with their scales) or dim -2 (input rows; the scales whole, an FP6 pack
+    per K-chunk reduced to this rank's chunk)."""
+    ndim = (w.q.dim() if isinstance(w, ServingQuant) else
+            w.s.dim() + 1 if isinstance(w, ServingQuantFP6) else w.dim())
+    lo, hi = placement.lo, placement.hi
+    if placement.dim == ndim - 1:  # output channels
+        out = _out_slice(w, lo, hi)
+        return map_quant(out, torch.Tensor.contiguous) if isinstance(w, QUANT_TYPES) \
+            else out.contiguous()
+    if isinstance(w, ServingQuant):
+        return ServingQuant(w.q[..., lo:hi, :].contiguous(), w.s)
+    if isinstance(w, ServingQuantFP6):
+        shards = w.in_dim // (hi - lo)
+        if w.row_shards != shards:
+            raise ValueError(f"an FP6 row kernel packed for {w.row_shards} shards cannot "
+                             f"split over {shards}: quantize with row_parallel_shards="
+                             f"{shards}")
+        k4 = w.packed.shape[-2] // shards
+        r = lo // (hi - lo)
+        return ServingQuantFP6(w.packed[..., r * k4:(r + 1) * k4, :].contiguous(), w.s,
+                               hi - lo, 1)
+    return w.narrow(-2, lo, hi - lo).contiguous()

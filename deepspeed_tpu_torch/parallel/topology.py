@@ -4,16 +4,17 @@
 JAX expresses every parallel dimension as a named axis of one device mesh.
 The port has two kinds of grid:
 
-- ``ProcessGrid``, the training grid over the processes of a
-  ``torch.distributed`` world, one rank a device (``initialize_mesh()``
-  once the world is up, ``comm.init_distributed``).  Its axes are
-  ``data``, ``fsdp`` and ``sub``, ranks row-major over them with ``sub``
-  fastest, as JAX's mesh orders its devices (topology.py:137).  It holds
-  one process group for every set of those axes and every coordinate of
-  the others, in the backend of its device (NCCL for CUDA, gloo for the
-  CPU), so a collective names axes (``comm/comm.py``).  ``model``,
-  ``seq``, ``expert`` and ``stage`` above 1 across ranks raise
-  ``NotImplementedError`` (ROADMAP queue 1 item 7: tensor, sequence,
+- ``ProcessGrid``, the grid over the processes of a ``torch.distributed``
+  world, one rank a device (``initialize_mesh()`` once the world is up,
+  ``comm.init_distributed``).  Its axes are ``data``, ``fsdp``, ``sub``
+  and ``model``, ranks row-major over them with ``model`` fastest, as
+  JAX's mesh orders its devices (topology.py:142: ``stage, data, fsdp,
+  sub, expert, seq, model``), so consecutive ranks form a tensor-parallel
+  group, as Megatron's do.  It holds one process group for every set of
+  those axes and every coordinate of the others, in the backend of its
+  device (NCCL for CUDA, gloo for the CPU), so a collective names axes
+  (``comm/comm.py``).  ``seq``, ``expert`` and ``stage`` above 1 across
+  ranks raise ``NotImplementedError`` (ROADMAP queue 1 item 7: sequence,
   expert and pipeline parallelism);
 - ``Grid``, the serving subset: ``seq = S`` over ONE device repeated ``S``
   times (``initialize_mesh(devices=["cuda:0"] * 2, seq=2)``), the
@@ -40,9 +41,10 @@ EXPERT_AXIS = "expert"
 STAGE_AXIS = "stage"
 
 _ITEM7 = "(ROADMAP queue 1 item 7, the distributed layers)"
-# the axes a process grid spans, slowest first, over all of which the
-# gradients are averaged (JAX ``BATCH_AXES``)
+# the axes over which the gradients are averaged (JAX ``BATCH_AXES``)
 BATCH_AXES = (DATA_AXIS, FSDP_AXIS, SUB_AXIS)
+# the axes a process grid spans, slowest first (``model`` fastest)
+GRID_AXES = BATCH_AXES + (MODEL_AXIS,)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -111,19 +113,20 @@ Axes = Union[str, Sequence[str]]
 
 def _axes(axis_name: Axes) -> Tuple[str, ...]:
     names = (axis_name,) if isinstance(axis_name, str) else tuple(axis_name)
-    bad = [a for a in names if a not in BATCH_AXES]
+    bad = [a for a in names if a not in GRID_AXES]
     if bad:
         raise NotImplementedError(f"axis {bad} across ranks is not ported yet {_ITEM7}; a "
-                                  f"process grid spans {BATCH_AXES}")
-    return tuple(a for a in BATCH_AXES if a in names)  # grid order
+                                  f"process grid spans {GRID_AXES}")
+    return tuple(a for a in GRID_AXES if a in names)  # grid order
 
 
 class ProcessGrid:
-    """The training grid over a ``torch.distributed`` world: this rank's
+    """The grid over a ``torch.distributed`` world: this rank's
     coordinates, its device, and the process group of every set of the
-    ``data`` / ``fsdp`` / ``sub`` axes (``group``), made at construction
-    by every rank in one order (``new_group`` is collective).  JAX's
-    ``Grid`` answers the same size and rank questions from its mesh."""
+    ``data`` / ``fsdp`` / ``sub`` / ``model`` axes (``group``), made at
+    construction by every rank in one order (``new_group`` is
+    collective).  JAX's ``Grid`` answers the same size and rank questions
+    from its mesh."""
 
     def __init__(self, spec: MeshSpec, device: torch.device, backend: str):
         import torch.distributed as dist
@@ -131,10 +134,10 @@ class ProcessGrid:
         if not dist.is_initialized():
             raise RuntimeError("a process grid needs torch.distributed: call "
                                "comm.init_distributed() first")
-        others = {a: n for a, n in spec.sizes.items() if a not in BATCH_AXES and n > 1}
+        others = {a: n for a, n in spec.sizes.items() if a not in GRID_AXES and n > 1}
         if others:
             raise NotImplementedError(f"grid axes {others} across ranks are not ported yet "
-                                      f"{_ITEM7}; a process grid spans {BATCH_AXES}")
+                                      f"{_ITEM7}; a process grid spans {GRID_AXES}")
         world = dist.get_world_size()
         if spec.world_size != world:
             raise ValueError(f"MeshSpec {spec.sizes} covers {spec.world_size} ranks but the "
@@ -142,21 +145,25 @@ class ProcessGrid:
         self.spec, self.device, self.backend = spec, torch.device(device), backend
         self.comms_logger = None  # comm.configure's CommsLogger for this grid
         self.rank = dist.get_rank()
-        self.sizes = {a: spec.sizes[a] for a in BATCH_AXES}
+        self.sizes = {a: spec.sizes[a] for a in GRID_AXES}
         shape = tuple(self.sizes.values())
-        self.coords = dict(zip(BATCH_AXES, _unravel(self.rank, shape)))
+        self.coords = dict(zip(GRID_AXES, _unravel(self.rank, shape)))
         self._groups: Dict[Tuple[str, ...], object] = {}
         # every subset of the axes, every coordinate of the rest, in one
-        # order on every rank; a rank keeps the groups it is in
-        for k in range(1, len(BATCH_AXES) + 1):
-            for sub in itertools.combinations(BATCH_AXES, k):
-                rest = [a for a in BATCH_AXES if a not in sub]
+        # order on every rank; a rank keeps the groups it is in.  Subsets
+        # whose rank sets coincide (axes of size 1) share one group
+        made: Dict[Tuple[int, ...], object] = {}
+        for k in range(1, len(GRID_AXES) + 1):
+            for sub in itertools.combinations(GRID_AXES, k):
+                rest = [a for a in GRID_AXES if a not in sub]
                 for fixed in itertools.product(*(range(self.sizes[a]) for a in rest)):
                     at = dict(zip(rest, fixed))
                     ranks = [r for r in range(world)
-                             if all(dict(zip(BATCH_AXES, _unravel(r, shape)))[a] == v
+                             if all(dict(zip(GRID_AXES, _unravel(r, shape)))[a] == v
                                     for a, v in at.items())]
-                    g = dist.new_group(ranks, backend=backend)
+                    g = made.get(tuple(ranks))
+                    if g is None:
+                        g = made[tuple(ranks)] = dist.new_group(ranks, backend=backend)
                     if self.rank in ranks:
                         self._groups[sub] = g
 
@@ -167,6 +174,15 @@ class ProcessGrid:
     @property
     def dp_world_size(self) -> int:
         return self.spec.dp_world_size
+
+    @property
+    def tp_size(self) -> int:
+        return self.sizes[MODEL_AXIS]
+
+    @property
+    def tp_rank(self) -> int:
+        """This rank's index in its tensor-parallel (``model``) group."""
+        return self.coords[MODEL_AXIS]
 
     @property
     def dp_rank(self) -> int:

@@ -61,6 +61,19 @@ each rank trains on its own micro-batches (JAX :184-330, :497-503):
   is all-reduced so that every rank skips the same step;
 - the 1-bit optimizers (``runtime/onebit.py``) at stage 0.
 
+With a ``model`` axis (``tp``, a ``parallel.tensor_parallel.
+TensorParallel``; the model's loss runs this rank's shard of the tree,
+``models/transformer.py``) the flat buffers hold the rank's TP shard and
+ZeRO slices that over ``fsdp``.  The gradients are reduced over
+``data`` x ``fsdp`` x ``sub`` only, never averaged over ``model`` (a
+narrowed replicated leaf's partial gradient was already summed over
+``model`` by the forward's ``f``); the global norm sums the model-sharded
+leaves' squares over ``model`` and counts each replicated leaf once
+(``_grad_norm``); an fp16 overflow flag is reduced over the whole world.
+The logical state (``master_tree``, ``logical_opt_state``,
+``load_logical_state``, hence checkpoints) is the whole tree, gathered
+over ``model`` too.
+
 Refused at world > 1 with ``NotImplementedError`` (item 7): ZeRO-Offload,
 a trainable mask (LoRA), compression's weight transform, progressive layer
 drop, the eigenvalue estimator, a ``compile`` backend, and Lamb / Muon over
@@ -156,7 +169,7 @@ import torch
 
 from ..config.config import Config, ConfigError
 from ..ops.optimizers import _leaf_views, build_optimizer, set_path
-from ..parallel.topology import BATCH_AXES
+from ..parallel.topology import BATCH_AXES, GRID_AXES, MODEL_AXIS
 from ..telemetry import Telemetry, device_ready
 from ..utils.memory import memory_breakdown_report, see_memory_usage
 from ..utils.timer import (BACKWARD_GLOBAL_TIMER, FORWARD_GLOBAL_TIMER, STEP_GLOBAL_TIMER,
@@ -188,6 +201,24 @@ class StepMetrics(NamedTuple):
     lr: torch.Tensor
     loss_scale: torch.Tensor
     skipped: torch.Tensor  # fp16: the overflow skipped the update
+
+
+def _leaf_paths_of(tree, path=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaf_paths_of(v, path + (k,))
+        else:
+            yield path + (k,), v
+
+
+def _shape_tree(tree):
+    """A parameter tree's shapes (tuples), the leaves' or a deferred draw's."""
+    from .zero import DeferredParams
+
+    if isinstance(tree, DeferredParams):
+        tree = tree.shapes
+    return {k: _shape_tree(v) if isinstance(v, dict) else tuple(v.shape)
+            for k, v in tree.items()}
 
 
 def _leaves(tree, out: List[torch.Tensor]) -> List[torch.Tensor]:
@@ -300,6 +331,12 @@ class DeepSpeedTorchEngine:
         self.eval_fn = eval_fn
         self.model = model  # initialize() attaches it too
         self.grid = grid  # the process grid of a world of ranks, or None
+        # the model axis: the loss runs this rank's shard of the tree
+        self.tp = getattr(model, "tp", None) if grid is not None else None
+        self._tp_shapes = None  # the whole tree's shapes (tp)
+        if self.tp is not None:
+            self._tp_shapes = _shape_tree(params)
+            params = self.tp.shard_tree(params)
         self.timers = SynchronizedWallClockTimer()
         self.tput_timer = ThroughputTimer(batch_size=config.train_batch_size,
                                           steps_per_output=config.steps_per_print)
@@ -473,6 +510,17 @@ class DeepSpeedTorchEngine:
             ("eigenvalue", c.eigenvalue.enabled),
             ("a compile backend", c.compile.compiles),
         ) if on]
+        if self.tp is not None and self.tp.size > 1:
+            from .onebit import is_onebit
+
+            refused += [name for name, on in (
+                ("a 1-bit optimizer with a model axis", is_onebit(c.optimizer.type)),
+                ("ZeRO++'s quantized weights / gradients with a model axis",
+                 z.zero_quantized_weights or z.zero_quantized_gradients),
+                (f"optimizer {c.optimizer.type!r} over a model axis's shards (its rule "
+                 "reads whole leaves)", c.optimizer.type.lower() in ("lamb", "fusedlamb",
+                                                                     "muon")),
+            ) if on]
         if z.stage >= 1 and c.optimizer.type.lower() in ("lamb", "fusedlamb", "muon"):
             refused.append(f"optimizer {c.optimizer.type!r} over ZeRO's flat slices (its rule "
                            "reads whole leaves)")
@@ -504,8 +552,14 @@ class DeepSpeedTorchEngine:
         layers = self._layers_for_zero() if z.stage >= 3 else None
         quant = ZeroPP.from_config(self.config, self.grid, self.device) \
             if z.zero_quantized_weights or z.zero_quantized_gradients else None
+        specs = None
+        if self.tp is not None:  # the plan composes fsdp with the model axis, as JAX's
+            from .zero import plan_sharding
+
+            specs = plan_sharding(self._tp_shapes, z, self.grid.spec,
+                                  self.tp.rules(self._tp_shapes)).param_specs
         zs = ZeroShard(params, self.config, self.grid, self.device, self.compute_dtype,
-                       layers, quant=quant)
+                       layers, quant=quant, param_specs=specs)
         if quant is not None:
             quant.attach(zs)
         self._zero = zs
@@ -916,13 +970,14 @@ class DeepSpeedTorchEngine:
                 comm.all_reduce(grad, BATCH_AXES, mesh=self.grid)
             grad = grad.div_(divisor)
         finite = precision.grads_finite([grad]) if fp16 else None
-        if finite is not None and zs is not None:
+        if finite is not None and (zs is not None or self.tp is not None):
             # each rank sees its slice: every rank skips if any overflowed
             from ..comm import comm
 
             flag = finite.to(torch.float32).reshape(1)
-            finite = comm.all_reduce(flag, BATCH_AXES, op="min", mesh=self.grid)[0] > 0
-        grad_norm = zs.grad_norm() if zs is not None else precision.global_grad_norm([grad])
+            axes = GRID_AXES if self.tp is not None else BATCH_AXES
+            finite = comm.all_reduce(flag, axes, op="min", mesh=self.grid)[0] > 0
+        grad_norm = self._grad_norm(grad)
         if cfg.gradient_clipping and cfg.gradient_clipping > 0:
             grad.mul_(precision.clip_factor(grad_norm, cfg.gradient_clipping))
         lr = self.lr_schedule_fn(self.device_step)
@@ -946,6 +1001,39 @@ class DeepSpeedTorchEngine:
             self.device_step += finite.to(torch.int32)
             skipped = ~finite
         return grad_norm, lr, skipped
+
+    def _grad_norm(self, grad: torch.Tensor) -> torch.Tensor:
+        """The global gradient norm: the buffer's, the slices' summed once
+        over ZeRO's shard group, and under a model axis the model-sharded
+        leaves' squares summed over ``model`` beside the replicated leaves'
+        counted once (they are equal on every rank)."""
+        zs = self._zero
+        if self.tp is None:
+            return zs.grad_norm() if zs is not None else precision.global_grad_norm([grad])
+        from ..comm import comm
+
+        sq = torch.zeros(2, dtype=torch.float32, device=grad.device)
+        for sharded, a, b in self._tp_ranges():
+            sq[0 if sharded else 1] += precision._sum_squares(grad[a:b])
+        if zs is not None:
+            comm.all_reduce(sq, zs.shard_axes, mesh=self.grid)
+        sharded = comm.all_reduce(sq[:1].clone(), MODEL_AXIS, mesh=self.grid)
+        return (sharded[0] + sq[1]).sqrt()
+
+    def _tp_ranges(self):
+        """``(model-sharded, start, end)`` runs of the flat gradient buffer
+        (this rank's ZeRO slice, or the whole buffer), made once."""
+        if getattr(self, "_tp_runs", None) is None:
+            shard = set(self.tp.sharded_paths(self._tp_shapes))
+            if self._zero is not None:
+                runs = self._zero.path_runs(shard)
+            else:
+                runs, off = [], 0
+                for path, leaf in _leaf_paths_of(self.params):
+                    runs.append((path in shard, off, off + leaf.numel()))
+                    off += leaf.numel()
+            self._tp_runs = runs
+        return self._tp_runs
 
     def _to_device(self, batch) -> Dict[str, torch.Tensor]:
         if isinstance(batch, StagedBatch):
@@ -1361,19 +1449,42 @@ class DeepSpeedTorchEngine:
         with torch.no_grad():
             return precision.cast_floating(self.master_tree(), self.compute_dtype)
 
+    @property
+    def holds_shards(self) -> bool:
+        """The engine's buffers are this rank's part of the state (ZeRO's
+        slices, or a model axis's shard): its logical state is gathered."""
+        return self._zero is not None or self.tp is not None
+
+    def _whole(self, tree):
+        """A tree of this rank's TP shards as whole leaves (a collective over
+        ``model``; the tree itself without a model axis)."""
+        return tree if self.tp is None else self.tp.gather_tree(tree, self._tp_shapes)
+
+    def _local_tree(self, buf: torch.Tensor):
+        """A buffer laid out like the masters as a tree of this rank's
+        leaves (ZeRO's slices gathered over the shard group)."""
+        zs = self._zero
+        if zs is not None:
+            return zs.unflatten(zs.gather_flat(buf), zs.plan.shape_tree)
+        from ..checkpoint.saving import _state_buffers
+
+        tree: Dict[str, Any] = {}
+        for name, view in _state_buffers([buf], self).items():
+            set_path(tree, tuple(name.split("/")), view)
+        return tree
+
     def master_tree(self):
         """The fp32 masters as a tree of whole leaves: ``params`` itself, or
-        across ZeRO's slices every rank's gathered (a collective: every rank
-        calls it)."""
+        across ZeRO's slices and a model axis's shards every rank's
+        gathered (a collective: every rank calls it)."""
         zs = self._zero
         if zs is None:
-            return self.params
-        return zs.unflatten(zs.gather_flat(zs.masters), zs.plan.shape_tree)
+            return self._whole(self.params)
+        return self._whole(zs.unflatten(zs.gather_flat(zs.masters), zs.plan.shape_tree))
 
     def logical_opt_state(self):
         """The optimizer's state with its moment slices gathered into trees
         of whole leaves under the parameters' paths (a collective)."""
-        zs = self._zero
 
         def walk(node):
             if torch.is_tensor(node):
@@ -1381,15 +1492,17 @@ class DeepSpeedTorchEngine:
             if isinstance(node, dict):
                 return {k: walk(v) for k, v in node.items()}
             (buf,) = node
-            return zs.unflatten(zs.gather_flat(buf), zs.plan.shape_tree)
+            return self._whole(self._local_tree(buf))
 
         return walk(self.opt_state)
 
     def load_logical_state(self, params, opt_state=None) -> None:
         """This rank's slices of whole-leaf trees (a checkpoint's masters and
-        moments, saved at any world size)."""
+        moments, saved at any world size and ``model`` size)."""
         zs = self._zero
-        zs.scatter_flat(params, zs.masters)
+        if self.tp is not None:
+            params = self.tp.shard_tree(params)
+        place = zs.scatter_flat if zs is not None else self._copy_leaves
 
         def walk(node, logical):
             if torch.is_tensor(node):
@@ -1398,12 +1511,21 @@ class DeepSpeedTorchEngine:
                 for k, v in node.items():
                     walk(v, logical[k])
             else:
-                zs.scatter_flat(logical, node[0])
+                place(logical if self.tp is None else self.tp.shard_tree(logical), node[0])
 
-        if opt_state is not None:
-            with torch.no_grad():
+        with torch.no_grad():
+            place(params, self.params if zs is None else zs.masters)
+            if opt_state is not None:
                 walk(self.opt_state, opt_state)
-        zs.refresh_compute()
+        if zs is not None:
+            zs.refresh_compute()
+
+    def _copy_leaves(self, tree, dst) -> None:
+        """Whole-leaf tree -> a buffer laid out like this rank's masters (a
+        tree of leaf views, or a flat buffer)."""
+        views = dict(_leaf_paths_of(dst if isinstance(dst, dict) else self._local_tree(dst)))
+        for path, x in _leaf_paths_of(tree):
+            views[path].copy_(x)
 
     def memory_breakdown(self) -> Dict[str, Any]:
         """Bytes of the fp32 masters and the optimizer state, and a device /

@@ -117,8 +117,14 @@ def _size(shape) -> int:
     return int(math.prod(shape)) if shape else 1
 
 
-def _is_sharded(spec) -> bool:
-    return any(e is not None for e in tuple(spec))
+def _on_fsdp(spec) -> bool:
+    """Whether ``spec`` shards a dimension over ``fsdp`` / ``sub`` (a
+    ``model`` entry is the tensor-parallel shard, not ZeRO's)."""
+    def axes(e):
+        return e if isinstance(e, tuple) else (e,)
+
+    return any(a in (FSDP_AXIS, SUB_AXIS) for e in tuple(spec) if e is not None
+               for a in axes(e))
 
 
 @dataclass
@@ -323,7 +329,7 @@ class ZeroShard:
     groups, and the collectives of the step.  See the module docstring."""
 
     def __init__(self, params, config, grid, device: torch.device, compute_dtype,
-                 num_layers: Optional[int], quant=None):
+                 num_layers: Optional[int], quant=None, param_specs=None):
         zcfg = config.zero_optimization
         self.stage = zcfg.stage
         self.grid, self.device, self.dtype = grid, device, compute_dtype
@@ -332,6 +338,10 @@ class ZeroShard:
             params = deferred.shapes
         shapes = _tree_map_with_path(lambda p, x: tuple(x.shape), params)
         self.plan = plan_sharding(shapes, zcfg, grid.spec)
+        # which leaves stage 3 gathers: the plan's, or under a model axis
+        # the plan of the whole tree with the TP rules (``param_specs``,
+        # JAX's composition), whose fsdp entries say it
+        specs = param_specs if param_specs is not None else self.plan.param_specs
         self.hpz = zcfg.zero_hpz_partition_size > 1
         self.mics = zcfg.mics_shard_size > 1
         self.quant = quant  # runtime/zeropp.py's ZeroPP (qwZ / qgZ / LoCo) or None
@@ -359,7 +369,7 @@ class ZeroShard:
             for p, x in _leaf_paths(params):
                 shape = _leaf_shape(x)
                 big = _size(shape) >= zcfg.param_persistence_threshold
-                if not (_is_sharded(_get(self.plan.param_specs, p)) or (alone and big)):
+                if not (_on_fsdp(_get(specs, p)) or (alone and big)):
                     persist.append(Piece(p, shape))
                 elif layer_leaves and p[0] == layer_leaves[0]:
                     for l in range(num_layers):
@@ -604,6 +614,18 @@ class ZeroShard:
             acc.zero_()
         if self.grid.axis_size(self.replica_axes) > 1:
             comm.all_reduce(self.grad, self.replica_axes, mesh=self.grid)
+
+    def path_runs(self, paths) -> List[Tuple[bool, int, int]]:
+        """``(leaf in paths, start, end)`` runs over this rank's slices (the
+        padding counts as outside)."""
+        runs = []
+        for g in self.groups:
+            lo = self.slice_index(g) * g.shard
+            for pc, o in g.piece_offsets():
+                a, b = max(lo, o), min(lo + g.shard, o + pc.numel)
+                if a < b:
+                    runs.append((pc.path in paths, g.off + a - lo, g.off + b - lo))
+        return runs
 
     def grad_norm(self) -> torch.Tensor:
         """The global gradient norm: the slices' squares summed once over

@@ -54,7 +54,17 @@ to a fresh quantized engine.  ZeRO across processes: ``chip_smoke``'s
 zero_train at 2 layers, one rank through the launcher over NCCL, its
 collectives and launches at the plan's counts, stages 1-3 at stage 0's
 losses, ZeRO++ and 1-bit Adam at the CPU's, two planted faults outside
-that gate.  This
+that gate.  Tensor parallelism: the same rank at 2 layers trains stages
+0 and 3 over a model axis of one to the plain runs' losses (a planted
+loss fault outside that gate) and serves each format over it
+token-identical to the engine without a grid; the vocab-parallel loss
+equals the plain cross-entropy (``chip_smoke.tp_ce_check``) and one
+backward over the model axis of one the plain backward, bit for bit; each
+rank's shard of a full-width layer at tp 2 and 4, the ranks' all-reduces
+made in lockstep, equals the whole layer
+(``chip_smoke.tp_shard_train_check``), the kernels on each rank's heads
+and column / row shards to the whole call (``tp_shard_serve_check``),
+each planted fault outside its gate.  This
 file imports neither JAX nor the JAX package, so it
 runs where only PyTorch is installed::
 
@@ -1671,3 +1681,81 @@ def test_zero_train_through_the_launcher_over_nccl_on_the_card(tmp_path):
     print("zero_train twin", {c: r["losses"] for c, r in runs.items()},
           {c: r["losses"] for c, r in refs.items()}, gaps,
           {c: r["seconds"] for c, r in runs.items()})
+
+
+@pytest.mark.gpu
+def test_one_backward_over_a_model_axis_of_one_is_the_plain_backward_bit_for_bit(monkeypatch):
+    """The flagship at 4 layers in bf16, one batch: the loss and every
+    leaf's gradient through the tensor-parallel path at a model axis of
+    one (its all-reduces over a group of one: the identity) equal the plain
+    path's bit for bit, and each path repeats itself."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from deepspeed_tpu_torch.models import transformer as tt
+    from deepspeed_tpu_torch.models.presets import get_preset
+    from deepspeed_tpu_torch.parallel.tensor_parallel import TensorParallel
+
+    K.build(["flash_fwd", "flash_bwd_dq"])
+    monkeypatch.setattr(tt, "_model_all_reduce", lambda x, tp, op="sum": x.clone())
+    cfg = get_preset("llama3_proxy_410m", num_layers=4)
+    model = tt.CausalLM(cfg)
+    master = model.init_params(seed=0, device="cuda")
+    ids = torch.randint(0, cfg.vocab_size, (1, 257),
+                        generator=torch.Generator().manual_seed(0)).cuda()
+
+    def leaves(tree, path=()):
+        for k, v in tree.items():
+            yield from leaves(v, path + (k,)) if isinstance(v, dict) else [(path + (k,), v)]
+
+    def bf16(tree):
+        return {k: bf16(v) if isinstance(v, dict)
+                else v.detach().to(torch.bfloat16).requires_grad_(True) for k, v in tree.items()}
+
+    def run(tp):
+        model.tp = tp
+        params = bf16(master)
+        loss = model.loss_fn(params, {"input_ids": ids})
+        loss.backward()
+        return loss.detach(), {p: leaf.grad for p, leaf in leaves(params)}
+
+    plain = [run(None), run(None)]
+    tp = TensorParallel(None, cfg, rank=0, size=1)
+    over = [run(tp), run(tp)]
+    for a, b in ((plain[0], plain[1]), (over[0], over[1]), (plain[0], over[0])):
+        assert torch.equal(a[0], b[0])
+        differ = [p for p in a[1] if not torch.equal(a[1][p], b[1][p])]
+        assert not differ, differ
+
+
+@pytest.mark.gpu
+def test_tp_train_and_serve_over_a_model_axis_of_one_on_the_card(tmp_path):
+    """``chip_smoke``'s tp_train / tp_serve runs at 2 layers of the
+    flagship's width: one rank through the launcher over NCCL trains stages
+    0 and 3 beside the same runs over a model axis of one (and the planted
+    loss fault) and serves each format over it; ``tp_train_phase`` and
+    ``tp_serve_phase`` raise unless the collectives, launches, losses and
+    tokens hold (their loss and shard checks included)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    K.build(["flash_fwd", "flash_bwd_dq", "fused_adamw", "quantize_int8", "paged_decode",
+             "ctx_attention", "quant_matmul_int8"])  # the rank loads them
+    out = str(tmp_path / "card.json")
+    card = chip_smoke.zero_worker("cuda", ("stage0", "stage3") + chip_smoke.TP_CASES
+                                  + (chip_smoke.TP_PLANTED, "tp_serve"), out, layers=2)
+    try:
+        runs = chip_smoke.zero_results(card, out, "card")
+    finally:
+        if card.poll() is None:
+            card.terminate()
+    tp = {c: runs.pop(c) for c in list(runs) if c.startswith("tp_")}
+    old = chip_smoke.emit
+    chip_smoke.emit = lambda obj: None
+    try:
+        train = chip_smoke.tp_train_phase(torch, K, "test", tp, runs)
+        serve = chip_smoke.tp_serve_phase(torch, K, "test", tp)
+    finally:
+        chip_smoke.emit = old
+    assert train["launches"]["flash_fwd"] == 2 * 2 * 2 * 3
+    assert serve["launches"]["paged_decode"] > 0
+    print("tp twin", {c: r["losses"] for c, r in tp.items() if "losses" in r},
+          {c: r["counts"] for c, r in tp.items()})

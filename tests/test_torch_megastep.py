@@ -328,8 +328,6 @@ def test_serve_config_checks_say_what_jax_says(kw):
 
 
 @pytest.mark.parametrize("kw,item", [
-    pytest.param(dict(quant_comm="int8"), 7, id="kw8-7"),
-    pytest.param(dict(comm_tiles=2), 7, id="kw9-7"),
     pytest.param(dict(fused_serving=False), 7, id="kw10-7"),
 ])
 def test_serve_config_refuses_unported_fields(models, kw, item):
@@ -343,6 +341,24 @@ def test_serve_config_refuses_unported_fields(models, kw, item):
         ServeConfig(**kw)
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         InferenceEngineV2(tp, tcfg, device="cpu", num_blocks=8, serve=kw)
+
+
+@pytest.mark.parametrize("kw", [
+    pytest.param(dict(quant_comm="int8"), id="kw8-7"),
+    pytest.param(dict(comm_tiles=2), id="kw9-7"),
+])
+def test_serve_config_takes_the_tensor_parallel_transport_fields(models, kw):
+    """``quant_comm`` / ``comm_tiles`` (the cases that the refusal test held
+    until slice 23) parse with JAX's values; an engine without a model axis
+    carries them and reads neither (``tests/test_torch_tp.py``
+    serves through them over one)."""
+    _, _, tcfg, tp = models("tiny")
+    t, j = ServeConfig(**kw), JServeConfig(**kw)
+    assert (t.quant_comm, t.comm_tiles) == (j.quant_comm, j.comm_tiles)
+    eng = InferenceEngineV2(tp, tcfg, device="cpu", num_blocks=8, serve=kw)
+    assert (eng.quant_comm, eng.comm_tiles) == (t.quant_comm, t.comm_tiles)
+    assert eng.serving_ctx.tp is None
+    eng.close()
 
 
 def test_serve_config_takes_adaptation_as_jax_does(models):

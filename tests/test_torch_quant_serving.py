@@ -292,15 +292,24 @@ def test_refusals(tiny):
         InferenceEngineV2(tp, tcfg, device="cpu", num_blocks=8, quantize_weights="int8",
                           fused_serving=False)
     InferenceEngineV2(tp, tcfg, device="cpu", num_blocks=8, fused_serving=True).close()
-    w = torch.zeros(16, 8)
-    for call in (lambda: TQ.quantize_serving_weight_fp6(w, row_shards=2),
-                 lambda: TQ.ServingQuantFP6(torch.zeros(3, 4, 8, dtype=torch.uint8),
-                                            torch.ones(8), 16, row_shards=2),
-                 lambda: TQ.quantize_serving_params(tp, "fp6", row_parallel_shards=2),
-                 lambda: params_from_numpy(jax.tree_util.tree_map(
-                     np.asarray, JQ.quantize_serving_params(jp, "fp6", row_parallel_shards=2)),
-                     tcfg, device="cpu")):
-        with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-            call()
+    # the per-K-chunk FP6 pack of tensor-parallel row kernels runs since
+    # slice 23 (tests/test_torch_tp.py serves it): its bytes are
+    # JAX's, and a whole chunked pack is refused on one device, where it
+    # would run as one standard pack
+    w = torch.randn(16, 8, generator=torch.Generator().manual_seed(1))
+    got = TQ.quantize_serving_weight_fp6(w, row_shards=2)
+    want = JQ.quantize_serving_weight_fp6(jnp.asarray(w.numpy()), row_shards=2)
+    np.testing.assert_array_equal(got.packed.numpy(), np.asarray(want.packed))
+    assert (got.in_dim, got.row_shards) == (16, 2)
+    tq = TQ.quantize_serving_params(tp, "fp6", row_parallel_shards=2)
+    jq = params_from_numpy(jax.tree_util.tree_map(
+        np.asarray, JQ.quantize_serving_params(jp, "fp6", row_parallel_shards=2)),
+        tcfg, device="cpu")
+    for name in ("wo", "wq"):
+        a, b = tq["layers"]["attn"][name], jq["layers"]["attn"][name]
+        assert a.row_shards == b.row_shards == (2 if name == "wo" else 1)
+        assert torch.equal(a.packed, b.packed)
+    with pytest.raises(ValueError, match="per-K-chunk"):
+        TQ.serving_mm(torch.zeros(1, 16), got)
     with pytest.raises(ValueError, match="in-dim % 4"):
         TQ.quantize_serving_weight_fp6(torch.zeros(6, 8))

@@ -431,10 +431,12 @@ def test_serve_engine_config_defaults_and_refusals(tiny):
         assert getattr(t, f) == getattr(j, f), f
     kw = ServeEngineConfig(quantize_weights="int8", prefill_chunk=16).engine_kwargs()
     assert kw["quantize_weights"] == "int8" and kw["prefill_chunk"] == 16
-    for bad in (dict(tp=2), dict(serve_replicas=2), dict(quant_comm="int8"),
-                dict(comm_tiles=2)):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            ServeEngineConfig(**bad)
+    with pytest.raises(NotImplementedError, match="item 7"):
+        ServeEngineConfig(serve_replicas=2)
+    # tensor-parallel serving runs over a process world's model axis
+    # (tests/test_torch_tp.py); its fields reach the engine
+    kw = ServeEngineConfig(tp=2, quant_comm="int8", comm_tiles=2).engine_kwargs()
+    assert (kw["quant_comm"], kw["comm_tiles"]) == ("int8", 2)
     eng = build_serve_engine(tp, tcfg, dict(SEC, seq_shards=2), device="cpu")
     assert eng.seq_shards == 2 and eng.mgr.allocator.stripes == 2
     assert eng.generate([1, 2, 3, 4, 5], SamplingParams(temperature=0.0, max_new_tokens=3))

@@ -183,7 +183,10 @@ def test_alibi_bias_matches_jax():
 @pytest.mark.parametrize("over,match", [
     pytest.param(dict(sequence_parallel="ulysses"), "sequence_parallel",
                  id="over1-sequence_parallel"),
-    pytest.param(dict(domino_chunks=2), "domino_chunks", id="over2-domino_chunks"),
+    # domino_chunks runs since slice 23 (test_ported_model_options_run);
+    # ring sequence parallelism stays refused
+    pytest.param(dict(sequence_parallel="ring"), "sequence_parallel",
+                 id="over2-sequence_parallel_ring"),
     # block-sparse attention is ported; what stays refused, as in JAX, is
     # its composition with ALiBi (the sparse bodies take no bias)
     pytest.param(dict(sparse_attention=FixedSparsityConfig(block=16), position="alibi"),
@@ -196,12 +199,17 @@ def test_unported_model_options_are_refused(over, match):
 
 # act_quant_bits runs now (tests/test_torch_compression.py holds
 # its loss and gradients against JAX); the case refused it before
-@pytest.mark.parametrize("over", [pytest.param(dict(act_quant_bits=8), id="act_quant_bits")])
+@pytest.mark.parametrize("over", [pytest.param(dict(act_quant_bits=8), id="act_quant_bits"),
+                                  pytest.param(dict(domino_chunks=2), id="domino_chunks")])
 def test_ported_model_options_run(over):
     cfg = get_preset("tiny", dtype=torch.float32, **over)
     tokens = torch.from_numpy(_tokens(2, 17, 256))
     loss = tt.CausalLM(cfg).loss_fn(tt.init_params(cfg, device="cpu"), {"input_ids": tokens})
     assert np.isfinite(loss.item())
+    if "domino_chunks" in over:  # the value of one chunk (test_torch_tp.py holds it to JAX)
+        whole = tt.CausalLM(cfg.replace(domino_chunks=1)).loss_fn(
+            tt.init_params(cfg, device="cpu"), {"input_ids": tokens})
+        np.testing.assert_allclose(loss.item(), whole.item(), rtol=1e-6)
 
 
 def test_unported_forward_arguments_are_refused():
@@ -683,10 +691,11 @@ def test_parse_config_batch_triangulation_matches_jax():
 
 @pytest.mark.parametrize("raw,key", [
     # offload_optimizer runs since slice 18 (tests/test_torch_offload.py),
-    # the ZeRO++ keys since slice 22 (test_keys_on_that_run_parse_as_jax);
-    # what stays refused is the tensor-parallel section and the mesh axes
-    # beyond data / fsdp / sub
-    ({"tensor_parallel": {"enabled": True, "tp_size": 2}}, "tensor_parallel"),
+    # the ZeRO++ keys since slice 22 (test_keys_on_that_run_parse_as_jax),
+    # the tensor-parallel section and the model axis since slice 23; what
+    # stays refused is the mesh axes beyond data / fsdp / sub / model
+    ({"tensor_parallel": {"enabled": True, "tp_size": 2}, "mesh": {"model": 2, "seq": 2}},
+     "mesh"),
     ({"mesh": {"fsdp": 2, "stage": 2}}, "mesh"),
     # progressive_layer_drop and curriculum_learning run since slice 19
     # (tests/test_torch_pld.py, test_torch_curriculum.py), compression_training,
@@ -743,11 +752,14 @@ ON_CONFIGS = [
     # the timers, the profiler, the monitors and data_efficiency run since
     # slice 19 (tests/test_torch_timer_monitor.py), compression_training,
     # eigenvalue and hybrid_engine now (ON_NOW_CONFIGS)
-    ({"mesh": {"model": 2}}, "mesh", 7),
+    # the model axis and the tensor_parallel section run since slice 23
+    # (ON_NOW_CONFIGS); pipeline stages beside them stay refused
+    ({"mesh": {"model": 2, "stage": 2}}, "mesh", 7),
     # the moe section is parsed (tests/test_torch_moe.py); an expert axis
     # stays refused with it
     ({"moe": {"enabled": True}, "mesh": {"expert": 2}}, "mesh", 7),
-    ({"tensor_parallel": {"enabled": True, "tp_size": 2}}, "tensor_parallel", 7),
+    ({"tensor_parallel": {"enabled": True, "tp_size": 2}, "mesh": {"model": 2, "expert": 2}},
+     "mesh", 7),
     # elasticity and compile run since slice 21, the comms logger and the
     # ZeRO++ keys since slice 22 (ON_NOW_CONFIGS); aio and offload_param
     # parse since slice 18 (tests/test_torch_offload.py)
@@ -789,6 +801,9 @@ ON_NOW_CONFIGS = [
     ({"compile": {"disable": True}}, "compile"),
     ({"comms_logger": {"enabled": True}}, "comms_logger"),
     ({"mesh": {"data": 2, "fsdp": 2}}, "mesh"),
+    ({"mesh": {"model": 2}}, "mesh"),
+    ({"tensor_parallel": {"enabled": True, "tp_size": 2}}, "tensor_parallel"),
+    ({"tensor_parallel": {"domino_chunks": 2}}, "tensor_parallel"),
     ({"zero_optimization": {"mics_shard_size": 2}}, "zero_optimization.mics_shard_size"),
     ({"zero_optimization": {"zeropp_loco_param": {"err_beta": 0.8}}},
      "zero_optimization.zeropp_loco_param"),

@@ -74,16 +74,31 @@ def _run(rank: int, world: int, rdv: str, spec_path: str, out_dir: str) -> None:
     comm.destroy()
 
 
-def spawn(world: int, cases, tmp_path):
+def spawn(world: int, cases, tmp_path, timeout: float = None):
     """Run ``cases`` on a world of ``world`` gloo ranks; returns
-    ``[results of rank r]``, each ``{case name: what the case returned}``."""
+    ``[results of rank r]``, each ``{case name: what the case returned}``.
+    With ``timeout`` (seconds) a world still running then is terminated
+    and ``TimeoutError`` raised: ranks that diverge fail, never hang."""
+    import time
+
     import torch.multiprocessing as mp
 
     out_dir = str(tmp_path)
+    os.makedirs(out_dir, exist_ok=True)
     spec = os.path.join(out_dir, "cases.pkl")
     with open(spec, "wb") as fh:
         pickle.dump(cases, fh)
-    mp.spawn(_run, args=(world, os.path.join(out_dir, "rdv"), spec, out_dir), nprocs=world)
+    ctx = mp.spawn(_run, args=(world, os.path.join(out_dir, "rdv"), spec, out_dir),
+                   nprocs=world, join=False)
+    deadline = None if timeout is None else time.monotonic() + timeout
+    while not ctx.join(None if deadline is None else max(deadline - time.monotonic(), 0.1)):
+        if deadline is not None and time.monotonic() >= deadline:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.terminate()
+            for p in ctx.processes:
+                p.join(10)
+            raise TimeoutError(f"a world of {world} ranks still ran after {timeout} s")
     out = []
     for r in range(world):
         with open(os.path.join(out_dir, f"rank{r}.pkl"), "rb") as fh:
@@ -362,3 +377,171 @@ def fn_deferred(rank, world, stage):
             "largest_leaf": max(largest), "drawn": sum(largest),
             "total": sum(g.numel for g in zs.groups), "slice": zs.masters.numel()}
 
+
+
+def case_tp_train(rank, world, out_dir, config, params, batches, preset="tiny",
+                  remat="selective", ckpt=None, ckpt_after=None):
+    """``case_train`` with a ``model`` axis: also each step's replicated and
+    narrowed leaves of this rank's shard (they must stay equal on every
+    rank of a tensor-parallel group), the comms logger's counts, and the
+    whole masters on every rank."""
+    from deepspeed_tpu_torch.comm import comm
+
+    engine = _engine(config, params, preset=preset, remat=remat)
+    tp = engine.tp
+    whole = engine._tp_shapes
+    kept = [p for p, pl in tp.placements(whole).items() if pl.kind != "shard"]
+    logger = comm.get_comms_logger(engine.grid)
+    losses, norms, replicated = [], [], []
+    for i, b in enumerate(_batches(batches)):
+        losses.append(float(engine.train_batch(b)))
+        norms.append(engine.get_global_grad_norm())
+        local = _local_masters(engine)
+        replicated.append({"/".join(p): local["/".join(p)] for p in kept})
+        if ckpt is not None and i + 1 == ckpt_after:
+            engine.save_checkpoint(ckpt)
+    out = {"losses": losses, "norms": norms, "replicated": replicated,
+           "counts": logger.counts() if logger is not None else {},
+           "tp": (tp.size, tp.rank, tp.kv_sharded, tp.vocab_sharded),
+           "dp": engine.dp_world_size}
+    out["params"] = {k: v.detach().numpy().copy() for k, v in _flat(engine.master_tree()).items()}
+    return out
+
+
+def _local_masters(engine):
+    """This rank's fp32 masters as ``{path: array}`` of its TP shard (ZeRO's
+    slices gathered over the shard group)."""
+    zs = engine._zero
+    tree = engine.params if zs is None else zs.unflatten(zs.gather_flat(zs.masters),
+                                                         zs.plan.shape_tree)
+    return {k: v.detach().numpy().copy() for k, v in _flat(tree).items()}
+
+
+def fn_tp_resume(rank, world, params, batches, ckpt, config):
+    """A one-device checkpoint loaded at ``model`` 2 (each rank cuts its
+    shard of the logical tensors) and trained on the last 2 batches."""
+    engine = _engine(config, params)
+    engine.load_checkpoint(ckpt)
+    steps = engine.global_steps
+    losses = [float(engine.train_batch(b)) for b in _batches(batches)[2:]]
+    return {"steps": steps, "losses": losses}
+
+
+def fn_tp_refusals(rank, world):
+    """What stays refused under a model axis: MoE layers, a sparse layout,
+    the 1-bit optimizers, a raw loss function."""
+    import deepspeed_tpu_torch as tds
+
+    base = {"train_micro_batch_size_per_gpu": 1, "bf16": {"enabled": False},
+            "mesh": {"model": 2}}
+    cases = {
+        "moe": (_model("tiny_moe"), base),
+        "sparse": (_model("tiny"), dict(base, sparse_attention={"mode": "fixed", "block": 16})),
+        "onebit": (_model("tiny"), dict(base, optimizer={"type": "onebitadam"})),
+        "lamb": (_model("tiny"), dict(base, optimizer={"type": "lamb"})),
+    }
+    out = {}
+    for name, (model, cfg) in cases.items():
+        try:
+            tds.initialize(model=model, config=cfg, device="cpu")
+            out[name] = "trained"
+        except NotImplementedError as e:
+            out[name] = str(e)
+    model = _model("tiny")
+    try:
+        tds.initialize(model=model, loss_fn=lambda p, b, r: 0.0, config=base, device="cpu")
+        out["loss_fn"] = "trained"
+    except Exception as e:  # a ConfigError
+        out["loss_fn"] = str(e)
+    return out
+
+
+def case_tp_serve(rank, world, out_dir, params, preset, engine_kw, prompts,
+                  temperature=0.0, scheduler=False, v1=False, tp=None):
+    """A tensor-parallel serving engine over ``model`` = ``tp`` (default the
+    world): the v2 engine's ``put`` / ``step`` ticks (or its scheduler, with
+    whatever prefix caching and chunking ``engine_kw`` turn on), or with
+    ``v1`` ``init_inference``'s ``generate``; returns each uid's tokens and
+    the engine's comms counts."""
+    from deepspeed_tpu_torch.comm import comm
+    from deepspeed_tpu_torch.inference.engine import init_inference
+    from deepspeed_tpu_torch.inference.engine_v2 import InferenceEngineV2
+    from deepspeed_tpu_torch.inference.sampling import SamplingParams
+    from deepspeed_tpu_torch.models import transformer as tt
+
+    grid = _grid({"model": tp or world})
+    comm.configure(type("C", (), {"enabled": True})(), mesh=grid)
+    model = _model(preset)
+    p = tt.params_from_numpy(load_tree(params), model.cfg, device="cpu")
+    new = 6
+    sampling = SamplingParams(temperature=temperature, top_k=20 if temperature else 0,
+                              max_new_tokens=new)
+    if v1:
+        eng = init_inference(model, p, mesh=grid, device="cpu", seed=3)
+        out = {"tokens": eng.generate(np.asarray(prompts), sampling).tolist()}
+    else:
+        eng = InferenceEngineV2(p, model.cfg, grid=grid, device="cpu", seed=3, **engine_kw)
+        if scheduler:
+            s = eng.scheduler
+            for u, toks in enumerate(prompts, 1):
+                s.submit(u, toks, sampling)
+            res = s.run()
+            out = {"tokens": {u: list(res[u]) for u in res}}
+        else:
+            first = eng.put(list(range(1, len(prompts) + 1)), prompts, sampling)
+            ticks = [eng.step(sampling) for _ in range(new - 1)]
+            out = {"tokens": {u: [first[u]] + [t[u] for t in ticks if u in t]
+                              for u in first}}
+        out["pool_heads"] = int(eng.kv[0][0].shape[2])
+        out["blocks_in_use"] = eng.close()["blocks_in_use"]
+    out["counts"] = comm.get_comms_logger(grid).counts()
+    return out
+
+
+def fn_tp_psum(rank, world, inputs, tiles):
+    """``qcomm.q_psum_tiled`` over ``model`` on this rank's partial sums
+    (``inputs[rank]``), for each format; and the int8 payload K6's plain
+    version makes of them."""
+    from deepspeed_tpu_torch.comm import qcomm
+
+    _grid({"model": world})
+    with np.load(inputs) as z:
+        y = torch.from_numpy(z["y"][rank])
+    out = {fmt: qcomm.q_psum_tiled(y, "model", fmt, tiles=tiles).numpy().copy()
+           for fmt in ("none", "int8", "fp8")}
+    q, s = qcomm.quantize_payload(y, "int8")
+    out["payload"] = (q.numpy().copy(), s.numpy().copy())
+    return out
+
+
+def fn_tp_serve_refusals(rank, world):
+    """What a tensor-parallel engine refuses, naming item 7."""
+    from deepspeed_tpu_torch.inference.engine_v2 import InferenceEngineV2
+    from deepspeed_tpu_torch.models import transformer as tt
+
+    grid = _grid({"model": world})
+    out = {}
+    cases = {
+        "speculation": ("tiny", dict(enable_speculation=True)),
+        "megastep": ("tiny", dict(serve={"decode_megastep": 4})),
+        "deadline": ("tiny", dict(serve={"deadline_ms": 500.0})),
+        "moe": ("tiny_moe", {}),
+    }
+    for name, (preset, kw) in cases.items():
+        model = _model(preset)
+        try:
+            InferenceEngineV2(tt.init_params(model.cfg, device="cpu"), model.cfg, grid=grid,
+                              device="cpu", num_blocks=8, block_size=8, **kw)
+            out[name] = "served"
+        except NotImplementedError as e:
+            out[name] = str(e)
+    model = _model("tiny")
+    eng = InferenceEngineV2(tt.init_params(model.cfg, device="cpu"), model.cfg, grid=grid,
+                            device="cpu", num_blocks=8, block_size=8)
+    try:
+        eng.step_n(2)
+        out["step_n"] = "served"
+    except NotImplementedError as e:
+        out["step_n"] = str(e)
+    eng.close()
+    return out
