@@ -9036,6 +9036,14 @@ batches = [{"input_ids": torch.randint(0, cfg.vocab_size, (spec["gas"], spec["mi
 
 def config(case):
     case = case.removesuffix("_planted")
+    if case.startswith("sp_"):  # sequence parallelism over a seq axis of 1 (stage 0)
+        return {"train_micro_batch_size_per_gpu": spec["micro"],
+                "gradient_accumulation_steps": spec["gas"], "bf16": {"enabled": True},
+                "gradient_clipping": 1.0, "steps_per_print": 1000,
+                "comms_logger": {"enabled": True}, "zero_optimization": {"stage": 0},
+                "optimizer": {"type": "adamw", "params": {"lr": spec["lr"],
+                                                          "weight_decay": 0.01}},
+                "mesh": {"seq": 1}}
     tp = case.startswith("tp_")  # the tensor-parallel path over a model axis of 1
     case = case.removeprefix("tp_")
     zero = {"stage": int(case[-1]) if case.startswith("stage") else 3 if case == "zeropp" else 0}
@@ -9071,10 +9079,19 @@ comm.init_distributed(device=spec["device"])
 grid = initialize_mesh(device=spec["device"])
 params = CausalLM(cfg).init_params(seed=spec["seed"], device="cpu")
 res = {}
+
+
+def model_for(case):
+    if case.startswith("sp_"):  # "sp_ulysses" / "sp_ring"
+        return CausalLM(cfg.replace(
+            sequence_parallel=case.removeprefix("sp_").removesuffix("_planted")))
+    return CausalLM(cfg)
+
+
 for case in spec["cases"]:
-    if case == "tp_serve":
+    if case in ("tp_serve", "ep_moe"):
         continue
-    engine, *_ = tds.initialize(model=CausalLM(cfg), params=params, config=config(case),
+    engine, *_ = tds.initialize(model=model_for(case), params=params, config=config(case),
                                 device=spec["device"], mesh=grid)
     if case == "zeropp_planted":  # the masters never move
         engine.optimizer.step = lambda *a, **k: None
@@ -9083,6 +9100,12 @@ for case in spec["cases"]:
 
         sound_ce = T._VocabParallelCE.__dict__["backward"]
         T._VocabParallelCE.backward = planted_ce(T)
+    if case == "sp_ulysses_planted":  # the all-to-alls' gradient dropped
+        from deepspeed_tpu_torch.parallel import context as C
+
+        sound_a2a = C._AllToAll.__dict__["backward"]
+        C._AllToAll.backward = staticmethod(
+            lambda ctx, g: (torch.zeros_like(g), None, None, None, None))
     if case == "onebit_planted":  # the compressed step never sees its gradient
         step, apply = engine._onebit, engine._onebit.apply
 
@@ -9119,6 +9142,38 @@ for case in spec["cases"]:
                                      vector_norm=float(torch.linalg.vector_norm(m)))
     if case == "tp_stage0_planted":
         T._VocabParallelCE.backward = sound_ce
+    if case == "sp_ulysses_planted":
+        C._AllToAll.backward = sound_a2a
+    del engine
+    gc.collect()
+    if spec["device"] == "cuda":
+        torch.cuda.empty_cache()
+if "ep_moe" in spec["cases"]:
+    # mixtral_8x7b at moe_train's cut through the expert axis of this world
+    # of one (mesh={"expert": 1}: the routed layer's f / g over a group of
+    # one), on moe_train's weights, batch and config at stage 0
+    import numpy as np
+    from deepspeed_tpu_torch.models.transformer import init_params as init_tree
+
+    ep = spec["ep"]
+    mcfg = get_preset(ep["preset"], **dict(ep["over"], num_layers=ep["layers"]))
+    mp = init_tree(mcfg, seed=spec["seed"], device=spec["device"], dtype=torch.bfloat16)
+    conf = dict(ep["config"], mesh={"expert": 1}, comms_logger={"enabled": True},
+                zero_optimization={"stage": 0})
+    engine, *_ = tds.initialize(model=CausalLM(mcfg), params=mp, config=conf,
+                                device=spec["device"], mesh=grid)
+    del mp
+    batch = {"input_ids": np.random.default_rng(spec["seed"]).integers(
+        0, mcfg.vocab_size, (1, ep["micro"], ep["seq"] + 1), dtype=np.int64)}
+    logger = comm.get_comms_logger(engine.grid)
+    logger.reset()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    losses = [float(engine.train_batch(batch)) for _ in range(ep["steps"])]
+    res["ep_moe"] = dict(losses=losses, counts=logger.counts(), seconds=time.perf_counter() - t0,
+                         launches={k: v for k, v in K.LAUNCHES.items() if v},
+                         backend=engine.grid.backend, world=engine.grid.world_size,
+                         ep=[engine.ep.size, engine.ep.local], layers=ep["layers"])
     del engine
     gc.collect()
     if spec["device"] == "cuda":
@@ -9174,11 +9229,14 @@ with open(out, "w") as fh:
 def zero_worker(device, cases, out, layers=None):
     """The worker above started through the launcher, one rank (a Popen);
     it writes its results to ``out``.  ``tp_stage0`` / ``tp_stage3`` among
-    the cases train over a model axis of one; ``tp_serve`` serves
-    ``TP_SERVE``'s runs after the training cases."""
+    the cases train over a model axis of one, ``sp_ulysses`` / ``sp_ring``
+    over a seq axis of one; ``ep_moe`` trains ``EP_TRAIN``'s Mixtral over an
+    expert axis of one and ``tp_serve`` serves ``TP_SERVE``'s runs after the
+    training cases."""
     spec = dict(ZERO_TRAIN, layers=layers or ZERO_TRAIN["layers"], device=device,
                 cases=list(cases), threads=ZERO_TRAIN["cpu_threads"] if device == "cpu" else 4,
-                serve=TP_SERVE)
+                serve=TP_SERVE,
+                ep=dict(EP_TRAIN, config=bench_config(EP_TRAIN["micro"], 1)))
     script = os.path.join(os.path.dirname(out), "zero_worker.py")
     with open(script, "w") as fh:
         fh.write(ZERO_WORKER)
@@ -9220,7 +9278,7 @@ def zero_train_run(torch, K, card_proc, card_out, cpu_proc, cpu_out, layers, tp=
     to ``tp`` (a dict) for ``tp_train_phase`` / ``tp_serve_phase``."""
     z = ZERO_TRAIN
     card = zero_results(card_proc, card_out, "card")
-    for case in [c for c in card if c.startswith("tp_")]:
+    for case in [c for c in card if c.startswith(("tp_", "sp_", "ep_"))]:
         (tp if tp is not None else {})[case] = card.pop(case)
     cpu = zero_results(cpu_proc, cpu_out, "cpu")
     steps, gas = z["steps"], z["gas"]
@@ -9274,7 +9332,8 @@ def zero_train_phase(torch, K, gpu, cpu_proc, cpu_out, tmp, tp):
     results land in ``tp``."""
     card_out = os.path.join(tmp, "zero_card.json")
     t0 = time.perf_counter()
-    card_proc = zero_worker("cuda", ZERO_CASES + TP_CASES + (TP_PLANTED, "tp_serve"), card_out)
+    card_proc = zero_worker("cuda", ZERO_CASES + TP_CASES + (TP_PLANTED,) + SP_CASES
+                            + (SP_PLANTED, "ep_moe", "tp_serve"), card_out)
     card, cpu, gaps = zero_train_run(torch, K, card_proc, card_out, cpu_proc, cpu_out,
                                      ZERO_TRAIN["layers"], tp=tp)
     planted = {c: card.pop(c) for c in ZERO_PLANTED}  # not the main path's runs
@@ -9323,7 +9382,7 @@ def zero_train_phase(torch, K, gpu, cpu_proc, cpu_out, tmp, tp):
 # of one full-width 410M layer with biases (4 q / 1 kv heads at tp 2, 2 q
 # / 1 kv narrowed at tp 4), the ranks run one after another in this
 # process with the model axis's all-reduces made in lockstep
-# (``_Lockstep``), forward and backward, held to the whole layer
+# (``_Collectives``), forward and backward, held to the whole layer
 # (TP_SHARD_TOL); two faults planted in the port outside the gate.
 # tp_serve: the same rank serves TP_SERVE's runs over the model axis of
 # one (bf16 through the scheduler with prefix hits and chunked
@@ -9378,51 +9437,6 @@ class _Pending(Exception):
     """A rank reached an all-reduce whose sum is not known yet."""
 
 
-class _Lockstep:
-    """The model axis's all-reduce over ``tp`` ranks run one after another
-    in one process: rank r's k-th all-reduce returns the sum (or max) of
-    every rank's k-th input once every rank has reached it; until then the
-    rank's run stops there and later runs again from its start with every
-    result known so far.  ``run(fn)`` repeats ``fn(r)`` for r = 0 .. tp - 1
-    until every rank ran through."""
-
-    def __init__(self, torch, tp):
-        self.torch, self.tp = torch, tp
-        self.inputs, self.results = {}, {}
-        self.rank = self.calls = 0
-
-    def __call__(self, x, tp, op="sum"):
-        k, self.calls = self.calls, self.calls + 1
-        if k in self.results:
-            return self.results[k].clone()
-        self.inputs.setdefault(k, {})[self.rank] = (x.detach().clone(), op)
-        raise _Pending()
-
-    def run(self, fn):
-        while True:
-            outs = []
-            for r in range(self.tp):
-                self.rank, self.calls = r, 0
-                try:
-                    outs.append(fn(r))
-                except _Pending:
-                    outs.append(None)
-            if all(o is not None for o in outs):
-                return outs
-            k = min(set(self.inputs) - set(self.results))
-            got = self.inputs[k]
-            if sorted(got) != list(range(self.tp)):
-                raise AssertionError(f"all-reduce {k} reached by ranks {sorted(got)} only")
-            xs = [got[r][0] for r in range(self.tp)]
-            if got[0][1] == "max":
-                self.results[k] = self.torch.stack(xs).amax(0)
-            else:
-                acc = xs[0].clone()
-                for x in xs[1:]:
-                    acc += x
-                self.results[k] = acc
-
-
 @contextlib.contextmanager
 def _patched(obj, **attrs):
     """``obj``'s attributes replaced for the block."""
@@ -9439,30 +9453,33 @@ def _patched(obj, **attrs):
 def _planted_bias_before_g(tt):
     """The port's row-parallel attention output with its bias added on
     every rank, before ``g``'s all-reduce."""
-    def post(lw, x, o, cfg, tp):
+    def post(lw, x, o, cfg, par, dropless=False):
         attn = dict(lw["attn"])
         bo = attn.pop("bo")
         b, s = o.shape[:2]
-        h = tt.tp_reduce(o.reshape(b, s, -1) @ attn["wo"] + bo, tp).to(x.dtype)
+        h = par.reduce(o.reshape(b, s, -1) @ attn["wo"] + bo, "model").to(x.dtype)
         x = x + h
         y = tt._act_quant(tt.norm(x, lw["mlp_norm"], cfg.norm, cfg.norm_eps), cfg)
-        return x + tt._mlp_tp(lw["mlp"], y, cfg, tp).to(x.dtype), None
+        return x + tt._mlp_tp(lw["mlp"], y, cfg, par).to(x.dtype), None
     return _patched(tt, _post_attention_tp=post)
 
 
 def _planted_g_backward(tt):
-    """The port's ``g`` all-reducing its gradient in the backward too."""
-    real = tt._ReduceFromModel.forward
+    """The port's ``g`` (``parallel.context._Reduce``) all-reducing its
+    gradient in the backward too."""
+    from deepspeed_tpu_torch.parallel import context as C
 
-    def forward(ctx, x, tp):
-        ctx.tp = tp
-        return real(ctx, x, tp)
+    real = C._Reduce.forward
+
+    def forward(ctx, x, par, axes):
+        ctx.args = (par, axes)
+        return real(ctx, x, par, axes)
 
     def backward(ctx, grad):
-        return tt._model_all_reduce(grad, ctx.tp), None
+        par, axes = ctx.args
+        return par._all_reduce(grad, axes), None, None
 
-    return _patched(tt._ReduceFromModel, forward=staticmethod(forward),
-                    backward=staticmethod(backward))
+    return _patched(C._Reduce, forward=staticmethod(forward), backward=staticmethod(backward))
 
 
 def _leaf_paths_t(tree, path=()):
@@ -9473,7 +9490,7 @@ def _leaf_paths_t(tree, path=()):
             yield path + (k_,), v
 
 
-def _layer_run(torch, tt, cfg, layer, x, rope_cs, dy, tp=None):
+def _layer_run(torch, tt, cfg, layer, x, rope_cs, dy, par=None):
     """The port's ``decoder_layer`` on ``layer`` (fresh autograd leaves)
     forward and backward against ``dy``: its output, the input's gradient
     and every weight's."""
@@ -9487,7 +9504,7 @@ def _layer_run(torch, tt, cfg, layer, x, rope_cs, dy, tp=None):
     x = x.detach().requires_grad_(True)
     b, s = x.shape[:2]
     pos = torch.arange(s, device=x.device)[None].expand(b, s)
-    out, _ = tt.decoder_layer(lw, x, cfg, pos, flash_attention, None, rope_cs, tp=tp)
+    out, _ = tt.decoder_layer(lw, x, cfg, pos, flash_attention, None, rope_cs, par=par)
     (out.float() * dy).sum().backward()
     return dict(out=out.detach(), dx=x.grad,
                 grads={"/".join(p): t.grad for p, t in _leaf_paths_t(lw)})
@@ -9550,10 +9567,10 @@ def tp_shard_train_check(torch, K):
         local = [take0(t.shard_tree(stacked)["layers"]) for t in ranks]
 
         def shards():
-            lock = _Lockstep(torch, tp)
-            with _patched(tt, _model_all_reduce=lock):
-                runs = lock.run(lambda r: _layer_run(torch, tt, cfg, local[r], x, rope_cs, dy,
-                                                     tp=ranks[r]))
+            lock = _Collectives(torch, tp)
+            runs = lock.run(lambda r: _layer_run(
+                torch, tt, cfg, local[r], x, rope_cs, dy,
+                par=_lockstep_context(torch, lock, "model", r, tp=ranks[r])))
             return runs, len(lock.results)
 
         sound, n_reduce = shards()
@@ -9594,7 +9611,8 @@ def tp_ce_check(torch, K):
     w = (_randn(torch, (d, v), gen, torch.float32) / d ** 0.5).to(torch.bfloat16)
     labels = torch.randint(0, v, (n,), generator=gen, device=DEVICE)
     labels[: n // 16] = -100
-    tp = TensorParallel(None, cfg, rank=0, size=1)
+    lock = _Collectives(torch, 1)
+    par = _lockstep_context(torch, lock, "model", 0, tp=TensorParallel(None, cfg, rank=0, size=1))
 
     def run(loss_of):
         hh, ww = h.clone().requires_grad_(True), w.clone().requires_grad_(True)
@@ -9605,13 +9623,11 @@ def tp_ce_check(torch, K):
         return loss.detach(), logits.grad, hh.grad, ww.grad
 
     def vp(logits):
-        nll, cnt = tt.vocab_parallel_cross_entropy(logits, labels, tp)
+        nll, cnt = tt.vocab_parallel_cross_entropy(logits, labels, par)
         return nll / cnt.clamp(min=1.0)
 
     plain = run(lambda logits: tt.cross_entropy_loss(logits, labels))
-    lock = _Lockstep(torch, 1)
-    with _patched(tt, _model_all_reduce=lock):
-        vocab = lock.run(lambda r: run(vp))[0]
+    vocab = lock.run(lambda r: run(vp))[0]
     out = {"loss": float(vocab[0] - plain[0])}
     for i, name in ((1, "dlogits"), (2, "dh"), (3, "dW")):
         a, b = vocab[i].float(), plain[i].float()
@@ -9821,6 +9837,420 @@ def tp_serve_phase(torch, K, gpu, tp_runs):
     return dict(launches=launches, shard_launches=shard["launches"])
 
 
+# ---------------------------------------------------------------------------
+# sequence and expert parallelism.  sp_train: zero_train's rank
+# also trains ZERO_TRAIN's model over a seq axis of one
+# (``mesh={"seq": 1}``) under ulysses (its all-to-alls over a group of
+# one around K1f / K1b) and ring (JAX's reference body at a seq axis of
+# one), each held to the same run without one (stage 0) within
+# SP_TRAIN_RTOL, and a planted ulysses run (the all-to-alls' gradient
+# dropped) outside it.  Then ``sp_shard_check``: the port's
+# ``decoder_layer`` on rank r's positions of one full-width 410M layer at
+# SP_SHARD["seq"] (bf16), the ranks run one after another in this process
+# with every collective of ``parallel/context.py`` made in lockstep
+# (``_Collectives``), forward and backward, held to the whole layer:
+# Ulysses at seq 2 (4 q / 1 kv heads a rank) and 4 (2 q / 1 kv: the
+# grouped collectives of the uneven heads) through K1f / K1b, at seq 2 also
+# over fixed(128, 4, 1) through K7f / K7b, ring at 2 and 4, and a seq axis
+# of 2 under ``none`` (K1f / K1b over the gathered sequence); a fault
+# planted in the port (the uneven heads' chunk reorder skipped) outside
+# the gate.  ep_train: the
+# same rank trains moe_train's Mixtral over an expert axis of one (its
+# routed layers' f / g over a group of one) on moe_train's weights and
+# batch, held to moe_train's first losses within EP_TRAIN_RTOL; then
+# ``ep_shard_check``: one full-width mixtral_8x7b MoE layer (EP_SHARD) at
+# expert 2 and 4 through moe_block (the global gate, a rank's experts) and
+# through routed_ffn_ep at none / int8 / fp8 (K6a / K6c and K6b on the
+# wire), lockstep, held to the unsharded layer (the explicit region at
+# capacity factor EP_SHARD["ep_cf"], where nothing drops and it equals
+# moe_block; a wrong expert offset planted outside the gate).  The checks'
+# launches are reported apart from the main paths'.
+# ---------------------------------------------------------------------------
+SP_CASES = ("sp_ulysses", "sp_ring")
+SP_PLANTED = "sp_ulysses_planted"
+# the sequence-parallel runs' losses against stage 0 without a seq axis,
+# relative, per step (ulysses: the same K1f / K1b around all-to-alls of one
+# rank; ring: JAX's plain reference body at a seq axis of one).  Read on
+# the card: ulysses 0 (bit-equal), ring 2.0e-4, the planted all-to-all
+# gradient fault 2.8e-2
+SP_TRAIN_RTOL = 2e-3
+SP_SHARD = dict(seq=4096, cases=(("ulysses", 2), ("ulysses", 4), ("ulysses_sparse", 2),
+                                 ("ring", 2), ("ring", 4), ("none", 2)),
+                sparse=dict(block=128, num_local_blocks=4, num_global_blocks=1))
+# read on the card: 3.0e-3 (ulysses, seq 2) to 7.6e-3 (ring's gradients,
+# its fp32 online softmax against K1's)
+SP_SHARD_TOL = 2e-2
+# the worker's Mixtral over an expert axis of one: moe_train's cut, 2 steps
+EP_TRAIN = dict(preset="mixtral_8x7b", over={}, layers=2, seq=4096, micro=1, steps=2)
+# read on the card: 0 (the expert axis of one changes no number)
+EP_TRAIN_RTOL = 1e-3
+# one full-width mixtral_8x7b MoE layer: b x s tokens, bf16
+EP_SHARD = dict(b=4, s=512, experts=(2, 4), ep_cf=8.0)
+# read on the card (relative Frobenius, worst of output, input, router and
+# expert gradients): moe_block 0, none 3.6e-3 (the router's), int8 1.5e-2,
+# fp8 4.8e-2 (the wire's codec error, as the CPU's at narrow width)
+EP_SHARD_TOL = {"block": 1e-3, "none": 2e-2, "int8": 3e-2, "fp8": 1e-1}
+
+
+class _Collectives:
+    """Every collective of ``parallel/context.py`` over ``world`` ranks run
+    one after another in one process: rank r's k-th collective returns its
+    result once every rank has reached it (each rank's own, from every
+    rank's input); until then the rank's run stops there and later runs
+    again from its start with every result known so far.  ``run(fn)``
+    repeats ``fn(r)`` for r = 0 .. world - 1 until every rank ran
+    through."""
+
+    def __init__(self, torch, world):
+        self.torch, self.world = torch, world
+        self.inputs, self.results = {}, {}
+        self.rank = self.calls = 0
+
+    def call(self, x, combine):
+        k, self.calls = self.calls, self.calls + 1
+        if k in self.results:
+            return self.results[k][self.rank].clone()
+        self.inputs.setdefault(k, {})[self.rank] = (x.detach().clone(), combine)
+        raise _Pending()
+
+    def run(self, fn):
+        while True:
+            outs = []
+            for r in range(self.world):
+                self.rank, self.calls = r, 0
+                try:
+                    outs.append(fn(r))
+                except _Pending:
+                    outs.append(None)
+            if all(o is not None for o in outs):
+                return outs
+            k = min(set(self.inputs) - set(self.results))
+            got = self.inputs[k]
+            if sorted(got) != list(range(self.world)):
+                raise AssertionError(f"collective {k} reached by ranks {sorted(got)} only")
+            xs = [got[r][0] for r in range(self.world)]
+            self.results[k] = {r: got[r][1](xs, r) for r in range(self.world)}
+            self.inputs[k] = None
+
+
+def _lockstep_context(torch, lock, axis, rank, **kw):
+    """Rank ``rank``'s ``ParallelContext`` over one axis that spans
+    ``lock``'s world, its collectives made through ``lock``."""
+    from deepspeed_tpu_torch.parallel.context import ParallelContext
+    from deepspeed_tpu_torch.parallel.topology import GroupAxis
+
+    class Ctx(ParallelContext):
+        def _members(self, ax):
+            return list(ax.members) if isinstance(ax, GroupAxis) else list(range(lock.world))
+
+        def _all_to_all(self, x, ax, split_axis, concat_axis):
+            m = self._members(ax)
+
+            def combine(xs, r):
+                i = m.index(r)
+                return torch.cat([xs[j].chunk(len(m), split_axis)[i] for j in m], concat_axis)
+            return lock.call(x, combine)
+
+        def _all_gather(self, x, ax, dim):
+            m = self._members(ax)
+            return lock.call(x, lambda xs, r: torch.cat([xs[j] for j in m], dim))
+
+        def _reduce_scatter(self, x, ax, dim):
+            m = self._members(ax)
+            return lock.call(x, lambda xs, r: sum(xs[j] for j in m).chunk(len(m), dim)[
+                m.index(r)].contiguous())
+
+        def _all_reduce(self, x, ax, op="sum"):
+            m = self._members(ax)
+            if op == "max":
+                return lock.call(x, lambda xs, r: torch.stack([xs[j] for j in m]).amax(0))
+            return lock.call(x, lambda xs, r: sum(xs[j] for j in m))
+
+        def _ppermute(self, x, ax, perm):
+            m = self._members(ax)
+
+            def combine(xs, r):
+                src = [s_ for s_, d_ in perm if d_ == m.index(r)]
+                return xs[m[src[0]]].clone() if src else torch.zeros_like(xs[r])
+            return lock.call(x, combine)
+
+    return Ctx(sizes={axis: lock.world}, coords={axis: rank}, **kw)
+
+
+def _tree_leaves(torch, tree):
+    return {k_: _tree_leaves(torch, v) if isinstance(v, dict)
+            else v.detach().clone().requires_grad_(True) for k_, v in tree.items()}
+
+
+def sp_shard_check(torch, K):
+    """For each (body, seq) of ``SP_SHARD["cases"]``: the port's
+    ``decoder_layer`` on rank r's positions of one full-width 410M layer
+    (r = 0 .. seq - 1, in lockstep), its output and input-gradient slices
+    concatenated and its weight gradients summed over the ranks, against
+    the whole layer's (the base body for Ulysses and ``none``: the flash
+    kernels, or K7 over the sparse layout; flash for ring).  The uneven
+    heads' chunk reorder skipped in the port must fail the gate."""
+    from deepspeed_tpu_torch.models import transformer as tt
+    from deepspeed_tpu_torch.models.presets import get_preset
+    from deepspeed_tpu_torch.ops.sparse_attention import FixedSparsityConfig
+    from deepspeed_tpu_torch.sequence import layer as SL
+
+    base = get_preset(SHAPING_PRESET if DEVICE == "cpu" else "llama3_proxy_410m", num_layers=1,
+                      attn_impl="flash")
+    if DEVICE == "cpu":
+        base = base.replace(dtype=torch.float32)
+    seq = SP_SHARD["seq"]
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 24)
+    stacked = tt.init_params(base, seed=SEED, device=DEVICE)
+
+    def take0(tree):
+        return {k_: take0(v) if isinstance(v, dict) else v[0] for k_, v in tree.items()}
+
+    layer = take0(stacked["layers"])
+    d = base.hidden_size
+    x = _randn(torch, (1, seq, d), gen, base.dtype)
+    dy = _randn(torch, (1, seq, d), gen, torch.float32)
+
+    def run(cfg, xs, lo, attn_fn, par=None):
+        lw = _tree_leaves(torch, layer)
+        xx = xs.detach().requires_grad_(True)
+        pos = torch.arange(lo, lo + xs.shape[1], device=xs.device)[None]
+        cs = tt.rope_tables(pos, cfg.hd, cfg.rope_theta)
+        out, _ = tt.decoder_layer(lw, xx, cfg, pos, attn_fn, None, cs, par=par)
+        (out.float() * dy[:, lo:lo + xs.shape[1]]).sum().backward()
+        return dict(out=out.detach(), dx=xx.grad,
+                    grads={"/".join(p): t.grad for p, t in _leaf_paths_t(lw)})
+
+    def shard_errors(cfg, p, whole):
+        """The ranks' layer at seq ``p`` in lockstep against ``whole``."""
+        lock = _Collectives(torch, p)
+        n = seq // p
+
+        def rank(r):
+            par = _lockstep_context(torch, lock, "seq", r)
+            return run(cfg, x[:, r * n:(r + 1) * n], r * n, tt.get_attn_fn(cfg, x.device, par),
+                       par)
+
+        ranks = lock.run(rank)
+        return {"out": _rel(torch, torch.cat([r_["out"] for r_ in ranks], 1), whole["out"]),
+                "dx": _rel(torch, torch.cat([r_["dx"] for r_ in ranks], 1), whole["dx"]),
+                "grads": max(_rel(torch, sum(r_["grads"][k_] for r_ in ranks), g)
+                             for k_, g in whole["grads"].items()),
+                "collectives": len(lock.results)}
+
+    out, wholes = {}, {}
+    K.reset_launches()
+    for body, p in SP_SHARD["cases"]:
+        sparse = body.endswith("_sparse")
+        cfg = base.replace(sequence_parallel=body.removesuffix("_sparse"),
+                           sparse_attention=FixedSparsityConfig(**SP_SHARD["sparse"])
+                           if sparse else None)
+        if sparse not in wholes:  # the whole layer through the base body
+            plain = cfg.replace(sequence_parallel="none")
+            wholes[sparse] = run(plain, x, 0, tt.get_attn_fn(plain, x.device))
+        whole = wholes[sparse]
+        before = dict(K.LAUNCHES)
+        errs = shard_errors(cfg, p, whole)
+        n_coll = errs.pop("collectives")
+        bad = {k_: v for k_, v in errs.items() if not v <= SP_SHARD_TOL}
+        if bad:
+            raise AssertionError(f"sp_train shard check {body} at seq {p}: {bad} past "
+                                 f"{SP_SHARD_TOL}")
+        out[f"{body}_seq{p}"] = dict(
+            errors=errs, collectives=n_coll,
+            launches={k_: v - before.get(k_, 0) for k_, v in K.LAUNCHES.items()
+                      if v - before.get(k_, 0)})
+        if (body, p) == ("ulysses", 4):  # the grouped path with its reorder skipped
+            with _patched(SL, _sequence_order=lambda xg, g_size, hkv: xg):
+                err = shard_errors(cfg, p, whole)
+            err.pop("collectives")
+            out["planted_reorder_skipped"] = err
+            if all(v <= SP_SHARD_TOL for v in err.values()):
+                raise AssertionError(f"sp_train shard check: the planted reorder fault passed "
+                                     f"the gate: {err}")
+    out["launches"] = {k_: v for k_, v in K.LAUNCHES.items() if v}
+    return out
+
+
+def sp_train_phase(torch, K, gpu, runs, zero_runs):
+    """The sequence-parallel path at world 1 over NCCL (``mesh={"seq":
+    1}``), 4 layers of the 410M under ulysses and ring at stage 0, held to
+    the same run without a seq axis; a planted fault outside the gate; then
+    the lockstep shard checks."""
+    t0 = time.perf_counter()
+    z = ZERO_TRAIN
+    ref = zero_runs["stage0"]
+
+    def gap(run):
+        return max(abs(a - b) / abs(b) for a, b in zip(run["losses"], ref["losses"]))
+
+    launches = {}
+    for case in SP_CASES:
+        run = runs[case]
+        if (run["backend"], run["world"]) != ("nccl", 1):
+            raise AssertionError(f"sp_train {case}: {run['backend']} at world {run['world']}")
+        counts = dict(run["counts"])
+        seq_ops = {k_: counts.pop(k_) for k_ in list(counts) if k_.endswith("@seq")}
+        if counts != run["predicted"] or (case == "sp_ulysses"
+                                          and not seq_ops.get("all_to_all@seq")):
+            raise AssertionError(f"sp_train {case}: collectives {run['counts']} against the "
+                                 f"plan's {run['predicted']} and the seq axis's")
+        k1 = z["layers"] * z["gas"] * z["steps"] if case == "sp_ulysses" else 0
+        want = {n: k1 for n in ATTN_KERNELS[False]}
+        want["fused_adamw"] = z["steps"]
+        got = {n: run["launches"].get(n, 0) for n in K.SOURCES}
+        bad = {n: (got[n], w) for n, w in want.items() if got[n] != w}
+        bad.update({n: (v, 0) for n, v in got.items() if v and n not in want})
+        if bad:
+            raise AssertionError(f"sp_train {case}: launches (got, want) {bad}")
+        if not gap(run) <= SP_TRAIN_RTOL:
+            raise AssertionError(f"sp_train {case}: losses {run['losses']} against stage 0's "
+                                 f"{ref['losses']}")
+        for n, v in run["launches"].items():
+            launches[n] = launches.get(n, 0) + v
+    planted_gap = gap(runs[SP_PLANTED])
+    if planted_gap <= SP_TRAIN_RTOL:
+        raise AssertionError(f"sp_train: the planted fault passed the gate ({planted_gap} <= "
+                             f"{SP_TRAIN_RTOL})")
+    shard = sp_shard_check(torch, K)
+    emit(dict(phase="sp_train", model=f"{z['preset']}, {z['layers']} layers", world=1,
+              backend="nccl", mesh={"seq": 1}, shape=z,
+              losses={c: runs[c]["losses"] for c in SP_CASES}, plain_losses=ref["losses"],
+              rel_diff={c: gap(runs[c]) for c in SP_CASES},
+              planted=dict(losses=runs[SP_PLANTED]["losses"], rel_diff=planted_gap),
+              comm_counts={c: runs[c]["counts"] for c in SP_CASES},
+              launches_per_run={c: runs[c]["launches"] for c in SP_CASES},
+              seconds={c: runs[c]["seconds"] for c in SP_CASES}, rtol=SP_TRAIN_RTOL,
+              shard_check=shard, shard_tol=SP_SHARD_TOL, shard_shape=SP_SHARD,
+              phase_s=time.perf_counter() - t0, gpu=gpu))
+    return dict(launches=launches, shard_launches=shard["launches"])
+
+
+def ep_shard_check(torch, K):
+    """One full-width mixtral_8x7b MoE layer (random weights, bf16) at each
+    expert axis of ``EP_SHARD``: ``moe_block`` (the global gate, rank r's
+    experts, the layer's f / g over the axis) and ``routed_ffn_ep`` at none
+    / int8 / fp8, the ranks in lockstep; each rank's output and input
+    gradient, its router gradient and its experts' gradients (concatenated
+    over the ranks) against the unsharded ``moe_block``'s.  Each rank's
+    first expert moved on by one in the port must fail the gate."""
+    from deepspeed_tpu_torch.models.presets import get_preset
+    from deepspeed_tpu_torch.moe import layer as L
+    from deepspeed_tpu_torch.parallel.expert_parallel import ExpertParallel
+
+    e_cfg = dict(MOE_NARROW) if DEVICE == "cpu" else {}
+    base = get_preset("mixtral_8x7b", **e_cfg)
+    if DEVICE == "cpu":
+        base = base.replace(dtype=torch.float32)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 25)
+    d, f, e = base.hidden_size, base.intermediate_size, base.moe_num_experts
+    dt = base.dtype
+    lw0 = {"router": _randn(torch, (d, e), gen, dt) / d ** 0.5,
+           "w_gate": _randn(torch, (e, d, f), gen, dt) / d ** 0.5,
+           "w_up": _randn(torch, (e, d, f), gen, dt) / d ** 0.5,
+           "w_down": _randn(torch, (e, f, d), gen, dt) / f ** 0.5}
+    x = _randn(torch, (EP_SHARD["b"], EP_SHARD["s"], d), gen, dt)
+    dy = _randn(torch, tuple(x.shape), gen, torch.float32)
+
+    def run(cfg, lw_in, fn):
+        lw = {k_: v.detach().clone().requires_grad_(True) for k_, v in lw_in.items()}
+        xx = x.detach().requires_grad_(True)
+        out, _ = fn(lw, xx, cfg)
+        (out.float() * dy).sum().backward()
+        return dict(out=out.detach(), dx=xx.grad, **{k_: v.grad for k_, v in lw.items()})
+
+    def shard_errors(cfg, kind, w, whole, shift=0):
+        """The ranks' layer at expert ``w`` in lockstep against ``whole``;
+        ``shift`` moves each rank's first expert (``ExpertParallel.e0``)."""
+        lock = _Collectives(torch, w)
+        n = e // w
+
+        def rank(r):
+            ep = ExpertParallel(None, cfg, rank=r, size=w)
+            ep.e0 = (ep.e0 + shift) % e
+            par = _lockstep_context(torch, lock, "expert", r, ep=ep)
+            lw = {"router": lw0["router"], **{k_: lw0[k_][r * n:(r + 1) * n]
+                                              for k_ in ("w_gate", "w_up", "w_down")}}
+            if kind == "block":
+                return run(cfg, lw, lambda l_, xx, c: L.moe_block(l_, xx, c, par))
+            return run(cfg, lw, lambda l_, xx, c: L.routed_ffn_ep(l_, xx, c, par, fmt=kind))
+
+        ranks = lock.run(rank)
+        errs = {"out": max(_rel(torch, r_["out"], whole["out"]) for r_ in ranks),
+                "dx": max(_rel(torch, r_["dx"], whole["dx"]) for r_ in ranks),
+                "router": max(_rel(torch, r_["router"], whole["router"]) for r_ in ranks)}
+        for k_ in ("w_gate", "w_up", "w_down"):
+            errs[k_] = _rel(torch, torch.cat([r_[k_] for r_ in ranks]), whole[k_])
+        errs["collectives"] = len(lock.results)
+        return errs
+
+    res, wholes = {}, {}
+    K.reset_launches()
+    for w in EP_SHARD["experts"]:
+        for kind in ("block", "none", "int8", "fp8"):
+            cf = base.moe_capacity_factor if kind == "block" else EP_SHARD["ep_cf"]
+            cfg = base.replace(moe_capacity_factor=cf)
+            if cf not in wholes:
+                wholes[cf] = run(cfg, lw0, lambda lw, xx, c: L.moe_block(lw, xx, c))
+            before = dict(K.LAUNCHES)
+            errs = shard_errors(cfg, kind, w, wholes[cf])
+            n_coll = errs.pop("collectives")
+            tol = EP_SHARD_TOL[kind]
+            bad = {k_: v for k_, v in errs.items() if not v <= tol}
+            if bad:
+                raise AssertionError(f"ep_train shard check {kind} at expert {w}: {bad} past "
+                                     f"{tol}")
+            res[f"{kind}_expert{w}"] = dict(
+                errors=errs, collectives=n_coll,
+                launches={k_: v - before.get(k_, 0) for k_, v in K.LAUNCHES.items()
+                          if v - before.get(k_, 0)})
+            if (kind, w) == ("block", EP_SHARD["experts"][0]):  # each rank one expert on
+                err = shard_errors(cfg, kind, w, wholes[cf], shift=1)
+                err.pop("collectives")
+                res["planted_expert_offset"] = err
+                if all(v <= tol for v in err.values()):
+                    raise AssertionError(f"ep_train shard check: the planted expert offset "
+                                         f"passed the gate: {err}")
+    res["launches"] = {k_: v for k_, v in K.LAUNCHES.items() if v}
+    return res
+
+
+def ep_train_phase(torch, K, gpu, runs, moe):
+    """The expert axis at world 1 over NCCL: the worker's Mixtral run held
+    to moe_train's first losses (its warm-up step, then its first timed
+    one: the same weights, batch and steps); then the lockstep shard checks
+    of one full-width MoE layer."""
+    t0 = time.perf_counter()
+    run = runs["ep_moe"]
+    if (run["backend"], run["world"], run["ep"]) != ("nccl", 1, [1, 8]):
+        raise AssertionError(f"ep_train: {run['backend']} at world {run['world']}, ep "
+                             f"{run['ep']}")
+    ref = [moe["loss_first"]] + moe["losses"][:len(run["losses"]) - 1]
+    gaps = [abs(a - b) / abs(b) for a, b in zip(run["losses"], ref)]
+    if not max(gaps) <= EP_TRAIN_RTOL:
+        raise AssertionError(f"ep_train: losses {run['losses']} against moe_train's {ref}")
+    if not run["counts"].get("all_reduce@expert"):
+        raise AssertionError(f"ep_train: no routed-layer all-reduce over expert in "
+                             f"{run['counts']}")
+    steps, layers = EP_TRAIN["steps"], EP_TRAIN["layers"]
+    want = {"flash_fwd": REMAT_FWD_PER_LAYER["full"] * layers * steps,
+            "flash_bwd_dq": layers * steps, "flash_bwd_dkv": layers * steps,
+            "fused_adamw": steps}
+    got = {n: run["launches"].get(n, 0) for n in K.SOURCES}
+    bad = {n: (got[n], w) for n, w in want.items() if got[n] != w}
+    bad.update({n: (v, 0) for n, v in got.items() if v and n not in want})
+    if bad:
+        raise AssertionError(f"ep_train: launches (got, want) {bad}")
+    shard = ep_shard_check(torch, K)
+    emit(dict(phase="ep_train", model=f"mixtral_8x7b, {layers} layers", world=1,
+              backend="nccl", mesh={"expert": 1}, shape=EP_TRAIN, losses=run["losses"],
+              moe_train_losses=ref, rel_diff=gaps, rtol=EP_TRAIN_RTOL,
+              comm_counts=run["counts"], launches=run["launches"], seconds=run["seconds"],
+              shard_check=shard, shard_tol=EP_SHARD_TOL, shard_shape=EP_SHARD,
+              phase_s=time.perf_counter() - t0, gpu=gpu))
+    return dict(launches=run["launches"], shard_launches=shard["launches"])
+
+
 def _free(torch):
     import gc
 
@@ -9974,6 +10404,10 @@ def main() -> None:
     _free(torch)
     tps = tp_serve_phase(torch, K, gpu, tp_runs)
     _free(torch)
+    # sequence parallelism: the same rank's ulysses / ring runs over a seq
+    # axis of one, then each rank's positions of a layer at seq 2 / 4
+    spt = sp_train_phase(torch, K, gpu, tp_runs, zt["runs"])
+    _free(torch)
     # ZeRO-Offload: the CPU tier and the NVMe tier checked against the plain
     # engine, the NVMe tier on the flagship, llama3_8b through the CPU tier
     oc = offload_check_phase(torch, K, gpu)
@@ -9991,6 +10425,10 @@ def main() -> None:
     _free(torch)
     # Mixtral-style MoE (training, v2 serving) and the dense v1 engine
     mt = moe_train_phase(torch, K, gpu)
+    _free(torch)
+    # the expert axis: the same rank's Mixtral over an expert axis of one
+    # against moe_train, then each rank's experts of a layer at expert 2 / 4
+    ept = ep_train_phase(torch, K, gpu, tp_runs, mt)
     _free(torch)
     mv, moe = moe_serve_phase(torch, K, gpu)
     v1 = v1_serve_phase(torch, K, gpu, moe)
@@ -10023,7 +10461,7 @@ def main() -> None:
     main_paths = (eng, ms_eng, ms_sch, sch, spec, lcc, lc, g_eng, g_burst, g_spec, tr, shim, sp,
                   opt, rm, pt, ps, qc, qs, qz, rt, rh, rk, rf, rc, rr, rho, rfl, rch, ad, at,
                   ck, hf, mt, mv, v1, oc, nt, ot, sc, st, cc, ct, kd, lh, ec, ctr, hq, zt,
-                  tpt, tps)
+                  tpt, tps, spt, ept)
     schedule_paths = {"schedule_check": sc, "schedule_train": st}
     shaping_paths = {"compress_check": cc, "compress_train": ct, "kd_train": kd,
                      "lora_hybrid": lh, "eigen_check": ec}
@@ -10097,6 +10535,15 @@ def main() -> None:
                           if p["shard_launches"].get(name)}
         if shard_launches:  # the shard checks at tp 2 / 4 (checks, not in "launches")
             entry["launches_tp_shard_checks"] = shard_launches
+        sp_ep = {k: p["launches"][name] for k, p in (("sp_train", spt), ("ep_train", ept))
+                 if p["launches"].get(name)}
+        if sp_ep:  # the seq / expert axes at world 1, read from the rank's report
+            entry["launches_sp_ep_phases"] = sp_ep
+        sp_ep_checks = {k: p["shard_launches"][name] for k, p in (("sp_train", spt),
+                                                                  ("ep_train", ept))
+                        if p["shard_launches"].get(name)}
+        if sp_ep_checks:  # the lockstep shard checks at seq / expert 2 and 4
+            entry["launches_sp_ep_shard_checks"] = sp_ep_checks
         if zt["launches"].get(name):  # zero_train's rank, read from its report
             entry["launches_zero_train"] = {c: r["launches"][name] for c, r in zt["runs"].items()
                                             if r["launches"].get(name)}

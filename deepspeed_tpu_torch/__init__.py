@@ -111,7 +111,8 @@ def _adopt_elastic_batch(cfg, dp_world_size: int) -> None:
 
 def _mesh_axes_from_config(cfg, world: int, zero_stage: int):
     """The grid's axis sizes (JAX ``_mesh_axes_from_config``,
-    ``__init__.py:20-62``): explicit sizes win (``model`` among them); the
+    ``__init__.py:20-62``): explicit sizes win (``model``, ``seq`` and
+    ``expert`` among them); the
     leftover ranks go to ``fsdp`` under ZeRO >= 1, else to ``data``;
     ``zero_hpz_partition_size`` / ``mics_shard_size`` factor the fsdp
     extent into ``(fsdp, sub)``."""
@@ -121,8 +122,10 @@ def _mesh_axes_from_config(cfg, world: int, zero_stage: int):
 
     m = cfg.mesh
     fixed = {}
-    if m.model and m.model > 1:
-        fixed["model"] = m.model
+    for ax in ("model", "seq", "expert"):
+        v = getattr(m, ax)
+        if v and v > 1:
+            fixed[ax] = v
     if m.data:
         fixed["data"] = m.data
     if m.fsdp:
@@ -280,6 +283,9 @@ def initialize(model=None, params: Any = None, config: Any = None, device=None,
         if model is None or not hasattr(model, "cfg"):
             raise ConfigError("sparse_attention requires model= (a models.CausalLM); it "
                               "cannot be injected into a raw loss_fn")
+        if getattr(model.cfg, "sequence_parallel", "none") == "ring":
+            raise ConfigError("sparse_attention composes with ulysses but not ring "
+                              "(ring attention supplies its own attention body)")
         model.cfg = model.cfg.replace(sparse_attention=cfg.sparse_attention.build())
     aq = cfg.compression_training.activation_quantization or {}
     if (aq.get("shared_parameters", {}).get("enabled") and model is not None
@@ -315,6 +321,21 @@ def initialize(model=None, params: Any = None, config: Any = None, device=None,
             raise ConfigError("a model axis needs model= (a models.CausalLM) whose loss the "
                               "engine runs: a raw loss_fn has no layers to split")
         tp = model.tp = TensorParallel(grid, model.cfg)
+    ep = None
+    if hasattr(model, "par"):
+        model.par = None
+    if grid is not None and hasattr(model, "par") and hasattr(model, "cfg"):
+        # the model's view of the seq / expert / token axes: its loss reads
+        # this rank's slice of the sequence, its routed experts run across
+        # ranks (an expert axis named, at any size, 1 included, cuts them)
+        from .parallel.context import ParallelContext
+
+        if getattr(model.cfg, "moe_num_experts", 0) > 0 and (
+                grid.spec.expert > 1 or cfg.mesh.expert_given):
+            from .parallel.expert_parallel import ExpertParallel
+
+            ep = ExpertParallel(grid, model.cfg)
+        model.par = ParallelContext(grid, tp=tp, ep=ep)
     if loss_fn is None:
         if model is None:
             raise ValueError("initialize() needs model= or (loss_fn, params)")
@@ -323,7 +344,7 @@ def initialize(model=None, params: Any = None, config: Any = None, device=None,
 
     # each rank keeps its slices of each leaf as it is drawn (under a model
     # axis the tree is drawn whole on the host and cut to the rank's shard)
-    sliced = grid is not None and cfg.zero_optimization.stage >= 1 and tp is None
+    sliced = grid is not None and cfg.zero_optimization.stage >= 1 and tp is None and ep is None
     if params is None:
         if model is None:
             raise ValueError("initialize() needs params with a bare loss_fn")

@@ -16,6 +16,15 @@ names is the group over those axes together (``("data", "fsdp")``).
     broadcast        -> dist.broadcast (in place)
     barrier          -> dist.barrier
 
+An axis may also be a ``parallel.topology.GroupAxis``: one of the grouped
+sets along an axis (JAX's ``axis_index_groups``), whose collectives the
+logger records under the axis's own name.
+
+The collectives above write into fresh tensors and carry no gradient: the
+model's layers take their differentiable collectives from
+``parallel/context.py``, ``qcomm.q_all_to_all`` its own (exact in
+``'none'``, the reverse all-to-all its gradient).
+
 A group of one is a group like any other: the collective is issued (a
 world-1 run on the card calls NCCL).  The backend follows the device:
 NCCL for CUDA, gloo for the CPU (``init_distributed``); nothing falls back
@@ -131,9 +140,19 @@ def axis_key(axis_name) -> str:
 
 
 def _record(name: str, x: torch.Tensor, axis_name, grid) -> None:
-    logger = grid.comms_logger
+    logger = getattr(grid, "comms_logger", None)
     if logger is not None:
-        logger.record(name, x.numel() * x.element_size(), axis_key(axis_name))
+        key = axis_name.name if hasattr(axis_name, "members") else axis_key(axis_name)
+        logger.record(name, x.numel() * x.element_size(), key)
+
+
+def _resolve(axis_name, mesh):
+    """``(grid, group, size, this rank's index)`` of an axis (a name, names,
+    or a ``GroupAxis``)."""
+    grid = _grid(mesh)
+    if hasattr(axis_name, "members"):
+        return grid, axis_name.group, axis_name.size, axis_name.index
+    return grid, grid.group(axis_name), grid.axis_size(axis_name), grid.axis_rank(axis_name)
 
 
 def _grid(mesh):
@@ -161,11 +180,11 @@ def all_reduce(x: torch.Tensor, axis_name, op: str = "sum", mesh=None) -> torch.
            "max": dist.ReduceOp.MAX, "min": dist.ReduceOp.MIN}
     if op not in ops:
         raise ValueError(f"unsupported reduce op {op}")
-    grid = _grid(mesh)
+    grid, group, w, _ = _resolve(axis_name, mesh)
     _record("all_reduce", x, axis_name, grid)
-    dist.all_reduce(x, op=ops[op], group=grid.group(axis_name))
+    dist.all_reduce(x, op=ops[op], group=group)
     if op in ("avg", "mean"):
-        x.div_(grid.axis_size(axis_name))
+        x.div_(w)
     return x
 
 
@@ -173,8 +192,7 @@ def reduce_scatter(x: torch.Tensor, axis_name, scatter_dimension: int = 0,
                    out: Optional[torch.Tensor] = None, mesh=None) -> torch.Tensor:
     """The sum over the group of ``x``, this rank's ``1/W`` block of
     ``scatter_dimension`` (JAX ``psum_scatter(tiled=True)``)."""
-    grid = _grid(mesh)
-    w = grid.axis_size(axis_name)
+    grid, group, w, _ = _resolve(axis_name, mesh)
     if x.shape[scatter_dimension] % w:
         raise ValueError(f"reduce_scatter: dim {scatter_dimension} ({x.shape}) does not "
                          f"divide over {w} ranks")
@@ -183,7 +201,7 @@ def reduce_scatter(x: torch.Tensor, axis_name, scatter_dimension: int = 0,
     res = out if out is not None and scatter_dimension == 0 else torch.empty(
         shape, dtype=x.dtype, device=x.device)
     _record("reduce_scatter", x, axis_name, grid)
-    _REDUCE_SCATTER(res.view(-1), src.view(-1), group=grid.group(axis_name))
+    _REDUCE_SCATTER(res.view(-1), src.view(-1), group=group)
     return res if scatter_dimension == 0 else res.movedim(0, scatter_dimension)
 
 
@@ -191,14 +209,13 @@ def all_gather(x: torch.Tensor, axis_name, axis: int = 0, tiled: bool = True,
                out: Optional[torch.Tensor] = None, mesh=None) -> torch.Tensor:
     """Every rank's ``x`` in rank order: concatenated along ``axis``
     (``tiled``), else stacked on a new leading axis at ``axis``."""
-    grid = _grid(mesh)
-    w = grid.axis_size(axis_name)
+    grid, group, w, _ = _resolve(axis_name, mesh)
     src = x.contiguous().reshape(-1)  # gloo and NCCL both take the flat form
     n = src.numel()
     flat_ok = out is not None and out.is_contiguous() and out.numel() == w * n
     res = out.view(-1) if flat_ok else torch.empty(w * n, dtype=x.dtype, device=x.device)
     _record("all_gather", x, axis_name, grid)
-    _ALL_GATHER(res, src, group=grid.group(axis_name))
+    _ALL_GATHER(res, src, group=group)
     if flat_ok:
         return out
     res = res.view((w,) + tuple(x.shape))
@@ -213,15 +230,14 @@ def all_to_all(x: torch.Tensor, axis_name, split_axis: int = 0, concat_axis: int
     """Block ``i`` of ``split_axis`` goes to rank ``i``; the blocks
     received concatenate along ``concat_axis`` in rank order (JAX
     ``all_to_all(tiled=True)``)."""
-    grid = _grid(mesh)
-    w = grid.axis_size(axis_name)
+    grid, group, w, _ = _resolve(axis_name, mesh)
     if x.shape[split_axis] % w:
         raise ValueError(f"all_to_all: split dim {split_axis} ({x.shape}) does not divide "
                          f"over {w} ranks")
     src = x.movedim(split_axis, 0).contiguous()
     res = torch.empty_like(src)
     _record("all_to_all", x, axis_name, grid)
-    dist.all_to_all_single(res, src, group=grid.group(axis_name))
+    dist.all_to_all_single(res, src, group=group)
     blocks = res.movedim(0, split_axis).chunk(w, dim=split_axis)
     return torch.cat(blocks, dim=concat_axis)
 
@@ -230,9 +246,7 @@ def ppermute(x: torch.Tensor, axis_name, perm: Sequence, mesh=None) -> torch.Ten
     """Point-to-point exchange by ``perm`` (pairs (source, destination) of
     indices in the axis group): what this rank receives, zeros if no
     one sends to it (JAX ``lax.ppermute``)."""
-    grid = _grid(mesh)
-    group = grid.group(axis_name)
-    me = grid.axis_rank(axis_name)
+    grid, group, _, me = _resolve(axis_name, mesh)
     out = torch.zeros_like(x)
     src = x.contiguous()
     ops = []

@@ -304,9 +304,16 @@ def q_all_reduce(x: torch.Tensor, axis_name, fmt: str = "int8", *, mean: bool = 
     return out
 
 
-def _q_a2a_impl(x, axis_name, fmt, split_axis, concat_axis, chunk, out_dtype, w, mesh):
+def _q_a2a_impl(x, axis_name, fmt, split_axis, concat_axis, chunk, out_dtype, w, mesh,
+                a2a=None):
     from . import comm
 
+    if a2a is None:
+        def a2a(t, ax):
+            return comm.all_to_all(t, ax, mesh=mesh)
+    if fmt == "none":  # the exact slabs
+        recv = a2a(_pieces(x, w, split_axis).contiguous(), axis_name)
+        return torch.cat(recv.unbind(0), dim=concat_axis).to(out_dtype)
     pieces = _pieces(x.float(), w, split_axis)
     piece_shape = pieces.shape[1:]
     piece_elems = pieces[0].numel()
@@ -317,8 +324,8 @@ def _q_a2a_impl(x, axis_name, fmt, split_axis, concat_axis, chunk, out_dtype, w,
     gpr = flat2.shape[1] // chunk
     q, s = _q_chunks(flat2.reshape(-1), fmt, chunk)
     wire_q = q.view(torch.uint8) if fmt == "fp8" else q
-    recv_q = comm.all_to_all(wire_q.reshape(w, gpr, chunk), axis_name, mesh=mesh)
-    recv_s = comm.all_to_all(s.reshape(w, gpr), axis_name, mesh=mesh)
+    recv_q = a2a(wire_q.reshape(w, gpr, chunk), axis_name)
+    recv_s = a2a(s.reshape(w, gpr), axis_name)
     if fmt == "fp8":
         recv_q = recv_q.view(_QDTYPE[fmt])
     deq = _dq_chunks(recv_q, recv_s).reshape(w, -1)[:, :piece_elems]
@@ -331,35 +338,33 @@ class _QAllToAll(torch.autograd.Function):
     cotangent takes the transposed all-to-all at the same format."""
 
     @staticmethod
-    def forward(ctx, x, axis_name, fmt, split_axis, concat_axis, chunk, out_dtype, w, mesh):
-        ctx.args = (axis_name, fmt, concat_axis, split_axis, chunk, x.dtype, w, mesh)
+    def forward(ctx, x, axis_name, fmt, split_axis, concat_axis, chunk, out_dtype, w, mesh,
+                a2a):
+        ctx.args = (axis_name, fmt, concat_axis, split_axis, chunk, x.dtype, w, mesh, a2a)
         return _q_a2a_impl(x, axis_name, fmt, split_axis, concat_axis, chunk, out_dtype, w,
-                           mesh)
+                           mesh, a2a)
 
     @staticmethod
     def backward(ctx, g):
-        return (_q_a2a_impl(g, *ctx.args),) + (None,) * 8
+        return (_q_a2a_impl(g, *ctx.args),) + (None,) * 9
 
 
 def q_all_to_all(x: torch.Tensor, axis_name, fmt: str = "int8", *, split_axis: int = 0,
                  concat_axis: int = 0, chunk: int = DEFAULT_CHUNK, out_dtype=None,
-                 world: Optional[int] = None, mesh=None) -> torch.Tensor:
+                 world: Optional[int] = None, mesh=None, a2a=None) -> torch.Tensor:
     """All-to-all whose slabs each travel quantized with their own scales
     (the MoE dispatch wire); differentiable through the transposed
-    all-to-all (straight-through, as JAX's custom VJP)."""
-    from . import comm
-
+    all-to-all (straight-through, as JAX's custom VJP).  ``a2a(t, axis)``,
+    when given, makes the wire's plain all-to-all (dim 0 to dim 0) in
+    place of ``comm.all_to_all`` (``parallel.context``)."""
     _check_fmt(fmt)
     out_dtype = out_dtype or x.dtype
-    if fmt == "none":
-        return comm.all_to_all(x, axis_name, split_axis=split_axis, concat_axis=concat_axis,
-                               mesh=mesh).to(out_dtype)
     w = _world(axis_name, world, mesh)
     if x.shape[split_axis] % w:
         raise QCommError(f"q_all_to_all: split dim {split_axis} ({x.shape[split_axis]}) "
                          f"must divide the axis size {w}")
     return _QAllToAll.apply(x, axis_name, fmt, split_axis, concat_axis, chunk, out_dtype, w,
-                            mesh)
+                            mesh, a2a)
 
 
 def q_psum_tiled(y: torch.Tensor, axis_name, fmt: str = "none", *, tiles: int = 1,

@@ -89,9 +89,9 @@ class ConfigError(ValueError):
 # value differs from JAX's default, which an enabled section always does; at
 # the default it is accepted and changes nothing, as in JAX.
 _UNPORTED_TOP: Dict[str, Any] = {}
-# mesh axes the port does not run across ranks yet (sequence, expert and
-# pipeline parallelism): above 1 the ``mesh`` key is refused
-_UNPORTED_MESH_AXES = ("seq", "expert", "stage")
+# mesh axes the port does not run across ranks yet (pipeline parallelism):
+# above 1 the ``mesh`` key is refused
+_UNPORTED_MESH_AXES = ("stage",)
 # zero_optimization keys the port does not run yet: (JAX's default, item)
 _UNPORTED_ZERO: Dict[str, Any] = {}
 # reference keys JAX accepts and deliberately ignores (config.py:1100)
@@ -566,8 +566,10 @@ class MeshConfig:
     else to ``data``).  A section that names ``model`` trains
     tensor-parallel over that axis in a process world, at any size, 1
     included (``model_given``, set by ``parse_config``; not a field, so the
-    section still equals JAX's).  ``seq``, ``expert`` and ``stage`` above 1
-    are refused at parse time (ROADMAP queue 1 item 7)."""
+    section still equals JAX's).  ``seq`` and ``expert`` shard the
+    sequence and the experts across ranks (a named ``expert`` cuts the
+    experts at any size, ``expert_given``); ``stage`` above 1 is refused at
+    parse time (ROADMAP queue 1 item 7: pipeline parallelism)."""
 
     data: int = 0
     fsdp: int = 0
@@ -575,7 +577,10 @@ class MeshConfig:
     seq: int = 1
     expert: int = 1
     stage: int = 1
-    model_given = False  # a class attribute: the section named ``model``
+    # class attributes, not fields: the section named the axis (its path
+    # then runs at any size, 1 included)
+    model_given = False
+    expert_given = False
 
 
 @dataclass
@@ -1224,8 +1229,10 @@ def parse_config(source: Any, dp_world_size: Optional[int] = None) -> Config:
     raw = _strip_auto(raw)
     _refuse_unported(raw)
     cfg = _coerce(Config, raw)
-    if isinstance(raw.get("mesh"), dict) and "model" in raw["mesh"]:
-        cfg.mesh.model_given = True
+    if isinstance(raw.get("mesh"), dict):
+        for ax in ("model", "expert"):
+            if ax in raw["mesh"]:
+                setattr(cfg.mesh, ax + "_given", True)
     if cfg.nebula.enabled:
         # nebula is an async checkpoint service: the async engine (JAX)
         cfg.checkpoint.async_save = True

@@ -17,7 +17,7 @@ fills the whole cache), the plain body everywhere else
 parameters on the model's TP rules) serves over the ranks of a
 ``torch.distributed`` world: each rank keeps its shard of the tree
 (``parallel.tensor_parallel.TensorParallel``, the training layout), runs
-``forward(tp=...)`` (the Megatron collectives; the dense cache holds its
+``forward(par=...)`` (the Megatron collectives; the dense cache holds its
 kv heads) and gathers the logits' vocab shards, so every rank samples the
 same tokens with the same generator.  A mesh of several devices in one
 process is ROADMAP queue 1 item 7 and raises.
@@ -52,10 +52,16 @@ class InferenceEngine:
         self.device = resolve_device(device)
         self.max_seq_len = max_seq_len or self.cfg.max_seq_len
         self.tp = None  # the model axis of a tensor-parallel engine
+        self.par = None  # its collectives (``parallel.context``)
         if mesh is not None:
+            from ..parallel.context import ParallelContext
             from ..parallel.tensor_parallel import TensorParallel
 
+            if self.cfg.moe_num_experts > 0:
+                raise NotImplementedError("MoE layers served over a model axis are not "
+                                          "ported yet (ROADMAP queue 1 item 7)")
             self.tp = TensorParallel(mesh, self.cfg)
+            self.par = ParallelContext(mesh, tp=self.tp)
             params = self.tp.shard_tree(params)
         self.params = _cast(params, self.cfg.dtype, self.device)
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
@@ -64,7 +70,7 @@ class InferenceEngine:
     def prefill(self, tokens: torch.Tensor, cache):
         """Prompts [b, s] at cache index 0 -> (last logits [b, v] fp32, cache)."""
         hidden, cache, _ = forward(self.params, tokens, self.cfg, cache=cache, cache_index=0,
-                                   return_hidden=True, tp=self.tp)
+                                   return_hidden=True, par=self.par)
         return self._logits(hidden[:, -1]), cache
 
     @torch.no_grad()
@@ -72,13 +78,13 @@ class InferenceEngine:
         """One token per row [b, 1] at cache index ``pos`` -> (logits [b, v]
         fp32, cache)."""
         hidden, cache, _ = forward(self.params, tok, self.cfg, cache=cache, cache_index=pos,
-                                   return_hidden=True, tp=self.tp)
+                                   return_hidden=True, par=self.par)
         return self._logits(hidden[:, -1]), cache
 
     def _logits(self, h: torch.Tensor) -> torch.Tensor:
         if self.tp is None:
             return lm_logits(self.params, self.cfg, h).float()
-        return self.tp.gather_vocab(tp_head(self.params, self.cfg, h, self.tp).float())
+        return self.tp.gather_vocab(tp_head(self.params, self.cfg, h, self.par).float())
 
     def generate(self, tokens, sampling: SamplingParams = SamplingParams()) -> np.ndarray:
         """Prompts [b, s] (equal lengths) -> [b, n] generated ids, n =

@@ -349,6 +349,9 @@ class InferenceEngineV2:
         refused = [what for what, on in (
             (f"a batch / replica axis ({others})", bool(others)),
             ("seq shards", seq_shards > 1),
+            (f"an expert / seq axis ({grid.axis_size('expert')} / {grid.axis_size('seq')})",
+             grid.axis_size("expert") > 1 or grid.axis_size("seq") > 1),
+            ("MoE layers", cfg.moe_num_experts > 0),
             ("speculation", speculation),
             ("decode bursts (serve.decode_megastep > 1)", serve.decode_megastep > 1),
             (f"serve.{'/'.join(clocked)} (each rank's own clock)", bool(clocked)),

@@ -64,14 +64,14 @@ attention input and the MLP input with a straight-through estimator (JAX
 attention input, as in JAX.
 
 Manual Megatron tensor parallelism (JAX ``decoder_layer``'s ``tp_axis``,
-``transformer.py:421-540``): ``CausalLM.tp`` (or ``forward(tp=...)``), a
-``parallel.tensor_parallel.TensorParallel``, runs each rank's shard of the
-tree — the local heads and MLP columns, the row-parallel ``wo`` /
-``w_down`` — between the ``f`` / ``g`` pair: ``f`` (``_CopyToModel``,
-JAX ``_tp_copy_fn``) is the identity forward and all-reduces its
-gradient over ``model``, ``g`` (``_ReduceFromModel``, JAX ``_tp_psum_fn``)
-all-reduces the row-parallel partial sums forward and passes the
-gradient through.  A row-parallel bias is added once, after ``g``.  The
+``transformer.py:421-540``): a ``parallel.context.ParallelContext`` with a
+``TensorParallel`` (``par.tp``; ``CausalLM.par``, or ``forward(par=...)``)
+runs each rank's shard of the tree — the local heads and MLP columns, the
+row-parallel ``wo`` / ``w_down`` — between the ``f`` / ``g`` pair over
+``model``: ``f`` (``par.copy``, JAX ``_tp_copy_fn``) is the identity
+forward and all-reduces its gradient, ``g`` (``par.reduce``, JAX
+``_tp_psum_fn``) all-reduces the row-parallel partial sums forward and
+passes the gradient through.  A row-parallel bias is added once, after ``g``.  The
 embedding and the head are vocab-parallel where the vocab divides the
 axis: a masked lookup then ``g``; the head's local logits go to
 ``vocab_parallel_cross_entropy`` (the max and the sum of exponentials
@@ -85,9 +85,16 @@ batch in ``C`` row chunks, one after another, and concatenates them; the
 value is that of one chunk (only the collectives' overlap would differ).
 With MoE it is a ``ValueError``, as in JAX.
 
-Not ported, each refused with ``NotImplementedError`` naming the option and
-its ROADMAP queue-1 item: sequence parallelism (item 7),
-``CausalLM(stack_apply=...)`` (item 7: pipeline).
+Sequence parallelism (``sequence_parallel`` ``ulysses`` / ``ring``, JAX
+``transformer.py:540-570``) and the routed experts across ranks run
+through ``CausalLM.par`` (a ``parallel.context.ParallelContext``): under a
+``seq`` axis the loss takes the label shift first, then this rank's slice
+of the positions (their places in the whole sequence for RoPE and learned
+positions); the segment ids reach the attention whole.  A length the axis
+does not divide raises (JAX pads it).
+
+Not ported, refused with ``NotImplementedError`` naming the option and its
+ROADMAP queue-1 item: ``CausalLM(stack_apply=...)`` (item 7: pipeline).
 """
 from __future__ import annotations
 
@@ -104,12 +111,13 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                      create_selective_checkpoint_contexts)
 
-from ..moe.layer import moe_block, moe_block_dropless
+from ..moe.layer import moe_block, moe_block_dropless, routed_ffn_ep
 from ..ops.attention import dot_product_attention, get_attention_impl
 from ..ops.kernels import resolve_device
 from ..ops.kernels.flash_attention import flash_attention
 from ..ops.quantizer import ServingQuant, ServingQuantFP6
 from ..ops.sparse_attention import block_sparse_attention
+from ..parallel.topology import MODEL_AXIS
 
 Params = Dict[str, Any]
 
@@ -404,6 +412,7 @@ def lm_logits(params: Params, cfg: TransformerConfig, h: torch.Tensor) -> torch.
 # training half
 # ---------------------------------------------------------------------------
 _REMAT = ("none", "full", "selective", "dots", "offload")
+_SEQUENCE_PARALLEL = ("none", "ulysses", "ring")
 # remat="dots": the products with no batch dims, as torch dispatches them
 _DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 
@@ -465,14 +474,15 @@ def offload_saved(keep_on_device: Callable[[torch.Tensor], bool], copies: list):
 
 
 def _refuse_unported(cfg: TransformerConfig) -> None:
-    """Raise for a JAX option the port does not run yet, naming it and its
-    ROADMAP queue-1 item; never run a different computation quietly."""
-    refused = [
-        (cfg.sequence_parallel != "none", f"sequence_parallel={cfg.sequence_parallel!r}", 7),
-    ]
-    for bad, what, item in refused:
-        if bad:
-            raise NotImplementedError(f"{what} is not ported yet (ROADMAP queue 1 item {item})")
+    """Raise for a JAX option the port does not run, or a value JAX does not
+    take; never run a different computation quietly."""
+    if cfg.sequence_parallel not in _SEQUENCE_PARALLEL:
+        raise ValueError(f"unknown sequence_parallel {cfg.sequence_parallel!r}; use one of "
+                         f"{_SEQUENCE_PARALLEL}")
+    if cfg.sequence_parallel != "none" and cfg.position == "alibi":
+        raise NotImplementedError(f"position='alibi' with sequence_parallel="
+                                  f"{cfg.sequence_parallel!r}: the sequence-parallel bodies "
+                                  "take no bias operand (as in JAX)")
     if cfg.sparse_attention is not None and cfg.position == "alibi":
         raise NotImplementedError("position='alibi' with sparse_attention: the block-sparse "
                                   "bodies take no bias operand (as in JAX)")
@@ -485,17 +495,42 @@ def _refuse_unported(cfg: TransformerConfig) -> None:
                          "capacity changes token dropping)")
 
 
-def get_attn_fn(cfg: TransformerConfig, device) -> Callable:
+def get_attn_fn(cfg: TransformerConfig, device, par=None) -> Callable:
     """The attention body of ``cfg`` on ``device`` (JAX ``_get_attn_fn``):
     a sparse layout routes to ``block_sparse_attention``; ALiBi needs the
-    reference body, the only one with a bias operand."""
+    reference body, the only one with a bias operand.  Sequence
+    parallelism wraps the body: ``ulysses`` in ``DistributedAttention``
+    (the base on a rank's heads at the whole sequence), ``ring`` replaces
+    it by ``ring_attention``, each over the ``seq`` axis of ``par`` (a
+    ``parallel.context.ParallelContext``); a ``seq`` axis above 1 under
+    ``none`` runs the body over the gathered sequence and keeps the rank's
+    rows (JAX's GSPMD gathers it for its attention)."""
     if cfg.position == "alibi" and (cfg.attn_impl not in ("reference", "math")
-                                    or cfg.sparse_attention is not None):
+                                    or cfg.sparse_attention is not None
+                                    or cfg.sequence_parallel != "none"):
         raise NotImplementedError(
-            "position='alibi' requires attn_impl='reference' without sparse attention")
+            "position='alibi' requires attn_impl='reference' without sparse attention or "
+            "sequence parallelism")
+    if cfg.position == "alibi" and par is not None and par.seq > 1:
+        raise NotImplementedError("position='alibi' over a seq axis: the bias of the gathered "
+                                  "sequence is not ported (ROADMAP queue 1 item 7)")
     if cfg.sparse_attention is not None:
-        return functools.partial(block_sparse_attention, config=cfg.sparse_attention)
-    return get_attention_impl(cfg.attn_impl, device)
+        base = functools.partial(block_sparse_attention, config=cfg.sparse_attention)
+    else:
+        base = get_attention_impl(cfg.attn_impl, device)
+    if cfg.sequence_parallel == "ulysses":
+        from ..sequence.layer import DistributedAttention
+
+        return DistributedAttention(base, par)
+    if cfg.sequence_parallel == "ring":
+        from ..sequence.ring import ring_attention
+
+        return functools.partial(ring_attention, par=par)
+    if par is not None and par.seq > 1:
+        from ..sequence.ring import gathered_attention
+
+        return functools.partial(gathered_attention, base=base, par=par)
+    return base
 
 
 def alibi_slopes(num_heads: int) -> torch.Tensor:
@@ -581,108 +616,80 @@ def _attn_input(lw: Params, x, cfg: TransformerConfig):
 
 
 # ---------------------------------------------------------------------------
-# manual tensor parallelism (JAX transformer.py:421-454)
+# manual tensor parallelism (JAX transformer.py:421-454): f and g over
+# ``model`` are the context's ``copy`` / ``reduce``
 # ---------------------------------------------------------------------------
-def _model_all_reduce(x: torch.Tensor, tp, op: str = "sum") -> torch.Tensor:
-    """``x`` all-reduced over ``model`` into a new tensor: every collective
-    of the model's tensor-parallel regions goes through here."""
-    from ..comm import comm
-
-    return comm.all_reduce(x.clone(memory_format=torch.contiguous_format), tp.axis, op=op,
-                           mesh=tp.grid)
+def _tp(par):
+    """The context's ``TensorParallel`` (None without a model axis)."""
+    return par.tp if par is not None else None
 
 
-class _CopyToModel(torch.autograd.Function):
-    """Megatron's ``f``: the identity forward, the gradient all-reduced
-    over ``model`` (each rank's branch gradient is partial)."""
-
-    @staticmethod
-    def forward(ctx, x, tp):
-        ctx.tp = tp
-        return x.view_as(x)
-
-    @staticmethod
-    def backward(ctx, grad):
-        return _model_all_reduce(grad, ctx.tp), None
-
-
-class _ReduceFromModel(torch.autograd.Function):
-    """Megatron's ``g``: the row-parallel partial sums all-reduced over
-    ``model`` forward; the gradient of the sum is already whole on every
-    rank, so it passes through."""
-
-    @staticmethod
-    def forward(ctx, x, tp):
-        return _model_all_reduce(x, tp)
-
-    @staticmethod
-    def backward(ctx, grad):
-        return grad, None
-
-
-def tp_copy(x: torch.Tensor, tp) -> torch.Tensor:
-    return _CopyToModel.apply(x, tp)
-
-
-def tp_reduce(x: torch.Tensor, tp) -> torch.Tensor:
-    return _ReduceFromModel.apply(x, tp)
-
-
-def _tp_attn_weights(attn: Params, tp) -> Params:
+def _tp_attn_weights(attn: Params, par) -> Params:
     """The attention weights a rank reads: its shards as they are; a
     replicated kv projection narrowed to the kv head its q heads share,
     through ``f`` so that its partial gradient sums over ``model``."""
+    tp = par.tp
     if tp.kv_sharded:
         return attn
     out = dict(attn)
     lo, n = tp.kv_head0 * tp.hd, tp.kv_heads * tp.hd
     for name in ("wk", "wv", "bk", "bv"):
         if name in attn:
-            out[name] = tp_copy(attn[name], tp).narrow(-1, lo, n)
+            out[name] = par.copy(attn[name], MODEL_AXIS).narrow(-1, lo, n)
     return out
 
 
-def _pre_attention(lw: Params, x, cfg: TransformerConfig, rope_cs, tp=None):
+def _pre_attention(lw: Params, x, cfg: TransformerConfig, rope_cs, par=None):
     lw = fetch_layer(lw)
     a = _attn_input(lw, x, cfg)
-    if tp is None:
+    if _tp(par) is None:
         return _qkv(lw["attn"], a, cfg, rope_cs)
-    return _qkv(_tp_attn_weights(lw["attn"], tp), tp_copy(a, tp), tp.local_cfg, rope_cs)
+    return _qkv(_tp_attn_weights(lw["attn"], par), par.copy(a, MODEL_AXIS), par.tp.local_cfg,
+                rope_cs)
 
 
-def _mlp_tp(mlp: Params, y, cfg: TransformerConfig, tp):
+def _mlp_tp(mlp: Params, y, cfg: TransformerConfig, par):
     """A column / row-parallel MLP: the local columns, the partial sums
     reduced, ``b_down`` added once."""
     core = {k: v for k, v in mlp.items() if k != "b_down"}
-    out = tp_reduce(mlp_block(core, tp_copy(y, tp), cfg), tp)
+    out = par.reduce(mlp_block(core, par.copy(y, MODEL_AXIS), cfg), MODEL_AXIS)
     return out + mlp["b_down"] if "b_down" in mlp else out
 
 
-def _post_attention_tp(lw: Params, x, o, cfg: TransformerConfig, tp):
+def _post_attention_tp(lw: Params, x, o, cfg: TransformerConfig, par, dropless: bool = False):
     attn = lw["attn"]
     b, s = o.shape[:2]
-    h = tp_reduce(o.reshape(b, s, -1) @ attn["wo"], tp)
+    h = par.reduce(o.reshape(b, s, -1) @ attn["wo"], MODEL_AXIS)
     if "bo" in attn:
         h = h + attn["bo"]
     h = h.to(x.dtype)
     if cfg.parallel_block:
-        m = _mlp_tp(lw["mlp"], _attn_input(lw, x, cfg), cfg, tp)
+        m = _mlp_tp(lw["mlp"], _attn_input(lw, x, cfg), cfg, par)
         return x + h + m.to(x.dtype), None
     x = x + h
     y = _act_quant(norm(x, lw["mlp_norm"], cfg.norm, cfg.norm_eps), cfg)
-    return x + _mlp_tp(lw["mlp"], y, cfg, tp).to(x.dtype), None
+    if cfg.moe_num_experts > 0:  # the experts' columns: f / g inside the routed layer
+        if dropless:
+            raise NotImplementedError("MoE layers under a model axis run in training; serving "
+                                      "them is not ported yet (ROADMAP queue 1 item 7)")
+        m, aux = moe_block(lw["moe"], y, cfg, par)
+        return x + m.to(x.dtype), aux
+    return x + _mlp_tp(lw["mlp"], y, cfg, par).to(x.dtype), None
 
 
 def _post_attention(lw: Params, x, o, cfg: TransformerConfig, dropless: bool = False,
-                    tp=None):
+                    par=None):
     """wo, residual, MLP norm, MLP (or the routed experts) and residual (a
     parallel block reads the attention norm for both branches and adds both
     to one residual).  Returns (x, MoE aux loss or None); ``dropless``
     routes the experts without capacity (the cache path, as in JAX).
-    Under ``tp`` the row-parallel outputs go through ``g``."""
+    Under a model axis (``par.tp``) the row-parallel outputs go through
+    ``g``; across ranks (``par``) the routed experts are
+    ``moe_block_grid``, or with ``moe_qcomm`` over an expert axis above 1
+    JAX's explicit region (``routed_ffn_ep``)."""
     lw = fetch_layer(lw)
-    if tp is not None:
-        return _post_attention_tp(lw, x, o, cfg, tp)
+    if _tp(par) is not None:
+        return _post_attention_tp(lw, x, o, cfg, par, dropless)
     h = _out_proj(lw["attn"], o).to(x.dtype)
     if cfg.parallel_block:
         m = mlp_block(lw["mlp"], _attn_input(lw, x, cfg), cfg)
@@ -690,24 +697,31 @@ def _post_attention(lw: Params, x, o, cfg: TransformerConfig, dropless: bool = F
     x = x + h
     y = _act_quant(norm(x, lw["mlp_norm"], cfg.norm, cfg.norm_eps), cfg)
     if cfg.moe_num_experts > 0:
-        m, aux = (moe_block_dropless if dropless else moe_block)(lw["moe"], y, cfg)
+        if dropless:
+            m, aux = moe_block_dropless(lw["moe"], y, cfg)
+        elif par is not None and cfg.moe_qcomm is not None and par.expert > 1:
+            m, aux = routed_ffn_ep(lw["moe"], y, cfg, par, fmt=cfg.moe_qcomm)
+        else:
+            m, aux = moe_block(lw["moe"], y, cfg, par)
         return x + m.to(x.dtype), aux
     return x + mlp_block(lw["mlp"], y, cfg).to(x.dtype), None
 
 
 def decoder_layer(lw: Params, x: torch.Tensor, cfg: TransformerConfig, positions,
-                  attn_fn: Callable, segment_ids, rope_cs, tp=None):
+                  attn_fn: Callable, segment_ids, rope_cs, par=None):
     """Pre-norm residual block (dense MLP, routed experts, or the parallel
     block) -> (x, MoE aux or None).  JAX's ``attention_block`` is split in
     three here (``_qkv``, ``_attend``, ``_out_proj``) so that selective
     remat can keep the attention itself out of its two checkpoints;
     ``rope_cs`` is ``rope_tables`` over the rotary dims (None without
-    rope).  ``tp`` (a ``TensorParallel``; JAX's ``tp_axis``) runs this
-    rank's shard of the layer between the ``f`` / ``g`` pair."""
+    rope).  ``par`` (a ``parallel.context.ParallelContext``) runs this
+    rank's shard of the layer between the ``f`` / ``g`` pair under a model
+    axis (``par.tp``; JAX's ``tp_axis``) and routes the experts across
+    ranks (the attention's collectives ride ``attn_fn``)."""
     lw = fetch_layer(lw)  # once for both halves
-    q, k, v = _pre_attention(lw, x, cfg, rope_cs, tp)
+    q, k, v = _pre_attention(lw, x, cfg, rope_cs, par)
     o = _attend(q, k, v, cfg, positions, attn_fn, segment_ids)
-    return _post_attention(lw, x, o, cfg, tp=tp)
+    return _post_attention(lw, x, o, cfg, par=par)
 
 
 # calls of each body by the dense-cache attention (``_attend_cache``)
@@ -746,17 +760,18 @@ def _attend_cache(q, k, v, cfg: TransformerConfig, positions, attn_fn, q_offset:
 
 
 def _cached_layer(lw: Params, x, cfg: TransformerConfig, positions, attn_fn, layer_cache,
-                  cache_index: int, rope_cs, tp=None):
+                  cache_index: int, rope_cs, par=None):
     """``decoder_layer`` over the dense cache: this layer's k / v written
     at ``cache_index`` (in place), attention over the whole cache, the
-    experts dropless.  Under ``tp`` the cache holds the rank's kv heads."""
-    q, k, v = _pre_attention(lw, x, cfg, rope_cs, tp)
+    experts dropless.  Under a model axis the cache holds the rank's kv
+    heads."""
+    q, k, v = _pre_attention(lw, x, cfg, rope_cs, par)
     ck, cv = layer_cache
     s = q.shape[1]
     ck[:, cache_index:cache_index + s] = k.to(ck.dtype)
     cv[:, cache_index:cache_index + s] = v.to(cv.dtype)
     o = _attend_cache(q, ck, cv, cfg, positions, attn_fn, cache_index)
-    return _post_attention(lw, x, o, cfg, dropless=True, tp=tp)
+    return _post_attention(lw, x, o, cfg, dropless=True, par=par)
 
 
 def fetch_layer(lw):
@@ -814,29 +829,31 @@ def init_kv_cache(cfg: TransformerConfig, batch: int, max_len: int, dtype=None,
             torch.zeros(shape, dtype=dtype, device=device))
 
 
-def embed_tokens(params: Params, tokens: torch.Tensor, cfg: TransformerConfig, tp=None):
+def embed_tokens(params: Params, tokens: torch.Tensor, cfg: TransformerConfig, par=None):
     """The token embedding [b, s, d] in ``cfg.dtype``: a lookup, or under a
-    vocab-parallel ``tp`` a masked lookup into the rank's rows then ``g``
-    (each token's row lives on one rank)."""
+    vocab-parallel model axis a masked lookup into the rank's rows then
+    ``g`` (each token's row lives on one rank)."""
     table = params["embed"]["embedding"]
+    tp = _tp(par)
     if tp is None or not tp.vocab_sharded:
         return table[tokens].to(cfg.dtype)
     local = tokens - tp.vocab0
     inside = (local >= 0) & (local < tp.vocab_local)
     x = table[local.clamp(0, tp.vocab_local - 1)] * inside[..., None].to(table.dtype)
-    return tp_reduce(x, tp).to(cfg.dtype)
+    return par.reduce(x, MODEL_AXIS).to(cfg.dtype)
 
 
-def tp_head(params: Params, cfg: TransformerConfig, h: torch.Tensor, tp):
-    """The head's logits under ``tp``: [..., vocab / tp] of the rank's vocab
-    shard (through ``f``: the hidden's gradient sums over the shards), or
-    the whole [..., vocab] when the head is replicated."""
+def tp_head(params: Params, cfg: TransformerConfig, h: torch.Tensor, par):
+    """The head's logits under a model axis: [..., vocab / tp] of the rank's
+    vocab shard (through ``f``: the hidden's gradient sums over the
+    shards), or the whole [..., vocab] when the head is replicated."""
+    tp = par.tp
     if not tp.vocab_sharded:
         return lm_logits(params, cfg, h)
-    out = tp_copy(h, tp) @ head_kernel(params, cfg)
+    out = par.copy(h, MODEL_AXIS) @ head_kernel(params, cfg)
     hb = head_bias_vec(params)
     if hb is not None:  # whole on every rank: the rank reads its columns
-        out = out + tp_copy(hb, tp).narrow(0, tp.vocab0, tp.vocab_local)
+        out = out + par.copy(hb, MODEL_AXIS).narrow(0, tp.vocab0, tp.vocab_local)
     return out
 
 
@@ -850,7 +867,7 @@ def forward(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
             positions: Optional[torch.Tensor] = None,
             segment_ids: Optional[torch.Tensor] = None,
             return_hidden: bool = False, cache=None, cache_index=None,
-            with_aux: bool = False, layer_keep=None, tp=None):
+            with_aux: bool = False, layer_keep=None, par=None):
     """tokens [b, s] -> logits [b, s, v] (or the final-norm hidden states):
     a Python loop over the stacked layers, each under ``cfg.remat``.
     ``layer_keep`` ([L] host bools or 0 / 1, progressive layer drop) skips
@@ -862,14 +879,21 @@ def forward(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
     then start at ``cache_index`` (JAX ``forward``), and the layers run
     without remat (the cache path serves).
 
-    ``tp`` (``parallel.tensor_parallel.TensorParallel``) runs this rank's
-    shard of ``params``; the logits are then the rank's vocab shard
-    (``tp_head``).  ``cfg.domino_chunks`` > 1 runs each layer over that
-    many row chunks of the batch (not with a cache; a batch they do not
-    divide runs whole, as in JAX)."""
+    ``cfg.domino_chunks`` > 1 runs each layer over that many row chunks of
+    the batch (not with a cache; a batch they do not divide runs whole, as
+    in JAX).
+
+    ``par`` (``parallel.context.ParallelContext``) is this rank's view of
+    a process grid: under a model axis (``par.tp``, a
+    ``parallel.tensor_parallel.TensorParallel``) it runs this rank's shard
+    of ``params`` and the logits are the rank's vocab shard (``tp_head``);
+    under a ``seq`` axis ``tokens`` are the rank's
+    positions of each row, ``positions`` their places in the whole
+    sequence and ``segment_ids`` the whole sequence's (the attention reads
+    it whole); the routed experts run across ranks."""
     _refuse_unported(cfg)
     device = tokens.device
-    attn_fn = get_attn_fn(cfg, device)
+    attn_fn = get_attn_fn(cfg, device, par)
     b, s = tokens.shape
     ci = 0
     if cache is not None:
@@ -880,7 +904,7 @@ def forward(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
         positions = (torch.arange(s, device=device) + ci)[None, :].expand(b, s)
     if segment_ids is not None:  # the kernels take contiguous int32
         segment_ids = segment_ids.to(device=device, dtype=torch.int32).contiguous()
-    x = embed_tokens(params, tokens, cfg, tp)
+    x = embed_tokens(params, tokens, cfg, par)
     if cfg.position == "learned":
         x = x + params["pos_embed"]["embedding"][positions].to(cfg.dtype)
     if cfg.embedding_norm:
@@ -890,15 +914,15 @@ def forward(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
         rope_cs = rope_tables(positions, cfg.rotary_dim or cfg.hd, cfg.rope_theta)
 
     def layer(lw, x, pos, seg, cs):
-        return decoder_layer(lw, x, cfg, pos, attn_fn, seg, cs, tp)
+        return decoder_layer(lw, x, cfg, pos, attn_fn, seg, cs, par)
 
     def selective(lw, x, pos, seg, cs):
-        q, k, v = checkpoint(_pre_attention, lw, x, cfg, cs, tp, use_reentrant=False)
+        q, k, v = checkpoint(_pre_attention, lw, x, cfg, cs, par, use_reentrant=False)
         o = _attend(q, k, v, cfg, pos, attn_fn, seg)
-        return checkpoint(_post_attention, lw, x, o, cfg, False, tp, use_reentrant=False)
+        return checkpoint(_post_attention, lw, x, o, cfg, False, par, use_reentrant=False)
 
     def offload(lw, x, pos, seg, cs):
-        q, k, v = checkpoint(_pre_attention, lw, x, cfg, cs, tp, use_reentrant=False)
+        q, k, v = checkpoint(_pre_attention, lw, x, cfg, cs, par, use_reentrant=False)
         # the attention's residuals (the segment ids aside: one tensor
         # shared by every layer), then the one input of the second
         # checkpoint that is not the layer's own (its weights and x)
@@ -906,7 +930,8 @@ def forward(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
         with offload_saved(lambda t: t is seg, copies):
             o = _attend(q, k, v, cfg, pos, attn_fn, seg)
         with offload_saved(lambda t: t is not o, copies):
-            return checkpoint(_post_attention, lw, x, o, cfg, False, tp, use_reentrant=False)
+            return checkpoint(_post_attention, lw, x, o, cfg, False, par,
+                              use_reentrant=False)
 
     def full(lw, x, pos, seg, cs):
         return checkpoint(layer, lw, x, pos, seg, cs, use_reentrant=False)
@@ -946,7 +971,7 @@ def forward(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
             continue  # a dropped layer is the identity: nothing runs
         if cache is not None:
             x, aux = _cached_layer(lw, x, cfg, positions, attn_fn,
-                                   (cache[0][l], cache[1][l]), ci, rope_cs, tp)
+                                   (cache[0][l], cache[1][l]), ci, rope_cs, par)
         else:
             x, aux = domino(lw, x)
         if aux is not None:
@@ -955,7 +980,7 @@ def forward(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
     if return_hidden:
         out = x
     else:
-        out = lm_logits(params, cfg, x) if tp is None else tp_head(params, cfg, x, tp)
+        out = lm_logits(params, cfg, x) if _tp(par) is None else tp_head(params, cfg, x, par)
     if cache is None and not with_aux:
         return out
     if aux_total is None:
@@ -976,14 +1001,15 @@ class _VocabParallelCE(torch.autograd.Function):
     ``cross_entropy_loss``'s bit for bit."""
 
     @staticmethod
-    def forward(ctx, logits, labels, tp):
-        m = _model_all_reduce(logits.max(dim=-1).values, tp, op="max")
+    def forward(ctx, logits, labels, par):
+        tp = par.tp
+        m = par._all_reduce(logits.max(dim=-1).values, MODEL_AXIS, op="max")
         e = (logits - m[:, None]).exp()
         local = labels.long() - tp.vocab0
         own = (local >= 0) & (local < tp.vocab_local)
         idx = local.clamp(0, tp.vocab_local - 1)
         gold = torch.where(own, logits.gather(-1, idx[:, None])[:, 0], torch.zeros_like(m))
-        sums = _model_all_reduce(torch.stack([e.sum(-1), gold]), tp)
+        sums = par._all_reduce(torch.stack([e.sum(-1), gold]), MODEL_AXIS)
         logz = sums[0].log() + m
         ctx.save_for_backward(logits, logz, idx, own)
         return logz - sums[1]
@@ -996,22 +1022,22 @@ class _VocabParallelCE(torch.autograd.Function):
         return g, None, None
 
 
-def vocab_parallel_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, tp,
+def vocab_parallel_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, par,
                                  ignore_index: int = -100):
     """``(sum of NLL, count of labelled tokens)`` over the rank's vocab shard
     of the logits ([..., vocab / tp]; fp32 math)."""
     nll = _VocabParallelCE.apply(logits.reshape(-1, logits.shape[-1]).float(),
-                                 labels.reshape(-1), tp)
+                                 labels.reshape(-1), par)
     mask = (labels.reshape(-1) != ignore_index).float()
     return (nll * mask).sum(), mask.sum()
 
 
-def _tp_chunk_nll(params, cfg, h, labels, tp):
-    return vocab_parallel_cross_entropy(tp_head(params, cfg, h, tp), labels, tp)
+def _tp_chunk_nll(params, cfg, h, labels, par):
+    return vocab_parallel_cross_entropy(tp_head(params, cfg, h, par), labels, par)
 
 
 def tp_loss(params: Params, cfg: TransformerConfig, hidden: torch.Tensor,
-            labels: torch.Tensor, tp) -> torch.Tensor:
+            labels: torch.Tensor, par) -> torch.Tensor:
     """The token-mean NLL of the final hidden states under a vocab-parallel
     head: the rank's logits shard a sequence chunk at a time
     (``loss_chunk_size``, each chunk under a checkpoint, as
@@ -1028,9 +1054,9 @@ def tp_loss(params: Params, cfg: TransformerConfig, hidden: torch.Tensor,
     for c0 in range(0, s, chunk):
         h, lab = hidden[:, c0:c0 + chunk], labels[:, c0:c0 + chunk]
         if cfg.loss_chunk_size:
-            nll, n = checkpoint(_tp_chunk_nll, params, cfg, h, lab, tp, use_reentrant=False)
+            nll, n = checkpoint(_tp_chunk_nll, params, cfg, h, lab, par, use_reentrant=False)
         else:
-            nll, n = _tp_chunk_nll(params, cfg, h, lab, tp)
+            nll, n = _tp_chunk_nll(params, cfg, h, lab, par)
         nll_sum = nll_sum + nll
         count = count + n
     return nll_sum / count.clamp(min=1.0)
@@ -1060,10 +1086,15 @@ class CausalLM:
                                       "(ROADMAP queue 1 item 7)")
         _refuse_unported(cfg)
         self.cfg = cfg
-        # a ``parallel.tensor_parallel.TensorParallel``: the loss then runs
-        # this rank's shard of the tree (``initialize`` sets it in a world
-        # with a model axis)
+        # a ``parallel.tensor_parallel.TensorParallel`` (``initialize`` sets
+        # it in a world with a model axis, and ``par.tp`` to it): the shard
+        # layout of the tree
         self.tp = None
+        # a ``parallel.context.ParallelContext`` (``initialize`` sets it in a
+        # world): the loss runs this rank's shard of the tree under a model
+        # axis, reads this rank's slice of the sequence under a seq axis,
+        # and the routed experts run across ranks
+        self.par = None
 
     def init_params(self, seed: int = 0, device=None, keep: Optional[Callable] = None) -> Params:
         """fp32 parameters (the engine keeps fp32 masters) on ``device``,
@@ -1096,41 +1127,67 @@ class CausalLM:
 
     def valid_tokens(self, batch) -> torch.Tensor:
         """The count of labels ``loss_fn`` averages over (not
-        ``ignore_index``): the engine's weight of a rank across a world."""
+        ``ignore_index``; under a seq axis those of this rank's slice): the
+        engine's weight of a rank across a world."""
         labels = batch["labels"] if "labels" in batch else batch["input_ids"][:, 1:]
-        return (labels != -100).sum()
+        return (labels[:, self._seq_slice(labels.shape[1])] != -100).sum()
+
+    def _seq_slice(self, s: int) -> slice:
+        """This rank's positions of a length-``s`` sequence (all of them
+        without a seq axis); a length the axis does not divide raises."""
+        par = self.par
+        if par is None or par.seq == 1:
+            return slice(0, s)
+        if s % par.seq:
+            raise NotImplementedError(
+                f"sequence length {s} does not divide over the seq axis ({par.seq}); JAX pads "
+                "it, the port does not yet (ROADMAP queue 1 item 7)")
+        n = s // par.seq
+        return slice(par.seq_rank * n, (par.seq_rank + 1) * n)
 
     def loss_fn(self, params: Params, batch, rng=None) -> torch.Tensor:
         inputs, labels, segment_ids, layer_keep = self.prepare_batch(batch, rng)
-        tp = self.tp
+        par = self.par
+        tp = _tp(par)
+        positions = None
+        if par is not None and par.seq > 1:
+            # the label shift came first: a boundary token's label is the
+            # next rank's first token; the segment ids stay whole
+            sl = self._seq_slice(inputs.shape[1])
+            b = inputs.shape[0]
+            positions = torch.arange(inputs.shape[1], device=inputs.device)[sl][None].expand(
+                b, -1)
+            inputs, labels = inputs[:, sl], labels[:, sl]
+        kw = dict(positions=positions, segment_ids=segment_ids, with_aux=True,
+                  layer_keep=layer_keep, par=par)
+        aux_coef = (self.cfg.moe_aux_loss_coef / max(self.cfg.num_layers, 1)
+                    if self.cfg.moe_num_experts > 0 else 0.0)
         if tp is not None:
-            hidden, _, aux = forward(params, inputs, self.cfg, segment_ids=segment_ids,
-                                     return_hidden=True, with_aux=True, layer_keep=layer_keep,
-                                     tp=tp)
+            hidden, _, aux = forward(params, inputs, self.cfg, return_hidden=True, **kw)
             if tp.vocab_sharded:
-                return tp_loss(params, self.cfg, hidden, labels, tp)
+                return tp_loss(params, self.cfg, hidden, labels, par) + aux_coef * aux
             # a replicated head: every rank forms the same whole logits
             if self.cfg.loss_chunk_size:
                 from ..sequence.cross_entropy import chunked_cross_entropy
 
-                return chunked_cross_entropy(hidden, head_kernel(params, self.cfg), labels,
+                loss = chunked_cross_entropy(hidden, head_kernel(params, self.cfg), labels,
                                              chunk_size=self.cfg.loss_chunk_size,
                                              head_bias=head_bias_vec(params))
-            return cross_entropy_loss(lm_logits(params, self.cfg, hidden), labels)
+            else:
+                loss = cross_entropy_loss(lm_logits(params, self.cfg, hidden), labels)
+            return loss + aux_coef * aux
         if self.cfg.loss_chunk_size:
             from ..sequence.cross_entropy import chunked_cross_entropy
 
-            hidden, _, aux = forward(params, inputs, self.cfg, segment_ids=segment_ids,
-                                     return_hidden=True, with_aux=True, layer_keep=layer_keep)
+            hidden, _, aux = forward(params, inputs, self.cfg, return_hidden=True, **kw)
             loss = chunked_cross_entropy(hidden, head_kernel(params, self.cfg), labels,
                                          chunk_size=self.cfg.loss_chunk_size,
                                          head_bias=head_bias_vec(params))
         else:
-            logits, _, aux = forward(params, inputs, self.cfg, segment_ids=segment_ids,
-                                     with_aux=True, layer_keep=layer_keep)
+            logits, _, aux = forward(params, inputs, self.cfg, **kw)
             loss = cross_entropy_loss(logits, labels)
         if self.cfg.moe_num_experts > 0:  # JAX: coef * aux / L
-            loss = loss + self.cfg.moe_aux_loss_coef * aux / max(self.cfg.num_layers, 1)
+            loss = loss + aux_coef * aux
         return loss
 
     @property
@@ -1154,7 +1211,6 @@ def tp_rules(cfg: TransformerConfig):
     (``parallel.tensor_parallel.TensorParallel``), which keep ``wk`` /
     ``wv`` whole where the kv heads do not divide the axis."""
     from ..parallel.sharding import P
-    from ..parallel.topology import MODEL_AXIS
 
     rules = [
         (r"layers/attn/w[qkv]$", P(None, None, MODEL_AXIS)),

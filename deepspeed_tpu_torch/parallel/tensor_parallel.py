@@ -13,7 +13,10 @@ JAX's v2 engine calls it) over one layer's kernels and the vocab tables:
 - row-parallel (input dim on ``model``): ``wo``, ``w_down``;
 - vocab-parallel: ``embed/embedding`` (dim 0) and ``lm_head/kernel`` (dim
   1) when the vocab divides the axis (a tied head reads the embedding's
-  shard), else both replicated.
+  shard), else both replicated;
+- the routed experts' FFNs (JAX's rules, ``transformer.py:1166-1169``):
+  ``moe/w_gate`` / ``w_up`` column-parallel and ``moe/w_down`` row-parallel
+  on the FFN dim; the router stays whole.
 
 Two rules sit on top, for what a manual region needs that GSPMD does not:
 
@@ -49,6 +52,9 @@ from .topology import MODEL_AXIS
 
 _ITEM7 = "(ROADMAP queue 1 item 7, the distributed layers)"
 _KV = ("wk", "wv")
+# the routed experts' FFN dim (counted from the end): column-parallel
+# w_gate / w_up [L, E, d, f], row-parallel w_down [L, E, f, d]
+_MOE_COLS = {"w_gate": -1, "w_up": -1, "w_down": -2}
 
 
 def _kernel_shapes(cfg) -> Dict[str, Any]:
@@ -59,7 +65,7 @@ def _kernel_shapes(cfg) -> Dict[str, Any]:
     tree = init_params(cfg, device="meta")
     out: Dict[str, Any] = {"layers": {}}
     for path, x in _leaf_paths(tree.get("layers", {})):
-        if x.dim() == 3:  # [layer, in, out]
+        if x.dim() == 3 and path[0] != "moe":  # [layer, in, out]; the router stays whole
             _set(out["layers"], path, tuple(x.shape[1:]))
     for path in (("embed", "embedding"), ("lm_head", "kernel")):
         if path[0] in tree:
@@ -119,9 +125,6 @@ class TensorParallel:
         self.size = int(size if size is not None else grid.axis_size(axis))
         self.rank = int(rank if rank is not None else grid.axis_rank(axis))
         tp, hq, hkv = self.size, cfg.num_heads, cfg.num_kv_heads
-        if cfg.moe_num_experts > 0:
-            raise NotImplementedError(f"MoE layers under a model axis (the expert-parallel "
-                                      f"region) are not ported yet {_ITEM7}")
         if cfg.sparse_attention is not None:
             raise NotImplementedError(f"sparse_attention under a model axis is not ported "
                                       f"yet {_ITEM7}")
@@ -167,6 +170,11 @@ class TensorParallel:
         from ..runtime.zero import path_str
 
         kernel = _kernel_of(path)
+        if path[:2] == ("layers", "moe") and path[-1] in _MOE_COLS:
+            # the expert FFNs' columns (JAX transformer.py:1166-1169)
+            dim = len(shape) + _MOE_COLS[path[-1]]
+            n = shape[dim] // self.size
+            return Placement("shard", dim, self.rank * n, (self.rank + 1) * n)
         if kernel in self._kernel_dim:
             dim = len(shape) + (self._kernel_dim[kernel] if kernel == path else -1)
             if kernel != path and self._kernel_dim[kernel] != -1:

@@ -44,7 +44,35 @@ _ITEM7 = "(ROADMAP queue 1 item 7, the distributed layers)"
 # the axes over which the gradients are averaged (JAX ``BATCH_AXES``)
 BATCH_AXES = (DATA_AXIS, FSDP_AXIS, SUB_AXIS)
 # the axes a process grid spans, slowest first (``model`` fastest)
-GRID_AXES = BATCH_AXES + (MODEL_AXIS,)
+GRID_AXES = BATCH_AXES + (EXPERT_AXIS, SEQ_AXIS, MODEL_AXIS)
+
+
+@dataclasses.dataclass(frozen=True)
+class GroupAxis:
+    """A grouped set along one axis (JAX's ``axis_index_groups`` entry this
+    rank is in): the axis ``name`` (what the comms logger records),
+    ``members`` (indices along the axis, in group order), this rank's
+    ``index`` in them, and the process group (None outside a world: the
+    caller makes the collective itself)."""
+
+    name: str
+    members: Tuple[int, ...]
+    index: int
+    group: object = None
+
+    @property
+    def size(self) -> int:
+        return len(self.members)
+
+
+def seq_group_sets(p: int, g: int):
+    """The two families of Ulysses' uneven-heads path over an axis of
+    ``p`` (JAX ``sequence/layer.py:96-97``), index ``i = h * g + j``:
+    ``inner`` the ``p / g`` sets of ``g`` consecutive indices (one kv head
+    each), ``cross`` the ``g`` sets of stride ``g``."""
+    inner = [tuple(h * g + j for j in range(g)) for h in range(p // g)]
+    cross = [tuple(h * g + j for h in range(p // g)) for j in range(g)]
+    return inner, cross
 
 
 @dataclasses.dataclass(frozen=True)
@@ -122,11 +150,11 @@ def _axes(axis_name: Axes) -> Tuple[str, ...]:
 
 class ProcessGrid:
     """The grid over a ``torch.distributed`` world: this rank's
-    coordinates, its device, and the process group of every set of the
-    ``data`` / ``fsdp`` / ``sub`` / ``model`` axes (``group``), made at
-    construction by every rank in one order (``new_group`` is
-    collective).  JAX's ``Grid`` answers the same size and rank questions
-    from its mesh."""
+    coordinates, its device, the process group of every set of the
+    ``GRID_AXES`` (``group``) and the grouped sets along ``seq``
+    (``subgroup``), made at construction by every rank in one order
+    (``new_group`` is collective).  JAX's ``Grid`` answers the same size
+    and rank questions from its mesh."""
 
     def __init__(self, spec: MeshSpec, device: torch.device, backend: str):
         import torch.distributed as dist
@@ -149,23 +177,45 @@ class ProcessGrid:
         shape = tuple(self.sizes.values())
         self.coords = dict(zip(GRID_AXES, _unravel(self.rank, shape)))
         self._groups: Dict[Tuple[str, ...], object] = {}
+        coords = [dict(zip(GRID_AXES, _unravel(r, shape))) for r in range(world)]
         # every subset of the axes, every coordinate of the rest, in one
         # order on every rank; a rank keeps the groups it is in.  Subsets
         # whose rank sets coincide (axes of size 1) share one group
         made: Dict[Tuple[int, ...], object] = {}
+
+        def group_of(ranks):
+            g = made.get(tuple(ranks))
+            if g is None:
+                g = made[tuple(ranks)] = dist.new_group(list(ranks), backend=backend)
+            return g
+
         for k in range(1, len(GRID_AXES) + 1):
             for sub in itertools.combinations(GRID_AXES, k):
                 rest = [a for a in GRID_AXES if a not in sub]
                 for fixed in itertools.product(*(range(self.sizes[a]) for a in rest)):
                     at = dict(zip(rest, fixed))
                     ranks = [r for r in range(world)
-                             if all(dict(zip(GRID_AXES, _unravel(r, shape)))[a] == v
-                                    for a, v in at.items())]
-                    g = made.get(tuple(ranks))
-                    if g is None:
-                        g = made[tuple(ranks)] = dist.new_group(ranks, backend=backend)
+                             if all(coords[r][a] == v for a, v in at.items())]
+                    g = group_of(ranks)
                     if self.rank in ranks:
                         self._groups[sub] = g
+        # the grouped sets along seq, for every coordinate of the other axes
+        self._subgroups: Dict[Tuple[str, Tuple[int, ...]], object] = {}
+        p = self.sizes[SEQ_AXIS]
+        others = [a for a in GRID_AXES if a != SEQ_AXIS]
+        for g in range(2, p):
+            if p % g:
+                continue
+            for members in itertools.chain(*seq_group_sets(p, g)):
+                for fixed in itertools.product(*(range(self.sizes[a]) for a in others)):
+                    at = dict(zip(others, fixed))
+                    ranks = [r for r in range(world)
+                             if coords[r][SEQ_AXIS] in members
+                             and all(coords[r][a] == v for a, v in at.items())]
+                    ranks.sort(key=lambda r: members.index(coords[r][SEQ_AXIS]))
+                    grp = group_of(ranks)
+                    if self.rank in ranks:
+                        self._subgroups[(SEQ_AXIS, members)] = grp
 
     @property
     def world_size(self) -> int:
@@ -192,6 +242,16 @@ class ProcessGrid:
 
     def group(self, axis_name: Axes):
         return self._groups[_axes(axis_name)]
+
+    def subgroup(self, axis: str, members: Sequence[int]) -> GroupAxis:
+        """The grouped set ``members`` (indices along ``axis``, group order)
+        this rank is in, made at construction."""
+        members = tuple(members)
+        me = self.coords[axis]
+        if me not in members or (axis, members) not in self._subgroups:
+            raise ValueError(f"no grouped set {members} of {axis!r} holds this rank "
+                             f"({axis} index {me})")
+        return GroupAxis(axis, members, members.index(me), self._subgroups[(axis, members)])
 
     def axis_size(self, axis_name: Axes) -> int:
         return math.prod(self.sizes[a] for a in _axes(axis_name))

@@ -74,10 +74,24 @@ The logical state (``master_tree``, ``logical_opt_state``,
 ``load_logical_state``, hence checkpoints) is the whole tree, gathered
 over ``model`` too.
 
+With a ``seq`` axis (the model's loss reads this rank's positions,
+``CausalLM.par``) the loss, the token count and the gradients are summed
+over the batch axes and ``seq`` (``token_axes``): the ranks of a seq group
+see different tokens of the same rows.  With an ``expert`` axis
+(``ep``, ``parallel/expert_parallel.py``) the flat buffers hold the rank's
+experts; the ranks along ``expert`` (and ``model``) see the same tokens, so
+no gradient is summed over them: a routed layer's region gives every rank
+the whole gradient of its replicated leaves (``moe/layer.py``).  The norm
+sums each cut leaf's squares over the axes it is cut over (``layout``,
+``ShardLayout``).
+
 Refused at world > 1 with ``NotImplementedError`` (item 7): ZeRO-Offload,
 a trainable mask (LoRA), compression's weight transform, progressive layer
 drop, the eigenvalue estimator, a ``compile`` backend, and Lamb / Muon over
-the sharded slices; ``no_sync`` stays refused at stage >= 2.
+the sharded slices; with a seq axis a loss other than the model's, with a
+seq or expert axis the 1-bit optimizers and ZeRO++, and the routed region
+(``moe_qcomm``) beside a seq or model axis; ``no_sync`` stays refused at
+stage >= 2.
 
 ``telemetry`` (JAX :176-181, :1026-1030): each ``train_batch`` is a
 ``train_batch`` span on the ``train`` track whose device reading is
@@ -169,7 +183,7 @@ import torch
 
 from ..config.config import Config, ConfigError
 from ..ops.optimizers import _leaf_views, build_optimizer, set_path
-from ..parallel.topology import BATCH_AXES, GRID_AXES, MODEL_AXIS
+from ..parallel.topology import BATCH_AXES, GRID_AXES, SEQ_AXIS
 from ..telemetry import Telemetry, device_ready
 from ..utils.memory import memory_breakdown_report, see_memory_usage
 from ..utils.timer import (BACKWARD_GLOBAL_TIMER, FORWARD_GLOBAL_TIMER, STEP_GLOBAL_TIMER,
@@ -333,10 +347,20 @@ class DeepSpeedTorchEngine:
         self.grid = grid  # the process grid of a world of ranks, or None
         # the model axis: the loss runs this rank's shard of the tree
         self.tp = getattr(model, "tp", None) if grid is not None else None
-        self._tp_shapes = None  # the whole tree's shapes (tp)
-        if self.tp is not None:
+        # the expert axis: this rank's experts (parallel/expert_parallel.py)
+        self.ep = getattr(getattr(model, "par", None), "ep", None) if grid is not None else None
+        # the axes whose ranks hold different tokens: the batch axes, and
+        # seq above 1 (ranks along expert and model see the same tokens)
+        self.token_axes = BATCH_AXES + ((SEQ_AXIS,) if grid is not None
+                                        and grid.axis_size(SEQ_AXIS) > 1 else ())
+        self.layout = None  # this rank's shard over model and expert (ShardLayout)
+        self._tp_shapes = None  # the whole tree's shapes (layout)
+        if self.tp is not None or self.ep is not None:
+            from ..parallel.expert_parallel import ShardLayout
+
+            self.layout = ShardLayout(self.tp, self.ep)
             self._tp_shapes = _shape_tree(params)
-            params = self.tp.shard_tree(params)
+            params = self.layout.shard_tree(params)
         self.timers = SynchronizedWallClockTimer()
         self.tput_timer = ThroughputTimer(batch_size=config.train_batch_size,
                                           steps_per_output=config.steps_per_print)
@@ -524,6 +548,27 @@ class DeepSpeedTorchEngine:
         if z.stage >= 1 and c.optimizer.type.lower() in ("lamb", "fusedlamb", "muon"):
             refused.append(f"optimizer {c.optimizer.type!r} over ZeRO's flat slices (its rule "
                            "reads whole leaves)")
+        from .onebit import is_onebit
+
+        seq = self.grid.axis_size(SEQ_AXIS) > 1
+        model_loss = self.loss_fn == getattr(self.model, "loss_fn", None) and \
+            getattr(self.model, "par", None) is not None
+        mcfg = getattr(self.model, "cfg", None)
+        refused += [name for name, on in (
+            ("a seq axis with a loss function other than the model's (it slices the "
+             "sequence)", seq and not model_loss),
+            ("a 1-bit optimizer with a seq or expert axis", is_onebit(c.optimizer.type)
+             and (seq or self.ep is not None)),
+            ("ZeRO++'s quantized weights / gradients with a seq or expert axis",
+             (z.zero_quantized_weights or z.zero_quantized_gradients)
+             and (seq or self.ep is not None)),
+            (f"optimizer {c.optimizer.type!r} over the expert axis's shards (its rule reads "
+             "whole leaves)", self.ep is not None
+             and c.optimizer.type.lower() in ("lamb", "fusedlamb", "muon")),
+            ("moe_qcomm (routed_ffn_ep) beside a seq or model axis", mcfg is not None
+             and getattr(mcfg, "moe_qcomm", None) is not None and self.ep is not None
+             and self.grid.axis_size("expert") > 1 and (seq or self.tp is not None)),
+        ) if on]
         if refused:
             raise NotImplementedError(
                 f"{'; '.join(refused)} in a process world (here of {self.grid.world_size}) "
@@ -553,11 +598,11 @@ class DeepSpeedTorchEngine:
         quant = ZeroPP.from_config(self.config, self.grid, self.device) \
             if z.zero_quantized_weights or z.zero_quantized_gradients else None
         specs = None
-        if self.tp is not None:  # the plan composes fsdp with the model axis, as JAX's
+        if self.layout is not None:  # the plan composes fsdp with the model / expert axes
             from .zero import plan_sharding
 
             specs = plan_sharding(self._tp_shapes, z, self.grid.spec,
-                                  self.tp.rules(self._tp_shapes)).param_specs
+                                  self.layout.rules(self._tp_shapes)).param_specs
         zs = ZeroShard(params, self.config, self.grid, self.device, self.compute_dtype,
                        layers, quant=quant, param_specs=specs)
         if quant is not None:
@@ -602,7 +647,7 @@ class DeepSpeedTorchEngine:
             return torch.full((), 1.0 / self.grid.dp_world_size, dtype=torch.float32,
                               device=self.device)
         n = count(micro).to(device=self.device, dtype=torch.float32).reshape(1)
-        total = comm.all_reduce(n.clone(), BATCH_AXES, mesh=self.grid)
+        total = comm.all_reduce(n.clone(), self.token_axes, mesh=self.grid)
         return (n / total.clamp(min=1.0))[0]
 
     def _fold(self, batch: Dict[str, Any]) -> Dict[str, Any]:
@@ -964,18 +1009,18 @@ class DeepSpeedTorchEngine:
             grad = zs.grad.div_(divisor)
         else:
             grad = self._masters.grad
-            if self.grid is not None:  # stage 0: the whole buffer over every rank
+            if self.grid is not None:  # stage 0: the whole buffer over the token axes
                 from ..comm import comm
 
-                comm.all_reduce(grad, BATCH_AXES, mesh=self.grid)
+                comm.all_reduce(grad, self.token_axes, mesh=self.grid)
             grad = grad.div_(divisor)
         finite = precision.grads_finite([grad]) if fp16 else None
-        if finite is not None and (zs is not None or self.tp is not None):
+        if finite is not None and (zs is not None or self.layout is not None):
             # each rank sees its slice: every rank skips if any overflowed
             from ..comm import comm
 
             flag = finite.to(torch.float32).reshape(1)
-            axes = GRID_AXES if self.tp is not None else BATCH_AXES
+            axes = GRID_AXES if self.layout is not None else self.token_axes
             finite = comm.all_reduce(flag, axes, op="min", mesh=self.grid)[0] > 0
         grad_norm = self._grad_norm(grad)
         if cfg.gradient_clipping and cfg.gradient_clipping > 0:
@@ -1004,35 +1049,42 @@ class DeepSpeedTorchEngine:
 
     def _grad_norm(self, grad: torch.Tensor) -> torch.Tensor:
         """The global gradient norm: the buffer's, the slices' summed once
-        over ZeRO's shard group, and under a model axis the model-sharded
-        leaves' squares summed over ``model`` beside the replicated leaves'
-        counted once (they are equal on every rank)."""
+        over ZeRO's shard group, and under a model or expert axis each cut
+        leaf's squares summed over the axes it is cut over beside the whole
+        leaves' counted once (they are equal on every rank)."""
         zs = self._zero
-        if self.tp is None:
+        if self.layout is None:
             return zs.grad_norm() if zs is not None else precision.global_grad_norm([grad])
         from ..comm import comm
 
-        sq = torch.zeros(2, dtype=torch.float32, device=grad.device)
-        for sharded, a, b in self._tp_ranges():
-            sq[0 if sharded else 1] += precision._sum_squares(grad[a:b])
+        cats, runs = self._tp_ranges()
+        sq = torch.zeros(len(cats), dtype=torch.float32, device=grad.device)
+        for i, a, b in runs:
+            sq[i] += precision._sum_squares(grad[a:b])
         if zs is not None:
             comm.all_reduce(sq, zs.shard_axes, mesh=self.grid)
-        sharded = comm.all_reduce(sq[:1].clone(), MODEL_AXIS, mesh=self.grid)
-        return (sharded[0] + sq[1]).sqrt()
+        total = torch.zeros((), dtype=torch.float32, device=grad.device)
+        for i, axes in enumerate(cats):
+            total = total + (comm.all_reduce(sq[i:i + 1].clone(), axes, mesh=self.grid)[0]
+                             if axes else sq[i])
+        return total.sqrt()
 
     def _tp_ranges(self):
-        """``(model-sharded, start, end)`` runs of the flat gradient buffer
-        (this rank's ZeRO slice, or the whole buffer), made once."""
+        """``(axes of cut of each category, [(category, start, end)])``: the
+        runs of the flat gradient buffer (this rank's ZeRO slice, or the
+        whole buffer) by the axes their leaves are cut over, made once."""
         if getattr(self, "_tp_runs", None) is None:
-            shard = set(self.tp.sharded_paths(self._tp_shapes))
+            axes_of = self.layout.axes_of(self._tp_shapes)
+            cats = sorted(set(axes_of.values()), key=lambda a: (len(a), a))
+            index = {p: cats.index(a) for p, a in axes_of.items()}
             if self._zero is not None:
-                runs = self._zero.path_runs(shard)
+                runs = self._zero.path_runs(None, index)
             else:
                 runs, off = [], 0
                 for path, leaf in _leaf_paths_of(self.params):
-                    runs.append((path in shard, off, off + leaf.numel()))
+                    runs.append((index[path], off, off + leaf.numel()))
                     off += leaf.numel()
-            self._tp_runs = runs
+            self._tp_runs = (cats, runs)
         return self._tp_runs
 
     def _to_device(self, batch) -> Dict[str, torch.Tensor]:
@@ -1084,7 +1136,7 @@ class DeepSpeedTorchEngine:
         if self.grid is not None:  # the ranks' weighted losses sum to the global mean
             from ..comm import comm
 
-            loss_sum = comm.all_reduce(loss_sum.reshape(1), BATCH_AXES, mesh=self.grid)[0]
+            loss_sum = comm.all_reduce(loss_sum.reshape(1), self.token_axes, mesh=self.grid)[0]
         loss_scale = self.loss_scale_state.scale if fp16 else torch.ones((), device=self.device)
         metrics = StepMetrics(loss_sum / gas, grad_norm, lr, loss_scale, skipped)
         tb_span.end(sync_obj=device_ready(metrics.loss) if self.telemetry.enabled else None)
@@ -1453,12 +1505,12 @@ class DeepSpeedTorchEngine:
     def holds_shards(self) -> bool:
         """The engine's buffers are this rank's part of the state (ZeRO's
         slices, or a model axis's shard): its logical state is gathered."""
-        return self._zero is not None or self.tp is not None
+        return self._zero is not None or self.layout is not None
 
     def _whole(self, tree):
-        """A tree of this rank's TP shards as whole leaves (a collective over
-        ``model``; the tree itself without a model axis)."""
-        return tree if self.tp is None else self.tp.gather_tree(tree, self._tp_shapes)
+        """A tree of this rank's shards as whole leaves (collectives over
+        ``model`` and ``expert``; the tree itself without either)."""
+        return tree if self.layout is None else self.layout.gather_tree(tree, self._tp_shapes)
 
     def _local_tree(self, buf: torch.Tensor):
         """A buffer laid out like the masters as a tree of this rank's
@@ -1500,8 +1552,8 @@ class DeepSpeedTorchEngine:
         """This rank's slices of whole-leaf trees (a checkpoint's masters and
         moments, saved at any world size and ``model`` size)."""
         zs = self._zero
-        if self.tp is not None:
-            params = self.tp.shard_tree(params)
+        if self.layout is not None:
+            params = self.layout.shard_tree(params)
         place = zs.scatter_flat if zs is not None else self._copy_leaves
 
         def walk(node, logical):
@@ -1511,7 +1563,8 @@ class DeepSpeedTorchEngine:
                 for k, v in node.items():
                     walk(v, logical[k])
             else:
-                place(logical if self.tp is None else self.tp.shard_tree(logical), node[0])
+                place(logical if self.layout is None else self.layout.shard_tree(logical),
+                      node[0])
 
         with torch.no_grad():
             place(params, self.params if zs is None else zs.masters)

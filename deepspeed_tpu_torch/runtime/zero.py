@@ -31,8 +31,9 @@ reference's ``stage_1_and_2.py`` partitions its flat fp32 buffer:
   backward needs are not kept: the saved-tensor hooks (``saved_hooks``)
   record where they sat and gather the layer again when the backward
   reaches it.  Under remat the recomputed forward gathers again;
-- a ``data`` axis (or, under MiCS, ``data`` x ``fsdp``) replicates the
-  slices: their gradient is all-reduced over it after the reduce-scatter.
+- a ``data`` axis (or, under MiCS, ``data`` x ``fsdp``), and a ``seq`` axis
+  above 1, replicates the slices: their gradient is all-reduced over it
+  after the reduce-scatter.
 
 hpZ (``zero_hpz_partition_size``) keeps a secondary partition of each
 stage-3 group over ``sub`` (refreshed from the masters by an all-gather
@@ -68,7 +69,7 @@ import torch
 
 from ..comm import comm
 from ..parallel.sharding import P
-from ..parallel.topology import DATA_AXIS, FSDP_AXIS, SUB_AXIS, MeshSpec
+from ..parallel.topology import DATA_AXIS, FSDP_AXIS, SEQ_AXIS, SUB_AXIS, MeshSpec
 
 PathRules = List[Tuple[str, Any]]  # (regex over 'a/b/c' param path, base spec)
 
@@ -352,6 +353,8 @@ class ZeroShard:
             shard_levels, self.replica_axes = [(FSDP_AXIS, SUB_AXIS)], (DATA_AXIS,)
         else:
             shard_levels, self.replica_axes = [(FSDP_AXIS,)], (DATA_AXIS,)
+        if grid.spec.seq > 1:  # the seq ranks hold the same slices, their own tokens' sums
+            self.replica_axes += (SEQ_AXIS,)
         self.shard_axes = tuple(a for lv in shard_levels for a in lv)
         gathered_levels = [(FSDP_AXIS,), (SUB_AXIS,)] if self.hpz else shard_levels
         layer_leaves = ("layers",) if num_layers else None
@@ -615,16 +618,18 @@ class ZeroShard:
         if self.grid.axis_size(self.replica_axes) > 1:
             comm.all_reduce(self.grad, self.replica_axes, mesh=self.grid)
 
-    def path_runs(self, paths) -> List[Tuple[bool, int, int]]:
+    def path_runs(self, paths, index=None) -> List[Tuple[Any, int, int]]:
         """``(leaf in paths, start, end)`` runs over this rank's slices (the
-        padding counts as outside)."""
+        padding counts as outside); with ``index`` (path -> category) the
+        leaf's category in place of the membership."""
         runs = []
         for g in self.groups:
             lo = self.slice_index(g) * g.shard
             for pc, o in g.piece_offsets():
                 a, b = max(lo, o), min(lo + g.shard, o + pc.numel)
                 if a < b:
-                    runs.append((pc.path in paths, g.off + a - lo, g.off + b - lo))
+                    tag = index[pc.path] if index is not None else pc.path in paths
+                    runs.append((tag, g.off + a - lo, g.off + b - lo))
         return runs
 
     def grad_norm(self) -> torch.Tensor:
@@ -779,7 +784,6 @@ def predicted_comm_counts(engine, steps: int = 1) -> Dict[str, int]:
     secondary) refresh, and the 1-bit step's exchanges.  qwZ gathers and
     qgZ all-to-alls move a payload and its scales: two ops each."""
     from ..comm.comm import axis_key
-    from ..parallel.topology import BATCH_AXES
 
     cfg = engine.config
     z = cfg.zero_optimization
@@ -791,7 +795,7 @@ def predicted_comm_counts(engine, steps: int = 1) -> Dict[str, int]:
             key = f"{op}@{axis_key(axes)}"
             out[key] = out.get(key, 0) + n
 
-    dp = BATCH_AXES
+    dp = engine.token_axes
     weighted = (getattr(engine.model, "valid_tokens", None) is not None
                 and engine.loss_fn == getattr(engine.model, "loss_fn", None)
                 and engine._onebit is None

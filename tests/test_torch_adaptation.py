@@ -45,6 +45,7 @@ from deepspeed_tpu_torch.models.transformer import init_params
 from deepspeed_tpu_torch.serving.remote import RemoteWorker
 from deepspeed_tpu_torch.serving.transport import HeartbeatMonitor, RpcClient, WorkerServer, dial
 from deepspeed_tpu_torch.telemetry import Telemetry
+from torch_threads import one_torch_thread  # noqa: F401  (one intra-op thread)
 
 H100 = dict(compute_flops=251.4e12, hbm_gbps=2850.0, ici_gbps=450.0, hbm_bytes=80e9,
             host_tick_s=15.2e-3, ici_hop_s=0.0)

@@ -41,6 +41,7 @@ from deepspeed_tpu_torch.config.config import parse_config
 from deepspeed_tpu_torch.models.presets import get_preset
 from deepspeed_tpu_torch.models.transformer import CausalLM, init_params
 from deepspeed_tpu_torch.ops.kernels import KernelError
+from torch_threads import one_torch_thread  # noqa: F401  (one intra-op thread)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SERVE_BASE = {"max_seqs": 8, "num_blocks": 96, "block_size": 32, "enable_prefix_caching": True}

@@ -42,6 +42,7 @@ from deepspeed_tpu_torch.inference.faults import CheckpointWriteCrash, FaultInje
 from deepspeed_tpu_torch.models import transformer as tt
 from deepspeed_tpu_torch.models.presets import get_preset
 from deepspeed_tpu_torch.runtime.dataloader import RepeatingLoader
+from torch_threads import one_torch_thread  # noqa: F401  (one intra-op thread)
 
 ENGINE_TOL = dict(atol=1e-5, rtol=1e-4)  # test_torch_training.py's
 CONF = {

@@ -71,6 +71,8 @@ def _jax_side(x):
         out["psum_tiled"] = jq.q_psum_tiled(b.reshape(4, -1), "data", "int8", tiles=3)
         out["ring"] = jq.ring_permute(a, "data")
         out["a2a_grad"] = jax.grad(lambda v: (jq.q_all_to_all(v, "data", "int8") * w).sum())(b)
+        out["a2a_grad_none"] = jax.grad(
+            lambda v: (jq.q_all_to_all(v, "data", "none") * w).sum())(b)
         out["c_mean"], out["c_werr"], out["c_serr"] = jc.compressed_allreduce(m, we, se, "data")
         out["sparse_grad"] = jax.grad(
             lambda t: (j_lookup(t, ids, axis_name="data") * g).sum())(table)
@@ -139,7 +141,8 @@ def test_payloads_are_byte_equal_to_jax(fmt):
 
 
 @pytest.mark.parametrize("name", [f"{op}_{fmt}" for op in ("ag", "rs", "rs_err", "ar", "a2a")
-                                  for fmt in FMTS] + ["psum_tiled", "ring", "a2a_grad"])
+                                  for fmt in FMTS] + ["psum_tiled", "ring", "a2a_grad",
+                                                      "a2a_grad_none"])
 def test_quantized_collectives_equal_jax(world, name):
     for r in range(2):
         np.testing.assert_allclose(world["ranks"][r]["q"][name], world["jax"][name][r],

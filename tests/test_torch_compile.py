@@ -39,6 +39,7 @@ from deepspeed_tpu_torch.models.presets import get_preset
 from deepspeed_tpu_torch.ops.kernels import flash_attention as F1
 from deepspeed_tpu_torch.ops.kernels import sparse_attention as K7
 from deepspeed_tpu_torch.ops.sparse_attention import FixedSparsityConfig, block_sparse_attention
+from torch_threads import one_torch_thread  # noqa: F401  (one intra-op thread)
 
 TOL = 1e-6
 BASE = {"train_micro_batch_size_per_gpu": 2, "gradient_accumulation_steps": 2,

@@ -29,6 +29,7 @@ import deepspeed_tpu_torch as tds
 from deepspeed_tpu_torch.compression import compress as tc
 from deepspeed_tpu_torch.models import transformer as tt
 from deepspeed_tpu_torch.models.presets import get_preset
+from torch_threads import one_torch_thread  # noqa: F401  (one intra-op thread)
 
 LOSS_TOL = dict(atol=1e-5, rtol=1e-5)
 GRAD_TOL = dict(atol=1e-5, rtol=1e-3)
@@ -245,7 +246,7 @@ def test_activation_quantization_loss_and_grads_match_jax(variant):
                     activation="gelu", qkv_bias=True)
     jcfg, jp = _pair(over)
     tokens = np.random.default_rng(3).integers(0, 256, (2, 25)).astype(np.int32)
-    jloss, jgrads = jax.value_and_grad(jt.CausalLM(jcfg).loss_fn)(
+    jloss, jgrads = jax.jit(jax.value_and_grad(jt.CausalLM(jcfg).loss_fn))(
         jax.tree_util.tree_map(jnp.asarray, jp), {"input_ids": jnp.asarray(tokens)})
     tcfg = get_preset("tiny", dtype=torch.float32, attn_impl="flash", remat="selective", **over)
     tp = tt.params_from_numpy(jp, tcfg, device="cpu")
@@ -312,7 +313,7 @@ def test_make_kd_loss_fn_step_equals_jax(monkeypatch):
                                   jax.tree_util.tree_map(jnp.asarray, jtp), alpha=0.3,
                                   temperature=2.0)
     tokens = np.random.default_rng(6).integers(0, 256, (2, 17)).astype(np.int32)
-    jl, jg = jax.value_and_grad(jloss_fn)(jsp, {"input_ids": jnp.asarray(tokens)})
+    jl, jg = jax.jit(jax.value_and_grad(jloss_fn))(jsp, {"input_ids": jnp.asarray(tokens)})
     tcfg = get_preset("tiny", dtype=torch.float32, num_layers=4)
     teacher, student = tt.CausalLM(tcfg), tt.CausalLM(tcfg.replace(num_layers=2))
     ttp = _port_params(jtp)

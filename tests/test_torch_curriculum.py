@@ -45,6 +45,7 @@ from deepspeed_tpu_torch.data import indexed_dataset as tid
 from deepspeed_tpu_torch.data.sampler import DeepSpeedDataSampler
 from deepspeed_tpu_torch.models import transformer as tt
 from deepspeed_tpu_torch.models.presets import get_preset
+from torch_threads import one_torch_thread  # noqa: F401  (one intra-op thread)
 
 ENGINE_TOL = dict(atol=1e-5, rtol=1e-5)
 

@@ -29,6 +29,7 @@ from deepspeed_tpu_torch.models.presets import get_preset
 from deepspeed_tpu_torch.ops.kernels.flash_attention import flash_attention
 from deepspeed_tpu_torch.ops.kernels.sparse_attention import block_sparse_flash_attention
 from deepspeed_tpu_torch.runtime.eigenvalue import Eigenvalue, hvp_fn
+from torch_threads import one_torch_thread  # noqa: F401  (one intra-op thread)
 
 
 def _flat(tree, prefix=""):
@@ -80,8 +81,8 @@ def test_hvp_of_tiny_matches_jax_jvp_of_grad(remat):
     loss = jt.CausalLM(jcfg).loss_fn
     batch = {"input_ids": jnp.asarray(tokens)}
     grad_fn = jax.grad(lambda p: loss(p, batch, None))
-    want = jax.jvp(grad_fn, (jax.tree_util.tree_map(jnp.asarray, jp),),
-                   (jax.tree_util.tree_map(jnp.asarray, v),))[1]
+    want = jax.jit(lambda p, t: jax.jvp(grad_fn, (p,), (t,))[1])(
+        jax.tree_util.tree_map(jnp.asarray, jp), jax.tree_util.tree_map(jnp.asarray, v))
     tcfg = get_preset("tiny", dtype=torch.float32, max_seq_len=32, attn_impl="reference",
                       remat=remat)
     tp = tt.params_from_numpy(jp, tcfg, device="cpu")

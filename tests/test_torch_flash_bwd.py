@@ -27,6 +27,7 @@ import torch
 from deepspeed_tpu.ops.pallas import flash_kernel as jflash
 from deepspeed_tpu_torch.ops.attention import dot_product_attention, get_attention_impl
 from deepspeed_tpu_torch.ops.kernels import flash_attention as F1
+from torch_threads import one_torch_thread  # noqa: F401  (one intra-op thread)
 
 ATOL, RTOL = 1e-4, 1e-3
 

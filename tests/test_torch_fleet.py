@@ -37,6 +37,7 @@ from deepspeed_tpu_torch.inference.sampling import SamplingParams
 from deepspeed_tpu_torch.models.presets import get_preset
 from deepspeed_tpu_torch.models.transformer import params_from_numpy
 from deepspeed_tpu_torch.serving import build_router
+from torch_threads import one_torch_thread  # noqa: F401  (one intra-op thread)
 
 
 class _Counter:

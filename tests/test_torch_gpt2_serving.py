@@ -36,6 +36,7 @@ from deepspeed_tpu_torch.models.transformer import forward as t_forward
 from deepspeed_tpu_torch.models.transformer import init_params as t_init
 from deepspeed_tpu_torch.models.transformer import params_from_numpy
 from deepspeed_tpu_torch.ops.kernels.paged_attention import paged_attention_decode
+from torch_threads import one_torch_thread  # noqa: F401  (one intra-op thread)
 
 ATOL = RTOL = 1e-4
 BS, NB = 16, 16

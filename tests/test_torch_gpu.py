@@ -1693,10 +1693,10 @@ def test_one_backward_over_a_model_axis_of_one_is_the_plain_backward_bit_for_bit
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     from deepspeed_tpu_torch.models import transformer as tt
     from deepspeed_tpu_torch.models.presets import get_preset
+    from deepspeed_tpu_torch.parallel.context import ParallelContext
     from deepspeed_tpu_torch.parallel.tensor_parallel import TensorParallel
 
     K.build(["flash_fwd", "flash_bwd_dq"])
-    monkeypatch.setattr(tt, "_model_all_reduce", lambda x, tp, op="sum": x.clone())
     cfg = get_preset("llama3_proxy_410m", num_layers=4)
     model = tt.CausalLM(cfg)
     master = model.init_params(seed=0, device="cuda")
@@ -1711,16 +1711,18 @@ def test_one_backward_over_a_model_axis_of_one_is_the_plain_backward_bit_for_bit
         return {k: bf16(v) if isinstance(v, dict)
                 else v.detach().to(torch.bfloat16).requires_grad_(True) for k, v in tree.items()}
 
-    def run(tp):
-        model.tp = tp
+    def run(par):
+        model.par = par
         params = bf16(master)
         loss = model.loss_fn(params, {"input_ids": ids})
         loss.backward()
         return loss.detach(), {p: leaf.grad for p, leaf in leaves(params)}
 
     plain = [run(None), run(None)]
-    tp = TensorParallel(None, cfg, rank=0, size=1)
-    over = [run(tp), run(tp)]
+    par = ParallelContext(sizes={"model": 1}, coords={"model": 0},
+                          tp=TensorParallel(None, cfg, rank=0, size=1))
+    monkeypatch.setattr(par, "_all_reduce", lambda x, axis, op="sum": x.clone())
+    over = [run(par), run(par)]
     for a, b in ((plain[0], plain[1]), (over[0], over[1]), (plain[0], over[0])):
         assert torch.equal(a[0], b[0])
         differ = [p for p in a[1] if not torch.equal(a[1][p], b[1][p])]
@@ -1759,3 +1761,85 @@ def test_tp_train_and_serve_over_a_model_axis_of_one_on_the_card(tmp_path):
     assert serve["launches"]["paged_decode"] > 0
     print("tp twin", {c: r["losses"] for c, r in tp.items() if "losses" in r},
           {c: r["counts"] for c, r in tp.items()})
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seq", [2, 4])
+def test_flash_kernels_on_a_ulysses_ranks_heads_match_the_plain_body(seq):
+    """Ulysses over ``seq`` ranks in lockstep (``chip_smoke._Collectives``):
+    each rank's heads at the whole sequence through K1f / K1b (4 q / 1 kv
+    heads a rank at 2, the uneven heads' grouped path at 4) against the
+    same ranks through the plain body; output and q / k / v gradients."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from deepspeed_tpu_torch.ops.attention import dot_product_attention
+    from deepspeed_tpu_torch.sequence.layer import DistributedAttention
+
+    K.build(["flash_fwd", "flash_bwd_dq"])
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    b, s, hq, hkv, hd = 1, 2048, 8, 2, 128
+    q, k, v, w = (torch.randn((b, s, h, hd), generator=gen, device="cuda").bfloat16()
+                  for h in (hq, hkv, hkv, hq))
+    n = s // seq
+
+    def ranks(base):
+        lock = chip_smoke._Collectives(torch, seq)
+
+        def rank(r):
+            par = chip_smoke._lockstep_context(torch, lock, "seq", r)
+            ql, kl, vl = (t[:, r * n:(r + 1) * n].clone().requires_grad_(True)
+                          for t in (q, k, v))
+            out = DistributedAttention(base, par)(ql, kl, vl, causal=True)
+            (out.float() * w[:, r * n:(r + 1) * n].float()).sum().backward()
+            return [out.detach(), ql.grad, kl.grad, vl.grad]
+
+        return [torch.cat(parts, 1) for parts in zip(*lock.run(rank))]
+
+    K.reset_launches()
+    got = ranks(flash_attention)
+    assert K.LAUNCHES["flash_fwd"] > 0 and K.LAUNCHES["flash_bwd_dq"] > 0
+    ref = ranks(dot_product_attention)
+    for name, a, r in zip(("out", "dq", "dk", "dv"), got, ref):
+        err = float((a.float() - r.float()).norm() / r.float().norm())
+        assert err < 2e-2, (name, err)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmt", ["int8", "fp8"])
+def test_routed_ffn_ep_dispatch_payload_on_the_card_equals_the_cpus(fmt):
+    """The dispatch hop of ``routed_ffn_ep`` (an ``[E, C, d]`` slab over an
+    expert axis of 2, in lockstep): the payload and scales that K6a / K6c
+    write on the card are the CPU codec's bytes, and K6b's dequantized inbox
+    equals the CPU's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    K.build(["quantize_int8", "quantize_fp8", "dequantize"])
+    gen = torch.Generator().manual_seed(25)
+    xe = torch.randn((8, 96, 512), generator=gen).bfloat16()
+
+    def hop(x):
+        lock = chip_smoke._Collectives(torch, 2)
+        wire = {}
+
+        def rank(r):
+            par = chip_smoke._lockstep_context(torch, lock, "expert", r)
+            real = par._all_to_all
+            wire[r] = []  # a rank's run restarts until every exchange is known
+
+            def record(t, ax, s_, c_):
+                wire[r].append(t.detach().cpu())
+                return real(t, ax, s_, c_)
+
+            par._all_to_all = record
+            return par.q_all_to_all(x, "expert", fmt, 0, 1, x.dtype).cpu()
+
+        return lock.run(rank), wire
+
+    K.reset_launches()
+    card, card_wire = hop(xe.cuda())
+    assert K.LAUNCHES["dequantize"] > 0
+    cpu, cpu_wire = hop(xe)
+    for r in (0, 1):
+        for a, b in zip(card_wire[r], cpu_wire[r]):
+            assert torch.equal(a, b), r
+        assert torch.equal(card[r], cpu[r]), r

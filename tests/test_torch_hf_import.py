@@ -268,16 +268,17 @@ def test_bf16_checkpoint_imports_exactly(tmp_path, name):
 
 def test_mixtral_raises_item_7():
     """Mixtral imports now (``tests/test_torch_moe.py`` holds its tensors
-    against JAX): its config maps as JAX maps it, and what stays item 7 is
-    expert parallelism."""
-    from deepspeed_tpu_torch.moe.layer import routed_ffn_ep
+    against JAX): its config maps as JAX maps it.  Its experts train across
+    ranks (``tests/test_torch_expert.py``); what stays item 7
+    is serving them across an expert axis."""
+    from deepspeed_tpu_torch.parallel.topology import initialize_mesh
 
     for hf in (dict(FAMILIES["llama"], model_type="mixtral", num_local_experts=4,
                     num_experts_per_tok=2),
                dict(FAMILIES["llama"], num_local_experts=2)):
         _same_config(thf.config_from_hf(hf), jhf.config_from_hf(hf))
     with pytest.raises(NotImplementedError, match="item 7"):
-        routed_ffn_ep({}, torch.zeros(1, 2, 4), thf.config_from_hf(hf), mesh=None)
+        initialize_mesh(devices=["cpu"] * 2, expert=2)
 
 
 @pytest.mark.parametrize("preset", ["tiny", "tiny_qwen_like"])

@@ -28,6 +28,7 @@ from deepspeed_tpu_torch.linear import LoRACausalLM, LoRAConfig, lora_params_fro
 from deepspeed_tpu_torch.models import transformer as tt
 from deepspeed_tpu_torch.models.presets import get_preset
 from deepspeed_tpu_torch.runtime.hybrid_engine import DeepSpeedHybridEngine
+from torch_threads import one_torch_thread  # noqa: F401  (one intra-op thread)
 
 CONFIG = {"train_micro_batch_size_per_gpu": 2,
           "optimizer": {"type": "adamw", "params": {"lr": 5e-3}}, "bf16": {"enabled": False},

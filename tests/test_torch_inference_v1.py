@@ -35,6 +35,7 @@ from deepspeed_tpu_torch.inference.sampling import SamplingParams
 from deepspeed_tpu_torch.models import transformer as tt
 from deepspeed_tpu_torch.models.presets import get_preset
 from deepspeed_tpu_torch.parallel.topology import initialize_mesh
+from torch_threads import one_torch_thread  # noqa: F401  (one intra-op thread)
 
 TOL = dict(atol=2e-5, rtol=1e-4)
 V1_PRESETS = ["tiny", "tiny_moe", "tiny_alibi", "tiny_parallel"]

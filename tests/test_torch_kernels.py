@@ -30,6 +30,7 @@ from deepspeed_tpu_torch.ops import kernels as K
 from deepspeed_tpu_torch.ops.kernels.ctx_attention import paged_attention_packed_ctx
 from deepspeed_tpu_torch.ops.kernels.flash_attention import flash_attention
 from deepspeed_tpu_torch.ops.kernels.paged_attention import paged_attention_decode
+from torch_threads import one_torch_thread  # noqa: F401  (one intra-op thread)
 
 ATOL, RTOL = 1e-5, 1e-4
 

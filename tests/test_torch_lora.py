@@ -31,6 +31,7 @@ from deepspeed_tpu_torch.linear import (LoRACausalLM, LoRAConfig, lora_params_fr
                                         optimized_linear)
 from deepspeed_tpu_torch.models import transformer as tt
 from deepspeed_tpu_torch.models.presets import get_preset
+from torch_threads import one_torch_thread  # noqa: F401  (one intra-op thread)
 
 ENGINE_TOL = dict(atol=1e-5, rtol=1e-4)
 FN_TOL = dict(atol=1e-6, rtol=1e-5)

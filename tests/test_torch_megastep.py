@@ -2,6 +2,7 @@
 and the scheduler's megastep (``serve={"decode_megastep": n}``) — against
 per-tick ``step()`` and against the JAX package on the CPU, fp32, weights
 from JAX ``init_params(PRNGKey(0))`` through ``params_from_numpy``.
+from torch_threads import one_torch_thread  # noqa: F401  (one intra-op thread)
 
 On the CPU the burst's tick body runs eagerly n times (on CUDA it is a
 captured graph, replayed: ``tests/test_torch_gpu.py``).  Each test mirrors

@@ -24,8 +24,9 @@ through ``params_from_numpy``.
 - Mixtral HF export byte-identical to JAX's, both importers on both
   files, and ``init_inference(model=dir)`` serving JAX's tokens;
 - a MoE save / resume that is bit-exact;
-- the ``moe`` config section parsed as JAX parses it; the expert axis
-  (``mesh.expert``) and ``routed_ffn_ep`` refused naming item 7.
+- the ``moe`` config section parsed as JAX parses it; pipeline stages
+  beside the expert axis refused naming item 7 (the expert axis itself
+  runs across ranks, ``tests/test_torch_expert.py``).
 """
 import dataclasses
 import filecmp
@@ -60,6 +61,7 @@ from deepspeed_tpu_torch.inference.sampling import SamplingParams
 from deepspeed_tpu_torch.models import transformer as tt
 from deepspeed_tpu_torch.models.presets import get_preset
 from deepspeed_tpu_torch.moe import MoE, layer as tlayer, sharded_moe as tgate
+from torch_threads import one_torch_thread  # noqa: F401  (one intra-op thread)
 
 FN_TOL = dict(atol=1e-6, rtol=1e-5)
 LOSS_TOL = dict(atol=1e-5, rtol=1e-5)
@@ -189,7 +191,7 @@ def test_moe_block_value_and_grads_match_jax(cf):
         out, aux = jlayer.moe_block(lw, x, jcfg)
         return jnp.sum(jnp.sin(out)) + 3.0 * aux
 
-    (jv, (jg_lw, jg_x)) = jax.value_and_grad(jloss, argnums=(0, 1))(
+    (jv, (jg_lw, jg_x)) = jax.jit(jax.value_and_grad(jloss, argnums=(0, 1)))(
         jax.tree_util.tree_map(jnp.asarray, lw), jnp.asarray(x))
     tlw = {k: torch.from_numpy(v).requires_grad_(True) for k, v in lw.items()}
     tx = torch.from_numpy(x).requires_grad_(True)
@@ -262,12 +264,21 @@ def test_router_product_is_true_fp32(monkeypatch):
 # ---------------------------------------------------------------------------
 # (c) the model and the engine
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("remat", ["none", "full", "selective", "dots", "offload"])
-def test_tiny_moe_loss_and_grads_match_jax(tiny_moe, remat):
-    jcfg, jp, tcfg = tiny_moe
+@pytest.fixture(scope="module")
+def tiny_moe_jax_grads(tiny_moe):
+    """JAX's loss and gradients on ``tiny_moe`` (jitted), once for every
+    remat case of the port."""
+    jcfg, jp, _ = tiny_moe
     tokens = np.random.default_rng(3).integers(0, 256, (2, 25)).astype(np.int32)
-    jloss, jgrads = jax.value_and_grad(jt.CausalLM(jcfg).loss_fn)(
+    jloss, jgrads = jax.jit(jax.value_and_grad(jt.CausalLM(jcfg).loss_fn))(
         jax.tree_util.tree_map(jnp.asarray, jp), {"input_ids": jnp.asarray(tokens)})
+    return tokens, jloss, jgrads
+
+
+@pytest.mark.parametrize("remat", ["none", "full", "selective", "dots", "offload"])
+def test_tiny_moe_loss_and_grads_match_jax(tiny_moe, tiny_moe_jax_grads, remat):
+    jcfg, jp, tcfg = tiny_moe
+    tokens, jloss, jgrads = tiny_moe_jax_grads
     tp = tt.params_from_numpy(jp, tcfg, device="cpu")
     for leaf in _flat(tp).values():
         leaf.requires_grad_(True)
@@ -545,9 +556,15 @@ def test_moe_config_section_parses_as_jax(raw):
 
 
 def test_expert_parallelism_is_refused_naming_item_7(tiny_moe):
+    """The expert axis runs across ranks
+    (tests/test_torch_expert.py); pipeline stages beside it stay refused.
+    Without an expert axis of 2 or more ``routed_ffn_ep`` is ``moe_block``,
+    as JAX's is."""
     with pytest.raises(NotImplementedError, match=r"config key 'mesh' .*queue 1 item 7\)"):
-        parse_config({"moe": {"enabled": True}, "mesh": {"expert": 2}})
+        parse_config({"moe": {"enabled": True}, "mesh": {"expert": 2, "stage": 2}})
     jcfg, jp, tcfg = tiny_moe
     lw = {k: torch.from_numpy(np.array(v[0])) for k, v in jp["layers"]["moe"].items()}
-    with pytest.raises(NotImplementedError, match=r"routed_ffn_ep .*item 7"):
-        tlayer.routed_ffn_ep(lw, torch.zeros(1, 4, 64), tcfg, mesh=None, fmt="int8")
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal((1, 4, 64)).astype(np.float32))
+    out, aux = tlayer.routed_ffn_ep(lw, x, tcfg, None, fmt="int8")
+    ref, ref_aux = tlayer.moe_block(lw, x, tcfg)
+    assert torch.equal(out, ref) and torch.equal(aux, ref_aux)

@@ -28,6 +28,7 @@ from deepspeed_tpu_torch.config.config import parse_config
 from deepspeed_tpu_torch.models import transformer as tt
 from deepspeed_tpu_torch.models.presets import get_preset
 from deepspeed_tpu_torch.runtime import progressive_layer_drop as tpld
+from torch_threads import one_torch_thread  # noqa: F401  (one intra-op thread)
 
 LOSS_TOL = dict(atol=1e-5, rtol=1e-5)
 GRAD_TOL = dict(atol=1e-5, rtol=1e-3)
@@ -68,7 +69,7 @@ def test_loss_and_grads_under_jaxs_mask_match(remat):
     rng = next(jax.random.PRNGKey(s) for s in range(100)
                if 0 < _jax_mask(jax.random.PRNGKey(s), theta)[1:].sum() < LAYERS - 1)
     mask = _jax_mask(rng, theta)
-    jloss, jgrads = jax.value_and_grad(jt.CausalLM(jcfg).loss_fn)(
+    jloss, jgrads = jax.jit(jax.value_and_grad(jt.CausalLM(jcfg).loss_fn))(
         jax.tree_util.tree_map(jnp.asarray, jp),
         {"input_ids": jnp.asarray(tokens), "pld_theta": jnp.float32(theta)}, rng)
     tcfg = get_preset("tiny", dtype=torch.float32, num_layers=LAYERS, attn_impl="flash",

@@ -35,6 +35,7 @@ from deepspeed_tpu_torch.inference.engine_v2 import InferenceEngineV2
 from deepspeed_tpu_torch.inference.sampling import SamplingParams
 from deepspeed_tpu_torch.models import presets
 from deepspeed_tpu_torch.models import transformer as tt
+from torch_threads import one_torch_thread  # noqa: F401  (one intra-op thread)
 
 LOSS_TOL = dict(atol=1e-5, rtol=1e-5)
 GRAD_TOL = dict(atol=1e-5, rtol=1e-3)
@@ -115,8 +116,10 @@ def test_preset_cut_to_two_layers_trains_like_jax(name):
     tokens = np.random.default_rng(3).integers(0, tcfg.vocab_size, (2, 25)).astype(np.int32)
     jtok = jnp.asarray(tokens)
     jparams = jax.tree_util.tree_map(jnp.asarray, jp)
-    jlogits = jt.forward(jparams, jtok[:, :-1], jcfg.replace(attn_impl="reference"))[0]
-    jloss, jgrads = jax.value_and_grad(jt.CausalLM(jcfg.replace(attn_impl="reference")).loss_fn)(
+    ref_cfg = jcfg.replace(attn_impl="reference")
+    # jitted: one compile each, not an op-by-op dispatch of the whole model
+    jlogits = jax.jit(lambda p, t: jt.forward(p, t, ref_cfg)[0])(jparams, jtok[:, :-1])
+    jloss, jgrads = jax.jit(jax.value_and_grad(jt.CausalLM(ref_cfg).loss_fn))(
         jparams, {"input_ids": jtok})
     port_attn = "reference" if tcfg.position == "alibi" else "flash"
     tcfg = tcfg.replace(attn_impl=port_attn)

@@ -31,6 +31,7 @@ from deepspeed_tpu_torch.ops import kernels as K
 from deepspeed_tpu_torch.ops.kernels.flash_attention import attention_pairs
 from deepspeed_tpu_torch.ops.kernels.sparse_attention import _active_pairs, sparse_plan
 from deepspeed_tpu_torch.profiling import flops_profiler as tfp
+from torch_threads import one_torch_thread  # noqa: F401  (one intra-op thread)
 
 
 def _nodes(node, depth=0):

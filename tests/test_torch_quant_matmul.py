@@ -26,6 +26,7 @@ from deepspeed_tpu_torch.models.transformer import _payload
 from deepspeed_tpu_torch.ops import kernels as K
 from deepspeed_tpu_torch.ops import quantizer as TQ
 from deepspeed_tpu_torch.ops.kernels import quant_matmul as tqm
+from torch_threads import one_torch_thread  # noqa: F401  (one intra-op thread)
 
 SHAPES = [(256, 384), (512, 256), (1024, 256)]
 F32_TOL = 1e-5

@@ -35,6 +35,7 @@ from deepspeed_tpu_torch.inference.sampling import SamplingParams
 from deepspeed_tpu_torch.models.presets import get_preset
 from deepspeed_tpu_torch.models.transformer import CausalLM, _payload, params_from_numpy
 from deepspeed_tpu_torch.ops import quantizer as TQ
+from torch_threads import one_torch_thread  # noqa: F401  (one intra-op thread)
 
 FMTS = ("int8", "fp8", "fp6")
 J_QUANT = jax.jit(JQ.quantize_serving_weight, static_argnums=1)

@@ -12,6 +12,7 @@ import torch
 from deepspeed_tpu.data import random_ltd as jr
 
 from deepspeed_tpu_torch.data import random_ltd as tr
+from torch_threads import one_torch_thread  # noqa: F401  (one intra-op thread)
 
 
 @pytest.mark.parametrize("start,seq,total,gran", [(32, 128, 100, 16), (40, 100, 7, 16),

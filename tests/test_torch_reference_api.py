@@ -39,6 +39,7 @@ from deepspeed_tpu_torch.inference.sampling import SamplingParams, sample, top_p
 from deepspeed_tpu_torch.models import transformer as tt
 from deepspeed_tpu_torch.models.presets import get_preset
 from deepspeed_tpu_torch.runtime import lr_schedules as tlr
+from torch_threads import one_torch_thread  # noqa: F401  (one intra-op thread)
 
 ENGINE_TOL = dict(atol=1e-5, rtol=1e-4)
 LOSS_TOL = dict(atol=1e-5, rtol=1e-5)
@@ -117,13 +118,14 @@ def test_runner_refuses_alibi_and_parallel_block_as_jax_v2_does(over, jax_says, 
 
 
 def test_runner_refuses_moe_as_a_port_gap():
-    """MoE serves on one card now (the runner routes its experts dropless);
-    what stays a port gap is expert parallelism, refused naming item 7."""
+    """MoE serves on one card now (the runner routes its experts dropless)
+    and trains across ranks; what stays a port gap is serving
+    it over an expert axis, refused naming item 7."""
     model_runner._check_family(get_preset("tiny", dtype=torch.float32, moe_num_experts=4))
-    from deepspeed_tpu_torch.moe.layer import routed_ffn_ep
+    from deepspeed_tpu_torch.parallel.topology import initialize_mesh
 
-    with pytest.raises(NotImplementedError, match=r"routed_ffn_ep .*not ported .*item 7"):
-        routed_ffn_ep({}, torch.zeros(1, 2, 4), get_preset("tiny_moe"), mesh=None)
+    with pytest.raises(NotImplementedError, match=r"not ported .*item 7"):
+        initialize_mesh(devices=["cpu"] * 2, expert=2)
 
 
 # ---------------------------------------------------------------------------

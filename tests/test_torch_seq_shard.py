@@ -50,6 +50,7 @@ from deepspeed_tpu_torch.ops.kernels import flash_attention as K1
 from deepspeed_tpu_torch.ops.kernels import paged_attention as K2
 from deepspeed_tpu_torch.ops.kernels import sparse_attention as K7
 from deepspeed_tpu_torch.parallel.topology import Grid, MeshSpec, initialize_mesh
+from torch_threads import one_torch_thread  # noqa: F401  (one intra-op thread)
 
 ATOL = 1e-5
 

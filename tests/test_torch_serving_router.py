@@ -48,6 +48,7 @@ from deepspeed_tpu_torch.models.presets import get_preset
 from deepspeed_tpu_torch.models.transformer import params_from_numpy
 from deepspeed_tpu_torch.ops.kernels import KernelError
 from deepspeed_tpu_torch.serving import build_router, extract_request
+from torch_threads import one_torch_thread  # noqa: F401  (one intra-op thread)
 
 SEC = dict(max_seqs=4, num_blocks=96, block_size=8, prefill_buckets=[16, 32, 64, 128],
            max_seq_len=256, enable_prefix_caching=True)

@@ -41,6 +41,7 @@ from deepspeed_tpu_torch.models import transformer as tt
 from deepspeed_tpu_torch.models.presets import get_preset
 from deepspeed_tpu_torch.ops import sparse_attention as tsa
 from deepspeed_tpu_torch.ops.kernels import sparse_attention as K7
+from torch_threads import one_torch_thread  # noqa: F401  (one intra-op thread)
 
 FWD_TOL = dict(atol=2e-5, rtol=0)
 GRAD_TOL = dict(atol=5e-4, rtol=1e-3)

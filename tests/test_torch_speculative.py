@@ -37,6 +37,7 @@ from deepspeed_tpu_torch.inference.sampling import (
 from deepspeed_tpu_torch.inference.speculative import propose
 from deepspeed_tpu_torch.models.presets import get_preset
 from deepspeed_tpu_torch.models.transformer import params_from_numpy
+from torch_threads import one_torch_thread  # noqa: F401  (one intra-op thread)
 
 # the JAX oracles under jit, as its engine calls them (one compile each,
 # not one per eager op)

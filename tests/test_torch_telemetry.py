@@ -39,6 +39,7 @@ from deepspeed_tpu_torch.inference.engine_v2 import InferenceEngineV2
 from deepspeed_tpu_torch.inference.sampling import SamplingParams
 from deepspeed_tpu_torch.models.presets import get_preset
 from deepspeed_tpu_torch.models.transformer import params_from_numpy
+from torch_threads import one_torch_thread  # noqa: F401  (one intra-op thread)
 
 ENGINE_KW = dict(max_seqs=4, num_blocks=64, block_size=8, prefill_buckets=(16, 32, 64),
                  enable_prefix_caching=True, prefill_chunk=16)

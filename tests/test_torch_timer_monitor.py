@@ -45,6 +45,7 @@ from deepspeed_tpu_torch.models.presets import get_preset
 from deepspeed_tpu_torch.monitor import monitor as tmon
 from deepspeed_tpu_torch.utils import memory as tmem
 from deepspeed_tpu_torch.utils import timer as ttimer
+from torch_threads import one_torch_thread  # noqa: F401  (one intra-op thread)
 
 ENGINE_TOL = dict(atol=1e-5, rtol=1e-5)
 

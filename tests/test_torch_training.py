@@ -65,6 +65,7 @@ from deepspeed_tpu_torch.runtime import precision as tprec
 from deepspeed_tpu_torch.runtime.engine import StepMetrics
 from deepspeed_tpu_torch.runtime.prefetch import HOST_READS
 from deepspeed_tpu_torch.sequence.cross_entropy import chunked_cross_entropy
+from torch_threads import one_torch_thread  # noqa: F401  (one intra-op thread)
 
 LOSS_TOL = dict(atol=1e-5, rtol=1e-5)
 GRAD_TOL = dict(atol=1e-5, rtol=1e-3)
@@ -119,7 +120,8 @@ def _loss_and_grads_match(name, over, tokens, segment_ids=None, port_over=None):
     batch = {"input_ids": tokens}
     if segment_ids is not None:
         batch["segment_ids"] = segment_ids
-    jloss, jgrads = jax.value_and_grad(jt.CausalLM(jcfg).loss_fn)(
+    # jitted: one compile, not an op-by-op dispatch of the whole model
+    jloss, jgrads = jax.jit(jax.value_and_grad(jt.CausalLM(jcfg).loss_fn))(
         jax.tree_util.tree_map(jnp.asarray, jp), jax.tree_util.tree_map(jnp.asarray, batch))
     tcfg = get_preset(name, dtype=torch.float32, **{**over, **(port_over or {})})
     tp = _torch_params(jp, tcfg)
@@ -179,13 +181,14 @@ def test_alibi_bias_matches_jax():
 
 
 # MoE layers run (tests/test_torch_moe.py); the ids are the names these
-# cases have had since the list began
+# cases have had since the list began.  Ulysses and ring run now
+# (test_ported_model_options_run; tests/test_torch_sequence.py across
+# ranks); what stays refused, as in JAX, is their composition with ALiBi
 @pytest.mark.parametrize("over,match", [
-    pytest.param(dict(sequence_parallel="ulysses"), "sequence_parallel",
+    pytest.param(dict(sequence_parallel="ulysses", position="alibi"), "sequence_parallel",
                  id="over1-sequence_parallel"),
-    # domino_chunks runs since slice 23 (test_ported_model_options_run);
-    # ring sequence parallelism stays refused
-    pytest.param(dict(sequence_parallel="ring"), "sequence_parallel",
+    # domino_chunks runs (test_ported_model_options_run)
+    pytest.param(dict(sequence_parallel="ring", position="alibi"), "sequence_parallel",
                  id="over2-sequence_parallel_ring"),
     # block-sparse attention is ported; what stays refused, as in JAX, is
     # its composition with ALiBi (the sparse bodies take no bias)
@@ -200,12 +203,18 @@ def test_unported_model_options_are_refused(over, match):
 # act_quant_bits runs now (tests/test_torch_compression.py holds
 # its loss and gradients against JAX); the case refused it before
 @pytest.mark.parametrize("over", [pytest.param(dict(act_quant_bits=8), id="act_quant_bits"),
-                                  pytest.param(dict(domino_chunks=2), id="domino_chunks")])
+                                  pytest.param(dict(domino_chunks=2), id="domino_chunks"),
+                                  pytest.param(dict(sequence_parallel="ulysses"), id="ulysses"),
+                                  pytest.param(dict(sequence_parallel="ring"), id="ring")])
 def test_ported_model_options_run(over):
     cfg = get_preset("tiny", dtype=torch.float32, **over)
     tokens = torch.from_numpy(_tokens(2, 17, 256))
     loss = tt.CausalLM(cfg).loss_fn(tt.init_params(cfg, device="cpu"), {"input_ids": tokens})
     assert np.isfinite(loss.item())
+    if "sequence_parallel" in over:  # one process: the base body (JAX without a mesh)
+        whole = tt.CausalLM(cfg.replace(sequence_parallel="none")).loss_fn(
+            tt.init_params(cfg, device="cpu"), {"input_ids": tokens})
+        np.testing.assert_allclose(loss.item(), whole.item(), rtol=1e-6)
     if "domino_chunks" in over:  # the value of one chunk (test_torch_tp.py holds it to JAX)
         whole = tt.CausalLM(cfg.replace(domino_chunks=1)).loss_fn(
             tt.init_params(cfg, device="cpu"), {"input_ids": tokens})
@@ -692,9 +701,10 @@ def test_parse_config_batch_triangulation_matches_jax():
 @pytest.mark.parametrize("raw,key", [
     # offload_optimizer runs since slice 18 (tests/test_torch_offload.py),
     # the ZeRO++ keys since slice 22 (test_keys_on_that_run_parse_as_jax),
-    # the tensor-parallel section and the model axis since slice 23; what
-    # stays refused is the mesh axes beyond data / fsdp / sub / model
-    ({"tensor_parallel": {"enabled": True, "tp_size": 2}, "mesh": {"model": 2, "seq": 2}},
+    # the tensor-parallel section and the model, seq and expert axes run
+    # now; what stays refused is the stage
+    # axis (pipeline parallelism)
+    ({"tensor_parallel": {"enabled": True, "tp_size": 2}, "mesh": {"model": 2, "stage": 2}},
      "mesh"),
     ({"mesh": {"fsdp": 2, "stage": 2}}, "mesh"),
     # progressive_layer_drop and curriculum_learning run since slice 19
@@ -755,15 +765,16 @@ ON_CONFIGS = [
     # the model axis and the tensor_parallel section run since slice 23
     # (ON_NOW_CONFIGS); pipeline stages beside them stay refused
     ({"mesh": {"model": 2, "stage": 2}}, "mesh", 7),
-    # the moe section is parsed (tests/test_torch_moe.py); an expert axis
-    # stays refused with it
-    ({"moe": {"enabled": True}, "mesh": {"expert": 2}}, "mesh", 7),
-    ({"tensor_parallel": {"enabled": True, "tp_size": 2}, "mesh": {"model": 2, "expert": 2}},
-     "mesh", 7),
+    # the moe section is parsed (tests/test_torch_moe.py); the expert and
+    # seq axes run now (ON_NOW_CONFIGS), pipeline stages beside
+    # them stay refused
+    ({"moe": {"enabled": True}, "mesh": {"expert": 2, "stage": 2}}, "mesh", 7),
+    ({"tensor_parallel": {"enabled": True, "tp_size": 2},
+      "mesh": {"model": 2, "expert": 2, "stage": 2}}, "mesh", 7),
     # elasticity and compile run since slice 21, the comms logger and the
     # ZeRO++ keys since slice 22 (ON_NOW_CONFIGS); aio and offload_param
     # parse since slice 18 (tests/test_torch_offload.py)
-    ({"mesh": {"data": 2, "seq": 2}}, "mesh", 7),
+    ({"mesh": {"data": 2, "seq": 2, "stage": 2}}, "mesh", 7),
 ]
 
 
@@ -802,6 +813,9 @@ ON_NOW_CONFIGS = [
     ({"comms_logger": {"enabled": True}}, "comms_logger"),
     ({"mesh": {"data": 2, "fsdp": 2}}, "mesh"),
     ({"mesh": {"model": 2}}, "mesh"),
+    ({"mesh": {"data": 2, "seq": 2}}, "mesh"),
+    ({"moe": {"enabled": True}, "mesh": {"expert": 2}}, "mesh"),
+    ({"mesh": {"model": 2, "expert": 2}}, "mesh"),
     ({"tensor_parallel": {"enabled": True, "tp_size": 2}}, "tensor_parallel"),
     ({"tensor_parallel": {"domino_chunks": 2}}, "tensor_parallel"),
     ({"zero_optimization": {"mics_shard_size": 2}}, "zero_optimization.mics_shard_size"),

@@ -42,6 +42,7 @@ from deepspeed_tpu_torch.models import transformer as tt
 from deepspeed_tpu_torch.models.presets import get_preset
 from deepspeed_tpu_torch.parallel.topology import MeshSpec
 from deepspeed_tpu_torch.runtime import zero as tzero
+from torch_threads import one_torch_thread  # noqa: F401  (one intra-op thread)
 
 TOL = dict(atol=1e-5, rtol=1e-4)
 PARAM_TOL = dict(atol=5e-5, rtol=1e-4)

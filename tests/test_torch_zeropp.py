@@ -3,6 +3,7 @@ the JAX engine on 4 of the forced CPU devices, fp32 on ``tiny`` with
 JAX's ``init_params(PRNGKey(0))``: ``data`` x ``fsdp`` (2 x 2) at stages 1
 and 3, hpZ and MiCS (``fsdp`` 2 x ``sub`` 2, factored by ``initialize``
 from the ZeRO keys as JAX factors them), and qwZ + qgZ with and without
+from torch_threads import one_torch_thread  # noqa: F401  (one intra-op thread)
 LoCo over ``fsdp`` 4.  One spawned world runs every case; the comms
 logger's counts must equal the plan's prediction.
 

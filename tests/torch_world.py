@@ -116,11 +116,12 @@ def _model(preset, dtype="float32", **over):
     return tt.CausalLM(get_preset(preset, dtype=getattr(torch, dtype), **over))
 
 
-def _engine(config, params_npz, preset="tiny", remat="selective", attn_impl="flash"):
+def _engine(config, params_npz, preset="tiny", remat="selective", attn_impl="flash",
+            over=None):
     import deepspeed_tpu_torch as tds
     from deepspeed_tpu_torch.models import transformer as tt
 
-    model = _model(preset, remat=remat, attn_impl=attn_impl)
+    model = _model(preset, remat=remat, attn_impl=attn_impl, **(over or {}))
     params = tt.params_from_numpy(load_tree(params_npz), model.cfg, device="cpu")
     engine, *_ = tds.initialize(model=model, params=params, config=config, device="cpu")
     return engine
@@ -134,31 +135,45 @@ def _batches(npz):
 
 
 def case_train(rank, world, out_dir, config, params, batches, preset="tiny",
-               remat="selective", save_params=True, ckpt=None, ckpt_after=None):
+               remat="selective", save_params=True, ckpt=None, ckpt_after=None, over=None,
+               load=None, moments_at=()):
     """Train on every batch; losses, norms, the comms logger's counts beside
     the plan's prediction, resident parameter bytes, the final masters
     (whole leaves) and, with ``ckpt``, a checkpoint after ``ckpt_after``
-    steps."""
+    steps.  ``over`` overrides fields of the preset; ``load`` is a
+    checkpoint to resume from first (then the batches after its step);
+    ``moments_at`` the steps after which Adam's moments are kept (whole
+    leaves, ``{step: {"mu": ..., "nu": ...}}``)."""
     from deepspeed_tpu_torch.comm import comm
     from deepspeed_tpu_torch.runtime.zero import predicted_comm_counts
 
-    engine = _engine(config, params, preset=preset, remat=remat)
+    engine = _engine(config, params, preset=preset, remat=remat, over=over)
+    steps = _batches(batches)
+    if load is not None:  # resumed: the batches after the checkpoint's step
+        engine.load_checkpoint(load)
+        steps = steps[engine.global_steps:]
     logger = comm.get_comms_logger(engine.grid)
     if logger is not None:
         logger.reset()
-    steps = _batches(batches)
     predicted = predicted_comm_counts(engine, len(steps))
-    losses, norms = [], []
+    losses, norms, moments = [], [], {}
     for i, b in enumerate(steps):
         losses.append(float(engine.train_batch(b)))
         norms.append(engine.get_global_grad_norm())
+        if i + 1 in moments_at:  # a collective: every rank gathers
+            state = engine.logical_opt_state()
+            moments[i + 1] = {m: {k: v.detach().numpy().copy()
+                                  for k, v in _flat(state[m]).items()} for m in ("mu", "nu")}
         if ckpt is not None and i + 1 == ckpt_after:
             engine.save_checkpoint(ckpt)
             if logger is not None:  # the save's gathers are not the steps'
                 predicted = {k: predicted.get(k, 0) + v for k, v in logger.counts().items()}
     out = {"losses": losses, "norms": norms, "counts": logger.counts() if logger else {},
            "predicted": predicted, "skipped": engine.skipped_steps,
-           "loss_scale": engine.loss_scale, "dp": engine.dp_world_size}
+           "loss_scale": engine.loss_scale, "dp": engine.dp_world_size,
+           "steps": engine.global_steps}
+    if moments and rank == 0:
+        out["moments"] = moments
     zs = engine._zero
     if zs is not None:
         out["resident"] = zs.resident_param_bytes()
@@ -276,6 +291,10 @@ def fn_qcomm(rank, world, inputs):
     xb = x["b"].clone().requires_grad_(True)
     (qcomm.q_all_to_all(xb, "data", "int8") * x["a2a_w"]).sum().backward()
     out["a2a_grad"] = xb.grad
+    # the exact wire's gradient: the reverse all-to-all
+    xb = x["b"].clone().requires_grad_(True)
+    (qcomm.q_all_to_all(xb, "data", "none") * x["a2a_w"]).sum().backward()
+    out["a2a_grad_none"] = xb.grad
     mean, werr, serr = compressed.compressed_allreduce(
         x["m"], x["we"], x["se"], "data")
     out.update(c_mean=mean, c_werr=werr, c_serr=serr)
@@ -428,8 +447,9 @@ def fn_tp_resume(rank, world, params, batches, ckpt, config):
 
 
 def fn_tp_refusals(rank, world):
-    """What stays refused under a model axis: MoE layers, a sparse layout,
-    the 1-bit optimizers, a raw loss function."""
+    """What stays refused under a model axis: a sparse layout, the 1-bit
+    optimizers, Lamb, a raw loss function (MoE layers, refused here once,
+    now train: ``moe`` reads ``trained``)."""
     import deepspeed_tpu_torch as tds
 
     base = {"train_micro_batch_size_per_gpu": 1, "bf16": {"enabled": False},
@@ -544,4 +564,197 @@ def fn_tp_serve_refusals(rank, world):
     except NotImplementedError as e:
         out["step_n"] = str(e)
     eng.close()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# sequence and expert parallelism (tests/test_torch_sequence.py,
+# tests/test_torch_expert.py)
+# ---------------------------------------------------------------------------
+def _context(mesh, cfg=None, ep=False):
+    from deepspeed_tpu_torch.parallel.context import ParallelContext
+    from deepspeed_tpu_torch.parallel.expert_parallel import ExpertParallel
+
+    grid = _grid(mesh)
+    return ParallelContext(grid, ep=ExpertParallel(grid, cfg) if ep else None)
+
+
+def _grads_np(**named):
+    return {k: v.detach().float().numpy().copy() for k, v in named.items()}
+
+
+def fn_seq_attn(rank, world, inputs, mesh, body, sparse=None, cap=None, segments=False):
+    """One attention body over the seq axis on this rank's positions of the
+    global q / k / v in ``inputs`` (``body``: ``ulysses`` over the plain
+    body, or with ``sparse`` over the block-sparse one, or ``ring``): its
+    output slice and the gradients of ``sum(out * w)`` for its slices."""
+    import functools
+
+    from deepspeed_tpu_torch.ops.attention import dot_product_attention
+    from deepspeed_tpu_torch.ops.sparse_attention import (FixedSparsityConfig,
+                                                          block_sparse_attention)
+    from deepspeed_tpu_torch.sequence.layer import DistributedAttention
+    from deepspeed_tpu_torch.sequence.ring import ring_attention
+
+    par = _context(mesh)
+    with np.load(inputs) as z:
+        x = {k: torch.from_numpy(z[k]) for k in z.files}
+    s = x["q"].shape[1]
+    n = s // par.seq
+    sl = slice(par.seq_rank * n, (par.seq_rank + 1) * n)
+    q, k, v = (x[t][:, sl].clone().requires_grad_(True) for t in ("q", "k", "v"))
+    kw = {"causal": True}
+    if cap is not None:
+        kw["logits_soft_cap"] = cap
+    if segments:
+        kw["segment_ids"] = x["seg"]
+    if body == "ring":
+        out = ring_attention(q, k, v, par=par, **kw)
+    else:
+        base = dot_product_attention if sparse is None else functools.partial(
+            block_sparse_attention, config=FixedSparsityConfig(**sparse))
+        out = DistributedAttention(base, par)(q, k, v, **kw)
+    (out.float() * x["w"][:, sl]).sum().backward()
+    return _grads_np(out=out, dq=q.grad, dk=k.grad, dv=v.grad)
+
+
+def fn_moe_layer(rank, world, inputs, mesh, layer, fmt="none", cf=8.0):
+    """One routed layer across ranks on the global ``x`` of ``inputs``
+    (this rank's rows along the batch axes): ``layer`` ``block`` (``moe_block_grid``:
+    the global gate, this rank's experts with an expert axis) or ``ep``
+    (``routed_ffn_ep`` in ``fmt``).  Returns the output rows, the aux loss,
+    the gradients of ``sum(out * w) + aux`` (the input's rows, the router's,
+    the rank's experts'), and with ``block`` the gate's decisions for this
+    rank's tokens."""
+    from deepspeed_tpu_torch.models.presets import get_preset
+    from deepspeed_tpu_torch.moe import layer as L
+    from deepspeed_tpu_torch.moe.sharded_moe import _gating
+
+    with np.load(inputs) as z:
+        x = {k: torch.from_numpy(z[k]) for k in z.files}
+    e = x["w_gate"].shape[0]
+    cfg = get_preset("tiny_moe", dtype=torch.float32, moe_num_experts=e,
+                     moe_capacity_factor=cf, hidden_size=x["x"].shape[-1],
+                     intermediate_size=x["w_gate"].shape[-1])
+    par = _context(mesh, cfg, ep="expert" in mesh)
+    b = x["x"].shape[0] // (par.axis_size(par.batch_axes) if par.batch_axes else 1)
+    r = par.axis_rank(par.batch_axes) if par.batch_axes else 0
+    rows = slice(r * b, (r + 1) * b)
+    e0, el = (par.ep.e0, par.ep.local) if par.ep is not None else (0, e)
+    lw = {"router": x["router"].clone().requires_grad_(True)}
+    for name in ("w_gate", "w_up", "w_down"):
+        lw[name] = x[name][e0:e0 + el].clone().requires_grad_(True)
+    xr = x["x"][rows].clone().requires_grad_(True)
+    if layer == "ep":
+        out, aux = L.routed_ffn_ep(lw, xr, cfg, par, fmt=fmt)
+    else:
+        out, aux = L.moe_block(lw, xr, cfg, par)
+    # the aux loss weighted by the rank's share of the batch: the ranks'
+    # losses sum to JAX's ``sum(out * w) + aux``
+    dp = par.axis_size(par.batch_axes) if par.batch_axes else 1
+    ((out * x["w"][rows]).sum() + aux / dp).backward()
+    res = _grads_np(out=out, aux=aux, dx=xr.grad, **{f"d_{k}": v.grad for k, v in lw.items()})
+    if layer == "block":
+        with torch.no_grad():
+            logits = L.gather_tokens(par, L.router_logits(xr.reshape(-1, xr.shape[-1]),
+                                                           lw["router"]).reshape(b, -1, e))
+            gate = _gating(logits, cfg.moe_top_k, cf, 4, True, None)
+            mine = L.own_tokens(par, b, xr.shape[1], xr.device)
+            res.update(expert=gate.expert[mine].numpy(), position=gate.position[mine].numpy(),
+                       keep=gate.keep[mine].numpy(), counts=gate.expert_counts.numpy(),
+                       capacity=gate.capacity)
+    return res
+
+
+def fn_seq_refusals(rank, world):
+    """What a seq / expert axis refuses: a length the axis does not divide,
+    a block-sparse layout under ring (JAX's ConfigError), ALiBi (under
+    ulysses, and under ``none`` over the axis), a raw loss
+    function, the 1-bit optimizers, and the routed region beside seq."""
+    import deepspeed_tpu_torch as tds
+
+    base = {"train_micro_batch_size_per_gpu": 1, "bf16": {"enabled": False},
+            "mesh": {"seq": world}}
+    out = {}
+
+    def attempt(name, fn):
+        try:
+            fn()
+            out[name] = "ran"
+        except Exception as e:  # the refusal's type and text
+            out[name] = f"{type(e).__name__}: {e}"
+
+    def length():
+        engine, *_ = tds.initialize(model=_model("tiny", sequence_parallel="ulysses"),
+                                    config=base, device="cpu")
+        engine.train_batch({"input_ids": torch.zeros(1, 1, 16, dtype=torch.long)})
+
+    attempt("length", length)
+    attempt("sparse_ring", lambda: tds.initialize(
+        model=_model("tiny", sequence_parallel="ring"),
+        config=dict(base, sparse_attention={"mode": "fixed", "block": 16}), device="cpu"))
+
+    def alibi():
+        engine, *_ = tds.initialize(
+            model=_model("tiny", position="alibi", sequence_parallel="ulysses"), config=base,
+            device="cpu")
+        engine.train_batch({"input_ids": torch.zeros(1, 1, 17, dtype=torch.long)})
+
+    attempt("alibi", alibi)
+
+    def alibi_none():
+        engine, *_ = tds.initialize(
+            model=_model("tiny", position="alibi", attn_impl="reference"), config=base,
+            device="cpu")
+        engine.train_batch({"input_ids": torch.zeros(1, 1, 17, dtype=torch.long)})
+
+    attempt("alibi_none", alibi_none)
+    model = _model("tiny", sequence_parallel="ulysses")
+    attempt("loss_fn", lambda: tds.initialize(
+        model=model, loss_fn=lambda p, b, r: model.loss_fn(p, b, r), config=base,
+        device="cpu"))
+    attempt("onebit", lambda: tds.initialize(
+        model=_model("tiny", sequence_parallel="ring"),
+        config=dict(base, optimizer={"type": "onebitadam"}), device="cpu"))
+    if world == 4:
+        attempt("ep_seq", lambda: tds.initialize(
+            model=_model("tiny_moe", moe_qcomm="int8"),
+            config=dict(base, mesh={"seq": 2, "expert": 2}), device="cpu"))
+    return out
+
+
+def fn_expert_refusals(rank, world):
+    """What an expert or model axis refuses for MoE, naming item 7: MoE
+    served over a model axis (v2 and v1 engines), Lamb over the expert
+    axis's shards, and (at 4 ranks) the routed region beside a model
+    axis."""
+    import deepspeed_tpu_torch as tds
+    from deepspeed_tpu_torch.inference import init_inference
+    from deepspeed_tpu_torch.inference.engine_v2 import InferenceEngineV2
+    from deepspeed_tpu_torch.models import transformer as tt
+
+    out = {}
+
+    def attempt(name, fn):
+        try:
+            fn()
+            out[name] = "ran"
+        except Exception as e:  # the refusal's type and text
+            out[name] = f"{type(e).__name__}: {e}"
+
+    base = {"train_micro_batch_size_per_gpu": 1, "bf16": {"enabled": False}}
+    if world == 4:
+        attempt("ep_model", lambda: tds.initialize(
+            model=_model("tiny_moe", moe_qcomm="int8"),
+            config=dict(base, mesh={"expert": 2, "model": 2}), device="cpu"))
+        return out
+    model = _model("tiny_moe")
+    params = tt.init_params(model.cfg, device="cpu")
+    grid = _grid({"model": world})
+    attempt("serve_v2", lambda: InferenceEngineV2(params, model.cfg, grid=grid, device="cpu",
+                                                  num_blocks=8, block_size=8))
+    attempt("serve_v1", lambda: init_inference(model, params, mesh=grid, device="cpu"))
+    attempt("lamb", lambda: tds.initialize(
+        model=_model("tiny_moe"), config=dict(base, mesh={"expert": world},
+                                              optimizer={"type": "lamb"}), device="cpu"))
     return out
